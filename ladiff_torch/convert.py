@@ -1,0 +1,91 @@
+"""Carries the JAX package's parameters into the port.
+
+The JAX package keeps params as nested dicts (flax) with ``Dense`` kernels
+[in, out], ``LayerNorm`` scales and a fused ``in_proj_kernel`` [D, 3D];
+this module turns them, given as nested dicts of arrays, into the port's
+``state_dict`` (torch ``Linear`` weights [out, in], ``in_proj_weight``
+[3D, D], LayerNorm ``weight``, learned PEs [max_len, 1, D]).  The result
+loads with ``load_state_dict(strict=True)``, so both packages compute from
+the same weights.
+
+    system_state_dict({"vae": ..., "denoiser": ...})  -> LADiffSystem
+    clip_state_dict(tower_params)                     -> CLIPTextTower
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["system_state_dict", "clip_state_dict", "flax_state_dict"]
+
+# flax submodule names "input_blocks_0" / "emb_layers_1" -> torch "input_blocks.0"
+_INDEXED = re.compile(
+    r"^(input_blocks|output_blocks|linear_blocks|emb_layers|out_layers|"
+    r"emb_proj)_(\d+)$")
+
+
+def _t(a, transpose: bool = False) -> torch.Tensor:
+    a = np.asarray(a, dtype=np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
+
+
+def flax_state_dict(tree: Mapping[str, Any], prefix: str = "",
+                    out=None) -> Dict[str, torch.Tensor]:
+    """Any flax param tree of the JAX package -> torch state dict entries
+    under ``prefix`` (submodule names and leaves renamed as above)."""
+    out = {} if out is None else out
+    for name, v in tree.items():
+        if isinstance(v, Mapping):
+            m = _INDEXED.match(name)
+            key = f"{m.group(1)}.{m.group(2)}" if m else name
+            flax_state_dict(v, f"{prefix}{key}.", out)
+        elif name == "kernel":
+            out[prefix + "weight"] = _t(v, transpose=True)
+        elif name == "scale":
+            out[prefix + "weight"] = _t(v)
+        elif name == "in_proj_kernel":
+            out[prefix + "in_proj_weight"] = _t(v, transpose=True)
+        elif name == "pe":
+            out[prefix + "pe"] = _t(v)[:, None, :]
+        else:
+            out[prefix + name] = _t(v)
+    return out
+
+
+def system_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``ladiff_tpu`` ``LADiffSystem.init_params`` output ({"vae",
+    "denoiser"}) -> ``ladiff_torch`` ``LADiffSystem`` state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    flax_state_dict(params["vae"], "vae.", out)
+    flax_state_dict(params["denoiser"], "denoiser.", out)
+    return out
+
+
+def clip_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``ladiff_tpu`` ``CLIPTextTower`` params -> the port's (HF-named)
+    ``CLIPTextTower`` state dict."""
+    pre = "text_model."
+    out = {
+        pre + "embeddings.token_embedding.weight":
+            _t(params["token_embedding"]["embedding"]),
+        pre + "embeddings.position_embedding.weight":
+            _t(params["positional_embedding"]),
+        pre + "final_layer_norm.weight": _t(params["ln_final"]["scale"]),
+        pre + "final_layer_norm.bias": _t(params["ln_final"]["bias"]),
+        "text_projection.weight": _t(params["text_projection"],
+                                     transpose=True),
+    }
+    hf = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+          "v_proj": "self_attn.v_proj", "out_proj": "self_attn.out_proj",
+          "fc1": "mlp.fc1", "fc2": "mlp.fc2", "ln_1": "layer_norm1",
+          "ln_2": "layer_norm2"}
+    i = 0
+    while f"layers_{i}" in params:
+        layer = params[f"layers_{i}"]
+        for ours, theirs in hf.items():
+            flax_state_dict(layer[ours], f"{pre}encoder.layers.{i}.{theirs}.", out)
+        i += 1
+    return out

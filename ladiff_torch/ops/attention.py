@@ -1,0 +1,67 @@
+"""Masked multi-head attention (counterpart of ``ladiff_tpu/ops/attention.py``).
+
+Batch-first [B, S, D] tensors; padding is a boolean key-validity mask
+(True = attend), masked logits are set to ``NEG_INF``.  q/k/v share one
+fused input projection in the ``torch.nn.MultiheadAttention`` layout
+(``in_proj_weight`` [3D, D], ``in_proj_bias`` [3D], ``out_proj``), so the
+reference checkpoints load as they are.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ladiff_torch.ops.cuda_common import NEG_INF
+
+__all__ = ["MultiHeadAttention", "masked_attention"]
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_valid: Optional[torch.Tensor] = None, *,
+                     num_heads: int) -> torch.Tensor:
+    """q [B, Sq, D], k/v [B, Sk, D] (projected); key_valid [B, Sk] bool.
+    Returns [B, Sq, D]."""
+    B, Sq, D = q.shape
+    Sk = k.shape[1]
+    H = num_heads
+    Dh = D // H
+    qh = q.reshape(B, Sq, H, Dh).transpose(1, 2)
+    kh = k.reshape(B, Sk, H, Dh).transpose(1, 2)
+    vh = v.reshape(B, Sk, H, Dh).transpose(1, 2)
+    logits = torch.matmul(qh * (1.0 / math.sqrt(Dh)), kh.transpose(-1, -2))
+    logits = logits.float()
+    if key_valid is not None:
+        logits = logits.masked_fill(~key_valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.matmul(w, vh)
+    return out.transpose(1, 2).reshape(B, Sq, D)
+
+
+class MultiHeadAttention(nn.Module):
+    """Batch-first equivalent of ``torch.nn.MultiheadAttention`` (same
+    parameter names), inference only."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor,
+                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        D = self.d_model
+        w, b = self.in_proj_weight, self.in_proj_bias
+        q = F.linear(query, w[:D], b[:D])
+        k = F.linear(key, w[D:2 * D], b[D:2 * D])
+        v = F.linear(value, w[2 * D:], b[2 * D:])
+        out = masked_attention(q, k, v, key_valid, num_heads=self.num_heads)
+        return self.out_proj(out)
