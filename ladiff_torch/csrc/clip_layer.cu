@@ -133,11 +133,8 @@ extern "C" int ln_qkv_forward(const void** p, const int* n, const float* f,
   if (D % 32 || D > 32 * kMaxPer) return cudaErrorInvalidValue;
   const size_t bytes = align128(kRows * (D + 8) * sizeof(bf16)) +
                        kRows * (kChunk + 4) * sizeof(float) + kWStageBytes;
-  static size_t ok = 0;
-  if (bytes > ok) {
-    if (!allow_smem(ln_qkv_kernel, bytes)) return cudaErrorInvalidValue;
-    ok = bytes;
-  }
+  static SmemGrant grant;
+  if (!allow_smem(ln_qkv_kernel, bytes, grant)) return cudaErrorInvalidValue;
   ln_qkv_kernel<<<dim3((M + kRows - 1) / kRows, 3), kThreads, bytes,
                   static_cast<cudaStream_t>(stream)>>>(
       w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8],
@@ -153,11 +150,8 @@ extern "C" int proj_mlp_forward(const void** p, const int* n, const float*,
   const int M = n[0], D = n[1], F = n[2];
   if (D % 32 || D > 32 * kMaxPer || F % kKT) return cudaErrorInvalidValue;
   const MlpLayout L = mlp_layout(D);
-  static size_t ok = 0;
-  if (L.total > ok) {
-    if (!allow_smem(proj_mlp_kernel, L.total)) return cudaErrorInvalidValue;
-    ok = L.total;
-  }
+  static SmemGrant grant;
+  if (!allow_smem(proj_mlp_kernel, L.total, grant)) return cudaErrorInvalidValue;
   proj_mlp_kernel<<<(M + kRows - 1) / kRows, kThreads, L.total,
                     static_cast<cudaStream_t>(stream)>>>(
       w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9],

@@ -257,16 +257,30 @@ __device__ __forceinline__ void warp_attend(const bf16* q, int Dh, int nk,
     if (lane + 32 * i < Dh) out[lane + 32 * i] = tob(acc[i] * inv);
 }
 
-// Sets the dynamic shared memory a kernel may use; returns false when the
-// card cannot give that much to one block.
+// The dynamic shared memory one kernel has been allowed on each device: the
+// attribute is set per device, so a process that uses two cards sets it on
+// both.
+constexpr int kMaxDevices = 64;
+struct SmemGrant {
+  size_t bytes[kMaxDevices] = {};
+};
+
+// Lets `kernel` use `bytes` of dynamic shared memory on the current device
+// (once per device and size); returns false when the card cannot give that
+// much to one block.
 template <typename Kern>
-inline bool allow_smem(Kern kernel, size_t bytes) {
+inline bool allow_smem(Kern kernel, size_t bytes, SmemGrant& grant) {
   int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return false;
+  if (bytes <= grant.bytes[dev]) return true;
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (bytes > (size_t)optin) return false;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes) == cudaSuccess;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes) != cudaSuccess)
+    return false;
+  grant.bytes[dev] = bytes;
+  return true;
 }
 
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }

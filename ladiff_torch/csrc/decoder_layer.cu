@@ -314,19 +314,11 @@ extern "C" int decoder_layer_forward(const void** p, const int* n,
                             kRows * (kChunk + 4) * sizeof(float) + kWStageBytes;
   const AttnLayout La = attn_layout(D / H);
   const TailLayout Lt = tail_layout(D, F);
-  static size_t ok_proj = 0, ok_attn = 0, ok_tail = 0;
-  if (proj_bytes > ok_proj) {
-    if (!allow_smem(proj_kernel, proj_bytes)) return cudaErrorInvalidValue;
-    ok_proj = proj_bytes;
-  }
-  if (La.total > ok_attn) {
-    if (!allow_smem(self_attn_kernel, La.total)) return cudaErrorInvalidValue;
-    ok_attn = La.total;
-  }
-  if (Lt.total > ok_tail) {
-    if (!allow_smem(tail_kernel, Lt.total)) return cudaErrorInvalidValue;
-    ok_tail = Lt.total;
-  }
+  static SmemGrant g_proj, g_attn, g_tail;
+  if (!allow_smem(proj_kernel, proj_bytes, g_proj) ||
+      !allow_smem(self_attn_kernel, La.total, g_attn) ||
+      !allow_smem(tail_kernel, Lt.total, g_tail))
+    return cudaErrorInvalidValue;
   cudaError_t err;
   proj_kernel<<<dim3((M + kRows - 1) / kRows, (3 * D + kChunk - 1) / kChunk),
                 kThreads, proj_bytes, stream>>>(x, M, D, q[0], q[1], 3 * D, qkv);

@@ -227,11 +227,8 @@ extern "C" int md_layer_forward(const void** p, const int* n, const float*,
     return cudaErrorInvalidValue;
   a.spb = kRows / a.T < kRows / a.E ? kRows / a.T : kRows / a.E;
   const size_t bytes = md_layout(a.D, a.F1, a.F2).total;
-  static size_t allowed = 0;
-  if (bytes > allowed) {
-    if (!allow_smem(md_layer_kernel, bytes)) return cudaErrorInvalidValue;
-    allowed = bytes;
-  }
+  static SmemGrant grant;
+  if (!allow_smem(md_layer_kernel, bytes, grant)) return cudaErrorInvalidValue;
   const int grid = (a.B + a.spb - 1) / a.spb;
   md_layer_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();

@@ -24,7 +24,7 @@ from torch import nn
 
 from ladiff_torch.ops.clip_layer import fused_ln_qkv, fused_proj_mlp
 from ladiff_torch.ops.cuda_common import NEG_INF
-from ladiff_torch.utils.device import resolve_device
+from ladiff_torch.utils.device import resolve_device, resolve_dtype
 
 __all__ = ["CLIPTextTower", "ClipTextEncoder", "HashTokenizer",
            "BPETokenizer"]
@@ -298,9 +298,10 @@ class ClipTextEncoder:
 
     def __init__(self, modelpath: Optional[str] = None,
                  last_hidden_state: bool = False, device=None,
-                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 dtype: Optional[torch.dtype] = None, seed: int = 0,
                  buckets=(16, 32, 77)):
         self.device = resolve_device(device)
+        dtype = resolve_dtype(self.device, dtype)
         self.last_hidden_state = last_hidden_state
         self.text_encoded_dim = 768
         if modelpath and os.path.exists(os.path.join(modelpath, "vocab.json")):

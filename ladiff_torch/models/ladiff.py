@@ -20,7 +20,7 @@ from ladiff_torch.diffusion.sampling import ddim_sample, make_cfg_denoise_fn
 from ladiff_torch.diffusion.schedulers import ddim_timesteps, make_schedule
 from ladiff_torch.models.denoiser import LADenoiser
 from ladiff_torch.models.vae import LAVae
-from ladiff_torch.utils.device import resolve_device
+from ladiff_torch.utils.device import resolve_device, resolve_dtype
 from ladiff_torch.utils.masks import latent_valid_mask
 
 __all__ = ["LADiffSystem"]
@@ -36,9 +36,10 @@ class LADiffSystem(nn.Module):
                  num_train_timesteps: int = 1000,
                  mean: Optional[np.ndarray] = None,
                  std: Optional[np.ndarray] = None,
-                 device=None, dtype: torch.dtype = torch.float32):
+                 device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         device = resolve_device(device)
+        dtype = resolve_dtype(device, dtype)
         self.nfeats, self.njoints = nfeats, njoints
         self.max_frames = max_frames
         self.latent_dim = tuple(int(v) for v in latent_dim)

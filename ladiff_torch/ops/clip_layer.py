@@ -75,7 +75,7 @@ def fused_ln_qkv(x, p, *, scale: float):
     _check_width("fused_ln_qkv", M, D)
     check_cuda_args("fused_ln_qkv", {"x": x, **{k: p[k] for k in _QKV_ORDER}})
     q, k, v = (torch.empty_like(x) for _ in range(3))
-    launch("clip_layer", "ln_qkv_forward",
+    launch("clip_layer", "ln_qkv_forward", x.device,
            [x.data_ptr(), *[p[n].data_ptr() for n in _QKV_ORDER],
             q.data_ptr(), k.data_ptr(), v.data_ptr()], [M, D], [scale])
     fused_ln_qkv.launches += 1
@@ -95,7 +95,7 @@ def fused_proj_mlp(att, x, p):
     check_cuda_args("fused_proj_mlp",
                     {"att": att, "x": x, **{k: p[k] for k in _MLP_ORDER}})
     out = torch.empty_like(x)
-    launch("clip_layer", "proj_mlp_forward",
+    launch("clip_layer", "proj_mlp_forward", x.device,
            [att.data_ptr(), x.data_ptr(),
             *[p[n].data_ptr() for n in _MLP_ORDER], out.data_ptr()],
            [M, D, Fd])

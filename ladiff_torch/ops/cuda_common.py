@@ -145,10 +145,12 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(lib_name: str, fn_name: str, ptrs: Sequence[int],
-           ints: Sequence[int], floats: Sequence[float] = ()) -> None:
+def launch(lib_name: str, fn_name: str, device: torch.device,
+           ptrs: Sequence[int], ints: Sequence[int],
+           floats: Sequence[float] = ()) -> None:
     """Calls ``int fn(const void** ptrs, const int* ints, const float*
-    floats, void* stream)`` of a kernel library on PyTorch's current stream
+    floats, void* stream)`` of a kernel library with ``device`` (the
+    tensors' device) current, on PyTorch's current stream of that device,
     and raises on a non-zero ``cudaGetLastError()``."""
     lib = library(lib_name)
     fn = getattr(lib, fn_name)
@@ -158,8 +160,9 @@ def launch(lib_name: str, fn_name: str, ptrs: Sequence[int],
     parr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     iarr = (ctypes.c_int * max(1, len(ints)))(*ints)
     farr = (ctypes.c_float * max(1, len(floats)))(*floats)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(parr, iarr, farr, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(parr, iarr, farr, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} "
                            f"({lib.ladiff_error_string(err).decode()})")

@@ -95,7 +95,7 @@ def fused_decoder_layer(x, kvalid, mem, mvalid, p, *, T: int, H: int,
     ptrs = [x.data_ptr(), kvalid.data_ptr(), mem.data_ptr(),
             mvalid.data_ptr(), *[p[k].data_ptr() for k in _PARAM_ORDER],
             qkv.data_ptr(), kv2.data_ptr(), ctx.data_ptr(), out.data_ptr()]
-    launch("decoder_layer", "decoder_layer_forward", ptrs,
+    launch("decoder_layer", "decoder_layer_forward", x.device, ptrs,
            [B, T, L, D, H, Fd, _ACT[activation]])
     fused_decoder_layer.launches += 1
     return out

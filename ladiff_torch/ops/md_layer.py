@@ -103,7 +103,7 @@ def fused_md_layer(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
     ptrs = [x.data_ptr(), extra.data_ptr(), kvalid.data_ptr(),
             value.data_ptr(), ca_ss.data_ptr(), ffn_ss.data_ptr(),
             *[p[k].data_ptr() for k in _PARAM_ORDER], out.data_ptr()]
-    launch("md_layer", "md_layer_forward", ptrs,
+    launch("md_layer", "md_layer_forward", x.device, ptrs,
            [B, T, E, D, H, F1, F2, 0 if rows[0] == 1 else 2 * D,
             0 if rows[1] == 1 else 2 * D])
     fused_md_layer.launches += 1

@@ -127,3 +127,29 @@ def test_kernels_refuse_float32(dev):
     x = torch.randn(8, 128, device=dev)
     with pytest.raises(TypeError, match="bfloat16"):
         fused_proj_mlp(x, x, layer.mlp_params())
+
+
+@pytest.mark.cuda
+def test_default_system_generates_on_the_gpu(dev):
+    """The entry point's defaults (device "cuda", bfloat16) run together:
+    generation goes through K1 and K2 and gives finite features with the
+    padded frames zero."""
+    from ladiff_torch.models.ladiff import LADiffSystem
+    from ladiff_torch.ops import cuda_common as cc
+    system = LADiffSystem(nfeats=263, njoints=22)
+    assert system.device.type == "cuda"
+    assert system.vae.final_layer.weight.dtype == torch.bfloat16
+    g = torch.Generator().manual_seed(8)
+    text = torch.randn(2, 1, 768, generator=g)
+    cc.reset_launch_counts()
+    feats, z = system.generate(
+        text, torch.zeros_like(text), torch.tensor([40, 196]),
+        generator=torch.Generator(device=dev).manual_seed(0),
+        num_inference_timesteps=3)
+    counts = cc.launch_counts()
+    assert counts["fused_md_layer"] == 3 * 9
+    assert counts["fused_decoder_layer"] == 9
+    assert feats.shape == (2, 196, 263) and z.shape == (2, 5, 256)
+    assert bool(torch.isfinite(feats).all())
+    assert not bool(feats[0, 40:].any())
+    assert system.feats2joints(feats).shape == (2, 196, 22, 3)

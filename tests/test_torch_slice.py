@@ -146,3 +146,21 @@ def test_entry_points_default_to_the_gpu():
                     ff_size=FF, num_layers=LAYERS, num_heads=HEADS)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ClipTextEncoder()
+
+
+def test_dtype_defaults_to_the_kernels_type():
+    """bfloat16 on CUDA, the kernels' only type, and float32 on the CPU;
+    another type on CUDA raises, naming it, before any launch."""
+    from ladiff_torch.utils.device import resolve_dtype
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert resolve_dtype(cuda) == torch.bfloat16
+    assert resolve_dtype(cuda, torch.bfloat16) == torch.bfloat16
+    assert resolve_dtype(cpu) == torch.float32
+    assert resolve_dtype(cpu, torch.bfloat16) == torch.bfloat16
+    with pytest.raises(TypeError, match="torch.float32"):
+        resolve_dtype(cuda, torch.float32)
+    system = TorchSystem(nfeats=NFEATS, njoints=NJOINTS, latent_dim=(7, D),
+                         ff_size=FF, num_layers=LAYERS, num_heads=HEADS,
+                         device="cpu")
+    assert system.vae.final_layer.weight.dtype == torch.float32
