@@ -5,8 +5,8 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. build    every CUDA kernel of the generation path from ``ladiff_torch/csrc``
-            (one ``nvcc`` per source, all at once); the card's name and power
+1. build    every CUDA kernel of the port from ``ladiff_torch/csrc`` (one
+            ``nvcc`` per source, all at once); the card's name and power
             limit as ``nvidia-smi`` reports them.
 2. kernels  K1..K4 at the generation path's shapes (mixed lengths), bf16,
             each against its plain PyTorch version on the same inputs
@@ -19,6 +19,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4. bench    the ``ladiff_torch.bench`` protocol at full width (batch 256,
             196 frames, 32-token CLIP bucket, CFG DDIM-50 + decode): launch
             counts per batch, samples/s, finite output.
+
+5. train_kernels  the inference FFN tail and the training kernels (attention
+            and FFN tail, forward and backward) at the training slice's
+            shapes (128 x 206 rows, mixed lengths): each against its plain
+            version at dropout 0, and at dropout 0.1 with the plain version
+            given the masks the kernel draws; every gradient on its own.
+            Then a ``dropout`` line: keep fraction, same seed same output,
+            other seed other output.  Then ``kernels_decoder_stream``: the
+            training kernels compared again at the decoder's 128 x 196 rows.
+6. train_slice    ``vae_forward`` loss and every parameter's gradient, name
+            by name, at batch 4 with mixed lengths and dropout 0 on the
+            card (kernels, bf16 compute, float32 parameters) against the
+            CPU (plain, float32), with the plain bf16 CPU run beside it as
+            a control; a few ``vae_train_step``s lower the loss; the
+            validation pass agrees with the CPU.
+7. train_bench    the ``ladiff_torch.train_bench`` protocol at full width
+            (batch 128, 196 frames, dropout 0.1): ms per step, samples/s,
+            peak memory, launch counts per step, then one validation pass
+            and its launch counts.
 
 Then a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX; needs one CUDA device.
@@ -40,8 +59,30 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # version: bf16 operands carry 8 mantissa bits (2^-9 ~ 2e-3 rounding each),
 # and a layer chains ~6 rounded products, LayerNorms and softmaxes
 KERNEL_TOL = 2e-2
+# gradients of a bf16 kernel against the float32 plain backward: a weight
+# gradient sums ~26 k rows of products of two bf16-rounded factors (da and
+# h, dy and gd, dqkv and x), each rounding random in sign, accumulated in
+# float32, so the sum's norm-wise error stays at the single-product level
+# (2^-9 ~ 2e-3) times the few chained roundings upstream of it; the same
+# 2e-2 holds them
+GRAD_TOL = 2e-2
+# the training slice on the card (kernels, bf16 compute) against the float32
+# CPU run, every parameter's gradient on its own.  The yardstick is the
+# plain bf16 CPU run of the same weights, which has no kernel in it: on an
+# H100 the card's worst gradient read 2.7e-2 beside that run's 3.5e-2
+# through the feature and KL losses at unit feature std, and 7.5e-2 beside
+# 8.0e-2 through all losses at a feature std of 0.1; each case is held to
+# about twice its reading.  The loss read 6e-5 and, after 8 optimizer
+# steps, the validation loss 3e-3 and its features 5e-3.
+TRAIN_LOSS_TOL, TRAIN_FEATS_TOL = 1e-2, 2e-2
+TRAIN_GRAD_TOL = {"unit_std_no_joints": 6e-2, "std_0.1_all_losses": 1.5e-1}
 EXPECTED_PER_BATCH = {"fused_md_layer": 450, "fused_decoder_layer": 9,
-                      "fused_ln_qkv": 12, "fused_proj_mlp": 12}
+                      "fused_ln_qkv": 12, "fused_proj_mlp": 12,
+                      "fused_postnorm_ffn": 0}
+EXPECTED_PER_STEP = {"train_self_attention": 18,
+                     "train_self_attention_bwd": 18,
+                     "train_postnorm_ffn": 18, "train_postnorm_ffn_bwd": 18}
+EXPECTED_VALIDATION = {"fused_postnorm_ffn": 9, "fused_decoder_layer": 9}
 
 
 def emit(obj):
@@ -138,22 +179,46 @@ def mixed_lengths(n: int, lo: int = 16, hi: int = 196, seed: int = 0):
     return torch.randint(lo, hi + 1, (n,), generator=g)
 
 
-def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
-                 run_plain, flops, nb, library=None):
-    """Kernel vs its plain version (float32, same bf16 inputs): error,
-    times, bound.  Returns the kernel's record."""
+def _named(out):
+    """A kernel's result as {name: tensor}."""
+    if isinstance(out, dict):
+        return out
+    if isinstance(out, (tuple, list)):
+        return {str(i): t for i, t in enumerate(out)}
+    return {"out": out}
+
+
+def compare(name, got, want, tol):
+    """Norm-wise relative error of every output on its own (the largest is
+    reported) and the largest absolute error; fails beyond ``tol``."""
     import torch
+    got, want = _named(got), _named(want)
+    errs, max_abs, finite = {}, 0.0, True
+    for key, w in want.items():
+        g = got[key].float()
+        errs[key] = relerr(g, w.float())
+        max_abs = max(max_abs, float((g - w.float()).abs().max()))
+        finite = finite and bool(torch.isfinite(g).all())
+    worst = max(errs, key=errs.get)
+    if not finite or not errs[worst] <= tol:
+        fail(f"{name}: rel err {errs[worst]} at {worst} (tol {tol}), "
+             f"finite={finite}")
+    return errs[worst], max_abs, errs
+
+
+def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
+                 run_plain, flops, nb, library=None, tol=None,
+                 run_timed=None, extra=None):
+    """Kernel vs its plain version (float32, same bf16 inputs): error,
+    times, bound.  ``run_timed`` is what is timed where it differs from
+    what is compared.  Returns the kernel's record."""
+    import torch
+    tol = KERNEL_TOL if tol is None else tol
     got = run_kernel()
     torch.cuda.synchronize()
-    want = run_plain_f32()
-    got_t = torch.cat([g.float().flatten() for g in got]) \
-        if isinstance(got, tuple) else got.float()
-    want_t = torch.cat([w.float().flatten() for w in want]) \
-        if isinstance(want, tuple) else want.float()
-    err = relerr(got_t, want_t)
-    max_abs = float((got_t.flatten() - want_t.flatten()).abs().max())
-    finite = bool(torch.isfinite(got_t).all())
-    ms = device_ms(run_kernel)
+    err, max_abs, errs = compare(name, got, run_plain_f32(), tol)
+    del got
+    ms = device_ms(run_timed or run_kernel)
     plain_ms = device_ms(run_plain)
     lib_ms = device_ms(library) if library is not None else None
     b_ms, b_by = bound(flops, nb)
@@ -161,12 +226,14 @@ def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
            "replaces": replaces, "launches": 0, "max_abs_err": max_abs,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib_ms}
-    emit({"phase": "kernel", "name": name, "rel_err": err,
-          "tol": KERNEL_TOL, "max_abs_err": max_abs, "ms": ms,
-          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-          "library_ms": lib_ms, "flops": flops, "bytes": nb})
-    if not finite or not err <= KERNEL_TOL:
-        fail(f"{name}: rel err {err} (tol {KERNEL_TOL}), finite={finite}")
+    line = {"phase": "kernel", "name": name, "rel_err": err,
+            "tol": tol, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "flops": flops, "bytes": nb}
+    if len(errs) > 1:
+        line["rel_errs"] = errs
+    line.update(extra or {})
+    emit(line)
     return rec
 
 
@@ -348,6 +415,363 @@ def phase_bench(dev):
     return counts
 
 
+def phase_train_kernels(dev):
+    """Kernel 5 and the training kernels at the VAE encoder's shapes."""
+    import torch
+    from ladiff_torch.ops.postnorm_ffn import (FFN_PARAM_ORDER,
+                                               fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    from ladiff_torch.ops.train_attention import (
+        train_self_attention_bwd, train_self_attention_bwd_plain,
+        train_self_attention_fwd, train_self_attention_masks,
+        train_self_attention_plain)
+    from ladiff_torch.ops.train_ffn import (
+        train_postnorm_ffn_bwd, train_postnorm_ffn_bwd_plain,
+        train_postnorm_ffn_fwd, train_postnorm_ffn_masks,
+        train_postnorm_ffn_plain)
+    from ladiff_torch.ops.transformer import TransformerEncoderLayer
+    from ladiff_torch.utils.masks import latent_valid_mask, lengths_to_mask
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(2)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, bf)
+
+    def f32(p):
+        return {k: v.float() for k, v in p.items()}
+
+    def up(*ts):
+        return [t.float() for t in ts]
+
+    def flat(dx, grads):
+        return {"dx": dx, **grads}
+
+    B, S, D, H, F, RATE, SEED = 128, 206, 256, 4, 1024, 0.1, 0x5EED5EED5EED
+    M = B * S
+    layer = randomize_(TransformerEncoderLayer(D, H, F, "gelu"), 31).to(
+        dev, bf)
+    pf = {"ln1_w": layer.norm1.weight, "ln1_b": layer.norm1.bias,
+          "w1": layer.linear1.weight, "b1": layer.linear1.bias,
+          "w2": layer.linear2.weight, "b2": layer.linear2.bias,
+          "ln2_w": layer.norm2.weight, "ln2_b": layer.norm2.bias}
+    pf = {k: pf[k].detach() for k in FFN_PARAM_ORDER}
+    pa = {k: v.detach() for k, v in layer.self_attn.kernel_params().items()}
+    x, dout = rnd(M, D), rnd(M, D, scale=0.1)
+    # encoder stream: 10 distribution tokens (two halves of 5, the first
+    # ceil(len / 48) of each valid) and 196 frames
+    lengths = mixed_lengths(B, seed=3)
+    lat = latent_valid_mask(lengths, 48, 5)
+    valid = torch.cat([lat, lat, lengths_to_mask(lengths, S - 10)], dim=1)
+    kvalid = valid.reshape(M).float().to(dev).contiguous()
+    nvalid = int(valid.sum())  # sum over samples of their valid keys
+    recs = []
+
+    # kernel 5
+    gb = 4 * M * D * F
+    p_bytes = nbytes(*pf.values())
+    recs.append(check_kernel(
+        "fused_postnorm_ffn", "ladiff_torch/csrc/postnorm_ffn.cu",
+        "ladiff_tpu/ops/pallas_postnorm_ffn.py:64",
+        lambda: fused_postnorm_ffn(x, pf, activation="gelu"),
+        lambda: postnorm_ffn_plain(x.float(), f32(pf), activation="gelu"),
+        lambda: postnorm_ffn_plain(x, pf, activation="gelu"),
+        gb, nbytes(x, x) + p_bytes))
+
+    # kernel 9: dropout 0 first (compared only), then dropout 0.1 against
+    # the plain version with the kernel's masks (compared and timed)
+    compare("train_postnorm_ffn rate 0",
+            train_postnorm_ffn_fwd(x, pf), train_postnorm_ffn_plain(
+                x.float(), f32(pf)), KERNEL_TOL)
+    compare("train_postnorm_ffn_bwd rate 0",
+            flat(*train_postnorm_ffn_bwd(x, dout, pf)),
+            flat(*train_postnorm_ffn_bwd_plain(*up(x, dout), f32(pf))),
+            GRAD_TOL)
+    masks = train_postnorm_ffn_masks(M, D, F, RATE, SEED, dev)
+    mb = tuple(m.to(bf) for m in masks)
+    kw = dict(rate=RATE, seed=SEED)
+    recs.append(check_kernel(
+        "train_postnorm_ffn", "ladiff_torch/csrc/train_ffn.cu",
+        "ladiff_tpu/ops/pallas_train_ffn.py:209",
+        lambda: train_postnorm_ffn_fwd(x, pf, **kw),
+        lambda: train_postnorm_ffn_plain(x.float(), f32(pf), masks),
+        lambda: train_postnorm_ffn_plain(x, pf, mb),
+        gb, nbytes(x, x) + p_bytes, extra={"rate": RATE}))
+    # the gradient needs dy W2, da W1 and the two weight gradients; the
+    # forward's recompute is not needed work
+    recs.append(check_kernel(
+        "train_postnorm_ffn_bwd", "ladiff_torch/csrc/train_ffn.cu",
+        "ladiff_tpu/ops/pallas_train_ffn.py:209",
+        lambda: flat(*train_postnorm_ffn_bwd(x, dout, pf, **kw)),
+        lambda: flat(*train_postnorm_ffn_bwd_plain(*up(x, dout), f32(pf),
+                                                   masks)),
+        lambda: train_postnorm_ffn_bwd_plain(x, dout, pf, mb),
+        8 * M * D * F, nbytes(x, dout, x) + p_bytes + 2 * p_bytes,
+        tol=GRAD_TOL, extra={"rate": RATE}))
+    del masks, mb
+
+    # kernel 8
+    def attn_fwd(**kw):
+        return train_self_attention_fwd(x, kvalid, pa, H=H, S=S, **kw)
+
+    out0, saved0 = attn_fwd(return_saved=True)
+    compare("train_self_attention rate 0", out0, train_self_attention_plain(
+        x.float(), kvalid, f32(pa), H=H, S=S), KERNEL_TOL)
+    compare("train_self_attention_bwd rate 0",
+            flat(*train_self_attention_bwd(x, kvalid, dout, pa, saved0, H=H,
+                                           S=S)),
+            flat(*train_self_attention_bwd_plain(
+                x.float(), kvalid, dout.float(), f32(pa), H=H, S=S)),
+            GRAD_TOL)
+    del out0, saved0
+    masks = train_self_attention_masks(B, S, D, H, RATE, SEED, dev)
+    mb = tuple(m.to(bf) for m in masks)
+    pa_bytes = nbytes(*pa.values())
+    # projections, and every query against its sample's valid keys
+    fl_f = 2 * M * D * 3 * D + 2 * M * D * D + 4 * D * S * nvalid
+    recs.append(check_kernel(
+        "train_self_attention", "ladiff_torch/csrc/train_attention.cu",
+        "ladiff_tpu/ops/pallas_train_attention.py:388",
+        lambda: attn_fwd(**kw),
+        lambda: train_self_attention_plain(x.float(), kvalid, f32(pa), masks,
+                                           H=H, S=S),
+        lambda: train_self_attention_plain(x, kvalid, pa, mb, H=H, S=S),
+        fl_f, nbytes(x, kvalid, x) + pa_bytes, extra={"rate": RATE}))
+    _, saved = attn_fwd(return_saved=True, **kw)
+    # dctx, dx and the two weight gradients, and da, dv, dq, dk over the
+    # valid keys; recomputing the scores is not needed work
+    fl_b = 2 * (2 * M * D * D + 2 * M * D * 3 * D) + 8 * D * S * nvalid
+    recs.append(check_kernel(
+        "train_self_attention_bwd", "ladiff_torch/csrc/train_attention.cu",
+        "ladiff_tpu/ops/pallas_train_attention.py:388",
+        lambda: flat(*train_self_attention_bwd(x, kvalid, dout, pa, saved,
+                                               H=H, S=S, **kw)),
+        lambda: flat(*train_self_attention_bwd_plain(
+            x.float(), kvalid, dout.float(), f32(pa), masks, H=H, S=S)),
+        lambda: train_self_attention_bwd_plain(x, kvalid, dout, pa, mb, H=H,
+                                               S=S),
+        fl_b, nbytes(x, kvalid, dout, x) + pa_bytes + 2 * pa_bytes,
+        tol=GRAD_TOL, extra={"rate": RATE}))
+
+    # dropout: keep fraction of a large mask, seeds
+    keep = {"probabilities": float((masks[0] > 0).float().mean()),
+            "residual": float((masks[1] > 0).float().mean())}
+    a = attn_fwd(rate=RATE, seed=SEED)
+    same = bool(torch.equal(a, attn_fwd(rate=RATE, seed=SEED)))
+    other = not bool(torch.equal(a, attn_fwd(rate=RATE, seed=SEED + 1)))
+    f_a = train_postnorm_ffn_fwd(x, pf, rate=RATE, seed=SEED)
+    same = same and bool(torch.equal(f_a, train_postnorm_ffn_fwd(
+        x, pf, rate=RATE, seed=SEED)))
+    other = other and not bool(torch.equal(f_a, train_postnorm_ffn_fwd(
+        x, pf, rate=RATE, seed=SEED + 1)))
+    emit({"phase": "dropout", "rate": RATE, "keep_fraction": keep,
+          "mask_elements": [masks[0].numel(), masks[1].numel()],
+          "same_seed_same_output": same, "other_seed_other_output": other})
+    if not (same and other
+            and all(abs(k - (1 - RATE)) <= 0.005 for k in keep.values())):
+        fail("dropout: keep fraction or seed behaviour is off")
+    del masks, mb, saved, a, f_a
+
+    # the decoder stream, which each training step also runs through both
+    # kernels: 196 frames and no distribution tokens, so another last key
+    # and query tile; compared only, dropout 0.1, every gradient
+    S2 = S - 10
+    M2 = B * S2
+    x2, dout2 = rnd(M2, D), rnd(M2, D, scale=0.1)
+    kvalid2 = lengths_to_mask(lengths, S2).reshape(M2).float().to(
+        dev).contiguous()
+    errs = {}
+    masks = train_postnorm_ffn_masks(M2, D, F, RATE, SEED, dev)
+    errs["train_postnorm_ffn"] = compare(
+        "train_postnorm_ffn, decoder stream",
+        train_postnorm_ffn_fwd(x2, pf, **kw),
+        train_postnorm_ffn_plain(x2.float(), f32(pf), masks), KERNEL_TOL)[0]
+    errs["train_postnorm_ffn_bwd"] = compare(
+        "train_postnorm_ffn_bwd, decoder stream",
+        flat(*train_postnorm_ffn_bwd(x2, dout2, pf, **kw)),
+        flat(*train_postnorm_ffn_bwd_plain(*up(x2, dout2), f32(pf), masks)),
+        GRAD_TOL)[0]
+    masks = train_self_attention_masks(B, S2, D, H, RATE, SEED, dev)
+    out2, saved2 = train_self_attention_fwd(x2, kvalid2, pa, H=H, S=S2,
+                                            return_saved=True, **kw)
+    errs["train_self_attention"] = compare(
+        "train_self_attention, decoder stream", out2,
+        train_self_attention_plain(x2.float(), kvalid2, f32(pa), masks, H=H,
+                                   S=S2), KERNEL_TOL)[0]
+    errs["train_self_attention_bwd"] = compare(
+        "train_self_attention_bwd, decoder stream",
+        flat(*train_self_attention_bwd(x2, kvalid2, dout2, pa, saved2, H=H,
+                                       S=S2, **kw)),
+        flat(*train_self_attention_bwd_plain(
+            x2.float(), kvalid2, dout2.float(), f32(pa), masks, H=H, S=S2)),
+        GRAD_TOL)[0]
+    emit({"phase": "kernels_decoder_stream", "rows": M2, "seq": S2,
+          "rate": RATE, "worst_rel_err": errs, "tol": KERNEL_TOL,
+          "grad_tol": GRAD_TOL})
+    return recs
+
+
+def phase_train_slice(dev):
+    """Small batch, mixed lengths, dropout 0: loss and every parameter's
+    gradient on the card (kernels, bf16 compute, float32 parameters) against
+    the CPU (plain versions, float32), same weights and same latent noise;
+    then a few optimizer steps, then the validation pass."""
+    import numpy as np
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.losses.mld import LossWeights
+    from ladiff_torch.training.trainer import vae_train_step
+
+    lengths = torch.tensor([16, 60, 123, 196])
+    B = len(lengths)
+    g = torch.Generator().manual_seed(6)
+    batch = {"motion": torch.randn(B, 196, 263, generator=g),
+             "length": lengths}
+    eps = torch.randn(B, 5, 256, generator=g)
+
+    # the same published-width system three times, from the same weights:
+    # CPU float32 (the reference), CPU bf16 compute through the plain
+    # versions (the control: what bf16 alone costs), the card (kernels)
+    cpu = randomize_(train_bench.build("cpu", dropout=0.0)[0], 22)
+    ctl = train_bench.build("cpu", dropout=0.0, dtype=torch.bfloat16)[0]
+    gpu = train_bench.build(dev, dropout=0.0)[0]
+    for other in (ctl, gpu):
+        other.load_state_dict(cpu.state_dict(), strict=True)
+
+    def loss_and_grads(system, std, lambda_joint):
+        system.std.fill_(std)
+        system.weights = LossWeights(lambda_joint=lambda_joint)
+        system.zero_grad(set_to_none=True)
+        total, _ = system.vae_forward(batch, train=True, eps=eps)
+        total.backward()
+        return float(total.detach()), {
+            n: p.grad.detach().float().cpu()
+            for n, p in system.vae.named_parameters()}
+
+    def against_cpu(system, case, want_loss, want, tol=None):
+        loss, grads = loss_and_grads(system, *cases[case])
+        errs = {n: relerr(grads[n], w) for n, w in want.items()}
+        worst = max(errs, key=errs.get)
+        finite = all(bool(torch.isfinite(t).all()) for t in grads.values())
+        rec = {"loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+               "worst_grad_rel_err": errs[worst], "worst_grad": worst,
+               "median_grad_rel_err": float(np.median(list(errs.values()))),
+               "n_grad_tensors": len(errs)}
+        if tol is not None and not (
+                finite and rec["loss_rel_err"] <= TRAIN_LOSS_TOL
+                and errs[worst] <= tol):
+            fail(f"training slice ({case}): loss rel err "
+                 f"{rec['loss_rel_err']} (tol {TRAIN_LOSS_TOL}), gradient "
+                 f"of {worst} rel err {errs[worst]} (tol {tol}), "
+                 f"finite={finite}")
+        return rec
+
+    # case: (feature std, joints-loss weight).  The joints loss integrates
+    # the root's rotation and velocity over the frames; at unit feature std
+    # with random weights that walk amplifies any rounding, which the
+    # control shows without a kernel in the path: in the third case the
+    # plain bf16 CPU run is as far from float32 as the card is.  So the
+    # gradients are held to the CPU at unit std through the feature and KL
+    # losses, and through all losses at a feature std of 0.1, where the
+    # recovered joints are a smooth function of the features; the third
+    # case is reported beside them and held to nothing.
+    cases = {"unit_std_no_joints": (1.0, 0.0),
+             "std_0.1_all_losses": (0.1, 1.0),
+             "unit_std_all_losses": (1.0, 1.0)}
+    out = {}
+    t0 = time.perf_counter()
+    for case, (std, lambda_joint) in cases.items():
+        loss_c, grads_c = loss_and_grads(cpu, std, lambda_joint)
+        out[case] = {
+            "grad_tol": TRAIN_GRAD_TOL.get(case), "loss_cpu": loss_c,
+            "card": against_cpu(gpu, case, loss_c, grads_c,
+                                TRAIN_GRAD_TOL.get(case)),
+            "cpu_bf16_plain": against_cpu(ctl, case, loss_c, grads_c)}
+    t_cpu = time.perf_counter() - t0
+    del gpu, ctl
+
+    # optimizer steps from the trainer's own seeded initialisation at the
+    # well-conditioned feature std.  Beside them, held to nothing, the same
+    # steps at unit std (the joints term jumps from step to step while the
+    # feature term falls) and from the randomized weights above (unit-gain
+    # weights in every projection, too coarse for AdamW's 1e-4)
+    def steps(std, randomized=False, n=8):
+        system, opt = train_bench.build(dev, dropout=0.0)
+        if randomized:
+            system.load_state_dict(cpu.state_dict(), strict=True)
+        system.std.fill_(std)
+        logs = [vae_train_step(system, opt, batch, eps=eps)
+                for _ in range(n)]
+        return system, {k: [float(l[k]) for l in logs]
+                        for k in ("total", "recons_feature")}
+
+    gpu, held_steps = steps(0.1)
+    losses = held_steps["total"]
+    controls = {"unit_std": steps(1.0)[1],
+                "std_0.1_randomized_weights": steps(0.1, True)[1]}
+
+    cpu.load_state_dict(gpu.state_dict(), strict=True)
+    cpu.std.fill_(0.1)
+    with torch.no_grad():
+        val_c, (_, aux_c) = cpu.vae_forward(batch, train=False, eps=eps)
+        val_g, (_, aux_g) = gpu.vae_forward(batch, train=False, eps=eps)
+    err_val = abs(float(val_g) - float(val_c)) / abs(float(val_c))
+    err_feats = relerr(aux_g["feats_rst"].float().cpu(), aux_c["feats_rst"])
+    emit({"phase": "train_slice", "batch": B, "lengths": lengths.tolist(),
+          "loss_tol": TRAIN_LOSS_TOL, "feats_tol": TRAIN_FEATS_TOL,
+          "cases": out, "step_losses": losses,
+          "step_recons_feature": held_steps["recons_feature"],
+          "control_steps": controls,
+          "validation_loss_rel_err": err_val,
+          "validation_feats_rel_err": err_feats, "cpu_s": t_cpu})
+    if not losses[-1] < losses[0]:
+        fail(f"training slice: the loss did not fall: {losses}")
+    if not (err_val <= TRAIN_LOSS_TOL and err_feats <= TRAIN_FEATS_TOL):
+        fail("training slice: the validation pass disagrees with the CPU")
+
+
+def phase_train_bench(dev):
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+
+    system, opt = train_bench.build(dev)
+    batch = train_bench.make_batch(device=system.device)
+    iters = 5
+    cc.reset_launch_counts()
+    res = train_bench.measure(system, opt, batch, iters=iters)
+    counts = cc.launch_counts()
+    steps = train_bench.WARMUP + iters
+    per_step = {k: v / steps for k, v in counts.items()}
+    cc.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        val, _ = system.vae_forward(batch, train=False, generator=gen)
+    torch.cuda.synchronize()
+    val_counts = cc.launch_counts()
+    emit({"phase": "train_bench", "batch": train_bench.BATCH,
+          "frames": train_bench.FRAMES, "dropout": train_bench.DROPOUT,
+          "steps": iters, "warmup": train_bench.WARMUP,
+          "ms_per_step": res["ms_per_step"],
+          "samples_per_sec": res["samples_per_sec"], "loss": res["loss"],
+          "grad_norm": res["grad_norm"], "peak_mem_gb": res["peak_mem_gb"],
+          "launches": counts, "launches_per_step": per_step,
+          "validation_loss": float(val),
+          "validation_launches": val_counts})
+    if not (math.isfinite(res["loss"]) and math.isfinite(res["grad_norm"])
+            and math.isfinite(float(val))):
+        fail("training bench: non-finite loss or gradient norm")
+    for name, want in EXPECTED_PER_STEP.items():
+        if per_step.get(name) != want:
+            fail(f"{name}: {per_step.get(name)} launches per step, "
+                 f"expected {want}")
+    for name, want in EXPECTED_VALIDATION.items():
+        if val_counts.get(name) != want:
+            fail(f"{name}: {val_counts.get(name)} launches in the "
+                 f"validation pass, expected {want}")
+    return {k: counts[k] + val_counts[k] for k in counts}
+
+
 def main():
     try:
         import torch
@@ -367,8 +791,17 @@ def main():
         recs = phase_kernels(dev)
         phase_slice(dev)
         counts = phase_bench(dev)
+        train_recs = phase_train_kernels(dev)
+    phase_train_slice(dev)
+    train_counts = phase_train_bench(dev)
+    # each kernel's launches on the path that runs it: generation for K1-K4,
+    # the training steps and their validation pass for the rest
     for rec in recs:
         rec["launches"] = counts[rec["name"]]
+    for rec in train_recs:
+        rec["launches"] = train_counts[rec["name"]]
+    recs += train_recs
+    for rec in recs:
         if rec["launches"] <= 0:
             fail(f"{rec['name']} was not launched on the main path")
     if any(k in sys.modules for k in ("jax", "flax", "ladiff_tpu")):

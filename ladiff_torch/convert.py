@@ -10,6 +10,14 @@ the same weights.
 
     system_state_dict({"vae": ..., "denoiser": ...})  -> LADiffSystem
     clip_state_dict(tower_params)                     -> CLIPTextTower
+    flax_state_dict(tree, prefix)                     -> any subtree, also
+                                                         a gradient tree
+
+A gradient tree of the JAX package (``jax.grad`` with respect to
+``params["vae"]``, say) has its params' nesting, so ``flax_state_dict(tree,
+"vae.")`` gives it the same renames and transposes, and gradients (or
+updated parameters after an optimizer step) compare with the port's name by
+name.
 """
 from __future__ import annotations
 

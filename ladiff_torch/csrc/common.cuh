@@ -142,6 +142,125 @@ __device__ __forceinline__ void block_gemm(const bf16* A, int lda,
   __syncthreads();
 }
 
+// C[32 x N] (f32, smem, ldc) = A[32 x K] (bf16, smem, lda) @ W, where W
+// points at column n0 of a row-major [K, *] matrix with row stride ldw (a
+// torch Linear weight [out, in] used from its "out" side, as a backward
+// needs it: x_grad = y_grad W).  Same contract as block_gemm otherwise: N a
+// multiple of 16 (each pass's width a multiple of 8), K a multiple of kKT,
+// 16-byte aligned rows; starts and ends with __syncthreads; W streams
+// through the same kWStageBytes of `ws`, here as [kKT][kNB + 8] tiles.
+__device__ __forceinline__ void block_gemm_nn(const bf16* A, int lda,
+                                              const bf16* W, int ldw, int K,
+                                              int N, float* C, int ldc,
+                                              bool accumulate, bf16* ws) {
+  constexpr int kLDN = kNB + 8;
+  static_assert(kKT * kLDN <= kNB * kLDW, "stage too small");
+  const int warp = threadIdx.x >> 5;
+  const int nk = K / kKT;
+  for (int n0 = 0; n0 < N; n0 += kNB) {
+    const int nb = N - n0 < kNB ? N - n0 : kNB;
+    const bool active = warp * 16 < nb;
+    const int nvec = nb / 8;  // 16-byte vectors per k row
+    __syncthreads();  // the previous users of ws and C are done
+    auto load_stage = [&](int kt) {
+      if (kt < nk) {
+        bf16* dst = ws + (kt % kStages) * kNB * kLDW;
+        const bf16* src = W + (size_t)kt * kKT * ldw + n0;
+        for (int v = threadIdx.x; v < kKT * nvec; v += blockDim.x) {
+          const int k = v / nvec, nv = v % nvec;
+          cp_async16(dst + k * kLDN + nv * 8, src + (size_t)k * ldw + nv * 8);
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) load_stage(s);
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
+    float* c0 = C + n0 + warp * 16;
+    if (active && accumulate) {
+      wmma::load_matrix_sync(acc0, c0, ldc, wmma::mem_row_major);
+      wmma::load_matrix_sync(acc1, c0 + 16 * ldc, ldc, wmma::mem_row_major);
+    } else {
+      wmma::fill_fragment(acc0, 0.f);
+      wmma::fill_fragment(acc1, 0.f);
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // stage kt landed for all; stage kt-1 is consumed
+      load_stage(kt + kStages - 1);
+      if (active) {
+        const bf16* wt = ws + (kt % kStages) * kNB * kLDW + warp * 16;
+#pragma unroll
+        for (int kk = 0; kk < kKT; kk += 16) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+              a0, a1;
+          const int k = kt * kKT + kk;
+          wmma::load_matrix_sync(b, wt + kk * kLDN, kLDN);
+          wmma::load_matrix_sync(a0, A + k, lda);
+          wmma::load_matrix_sync(a1, A + 16 * lda + k, lda);
+          wmma::mma_sync(acc0, a0, b, acc0);
+          wmma::mma_sync(acc1, a1, b, acc1);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    if (active) {
+      wmma::store_matrix_sync(c0, acc0, ldc, wmma::mem_row_major);
+      wmma::store_matrix_sync(c0 + 16 * ldc, acc1, ldc, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+}
+
+// Dropout that a backward can regenerate: element `idx` of mask `mask_id`
+// is one 32-bit word of Philox-4x32-10 keyed by the call's 64-bit seed at
+// counter (idx / 4, mask_id, 0), word idx % 4.  The element is kept when
+// bits < keep * 2^32 and scaled by 1 / keep.  The value depends on nothing
+// but (seed, mask_id, idx), so any grid reproduces it.
+struct Dropout {
+  uint32_t key0, key1;  // the 64-bit seed
+  uint32_t thresh;      // keep * 2^32
+  float inv_keep;       // 1 / keep
+};
+
+inline Dropout make_dropout(int seed_lo, int seed_hi, float rate) {
+  Dropout d;
+  d.key0 = static_cast<uint32_t>(seed_lo);
+  d.key1 = static_cast<uint32_t>(seed_hi);
+  const double keep = 1.0 - static_cast<double>(rate);
+  const double t = keep * 4294967296.0;
+  d.thresh = t >= 4294967295.0 ? 4294967295u : static_cast<uint32_t>(t);
+  d.inv_keep = static_cast<float>(1.0 / keep);
+  return d;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// The keep-mask value (0 or 1 / keep) of element idx of mask mask_id.
+__device__ __forceinline__ float keep_scale(const Dropout& d,
+                                            uint32_t mask_id, uint64_t idx) {
+  const uint64_t q = idx >> 2;
+  const uint4 r = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(q), static_cast<uint32_t>(q >> 32),
+                 mask_id, 0u),
+      d.key0, d.key1);
+  const uint32_t w = idx & 3;
+  const uint32_t bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+  return bits < d.thresh ? d.inv_keep : 0.f;
+}
+
 // LayerNorm of one row held by a warp: v[i] is element lane + 32 i of a row
 // of length D (D / 32 <= kMaxPer; the loops unroll so v stays in
 // registers).  Two-pass mean / variance in f32, then
@@ -161,12 +280,14 @@ __device__ __forceinline__ void warp_layernorm(float* v, int D,
   for (int i = 0; i < kMaxPer; ++i)
     if (i < per) q += (v[i] - mean) * (v[i] - mean);
   const float rstd = rsqrtf(warp_sum(q) / D + kLnEps);
+  // The column is clamped before the guard: the compiler may issue the
+  // read-only loads of the unrolled iterations i >= per speculatively, and
+  // they must then stay inside g and b.
 #pragma unroll
-  for (int i = 0; i < kMaxPer; ++i)
-    if (i < per) {
-      const int c = lane + 32 * i;
-      v[i] = (v[i] - mean) * rstd * ldgf(g + c) + ldgf(b + c);
-    }
+  for (int i = 0; i < kMaxPer; ++i) {
+    const int c = min(lane + 32 * i, D - 1);
+    if (i < per) v[i] = (v[i] - mean) * rstd * ldgf(g + c) + ldgf(b + c);
+  }
 }
 
 // LayerNorm of the 32 rows of src (f32, row stride lds), one warp per row:

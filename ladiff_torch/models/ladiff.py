@@ -1,6 +1,13 @@
-"""LADiff system, the generation path (counterpart of
-``ladiff_tpu/models/ladiff.py``): text embeddings -> CFG DDIM over the
-latent set -> LA-VAE decode -> features (-> joints).
+"""LADiff system (counterpart of ``ladiff_tpu/models/ladiff.py``).
+
+Generation: text embeddings -> CFG DDIM over the latent set -> LA-VAE
+decode -> features (-> joints).  Stage-1 training: ``vae_forward`` is the
+reconstruction pass with its losses (encode -> decode -> SmoothL1 on
+features and joints + KL).
+
+``dtype`` is the compute type (bf16 on CUDA, the kernels' type) and
+``param_dtype`` the parameters' storage type, the same unless given: the
+trainer keeps float32 parameters and computes in bf16.
 
 The state dict carries ``vae.*`` and ``denoiser.*`` keys in the reference
 torch LADiff layout.  ``diffusion_reverse`` computes the step-invariant work
@@ -9,7 +16,7 @@ table of every DDIM step, and each MD layer's text value and AdaLN rows.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +25,7 @@ from torch import nn
 from ladiff_torch.data.humanml.motion_repr import recover_from_ric
 from ladiff_torch.diffusion.sampling import ddim_sample, make_cfg_denoise_fn
 from ladiff_torch.diffusion.schedulers import ddim_timesteps, make_schedule
+from ladiff_torch.losses.mld import LossWeights, vae_loss
 from ladiff_torch.models.denoiser import LADenoiser
 from ladiff_torch.models.vae import LAVae
 from ladiff_torch.utils.device import resolve_device, resolve_dtype
@@ -36,10 +44,16 @@ class LADiffSystem(nn.Module):
                  num_train_timesteps: int = 1000,
                  mean: Optional[np.ndarray] = None,
                  std: Optional[np.ndarray] = None,
-                 device=None, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.0, dvae: bool = False,
+                 percentage_noised: float = 0.0,
+                 weights: Optional[LossWeights] = None,
+                 device=None, dtype: Optional[torch.dtype] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         device = resolve_device(device)
         dtype = resolve_dtype(device, dtype)
+        self.dtype = dtype
+        self.weights = weights or LossWeights()
         self.nfeats, self.njoints = nfeats, njoints
         self.max_frames = max_frames
         self.latent_dim = tuple(int(v) for v in latent_dim)
@@ -49,14 +63,16 @@ class LADiffSystem(nn.Module):
         self.num_inference_timesteps = num_inference_timesteps
         self.schedule = make_schedule(num_train_timesteps)
         self.vae = LAVae(nfeats, latent_dim, ff_size, num_layers, num_heads,
-                         max_it, frame_per_latent)
+                         max_it, frame_per_latent, dropout=dropout,
+                         dvae=dvae, percentage_noised=percentage_noised)
+        self.vae.compute_dtype = dtype
         self.denoiser = LADenoiser(nfeats, latent_dim, ff_size, num_layers,
                                    num_heads, text_encoded_dim)
         for name, v in (("mean", mean), ("std", std)):
             self.register_buffer(
                 name, None if v is None else torch.as_tensor(
                     np.asarray(v, np.float32)), persistent=False)
-        self.to(device=device, dtype=dtype)
+        self.to(device=device, dtype=param_dtype or dtype)
         self.eval()
 
     @property
@@ -122,7 +138,36 @@ class LADiffSystem(nn.Module):
         z = self.diffusion_reverse(text_emb_cond, text_emb_uncond, lengths,
                                    generator, num_inference_timesteps,
                                    init_latents)
-        dtype = self.vae.final_layer.weight.dtype
-        feats = self.vae.decode(z.to(dtype), lengths.to(self.device),
+        feats = self.vae.decode(z.to(self.dtype), lengths.to(self.device),
                                 nframes or self.max_frames)
         return feats, z
+
+    def vae_forward(self, batch: Dict[str, torch.Tensor], train: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    eps: Optional[torch.Tensor] = None):
+        """Stage-1 reconstruction pass and its losses: returns
+        ``(total, (logs, aux))``.  ``batch``: "motion" [B, T, nfeats] and
+        "length" [B].  ``train`` switches the VAE's mode (dropout, the
+        training kernels); differentiable in the VAE's parameters when
+        ``train``; the VAE's mode is restored afterwards.  ``generator``
+        drives dropout and, unless ``eps`` [B, max_it, D] is given, the
+        latent sample."""
+        dev = self.device
+        feats_ref = batch["motion"].to(dev)
+        lengths = batch["length"].to(dev)
+        was_training = self.vae.training
+        self.vae.train(train)
+        try:
+            z, mu, logvar, lat_valid = self.vae.encode(
+                feats_ref, lengths, eps=eps, generator=generator)
+            feats_rst = self.vae.decode(z, lengths, feats_ref.shape[1],
+                                        generator=generator)
+        finally:
+            self.vae.train(was_training)
+        joints_rst = self.feats2joints(feats_rst)
+        joints_ref = self.feats2joints(feats_ref)
+        total, logs = vae_loss(feats_rst, feats_ref, joints_rst, joints_ref,
+                               mu, logvar, self.weights)
+        aux = {"feats_rst": feats_rst, "z": z, "latent_valid": lat_valid,
+               "joints_rst": joints_rst, "joints_ref": joints_ref}
+        return total, (logs, aux)

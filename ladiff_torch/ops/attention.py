@@ -5,6 +5,11 @@ Batch-first [B, S, D] tensors; padding is a boolean key-validity mask
 fused input projection in the ``torch.nn.MultiheadAttention`` layout
 (``in_proj_weight`` [3D, D], ``in_proj_bias`` [3D], ``out_proj``), so the
 reference checkpoints load as they are.
+
+Parameters may be stored in another float type than the activations (the
+trainer keeps float32 parameters and computes in bf16): every product casts
+its weight to the input's type, a no-op when the two agree.  In training the
+probabilities take dropout from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -15,16 +20,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ladiff_torch.ops.cuda_common import NEG_INF
+from ladiff_torch.ops.cuda_common import NEG_INF, dropout_mask
 
 __all__ = ["MultiHeadAttention", "masked_attention"]
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_valid: Optional[torch.Tensor] = None, *,
-                     num_heads: int) -> torch.Tensor:
+                     num_heads: int, dropout_rate: float = 0.0,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
     """q [B, Sq, D], k/v [B, Sk, D] (projected); key_valid [B, Sk] bool.
-    Returns [B, Sq, D]."""
+    ``dropout_rate`` > 0 drops probabilities (scaled by 1 / keep) with a
+    mask drawn from ``generator``.  Returns [B, Sq, D]."""
     B, Sq, D = q.shape
     Sk = k.shape[1]
     H = num_heads
@@ -37,18 +45,22 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if key_valid is not None:
         logits = logits.masked_fill(~key_valid[:, None, None, :], NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_rate > 0.0:
+        w = w * dropout_mask(w.shape, dropout_rate, w, generator)
     out = torch.matmul(w, vh)
     return out.transpose(1, 2).reshape(B, Sq, D)
 
 
 class MultiHeadAttention(nn.Module):
     """Batch-first equivalent of ``torch.nn.MultiheadAttention`` (same
-    parameter names), inference only."""
+    parameter names); ``dropout`` acts on the probabilities in training
+    mode only."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -57,11 +69,23 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         D = self.d_model
-        w, b = self.in_proj_weight, self.in_proj_bias
+        dt = query.dtype
+        w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         q = F.linear(query, w[:D], b[:D])
-        k = F.linear(key, w[D:2 * D], b[D:2 * D])
-        v = F.linear(value, w[2 * D:], b[2 * D:])
-        out = masked_attention(q, k, v, key_valid, num_heads=self.num_heads)
-        return self.out_proj(out)
+        k = F.linear(key.to(dt), w[D:2 * D], b[D:2 * D])
+        v = F.linear(value.to(dt), w[2 * D:], b[2 * D:])
+        out = masked_attention(
+            q, k, v, key_valid, num_heads=self.num_heads,
+            dropout_rate=self.dropout if self.training else 0.0,
+            generator=generator)
+        return F.linear(out, self.out_proj.weight.to(dt),
+                        self.out_proj.bias.to(dt))
+
+    def kernel_params(self) -> dict:
+        """The module's tensors by the names ``train_self_attention``
+        takes."""
+        return {"in_w": self.in_proj_weight, "in_b": self.in_proj_bias,
+                "out_w": self.out_proj.weight, "out_b": self.out_proj.bias}

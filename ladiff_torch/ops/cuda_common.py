@@ -24,19 +24,21 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["NEG_INF", "CSRC", "BUILD_DIR", "register_kernel", "launch_counts",
            "reset_launch_counts", "build_all", "library", "launch",
-           "check_cuda_args"]
+           "check_cuda_args", "require_no_grad", "draw_seed", "split_seed",
+           "dropout_mask"]
 
 NEG_INF = -1e9  # additive key mask; large finite keeps bf16 softmax safe
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("md_layer", "decoder_layer", "clip_layer")
+SOURCES = ("md_layer", "decoder_layer", "clip_layer", "postnorm_ffn",
+           "train_ffn", "train_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -172,7 +174,8 @@ def check_cuda_args(name: str, tensors: Dict[str, torch.Tensor],
                     f32: Sequence[str] = ()) -> None:
     """Device / dtype / contiguity / alignment checks before passing
     pointers to a kernel.  ``f32`` names the tensors that are float32
-    (masks); every other tensor must be bfloat16, the kernels' type."""
+    (masks, gradient outputs, workspaces); every other tensor must be
+    bfloat16, the kernels' type."""
     dev = None
     for key, t in tensors.items():
         want = torch.float32 if key in f32 else torch.bfloat16
@@ -190,3 +193,49 @@ def check_cuda_args(name: str, tensors: Dict[str, torch.Tensor],
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.data_ptr() % 32:
             raise ValueError(f"{name}: {key} must be 32-byte aligned")
+
+
+def require_no_grad(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """An inference kernel has no backward: raises when autograd is
+    recording and an input or weight requires a gradient, instead of
+    returning a result that is silently cut from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is an inference kernel without a backward; call it "
+            "under torch.no_grad(), or use the training path "
+            "(module.train()) where a gradient is required")
+
+
+def draw_seed(generator: Optional[torch.Generator]) -> int:
+    """One 64-bit dropout seed per kernel call from the caller's generator
+    (the global CPU generator when None), without waiting for the device: a
+    CUDA generator keeps its state (seed, Philox offset) on the host, so the
+    seed is mixed from that state and the offset moved on by one draw."""
+    if generator is None or generator.device.type != "cuda":
+        return int(torch.randint(-2 ** 63, 2 ** 63 - 1, (1,),
+                                 dtype=torch.int64, generator=generator))
+    offset = generator.get_offset()
+    generator.set_offset(offset + 4)  # Philox offsets move in fours
+    mask = (1 << 64) - 1  # splitmix64 of (seed, offset)
+    z = (generator.initial_seed() + 0x9E3779B97F4A7C15 * (offset + 1)) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return z ^ (z >> 31)
+
+
+def split_seed(seed: int) -> Tuple[int, int]:
+    """A 64-bit seed as the two signed 32-bit ints ``launch`` can carry."""
+    def s32(v):
+        return v - (1 << 32) if v >= (1 << 31) else v
+    seed &= (1 << 64) - 1
+    return s32(seed & 0xFFFFFFFF), s32(seed >> 32)
+
+
+def dropout_mask(shape, rate: float, like: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A keep-mask scaled by 1 / keep (0 or 1 / (1 - rate)) in ``like``'s
+    type, drawn on ``like``'s device from ``generator``, which must live on
+    that device (torch raises otherwise)."""
+    keep = torch.rand(tuple(shape), generator=generator,
+                      device=like.device) >= rate
+    return keep.to(like.dtype) / (1.0 - rate)

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from ladiff_torch.ops.attention import masked_attention
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
-                                          register_kernel)
+                                          register_kernel, require_no_grad)
 
 __all__ = ["fused_decoder_layer", "decoder_layer_plain"]
 
@@ -72,10 +72,14 @@ def decoder_layer_plain(x, kvalid, mem, mvalid, p, *, T: int, H: int,
 @register_kernel("fused_decoder_layer")
 def fused_decoder_layer(x, kvalid, mem, mvalid, p, *, T: int, H: int,
                         activation: str = "gelu") -> torch.Tensor:
-    """Kernel K2 on CUDA tensors (bf16), its plain version on CPU tensors."""
+    """Kernel K2 on CUDA tensors (bf16), its plain version on CPU tensors.
+    The kernel has no backward: on CUDA tensors it raises while a gradient
+    is required (training layers take the training kernels instead)."""
     if not x.is_cuda:
         return decoder_layer_plain(x, kvalid, mem, mvalid, p, T=T, H=H,
                                    activation=activation)
+    require_no_grad("fused_decoder_layer",
+                    [x, mem, *[p[k] for k in _PARAM_ORDER]])
     BT, D = x.shape
     B, L = mem.shape[0], mem.shape[1]
     Fd = p["w1"].shape[0]

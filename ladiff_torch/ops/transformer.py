@@ -1,12 +1,29 @@
 """Post-norm transformer blocks with U-Net skip connections (counterpart of
-``ladiff_tpu/ops/transformer.py``), inference paths.
+``ladiff_tpu/ops/transformer.py``), inference and training paths.
 
 Parameter names follow the reference torch LADiff (``self_attn``,
 ``multihead_attn``, ``linear1/2``, ``norm1/2/3``; skip stacks with
 ``input_blocks.i``, ``middle_block``, ``output_blocks.i``,
-``linear_blocks.i``, ``norm``).  A decoder layer runs as one call of
-``fused_decoder_layer`` (kernel K2 on a CUDA tensor, its plain version on a
-CPU tensor).
+``linear_blocks.i``, ``norm``).  ``dropout`` adds no parameter or buffer.
+
+Which kernel a layer runs through (each wrapper takes its plain version on
+a CPU tensor):
+
+  encoder layer, inference   plain attention -> ``fused_postnorm_ffn``
+  encoder layer, training    ``train_self_attention`` ->
+                             ``train_postnorm_ffn(norm1, norm2)``
+  decoder layer, inference   ``fused_decoder_layer`` (kernel K2)
+  decoder layer, training    ``train_self_attention`` -> norm1 -> plain
+                             cross-attention into the few memory rows ->
+                             ``train_postnorm_ffn(norm2, norm3)``
+
+``train_self_attention`` is for streams of at least ``MIN_TOKENS`` tokens
+and plain self-attention over the layer's own rows; shorter streams and
+``extra_kv`` keep the plain attention module in training.  Training mode is
+``module.training``; dropout masks and kernel seeds come from the
+``generator`` passed to ``forward``.  Parameters may be float32 while the
+activations are bf16 (explicit casts at each product; the training kernels
+cast on the way in and return float32 gradients).
 """
 from __future__ import annotations
 
@@ -17,10 +34,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ladiff_torch.ops.attention import MultiHeadAttention
+from ladiff_torch.ops.cuda_common import dropout_mask
 from ladiff_torch.ops.decoder_layer import fused_decoder_layer
+from ladiff_torch.ops.postnorm_ffn import fused_postnorm_ffn
+from ladiff_torch.ops.train_attention import MIN_TOKENS, train_self_attention
+from ladiff_torch.ops.train_ffn import train_postnorm_ffn
 
 __all__ = [
     "get_activation",
+    "linear",
+    "layer_norm",
     "TransformerEncoderLayer",
     "TransformerDecoderLayer",
     "SkipTransformerEncoder",
@@ -36,16 +59,73 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     raise ValueError(f"activation should be relu/gelu, not {name}")
 
 
+def linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``mod(x)`` computed in x's type whatever type the parameters have."""
+    return F.linear(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype))
+
+
+def layer_norm(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``mod(x)`` computed in x's type whatever type the parameters have."""
+    return F.layer_norm(x, mod.normalized_shape, mod.weight.to(x.dtype),
+                        mod.bias.to(x.dtype), mod.eps)
+
+
+def _drop(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    return x if rate == 0.0 else x * dropout_mask(x.shape, rate, x, generator)
+
+
+def _ffn_params(layer, ln_a: nn.LayerNorm, ln_b: nn.LayerNorm) -> dict:
+    """A layer's FFN tail by the names the FFN-tail kernels take."""
+    return {"ln1_w": ln_a.weight, "ln1_b": ln_a.bias,
+            "w1": layer.linear1.weight, "b1": layer.linear1.bias,
+            "w2": layer.linear2.weight, "b2": layer.linear2.bias,
+            "ln2_w": ln_b.weight, "ln2_b": ln_b.bias}
+
+
+def _cast(params: dict, dtype: torch.dtype) -> dict:
+    return {k: v.to(dtype) for k, v in params.items()}
+
+
+def _train_self_attention(layer, attn: MultiHeadAttention, x: torch.Tensor,
+                          key_valid: Optional[torch.Tensor], generator):
+    """``x + drop(self_attn(x))`` through kernel 8."""
+    B, S, D = x.shape
+    kv = (key_valid.reshape(B * S).float() if key_valid is not None
+          else torch.ones(B * S, dtype=torch.float32, device=x.device))
+    out = train_self_attention(
+        x.reshape(B * S, D).contiguous(), kv.contiguous(),
+        attn.kernel_params(), H=attn.num_heads, S=S, rate=layer.dropout,
+        generator=generator)
+    return out.reshape(B, S, D)
+
+
+def _ffn_tail(layer, resid: torch.Tensor, ln_a: nn.LayerNorm,
+              ln_b: nn.LayerNorm, generator) -> torch.Tensor:
+    """``ln_b(h + FFN(h))`` with ``h = ln_a(resid)``: kernel 9 in training,
+    kernel 5 at inference."""
+    B, S, D = resid.shape
+    x = resid.reshape(B * S, D).contiguous()
+    p = _ffn_params(layer, ln_a, ln_b)
+    if layer.training:
+        out = train_postnorm_ffn(x, p, activation=layer.activation,
+                                 rate=layer.dropout, generator=generator)
+    else:
+        out = fused_postnorm_ffn(x, _cast(p, x.dtype),
+                                 activation=layer.activation)
+    return out.reshape(B, S, D)
+
+
 class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer; ``extra_kv`` tokens are attended to but
     produce no outputs (same as running on ``cat([src, extra_kv])`` and
     keeping the first S rows)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout: float = 0.0):
         super().__init__()
         self.activation = activation
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -53,12 +133,18 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, src: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
-                extra_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
-        kv = src if extra_kv is None else torch.cat([src, extra_kv], dim=1)
-        x2 = self.self_attn(src, kv, kv, key_valid)
-        h = self.norm1(src + x2)
-        act = get_activation(self.activation)
-        return self.norm2(h + self.linear2(act(self.linear1(h))))
+                extra_kv: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        if self.training and extra_kv is None and src.shape[1] >= MIN_TOKENS:
+            resid = _train_self_attention(self, self.self_attn, src,
+                                          key_valid, generator)
+        else:
+            kv = src if extra_kv is None else torch.cat(
+                [src, extra_kv.to(src.dtype)], dim=1)
+            x2 = self.self_attn(src, kv, kv, key_valid, generator=generator)
+            resid = src + _drop(x2, rate, generator)
+        return _ffn_tail(self, resid, self.norm1, self.norm2, generator)
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -66,12 +152,13 @@ class TransformerDecoderLayer(nn.Module):
     cross-attention into the memory, FFN."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.activation = activation
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
-        self.multihead_attn = MultiHeadAttention(d_model, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
+        self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -93,10 +180,29 @@ class TransformerDecoderLayer(nn.Module):
             "ln3_w": self.norm3.weight, "ln3_b": self.norm3.bias,
         }
 
+    def _forward_train(self, tgt, memory, tgt_key_valid, memory_key_valid,
+                       generator):
+        if tgt.shape[1] >= MIN_TOKENS:
+            resid = _train_self_attention(self, self.self_attn, tgt,
+                                          tgt_key_valid, generator)
+        else:
+            x2 = self.self_attn(tgt, tgt, tgt, tgt_key_valid,
+                                generator=generator)
+            resid = tgt + _drop(x2, self.dropout, generator)
+        tgt = layer_norm(self.norm1, resid)
+        x2 = self.multihead_attn(tgt, memory, memory, memory_key_valid,
+                                 generator=generator)
+        resid = tgt + _drop(x2, self.dropout, generator)
+        return _ffn_tail(self, resid, self.norm2, self.norm3, generator)
+
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_key_valid: Optional[torch.Tensor] = None,
-                memory_key_valid: Optional[torch.Tensor] = None
+                memory_key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
+        if self.training:
+            return self._forward_train(tgt, memory, tgt_key_valid,
+                                       memory_key_valid, generator)
         B, T, D = tgt.shape
         L = memory.shape[1]
         kv = (tgt_key_valid if tgt_key_valid is not None
@@ -107,7 +213,7 @@ class TransformerDecoderLayer(nn.Module):
             tgt.reshape(B * T, D).contiguous(),
             kv.reshape(B * T).float().contiguous(),
             memory.to(tgt.dtype).contiguous(), mv.float().contiguous(),
-            self.kernel_params(), T=T, H=self.num_heads,
+            _cast(self.kernel_params(), tgt.dtype), T=T, H=self.num_heads,
             activation=self.activation)
         return out.reshape(B, T, D)
 
@@ -138,38 +244,44 @@ class _SkipStack(nn.Module):
         xs = []
         for i, block in enumerate(self.ordered_blocks()):
             if i > nb:
-                x = self.linear_blocks[i - nb - 1](
-                    torch.cat([x, xs.pop()], dim=-1))
+                x = linear(self.linear_blocks[i - nb - 1],
+                           torch.cat([x, xs.pop()], dim=-1))
             x = block_fn(i, block, x)
             if i < nb:
                 xs.append(x)
-        return self.norm(x)
+        return layer_norm(self.norm, x)
 
 
 class SkipTransformerEncoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
-                 ff_size: int = 1024, activation: str = "gelu"):
+                 ff_size: int = 1024, activation: str = "gelu",
+                 dropout: float = 0.0):
         super().__init__(
             lambda: TransformerEncoderLayer(d_model, num_heads, ff_size,
-                                            activation),
+                                            activation, dropout),
             d_model, num_layers)
 
     def forward(self, src: torch.Tensor,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.run(src, lambda i, block, x: block(x, key_valid))
+                key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.run(src, lambda i, block, x: block(
+            x, key_valid, generator=generator))
 
 
 class SkipTransformerDecoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
-                 ff_size: int = 1024, activation: str = "gelu"):
+                 ff_size: int = 1024, activation: str = "gelu",
+                 dropout: float = 0.0):
         super().__init__(
             lambda: TransformerDecoderLayer(d_model, num_heads, ff_size,
-                                            activation),
+                                            activation, dropout),
             d_model, num_layers)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_key_valid: Optional[torch.Tensor] = None,
-                memory_key_valid: Optional[torch.Tensor] = None
+                memory_key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         return self.run(tgt, lambda i, block, x: block(
-            x, memory, tgt_key_valid, memory_key_valid))
+            x, memory, tgt_key_valid, memory_key_valid,
+            generator=generator))

@@ -1,6 +1,8 @@
-"""The port's CUDA kernels K1..K4 against their plain PyTorch versions, on
-an NVIDIA GPU (marked ``cuda``; skipped where there is none).  Imports no
-JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
+"""The port's CUDA kernels (K1..K4, the inference FFN tail, the training
+attention and FFN-tail kernels with their backwards) against their plain
+PyTorch versions, on an NVIDIA GPU (marked ``cuda``; skipped where there is
+none).  Imports no JAX, so it runs on a machine that has only PyTorch and
+the CUDA toolkit:
 
     python -m pytest tests/test_torch_cuda.py -m cuda [--noconftest]
 
@@ -8,7 +10,10 @@ JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
 Inputs are bf16 with mixed lengths; the plain version runs in float32 on
 the same inputs.  Tolerance 2e-2 norm-wise: bf16 operands (2^-9 rounding)
-through a layer's ~6 chained products, LayerNorms and softmaxes.
+through a layer's ~6 chained products, LayerNorms and softmaxes.  The
+training kernels' gradients are held to the plain backward the same way,
+each gradient on its own; with dropout the plain version gets the masks
+the kernel drew (``*_masks``).
 """
 import math
 
@@ -17,6 +22,12 @@ import pytest
 import torch
 
 TOL = 2e-2
+# Gradients through ReLU: its derivative is a step, and the kernel decides
+# a > 0 from a product of bf16-rounded h while the float32 plain version
+# does not round h, so pre-activations within ~2^-9 of zero (a few in a
+# thousand) flip and each flip changes da by the whole upstream value:
+# a norm-wise error of sqrt(flipped share), measured 3.2e-2.
+TOL_RELU_GRAD = 8e-2
 
 
 @pytest.fixture
@@ -153,3 +164,313 @@ def test_default_system_generates_on_the_gpu(dev):
     assert bool(torch.isfinite(feats).all())
     assert not bool(feats[0, 40:].any())
     assert system.feats2joints(feats).shape == (2, 196, 22, 3)
+
+
+# -- the inference FFN tail and the training kernels -------------------------
+
+def _ffn_params(dev, D=256, Fd=1024, seed=9):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    p = {"ln1_w": 1 + 0.1 * r(D), "ln1_b": 0.05 * r(D),
+         "w1": r(Fd, D) / math.sqrt(D), "b1": 0.05 * r(Fd),
+         "w2": r(D, Fd) / math.sqrt(Fd), "b2": 0.05 * r(D),
+         "ln2_w": 1 + 0.1 * r(D), "ln2_b": 0.05 * r(D)}
+    return {k: v.to(dev, torch.bfloat16) for k, v in p.items()}
+
+
+def _attn_params(dev, D=256, seed=10):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    p = {"in_w": r(3 * D, D) / math.sqrt(D), "in_b": 0.05 * r(3 * D),
+         "out_w": r(D, D) / math.sqrt(D), "out_b": 0.05 * r(D)}
+    return {k: v.to(dev, torch.bfloat16) for k, v in p.items()}
+
+
+def _bf(dev, *shape, seed=11, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (scale * torch.randn(*shape, generator=g)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@torch.no_grad()
+def test_postnorm_ffn_kernel(dev, activation):
+    from ladiff_torch.ops.postnorm_ffn import (fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    p = _ffn_params(dev)
+    x = _bf(dev, 5 * 206 + 3, 256)  # a partial last row block
+    got = fused_postnorm_ffn(x, p, activation=activation)
+    want = postnorm_ffn_plain(x.float(), _f32(p), activation=activation)
+    assert _relerr(got, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_inference_kernels_refuse_a_required_gradient(dev):
+    """Kernel 5 and K2 have no backward: with autograd recording and a
+    weight that requires a gradient they raise."""
+    from ladiff_torch.ops.postnorm_ffn import fused_postnorm_ffn
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    p = _ffn_params(dev)
+    x = _bf(dev, 64, 256)
+    p["w1"].requires_grad_()
+    with pytest.raises(RuntimeError, match="inference kernel"):
+        fused_postnorm_ffn(x, p)
+    with torch.no_grad():
+        fused_postnorm_ffn(x, p)
+    layer = TransformerDecoderLayer(256, 4, 1024, "gelu").to(
+        dev, torch.bfloat16).eval()
+    tgt, mem = _bf(dev, 2, 40, 256), _bf(dev, 2, 5, 256)
+    with pytest.raises(RuntimeError, match="inference kernel"):
+        layer(tgt, mem)
+    with torch.no_grad():
+        layer(tgt, mem)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@torch.no_grad()
+def test_train_ffn_kernels(dev, rate, activation):
+    from ladiff_torch.ops.postnorm_ffn import FFN_PARAM_ORDER
+    from ladiff_torch.ops.train_ffn import (
+        train_postnorm_ffn_bwd, train_postnorm_ffn_bwd_plain,
+        train_postnorm_ffn_fwd, train_postnorm_ffn_masks,
+        train_postnorm_ffn_plain)
+    M, D, Fd, seed = 12 * 206 + 5, 256, 1024, 1234567890123
+    p = _ffn_params(dev)
+    x, dout = _bf(dev, M, D, seed=12), _bf(dev, M, D, seed=13, scale=0.1)
+    masks = (train_postnorm_ffn_masks(M, D, Fd, rate, seed, dev)
+             if rate else None)
+    kw = dict(activation=activation, rate=rate, seed=seed)
+    got = train_postnorm_ffn_fwd(x, p, **kw)
+    want = train_postnorm_ffn_plain(x.float(), _f32(p), masks,
+                                    activation=activation)
+    assert _relerr(got, want) <= TOL
+    dx, grads = train_postnorm_ffn_bwd(x, dout, p, **kw)
+    wdx, wgrads = train_postnorm_ffn_bwd_plain(
+        x.float(), dout.float(), _f32(p), masks, activation=activation)
+    tol = TOL if activation == "gelu" else TOL_RELU_GRAD
+    assert _relerr(dx, wdx) <= tol
+    for k in FFN_PARAM_ORDER:
+        assert grads[k].dtype == torch.float32
+        assert _relerr(grads[k], wgrads[k]) <= tol, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [206, 196, 37])
+@torch.no_grad()
+def test_train_attention_kernels(dev, rate, S):
+    from ladiff_torch.ops.train_attention import (
+        ATTN_PARAM_ORDER, train_self_attention_bwd,
+        train_self_attention_bwd_plain, train_self_attention_fwd,
+        train_self_attention_masks, train_self_attention_plain)
+    D, H, seed = 256, 4, -987654321012
+    lengths = np.array([S, 16, S // 2, 1, S - 3])
+    B = len(lengths)
+    M = B * S
+    p = _attn_params(dev)
+    x, dout = _bf(dev, M, D, seed=14), _bf(dev, M, D, seed=15, scale=0.1)
+    kvalid = _mask(lengths, S, dev).reshape(-1).contiguous()
+    masks = (train_self_attention_masks(B, S, D, H, rate, seed, dev)
+             if rate else None)
+    kw = dict(H=H, S=S, rate=rate, seed=seed)
+    got, saved = train_self_attention_fwd(x, kvalid, p, return_saved=True,
+                                          **kw)
+    want = train_self_attention_plain(x.float(), kvalid, _f32(p), masks,
+                                      H=H, S=S)
+    assert _relerr(got, want) <= TOL
+    dx, grads = train_self_attention_bwd(x, kvalid, dout, p, saved, **kw)
+    wdx, wgrads = train_self_attention_bwd_plain(
+        x.float(), kvalid, dout.float(), _f32(p), masks, H=H, S=S)
+    assert _relerr(dx, wdx) <= TOL
+    for k in ATTN_PARAM_ORDER:
+        assert grads[k].dtype == torch.float32
+        assert _relerr(grads[k], wgrads[k]) <= TOL, k
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_dropout_masks_rate_and_seeds(dev):
+    from ladiff_torch.ops.train_ffn import (train_postnorm_ffn_fwd,
+                                            train_postnorm_ffn_masks)
+    M, D, Fd = 4096, 256, 1024
+    m1, m2 = train_postnorm_ffn_masks(M, D, Fd, 0.1, 7, dev)
+    for m in (m1, m2):
+        assert abs(float((m > 0).float().mean()) - 0.9) <= 0.005
+        assert set(torch.unique(m).tolist()) == {0.0, float(
+            torch.tensor(1 / 0.9, dtype=torch.float32))}
+    p, x = _ffn_params(dev), _bf(dev, M, D)
+    a = train_postnorm_ffn_fwd(x, p, rate=0.1, seed=7)
+    b = train_postnorm_ffn_fwd(x, p, rate=0.1, seed=7)
+    c = train_postnorm_ffn_fwd(x, p, rate=0.1, seed=8)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_seed_draws_from_a_cuda_generator_on_the_host(dev):
+    """A CUDA generator gives each kernel call its own seed, the same
+    sequence for the same generator seed, and moves on for torch's own
+    draws; a CPU generator is refused for CUDA tensors."""
+    from ladiff_torch.ops.cuda_common import draw_seed, dropout_mask
+
+    def draws(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        first = draw_seed(g)
+        between = torch.rand(8, generator=g, device=dev)
+        return first, draw_seed(g), draw_seed(g), between
+
+    a, b = draws(3), draws(3)
+    assert a[:3] == b[:3] and torch.equal(a[3], b[3])
+    assert len({*a[:3], *draws(4)[:3]}) == 6
+    assert all(0 <= v < 2 ** 64 for v in a[:3])
+    g = torch.Generator(device=dev).manual_seed(3)
+    assert not torch.equal(torch.rand(8, generator=g, device=dev), a[3])
+    like = torch.zeros(1, device=dev)
+    with pytest.raises(RuntimeError):
+        dropout_mask((4, 4), 0.1, like, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.cuda
+def test_training_functions_backpropagate_float32_gradients(dev):
+    """The autograd.Functions take float32 parameters with bf16
+    activations and return float32 parameter gradients, equal to the
+    backward wrapper's."""
+    from ladiff_torch.ops.postnorm_ffn import FFN_PARAM_ORDER
+    from ladiff_torch.ops.train_ffn import (train_postnorm_ffn,
+                                            train_postnorm_ffn_bwd)
+    p32 = {k: v.float().requires_grad_() for k, v in _ffn_params(dev).items()}
+    x = _bf(dev, 300, 256).requires_grad_()
+    dout = _bf(dev, 300, 256, seed=16)
+    out = train_postnorm_ffn(x, p32, rate=0.1, seed=5)
+    out.backward(dout)
+    pbf = {k: v.detach().to(torch.bfloat16) for k, v in p32.items()}
+    with torch.no_grad():
+        dx, grads = train_postnorm_ffn_bwd(x.detach(), dout, pbf, rate=0.1,
+                                           seed=5)
+    assert x.grad.dtype == torch.bfloat16 and torch.equal(x.grad, dx)
+    for k in FFN_PARAM_ORDER:
+        assert p32[k].grad.dtype == torch.float32
+        assert torch.equal(p32[k].grad, grads[k]), k
+
+
+@pytest.mark.cuda
+def test_default_system_takes_a_training_step_on_the_gpu(dev):
+    """The trainer's defaults (float32 parameters, bf16 compute, dropout
+    0.1) run together: one AdamW step through the training kernels, then a
+    validation pass through the inference kernels."""
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.trainer import vae_train_step
+    system, opt = train_bench.build()
+    assert system.device.type == "cuda"
+    assert system.vae.final_layer.weight.dtype == torch.float32
+    batch = train_bench.make_batch(4, device=system.device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = system.vae.final_layer.weight.detach().clone()
+    cc.reset_launch_counts()
+    logs = vae_train_step(system, opt, batch, gen)
+    counts = cc.launch_counts()
+    for name in ("train_self_attention", "train_self_attention_bwd",
+                 "train_postnorm_ffn", "train_postnorm_ffn_bwd"):
+        assert counts[name] == 18, name
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
+    assert float(logs["grad_norm"]) > 0
+    assert not torch.equal(system.vae.final_layer.weight, before)
+    cc.reset_launch_counts()
+    with torch.no_grad():
+        total, _ = system.vae_forward(batch, train=False, generator=gen)
+    counts = cc.launch_counts()
+    assert counts["fused_postnorm_ffn"] == 9
+    assert counts["fused_decoder_layer"] == 9
+    assert bool(torch.isfinite(total))
+
+
+# -- no kernel reads outside its inputs --------------------------------------
+
+def _at_end(t):
+    """A copy of ``t`` that ends exactly where its own large device
+    allocation ends, so that a read past the tensor's end faults instead of
+    landing in a neighbour."""
+    nbytes = t.numel() * t.element_size()
+    assert nbytes % 32 == 0  # keeps the copy 32-byte aligned
+    arena = torch.empty(64 << 20, dtype=torch.uint8, device=t.device)
+    view = arena[arena.numel() - nbytes:].view(t.dtype).reshape(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _guarded_calls(fn, tensors, params=None):
+    """Calls ``fn(tensors, params)`` once per input, that input moved to the
+    end of an allocation; a fault surfaces at the synchronize."""
+    for i in range(len(tensors)):
+        moved = list(tensors)
+        moved[i] = _at_end(tensors[i])
+        fn(moved, params)
+        torch.cuda.synchronize()
+    for k in (params or {}):
+        moved = dict(params)
+        moved[k] = _at_end(params[k])
+        fn(list(tensors), moved)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_kernels_read_inside_their_inputs(dev):
+    """Row counts that leave a partial last block, D 128 and 256 (the
+    LayerNorm helpers unroll past D / 32), every input and parameter in turn
+    at the end of its allocation."""
+    from ladiff_torch.models.clip_text import CLIPTextLayer
+    from ladiff_torch.ops.clip_layer import fused_ln_qkv, fused_proj_mlp
+    from ladiff_torch.ops.decoder_layer import fused_decoder_layer
+    from ladiff_torch.ops.md_layer import fused_md_layer
+    from ladiff_torch.ops.postnorm_ffn import fused_postnorm_ffn
+    from ladiff_torch.ops.stylization import MDTransformerLayer
+    from ladiff_torch.ops.train_attention import (train_self_attention_bwd,
+                                                  train_self_attention_fwd)
+    from ladiff_torch.ops.train_ffn import (train_postnorm_ffn_bwd,
+                                            train_postnorm_ffn_fwd)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    bf = torch.bfloat16
+    for D, H in ((256, 4), (128, 2)):
+        B, S, Fd = 3, 48, 512
+        M = B * S  # 144 rows: 4 whole row blocks and 16 rows
+        pf, pa = _ffn_params(dev, D, Fd), _attn_params(dev, D)
+        x, dout = _bf(dev, M, D), _bf(dev, M, D, seed=17)
+        kvalid = _mask([S, 20, 1], S, dev).reshape(-1).contiguous()
+        _guarded_calls(lambda t, p: fused_postnorm_ffn(t[0], p), [x], pf)
+        _guarded_calls(lambda t, p: train_postnorm_ffn_fwd(
+            t[0], p, rate=0.1, seed=3), [x], pf)
+        _guarded_calls(lambda t, p: train_postnorm_ffn_bwd(
+            t[0], t[1], p, rate=0.1, seed=3), [x, dout], pf)
+        _guarded_calls(lambda t, p: train_self_attention_fwd(
+            t[0], t[1], p, H=H, S=S, rate=0.1, seed=3), [x, kvalid], pa)
+        _, saved = train_self_attention_fwd(x, kvalid, pa, H=H, S=S,
+                                            rate=0.1, seed=3,
+                                            return_saved=True)
+        _guarded_calls(lambda t, p: train_self_attention_bwd(
+            t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S, rate=0.1, seed=3),
+            [x, kvalid, dout, *saved], pa)
+    # K1..K4 share the LayerNorm helper
+    D, H, T, L = 256, 4, 40, 5
+    dl = _randomize(TransformerDecoderLayer(D, H, 1024, "gelu"), 4).to(dev, bf)
+    lens = [T, 9, 1, 33, T, 17, 25, 2]
+    args = [_bf(dev, 8 * T, D), _mask(lens, T, dev).reshape(-1).contiguous(),
+            _bf(dev, 8, L, D),
+            _mask([5, 1, 1, 4, 5, 2, 3, 1], L, dev).contiguous()]
+    _guarded_calls(lambda t, p: fused_decoder_layer(*t, p, T=T, H=H), args,
+                   {k: v.detach() for k, v in dl.kernel_params().items()})
+    md = _randomize(MDTransformerLayer(D, D, 1024, H), 1).to(dev, bf)
+    Bm, Tm, E = 8, 5, 2
+    args = [_bf(dev, Bm * Tm, D), _bf(dev, Bm * E, D),
+            torch.ones(Bm * Tm, device=dev), _bf(dev, Bm, D),
+            0.3 * _bf(dev, 1, 2 * D), 0.3 * _bf(dev, 1, 2 * D)]
+    _guarded_calls(lambda t, p: fused_md_layer(*t, p, T=Tm, E=E, H=H), args,
+                   {k: v.detach() for k, v in md.kernel_params().items()})
+    cl = _randomize(CLIPTextLayer(768, 12), 6).to(dev, bf)
+    xc, ac = _bf(dev, 48, 768), _bf(dev, 48, 768, seed=18)
+    _guarded_calls(lambda t, p: fused_ln_qkv(t[0], p, scale=0.125), [xc],
+                   {k: v.detach() for k, v in cl.qkv_params().items()})
+    _guarded_calls(lambda t, p: fused_proj_mlp(t[0], t[1], p), [ac, xc],
+                   {k: v.detach() for k, v in cl.mlp_params().items()})
