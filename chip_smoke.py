@@ -12,7 +12,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
             each against its plain PyTorch version on the same inputs
             (computed in float32), with its time, the plain version's time,
             the least time the card could take, and a library call's time
-            where one PyTorch call computes the same function.
+            where one PyTorch call computes the same function.  K1 is
+            compared again at the training stages' shapes: 128 x 5 rows with
+            one AdaLN row per sample, and 256 x 5 rows.
 3. slice    ``LADiffSystem.generate`` at batch 4 with mixed lengths on the
             card (kernels, bf16) against the CPU (plain versions, float32),
             same weights, same initial noise.
@@ -20,14 +22,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
             196 frames, 32-token CLIP bucket, CFG DDIM-50 + decode): launch
             counts per batch, samples/s, finite output.
 
-5. train_kernels  the inference FFN tail and the training kernels (attention
-            and FFN tail, forward and backward) at the training slice's
-            shapes (128 x 206 rows, mixed lengths): each against its plain
+5. train_kernels  the inference FFN tail and masked attention and the
+            training kernels (attention and FFN tail, forward and backward)
+            at the training slice's shapes (128 x 206 rows, mixed lengths;
+            the masked attention once more without a mask at 64 tokens,
+            compared only): each against its plain
             version at dropout 0, and at dropout 0.1 with the plain version
             given the masks the kernel draws; every gradient on its own.
             Then a ``dropout`` line: keep fraction, same seed same output,
             other seed other output.  Then ``kernels_decoder_stream``: the
             training kernels compared again at the decoder's 128 x 196 rows.
+            Then ``kernels_md_sa_block_stream``: the training FFN tail with
+            ReLU at the denoiser's 640 and 20 rows, dropout 0 and 0.1.
 6. train_slice    ``vae_forward`` loss and every parameter's gradient, name
             by name, at batch 4 with mixed lengths and dropout 0 on the
             card (kernels, bf16 compute, float32 parameters) against the
@@ -37,6 +43,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
 7. train_bench    the ``ladiff_torch.train_bench`` protocol at full width
             (batch 128, 196 frames, dropout 0.1): ms per step, samples/s,
             peak memory, launch counts per step, then one validation pass
+            and its launch counts.
+8. diffusion_slice  ``diffusion_forward`` loss and every denoiser gradient,
+            name by name, at batch 4 with mixed lengths and dropout 0, the
+            same noise, timesteps, caption-drop mask and encode noise on the
+            card and on the CPU (float32), each tensor held to 1.3 times
+            the plain bf16 CPU run's error for that tensor; no VAE
+            parameter has a gradient; a few
+            ``diffusion_train_step``s lower the loss; the validation pass
+            agrees with the CPU; then ``vae_diffusion_forward`` the same
+            way, loss terms by name and gradients of both trees by name,
+            held without the joints losses; with them the denoiser's are
+            held and the VAE's printed beside their control.
+9. diffusion_bench  the ``train_bench`` stages ``diffusion_train`` and
+            ``vae_diffusion_train`` at full width: ms per step, samples/s,
+            peak memory, launch counts per step; the stage-2 validation pass
             and its launch counts.
 
 Then a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
@@ -66,6 +87,12 @@ KERNEL_TOL = 2e-2
 # (2^-9 ~ 2e-3) times the few chained roundings upstream of it; the same
 # 2e-2 holds them
 GRAD_TOL = 2e-2
+# the same through a ReLU: the kernel decides a > 0 from a product of
+# bf16-rounded h, the float32 plain backward from unrounded h, so the few
+# pre-activations in a thousand within ~2^-9 of zero flip, and each flip
+# changes da by the whole upstream value: a norm-wise error of
+# sqrt(flipped share), 3.2e-2 on an H100 at 26368 rows
+RELU_GRAD_TOL = 8e-2
 # the training slice on the card (kernels, bf16 compute) against the float32
 # CPU run, every parameter's gradient on its own.  The yardstick is the
 # plain bf16 CPU run of the same weights, which has no kernel in it: on an
@@ -82,7 +109,41 @@ EXPECTED_PER_BATCH = {"fused_md_layer": 450, "fused_decoder_layer": 9,
 EXPECTED_PER_STEP = {"train_self_attention": 18,
                      "train_self_attention_bwd": 18,
                      "train_postnorm_ffn": 18, "train_postnorm_ffn_bwd": 18}
-EXPECTED_VALIDATION = {"fused_postnorm_ffn": 9, "fused_decoder_layer": 9}
+EXPECTED_VALIDATION = {"fused_masked_attention": 9, "fused_postnorm_ffn": 9,
+                       "fused_decoder_layer": 9}
+# stage 2: the frozen eval-mode encode (kernels 10 and 5, 9 layers), then 9
+# MD layers whose sa_block tail is kernel 9 (5 latent rows: plain attention);
+# its validation pass runs the MD layers as K1.  Joint stage: stage 1's 18 +
+# 18, stage 2's, 10 guided sampling steps of 9 K1 launches, and the eval-mode
+# decode with gradients through kernels 8 and 9 at rate 0 (9 + 9)
+EXPECTED_PER_DIFFUSION_STEP = {
+    "fused_masked_attention": 9, "fused_postnorm_ffn": 9,
+    "train_postnorm_ffn": 9, "train_postnorm_ffn_bwd": 9,
+    "train_self_attention": 0, "train_self_attention_bwd": 0,
+    "fused_md_layer": 0, "fused_decoder_layer": 0}
+EXPECTED_DIFFUSION_VALIDATION = {
+    "fused_masked_attention": 9, "fused_postnorm_ffn": 9,
+    "fused_md_layer": 9, "train_postnorm_ffn": 0}
+EXPECTED_PER_JOINT_STEP = {
+    "fused_masked_attention": 9, "fused_postnorm_ffn": 9,
+    "train_postnorm_ffn": 36, "train_postnorm_ffn_bwd": 36,
+    "train_self_attention": 27, "train_self_attention_bwd": 27,
+    "fused_md_layer": 90, "fused_decoder_layer": 0}
+# stage 2 and the joint stage on the card against the float32 CPU run.  The
+# yardstick is again the plain bf16 CPU run of the same weights and draws,
+# which has no kernel in it: with randomized unit-gain weights the denoiser's
+# gradients in bf16 differ from float32 by 1.5e-1 to 1.7e-1 at worst (median
+# 1e-1), the VAE's through the joint stage without the joints losses by
+# 1.4e-1 (median 2e-2), the losses by under 1e-3.  So each gradient tensor is
+# held on its own to DIFF_GRAD_RATIO times the control's error for that same
+# tensor (or DIFF_GRAD_FLOOR where the control's is smaller): a fault in one
+# layer stands out against that layer's own yardstick.  With the joints
+# losses on (feature std 0.1) the generated motion's joints make the plain
+# bf16 run's VAE gradients differ by up to 0.9 and its gen_joints term by
+# 2e-2: there the denoiser's gradients, which the joints do not reach, are
+# held the same way and the VAE's are printed beside their control.
+DIFF_LOSS_TOL = 1e-2
+DIFF_GRAD_RATIO, DIFF_GRAD_FLOOR = 1.3, 2e-2
 
 
 def emit(obj):
@@ -287,6 +348,25 @@ def phase_kernels(dev):
         lambda: md_layer_plain(*a1, p1, T=T, E=E, H=H),
         fl1, nbytes(*a1, *p1.values(), x)))
 
+    # K1 at the training stages' shapes (compared, not timed): the stage-2
+    # validation pass, 128 samples with one AdaLN row per sample (every
+    # sample has its own timestep), and the joint stage's guided sampling,
+    # 2 x 128 samples with a shared row
+    errs_k1 = {}
+    for case, n, ss_rows in (("128x5 rows, AdaLN row per sample", 128, 128),
+                             ("256x5 rows, shared AdaLN row", 256, 1)):
+        lat_n = latent_valid_mask(mixed_lengths(n, seed=4), 48, T)
+        a_n = (rnd(n * T, D), rnd(n * E, D),
+               lat_n.reshape(n * T).float().to(dev), rnd(n, D),
+               rnd(ss_rows, 2 * D, scale=0.3), rnd(ss_rows, 2 * D, scale=0.3))
+        errs_k1[case] = compare(
+            f"fused_md_layer, {case}",
+            fused_md_layer(*a_n, p1, T=T, E=E, H=H),
+            md_layer_plain(*[t.float() for t in a_n], f32(p1), T=T, E=E,
+                           H=H), KERNEL_TOL)[0]
+    emit({"phase": "kernel_md_layer_training_shapes", "rel_err": errs_k1,
+          "tol": KERNEL_TOL})
+
     # K2: B samples x 196 frames, <= 5 latent memory rows
     T2, L = 196, 5
     dl = randomize_(TransformerDecoderLayer(D, H, F, "gelu"), 12).to(dev, bf)
@@ -416,8 +496,11 @@ def phase_bench(dev):
 
 
 def phase_train_kernels(dev):
-    """Kernel 5 and the training kernels at the VAE encoder's shapes."""
+    """Kernels 5 and 10 and the training kernels at the VAE encoder's
+    shapes."""
     import torch
+    from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
+                                                   masked_attention_plain)
     from ladiff_torch.ops.postnorm_ffn import (FFN_PARAM_ORDER,
                                                fused_postnorm_ffn,
                                                postnorm_ffn_plain)
@@ -477,6 +560,32 @@ def phase_train_kernels(dev):
         lambda: postnorm_ffn_plain(x.float(), f32(pf), activation="gelu"),
         lambda: postnorm_ffn_plain(x, pf, activation="gelu"),
         gb, nbytes(x, x) + p_bytes))
+
+    # kernel 10: projected q, k, v of the encoder stream; every query
+    # against its sample's valid keys (masked keys are not needed work)
+    q10, k10, v10 = (rnd(B, S, D) for _ in range(3))
+    valid10 = valid.to(dev)
+    heads = lambda a: a.reshape(B, S, H, D // H).transpose(1, 2)
+    sdpa_mask = valid10[:, None, None, :]
+    recs.append(check_kernel(
+        "fused_masked_attention", "ladiff_torch/csrc/masked_attention.cu",
+        "ladiff_tpu/ops/pallas_attention.py:52",
+        lambda: fused_masked_attention(q10, k10, v10, valid10, num_heads=H),
+        lambda: masked_attention_plain(q10.float(), k10.float(), v10.float(),
+                                       valid10, num_heads=H),
+        lambda: masked_attention_plain(q10, k10, v10, valid10, num_heads=H),
+        4 * D * S * nvalid, nbytes(q10, k10, v10, valid10, q10),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            heads(q10), heads(k10), heads(v10), attn_mask=sdpa_mask)))
+    compare("fused_masked_attention without a mask, 64 tokens",
+            fused_masked_attention(q10[:, :64].contiguous(),
+                                   k10[:, :64].contiguous(),
+                                   v10[:, :64].contiguous(), None,
+                                   num_heads=H),
+            masked_attention_plain(q10[:, :64].float(), k10[:, :64].float(),
+                                   v10[:, :64].float(), None, num_heads=H),
+            KERNEL_TOL)
+    del q10, k10, v10
 
     # kernel 9: dropout 0 first (compared only), then dropout 0.1 against
     # the plain version with the kernel's masks (compared and timed)
@@ -608,6 +717,50 @@ def phase_train_kernels(dev):
     emit({"phase": "kernels_decoder_stream", "rows": M2, "seq": S2,
           "rate": RATE, "worst_rel_err": errs, "tol": KERNEL_TOL,
           "grad_tol": GRAD_TOL})
+
+    # the MD layer's sa_block tail, which stage 2 runs through kernel 9 with
+    # ReLU: 128 x 5 = 640 rows at full width (one row range in the split
+    # weight-gradient reduction) and the small slice's 4 x 5 = 20 rows (one
+    # partial 32-row block); compared only, dropout 0 and 0.1.  The
+    # gradients downstream of the ReLU's derivative (da: dx, ln1, w1, b1)
+    # have its tolerance, the others (dy, gd: w2, b2, ln2) the common one
+    relu = randomize_(TransformerEncoderLayer(D, H, F, "relu"), 32).to(
+        dev, bf)
+    pr = {"ln1_w": relu.norm1.weight, "ln1_b": relu.norm1.bias,
+          "w1": relu.linear1.weight, "b1": relu.linear1.bias,
+          "w2": relu.linear2.weight, "b2": relu.linear2.bias,
+          "ln2_w": relu.norm2.weight, "ln2_b": relu.norm2.bias}
+    pr = {k: pr[k].detach() for k in FFN_PARAM_ORDER}
+    after_relu = ("w2", "b2", "ln2_w", "ln2_b")
+    errs = {}
+    for rows in (640, 20):
+        x3, dout3 = rnd(rows, D), rnd(rows, D, scale=0.1)
+        for rate in (0.0, RATE):
+            kw3 = dict(activation="relu", rate=rate, seed=SEED)
+            masks = (train_postnorm_ffn_masks(rows, D, F, rate, SEED, dev)
+                     if rate else None)
+            case = f"relu, {rows} rows, rate {rate}"
+            e_f = compare(
+                f"train_postnorm_ffn, {case}",
+                train_postnorm_ffn_fwd(x3, pr, **kw3),
+                train_postnorm_ffn_plain(x3.float(), f32(pr), masks,
+                                         activation="relu"), KERNEL_TOL)[0]
+            got = flat(*train_postnorm_ffn_bwd(x3, dout3, pr, **kw3))
+            want = flat(*train_postnorm_ffn_bwd_plain(
+                *up(x3, dout3), f32(pr), masks, activation="relu"))
+            e_b = compare(f"train_postnorm_ffn_bwd after the ReLU, {case}",
+                          {k: got[k] for k in after_relu},
+                          {k: want[k] for k in after_relu}, GRAD_TOL)[0]
+            e_r = compare(f"train_postnorm_ffn_bwd through the ReLU, {case}",
+                          {k: v for k, v in got.items()
+                           if k not in after_relu},
+                          {k: v for k, v in want.items()
+                           if k not in after_relu}, RELU_GRAD_TOL)[0]
+            errs[case] = {"fwd": e_f, "bwd_after_relu": e_b,
+                          "bwd_through_relu": e_r}
+    emit({"phase": "kernels_md_sa_block_stream", "worst_rel_err": errs,
+          "tol": KERNEL_TOL, "grad_tol": GRAD_TOL,
+          "relu_grad_tol": RELU_GRAD_TOL})
     return recs
 
 
@@ -772,6 +925,216 @@ def phase_train_bench(dev):
     return {k: counts[k] + val_counts[k] for k in counts}
 
 
+def phase_diffusion_slice(dev):
+    """Small batch, mixed lengths, dropout 0: stage 2 and the joint stage on
+    the card (kernels, bf16 compute, float32 parameters) against the CPU
+    (plain versions, float32), same weights and the same random draws."""
+    import numpy as np
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.losses.mld import LossWeights
+    from ladiff_torch.training.trainer import diffusion_train_step
+
+    lengths = torch.tensor([16, 60, 123, 196])
+    B = len(lengths)
+    g = torch.Generator().manual_seed(6)  # the training slice's motions
+    batch = {"motion": torch.randn(B, 196, 263, generator=g),
+             "length": lengths}
+    vae_eps = torch.randn(B, 5, 256, generator=g)
+    batch["text_emb"] = torch.randn(B, 1, 768, generator=g)
+    uncond = 0.1 * torch.randn(1, 1, 768, generator=g)
+    draws = {"eps": torch.randn(B, 5, 256, generator=g),
+             "noise": torch.randn(B, 5, 256, generator=g),
+             "timesteps": torch.randint(0, 1000, (B,), generator=g),
+             "cond_drop": torch.tensor([False, True, False, False]).reshape(
+                 B, 1, 1)}
+    init = torch.randn(B, 5, 256, generator=g)
+
+    cpu = randomize_(train_bench.build("cpu", dropout=0.0)[0], 22)
+    ctl = train_bench.build("cpu", dropout=0.0, dtype=torch.bfloat16)[0]
+    gpu = train_bench.build(dev, dropout=0.0)[0]
+    for other in (ctl, gpu):
+        other.load_state_dict(cpu.state_dict(), strict=True)
+    for system in (cpu, ctl, gpu):
+        system.std.fill_(0.1)
+
+    def run(system, joint, lambda_joint):
+        system.weights = LossWeights(lambda_joint=lambda_joint)
+        system.zero_grad(set_to_none=True)
+        if joint:
+            total, (logs, _) = system.vae_diffusion_forward(
+                batch, uncond, train=True, eps=vae_eps,
+                diffusion_draws=draws, init_latents=init)
+        else:
+            total, (logs, _) = system.diffusion_forward(
+                batch, uncond, train=True, **draws)
+        total.backward()
+        return ({k: float(v.detach()) for k, v in logs.items()},
+                {n: p.grad.detach().float().cpu()
+                 for n, p in system.named_parameters()
+                 if p.grad is not None})
+
+    problems = []
+
+    def against_cpu(system, case, want_logs, want, control=None):
+        """Errors against the float32 CPU run: every loss term, and every
+        gradient by name.  With ``control`` (the plain bf16 CPU run's errors
+        by name) the run is held: each tensor to DIFF_GRAD_RATIO times the
+        control's error for that tensor (DIFF_GRAD_FLOOR where the control's
+        is smaller), the losses to DIFF_LOSS_TOL."""
+        logs, grads = run(system, *cases[case])
+        if set(grads) != set(want):
+            fail("diffusion slice: other parameters have gradients than on "
+                 f"the CPU: {sorted(set(grads) ^ set(want))[:5]}")
+        loss_errs = {k: abs(logs[k] - w) / abs(w)
+                     for k, w in want_logs.items()}
+        rec = {"loss_rel_errs": loss_errs}
+        if not all(bool(torch.isfinite(t).all()) for t in grads.values()):
+            fail(f"diffusion slice ({case}): a gradient is not finite")
+        errs = {n: relerr(grads[n], w) for n, w in want.items()}
+        for tree in ("vae", "denoiser"):
+            sub = {n: e for n, e in errs.items() if n.startswith(tree + ".")}
+            if not sub:
+                continue
+            worst = max(sub, key=sub.get)
+            rec[tree] = {
+                "worst_grad_rel_err": sub[worst], "worst_grad": worst,
+                "median_grad_rel_err": float(np.median(list(sub.values()))),
+                "n_grad_tensors": len(sub)}
+            if control is None:
+                continue
+            held = case in held_cases or tree == "denoiser"
+            limit = {n: max(DIFF_GRAD_RATIO * control[n], DIFF_GRAD_FLOOR)
+                     for n in sub}
+            over = max(sub, key=lambda n: sub[n] / limit[n])
+            rec[tree].update(
+                held=held, worst_over_limit=sub[over] / limit[over],
+                worst_over_limit_grad=over,
+                worst_over_limit_control=control[over],
+                n_above_control=sum(sub[n] > control[n] for n in sub))
+            if held and sub[over] > limit[over]:
+                problems.append(
+                    f"{case}: gradient of {over} rel err {sub[over]}, the "
+                    f"plain bf16 CPU run's {control[over]}, limit "
+                    f"{limit[over]}")
+        # the joints terms are printed; with weight 0 they reach no gradient
+        if control is not None and case in held_cases:
+            for k, e in loss_errs.items():
+                if "joints" not in k and not e <= DIFF_LOSS_TOL:
+                    problems.append(f"{case}: loss term {k} rel err {e} "
+                                    f"(tol {DIFF_LOSS_TOL})")
+        return rec, errs
+
+    # case: (joint stage, joints-loss weight).  The first two are held in
+    # full; in the third the generated motion's joints make the VAE's bf16
+    # gradients ill-conditioned, so only its denoiser tree is held (the
+    # denoiser's gradient comes from the diffusion loss alone)
+    cases = {"diffusion_forward": (False, 1.0),
+             "vae_diffusion_forward_no_joints": (True, 0.0),
+             "vae_diffusion_forward_all_losses": (True, 1.0)}
+    held_cases = ("diffusion_forward", "vae_diffusion_forward_no_joints")
+    out = {}
+    t0 = time.perf_counter()
+    for case, (joint, lambda_joint) in cases.items():
+        logs_c, grads_c = run(cpu, joint, lambda_joint)
+        if not joint and any(n.startswith("vae.") for n in grads_c):
+            fail("diffusion slice: the frozen VAE has a gradient")
+        ctl_rec, ctl_errs = against_cpu(ctl, case, logs_c, grads_c)
+        out[case] = {"grad_ratio": DIFF_GRAD_RATIO,
+                     "grad_floor": DIFF_GRAD_FLOOR, "logs_cpu": logs_c,
+                     "card": against_cpu(gpu, case, logs_c, grads_c,
+                                         ctl_errs)[0],
+                     "cpu_bf16_plain": ctl_rec}
+    t_cpu = time.perf_counter() - t0
+    del gpu, ctl
+
+    # optimizer steps from the trainer's own initialisation, the same draws
+    # every step, then the validation pass on both sides
+    gpu, opt = train_bench.build(dev, dropout=0.0, stage="diffusion_train")
+    losses = [float(diffusion_train_step(gpu, opt, batch, uncond,
+                                         **draws)["total"])
+              for _ in range(8)]
+    if any(p.grad is not None for p in gpu.vae.parameters()):
+        fail("diffusion slice: a train step gave the frozen VAE a gradient")
+    cpu.load_state_dict(gpu.state_dict(), strict=True)
+    val_draws = {k: v for k, v in draws.items() if k != "cond_drop"}
+    with torch.no_grad():
+        val_c, _ = cpu.diffusion_forward(batch, uncond, train=False,
+                                         **val_draws)
+        val_g, _ = gpu.diffusion_forward(batch, uncond, train=False,
+                                         **val_draws)
+    err_val = abs(float(val_g) - float(val_c)) / abs(float(val_c))
+    emit({"phase": "diffusion_slice", "batch": B,
+          "lengths": lengths.tolist(), "loss_tol": DIFF_LOSS_TOL,
+          "cases": out, "step_losses": losses,
+          "validation_loss_rel_err": err_val, "cpu_s": t_cpu})
+    if problems:
+        fail("diffusion slice: " + "; ".join(problems[:5]))
+    if not losses[-1] < losses[0]:
+        fail(f"diffusion slice: the loss did not fall: {losses}")
+    if not err_val <= DIFF_LOSS_TOL:
+        fail("diffusion slice: the validation pass disagrees with the CPU")
+
+
+def phase_diffusion_bench(dev):
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+
+    iters = 5
+    steps = train_bench.WARMUP + iters
+    total_counts = {}
+    for stage, expected in (("diffusion_train", EXPECTED_PER_DIFFUSION_STEP),
+                            ("vae_diffusion_train", EXPECTED_PER_JOINT_STEP)):
+        system, opt = train_bench.build(dev, stage=stage)
+        batch = train_bench.make_batch(device=system.device)
+        cc.reset_launch_counts()
+        res = train_bench.measure(system, opt, batch, iters=iters,
+                                  stage=stage)
+        counts = cc.launch_counts()
+        per_step = {k: v / steps for k, v in counts.items()}
+        line = {"phase": "diffusion_bench", "stage": stage,
+                "batch": train_bench.BATCH, "frames": train_bench.FRAMES,
+                "dropout": train_bench.DROPOUT, "steps": iters,
+                "warmup": train_bench.WARMUP,
+                "ms_per_step": res["ms_per_step"],
+                "samples_per_sec": res["samples_per_sec"],
+                "loss": res["loss"], "grad_norm": res["grad_norm"],
+                "peak_mem_gb": res["peak_mem_gb"], "launches": counts,
+                "launches_per_step": per_step}
+        if not (math.isfinite(res["loss"])
+                and math.isfinite(res["grad_norm"])):
+            fail(f"{stage}: non-finite loss or gradient norm")
+        for name, want in expected.items():
+            if per_step.get(name) != want:
+                fail(f"{stage}: {name}: {per_step.get(name)} launches per "
+                     f"step, expected {want}")
+        for k, v in counts.items():
+            total_counts[k] = total_counts.get(k, 0) + v
+        if stage == "diffusion_train":
+            cc.reset_launch_counts()
+            gen = torch.Generator(device=dev).manual_seed(2)
+            uncond = torch.zeros(1, 1, train_bench.TEXT_DIM, device=dev)
+            with torch.no_grad():
+                val, _ = system.diffusion_forward(batch, uncond, train=False,
+                                                  generator=gen)
+            torch.cuda.synchronize()
+            val_counts = cc.launch_counts()
+            line.update(validation_loss=float(val),
+                        validation_launches=val_counts)
+            if not math.isfinite(float(val)):
+                fail("diffusion_train: non-finite validation loss")
+            for name, want in EXPECTED_DIFFUSION_VALIDATION.items():
+                if val_counts.get(name) != want:
+                    fail(f"{name}: {val_counts.get(name)} launches in the "
+                         f"stage-2 validation pass, expected {want}")
+            for k, v in val_counts.items():
+                total_counts[k] += v
+        emit(line)
+        del system, opt, batch
+    return total_counts
+
+
 def main():
     try:
         import torch
@@ -794,12 +1157,17 @@ def main():
         train_recs = phase_train_kernels(dev)
     phase_train_slice(dev)
     train_counts = phase_train_bench(dev)
+    phase_diffusion_slice(dev)
+    diffusion_counts = phase_diffusion_bench(dev)
     # each kernel's launches on the path that runs it: generation for K1-K4,
-    # the training steps and their validation pass for the rest
+    # the stage-1 training steps and their validation pass for kernels 5, 8
+    # and 9, the stage-2 and joint steps for kernel 10
     for rec in recs:
         rec["launches"] = counts[rec["name"]]
     for rec in train_recs:
-        rec["launches"] = train_counts[rec["name"]]
+        path = (diffusion_counts if rec["name"] == "fused_masked_attention"
+                else train_counts)
+        rec["launches"] = path[rec["name"]]
     recs += train_recs
     for rec in recs:
         if rec["launches"] <= 0:

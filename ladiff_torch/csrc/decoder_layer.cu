@@ -3,17 +3,15 @@
 // ladiff_torch/ops/decoder_layer.py for the math, the bound and why it is a
 // fixed sequence of four launches:
 //   proj_kernel x2      q/k/v of the frame rows; k/v of the memory rows
-//   self_attn_kernel    64-query x 64-key tiles, online softmax
+//   attn_tile_kernel    64-query x 64-key tiles, online softmax
+//                       (attn_tile.cuh, shared with kernel 10)
 //   tail_kernel         out-proj + LN1, cross-attention, out-proj + LN2,
 //                       FFN, LN3, per 32-row block
-#include "common.cuh"
+#include "attn_tile.cuh"
 
 using namespace ladiff;
 
 namespace {
-
-constexpr int kTile = 64;         // query / key tile of the self-attention
-constexpr int kAttnThreads = 128; // 4 warps x 16 query rows
 
 // out[M, N] = A[M, K] W^T + b (bf16 in, f32 accumulation, bf16 out); one
 // block per 32 rows x 256 output columns.
@@ -40,149 +38,6 @@ proj_kernel(const bf16* A, int M, int K, const bf16* W, const bf16* bias,
     const int row = i / nc, c = i % nc;
     out[(row0 + row) * N + n0 + c] =
         tob(cf[row * ldc + c] + ldgf(bias + n0 + c));
-  }
-}
-
-struct AttnLayout {
-  size_t q, k, v, s, p, o, vec, total;
-  int ldq, lds, ldp, ldo;
-};
-
-inline AttnLayout attn_layout(int Dh) {
-  AttnLayout L;
-  L.ldq = Dh + 8;
-  L.lds = (Dh > kTile ? Dh : kTile) + 4;
-  L.ldp = kTile + 8;
-  L.ldo = Dh + 4;
-  const size_t qb = kTile * L.ldq * sizeof(bf16);
-  L.q = 0;
-  L.k = align128(L.q + qb);
-  L.v = align128(L.k + qb);
-  L.s = align128(L.v + qb);
-  L.p = align128(L.s + kTile * L.lds * sizeof(float));
-  L.o = align128(L.p + kTile * L.ldp * sizeof(bf16));
-  L.vec = align128(L.o + kTile * L.ldo * sizeof(float));
-  L.total = align128(L.vec + 4 * kTile * sizeof(float));
-  return L;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Self-attention of one (sample, head, 64-query tile) over the sample's T
-// frames in 64-key tiles.  Keys >= T do not exist (-inf); keys with
-// kvalid <= 0.5 get the additive -1e9 of the JAX package.  qkv: [B*T, 3D].
-__global__ void __launch_bounds__(kAttnThreads)
-self_attn_kernel(const bf16* qkv, const float* kvalid, bf16* ctx, int T,
-                 int D, int H, AttnLayout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Dh = D / H, D3 = 3 * D;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v);
-  float* S = reinterpret_cast<float*>(smem + L.s);
-  bf16* P = reinterpret_cast<bf16*>(smem + L.p);
-  float* O = reinterpret_cast<float*>(smem + L.o);
-  float* mrow = reinterpret_cast<float*>(smem + L.vec);
-  float* lrow = mrow + kTile;
-  float* alpha = lrow + kTile;
-  float* kbias = alpha + kTile;
-  const size_t base = (size_t)b * T;
-
-  for (int i = tid; i < kTile * Dh; i += blockDim.x) {
-    const int r = i / Dh, d = i % Dh, t = q0 + r;
-    Qs[r * L.ldq + d] = t < T ? ldg(qkv + (base + t) * D3 + h * Dh + d) : tob(0.f);
-    O[r * L.ldo + d] = 0.f;
-  }
-  for (int i = tid; i < kTile; i += blockDim.x) {
-    mrow[i] = -INFINITY;
-    lrow[i] = 0.f;
-  }
-  const float scale = rsqrtf((float)Dh);
-  const bf16* Qw = Qs + warp * 16 * L.ldq;
-  float* Sw = S + warp * 16 * L.lds;
-  bf16* Pw = P + warp * 16 * L.ldp;
-  float* Ow = O + warp * 16 * L.ldo;
-  const int r0 = warp * 16;
-
-  for (int k0 = 0; k0 < T; k0 += kTile) {
-    __syncthreads();  // the previous key tile is consumed
-    for (int i = tid; i < kTile * Dh; i += blockDim.x) {
-      const int r = i / Dh, d = i % Dh, t = k0 + r;
-      const size_t off = (base + t) * D3 + h * Dh + d;
-      Ks[r * L.ldq + d] = t < T ? ldg(qkv + off + D) : tob(0.f);
-      Vs[r * L.ldq + d] = t < T ? ldg(qkv + off + 2 * D) : tob(0.f);
-    }
-    for (int i = tid; i < kTile; i += blockDim.x) {
-      const int t = k0 + i;
-      kbias[i] = t < T ? (ldgf(kvalid + base + t) > 0.5f ? 0.f : kNegInf)
-                       : -INFINITY;
-    }
-    __syncthreads();
-
-    // S_w = Q_w K^T  (16 x 64)
-    for (int nt = 0; nt < kTile / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kd = 0; kd < Dh; kd += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qw + kd, L.ldq);
-        wmma::load_matrix_sync(fb, Ks + nt * 16 * L.ldq + kd, L.ldq);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Sw + nt * 16, acc, L.lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-    // online softmax over this tile, one row at a time
-    for (int rr = 0; rr < 16; ++rr) {
-      const float s0 = Sw[rr * L.lds + lane] * scale + kbias[lane];
-      const float s1 = Sw[rr * L.lds + lane + 32] * scale + kbias[lane + 32];
-      const float mold = mrow[r0 + rr];
-      const float mnew = fmaxf(mold, warp_max(fmaxf(s0, s1)));
-      const float p0 = __expf(s0 - mnew), p1 = __expf(s1 - mnew);
-      const float sum = warp_sum(p0 + p1);
-      const float al = __expf(mold - mnew);
-      Pw[rr * L.ldp + lane] = tob(p0);
-      Pw[rr * L.ldp + lane + 32] = tob(p1);
-      __syncwarp();
-      if (lane == 0) {
-        mrow[r0 + rr] = mnew;
-        lrow[r0 + rr] = lrow[r0 + rr] * al + sum;
-        alpha[r0 + rr] = al;
-      }
-    }
-    __syncwarp();
-    // S_w <- P_w V  (16 x Dh), then O_w <- O_w * alpha + S_w
-    for (int nt = 0; nt < Dh / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < kTile; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Pw + kk, L.ldp);
-        wmma::load_matrix_sync(fb, Vs + kk * L.ldq + nt * 16, L.ldq);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Sw + nt * 16, acc, L.lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * Dh; i += 32) {
-      const int rr = i / Dh, d = i % Dh;
-      Ow[rr * L.ldo + d] = Ow[rr * L.ldo + d] * alpha[r0 + rr] + Sw[rr * L.lds + d];
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-  for (int i = tid; i < kTile * Dh; i += blockDim.x) {
-    const int r = i / Dh, d = i % Dh, t = q0 + r;
-    if (t < T) ctx[(base + t) * D + h * Dh + d] = tob(O[r * L.ldo + d] / lrow[r]);
   }
 }
 
@@ -312,11 +167,9 @@ extern "C" int decoder_layer_forward(const void** p, const int* n,
 
   const size_t proj_bytes = align128(kRows * (D + 8) * sizeof(bf16)) +
                             kRows * (kChunk + 4) * sizeof(float) + kWStageBytes;
-  const AttnLayout La = attn_layout(D / H);
   const TailLayout Lt = tail_layout(D, F);
-  static SmemGrant g_proj, g_attn, g_tail;
+  static SmemGrant g_proj, g_tail;
   if (!allow_smem(proj_kernel, proj_bytes, g_proj) ||
-      !allow_smem(self_attn_kernel, La.total, g_attn) ||
       !allow_smem(tail_kernel, Lt.total, g_tail))
     return cudaErrorInvalidValue;
   cudaError_t err;
@@ -328,9 +181,12 @@ extern "C" int decoder_layer_forward(const void** p, const int* n,
                 kThreads, proj_bytes, stream>>>(mem, ML, D, q[6] + (size_t)D * D,
                                                 q[7] + D, 2 * D, kv2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  self_attn_kernel<<<dim3((T + kTile - 1) / kTile, H, B), kAttnThreads,
-                     La.total, stream>>>(qkv, kvalid, ctx, T, D, H, La);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // q, k, v: the thirds of the packed projection, row stride 3D
+  AttnArgs at;
+  at.q = qkv; at.k = qkv + D; at.v = qkv + 2 * D;
+  at.kvalid = kvalid; at.out = ctx;
+  at.T = T; at.Dh = D / H; at.ld = 3 * D; at.ldo = D;
+  if ((err = launch_attn_tiles(at, B, H, stream)) != cudaSuccess) return err;
   TailArgs a;
   a.x = x; a.ctx = ctx; a.kv2 = kv2; a.mvalid = mvalid;
   a.sa_out_w = q[2]; a.sa_out_b = q[3]; a.ln1_w = q[4]; a.ln1_b = q[5];

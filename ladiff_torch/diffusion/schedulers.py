@@ -1,10 +1,11 @@
 """Diffusion schedules as alpha tables (counterpart of
 ``ladiff_tpu/diffusion/schedulers.py``): scaled-linear betas, DDIM with
-``set_alpha_to_one=False``, ``steps_offset=1`` and eta 0."""
+``set_alpha_to_one=False``, ``steps_offset=1`` and eta 0, and the forward
+process ``add_noise`` of denoiser training."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +20,26 @@ class DiffusionSchedule:
     num_train_timesteps: int
     prediction_type: str = "epsilon"
 
+    # the alpha table on each device it was asked for (add_noise runs every
+    # training step and must not copy from the host each time)
+    _tables: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
     init_noise_sigma = 1.0
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) sampling (diffusers ``add_noise``): ``timesteps``
+        [B] integers on x0's device, one per sample."""
+        table = self._tables.get(x0.device)
+        if table is None:
+            table = torch.as_tensor(self.alphas_cumprod, device=x0.device)
+            self._tables[x0.device] = table
+        acp = table[timesteps]
+        shape = (-1,) + (1,) * (x0.dim() - 1)
+        sqrt_acp = acp.sqrt().reshape(shape).to(x0.dtype)
+        sqrt_1macp = (1.0 - acp).sqrt().reshape(shape).to(x0.dtype)
+        return sqrt_acp * x0 + sqrt_1macp * noise
 
     def ddim_step(self, model_output: torch.Tensor, timestep: int,
                   prev_timestep: int, sample: torch.Tensor) -> torch.Tensor:

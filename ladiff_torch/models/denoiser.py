@@ -6,19 +6,25 @@ timestep embedding at ``text_encoded_dim`` (768) projected by
 Linear-SiLU-Linear to D; pooled CLIP text projected by ReLU + Linear; the
 skip encoder over ``MDTransformerLayer``.  Parameter names follow the
 reference (``time_embedding.linear_1``, ``emb_proj.1``, ``query_pos.pe``,
-``encoder.*``).
+``encoder.*``).  In training mode (``module.train()``) the MD layers take
+their unfused route with ``dropout``; masks and kernel seeds come from the
+``generator`` passed to ``forward``.  ``compute_dtype`` (set by
+``LADiffSystem``) is the activations' type where it differs from the
+parameters' (float32 parameters, bf16 compute).
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ladiff_torch.ops.embeddings import (PositionEmbeddingLearned1D,
                                          TimestepEmbedding,
                                          timestep_embedding)
 from ladiff_torch.ops.stylization import MDSkipTransformerEncoder
+from ladiff_torch.ops.transformer import linear
 
 __all__ = ["LADenoiser"]
 
@@ -27,24 +33,27 @@ class LADenoiser(nn.Module):
     def __init__(self, nfeats: int = 263, latent_dim: Sequence[int] = (7, 256),
                  ff_size: int = 1024, num_layers: int = 9,
                  num_heads: int = 4, text_encoded_dim: int = 768,
-                 flip_sin_to_cos: bool = True, freq_shift: int = 0):
+                 flip_sin_to_cos: bool = True, freq_shift: int = 0,
+                 dropout: float = 0.0):
         super().__init__()
         D = int(latent_dim[-1])
         self.d_model = D
         self.text_encoded_dim = text_encoded_dim
         self.flip_sin_to_cos = flip_sin_to_cos
         self.freq_shift = freq_shift
+        self.compute_dtype: Optional[torch.dtype] = None
         self.time_embedding = TimestepEmbedding(text_encoded_dim, D)
         if text_encoded_dim != D:
             self.emb_proj = nn.Sequential(nn.ReLU(),
                                           nn.Linear(text_encoded_dim, D))
         self.query_pos = PositionEmbeddingLearned1D(D)
         self.encoder = MDSkipTransformerEncoder(D, D, num_heads, num_layers,
-                                                ff_size)
+                                                ff_size, dropout)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.query_pos.pe.dtype
+        """The activations' type."""
+        return self.compute_dtype or self.query_pos.pe.dtype
 
     def compute_time_embedding(self, timesteps: torch.Tensor) -> torch.Tensor:
         """[N] timesteps -> [N, D]; samplers build the whole table once."""
@@ -60,7 +69,7 @@ class LADenoiser(nn.Module):
         text = encoder_hidden_states.to(self.dtype)
         if text.shape[-1] == self.d_model:
             return text
-        return self.emb_proj(text)
+        return linear(self.emb_proj[1], F.relu(text))
 
     def precompute_md_prep(self, text_emb_latent: torch.Tensor,
                            time_table: torch.Tensor) -> List[dict]:
@@ -75,7 +84,8 @@ class LADenoiser(nn.Module):
                 latent_valid: Optional[torch.Tensor] = None,
                 time_emb: Optional[torch.Tensor] = None,
                 text_emb_latent: Optional[torch.Tensor] = None,
-                md_prep: Optional[List[dict]] = None) -> torch.Tensor:
+                md_prep: Optional[List[dict]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """sample [B, n_lat, D] noisy latents -> predicted noise."""
         sample = sample.to(self.dtype)
         if time_emb is None:
@@ -86,4 +96,4 @@ class LADenoiser(nn.Module):
         text_emb_latent = text_emb_latent.to(self.dtype)
         xseq = self.query_pos(sample)
         return self.encoder(xseq, text_emb_latent, time_emb, latent_valid,
-                            prep=md_prep)
+                            prep=md_prep, generator=generator)

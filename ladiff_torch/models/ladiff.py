@@ -1,9 +1,17 @@
 """LADiff system (counterpart of ``ladiff_tpu/models/ladiff.py``).
 
 Generation: text embeddings -> CFG DDIM over the latent set -> LA-VAE
-decode -> features (-> joints).  Stage-1 training: ``vae_forward`` is the
-reconstruction pass with its losses (encode -> decode -> SmoothL1 on
-features and joints + KL).
+decode -> features (-> joints).  Training, three stages:
+
+  * ``vae_forward``: the reconstruction pass with its losses (encode ->
+    decode -> SmoothL1 on features and joints + KL);
+  * ``diffusion_forward``: a frozen eval-mode encode, caption dropout,
+    ``add_noise``, the denoiser in training mode, the noise-prediction MSE;
+  * ``vae_diffusion_forward``: both of these plus the generation losses of a
+    short guided sampling run (no gradient) and an eval-mode decode of its
+    latents whose gradients reach the decoder.
+
+Text condition, LA-VAE latents and epsilon prediction only.
 
 ``dtype`` is the compute type (bf16 on CUDA, the kernels' type) and
 ``param_dtype`` the parameters' storage type, the same unless given: the
@@ -16,6 +24,7 @@ table of every DDIM step, and each MD layer's text value and AdaLN rows.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,7 +34,8 @@ from torch import nn
 from ladiff_torch.data.humanml.motion_repr import recover_from_ric
 from ladiff_torch.diffusion.sampling import ddim_sample, make_cfg_denoise_fn
 from ladiff_torch.diffusion.schedulers import ddim_timesteps, make_schedule
-from ladiff_torch.losses.mld import LossWeights, vae_loss
+from ladiff_torch.losses.mld import (LossWeights, diffusion_loss, smooth_l1,
+                                     vae_loss)
 from ladiff_torch.models.denoiser import LADenoiser
 from ladiff_torch.models.vae import LAVae
 from ladiff_torch.utils.device import resolve_device, resolve_dtype
@@ -34,12 +44,25 @@ from ladiff_torch.utils.masks import latent_valid_mask
 __all__ = ["LADiffSystem"]
 
 
+@contextlib.contextmanager
+def _mode(module: nn.Module, training: bool):
+    """``module`` in training or eval mode inside the block, its own mode
+    afterwards."""
+    was_training = module.training
+    module.train(training)
+    try:
+        yield
+    finally:
+        module.train(was_training)
+
+
 class LADiffSystem(nn.Module):
     def __init__(self, nfeats: int, njoints: int, max_frames: int = 196,
                  latent_dim: Sequence[int] = (7, 256), ff_size: int = 1024,
                  num_layers: int = 9, num_heads: int = 4, max_it: int = 5,
                  frame_per_latent: int = 48, text_encoded_dim: int = 768,
                  guidance_scale: float = 7.5,
+                 guidance_uncondp: float = 0.1,
                  num_inference_timesteps: int = 50,
                  num_train_timesteps: int = 1000,
                  mean: Optional[np.ndarray] = None,
@@ -60,6 +83,7 @@ class LADiffSystem(nn.Module):
         self.max_it = max_it
         self.frame_per_latent = frame_per_latent
         self.guidance_scale = guidance_scale
+        self.guidance_uncondp = guidance_uncondp
         self.num_inference_timesteps = num_inference_timesteps
         self.schedule = make_schedule(num_train_timesteps)
         self.vae = LAVae(nfeats, latent_dim, ff_size, num_layers, num_heads,
@@ -67,7 +91,9 @@ class LADiffSystem(nn.Module):
                          dvae=dvae, percentage_noised=percentage_noised)
         self.vae.compute_dtype = dtype
         self.denoiser = LADenoiser(nfeats, latent_dim, ff_size, num_layers,
-                                   num_heads, text_encoded_dim)
+                                   num_heads, text_encoded_dim,
+                                   dropout=dropout)
+        self.denoiser.compute_dtype = dtype
         for name, v in (("mean", mean), ("std", std)):
             self.register_buffer(
                 name, None if v is None else torch.as_tensor(
@@ -115,7 +141,8 @@ class LADiffSystem(nn.Module):
         def denoise(latents, step, text, valid):
             time_emb = time_table[step][None].expand(latents.shape[0], -1)
             md_prep = [{"value": p["value"], "ca_ss": p["ca_ss"][step],
-                        "ffn_ss": p["ffn_ss"][step]} for p in prep_all]
+                        "ffn_ss": p["ffn_ss"][step], "params": p["params"]}
+                       for p in prep_all]
             return den(latents, latent_valid=valid, time_emb=time_emb,
                        text_emb_latent=text, md_prep=md_prep)
 
@@ -155,15 +182,11 @@ class LADiffSystem(nn.Module):
         dev = self.device
         feats_ref = batch["motion"].to(dev)
         lengths = batch["length"].to(dev)
-        was_training = self.vae.training
-        self.vae.train(train)
-        try:
+        with _mode(self.vae, train):
             z, mu, logvar, lat_valid = self.vae.encode(
                 feats_ref, lengths, eps=eps, generator=generator)
             feats_rst = self.vae.decode(z, lengths, feats_ref.shape[1],
                                         generator=generator)
-        finally:
-            self.vae.train(was_training)
         joints_rst = self.feats2joints(feats_rst)
         joints_ref = self.feats2joints(feats_ref)
         total, logs = vae_loss(feats_rst, feats_ref, joints_rst, joints_ref,
@@ -171,3 +194,109 @@ class LADiffSystem(nn.Module):
         aux = {"feats_rst": feats_rst, "z": z, "latent_valid": lat_valid,
                "joints_rst": joints_rst, "joints_ref": joints_ref}
         return total, (logs, aux)
+
+    def diffusion_forward(self, batch: Dict[str, torch.Tensor],
+                          uncond_emb: torch.Tensor, train: bool = True,
+                          generator: Optional[torch.Generator] = None,
+                          noise: Optional[torch.Tensor] = None,
+                          timesteps: Optional[torch.Tensor] = None,
+                          cond_drop: Optional[torch.Tensor] = None,
+                          eps: Optional[torch.Tensor] = None):
+        """Stage-2 noise-prediction pass and its loss: returns ``(total,
+        (logs, aux))``.  ``batch``: "motion" [B, T, nfeats], "length" [B]
+        and "text_emb" [B, 1, text_encoded_dim] pooled text features;
+        ``uncond_emb`` [1, 1, text_encoded_dim] replaces a caption with
+        probability ``guidance_uncondp`` when ``train``.
+
+        The VAE is frozen: the encode runs in eval mode without a graph, so
+        no VAE parameter gets a gradient even where it requires one.
+        ``train`` switches the denoiser's mode (dropout, the unfused MD
+        layers with a backward); both modes are restored afterwards.  Every
+        random draw comes from ``generator`` on the system's device unless
+        given: ``eps`` [B, max_it, D] the latent sample's noise, ``cond_drop``
+        [B, 1, 1] bool the captions to drop, ``noise`` [B, max_it, D],
+        ``timesteps`` [B]."""
+        dev = self.device
+        feats_ref = batch["motion"].to(dev)
+        lengths = batch["length"].to(dev)
+        cond = batch["text_emb"].to(dev)
+        B = feats_ref.shape[0]
+        with _mode(self.vae, False), torch.no_grad():
+            z, _, _, lat_valid = self.vae.encode(
+                feats_ref, lengths, eps=eps, generator=generator)
+
+        if train and self.guidance_uncondp > 0.0:
+            if cond_drop is None:
+                cond_drop = torch.rand(
+                    (B, 1, 1), generator=generator,
+                    device=dev) < self.guidance_uncondp
+            cond = torch.where(cond_drop.to(dev),
+                               uncond_emb.to(device=dev, dtype=cond.dtype),
+                               cond)
+        if noise is None:
+            noise = torch.randn(z.shape, generator=generator, device=dev)
+        noise = noise.to(device=dev, dtype=z.dtype)
+        if timesteps is None:
+            timesteps = torch.randint(
+                0, self.schedule.num_train_timesteps, (B,),
+                generator=generator, device=dev)
+        timesteps = timesteps.to(dev)
+        noisy = self.schedule.add_noise(z, noise, timesteps)
+        # inactive latent rows stay zero after noising
+        noisy = torch.where(lat_valid[:, :, None], noisy,
+                            torch.zeros((), dtype=noisy.dtype, device=dev))
+        with _mode(self.denoiser, train):
+            noise_pred = self.denoiser(noisy, timesteps, cond, lat_valid,
+                                       generator=generator)
+        total, logs = diffusion_loss(noise_pred, noise)
+        return total, (logs, {"latent_valid": lat_valid})
+
+    def vae_diffusion_forward(self, batch: Dict[str, torch.Tensor],
+                              uncond_emb: torch.Tensor, train: bool = True,
+                              generator: Optional[torch.Generator] = None,
+                              eps: Optional[torch.Tensor] = None,
+                              diffusion_draws: Optional[Dict[
+                                  str, torch.Tensor]] = None,
+                              init_latents: Optional[torch.Tensor] = None):
+        """Joint stage: ``vae_forward`` + ``diffusion_forward`` + the
+        generation losses.  Returns ``(total, (logs, vae aux))`` with logs
+        ``vae_*``, ``diff_*``, ``gen_feature``, ``gen_joints``, ``total``.
+
+        The generation branch samples latents from the batch's captions
+        with ``min(num_inference_timesteps, 10)`` guided DDIM steps, the
+        denoiser in eval mode and no graph, and decodes them with the VAE
+        in eval mode and a graph: the decoder layers then take their
+        training route at rate 0, so the SmoothL1 losses on the generated
+        features and joints (``lambda_gen``, ``lambda_joint``) reach the
+        decoder's parameters.  ``eps`` is ``vae_forward``'s,
+        ``diffusion_draws`` the optional tensors of ``diffusion_forward`` by
+        name, ``init_latents`` the sampler's initial noise."""
+        vae_total, (vae_logs, vae_aux) = self.vae_forward(
+            batch, train=train, generator=generator, eps=eps)
+        diff_total, (diff_logs, _) = self.diffusion_forward(
+            batch, uncond_emb, train=train, generator=generator,
+            **(diffusion_draws or {}))
+
+        dev = self.device
+        feats_ref = batch["motion"].to(dev)
+        lengths = batch["length"].to(dev)
+        text_emb = batch["text_emb"].to(dev)
+        with _mode(self.denoiser, False):
+            z_gen = self.diffusion_reverse(
+                text_emb, uncond_emb.to(dev).expand(text_emb.shape), lengths,
+                generator, min(self.num_inference_timesteps, 10),
+                init_latents)
+        with _mode(self.vae, False):
+            gen_feats = self.vae.decode(z_gen.to(self.dtype), lengths,
+                                        feats_ref.shape[1])
+        gen_feature = smooth_l1(gen_feats.float(), feats_ref.float())
+        gen_joints = smooth_l1(self.feats2joints(gen_feats),
+                               vae_aux["joints_ref"].float())
+        w = self.weights
+        total = (vae_total + diff_total + w.lambda_gen * gen_feature
+                 + w.lambda_joint * gen_joints)
+        logs = {**{f"vae_{k}": v for k, v in vae_logs.items()},
+                **{f"diff_{k}": v for k, v in diff_logs.items()},
+                "gen_feature": gen_feature, "gen_joints": gen_joints,
+                "total": total}
+        return total, (logs, vae_aux)

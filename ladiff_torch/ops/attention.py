@@ -1,7 +1,9 @@
 """Masked multi-head attention (counterpart of ``ladiff_tpu/ops/attention.py``).
 
 Batch-first [B, S, D] tensors; padding is a boolean key-validity mask
-(True = attend), masked logits are set to ``NEG_INF``.  q/k/v share one
+(True = attend), masked logits are set to ``NEG_INF``.  ``masked_attention``
+sends frame-length self-attention to kernel 10 (``ops/attention_kernel.py``)
+and keeps the plain version for the rest.  q/k/v share one
 fused input projection in the ``torch.nn.MultiheadAttention`` layout
 (``in_proj_weight`` [3D, D], ``in_proj_bias`` [3D], ``out_proj``), so the
 reference checkpoints load as they are.
@@ -13,14 +15,15 @@ probabilities take dropout from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ladiff_torch.ops.cuda_common import NEG_INF, dropout_mask
+from ladiff_torch.ops.attention_kernel import (MIN_SEQ,
+                                               fused_masked_attention,
+                                               masked_attention_plain)
 
 __all__ = ["MultiHeadAttention", "masked_attention"]
 
@@ -32,23 +35,18 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ) -> torch.Tensor:
     """q [B, Sq, D], k/v [B, Sk, D] (projected); key_valid [B, Sk] bool.
     ``dropout_rate`` > 0 drops probabilities (scaled by 1 / keep) with a
-    mask drawn from ``generator``.  Returns [B, Sq, D]."""
-    B, Sq, D = q.shape
-    Sk = k.shape[1]
-    H = num_heads
-    Dh = D // H
-    qh = q.reshape(B, Sq, H, Dh).transpose(1, 2)
-    kh = k.reshape(B, Sk, H, Dh).transpose(1, 2)
-    vh = v.reshape(B, Sk, H, Dh).transpose(1, 2)
-    logits = torch.matmul(qh * (1.0 / math.sqrt(Dh)), kh.transpose(-1, -2))
-    logits = logits.float()
-    if key_valid is not None:
-        logits = logits.masked_fill(~key_valid[:, None, None, :], NEG_INF)
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    if dropout_rate > 0.0:
-        w = w * dropout_mask(w.shape, dropout_rate, w, generator)
-    out = torch.matmul(w, vh)
-    return out.transpose(1, 2).reshape(B, Sq, D)
+    mask drawn from ``generator``.  Returns [B, Sq, D].
+
+    Self-attention over at least ``MIN_SEQ`` tokens without dropout goes
+    through ``fused_masked_attention`` (kernel 10 on CUDA tensors);
+    everything else (the denoiser's 7-key stream, cross-attention into the
+    few memory rows, any dropout) is the plain version."""
+    if q.shape[1] == k.shape[1] >= MIN_SEQ and dropout_rate == 0.0:
+        return fused_masked_attention(q, k, v, key_valid,
+                                      num_heads=num_heads)
+    return masked_attention_plain(q, k, v, key_valid, num_heads=num_heads,
+                                  dropout_rate=dropout_rate,
+                                  generator=generator)
 
 
 class MultiHeadAttention(nn.Module):

@@ -1,0 +1,100 @@
+"""Kernel 10: masked multi-head self-attention of projected q, k, v, the
+attention of every inference encoder layer over a frame-length stream.
+Replaces ``ladiff_tpu/ops/pallas_attention.py`` ``pallas_masked_attention``
+(:52, ``pl.pallas_call`` at :82).
+
+    per sample and head:  logits = (q * Dh^-0.5) k^T          [S, S], f32
+                          logits += -1e9 on keys with key_valid false
+                          out    = softmax(logits) v
+
+What bounds it on the H100: at the frozen encode's shape (128 samples x 206
+tokens, D 256, 4 heads) q, k, v and the output are ~54 MB against at most
+5.6 GFLOP, under 110 FLOP per byte and so below the 295 FLOP/byte ridge:
+memory bounds it, near 0.016 ms.  The TPU kernel pads the head width to 128
+lanes and holds a whole [S, S] logit block per program; neither suits the
+card.  The CUDA version (``csrc/masked_attention.cu``, body in
+``csrc/attn_tile.cuh``, shared with K2's self-attention) runs one block per
+(sample, head, 64-query tile) and walks the keys in 64-key tiles with an
+online softmax in f32; both products are WMMA bf16 tiles with f32
+accumulation; q, k, v rows move as 16-byte vectors and each is read once
+per query tile; the scores never reach global memory.  Keys past S do not
+exist; masked keys keep the additive -1e9, so a row whose keys are all
+masked attends uniformly, as in the JAX package.
+
+It has no backward: called on CUDA tensors while a gradient is required it
+raises; layers that need a gradient take ``train_self_attention``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ladiff_torch.ops.cuda_common import (NEG_INF, check_cuda_args,
+                                          dropout_mask, launch,
+                                          register_kernel, require_no_grad)
+
+__all__ = ["fused_masked_attention", "masked_attention_plain", "MIN_SEQ"]
+
+MIN_SEQ = 64  # shorter streams keep the plain attention (one partial tile)
+
+
+def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           key_valid: Optional[torch.Tensor] = None, *,
+                           num_heads: int, dropout_rate: float = 0.0,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version.  q [B, Sq, D], k/v [B, Sk, D] (projected);
+    key_valid [B, Sk] bool.  ``dropout_rate`` > 0 drops probabilities
+    (scaled by 1 / keep) with a mask drawn from ``generator``.  Returns
+    [B, Sq, D]."""
+    B, Sq, D = q.shape
+    Sk = k.shape[1]
+    H = num_heads
+    Dh = D // H
+    qh = q.reshape(B, Sq, H, Dh).transpose(1, 2)
+    kh = k.reshape(B, Sk, H, Dh).transpose(1, 2)
+    vh = v.reshape(B, Sk, H, Dh).transpose(1, 2)
+    logits = torch.matmul(qh * (1.0 / math.sqrt(Dh)), kh.transpose(-1, -2))
+    logits = logits.float()
+    if key_valid is not None:
+        logits = logits.masked_fill(~key_valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_rate > 0.0:
+        w = w * dropout_mask(w.shape, dropout_rate, w, generator)
+    out = torch.matmul(w, vh)
+    return out.transpose(1, 2).reshape(B, Sq, D)
+
+
+@register_kernel("fused_masked_attention")
+def fused_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           key_valid: Optional[torch.Tensor] = None, *,
+                           num_heads: int) -> torch.Tensor:
+    """Kernel 10 on CUDA tensors (bf16), its plain version on CPU tensors.
+    q, k, v [B, S, D]; key_valid [B, S] bool or None.  Returns [B, S, D]."""
+    if not q.is_cuda:
+        return masked_attention_plain(q, k, v, key_valid, num_heads=num_heads)
+    require_no_grad("fused_masked_attention", [q, k, v])
+    B, S, D = q.shape
+    H = num_heads
+    if (k.shape != q.shape or v.shape != q.shape or H < 1 or D % H
+            or (D // H) % 16 or D // H > 128 or S < 1 or not 1 <= B <= 65535
+            or (key_valid is not None and key_valid.shape != (B, S))):
+        raise ValueError(
+            f"fused_masked_attention: unsupported shapes q={tuple(q.shape)} "
+            f"k={tuple(k.shape)} v={tuple(v.shape)} H={H} key_valid="
+            f"{None if key_valid is None else tuple(key_valid.shape)}")
+    tensors = {"q": q, "k": k, "v": v}
+    kv_ptr = 0
+    if key_valid is not None:
+        kvalid = key_valid.to(torch.float32).contiguous()
+        tensors["key_valid"] = kvalid
+        kv_ptr = kvalid.data_ptr()
+    check_cuda_args("fused_masked_attention", tensors, f32=("key_valid",))
+    out = torch.empty_like(q)
+    launch("masked_attention", "masked_attention_forward", q.device,
+           [q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_ptr,
+            out.data_ptr()], [B, S, D, H])
+    fused_masked_attention.launches += 1
+    return out

@@ -20,7 +20,9 @@ f32 shared memory as the accumulator of fc2 and walks the MLP width in
 256-column chunks (fc1 chunk -> quick-GELU -> bf16 -> accumulate fc2),
 because the whole fc1 output of even a 32-row tile would not fit beside it.
 Unlike the JAX package, which fuses only at S <= 32 in half precision, the
-port runs both kernels at every bucket on the card.
+port runs both kernels at every bucket on the card.  Neither has a backward
+(the tower is frozen): on CUDA tensors they raise while a gradient is
+required.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
-                                          register_kernel)
+                                          register_kernel, require_no_grad)
 
 __all__ = ["fused_ln_qkv", "fused_proj_mlp", "ln_qkv_plain",
            "proj_mlp_plain"]
@@ -71,6 +73,7 @@ def fused_ln_qkv(x, p, *, scale: float):
     Returns (q, k, v), each [M, D], with ``scale`` folded into q."""
     if not x.is_cuda:
         return ln_qkv_plain(x, p, scale=scale)
+    require_no_grad("fused_ln_qkv", [x, *[p[k] for k in _QKV_ORDER]])
     M, D = x.shape
     _check_width("fused_ln_qkv", M, D)
     check_cuda_args("fused_ln_qkv", {"x": x, **{k: p[k] for k in _QKV_ORDER}})
@@ -87,6 +90,7 @@ def fused_proj_mlp(att, x, p):
     """Kernel K4 on CUDA tensors (bf16), its plain version on CPU tensors."""
     if not x.is_cuda:
         return proj_mlp_plain(att, x, p)
+    require_no_grad("fused_proj_mlp", [att, x, *[p[k] for k in _MLP_ORDER]])
     M, D = x.shape
     Fd = p["w1"].shape[0]
     _check_width("fused_proj_mlp", M, D, Fd)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ladiff_torch.ops.attention import masked_attention
+from ladiff_torch.ops.attention_kernel import masked_attention_plain
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
 
@@ -56,13 +56,15 @@ def decoder_layer_plain(x, kvalid, mem, mvalid, p, *, T: int, H: int,
         return F.layer_norm(a, (D,), w[name + "_w"], w[name + "_b"], 1e-5)
 
     q, k, v = F.linear(xb, w["sa_in_w"], w["sa_in_b"]).split(D, dim=-1)
-    att = masked_attention(q, k, v, kvalid.reshape(B, T) > 0.5, num_heads=H)
+    att = masked_attention_plain(q, k, v, kvalid.reshape(B, T) > 0.5,
+                                 num_heads=H)
     t1 = ln(xb + F.linear(att, w["sa_out_w"], w["sa_out_b"]), "ln1")
     wq, wk, wv = w["ca_in_w"].split(D)
     bq, bk, bv = w["ca_in_b"].split(D)
     mem = mem.to(dt)
-    att2 = masked_attention(F.linear(t1, wq, bq), F.linear(mem, wk, bk),
-                            F.linear(mem, wv, bv), mvalid > 0.5, num_heads=H)
+    att2 = masked_attention_plain(
+        F.linear(t1, wq, bq), F.linear(mem, wk, bk), F.linear(mem, wv, bv),
+        mvalid > 0.5, num_heads=H)
     h = ln(t1 + F.linear(att2, w["ca_out_w"], w["ca_out_b"]), "ln2")
     act = F.relu if activation == "relu" else F.gelu
     y = F.linear(act(F.linear(h, w["w1"], w["b1"])), w["w2"], w["b2"])

@@ -73,7 +73,8 @@ def timestep_embedding(timesteps: torch.Tensor, embedding_dim: int, *,
 
 
 class TimestepEmbedding(nn.Module):
-    """Linear-SiLU-Linear MLP over the sinusoidal embedding."""
+    """Linear-SiLU-Linear MLP over the sinusoidal embedding, computed in the
+    input's type whatever type the parameters have."""
 
     def __init__(self, in_dim: int, time_embed_dim: int):
         super().__init__()
@@ -81,4 +82,9 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
-        return self.linear_2(torch.nn.functional.silu(self.linear_1(sample)))
+        F = torch.nn.functional
+        dt = sample.dtype
+        h = F.silu(F.linear(sample, self.linear_1.weight.to(dt),
+                            self.linear_1.bias.to(dt)))
+        return F.linear(h, self.linear_2.weight.to(dt),
+                        self.linear_2.bias.to(dt))

@@ -28,9 +28,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ladiff_torch.ops.attention import masked_attention
+from ladiff_torch.ops.attention_kernel import masked_attention_plain
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
-                                          register_kernel)
+                                          register_kernel, require_no_grad)
 
 __all__ = ["fused_md_layer", "md_layer_plain"]
 
@@ -61,7 +61,7 @@ def md_layer_plain(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
     lat_valid = kvalid.reshape(B, T) > 0.5
     valid = torch.cat([lat_valid, torch.ones(B, E, dtype=torch.bool,
                                              device=x.device)], dim=1)
-    att = masked_attention(q, k, v, valid, num_heads=H)
+    att = masked_attention_plain(q, k, v, valid, num_heads=H)
     h1 = ln(xb + F.linear(att, w["sa_out_w"], w["sa_out_b"]), "ln1")
     y = F.linear(F.relu(F.linear(h1, w["w1"], w["b1"])), w["w2"], w["b2"])
     x2 = ln(h1 + y, "ln2")
@@ -80,10 +80,15 @@ def md_layer_plain(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
 @register_kernel("fused_md_layer")
 def fused_md_layer(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
                    E: int, H: int) -> torch.Tensor:
-    """Kernel K1 on CUDA tensors (bf16), its plain version on CPU tensors."""
+    """Kernel K1 on CUDA tensors (bf16), its plain version on CPU tensors.
+    The kernel has no backward: on CUDA tensors it raises while a gradient
+    is required (a training-mode MD layer takes its unfused route)."""
     if not x.is_cuda:
         return md_layer_plain(x, extra, kvalid, value, ca_ss, ffn_ss, p,
                               T=T, E=E, H=H)
+    require_no_grad("fused_md_layer",
+                    [x, extra, value, ca_ss, ffn_ss,
+                     *[p[k] for k in _PARAM_ORDER]])
     BT, D = x.shape
     B = BT // T
     F1, F2 = p["w1"].shape[0], p["fw1"].shape[0]

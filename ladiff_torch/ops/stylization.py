@@ -4,10 +4,16 @@
 Parameter names follow the reference torch LADiff (``sa_block``,
 ``ca_block.{norm,text_norm,query,key,value,proj_out}``,
 ``ffn.{linear1,linear2,proj_out}``, ``proj_out.emb_layers.1`` /
-``.norm`` / ``.out_layers.2``).  With one pooled text token (the released
-configs) a whole ``MDTransformerLayer`` runs as one call of
+``.norm`` / ``.out_layers.2``).  In eval mode with one pooled text token
+(the released configs) a whole ``MDTransformerLayer`` runs as one call of
 ``fused_md_layer`` (kernel K1 on a CUDA tensor, its plain version on a CPU
-tensor).
+tensor).  In training mode it takes the unfused route, which has a backward:
+``sa_block`` with the text and time rows as ``extra_kv`` (its tail is the
+training FFN-tail kernel), then ``ca_block`` and ``ffn``, with dropout after
+each SiLU of a ``StylizationBlock`` and after the GELU of ``StylizedFFN``.
+``dropout`` adds no parameter or buffer; masks come from the ``generator``
+passed to ``forward``.  Parameters may be float32 while the activations
+are bf16: every product casts its weight to the input's type.
 """
 from __future__ import annotations
 
@@ -18,7 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ladiff_torch.ops.md_layer import fused_md_layer
-from ladiff_torch.ops.transformer import TransformerEncoderLayer, _SkipStack
+from ladiff_torch.ops.transformer import (TransformerEncoderLayer,
+                                          _cast, _drop, _SkipStack,
+                                          layer_norm, linear)
 
 __all__ = [
     "StylizationBlock",
@@ -30,34 +38,44 @@ __all__ = [
 
 
 class StylizationBlock(nn.Module):
-    """h <- out_layers(norm(h) * (1 + scale) + shift) with (scale, shift)
-    from ``emb_layers(emb)``; the last linear starts at zero."""
+    """h <- linear(drop(silu(norm(h) * (1 + scale) + shift))) with (scale,
+    shift) from ``emb_layers(emb)``; the last linear starts at zero.
+    ``out_layers`` keeps the reference's indices (SiLU, dropout, linear);
+    the dropout at index 1 is applied by ``forward`` in training mode, from
+    the caller's generator."""
 
-    def __init__(self, latent_dim: int, emb_dim: Optional[int] = None):
+    def __init__(self, latent_dim: int, emb_dim: Optional[int] = None,
+                 dropout: float = 0.0):
         super().__init__()
         D = latent_dim
+        self.dropout = dropout
         self.emb_layers = nn.Sequential(nn.SiLU(),
                                         nn.Linear(emb_dim or D, 2 * D))
         self.norm = nn.LayerNorm(D, eps=1e-5)
-        self.out_layers = nn.Sequential(nn.SiLU(), nn.Dropout(0.0),
+        self.out_layers = nn.Sequential(nn.SiLU(), nn.Identity(),
                                         nn.Linear(D, D))
         nn.init.zeros_(self.out_layers[2].weight)
         nn.init.zeros_(self.out_layers[2].bias)
 
     def scale_shift(self, emb: torch.Tensor):
-        return self.emb_layers(emb).chunk(2, dim=-1)
+        return linear(self.emb_layers[1], F.silu(emb)).chunk(2, dim=-1)
 
-    def forward(self, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         scale, shift = self.scale_shift(emb)
-        h = self.norm(h) * (1 + scale[:, None, :]) + shift[:, None, :]
-        return self.out_layers(h)
+        h = (layer_norm(self.norm, h) * (1 + scale[:, None, :])
+             + shift[:, None, :])
+        h = _drop(F.silu(h), self.dropout if self.training else 0.0,
+                  generator)
+        return linear(self.out_layers[2], h)
 
 
 class LinearTemporalCrossAttention(nn.Module):
     """Softmax-linear attention latents <- text with latent-row masking."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int,
-                 num_heads: int, emb_dim: Optional[int] = None):
+                 num_heads: int, emb_dim: Optional[int] = None,
+                 dropout: float = 0.0):
         super().__init__()
         D = latent_dim
         self.num_heads = num_heads
@@ -66,46 +84,53 @@ class LinearTemporalCrossAttention(nn.Module):
         self.query = nn.Linear(D, D)
         self.key = nn.Linear(text_latent_dim, D)
         self.value = nn.Linear(text_latent_dim, D)
-        self.proj_out = StylizationBlock(D, emb_dim)
+        self.proj_out = StylizationBlock(D, emb_dim, dropout)
 
     def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
-                latent_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                latent_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, D = x.shape
         N = xf.shape[1]
         H = self.num_heads
-        tn = self.text_norm(xf)
-        value = self.value(tn)
+        tn = layer_norm(self.text_norm, xf)
+        value = linear(self.value, tn)
         if N == 1:
             # exact collapse for one text token: softmax over one key is 1
             # and the query softmax sums to 1, so every valid row gets v
             y = value.expand(B, T, D)
         else:
-            query = torch.softmax(self.query(self.norm(x)).reshape(
-                B, T, H, -1), dim=-1)
-            key = torch.softmax(self.key(tn).reshape(B, N, H, -1), dim=1)
+            query = torch.softmax(linear(
+                self.query, layer_norm(self.norm, x)).reshape(B, T, H, -1),
+                dim=-1)
+            key = torch.softmax(linear(self.key, tn).reshape(B, N, H, -1),
+                                dim=1)
             att = torch.einsum("bnhd,bnhl->bhdl", key,
                                value.reshape(B, N, H, -1))
             y = torch.einsum("bnhd,bhdl->bnhl", query, att).reshape(B, T, D)
         if latent_valid is not None:
             y = y * latent_valid[:, :, None].to(y.dtype)
-        return x + self.proj_out(y, emb)
+        return x + self.proj_out(y, emb, generator)
 
 
 class StylizedFFN(nn.Module):
-    """GELU FFN with a zero-init second linear and stylized output."""
+    """GELU FFN (dropout after the GELU in training mode) with a zero-init
+    second linear and stylized output."""
 
     def __init__(self, latent_dim: int, ffn_dim: int,
-                 emb_dim: Optional[int] = None):
+                 emb_dim: Optional[int] = None, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = nn.Linear(latent_dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, latent_dim)
         nn.init.zeros_(self.linear2.weight)
         nn.init.zeros_(self.linear2.bias)
-        self.proj_out = StylizationBlock(latent_dim, emb_dim)
+        self.proj_out = StylizationBlock(latent_dim, emb_dim, dropout)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        y = self.linear2(F.gelu(self.linear1(x)))
-        return x + self.proj_out(y, emb)
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = _drop(F.gelu(linear(self.linear1, x)),
+                  self.dropout if self.training else 0.0, generator)
+        return x + self.proj_out(linear(self.linear2, y), emb, generator)
 
 
 class MDTransformerLayer(nn.Module):
@@ -113,15 +138,15 @@ class MDTransformerLayer(nn.Module):
     values only), then the linear cross-attention and the stylized FFN."""
 
     def __init__(self, d_model: int, text_latent_dim: int, ffn_dim: int,
-                 num_heads: int):
+                 num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         # the reference hard-codes ff 1024 + ReLU for this inner block
         self.sa_block = TransformerEncoderLayer(d_model, num_heads, 1024,
-                                                "relu")
-        self.ca_block = LinearTemporalCrossAttention(d_model, text_latent_dim,
-                                                     num_heads)
-        self.ffn = StylizedFFN(d_model, ffn_dim)
+                                                "relu", dropout)
+        self.ca_block = LinearTemporalCrossAttention(
+            d_model, text_latent_dim, num_heads, dropout=dropout)
+        self.ffn = StylizedFFN(d_model, ffn_dim, dropout=dropout)
 
     def kernel_params(self) -> dict:
         """The layer's tensors by the names ``fused_md_layer`` takes."""
@@ -150,42 +175,50 @@ class MDTransformerLayer(nn.Module):
         (scale, shift) tables, one row per time embedding.
 
         xf [B, 1, D] projected text; embs [S, D] time embeddings.  Returns
-        {"value": [B, D], "ca_ss": [S, 2D], "ffn_ss": [S, 2D]}."""
+        {"value": [B, D], "ca_ss": [S, 2D], "ffn_ss": [S, 2D], "params":
+        the kernel's parameters in xf's type}."""
         ca = self.ca_block
         tn = F.layer_norm(xf[:, 0].float(), (xf.shape[-1],),
                           ca.text_norm.weight.float(),
                           ca.text_norm.bias.float(), 1e-5).to(xf.dtype)
         sembs = F.silu(embs)
-        return {"value": ca.value(tn),
-                "ca_ss": ca.proj_out.emb_layers[1](sembs),
-                "ffn_ss": self.ffn.proj_out.emb_layers[1](sembs)}
+        return {"value": linear(ca.value, tn),
+                "ca_ss": linear(ca.proj_out.emb_layers[1], sembs),
+                "ffn_ss": linear(self.ffn.proj_out.emb_layers[1], sembs),
+                "params": _cast(self.kernel_params(), xf.dtype)}
 
     def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
                 latent_valid: Optional[torch.Tensor] = None,
                 prep: Optional[dict] = None,
-                extra_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                extra_rows: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, D]; xf [B, N, D]; emb [B, D].  ``prep``: one step's
         slice of ``compute_prep`` ("value" [B, D], "ca_ss"/"ffn_ss" [2D],
-        shared by all samples); ``extra_rows``: [B*2, D] text and time rows
-        shared by the layers of a stack."""
+        shared by all samples, optionally "params"); ``extra_rows``:
+        [B*2, D] text and time rows shared by the layers of a stack.
+        ``generator`` drives the dropout of training mode."""
         B, T, D = x.shape
-        if xf.shape[1] != 1:
+        if self.training or xf.shape[1] != 1:
             tokens_valid = None
             if latent_valid is not None:
                 tokens_valid = torch.cat([latent_valid, torch.ones(
                     B, xf.shape[1] + 1, dtype=torch.bool,
                     device=x.device)], dim=1)
             extra = torch.cat([xf, emb[:, None, :]], dim=1)
-            x = self.sa_block(x, tokens_valid, extra_kv=extra)
-            x = self.ca_block(x, xf, emb, latent_valid)
-            return self.ffn(x, emb)
+            x = self.sa_block(x, tokens_valid, extra_kv=extra,
+                              generator=generator)
+            x = self.ca_block(x, xf, emb, latent_valid, generator)
+            return self.ffn(x, emb, generator)
         if prep is None:
-            p = self.compute_prep(xf, emb)
-            value, ca_ss, ffn_ss = p["value"], p["ca_ss"], p["ffn_ss"]
+            prep = self.compute_prep(xf, emb)
+            value, ca_ss, ffn_ss = prep["value"], prep["ca_ss"], prep["ffn_ss"]
         else:
             value = prep["value"]
             ca_ss = prep["ca_ss"].reshape(1, -1)
             ffn_ss = prep["ffn_ss"].reshape(1, -1)
+        params = prep.get("params")
+        if params is None:
+            params = _cast(self.kernel_params(), x.dtype)
         if extra_rows is None:
             extra_rows = torch.cat([xf, emb[:, None, :]], dim=1).reshape(
                 B * 2, D)
@@ -196,8 +229,7 @@ class MDTransformerLayer(nn.Module):
         out = fused_md_layer(
             x.reshape(B * T, D).contiguous(), extra_rows.contiguous(),
             kvalid.contiguous(), value.contiguous(), ca_ss.contiguous(),
-            ffn_ss.contiguous(), self.kernel_params(), T=T, E=2,
-            H=self.num_heads)
+            ffn_ss.contiguous(), params, T=T, E=2, H=self.num_heads)
         return out.reshape(B, T, D)
 
 
@@ -205,10 +237,10 @@ class MDSkipTransformerEncoder(_SkipStack):
     """Skip (U-Net) encoder over MD layers."""
 
     def __init__(self, d_model: int, text_latent_dim: int, num_heads: int,
-                 num_layers: int, ffn_dim: int = 1024):
+                 num_layers: int, ffn_dim: int = 1024, dropout: float = 0.0):
         super().__init__(
             lambda: MDTransformerLayer(d_model, text_latent_dim, ffn_dim,
-                                       num_heads),
+                                       num_heads, dropout),
             d_model, num_layers)
 
     def precompute_prep(self, xf: torch.Tensor,
@@ -219,7 +251,8 @@ class MDSkipTransformerEncoder(_SkipStack):
 
     def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
                 latent_valid: Optional[torch.Tensor] = None,
-                prep: Optional[List[dict]] = None) -> torch.Tensor:
+                prep: Optional[List[dict]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """prep: one step's slice of ``precompute_prep`` (a list in
         execution order); the text and time rows are then shared by all
         layers."""
@@ -230,4 +263,5 @@ class MDSkipTransformerEncoder(_SkipStack):
                 B * 2, D)
         return self.run(x, lambda i, block, h: block(
             h, xf, emb, latent_valid,
-            prep=None if prep is None else prep[i], extra_rows=extra_rows))
+            prep=None if prep is None else prep[i], extra_rows=extra_rows,
+            generator=generator))

@@ -9,7 +9,8 @@ Parameter names follow the reference torch LADiff (``self_attn``,
 Which kernel a layer runs through (each wrapper takes its plain version on
 a CPU tensor):
 
-  encoder layer, inference   plain attention -> ``fused_postnorm_ffn``
+  encoder layer, inference   ``masked_attention`` (kernel 10 from 64
+                             tokens on) -> ``fused_postnorm_ffn``
   encoder layer, training    ``train_self_attention`` ->
                              ``train_postnorm_ffn(norm1, norm2)``
   decoder layer, inference   ``fused_decoder_layer`` (kernel K2)
@@ -19,9 +20,15 @@ a CPU tensor):
 
 ``train_self_attention`` is for streams of at least ``MIN_TOKENS`` tokens
 and plain self-attention over the layer's own rows; shorter streams and
-``extra_kv`` keep the plain attention module in training.  Training mode is
-``module.training``; dropout masks and kernel seeds come from the
-``generator`` passed to ``forward``.  Parameters may be float32 while the
+``extra_kv`` keep the plain attention module in training.
+
+A layer takes its training route when ``module.training``, and also in eval
+mode whenever autograd is recording and an input or one of its parameters
+requires a gradient (the joint stage's decode of generated latents): the
+inference kernels have no backward, while the training kernels at rate 0
+draw no masks and compute the eval-mode math with one.  Dropout masks and
+kernel seeds come from the ``generator`` passed to ``forward``, in training
+mode only.  Parameters may be float32 while the
 activations are bf16 (explicit casts at each product; the training kernels
 cast on the way in and return float32 gradients).
 """
@@ -86,29 +93,39 @@ def _cast(params: dict, dtype: torch.dtype) -> dict:
     return {k: v.to(dtype) for k, v in params.items()}
 
 
-def _train_self_attention(layer, attn: MultiHeadAttention, x: torch.Tensor,
-                          key_valid: Optional[torch.Tensor], generator):
+def _needs_grad(module: nn.Module, *tensors) -> bool:
+    """Whether autograd is recording and an input or a parameter of
+    ``module`` requires a gradient."""
+    return torch.is_grad_enabled() and (
+        any(t is not None and t.requires_grad for t in tensors)
+        or any(p.requires_grad for p in module.parameters()))
+
+
+def _train_self_attention(attn: MultiHeadAttention, x: torch.Tensor,
+                          key_valid: Optional[torch.Tensor], rate: float,
+                          generator):
     """``x + drop(self_attn(x))`` through kernel 8."""
     B, S, D = x.shape
     kv = (key_valid.reshape(B * S).float() if key_valid is not None
           else torch.ones(B * S, dtype=torch.float32, device=x.device))
     out = train_self_attention(
         x.reshape(B * S, D).contiguous(), kv.contiguous(),
-        attn.kernel_params(), H=attn.num_heads, S=S, rate=layer.dropout,
+        attn.kernel_params(), H=attn.num_heads, S=S, rate=rate,
         generator=generator)
     return out.reshape(B, S, D)
 
 
 def _ffn_tail(layer, resid: torch.Tensor, ln_a: nn.LayerNorm,
-              ln_b: nn.LayerNorm, generator) -> torch.Tensor:
-    """``ln_b(h + FFN(h))`` with ``h = ln_a(resid)``: kernel 9 in training,
-    kernel 5 at inference."""
+              ln_b: nn.LayerNorm, train_route: bool, rate: float,
+              generator) -> torch.Tensor:
+    """``ln_b(h + FFN(h))`` with ``h = ln_a(resid)``: kernel 9 on the
+    training route, kernel 5 at inference."""
     B, S, D = resid.shape
     x = resid.reshape(B * S, D).contiguous()
     p = _ffn_params(layer, ln_a, ln_b)
-    if layer.training:
+    if train_route:
         out = train_postnorm_ffn(x, p, activation=layer.activation,
-                                 rate=layer.dropout, generator=generator)
+                                 rate=rate, generator=generator)
     else:
         out = fused_postnorm_ffn(x, _cast(p, x.dtype),
                                  activation=layer.activation)
@@ -135,16 +152,18 @@ class TransformerEncoderLayer(nn.Module):
                 key_valid: Optional[torch.Tensor] = None,
                 extra_kv: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        train_route = self.training or _needs_grad(self, src, extra_kv)
         rate = self.dropout if self.training else 0.0
-        if self.training and extra_kv is None and src.shape[1] >= MIN_TOKENS:
-            resid = _train_self_attention(self, self.self_attn, src,
-                                          key_valid, generator)
+        if train_route and extra_kv is None and src.shape[1] >= MIN_TOKENS:
+            resid = _train_self_attention(self.self_attn, src, key_valid,
+                                          rate, generator)
         else:
             kv = src if extra_kv is None else torch.cat(
                 [src, extra_kv.to(src.dtype)], dim=1)
             x2 = self.self_attn(src, kv, kv, key_valid, generator=generator)
             resid = src + _drop(x2, rate, generator)
-        return _ffn_tail(self, resid, self.norm1, self.norm2, generator)
+        return _ffn_tail(self, resid, self.norm1, self.norm2, train_route,
+                         rate, generator)
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -181,28 +200,30 @@ class TransformerDecoderLayer(nn.Module):
         }
 
     def _forward_train(self, tgt, memory, tgt_key_valid, memory_key_valid,
-                       generator):
+                       rate, generator):
         if tgt.shape[1] >= MIN_TOKENS:
-            resid = _train_self_attention(self, self.self_attn, tgt,
-                                          tgt_key_valid, generator)
+            resid = _train_self_attention(self.self_attn, tgt, tgt_key_valid,
+                                          rate, generator)
         else:
             x2 = self.self_attn(tgt, tgt, tgt, tgt_key_valid,
                                 generator=generator)
-            resid = tgt + _drop(x2, self.dropout, generator)
+            resid = tgt + _drop(x2, rate, generator)
         tgt = layer_norm(self.norm1, resid)
         x2 = self.multihead_attn(tgt, memory, memory, memory_key_valid,
                                  generator=generator)
-        resid = tgt + _drop(x2, self.dropout, generator)
-        return _ffn_tail(self, resid, self.norm2, self.norm3, generator)
+        resid = tgt + _drop(x2, rate, generator)
+        return _ffn_tail(self, resid, self.norm2, self.norm3, True, rate,
+                         generator)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_key_valid: Optional[torch.Tensor] = None,
                 memory_key_valid: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        if self.training:
-            return self._forward_train(tgt, memory, tgt_key_valid,
-                                       memory_key_valid, generator)
+        if self.training or _needs_grad(self, tgt, memory):
+            return self._forward_train(
+                tgt, memory, tgt_key_valid, memory_key_valid,
+                self.dropout if self.training else 0.0, generator)
         B, T, D = tgt.shape
         L = memory.shape[1]
         kv = (tgt_key_valid if tgt_key_valid is not None

@@ -1,24 +1,32 @@
-"""Training-step benchmark of the PyTorch port: stage-1 (LA-VAE) steps per
-second on one GPU.
+"""Training-step benchmark of the PyTorch port: steps per second of the
+three training stages on one GPU.
 
     python -m ladiff_torch.train_bench [--cpu] [--breakdown]
 
-Protocol (the JAX package's ``scripts/train_bench.py``, stage ``vae_train``):
-the published HumanML3D model (9 + 9 skip layers, d 256, ff 1024, 4 heads,
-263 features, MAX_IT 5, FRAME_PER_LATENT 48, dropout 0.1), float32
-parameters and AdamW moments with bf16 compute, batch 128 of 196-frame
-motions with the length ramp ``40 + (8 i) mod 157``, the same seeded batch
-every step, random weights from a seed.  After ``WARMUP`` untimed steps,
-``ITERS`` steps are timed between two ``torch.cuda.synchronize()`` calls.
+Protocol (the JAX package's ``scripts/train_bench.py``): the published
+HumanML3D model (9 + 9 skip VAE layers and the 9-layer MD-trans denoiser,
+d 256, ff 1024, 4 heads, 263 features, MAX_IT 5, FRAME_PER_LATENT 48,
+dropout 0.1), float32 parameters and AdamW moments with bf16 compute, batch
+128 of 196-frame motions with the length ramp ``40 + (8 i) mod 157`` and
+pooled text features ``RandomState(1).randn(B, 1, 768)``, a zero
+unconditional embedding, the same seeded batch every step, random weights
+from a seed.  Stages: ``vae_train`` (the LA-VAE), ``diffusion_train`` (the
+denoiser against the frozen VAE), ``vae_diffusion_train`` (both trees, with
+the 10-step guided sampling run and the decode of its latents).  After
+``WARMUP`` untimed steps, ``ITERS`` steps are timed between two
+``torch.cuda.synchronize()`` calls.
 
-Prints one JSON line: {"stage", "batch", "ms_per_step", "samples_per_sec",
-"device", ...}.  ``--cpu`` runs the plain PyTorch paths in float32 (a
-sanity check; its numbers are not GPU numbers).  ``--breakdown`` (GPU only)
-adds a second JSON line that says where a step's time goes: device time per
-group of kernels from ``torch.profiler`` over the timed steps, the device's
-idle share, and the plain (non-kernel) parts of the step run on their own at
-the step's shapes (cross-attention, skip linears and in/out layers, loss and
-joints, AdamW), each with its device time and its host wall time.
+Prints one JSON line per stage: {"stage", "batch", "ms_per_step",
+"samples_per_sec", "device", ...}.  ``--cpu`` runs the plain PyTorch paths
+in float32 (a sanity check; its numbers are not GPU numbers).
+``--breakdown`` (GPU only) adds a second JSON line per stage that says where
+a step's time goes: device time per group of kernels from ``torch.profiler``
+over the timed steps and the device's idle share; the host's time per step in
+the step's own bookkeeping (mode switches, gradient norm, backward, AdamW)
+from ``cProfile`` over as many further steps; for ``vae_train`` also the
+plain (non-kernel) parts of the step run on their own at the step's shapes
+(cross-attention, skip linears and in/out layers, loss and joints, AdamW),
+each with its device time and its host wall time.
 """
 from __future__ import annotations
 
@@ -32,58 +40,85 @@ import numpy as np
 import torch
 
 from ladiff_torch.models.ladiff import LADiffSystem
-from ladiff_torch.training.trainer import make_optimizer, vae_train_step
+from ladiff_torch.training.trainer import (diffusion_train_step,
+                                           make_optimizer,
+                                           vae_diffusion_train_step,
+                                           vae_train_step)
 from ladiff_torch.utils.device import resolve_device
 
-__all__ = ["build", "make_batch", "measure", "breakdown", "main"]
+__all__ = ["STAGES", "build", "make_batch", "make_step", "measure",
+           "breakdown", "main"]
 
-BATCH, FRAMES, NFEATS, NJOINTS = 128, 196, 263, 22
+BATCH, FRAMES, NFEATS, NJOINTS, TEXT_DIM = 128, 196, 263, 22, 768
 DROPOUT, WARMUP, ITERS = 0.1, 2, 20
+STAGES = ("vae_train", "diffusion_train", "vae_diffusion_train")
 
 
-def build(device=None, dropout: float = DROPOUT, **overrides):
+def build(device=None, dropout: float = DROPOUT, stage: str = "vae_train",
+          **overrides):
     """The published-scale system (float32 parameters; bf16 compute on
-    CUDA) with random weights from seed 0, and its VAE optimizer."""
+    CUDA) with random weights from seed 0, and the optimizer of ``stage``:
+    over the VAE, the denoiser, or both."""
+    if stage not in STAGES:
+        raise ValueError(f"stage should be one of {STAGES}, not {stage}")
     device = resolve_device(device)
     kw = dict(nfeats=NFEATS, njoints=NJOINTS, max_frames=FRAMES,
               latent_dim=(7, 256), ff_size=1024, num_layers=9, num_heads=4,
-              text_encoded_dim=768, num_inference_timesteps=50,
+              text_encoded_dim=TEXT_DIM, num_inference_timesteps=50,
               mean=np.zeros(NFEATS, np.float32),
               std=np.ones(NFEATS, np.float32), dropout=dropout)
     kw.update(overrides)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         system = LADiffSystem(device=device, param_dtype=torch.float32, **kw)
-    return system, make_optimizer(system.vae.parameters(), 1e-4)
+    trained = {"vae_train": system.vae, "diffusion_train": system.denoiser,
+               "vae_diffusion_train": system}[stage]
+    return system, make_optimizer(trained.parameters(), 1e-4)
 
 
 def make_batch(batch: int = BATCH, frames: int = FRAMES,
                nfeats: int = NFEATS, device=None) -> Dict[str, torch.Tensor]:
-    """The fixed synthetic batch: N(0, 1) motions from numpy seed 0 and the
-    length ramp 40, 48, 56, ... wrapping inside [40, frames]."""
+    """The fixed synthetic batch: N(0, 1) motions from numpy seed 0, the
+    length ramp 40, 48, 56, ... wrapping inside [40, frames], and N(0, 1)
+    pooled text features from numpy seed 1."""
     span = max(frames - 39, 1)
     lengths = np.minimum(40 + (8 * np.arange(batch)) % span, frames)
     motion = np.random.RandomState(0).randn(batch, frames, nfeats)
+    text = np.random.RandomState(1).randn(batch, 1, TEXT_DIM)
     return {"motion": torch.as_tensor(motion.astype(np.float32),
                                       device=device),
             "length": torch.as_tensor(lengths.astype(np.int64),
-                                      device=device)}
+                                      device=device),
+            "text_emb": torch.as_tensor(text.astype(np.float32),
+                                        device=device)}
+
+
+def make_step(system, optimizer, batch,
+              stage: str = "vae_train") -> Callable[[torch.Generator], Dict]:
+    """``step(generator)``: one optimizer step of ``stage`` on ``batch``."""
+    if stage == "vae_train":
+        return lambda gen: vae_train_step(system, optimizer, batch, gen)
+    uncond = torch.zeros(1, 1, TEXT_DIM, device=system.device)
+    fn = {"diffusion_train": diffusion_train_step,
+          "vae_diffusion_train": vae_diffusion_train_step}[stage]
+    return lambda gen: fn(system, optimizer, batch, uncond, gen)
 
 
 def measure(system, optimizer, batch, iters: int = ITERS,
-            warmup: int = WARMUP) -> Dict:
-    """``warmup`` untimed steps, then ``iters`` timed ones."""
+            warmup: int = WARMUP, stage: str = "vae_train") -> Dict:
+    """``warmup`` untimed steps of ``stage``, then ``iters`` timed ones."""
     dev = system.device
     cuda = dev.type == "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
+    step = make_step(system, optimizer, batch, stage)
     for _ in range(warmup):
-        logs = vae_train_step(system, optimizer, batch, gen)
+        logs = step(gen)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(iters):
-        logs = vae_train_step(system, optimizer, batch, gen)
+        logs = step(gen)
     if cuda:
         torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / iters
@@ -97,6 +132,10 @@ def measure(system, optimizer, batch, iters: int = ITERS,
 
 # device-time groups of ``breakdown``: first matching pattern wins
 _GROUPS = (
+    ("fused_md_layer (guided sampling of the joint stage)",
+     r"md_layer_kernel"),
+    ("fused_masked_attention (frozen encode)", r"attn_tile_kernel"),
+    ("fused_postnorm_ffn (frozen encode)", r"postnorm_ffn_kernel"),
     ("train_self_attention fwd",
      r"linear_kernel|attn_fwd_kernel|out_proj_kernel"),
     ("train_self_attention bwd, without weight gradients",
@@ -131,19 +170,59 @@ def _part_ms(fn: Callable[[], None], reps: int = 5) -> Dict[str, float]:
     return {"device_ms": dev_us / reps / 1e3, "wall_ms": wall}
 
 
-def breakdown(system, optimizer, batch, iters: int = 5) -> Dict:
+# host functions of ``_host_ms``: (row name, file suffix, function name)
+_HOST_ROWS = (
+    ("Module.train (mode switches of the stage forwards)",
+     "nn/modules/module.py", "train"),
+    ("global_norm", "training/trainer.py", "global_norm"),
+    ("Tensor.backward", "torch/_tensor.py", "backward"),
+    ("optimizer.step", "torch/optim/optimizer.py", "wrapper"),
+)
+
+
+def _host_ms(step: Callable, gen: torch.Generator, iters: int) -> Dict:
+    """Host time per step under ``cProfile`` (which slows Python down, so
+    read the rows against ``profiled_wall_ms_per_step`` beside them, not
+    against an unprofiled step): cumulative ms in each ``_HOST_ROWS``
+    function, counted once where it recurses, and its calls per step."""
+    import cProfile
+    import pstats
+    sync = (torch.cuda.synchronize if gen.device.type == "cuda"
+            else lambda: None)
+    sync()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(iters):
+        step(gen)
+    sync()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    rows = {}
+    for (path, _, fn), (_, ncalls, _, cum, _) in pstats.Stats(
+            prof).stats.items():
+        for name, suffix, want in _HOST_ROWS:
+            if fn == want and path.replace("\\", "/").endswith(suffix):
+                rows[name] = {"ms": cum / iters * 1e3,
+                              "calls": ncalls / iters}
+    return {"profiled_wall_ms_per_step": wall_ms, "ms_per_step": rows}
+
+
+def breakdown(system, optimizer, batch, iters: int = 5,
+              stage: str = "vae_train") -> Dict:
     """Where a training step's time goes on the GPU (call after
     ``measure``, which leaves gradients in place for the AdamW row)."""
     from torch.profiler import ProfilerActivity, profile
     dev = system.device
     gen = torch.Generator(device=dev).manual_seed(3)
+    step = make_step(system, optimizer, batch, stage)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # device activity only: with CPU activity on, an operator's row would
     # repeat the time of the kernels it launched
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            vae_train_step(system, optimizer, batch, gen)
+            step(gen)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / iters * 1e3
     groups = {name: 0.0 for name, _ in _GROUPS}
@@ -156,6 +235,11 @@ def breakdown(system, optimizer, batch, iters: int = 5) -> Dict:
                 groups[name] += us / iters / 1e3
                 break
     device_ms = sum(groups.values())
+    out = {"profiled_wall_ms_per_step": wall_ms,
+           "device_ms_per_step": device_ms, "device_ms_by_group": groups,
+           "host_under_cprofile": _host_ms(step, gen, iters)}
+    if stage != "vae_train":
+        return out
 
     # the plain parts on their own, forward and backward, at the step's
     # shapes and in the step's types
@@ -216,10 +300,8 @@ def breakdown(system, optimizer, batch, iters: int = 5) -> Dict:
     plain["AdamW step"] = _part_ms(adamw)
     vae.eval()
     optimizer.zero_grad(set_to_none=True)
-    return {"profiled_wall_ms_per_step": wall_ms,
-            "device_ms_per_step": device_ms,
-            "device_ms_by_group": groups,
-            "plain_parts_on_their_own": plain}
+    out["plain_parts_on_their_own"] = plain
+    return out
 
 
 def main():
@@ -230,28 +312,31 @@ def main():
                     help="a second line: where the step's time goes (GPU)")
     args = ap.parse_args()
     device = "cpu" if args.cpu else None
-    system, optimizer = build(device)
-    batch = make_batch(device=system.device)
-    res = measure(system, optimizer, batch)
-    if not (np.isfinite(res["loss"]) and np.isfinite(res["grad_norm"])):
-        raise SystemExit("non-finite loss or gradient norm")
-    dev = system.device
-    print(json.dumps({
-        "stage": "vae_train", "batch": BATCH,
-        "ms_per_step": round(res["ms_per_step"], 2),
-        "samples_per_sec": round(res["samples_per_sec"], 1),
-        "loss": res["loss"], "grad_norm": res["grad_norm"],
-        "peak_mem_gb": res["peak_mem_gb"],
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-    }))
-    if args.breakdown:
-        if dev.type != "cuda":
-            raise SystemExit("--breakdown measures the GPU")
-        out = breakdown(system, optimizer, batch)
-        out["idle_share"] = (1.0 - out["device_ms_per_step"]
-                             / res["ms_per_step"])
-        print(json.dumps({"stage": "vae_train_breakdown", **out}))
+    if args.breakdown and args.cpu:
+        raise SystemExit("--breakdown measures the GPU")
+    for stage in STAGES:
+        system, optimizer = build(device, stage=stage)
+        batch = make_batch(device=system.device)
+        res = measure(system, optimizer, batch, stage=stage)
+        if not (np.isfinite(res["loss"]) and np.isfinite(res["grad_norm"])):
+            raise SystemExit(f"{stage}: non-finite loss or gradient norm")
+        dev = system.device
+        print(json.dumps({
+            "stage": stage, "batch": BATCH,
+            "ms_per_step": round(res["ms_per_step"], 2),
+            "samples_per_sec": round(res["samples_per_sec"], 1),
+            "loss": res["loss"], "grad_norm": res["grad_norm"],
+            "peak_mem_gb": res["peak_mem_gb"],
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+        }), flush=True)
+        if args.breakdown:
+            out = breakdown(system, optimizer, batch, stage=stage)
+            out["idle_share"] = (1.0 - out["device_ms_per_step"]
+                                 / res["ms_per_step"])
+            print(json.dumps({"stage": f"{stage}_breakdown", **out}),
+                  flush=True)
+        del system, optimizer, batch
 
 
 if __name__ == "__main__":

@@ -1,5 +1,10 @@
-"""Training steps (counterpart of ``ladiff_tpu/training/trainer.py``), the
-stage-1 (LA-VAE) step.
+"""Training steps (counterpart of ``ladiff_tpu/training/trainer.py``):
+stage 1 (``vae_train_step``, the LA-VAE), stage 2 (``diffusion_train_step``,
+the denoiser against the frozen VAE) and the joint stage
+(``vae_diffusion_train_step``, both trees).  Which parameters a step trains
+is the optimizer's business: stage 1 holds ``system.vae.parameters()``,
+stage 2 ``system.denoiser.parameters()``, the joint stage
+``system.parameters()``.
 
 Optimizer: ``torch.optim.AdamW`` with lr 1e-4, betas (0.9, 0.999), eps 1e-8,
 weight decay 1e-2, the same update as the JAX package's ``optax.adamw``;
@@ -23,7 +28,8 @@ import torch
 
 from ladiff_torch.models.ladiff import LADiffSystem
 
-__all__ = ["make_optimizer", "global_norm", "vae_train_step"]
+__all__ = ["make_optimizer", "global_norm", "vae_train_step",
+           "diffusion_train_step", "vae_diffusion_train_step"]
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4,
@@ -41,17 +47,11 @@ def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
-def vae_train_step(system: LADiffSystem, optimizer: torch.optim.Optimizer,
-                   batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None,
-                   eps: Optional[torch.Tensor] = None
-                   ) -> Dict[str, torch.Tensor]:
-    """One stage-1 step on ``batch`` ("motion", "length"): loss, gradients
-    of the VAE's parameters, optional clip, AdamW update.  Returns the logs
-    (detached scalars) including ``grad_norm``, the norm before clipping."""
-    optimizer.zero_grad(set_to_none=True)
-    total, (logs, _) = system.vae_forward(batch, train=True,
-                                          generator=generator, eps=eps)
+def _update(optimizer: torch.optim.Optimizer, total: torch.Tensor,
+            logs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Backward of ``total``, optional global-norm clip, AdamW update.
+    Returns the logs (detached scalars) with ``grad_norm``, the norm before
+    clipping."""
     total.backward()
     grads = [p.grad for group in optimizer.param_groups
              for p in group["params"] if p.grad is not None]
@@ -65,3 +65,49 @@ def vae_train_step(system: LADiffSystem, optimizer: torch.optim.Optimizer,
     logs = {k: v.detach() for k, v in logs.items()}
     logs["grad_norm"] = norm.detach()
     return logs
+
+
+def vae_train_step(system: LADiffSystem, optimizer: torch.optim.Optimizer,
+                   batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """One stage-1 step on ``batch`` ("motion", "length"): loss, gradients
+    of the VAE's parameters, optional clip, AdamW update.  Returns the logs
+    (detached scalars) including ``grad_norm``, the norm before clipping."""
+    optimizer.zero_grad(set_to_none=True)
+    total, (logs, _) = system.vae_forward(batch, train=True,
+                                          generator=generator, eps=eps)
+    return _update(optimizer, total, logs)
+
+
+def diffusion_train_step(system: LADiffSystem,
+                         optimizer: torch.optim.Optimizer,
+                         batch: Dict[str, torch.Tensor],
+                         uncond_emb: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         **draws: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One stage-2 step on ``batch`` ("motion", "length", "text_emb"): the
+    denoiser's noise-prediction loss with the VAE frozen (no VAE parameter
+    gets a gradient), optional clip, AdamW update.  ``draws`` are
+    ``diffusion_forward``'s optional tensors (``noise``, ``timesteps``,
+    ``cond_drop``, ``eps``)."""
+    optimizer.zero_grad(set_to_none=True)
+    total, (logs, _) = system.diffusion_forward(
+        batch, uncond_emb, train=True, generator=generator, **draws)
+    return _update(optimizer, total, logs)
+
+
+def vae_diffusion_train_step(system: LADiffSystem,
+                             optimizer: torch.optim.Optimizer,
+                             batch: Dict[str, torch.Tensor],
+                             uncond_emb: torch.Tensor,
+                             generator: Optional[torch.Generator] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """One joint-stage step on ``batch`` ("motion", "length", "text_emb"):
+    reconstruction, noise-prediction and generation losses together,
+    gradients of both trees, optional clip, AdamW update."""
+    optimizer.zero_grad(set_to_none=True)
+    total, (logs, _) = system.vae_diffusion_forward(
+        batch, uncond_emb, train=True, generator=generator)
+    return _update(optimizer, total, logs)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1..K4, the inference FFN tail, the training
-attention and FFN-tail kernels with their backwards) against their plain
+"""The port's CUDA kernels (K1..K4, the inference FFN tail and masked
+attention, the training attention and FFN-tail kernels with their
+backwards) against their plain
 PyTorch versions, on an NVIDIA GPU (marked ``cuda``; skipped where there is
 none).  Imports no JAX, so it runs on a machine that has only PyTorch and
 the CUDA toolkit:
@@ -129,6 +130,7 @@ def test_clip_layer_kernels(dev, seq):
 
 
 @pytest.mark.cuda
+@torch.no_grad()
 def test_kernels_refuse_float32(dev):
     """A CUDA tensor of another type raises; it never takes the plain
     path."""
@@ -205,25 +207,80 @@ def test_postnorm_ffn_kernel(dev, activation):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("S", [206, 64, 100])
+@torch.no_grad()
+def test_masked_attention_kernel(dev, S, masked):
+    """Kernel 10 at the encoder stream's 206 tokens (a partial last tile),
+    at one whole tile and at 100; masked keys, a sample with one valid key,
+    and no mask at all."""
+    from ladiff_torch.ops.attention import masked_attention
+    from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
+                                                   masked_attention_plain)
+    D, H = 256, 4
+    lengths = [S, 16, S // 2, 1, S - 3]
+    B = len(lengths)
+    q, k, v = (_bf(dev, B, S, D, seed=20 + i) for i in range(3))
+    valid = _mask(lengths, S, dev) > 0.5 if masked else None
+    got = fused_masked_attention(q, k, v, valid, num_heads=H)
+    want = masked_attention_plain(q.float(), k.float(), v.float(), valid,
+                                  num_heads=H)
+    assert _relerr(got, want) <= TOL
+    # the dispatch sends this shape to the kernel
+    assert torch.equal(masked_attention(q, k, v, valid, num_heads=H), got)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_masked_attention(q.float(), k.float(), v.float(), valid,
+                               num_heads=H)
+    with pytest.raises(ValueError, match="unsupported"):
+        fused_masked_attention(q, k[:, :-1], v[:, :-1], valid, num_heads=H)
+
+
+@pytest.mark.cuda
 def test_inference_kernels_refuse_a_required_gradient(dev):
-    """Kernel 5 and K2 have no backward: with autograd recording and a
-    weight that requires a gradient they raise."""
+    """The inference kernels have no backward: with autograd recording and a
+    weight or input that requires a gradient every one of them raises.  An
+    eval-mode layer in that situation takes its training route instead."""
+    from ladiff_torch.models.clip_text import CLIPTextLayer
+    from ladiff_torch.ops.attention_kernel import fused_masked_attention
+    from ladiff_torch.ops.clip_layer import fused_ln_qkv, fused_proj_mlp
+    from ladiff_torch.ops.decoder_layer import fused_decoder_layer
+    from ladiff_torch.ops.md_layer import fused_md_layer
     from ladiff_torch.ops.postnorm_ffn import fused_postnorm_ffn
+    from ladiff_torch.ops.stylization import MDTransformerLayer
     from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    bf = torch.bfloat16
     p = _ffn_params(dev)
     x = _bf(dev, 64, 256)
     p["w1"].requires_grad_()
-    with pytest.raises(RuntimeError, match="inference kernel"):
-        fused_postnorm_ffn(x, p)
-    with torch.no_grad():
-        fused_postnorm_ffn(x, p)
-    layer = TransformerDecoderLayer(256, 4, 1024, "gelu").to(
-        dev, torch.bfloat16).eval()
+    layer = TransformerDecoderLayer(256, 4, 1024, "gelu").to(dev, bf).eval()
     tgt, mem = _bf(dev, 2, 40, 256), _bf(dev, 2, 5, 256)
-    with pytest.raises(RuntimeError, match="inference kernel"):
-        layer(tgt, mem)
+    md = MDTransformerLayer(256, 256, 1024, 4).to(dev, bf).eval()
+    lat, xf, emb = _bf(dev, 2, 5, 256), _bf(dev, 2, 1, 256), _bf(dev, 2, 256)
+    cl = CLIPTextLayer(768, 12).to(dev, bf)
+    xc = _bf(dev, 32, 768)
+    q = _bf(dev, 2, 64, 256).requires_grad_()
+    calls = {
+        "fused_postnorm_ffn": lambda: fused_postnorm_ffn(x, p),
+        "fused_decoder_layer": lambda: fused_decoder_layer(
+            tgt.reshape(80, 256), torch.ones(80, device=dev), mem,
+            torch.ones(2, 5, device=dev), layer.kernel_params(), T=40, H=4),
+        "fused_md_layer": lambda: md(lat, xf, emb),
+        "fused_ln_qkv": lambda: fused_ln_qkv(xc, cl.qkv_params(),
+                                             scale=0.125),
+        "fused_proj_mlp": lambda: fused_proj_mlp(xc, xc, cl.mlp_params()),
+        "fused_masked_attention": lambda: fused_masked_attention(
+            q, q, q, num_heads=4),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} is an inference"):
+            call()
+        with torch.no_grad():
+            call()
+    out = layer(tgt, mem)  # eval mode, parameters require a gradient
+    out.float().sum().backward()
+    assert layer.linear1.weight.grad is not None
     with torch.no_grad():
-        layer(tgt, mem)
+        assert _relerr(layer(tgt, mem), out.detach()) <= TOL
 
 
 @pytest.mark.cuda
@@ -381,9 +438,51 @@ def test_default_system_takes_a_training_step_on_the_gpu(dev):
     with torch.no_grad():
         total, _ = system.vae_forward(batch, train=False, generator=gen)
     counts = cc.launch_counts()
+    assert counts["fused_masked_attention"] == 9
     assert counts["fused_postnorm_ffn"] == 9
     assert counts["fused_decoder_layer"] == 9
     assert bool(torch.isfinite(total))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["diffusion_train", "vae_diffusion_train"])
+def test_default_system_takes_a_denoiser_step_on_the_gpu(dev, stage):
+    """One AdamW step of stage 2 and of the joint stage at the trainer's
+    defaults (float32 parameters, bf16 compute, dropout 0.1): the frozen
+    encode through kernels 10 and 5, the MD layers through kernel 9, the
+    joint stage's sampling through K1 and its decodes through kernels 8 and
+    9; the frozen VAE gets no gradient in stage 2."""
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    system, opt = train_bench.build(stage=stage)
+    batch = train_bench.make_batch(4, device=system.device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = train_bench.make_step(system, opt, batch, stage)
+    before = system.denoiser.emb_proj[1].weight.detach().clone()
+    cc.reset_launch_counts()
+    logs = step(gen)
+    counts = cc.launch_counts()
+    joint = stage == "vae_diffusion_train"
+    want = {"fused_masked_attention": 9, "fused_postnorm_ffn": 9,
+            "train_postnorm_ffn": 36 if joint else 9,
+            "train_postnorm_ffn_bwd": 36 if joint else 9,
+            "train_self_attention": 27 if joint else 0,
+            "train_self_attention_bwd": 27 if joint else 0,
+            "fused_md_layer": 90 if joint else 0, "fused_decoder_layer": 0}
+    for name, n in want.items():
+        assert counts[name] == n, name
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
+    assert float(logs["grad_norm"]) > 0
+    assert not torch.equal(system.denoiser.emb_proj[1].weight, before)
+    if not joint:
+        assert all(p.grad is None for p in system.vae.parameters())
+        cc.reset_launch_counts()
+        with torch.no_grad():
+            total, _ = system.diffusion_forward(
+                batch, torch.zeros(1, 1, 768, device=dev), train=False,
+                generator=gen)
+        assert cc.launch_counts()["fused_md_layer"] == 9
+        assert bool(torch.isfinite(total))
 
 
 # -- no kernel reads outside its inputs --------------------------------------
@@ -422,6 +521,7 @@ def test_kernels_read_inside_their_inputs(dev):
     LayerNorm helpers unroll past D / 32), every input and parameter in turn
     at the end of its allocation."""
     from ladiff_torch.models.clip_text import CLIPTextLayer
+    from ladiff_torch.ops.attention_kernel import fused_masked_attention
     from ladiff_torch.ops.clip_layer import fused_ln_qkv, fused_proj_mlp
     from ladiff_torch.ops.decoder_layer import fused_decoder_layer
     from ladiff_torch.ops.md_layer import fused_md_layer
@@ -452,6 +552,12 @@ def test_kernels_read_inside_their_inputs(dev):
         _guarded_calls(lambda t, p: train_self_attention_bwd(
             t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S, rate=0.1, seed=3),
             [x, kvalid, dout, *saved], pa)
+        # kernel 10: 70 tokens, so the last 64-row tile holds 6 rows
+        S10 = 70
+        qkv = [_bf(dev, B, S10, D, seed=30 + i) for i in range(3)]
+        kv10 = _mask([S10, 20, 1], S10, dev) > 0.5  # the wrapper copies it
+        _guarded_calls(lambda t, p: fused_masked_attention(
+            *t, kv10, num_heads=H), qkv)
     # K1..K4 share the LayerNorm helper
     D, H, T, L = 256, 4, 40, 5
     dl = _randomize(TransformerDecoderLayer(D, H, 1024, "gelu"), 4).to(dev, bf)
