@@ -21,6 +21,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4. bench    the ``ladiff_torch.bench`` protocol at full width (batch 256,
             196 frames, 32-token CLIP bucket, CFG DDIM-50 + decode): launch
             counts per batch, samples/s, finite output.
+   route_kernels  kernel 11 (the whole MD stack) at 512 x 5 rows with mixed
+            lengths and again without a mask; kernels 6 (stylized FFN) and 7
+            (one-token stylize) at 2560 rows with one AdaLN row per sample
+            and one shared; kernel 5 with ReLU at the same rows (the MD
+            sa_block's tail on the per-block routes): each against its
+            plain version, timed like phase 2.
+   route_slice  the other denoiser routes at batch 4, mixed lengths, DDIM-10,
+            card against the float32 CPU with their launch counts: the
+            whole-stack route (``md_stack=True``), full-context text (9-token
+            captions through the CLIP tower's hidden states at 77 tokens),
+            and a one-token system at head width 256 (H 1), which neither
+            K1 nor K2 takes: the MD layers per block with kernel 7, the
+            decoder layers per block with kernel 5's tail.
+   route_bench  the bench protocol on the stack and full-context routes:
+            launch counts per batch, samples/s beside phase 4's.  Phase 4
+            and this one each end with one profiled batch of their route
+            (``bench.breakdown``: device time by kernel group, idle share).
 
 5. train_kernels  the inference FFN tail and masked attention and the
             training kernels (attention and FFN tail, forward and backward)
@@ -105,7 +122,22 @@ TRAIN_LOSS_TOL, TRAIN_FEATS_TOL = 1e-2, 2e-2
 TRAIN_GRAD_TOL = {"unit_std_no_joints": 6e-2, "std_0.1_all_losses": 1.5e-1}
 EXPECTED_PER_BATCH = {"fused_md_layer": 450, "fused_decoder_layer": 9,
                       "fused_ln_qkv": 12, "fused_proj_mlp": 12,
-                      "fused_postnorm_ffn": 0}
+                      "fused_postnorm_ffn": 0, "fused_md_stack": 0,
+                      "fused_stylized_ffn": 0, "fused_broadcast_stylize": 0}
+# the other generation routes per batch: the whole stack once per DDIM step;
+# with full-context text every MD layer per block (kernel 5 the sa_block
+# tail, the plain linear cross-attention, kernel 6), CLIP at 77 tokens
+EXPECTED_STACK_PER_BATCH = {
+    "fused_md_stack": 50, "fused_md_layer": 0, "fused_postnorm_ffn": 0,
+    "fused_stylized_ffn": 0, "fused_broadcast_stylize": 0,
+    "fused_decoder_layer": 9, "fused_ln_qkv": 12, "fused_proj_mlp": 12}
+EXPECTED_FULL_CONTEXT_PER_BATCH = {
+    "fused_postnorm_ffn": 450, "fused_stylized_ffn": 450,
+    "fused_md_layer": 0, "fused_broadcast_stylize": 0, "fused_md_stack": 0,
+    "fused_decoder_layer": 9, "fused_ln_qkv": 12, "fused_proj_mlp": 12}
+# kernel 5 runs on two paths, and the ``kernels`` line has a row for each
+KERNEL5_VAE_PATH = "VAE encoder layer tail, GELU, 128 x 206 rows"
+KERNEL5_MD_PATH = "MD sa_block tail, ReLU, 512 x 5 rows"
 EXPECTED_PER_STEP = {"train_self_attention": 18,
                      "train_self_attention_bwd": 18,
                      "train_postnorm_ffn": 18, "train_postnorm_ffn_bwd": 18}
@@ -162,26 +194,29 @@ def relerr(a, b) -> float:
 
 def device_ms(fn, reps: int = 20) -> float:
     """Milliseconds of device time per call of ``fn``: the sum of its CUDA
-    kernels' time from the profiler (host overhead excluded).  Fails when
-    the profiler records no device time."""
+    kernels' time from the profiler (host overhead excluded).  A window can
+    come back empty after a long profiled session (seen on an H100 after
+    the full-context breakdown's), so an empty one is taken again; fails
+    when three record no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        total_us += t
-    if not total_us > 0:
-        fail("the profiler recorded no device time")
-    return total_us / reps / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = getattr(ev, "self_cuda_time_total", 0.0)
+            total_us += t
+        if total_us > 0:
+            return total_us / reps / 1e3
+    fail("the profiler recorded no device time in three windows")
 
 
 def bound(flops: float, nbytes: float):
@@ -492,7 +527,278 @@ def phase_bench(dev):
         if per_batch.get(name) != want:
             fail(f"{name}: {per_batch.get(name)} launches per batch, "
                  f"expected {want}")
-    return counts
+    emit({"phase": "route_breakdown", "route": "default",
+          **bench.breakdown(system, tower, res["seconds_per_batch"])})
+    return counts, res["samples_per_sec"]
+
+
+def phase_route_kernels(dev):
+    """Kernels 11, 6, 7 and 5 at the shapes of the routes that run them."""
+    import torch
+    from ladiff_torch.ops.md_stack import fused_md_stack, md_stack_plain
+    from ladiff_torch.ops.postnorm_ffn import (FFN_PARAM_ORDER,
+                                               fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    from ladiff_torch.ops.stylization import (MDSkipTransformerEncoder,
+                                              MDTransformerLayer)
+    from ladiff_torch.ops.stylize import (broadcast_stylize_plain,
+                                          fused_broadcast_stylize)
+    from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
+                                               stylized_ffn_plain)
+    from ladiff_torch.utils.masks import latent_valid_mask
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, bf)
+
+    def f32(p):
+        return {k: v.float() for k, v in p.items()}
+
+    recs = []
+    D, H, F, B, T, E, L = 256, 4, 1024, 256, 5, 2, 9
+    B2, M = 2 * B, 2 * B * T
+    lat = latent_valid_mask(mixed_lengths(B), 48, T)
+    kvalid = torch.cat([lat, lat]).reshape(M).float().to(dev)
+
+    # kernel 11: the sampling step's whole stack, 2B samples (CFG doubling)
+    enc = randomize_(MDSkipTransformerEncoder(D, D, H, L, F), 41).to(dev, bf)
+    st = enc.stacked_params(bf)
+    x, extra = rnd(M, D), rnd(B2 * E, D)
+    values = rnd(L, B2, D)
+    ca_ss, ffn_ss = rnd(L, 2 * D, scale=0.3), rnd(L, 2 * D, scale=0.3)
+    a11 = (x, extra, kvalid, values, ca_ss, ffn_ss)
+    kw = dict(T=T, E=E, H=H)
+    # per layer K1's count; the skip Linears [rows, 2D] x [2D, D]
+    fl_layer = 2 * B2 * T * D * (3 * D + 3 * D + 2 * F) \
+        + 2 * B2 * E * D * 2 * D + 4 * T * D * (int(kvalid.sum()) + B2 * E) \
+        + 2 * B2 * T * 2 * F * D
+    fl11 = L * fl_layer + (L - 1) // 2 * 2 * M * 2 * D * D
+    recs.append(check_kernel(
+        "fused_md_stack", "ladiff_torch/csrc/md_stack.cu",
+        "ladiff_tpu/ops/pallas_md_stack.py:217",
+        lambda: fused_md_stack(*a11, st, **kw),
+        lambda: md_stack_plain(*[t.float() for t in a11], f32(st), **kw),
+        lambda: md_stack_plain(*a11, st, **kw),
+        fl11, nbytes(*a11, *st.values(), x),
+        extra={"blocks": -(-B2 // 6), "layers": L}))
+    ones = torch.ones(M, device=dev)
+    err_nomask = compare(
+        "fused_md_stack without a mask",
+        fused_md_stack(x, extra, ones, values, ca_ss, ffn_ss, st, **kw),
+        md_stack_plain(x.float(), extra.float(), ones, values.float(),
+                       ca_ss.float(), ffn_ss.float(), f32(st), **kw),
+        KERNEL_TOL)[0]
+    emit({"phase": "kernel_md_stack_no_mask", "rel_err": err_nomask,
+          "tol": KERNEL_TOL})
+    del enc, st
+
+    # kernels 6 and 7 at the per-block route's rows: 2B samples x 5 rows,
+    # the AdaLN rows the modules pass (one per sample) timed, a shared row
+    # compared too
+    layer = randomize_(MDTransformerLayer(D, D, F, H), 42).to(dev, bf)
+    f, cp = layer.ffn, layer.ca_block.proj_out
+    w6 = [t.detach() for t in (f.linear1.weight, f.linear1.bias,
+                               f.linear2.weight, f.linear2.bias,
+                               f.proj_out.norm.weight, f.proj_out.norm.bias,
+                               f.proj_out.out_layers[2].weight,
+                               f.proj_out.out_layers[2].bias)]
+    w7 = [t.detach() for t in (cp.norm.weight, cp.norm.bias,
+                               cp.out_layers[2].weight,
+                               cp.out_layers[2].bias)]
+    x6 = rnd(M, D)
+    value = rnd(B2, D)
+    errs = {}
+    for rows in (B2, 1):
+        ss = rnd(rows, 2 * D, scale=0.3)
+        name6 = "fused_stylized_ffn"
+        name7 = "fused_broadcast_stylize"
+        if rows == 1:
+            errs[name6] = compare(
+                f"{name6}, shared AdaLN row",
+                fused_stylized_ffn(x6, ss, *w6, T=T),
+                stylized_ffn_plain(x6.float(), ss.float(),
+                                   *[t.float() for t in w6], T=T),
+                KERNEL_TOL)[0]
+            errs[name7] = compare(
+                f"{name7}, shared AdaLN row",
+                fused_broadcast_stylize(x6, value, kvalid, ss, *w7, T=T),
+                broadcast_stylize_plain(x6.float(), value.float(), kvalid,
+                                        ss.float(),
+                                        *[t.float() for t in w7], T=T),
+                KERNEL_TOL)[0]
+            continue
+        recs.append(check_kernel(
+            name6, "ladiff_torch/csrc/stylized_ffn.cu",
+            "ladiff_tpu/ops/pallas_fused_ffn.py:68",
+            lambda: fused_stylized_ffn(x6, ss, *w6, T=T),
+            lambda: stylized_ffn_plain(x6.float(), ss.float(),
+                                       *[t.float() for t in w6], T=T),
+            lambda: stylized_ffn_plain(x6, ss, *w6, T=T),
+            2 * M * D * F * 2 + 2 * M * D * D, nbytes(x6, ss, *w6, x6)))
+        recs.append(check_kernel(
+            name7, "ladiff_torch/csrc/stylize.cu",
+            "ladiff_tpu/ops/pallas_stylize.py:43",
+            lambda: fused_broadcast_stylize(x6, value, kvalid, ss, *w7, T=T),
+            lambda: broadcast_stylize_plain(
+                x6.float(), value.float(), kvalid, ss.float(),
+                *[t.float() for t in w7], T=T),
+            lambda: broadcast_stylize_plain(x6, value, kvalid, ss, *w7, T=T),
+            2 * M * D * D, nbytes(x6, value, kvalid, ss, *w7, x6)))
+    emit({"phase": "kernels_shared_adaln_row", "rel_err": errs,
+          "tol": KERNEL_TOL})
+
+    # kernel 5 as the per-block route runs it: the sa_block's tail, ReLU,
+    # ff 1024, at the same 2560 rows
+    sa = layer.sa_block
+    pf = {"ln1_w": sa.norm1.weight, "ln1_b": sa.norm1.bias,
+          "w1": sa.linear1.weight, "b1": sa.linear1.bias,
+          "w2": sa.linear2.weight, "b2": sa.linear2.bias,
+          "ln2_w": sa.norm2.weight, "ln2_b": sa.norm2.bias}
+    pf = {k: pf[k].detach() for k in FFN_PARAM_ORDER}
+    F5 = sa.linear1.out_features
+    x5 = rnd(M, D)
+    rec = check_kernel(
+        "fused_postnorm_ffn", "ladiff_torch/csrc/postnorm_ffn.cu",
+        "ladiff_tpu/ops/pallas_postnorm_ffn.py:64",
+        lambda: fused_postnorm_ffn(x5, pf, activation="relu"),
+        lambda: postnorm_ffn_plain(x5.float(), f32(pf), activation="relu"),
+        lambda: postnorm_ffn_plain(x5, pf, activation="relu"),
+        4 * M * D * F5, nbytes(x5, *pf.values(), x5),
+        extra={"path": KERNEL5_MD_PATH})
+    rec["path"] = KERNEL5_MD_PATH
+    recs.append(rec)
+    return recs
+
+
+def phase_route_slice(dev):
+    """The other denoiser routes at batch 4: card (kernels, bf16) against
+    the CPU (plain versions, float32) from the same weights, text and
+    initial noise, with each route's launch counts."""
+    import torch
+    from ladiff_torch.models.clip_text import CLIPTextTower
+    from ladiff_torch.models.ladiff import LADiffSystem
+    from ladiff_torch.ops import cuda_common as cc
+
+    B, steps = 4, 10
+    lengths = torch.tensor([16, 60, 123, 196])
+    g = torch.Generator().manual_seed(7)
+    pooled = torch.randn(B, 1, 768, generator=g)
+    uncond = 0.1 * torch.randn(B, 1, 768, generator=g)
+    init = torch.randn(B, 5, 256, generator=g)
+    # 9-token captions (SOT, 7 ids, EOT) at the 77-token context
+    ids = torch.zeros(B, 77, dtype=torch.long)
+    ids[:, 0], ids[:, 8] = 49406, 49407
+    ids[:, 1:8] = torch.randint(1, 49405, (B, 7), generator=g)
+    tower = randomize_(CLIPTextTower(), 23).eval()
+    hidden = tower(ids, return_hidden=True)
+    hidden_card = tower.to(dev, torch.bfloat16)(ids.to(dev),
+                                                return_hidden=True)
+    tower_err = relerr(hidden_card.float().cpu(), hidden)
+    del tower
+    tol = 1e-1  # phase_slice's: bf16 through 10 guided steps
+    per_step = 9 * steps
+    cases = {
+        "md_stack": (dict(md_stack=True), pooled, uncond,
+                     {"fused_md_stack": steps, "fused_md_layer": 0,
+                      "fused_stylized_ffn": 0, "fused_broadcast_stylize": 0,
+                      "fused_postnorm_ffn": 0}),
+        "full_context": (dict(), hidden, torch.zeros(B, 77, 768),
+                         {"fused_postnorm_ffn": per_step,
+                          "fused_stylized_ffn": per_step,
+                          "fused_md_layer": 0, "fused_broadcast_stylize": 0,
+                          "fused_md_stack": 0}),
+        # neither K1 nor K2 takes head width 256: the MD layers and the
+        # 9 decoder layers run per block, each decoder layer's tail kernel 5
+        "one_token_head_width_256": (
+            dict(num_heads=1), pooled, uncond,
+            {"fused_broadcast_stylize": per_step,
+             "fused_stylized_ffn": per_step,
+             "fused_postnorm_ffn": per_step + 9, "fused_md_layer": 0,
+             "fused_md_stack": 0, "fused_decoder_layer": 0,
+             "fused_masked_attention": 0})}
+    out, counts_all = {}, {}
+    for case, (extra_kw, cond, unc, expected) in cases.items():
+        kw = dict(nfeats=263, njoints=22, max_frames=196,
+                  latent_dim=(7, 256), ff_size=1024, num_layers=9,
+                  num_heads=4, text_encoded_dim=768, guidance_scale=7.5,
+                  num_inference_timesteps=steps)
+        kw.update(extra_kw)
+        cpu = randomize_(LADiffSystem(device="cpu", **kw), 21)
+        gpu = LADiffSystem(device=dev, dtype=torch.bfloat16, **kw)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        f_cpu, z_cpu = cpu.generate(cond, unc, lengths, init_latents=init)
+        cc.reset_launch_counts()
+        f_gpu, z_gpu = gpu.generate(cond, unc, lengths, init_latents=init)
+        torch.cuda.synchronize()
+        counts = cc.launch_counts()
+        rec = {"latents_rel_err": relerr(z_gpu.float().cpu(), z_cpu),
+               "feats_rel_err": relerr(f_gpu.float().cpu(), f_cpu),
+               "padded_frames_zero": not bool(f_gpu[0, 16:].any()),
+               "launches": {k: v for k, v in counts.items() if v}}
+        ok = (rec["latents_rel_err"] <= tol and rec["feats_rel_err"] <= tol
+              and rec["padded_frames_zero"]
+              and bool(torch.isfinite(z_gpu).all())
+              and bool(torch.isfinite(f_gpu).all()))
+        out[case] = rec
+        if not ok:
+            fail(f"route slice {case} disagrees with the CPU: {rec}")
+        for name, want in expected.items():
+            if counts.get(name) != want:
+                fail(f"route slice {case}: {name}: {counts.get(name)} "
+                     f"launches, expected {want}")
+        counts_all[case] = counts
+        del cpu, gpu
+    emit({"phase": "route_slice", "batch": B, "steps": steps,
+          "lengths": lengths.tolist(), "tol": tol,
+          "clip_hidden_rel_err": tower_err, "cases": out})
+    if not tower_err <= tol:
+        fail(f"CLIP hidden states on the card: rel err {tower_err}")
+    return counts_all
+
+
+def phase_route_bench(dev, default_sps):
+    """The bench protocol on the stack and the full-context routes."""
+    import torch
+    from ladiff_torch import bench
+    from ladiff_torch.ops import cuda_common as cc
+
+    batches = 2
+    sps = {"default": default_sps}
+    counts_all = {}
+    for route, md_stack, full, expected in (
+            ("md_stack", True, False, EXPECTED_STACK_PER_BATCH),
+            ("full_context", False, True, EXPECTED_FULL_CONTEXT_PER_BATCH)):
+        system, tower = bench.build(dev, md_stack=md_stack)
+        cc.reset_launch_counts()
+        res = bench.measure(system, tower, batches=batches,
+                            full_context=full)
+        counts = cc.launch_counts()
+        per_batch = {k: v / (bench.WARMUP + batches)
+                     for k, v in counts.items()}
+        sps[route] = res["samples_per_sec"]
+        emit({"phase": "route_bench", "route": route, "batch": bench.BATCH,
+              "steps": bench.STEPS, "batches": batches,
+              "samples_per_sec": res["samples_per_sec"],
+              "seconds_per_batch": res["seconds_per_batch"],
+              "launches_per_batch": per_batch, "finite": res["finite"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if not res["finite"] or res["shape"] != [bench.BATCH, bench.FRAMES,
+                                                 bench.NFEATS]:
+            fail(f"{route}: non-finite features or shape {res['shape']}")
+        for name, want in expected.items():
+            if per_batch.get(name) != want:
+                fail(f"{route}: {name}: {per_batch.get(name)} launches per "
+                     f"batch, expected {want}")
+        counts_all[route] = counts
+        emit({"phase": "route_breakdown", "route": route,
+              **bench.breakdown(system, tower, res["seconds_per_batch"],
+                                full)})
+        del system, tower
+    emit({"phase": "routes_samples_per_sec", "batch": bench.BATCH,
+          "steps": bench.STEPS, "samples_per_sec": sps})
+    return counts_all
 
 
 def phase_train_kernels(dev):
@@ -553,13 +859,15 @@ def phase_train_kernels(dev):
     # kernel 5
     gb = 4 * M * D * F
     p_bytes = nbytes(*pf.values())
-    recs.append(check_kernel(
+    rec = check_kernel(
         "fused_postnorm_ffn", "ladiff_torch/csrc/postnorm_ffn.cu",
         "ladiff_tpu/ops/pallas_postnorm_ffn.py:64",
         lambda: fused_postnorm_ffn(x, pf, activation="gelu"),
         lambda: postnorm_ffn_plain(x.float(), f32(pf), activation="gelu"),
         lambda: postnorm_ffn_plain(x, pf, activation="gelu"),
-        gb, nbytes(x, x) + p_bytes))
+        gb, nbytes(x, x) + p_bytes, extra={"path": KERNEL5_VAE_PATH})
+    rec["path"] = KERNEL5_VAE_PATH
+    recs.append(rec)
 
     # kernel 10: projected q, k, v of the encoder stream; every query
     # against its sample's valid keys (masked keys are not needed work)
@@ -1153,7 +1461,10 @@ def main():
     with torch.no_grad():
         recs = phase_kernels(dev)
         phase_slice(dev)
-        counts = phase_bench(dev)
+        counts, default_sps = phase_bench(dev)
+        route_recs = phase_route_kernels(dev)
+        slice_counts = phase_route_slice(dev)
+        route_counts = phase_route_bench(dev, default_sps)
         train_recs = phase_train_kernels(dev)
     phase_train_slice(dev)
     train_counts = phase_train_bench(dev)
@@ -1161,9 +1472,20 @@ def main():
     diffusion_counts = phase_diffusion_bench(dev)
     # each kernel's launches on the path that runs it: generation for K1-K4,
     # the stage-1 training steps and their validation pass for kernels 5, 8
-    # and 9, the stage-2 and joint steps for kernel 10
+    # and 9, the stage-2 and joint steps for kernel 10; the stack route for
+    # kernel 11, the full-context route for kernel 6 and for kernel 5 as
+    # the MD sa_block's tail, the one-token per-block route (head width
+    # 256) for kernel 7
     for rec in recs:
         rec["launches"] = counts[rec["name"]]
+    route_path = {"fused_md_stack": route_counts["md_stack"],
+                  "fused_stylized_ffn": route_counts["full_context"],
+                  "fused_postnorm_ffn": route_counts["full_context"],
+                  "fused_broadcast_stylize":
+                      slice_counts["one_token_head_width_256"]}
+    for rec in route_recs:
+        rec["launches"] = route_path[rec["name"]][rec["name"]]
+    recs += route_recs
     for rec in train_recs:
         path = (diffusion_counts if rec["name"] == "fused_masked_attention"
                 else train_counts)

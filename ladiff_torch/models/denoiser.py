@@ -14,7 +14,7 @@ parameters' (float32 parameters, bf16 compute).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -65,18 +65,32 @@ class LADenoiser(nn.Module):
 
     def project_text(self, encoder_hidden_states: torch.Tensor
                      ) -> torch.Tensor:
-        """[B, N, 768] pooled text features -> [B, N, D]; step-invariant."""
+        """[B, N, 768] text features (pooled, N = 1, or the full context)
+        -> [B, N, D]; step-invariant."""
         text = encoder_hidden_states.to(self.dtype)
         if text.shape[-1] == self.d_model:
             return text
         return linear(self.emb_proj[1], F.relu(text))
 
     def precompute_md_prep(self, text_emb_latent: torch.Tensor,
-                           time_table: torch.Tensor) -> List[dict]:
+                           time_table: torch.Tensor,
+                           with_params: bool = True) -> List[dict]:
         """Per-layer text values [B, D] and AdaLN rows for every sampling
         step [S, 2D] (see ``MDTransformerLayer.compute_prep``)."""
         return self.encoder.precompute_prep(text_emb_latent.to(self.dtype),
-                                            time_table.to(self.dtype))
+                                            time_table.to(self.dtype),
+                                            with_params)
+
+    def precompute_md_stack(self) -> dict:
+        """The stacked [L, ...] layer tensors, skip Linears and final
+        LayerNorm for the whole-stack kernel, in the activations' type;
+        built once before a sampling loop."""
+        return self.encoder.stacked_params(self.dtype)
+
+    def stack_md_prep(self, prep_all: List[dict]):
+        """``precompute_md_prep`` laid out for the whole-stack kernel:
+        values [L, B, D] and AdaLN tables [S, L, 2D]."""
+        return self.encoder.stack_prep(prep_all)
 
     def forward(self, sample: torch.Tensor,
                 timesteps: Optional[torch.Tensor] = None,
@@ -84,7 +98,7 @@ class LADenoiser(nn.Module):
                 latent_valid: Optional[torch.Tensor] = None,
                 time_emb: Optional[torch.Tensor] = None,
                 text_emb_latent: Optional[torch.Tensor] = None,
-                md_prep: Optional[List[dict]] = None,
+                md_prep: Optional[Union[List[dict], dict]] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """sample [B, n_lat, D] noisy latents -> predicted noise."""
         sample = sample.to(self.dtype)

@@ -11,7 +11,9 @@ decode -> features (-> joints).  Training, three stages:
     short guided sampling run (no gradient) and an eval-mode decode of its
     latents whose gradients reach the decoder.
 
-Text condition, LA-VAE latents and epsilon prediction only.
+Text condition, LA-VAE latents and epsilon prediction only.  The text is
+either pooled CLIP features [B, 1, 768] (the published configurations) or
+the full context [B, 77, 768] (``last_hidden_state``).
 
 ``dtype`` is the compute type (bf16 on CUDA, the kernels' type) and
 ``param_dtype`` the parameters' storage type, the same unless given: the
@@ -20,7 +22,11 @@ trainer keeps float32 parameters and computes in bf16.
 The state dict carries ``vae.*`` and ``denoiser.*`` keys in the reference
 torch LADiff layout.  ``diffusion_reverse`` computes the step-invariant work
 once before the step loop: the text projection, the timestep-embedding
-table of every DDIM step, and each MD layer's text value and AdaLN rows.
+table of every step and, with one text token, each MD layer's text value
+and AdaLN rows.  The sampler is DDIM (``eta`` 0 or above) or ancestral DDPM
+(``scheduler_kind``).  ``md_stack=True`` runs the denoiser's whole skip
+stack as one launch of kernel 11 per step (the JAX package's
+``LADIFF_MD_STACK=1``); off by default, as there.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from ladiff_torch.losses.mld import (LossWeights, diffusion_loss, smooth_l1,
                                      vae_loss)
 from ladiff_torch.models.denoiser import LADenoiser
 from ladiff_torch.models.vae import LAVae
+from ladiff_torch.ops.md_layer import md_layer_supported
 from ladiff_torch.utils.device import resolve_device, resolve_dtype
 from ladiff_torch.utils.masks import latent_valid_mask
 
@@ -70,9 +77,20 @@ class LADiffSystem(nn.Module):
                  dropout: float = 0.0, dvae: bool = False,
                  percentage_noised: float = 0.0,
                  weights: Optional[LossWeights] = None,
+                 eta: float = 0.0, scheduler_kind: str = "ddim",
+                 md_stack: bool = False,
                  device=None, dtype: Optional[torch.dtype] = None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        D = int(latent_dim[-1])
+        if md_stack and not (num_layers % 2 and md_layer_supported(
+                1, max_it, 2, D, num_heads, 1024, ff_size)):
+            raise ValueError(
+                "md_stack: the whole-stack kernel does not take the denoiser "
+                f"shape T={max_it} E=2 D={D} H={num_heads} F=1024,{ff_size} "
+                f"L={num_layers}")
+        if scheduler_kind not in ("ddim", "ddpm"):
+            raise ValueError(f"unknown scheduler kind {scheduler_kind}")
         device = resolve_device(device)
         dtype = resolve_dtype(device, dtype)
         self.dtype = dtype
@@ -85,6 +103,9 @@ class LADiffSystem(nn.Module):
         self.guidance_scale = guidance_scale
         self.guidance_uncondp = guidance_uncondp
         self.num_inference_timesteps = num_inference_timesteps
+        self.eta = eta
+        self.scheduler_kind = scheduler_kind
+        self.md_stack = md_stack
         self.schedule = make_schedule(num_train_timesteps)
         self.vae = LAVae(nfeats, latent_dim, ff_size, num_layers, num_heads,
                          max_it, frame_per_latent, dropout=dropout,
@@ -118,9 +139,11 @@ class LADiffSystem(nn.Module):
                           lengths: torch.Tensor,
                           generator: Optional[torch.Generator] = None,
                           num_inference_timesteps: Optional[int] = None,
-                          init_latents: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
-        """CFG DDIM sampling of latents [B, max_it, D] (float32)."""
+                          init_latents: Optional[torch.Tensor] = None,
+                          return_trajectory: bool = False):
+        """CFG sampling of latents [B, max_it, D] (float32); with
+        ``return_trajectory`` also every step's latents [steps, B, max_it,
+        D]."""
         B = text_emb_cond.shape[0]
         D = self.latent_dim[-1]
         dev = self.device
@@ -131,18 +154,39 @@ class LADiffSystem(nn.Module):
         den = self.denoiser
         text_cond = den.project_text(text_emb_cond.to(dev))
         text_uncond = den.project_text(text_emb_uncond.to(dev))
-        ts, _ = ddim_timesteps(self.schedule.num_train_timesteps, steps, 1)
+        ts, _ = ddim_timesteps(self.schedule.num_train_timesteps, steps,
+                               1 if self.scheduler_kind == "ddim" else 0)
         time_table = den.compute_time_embedding(
             torch.as_tensor(ts.astype(np.int64), device=dev))
         text2 = (torch.cat([text_uncond, text_cond], dim=0)
                  if self.guidance_scale > 1.0 else text_cond)
-        prep_all = den.precompute_md_prep(text2, time_table)
+
+        # the MD layers' step-invariant prep exists for one text token only
+        # (the collapsed cross-attention); the stack takes it laid out by
+        # layer, with the stacked tensors beside it
+        md_rows = stack = None
+        if self.md_stack and text2.shape[1] != 1:
+            raise ValueError("md_stack: the whole-stack kernel takes one "
+                             f"text token, got {text2.shape[1]}")
+        if text2.shape[1] == 1:
+            prep_all = den.precompute_md_prep(text2, time_table,
+                                              with_params=not self.md_stack)
+            if self.md_stack:
+                values, ca_t, ffn_t = den.stack_md_prep(prep_all)
+                stack = {"params": den.precompute_md_stack(),
+                         "values": values}
+                md_rows = (ca_t, ffn_t)
 
         def denoise(latents, step, text, valid):
             time_emb = time_table[step][None].expand(latents.shape[0], -1)
-            md_prep = [{"value": p["value"], "ca_ss": p["ca_ss"][step],
-                        "ffn_ss": p["ffn_ss"][step], "params": p["params"]}
-                       for p in prep_all]
+            md_prep = None
+            if stack is not None:
+                md_prep = {"stack": {**stack, "ca_ss": md_rows[0][step],
+                                     "ffn_ss": md_rows[1][step]}}
+            elif text.shape[1] == 1:
+                md_prep = [{"value": p["value"], "ca_ss": p["ca_ss"][step],
+                            "ffn_ss": p["ffn_ss"][step],
+                            "params": p["params"]} for p in prep_all]
             return den(latents, latent_valid=valid, time_emb=time_emb,
                        text_emb_latent=text, md_prep=md_prep)
 
@@ -150,7 +194,9 @@ class LADiffSystem(nn.Module):
                                      self.guidance_scale)
         return ddim_sample(guided, self.schedule, (B, self.max_it, D), steps,
                            latent_valid=lat_valid, generator=generator,
-                           init_latents=init_latents, device=dev)
+                           init_latents=init_latents, device=dev,
+                           eta=self.eta, kind=self.scheduler_kind,
+                           return_trajectory=return_trajectory)
 
     @torch.no_grad()
     def generate(self, text_emb_cond: torch.Tensor,
@@ -160,8 +206,9 @@ class LADiffSystem(nn.Module):
                  num_inference_timesteps: Optional[int] = None,
                  init_latents: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pooled text embeddings [B, 1, 768] -> (features [B, nframes,
-        nfeats], latents [B, max_it, D])."""
+        """Text embeddings, pooled [B, 1, 768] or the full context [B, N,
+        768] (``last_hidden_state``), the unconditional ones of the same
+        shape -> (features [B, nframes, nfeats], latents [B, max_it, D])."""
         z = self.diffusion_reverse(text_emb_cond, text_emb_uncond, lengths,
                                    generator, num_inference_timesteps,
                                    init_latents)

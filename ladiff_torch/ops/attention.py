@@ -2,10 +2,11 @@
 
 Batch-first [B, S, D] tensors; padding is a boolean key-validity mask
 (True = attend), masked logits are set to ``NEG_INF``.  ``masked_attention``
-sends frame-length self-attention to kernel 10 (``ops/attention_kernel.py``)
-and keeps the plain version for the rest.  q/k/v share one
-fused input projection in the ``torch.nn.MultiheadAttention`` layout
-(``in_proj_weight`` [3D, D], ``in_proj_bias`` [3D], ``out_proj``), so the
+sends frame-length self-attention of a shape kernel 10 takes to it
+(``ops/attention_kernel.py``) and keeps the plain version for the rest.
+q/k/v share one fused input projection in the
+``torch.nn.MultiheadAttention`` layout (``in_proj_weight`` [3D, D],
+``in_proj_bias`` [3D], ``out_proj``), so the
 reference checkpoints load as they are.
 
 Parameters may be stored in another float type than the activations (the
@@ -23,7 +24,8 @@ from torch import nn
 
 from ladiff_torch.ops.attention_kernel import (MIN_SEQ,
                                                fused_masked_attention,
-                                               masked_attention_plain)
+                                               masked_attention_plain,
+                                               masked_attention_supported)
 
 __all__ = ["MultiHeadAttention", "masked_attention"]
 
@@ -37,11 +39,14 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dropout_rate`` > 0 drops probabilities (scaled by 1 / keep) with a
     mask drawn from ``generator``.  Returns [B, Sq, D].
 
-    Self-attention over at least ``MIN_SEQ`` tokens without dropout goes
-    through ``fused_masked_attention`` (kernel 10 on CUDA tensors);
-    everything else (the denoiser's 7-key stream, cross-attention into the
-    few memory rows, any dropout) is the plain version."""
-    if q.shape[1] == k.shape[1] >= MIN_SEQ and dropout_rate == 0.0:
+    Self-attention over at least ``MIN_SEQ`` tokens without dropout, of a
+    shape kernel 10 takes (``masked_attention_supported``), goes through
+    ``fused_masked_attention`` (kernel 10 on CUDA tensors); everything else
+    (the denoiser's 7-key stream, cross-attention into the few memory rows,
+    any dropout, a head width above 128) is the plain version."""
+    B, S, D = q.shape
+    if (S == k.shape[1] >= MIN_SEQ and dropout_rate == 0.0
+            and masked_attention_supported(B, S, D, num_heads)):
         return fused_masked_attention(q, k, v, key_valid,
                                       num_heads=num_heads)
     return masked_attention_plain(q, k, v, key_valid, num_heads=num_heads,

@@ -35,7 +35,8 @@ from ladiff_torch.ops.cuda_common import (NEG_INF, check_cuda_args,
                                           dropout_mask, launch,
                                           register_kernel, require_no_grad)
 
-__all__ = ["fused_masked_attention", "masked_attention_plain", "MIN_SEQ"]
+__all__ = ["fused_masked_attention", "masked_attention_plain",
+           "masked_attention_supported", "MIN_SEQ"]
 
 MIN_SEQ = 64  # shorter streams keep the plain attention (one partial tile)
 
@@ -67,6 +68,14 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).reshape(B, Sq, D)
 
 
+def masked_attention_supported(B: int, S: int, D: int, H: int) -> bool:
+    """Whether kernel 10 takes B samples of S tokens, width D, H heads: a
+    head width that is a multiple of 16 up to 128 (the attention tile's),
+    at most 65535 samples (the grid's)."""
+    return (H >= 1 and D % H == 0 and (D // H) % 16 == 0 and D // H <= 128
+            and S >= 1 and 1 <= B <= 65535)
+
+
 @register_kernel("fused_masked_attention")
 def fused_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_valid: Optional[torch.Tensor] = None, *,
@@ -78,8 +87,8 @@ def fused_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require_no_grad("fused_masked_attention", [q, k, v])
     B, S, D = q.shape
     H = num_heads
-    if (k.shape != q.shape or v.shape != q.shape or H < 1 or D % H
-            or (D // H) % 16 or D // H > 128 or S < 1 or not 1 <= B <= 65535
+    if (k.shape != q.shape or v.shape != q.shape
+            or not masked_attention_supported(B, S, D, H)
             or (key_valid is not None and key_valid.shape != (B, S))):
         raise ValueError(
             f"fused_masked_attention: unsupported shapes q={tuple(q.shape)} "

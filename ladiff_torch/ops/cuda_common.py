@@ -38,7 +38,8 @@ NEG_INF = -1e9  # additive key mask; large finite keeps bf16 softmax safe
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("md_layer", "decoder_layer", "clip_layer", "postnorm_ffn",
-           "train_ffn", "train_attention", "masked_attention")
+           "train_ffn", "train_attention", "masked_attention", "md_stack",
+           "stylized_ffn", "stylize")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -34,12 +34,21 @@ from ladiff_torch.ops.attention_kernel import masked_attention_plain
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
 
-__all__ = ["fused_decoder_layer", "decoder_layer_plain"]
+__all__ = ["fused_decoder_layer", "decoder_layer_plain",
+           "decoder_layer_supported"]
 
 _ACT = {"relu": 0, "gelu": 1}
 _PARAM_ORDER = ("sa_in_w", "sa_in_b", "sa_out_w", "sa_out_b", "ln1_w",
                 "ln1_b", "ca_in_w", "ca_in_b", "ca_out_w", "ca_out_b",
                 "ln2_w", "ln2_b", "w1", "b1", "w2", "b2", "ln3_w", "ln3_b")
+
+
+def decoder_layer_supported(D: int, H: int, F: int, activation: str) -> bool:
+    """Whether K2 takes a layer of width D, H heads, FFN width F: D a
+    multiple of 32 up to 256, a head width that is a multiple of 16 up to
+    128 (the attention tile's), F a multiple of 32, ReLU or GELU."""
+    return (D % 32 == 0 and D <= 256 and D % H == 0 and (D // H) % 16 == 0
+            and D // H <= 128 and F % 32 == 0 and activation in _ACT)
 
 
 def decoder_layer_plain(x, kvalid, mem, mvalid, p, *, T: int, H: int,
@@ -85,9 +94,7 @@ def fused_decoder_layer(x, kvalid, mem, mvalid, p, *, T: int, H: int,
     BT, D = x.shape
     B, L = mem.shape[0], mem.shape[1]
     Fd = p["w1"].shape[0]
-    Dh = D // H
-    if (BT != B * T or D % 32 or Fd % 32 or D % H or Dh % 16 or Dh > 128
-            or D > 256 or activation not in _ACT):
+    if BT != B * T or not decoder_layer_supported(D, H, Fd, activation):
         raise ValueError(f"fused_decoder_layer: unsupported shape B={B} T={T}"
                          f" D={D} H={H} F={Fd} activation={activation}")
     check_cuda_args("fused_decoder_layer",

@@ -21,7 +21,9 @@ rows), the whole layer in one launch with every intermediate in shared
 memory; products are WMMA bf16 tiles with f32 accumulation, weights are
 read straight from global memory (L2-resident across blocks), the 7-key
 attention is a warp-per-(row, head) online softmax, LayerNorms are
-warp-per-row in f32.  CUDA graphs for the 450 launches are a later step.
+warp-per-row in f32.  The layer body (``csrc/md_layer_body.cuh``) is
+shared with kernel 11, which runs the whole skip stack in one launch.
+CUDA graphs for the 450 launches are a later step.
 """
 from __future__ import annotations
 
@@ -32,12 +34,24 @@ from ladiff_torch.ops.attention_kernel import masked_attention_plain
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
 
-__all__ = ["fused_md_layer", "md_layer_plain"]
+__all__ = ["fused_md_layer", "md_layer_plain", "md_layer_supported"]
 
 _PARAM_ORDER = ("sa_in_w", "sa_in_b", "sa_out_w", "sa_out_b", "ln1_w",
                 "ln1_b", "w1", "b1", "w2", "b2", "ln2_w", "ln2_b",
                 "ca_ln_w", "ca_ln_b", "ca_w", "ca_b", "fw1", "fb1", "fw2",
                 "fb2", "f_ln_w", "f_ln_b", "fp_w", "fp_b")
+
+
+def md_layer_supported(B: int, T: int, E: int, D: int, H: int, F1: int,
+                       F2: int) -> bool:
+    """Whether K1 (and kernel 11, which runs K1's layer body) takes a layer
+    of this shape: B samples of T latent rows and E extra rows, width D, H
+    heads, FFN widths F1 (the ReLU block) and F2 (the stylized one).  Whole
+    samples of at most 32 rows of each kind in a block, D a multiple of 32
+    up to 256, head width up to 128 (a warp's four values per lane)."""
+    return (B >= 1 and 1 <= T <= 32 and 1 <= E <= 32 and D % 32 == 0
+            and D <= 256 and D % H == 0 and D // H <= 128 and F1 % 32 == 0
+            and F2 % 32 == 0)
 
 
 def md_layer_plain(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
@@ -92,11 +106,9 @@ def fused_md_layer(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
     BT, D = x.shape
     B = BT // T
     F1, F2 = p["w1"].shape[0], p["fw1"].shape[0]
-    Dh = D // H
     rows = ca_ss.shape[0], ffn_ss.shape[0]
     if (BT != B * T or extra.shape != (B * E, D) or value.shape != (B, D)
-            or T > 32 or E > 32 or D % 32 or D > 256 or D % H or Dh > 128
-            or T < 1 or E < 1 or F1 % 32 or F2 % 32
+            or not md_layer_supported(B, T, E, D, H, F1, F2)
             or any(r not in (1, B) for r in rows)):
         raise ValueError(f"fused_md_layer: unsupported shape B={B} T={T} "
                          f"E={E} D={D} H={H} F={F1},{F2} ss rows={rows}")

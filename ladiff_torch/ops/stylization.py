@@ -4,29 +4,48 @@
 Parameter names follow the reference torch LADiff (``sa_block``,
 ``ca_block.{norm,text_norm,query,key,value,proj_out}``,
 ``ffn.{linear1,linear2,proj_out}``, ``proj_out.emb_layers.1`` /
-``.norm`` / ``.out_layers.2``).  In eval mode with one pooled text token
-(the released configs) a whole ``MDTransformerLayer`` runs as one call of
-``fused_md_layer`` (kernel K1 on a CUDA tensor, its plain version on a CPU
-tensor).  In training mode it takes the unfused route, which has a backward:
-``sa_block`` with the text and time rows as ``extra_kv`` (its tail is the
-training FFN-tail kernel), then ``ca_block`` and ``ffn``, with dropout after
-each SiLU of a ``StylizationBlock`` and after the GELU of ``StylizedFFN``.
-``dropout`` adds no parameter or buffer; masks come from the ``generator``
-passed to ``forward``.  Parameters may be float32 while the activations
-are bf16: every product casts its weight to the input's type.
+``.norm`` / ``.out_layers.2``).  Each kernel wrapper takes its plain version
+on a CPU tensor.  Routes of an ``MDTransformerLayer``, chosen from shapes
+before any launch (as the JAX package's gate):
+
+  eval, one text token, a shape K1 takes (``md_layer_supported``; every
+      published configuration)      the whole layer as ``fused_md_layer``
+                                    (kernel K1)
+  eval, otherwise (full-context text, or e.g. a head width above 128)
+                                    per block: ``sa_block`` with the text and
+                                    time rows as ``extra_kv`` (its tail is
+                                    kernel 5), ``ca_block`` (kernel 7 with one
+                                    token, the plain linear attention with
+                                    more), ``ffn`` (kernel 6)
+  training                          the same blocks with their training
+                                    routes, which have a backward (the
+                                    sa_block tail is kernel 9), with dropout
+                                    after each SiLU of a ``StylizationBlock``
+                                    and after the GELU of ``StylizedFFN``
+
+``MDSkipTransformerEncoder`` also runs the whole stack as one launch of
+``fused_md_stack`` (kernel 11) when given a stack prep (``stacked_params``,
+``stack_prep``).  As the encoder and decoder layers do, ``ca_block`` and
+``ffn`` take their training route in eval mode too while autograd records a
+gradient.  ``dropout`` adds no parameter or buffer; masks come from the
+``generator`` passed to ``forward``.  Parameters may be float32 while the
+activations are bf16: every product casts its weight to the input's type.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ladiff_torch.ops.md_layer import fused_md_layer
+from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_supported
+from ladiff_torch.ops.md_stack import fused_md_stack, stack_md_params
+from ladiff_torch.ops.stylize import fused_broadcast_stylize
+from ladiff_torch.ops.stylized_ffn import fused_stylized_ffn
 from ladiff_torch.ops.transformer import (TransformerEncoderLayer,
-                                          _cast, _drop, _SkipStack,
-                                          layer_norm, linear)
+                                          _cast, _drop, _needs_grad,
+                                          _SkipStack, layer_norm, linear)
 
 __all__ = [
     "StylizationBlock",
@@ -57,8 +76,12 @@ class StylizationBlock(nn.Module):
         nn.init.zeros_(self.out_layers[2].weight)
         nn.init.zeros_(self.out_layers[2].bias)
 
+    def ss_rows(self, emb: torch.Tensor) -> torch.Tensor:
+        """[..., 2D] AdaLN (scale, shift) rows of the embeddings."""
+        return linear(self.emb_layers[1], F.silu(emb))
+
     def scale_shift(self, emb: torch.Tensor):
-        return linear(self.emb_layers[1], F.silu(emb)).chunk(2, dim=-1)
+        return self.ss_rows(emb).chunk(2, dim=-1)
 
     def forward(self, h: torch.Tensor, emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -71,7 +94,8 @@ class StylizationBlock(nn.Module):
 
 
 class LinearTemporalCrossAttention(nn.Module):
-    """Softmax-linear attention latents <- text with latent-row masking."""
+    """Softmax-linear attention latents <- text with latent-row masking; at
+    inference with one text token the collapsed block is kernel 7."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int,
                  num_heads: int, emb_dim: Optional[int] = None,
@@ -94,6 +118,17 @@ class LinearTemporalCrossAttention(nn.Module):
         H = self.num_heads
         tn = layer_norm(self.text_norm, xf)
         value = linear(self.value, tn)
+        if N == 1 and not (self.training or _needs_grad(self, x, xf, emb)):
+            p = self.proj_out
+            mask = (latent_valid.reshape(B * T).float() if latent_valid
+                    is not None else torch.ones(B * T, device=x.device))
+            out = fused_broadcast_stylize(
+                x.reshape(B * T, D).contiguous(), value[:, 0].contiguous(),
+                mask.contiguous(), p.ss_rows(emb).contiguous(),
+                *_cast({"ln_w": p.norm.weight, "ln_b": p.norm.bias,
+                        "w": p.out_layers[2].weight,
+                        "b": p.out_layers[2].bias}, x.dtype).values(), T=T)
+            return out.reshape(B, T, D)
         if N == 1:
             # exact collapse for one text token: softmax over one key is 1
             # and the query softmax sums to 1, so every valid row gets v
@@ -114,7 +149,7 @@ class LinearTemporalCrossAttention(nn.Module):
 
 class StylizedFFN(nn.Module):
     """GELU FFN (dropout after the GELU in training mode) with a zero-init
-    second linear and stylized output."""
+    second linear and stylized output; kernel 6 at inference."""
 
     def __init__(self, latent_dim: int, ffn_dim: int,
                  emb_dim: Optional[int] = None, dropout: float = 0.0):
@@ -128,6 +163,18 @@ class StylizedFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not (self.training or _needs_grad(self, x, emb)):
+            B, T, D = x.shape
+            p = self.proj_out
+            w = _cast({"w1": self.linear1.weight, "b1": self.linear1.bias,
+                       "w2": self.linear2.weight, "b2": self.linear2.bias,
+                       "ln_w": p.norm.weight, "ln_b": p.norm.bias,
+                       "w3": p.out_layers[2].weight,
+                       "b3": p.out_layers[2].bias}, x.dtype)
+            out = fused_stylized_ffn(x.reshape(B * T, D).contiguous(),
+                                     p.ss_rows(emb).contiguous(),
+                                     *w.values(), T=T)
+            return out.reshape(B, T, D)
         y = _drop(F.gelu(linear(self.linear1, x)),
                   self.dropout if self.training else 0.0, generator)
         return x + self.proj_out(linear(self.linear2, y), emb, generator)
@@ -169,23 +216,34 @@ class MDTransformerLayer(nn.Module):
             "fp_b": f.proj_out.out_layers[2].bias,
         }
 
-    def compute_prep(self, xf: torch.Tensor, embs: torch.Tensor) -> dict:
-        """Step-invariant pieces of the fused path, computed once before a
+    def takes_whole_layer(self, x: torch.Tensor, xf: torch.Tensor) -> bool:
+        """Whether the layer runs as K1 (``fused_md_layer``): eval mode, one
+        text token, and a shape K1 takes."""
+        B, T, D = x.shape
+        return (not self.training and xf.shape[1] == 1
+                and md_layer_supported(B, T, 2, D, self.num_heads,
+                                       self.sa_block.linear1.out_features,
+                                       self.ffn.linear1.out_features))
+
+    def compute_prep(self, xf: torch.Tensor, embs: torch.Tensor,
+                     with_params: bool = True) -> dict:
+        """Step-invariant pieces of the fused paths, computed once before a
         sampling loop: the collapsed text value per sample and both AdaLN
         (scale, shift) tables, one row per time embedding.
 
         xf [B, 1, D] projected text; embs [S, D] time embeddings.  Returns
-        {"value": [B, D], "ca_ss": [S, 2D], "ffn_ss": [S, 2D], "params":
-        the kernel's parameters in xf's type}."""
+        {"value": [B, D], "ca_ss": [S, 2D], "ffn_ss": [S, 2D]} and, with
+        ``with_params``, "params": K1's parameters in xf's type."""
         ca = self.ca_block
         tn = F.layer_norm(xf[:, 0].float(), (xf.shape[-1],),
                           ca.text_norm.weight.float(),
                           ca.text_norm.bias.float(), 1e-5).to(xf.dtype)
-        sembs = F.silu(embs)
-        return {"value": linear(ca.value, tn),
-                "ca_ss": linear(ca.proj_out.emb_layers[1], sembs),
-                "ffn_ss": linear(self.ffn.proj_out.emb_layers[1], sembs),
-                "params": _cast(self.kernel_params(), xf.dtype)}
+        prep = {"value": linear(ca.value, tn),
+                "ca_ss": ca.proj_out.ss_rows(embs),
+                "ffn_ss": self.ffn.proj_out.ss_rows(embs)}
+        if with_params:
+            prep["params"] = _cast(self.kernel_params(), xf.dtype)
+        return prep
 
     def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
                 latent_valid: Optional[torch.Tensor] = None,
@@ -194,11 +252,12 @@ class MDTransformerLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, D]; xf [B, N, D]; emb [B, D].  ``prep``: one step's
         slice of ``compute_prep`` ("value" [B, D], "ca_ss"/"ffn_ss" [2D],
-        shared by all samples, optionally "params"); ``extra_rows``:
-        [B*2, D] text and time rows shared by the layers of a stack.
-        ``generator`` drives the dropout of training mode."""
+        shared by all samples, optionally "params"), read by the K1 route
+        only; ``extra_rows``: [B*2, D] text and time rows shared by the
+        layers of a stack.  ``generator`` drives the dropout of training
+        mode."""
         B, T, D = x.shape
-        if self.training or xf.shape[1] != 1:
+        if not self.takes_whole_layer(x, xf):
             tokens_valid = None
             if latent_valid is not None:
                 tokens_valid = torch.cat([latent_valid, torch.ones(
@@ -234,7 +293,8 @@ class MDTransformerLayer(nn.Module):
 
 
 class MDSkipTransformerEncoder(_SkipStack):
-    """Skip (U-Net) encoder over MD layers."""
+    """Skip (U-Net) encoder over MD layers; with a stack prep the whole
+    stack is one launch of kernel 11."""
 
     def __init__(self, d_model: int, text_latent_dim: int, num_heads: int,
                  num_layers: int, ffn_dim: int = 1024, dropout: float = 0.0):
@@ -243,19 +303,57 @@ class MDSkipTransformerEncoder(_SkipStack):
                                        num_heads, dropout),
             d_model, num_layers)
 
-    def precompute_prep(self, xf: torch.Tensor,
-                        embs: torch.Tensor) -> List[dict]:
+    def precompute_prep(self, xf: torch.Tensor, embs: torch.Tensor,
+                        with_params: bool = True) -> List[dict]:
         """``compute_prep`` of every layer, in execution order."""
-        return [block.compute_prep(xf, embs)
+        return [block.compute_prep(xf, embs, with_params)
                 for block in self.ordered_blocks()]
+
+    def stacked_params(self, dtype: torch.dtype) -> dict:
+        """The stack's tensors for ``fused_md_stack`` in ``dtype``
+        (``stack_md_params``), built once before a sampling loop."""
+        return stack_md_params(
+            [block.kernel_params() for block in self.ordered_blocks()],
+            self.linear_blocks, self.norm, dtype)
+
+    def stack_prep(self, prep_all: List[dict]):
+        """``precompute_prep(..., with_params=False)`` laid out for kernel
+        11: values [L, B, D] (step-invariant) and the AdaLN tables [S, L,
+        2D] (one [L, 2D] slice per step)."""
+        values = torch.stack([p["value"] for p in prep_all])
+        ca_ss = torch.stack([p["ca_ss"] for p in prep_all], dim=1)
+        ffn_ss = torch.stack([p["ffn_ss"] for p in prep_all], dim=1)
+        return values, ca_ss, ffn_ss
+
+    def _stack_forward(self, x, xf, emb, latent_valid, stack: dict):
+        """The whole stack (layers, skips, final LN) as kernel 11."""
+        B, T, D = x.shape
+        if self.training or xf.shape[1] != 1:
+            raise ValueError("the whole-stack route takes one text token in "
+                             f"eval mode, got {xf.shape[1]} tokens, "
+                             f"training={self.training}")
+        extra = torch.cat([xf, emb[:, None, :]], dim=1).reshape(B * 2, D)
+        kvalid = (latent_valid.reshape(B * T).float()
+                  if latent_valid is not None
+                  else torch.ones(B * T, device=x.device))
+        out = fused_md_stack(
+            x.reshape(B * T, D).contiguous(), extra.contiguous(),
+            kvalid.contiguous(), stack["values"],
+            stack["ca_ss"].contiguous(), stack["ffn_ss"].contiguous(),
+            stack["params"], T=T, E=2, H=self.middle_block.num_heads)
+        return out.reshape(B, T, D)
 
     def forward(self, x: torch.Tensor, xf: torch.Tensor, emb: torch.Tensor,
                 latent_valid: Optional[torch.Tensor] = None,
-                prep: Optional[List[dict]] = None,
+                prep: Optional[Union[List[dict], dict]] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """prep: one step's slice of ``precompute_prep`` (a list in
-        execution order); the text and time rows are then shared by all
-        layers."""
+        execution order; the text and time rows are then shared by all
+        layers), or {"stack": {"params": ``stacked_params``, "values" [L,
+        B, D], "ca_ss" / "ffn_ss" [L, 2D]}} for the whole-stack kernel."""
+        if isinstance(prep, dict):
+            return self._stack_forward(x, xf, emb, latent_valid,
+                                       prep["stack"])
         B, _, D = x.shape
         extra_rows = None
         if prep is not None:

@@ -13,7 +13,11 @@ a CPU tensor):
                              tokens on) -> ``fused_postnorm_ffn``
   encoder layer, training    ``train_self_attention`` ->
                              ``train_postnorm_ffn(norm1, norm2)``
-  decoder layer, inference   ``fused_decoder_layer`` (kernel K2)
+  decoder layer, inference   ``fused_decoder_layer`` (kernel K2) where
+                             ``decoder_layer_supported``; otherwise (e.g. a
+                             head width above 128) per block:
+                             ``masked_attention`` -> norm1 -> plain
+                             cross-attention -> ``fused_postnorm_ffn``
   decoder layer, training    ``train_self_attention`` -> norm1 -> plain
                              cross-attention into the few memory rows ->
                              ``train_postnorm_ffn(norm2, norm3)``
@@ -42,7 +46,8 @@ from torch import nn
 
 from ladiff_torch.ops.attention import MultiHeadAttention
 from ladiff_torch.ops.cuda_common import dropout_mask
-from ladiff_torch.ops.decoder_layer import fused_decoder_layer
+from ladiff_torch.ops.decoder_layer import (decoder_layer_supported,
+                                            fused_decoder_layer)
 from ladiff_torch.ops.postnorm_ffn import fused_postnorm_ffn
 from ladiff_torch.ops.train_attention import MIN_TOKENS, train_self_attention
 from ladiff_torch.ops.train_ffn import train_postnorm_ffn
@@ -199,9 +204,18 @@ class TransformerDecoderLayer(nn.Module):
             "ln3_w": self.norm3.weight, "ln3_b": self.norm3.bias,
         }
 
-    def _forward_train(self, tgt, memory, tgt_key_valid, memory_key_valid,
-                       rate, generator):
-        if tgt.shape[1] >= MIN_TOKENS:
+    def takes_whole_layer(self) -> bool:
+        """Whether the layer runs as K2 at inference: a shape K2 takes."""
+        return decoder_layer_supported(self.linear1.in_features,
+                                       self.num_heads,
+                                       self.linear1.out_features,
+                                       self.activation)
+
+    def _forward_blocks(self, tgt, memory, tgt_key_valid, memory_key_valid,
+                        train_route, rate, generator):
+        """The layer block by block: the training route (kernels 8 and 9)
+        or, at inference, ``masked_attention`` and kernel 5."""
+        if train_route and tgt.shape[1] >= MIN_TOKENS:
             resid = _train_self_attention(self.self_attn, tgt, tgt_key_valid,
                                           rate, generator)
         else:
@@ -212,17 +226,18 @@ class TransformerDecoderLayer(nn.Module):
         x2 = self.multihead_attn(tgt, memory, memory, memory_key_valid,
                                  generator=generator)
         resid = tgt + _drop(x2, rate, generator)
-        return _ffn_tail(self, resid, self.norm2, self.norm3, True, rate,
-                         generator)
+        return _ffn_tail(self, resid, self.norm2, self.norm3, train_route,
+                         rate, generator)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_key_valid: Optional[torch.Tensor] = None,
                 memory_key_valid: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        if self.training or _needs_grad(self, tgt, memory):
-            return self._forward_train(
-                tgt, memory, tgt_key_valid, memory_key_valid,
+        train_route = self.training or _needs_grad(self, tgt, memory)
+        if train_route or not self.takes_whole_layer():
+            return self._forward_blocks(
+                tgt, memory, tgt_key_valid, memory_key_valid, train_route,
                 self.dropout if self.training else 0.0, generator)
         B, T, D = tgt.shape
         L = memory.shape[1]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1..K4, the inference FFN tail and masked
 attention, the training attention and FFN-tail kernels with their
-backwards) against their plain
+backwards, the whole MD stack, the stylized FFN and the one-token
+stylize) against their plain
 PyTorch versions, on an NVIDIA GPU (marked ``cuda``; skipped where there is
 none).  Imports no JAX, so it runs on a machine that has only PyTorch and
 the CUDA toolkit:
@@ -580,3 +581,139 @@ def test_kernels_read_inside_their_inputs(dev):
                    {k: v.detach() for k, v in cl.qkv_params().items()})
     _guarded_calls(lambda t, p: fused_proj_mlp(t[0], t[1], p), [ac, xc],
                    {k: v.detach() for k, v in cl.mlp_params().items()})
+
+
+# -- generation's other routes: kernels 11, 6 and 7 --------------------------
+
+def _route_setup(dev, D=256, H=4, L=5, B=37, T=5, seed=21):
+    """A randomized MD layer and skip stack, bf16, and their inputs: B
+    samples (a partial last sample block) with mixed lengths."""
+    from ladiff_torch.ops.stylization import (MDSkipTransformerEncoder,
+                                              MDTransformerLayer)
+    bf = torch.bfloat16
+    enc = _randomize(MDSkipTransformerEncoder(D, D, H, L, 1024), seed).to(
+        dev, bf)
+    layer = _randomize(MDTransformerLayer(D, D, 1024, H), seed + 1).to(
+        dev, bf)
+    kvalid = _mask(np.random.RandomState(seed).randint(1, T + 1, B), T,
+                   dev).reshape(-1).contiguous()
+    f, cp = layer.ffn, layer.ca_block.proj_out
+    w6 = [t.detach() for t in (f.linear1.weight, f.linear1.bias,
+                               f.linear2.weight, f.linear2.bias,
+                               f.proj_out.norm.weight, f.proj_out.norm.bias,
+                               f.proj_out.out_layers[2].weight,
+                               f.proj_out.out_layers[2].bias)]
+    w7 = [t.detach() for t in (cp.norm.weight, cp.norm.bias,
+                               cp.out_layers[2].weight,
+                               cp.out_layers[2].bias)]
+    return enc, layer, kvalid, w6, w7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+@torch.no_grad()
+def test_md_stack_kernel(dev, masked):
+    """Kernel 11 over a 5-layer stack (two skips) against its float32
+    plain version; 37 samples leave a partial last block."""
+    from ladiff_torch.ops.md_stack import fused_md_stack, md_stack_plain
+    D, H, L, B, T, E = 256, 4, 5, 37, 5, 2
+    enc, _, kvalid, _, _ = _route_setup(dev, D, H, L, B, T)
+    if not masked:
+        kvalid = torch.ones_like(kvalid)
+    st = enc.stacked_params(torch.bfloat16)
+    args = (_bf(dev, B * T, D), _bf(dev, B * E, D, seed=12), kvalid,
+            _bf(dev, L, B, D, seed=13), _bf(dev, L, 2 * D, seed=14, scale=0.3),
+            _bf(dev, L, 2 * D, seed=15, scale=0.3))
+    got = fused_md_stack(*args, st, T=T, E=E, H=H)
+    want = md_stack_plain(*[a.float() for a in args], _f32(st), T=T, E=E,
+                          H=H)
+    assert _relerr(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_rows", [True, False])
+@torch.no_grad()
+def test_stylize_kernels(dev, shared_rows):
+    """Kernels 6 and 7 against their float32 plain versions, with one AdaLN
+    row per sample and one shared row; 185 rows leave a partial block."""
+    from ladiff_torch.ops.stylize import (broadcast_stylize_plain,
+                                          fused_broadcast_stylize)
+    from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
+                                               stylized_ffn_plain)
+    D, B, T = 256, 37, 5
+    _, _, kvalid, w6, w7 = _route_setup(dev, D, B=B, T=T)
+    x, value = _bf(dev, B * T, D), _bf(dev, B, D, seed=12)
+    ss = _bf(dev, 1 if shared_rows else B, 2 * D, seed=13, scale=0.3)
+    up = lambda ts: [t.float() for t in ts]
+    assert _relerr(fused_stylized_ffn(x, ss, *w6, T=T),
+                   stylized_ffn_plain(x.float(), ss.float(), *up(w6), T=T)
+                   ) <= TOL
+    assert _relerr(fused_broadcast_stylize(x, value, kvalid, ss, *w7, T=T),
+                   broadcast_stylize_plain(x.float(), value.float(), kvalid,
+                                           ss.float(), *up(w7), T=T)) <= TOL
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_route_kernels_read_inside_their_inputs(dev):
+    """Kernels 11, 6 and 7 with every input and parameter in turn at the end
+    of its allocation; 8 samples of 5 rows leave a partial sample block and
+    a partial 32-row block; D 128 and 256; 6 and 7 with an AdaLN row per
+    sample and with one shared row."""
+    from ladiff_torch.ops.md_stack import fused_md_stack
+    from ladiff_torch.ops.stylize import fused_broadcast_stylize
+    from ladiff_torch.ops.stylized_ffn import fused_stylized_ffn
+    B, T, E, L = 8, 5, 2, 3
+    for D, H in ((256, 4), (128, 2)):
+        enc, _, kvalid, w6, w7 = _route_setup(dev, D, H, L, B, T)
+        st = enc.stacked_params(torch.bfloat16)
+        args = [_bf(dev, B * T, D), _bf(dev, B * E, D, seed=12), kvalid,
+                _bf(dev, L, B, D, seed=13),
+                _bf(dev, L, 2 * D, seed=14, scale=0.3),
+                _bf(dev, L, 2 * D, seed=15, scale=0.3)]
+        _guarded_calls(lambda t, p: fused_md_stack(*t, p, T=T, E=E, H=H),
+                       args, st)
+        x = _bf(dev, B * T, D)
+        for rows in (B, 1):  # an AdaLN row per sample, one shared row
+            ss = _bf(dev, rows, 2 * D, seed=16, scale=0.3)
+            _guarded_calls(lambda t, p: fused_stylized_ffn(
+                t[0], t[1], *t[2:], T=T), [x, ss, *w6])
+            _guarded_calls(lambda t, p: fused_broadcast_stylize(
+                *t[:4], *t[4:], T=T),
+                [x, _bf(dev, B, D, seed=17), kvalid, ss, *w7])
+
+
+@pytest.mark.cuda
+def test_route_kernels_refuse_a_required_gradient(dev):
+    """Kernels 11, 6 and 7 raise while autograd records a gradient; the
+    eval-mode stylization blocks then take their training route, and the
+    gradient reaches their parameters."""
+    from ladiff_torch.ops.md_stack import fused_md_stack
+    from ladiff_torch.ops.stylize import fused_broadcast_stylize
+    from ladiff_torch.ops.stylized_ffn import fused_stylized_ffn
+    D, H, L, B, T, E = 256, 4, 3, 4, 5, 2
+    enc, layer, kvalid, w6, w7 = _route_setup(dev, D, H, L, B, T)
+    st = enc.stacked_params(torch.bfloat16)
+    x = _bf(dev, B * T, D).requires_grad_()
+    ss = _bf(dev, B, 2 * D, seed=13, scale=0.3)
+    value = _bf(dev, B, D, seed=12)
+    calls = {
+        "fused_md_stack": lambda: fused_md_stack(
+            x, _bf(dev, B * E, D), kvalid, _bf(dev, L, B, D),
+            _bf(dev, L, 2 * D), _bf(dev, L, 2 * D), st, T=T, E=E, H=H),
+        "fused_stylized_ffn": lambda: fused_stylized_ffn(x, ss, *w6, T=T),
+        "fused_broadcast_stylize": lambda: fused_broadcast_stylize(
+            x, value, kvalid, ss, *w7, T=T),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} is an inference"):
+            call()
+        with torch.no_grad():
+            call()
+    layer.eval()
+    lat, emb = _bf(dev, B, T, D), _bf(dev, B, D, seed=18)
+    xf = _bf(dev, B, 1, D, seed=19)
+    out = layer.ffn(lat, emb) + layer.ca_block(lat, xf, emb)
+    out.float().sum().backward()
+    assert layer.ffn.linear1.weight.grad is not None
+    assert layer.ca_block.proj_out.out_layers[2].weight.grad is not None
