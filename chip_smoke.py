@@ -77,7 +77,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
             peak memory, launch counts per step; the stage-2 validation pass
             and its launch counts.
 
+10. whole_layer_kernels  kernels 12 and 13 (the whole-layer training
+            kernels) at the stage-1 configuration's shapes, 64 x 206 encoder
+            rows and 64 x 196 decoder rows with 5 memory rows (1 to 5
+            valid), mixed lengths: each against its float32 plain version,
+            at dropout 0 and 0.1 (the kernel's masks given to the plain
+            version), every gradient on its own, the memory's too; timed at
+            batch 64, compared again at 128 and 3; the memory gradient's
+            bits equal over two runs.
+11. whole_layer_slice  ``train_slice`` on the whole-layer route, with its
+            launch counts (9 + 9 of kernel 12, 9 + 9 of kernel 13, none of
+            kernels 8 and 9).
+12. gated_slice  VAEs the training kernels refuse (head width 128; d 512 /
+            ff 2048): card against CPU, then one training step that
+            launches none of the refused kernels.
+13. whole_layer_bench  ``train_bench``'s stage 1 on the split and the
+            whole-layer routes in turns: ms per step side by side.
+14. train_entry  the training entry point at the published stage-1
+            configuration: 2 epochs x 3 steps with a checkpoint per epoch,
+            a resume, stage 2 booting the VAE from those checkpoints,
+            ``ladiff_torch.demo``; launch counts per step, losses, the
+            demo's joints.
+
 Then a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+``--only PHASE[,PHASE]`` runs the build and the named phases alone (a short
+check of a new kernel) and prints no ``ok`` line.
 Imports nothing of JAX; needs one CUDA device.
 """
 from __future__ import annotations
@@ -176,6 +200,22 @@ EXPECTED_PER_JOINT_STEP = {
 # held the same way and the VAE's are printed beside their control.
 DIFF_LOSS_TOL = 1e-2
 DIFF_GRAD_RATIO, DIFF_GRAD_FLOOR = 1.3, 2e-2
+# the whole-layer route's stage-1 step: kernel 12 in each of the 9 encoder
+# layers and kernel 13 in each of the 9 decoder layers, forward and backward
+EXPECTED_WHOLE_LAYER_PER_STEP = {
+    "train_encoder_layer": 9, "train_encoder_layer_bwd": 9,
+    "train_decoder_layer": 9, "train_decoder_layer_bwd": 9,
+    "train_self_attention": 0, "train_self_attention_bwd": 0,
+    "train_postnorm_ffn": 0, "train_postnorm_ffn_bwd": 0}
+# the phases in the order they run, each with whether autograd records
+PHASES = (("kernels", False), ("slice", False), ("bench", False),
+          ("route_kernels", False), ("route_slice", False),
+          ("route_bench", False), ("train_kernels", False),
+          ("whole_layer_kernels", False), ("train_slice", True),
+          ("whole_layer_slice", True), ("gated_slice", True),
+          ("train_bench", True), ("whole_layer_bench", True),
+          ("diffusion_slice", True), ("diffusion_bench", True),
+          ("train_entry", True))
 
 
 def emit(obj):
@@ -758,8 +798,9 @@ def phase_route_slice(dev):
     return counts_all
 
 
-def phase_route_bench(dev, default_sps):
-    """The bench protocol on the stack and the full-context routes."""
+def phase_route_bench(dev, default_sps=None):
+    """The bench protocol on the stack and the full-context routes (beside
+    the default route's samples/s where ``phase_bench`` ran)."""
     import torch
     from ladiff_torch import bench
     from ladiff_torch.ops import cuda_common as cc
@@ -1072,15 +1113,87 @@ def phase_train_kernels(dev):
     return recs
 
 
+def _vae_loss_and_grads(system, batch, eps, std, lambda_joint):
+    """``vae_forward``'s loss and every VAE gradient (float32, on the CPU)
+    in training mode at the given feature std and joints-loss weight."""
+    import torch
+    from ladiff_torch.losses.mld import LossWeights
+    system.std.fill_(std)
+    system.weights = LossWeights(lambda_joint=lambda_joint)
+    system.zero_grad(set_to_none=True)
+    total, _ = system.vae_forward(batch, train=True, eps=eps)
+    total.backward()
+    return float(total.detach()), {
+        n: p.grad.detach().float().cpu()
+        for n, p in system.vae.named_parameters()}
+
+
+# case: (feature std, joints-loss weight); see phase_train_slice
+SLICE_CASES = {"unit_std_no_joints": (1.0, 0.0),
+               "std_0.1_all_losses": (0.1, 1.0),
+               "unit_std_all_losses": (1.0, 1.0)}
+
+
+def _against_cpu(name, system, batch, eps, case, want_loss, want, tol=None):
+    """One system's loss and gradients against the float32 CPU run's, each
+    gradient tensor on its own; fails beyond ``tol`` (a number, or a
+    tolerance per tensor name; None: reported only).  Returns the record
+    and the error of each tensor."""
+    import numpy as np
+    import torch
+    loss, grads = _vae_loss_and_grads(system, batch, eps, *SLICE_CASES[case])
+    errs = {n: relerr(grads[n], w) for n, w in want.items()}
+    worst = max(errs, key=errs.get)
+    finite = all(bool(torch.isfinite(t).all()) for t in grads.values())
+    rec = {"loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+           "worst_grad_rel_err": errs[worst], "worst_grad": worst,
+           "median_grad_rel_err": float(np.median(list(errs.values()))),
+           "n_grad_tensors": len(errs)}
+    if tol is None:
+        return rec, errs
+    tols = tol if isinstance(tol, dict) else {n: tol for n in errs}
+    over = max(errs, key=lambda n: errs[n] / tols[n])
+    if not (finite and rec["loss_rel_err"] <= TRAIN_LOSS_TOL
+            and errs[over] <= tols[over]):
+        fail(f"{name} ({case}): loss rel err {rec['loss_rel_err']} (tol "
+             f"{TRAIN_LOSS_TOL}), gradient of {over} rel err {errs[over]} "
+             f"(tol {tols[over]}), finite={finite}")
+    return rec, errs
+
+
+def _slice_cases(name, gpu, cpu, ctl, batch, eps, cases=tuple(SLICE_CASES),
+                 against_control=False):
+    """Per case, the card system and the plain bf16 CPU control against the
+    float32 CPU run of the same weights.  The card is held to
+    ``TRAIN_GRAD_TOL`` where it names the case, or with
+    ``against_control`` each gradient tensor to ``DIFF_GRAD_RATIO`` times
+    the control's error for it (at least ``DIFF_GRAD_FLOOR``)."""
+    out = {}
+    for case in cases:
+        loss_c, grads_c = _vae_loss_and_grads(cpu, batch, eps,
+                                              *SLICE_CASES[case])
+        rec_ctl, err_ctl = _against_cpu(name, ctl, batch, eps, case, loss_c,
+                                        grads_c)
+        tol = ({n: max(DIFF_GRAD_RATIO * e, DIFF_GRAD_FLOOR)
+                for n, e in err_ctl.items()} if against_control
+               else TRAIN_GRAD_TOL.get(case))
+        out[case] = {
+            "grad_tol": ("per tensor: the control's error times "
+                         f"{DIFF_GRAD_RATIO}, at least {DIFF_GRAD_FLOOR}"
+                         if against_control else tol), "loss_cpu": loss_c,
+            "card": _against_cpu(name, gpu, batch, eps, case, loss_c,
+                                 grads_c, tol)[0],
+            "cpu_bf16_plain": rec_ctl}
+    return out
+
+
 def phase_train_slice(dev):
     """Small batch, mixed lengths, dropout 0: loss and every parameter's
     gradient on the card (kernels, bf16 compute, float32 parameters) against
     the CPU (plain versions, float32), same weights and same latent noise;
     then a few optimizer steps, then the validation pass."""
-    import numpy as np
     import torch
     from ladiff_torch import train_bench
-    from ladiff_torch.losses.mld import LossWeights
     from ladiff_torch.training.trainer import vae_train_step
 
     lengths = torch.tensor([16, 60, 123, 196])
@@ -1099,34 +1212,6 @@ def phase_train_slice(dev):
     for other in (ctl, gpu):
         other.load_state_dict(cpu.state_dict(), strict=True)
 
-    def loss_and_grads(system, std, lambda_joint):
-        system.std.fill_(std)
-        system.weights = LossWeights(lambda_joint=lambda_joint)
-        system.zero_grad(set_to_none=True)
-        total, _ = system.vae_forward(batch, train=True, eps=eps)
-        total.backward()
-        return float(total.detach()), {
-            n: p.grad.detach().float().cpu()
-            for n, p in system.vae.named_parameters()}
-
-    def against_cpu(system, case, want_loss, want, tol=None):
-        loss, grads = loss_and_grads(system, *cases[case])
-        errs = {n: relerr(grads[n], w) for n, w in want.items()}
-        worst = max(errs, key=errs.get)
-        finite = all(bool(torch.isfinite(t).all()) for t in grads.values())
-        rec = {"loss_rel_err": abs(loss - want_loss) / abs(want_loss),
-               "worst_grad_rel_err": errs[worst], "worst_grad": worst,
-               "median_grad_rel_err": float(np.median(list(errs.values()))),
-               "n_grad_tensors": len(errs)}
-        if tol is not None and not (
-                finite and rec["loss_rel_err"] <= TRAIN_LOSS_TOL
-                and errs[worst] <= tol):
-            fail(f"training slice ({case}): loss rel err "
-                 f"{rec['loss_rel_err']} (tol {TRAIN_LOSS_TOL}), gradient "
-                 f"of {worst} rel err {errs[worst]} (tol {tol}), "
-                 f"finite={finite}")
-        return rec
-
     # case: (feature std, joints-loss weight).  The joints loss integrates
     # the root's rotation and velocity over the frames; at unit feature std
     # with random weights that walk amplifies any rounding, which the
@@ -1136,18 +1221,8 @@ def phase_train_slice(dev):
     # losses, and through all losses at a feature std of 0.1, where the
     # recovered joints are a smooth function of the features; the third
     # case is reported beside them and held to nothing.
-    cases = {"unit_std_no_joints": (1.0, 0.0),
-             "std_0.1_all_losses": (0.1, 1.0),
-             "unit_std_all_losses": (1.0, 1.0)}
-    out = {}
     t0 = time.perf_counter()
-    for case, (std, lambda_joint) in cases.items():
-        loss_c, grads_c = loss_and_grads(cpu, std, lambda_joint)
-        out[case] = {
-            "grad_tol": TRAIN_GRAD_TOL.get(case), "loss_cpu": loss_c,
-            "card": against_cpu(gpu, case, loss_c, grads_c,
-                                TRAIN_GRAD_TOL.get(case)),
-            "cpu_bf16_plain": against_cpu(ctl, case, loss_c, grads_c)}
+    out = _slice_cases("training slice", gpu, cpu, ctl, batch, eps)
     t_cpu = time.perf_counter() - t0
     del gpu, ctl
 
@@ -1443,7 +1518,497 @@ def phase_diffusion_bench(dev):
     return total_counts
 
 
+def _slice_batch():
+    """The training slices' batch: 4 samples of mixed lengths, and the
+    latent noise."""
+    import torch
+    lengths = torch.tensor([16, 60, 123, 196])
+    g = torch.Generator().manual_seed(6)
+    batch = {"motion": torch.randn(len(lengths), 196, 263, generator=g),
+             "length": lengths}
+    return batch, torch.randn(len(lengths), 5, 256, generator=g)
+
+
+def phase_whole_layer_slice(dev):
+    """``train_slice`` on the whole-layer route (``train_whole_layer="1"``):
+    loss and every VAE gradient by name on the card against the float32
+    CPU run, the plain bf16 CPU run beside it, the same cases and
+    tolerances; one forward and backward launches kernel 12 in each of the
+    9 encoder layers and kernel 13 in each of the 9 decoder layers, and
+    kernels 8 and 9 not at all."""
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+
+    batch, eps = _slice_batch()
+    cpu = randomize_(train_bench.build("cpu", dropout=0.0)[0], 22)
+    ctl = train_bench.build("cpu", dropout=0.0, dtype=torch.bfloat16)[0]
+    gpu = train_bench.build(dev, dropout=0.0, train_whole_layer="1")[0]
+    for other in (ctl, gpu):
+        other.load_state_dict(cpu.state_dict(), strict=True)
+    cc.reset_launch_counts()
+    _vae_loss_and_grads(gpu, batch, eps, 1.0, 0.0)
+    torch.cuda.synchronize()
+    counts = cc.launch_counts()
+    out = _slice_cases("whole-layer slice", gpu, cpu, ctl, batch, eps)
+    emit({"phase": "whole_layer_slice", "batch": len(batch["length"]),
+          "lengths": batch["length"].tolist(), "loss_tol": TRAIN_LOSS_TOL,
+          "cases": out, "launches_per_step": counts})
+    for name, want in EXPECTED_WHOLE_LAYER_PER_STEP.items():
+        if counts.get(name) != want:
+            fail(f"whole-layer slice: {name}: {counts.get(name)} launches "
+                 f"per step, expected {want}")
+
+
+def phase_gated_slice(dev):
+    """VAEs whose shapes the training kernels' gates refuse: head width 128
+    (d 256, 2 heads: kernel 8 refuses, kernel 9 takes the tail) and d 512 /
+    ff 2048 (8 heads: both refuse), on the whole-layer route too (kernels
+    12 and 13 refuse as well).  Loss and every gradient on the card against
+    the float32 CPU run, each tensor held to 1.3 times the plain bf16 CPU
+    control's error for it (with random weights at head width 128 the
+    control alone read 7.1e-2 at worst in a run on an H100 machine, above
+    ``train_slice``'s 6e-2), then one ``vae_train_step`` at batch 4 with
+    the launch counts the gates give."""
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.trainer import vae_train_step
+
+    batch, _ = _slice_batch()
+    out = {}
+    for case, kw, kernel9 in (
+            ("head_width_128", dict(num_heads=2), 18),
+            ("d512_ff2048", dict(latent_dim=(7, 512), ff_size=2048,
+                                 num_heads=8), 0)):
+        eps = torch.randn(4, 5, kw.get("latent_dim", (7, 256))[1],
+                          generator=torch.Generator().manual_seed(7))
+        cpu = randomize_(train_bench.build("cpu", dropout=0.0, **kw)[0], 23)
+        ctl = train_bench.build("cpu", dropout=0.0, dtype=torch.bfloat16,
+                                **kw)[0]
+        gpu, opt = train_bench.build(dev, dropout=0.0, train_whole_layer="1",
+                                     **kw)
+        for other in (ctl, gpu):
+            other.load_state_dict(cpu.state_dict(), strict=True)
+        res = _slice_cases(f"gated slice {case}", gpu, cpu, ctl, batch, eps,
+                           cases=("unit_std_no_joints",),
+                           against_control=True)
+        del cpu, ctl
+        cc.reset_launch_counts()
+        logs = vae_train_step(gpu, opt, batch,
+                              torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        counts = cc.launch_counts()
+        want = {"train_self_attention": 0, "train_self_attention_bwd": 0,
+                "train_postnorm_ffn": kernel9,
+                "train_postnorm_ffn_bwd": kernel9,
+                "train_encoder_layer": 0, "train_encoder_layer_bwd": 0,
+                "train_decoder_layer": 0, "train_decoder_layer_bwd": 0}
+        out[case] = {**res, "step_loss": float(logs["total"]),
+                     "launches_per_step": counts}
+        if not math.isfinite(float(logs["total"])):
+            fail(f"gated slice {case}: non-finite loss")
+        for name, n in want.items():
+            if counts.get(name) != n:
+                fail(f"gated slice {case}: {name}: {counts.get(name)} "
+                     f"launches in a step, expected {n}")
+        del gpu, opt
+    emit({"phase": "gated_slice", "batch": 4, "cases": out})
+
+
+def phase_train_entry(dev):
+    """The training entry point at the published stage-1 configuration
+    (``configs/config_vae_humanml3d.yaml``: d 256, 9 + 9 layers, batch 64)
+    through ``run_training``, the function ``ladiff_torch.train`` calls, on
+    512 synthetic clips in a temporary directory, bf16 compute
+    (``TRAIN.MIXED_PRECISION``), the whole-layer route
+    (``LADIFF_TRAIN_WHOLE_LAYER=1``): 2 epochs of 3 steps with a checkpoint
+    per epoch, a resume that runs epoch 2 (``END_EPOCH`` 3); then stage 2
+    (``configs/config_ladiff_humanml3d.yaml``, batch 128) booting the VAE
+    from that checkpoint directory, 3 steps; then ``ladiff_torch.demo``'s
+    main on the stage-2 checkpoint for the 3 default examples.  Returns the
+    launch counts of the stage-1 runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from ladiff_torch import demo
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.data.datamodule import get_datasets
+    from ladiff_torch.data.synthetic import generate_synthetic_dataset
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.loop import run_training
+    from ladiff_torch.utils.checkpoint import (latest_checkpoint,
+                                               load_checkpoint)
+    from ladiff_torch.utils.logger import create_logger
+
+    tmp = tempfile.mkdtemp(prefix="ladiff_train_entry_")
+    configs = os.path.join(HERE, "configs")
+    assets = os.path.join(configs, "assets.yaml")
+    t_start = time.perf_counter()
+    try:
+        data = generate_synthetic_dataset(os.path.join(tmp, "humanml3d"),
+                                          n_clips=512, seed=0)
+        base = {"DEBUG": False, "FOLDER": os.path.join(tmp, "experiments"),
+                "DATASET": {"HUMANML3D": {"ROOT": data}},
+                "LOGGER": {"SACE_CHECKPOINT_EPOCH": 1,
+                           "TENSORBOARD": False}}
+
+        def stage(name, train, steps, epochs=None):
+            over = {**base, "TRAIN": {"MIXED_PRECISION": True, **train}}
+            cfg = assemble_config(os.path.join(configs, name), assets, over)
+            logger = create_logger(cfg, phase="train")
+            dm = get_datasets(cfg, phase="train")[0]
+            cc.reset_launch_counts()
+            ckpt = run_training(cfg, dm, logger, max_epochs=epochs,
+                                max_steps_per_epoch=steps, device=dev)
+            torch.cuda.synchronize()
+            with open(os.path.join(cfg.FOLDER_EXP, "metrics.jsonl")) as f:
+                lines = [json.loads(line) for line in f]
+            return cfg, ckpt, cc.launch_counts(), lines
+
+        os.environ["LADIFF_TRAIN_WHOLE_LAYER"] = "1"
+        cfg1, ckpt1, c1, _ = stage("config_vae_humanml3d.yaml", {}, 3, 2)
+        files = sorted(os.listdir(ckpt1))
+        cfg_r, _, c_r, lines = stage("config_vae_humanml3d.yaml",
+                                     {"RESUME": "1", "END_EPOCH": 3}, 3)
+        os.environ.pop("LADIFF_TRAIN_WHOLE_LAYER")
+        epochs = [rec["step"] for rec in lines]
+        stage1 = {k: c1[k] + c_r[k] for k in c1}
+        per_step = {k: stage1[k] / 9 for k in EXPECTED_WHOLE_LAYER_PER_STEP}
+        cfg2, ckpt2, c2, lines2 = stage(
+            "config_ladiff_humanml3d.yaml",
+            {"PRETRAINED_VAE": ckpt1, "END_EPOCH": 1}, 3)
+        e1, sd1 = load_checkpoint(latest_checkpoint(ckpt1)[1])
+        e2, sd2 = load_checkpoint(latest_checkpoint(ckpt2)[1])
+        vae_booted = all(torch.equal(sd2[k], v) for k, v in sd1.items())
+        out_dir = demo.main(
+            ["--cfg", os.path.join(configs, "config_ladiff_humanml3d.yaml"),
+             "--cfg_assets", assets, "--out_dir",
+             os.path.join(tmp, "samples")], device=dev,
+            overrides={**base, "TEST": {"CHECKPOINTS": ckpt2}})
+        joints = [np.load(os.path.join(out_dir, f"sample_{i:03d}.npy"))
+                  for i in range(len(demo.DEFAULT_EXAMPLES))]
+        rec = {"phase": "train_entry", "batch_stage1": cfg1.TRAIN.BATCH_SIZE,
+               "batch_stage2": cfg2.TRAIN.BATCH_SIZE,
+               "checkpoints_stage1": files,
+               "resume_epochs_logged": epochs,
+               "stage1_losses": [l["train/vae/total"] for l in lines],
+               "stage2_losses": [l["train/diffusion/total"]
+                                 for l in lines2],
+               "launches_per_stage1_step": per_step,
+               "launches_stage2": {k: c2[k] / 3 for k in
+                                   EXPECTED_PER_DIFFUSION_STEP},
+               "stage2_checkpoint_epoch": e2, "vae_booted_from": e1,
+               "vae_booted": vae_booted,
+               "joints_shapes": [list(j.shape) for j in joints],
+               "joints_finite": all(bool(np.isfinite(j).all())
+                                    for j in joints),
+               "seconds": time.perf_counter() - t_start}
+        emit(rec)
+    finally:
+        os.environ.pop("LADIFF_TRAIN_WHOLE_LAYER", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if files != ["epoch_1.ckpt", "epoch_2.ckpt"]:
+        fail(f"train_entry: stage-1 checkpoints {files}")
+    if epochs != [0, 1, 2]:
+        fail(f"train_entry: the resume did not start at epoch 2: {epochs}")
+    for name, want in EXPECTED_WHOLE_LAYER_PER_STEP.items():
+        if per_step[name] != want:
+            fail(f"train_entry: {name}: {per_step[name]} launches per "
+                 f"stage-1 step, expected {want}")
+    for name, want in EXPECTED_PER_DIFFUSION_STEP.items():
+        if rec["launches_stage2"][name] != want:
+            fail(f"train_entry: {name}: {rec['launches_stage2'][name]} "
+                 f"launches per stage-2 step, expected {want}")
+    losses = rec["stage1_losses"] + rec["stage2_losses"]
+    if not (vae_booted and e1 == 3 and all(map(math.isfinite, losses))):
+        fail("train_entry: stage 2 did not boot the stage-1 VAE, or a loss "
+             "is not finite")
+    want_shapes = [[n, 22, 3] for n, _ in demo.DEFAULT_EXAMPLES]
+    if rec["joints_shapes"] != want_shapes or not rec["joints_finite"]:
+        fail(f"train_entry: demo joints {rec['joints_shapes']}, finite="
+             f"{rec['joints_finite']}")
+    return stage1
+
+
+def phase_whole_layer_bench(dev):
+    """``train_bench``'s ``vae_train`` protocol (batch 128, dropout 0.1) on
+    the split route (kernels 8 and 9) and the whole-layer route (kernels
+    12 and 13) in turns, split, whole, whole, split: ms per step and
+    samples/s of each, launch counts per step of the whole-layer route."""
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+
+    iters = 10
+    runs = {"0": [], "1": []}
+    counts = None
+    for route in ("0", "1", "1", "0"):
+        system, opt = train_bench.build(dev, train_whole_layer=route)
+        batch = train_bench.make_batch(device=system.device)
+        cc.reset_launch_counts()
+        res = train_bench.measure(system, opt, batch, iters=iters)
+        if route == "1":
+            counts = {k: v / (train_bench.WARMUP + iters)
+                      for k, v in cc.launch_counts().items()}
+        if not (math.isfinite(res["loss"])
+                and math.isfinite(res["grad_norm"])):
+            fail(f"whole-layer bench, route {route}: non-finite loss")
+        runs[route].append(res["ms_per_step"])
+        del system, opt, batch
+        torch.cuda.empty_cache()
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    emit({"phase": "whole_layer_bench", "batch": train_bench.BATCH,
+          "dropout": train_bench.DROPOUT, "steps_per_run": iters,
+          "ms_per_step_runs": {"split": runs["0"], "whole_layer": runs["1"]},
+          "ms_per_step": {"split": ms["0"], "whole_layer": ms["1"]},
+          "samples_per_sec": {"split": train_bench.BATCH / ms["0"] * 1e3,
+                              "whole_layer": train_bench.BATCH / ms["1"]
+                              * 1e3},
+          "launches_per_step_whole_layer": counts})
+    for name, want in EXPECTED_WHOLE_LAYER_PER_STEP.items():
+        if counts.get(name) != want:
+            fail(f"whole-layer bench: {name}: {counts.get(name)} launches "
+                 f"per step, expected {want}")
+
+
+def phase_whole_layer_kernels(dev):
+    """Kernels 12 and 13 at the stage-1 configuration's shapes: 64 x 206
+    encoder rows (10 distribution tokens and 196 frames), 64 x 196 decoder
+    rows with 5 memory rows of which 1 to 5 are valid, mixed lengths.  Each
+    against its float32 plain version on the same bf16 inputs, at dropout 0
+    and at 0.1 with the masks the kernel draws, every gradient on its own
+    (the memory's too), timed at batch 64; compared again at batch 128
+    (``train_bench``'s) and at batch 3 (a partial last row block).  The
+    library times are ``torch.nn.TransformerEncoderLayer`` /
+    ``TransformerDecoderLayer`` in training mode with the same weights,
+    masks and dropout rate: the forward under autograd, and
+    ``torch.autograd.grad`` of a retained forward for the input, the
+    memory and every parameter (timed here only; the port never calls
+    them)."""
+    import torch
+    from ladiff_torch.ops.train_decoder_layer import (
+        train_decoder_layer_bwd, train_decoder_layer_bwd_plain,
+        train_decoder_layer_fwd, train_decoder_layer_masks,
+        train_decoder_layer_plain)
+    from ladiff_torch.ops.train_layer import (
+        train_encoder_layer_bwd, train_encoder_layer_bwd_plain,
+        train_encoder_layer_fwd, train_encoder_layer_masks,
+        train_encoder_layer_plain)
+    from ladiff_torch.ops.transformer import (TransformerDecoderLayer,
+                                              TransformerEncoderLayer)
+    from ladiff_torch.utils.masks import latent_valid_mask, lengths_to_mask
+
+    bf = torch.bfloat16
+    D, H, F, L, T, RATE = 256, 4, 1024, 5, 196, 0.1
+    SEED = 0x5EED5EED5EED
+    S = T + 2 * L
+    g = torch.Generator().manual_seed(12)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, bf)
+
+    def f32(p):
+        return {k: v.float() for k, v in p.items()}
+
+    def flat(dx, *rest):
+        """(dx, grads) or (dx, dmem, grads) as one {name: tensor}."""
+        return {"dx": dx, **({"dmem": rest[0]} if len(rest) == 2 else {}),
+                **rest[-1]}
+
+    def torch_layer(cls, layer):
+        """``cls`` (a torch.nn layer) in training mode with ``layer``'s
+        weights."""
+        lib = cls(D, H, F, dropout=RATE, activation="gelu",
+                  batch_first=True, norm_first=False).to(dev, bf).train()
+        lib.load_state_dict(layer.state_dict())
+        return lib
+
+    def library_fwd_bwd(forward, wrt, dout):
+        """(forward under autograd, the gradient of one retained forward
+        in ``wrt``'s tensors and modules' parameters)."""
+        leaves = [p for w in wrt for p in (
+            w.parameters() if isinstance(w, torch.nn.Module) else [w])]
+        with torch.enable_grad():
+            out = forward()
+
+        def fwd():
+            with torch.enable_grad():
+                return forward()
+        return fwd, lambda: torch.autograd.grad(out, leaves, dout,
+                                                retain_graph=True)
+
+    enc = randomize_(TransformerEncoderLayer(D, H, F, "gelu"), 33).to(dev, bf)
+    dec = randomize_(TransformerDecoderLayer(D, H, F, "gelu"), 34).to(dev, bf)
+    pe = {k: v.detach() for k, v in enc.kernel_params().items()}
+    pd = {k: v.detach() for k, v in dec.kernel_params().items()}
+    pe_bytes, pd_bytes = nbytes(*pe.values()), nbytes(*pd.values())
+    recs, errs = [], {}
+
+    for B in (64, 128, 3):
+        lengths = mixed_lengths(B, seed=B)
+        lat = latent_valid_mask(lengths, 48, L)
+        ev = torch.cat([lat, lat, lengths_to_mask(lengths, T)], dim=1)
+        dv = lengths_to_mask(lengths, T)
+        Me, Md = B * S, B * T
+        kve = ev.reshape(Me).float().to(dev).contiguous()
+        kvd = dv.reshape(Md).float().to(dev).contiguous()
+        mvalid = lat.float().to(dev).contiguous()
+        xe, doute = rnd(Me, D), rnd(Me, D, scale=0.1)
+        xd, doutd = rnd(Md, D), rnd(Md, D, scale=0.1)
+        mem = rnd(B, L, D)
+        case = {}
+        for rate in (0.0, RATE):
+            kw = dict(H=H, S=S, rate=rate, seed=SEED)
+            me = (train_encoder_layer_masks(B, S, D, H, F, rate, SEED, dev)
+                  if rate else None)
+            out, saved = train_encoder_layer_fwd(xe, kve, pe,
+                                                 return_saved=True, **kw)
+            e_f = compare(f"train_encoder_layer B {B} rate {rate}", out,
+                          train_encoder_layer_plain(xe.float(), kve, f32(pe),
+                                                    me, H=H, S=S),
+                          KERNEL_TOL)[0]
+            e_b = compare(f"train_encoder_layer_bwd B {B} rate {rate}",
+                          flat(*train_encoder_layer_bwd(xe, kve, doute, pe,
+                                                        saved, **kw)),
+                          flat(*train_encoder_layer_bwd_plain(
+                              xe.float(), kve, doute.float(), f32(pe), me,
+                              H=H, S=S)), GRAD_TOL)[0]
+            del out, saved, me
+            kw["S"] = T
+            md = (train_decoder_layer_masks(B, T, L, D, H, F, rate, SEED, dev)
+                  if rate else None)
+            out, saved = train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd,
+                                                 return_saved=True, **kw)
+            d_f = compare(f"train_decoder_layer B {B} rate {rate}", out,
+                          train_decoder_layer_plain(
+                              xd.float(), kvd, mem.float(), mvalid, f32(pd),
+                              md, H=H, S=T), KERNEL_TOL)[0]
+            d_b = compare(f"train_decoder_layer_bwd B {B} rate {rate}",
+                          flat(*train_decoder_layer_bwd(
+                              xd, kvd, mem, mvalid, doutd, pd, saved, **kw)),
+                          flat(*train_decoder_layer_bwd_plain(
+                              xd.float(), kvd, mem.float(), mvalid,
+                              doutd.float(), f32(pd), md, H=H, S=T)),
+                          GRAD_TOL)[0]
+            del out, saved, md
+            case[f"rate {rate}"] = {"enc_fwd": e_f, "enc_bwd": e_b,
+                                    "dec_fwd": d_f, "dec_bwd": d_b}
+        errs[f"batch {B}"] = case
+        if B != 64:
+            continue
+        # timed at the stage-1 batch, dropout 0.1, against the plain
+        # version given the kernel's masks.  Needed work: every query
+        # against its sample's valid keys (and valid memory rows)
+        kw = dict(H=H, rate=RATE, seed=SEED)
+        lib_e = torch_layer(torch.nn.TransformerEncoderLayer, enc)
+        xle = xe.reshape(B, S, D).detach().requires_grad_(True)
+        pad_e = ~ev.to(dev)
+        lib_e_fwd, lib_e_bwd = library_fwd_bwd(
+            lambda: lib_e(xle, src_key_padding_mask=pad_e), [xle, lib_e],
+            doute.reshape(B, S, D))
+        me = train_encoder_layer_masks(B, S, D, H, F, RATE, SEED, dev)
+        meb = tuple(m.to(bf) for m in me)
+        nv_e = int(ev.sum())
+        fl_ef = (2 * Me * D * 3 * D + 2 * Me * D * D + 4 * D * S * nv_e
+                 + 4 * Me * D * F)
+        fl_eb = (2 * (2 * Me * D * D + 2 * Me * D * 3 * D)
+                 + 8 * D * S * nv_e + 8 * Me * D * F)
+        recs.append(check_kernel(
+            "train_encoder_layer", "ladiff_torch/csrc/train_layer.cu",
+            "ladiff_tpu/ops/pallas_train_layer.py:207",
+            lambda: train_encoder_layer_fwd(xe, kve, pe, S=S, **kw),
+            lambda: train_encoder_layer_plain(xe.float(), kve, f32(pe), me,
+                                              H=H, S=S),
+            lambda: train_encoder_layer_plain(xe, kve, pe, meb, H=H, S=S),
+            fl_ef, nbytes(xe, kve, xe) + pe_bytes, library=lib_e_fwd,
+            extra={"rate": RATE, "rows": Me}))
+        _, saved = train_encoder_layer_fwd(xe, kve, pe, S=S,
+                                           return_saved=True, **kw)
+        recs.append(check_kernel(
+            "train_encoder_layer_bwd", "ladiff_torch/csrc/train_layer.cu",
+            "ladiff_tpu/ops/pallas_train_layer.py:207",
+            lambda: flat(*train_encoder_layer_bwd(xe, kve, doute, pe, saved,
+                                                  S=S, **kw)),
+            lambda: flat(*train_encoder_layer_bwd_plain(
+                xe.float(), kve, doute.float(), f32(pe), me, H=H, S=S)),
+            lambda: train_encoder_layer_bwd_plain(xe, kve, doute, pe, meb,
+                                                  H=H, S=S),
+            fl_eb, nbytes(xe, kve, doute, xe) + 3 * pe_bytes,
+            library=lib_e_bwd, tol=GRAD_TOL,
+            extra={"rate": RATE, "rows": Me}))
+        del me, meb, saved, lib_e, lib_e_fwd, lib_e_bwd
+        lib_d = torch_layer(torch.nn.TransformerDecoderLayer, dec)
+        xld = xd.reshape(B, T, D).detach().requires_grad_(True)
+        meml = mem.detach().requires_grad_(True)
+        pad_d, pad_m = ~dv.to(dev), ~lat.to(dev)
+        lib_d_fwd, lib_d_bwd = library_fwd_bwd(
+            lambda: lib_d(xld, meml, tgt_key_padding_mask=pad_d,
+                          memory_key_padding_mask=pad_m),
+            [xld, meml, lib_d], doutd.reshape(B, T, D))
+        md = train_decoder_layer_masks(B, T, L, D, H, F, RATE, SEED, dev)
+        mdb = tuple(m.to(bf) for m in md)
+        nv_d, nv_m = int(dv.sum()), int(lat.sum())
+        fl_df = (2 * Md * D * 3 * D + 2 * Md * D * D + 4 * D * T * nv_d
+                 + 2 * Md * D * D + 2 * B * L * D * 2 * D + 4 * D * T * nv_m
+                 + 2 * Md * D * D + 4 * Md * D * F)
+        fl_db = (2 * (2 * Md * D * D + 2 * Md * D * 3 * D)
+                 + 8 * D * T * nv_d + 2 * (2 * Md * D * D) * 2
+                 + 2 * (2 * B * L * D * 2 * D) + 8 * D * T * nv_m
+                 + 8 * Md * D * F)
+        recs.append(check_kernel(
+            "train_decoder_layer", "ladiff_torch/csrc/train_decoder_layer.cu",
+            "ladiff_tpu/ops/pallas_train_decoder_layer.py:410",
+            lambda: train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd, S=T,
+                                            **kw),
+            lambda: train_decoder_layer_plain(xd.float(), kvd, mem.float(),
+                                              mvalid, f32(pd), md, H=H, S=T),
+            lambda: train_decoder_layer_plain(xd, kvd, mem, mvalid, pd, mdb,
+                                              H=H, S=T),
+            fl_df, nbytes(xd, kvd, mem, mvalid, xd) + pd_bytes,
+            library=lib_d_fwd, extra={"rate": RATE, "rows": Md, "memory_rows": L}))
+        _, saved = train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd, S=T,
+                                           return_saved=True, **kw)
+        recs.append(check_kernel(
+            "train_decoder_layer_bwd",
+            "ladiff_torch/csrc/train_decoder_layer.cu",
+            "ladiff_tpu/ops/pallas_train_decoder_layer.py:410",
+            lambda: flat(*train_decoder_layer_bwd(
+                xd, kvd, mem, mvalid, doutd, pd, saved, S=T, **kw)),
+            lambda: flat(*train_decoder_layer_bwd_plain(
+                xd.float(), kvd, mem.float(), mvalid, doutd.float(), f32(pd),
+                md, H=H, S=T)),
+            lambda: train_decoder_layer_bwd_plain(xd, kvd, mem, mvalid, doutd,
+                                                  pd, mdb, H=H, S=T),
+            fl_db, nbytes(xd, kvd, mem, mvalid, doutd, xd, mem)
+            + 3 * pd_bytes, library=lib_d_bwd, tol=GRAD_TOL,
+            extra={"rate": RATE, "rows": Md, "memory_rows": L}))
+        del md, mdb, saved, lib_d, lib_d_fwd, lib_d_bwd
+    # the memory gradient is summed without atomics: two runs, equal bits
+    out, saved = train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd, H=H, S=T,
+                                         return_saved=True)
+    runs = [train_decoder_layer_bwd(xd, kvd, mem, mvalid, doutd, pd, saved,
+                                    H=H, S=T)[1] for _ in range(2)]
+    same_bits = bool(torch.equal(runs[0], runs[1]))
+    emit({"phase": "whole_layer_kernels", "worst_rel_err": errs,
+          "tol": KERNEL_TOL, "grad_tol": GRAD_TOL,
+          "dmem_same_bits_twice": same_bits})
+    if not same_bits:
+        fail("train_decoder_layer_bwd: the memory gradient differs between "
+             "two runs")
+    return recs
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after the build "
+                    "(e.g. whole_layer_kernels) for a short check; the "
+                    "default runs every phase and ends with the ok line")
+    only = [p for p in ap.parse_args().only.split(",") if p]
     try:
         import torch
     except ImportError:
@@ -1458,24 +2023,33 @@ def main():
     dev = torch.device("cuda", 0)
 
     phase_build()
-    with torch.no_grad():
-        recs = phase_kernels(dev)
-        phase_slice(dev)
-        counts, default_sps = phase_bench(dev)
-        route_recs = phase_route_kernels(dev)
-        slice_counts = phase_route_slice(dev)
-        route_counts = phase_route_bench(dev, default_sps)
-        train_recs = phase_train_kernels(dev)
-    phase_train_slice(dev)
-    train_counts = phase_train_bench(dev)
-    phase_diffusion_slice(dev)
-    diffusion_counts = phase_diffusion_bench(dev)
+    unknown = set(only) - {name for name, _ in PHASES}
+    if unknown:
+        fail(f"no phase {sorted(unknown)}")
+    out = {}
+    for name, grad in PHASES:
+        if only and name not in only:
+            continue
+        # the route bench prints the default route's samples/s beside its own
+        args = ((out["bench"][1],) if name == "route_bench" and "bench" in out
+                else ())
+        with torch.set_grad_enabled(grad):
+            out[name] = globals()[f"phase_{name}"](dev, *args)
+    if only:
+        emit({"phases_run": only})
+        return
+    recs, (counts, _) = out["kernels"], out["bench"]
+    route_recs, slice_counts = out["route_kernels"], out["route_slice"]
+    route_counts, train_recs = out["route_bench"], out["train_kernels"]
+    whole_recs, train_counts = out["whole_layer_kernels"], out["train_bench"]
+    diffusion_counts, entry_counts = out["diffusion_bench"], out["train_entry"]
     # each kernel's launches on the path that runs it: generation for K1-K4,
     # the stage-1 training steps and their validation pass for kernels 5, 8
     # and 9, the stage-2 and joint steps for kernel 10; the stack route for
     # kernel 11, the full-context route for kernel 6 and for kernel 5 as
     # the MD sa_block's tail, the one-token per-block route (head width
-    # 256) for kernel 7
+    # 256) for kernel 7; the training entry point's stage-1 runs on the
+    # whole-layer route for kernels 12 and 13
     for rec in recs:
         rec["launches"] = counts[rec["name"]]
     route_path = {"fused_md_stack": route_counts["md_stack"],
@@ -1491,6 +2065,9 @@ def main():
                 else train_counts)
         rec["launches"] = path[rec["name"]]
     recs += train_recs
+    for rec in whole_recs:
+        rec["launches"] = entry_counts[rec["name"]]
+    recs += whole_recs
     for rec in recs:
         if rec["launches"] <= 0:
             fail(f"{rec['name']} was not launched on the main path")

@@ -73,7 +73,7 @@ inline TailLayout tail_layout(int D, int F) {
 __global__ void __launch_bounds__(kThreads)
 tail_kernel(TailArgs a, TailLayout Lt) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D, H = a.H, Dh = D / H;
+  const int D = a.D, H = a.H;
   const int ld = D + 8, ldc = kChunk + 4, ldh = a.F + 8;
   bf16* xb = reinterpret_cast<bf16*>(smem + Lt.xb);
   bf16* qb = reinterpret_cast<bf16*>(smem + Lt.qb);
@@ -81,7 +81,7 @@ tail_kernel(TailArgs a, TailLayout Lt) {
   float* r = reinterpret_cast<float*>(smem + Lt.r);
   bf16* hid = reinterpret_cast<bf16*>(smem + Lt.hid);
   bf16* ws = reinterpret_cast<bf16*>(smem + Lt.ws);
-  const int tid = threadIdx.x, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int tid = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * kRows;
   const int nrow = min(kRows, (int)(a.M - row0));
 
@@ -105,18 +105,8 @@ tail_kernel(TailArgs a, TailLayout Lt) {
   block_gemm(xb, ld, a.ca_in_w, D, D, D, cf, ldc, false, ws);
   store_biased(cf, ldc, a.ca_in_b, D, qb, ld);
   __syncthreads();
-  const float scale = rsqrtf((float)Dh);
-  for (int p = warp; p < nrow * H; p += nwarps) {
-    const int row = p / H, h = p % H;
-    const size_t s = (row0 + row) / a.T;
-    const bf16* kv = a.kv2 + s * a.L * 2 * D + h * Dh;
-    const float* mv = a.mvalid + s * a.L;
-    warp_attend(qb + row * ld + h * Dh, Dh, a.L, scale,
-                [&](int j) { return kv + (size_t)j * 2 * D; },
-                [&](int j) { return kv + (size_t)j * 2 * D + D; },
-                [&](int j) { return ldgf(mv + j) > 0.5f ? 0.f : kNegInf; },
-                xb + row * ld + h * Dh);
-  }
+  cross_attend_rows<false>(qb, ld, a.kv2, a.mvalid, row0, nrow, a.T, a.L, D,
+                           H, Dropout{}, 0u, xb);
   __syncthreads();
   block_gemm(xb, ld, a.ca_out_w, D, D, D, cf, ldc, false, ws);
   for (int i = tid; i < kRows * D; i += blockDim.x) {

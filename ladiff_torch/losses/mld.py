@@ -43,6 +43,25 @@ class LossWeights:
     lambda_gen: float = 1.0
     lambda_prior: float = 0.0
 
+    @classmethod
+    def from_cfg(cls, cfg) -> "LossWeights":
+        """The weights of a configuration's LOSS section.  A nonzero
+        LAMBDA_PRIOR raises, as in the JAX package: the reference loss reads
+        a prior distribution no forward produces, and every published
+        configuration sets 0."""
+        L = cfg.LOSS
+        prior = float(L.get("LAMBDA_PRIOR", 0.0))
+        if prior != 0.0:
+            raise ValueError(f"LOSS.LAMBDA_PRIOR={prior} is not supported: "
+                             "the reference loss fails on any nonzero "
+                             "value and every published configuration "
+                             "uses 0.0")
+        return cls(lambda_rec=float(L.get("LAMBDA_REC", 1.0)),
+                   lambda_joint=float(L.get("LAMBDA_JOINT", 1.0)),
+                   lambda_kl=float(L.get("LAMBDA_KL", 1.0e-4)),
+                   lambda_gen=float(L.get("LAMBDA_GEN", 1.0)),
+                   lambda_prior=prior)
+
 
 def vae_loss(feats_rst: torch.Tensor, feats_ref: torch.Tensor,
              joints_rst: Optional[torch.Tensor],

@@ -26,7 +26,11 @@ table of every step and, with one text token, each MD layer's text value
 and AdaLN rows.  The sampler is DDIM (``eta`` 0 or above) or ancestral DDPM
 (``scheduler_kind``).  ``md_stack=True`` runs the denoiser's whole skip
 stack as one launch of kernel 11 per step (the JAX package's
-``LADIFF_MD_STACK=1``); off by default, as there.
+``LADIFF_MD_STACK=1``); off by default, as there.  ``train_whole_layer``
+("0", "1", "enc", "dec": the JAX package's ``LADIFF_TRAIN_WHOLE_LAYER``)
+runs the VAE's training layers as the whole-layer kernels 12 (encoder) and
+13 (decoder) where their shapes allow; off by default, as there.
+``from_cfg`` builds the system of an assembled configuration.
 """
 from __future__ import annotations
 
@@ -78,7 +82,7 @@ class LADiffSystem(nn.Module):
                  percentage_noised: float = 0.0,
                  weights: Optional[LossWeights] = None,
                  eta: float = 0.0, scheduler_kind: str = "ddim",
-                 md_stack: bool = False,
+                 md_stack: bool = False, train_whole_layer: str = "0",
                  device=None, dtype: Optional[torch.dtype] = None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -109,7 +113,8 @@ class LADiffSystem(nn.Module):
         self.schedule = make_schedule(num_train_timesteps)
         self.vae = LAVae(nfeats, latent_dim, ff_size, num_layers, num_heads,
                          max_it, frame_per_latent, dropout=dropout,
-                         dvae=dvae, percentage_noised=percentage_noised)
+                         dvae=dvae, percentage_noised=percentage_noised,
+                         train_whole_layer=train_whole_layer)
         self.vae.compute_dtype = dtype
         self.denoiser = LADenoiser(nfeats, latent_dim, ff_size, num_layers,
                                    num_heads, text_encoded_dim,
@@ -121,6 +126,71 @@ class LADiffSystem(nn.Module):
                     np.asarray(v, np.float32)), persistent=False)
         self.to(device=device, dtype=param_dtype or dtype)
         self.eval()
+
+    @classmethod
+    def from_cfg(cls, cfg, nfeats: int, njoints: int, mean=None, std=None,
+                 **kw) -> "LADiffSystem":
+        """The system of an assembled configuration (``ladiff_torch.config``;
+        the JAX package's ``LADiffSystem.from_cfg``); ``kw`` are the
+        constructor's run options (``train_whole_layer``, ``device``,
+        ``dtype``, ``param_dtype``, ``md_stack``).  The port has the text
+        condition, the LA-VAE, epsilon prediction and the MD-trans denoiser;
+        a configuration that asks for anything else raises, naming it."""
+        abl, m = cfg.TRAIN.ABLATION, cfg.model
+        sched = m.get("scheduler") or {}
+        layers = int(m.num_layers)
+        stage = str(cfg.TRAIN.get("STAGE", "vae"))
+        wanted = {
+            "model.condition": (str(m.get("condition", "text")), "text"),
+            "model.activation": (str(m.get("activation", "gelu")), "gelu"),
+            "TRAIN.ABLATION.VAE_TYPE": (str(abl.get("VAE_TYPE", "ladiff")),
+                                        "ladiff"),
+            "TRAIN.ABLATION.LAD": (bool(abl.get("LAD", True)), True),
+            "TRAIN.ABLATION.MLP_DIST": (bool(abl.get("MLP_DIST", False)),
+                                        False),
+            "TRAIN.ABLATION.TEST_EFFICIENCY": (
+                bool(abl.get("TEST_EFFICIENCY", False)), False),
+            "TRAIN.ABLATION.PREDICT_EPSILON": (
+                bool(abl.get("PREDICT_EPSILON", True)), True),
+            "ARDIFF": (bool(cfg.get("ARDIFF", False)), False),
+        }
+        # the stage-1 configurations name the plain denoiser, which their
+        # stage never runs; the port's denoiser is the MD-trans one
+        if stage != "vae":
+            wanted["TRAIN.ABLATION.MD_TRANS"] = (
+                bool(abl.get("MD_TRANS", False)), True)
+        for key in ("motion_vae", "denoiser"):
+            n = ((m.get(key) or {}).get("params") or {}).get("num_layers")
+            if n is not None:
+                wanted[f"model.{key}.params.num_layers"] = (int(n), layers)
+        for key, (got, need) in wanted.items():
+            if got != need:
+                raise NotImplementedError(
+                    f"{key}={got!r}: ladiff_torch runs {need!r} only")
+        text_dim = ((m.get("denoiser") or {}).get("params") or {}).get(
+            "text_encoded_dim", 768)
+        kind = str(sched.get("kind", "") or (
+            "ddpm" if "DDPM" in str(sched.get("target", "")) else "ddim"))
+        return cls(
+            nfeats=nfeats, njoints=njoints,
+            max_frames=int(cfg.DATASET.SAMPLER.MAX_LEN),
+            latent_dim=tuple(m.latent_dim), ff_size=int(m.ff_size),
+            num_layers=layers, num_heads=int(m.num_head),
+            max_it=int(abl.get("MAX_IT", 5)),
+            frame_per_latent=int(abl.get("FRAME_PER_LATENT", 48)),
+            text_encoded_dim=int(text_dim),
+            guidance_scale=float(m.guidance_scale),
+            guidance_uncondp=float(m.guidance_uncondp),
+            num_inference_timesteps=int(
+                sched.get("num_inference_timesteps", 50)),
+            num_train_timesteps=int((sched.get("params") or {}).get(
+                "num_train_timesteps", 1000)),
+            mean=mean, std=std,
+            dropout=float(m.droupout),  # sic: the reference key's spelling
+            dvae=bool(abl.get("DVAE", False)),
+            percentage_noised=float(abl.get("PERCENTAGE_NOISED", 0.0)),
+            weights=LossWeights.from_cfg(cfg),
+            eta=float(sched.get("eta", 0.0)), scheduler_kind=kind, **kw)
 
     @property
     def device(self) -> torch.device:

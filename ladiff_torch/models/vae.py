@@ -11,7 +11,9 @@ the skip decoder; ``final_layer`` maps to features and padded frames are
 zeroed.  ``add_noise`` is the DVAE input corruption.
 
 Training mode is ``module.training`` (dropout; the layers then run through
-the training kernels).  Random draws come from an explicit
+the training kernels: kernels 8 and 9 per layer, or with
+``train_whole_layer`` kernel 12 for the encoder's layers and kernel 13 for
+the decoder's).  Random draws come from an explicit
 ``torch.Generator`` on the tensors' device; ``encode`` also takes the
 Gaussian ``eps`` as a tensor.
 ``compute_dtype`` (set by ``LADiffSystem``) is the activations' type where
@@ -29,11 +31,17 @@ from ladiff_torch.ops.transformer import (SkipTransformerDecoder,
                                           SkipTransformerEncoder, linear)
 from ladiff_torch.utils.masks import latent_valid_mask, lengths_to_mask
 
-__all__ = ["LAVae"]
+__all__ = ["LAVae", "WHOLE_LAYER_OPTIONS"]
 
 
 def _randn(shape, generator, device, dtype):
     return torch.randn(shape, generator=generator, device=device).to(dtype)
+
+
+# which skip stacks run their training layers as one whole-layer kernel
+# (kernel 12 the encoder's, kernel 13 the decoder's): the values of the JAX
+# package's LADIFF_TRAIN_WHOLE_LAYER
+WHOLE_LAYER_OPTIONS = ("0", "1", "enc", "dec")
 
 
 class LAVae(nn.Module):
@@ -42,9 +50,14 @@ class LAVae(nn.Module):
                  num_heads: int = 4, max_it: int = 5,
                  frame_per_latent: int = 48, activation: str = "gelu",
                  dropout: float = 0.0, dvae: bool = False,
-                 percentage_noised: float = 0.0):
+                 percentage_noised: float = 0.0,
+                 train_whole_layer: str = "0"):
         super().__init__()
         D = int(latent_dim[-1])
+        if train_whole_layer not in WHOLE_LAYER_OPTIONS:
+            raise ValueError(
+                f"train_whole_layer should be one of {WHOLE_LAYER_OPTIONS}, "
+                f"not {train_whole_layer!r}")
         self.max_it = max_it
         self.frame_per_latent = frame_per_latent
         self.dvae = dvae
@@ -55,10 +68,12 @@ class LAVae(nn.Module):
         self.global_motion_token = nn.Parameter(torch.randn(2 * max_it, D))
         self.query_pos_encoder = PositionEmbeddingLearned1D(D)
         self.query_pos_decoder = PositionEmbeddingLearned1D(D)
-        self.encoder = SkipTransformerEncoder(D, num_heads, num_layers,
-                                              ff_size, activation, dropout)
-        self.decoder = SkipTransformerDecoder(D, num_heads, num_layers,
-                                              ff_size, activation, dropout)
+        self.encoder = SkipTransformerEncoder(
+            D, num_heads, num_layers, ff_size, activation, dropout,
+            whole_layer=train_whole_layer in ("1", "enc"))
+        self.decoder = SkipTransformerDecoder(
+            D, num_heads, num_layers, ff_size, activation, dropout,
+            whole_layer=train_whole_layer in ("1", "dec"))
 
     @property
     def dtype(self) -> torch.dtype:

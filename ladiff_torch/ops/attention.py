@@ -40,12 +40,17 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask drawn from ``generator``.  Returns [B, Sq, D].
 
     Self-attention over at least ``MIN_SEQ`` tokens without dropout, of a
-    shape kernel 10 takes (``masked_attention_supported``), goes through
+    shape kernel 10 takes (``masked_attention_supported``), and with no
+    gradient required (kernel 10 has no backward), goes through
     ``fused_masked_attention`` (kernel 10 on CUDA tensors); everything else
     (the denoiser's 7-key stream, cross-attention into the few memory rows,
-    any dropout, a head width above 128) is the plain version."""
+    any dropout, a head width above 128, a training layer's plain
+    attention) is the plain version."""
     B, S, D = q.shape
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     if (S == k.shape[1] >= MIN_SEQ and dropout_rate == 0.0
+            and not needs_grad
             and masked_attention_supported(B, S, D, num_heads)):
         return fused_masked_attention(q, k, v, key_valid,
                                       num_heads=num_heads)

@@ -27,7 +27,7 @@ from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
 
 __all__ = ["fused_postnorm_ffn", "postnorm_ffn_plain", "FFN_PARAM_ORDER",
-           "ACTIVATIONS", "check_ffn_shape"]
+           "ACTIVATIONS", "check_ffn_shape", "postnorm_ffn_supported"]
 
 ACTIVATIONS = {"relu": 0, "gelu": 1}
 FFN_PARAM_ORDER = ("ln1_w", "ln1_b", "w1", "b1", "w2", "b2", "ln2_w",
@@ -44,6 +44,16 @@ def postnorm_ffn_plain(x: torch.Tensor, p, *, activation: str = "gelu"
     h = F.layer_norm(x, (D,), w["ln1_w"], w["ln1_b"], 1e-5)
     y = F.linear(act(F.linear(h, w["w1"], w["b1"])), w["w2"], w["b2"])
     return F.layer_norm(h + y, (D,), w["ln2_w"], w["ln2_b"], 1e-5)
+
+
+def postnorm_ffn_supported(D: int, F: int, activation: str) -> bool:
+    """Whether kernels 5 and 9 take an FFN tail of width D, hidden width F:
+    D a multiple of 64 up to 256 (a row's values in a warp's registers, the
+    256-column product chunk), F a multiple of 128 up to 1024 (the hidden
+    rows in shared memory), ReLU or GELU.  A tail that fails it runs as
+    plain ``layer_norm`` / ``linear`` ops (the JAX package's XLA path)."""
+    return (D % 64 == 0 and 0 < D <= 256 and F % 128 == 0 and 0 < F <= 1024
+            and activation in ACTIVATIONS)
 
 
 def check_ffn_shape(name: str, x: torch.Tensor, p, activation: str,

@@ -61,13 +61,23 @@ from ladiff_torch.ops.train_ffn import _mul, _seed_args, split_rows
 __all__ = ["train_self_attention", "train_self_attention_fwd",
            "train_self_attention_bwd", "train_self_attention_plain",
            "train_self_attention_bwd_plain", "train_self_attention_masks",
-           "ATTN_PARAM_ORDER", "MIN_TOKENS"]
+           "train_attention_supported", "ATTN_PARAM_ORDER", "MIN_TOKENS"]
 
 ATTN_PARAM_ORDER = ("in_w", "in_b", "out_w", "out_b")
 # Streams shorter than this (the MD denoiser's ~7-token sa_block) are not
 # what the function is for; their layers keep the plain modules.
 MIN_TOKENS = 32
 Masks = Optional[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]]
+
+
+def train_attention_supported(S: int, D: int, H: int) -> bool:
+    """Whether a layer's training self-attention over S tokens runs as
+    kernel 8: at least ``MIN_TOKENS`` tokens, D a multiple of 64 up to 256
+    and a head width of 16, 32, 48 or 64 (the kernel's tiles).  A layer that
+    fails it runs the plain attention module (the JAX package's kernel takes
+    head widths up to 128 and plain attention above)."""
+    return (S >= MIN_TOKENS and D % 64 == 0 and 0 < D <= 256 and H > 0
+            and D % H == 0 and D // H in (16, 32, 48, 64))
 
 
 def _heads(t, B, S, H):
@@ -132,7 +142,7 @@ def _check_shape(name, x, kvalid, p, H, S):
     B = M // max(S, 1)
     Dh = D // max(H, 1)
     if (S < 1 or M != B * S or kvalid.shape != (M,) or D % 64 or D > 256
-            or D % H or Dh not in (16, 32, 48, 64)
+            or H < 1 or D % H or Dh not in (16, 32, 48, 64)
             or p["in_w"].shape != (3 * D, D) or p["out_w"].shape != (D, D)):
         raise ValueError(f"{name}: unsupported shape M={M} S={S} D={D} H={H}")
     return B

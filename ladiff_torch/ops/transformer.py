@@ -11,20 +11,32 @@ a CPU tensor):
 
   encoder layer, inference   ``masked_attention`` (kernel 10 from 64
                              tokens on) -> ``fused_postnorm_ffn``
-  encoder layer, training    ``train_self_attention`` ->
+  encoder layer, training    ``train_encoder_layer`` (kernel 12) where the
+                             layer is ``whole_layer`` and
+                             ``train_encoder_layer_supported``; otherwise
+                             ``train_self_attention`` ->
                              ``train_postnorm_ffn(norm1, norm2)``
   decoder layer, inference   ``fused_decoder_layer`` (kernel K2) where
                              ``decoder_layer_supported``; otherwise (e.g. a
                              head width above 128) per block:
                              ``masked_attention`` -> norm1 -> plain
                              cross-attention -> ``fused_postnorm_ffn``
-  decoder layer, training    ``train_self_attention`` -> norm1 -> plain
+  decoder layer, training    ``train_decoder_layer`` (kernel 13) where the
+                             layer is ``whole_layer`` and
+                             ``train_decoder_layer_supported``; otherwise
+                             ``train_self_attention`` -> norm1 -> plain
                              cross-attention into the few memory rows ->
                              ``train_postnorm_ffn(norm2, norm3)``
 
-``train_self_attention`` is for streams of at least ``MIN_TOKENS`` tokens
-and plain self-attention over the layer's own rows; shorter streams and
-``extra_kv`` keep the plain attention module in training.
+Each route is chosen from shapes before any launch.  ``train_self_attention``
+takes what ``train_attention_supported`` admits (at least ``MIN_TOKENS``
+tokens, head widths 16 to 64); other streams and ``extra_kv`` keep the plain
+attention module in training.  The FFN tail kernels (5 and 9) take what
+``postnorm_ffn_supported`` admits; a wider tail (D 512, F 2048) runs as plain
+``layer_norm`` / ``linear`` ops with dropout from the generator.  The
+whole-layer kernels are off unless the skip stack is built with
+``whole_layer=True`` (``LADiffSystem(train_whole_layer=...)``, the JAX
+package's ``LADIFF_TRAIN_WHOLE_LAYER``).
 
 A layer takes its training route when ``module.training``, and also in eval
 mode whenever autograd is recording and an input or one of its parameters
@@ -48,9 +60,15 @@ from ladiff_torch.ops.attention import MultiHeadAttention
 from ladiff_torch.ops.cuda_common import dropout_mask
 from ladiff_torch.ops.decoder_layer import (decoder_layer_supported,
                                             fused_decoder_layer)
-from ladiff_torch.ops.postnorm_ffn import fused_postnorm_ffn
-from ladiff_torch.ops.train_attention import MIN_TOKENS, train_self_attention
+from ladiff_torch.ops.postnorm_ffn import (fused_postnorm_ffn,
+                                           postnorm_ffn_supported)
+from ladiff_torch.ops.train_attention import (train_attention_supported,
+                                              train_self_attention)
+from ladiff_torch.ops.train_decoder_layer import (
+    train_decoder_layer, train_decoder_layer_supported)
 from ladiff_torch.ops.train_ffn import train_postnorm_ffn
+from ladiff_torch.ops.train_layer import (train_encoder_layer,
+                                          train_encoder_layer_supported)
 
 __all__ = [
     "get_activation",
@@ -111,21 +129,47 @@ def _train_self_attention(attn: MultiHeadAttention, x: torch.Tensor,
                           generator):
     """``x + drop(self_attn(x))`` through kernel 8."""
     B, S, D = x.shape
-    kv = (key_valid.reshape(B * S).float() if key_valid is not None
-          else torch.ones(B * S, dtype=torch.float32, device=x.device))
     out = train_self_attention(
-        x.reshape(B * S, D).contiguous(), kv.contiguous(),
+        x.reshape(B * S, D).contiguous(), _key_valid(key_valid, x),
         attn.kernel_params(), H=attn.num_heads, S=S, rate=rate,
         generator=generator)
     return out.reshape(B, S, D)
+
+
+def _self_attention_block(attn: MultiHeadAttention, x: torch.Tensor,
+                          key_valid: Optional[torch.Tensor], train_route: bool,
+                          rate: float, generator) -> torch.Tensor:
+    """``x + drop(self_attn(x))``: kernel 8 on the training route where it
+    takes the shape, else the attention module."""
+    if train_route and train_attention_supported(x.shape[1], attn.d_model,
+                                                 attn.num_heads):
+        return _train_self_attention(attn, x, key_valid, rate, generator)
+    x2 = attn(x, x, x, key_valid, generator=generator)
+    return x + _drop(x2, rate, generator)
+
+
+def _key_valid(key_valid: Optional[torch.Tensor], x: torch.Tensor):
+    """[B*S] float32 key validity for the training kernels."""
+    B, S, _ = x.shape
+    if key_valid is None:
+        return torch.ones(B * S, dtype=torch.float32, device=x.device)
+    return key_valid.reshape(B * S).float().contiguous()
 
 
 def _ffn_tail(layer, resid: torch.Tensor, ln_a: nn.LayerNorm,
               ln_b: nn.LayerNorm, train_route: bool, rate: float,
               generator) -> torch.Tensor:
     """``ln_b(h + FFN(h))`` with ``h = ln_a(resid)``: kernel 9 on the
-    training route, kernel 5 at inference."""
+    training route, kernel 5 at inference, plain ops for a shape they do not
+    take."""
     B, S, D = resid.shape
+    if not postnorm_ffn_supported(D, layer.linear1.out_features,
+                                  layer.activation):
+        h = layer_norm(ln_a, resid)
+        act = get_activation(layer.activation)
+        y = linear(layer.linear2, _drop(act(linear(layer.linear1, h)), rate,
+                                        generator))
+        return layer_norm(ln_b, h + _drop(y, rate, generator))
     x = resid.reshape(B * S, D).contiguous()
     p = _ffn_params(layer, ln_a, ln_b)
     if train_route:
@@ -143,15 +187,29 @@ class TransformerEncoderLayer(nn.Module):
     keeping the first S rows)."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
-                 activation: str = "relu", dropout: float = 0.0):
+                 activation: str = "relu", dropout: float = 0.0,
+                 whole_layer: bool = False):
         super().__init__()
+        self.num_heads = num_heads
         self.activation = activation
         self.dropout = dropout
+        self.whole_layer = whole_layer
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def kernel_params(self) -> dict:
+        """The layer's tensors by the names ``train_encoder_layer`` takes."""
+        return {**self.self_attn.kernel_params(),
+                **_ffn_params(self, self.norm1, self.norm2)}
+
+    def takes_whole_training_layer(self, S: int) -> bool:
+        """Whether the layer's training route over S tokens is kernel 12."""
+        return self.whole_layer and train_encoder_layer_supported(
+            S, self.linear1.in_features, self.num_heads,
+            self.linear1.out_features, self.activation)
 
     def forward(self, src: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
@@ -159,12 +217,19 @@ class TransformerEncoderLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         train_route = self.training or _needs_grad(self, src, extra_kv)
         rate = self.dropout if self.training else 0.0
-        if train_route and extra_kv is None and src.shape[1] >= MIN_TOKENS:
-            resid = _train_self_attention(self.self_attn, src, key_valid,
-                                          rate, generator)
+        B, S, D = src.shape
+        if (train_route and extra_kv is None
+                and self.takes_whole_training_layer(S)):
+            out = train_encoder_layer(
+                src.reshape(B * S, D).contiguous(), _key_valid(key_valid, src),
+                self.kernel_params(), H=self.num_heads, S=S,
+                activation=self.activation, rate=rate, generator=generator)
+            return out.reshape(B, S, D)
+        if extra_kv is None:
+            resid = _self_attention_block(self.self_attn, src, key_valid,
+                                          train_route, rate, generator)
         else:
-            kv = src if extra_kv is None else torch.cat(
-                [src, extra_kv.to(src.dtype)], dim=1)
+            kv = torch.cat([src, extra_kv.to(src.dtype)], dim=1)
             x2 = self.self_attn(src, kv, kv, key_valid, generator=generator)
             resid = src + _drop(x2, rate, generator)
         return _ffn_tail(self, resid, self.norm1, self.norm2, train_route,
@@ -176,11 +241,13 @@ class TransformerDecoderLayer(nn.Module):
     cross-attention into the memory, FFN."""
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
-                 activation: str = "relu", dropout: float = 0.0):
+                 activation: str = "relu", dropout: float = 0.0,
+                 whole_layer: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.activation = activation
         self.dropout = dropout
+        self.whole_layer = whole_layer
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
@@ -190,7 +257,8 @@ class TransformerDecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
     def kernel_params(self) -> dict:
-        """The layer's tensors by the names ``fused_decoder_layer`` takes."""
+        """The layer's tensors by the names ``fused_decoder_layer`` and
+        ``train_decoder_layer`` take."""
         sa, ca = self.self_attn, self.multihead_attn
         return {
             "sa_in_w": sa.in_proj_weight, "sa_in_b": sa.in_proj_bias,
@@ -211,17 +279,19 @@ class TransformerDecoderLayer(nn.Module):
                                        self.linear1.out_features,
                                        self.activation)
 
+    def takes_whole_training_layer(self, T: int, L: int) -> bool:
+        """Whether the layer's training route over T frames and L memory
+        rows is kernel 13."""
+        return self.whole_layer and train_decoder_layer_supported(
+            T, L, self.linear1.in_features, self.num_heads,
+            self.linear1.out_features, self.activation)
+
     def _forward_blocks(self, tgt, memory, tgt_key_valid, memory_key_valid,
                         train_route, rate, generator):
         """The layer block by block: the training route (kernels 8 and 9)
         or, at inference, ``masked_attention`` and kernel 5."""
-        if train_route and tgt.shape[1] >= MIN_TOKENS:
-            resid = _train_self_attention(self.self_attn, tgt, tgt_key_valid,
-                                          rate, generator)
-        else:
-            x2 = self.self_attn(tgt, tgt, tgt, tgt_key_valid,
-                                generator=generator)
-            resid = tgt + _drop(x2, rate, generator)
+        resid = _self_attention_block(self.self_attn, tgt, tgt_key_valid,
+                                      train_route, rate, generator)
         tgt = layer_norm(self.norm1, resid)
         x2 = self.multihead_attn(tgt, memory, memory, memory_key_valid,
                                  generator=generator)
@@ -235,12 +305,23 @@ class TransformerDecoderLayer(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         train_route = self.training or _needs_grad(self, tgt, memory)
+        B, T, D = tgt.shape
+        L = memory.shape[1]
+        if train_route and self.takes_whole_training_layer(T, L):
+            mv = (memory_key_valid if memory_key_valid is not None
+                  else torch.ones(B, L, dtype=torch.bool, device=tgt.device))
+            out = train_decoder_layer(
+                tgt.reshape(B * T, D).contiguous(),
+                _key_valid(tgt_key_valid, tgt), memory.contiguous(),
+                mv.float().contiguous(), self.kernel_params(),
+                H=self.num_heads, S=T, activation=self.activation,
+                rate=self.dropout if self.training else 0.0,
+                generator=generator)
+            return out.reshape(B, T, D)
         if train_route or not self.takes_whole_layer():
             return self._forward_blocks(
                 tgt, memory, tgt_key_valid, memory_key_valid, train_route,
                 self.dropout if self.training else 0.0, generator)
-        B, T, D = tgt.shape
-        L = memory.shape[1]
         kv = (tgt_key_valid if tgt_key_valid is not None
               else torch.ones(B, T, dtype=torch.bool, device=tgt.device))
         mv = (memory_key_valid if memory_key_valid is not None
@@ -291,10 +372,10 @@ class _SkipStack(nn.Module):
 class SkipTransformerEncoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, whole_layer: bool = False):
         super().__init__(
             lambda: TransformerEncoderLayer(d_model, num_heads, ff_size,
-                                            activation, dropout),
+                                            activation, dropout, whole_layer),
             d_model, num_layers)
 
     def forward(self, src: torch.Tensor,
@@ -307,10 +388,10 @@ class SkipTransformerEncoder(_SkipStack):
 class SkipTransformerDecoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, whole_layer: bool = False):
         super().__init__(
             lambda: TransformerDecoderLayer(d_model, num_heads, ff_size,
-                                            activation, dropout),
+                                            activation, dropout, whole_layer),
             d_model, num_layers)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,

@@ -2,6 +2,7 @@
 three training stages on one GPU.
 
     python -m ladiff_torch.train_bench [--cpu] [--breakdown]
+                                       [--whole-layer {0,1,enc,dec}]
 
 Protocol (the JAX package's ``scripts/train_bench.py``): the published
 HumanML3D model (9 + 9 skip VAE layers and the 9-layer MD-trans denoiser,
@@ -16,9 +17,14 @@ the 10-step guided sampling run and the decode of its latents).  After
 ``WARMUP`` untimed steps, ``ITERS`` steps are timed between two
 ``torch.cuda.synchronize()`` calls.
 
+``--whole-layer`` runs the VAE's training layers as the whole-layer kernels
+12 (encoder) and 13 (decoder), or only the named stack's ("0", the default,
+keeps kernels 8 and 9 for both).
+
 Prints one JSON line per stage: {"stage", "batch", "ms_per_step",
-"samples_per_sec", "device", ...}.  ``--cpu`` runs the plain PyTorch paths
-in float32 (a sanity check; its numbers are not GPU numbers).
+"samples_per_sec", "whole_layer", "device", ...}.  ``--cpu`` runs the plain
+PyTorch paths in float32 (a sanity check; its numbers are not GPU
+numbers).
 ``--breakdown`` (GPU only) adds a second JSON line per stage that says where
 a step's time goes: device time per group of kernels from ``torch.profiler``
 over the timed steps and the device's idle share; the host's time per step in
@@ -136,10 +142,17 @@ _GROUPS = (
      r"md_layer_kernel"),
     ("fused_masked_attention (frozen encode)", r"attn_tile_kernel"),
     ("fused_postnorm_ffn (frozen encode)", r"postnorm_ffn_kernel"),
-    ("train_self_attention fwd",
+    ("kernel 12 tail fwd (out-projection to LN2)", r"enc_tail_fwd_kernel"),
+    ("kernel 12 tail bwd (dout to dctx)", r"enc_tail_bwd_kernel"),
+    ("kernel 13 tail fwd (out-projection to LN3)", r"dec_tail_fwd_kernel"),
+    ("kernel 13 tail bwd (dout to dctx) and memory gradient sums",
+     r"dec_tail_bwd_kernel|kv_reduce_kernel"),
+    ("train_self_attention fwd (projections and tiled attention of kernels"
+     " 12 and 13 too)",
      r"linear_kernel|attn_fwd_kernel|out_proj_kernel"),
-    ("train_self_attention bwd, without weight gradients",
-     r"dctx_kernel|attn_bwd_kernel|dx_kernel"),
+    ("train_self_attention bwd, without weight gradients (tiled attention"
+     " and dx of kernels 12 and 13 too)",
+     r"dctx_kernel|attn_bwd_kernel|linear_nn_kernel"),
     ("train_postnorm_ffn fwd", r"train_ffn_fwd_kernel"),
     ("train_postnorm_ffn bwd, without weight gradients",
      r"train_ffn_bwd_kernel"),
@@ -310,12 +323,16 @@ def main():
                     help="plain PyTorch paths in float32 on the CPU")
     ap.add_argument("--breakdown", action="store_true",
                     help="a second line: where the step's time goes (GPU)")
+    ap.add_argument("--whole-layer", default="0",
+                    choices=("0", "1", "enc", "dec"),
+                    help="VAE training layers as kernels 12 / 13")
     args = ap.parse_args()
     device = "cpu" if args.cpu else None
     if args.breakdown and args.cpu:
         raise SystemExit("--breakdown measures the GPU")
     for stage in STAGES:
-        system, optimizer = build(device, stage=stage)
+        system, optimizer = build(device, stage=stage,
+                                  train_whole_layer=args.whole_layer)
         batch = make_batch(device=system.device)
         res = measure(system, optimizer, batch, stage=stage)
         if not (np.isfinite(res["loss"]) and np.isfinite(res["grad_norm"])):
@@ -327,6 +344,7 @@ def main():
             "samples_per_sec": round(res["samples_per_sec"], 1),
             "loss": res["loss"], "grad_norm": res["grad_norm"],
             "peak_mem_gb": res["peak_mem_gb"],
+            "whole_layer": args.whole_layer,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),
         }), flush=True)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1..K4, the inference FFN tail and masked
 attention, the training attention and FFN-tail kernels with their
 backwards, the whole MD stack, the stylized FFN and the one-token
-stylize) against their plain
+stylize, the whole-layer training kernels 12 and 13) against their plain
 PyTorch versions, on an NVIDIA GPU (marked ``cuda``; skipped where there is
 none).  Imports no JAX, so it runs on a machine that has only PyTorch and
 the CUDA toolkit:
@@ -520,7 +520,7 @@ def _guarded_calls(fn, tensors, params=None):
 def test_kernels_read_inside_their_inputs(dev):
     """Row counts that leave a partial last block, D 128 and 256 (the
     LayerNorm helpers unroll past D / 32), every input and parameter in turn
-    at the end of its allocation."""
+    at the end of its allocation, the memory rows of kernel 13 too."""
     from ladiff_torch.models.clip_text import CLIPTextLayer
     from ladiff_torch.ops.attention_kernel import fused_masked_attention
     from ladiff_torch.ops.clip_layer import fused_ln_qkv, fused_proj_mlp
@@ -530,8 +530,12 @@ def test_kernels_read_inside_their_inputs(dev):
     from ladiff_torch.ops.stylization import MDTransformerLayer
     from ladiff_torch.ops.train_attention import (train_self_attention_bwd,
                                                   train_self_attention_fwd)
+    from ladiff_torch.ops.train_decoder_layer import (
+        train_decoder_layer_bwd, train_decoder_layer_fwd)
     from ladiff_torch.ops.train_ffn import (train_postnorm_ffn_bwd,
                                             train_postnorm_ffn_fwd)
+    from ladiff_torch.ops.train_layer import (train_encoder_layer_bwd,
+                                              train_encoder_layer_fwd)
     from ladiff_torch.ops.transformer import TransformerDecoderLayer
     bf = torch.bfloat16
     for D, H in ((256, 4), (128, 2)):
@@ -553,6 +557,33 @@ def test_kernels_read_inside_their_inputs(dev):
         _guarded_calls(lambda t, p: train_self_attention_bwd(
             t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S, rate=0.1, seed=3),
             [x, kvalid, dout, *saved], pa)
+        # kernel 12; kernel 13 at 8 x 37 rows (a partial last row block,
+        # and a 32-byte multiple for mvalid) with 5 memory rows per sample
+        pe = {**pa, **pf}
+        _guarded_calls(lambda t, p: train_encoder_layer_fwd(
+            t[0], t[1], p, H=H, S=S, rate=0.1, seed=3), [x, kvalid], pe)
+        _, saved = train_encoder_layer_fwd(x, kvalid, pe, H=H, S=S, rate=0.1,
+                                           seed=3, return_saved=True)
+        _guarded_calls(lambda t, p: train_encoder_layer_bwd(
+            t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S, rate=0.1, seed=3),
+            [x, kvalid, dout, *saved], pe)
+        pdl = _randomize(TransformerDecoderLayer(D, H, Fd, "gelu"), 5).to(
+            dev, bf)
+        pd = {k: v.detach() for k, v in pdl.kernel_params().items()}
+        Bd, Sd = 8, 37
+        xd, doutd = _bf(dev, Bd * Sd, D), _bf(dev, Bd * Sd, D, seed=17)
+        kvd = _mask([Sd, 20, 1, 36, 5, Sd, 9, 30], Sd, dev).reshape(-1)
+        mem = _bf(dev, Bd, 5, D, seed=19)
+        mvalid = _mask([5, 2, 1, 3, 4, 5, 1, 2], 5, dev).contiguous()
+        _guarded_calls(lambda t, p: train_decoder_layer_fwd(
+            *t, p, H=H, S=Sd, rate=0.1, seed=3),
+            [xd, kvd.contiguous(), mem, mvalid], pd)
+        _, saved = train_decoder_layer_fwd(xd, kvd.contiguous(), mem, mvalid,
+                                           pd, H=H, S=Sd, rate=0.1, seed=3,
+                                           return_saved=True)
+        _guarded_calls(lambda t, p: train_decoder_layer_bwd(
+            *t[:5], p, tuple(t[5:]), H=H, S=Sd, rate=0.1, seed=3),
+            [xd, kvd.contiguous(), mem, mvalid, doutd, *saved], pd)
         # kernel 10: 70 tokens, so the last 64-row tile holds 6 rows
         S10 = 70
         qkv = [_bf(dev, B, S10, D, seed=30 + i) for i in range(3)]
@@ -581,6 +612,135 @@ def test_kernels_read_inside_their_inputs(dev):
                    {k: v.detach() for k, v in cl.qkv_params().items()})
     _guarded_calls(lambda t, p: fused_proj_mlp(t[0], t[1], p), [ac, xc],
                    {k: v.detach() for k, v in cl.mlp_params().items()})
+
+
+# -- the whole-layer training kernels 12 and 13 -----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B", [5, 1])
+@torch.no_grad()
+def test_whole_layer_kernels(dev, rate, B):
+    """Kernels 12 (206 encoder rows per sample) and 13 (196 frames, 5
+    memory rows of which 1 to 5 are valid) against their plain versions,
+    forward and every gradient, the memory's too; B 1 leaves a partial row
+    block."""
+    from ladiff_torch.ops.train_decoder_layer import (
+        DEC_PARAM_ORDER, train_decoder_layer_bwd,
+        train_decoder_layer_bwd_plain, train_decoder_layer_fwd,
+        train_decoder_layer_masks, train_decoder_layer_plain)
+    from ladiff_torch.ops.train_layer import (
+        ENC_PARAM_ORDER, train_encoder_layer_bwd,
+        train_encoder_layer_bwd_plain, train_encoder_layer_fwd,
+        train_encoder_layer_masks, train_encoder_layer_plain)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    D, H, Fd, L, seed = 256, 4, 1024, 5, 24681357
+    lengths = np.array([196, 16, 99, 1, 193])[:B]
+    pe = {**_attn_params(dev), **_ffn_params(dev)}
+    pd = {k: v.detach() for k, v in _randomize(TransformerDecoderLayer(
+        D, H, Fd, "gelu"), 7).to(dev, torch.bfloat16).kernel_params().items()}
+    for S in (206, 196):
+        M = B * S
+        x, dout = _bf(dev, M, D, seed=20), _bf(dev, M, D, seed=21, scale=0.1)
+        kvalid = _mask(np.minimum(lengths + (S - 196), S), S,
+                       dev).reshape(-1).contiguous()
+        kw = dict(H=H, S=S, rate=rate, seed=seed)
+        if S == 206:
+            masks = (train_encoder_layer_masks(B, S, D, H, Fd, rate, seed,
+                                               dev) if rate else None)
+            got, saved = train_encoder_layer_fwd(x, kvalid, pe,
+                                                 return_saved=True, **kw)
+            want = train_encoder_layer_plain(x.float(), kvalid, _f32(pe),
+                                             masks, H=H, S=S)
+            dx, grads = train_encoder_layer_bwd(x, kvalid, dout, pe, saved,
+                                                **kw)
+            wdx, wgrads = train_encoder_layer_bwd_plain(
+                x.float(), kvalid, dout.float(), _f32(pe), masks, H=H, S=S)
+            names = ENC_PARAM_ORDER
+        else:
+            mem = _bf(dev, B, L, D, seed=22)
+            mvalid = _mask(np.array([5, 1, 3, 2, 4])[:B], L, dev).contiguous()
+            masks = (train_decoder_layer_masks(B, S, L, D, H, Fd, rate, seed,
+                                               dev) if rate else None)
+            got, saved = train_decoder_layer_fwd(x, kvalid, mem, mvalid, pd,
+                                                 return_saved=True, **kw)
+            want = train_decoder_layer_plain(x.float(), kvalid, mem.float(),
+                                             mvalid, _f32(pd), masks, H=H,
+                                             S=S)
+            dx, dmem, grads = train_decoder_layer_bwd(
+                x, kvalid, mem, mvalid, dout, pd, saved, **kw)
+            wdx, wdmem, wgrads = train_decoder_layer_bwd_plain(
+                x.float(), kvalid, mem.float(), mvalid, dout.float(),
+                _f32(pd), masks, H=H, S=S)
+            assert _relerr(dmem, wdmem) <= TOL
+            names = DEC_PARAM_ORDER
+        assert _relerr(got, want) <= TOL, S
+        assert _relerr(dx, wdx) <= TOL, S
+        for k in names:
+            assert grads[k].dtype == torch.float32
+            assert _relerr(grads[k], wgrads[k]) <= TOL, (S, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["1", "enc", "dec"])
+def test_whole_layer_route_launches_on_the_gpu(dev, route):
+    """One AdamW step of the published VAE at batch 4 on the whole-layer
+    route: kernel 12 in each encoder layer, kernel 13 in each decoder
+    layer where the option names their stack, kernels 8 and 9 in the
+    others; the parameters move and the logs are finite."""
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.trainer import vae_train_step
+    system, opt = train_bench.build(train_whole_layer=route)
+    batch = train_bench.make_batch(4, device=system.device)
+    before = system.vae.final_layer.weight.detach().clone()
+    cc.reset_launch_counts()
+    logs = vae_train_step(system, opt, batch,
+                          torch.Generator(device=dev).manual_seed(0))
+    counts = cc.launch_counts()
+    enc, dec = route in ("1", "enc"), route in ("1", "dec")
+    split = 9 * ((not enc) + (not dec))
+    for name, n in (("train_encoder_layer", 9 * enc),
+                    ("train_encoder_layer_bwd", 9 * enc),
+                    ("train_decoder_layer", 9 * dec),
+                    ("train_decoder_layer_bwd", 9 * dec),
+                    ("train_self_attention", split),
+                    ("train_self_attention_bwd", split),
+                    ("train_postnorm_ffn", split),
+                    ("train_postnorm_ffn_bwd", split)):
+        assert counts[name] == n, name
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
+    assert not torch.equal(system.vae.final_layer.weight, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["head_width_128", "d512_ff2048"])
+def test_gated_vae_steps_without_the_refused_kernels(dev, case, dropout):
+    """A VAE whose training shapes kernel 8 (head width 128), or kernels 8
+    and 9 (d 512, ff 2048), do not take runs a step through the plain
+    parts: no launch of those kernels, nor of 12 and 13 on the whole-layer
+    route, nor of kernel 10 (no backward) for the plain attention at
+    dropout 0."""
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.trainer import vae_train_step
+    kw = ({"num_heads": 2} if case == "head_width_128" else
+          {"latent_dim": (7, 512), "ff_size": 2048, "num_heads": 8})
+    system, opt = train_bench.build(train_whole_layer="1", dropout=dropout,
+                                    **kw)
+    batch = train_bench.make_batch(4, device=system.device)
+    cc.reset_launch_counts()
+    logs = vae_train_step(system, opt, batch,
+                          torch.Generator(device=dev).manual_seed(0))
+    counts = cc.launch_counts()
+    tail = 18 if case == "head_width_128" else 0
+    assert counts["train_self_attention"] == 0
+    assert counts["train_postnorm_ffn"] == counts["train_postnorm_ffn_bwd"] \
+        == tail
+    assert counts["train_encoder_layer"] == counts["train_decoder_layer"] == 0
+    assert counts["fused_masked_attention"] == 0
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
 
 
 # -- generation's other routes: kernels 11, 6 and 7 --------------------------
