@@ -46,6 +46,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
             compared only): each against its plain
             version at dropout 0, and at dropout 0.1 with the plain version
             given the masks the kernel draws; every gradient on its own.
+            Kernel 10's samples include one without a valid key and short
+            ones with wholly masked key tiles, each group held on its own
+            (``kernel10_masking``); kernel 8 is compared again at batch 3
+            with such samples (``kernel8_masking``).
             Then a ``dropout`` line: keep fraction, same seed same output,
             other seed other output.  Then ``kernels_decoder_stream``: the
             training kernels compared again at the decoder's 128 x 196 rows.
@@ -84,7 +88,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
             at dropout 0 and 0.1 (the kernel's masks given to the plain
             version), every gradient on its own, the memory's too; timed at
             batch 64, compared again at 128 and 3; the memory gradient's
-            bits equal over two runs.
+            bits equal over two runs.  ``whole_layer_breakdown``: kernel
+            12's launches one by one (device ms per call, batch 64,
+            dropout 0.1).
 11. whole_layer_slice  ``train_slice`` on the whole-layer route, with its
             launch counts (9 + 9 of kernel 12, 9 + 9 of kernel 13, none of
             kernels 8 and 9).
@@ -98,6 +104,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
             a resume, stage 2 booting the VAE from those checkpoints,
             ``ladiff_torch.demo``; launch counts per step, losses, the
             demo's joints.
+15. float32_entry  the published configurations unmodified (float32
+            compute: every module's plain route): stage 1 through
+            ``run_training`` for 2 epochs x 3 steps with no kernel launch,
+            its loss on one batch against the CPU's, float32 ms per step
+            beside the bf16 route's; stage 2 booting from it for 3 steps.
 
 Then a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 ``--only PHASE[,PHASE]`` runs the build and the named phases alone (a short
@@ -199,6 +210,9 @@ EXPECTED_PER_JOINT_STEP = {
 # 2e-2: there the denoiser's gradients, which the joints do not reach, are
 # held the same way and the VAE's are printed beside their control.
 DIFF_LOSS_TOL = 1e-2
+# float32 on the card (plain routes, TF32 off) against float32 on the CPU:
+# the same function, sums in another order
+FLOAT32_LOSS_TOL = 1e-3
 DIFF_GRAD_RATIO, DIFF_GRAD_FLOOR = 1.3, 2e-2
 # the whole-layer route's stage-1 step: kernel 12 in each of the 9 encoder
 # layers and kernel 13 in each of the 9 decoder layers, forward and backward
@@ -215,7 +229,7 @@ PHASES = (("kernels", False), ("slice", False), ("bench", False),
           ("whole_layer_slice", True), ("gated_slice", True),
           ("train_bench", True), ("whole_layer_bench", True),
           ("diffusion_slice", True), ("diffusion_bench", True),
-          ("train_entry", True))
+          ("train_entry", True), ("float32_entry", True))
 
 
 def emit(obj):
@@ -257,6 +271,34 @@ def device_ms(fn, reps: int = 20) -> float:
         if total_us > 0:
             return total_us / reps / 1e3
     fail("the profiler recorded no device time in three windows")
+
+
+def launch_breakdown(fn, reps: int = 10):
+    """Device milliseconds per call of ``fn`` by kernel (the profiler's
+    per-name sums over ``reps`` calls, template arguments kept), largest
+    first: [{"kernel", "ms", "launches"}]."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::|ladiff::", "",
+                          ev.key).split("(")[0]
+            rows.append({"kernel": name, "ms": t / reps / 1e3,
+                         "launches": ev.count / reps})
+    return sorted(rows, key=lambda r: -r["ms"])
 
 
 def bound(flops: float, nbytes: float):
@@ -910,12 +952,21 @@ def phase_train_kernels(dev):
     rec["path"] = KERNEL5_VAE_PATH
     recs.append(rec)
 
-    # kernel 10: projected q, k, v of the encoder stream; every query
-    # against its sample's valid keys (masked keys are not needed work)
+    # kernel 10: projected q, k, v of the encoder stream, whose short
+    # samples have wholly masked 64-key tiles, and sample 0 with no valid
+    # key (it attends uniformly to all S keys); every query against its
+    # sample's valid keys, or all S of sample 0 (masked keys are not
+    # needed work)
     q10, k10, v10 = (rnd(B, S, D) for _ in range(3))
-    valid10 = valid.to(dev)
+    valid10 = valid.clone()
+    valid10[0] = False
+    valid10 = valid10.to(dev)
+    nvalid10 = nvalid - int(valid[0].sum()) + S
     heads = lambda a: a.reshape(B, S, H, D // H).transpose(1, 2)
     sdpa_mask = valid10[:, None, None, :]
+    tiles = valid10.reshape(B, -1).float()
+    tiles = torch.nn.functional.pad(tiles, (0, -S % 64)).reshape(B, -1, 64)
+    masked_tiles = int((tiles.sum(-1) == 0)[1:].sum())
     recs.append(check_kernel(
         "fused_masked_attention", "ladiff_torch/csrc/masked_attention.cu",
         "ladiff_tpu/ops/pallas_attention.py:52",
@@ -923,9 +974,27 @@ def phase_train_kernels(dev):
         lambda: masked_attention_plain(q10.float(), k10.float(), v10.float(),
                                        valid10, num_heads=H),
         lambda: masked_attention_plain(q10, k10, v10, valid10, num_heads=H),
-        4 * D * S * nvalid, nbytes(q10, k10, v10, valid10, q10),
+        4 * D * S * nvalid10, nbytes(q10, k10, v10, valid10, q10),
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
-            heads(q10), heads(k10), heads(v10), attn_mask=sdpa_mask)))
+            heads(q10), heads(k10), heads(v10), attn_mask=sdpa_mask),
+        extra={"wholly_masked_key_tiles": masked_tiles,
+               "samples_without_a_valid_key": 1}))
+    # the sample without a valid key, and the samples with masked tiles,
+    # each held on its own
+    got10 = fused_masked_attention(q10, k10, v10, valid10, num_heads=H)
+    want10 = masked_attention_plain(q10.float(), k10.float(), v10.float(),
+                                    valid10, num_heads=H)
+    short = (tiles.sum(-1) == 0).any(-1)
+    short[0] = False
+    emit({"phase": "kernel10_masking", "tol": KERNEL_TOL,
+          "no_valid_key_rel_err": compare(
+              "fused_masked_attention, no valid key", got10[:1],
+              want10[:1], KERNEL_TOL)[0],
+          "masked_tile_samples": int(short.sum()),
+          "masked_tile_samples_rel_err": compare(
+              "fused_masked_attention, wholly masked key tiles",
+              got10[short], want10[short], KERNEL_TOL)[0]})
+    del got10, want10
     compare("fused_masked_attention without a mask, 64 tokens",
             fused_masked_attention(q10[:, :64].contiguous(),
                                    k10[:, :64].contiguous(),
@@ -1010,6 +1079,33 @@ def phase_train_kernels(dev):
                                                S=S),
         fl_b, nbytes(x, kvalid, dout, x) + pa_bytes + 2 * pa_bytes,
         tol=GRAD_TOL, extra={"rate": RATE}))
+
+    # a sample without a valid key through kernel 8 (compared only): it
+    # attends uniformly, forward and backward, beside two short samples
+    # with wholly masked key tiles; dropout 0.1
+    kv3 = torch.ones(3, S)
+    kv3[0] = 0
+    kv3[1, 20:] = 0
+    kv3[2, [0, 1, 5, 6]] = 1
+    kv3[2, 2:5], kv3[2, 7:10], kv3[2, 40:] = 0, 0, 0
+    kv3 = kv3.reshape(3 * S).to(dev).contiguous()
+    x3, dout3 = x[:3 * S].contiguous(), dout[:3 * S].contiguous()
+    m3 = train_self_attention_masks(3, S, D, H, RATE, SEED, dev)
+    o3, s3 = train_self_attention_fwd(x3, kv3, pa, H=H, S=S,
+                                      return_saved=True, **kw)
+    emit({"phase": "kernel8_masking", "tol": KERNEL_TOL,
+          "grad_tol": GRAD_TOL, "fwd_rel_err": compare(
+              "train_self_attention, no valid key", o3,
+              train_self_attention_plain(x3.float(), kv3, f32(pa), m3, H=H,
+                                         S=S), KERNEL_TOL)[0],
+          "bwd_rel_err": compare(
+              "train_self_attention_bwd, no valid key",
+              flat(*train_self_attention_bwd(x3, kv3, dout3, pa, s3, H=H,
+                                             S=S, **kw)),
+              flat(*train_self_attention_bwd_plain(
+                  x3.float(), kv3, dout3.float(), f32(pa), m3, H=H, S=S)),
+              GRAD_TOL)[0]})
+    del o3, s3, m3
 
     # dropout: keep fraction of a large mask, seeds
     keep = {"probabilities": float((masks[0] > 0).float().mean()),
@@ -1733,6 +1829,164 @@ def phase_train_entry(dev):
     return stage1
 
 
+def phase_float32_entry(dev):
+    """The published configurations as shipped (``TRAIN.MIXED_PRECISION``
+    false): float32 compute on the card through every module's plain
+    route.  ``configs/config_vae_humanml3d.yaml`` through ``run_training``
+    on 512 synthetic clips, 2 epochs x 3 steps at its batch of 64, with no
+    kernel launch; its loss on one batch (the eval-mode forward under
+    autograd, dropout off, the same weights and latent noise) against the
+    CPU float32 forward within ``FLOAT32_LOSS_TOL``; float32 ms per step
+    at the configuration's batch beside the bf16 route's (the same
+    configuration with ``MIXED_PRECISION`` true), 5 timed steps after 2;
+    then ``configs/config_ladiff_humanml3d.yaml`` (stage 2, batch 128)
+    booting the VAE from those checkpoints for 3 steps, with no kernel
+    launch either."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.data.datamodule import get_datasets
+    from ladiff_torch.data.synthetic import generate_synthetic_dataset
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.loop import build_system, run_training
+    from ladiff_torch.training.trainer import make_optimizer, vae_train_step
+    from ladiff_torch.utils.checkpoint import (latest_checkpoint,
+                                               load_checkpoint)
+    from ladiff_torch.utils.logger import create_logger
+
+    tmp = tempfile.mkdtemp(prefix="ladiff_float32_entry_")
+    configs = os.path.join(HERE, "configs")
+    assets = os.path.join(configs, "assets.yaml")
+    t_start = time.perf_counter()
+    try:
+        data = generate_synthetic_dataset(os.path.join(tmp, "humanml3d"),
+                                          n_clips=512, seed=0)
+        base = {"DEBUG": False, "FOLDER": os.path.join(tmp, "experiments"),
+                "DATASET": {"HUMANML3D": {"ROOT": data}},
+                "LOGGER": {"SACE_CHECKPOINT_EPOCH": 1,
+                           "TENSORBOARD": False}}
+
+        def config(name, **train):
+            over = {**base, "TRAIN": train} if train else base
+            return assemble_config(os.path.join(configs, name), assets, over)
+
+        def stage(cfg, steps, epochs=None):
+            logger = create_logger(cfg, phase="train")
+            dm = get_datasets(cfg, phase="train")[0]
+            cc.reset_launch_counts()
+            ckpt = run_training(cfg, dm, logger, max_epochs=epochs,
+                                max_steps_per_epoch=steps, device=dev)
+            torch.cuda.synchronize()
+            launches = sum(cc.launch_counts().values())
+            with open(os.path.join(cfg.FOLDER_EXP, "metrics.jsonl")) as f:
+                lines = [json.loads(line) for line in f]
+            return dm, ckpt, launches, lines
+
+        cfg1 = config("config_vae_humanml3d.yaml")
+        mixed = bool(cfg1.TRAIN.get("MIXED_PRECISION", False))
+        dm, ckpt1, launches1, lines1 = stage(cfg1, 3, 2)
+        files = sorted(os.listdir(ckpt1))
+
+        # one batch on the card and on the CPU, the same weights and noise
+        B = int(cfg1.TRAIN.BATCH_SIZE)
+        gpu = build_system(cfg1, dm, device=dev)
+        cpu = build_system(cfg1, dm, device="cpu")
+        same_weights = all(torch.equal(v.cpu(), cpu.state_dict()[k])
+                           for k, v in gpu.state_dict().items())
+        g = torch.Generator().manual_seed(7)
+        batch = train_bench.make_batch(batch=B)
+        eps = torch.randn(B, gpu.max_it, gpu.latent_dim[-1], generator=g)
+        cc.reset_launch_counts()
+        with torch.enable_grad():
+            loss_g, _ = gpu.vae_forward(
+                {k: v.to(dev) for k, v in batch.items()}, train=False,
+                eps=eps.to(dev))
+            loss_g.backward()
+        grad_norm = float(torch.sqrt(sum(
+            (p.grad.float() ** 2).sum() for p in gpu.vae.parameters()
+            if p.grad is not None)))
+        torch.cuda.synchronize()
+        launches_batch = sum(cc.launch_counts().values())
+        with torch.no_grad():
+            loss_c, _ = cpu.vae_forward(batch, train=False, eps=eps)
+        loss_g = loss_g.detach()
+        loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        del cpu
+
+        def ms_per_step(system, n=5, warmup=2):
+            opt = make_optimizer(system.vae.parameters(), 1e-4)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            for i in range(warmup + n):
+                if i == warmup:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                vae_train_step(system, opt, b)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        cc.reset_launch_counts()
+        ms_f32 = ms_per_step(gpu)
+        launches_steps = sum(cc.launch_counts().values())
+        del gpu
+        torch.cuda.empty_cache()
+        bf = build_system(config("config_vae_humanml3d.yaml",
+                                 MIXED_PRECISION=True), dm, device=dev)
+        ms_bf16 = ms_per_step(bf)
+        del bf
+        torch.cuda.empty_cache()
+        print(f"# float32_entry: {B} samples per step, float32 "
+              f"{ms_f32:.2f} ms/step, bf16 {ms_bf16:.2f} ms/step",
+              flush=True)
+
+        cfg2 = config("config_ladiff_humanml3d.yaml",
+                      PRETRAINED_VAE=ckpt1, END_EPOCH=1)
+        _, ckpt2, launches2, lines2 = stage(cfg2, 3)
+        e1, sd1 = load_checkpoint(latest_checkpoint(ckpt1)[1])
+        _, sd2 = load_checkpoint(latest_checkpoint(ckpt2)[1])
+        vae_booted = all(torch.equal(sd2[k], v) for k, v in sd1.items())
+        rec = {"phase": "float32_entry",
+               "mixed_precision_in_config": mixed,
+               "batch_stage1": B, "batch_stage2": cfg2.TRAIN.BATCH_SIZE,
+               "checkpoints_stage1": files,
+               "stage1_losses": [l["train/vae/total"] for l in lines1],
+               "stage2_losses": [l["train/diffusion/total"]
+                                 for l in lines2],
+               "kernel_launches": {"stage1_run": launches1,
+                                   "parity_batch": launches_batch,
+                                   "timed_steps": launches_steps,
+                                   "stage2_run": launches2},
+               "same_weights": same_weights,
+               "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+               "loss_rel_err": loss_err, "loss_tol": FLOAT32_LOSS_TOL,
+               "grad_norm": grad_norm,
+               "ms_per_step": {"float32": ms_f32, "bf16": ms_bf16},
+               "vae_booted": vae_booted,
+               "seconds": time.perf_counter() - t_start}
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if mixed:
+        fail("float32_entry: the published stage-1 configuration asks for "
+             "mixed precision")
+    if files != ["epoch_1.ckpt", "epoch_2.ckpt"]:
+        fail(f"float32_entry: stage-1 checkpoints {files}")
+    if any(rec["kernel_launches"].values()):
+        fail(f"float32_entry: kernels launched in float32: "
+             f"{rec['kernel_launches']}")
+    if not (same_weights and loss_err <= FLOAT32_LOSS_TOL
+            and math.isfinite(grad_norm)):
+        fail(f"float32_entry: loss {float(loss_g)} on the card against "
+             f"{float(loss_c)} on the CPU (rel err {loss_err}), same "
+             f"weights {same_weights}, grad norm {grad_norm}")
+    losses = rec["stage1_losses"] + rec["stage2_losses"]
+    if not (vae_booted and e1 == 2 and all(map(math.isfinite, losses))):
+        fail("float32_entry: stage 2 did not boot the stage-1 VAE, or a "
+             "loss is not finite")
+
+
 def phase_whole_layer_bench(dev):
     """``train_bench``'s ``vae_train`` protocol (batch 128, dropout 0.1) on
     the split route (kernels 8 and 9) and the whole-layer route (kernels
@@ -1927,6 +2181,14 @@ def phase_whole_layer_kernels(dev):
             extra={"rate": RATE, "rows": Me}))
         _, saved = train_encoder_layer_fwd(xe, kve, pe, S=S,
                                            return_saved=True, **kw)
+        # kernel 12's launches one by one, forward then backward
+        emit({"phase": "whole_layer_breakdown",
+              "kernel": "train_encoder_layer", "rows": Me, "rate": RATE,
+              "fwd": launch_breakdown(
+                  lambda: train_encoder_layer_fwd(xe, kve, pe, S=S, **kw)),
+              "bwd": launch_breakdown(
+                  lambda: train_encoder_layer_bwd(xe, kve, doute, pe, saved,
+                                                  S=S, **kw))})
         recs.append(check_kernel(
             "train_encoder_layer_bwd", "ladiff_torch/csrc/train_layer.cu",
             "ladiff_tpu/ops/pallas_train_layer.py:207",

@@ -3,8 +3,9 @@
 // ladiff_torch/ops/decoder_layer.py for the math, the bound and why it is a
 // fixed sequence of four launches:
 //   proj_kernel x2      q/k/v of the frame rows; k/v of the memory rows
-//   attn_tile_kernel    64-query x 64-key tiles, online softmax
-//                       (attn_tile.cuh, shared with kernel 10)
+//   attn_tile_kernel    register-resident 64-query flash tile, key tiles
+//                       through a cp.async ring, online softmax in
+//                       registers (attn_tile.cuh, shared with kernel 10)
 //   tail_kernel         out-proj + LN1, cross-attention, out-proj + LN2,
 //                       FFN, LN3, per 32-row block
 #include "attn_tile.cuh"

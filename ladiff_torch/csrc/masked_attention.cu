@@ -1,9 +1,11 @@
 // Kernel 10: masked multi-head self-attention of projected q, k, v (replaces
 // ladiff_tpu/ops/pallas_attention.py pallas_masked_attention).  See
 // ladiff_torch/ops/attention_kernel.py for the math and the bound.  One
-// launch of attn_tile_kernel (attn_tile.cuh): one block per (sample, head,
-// 64-query tile), keys in 64-key tiles with an online softmax in f32, both
-// products WMMA bf16 with f32 accumulation, the scores never in global memory.
+// launch of attn_tile_kernel (attn_tile.cuh over flash_tile.cuh): one block
+// per (sample, head, 64-query tile), q in registers, k and v tiles through a
+// two-stage cp.async ring, both products mma.sync bf16 with f32 register
+// accumulators, an online softmax on the registers, key tiles without a
+// valid key skipped; the scores never leave registers.
 #include "attn_tile.cuh"
 
 using namespace ladiff;

@@ -42,11 +42,8 @@ extern "C" int train_attention_forward(const void** p, const int* n,
   bf16* out = const_cast<bf16*>(w[9]);
 
   const size_t rb = row_gemm_bytes(D);
-  const AttnLayout La = attn_layout(D / H);
-  static SmemGrant g_lin, g_att0, g_att1, g_out0, g_out1;
+  static SmemGrant g_lin, g_out0, g_out1;
   if (!allow_smem(linear_kernel, rb, g_lin) ||
-      !allow_smem(attn_fwd_kernel<false>, La.total, g_att0) ||
-      !allow_smem(attn_fwd_kernel<true>, La.total, g_att1) ||
       !allow_smem(out_proj_kernel<false>, rb, g_out0) ||
       !allow_smem(out_proj_kernel<true>, rb, g_out1))
     return cudaErrorInvalidValue;
@@ -55,14 +52,9 @@ extern "C" int train_attention_forward(const void** p, const int* n,
   linear_kernel<<<dim3(blocks, (3 * D + kChunk - 1) / kChunk), kThreads, rb,
                   stream>>>(x, M, D, w[2], w[3], 3 * D, qkv);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 agrid((S + kTile - 1) / kTile, H, B);
-  if (on)
-    attn_fwd_kernel<true><<<agrid, kAttnThreads, La.total, stream>>>(
-        qkv, kvalid, ctx, lse, S, D, H, drop, La);
-  else
-    attn_fwd_kernel<false><<<agrid, kAttnThreads, La.total, stream>>>(
-        qkv, kvalid, ctx, lse, S, D, H, drop, La);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_attn_fwd(qkv, kvalid, ctx, lse, B, S, D, H, drop, on,
+                             stream)) != cudaSuccess)
+    return err;
   if (on)
     out_proj_kernel<true><<<blocks, kThreads, rb, stream>>>(
         ctx, x, M, D, w[4], w[5], drop, out);
@@ -106,14 +98,9 @@ extern "C" int train_attention_backward(const void** p, const int* n,
         *d_out_b = fptr(19);
 
   const size_t rb = row_gemm_bytes(D), rb3 = row_gemm_bytes(3 * D);
-  const BwdLayout Lb = bwd_layout(D / H);
-  static SmemGrant g_dc0, g_dc1, g_q0, g_q1, g_k0, g_k1, g_dx;
+  static SmemGrant g_dc0, g_dc1, g_dx;
   if (!allow_smem(dctx_kernel<false>, rb, g_dc0) ||
       !allow_smem(dctx_kernel<true>, rb, g_dc1) ||
-      !allow_smem(attn_bwd_kernel<false, false>, Lb.total, g_q0) ||
-      !allow_smem(attn_bwd_kernel<false, true>, Lb.total, g_q1) ||
-      !allow_smem(attn_bwd_kernel<true, false>, Lb.total, g_k0) ||
-      !allow_smem(attn_bwd_kernel<true, true>, Lb.total, g_k1) ||
       !allow_smem(linear_nn_kernel, rb3, g_dx))
     return cudaErrorInvalidValue;
   const int blocks = (M + kRows - 1) / kRows;
@@ -125,19 +112,9 @@ extern "C" int train_attention_backward(const void** p, const int* n,
     dctx_kernel<false><<<blocks, kThreads, rb, stream>>>(
         dout, ctx, M, D, H, out_w, drop, dattn, dctx, delta);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 agrid((S + kTile - 1) / kTile, H, B);
-  if (on) {
-    attn_bwd_kernel<false, true><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, dctx, kvalid, lse, delta, dqkv, S, D, H, drop, Lb);
-    attn_bwd_kernel<true, true><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, dctx, kvalid, lse, delta, dqkv, S, D, H, drop, Lb);
-  } else {
-    attn_bwd_kernel<false, false><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, dctx, kvalid, lse, delta, dqkv, S, D, H, drop, Lb);
-    attn_bwd_kernel<true, false><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, dctx, kvalid, lse, delta, dqkv, S, D, H, drop, Lb);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_attn_bwd(qkv, dctx, kvalid, lse, delta, dqkv, B, S, D,
+                             H, drop, on, stream)) != cudaSuccess)
+    return err;
   linear_nn_kernel<<<blocks, kThreads, rb3, stream>>>(dqkv, M, 3 * D, in_w,
                                                    D, dout, dx);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -389,12 +389,9 @@ extern "C" int train_decoder_layer_forward(const void** p, const int* n,
   const FfnArgs fa = tail_args(a);
 
   const size_t rb = row_gemm_bytes(D);
-  const AttnLayout La = attn_layout(D / H);
   const FfnLayout Lt = ffn_layout(D, F, tail_hid_min(D, H));
-  static SmemGrant g_lin, g_att0, g_att1, g_t0, g_t1;
+  static SmemGrant g_lin, g_t0, g_t1;
   if (!allow_smem(linear_kernel, rb, g_lin) ||
-      !allow_smem(attn_fwd_kernel<false>, La.total, g_att0) ||
-      !allow_smem(attn_fwd_kernel<true>, La.total, g_att1) ||
       !allow_smem(dec_tail_fwd_kernel<false>, Lt.total, g_t0) ||
       !allow_smem(dec_tail_fwd_kernel<true>, Lt.total, g_t1))
     return cudaErrorInvalidValue;
@@ -408,14 +405,9 @@ extern "C" int train_decoder_layer_forward(const void** p, const int* n,
                   kThreads, rb, stream>>>(w[2], ML, D, q[6] + (size_t)D * D,
                                           q[7] + D, 2 * D, memkv);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 agrid((T + kTile - 1) / kTile, H, B);
-  if (on)
-    attn_fwd_kernel<true><<<agrid, kAttnThreads, La.total, stream>>>(
-        qkv, kvalid, ctx, lse, T, D, H, drop, La);
-  else
-    attn_fwd_kernel<false><<<agrid, kAttnThreads, La.total, stream>>>(
-        qkv, kvalid, ctx, lse, T, D, H, drop, La);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_attn_fwd(qkv, kvalid, ctx, lse, B, T, D, H, drop, on,
+                             stream)) != cudaSuccess)
+    return err;
   if (on)
     dec_tail_fwd_kernel<true><<<blocks, kThreads, Lt.total, stream>>>(a, fa,
                                                                       Lt);
@@ -478,15 +470,10 @@ extern "C" int train_decoder_layer_backward(const void** p, const int* n,
   a.drop = drop;
 
   const size_t rb2 = row_gemm_bytes(2 * D), rb3 = row_gemm_bytes(3 * D);
-  const BwdLayout Lb = bwd_layout(D / H);
   const FfnBwdLayout Lt = ffn_bwd_layout(D, F, tail_hid_min(D, H));
-  static SmemGrant g_t0, g_t1, g_q0, g_q1, g_k0, g_k1, g_nn;
+  static SmemGrant g_t0, g_t1, g_nn;
   if (!allow_smem(dec_tail_bwd_kernel<false>, Lt.total, g_t0) ||
       !allow_smem(dec_tail_bwd_kernel<true>, Lt.total, g_t1) ||
-      !allow_smem(attn_bwd_kernel<false, false>, Lb.total, g_q0) ||
-      !allow_smem(attn_bwd_kernel<false, true>, Lb.total, g_q1) ||
-      !allow_smem(attn_bwd_kernel<true, false>, Lb.total, g_k0) ||
-      !allow_smem(attn_bwd_kernel<true, true>, Lb.total, g_k1) ||
       !allow_smem(linear_nn_kernel, rb3 > rb2 ? rb3 : rb2, g_nn))
     return cudaErrorInvalidValue;
   const int blocks = (M + kRows - 1) / kRows;
@@ -511,19 +498,9 @@ extern "C" int train_decoder_layer_backward(const void** p, const int* n,
       dkv, ML, 2 * D, q[6] + (size_t)D * D, D, nullptr, dmem);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // the self-attention
-  const dim3 agrid((T + kTile - 1) / kTile, H, B);
-  if (on) {
-    attn_bwd_kernel<false, true><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, a.dctx, kvalid, lse, a.delta, dqkv, T, D, H, drop, Lb);
-    attn_bwd_kernel<true, true><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, a.dctx, kvalid, lse, a.delta, dqkv, T, D, H, drop, Lb);
-  } else {
-    attn_bwd_kernel<false, false><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, a.dctx, kvalid, lse, a.delta, dqkv, T, D, H, drop, Lb);
-    attn_bwd_kernel<true, false><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, a.dctx, kvalid, lse, a.delta, dqkv, T, D, H, drop, Lb);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_attn_bwd(qkv, a.dctx, kvalid, lse, a.delta, dqkv, B, T, D,
+                             H, drop, on, stream)) != cudaSuccess)
+    return err;
   linear_nn_kernel<<<blocks, kThreads, rb3, stream>>>(dqkv, M, 3 * D, q[0], D,
                                                       a.dr, dx);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

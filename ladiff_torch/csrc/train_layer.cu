@@ -5,24 +5,35 @@
 //
 // Forward, a fixed sequence of launches:
 //   linear_kernel        qkv = x Wqkv^T + bqkv                   (kernel 8's)
-//   attn_fwd_kernel      tiled online-softmax attention, probability
-//                        dropout (mask 0); ctx, log-sum-exp       (kernel 8's)
-//   enc_tail_fwd_kernel  per 32-row block, from ctx to the layer's output:
+//   attn_fwd_kernel      register-resident flash tile, probability dropout
+//                        (mask 0); ctx, log-sum-exp   (flash_tile.cuh, 8's)
+//   enc_tail_fwd_kernel  per 64-row block, from ctx to the layer's output:
 //                        out-projection, residual dropout (mask 1), LN1, the
-//                        FFN (masks 2, 3), LN2 (ffn_tail.cuh); the residual
-//                        r and h stay in shared memory
+//                        FFN in 128-column hidden chunks (masks 2, 3), LN2;
+//                        r, h and the hidden rows never leave the block
 // Backward:
-//   enc_tail_bwd_kernel  per 32-row block, from dout to dctx: r and h again,
-//                        the tail's backward (ffn_bwd.cuh), LN1's backward,
-//                        the residual dropout and the out-projection's
-//                        backward: writes dr (the residual path's dx), dattn,
-//                        dctx, delta = dctx . ctx, and the scratch rows the
-//                        weight gradients need
+//   enc_tail_bwd_kernel  per 64-row block, from dout to dctx: r and h again,
+//                        the FFN's backward chunk by chunk (dh accumulating
+//                        in registers), both LayerNorms' backward, the
+//                        residual dropout and the out-projection's backward:
+//                        writes dr (the residual path's dx), dattn, dctx,
+//                        delta = dctx . ctx, and the scratch rows the weight
+//                        gradients need
 //   reduce_kernel        LayerNorm gradients over the blocks
-//   attn_bwd_kernel x2   dq; dk, dv                               (kernel 8's)
+//   attn_bwd_kernel x2   dq; dk, dv, wholly masked key tiles skipped
+//                                                  (flash_tile.cuh, 8's)
 //   linear_nn_kernel     dx = dr + dqkv Wqkv                      (kernel 8's)
 //   wgrad / colsum       dWqkv, dbqkv, dWout, dbout, dW1, db1, dW2, db2
+//
+// What bounds the tails on the H100: ~75 MFLOP forward and ~185 MFLOP
+// backward per 64 rows against ~1.2 MB of weights: the tensor cores, and
+// the weight bytes each block streams from L2 (on the 32-row blocks, 486
+// MB per forward tail at 64 x 206 rows).  The tails (tail64.cuh) run
+// 64-row blocks of 16 warps with mma.sync register accumulators and a
+// three-stage cp.async weight ring, so each byte of weight serves 64 rows;
+// the LayerNorms reduce over the accumulator registers.
 #include "ffn_bwd.cuh"
+#include "tail64.cuh"
 #include "train_attn.cuh"
 
 namespace {
@@ -44,74 +55,434 @@ struct EncTail {
   Dropout drop;
 };
 
-FfnArgs tail_args(const EncTail& a) {
-  FfnArgs f;
-  f.x = nullptr;
-  f.ln1_w = a.ln1_w; f.ln1_b = a.ln1_b; f.w1 = a.w1; f.b1 = a.b1;
-  f.w2 = a.w2; f.b2 = a.b2; f.ln2_w = a.ln2_w; f.ln2_b = a.ln2_b;
-  f.out = a.out;
-  f.M = a.M; f.D = a.D; f.F = a.F; f.act = a.act;
-  f.drop = a.drop;
-  return f;
+// The tails' shared memory: xa, xb [64][D + 8] bf16 (xb: the backward
+// only), the FFN chunk [64][128 + 8] bf16, the weight ring, the row
+// exchange (2 x 64 x 4 floats) and the column exchange (kTRowWarps x 2 D
+// floats).
+inline size_t tail_smem_bytes(int D, bool bwd) {
+  const size_t xa = (size_t)kTRows * (D + 8) * sizeof(bf16);
+  return xa * (bwd ? 2 : 1) + (size_t)kTRows * (kTFC + 8) * sizeof(bf16) +
+         kTRingBytes + 2 * kTRows * 4 * sizeof(float) +
+         (bwd ? (size_t)kTRowWarps * 2 * D * sizeof(float) : 0);
 }
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-enc_tail_fwd_kernel(EncTail a, FfnArgs f, FfnLayout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int nrow = min(kRows, (int)(a.M - row0));
-  out_proj_rows<kDrop>(a.ctx, a.x, a.out_w, a.out_b, a.drop, kMaskRes, a.D,
-                       reinterpret_cast<bf16*>(smem + L.xb),
-                       reinterpret_cast<float*>(smem + L.cf),
-                       reinterpret_cast<float*>(smem + L.r),
-                       reinterpret_cast<bf16*>(smem + L.ws), row0, nrow);
-  ffn_tail_rows<kDrop>(f, L, smem, row0, nrow, kMaskHid, kMaskOut);
+struct TailSmem {
+  bf16 *xa, *xb, *hid, *ring;
+  float *red, *colbuf;
+};
+
+__device__ __forceinline__ TailSmem tail_smem(unsigned char* smem, int D,
+                                              bool bwd) {
+  TailSmem m;
+  m.xa = reinterpret_cast<bf16*>(smem);
+  m.xb = m.xa + kTRows * (D + 8);
+  m.hid = bwd ? m.xb + kTRows * (D + 8) : m.xb;
+  m.ring = m.hid + kTRows * (kTFC + 8);
+  m.red = reinterpret_cast<float*>(m.ring + kTStages * kTStageEl);
+  m.colbuf = m.red + 2 * kTRows * 4;
+  return m;
 }
 
+// ctx rows row0 .. row0 + 63 into xa (zero rows past the end), committed.
+template <int D>
+__device__ __forceinline__ void load_ctx(const bf16* ctx, size_t row0,
+                                         int nrow, bf16* xa) {
+  for (int i = threadIdx.x; i < kTRows * D / 8; i += kTThreads) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const bool in = r < nrow;
+    cp_async16_zfill(xa + r * (D + 8) + c,
+                     ctx + (row0 + (in ? r : 0)) * D + c, in);
+  }
+  cp_async_commit();
+}
+
+// v[row][c] = x + (v + out_b) * m_res for the block's rows (zero rows past
+// the end): the attention segment's residual sum from ctx Wout^T.
+template <int NT, bool kDrop>
+__device__ __forceinline__ void residual_sum(float (&v)[kTMT][NT][4],
+                                             const EncTail& a, size_t row0,
+                                             int nrow) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = tcol<NT>(t, nt);
+    const float2 bo = ldg2(a.out_b + c);
+#pragma unroll
+    for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        float* e = &v[mt][nt][2 * hf];
+        if (row >= nrow) {
+          e[0] = e[1] = 0.f;
+          continue;
+        }
+        const size_t idx = (row0 + row) * D + c;
+        float y0 = e[0] + bo.x, y1 = e[1] + bo.y;
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(a.drop, kMaskRes, idx, k0, k1);
+          y0 *= k0;
+          y1 *= k1;
+        }
+        const float2 xv = ldg2(a.x + idx);
+        e[0] = xv.x + y0;
+        e[1] = xv.y + y1;
+      }
+  }
+}
+
+// The thread's elements of v as bf16 into dst (row stride ld) and, for
+// rows < nrow, into the [M, D] scratch g (may be null).
+template <int NT>
+__device__ __forceinline__ void store_rows(const float (&v)[kTMT][NT][4],
+                                           bf16* dst, int ld, bf16* g,
+                                           size_t row0, int nrow) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf), c = tcol<NT>(t, nt);
+        const float v0 = v[mt][nt][2 * hf], v1 = v[mt][nt][2 * hf + 1];
+        if (dst) st2(dst + row * ld + c, v0, v1);
+        if (g && row < nrow) st2(g + (row0 + row) * D + c, v0, v1);
+      }
+}
+
+// The FFN hidden chunk's epilogue: hid = bf16(act(u + b1) * m_hid) for
+// columns c0 .. c0 + 127, and to the scratch gd for rows < nrow.
 template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-enc_tail_bwd_kernel(EncTail a, FfnBwdLayout L) {
+__device__ __forceinline__ void hidden_chunk(const float (&u)[kTMT][4][4],
+                                             const EncTail& a, int c0,
+                                             size_t row0, int nrow,
+                                             bf16* hid, bf16* gd) {
+  const TailLane t = tail_lane();
+  const int F = a.F;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int cc = tcol<4>(t, nt);
+    const float2 bv = ldg2(a.b1 + c0 + cc);
+#pragma unroll
+    for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        const float a0 = u[mt][nt][2 * hf] + bv.x;
+        const float a1 = u[mt][nt][2 * hf + 1] + bv.y;
+        float g0 = a.act ? gelu_erf(a0) : fmaxf(a0, 0.f);
+        float g1 = a.act ? gelu_erf(a1) : fmaxf(a1, 0.f);
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(a.drop, kMaskHid, (row0 + row) * F + c0 + cc, k0, k1);
+          g0 *= k0;
+          g1 *= k1;
+        }
+        st2(hid + row * (kTFC + 8) + cc, g0, g1);
+        if (gd && row < nrow) st2(gd + (row0 + row) * F + c0 + cc, g0, g1);
+      }
+  }
+}
+
+// y = sum over the hidden chunks of bf16(act(h W1^T + b1) * m_hid) W2^T,
+// h (bf16) in xa; gd (may be null) takes the hidden rows.
+template <int NT, bool kDrop>
+__device__ __forceinline__ void ffn_forward(float (&y)[kTMT][NT][4],
+                                            const EncTail& a,
+                                            const TailSmem& m, size_t row0,
+                                            int nrow, bf16* gd) {
+  constexpr int D = 32 * NT;
+  tail_zero(y);
+  for (int c0 = 0; c0 < a.F; c0 += kTFC) {
+    float u[kTMT][4][4];
+    tail_zero(u);
+    tail_gemm<4, false>(u, m.xa, D + 8, a.w1 + (size_t)c0 * D, D, D, m.ring);
+    hidden_chunk<kDrop>(u, a, c0, row0, nrow, m.hid, gd);
+    tail_gemm<NT, false>(y, m.hid, kTFC + 8, a.w2 + c0, a.F, kTFC, m.ring);
+  }
+}
+
+// v <- v + (y + b2) * m_out (the FFN's residual sum)
+template <int NT, bool kDrop>
+__device__ __forceinline__ void ffn_residual(float (&v)[kTMT][NT][4],
+                                             const float (&y)[kTMT][NT][4],
+                                             const EncTail& a, size_t row0) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = tcol<NT>(t, nt);
+    const float2 bv = ldg2(a.b2 + c);
+#pragma unroll
+    for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float y0 = y[mt][nt][2 * hf] + bv.x, y1 = y[mt][nt][2 * hf + 1] + bv.y;
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(a.drop, kMaskOut,
+                      (row0 + trow(t, mt, hf)) * D + c, k0, k1);
+          y0 *= k0;
+          y1 *= k1;
+        }
+        v[mt][nt][2 * hf] += y0;
+        v[mt][nt][2 * hf + 1] += y1;
+      }
+  }
+}
+
+// Per 64-row block, from ctx to the layer's output: out-projection,
+// residual dropout (mask 1), LN1, the FFN in 128-column hidden chunks
+// (masks 2, 3; the hidden rows never leave the block), LN2.
+template <int NT, bool kDrop>
+__global__ void __launch_bounds__(kTThreads)
+enc_tail_fwd_kernel(EncTail a) {
+  constexpr int D = 32 * NT;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D, ld = D + 8;
-  bf16* xb = reinterpret_cast<bf16*>(smem + L.xb);
-  bf16* dyb = reinterpret_cast<bf16*>(smem + L.dyb);
-  float* cf = reinterpret_cast<float*>(smem + L.cf);
-  float* r = reinterpret_cast<float*>(smem + L.r);
-  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int nrow = min(kRows, (int)(a.M - row0));
+  const TailSmem m = tail_smem(smem, D, false);
+  const size_t row0 = (size_t)blockIdx.x * kTRows;
+  const int nrow = min(kTRows, (int)(a.M - row0));
+  float mean[kTMT][2], rstd[kTMT][2];
+
+  load_ctx<D>(a.ctx, row0, nrow, m.xa);
+  float h[kTMT][NT][4];
+  tail_zero(h);
+  tail_gemm<NT, false>(h, m.xa, D + 8, a.out_w, D, D, m.ring);
+  residual_sum<NT, kDrop>(h, a, row0, nrow);
+  tail_normalize(h, D, m.red, mean, rstd);
+  tail_affine(h, a.ln1_w, a.ln1_b);
+  store_rows(h, m.xa, D + 8, nullptr, row0, nrow);
+  float y[kTMT][NT][4];
+  ffn_forward<NT, kDrop>(y, a, m, row0, nrow, nullptr);
+  ffn_residual<NT, kDrop>(h, y, a, row0);
+  tail_normalize(h, D, m.red, mean, rstd);
+  tail_affine(h, a.ln2_w, a.ln2_b);
+  store_rows(h, nullptr, 0, a.out, row0, nrow);
+}
+
+// Per 64-row block, from dout to dctx: the forward tail again (r to the
+// scratch for LN1's backward, h and gd to the scratch for the weight
+// gradients), LN2's backward (dy), the FFN's backward in 128-column hidden
+// chunks (da, dh = ds + da W1 accumulating in registers), LN1's backward,
+// the residual dropout (dr, dattn) and dctx = dattn Wout with
+// delta = dctx . ctx per row and head; LayerNorm gradient partials per
+// block to lnpart [blocks, 4 D].
+template <int NT, bool kDrop>
+__global__ void __launch_bounds__(kTThreads)
+enc_tail_bwd_kernel(EncTail a) {
+  constexpr int D = 32 * NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const TailSmem m = tail_smem(smem, D, true);
+  const TailLane t = tail_lane();
+  const size_t row0 = (size_t)blockIdx.x * kTRows;
+  const int nrow = min(kTRows, (int)(a.M - row0));
   float* lnpart = a.lnpart + (size_t)blockIdx.x * 4 * D;
+  float mean1[kTMT][2], rstd1[kTMT][2], mean2[kTMT][2], rstd2[kTMT][2];
 
-  // r = x + drop(ctx Wout^T + bout), kept (f32) for LN1's backward
-  out_proj_rows<kDrop>(a.ctx, a.x, a.out_w, a.out_b, a.drop, kMaskRes, D, xb,
-                       cf, r, ws, row0, nrow);
-  for (int i = tid; i < nrow * D; i += blockDim.x) a.r[row0 * D + i] = r[i];
+  // r = x + drop(ctx Wout^T + bout): kept (f32) for LN1's backward
+  load_ctx<D>(a.ctx, row0, nrow, m.xa);
+  float h[kTMT][NT][4];
+  tail_zero(h);
+  tail_gemm<NT, false>(h, m.xa, D + 8, a.out_w, D, D, m.ring);
+  residual_sum<NT, kDrop>(h, a, row0, nrow);
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        if (row < nrow)
+          *reinterpret_cast<float2*>(a.r + (row0 + row) * D +
+                                     tcol<NT>(t, nt)) =
+              make_float2(h[mt][nt][2 * hf], h[mt][nt][2 * hf + 1]);
+      }
+  // h = LN1(r): bf16 in xa and the scratch (dW1 = da^T h)
+  tail_normalize(h, D, m.red, mean1, rstd1);
+  tail_affine(h, a.ln1_w, a.ln1_b);
+  store_rows(h, m.xa, D + 8, a.h, row0, nrow);
+  // the FFN again (gd to the scratch), s = h + y * m_out
+  float y[kTMT][NT][4];
+  ffn_forward<NT, kDrop>(y, a, m, row0, nrow, a.gd);
+  ffn_residual<NT, kDrop>(h, y, a, row0);
+  // LN2's backward: y <- ds from dout; dy = ds * m_out to xb and scratch
+  tail_normalize(h, D, m.red, mean2, rstd2);  // h <- xhat2
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        float2 d = make_float2(0.f, 0.f);
+        if (row < nrow) d = ldg2(a.dout + (row0 + row) * D + tcol<NT>(t, nt));
+        y[mt][nt][2 * hf] = d.x;
+        y[mt][nt][2 * hf + 1] = d.y;
+      }
+  float gw[NT][2], gb[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) gw[nt][0] = gw[nt][1] = gb[nt][0] = gb[nt][1] = 0.f;
+  tail_ln_bwd(h, y, rstd2, a.ln2_w, D, m.red, gw, gb);
+  tail_col_sums(gw, gb, D, m.colbuf, lnpart + 2 * D);
+  // dh starts as ds; dy = ds * m_out
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float d0 = y[mt][nt][2 * hf], d1 = y[mt][nt][2 * hf + 1];
+        h[mt][nt][2 * hf] = d0;
+        h[mt][nt][2 * hf + 1] = d1;
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(a.drop, kMaskOut,
+                      (row0 + trow(t, mt, hf)) * D + tcol<NT>(t, nt), k0, k1);
+          d0 *= k0;
+          d1 *= k1;
+        }
+        y[mt][nt][2 * hf] = d0;
+        y[mt][nt][2 * hf + 1] = d1;
+      }
+  store_rows(y, m.xb, D + 8, a.dy, row0, nrow);
+  // per hidden chunk: da = (dy W2) * m_hid * act'(h W1^T + b1) to the
+  // scratch, dh += da W1
+  for (int c0 = 0; c0 < a.F; c0 += kTFC) {
+    float u[kTMT][4][4], gv[kTMT][4][4];
+    tail_zero(u);
+    tail_zero(gv);
+    tail_gemm<4, false>(u, m.xa, D + 8, a.w1 + (size_t)c0 * D, D, D, m.ring);
+    tail_gemm<4, true>(gv, m.xb, D + 8, a.w2 + c0, a.F, D, m.ring);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int cc = tcol<4>(t, nt);
+      const float2 bv = ldg2(a.b1 + c0 + cc);
+#pragma unroll
+      for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = trow(t, mt, hf);
+          float d0 = gv[mt][nt][2 * hf] * act_grad(u[mt][nt][2 * hf] + bv.x,
+                                                   a.act);
+          float d1 = gv[mt][nt][2 * hf + 1] *
+                     act_grad(u[mt][nt][2 * hf + 1] + bv.y, a.act);
+          if (kDrop) {
+            float k0, k1;
+            keep_scale2(a.drop, kMaskHid, (row0 + row) * a.F + c0 + cc, k0,
+                        k1);
+            d0 *= k0;
+            d1 *= k1;
+          }
+          st2(m.hid + row * (kTFC + 8) + cc, d0, d1);
+          if (row < nrow) st2(a.da + (row0 + row) * a.F + c0 + cc, d0, d1);
+        }
+    }
+    tail_gemm<NT, true>(h, m.hid, kTFC + 8, a.w1 + (size_t)c0 * D, D, kTFC,
+                        m.ring);
+  }
+  // LN1's backward from the kept r: h <- dr
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        float2 r = make_float2(0.f, 0.f);
+        if (row < nrow)
+          r = *reinterpret_cast<const float2*>(a.r + (row0 + row) * D +
+                                               tcol<NT>(t, nt));
+        y[mt][nt][2 * hf] = (r.x - mean1[mt][hf]) * rstd1[mt][hf];
+        y[mt][nt][2 * hf + 1] = (r.y - mean1[mt][hf]) * rstd1[mt][hf];
+      }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) gw[nt][0] = gw[nt][1] = gb[nt][0] = gb[nt][1] = 0.f;
+  tail_ln_bwd(y, h, rstd1, a.ln1_w, D, m.red, gw, gb);
+  tail_col_sums(gw, gb, D, m.colbuf, lnpart);
+  // dr to the scratch; dattn = dr * m_res to xa and the scratch
+  store_rows(h, nullptr, 0, a.dr, row0, nrow);
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(a.drop, kMaskRes,
+                      (row0 + trow(t, mt, hf)) * D + tcol<NT>(t, nt), k0, k1);
+          h[mt][nt][2 * hf] *= k0;
+          h[mt][nt][2 * hf + 1] *= k1;
+        }
+      }
+  store_rows(h, m.xa, D + 8, a.dattn, row0, nrow);
+  // dctx = bf16(dattn Wout) to xb and the scratch; delta = dctx . ctx
+  tail_zero(y);
+  tail_gemm<NT, true>(y, m.xa, D + 8, a.out_w, D, D, m.ring);
+  store_rows(y, m.xb, D + 8, a.dctx, row0, nrow);
   __syncthreads();
-  // h = LN1(r): f32 in r, bf16 in xb and in scratch (dW1 = da^T h)
-  block_layernorm_rows(r, D, r, D, xb, ld, D, a.ln1_w, a.ln1_b);
-  __syncthreads();
-  for (int i = tid; i < nrow * D; i += blockDim.x)
-    a.h[row0 * D + i] = xb[(i / D) * ld + i % D];
-  __syncthreads();
+  const int Dh = D / a.H, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int p = warp; p < nrow * a.H; p += kTThreads / 32) {
+    const int row = p / a.H, hh = p % a.H;
+    float acc = 0.f;
+    for (int d = lane; d < Dh; d += 32)
+      acc += tof(m.xb[row * (D + 8) + hh * Dh + d]) *
+             ldgf(a.ctx + (row0 + row) * D + hh * Dh + d);
+    acc = warp_sum(acc);
+    if (lane == 0) a.delta[(row0 + row) * a.H + hh] = acc;
+  }
+}
 
-  // the FFN tail's backward: r <- dh
-  FfnBwdArgs fb;
-  fb.dout = a.dout;
-  fb.w1 = a.w1; fb.b1 = a.b1; fb.w2 = a.w2; fb.b2 = a.b2; fb.lnb_w = a.ln2_w;
-  fb.gd = a.gd; fb.da = a.da; fb.dy = a.dy;
-  fb.M = a.M; fb.D = D; fb.F = a.F; fb.act = a.act;
-  fb.mask_hid = kMaskHid; fb.mask_out = kMaskOut;
-  fb.drop = a.drop;
-  ffn_tail_backward_rows<kDrop>(fb, L, smem, row0, nrow, lnpart + 2 * D);
+template <int NT>
+static inline cudaError_t tail_fwd_d(const EncTail& a, bool on,
+                                     cudaStream_t stream) {
+  static SmemGrant g0, g1;
+  const size_t bytes = tail_smem_bytes(32 * NT, false);
+  const int blocks = (a.M + kTRows - 1) / kTRows;
+  if (on) {
+    if (!allow_smem(enc_tail_fwd_kernel<NT, true>, bytes, g1))
+      return cudaErrorInvalidValue;
+    enc_tail_fwd_kernel<NT, true><<<blocks, kTThreads, bytes, stream>>>(a);
+  } else {
+    if (!allow_smem(enc_tail_fwd_kernel<NT, false>, bytes, g0))
+      return cudaErrorInvalidValue;
+    enc_tail_fwd_kernel<NT, false><<<blocks, kTThreads, bytes, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
 
-  // LN1's backward from the kept r: r <- dr
-  block_ln_bwd_rows(a.r, row0, nrow, r, D, a.ln1_w, cf, lnpart);
-  // the residual dropout and the out-projection's backward
-  dattn_rows<kDrop>(r, xb, a.dr, a.dattn, D, a.drop, kMaskRes, row0, nrow);
-  dctx_rows(xb, dyb, cf, ws, a.out_w, a.ctx, a.dctx, a.delta, D, a.H, row0,
-            nrow);
+template <int NT>
+static inline cudaError_t tail_bwd_d(const EncTail& a, bool on,
+                                     cudaStream_t stream) {
+  static SmemGrant g0, g1;
+  const size_t bytes = tail_smem_bytes(32 * NT, true);
+  const int blocks = (a.M + kTRows - 1) / kTRows;
+  if (on) {
+    if (!allow_smem(enc_tail_bwd_kernel<NT, true>, bytes, g1))
+      return cudaErrorInvalidValue;
+    enc_tail_bwd_kernel<NT, true><<<blocks, kTThreads, bytes, stream>>>(a);
+  } else {
+    if (!allow_smem(enc_tail_bwd_kernel<NT, false>, bytes, g0))
+      return cudaErrorInvalidValue;
+    enc_tail_bwd_kernel<NT, false><<<blocks, kTThreads, bytes, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+// The tail launches at width D (64, 128, 192 or 256).
+static inline cudaError_t launch_tail(const EncTail& a, bool bwd, bool on,
+                                      cudaStream_t stream) {
+  switch (a.D) {
+    case 64: return bwd ? tail_bwd_d<2>(a, on, stream) : tail_fwd_d<2>(a, on, stream);
+    case 128: return bwd ? tail_bwd_d<4>(a, on, stream) : tail_fwd_d<4>(a, on, stream);
+    case 192: return bwd ? tail_bwd_d<6>(a, on, stream) : tail_fwd_d<6>(a, on, stream);
+    case 256: return bwd ? tail_bwd_d<8>(a, on, stream) : tail_fwd_d<8>(a, on, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 inline bool layer_shape_ok(int B, int S, int D, int H, int F) {
@@ -150,38 +521,19 @@ extern "C" int train_layer_forward(const void** p, const int* n,
   a.out = const_cast<bf16*>(w[17]);
   a.M = M; a.D = D; a.H = H; a.F = F; a.act = n[5];
   a.drop = drop;
-  const FfnArgs fa = tail_args(a);
 
   const size_t rb = row_gemm_bytes(D);
-  const AttnLayout La = attn_layout(D / H);
-  const FfnLayout Lt = ffn_layout(D, F);
-  static SmemGrant g_lin, g_att0, g_att1, g_t0, g_t1;
-  if (!allow_smem(linear_kernel, rb, g_lin) ||
-      !allow_smem(attn_fwd_kernel<false>, La.total, g_att0) ||
-      !allow_smem(attn_fwd_kernel<true>, La.total, g_att1) ||
-      !allow_smem(enc_tail_fwd_kernel<false>, Lt.total, g_t0) ||
-      !allow_smem(enc_tail_fwd_kernel<true>, Lt.total, g_t1))
-    return cudaErrorInvalidValue;
+  static SmemGrant g_lin;
+  if (!allow_smem(linear_kernel, rb, g_lin)) return cudaErrorInvalidValue;
   const int blocks = (M + kRows - 1) / kRows;
   cudaError_t err;
   linear_kernel<<<dim3(blocks, (3 * D + kChunk - 1) / kChunk), kThreads, rb,
                   stream>>>(x, M, D, q[0], q[1], 3 * D, qkv);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 agrid((S + kTile - 1) / kTile, H, B);
-  if (on)
-    attn_fwd_kernel<true><<<agrid, kAttnThreads, La.total, stream>>>(
-        qkv, kvalid, ctx, lse, S, D, H, drop, La);
-  else
-    attn_fwd_kernel<false><<<agrid, kAttnThreads, La.total, stream>>>(
-        qkv, kvalid, ctx, lse, S, D, H, drop, La);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (on)
-    enc_tail_fwd_kernel<true><<<blocks, kThreads, Lt.total, stream>>>(a, fa,
-                                                                      Lt);
-  else
-    enc_tail_fwd_kernel<false><<<blocks, kThreads, Lt.total, stream>>>(a, fa,
-                                                                       Lt);
-  return cudaGetLastError();
+  if ((err = launch_attn_fwd(qkv, kvalid, ctx, lse, B, S, D, H, drop, on,
+                             stream)) != cudaSuccess)
+    return err;
+  return launch_tail(a, false, on, stream);
 }
 
 // ptrs: x [M, D] bf16, kvalid [M] f32, dout [M, D] bf16; the 12 parameters
@@ -229,43 +581,21 @@ extern "C" int train_layer_backward(const void** p, const int* n,
   a.drop = drop;
 
   const size_t rb3 = row_gemm_bytes(3 * D);
-  const BwdLayout Lb = bwd_layout(D / H);
-  const FfnBwdLayout Lt = ffn_bwd_layout(D, F);
-  static SmemGrant g_t0, g_t1, g_q0, g_q1, g_k0, g_k1, g_dx;
-  if (!allow_smem(enc_tail_bwd_kernel<false>, Lt.total, g_t0) ||
-      !allow_smem(enc_tail_bwd_kernel<true>, Lt.total, g_t1) ||
-      !allow_smem(attn_bwd_kernel<false, false>, Lb.total, g_q0) ||
-      !allow_smem(attn_bwd_kernel<false, true>, Lb.total, g_q1) ||
-      !allow_smem(attn_bwd_kernel<true, false>, Lb.total, g_k0) ||
-      !allow_smem(attn_bwd_kernel<true, true>, Lb.total, g_k1) ||
-      !allow_smem(linear_nn_kernel, rb3, g_dx))
-    return cudaErrorInvalidValue;
+  static SmemGrant g_dx;
+  if (!allow_smem(linear_nn_kernel, rb3, g_dx)) return cudaErrorInvalidValue;
   const int blocks = (M + kRows - 1) / kRows;
+  const int tail_blocks = (M + kTRows - 1) / kTRows;
   cudaError_t err;
-  if (on)
-    enc_tail_bwd_kernel<true><<<blocks, kThreads, Lt.total, stream>>>(a, Lt);
-  else
-    enc_tail_bwd_kernel<false><<<blocks, kThreads, Lt.total, stream>>>(a, Lt);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_tail(a, true, on, stream)) != cudaSuccess) return err;
   // LayerNorm gradients: ln1_w, ln1_b, ln2_w, ln2_b = g[4], g[5], g[10], g[11]
   float* ln_out[4] = {g[4], g[5], g[10], g[11]};
   for (int k = 0; k < 4; ++k)
-    if ((err = reduce_partials(a.lnpart + k * D, blocks, (size_t)4 * D, D,
-                               ln_out[k], stream)) != cudaSuccess)
+    if ((err = reduce_partials(a.lnpart + k * D, tail_blocks, (size_t)4 * D,
+                               D, ln_out[k], stream)) != cudaSuccess)
       return err;
-  const dim3 agrid((S + kTile - 1) / kTile, H, B);
-  if (on) {
-    attn_bwd_kernel<false, true><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, a.dctx, kvalid, lse, a.delta, dqkv, S, D, H, drop, Lb);
-    attn_bwd_kernel<true, true><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, a.dctx, kvalid, lse, a.delta, dqkv, S, D, H, drop, Lb);
-  } else {
-    attn_bwd_kernel<false, false><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, a.dctx, kvalid, lse, a.delta, dqkv, S, D, H, drop, Lb);
-    attn_bwd_kernel<true, false><<<agrid, kAttnThreads, Lb.total, stream>>>(
-        qkv, a.dctx, kvalid, lse, a.delta, dqkv, S, D, H, drop, Lb);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_attn_bwd(qkv, a.dctx, kvalid, lse, a.delta, dqkv, B, S, D,
+                             H, drop, on, stream)) != cudaSuccess)
+    return err;
   linear_nn_kernel<<<blocks, kThreads, rb3, stream>>>(dqkv, M, 3 * D, q[0], D,
                                                       a.dr, dx);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -22,8 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ladiff_torch.ops.clip_layer import fused_ln_qkv, fused_proj_mlp
-from ladiff_torch.ops.cuda_common import NEG_INF
+from ladiff_torch.ops.clip_layer import (fused_ln_qkv, fused_proj_mlp,
+                                         ln_qkv_plain, proj_mlp_plain)
+from ladiff_torch.ops.cuda_common import NEG_INF, kernel_route
 from ladiff_torch.utils.device import resolve_device, resolve_dtype
 
 __all__ = ["CLIPTextTower", "ClipTextEncoder", "HashTokenizer",
@@ -88,12 +89,17 @@ class CLIPTextLayer(nn.Module):
                 ) -> torch.Tensor:
         B, S, D = x.shape
         xf = x.reshape(B * S, D).contiguous()
-        q, k, v = fused_ln_qkv(xf, self.qkv_params(),
-                               scale=1.0 / math.sqrt(D // self.heads))
+        # K3 and K4 in bf16; a float32 tower on the card runs their plain
+        # versions (the kernels take bf16 only)
+        ln_qkv, proj_mlp = ((fused_ln_qkv, fused_proj_mlp)
+                            if kernel_route(xf)
+                            else (ln_qkv_plain, proj_mlp_plain))
+        q, k, v = ln_qkv(xf, self.qkv_params(),
+                         scale=1.0 / math.sqrt(D // self.heads))
         att = self.attention_core(q.reshape(B, S, D), k.reshape(B, S, D),
                                   v.reshape(B, S, D), causal_mask)
-        out = fused_proj_mlp(att.reshape(B * S, D).contiguous(), xf,
-                             self.mlp_params())
+        out = proj_mlp(att.reshape(B * S, D).contiguous(), xf,
+                       self.mlp_params())
         return out.reshape(B, S, D)
 
 

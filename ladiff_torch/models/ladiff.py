@@ -15,9 +15,11 @@ Text condition, LA-VAE latents and epsilon prediction only.  The text is
 either pooled CLIP features [B, 1, 768] (the published configurations) or
 the full context [B, 77, 768] (``last_hidden_state``).
 
-``dtype`` is the compute type (bf16 on CUDA, the kernels' type) and
-``param_dtype`` the parameters' storage type, the same unless given: the
-trainer keeps float32 parameters and computes in bf16.
+``dtype`` is the compute type (bf16 on CUDA by default, the kernels' type;
+float32 there takes every module's plain route) and ``param_dtype`` the
+parameters' storage type, the same unless given: the trainer keeps float32
+parameters and computes in bf16 or, as the published configurations ask,
+in float32.
 
 The state dict carries ``vae.*`` and ``denoiser.*`` keys in the reference
 torch LADiff layout.  ``diffusion_reverse`` computes the step-invariant work
@@ -48,6 +50,7 @@ from ladiff_torch.losses.mld import (LossWeights, diffusion_loss, smooth_l1,
                                      vae_loss)
 from ladiff_torch.models.denoiser import LADenoiser
 from ladiff_torch.models.vae import LAVae
+from ladiff_torch.ops.cuda_common import kernel_compute
 from ladiff_torch.ops.md_layer import md_layer_supported
 from ladiff_torch.utils.device import resolve_device, resolve_dtype
 from ladiff_torch.utils.masks import latent_valid_mask
@@ -93,6 +96,11 @@ class LADiffSystem(nn.Module):
                 "md_stack: the whole-stack kernel does not take the denoiser "
                 f"shape T={max_it} E=2 D={D} H={num_heads} F=1024,{ff_size} "
                 f"L={num_layers}")
+        want = torch.device("cuda" if device is None else device)
+        if md_stack and not kernel_compute(resolve_dtype(want, dtype), want):
+            raise ValueError(
+                f"md_stack: the whole-stack kernel computes in bf16, not "
+                f"{dtype} on {want}")
         if scheduler_kind not in ("ddim", "ddpm"):
             raise ValueError(f"unknown scheduler kind {scheduler_kind}")
         device = resolve_device(device)

@@ -26,6 +26,7 @@ from ladiff_torch.ops.attention_kernel import (MIN_SEQ,
                                                fused_masked_attention,
                                                masked_attention_plain,
                                                masked_attention_supported)
+from ladiff_torch.ops.cuda_common import kernel_route
 
 __all__ = ["MultiHeadAttention", "masked_attention"]
 
@@ -39,9 +40,10 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dropout_rate`` > 0 drops probabilities (scaled by 1 / keep) with a
     mask drawn from ``generator``.  Returns [B, Sq, D].
 
-    Self-attention over at least ``MIN_SEQ`` tokens without dropout, of a
-    shape kernel 10 takes (``masked_attention_supported``), and with no
-    gradient required (kernel 10 has no backward), goes through
+    Self-attention over at least ``MIN_SEQ`` tokens without dropout, in bf16
+    (``kernel_route``), of a shape kernel 10 takes
+    (``masked_attention_supported``), and with no gradient required
+    (kernel 10 has no backward), goes through
     ``fused_masked_attention`` (kernel 10 on CUDA tensors); everything else
     (the denoiser's 7-key stream, cross-attention into the few memory rows,
     any dropout, a head width above 128, a training layer's plain
@@ -50,7 +52,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     if (S == k.shape[1] >= MIN_SEQ and dropout_rate == 0.0
-            and not needs_grad
+            and not needs_grad and kernel_route(q)
             and masked_attention_supported(B, S, D, num_heads)):
         return fused_masked_attention(q, k, v, key_valid,
                                       num_heads=num_heads)

@@ -13,13 +13,22 @@ tokens, D 256, 4 heads) q, k, v and the output are ~54 MB against at most
 memory bounds it, near 0.016 ms.  The TPU kernel pads the head width to 128
 lanes and holds a whole [S, S] logit block per program; neither suits the
 card.  The CUDA version (``csrc/masked_attention.cu``, body in
-``csrc/attn_tile.cuh``, shared with K2's self-attention) runs one block per
-(sample, head, 64-query tile) and walks the keys in 64-key tiles with an
-online softmax in f32; both products are WMMA bf16 tiles with f32
-accumulation; q, k, v rows move as 16-byte vectors and each is read once
-per query tile; the scores never reach global memory.  Keys past S do not
-exist; masked keys keep the additive -1e9, so a row whose keys are all
-masked attends uniformly, as in the JAX package.
+``csrc/attn_tile.cuh`` over ``csrc/flash_tile.cuh``, shared with K2's
+self-attention) is a register-resident FlashAttention-2 tile: one block of
+4 warps per (sample, head, 64-query tile), each warp's 16 query rows held
+as mma.sync A-fragments for the whole key loop; k and v tiles come through
+a two-stage cp.async ring (16-byte vectors), so the next tile's load
+overlaps this one's products; S = q k^T and O accumulate in mma.sync
+m16n8k16 registers, the online softmax runs on them with quad shuffles and
+exp2 (scale and log2 e folded in), P turns into bf16 A-fragments in
+registers and O is written once.  Shared memory is the ring alone (~36 KB
+at head width 64), so several blocks share an SM.  Keys past S do not
+exist; a masked key's probability is exactly 0 once a valid key sets the
+row maximum, so a 64-key tile without a valid key is skipped, decided per
+key from ``key_valid`` (the encoder stream's valid keys are not a prefix);
+a sample without a valid key attends uniformly over its S keys, as the JAX
+package's -1e9 gives.  Padded query rows are computed, as in the JAX
+package.
 
 It has no backward: called on CUDA tensors while a gradient is required it
 raises; layers that need a gradient take ``train_self_attention``.

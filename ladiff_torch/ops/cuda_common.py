@@ -11,6 +11,10 @@ module of the port on a machine without ``nvcc``.
 
 Dispatch is by device only: a wrapper given CPU tensors runs the kernel's
 plain PyTorch version; given CUDA tensors it launches the kernel or raises.
+Which route a module takes is decided before any launch, from shapes (each
+kernel's ``*_supported``) and from the compute type (``kernel_route``): the
+kernels take bf16 only, so float32 compute on the card takes every module's
+plain route.
 Every wrapper counts its launches (``launch_counts`` / ``reset_launch_counts``)
 so a run can show that the main path went through the kernels.
 """
@@ -31,7 +35,7 @@ import torch
 __all__ = ["NEG_INF", "CSRC", "BUILD_DIR", "register_kernel", "launch_counts",
            "reset_launch_counts", "build_all", "library", "launch",
            "check_cuda_args", "require_no_grad", "draw_seed", "split_seed",
-           "dropout_mask"]
+           "dropout_mask", "on_card", "kernel_compute", "kernel_route"]
 
 NEG_INF = -1e9  # additive key mask; large finite keeps bf16 softmax safe
 
@@ -169,6 +173,26 @@ def launch(lib_name: str, fn_name: str, device: torch.device,
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} "
                            f"({lib.ladiff_error_string(err).decode()})")
+
+
+def on_card(device) -> bool:
+    """Whether ``device`` is a CUDA device (where the kernels launch)."""
+    return torch.device(device).type == "cuda"
+
+
+def kernel_compute(dtype: torch.dtype, device) -> bool:
+    """Whether compute in ``dtype`` on ``device`` may take the kernel
+    routes: bf16, the only type the kernels take, or any type off the card,
+    where each wrapper is its kernel's plain version.  Float32 compute on
+    the card takes every module's plain route instead; the wrappers keep
+    raising on a float32 CUDA tensor (``check_cuda_args``)."""
+    return dtype == torch.bfloat16 or not on_card(device)
+
+
+def kernel_route(x: torch.Tensor) -> bool:
+    """``kernel_compute`` of the activations ``x``: the dtype gate that
+    every module checks beside its shape gate, before any launch."""
+    return kernel_compute(x.dtype, x.device)
 
 
 def check_cuda_args(name: str, tensors: Dict[str, torch.Tensor],

@@ -6,7 +6,9 @@ Parameter names follow the reference torch LADiff (``sa_block``,
 ``ffn.{linear1,linear2,proj_out}``, ``proj_out.emb_layers.1`` /
 ``.norm`` / ``.out_layers.2``).  Each kernel wrapper takes its plain version
 on a CPU tensor.  Routes of an ``MDTransformerLayer``, chosen from shapes
-before any launch (as the JAX package's gate):
+before any launch (as the JAX package's gate); float32 compute on the card
+takes no kernel (``kernel_route``): the per-block route with the plain
+version of every block:
 
   eval, one text token, a shape K1 takes (``md_layer_supported``; every
       published configuration)      the whole layer as ``fused_md_layer``
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ladiff_torch.ops.cuda_common import kernel_route
 from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_supported
 from ladiff_torch.ops.md_stack import fused_md_stack, stack_md_params
 from ladiff_torch.ops.stylize import fused_broadcast_stylize
@@ -118,7 +121,8 @@ class LinearTemporalCrossAttention(nn.Module):
         H = self.num_heads
         tn = layer_norm(self.text_norm, xf)
         value = linear(self.value, tn)
-        if N == 1 and not (self.training or _needs_grad(self, x, xf, emb)):
+        if N == 1 and kernel_route(x) and not (
+                self.training or _needs_grad(self, x, xf, emb)):
             p = self.proj_out
             mask = (latent_valid.reshape(B * T).float() if latent_valid
                     is not None else torch.ones(B * T, device=x.device))
@@ -163,7 +167,8 @@ class StylizedFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if not (self.training or _needs_grad(self, x, emb)):
+        if kernel_route(x) and not (self.training
+                                    or _needs_grad(self, x, emb)):
             B, T, D = x.shape
             p = self.proj_out
             w = _cast({"w1": self.linear1.weight, "b1": self.linear1.bias,
@@ -218,9 +223,9 @@ class MDTransformerLayer(nn.Module):
 
     def takes_whole_layer(self, x: torch.Tensor, xf: torch.Tensor) -> bool:
         """Whether the layer runs as K1 (``fused_md_layer``): eval mode, one
-        text token, and a shape K1 takes."""
+        text token, bf16 compute (``kernel_route``) and a shape K1 takes."""
         B, T, D = x.shape
-        return (not self.training and xf.shape[1] == 1
+        return (not self.training and xf.shape[1] == 1 and kernel_route(x)
                 and md_layer_supported(B, T, 2, D, self.num_heads,
                                        self.sa_block.linear1.out_features,
                                        self.ffn.linear1.out_features))

@@ -18,7 +18,10 @@ and ``train_self_attention_bwd_plain``.
 
 Design on Hopper.  A [206, 206] float32 score block per head does not fit
 shared memory next to q, k and v, so attention is tiled 64 queries x 64
-keys with an online softmax, as kernel K2's attention launch is.  The
+keys with an online softmax, in the register-resident tile of kernel 10
+(``csrc/flash_tile.cuh``: mma.sync accumulators, ldmatrix operands, a
+two-stage cp.async ring of key tiles, P as bf16 A-fragments; probability
+dropout applied to P in registers from the same Philox elements).  The
 wrapper is a fixed sequence of launches, counted once.  Forward: the qkv
 projection (32-row blocks), the tiled attention (one block per sample, head
 and query tile, which also writes each row's log-sum-exp), and the
@@ -26,9 +29,10 @@ out-projection with the residual and its dropout.  Backward: ``dattn`` and
 ``dctx = dattn Wout`` with the flash row term ``delta = dctx . ctx`` (the
 identity survives the probability dropout: sum_j dp_j p_j = dO . O with
 O = (p * pm) V); then two tiled launches that recompute the probabilities
-from q, k and the saved log-sum-exp, one owning query tiles (dq), one
-owning key tiles (dk, dv), so no atomics are needed; then
-``dx = dout + dqkv Wqkv``.
+from q, k and the saved log-sum-exp with S, dP and dS in registers, one
+owning query tiles (dq), one owning key tiles (dk, dv), so no atomics are
+needed; key tiles without a valid key are skipped (their probabilities are
+exactly 0 when the sample has a valid key); then ``dx = dout + dqkv Wqkv``.
 
 Dropout: as in ``ops/train_ffn.py`` (Philox keyed by the call's seed, the
 mask id and the global element index).  Mask 0 is the probability mask,

@@ -16,19 +16,25 @@ hand-written kernels of ``csrc/train_layer.cu``, on CPU tensors
 ``train_encoder_layer_plain`` and ``train_encoder_layer_bwd_plain``.
 
 Design on Hopper.  What makes it one layer and not kernels 8 and 9 back to
-back: the forward's last launch goes, per 32-row block, from the attention
+back: the forward's last launch goes, per 64-row block, from the attention
 context to the layer's output (out-projection, residual dropout, LN1, the
-FFN, LN2) with the residual ``r`` and ``h`` in shared memory only, so the
-split route's round trip of ``r`` through device memory (written by kernel
-8, read by kernel 9 and saved for its backward) is gone; the backward's
-first launch goes per block from ``dout`` to ``dctx`` (the tail's backward,
-LN1's, the residual dropout's and the out-projection's).  Around them the
-launches are kernel 8's (``csrc/train_attn.cuh``): the qkv projection, the
-64 x 64 tiled online-softmax attention forward, its two backward launches
-(query side, key side: no atomics) and ``dx = dr + dqkv Wqkv``; and the
-split-K weight gradients with a fixed-order reduction (``train_common.cuh``).
-The wrapper is that fixed sequence, counted once each way.  What bounds it
-on the H100: ~35 GFLOP forward and ~100 GFLOP backward at 64 x 206 rows
+FFN, LN2) with the residual ``r``, ``h`` and the hidden rows in registers
+and shared memory only, so the split route's round trip of ``r`` through
+device memory (written by kernel 8, read by kernel 9 and saved for its
+backward) is gone; the backward's first launch goes per block from ``dout``
+to ``dctx`` (the tail's backward, LN1's, the residual dropout's and the
+out-projection's).  The tails (``csrc/tail64.cuh``) run 8 warps over 64
+rows with mma.sync register accumulators and a three-stage cp.async
+weight ring, so each byte of weight read from L2 serves 64 rows; the FFN's
+hidden dimension goes in 128-column chunks with the second product
+accumulating in registers, and the LayerNorms reduce over the accumulator
+registers.  Around them the launches are kernel 8's
+(``csrc/train_attn.cuh``): the qkv projection, the register-resident
+flash attention forward, its two backward launches (query side, key side:
+no atomics) and ``dx = dr + dqkv Wqkv``; and the split-K weight gradients
+with a fixed-order reduction (``train_common.cuh``).  The wrapper is that
+fixed sequence, counted once each way.  What bounds it on the H100: ~22
+GFLOP forward and ~44 GFLOP backward of needed work at 64 x 206 rows
 against tens of MB: the tensor cores.
 
 Dropout: Philox keyed by the call's seed, a mask id and the element index
@@ -195,7 +201,7 @@ def train_encoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
     lo, hi = _seed_args(rate, seed)
     dev, bf, f32 = x.device, x.dtype, torch.float32
     split = split_rows(M)
-    nblk = (M + 31) // 32
+    nblk = (M + 63) // 64  # the tails' 64-row blocks
 
     def rows(n, dt=bf):
         return torch.empty(M, n, dtype=dt, device=dev)

@@ -28,7 +28,10 @@ a CPU tensor):
                              cross-attention into the few memory rows ->
                              ``train_postnorm_ffn(norm2, norm3)``
 
-Each route is chosen from shapes before any launch.  ``train_self_attention``
+Each route is chosen from shapes and the compute type before any launch:
+the kernels take bf16 only, so float32 compute on the card (the published
+configurations' ``TRAIN.MIXED_PRECISION: false``) takes every plain part
+below (``kernel_route``).  ``train_self_attention``
 takes what ``train_attention_supported`` admits (at least ``MIN_TOKENS``
 tokens, head widths 16 to 64); other streams and ``extra_kv`` keep the plain
 attention module in training.  The FFN tail kernels (5 and 9) take what
@@ -57,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ladiff_torch.ops.attention import MultiHeadAttention
-from ladiff_torch.ops.cuda_common import dropout_mask
+from ladiff_torch.ops.cuda_common import dropout_mask, kernel_route
 from ladiff_torch.ops.decoder_layer import (decoder_layer_supported,
                                             fused_decoder_layer)
 from ladiff_torch.ops.postnorm_ffn import (fused_postnorm_ffn,
@@ -141,8 +144,8 @@ def _self_attention_block(attn: MultiHeadAttention, x: torch.Tensor,
                           rate: float, generator) -> torch.Tensor:
     """``x + drop(self_attn(x))``: kernel 8 on the training route where it
     takes the shape, else the attention module."""
-    if train_route and train_attention_supported(x.shape[1], attn.d_model,
-                                                 attn.num_heads):
+    if train_route and kernel_route(x) and train_attention_supported(
+            x.shape[1], attn.d_model, attn.num_heads):
         return _train_self_attention(attn, x, key_valid, rate, generator)
     x2 = attn(x, x, x, key_valid, generator=generator)
     return x + _drop(x2, rate, generator)
@@ -160,11 +163,11 @@ def _ffn_tail(layer, resid: torch.Tensor, ln_a: nn.LayerNorm,
               ln_b: nn.LayerNorm, train_route: bool, rate: float,
               generator) -> torch.Tensor:
     """``ln_b(h + FFN(h))`` with ``h = ln_a(resid)``: kernel 9 on the
-    training route, kernel 5 at inference, plain ops for a shape they do not
-    take."""
+    training route, kernel 5 at inference, plain ops for a shape or a
+    compute type they do not take."""
     B, S, D = resid.shape
-    if not postnorm_ffn_supported(D, layer.linear1.out_features,
-                                  layer.activation):
+    if not (kernel_route(resid) and postnorm_ffn_supported(
+            D, layer.linear1.out_features, layer.activation)):
         h = layer_norm(ln_a, resid)
         act = get_activation(layer.activation)
         y = linear(layer.linear2, _drop(act(linear(layer.linear1, h)), rate,
@@ -218,7 +221,7 @@ class TransformerEncoderLayer(nn.Module):
         train_route = self.training or _needs_grad(self, src, extra_kv)
         rate = self.dropout if self.training else 0.0
         B, S, D = src.shape
-        if (train_route and extra_kv is None
+        if (train_route and extra_kv is None and kernel_route(src)
                 and self.takes_whole_training_layer(S)):
             out = train_encoder_layer(
                 src.reshape(B * S, D).contiguous(), _key_valid(key_valid, src),
@@ -307,7 +310,8 @@ class TransformerDecoderLayer(nn.Module):
         train_route = self.training or _needs_grad(self, tgt, memory)
         B, T, D = tgt.shape
         L = memory.shape[1]
-        if train_route and self.takes_whole_training_layer(T, L):
+        if (train_route and kernel_route(tgt)
+                and self.takes_whole_training_layer(T, L)):
             mv = (memory_key_valid if memory_key_valid is not None
                   else torch.ones(B, L, dtype=torch.bool, device=tgt.device))
             out = train_decoder_layer(
@@ -318,7 +322,7 @@ class TransformerDecoderLayer(nn.Module):
                 rate=self.dropout if self.training else 0.0,
                 generator=generator)
             return out.reshape(B, T, D)
-        if train_route or not self.takes_whole_layer():
+        if train_route or not (kernel_route(tgt) and self.takes_whole_layer()):
             return self._forward_blocks(
                 tgt, memory, tgt_key_valid, memory_key_valid, train_route,
                 self.dropout if self.training else 0.0, generator)

@@ -5,7 +5,9 @@
     python -m ladiff_torch.train --cfg configs/config_ladiff_humanml3d.yaml  # stage 2
 
 Runs on the GPU; ``--cpu`` runs the plain PyTorch paths on the CPU instead.
-The GPU needs ``TRAIN.MIXED_PRECISION: true`` (bf16 compute).
+``TRAIN.MIXED_PRECISION: true`` computes in bf16 through the CUDA kernels;
+the published configurations leave it false and train in float32, through
+the plain PyTorch route on the GPU too.
 ``LADIFF_TRAIN_WHOLE_LAYER=1|enc|dec`` runs the VAE's training layers as
 the whole-layer kernels 12 and 13; ``LADIFF_SYNTHETIC_DATA=1`` stands in a
 synthetic dataset when the configured one is missing.

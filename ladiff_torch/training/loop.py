@@ -233,17 +233,13 @@ def build_system(cfg, dm: T2MDataModule, device=None,
                  train_whole_layer: Optional[str] = None) -> LADiffSystem:
     """The configured system with float32 parameters on ``device`` (the GPU
     unless the caller names another).  ``TRAIN.MIXED_PRECISION`` selects
-    bf16 compute; the CUDA kernels take bf16 only, so on a GPU a
-    configuration without it raises rather than switch precision.
-    ``train_whole_layer`` (None: the environment's
-    ``LADIFF_TRAIN_WHOLE_LAYER``, default "0") runs the VAE's training
-    layers as kernels 12 and 13."""
+    bf16 compute, through the CUDA kernels on a GPU; without it (the
+    published configurations) the system computes in float32 on any
+    device, as the JAX package does, and on a GPU every module takes its
+    plain route (the kernels take bf16 only).  ``train_whole_layer``
+    (None: the environment's ``LADIFF_TRAIN_WHOLE_LAYER``, default "0") runs
+    the VAE's training layers as kernels 12 and 13 in bf16."""
     mixed = bool(cfg.TRAIN.get("MIXED_PRECISION", False))
-    if torch.device(device or "cuda").type == "cuda" and not mixed:
-        raise ValueError(
-            "TRAIN.MIXED_PRECISION is false: the port's CUDA kernels compute "
-            "in bf16 only (float32 compute on the GPU is ROADMAP.md Queue 3); "
-            "set TRAIN.MIXED_PRECISION: true, or run on device='cpu'")
     device = resolve_device(device)
     if train_whole_layer is None:
         train_whole_layer = os.environ.get("LADIFF_TRAIN_WHOLE_LAYER", "0")
@@ -281,11 +277,14 @@ def _single_device(cfg, stage: str) -> None:
 
 def build_text_encoder(cfg, device):
     """The frozen CLIP text tower of the configuration (``model.clip_path``;
-    random weights from a seed where it has none) on ``device``."""
+    random weights from a seed where it has none) on ``device``: in bf16
+    on a GPU with ``TRAIN.MIXED_PRECISION`` (kernels K3 and K4), else in
+    float32, as the JAX package's tower, through their plain versions."""
     from ladiff_torch.models.clip_text import ClipTextEncoder
+    mixed = bool(cfg.TRAIN.get("MIXED_PRECISION", False))
     return ClipTextEncoder(
         modelpath=str(cfg.model.get("clip_path", "") or "") or None,
-        device=device)
+        device=device, dtype=None if mixed else torch.float32)
 
 
 def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,

@@ -26,15 +26,23 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 def resolve_dtype(device: torch.device,
                   dtype: Optional[torch.dtype] = None) -> torch.dtype:
-    """The compute type on ``device``: bfloat16 on CUDA, the only type the
-    CUDA kernels take, and float32 elsewhere unless the caller names one.
+    """The compute type on ``device``: bfloat16 on CUDA (the kernels' type)
+    and float32 elsewhere unless the caller names one.
 
-    Another type on CUDA raises here, naming it, rather than at the first
-    kernel launch."""
+    On CUDA the caller may name float32 (the published configurations'
+    ``TRAIN.MIXED_PRECISION: false``): every module then takes its plain
+    route (``ops.cuda_common.kernel_route``), and the float32 products are
+    held at full float32 here (``torch.backends.cuda.matmul.allow_tf32``
+    and ``torch.backends.cudnn.allow_tf32`` off; cuDNN's default is TF32).
+    Another type on CUDA raises here, naming it."""
     if dtype is None:
         return torch.bfloat16 if device.type == "cuda" else torch.float32
-    if device.type == "cuda" and dtype != torch.bfloat16:
-        raise TypeError(
-            f"ladiff_torch's CUDA kernels take torch.bfloat16, not {dtype}; "
-            "pass device='cpu' to run the plain PyTorch paths in it")
+    if device.type == "cuda":
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(
+                f"ladiff_torch computes in torch.bfloat16 (the CUDA kernels) "
+                f"or torch.float32 (the plain routes) on CUDA, not {dtype}")
+        if dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
     return dtype

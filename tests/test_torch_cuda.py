@@ -236,6 +236,76 @@ def test_masked_attention_kernel(dev, S, masked):
         fused_masked_attention(q, k[:, :-1], v[:, :-1], valid, num_heads=H)
 
 
+def _stream_mask(B, S, dev):
+    """Key validity with wholly masked 64-key tiles and keys that are not a
+    prefix: sample 0 has no valid key (it attends uniformly), sample 1 the
+    encoder stream's layout (2 + 2 of 10 distribution tokens, then 11
+    frames), sample 2 one key in the last tile only, the rest all valid."""
+    v = torch.ones(B, S)
+    v[0] = 0
+    v[1] = 0
+    v[1, [0, 1, 5, 6]] = 1
+    v[1, 10:21] = 1
+    v[2] = 0
+    v[2, S - 1] = 1
+    return v.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [16, 48, 64, 112, 128])
+@torch.no_grad()
+def test_masked_attention_kernel_skips_masked_tiles(dev, Dh):
+    """Kernel 10 at every head width class it takes: whole masked key tiles
+    skipped, a sample with no valid key attending uniformly, each sample
+    held to the plain version on its own."""
+    from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
+                                                   masked_attention_plain)
+    B, S, H = 4, 206, 2
+    D = H * Dh
+    q, k, v = (_bf(dev, B, S, D, seed=40 + i) for i in range(3))
+    valid = _stream_mask(B, S, dev) > 0.5
+    got = fused_masked_attention(q, k, v, valid, num_heads=H)
+    want = masked_attention_plain(q.float(), k.float(), v.float(), valid,
+                                  num_heads=H)
+    for b in range(B):
+        assert _relerr(got[b], want[b]) <= TOL, b
+    # sample 0: every row is the mean of its values
+    mean = v[0].float().mean(0, keepdim=True).expand(S, D)
+    assert _relerr(got[0], mean) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D,H", [(256, 16), (256, 8), (192, 4), (256, 4)])
+@torch.no_grad()
+def test_train_attention_kernels_skip_masked_tiles(dev, rate, D, H):
+    """Kernel 8's flash tiles at head widths 16, 32, 48 and 64 with wholly
+    masked key tiles and a sample with no valid key, forward and every
+    gradient."""
+    from ladiff_torch.ops.train_attention import (
+        ATTN_PARAM_ORDER, train_self_attention_bwd,
+        train_self_attention_bwd_plain, train_self_attention_fwd,
+        train_self_attention_masks, train_self_attention_plain)
+    B, S, seed = 4, 150, 97531
+    M = B * S
+    p = _attn_params(dev, D)
+    x, dout = _bf(dev, M, D, seed=44), _bf(dev, M, D, seed=45, scale=0.1)
+    kvalid = _stream_mask(B, S, dev).reshape(-1).contiguous()
+    masks = (train_self_attention_masks(B, S, D, H, rate, seed, dev)
+             if rate else None)
+    kw = dict(H=H, S=S, rate=rate, seed=seed)
+    got, saved = train_self_attention_fwd(x, kvalid, p, return_saved=True,
+                                          **kw)
+    assert _relerr(got, train_self_attention_plain(
+        x.float(), kvalid, _f32(p), masks, H=H, S=S)) <= TOL
+    dx, grads = train_self_attention_bwd(x, kvalid, dout, p, saved, **kw)
+    wdx, wgrads = train_self_attention_bwd_plain(
+        x.float(), kvalid, dout.float(), _f32(p), masks, H=H, S=S)
+    assert _relerr(dx, wdx) <= TOL
+    for k in ATTN_PARAM_ORDER:
+        assert _relerr(grads[k], wgrads[k]) <= TOL, k
+
+
 @pytest.mark.cuda
 def test_inference_kernels_refuse_a_required_gradient(dev):
     """The inference kernels have no backward: with autograd recording and a
@@ -590,6 +660,28 @@ def test_kernels_read_inside_their_inputs(dev):
         kv10 = _mask([S10, 20, 1], S10, dev) > 0.5  # the wrapper copies it
         _guarded_calls(lambda t, p: fused_masked_attention(
             *t, kv10, num_heads=H), qkv)
+        # the flash tiles' masked-tile and no-valid-key paths: kernels 10,
+        # 8 and 12 at 152 tokens (the 64-row tails' partial last block;
+        # kvalid's bytes a multiple of 32, as _at_end needs)
+        S2 = 152
+        kv2 = _stream_mask(B, S2, dev).reshape(-1).contiguous()
+        x2, dout2 = _bf(dev, B * S2, D), _bf(dev, B * S2, D, seed=17)
+        qkv = [_bf(dev, B, S2, D, seed=33 + i) for i in range(3)]
+        _guarded_calls(lambda t, p: fused_masked_attention(
+            *t, kv2.reshape(B, S2) > 0.5, num_heads=H), qkv)
+        _, saved = train_self_attention_fwd(x2, kv2, pa, H=H, S=S2,
+                                            rate=0.1, seed=3,
+                                            return_saved=True)
+        _guarded_calls(lambda t, p: train_self_attention_bwd(
+            t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S2, rate=0.1, seed=3),
+            [x2, kv2, dout2, *saved], pa)
+        _guarded_calls(lambda t, p: train_encoder_layer_fwd(
+            t[0], t[1], p, H=H, S=S2, rate=0.1, seed=3), [x2, kv2], pe)
+        _, saved = train_encoder_layer_fwd(x2, kv2, pe, H=H, S=S2, rate=0.1,
+                                           seed=3, return_saved=True)
+        _guarded_calls(lambda t, p: train_encoder_layer_bwd(
+            t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S2, rate=0.1, seed=3),
+            [x2, kv2, dout2, *saved], pe)
     # K1..K4 share the LayerNorm helper
     D, H, T, L = 256, 4, 40, 5
     dl = _randomize(TransformerDecoderLayer(D, H, 1024, "gelu"), 4).to(dev, bf)
@@ -679,6 +771,79 @@ def test_whole_layer_kernels(dev, rate, B):
         for k in names:
             assert grads[k].dtype == torch.float32
             assert _relerr(grads[k], wgrads[k]) <= TOL, (S, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D,H", [(64, 2), (128, 2), (192, 4)])
+@torch.no_grad()
+def test_whole_layer_encoder_kernel_widths(dev, rate, D, H):
+    """Kernel 12's 64-row tails at the widths below 256 it takes (each its
+    own instantiation), 150 tokens with masked key tiles and a sample with
+    no valid key, 600 rows (a partial last block), forward and every
+    gradient."""
+    from ladiff_torch.ops.train_layer import (
+        ENC_PARAM_ORDER, train_encoder_layer_bwd,
+        train_encoder_layer_bwd_plain, train_encoder_layer_fwd,
+        train_encoder_layer_masks, train_encoder_layer_plain)
+    B, S, Fd, seed = 4, 150, 256, 1357
+    M = B * S
+    pe = {**_attn_params(dev, D), **_ffn_params(dev, D, Fd)}
+    x, dout = _bf(dev, M, D, seed=46), _bf(dev, M, D, seed=47, scale=0.1)
+    kvalid = _stream_mask(B, S, dev).reshape(-1).contiguous()
+    masks = (train_encoder_layer_masks(B, S, D, H, Fd, rate, seed, dev)
+             if rate else None)
+    kw = dict(H=H, S=S, rate=rate, seed=seed)
+    got, saved = train_encoder_layer_fwd(x, kvalid, pe, return_saved=True,
+                                         **kw)
+    assert _relerr(got, train_encoder_layer_plain(
+        x.float(), kvalid, _f32(pe), masks, H=H, S=S)) <= TOL
+    dx, grads = train_encoder_layer_bwd(x, kvalid, dout, pe, saved, **kw)
+    wdx, wgrads = train_encoder_layer_bwd_plain(
+        x.float(), kvalid, dout.float(), _f32(pe), masks, H=H, S=S)
+    assert _relerr(dx, wdx) <= TOL
+    for k in ENC_PARAM_ORDER:
+        assert _relerr(grads[k], wgrads[k]) <= TOL, k
+
+
+@pytest.mark.cuda
+def test_published_config_trains_in_float32_on_the_gpu(dev):
+    """``configs/config_vae_humanml3d.yaml`` as shipped (float32 compute):
+    a training step on the card through the plain routes, no kernel
+    launched, its loss on one batch within 1e-3 of the CPU's on the same
+    weights and latent noise."""
+    import os
+    import types
+
+    from ladiff_torch import train_bench
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.loop import build_system
+    from ladiff_torch.training.trainer import make_optimizer, vae_train_step
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = assemble_config(
+        os.path.join(repo, "configs", "config_vae_humanml3d.yaml"),
+        os.path.join(repo, "configs", "assets.yaml"))
+    assert not cfg.TRAIN.MIXED_PRECISION
+    dm = types.SimpleNamespace(nfeats=263, njoints=22,
+                               mean=np.zeros(263, np.float32),
+                               std=np.ones(263, np.float32))
+    gpu = build_system(cfg, dm, device=dev)
+    cpu = build_system(cfg, dm, device="cpu")
+    assert gpu.dtype == torch.float32
+    batch = train_bench.make_batch(4)
+    eps = torch.randn(4, gpu.max_it, gpu.latent_dim[-1],
+                      generator=torch.Generator().manual_seed(3))
+    cc.reset_launch_counts()
+    with torch.no_grad():
+        got, _ = gpu.vae_forward({k: v.to(dev) for k, v in batch.items()},
+                                 train=False, eps=eps.to(dev))
+        want, _ = cpu.vae_forward(batch, train=False, eps=eps)
+    assert abs(float(got) - float(want)) <= 1e-3 * abs(float(want))
+    logs = vae_train_step(gpu, make_optimizer(gpu.vae.parameters()),
+                          {k: v.to(dev) for k, v in batch.items()})
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
+    assert not any(cc.launch_counts().values())
 
 
 @pytest.mark.cuda

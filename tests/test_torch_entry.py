@@ -169,16 +169,26 @@ def test_get_datasets_synthetic_stand_in(tmp_path, monkeypatch):
 # -- the system and the loop's options --------------------------------------
 
 def test_build_system_options(tmp_path, monkeypatch):
-    """float32 compute on the GPU raises, naming TRAIN.MIXED_PRECISION;
-    LADIFF_TRAIN_WHOLE_LAYER is read here; the parameters are float32 and
-    seeded from SEED_VALUE; unsupported configurations raise."""
+    """float32 compute on the GPU (TRAIN.MIXED_PRECISION false) builds a
+    float32 system there, as on the CPU; LADIFF_TRAIN_WHOLE_LAYER is read
+    here; the parameters are float32 and seeded from SEED_VALUE;
+    unsupported configurations raise."""
     from ladiff_torch.data.datamodule import get_datasets
     from ladiff_torch.models.ladiff import LADiffSystem
+    from ladiff_torch.training import loop
     from ladiff_torch.training.loop import build_system
     cfg = _small(tmp_path)
     dm = get_datasets(cfg)[0]
-    with pytest.raises(ValueError, match="TRAIN.MIXED_PRECISION"):
+    seen = {}
+    with monkeypatch.context() as m:
+        # no card here: the device is taken as named and nothing is built
+        m.setattr(loop, "resolve_device", torch.device)
+        m.setattr(LADiffSystem, "from_cfg",
+                  classmethod(lambda cls, c, **kw: seen.update(kw)))
         build_system(cfg, dm, device="cuda")
+    assert seen["device"] == torch.device("cuda")
+    assert (seen["dtype"], seen["param_dtype"]) == (torch.float32,
+                                                    torch.float32)
     monkeypatch.setenv("LADIFF_TRAIN_WHOLE_LAYER", "enc")
     a = build_system(cfg, dm, device="cpu")
     assert a.vae.encoder.middle_block.whole_layer

@@ -150,7 +150,9 @@ def test_entry_points_default_to_the_gpu():
 
 def test_dtype_defaults_to_the_kernels_type():
     """bfloat16 on CUDA, the kernels' only type, and float32 on the CPU;
-    another type on CUDA raises, naming it, before any launch."""
+    float32 on CUDA is the plain routes' type (the published
+    configurations'); another type on CUDA raises, naming it, before any
+    launch."""
     from ladiff_torch.utils.device import resolve_dtype
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -158,8 +160,9 @@ def test_dtype_defaults_to_the_kernels_type():
     assert resolve_dtype(cuda, torch.bfloat16) == torch.bfloat16
     assert resolve_dtype(cpu) == torch.float32
     assert resolve_dtype(cpu, torch.bfloat16) == torch.bfloat16
-    with pytest.raises(TypeError, match="torch.float32"):
-        resolve_dtype(cuda, torch.float32)
+    assert resolve_dtype(cuda, torch.float32) == torch.float32
+    with pytest.raises(TypeError, match="torch.float16"):
+        resolve_dtype(cuda, torch.float16)
     system = TorchSystem(nfeats=NFEATS, njoints=NJOINTS, latent_dim=(7, D),
                          ff_size=FF, num_layers=LAYERS, num_heads=HEADS,
                          device="cpu")
