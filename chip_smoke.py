@@ -14,7 +14,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
             the least time the card could take, and a library call's time
             where one PyTorch call computes the same function.  K1 is
             compared again at the training stages' shapes: 128 x 5 rows with
-            one AdaLN row per sample, and 256 x 5 rows.
+            one AdaLN row per sample, and 256 x 5 rows.  ``kernel_breakdown``:
+            K2's launches one by one (device ms per call); K2 compared again
+            at 3 x 40 rows (a partial last row block), D 256, 64 and 192.
 3. slice    ``LADiffSystem.generate`` at batch 4 with mixed lengths on the
             card (kernels, bf16) against the CPU (plain versions, float32),
             same weights, same initial noise.
@@ -87,9 +89,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
             valid), mixed lengths: each against its float32 plain version,
             at dropout 0 and 0.1 (the kernel's masks given to the plain
             version), every gradient on its own, the memory's too; timed at
-            batch 64, compared again at 128 and 3; the memory gradient's
-            bits equal over two runs.  ``whole_layer_breakdown``: kernel
-            12's launches one by one (device ms per call, batch 64,
+            batch 64, compared again at 128 and 3, and kernel 13 at 3 x 40
+            rows (a 64-row block holds three samples) with 8 memory rows (1,
+            8 and 5 valid); the memory gradient's bits equal over two runs
+            (3 x 196 and 3 x 40 rows).  ``whole_layer_breakdown``: kernels
+            12's and 13's launches one by one (device ms per call, batch 64,
             dropout 0.1).
 11. whole_layer_slice  ``train_slice`` on the whole-layer route, with its
             launch counts (9 + 9 of kernel 12, 9 + 9 of kernel 13, none of
@@ -343,12 +347,36 @@ def phase_build():
     if not gpu:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     for name, log in cc.build_logs().items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"# {name}: {line.strip()}", file=sys.stderr)
+        for fn, regs, spill in _ptxas_entries(log):
+            print(f"# {name}: {fn}: {regs}; {spill}", file=sys.stderr)
     emit({"phase": "build", "seconds": round(secs, 3), "gpu": gpu})
     print(gpu, flush=True)
     return gpu
+
+
+def _ptxas_entries(log: str):
+    """(kernel, registers, spills) of each entry function in an ``nvcc
+    -Xptxas -v`` log, the names demangled where ``c++filt`` is present."""
+    import re
+    out, fn, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append([fn, line.split(":", 1)[-1].strip(), spill])
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            for e, n in zip(out, names):
+                e[0] = n
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return out
 
 
 def mixed_lengths(n: int, lo: int = 16, hi: int = 196, seed: int = 0):
@@ -516,6 +544,29 @@ def phase_kernels(dev):
                                     H=H),
         lambda: decoder_layer_plain(*a2, p2, T=T2, H=H),
         fl2, nbytes(*a2, *p2.values(), x2), library=library_k2))
+    # K2's launches one by one
+    emit({"phase": "kernel_breakdown", "kernel": "fused_decoder_layer",
+          "rows": B * T2, "launches": launch_breakdown(
+              lambda: fused_decoder_layer(*a2, p2, T=T2, H=H))})
+    # K2 again (compared, not timed): 3 x 40 rows (a partial last row
+    # block; a block holds rows of two and three samples), at the widths
+    # its tail takes below 256
+    errs_k2 = {}
+    for Dk, Hk in ((256, 4), (64, 2), (192, 4)):
+        dk = randomize_(TransformerDecoderLayer(Dk, Hk, 4 * Dk, "gelu"),
+                        14).to(dev, bf)
+        lens = torch.tensor([40, 23, 7])
+        ak = (rnd(3 * 40, Dk), lengths_to_mask(lens, 40).to(dev).reshape(-1)
+              .float(), rnd(3, L, Dk),
+              latent_valid_mask(lens, 8, L).to(dev).float())
+        pk = dk.kernel_params()
+        errs_k2[f"D {Dk} H {Hk}"] = compare(
+            f"fused_decoder_layer, 3 x 40 rows, D {Dk} H {Hk}",
+            fused_decoder_layer(*ak, pk, T=40, H=Hk),
+            decoder_layer_plain(*[t.float() for t in ak], f32(pk), T=40,
+                                H=Hk), KERNEL_TOL)[0]
+    emit({"phase": "kernel_decoder_layer_small_shapes", "rel_err": errs_k2,
+          "tol": KERNEL_TOL})
 
     # K3 / K4: 256 captions x 32 tokens, width 768, MLP 3072
     M, W = B * 32, 768
@@ -2247,13 +2298,58 @@ def phase_whole_layer_kernels(dev):
             fl_db, nbytes(xd, kvd, mem, mvalid, doutd, xd, mem)
             + 3 * pd_bytes, library=lib_d_bwd, tol=GRAD_TOL,
             extra={"rate": RATE, "rows": Md, "memory_rows": L}))
+        _, saved = train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd, S=T,
+                                           return_saved=True, **kw)
+        # kernel 13's launches one by one, forward then backward
+        emit({"phase": "whole_layer_breakdown",
+              "kernel": "train_decoder_layer", "rows": Md, "rate": RATE,
+              "fwd": launch_breakdown(
+                  lambda: train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd,
+                                                  S=T, **kw)),
+              "bwd": launch_breakdown(
+                  lambda: train_decoder_layer_bwd(xd, kvd, mem, mvalid,
+                                                  doutd, pd, saved, S=T,
+                                                  **kw))})
         del md, mdb, saved, lib_d, lib_d_fwd, lib_d_bwd
+    # kernel 13 at 3 x 40 rows: a 64-row block holds rows of three
+    # samples; 8 memory rows, of which 1, 8 and 5 are valid
+    B3, T3, L3 = 3, 40, 8
+    lens3 = torch.tensor([40, 23, 7])
+    kv3 = lengths_to_mask(lens3, T3).reshape(-1).float().to(dev)
+    mv3 = (torch.arange(L3)[None] < torch.tensor([[1], [8], [5]])).float() \
+        .to(dev)
+    x3, dout3, mem3 = rnd(B3 * T3, D), rnd(B3 * T3, D, scale=0.1), \
+        rnd(B3, L3, D)
+    case = {}
+    for rate in (0.0, RATE):
+        kw = dict(H=H, S=T3, rate=rate, seed=SEED)
+        m3 = (train_decoder_layer_masks(B3, T3, L3, D, H, F, rate, SEED, dev)
+              if rate else None)
+        out, saved = train_decoder_layer_fwd(x3, kv3, mem3, mv3, pd,
+                                             return_saved=True, **kw)
+        d_f = compare(f"train_decoder_layer 3 x 40 rate {rate}", out,
+                      train_decoder_layer_plain(
+                          x3.float(), kv3, mem3.float(), mv3, f32(pd), m3,
+                          H=H, S=T3), KERNEL_TOL)[0]
+        d_b = compare(f"train_decoder_layer_bwd 3 x 40 rate {rate}",
+                      flat(*train_decoder_layer_bwd(
+                          x3, kv3, mem3, mv3, dout3, pd, saved, **kw)),
+                      flat(*train_decoder_layer_bwd_plain(
+                          x3.float(), kv3, mem3.float(), mv3, dout3.float(),
+                          f32(pd), m3, H=H, S=T3)), GRAD_TOL)[0]
+        case[f"rate {rate}"] = {"dec_fwd": d_f, "dec_bwd": d_b}
+    errs["3 x 40 rows, 8 memory rows"] = case
     # the memory gradient is summed without atomics: two runs, equal bits
-    out, saved = train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd, H=H, S=T,
-                                         return_saved=True)
-    runs = [train_decoder_layer_bwd(xd, kvd, mem, mvalid, doutd, pd, saved,
-                                    H=H, S=T)[1] for _ in range(2)]
-    same_bits = bool(torch.equal(runs[0], runs[1]))
+    # (at the last batch's 3 x 196 rows, and at 3 x 40 rows)
+    same_bits = True
+    for args, S_ in (((xd, kvd, mem, mvalid), T), ((x3, kv3, mem3, mv3), T3)):
+        out, saved = train_decoder_layer_fwd(*args, pd, H=H, S=S_, rate=RATE,
+                                             seed=SEED, return_saved=True)
+        dout_ = doutd if S_ == T else dout3
+        runs = [train_decoder_layer_bwd(*args, dout_, pd, saved, H=H, S=S_,
+                                        rate=RATE, seed=SEED)[1]
+                for _ in range(2)]
+        same_bits = same_bits and bool(torch.equal(runs[0], runs[1]))
     emit({"phase": "whole_layer_kernels", "worst_rel_err": errs,
           "tol": KERNEL_TOL, "grad_tol": GRAD_TOL,
           "dmem_same_bits_twice": same_bits})

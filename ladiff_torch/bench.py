@@ -141,7 +141,7 @@ _GROUPS = (
     ("fused_ln_qkv (K3)", r"ln_qkv_kernel"),
     ("fused_proj_mlp (K4)", r"proj_mlp_kernel"),
     ("fused_decoder_layer (K2)",
-     r"(?<![a-z_])proj_kernel|attn_tile_kernel|tail_kernel"),
+     r"linear64_kernel|attn_tile_kernel|dec_tail_fwd_kernel"),
     ("library GEMMs", r"gemm|cutlass|nvjet|cublas"),
     ("memcpy and memset", r"[Mm]emcpy|[Mm]emset"),
     ("other ATen kernels (plain attention, linear cross-attention, "

@@ -46,6 +46,13 @@ __device__ __forceinline__ float silu(float v) { return v / (1.f + __expf(-v)); 
 __device__ __forceinline__ float quick_gelu(float v) {
   return v / (1.f + __expf(-1.702f * v));
 }
+// The derivative of the FFN activation at a (act: 0 relu, 1 erf GELU).
+__device__ __forceinline__ float act_grad(float a, int act) {
+  if (!act) return a > 0.f ? 1.f : 0.f;
+  const float cdf = 0.5f * (1.f + erff(a * 0.70710678118654752f));
+  const float pdf = 0.39894228040143268f * expf(-0.5f * a * a);
+  return cdf + a * pdf;
+}
 
 // Asynchronous 16-byte global -> shared copies (bypassing L1, so the small
 // vectors that the epilogues read stay cached there).
@@ -345,21 +352,14 @@ __device__ __forceinline__ void block_ffn(const bf16* xb, int ld, int D,
   block_gemm(hid, ldh, w2, F, F, D, cf, ldc, false, ws);
 }
 
-struct KeepAll {
-  __device__ float operator()(int) const { return 1.f; }
-};
-
 // Online-softmax attention of one query row and one head, by one warp.
 // q: the head's Dh query values (smem, bf16); keys j = 0..nk-1 at
 // k_of(j) / v_of(j) (pointers to the head's Dh values, bf16) with additive
 // bias bias_of(j) (0 or kNegInf).  Writes the Dh context values (bf16).
-// keep_of(j) (0 or 1 / keep) drops the normalised probability of key j:
-// the normaliser sums the undropped terms.
-template <typename KF, typename VF, typename BF, typename PF = KeepAll>
+template <typename KF, typename VF, typename BF>
 __device__ __forceinline__ void warp_attend(const bf16* q, int Dh, int nk,
                                             float scale, KF k_of, VF v_of,
-                                            BF bias_of, bf16* out,
-                                            PF keep_of = PF()) {
+                                            BF bias_of, bf16* out) {
   const int lane = threadIdx.x & 31;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};  // Dh <= 128
   float m = -INFINITY, l = 0.f;
@@ -372,53 +372,17 @@ __device__ __forceinline__ void warp_attend(const bf16* q, int Dh, int nk,
     const float corr = __expf(m - mn);
     const float p = __expf(s - mn);
     l = l * corr + p;
-    const float pv = p * keep_of(j);
     const bf16* vj = v_of(j);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       if (lane + 32 * i < Dh)
-        acc[i] = acc[i] * corr + pv * tof(vj[lane + 32 * i]);
+        acc[i] = acc[i] * corr + p * tof(vj[lane + 32 * i]);
     m = mn;
   }
   const float inv = 1.f / l;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     if (lane + 32 * i < Dh) out[lane + 32 * i] = tob(acc[i] * inv);
-}
-
-// The decoder layers' cross-attention (K2 and kernel 13) for a row block:
-// row `row` (query in qb, row stride ld; global row row0 + row, frame t of
-// sample b = (row0 + row) / T) and head h attend to the sample's L memory
-// rows, k | v at memkv[(b L + j) 2D], valid where mvalid[b L + j] > 0.5;
-// one warp per (row, head), context into out (row stride ld); rows >= nrow
-// get zeros.  With kDrop the probabilities take keep-mask `mask` of `drop`
-// at element ((b H + h) T + t) L + j.
-template <bool kDrop>
-__device__ __forceinline__ void cross_attend_rows(
-    const bf16* qb, int ld, const bf16* memkv, const float* mvalid,
-    size_t row0, int nrow, int T, int L, int D, int H, const Dropout& drop,
-    uint32_t mask, bf16* out) {
-  const int Dh = D / H, lane = threadIdx.x & 31;
-  const float scale = rsqrtf((float)Dh);
-  for (int p = threadIdx.x >> 5; p < kRows * H; p += blockDim.x >> 5) {
-    const int row = p / H, h = p % H;
-    bf16* dst = out + row * ld + h * Dh;
-    if (row >= nrow) {
-      for (int d = lane; d < Dh; d += 32) dst[d] = tob(0.f);
-      continue;
-    }
-    const size_t b = (row0 + row) / T, t = (row0 + row) % T;
-    const bf16* kv = memkv + b * L * 2 * D + h * Dh;
-    const float* mv = mvalid + b * L;
-    const uint64_t e0 = (((uint64_t)b * H + h) * T + t) * L;
-    warp_attend(qb + row * ld + h * Dh, Dh, L, scale,
-                [&](int j) { return kv + (size_t)j * 2 * D; },
-                [&](int j) { return kv + (size_t)j * 2 * D + D; },
-                [&](int j) { return ldgf(mv + j) > 0.5f ? 0.f : kNegInf; },
-                dst, [&](int j) {
-                  return kDrop ? keep_scale(drop, mask, e0 + j) : 1.f;
-                });
-  }
 }
 
 // The dynamic shared memory one kernel has been allowed on each device: the

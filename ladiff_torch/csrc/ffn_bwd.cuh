@@ -1,7 +1,6 @@
-// The backward of the post-norm FFN tail for one 32-row block, shared by
-// kernel 9's backward (train_ffn.cu) and the whole-layer training kernels 12
-// and 13 (train_layer.cu, train_decoder_layer.cu), with the LayerNorm VJP
-// pieces they use around it.  The forward is ffn_tail.cuh's:
+// The backward of the post-norm FFN tail for one 32-row block, kernel 9's
+// (train_ffn.cu), with the LayerNorm VJP pieces it uses.  The forward is
+// ffn_tail.cuh's:
 //   h = LN_a(x);  gd = act(h W1^T + b1) * m_hid;
 //   out = LN_b(h + (gd W2^T + b2) * m_out)
 // Rounding points as in the TPU kernels: h, gd, da and dy are rounded to
@@ -20,9 +19,7 @@ struct FfnBwdLayout {
   size_t xb, dyb, cf, cf2, r, hid, ws, total;
 };
 
-// hid_min: bytes the caller also uses the hidden-row buffer for outside the
-// FFN (kernel 13's cross-attention rows and probabilities).
-inline FfnBwdLayout ffn_bwd_layout(int D, int F, size_t hid_min = 0) {
+inline FfnBwdLayout ffn_bwd_layout(int D, int F) {
   FfnBwdLayout L;
   L.xb = 0;
   L.dyb = align128(L.xb + kRows * (D + 8) * sizeof(bf16));
@@ -30,8 +27,7 @@ inline FfnBwdLayout ffn_bwd_layout(int D, int F, size_t hid_min = 0) {
   L.cf2 = align128(L.cf + kRows * (kChunk + 4) * sizeof(float));
   L.r = align128(L.cf2 + kRows * (kBC + 4) * sizeof(float));
   L.hid = align128(L.r + kRows * D * sizeof(float));
-  const size_t hb = kRows * (F + 8) * sizeof(bf16);
-  L.ws = align128(L.hid + (hb > hid_min ? hb : hid_min));
+  L.ws = align128(L.hid + kRows * (F + 8) * sizeof(bf16));
   L.total = align128(L.ws + kWStageBytes);
   return L;
 }
@@ -106,50 +102,6 @@ __device__ __forceinline__ void block_partials(const float* gw,
     out[c] = s;
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ float act_grad(float a, int act) {
-  if (!act) return a > 0.f ? 1.f : 0.f;
-  const float cdf = 0.5f * (1.f + erff(a * 0.70710678118654752f));
-  const float pdf = 0.39894228040143268f * expf(-0.5f * a * a);
-  return cdf + a * pdf;
-}
-
-// LayerNorm backward of the block's rows, one warp per row, for a LayerNorm
-// whose input rows this block wrote earlier to `in` (f32, row stride D; read
-// with plain loads, which see the block's own writes after a barrier): r
-// (f32, smem) holds the upstream gradient on entry and the input gradient on
-// return; the block's weight and bias gradient sums go to part[0:2D] (cf,
-// nwarps * 2 D floats, is the scratch).  Rows >= nrow give zero.
-__device__ __forceinline__ void block_ln_bwd_rows(const float* in,
-                                                  size_t row0, int nrow,
-                                                  float* r, int D,
-                                                  const bf16* w, float* cf,
-                                                  float* part) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5, per = D / 32;
-  float gw[kPer], gb[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) gw[i] = gb[i] = 0.f;
-  for (int row = warp; row < kRows; row += nwarps) {
-    float v[kPer], d[kPer];
-    const size_t grow = row0 + min(row, nrow - 1);  // a row that exists
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = min(lane + 32 * i, D - 1);
-      if (i < per) {
-        v[i] = row < nrow ? in[grow * D + c] : 0.f;
-        d[i] = row < nrow ? r[row * D + c] : 0.f;
-      }
-    }
-    const float rstd = warp_normalize(v, per, D);
-    warp_ln_bwd(v, d, w, per, D, rstd, gw, gb);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      if (i < per) r[row * D + lane + 32 * i] = d[i];
-  }
-  __syncthreads();
-  block_partials(gw, gb, per, D, cf, part);
 }
 
 struct FfnBwdArgs {

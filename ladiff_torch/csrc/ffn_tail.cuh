@@ -1,8 +1,6 @@
 // The post-norm FFN tail of a transformer layer for one 32-row block, shared
 // by kernel 5 (postnorm_ffn.cu, inference), kernel 9's forward
-// (train_ffn.cu, with dropout) and the whole-layer training kernels 12 and 13
-// (train_layer.cu, train_decoder_layer.cu, whose rows come from shared
-// memory):
+// (train_ffn.cu, with dropout) and kernel 6 (stylized_ffn.cu, its layout):
 //   h = LN1(x);  gd = act(h W1^T + b1) * m1;  out = LN2(h + (gd W2^T + b2) * m2)
 // Rounding points as in the TPU kernels: h and gd are rounded to bf16 before
 // their products, everything else (LayerNorms, bias, activation, residual)
@@ -25,16 +23,13 @@ struct FfnLayout {
   size_t xb, cf, r, hid, ws, total;
 };
 
-// hid_min: bytes the caller also uses the hidden-row buffer for before the
-// FFN runs (kernel 13's cross-attention rows).
-inline FfnLayout ffn_layout(int D, int F, size_t hid_min = 0) {
+inline FfnLayout ffn_layout(int D, int F) {
   FfnLayout L;
   L.xb = 0;
   L.cf = align128(L.xb + kRows * (D + 8) * sizeof(bf16));
   L.r = align128(L.cf + kRows * (kChunk + 4) * sizeof(float));
   L.hid = align128(L.r + kRows * D * sizeof(float));
-  const size_t hb = kRows * (F + 8) * sizeof(bf16);
-  L.ws = align128(L.hid + (hb > hid_min ? hb : hid_min));
+  L.ws = align128(L.hid + kRows * (F + 8) * sizeof(bf16));
   L.total = align128(L.ws + kWStageBytes);
   return L;
 }

@@ -1,4 +1,6 @@
-// Building blocks of kernel 12's tails on 64-row blocks (train_layer.cu).
+// Building blocks of the tails and projections on 64-row blocks: kernel
+// 12's (train_layer.cu), kernel 13's and K2's (dec_tail64.cuh,
+// train_decoder_layer.cu, decoder_layer.cu).
 //
 // A block of 16 warps owns 64 rows: warp w computes the 16-row tile w / 4
 // and one quarter of the output columns (about 80 accumulator registers a
@@ -313,6 +315,497 @@ __device__ __forceinline__ void tail_col_sums(float (&gw)[NT][2],
     for (int r = 0; r < kTRowWarps; ++r) v += buf[r * 2 * D + i];
     out[i] = v;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The post-norm tails' pieces (kernel 12's encoder tails, the decoder tails of
+// K2 and kernel 13 in dec_tail64.cuh).
+
+// Shared memory: xa [64][D + 8] bf16; xb the same (where the tail needs a
+// second row tile); the FFN chunk [64][128 + 8] bf16; the weight ring; the
+// row exchange (2 x 64 x 4 floats); the column exchange (kTRowWarps x 2 D
+// floats, for a backward's LayerNorm gradient sums).
+inline size_t tail_smem_bytes(int D, bool xb, bool colbuf) {
+  const size_t xa = (size_t)kTRows * (D + 8) * sizeof(bf16);
+  return xa * (xb ? 2 : 1) + (size_t)kTRows * (kTFC + 8) * sizeof(bf16) +
+         kTRingBytes + 2 * kTRows * 4 * sizeof(float) +
+         (colbuf ? (size_t)kTRowWarps * 2 * D * sizeof(float) : 0);
+}
+
+struct TailSmem {
+  bf16 *xa, *xb, *hid, *ring;
+  float *red, *colbuf;
+};
+
+__device__ __forceinline__ TailSmem tail_smem(unsigned char* smem, int D,
+                                              bool xb) {
+  TailSmem m;
+  m.xa = reinterpret_cast<bf16*>(smem);
+  m.xb = m.xa + kTRows * (D + 8);
+  m.hid = xb ? m.xb + kTRows * (D + 8) : m.xb;
+  m.ring = m.hid + kTRows * (kTFC + 8);
+  m.red = reinterpret_cast<float*>(m.ring + kTStages * kTStageEl);
+  m.colbuf = m.red + 2 * kTRows * 4;
+  return m;
+}
+
+// Rows row0 .. row0 + 63 of src [M, D] (bf16) into dst [64][D + 8] (zero
+// rows past the end), one cp.async group committed.
+template <int D>
+__device__ __forceinline__ void load_rows64(const bf16* src, size_t row0,
+                                            int nrow, bf16* dst) {
+  for (int i = threadIdx.x; i < kTRows * D / 8; i += kTThreads) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const bool in = r < nrow;
+    cp_async16_zfill(dst + r * (D + 8) + c,
+                     src + (row0 + (in ? r : 0)) * D + c, in);
+  }
+  cp_async_commit();
+}
+
+// v[row][c] = x + (v + bias) * keep-mask `mask` for the block's rows (zero
+// rows past the end): a residual sum from a product in v.
+template <int NT, bool kDrop>
+__device__ __forceinline__ void residual_sum(float (&v)[kTMT][NT][4],
+                                             const bf16* x, const bf16* bias,
+                                             const Dropout& drop,
+                                             uint32_t mask, size_t row0,
+                                             int nrow) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = tcol<NT>(t, nt);
+    const float2 bo = ldg2(bias + c);
+#pragma unroll
+    for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        float* e = &v[mt][nt][2 * hf];
+        if (row >= nrow) {
+          e[0] = e[1] = 0.f;
+          continue;
+        }
+        const size_t idx = (row0 + row) * D + c;
+        float y0 = e[0] + bo.x, y1 = e[1] + bo.y;
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(drop, mask, idx, k0, k1);
+          y0 *= k0;
+          y1 *= k1;
+        }
+        const float2 xv = ldg2(x + idx);
+        e[0] = xv.x + y0;
+        e[1] = xv.y + y1;
+      }
+  }
+}
+
+// v <- v + (y + bias) * keep-mask `mask` (a residual sum onto rows held in
+// registers).
+template <int NT, bool kDrop>
+__device__ __forceinline__ void residual_add(float (&v)[kTMT][NT][4],
+                                             const float (&y)[kTMT][NT][4],
+                                             const bf16* bias,
+                                             const Dropout& drop,
+                                             uint32_t mask, size_t row0) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = tcol<NT>(t, nt);
+    const float2 bv = ldg2(bias + c);
+#pragma unroll
+    for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float y0 = y[mt][nt][2 * hf] + bv.x, y1 = y[mt][nt][2 * hf + 1] + bv.y;
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(drop, mask, (row0 + trow(t, mt, hf)) * D + c, k0, k1);
+          y0 *= k0;
+          y1 *= k1;
+        }
+        v[mt][nt][2 * hf] += y0;
+        v[mt][nt][2 * hf + 1] += y1;
+      }
+  }
+}
+
+// The thread's elements of v as bf16 into dst (row stride ld; may be null)
+// and, for rows < nrow, into the [M, D] scratch g (may be null).
+template <int NT>
+__device__ __forceinline__ void store_rows(const float (&v)[kTMT][NT][4],
+                                           bf16* dst, int ld, bf16* g,
+                                           size_t row0, int nrow) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf), c = tcol<NT>(t, nt);
+        const float v0 = v[mt][nt][2 * hf], v1 = v[mt][nt][2 * hf + 1];
+        if (dst) st2(dst + row * ld + c, v0, v1);
+        if (g && row < nrow) st2(g + (row0 + row) * D + c, v0, v1);
+      }
+}
+
+// The thread's elements of v to the f32 scratch g [M, D] (rows < nrow), and
+// back: plain loads, which see this kernel's own stores of the same thread.
+template <int NT>
+__device__ __forceinline__ void store_rows_f32(const float (&v)[kTMT][NT][4],
+                                               float* g, size_t row0,
+                                               int nrow) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        if (row < nrow)
+          *reinterpret_cast<float2*>(g + (row0 + row) * D + tcol<NT>(t, nt)) =
+              make_float2(v[mt][nt][2 * hf], v[mt][nt][2 * hf + 1]);
+      }
+}
+template <int NT>
+__device__ __forceinline__ void load_rows_f32(float (&v)[kTMT][NT][4],
+                                              const float* g, size_t row0,
+                                              int nrow) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        float2 r = make_float2(0.f, 0.f);
+        if (row < nrow)
+          r = *reinterpret_cast<const float2*>(g + (row0 + row) * D +
+                                               tcol<NT>(t, nt));
+        v[mt][nt][2 * hf] = r.x;
+        v[mt][nt][2 * hf + 1] = r.y;
+      }
+}
+
+// The FFN segment of a post-norm tail: y = (act(h W1^T + b1) * m_hid) W2^T,
+// out = LN(h + (y + b2) * m_out) with the LayerNorm's ln_w, ln_b (act: 0
+// relu, 1 erf GELU; masks mask_hid [M, F], mask_out [M, D]).  A backward
+// reads dout and writes the scratch rows the weight gradients need: the
+// hidden rows gd and their gradient da [M, F], dy [M, D] (gd may be null
+// in a forward).
+struct FfnSeg {
+  const bf16 *w1, *b1, *w2, *b2, *ln_w, *ln_b;
+  const bf16* dout;
+  bf16 *gd, *da, *dy;
+  int F, act;
+  uint32_t mask_hid, mask_out;
+};
+
+// The FFN hidden chunk's epilogue: hid = bf16(act(u + b1) * m_hid) for
+// columns c0 .. c0 + 127, and to the scratch gd for rows < nrow.
+template <bool kDrop>
+__device__ __forceinline__ void hidden_chunk(const float (&u)[kTMT][4][4],
+                                             const FfnSeg& f,
+                                             const Dropout& drop, int c0,
+                                             size_t row0, int nrow,
+                                             bf16* hid, bf16* gd) {
+  const TailLane t = tail_lane();
+  const int F = f.F;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int cc = tcol<4>(t, nt);
+    const float2 bv = ldg2(f.b1 + c0 + cc);
+#pragma unroll
+    for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        const float a0 = u[mt][nt][2 * hf] + bv.x;
+        const float a1 = u[mt][nt][2 * hf + 1] + bv.y;
+        float g0 = f.act ? gelu_erf(a0) : fmaxf(a0, 0.f);
+        float g1 = f.act ? gelu_erf(a1) : fmaxf(a1, 0.f);
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(drop, f.mask_hid, (row0 + row) * F + c0 + cc, k0, k1);
+          g0 *= k0;
+          g1 *= k1;
+        }
+        st2(hid + row * (kTFC + 8) + cc, g0, g1);
+        if (gd && row < nrow) st2(gd + (row0 + row) * F + c0 + cc, g0, g1);
+      }
+  }
+}
+
+// y = sum over the hidden chunks of bf16(act(h W1^T + b1) * m_hid) W2^T,
+// h (bf16) in xa; gd (may be null) takes the hidden rows.
+template <int NT, bool kDrop>
+__device__ __forceinline__ void ffn_forward(float (&y)[kTMT][NT][4],
+                                            const FfnSeg& f,
+                                            const Dropout& drop,
+                                            const TailSmem& m, size_t row0,
+                                            int nrow, bf16* gd) {
+  constexpr int D = 32 * NT;
+  tail_zero(y);
+  for (int c0 = 0; c0 < f.F; c0 += kTFC) {
+    float u[kTMT][4][4];
+    tail_zero(u);
+    tail_gemm<4, false>(u, m.xa, D + 8, f.w1 + (size_t)c0 * D, D, D, m.ring);
+    hidden_chunk<kDrop>(u, f, drop, c0, row0, nrow, m.hid, gd);
+    tail_gemm<NT, false>(y, m.hid, kTFC + 8, f.w2 + c0, f.F, kTFC, m.ring);
+  }
+}
+
+// The FFN segment's backward for the block's rows.  Pre: h holds the
+// segment's input (f32) and xa its bf16 copy.  Runs the FFN forward again
+// (the hidden rows to gd), the closing LayerNorm's backward from dout (its
+// weight and bias gradient sums to part[0:2D]), dy = ds * m_out to xb and
+// the scratch, and the FFN's backward in 128-column hidden chunks (da to
+// the scratch, dh accumulating in registers).  Returns in h the gradient
+// of the segment's input: ds + da W1.
+template <int NT, bool kDrop>
+__device__ __forceinline__ void ffn_ln_bwd(float (&h)[kTMT][NT][4],
+                                           const FfnSeg& f,
+                                           const Dropout& drop,
+                                           const TailSmem& m, size_t row0,
+                                           int nrow, float* part) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+  float mean[kTMT][2], rstd[kTMT][2];
+  float y[kTMT][NT][4];
+  ffn_forward<NT, kDrop>(y, f, drop, m, row0, nrow, f.gd);
+  residual_add<NT, kDrop>(h, y, f.b2, drop, f.mask_out, row0);
+  // the closing LayerNorm's backward: y <- ds from dout
+  tail_normalize(h, D, m.red, mean, rstd);  // h <- xhat
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        float2 d = make_float2(0.f, 0.f);
+        if (row < nrow) d = ldg2(f.dout + (row0 + row) * D + tcol<NT>(t, nt));
+        y[mt][nt][2 * hf] = d.x;
+        y[mt][nt][2 * hf + 1] = d.y;
+      }
+  float gw[NT][2], gb[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) gw[nt][0] = gw[nt][1] = gb[nt][0] = gb[nt][1] = 0.f;
+  tail_ln_bwd(h, y, rstd, f.ln_w, D, m.red, gw, gb);
+  tail_col_sums(gw, gb, D, m.colbuf, part);
+  // dh starts as ds; dy = ds * m_out
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float d0 = y[mt][nt][2 * hf], d1 = y[mt][nt][2 * hf + 1];
+        h[mt][nt][2 * hf] = d0;
+        h[mt][nt][2 * hf + 1] = d1;
+        if (kDrop) {
+          float k0, k1;
+          keep_scale2(drop, f.mask_out,
+                      (row0 + trow(t, mt, hf)) * D + tcol<NT>(t, nt), k0, k1);
+          d0 *= k0;
+          d1 *= k1;
+        }
+        y[mt][nt][2 * hf] = d0;
+        y[mt][nt][2 * hf + 1] = d1;
+      }
+  store_rows(y, m.xb, D + 8, f.dy, row0, nrow);
+  // per hidden chunk: da = (dy W2) * m_hid * act'(h W1^T + b1) to the
+  // scratch, dh += da W1
+  for (int c0 = 0; c0 < f.F; c0 += kTFC) {
+    float u[kTMT][4][4], gv[kTMT][4][4];
+    tail_zero(u);
+    tail_zero(gv);
+    tail_gemm<4, false>(u, m.xa, D + 8, f.w1 + (size_t)c0 * D, D, D, m.ring);
+    tail_gemm<4, true>(gv, m.xb, D + 8, f.w2 + c0, f.F, D, m.ring);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int cc = tcol<4>(t, nt);
+      const float2 bv = ldg2(f.b1 + c0 + cc);
+#pragma unroll
+      for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = trow(t, mt, hf);
+          float d0 = gv[mt][nt][2 * hf] * act_grad(u[mt][nt][2 * hf] + bv.x,
+                                                   f.act);
+          float d1 = gv[mt][nt][2 * hf + 1] *
+                     act_grad(u[mt][nt][2 * hf + 1] + bv.y, f.act);
+          if (kDrop) {
+            float k0, k1;
+            keep_scale2(drop, f.mask_hid, (row0 + row) * f.F + c0 + cc, k0,
+                        k1);
+            d0 *= k0;
+            d1 *= k1;
+          }
+          st2(m.hid + row * (kTFC + 8) + cc, d0, d1);
+          if (row < nrow) st2(f.da + (row0 + row) * f.F + c0 + cc, d0, d1);
+        }
+    }
+    tail_gemm<NT, true>(h, m.hid, kTFC + 8, f.w1 + (size_t)c0 * D, D, kTFC,
+                        m.ring);
+  }
+}
+
+// The self-attention segment's out-projection backward for the block's rows,
+// from d = dr, the gradient of the residual sum x + (ctx W^T + b) * m (f32;
+// consumed): dr to the scratch; dattn = dr * m (keep-mask `mask`) to xa and
+// the scratch; dctx = bf16(dattn W) to xb and the scratch; delta = dctx . ctx
+// per row and head (the attention backward's row term).
+template <int NT, bool kDrop>
+__device__ __forceinline__ void attn_out_bwd(float (&d)[kTMT][NT][4],
+                                             const bf16* ctx,
+                                             const bf16* out_w,
+                                             const Dropout& drop,
+                                             uint32_t mask, bf16* dr,
+                                             bf16* dattn, bf16* dctx,
+                                             float* delta, int H,
+                                             const TailSmem& m, size_t row0,
+                                             int nrow) {
+  constexpr int D = 32 * NT;
+  const TailLane t = tail_lane();
+  store_rows(d, nullptr, 0, dr, row0, nrow);
+  if (kDrop) {
+#pragma unroll
+    for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float k0, k1;
+          keep_scale2(drop, mask,
+                      (row0 + trow(t, mt, hf)) * D + tcol<NT>(t, nt), k0, k1);
+          d[mt][nt][2 * hf] *= k0;
+          d[mt][nt][2 * hf + 1] *= k1;
+        }
+  }
+  store_rows(d, m.xa, D + 8, dattn, row0, nrow);
+  float y[kTMT][NT][4];
+  tail_zero(y);
+  tail_gemm<NT, true>(y, m.xa, D + 8, out_w, D, D, m.ring);
+  store_rows(y, m.xb, D + 8, dctx, row0, nrow);
+  __syncthreads();
+  const int Dh = D / H, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int p = warp; p < nrow * H; p += kTThreads / 32) {
+    const int row = p / H, hh = p % H;
+    float acc = 0.f;
+    for (int c = lane; c < Dh; c += 32)
+      acc += tof(m.xb[row * (D + 8) + hh * Dh + c]) *
+             ldgf(ctx + (row0 + row) * D + hh * Dh + c);
+    acc = warp_sum(acc);
+    if (lane == 0) delta[(row0 + row) * H + hh] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// linear64: a row-block product on the tails' blocks, for the projections
+// of the decoder layers (K2, kernel 13):
+//   kNN false: out = A W^T + bias, W a torch Linear weight [N, K];
+//   kNN true:  out = add + A W, W [K, N] row-major with row stride ldw (a
+//              Linear weight used from its "out" side; add may be null).
+// A [M, K] bf16 with K a multiple of 64 up to 768; one block per 64 rows and
+// 32 NT output columns (blockIdx.y); the A tile stays in shared memory while
+// the weight streams through the ring.
+inline size_t linear64_smem_bytes(int K) {
+  return (size_t)kTRows * (K + 8) * sizeof(bf16) + kTRingBytes;
+}
+
+template <int NT, bool kNN>
+__global__ void __launch_bounds__(kTThreads)
+linear64_kernel(const bf16* A, int M, int K, const bf16* W, int ldw,
+                const bf16* bias, const bf16* add, int N, bf16* out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xa = reinterpret_cast<bf16*>(smem);
+  bf16* ring = xa + kTRows * (K + 8);
+  const TailLane t = tail_lane();
+  const size_t row0 = (size_t)blockIdx.x * kTRows;
+  const int nrow = min(kTRows, (int)(M - row0));
+  const int n0 = blockIdx.y * 32 * NT;
+  const int kv = K / 8;
+  for (int i = threadIdx.x; i < kTRows * kv; i += kTThreads) {
+    const int r = i / kv, c = (i % kv) * 8;
+    const bool in = r < nrow;
+    cp_async16_zfill(xa + r * (K + 8) + c,
+                     A + (row0 + (in ? r : 0)) * K + c, in);
+  }
+  cp_async_commit();
+  float acc[kTMT][NT][4];
+  tail_zero(acc);
+  if (kNN)
+    tail_gemm<NT, true>(acc, xa, K + 8, W + n0, ldw, K, ring);
+  else
+    tail_gemm<NT, false>(acc, xa, K + 8, W + (size_t)n0 * ldw, ldw, K, ring);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = n0 + tcol<NT>(t, nt);
+    const float2 bv = (!kNN && bias) ? ldg2(bias + c) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = trow(t, mt, hf);
+        if (row >= nrow) continue;
+        const size_t o = (row0 + row) * N + c;
+        float v0 = acc[mt][nt][2 * hf] + bv.x, v1 = acc[mt][nt][2 * hf + 1] + bv.y;
+        if (kNN && add) {
+          const float2 av = ldg2(add + o);
+          v0 += av.x;
+          v1 += av.y;
+        }
+        st2(out + o, v0, v1);
+      }
+  }
+}
+
+// Internal linkage: each library keeps its own shared-memory grants (see
+// attn_tile.cuh).
+template <int NT, bool kNN>
+static inline cudaError_t linear64_nt(const bf16* A, int M, int K,
+                                      const bf16* W, int ldw,
+                                      const bf16* bias, const bf16* add,
+                                      int N, bf16* out, cudaStream_t stream) {
+  static SmemGrant grant;
+  const size_t bytes = linear64_smem_bytes(K);
+  if (!allow_smem(linear64_kernel<NT, kNN>, bytes, grant))
+    return cudaErrorInvalidValue;
+  linear64_kernel<NT, kNN>
+      <<<dim3((M + kTRows - 1) / kTRows, N / (32 * NT)), kTThreads, bytes,
+         stream>>>(A, M, K, W, ldw, bias, add, N, out);
+  return cudaGetLastError();
+}
+
+// out [M, N] = A W^T + bias (kNN false) or add + A W (kNN true); N a
+// multiple of 64, each block taking the widest of 256, 192, 128 or 64
+// columns that divides N.
+template <bool kNN>
+static inline cudaError_t launch_linear64(const bf16* A, int M, int K,
+                                          const bf16* W, int ldw,
+                                          const bf16* bias, const bf16* add,
+                                          int N, bf16* out,
+                                          cudaStream_t stream) {
+  if (M < 1 || K % kTKT || K < kTKT || K > 768 || N % 64 || N < 64)
+    return cudaErrorInvalidValue;
+  if (N % 256 == 0)
+    return linear64_nt<8, kNN>(A, M, K, W, ldw, bias, add, N, out, stream);
+  if (N % 192 == 0)
+    return linear64_nt<6, kNN>(A, M, K, W, ldw, bias, add, N, out, stream);
+  if (N % 128 == 0)
+    return linear64_nt<4, kNN>(A, M, K, W, ldw, bias, add, N, out, stream);
+  return linear64_nt<2, kNN>(A, M, K, W, ldw, bias, add, N, out, stream);
 }
 
 }  // namespace ladiff

@@ -1,7 +1,8 @@
 // Kernel 8's launches (the self-attention segment of a transformer layer in
 // training), shared by train_attention.cu and the whole-layer training
 // kernels 12 and 13 (train_layer.cu, train_decoder_layer.cu), which run the
-// projections and the tiled attention forward and backward through them.
+// tiled attention forward and backward through them (and kernel 12 its
+// projections).
 // See ladiff_torch/ops/train_attention.py for the math and the dropout
 // contract (mask 0: the probabilities, element ((b H + h) S + i) S + j).
 //   linear_kernel      out = A W^T + b
@@ -26,13 +27,6 @@ using namespace ladiff;
 namespace {
 
 constexpr int kMaxDh = 64;  // head widths 16, 32, 48, 64
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 inline size_t row_gemm_bytes(int K) {
   return align128(kRows * (K + 8) * sizeof(bf16)) +
@@ -320,83 +314,6 @@ inline bool shape_ok(int B, int S, int D, int H) {
   if (B < 1 || S < 1 || H < 1 || D % 64 || D > kChunk || D % H) return false;
   const int Dh = D / H;
   return Dh % 16 == 0 && Dh >= 16 && Dh <= kMaxDh;
-}
-
-// The whole-layer kernels' row-block pieces around the attention (kernels
-// 12 and 13; 256 threads, 32 rows, smem buffers of the caller's layout).
-
-// r[32 x D] (smem f32) = x + (ctx W^T + b) * keep-mask mask_id for the
-// block's rows, zero rows past the end; uses xb, cf, ws.
-template <bool kDrop>
-__device__ __forceinline__ void out_proj_rows(const bf16* ctx, const bf16* x,
-                                              const bf16* W, const bf16* bias,
-                                              const Dropout& drop,
-                                              uint32_t mask_id, int D,
-                                              bf16* xb, float* cf, float* r,
-                                              bf16* ws, size_t row0,
-                                              int nrow) {
-  const int ld = D + 8, ldc = kChunk + 4;
-  load_rows(ctx, row0, nrow, D, xb, ld);
-  __syncthreads();
-  block_gemm(xb, ld, W, D, D, D, cf, ldc, false, ws);
-  for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    float v = cf[row * ldc + c] + ldgf(bias + c);
-    if (kDrop) v *= keep_scale(drop, mask_id, (row0 + row) * D + c);
-    r[i] = row < nrow ? ldgf(x + row0 * D + i) + v : 0.f;
-  }
-  __syncthreads();
-}
-
-// dctx = bf16(dattn Wout) for the block's rows (dattn in xb), to scratch
-// and dyb; delta[row, h] = dctx . ctx over the head's columns.
-__device__ __forceinline__ void dctx_rows(const bf16* xb, bf16* dyb,
-                                          float* cf, bf16* ws,
-                                          const bf16* out_w,
-                                          const bf16* ctx, bf16* dctx,
-                                          float* delta, int D, int H,
-                                          size_t row0, int nrow) {
-  const int ld = D + 8, ldc = kChunk + 4, Dh = D / H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  block_gemm_nn(xb, ld, out_w, D, D, D, cf, ldc, false, ws);
-  for (int i = tid; i < kRows * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    const bf16 b = tob(cf[row * ldc + c]);
-    dyb[row * ld + c] = b;
-    if (row < nrow) dctx[(row0 + row) * D + c] = b;
-  }
-  __syncthreads();
-  for (int p = warp; p < nrow * H; p += blockDim.x >> 5) {
-    const int row = p / H, h = p % H;
-    float acc = 0.f;
-    for (int d = lane; d < Dh; d += 32)
-      acc += tof(dyb[row * ld + h * Dh + d]) *
-             ldgf(ctx + (row0 + row) * D + h * Dh + d);
-    acc = warp_sum(acc);
-    if (lane == 0) delta[(row0 + row) * H + h] = acc;
-  }
-  __syncthreads();
-}
-
-// dattn = bf16(dr * m_res) into xb and scratch, and dr (bf16) to scratch,
-// from r = dr (f32) for the block's rows: the residual dropout's backward.
-template <bool kDrop>
-__device__ __forceinline__ void dattn_rows(const float* r, bf16* xb,
-                                           bf16* dr, bf16* dattn, int D,
-                                           const Dropout& drop,
-                                           uint32_t mask_id, size_t row0,
-                                           int nrow) {
-  const int ld = D + 8;
-  for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    float v = row < nrow ? r[i] : 0.f;
-    if (row < nrow) dr[(row0 + row) * D + c] = tob(v);
-    if (kDrop) v *= keep_scale(drop, mask_id, (row0 + row) * D + c);
-    const bf16 b = tob(v);
-    xb[row * ld + c] = b;
-    if (row < nrow) dattn[(row0 + row) * D + c] = b;
-  }
-  __syncthreads();
 }
 
 }  // namespace

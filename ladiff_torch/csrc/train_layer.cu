@@ -32,7 +32,6 @@
 // 64-row blocks of 16 warps with mma.sync register accumulators and a
 // three-stage cp.async weight ring, so each byte of weight serves 64 rows;
 // the LayerNorms reduce over the accumulator registers.
-#include "ffn_bwd.cuh"
 #include "tail64.cuh"
 #include "train_attn.cuh"
 
@@ -42,198 +41,17 @@ constexpr uint32_t kMaskRes = 1u, kMaskHid = 2u, kMaskOut = 3u;
 
 struct EncTail {
   const bf16 *x, *ctx;
-  const bf16 *out_w, *out_b, *ln1_w, *ln1_b, *w1, *b1, *w2, *b2, *ln2_w,
-      *ln2_b;
-  const bf16* dout;
+  const bf16 *out_w, *out_b, *ln1_w, *ln1_b;
+  FfnSeg ffn;  // w1, b1, w2, b2, ln2 (and the backward's dout, gd, da, dy)
   bf16* out;
-  // backward scratch: r (f32), h, gd, da, dy, dr, dattn, dctx (bf16),
-  // delta [M, H] and the LayerNorm partials [blocks, 4 D] (f32)
+  // backward scratch: r (f32), h, dr, dattn, dctx (bf16), delta [M, H] and
+  // the LayerNorm partials [blocks, 4 D] (f32)
   float* r;
-  bf16 *h, *gd, *da, *dy, *dr, *dattn, *dctx;
+  bf16 *h, *dr, *dattn, *dctx;
   float *delta, *lnpart;
-  int M, D, H, F, act;
+  int M, D, H;
   Dropout drop;
 };
-
-// The tails' shared memory: xa, xb [64][D + 8] bf16 (xb: the backward
-// only), the FFN chunk [64][128 + 8] bf16, the weight ring, the row
-// exchange (2 x 64 x 4 floats) and the column exchange (kTRowWarps x 2 D
-// floats).
-inline size_t tail_smem_bytes(int D, bool bwd) {
-  const size_t xa = (size_t)kTRows * (D + 8) * sizeof(bf16);
-  return xa * (bwd ? 2 : 1) + (size_t)kTRows * (kTFC + 8) * sizeof(bf16) +
-         kTRingBytes + 2 * kTRows * 4 * sizeof(float) +
-         (bwd ? (size_t)kTRowWarps * 2 * D * sizeof(float) : 0);
-}
-
-struct TailSmem {
-  bf16 *xa, *xb, *hid, *ring;
-  float *red, *colbuf;
-};
-
-__device__ __forceinline__ TailSmem tail_smem(unsigned char* smem, int D,
-                                              bool bwd) {
-  TailSmem m;
-  m.xa = reinterpret_cast<bf16*>(smem);
-  m.xb = m.xa + kTRows * (D + 8);
-  m.hid = bwd ? m.xb + kTRows * (D + 8) : m.xb;
-  m.ring = m.hid + kTRows * (kTFC + 8);
-  m.red = reinterpret_cast<float*>(m.ring + kTStages * kTStageEl);
-  m.colbuf = m.red + 2 * kTRows * 4;
-  return m;
-}
-
-// ctx rows row0 .. row0 + 63 into xa (zero rows past the end), committed.
-template <int D>
-__device__ __forceinline__ void load_ctx(const bf16* ctx, size_t row0,
-                                         int nrow, bf16* xa) {
-  for (int i = threadIdx.x; i < kTRows * D / 8; i += kTThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const bool in = r < nrow;
-    cp_async16_zfill(xa + r * (D + 8) + c,
-                     ctx + (row0 + (in ? r : 0)) * D + c, in);
-  }
-  cp_async_commit();
-}
-
-// v[row][c] = x + (v + out_b) * m_res for the block's rows (zero rows past
-// the end): the attention segment's residual sum from ctx Wout^T.
-template <int NT, bool kDrop>
-__device__ __forceinline__ void residual_sum(float (&v)[kTMT][NT][4],
-                                             const EncTail& a, size_t row0,
-                                             int nrow) {
-  constexpr int D = 32 * NT;
-  const TailLane t = tail_lane();
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = tcol<NT>(t, nt);
-    const float2 bo = ldg2(a.out_b + c);
-#pragma unroll
-    for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = trow(t, mt, hf);
-        float* e = &v[mt][nt][2 * hf];
-        if (row >= nrow) {
-          e[0] = e[1] = 0.f;
-          continue;
-        }
-        const size_t idx = (row0 + row) * D + c;
-        float y0 = e[0] + bo.x, y1 = e[1] + bo.y;
-        if (kDrop) {
-          float k0, k1;
-          keep_scale2(a.drop, kMaskRes, idx, k0, k1);
-          y0 *= k0;
-          y1 *= k1;
-        }
-        const float2 xv = ldg2(a.x + idx);
-        e[0] = xv.x + y0;
-        e[1] = xv.y + y1;
-      }
-  }
-}
-
-// The thread's elements of v as bf16 into dst (row stride ld) and, for
-// rows < nrow, into the [M, D] scratch g (may be null).
-template <int NT>
-__device__ __forceinline__ void store_rows(const float (&v)[kTMT][NT][4],
-                                           bf16* dst, int ld, bf16* g,
-                                           size_t row0, int nrow) {
-  constexpr int D = 32 * NT;
-  const TailLane t = tail_lane();
-#pragma unroll
-  for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = trow(t, mt, hf), c = tcol<NT>(t, nt);
-        const float v0 = v[mt][nt][2 * hf], v1 = v[mt][nt][2 * hf + 1];
-        if (dst) st2(dst + row * ld + c, v0, v1);
-        if (g && row < nrow) st2(g + (row0 + row) * D + c, v0, v1);
-      }
-}
-
-// The FFN hidden chunk's epilogue: hid = bf16(act(u + b1) * m_hid) for
-// columns c0 .. c0 + 127, and to the scratch gd for rows < nrow.
-template <bool kDrop>
-__device__ __forceinline__ void hidden_chunk(const float (&u)[kTMT][4][4],
-                                             const EncTail& a, int c0,
-                                             size_t row0, int nrow,
-                                             bf16* hid, bf16* gd) {
-  const TailLane t = tail_lane();
-  const int F = a.F;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int cc = tcol<4>(t, nt);
-    const float2 bv = ldg2(a.b1 + c0 + cc);
-#pragma unroll
-    for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = trow(t, mt, hf);
-        const float a0 = u[mt][nt][2 * hf] + bv.x;
-        const float a1 = u[mt][nt][2 * hf + 1] + bv.y;
-        float g0 = a.act ? gelu_erf(a0) : fmaxf(a0, 0.f);
-        float g1 = a.act ? gelu_erf(a1) : fmaxf(a1, 0.f);
-        if (kDrop) {
-          float k0, k1;
-          keep_scale2(a.drop, kMaskHid, (row0 + row) * F + c0 + cc, k0, k1);
-          g0 *= k0;
-          g1 *= k1;
-        }
-        st2(hid + row * (kTFC + 8) + cc, g0, g1);
-        if (gd && row < nrow) st2(gd + (row0 + row) * F + c0 + cc, g0, g1);
-      }
-  }
-}
-
-// y = sum over the hidden chunks of bf16(act(h W1^T + b1) * m_hid) W2^T,
-// h (bf16) in xa; gd (may be null) takes the hidden rows.
-template <int NT, bool kDrop>
-__device__ __forceinline__ void ffn_forward(float (&y)[kTMT][NT][4],
-                                            const EncTail& a,
-                                            const TailSmem& m, size_t row0,
-                                            int nrow, bf16* gd) {
-  constexpr int D = 32 * NT;
-  tail_zero(y);
-  for (int c0 = 0; c0 < a.F; c0 += kTFC) {
-    float u[kTMT][4][4];
-    tail_zero(u);
-    tail_gemm<4, false>(u, m.xa, D + 8, a.w1 + (size_t)c0 * D, D, D, m.ring);
-    hidden_chunk<kDrop>(u, a, c0, row0, nrow, m.hid, gd);
-    tail_gemm<NT, false>(y, m.hid, kTFC + 8, a.w2 + c0, a.F, kTFC, m.ring);
-  }
-}
-
-// v <- v + (y + b2) * m_out (the FFN's residual sum)
-template <int NT, bool kDrop>
-__device__ __forceinline__ void ffn_residual(float (&v)[kTMT][NT][4],
-                                             const float (&y)[kTMT][NT][4],
-                                             const EncTail& a, size_t row0) {
-  constexpr int D = 32 * NT;
-  const TailLane t = tail_lane();
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = tcol<NT>(t, nt);
-    const float2 bv = ldg2(a.b2 + c);
-#pragma unroll
-    for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float y0 = y[mt][nt][2 * hf] + bv.x, y1 = y[mt][nt][2 * hf + 1] + bv.y;
-        if (kDrop) {
-          float k0, k1;
-          keep_scale2(a.drop, kMaskOut,
-                      (row0 + trow(t, mt, hf)) * D + c, k0, k1);
-          y0 *= k0;
-          y1 *= k1;
-        }
-        v[mt][nt][2 * hf] += y0;
-        v[mt][nt][2 * hf + 1] += y1;
-      }
-  }
-}
 
 // Per 64-row block, from ctx to the layer's output: out-projection,
 // residual dropout (mask 1), LN1, the FFN in 128-column hidden chunks
@@ -248,19 +66,19 @@ enc_tail_fwd_kernel(EncTail a) {
   const int nrow = min(kTRows, (int)(a.M - row0));
   float mean[kTMT][2], rstd[kTMT][2];
 
-  load_ctx<D>(a.ctx, row0, nrow, m.xa);
+  load_rows64<D>(a.ctx, row0, nrow, m.xa);
   float h[kTMT][NT][4];
   tail_zero(h);
   tail_gemm<NT, false>(h, m.xa, D + 8, a.out_w, D, D, m.ring);
-  residual_sum<NT, kDrop>(h, a, row0, nrow);
+  residual_sum<NT, kDrop>(h, a.x, a.out_b, a.drop, kMaskRes, row0, nrow);
   tail_normalize(h, D, m.red, mean, rstd);
   tail_affine(h, a.ln1_w, a.ln1_b);
   store_rows(h, m.xa, D + 8, nullptr, row0, nrow);
   float y[kTMT][NT][4];
-  ffn_forward<NT, kDrop>(y, a, m, row0, nrow, nullptr);
-  ffn_residual<NT, kDrop>(h, y, a, row0);
+  ffn_forward<NT, kDrop>(y, a.ffn, a.drop, m, row0, nrow, nullptr);
+  residual_add<NT, kDrop>(h, y, a.ffn.b2, a.drop, kMaskOut, row0);
   tail_normalize(h, D, m.red, mean, rstd);
-  tail_affine(h, a.ln2_w, a.ln2_b);
+  tail_affine(h, a.ffn.ln_w, a.ffn.ln_b);
   store_rows(h, nullptr, 0, a.out, row0, nrow);
 }
 
@@ -277,171 +95,49 @@ enc_tail_bwd_kernel(EncTail a) {
   constexpr int D = 32 * NT;
   extern __shared__ __align__(128) unsigned char smem[];
   const TailSmem m = tail_smem(smem, D, true);
-  const TailLane t = tail_lane();
   const size_t row0 = (size_t)blockIdx.x * kTRows;
   const int nrow = min(kTRows, (int)(a.M - row0));
   float* lnpart = a.lnpart + (size_t)blockIdx.x * 4 * D;
-  float mean1[kTMT][2], rstd1[kTMT][2], mean2[kTMT][2], rstd2[kTMT][2];
+  float mean1[kTMT][2], rstd1[kTMT][2];
 
   // r = x + drop(ctx Wout^T + bout): kept (f32) for LN1's backward
-  load_ctx<D>(a.ctx, row0, nrow, m.xa);
+  load_rows64<D>(a.ctx, row0, nrow, m.xa);
   float h[kTMT][NT][4];
   tail_zero(h);
   tail_gemm<NT, false>(h, m.xa, D + 8, a.out_w, D, D, m.ring);
-  residual_sum<NT, kDrop>(h, a, row0, nrow);
-#pragma unroll
-  for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = trow(t, mt, hf);
-        if (row < nrow)
-          *reinterpret_cast<float2*>(a.r + (row0 + row) * D +
-                                     tcol<NT>(t, nt)) =
-              make_float2(h[mt][nt][2 * hf], h[mt][nt][2 * hf + 1]);
-      }
+  residual_sum<NT, kDrop>(h, a.x, a.out_b, a.drop, kMaskRes, row0, nrow);
+  store_rows_f32(h, a.r, row0, nrow);
   // h = LN1(r): bf16 in xa and the scratch (dW1 = da^T h)
   tail_normalize(h, D, m.red, mean1, rstd1);
   tail_affine(h, a.ln1_w, a.ln1_b);
   store_rows(h, m.xa, D + 8, a.h, row0, nrow);
-  // the FFN again (gd to the scratch), s = h + y * m_out
-  float y[kTMT][NT][4];
-  ffn_forward<NT, kDrop>(y, a, m, row0, nrow, a.gd);
-  ffn_residual<NT, kDrop>(h, y, a, row0);
-  // LN2's backward: y <- ds from dout; dy = ds * m_out to xb and scratch
-  tail_normalize(h, D, m.red, mean2, rstd2);  // h <- xhat2
-#pragma unroll
-  for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = trow(t, mt, hf);
-        float2 d = make_float2(0.f, 0.f);
-        if (row < nrow) d = ldg2(a.dout + (row0 + row) * D + tcol<NT>(t, nt));
-        y[mt][nt][2 * hf] = d.x;
-        y[mt][nt][2 * hf + 1] = d.y;
-      }
-  float gw[NT][2], gb[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) gw[nt][0] = gw[nt][1] = gb[nt][0] = gb[nt][1] = 0.f;
-  tail_ln_bwd(h, y, rstd2, a.ln2_w, D, m.red, gw, gb);
-  tail_col_sums(gw, gb, D, m.colbuf, lnpart + 2 * D);
-  // dh starts as ds; dy = ds * m_out
-#pragma unroll
-  for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float d0 = y[mt][nt][2 * hf], d1 = y[mt][nt][2 * hf + 1];
-        h[mt][nt][2 * hf] = d0;
-        h[mt][nt][2 * hf + 1] = d1;
-        if (kDrop) {
-          float k0, k1;
-          keep_scale2(a.drop, kMaskOut,
-                      (row0 + trow(t, mt, hf)) * D + tcol<NT>(t, nt), k0, k1);
-          d0 *= k0;
-          d1 *= k1;
-        }
-        y[mt][nt][2 * hf] = d0;
-        y[mt][nt][2 * hf + 1] = d1;
-      }
-  store_rows(y, m.xb, D + 8, a.dy, row0, nrow);
-  // per hidden chunk: da = (dy W2) * m_hid * act'(h W1^T + b1) to the
-  // scratch, dh += da W1
-  for (int c0 = 0; c0 < a.F; c0 += kTFC) {
-    float u[kTMT][4][4], gv[kTMT][4][4];
-    tail_zero(u);
-    tail_zero(gv);
-    tail_gemm<4, false>(u, m.xa, D + 8, a.w1 + (size_t)c0 * D, D, D, m.ring);
-    tail_gemm<4, true>(gv, m.xb, D + 8, a.w2 + c0, a.F, D, m.ring);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int cc = tcol<4>(t, nt);
-      const float2 bv = ldg2(a.b1 + c0 + cc);
-#pragma unroll
-      for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = trow(t, mt, hf);
-          float d0 = gv[mt][nt][2 * hf] * act_grad(u[mt][nt][2 * hf] + bv.x,
-                                                   a.act);
-          float d1 = gv[mt][nt][2 * hf + 1] *
-                     act_grad(u[mt][nt][2 * hf + 1] + bv.y, a.act);
-          if (kDrop) {
-            float k0, k1;
-            keep_scale2(a.drop, kMaskHid, (row0 + row) * a.F + c0 + cc, k0,
-                        k1);
-            d0 *= k0;
-            d1 *= k1;
-          }
-          st2(m.hid + row * (kTFC + 8) + cc, d0, d1);
-          if (row < nrow) st2(a.da + (row0 + row) * a.F + c0 + cc, d0, d1);
-        }
-    }
-    tail_gemm<NT, true>(h, m.hid, kTFC + 8, a.w1 + (size_t)c0 * D, D, kTFC,
-                        m.ring);
-  }
+  // the FFN and LN2 again, their backward: h <- the gradient of LN1's output
+  ffn_ln_bwd<NT, kDrop>(h, a.ffn, a.drop, m, row0, nrow, lnpart + 2 * D);
   // LN1's backward from the kept r: h <- dr
+  float y[kTMT][NT][4];
+  load_rows_f32(y, a.r, row0, nrow);
 #pragma unroll
   for (int mt = 0; mt < kTMT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = trow(t, mt, hf);
-        float2 r = make_float2(0.f, 0.f);
-        if (row < nrow)
-          r = *reinterpret_cast<const float2*>(a.r + (row0 + row) * D +
-                                               tcol<NT>(t, nt));
-        y[mt][nt][2 * hf] = (r.x - mean1[mt][hf]) * rstd1[mt][hf];
-        y[mt][nt][2 * hf + 1] = (r.y - mean1[mt][hf]) * rstd1[mt][hf];
-      }
+      for (int e = 0; e < 4; ++e)
+        y[mt][nt][e] = (y[mt][nt][e] - mean1[mt][e >> 1]) * rstd1[mt][e >> 1];
+  float gw[NT][2], gb[NT][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) gw[nt][0] = gw[nt][1] = gb[nt][0] = gb[nt][1] = 0.f;
   tail_ln_bwd(y, h, rstd1, a.ln1_w, D, m.red, gw, gb);
   tail_col_sums(gw, gb, D, m.colbuf, lnpart);
-  // dr to the scratch; dattn = dr * m_res to xa and the scratch
-  store_rows(h, nullptr, 0, a.dr, row0, nrow);
-#pragma unroll
-  for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        if (kDrop) {
-          float k0, k1;
-          keep_scale2(a.drop, kMaskRes,
-                      (row0 + trow(t, mt, hf)) * D + tcol<NT>(t, nt), k0, k1);
-          h[mt][nt][2 * hf] *= k0;
-          h[mt][nt][2 * hf + 1] *= k1;
-        }
-      }
-  store_rows(h, m.xa, D + 8, a.dattn, row0, nrow);
-  // dctx = bf16(dattn Wout) to xb and the scratch; delta = dctx . ctx
-  tail_zero(y);
-  tail_gemm<NT, true>(y, m.xa, D + 8, a.out_w, D, D, m.ring);
-  store_rows(y, m.xb, D + 8, a.dctx, row0, nrow);
-  __syncthreads();
-  const int Dh = D / a.H, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < nrow * a.H; p += kTThreads / 32) {
-    const int row = p / a.H, hh = p % a.H;
-    float acc = 0.f;
-    for (int d = lane; d < Dh; d += 32)
-      acc += tof(m.xb[row * (D + 8) + hh * Dh + d]) *
-             ldgf(a.ctx + (row0 + row) * D + hh * Dh + d);
-    acc = warp_sum(acc);
-    if (lane == 0) a.delta[(row0 + row) * a.H + hh] = acc;
-  }
+  // dr, dattn, dctx and delta
+  attn_out_bwd<NT, kDrop>(h, a.ctx, a.out_w, a.drop, kMaskRes, a.dr, a.dattn,
+                          a.dctx, a.delta, a.H, m, row0, nrow);
 }
 
 template <int NT>
 static inline cudaError_t tail_fwd_d(const EncTail& a, bool on,
                                      cudaStream_t stream) {
   static SmemGrant g0, g1;
-  const size_t bytes = tail_smem_bytes(32 * NT, false);
+  const size_t bytes = tail_smem_bytes(32 * NT, false, false);
   const int blocks = (a.M + kTRows - 1) / kTRows;
   if (on) {
     if (!allow_smem(enc_tail_fwd_kernel<NT, true>, bytes, g1))
@@ -459,7 +155,7 @@ template <int NT>
 static inline cudaError_t tail_bwd_d(const EncTail& a, bool on,
                                      cudaStream_t stream) {
   static SmemGrant g0, g1;
-  const size_t bytes = tail_smem_bytes(32 * NT, true);
+  const size_t bytes = tail_smem_bytes(32 * NT, true, true);
   const int blocks = (a.M + kTRows - 1) / kTRows;
   if (on) {
     if (!allow_smem(enc_tail_bwd_kernel<NT, true>, bytes, g1))
@@ -485,8 +181,17 @@ static inline cudaError_t launch_tail(const EncTail& a, bool bwd, bool on,
   }
 }
 
+// The 12 parameters (the host's order) into a.
+void fill_params(EncTail& a, const bf16** q, int F, int act) {
+  a.out_w = q[2]; a.out_b = q[3]; a.ln1_w = q[4]; a.ln1_b = q[5];
+  a.ffn.w1 = q[6]; a.ffn.b1 = q[7]; a.ffn.w2 = q[8]; a.ffn.b2 = q[9];
+  a.ffn.ln_w = q[10]; a.ffn.ln_b = q[11];
+  a.ffn.F = F; a.ffn.act = act;
+  a.ffn.mask_hid = kMaskHid; a.ffn.mask_out = kMaskOut;
+}
+
 inline bool layer_shape_ok(int B, int S, int D, int H, int F) {
-  return shape_ok(B, S, D, H) && F % kBC == 0 && F >= kBC && F <= 1024;
+  return shape_ok(B, S, D, H) && F % kTFC == 0 && F >= kTFC && F <= 1024;
 }
 
 }  // namespace
@@ -515,11 +220,9 @@ extern "C" int train_layer_forward(const void** p, const int* n,
   float* lse = reinterpret_cast<float*>(const_cast<void*>(p[16]));
   EncTail a = {};
   a.x = x; a.ctx = ctx;
-  a.out_w = q[2]; a.out_b = q[3]; a.ln1_w = q[4]; a.ln1_b = q[5];
-  a.w1 = q[6]; a.b1 = q[7]; a.w2 = q[8]; a.b2 = q[9];
-  a.ln2_w = q[10]; a.ln2_b = q[11];
+  fill_params(a, q, F, n[5]);
   a.out = const_cast<bf16*>(w[17]);
-  a.M = M; a.D = D; a.H = H; a.F = F; a.act = n[5];
+  a.M = M; a.D = D; a.H = H;
   a.drop = drop;
 
   const size_t rb = row_gemm_bytes(D);
@@ -563,12 +266,12 @@ extern "C" int train_layer_backward(const void** p, const int* n,
   const bf16 *qkv = w[15], *ctx = w[16];
   const float* lse = fptr(17);
   EncTail a = {};
-  a.x = x; a.ctx = ctx; a.dout = w[2];
-  a.out_w = q[2]; a.out_b = q[3]; a.ln1_w = q[4]; a.ln1_b = q[5];
-  a.w1 = q[6]; a.b1 = q[7]; a.w2 = q[8]; a.b2 = q[9];
-  a.ln2_w = q[10]; a.ln2_b = q[11];
+  a.x = x; a.ctx = ctx;
+  fill_params(a, q, F, n[5]);
+  a.ffn.dout = w[2];
   a.r = fptr(18);
-  a.h = bptr(19); a.gd = bptr(20); a.da = bptr(21); a.dy = bptr(22);
+  a.h = bptr(19); a.ffn.gd = bptr(20); a.ffn.da = bptr(21);
+  a.ffn.dy = bptr(22);
   a.dr = bptr(23); a.dattn = bptr(24); a.dctx = bptr(25);
   a.delta = fptr(26);
   bf16* dqkv = bptr(27);
@@ -577,7 +280,7 @@ extern "C" int train_layer_backward(const void** p, const int* n,
   bf16* dx = bptr(30);
   float* g[12];
   for (int i = 0; i < 12; ++i) g[i] = fptr(31 + i);
-  a.M = M; a.D = D; a.H = H; a.F = F; a.act = n[5];
+  a.M = M; a.D = D; a.H = H;
   a.drop = drop;
 
   const size_t rb3 = row_gemm_bytes(3 * D);
@@ -607,13 +310,13 @@ extern "C" int train_layer_backward(const void** p, const int* n,
                          stream)) != cudaSuccess) return err;
   if ((err = bias_grad(a.dattn, D, D, M, split, wpart, g[3], stream)) !=
       cudaSuccess) return err;
-  if ((err = weight_grad(a.da, F, F, a.h, D, D, M, split, wpart, g[6],
+  if ((err = weight_grad(a.ffn.da, F, F, a.h, D, D, M, split, wpart, g[6],
                          stream)) != cudaSuccess) return err;
-  if ((err = bias_grad(a.da, F, F, M, split, wpart, g[7], stream)) !=
+  if ((err = bias_grad(a.ffn.da, F, F, M, split, wpart, g[7], stream)) !=
       cudaSuccess) return err;
-  if ((err = weight_grad(a.dy, D, D, a.gd, F, F, M, split, wpart, g[8],
+  if ((err = weight_grad(a.ffn.dy, D, D, a.ffn.gd, F, F, M, split, wpart, g[8],
                          stream)) != cudaSuccess) return err;
-  return bias_grad(a.dy, D, D, M, split, wpart, g[9], stream);
+  return bias_grad(a.ffn.dy, D, D, M, split, wpart, g[9], stream);
 }
 
 // ptrs: pm [B, H, S, S], rm [M, D], m1 [M, F], m2 [M, D] (f32): the four

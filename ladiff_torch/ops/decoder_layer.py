@@ -7,23 +7,30 @@ hot path.  Replaces ``ladiff_tpu/ops/pallas_decoder_layer.py``
     out = LN3(h + W2 act(W1 h + b1) + b2)
 
 What bounds it on the H100: at batch 256 x 196 frames it is ~100 GFLOP of
-bf16 products against ~26 MB of activations, far above the 295 FLOP/byte
-ridge, so the tensor cores bound it.  The TPU kernel kept a [196, 196]
-score block per head in VMEM; on Hopper that is 154 KB of f32 per head, so
-the CUDA version (``csrc/decoder_layer.cu``) is a fixed sequence of four
-launches behind this one wrapper:
+bf16 products against ~26 MB of activations and 1.4 MB of weights, far
+above the 295 FLOP/byte ridge, so the tensor cores bound it, and with them
+the weight bytes each row block streams from L2.  The TPU kernel kept a
+[196, 196] score block per head in VMEM; on Hopper that is 154 KB of f32 per
+head, so the CUDA version (``csrc/decoder_layer.cu``) is a fixed sequence of
+four launches behind this one wrapper:
 
-  1. q/k/v projection of the frame rows (row-block GEMM, WMMA bf16, f32
-     accumulation) and 2. the k/v projection of the latent memory rows;
-  3. self-attention as a query-tile x key-tile online softmax (64 x 64
-     tiles, one block per sample, head and query tile), so no score block
-     is ever larger than a tile; padded frames are masked keys and never
-     reach a valid query, their own query rows are computed and later
-     zeroed by ``LAVae.decode``;
-  4. the rest of the layer per 32-row block with every intermediate in
-     shared memory: out-projection + residual + LN1, the cross-attention
-     into <= MAX_IT latent rows (scalar online softmax: 5 keys), its
-     out-projection + LN2, the FFN chunked over F in 256-column pieces, LN3.
+  1. the q/k/v projection of the frame rows and 2. the k/v projection of
+     the latent memory rows (``linear64_kernel`` of ``csrc/tail64.cuh``:
+     64-row blocks of 16 warps, ``mma.sync`` bf16 with f32 register
+     accumulators, the weight through a three-stage ``cp.async`` ring);
+  3. the self-attention as register-resident 64-query flash tiles
+     (``csrc/attn_tile.cuh``: one block per sample, head and query tile,
+     scores and probabilities in registers, key tiles without a valid key
+     skipped); padded frames are masked keys and never reach a valid
+     query, their own query rows are computed and later zeroed by
+     ``LAVae.decode``;
+  4. the rest of the layer per 64-row block (``csrc/dec_tail64.cuh``, the
+     body kernel 13 runs too): out-projection + residual + LN1, the
+     cross-attention into the sample's <= 8 latent rows (one warp per row
+     and head, the scores in lane quads, softmax by shuffles), its
+     out-projection + LN2, the FFN in 128-column hidden chunks, LN3; the
+     residuals stay in f32 registers, only bf16 operands go through
+     shared memory, and each byte of weight serves 64 rows.
 """
 from __future__ import annotations
 
@@ -35,20 +42,25 @@ from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
 
 __all__ = ["fused_decoder_layer", "decoder_layer_plain",
-           "decoder_layer_supported"]
+           "decoder_layer_supported", "MAX_MEMORY"]
 
 _ACT = {"relu": 0, "gelu": 1}
+MAX_MEMORY = 8  # memory rows per sample: the lane quads of a warp (K2, 13)
 _PARAM_ORDER = ("sa_in_w", "sa_in_b", "sa_out_w", "sa_out_b", "ln1_w",
                 "ln1_b", "ca_in_w", "ca_in_b", "ca_out_w", "ca_out_b",
                 "ln2_w", "ln2_b", "w1", "b1", "w2", "b2", "ln3_w", "ln3_b")
 
 
-def decoder_layer_supported(D: int, H: int, F: int, activation: str) -> bool:
-    """Whether K2 takes a layer of width D, H heads, FFN width F: D a
-    multiple of 32 up to 256, a head width that is a multiple of 16 up to
-    128 (the attention tile's), F a multiple of 32, ReLU or GELU."""
-    return (D % 32 == 0 and D <= 256 and D % H == 0 and (D // H) % 16 == 0
-            and D // H <= 128 and F % 32 == 0 and activation in _ACT)
+def decoder_layer_supported(D: int, H: int, F: int, activation: str,
+                            L: int = 1) -> bool:
+    """Whether K2 takes a layer of width D, H heads, FFN width F over L
+    latent memory rows per sample: D a multiple of 64 up to 256 (the tail's
+    instantiations), a head width that is a multiple of 16 up to 128 (the
+    attention tile's), F a multiple of 128 (the FFN's hidden chunks), 1 to
+    ``MAX_MEMORY`` memory rows, ReLU or GELU."""
+    return (D % 64 == 0 and 0 < D <= 256 and D % H == 0
+            and (D // H) % 16 == 0 and D // H <= 128 and F % 128 == 0
+            and F > 0 and 1 <= L <= MAX_MEMORY and activation in _ACT)
 
 
 def decoder_layer_plain(x, kvalid, mem, mvalid, p, *, T: int, H: int,
@@ -94,9 +106,10 @@ def fused_decoder_layer(x, kvalid, mem, mvalid, p, *, T: int, H: int,
     BT, D = x.shape
     B, L = mem.shape[0], mem.shape[1]
     Fd = p["w1"].shape[0]
-    if BT != B * T or not decoder_layer_supported(D, H, Fd, activation):
+    if BT != B * T or not decoder_layer_supported(D, H, Fd, activation, L):
         raise ValueError(f"fused_decoder_layer: unsupported shape B={B} T={T}"
-                         f" D={D} H={H} F={Fd} activation={activation}")
+                         f" L={L} D={D} H={H} F={Fd} activation="
+                         f"{activation}")
     check_cuda_args("fused_decoder_layer",
                     {"x": x, "kvalid": kvalid, "mem": mem, "mvalid": mvalid,
                      **{k: p[k] for k in _PARAM_ORDER}},

@@ -18,24 +18,33 @@ tensors forward and backward are the hand-written kernels of
 ``csrc/train_decoder_layer.cu``, on CPU tensors ``train_decoder_layer_plain``
 and ``train_decoder_layer_bwd_plain``.
 
-Design on Hopper.  The forward's last launch goes per 32-row block from the
-self-attention context to the layer's output: the out-projection and its
-residual dropout, LN1, the cross-attention (one warp per row and head: the
-L <= 8 memory rows' scores in the warp's lanes, softmax by shuffles, the
-memory's k and v projected once per sample by the launch before it), its
-out-projection and residual dropout, LN2, the FFN and LN3; r1, t1, r2 and h
-stay in shared memory.  The backward's first launch runs the block's
-forward again and goes from ``dout`` to the self-attention's ``dctx``: the
-tail's backward (``csrc/ffn_bwd.cuh``, shared with kernel 9), LN2's, the
-cross-attention's (dq in the block; each memory row's dk, dv summed over
-the block's rows of each sample it holds), LN1's and the out-projection's.
-The memory gradient is then summed per sample over those blocks in block
-order by one reduction launch, without atomics, so two runs give equal
-bits, and taken through Wk, Wv.  Kernel 8's launches do the projections
-and the tiled self-attention forward and backward (``csrc/train_attn.cuh``).
-The wrapper is that fixed sequence, counted once each way.  What bounds it
-on the H100: ~35 GFLOP forward and ~120 GFLOP backward at 64 x 196 rows
-against tens of MB: the tensor cores.
+Design on Hopper.  What bounds it on the H100: ~25 GFLOP forward and ~49
+GFLOP backward at 64 x 196 rows against tens of MB of activations and
+1.4 MB of weights: the tensor cores, and the weight bytes each row block
+streams from L2.  So every projection and tail runs on the 64-row blocks
+of ``csrc/tail64.cuh`` (16 warps, ``mma.sync`` bf16 with f32 register
+accumulators, the weights through a three-stage ``cp.async`` ring: each
+byte of weight serves 64 rows), with the residuals and LayerNorms in the
+accumulator registers.  The forward's projections are ``linear64_kernel``
+(the memory's k, v once per sample); the tail from the self-attention
+context to the layer's output is ``csrc/dec_tail64.cuh``'s body, which K2
+runs too: out-projection and residual dropout, LN1, the cross-attention
+(one warp per row and head: the L <= 8 memory rows' scores in the warp's
+lane quads, softmax by shuffles), its out-projection and residual dropout,
+LN2, the FFN in 128-column hidden chunks, LN3.  The backward's tail is two
+launches per 64-row block: the forward body again (keeping r1, r2, t1, q,
+cc, h), the FFN segment's backward (``tail64.cuh``'s ``ffn_ln_bwd``, kernel
+12's) and LN2's, down to dr2; then the cross-attention out-projection's
+backward, the cross-attention's (dq in the block; each memory row's dk, dv
+summed over the block's rows of each of the at most ``kv_slots(S)``
+samples it holds), the q projection's, LN1's and the self-attention
+out-projection's.  The memory gradient is then summed per sample over
+those blocks in block order by one reduction launch, without atomics, so
+two runs give equal bits, and taken through Wk, Wv (``linear64_kernel``,
+as is dx = dr1 + dqkv Wqkv).  Kernel 8's launches do the tiled
+self-attention forward and backward (``csrc/train_attn.cuh``), and the
+weight gradients sum over row splits (``csrc/train_common.cuh``).  The
+wrapper is that fixed sequence, counted once each way.
 
 Dropout: Philox keyed by (seed, mask id, element) as in ``ops/train_ffn.py``.
 Masks 0 (self-attention probabilities, element ((b H + h) T + i) T + j), 1
@@ -57,6 +66,7 @@ import torch.nn.functional as F
 from ladiff_torch.ops.cuda_common import (NEG_INF, check_cuda_args,
                                           draw_seed, dropout_mask, launch,
                                           register_kernel)
+from ladiff_torch.ops.decoder_layer import MAX_MEMORY
 from ladiff_torch.ops.postnorm_ffn import ACTIVATIONS
 from ladiff_torch.ops.train_attention import (_heads,
                                               train_self_attention_bwd_plain,
@@ -70,22 +80,30 @@ from ladiff_torch.ops.train_layer import train_encoder_layer_supported
 __all__ = ["train_decoder_layer", "train_decoder_layer_fwd",
            "train_decoder_layer_bwd", "train_decoder_layer_plain",
            "train_decoder_layer_bwd_plain", "train_decoder_layer_masks",
-           "train_decoder_layer_supported", "DEC_PARAM_ORDER", "MAX_MEMORY"]
+           "train_decoder_layer_supported", "kv_slots", "DEC_PARAM_ORDER",
+           "MAX_MEMORY"]
 
 DEC_PARAM_ORDER = ("sa_in_w", "sa_in_b", "sa_out_w", "sa_out_b", "ln1_w",
                    "ln1_b", "ca_in_w", "ca_in_b", "ca_out_w", "ca_out_b",
                    "ln2_w", "ln2_b", "w1", "b1", "w2", "b2", "ln3_w",
                    "ln3_b")
-MAX_MEMORY = 8  # memory rows per sample: the lanes of the scores
+ROWS = 64  # rows of the backward's tail blocks
 Masks = Optional[Tuple[torch.Tensor, ...]]
+
+
+def kv_slots(S: int) -> int:
+    """The most samples of S frames whose rows one 64-row block holds, 1 +
+    ceil(63 / S): the backward's partial sums of the memory gradient per
+    block (3 for 32 <= S < 63, 2 from 63 on)."""
+    return 1 + -(-(ROWS - 1) // S)
 
 
 def train_decoder_layer_supported(S: int, L: int, D: int, H: int, F: int,
                                   activation: str) -> bool:
     """Whether kernel 13 takes the layer: kernel 12's shapes over S frames
-    (at least 32: a row block holds rows of at most two samples) and 1 to
-    ``MAX_MEMORY`` memory rows per sample (the JAX package's gate takes up
-    to 128)."""
+    (at least 32: a row block holds rows of at most ``kv_slots(S)``
+    samples) and 1 to ``MAX_MEMORY`` memory rows per sample (the JAX
+    package's gate takes up to 128)."""
     return (train_encoder_layer_supported(S, D, H, F, activation)
             and 1 <= L <= MAX_MEMORY)
 
@@ -284,7 +302,7 @@ def train_decoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
     lo, hi = _seed_args(rate, seed)
     dev, bf, f32 = x.device, x.dtype, torch.float32
     split, split_mem = split_rows(M), split_rows(B * L)
-    nblk = (M + 31) // 32
+    nblk, slots = -(-M // ROWS), kv_slots(S)
 
     def rows(n, dt=bf, m=M):
         return torch.empty(m, n, dtype=dt, device=dev)
@@ -294,7 +312,7 @@ def train_decoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
                "da": rows(Fd), "dy": rows(D), "dco": rows(D), "dq": rows(D),
                "dr": rows(D), "dattn": rows(D), "dctx": rows(D),
                "delta": rows(H, f32), "dqkv": rows(3 * D),
-               "kvpart": rows(L * 2 * D, f32, 2 * nblk),
+               "kvpart": rows(L * 2 * D, f32, slots * nblk),
                "dkv": rows(2 * D, bf, B * L),
                "lnpart": rows(6 * D, f32, nblk),
                "wpart": rows(max(3 * D * D, Fd * D), f32,
@@ -320,7 +338,7 @@ def train_decoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
             dmem.data_ptr(), *[grads[k].data_ptr() for k in DEC_PARAM_ORDER]]
     launch("train_decoder_layer", "train_decoder_layer_backward", dev, ptrs,
            [B, S, L, D, H, Fd, ACTIVATIONS[activation], lo, hi, split,
-            split_mem], [rate])
+            split_mem, slots], [rate])
     train_decoder_layer_bwd.launches += 1
     return dx, dmem, grads
 

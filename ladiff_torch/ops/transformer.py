@@ -275,12 +275,13 @@ class TransformerDecoderLayer(nn.Module):
             "ln3_w": self.norm3.weight, "ln3_b": self.norm3.bias,
         }
 
-    def takes_whole_layer(self) -> bool:
-        """Whether the layer runs as K2 at inference: a shape K2 takes."""
+    def takes_whole_layer(self, L: int) -> bool:
+        """Whether the layer runs as K2 at inference over L memory rows per
+        sample: a shape K2 takes."""
         return decoder_layer_supported(self.linear1.in_features,
                                        self.num_heads,
                                        self.linear1.out_features,
-                                       self.activation)
+                                       self.activation, L)
 
     def takes_whole_training_layer(self, T: int, L: int) -> bool:
         """Whether the layer's training route over T frames and L memory
@@ -322,7 +323,8 @@ class TransformerDecoderLayer(nn.Module):
                 rate=self.dropout if self.training else 0.0,
                 generator=generator)
             return out.reshape(B, T, D)
-        if train_route or not (kernel_route(tgt) and self.takes_whole_layer()):
+        if train_route or not (kernel_route(tgt)
+                               and self.takes_whole_layer(L)):
             return self._forward_blocks(
                 tgt, memory, tgt_key_valid, memory_key_valid, train_route,
                 self.dropout if self.training else 0.0, generator)

@@ -146,12 +146,14 @@ _GROUPS = (
     ("kernel 12 tail bwd (dout to dctx)", r"enc_tail_bwd_kernel"),
     ("kernel 13 tail fwd (out-projection to LN3)", r"dec_tail_fwd_kernel"),
     ("kernel 13 tail bwd (dout to dctx) and memory gradient sums",
-     r"dec_tail_bwd_kernel|kv_reduce_kernel"),
-    ("train_self_attention fwd (projections and tiled attention of kernels"
-     " 12 and 13 too)",
+     r"dec_tail_bwd_|kv_reduce_kernel"),
+    ("kernel 13 projections (qkv, the memory's k and v; dx, dmem)",
+     r"linear64_kernel"),
+    ("train_self_attention fwd (kernel 12's projection and the tiled"
+     " attention of kernels 12 and 13 too)",
      r"linear_kernel|attn_fwd_kernel|out_proj_kernel"),
-    ("train_self_attention bwd, without weight gradients (tiled attention"
-     " and dx of kernels 12 and 13 too)",
+    ("train_self_attention bwd, without weight gradients (the tiled"
+     " attention of kernels 12 and 13 and kernel 12's dx too)",
      r"dctx_kernel|attn_bwd_kernel|linear_nn_kernel"),
     ("train_postnorm_ffn fwd", r"train_ffn_fwd_kernel"),
     ("train_postnorm_ffn bwd, without weight gradients",

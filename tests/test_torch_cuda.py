@@ -90,20 +90,27 @@ def test_md_layer_kernel(dev, shared_rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,lengths", [(196, (196, 16, 100, 47, 150)),
+                                       (40, (40, 23, 7))])
+@pytest.mark.parametrize("D,H", [(64, 2), (128, 2), (192, 4), (256, 4)])
 @torch.no_grad()
-def test_decoder_layer_kernel(dev):
+def test_decoder_layer_kernel(dev, D, H, T, lengths):
+    """K2 at each width its 64-row tail takes, FFN 4 D; 5 x 196 frames
+    (the last row block partial) and 3 x 40 (a block holds rows of two
+    samples, the second block partial, one sample sees one latent)."""
     from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
                                                 fused_decoder_layer)
     from ladiff_torch.ops.transformer import TransformerDecoderLayer
-    D, H, T, L = 256, 4, 196, 5
-    lengths = np.array([196, 16, 100, 47, 150])
+    L = 5
+    lengths = np.array(lengths)
     B = len(lengths)
-    layer = _randomize(TransformerDecoderLayer(D, H, 1024, "gelu"), 4).to(
+    layer = _randomize(TransformerDecoderLayer(D, H, 4 * D, "gelu"), 4).to(
         dev, torch.bfloat16)
     g = torch.Generator().manual_seed(5)
     bf = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)
     args = (bf(B * T, D), _mask(lengths, T, dev).reshape(-1).contiguous(),
-            bf(B, L, D), _mask(-(-lengths // 48), L, dev))
+            bf(B, L, D), _mask(-(-lengths // 48) if T == 196
+                               else np.array([5, 3, 1]), L, dev))
     p = layer.kernel_params()
     got = fused_decoder_layer(*args, p, T=T, H=H)
     want = decoder_layer_plain(*[a.float() for a in args], _f32(p), T=T, H=H)
@@ -654,6 +661,20 @@ def test_kernels_read_inside_their_inputs(dev):
         _guarded_calls(lambda t, p: train_decoder_layer_bwd(
             *t[:5], p, tuple(t[5:]), H=H, S=Sd, rate=0.1, seed=3),
             [xd, kvd.contiguous(), mem, mvalid, doutd, *saved], pd)
+        # kernel 13 at 3 x 40 rows: a 64-row block holds three samples, the
+        # second block is partial; 8 memory rows
+        xd, doutd = _bf(dev, 3 * 40, D), _bf(dev, 3 * 40, D, seed=17)
+        kvd = _mask([40, 23, 7], 40, dev).reshape(-1).contiguous()
+        mem = _bf(dev, 3, 8, D, seed=19)
+        mvalid = _mask([1, 8, 5], 8, dev).contiguous()
+        _guarded_calls(lambda t, p: train_decoder_layer_fwd(
+            *t, p, H=H, S=40, rate=0.1, seed=3), [xd, kvd, mem, mvalid], pd)
+        _, saved = train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd, H=H,
+                                           S=40, rate=0.1, seed=3,
+                                           return_saved=True)
+        _guarded_calls(lambda t, p: train_decoder_layer_bwd(
+            *t[:5], p, tuple(t[5:]), H=H, S=40, rate=0.1, seed=3),
+            [xd, kvd, mem, mvalid, doutd, *saved], pd)
         # kernel 10: 70 tokens, so the last 64-row tile holds 6 rows
         S10 = 70
         qkv = [_bf(dev, B, S10, D, seed=30 + i) for i in range(3)]
@@ -682,13 +703,14 @@ def test_kernels_read_inside_their_inputs(dev):
         _guarded_calls(lambda t, p: train_encoder_layer_bwd(
             t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S2, rate=0.1, seed=3),
             [x2, kv2, dout2, *saved], pe)
-    # K1..K4 share the LayerNorm helper
-    D, H, T, L = 256, 4, 40, 5
+    # K2 at 7 x 40 rows (its 64-row blocks: the last one partial) and 8
+    # memory rows; K1..K4 share the LayerNorm helper
+    D, H, T, L = 256, 4, 40, 8
     dl = _randomize(TransformerDecoderLayer(D, H, 1024, "gelu"), 4).to(dev, bf)
-    lens = [T, 9, 1, 33, T, 17, 25, 2]
-    args = [_bf(dev, 8 * T, D), _mask(lens, T, dev).reshape(-1).contiguous(),
-            _bf(dev, 8, L, D),
-            _mask([5, 1, 1, 4, 5, 2, 3, 1], L, dev).contiguous()]
+    lens = [T, 9, 1, 33, T, 17, 25]
+    args = [_bf(dev, 7 * T, D), _mask(lens, T, dev).reshape(-1).contiguous(),
+            _bf(dev, 7, L, D),
+            _mask([5, 1, 8, 4, 5, 2, 3], L, dev).contiguous()]
     _guarded_calls(lambda t, p: fused_decoder_layer(*t, p, T=T, H=H), args,
                    {k: v.detach() for k, v in dl.kernel_params().items()})
     md = _randomize(MDTransformerLayer(D, D, 1024, H), 1).to(dev, bf)
@@ -803,6 +825,47 @@ def test_whole_layer_encoder_kernel_widths(dev, rate, D, H):
         x.float(), kvalid, dout.float(), _f32(pe), masks, H=H, S=S)
     assert _relerr(dx, wdx) <= TOL
     for k in ENC_PARAM_ORDER:
+        assert _relerr(grads[k], wgrads[k]) <= TOL, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D,H", [(64, 2), (128, 2), (192, 4)])
+@torch.no_grad()
+def test_whole_layer_decoder_kernel_widths(dev, rate, D, H):
+    """Kernel 13's 64-row tails and projections at the widths below 256 it
+    takes (each its own instantiation), 3 x 40 frames (a row block holds
+    three samples, the last block partial), 5 memory rows of which one
+    sample sees 1, forward and every gradient, the memory's too."""
+    from ladiff_torch.ops.train_decoder_layer import (
+        DEC_PARAM_ORDER, train_decoder_layer_bwd,
+        train_decoder_layer_bwd_plain, train_decoder_layer_fwd,
+        train_decoder_layer_masks, train_decoder_layer_plain)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    B, T, L, Fd, seed = 3, 40, 5, 256, 2468
+    pd = {k: v.detach() for k, v in _randomize(TransformerDecoderLayer(
+        D, H, Fd, "gelu"), 8).to(dev, torch.bfloat16).kernel_params().items()}
+    x, dout = _bf(dev, B * T, D, seed=48), _bf(dev, B * T, D, seed=49,
+                                               scale=0.1)
+    mem = _bf(dev, B, L, D, seed=50)
+    kvalid = _mask([40, 23, 7], T, dev).reshape(-1).contiguous()
+    mvalid = _mask([5, 1, 3], L, dev).contiguous()
+    masks = (train_decoder_layer_masks(B, T, L, D, H, Fd, rate, seed, dev)
+             if rate else None)
+    kw = dict(H=H, S=T, rate=rate, seed=seed)
+    got, saved = train_decoder_layer_fwd(x, kvalid, mem, mvalid, pd,
+                                         return_saved=True, **kw)
+    assert _relerr(got, train_decoder_layer_plain(
+        x.float(), kvalid, mem.float(), mvalid, _f32(pd), masks, H=H,
+        S=T)) <= TOL
+    dx, dmem, grads = train_decoder_layer_bwd(x, kvalid, mem, mvalid, dout,
+                                              pd, saved, **kw)
+    wdx, wdmem, wgrads = train_decoder_layer_bwd_plain(
+        x.float(), kvalid, mem.float(), mvalid, dout.float(), _f32(pd), masks,
+        H=H, S=T)
+    assert _relerr(dx, wdx) <= TOL
+    assert _relerr(dmem, wdmem) <= TOL
+    for k in DEC_PARAM_ORDER:
         assert _relerr(grads[k], wgrads[k]) <= TOL, k
 
 

@@ -75,20 +75,20 @@ def test_md_layer_plain_matches_pallas(interpret, shared_rows):
     assert relerr(got, want) <= TOL
 
 
-@pytest.mark.parametrize("activation", ["gelu", "relu"])
-def test_decoder_layer_plain_matches_pallas(interpret, activation):
-    """K2 with mixed lengths: padded frames are masked keys."""
+def _decoder_layer_case(activation, T, lengths, frames_per_latent):
+    """K2's plain version against the Pallas kernel on one batch: B =
+    len(lengths) samples of T frames, 5 latent rows of which
+    ceil(length / frames_per_latent) are valid."""
     from ladiff_torch.ops.decoder_layer import decoder_layer_plain
     from ladiff_torch.ops.transformer import TransformerDecoderLayer as TL
     from ladiff_tpu.ops.pallas_decoder_layer import fused_decoder_layer
     from ladiff_tpu.ops.transformer import TransformerDecoderLayer as JL
     rng = np.random.RandomState(31)
-    B, T, L = 3, 24, 5
-    lengths = np.array([24, 13, 5])
+    B, L = len(lengths), 5
     x = rnd(rng, B, T, D, scale=0.5)
     mem = rnd(rng, B, L, D)
     kv = _lengths_mask(lengths, T).astype(np.float32)
-    mv = _lengths_mask(-(-lengths // 6), L).astype(np.float32)
+    mv = _lengths_mask(-(-lengths // frames_per_latent), L).astype(np.float32)
     jl = JL(D, H, FF, 0.0, activation)
     p = randomize(jl.init(jax.random.PRNGKey(0), jnp.asarray(x),
                           jnp.asarray(mem))["params"], 32)
@@ -102,6 +102,20 @@ def test_decoder_layer_plain_matches_pallas(interpret, activation):
                                   t(mem), t(mv), tl.kernel_params(), T=T,
                                   H=H, activation=activation)
     assert relerr(got, want) <= TOL
+
+
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+def test_decoder_layer_plain_matches_pallas(interpret, activation):
+    """K2 with mixed lengths: padded frames are masked keys."""
+    _decoder_layer_case(activation, 24, np.array([24, 13, 5]), 6)
+
+
+def test_decoder_layer_plain_matches_pallas_three_samples_a_block(
+        interpret):
+    """K2 at 3 x 40 frames (the CUDA tail's first 64-row block holds rows
+    of two samples, its second a partial block of two), one sample seeing
+    one valid latent row."""
+    _decoder_layer_case("gelu", 40, np.array([40, 23, 7]), 8)
 
 
 def _clip_weights(rng, Wd, Fd):

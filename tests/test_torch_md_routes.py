@@ -283,30 +283,42 @@ def layer_calls(monkeypatch):
     return counts
 
 
-@pytest.mark.parametrize("case", ["head_width_256", "head_width_64"])
+# case: (width, heads, FFN width, memory rows) and the wrappers the layer
+# calls at inference
+_DECODER_ROUTES = {
+    "head_width_256": ((256, 1, FF, 5), {"fused_postnorm_ffn": 1}),
+    "head_width_64": ((D, H, FF, 5), {"fused_decoder_layer": 1}),
+    "ffn_width_96": ((D, H, 96, 5), {"fused_masked_attention": 1}),
+    "memory_rows_9": ((D, H, FF, 9), {"fused_masked_attention": 1,
+                                      "fused_postnorm_ffn": 1}),
+}
+
+
+@pytest.mark.parametrize("case", list(_DECODER_ROUTES))
 def test_decoder_layer_route_matches_jax(layer_calls, case):
-    """A head width K2 takes runs the whole layer as K2; head width 256
-    runs it per block (plain attention over the 70 frames, which kernel 10
-    does not take either, the plain cross-attention, kernel 5), as the JAX
-    package's gate sends it to its plain path and kernel 5."""
+    """A shape K2 takes runs the whole layer as K2; one it refuses runs per
+    block, as the JAX package's gate sends it to its plain path: head
+    width 256 (plain attention over the 70 frames, which kernel 10 does not
+    take either, the plain cross-attention, kernel 5), an FFN width that is
+    not a multiple of 128 (kernel 10, the plain cross-attention and FFN)
+    and 9 memory rows (kernels 10 and 5)."""
     from ladiff_torch.ops.transformer import TransformerDecoderLayer as TL
     from ladiff_tpu.ops.transformer import TransformerDecoderLayer as JL
-    d, h = (256, 1) if case == "head_width_256" else (D, H)
+    (d, h, ff, L), calls = _DECODER_ROUTES[case]
     rng = np.random.RandomState(56)
-    T, L = 70, 5
+    T = 70
     tgt, mem = rnd(rng, 3, T, d, scale=0.5), rnd(rng, 3, L, d)
     tv = np.arange(T)[None] < np.array([[T], [T // 2], [3]])
     mv = np.arange(L)[None] < np.array([[L], [2], [1]])
-    jl = JL(d, h, FF, 0.0, "gelu")
+    jl = JL(d, h, ff, 0.0, "gelu")
     args = tuple(map(jnp.asarray, (tgt, mem, tv, mv)))
     p = randomize(jl.init(jax.random.PRNGKey(0), *args[:2])["params"], 57)
-    tl = port(TL(d, h, FF, "gelu"), p)
-    assert tl.takes_whole_layer() == (h == H)
+    tl = port(TL(d, h, ff, "gelu"), p)
+    assert tl.takes_whole_layer(L) == (case == "head_width_64")
     with torch.no_grad():
         got = tl(t(tgt), t(mem), t(tv), t(mv))
     assert relerr(got, jl.apply({"params": p}, *args)) <= TOL
-    assert layer_calls == ({"fused_decoder_layer": 1} if h == H
-                           else {"fused_postnorm_ffn": 1})
+    assert layer_calls == calls
 
 
 def test_decoder_and_attention_route_gates():
@@ -324,6 +336,27 @@ def test_decoder_and_attention_route_gates():
     assert not masked_attention_supported(128, 206, 256, 1)
     assert not masked_attention_supported(128, 206, 96, 4)
     assert not masked_attention_supported(65536, 206, 256, 4)
+
+
+# K2's gate, case by case: (D, H, F, activation, memory rows) -> takes it
+@pytest.mark.parametrize("D_,H_,F_,act,L_,want", [
+    (256, 4, 1024, "gelu", 5, True),   # the published decoder layers
+    (256, 2, 1024, "relu", 5, True),   # head width 128, the tile's widest
+    (64, 2, 256, "gelu", 5, True),     # the tail's narrowest instantiation
+    (192, 4, 768, "gelu", 8, True),    # head width 48, 8 memory rows
+    (128, 8, 128, "gelu", 1, True),    # head width 16, one FFN chunk
+    (256, 1, 1024, "gelu", 5, False),  # head width 256
+    (96, 4, 1024, "gelu", 5, False),   # head width 24
+    (160, 2, 640, "gelu", 5, False),   # D not a multiple of 64
+    (512, 8, 1024, "gelu", 5, False),  # D above 256
+    (256, 4, 96, "gelu", 5, False),    # F not a multiple of 128
+    (256, 4, 1024, "gelu", 9, False),  # more memory rows than lane quads
+    (256, 4, 1024, "gelu", 0, False),  # no memory row
+    (256, 4, 1024, "silu", 5, False),  # an activation the tail lacks
+])
+def test_decoder_layer_gate(D_, H_, F_, act, L_, want):
+    from ladiff_torch.ops.decoder_layer import decoder_layer_supported
+    assert decoder_layer_supported(D_, H_, F_, act, L_) is want
 
 
 # -- the sampler's options -------------------------------------------------

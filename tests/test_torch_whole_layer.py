@@ -85,12 +85,15 @@ def _jax_args(p, decoder):
                              "ln3_b")))
 
 
-def _inputs(seed):
+def _inputs(seed, n=B):
+    """n samples (at most 3): frame lengths 24, 36, 5; 1, 3 and 2 valid
+    memory rows."""
     rng = np.random.RandomState(seed)
-    x = rnd(rng, B * S, D, scale=0.5)
-    kv = _key_mask([S * 2 // 3, S], S).astype(np.float32).reshape(B * S)
-    mem = rnd(rng, B, L, D, scale=0.5)
-    mv = _key_mask([1, L], L).astype(np.float32)
+    x = rnd(rng, n * S, D, scale=0.5)
+    kv = _key_mask([S * 2 // 3, S, 5][:n], S).astype(np.float32).reshape(
+        n * S)
+    mem = rnd(rng, n, L, D, scale=0.5)
+    mv = _key_mask([1, L, 2][:n], L).astype(np.float32)
     return x, kv, mem, mv
 
 
@@ -134,15 +137,15 @@ def test_train_encoder_layer_matches_pallas_rate0(interpret, activation):
         assert relerr(pt[name].grad, _grad_of(name, g, p)) <= TOL, name
 
 
-def test_train_decoder_layer_matches_pallas_rate0(interpret):
-    """Forward and all twenty gradients (x, the memory, the eighteen
-    parameters) of sum(out^2) against ``jax.grad`` of the Pallas kernel;
-    one sample sees 1 of its 3 memory rows."""
+def _train_decoder_case(n):
+    """Kernel 13's forward and all twenty gradients (x, the memory, the
+    eighteen parameters) of sum(out^2) at n samples against ``jax.grad``
+    of the Pallas kernel."""
     from ladiff_torch.ops.train_decoder_layer import (
         train_decoder_layer, train_decoder_layer_plain)
     from ladiff_tpu.ops.pallas_train_decoder_layer import \
         train_decoder_layer as jax_kernel
-    x, kv, mem, mv = _inputs(72)
+    x, kv, mem, mv = _inputs(72, n)
     p = _layer_weights(73, decoder=True)
     jkv, jmv, seed = jnp.asarray(kv.reshape(-1, 1)), jnp.asarray(mv), \
         jnp.int32(6)
@@ -170,6 +173,32 @@ def test_train_decoder_layer_matches_pallas_rate0(interpret):
              "ln1_w", "ln1_b", "ln2_w", "ln2_b", "ln3_w", "ln3_b")
     for name, g in zip(names, gwant[2:]):
         assert relerr(pt[name].grad, _grad_of(name, g, p)) <= TOL, name
+
+
+def test_train_decoder_layer_matches_pallas_rate0(interpret):
+    """Kernel 13 at B 2 against the Pallas kernel; one sample sees 1 of
+    its 3 memory rows."""
+    _train_decoder_case(B)
+
+
+def test_train_decoder_layer_matches_pallas_rate0_three_samples(interpret):
+    """The same at B 3 (108 rows: the CUDA backward's second 64-row block
+    holds rows of two samples and ends partial), the third sample with 5
+    valid frames and 2 memory rows."""
+    _train_decoder_case(3)
+
+
+@pytest.mark.parametrize("S_,want", [(32, 3), (40, 3), (63, 2), (64, 2),
+                                     (196, 2)])
+def test_kv_slots(S_, want):
+    """The memory gradient's partial sums per 64-row block: 1 + ceil(63 /
+    S) samples, and no block of a batch holds rows of more (every start
+    of a block over 50 samples)."""
+    from ladiff_torch.ops.train_decoder_layer import kv_slots
+    assert kv_slots(S_) == want
+    most = max((r0 + 63) // S_ - r0 // S_ + 1
+               for r0 in range(0, 50 * S_, 64))
+    assert most <= want
 
 
 # -- the hand-derived backwards against autograd ----------------------------
