@@ -7,14 +7,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. build    every CUDA kernel of the port from ``ladiff_torch/csrc`` (one
             ``nvcc`` per source, all at once); the card's name and power
-            limit as ``nvidia-smi`` reports them.
+            limit as ``nvidia-smi`` reports them; the registers and spills
+            of K1's and kernel 11's kernels and the shared memory of a CTA
+            of their cluster body.
 2. kernels  K1..K4 at the generation path's shapes (mixed lengths), bf16,
             each against its plain PyTorch version on the same inputs
             (computed in float32), with its time, the plain version's time,
             the least time the card could take, and a library call's time
-            where one PyTorch call computes the same function.  K1 is
-            compared again at the training stages' shapes: 128 x 5 rows with
-            one AdaLN row per sample, and 256 x 5 rows.  ``kernel_breakdown``:
+            where one PyTorch call computes the same function; K1's and
+            kernel 11's lines carry the launch geometry (row groups,
+            cluster size, CTAs).  ``md_layer_scaling``: K1's device ms at
+            128 to 1584 samples beside the geometry, and at 512 samples
+            against the row group's size; ``md_layer_plain_breakdown``: the
+            bf16 plain K1's launches one by one.  K1 is compared again at
+            the training stages' shapes: 128 x 5 rows with one AdaLN row
+            per sample, and 256 x 5 rows.  ``kernel_breakdown``:
             K2's launches one by one (device ms per call); K2 compared again
             at 3 x 40 rows (a partial last row block), D 256, 64 and 192.
 3. slice    ``LADiffSystem.generate`` at batch 4 with mixed lengths on the
@@ -24,11 +31,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
             196 frames, 32-token CLIP bucket, CFG DDIM-50 + decode): launch
             counts per batch, samples/s, finite output.
    route_kernels  kernel 11 (the whole MD stack) at 512 x 5 rows with mixed
-            lengths and again without a mask; kernels 6 (stylized FFN) and 7
-            (one-token stylize) at 2560 rows with one AdaLN row per sample
-            and one shared; kernel 5 with ReLU at the same rows (the MD
-            sa_block's tail on the per-block routes): each against its
-            plain version, timed like phase 2.
+            lengths and again without a mask (its bits equal over two
+            runs); kernel 11 and K1 at 13 samples in row groups of 4 (one
+            sample without a valid latent) and at 1 sample; kernels 6
+            (stylized FFN) and 7 (one-token stylize) at 2560 rows with one
+            AdaLN row per sample and one shared; kernel 5 with ReLU at the
+            same rows (the MD sa_block's tail on the per-block routes):
+            each against its plain version, timed like phase 2.
    route_slice  the other denoiser routes at batch 4, mixed lengths, DDIM-10,
             card against the float32 CPU with their launch counts: the
             whole-stack route (``md_stack=True``), full-context text (9-token
@@ -338,6 +347,7 @@ def nbytes(*tensors) -> int:
 
 def phase_build():
     from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.ops.md_layer import md_smem_bytes
     secs = cc.build_all()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -349,7 +359,14 @@ def phase_build():
     for name, log in cc.build_logs().items():
         for fn, regs, spill in _ptxas_entries(log):
             print(f"# {name}: {fn}: {regs}; {spill}", file=sys.stderr)
-    emit({"phase": "build", "seconds": round(secs, 3), "gpu": gpu})
+    # the cluster MD body's kernels (K1, kernel 11): registers and spills
+    # from ptxas, dynamic shared memory per CTA at the published shape
+    md = [{"kernel": fn, "registers": regs, "spills": spill}
+          for name, log in cc.build_logs().items() if name.startswith("md_")
+          for fn, regs, spill in _ptxas_entries(log)]
+    emit({"phase": "build", "seconds": round(secs, 3), "gpu": gpu,
+          "md_kernels": md,
+          "md_smem_bytes": md_smem_bytes(256, 1024, 1024)})
     print(gpu, flush=True)
     return gpu
 
@@ -450,7 +467,9 @@ def phase_kernels(dev):
                                              ln_qkv_plain, proj_mlp_plain)
     from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
                                                 fused_decoder_layer)
-    from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_plain
+    from ladiff_torch.ops import md_layer
+    from ladiff_torch.ops.md_layer import (fused_md_layer, md_launch_geometry,
+                                           md_layer_plain)
     from ladiff_torch.ops.stylization import MDTransformerLayer
     from ladiff_torch.ops.transformer import TransformerDecoderLayer
     from ladiff_torch.utils.masks import latent_valid_mask, lengths_to_mask
@@ -491,7 +510,37 @@ def phase_kernels(dev):
         lambda: md_layer_plain(*[t.float() for t in a1], f32(p1), T=T, E=E,
                                H=H),
         lambda: md_layer_plain(*a1, p1, T=T, E=E, H=H),
-        fl1, nbytes(*a1, *p1.values(), x)))
+        fl1, nbytes(*a1, *p1.values(), x),
+        extra=md_launch_geometry("md_layer", dev, B2, T, E, D, F, F)))
+
+    # K1's device time against the sample count (mixed lengths) beside the
+    # launch geometry the wrapper picks, then at 512 samples against the row
+    # group's size (the geometry sweep: 6 to 18 samples of 5 rows); then
+    # the bf16 plain version's launches one by one, the library's time for
+    # each of the layer's products at these shapes
+    points = []
+    for n in (128, 256, 512, 792, 1584):
+        lat_n = latent_valid_mask(mixed_lengths(n, seed=6), 48, T)
+        a_n = (rnd(n * T, D), rnd(n * E, D),
+               lat_n.reshape(n * T).float().to(dev), rnd(n, D), ca_ss,
+               ffn_ss)
+        points.append({"samples": n, "rows": n * T,
+                       **md_launch_geometry("md_layer", dev, n, T, E, D, F,
+                                            F),
+                       "ms": device_ms(lambda: fused_md_layer(
+                           *a_n, p1, T=T, E=E, H=H))})
+        del a_n
+    sweep = []
+    for spg in (6, 9, 12, 15, 18):
+        sweep.append({**md_launch_geometry("md_layer", dev, B2, T, E, D, F,
+                                           F, spg),
+                      "ms": device_ms(lambda: md_layer._launch(
+                          *a1, p1, T=T, E=E, H=H, spg=spg))})
+    emit({"phase": "md_layer_scaling", "points": points,
+          "group_sweep": sweep})
+    emit({"phase": "md_layer_plain_breakdown", "rows": B2 * T,
+          "launches": launch_breakdown(
+              lambda: md_layer_plain(*a1, p1, T=T, E=E, H=H))})
 
     # K1 at the training stages' shapes (compared, not timed): the stage-2
     # validation pass, 128 samples with one AdaLN row per sample (every
@@ -668,6 +717,9 @@ def phase_bench(dev):
 def phase_route_kernels(dev):
     """Kernels 11, 6, 7 and 5 at the shapes of the routes that run them."""
     import torch
+    from ladiff_torch.ops import md_layer
+    from ladiff_torch.ops.md_layer import (_PARAM_ORDER as _MD_PARAM_NAMES,
+                                           md_launch_geometry, md_layer_plain)
     from ladiff_torch.ops.md_stack import fused_md_stack, md_stack_plain
     from ladiff_torch.ops.postnorm_ffn import (FFN_PARAM_ORDER,
                                                fused_postnorm_ffn,
@@ -715,7 +767,8 @@ def phase_route_kernels(dev):
         lambda: md_stack_plain(*[t.float() for t in a11], f32(st), **kw),
         lambda: md_stack_plain(*a11, st, **kw),
         fl11, nbytes(*a11, *st.values(), x),
-        extra={"blocks": -(-B2 // 6), "layers": L}))
+        extra={**md_launch_geometry("md_stack", dev, B2, T, E, D, F, F),
+               "layers": L}))
     ones = torch.ones(M, device=dev)
     err_nomask = compare(
         "fused_md_stack without a mask",
@@ -723,7 +776,36 @@ def phase_route_kernels(dev):
         md_stack_plain(x.float(), extra.float(), ones, values.float(),
                        ca_ss.float(), ffn_ss.float(), f32(st), **kw),
         KERNEL_TOL)[0]
+    # the cluster body sums the FFN partials in a fixed order: the same
+    # inputs give the same bits
+    bits_equal = torch.equal(fused_md_stack(*a11, st, **kw),
+                             fused_md_stack(*a11, st, **kw))
     emit({"phase": "kernel_md_stack_no_mask", "rel_err": err_nomask,
+          "tol": KERNEL_TOL, "bits_equal_over_two_runs": bits_equal})
+    if not bits_equal:
+        fail("fused_md_stack: two runs on the same inputs differ")
+    # kernel 11 and K1 where row groups are partial: 13 samples (one
+    # without a valid latent) in groups of 4 (the last holds one sample),
+    # and one sample
+    errs_p = {}
+    for n, spg in ((13, 4), (1, 0)):
+        lat_n = latent_valid_mask(mixed_lengths(n, seed=8), 48, T)
+        lat_n[0] = False
+        an = (rnd(n * T, D), rnd(n * E, D),
+              lat_n.reshape(n * T).float().to(dev), rnd(L, n, D),
+              ca_ss, ffn_ss)
+        errs_p[f"fused_md_stack, {n} samples"] = compare(
+            f"fused_md_stack, {n} samples", fused_md_stack(*an, st, **kw),
+            md_stack_plain(*[t.float() for t in an], f32(st), **kw),
+            KERNEL_TOL)[0]
+        p1 = {k: v[0] for k, v in st.items() if k in _MD_PARAM_NAMES}
+        a1 = (*an[:3], an[3][0], ca_ss[:1], ffn_ss[:1])
+        errs_p[f"fused_md_layer, {n} samples"] = compare(
+            f"fused_md_layer, {n} samples",
+            md_layer._launch(*a1, p1, T=T, E=E, H=H, spg=spg),
+            md_layer_plain(*[t.float() for t in a1], f32(p1), T=T, E=E,
+                           H=H), KERNEL_TOL)[0]
+    emit({"phase": "kernel_md_partial_row_groups", "rel_err": errs_p,
           "tol": KERNEL_TOL})
     del enc, st
 

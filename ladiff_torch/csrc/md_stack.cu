@@ -3,95 +3,120 @@
 // (replaces ladiff_tpu/ops/pallas_md_stack.py fused_md_stack).  See
 // ladiff_torch/ops/md_stack.py for the math, the bound and the design.
 //
-// One block owns whole samples for the whole stack: samples never interact,
-// so the layers follow each other inside the block with no grid-wide sync.
-// Each layer is md_layer_body.cuh's (the body of K1); its output is rounded
-// to bf16 at the layer boundary, as the per-layer path rounds it.  The
-// (L - 1) / 2 skip activations go to a global scratch [nb, B*T, D] that only
-// the block that wrote a row reads back (plain loads: the data is written
-// during the launch, so not through the read-only path), and the rows stay
-// in L2.  A skip Linear is [x, skip] [rows, 2D] x [2D, D]: two products
-// into one accumulator, W's first D columns against x, its last D against
-// the skip rows (staged in the q/k/v region, free between layers).
-#include "md_layer_body.cuh"
+// One cluster of D / 64 CTAs owns a row group of whole samples for the
+// whole stack: samples never interact, so the layers follow each other in
+// the cluster with no grid-wide sync.  Each layer is md_body_cluster.cuh's
+// (the body of K1), its weight slices streaming on from one layer into the
+// next; its output is rounded to bf16 at the layer boundary, as the
+// per-layer path rounds it, and padding rows stay zero.  The (L - 1) / 2
+// skip activations go to a global scratch [nb, B T, D] in which each CTA
+// writes its own 64 columns and reads them back (plain loads: the data is
+// written during the launch, so not through the read-only path); the rows
+// stay in L2.  A skip Linear [x, skip] [rows, 2D] x [2D, D] is split on its
+// output columns like any other product: the CTAs exchange their skip
+// columns, then K = 2D runs over x in xa and the skip rows.
+#include "md_body_cluster.cuh"
 
 using namespace ladiff;
 
 namespace {
 
-struct StackArgs {
-  const bf16* x;
-  const bf16* extra;
-  const float* kvalid;
-  const bf16* values;  // [L, B, D]
-  const bf16* ca_ss;   // [L, 2D]
-  const bf16* ffn_ss;  // [L, 2D]
-  const bf16* w[kMDParams];  // each [L, ...]
-  const bf16 *lin_w, *lin_b, *norm_w, *norm_b;  // [nb, D, 2D], [nb, D], [D]
-  bf16* skips;  // [nb, B*T, D] scratch
-  bf16* out;
-  int B, T, E, D, H, F1, F2, L, spb;
-};
-
-__global__ void __launch_bounds__(kThreads) md_stack_kernel(StackArgs a) {
+__global__ void __launch_bounds__(kCThreads, 1)
+md_stack_kernel(const __grid_constant__ MDClusterArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D, T = a.T, ld = D + 8, ldc = kChunk + 4;
-  const MDSmem m = md_smem(smem, D, a.F1, a.F2);
-  const int s0 = blockIdx.x * a.spb;
-  const int ns = min(a.spb, a.B - s0);
-  const int nrow = ns * T;
-  const size_t row0 = (size_t)s0 * T, BT = (size_t)a.B * T;
-  const int nb = (a.L - 1) / 2;
-  const int tid = threadIdx.x;
-  md_load_rows(m, a.x + row0 * D, a.extra + (size_t)s0 * a.E * D, D, nrow,
-               ns * a.E);
+  const MDCta m = md_cta(smem, a);
+  const CLane t = clane();
+  const int D = a.D, nb = (a.L - 1) / 2, nk = D / kCKT;
+  const size_t BT = (size_t)a.B * a.T;
+  const unsigned lat = (1u << m.ml) - 1u;
+  MDStream s;
+  float r[kCMT][2][4];
+  md_start(r, s, a, m);
 
-  // the layer boundary: the f32 output rounded to bf16, as the next layer's
-  // A operand and (widened again) its residual; padding rows stay zero
-  auto to_rows = [&](int i, float v) {
-    const int row = i / D, c = i % D;
-    const bf16 xv = row < nrow ? tob(v) : tob(0.f);
-    m.xb[row * ld + c] = xv;
-    m.r[i] = tof(xv);
+  // the layer boundary: v rounded to bf16, the next layer's residual and (in
+  // every CTA) its A operand; padding rows stay zero
+  auto to_rows = [&](float (&v)[kCMT][2][4]) {
+#pragma unroll
+    for (int i = 0; i < kCMT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const bool in = ctile(t, i) < m.ml && crow(t, i, hf) < m.nrow;
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+            r[i][nt][2 * hf + b] = in ? tof(tob(v[i][nt][2 * hf + b])) : 0.f;
+        }
   };
 
   for (int l = 0; l < a.L; ++l) {
+    // the extra rows again: the FFN partials overwrote them
+    if (l > 0) md_load_extra<false>(a, m);
     if (l > nb) {  // output block: pop a skip, Linear(2D -> D) of [x, skip]
       const int j = l - nb - 1;
-      const bf16* skip = a.skips + (size_t)(nb - 1 - j) * BT * D + row0 * D;
-      bf16* sb = m.qs;
-      for (int i = tid; i < kRows * D; i += blockDim.x) {
-        const int row = i / D, c = i % D;
-        sb[row * ld + c] = row < nrow ? skip[(size_t)row * D + c] : tob(0.f);
+      const bf16* skip = a.skips + (size_t)(nb - 1 - j) * BT * D +
+                         m.row0 * D + m.c * kCW;
+      for (int v = threadIdx.x; v < 16 * m.ml * (kCW / 8); v += kCThreads) {
+        const int row = v / (kCW / 8), cc = (v % (kCW / 8)) * 8;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (row < m.nrow)
+          val = *reinterpret_cast<const uint4*>(skip + (size_t)row * D + cc);
+        *reinterpret_cast<uint4*>(m.big + row * m.ld + m.c * kCW + cc) = val;
       }
-      const bf16* wl = a.lin_w + (size_t)j * D * 2 * D;
-      block_gemm(m.xb, ld, wl, 2 * D, D, D, m.cf, ldc, false, m.ws);
-      block_gemm(sb, ld, wl + D, 2 * D, D, D, m.cf, ldc, true, m.ws);
-      const bf16* bl = a.lin_b + (size_t)j * D;
-      for (int i = tid; i < kRows * D; i += blockDim.x) {
-        const int row = i / D, c = i % D;
-        to_rows(i, m.cf[row * ldc + c] + ldgf(bl + c));
-      }
-      __syncthreads();
+      push_slice(m.big, m);
+      float acc[kCMT][2][4];
+      czero(acc);
+      cgemm<kCMT>(acc, m.xa, m.big, m.xa, m.ld, 2 * nk, nk, lat, s, a, m);
+      cluster_arrive();  // this CTA has read x in xa
+      float v[kCMT][2][4];
+      czero(v);
+      add_biased(v, acc, a.lin_b + (size_t)j * D, m.c);
+      to_rows(v);
+      cluster_wait();  // every CTA has: the new x may overwrite it
+      store_slice(r, m.xa, m);
+      push_slice(m.xa, m);
     }
-    md_layer_body(md_weights(a.w, l, D, a.F1, a.F2), m, D, T, a.E, a.H, a.F1,
-                  a.F2, ns, a.kvalid + row0,
-                  a.values + ((size_t)l * a.B + s0) * D,
-                  a.ca_ss + (size_t)l * 2 * D, 0,
-                  a.ffn_ss + (size_t)l * 2 * D, 0, to_rows);
-    __syncthreads();
-    if (l < nb) {  // input block: push a skip
-      bf16* skip = a.skips + (size_t)l * BT * D + row0 * D;
-      for (int i = tid; i < nrow * D; i += blockDim.x)
-        skip[i] = m.xb[(i / D) * ld + i % D];
-    }
+    md_layer_cl(r, s, a, m, l, a.value + ((size_t)l * a.B + m.s0) * D,
+                a.ca_ss + (size_t)l * 2 * D, 0,
+                a.ffn_ss + (size_t)l * 2 * D, 0,
+                [&](float (&v)[kCMT][2][4]) {
+                  to_rows(v);
+                  if (l < nb) {  // input block: push a skip
+                    bf16* skip = a.skips + (size_t)l * BT * D + m.row0 * D +
+                                 m.c * kCW;
+#pragma unroll
+                    for (int i = 0; i < kCMT; ++i)
+#pragma unroll
+                      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+                        for (int hf = 0; hf < 2; ++hf) {
+                          const int row = crow(t, i, hf);
+                          if (ctile(t, i) < m.ml && row < m.nrow)
+                            st2(skip + (size_t)row * D + ccol(t, nt),
+                                r[i][nt][2 * hf], r[i][nt][2 * hf + 1]);
+                        }
+                  }
+                  if (l + 1 < a.L) {
+                    store_slice(r, m.xa, m);
+                    push_slice(m.xa, m);
+                  }
+                });
   }
 
   // final LayerNorm
-  block_layernorm_rows(m.r, D, nullptr, 0, m.xb, ld, D, a.norm_w, a.norm_b);
-  __syncthreads();
-  for (int i = tid; i < nrow * D; i += blockDim.x)
-    a.out[row0 * D + i] = m.xb[(i / D) * ld + i % D];
+  cluster_ln(r, m, a.norm_w, a.norm_b);
+  bf16* out = a.out + m.row0 * D + m.c * kCW;
+#pragma unroll
+  for (int i = 0; i < kCMT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = crow(t, i, hf);
+        if (ctile(t, i) < m.ml && row < m.nrow)
+          st2(out + (size_t)row * D + ccol(t, nt), r[i][nt][2 * hf],
+              r[i][nt][2 * hf + 1]);
+      }
 }
 
 }  // namespace
@@ -100,15 +125,17 @@ LADIFF_ERROR_STRING_FN
 
 // ptrs: x, extra, kvalid, values, ca_ss, ffn_ss, 24 stacked weights (see
 // ops/md_layer.py _PARAM_ORDER), lin_w, lin_b, norm_w, norm_b, skips, out.
-// ints: B, T, E, D, H, F1, F2, L.
+// ints: B, T, E, D, H, F1, F2, L, then the launch geometry
+// (ops/md_layer.py md_geometry): samples per row group, row groups,
+// cluster size.
 extern "C" int md_stack_forward(const void** p, const int* n, const float*,
                                 void* stream) {
-  StackArgs a;
+  MDClusterArgs a = {};
   const bf16** w = reinterpret_cast<const bf16**>(p);
   a.x = w[0];
   a.extra = w[1];
   a.kvalid = reinterpret_cast<const float*>(p[2]);
-  a.values = w[3];
+  a.value = w[3];
   a.ca_ss = w[4];
   a.ffn_ss = w[5];
   for (int k = 0; k < kMDParams; ++k) a.w[k] = w[6 + k];
@@ -117,15 +144,15 @@ extern "C" int md_stack_forward(const void** p, const int* n, const float*,
   a.skips = const_cast<bf16*>(q[4]);
   a.out = const_cast<bf16*>(q[5]);
   a.B = n[0]; a.T = n[1]; a.E = n[2]; a.D = n[3]; a.H = n[4]; a.F1 = n[5];
-  a.F2 = n[6]; a.L = n[7];
-  if (a.T < 1 || a.E < 1 || a.T > kRows || a.E > kRows || a.D > kChunk ||
-      a.D % 32 || a.F1 % kKT || a.F2 % kKT || a.L < 1 || a.L % 2 == 0)
-    return cudaErrorInvalidValue;
-  a.spb = md_samples_per_block(a.T, a.E);
-  const size_t bytes = md_layout(a.D, a.F1, a.F2).total;
+  a.F2 = n[6]; a.L = n[7]; a.spg = n[8]; a.groups = n[9]; a.C = n[10];
   static SmemGrant grant;
-  if (!allow_smem(md_stack_kernel, bytes, grant)) return cudaErrorInvalidValue;
-  const int grid = (a.B + a.spb - 1) / a.spb;
-  md_stack_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  return md_cluster_launch(md_stack_kernel, a, grant,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of D / 64 CTAs of this kernel that can be resident at once at
+// width D and FFN widths F1, F2 (0 when the query fails).
+extern "C" int md_stack_slots(int D, int F1, int F2) {
+  static SmemGrant grant;
+  return md_cluster_slots(md_stack_kernel, D, F1, F2, grant);
 }

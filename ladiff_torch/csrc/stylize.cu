@@ -6,8 +6,8 @@
 // the row's mask -> LayerNorm -> AdaLN (scale, shift of the row's sample)
 // -> SiLU into a bf16 row block in shared memory; then the projection, and
 // out = x + proj + b with x read once from global memory.  The row segment
-// is K1's "ca" one (md_layer_body.cuh ca_rows).
-#include "md_layer_body.cuh"
+// is md_rows.cuh ca_rows.
+#include "md_rows.cuh"
 
 using namespace ladiff;
 

@@ -6,10 +6,10 @@
 // residual), the GELU FFN in 256-column chunks of the hidden width (the
 // hidden row block stays in shared memory), then per row by one warp: + b2
 // -> LayerNorm -> AdaLN (scale, shift of the row's sample) -> SiLU, and the
-// out-projection + residual.  The row segment is K1's last one
-// (md_layer_body.cuh stylize_rows).
+// out-projection + residual.  The row segment is md_rows.cuh
+// stylize_rows.
 #include "ffn_tail.cuh"
-#include "md_layer_body.cuh"
+#include "md_rows.cuh"
 
 using namespace ladiff;
 

@@ -14,15 +14,19 @@ layer.  Activations are rounded to bf16 at each layer boundary, as the
 per-layer path rounds them.
 
 What bounds it on the H100: at the sampling shape (2B = 512 samples x 5
-rows, D 256, F 1024, 9 layers) one launch is 9 K1 layers (~7.8 GFLOP each)
-plus 4 skip products (~0.7 GFLOP each) against ~27 MB of weights, so the
-tensor cores bound it: ~0.075 ms.  The design (``csrc/md_stack.cu``): one
-block per group of whole samples (6 samples of 5 rows, 86 blocks for 512
-samples: the card's 132 SMs are under-filled) runs all layers with K1's
-body (``csrc/md_layer_body.cuh``), every intermediate in shared memory;
-the skips go to a global scratch that only the writing block reads back
-(L2-resident); weights stream from L2 as in K1.  It has no backward: on
-CUDA tensors it raises while a gradient is required.
+rows, D 256, F 1024, 9 layers) one launch is 9 K1 layers (~7.7 GFLOP
+each) plus 4 skip products (~0.7 GFLOP each) against 26 MB of bf16
+weights, so the tensor cores bound it: ~0.072 ms.  The design
+(``csrc/md_stack.cu``): one cluster of D / 64 CTAs per row group of whole
+samples (K1's geometry, ``md_geometry``) runs all layers with K1's
+cluster body (``csrc/md_body_cluster.cuh``): each CTA computes its 64
+columns of every product, the weight slices stream from one layer into
+the next, and every intermediate stays in shared memory or registers; a
+skip Linear is split on its output columns like the layers' products,
+the CTAs exchanging their skip columns first.  The skips go to a global
+scratch in which each CTA writes and reads back its own columns
+(L2-resident).  It has no backward: on CUDA tensors it raises while a
+gradient is required.
 """
 from __future__ import annotations
 
@@ -34,8 +38,8 @@ from torch import nn
 
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
-from ladiff_torch.ops.md_layer import (_PARAM_ORDER, md_layer_plain,
-                                       md_layer_supported)
+from ladiff_torch.ops.md_layer import (_PARAM_ORDER, md_launch_geometry,
+                                       md_layer_plain, md_layer_supported)
 
 __all__ = ["fused_md_stack", "md_stack_plain", "stack_md_params",
            "STACK_PARAM_ORDER"]
@@ -117,6 +121,7 @@ def fused_md_stack(x, extra, kvalid, values, ca_ss, ffn_ss, stacked, *,
                      "values": values, "ca_ss": ca_ss, "ffn_ss": ffn_ss,
                      **{k: stacked[k] for k in STACK_PARAM_ORDER}},
                     f32=("kvalid",))
+    g = md_launch_geometry("md_stack", x.device, B, T, E, D, F1, F2)
     skips = torch.empty(max(nb, 1), BT, D, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     launch("md_stack", "md_stack_forward", x.device,
@@ -124,6 +129,7 @@ def fused_md_stack(x, extra, kvalid, values, ca_ss, ffn_ss, stacked, *,
             values.data_ptr(), ca_ss.data_ptr(), ffn_ss.data_ptr(),
             *[stacked[k].data_ptr() for k in STACK_PARAM_ORDER],
             skips.data_ptr(), out.data_ptr()],
-           [B, T, E, D, H, F1, F2, L])
+           [B, T, E, D, H, F1, F2, L, g["samples_per_group"],
+            g["row_groups"], g["cluster"]])
     fused_md_stack.launches += 1
     return out

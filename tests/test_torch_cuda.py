@@ -68,23 +68,38 @@ def _f32(p):
     return {k: v.float() for k, v in p.items()}
 
 
+def _md_valid(B, T, dev, seed=3):
+    """Mixed latent lengths for B samples of T rows; the first of several
+    samples has no valid latent (it attends over its extra rows only)."""
+    lengths = np.random.RandomState(seed).randint(1, T + 1, B)
+    if B > 1:
+        lengths[0] = 0
+    return _mask(lengths, T, dev).reshape(-1).contiguous()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,spg", [(1, 0), (13, 0), (13, 4), (512, 0)])
+@pytest.mark.parametrize("T", [1, 5])
 @pytest.mark.parametrize("shared_rows", [True, False])
 @torch.no_grad()
-def test_md_layer_kernel(dev, shared_rows):
-    from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_plain
+def test_md_layer_kernel(dev, shared_rows, T, B, spg):
+    """K1 against its float32 plain version: the geometry the wrapper picks
+    and (spg 4) row groups of 4 samples, the last one partial; row tiles
+    partly filled at T 1 and 5."""
+    from ladiff_torch.ops import md_layer
+    from ladiff_torch.ops.md_layer import md_layer_plain
     from ladiff_torch.ops.stylization import MDTransformerLayer
-    D, H, T, E, B = 256, 4, 5, 2, 37  # B: a partial last sample block
+    D, H, E = 256, 4, 2
     layer = _randomize(MDTransformerLayer(D, D, 1024, H), 1).to(dev,
                                                                 torch.bfloat16)
     g = torch.Generator().manual_seed(2)
     bf = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)
     rows = 1 if shared_rows else B
-    kvalid = _mask(np.random.RandomState(3).randint(1, T + 1, B), T, dev)
-    args = (bf(B * T, D), bf(B * E, D), kvalid.reshape(-1).contiguous(),
+    args = (bf(B * T, D), bf(B * E, D), _md_valid(B, T, dev),
             bf(B, D), 0.3 * bf(rows, 2 * D), 0.3 * bf(rows, 2 * D))
     p = layer.kernel_params()
-    got = fused_md_layer(*args, p, T=T, E=E, H=H)
+    got = (md_layer._launch(*args, p, T=T, E=E, H=H, spg=spg) if spg else
+           md_layer.fused_md_layer(*args, p, T=T, E=E, H=H))
     want = md_layer_plain(*[a.float() for a in args], _f32(p), T=T, E=E, H=H)
     assert _relerr(got, want) <= TOL
 
@@ -998,16 +1013,20 @@ def _route_setup(dev, D=256, H=4, L=5, B=37, T=5, seed=21):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 13, 512])
+@pytest.mark.parametrize("T", [1, 5])
 @pytest.mark.parametrize("masked", [True, False])
 @torch.no_grad()
-def test_md_stack_kernel(dev, masked):
+def test_md_stack_kernel(dev, masked, T, B):
     """Kernel 11 over a 5-layer stack (two skips) against its float32
-    plain version; 37 samples leave a partial last block."""
+    plain version, at sample counts that leave partial row groups and row
+    tiles (one sample without a valid latent where masked); the same inputs
+    give the same bits."""
     from ladiff_torch.ops.md_stack import fused_md_stack, md_stack_plain
-    D, H, L, B, T, E = 256, 4, 5, 37, 5, 2
-    enc, _, kvalid, _, _ = _route_setup(dev, D, H, L, B, T)
-    if not masked:
-        kvalid = torch.ones_like(kvalid)
+    D, H, L, E = 256, 4, 5, 2
+    enc, _, _, _, _ = _route_setup(dev, D, H, L, B, T)
+    kvalid = (_md_valid(B, T, dev) if masked else
+              torch.ones(B * T, device=dev))
     st = enc.stacked_params(torch.bfloat16)
     args = (_bf(dev, B * T, D), _bf(dev, B * E, D, seed=12), kvalid,
             _bf(dev, L, B, D, seed=13), _bf(dev, L, 2 * D, seed=14, scale=0.3),
@@ -1016,6 +1035,7 @@ def test_md_stack_kernel(dev, masked):
     want = md_stack_plain(*[a.float() for a in args], _f32(st), T=T, E=E,
                           H=H)
     assert _relerr(got, want) <= TOL
+    assert torch.equal(got, fused_md_stack(*args, st, T=T, E=E, H=H))
 
 
 @pytest.mark.cuda

@@ -249,20 +249,61 @@ def test_md_layer_per_block_route_matches_jax(calls, case):
 
 
 def test_md_layer_route_gate():
-    """Every published MD shape takes K1; a head width above 128, more
-    text tokens or training mode take the per-block route."""
-    from ladiff_torch.ops.md_layer import md_layer_supported
+    """Every published MD shape takes K1; a head split across the
+    cluster's CTAs (head width 256 or 128 at D 256), a width that is not a
+    multiple of 64, an FFN width that is not a multiple of D, a shape whose
+    CTA needs more shared memory than the card has, more text tokens or
+    training mode take the per-block route."""
+    from ladiff_torch.ops.md_layer import md_layer_supported, md_smem_bytes
     from ladiff_torch.ops.stylization import MDTransformerLayer as TL
     assert md_layer_supported(512, 5, 2, 256, 4, 1024, 1024)
     assert not md_layer_supported(512, 5, 2, 256, 1, 1024, 1024)
     assert not md_layer_supported(512, 33, 2, 256, 4, 1024, 1024)
     assert not md_layer_supported(512, 5, 2, 512, 8, 1024, 1024)
+    # the cluster body: C = D / 64 CTAs, whole heads in each CTA
+    assert not md_layer_supported(512, 5, 2, 256, 2, 1024, 1024)
+    assert md_layer_supported(512, 5, 2, 256, 8, 1024, 1024)
+    assert not md_layer_supported(512, 5, 2, 96, 2, 1024, 1024)
+    assert not md_layer_supported(512, 5, 2, 128, 32, 1024, 1024)
+    assert md_layer_supported(3, 5, 2, 128, 2, 1024, 256)
+    assert md_layer_supported(3, 5, 2, 64, 4, 1024, 128)
+    assert not md_layer_supported(512, 5, 2, 256, 4, 1000, 1024)
+    assert md_layer_supported(1, 32, 32, 256, 4, 1024, 1024)
+    assert not md_layer_supported(1, 5, 33, 256, 4, 1024, 1024)
+    # shared memory: the published shape fits an H100's 227 KB per block,
+    # the FFN partials of F 2048 at D 256 do not
+    assert md_smem_bytes(256, 1024, 1024) == 232320
+    assert md_smem_bytes(256, 1024, 2048) > 232448
+    assert not md_layer_supported(512, 5, 2, 256, 4, 1024, 2048)
+    # the weight segments of a layer fit the CTA's table of 48
+    assert not md_layer_supported(3, 5, 2, 64, 4, 1024, 4096)
     layer = TL(256, 256, 1024, 4).eval()
     x, xf = torch.zeros(2, 5, 256), torch.zeros(2, 1, 256)
     assert layer.takes_whole_layer(x, xf)
     assert not layer.takes_whole_layer(x, torch.zeros(2, 9, 256))
     assert not layer.train().takes_whole_layer(x, xf)
     assert not TL(256, 256, 1024, 1).eval().takes_whole_layer(x, xf)
+
+
+@pytest.mark.parametrize("B", [1, 7, 128, 512])
+def test_md_launch_geometry(B):
+    """K1's and kernel 11's row groups cover every sample exactly once, in
+    whole samples of at most 96 latent and 48 extra rows; at 2B = 512
+    samples on the 30 clusters an H100 holds they fill the card once (29
+    groups of 18 samples, 116 CTAs); a requested group size is capped."""
+    from ladiff_torch.ops.md_layer import md_geometry
+    for T, E, D, slots in ((5, 2, 256, 32), (1, 2, 128, 66), (32, 2, 64, 7)):
+        spg, groups, C, ctas = md_geometry(B, T, E, D, slots)
+        assert C == D // 64 and ctas == groups * C
+        assert spg * T <= 96 and spg * E <= 48 and spg >= 1
+        covered = [s for g in range(groups)
+                   for s in range(g * spg, min(B, (g + 1) * spg))]
+        assert covered == list(range(B))
+        if spg < min(96 // T, 48 // E):  # not capped: one cluster per slot
+            assert groups <= slots
+    assert md_geometry(512, 5, 2, 256, 30) == (18, 29, 4, 116)
+    assert md_geometry(B, 5, 2, 256, 30, spg=99)[0] == 19
+    assert md_geometry(B, 5, 2, 256, 30, spg=4)[:2] == (4, -(-B // 4))
 
 
 # -- the VAE decoder layer's route at inference ----------------------------
