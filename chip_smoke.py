@@ -65,7 +65,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
             other seed other output.  Then ``kernels_decoder_stream``: the
             training kernels compared again at the decoder's 128 x 196 rows.
             Then ``kernels_md_sa_block_stream``: the training FFN tail with
-            ReLU at the denoiser's 640 and 20 rows, dropout 0 and 0.1.
+            ReLU at the denoiser's 640 and 20 rows and at 1000 (not a
+            multiple of the 64-row block), dropout 0 and 0.1, and at 640
+            rows timed (its ``kernels`` rows with the stage-2 path);
+            ``kernel9_bwd_bits``: its backward's bits equal over two runs.
+            ``ffn_breakdown``: kernel 9's backward launch by launch at
+            128 x 206 and 640 rows, its forward at 640 rows, kernel 5 at
+            2560 and 26368 rows (device ms), the launch geometry of each
+            (64-row blocks, CTAs a block C, the card's slots), and kernel
+            5 at 2560 rows and kernel 9's forward at 640 rows on C = 1, 2
+            and 4 CTAs a block (compared and timed).
 6. train_slice    ``vae_forward`` loss and every parameter's gradient, name
             by name, at batch 4 with mixed lengths and dropout 0 on the
             card (kernels, bf16 compute, float32 parameters) against the
@@ -186,6 +195,9 @@ EXPECTED_FULL_CONTEXT_PER_BATCH = {
 # kernel 5 runs on two paths, and the ``kernels`` line has a row for each
 KERNEL5_VAE_PATH = "VAE encoder layer tail, GELU, 128 x 206 rows"
 KERNEL5_MD_PATH = "MD sa_block tail, ReLU, 512 x 5 rows"
+# kernel 9 likewise: the VAE layers' tails, and the MD sa_block's tail in
+# stage 2 (its launches counted on the stage-2 and joint steps)
+KERNEL9_MD_PATH = "MD sa_block tail, ReLU, 128 x 5 rows"
 EXPECTED_PER_STEP = {"train_self_attention": 18,
                      "train_self_attention_bwd": 18,
                      "train_postnorm_ffn": 18, "train_postnorm_ffn_bwd": 18}
@@ -722,6 +734,7 @@ def phase_route_kernels(dev):
                                            md_launch_geometry, md_layer_plain)
     from ladiff_torch.ops.md_stack import fused_md_stack, md_stack_plain
     from ladiff_torch.ops.postnorm_ffn import (FFN_PARAM_ORDER,
+                                               ffn_launch_geometry,
                                                fused_postnorm_ffn,
                                                postnorm_ffn_plain)
     from ladiff_torch.ops.stylization import (MDSkipTransformerEncoder,
@@ -881,7 +894,8 @@ def phase_route_kernels(dev):
         lambda: postnorm_ffn_plain(x5.float(), f32(pf), activation="relu"),
         lambda: postnorm_ffn_plain(x5, pf, activation="relu"),
         4 * M * D * F5, nbytes(x5, *pf.values(), x5),
-        extra={"path": KERNEL5_MD_PATH})
+        extra={"path": KERNEL5_MD_PATH, "geometry": ffn_launch_geometry(
+            "postnorm_ffn", dev, M, D, F5)})
     rec["path"] = KERNEL5_MD_PATH
     recs.append(rec)
     return recs
@@ -1024,6 +1038,7 @@ def phase_train_kernels(dev):
     from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
                                                    masked_attention_plain)
     from ladiff_torch.ops.postnorm_ffn import (FFN_PARAM_ORDER,
+                                               ffn_launch_geometry,
                                                fused_postnorm_ffn,
                                                postnorm_ffn_plain)
     from ladiff_torch.ops.train_attention import (
@@ -1081,7 +1096,9 @@ def phase_train_kernels(dev):
         lambda: fused_postnorm_ffn(x, pf, activation="gelu"),
         lambda: postnorm_ffn_plain(x.float(), f32(pf), activation="gelu"),
         lambda: postnorm_ffn_plain(x, pf, activation="gelu"),
-        gb, nbytes(x, x) + p_bytes, extra={"path": KERNEL5_VAE_PATH})
+        gb, nbytes(x, x) + p_bytes,
+        extra={"path": KERNEL5_VAE_PATH, "geometry": ffn_launch_geometry(
+            "postnorm_ffn", dev, M, D, F)})
     rec["path"] = KERNEL5_VAE_PATH
     recs.append(rec)
 
@@ -1156,7 +1173,9 @@ def phase_train_kernels(dev):
         lambda: train_postnorm_ffn_fwd(x, pf, **kw),
         lambda: train_postnorm_ffn_plain(x.float(), f32(pf), masks),
         lambda: train_postnorm_ffn_plain(x, pf, mb),
-        gb, nbytes(x, x) + p_bytes, extra={"rate": RATE}))
+        gb, nbytes(x, x) + p_bytes,
+        extra={"rate": RATE, "geometry": ffn_launch_geometry(
+            "train_ffn", dev, M, D, F)}))
     # the gradient needs dy W2, da W1 and the two weight gradients; the
     # forward's recompute is not needed work
     recs.append(check_kernel(
@@ -1258,6 +1277,15 @@ def phase_train_kernels(dev):
             and all(abs(k - (1 - RATE)) <= 0.005 for k in keep.values())):
         fail("dropout: keep fraction or seed behaviour is off")
     del masks, mb, saved, a, f_a
+    # kernel 9's backward sums over rows in a fixed order: equal bits
+    runs = [flat(*train_postnorm_ffn_bwd(x, dout, pf, **kw))
+            for _ in range(2)]
+    bits = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+    emit({"phase": "kernel9_bwd_bits", "rows": M, "rate": RATE,
+          "bits_equal_over_two_runs": bits})
+    if not bits:
+        fail("train_postnorm_ffn_bwd: two runs on the same inputs differ")
+    del runs
 
     # the decoder stream, which each training step also runs through both
     # kernels: 196 frames and no distribution tokens, so another last key
@@ -1298,8 +1326,9 @@ def phase_train_kernels(dev):
 
     # the MD layer's sa_block tail, which stage 2 runs through kernel 9 with
     # ReLU: 128 x 5 = 640 rows at full width (one row range in the split
-    # weight-gradient reduction) and the small slice's 4 x 5 = 20 rows (one
-    # partial 32-row block); compared only, dropout 0 and 0.1.  The
+    # weight-gradient reduction; the forward on clusters), the small
+    # slice's 4 x 5 = 20 rows (one partial 64-row block), and 1000 rows (a
+    # partial last block); compared only, dropout 0 and 0.1.  The
     # gradients downstream of the ReLU's derivative (da: dx, ln1, w1, b1)
     # have its tolerance, the others (dy, gd: w2, b2, ln2) the common one
     relu = randomize_(TransformerEncoderLayer(D, H, F, "relu"), 32).to(
@@ -1311,7 +1340,7 @@ def phase_train_kernels(dev):
     pr = {k: pr[k].detach() for k in FFN_PARAM_ORDER}
     after_relu = ("w2", "b2", "ln2_w", "ln2_b")
     errs = {}
-    for rows in (640, 20):
+    for rows in (640, 20, 1000):
         x3, dout3 = rnd(rows, D), rnd(rows, D, scale=0.1)
         for rate in (0.0, RATE):
             kw3 = dict(activation="relu", rate=rate, seed=SEED)
@@ -1335,11 +1364,107 @@ def phase_train_kernels(dev):
                           {k: v for k, v in want.items()
                            if k not in after_relu}, RELU_GRAD_TOL)[0]
             errs[case] = {"fwd": e_f, "bwd_after_relu": e_b,
-                          "bwd_through_relu": e_r}
+                          "bwd_through_relu": e_r,
+                          "geometry": ffn_launch_geometry(
+                              "train_ffn", dev, rows, D, F)}
     emit({"phase": "kernels_md_sa_block_stream", "worst_rel_err": errs,
           "tol": KERNEL_TOL, "grad_tol": GRAD_TOL,
           "relu_grad_tol": RELU_GRAD_TOL})
+    # kernel 9 as stage 2 runs it, timed: 640 rows, ReLU, dropout 0.1 (the
+    # forward on clusters); the gradients through the ReLU's tolerance
+    x3, dout3 = rnd(640, D), rnd(640, D, scale=0.1)
+    masks = train_postnorm_ffn_masks(640, D, F, RATE, SEED, dev)
+    mb = tuple(m.to(bf) for m in masks)
+    kw3 = dict(activation="relu", rate=RATE, seed=SEED)
+    pr_bytes = nbytes(*pr.values())
+    md = {"path": KERNEL9_MD_PATH, "rate": RATE}
+    recs.append(check_kernel(
+        "train_postnorm_ffn", "ladiff_torch/csrc/train_ffn.cu",
+        "ladiff_tpu/ops/pallas_train_ffn.py:209",
+        lambda: train_postnorm_ffn_fwd(x3, pr, **kw3),
+        lambda: train_postnorm_ffn_plain(x3.float(), f32(pr), masks,
+                                         activation="relu"),
+        lambda: train_postnorm_ffn_plain(x3, pr, mb, activation="relu"),
+        4 * 640 * D * F, nbytes(x3, x3) + pr_bytes,
+        extra={**md, "geometry": ffn_launch_geometry(
+            "train_ffn", dev, 640, D, F)}))
+    recs[-1]["path"] = KERNEL9_MD_PATH
+    recs.append(check_kernel(
+        "train_postnorm_ffn_bwd", "ladiff_torch/csrc/train_ffn.cu",
+        "ladiff_tpu/ops/pallas_train_ffn.py:209",
+        lambda: flat(*train_postnorm_ffn_bwd(x3, dout3, pr, **kw3)),
+        lambda: flat(*train_postnorm_ffn_bwd_plain(
+            *up(x3, dout3), f32(pr), masks, activation="relu")),
+        lambda: train_postnorm_ffn_bwd_plain(x3, dout3, pr, mb,
+                                             activation="relu"),
+        8 * 640 * D * F, nbytes(x3, dout3, x3) + 3 * pr_bytes,
+        tol=RELU_GRAD_TOL, extra=md))
+    recs[-1]["path"] = KERNEL9_MD_PATH
+    del masks, mb
+    _ffn_breakdown(dev, x, dout, pf, pr, rnd, RATE, SEED)
     return recs
+
+
+def _ffn_breakdown(dev, x, dout, pf, pr, rnd, rate, seed):
+    """``ffn_breakdown``: kernel 9's backward launch by launch at the
+    encoder's rows (GELU) and at the denoiser's 640 (ReLU), its forward at
+    640 rows, and kernel 5 at the MD tail's 2560 rows (ReLU) and at the
+    encoder's rows (GELU): device ms per call, dropout ``rate``; the launch
+    geometry of each; kernel 5 at 2560 rows and kernel 9's forward at 640
+    on C = 1, 2 and 4 CTAs a block, each compared with its plain version
+    and timed."""
+    from ladiff_torch.ops.postnorm_ffn import (ffn_launch_geometry,
+                                               fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    from ladiff_torch.ops.train_ffn import (train_postnorm_ffn_bwd,
+                                            train_postnorm_ffn_fwd,
+                                            train_postnorm_ffn_masks,
+                                            train_postnorm_ffn_plain)
+    M, D = x.shape
+    F = pf["w1"].shape[0]
+    kw = dict(rate=rate, seed=seed)
+    relu = dict(activation="relu", **kw)
+    x640, d640, x2560 = rnd(640, D), rnd(640, D, scale=0.1), rnd(2560, D)
+    f32 = {k: v.float() for k, v in pr.items()}
+    m640 = train_postnorm_ffn_masks(640, D, F, rate, seed, dev)
+    want5 = postnorm_ffn_plain(x2560.float(), f32, activation="relu")
+    want9 = train_postnorm_ffn_plain(x640.float(), f32, m640,
+                                     activation="relu")
+    sweep = {"kernel5 2560 rows, relu": {}, "kernel9_fwd 640 rows, relu": {}}
+    for C in (1, 2, 4):
+        k5 = lambda: fused_postnorm_ffn(x2560, pr, activation="relu",
+                                        cluster=C)
+        k9 = lambda: train_postnorm_ffn_fwd(x640, pr, cluster=C, **relu)
+        sweep["kernel5 2560 rows, relu"][C] = {
+            "rel_err": compare(f"fused_postnorm_ffn, 2560 rows, C {C}", k5(),
+                               want5, KERNEL_TOL)[0], "ms": device_ms(k5)}
+        sweep["kernel9_fwd 640 rows, relu"][C] = {
+            "rel_err": compare(f"train_postnorm_ffn, 640 rows, C {C}", k9(),
+                               want9, KERNEL_TOL)[0], "ms": device_ms(k9)}
+    emit({"phase": "ffn_breakdown", "rate": rate,
+          "kernel9_bwd": {
+              f"{M} rows, gelu": launch_breakdown(
+                  lambda: train_postnorm_ffn_bwd(x, dout, pf, **kw)),
+              "640 rows, relu": launch_breakdown(
+                  lambda: train_postnorm_ffn_bwd(x640, d640, pr, **relu))},
+          "kernel9_fwd_ms": {
+              "640 rows, relu": device_ms(
+                  lambda: train_postnorm_ffn_fwd(x640, pr, **relu))},
+          "kernel5_ms": {
+              "2560 rows, relu": device_ms(
+                  lambda: fused_postnorm_ffn(x2560, pr, activation="relu")),
+              f"{M} rows, gelu": device_ms(
+                  lambda: fused_postnorm_ffn(x, pf, activation="gelu"))},
+          "geometry": {
+              "kernel5 2560 rows": ffn_launch_geometry(
+                  "postnorm_ffn", dev, 2560, D, F),
+              f"kernel5 {M} rows": ffn_launch_geometry(
+                  "postnorm_ffn", dev, M, D, F),
+              "kernel9_fwd 640 rows": ffn_launch_geometry(
+                  "train_ffn", dev, 640, D, F),
+              f"kernel9_fwd {M} rows": ffn_launch_geometry(
+                  "train_ffn", dev, M, D, F)},
+          "cluster_sweep": sweep})
 
 
 def _vae_loss_and_grads(system, batch, eps, std, lambda_joint):
@@ -2485,7 +2610,8 @@ def main():
     diffusion_counts, entry_counts = out["diffusion_bench"], out["train_entry"]
     # each kernel's launches on the path that runs it: generation for K1-K4,
     # the stage-1 training steps and their validation pass for kernels 5, 8
-    # and 9, the stage-2 and joint steps for kernel 10; the stack route for
+    # and 9, the stage-2 and joint steps for kernel 10 and for kernel 9 as
+    # the MD sa_block's tail; the stack route for
     # kernel 11, the full-context route for kernel 6 and for kernel 5 as
     # the MD sa_block's tail, the one-token per-block route (head width
     # 256) for kernel 7; the training entry point's stage-1 runs on the
@@ -2502,7 +2628,7 @@ def main():
     recs += route_recs
     for rec in train_recs:
         path = (diffusion_counts if rec["name"] == "fused_masked_attention"
-                else train_counts)
+                or rec.get("path") == KERNEL9_MD_PATH else train_counts)
         rec["launches"] = path[rec["name"]]
     recs += train_recs
     for rec in whole_recs:

@@ -137,7 +137,7 @@ _GROUPS = (
     ("fused_md_stack (kernel 11)", r"md_stack_kernel"),
     ("fused_stylized_ffn (kernel 6)", r"stylized_ffn_kernel"),
     ("fused_broadcast_stylize (kernel 7)", r"stylize_kernel"),
-    ("fused_postnorm_ffn (kernel 5)", r"postnorm_ffn_kernel"),
+    ("fused_postnorm_ffn (kernel 5)", r"ffn_tail_fwd_kernel"),
     ("fused_ln_qkv (K3)", r"ln_qkv_kernel"),
     ("fused_proj_mlp (K4)", r"proj_mlp_kernel"),
     ("fused_decoder_layer (K2)",

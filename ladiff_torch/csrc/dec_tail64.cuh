@@ -229,12 +229,8 @@ dec_tail_fwd_kernel(DecTail64 a) {
   const int nrow = min(kTRows, (int)(a.M - row0));
   float h[kTMT][NT][4], mean[kTMT][2], rstd[kTMT][2];
   dec_front<NT, kDrop, false>(h, mean, rstd, a, m, row0, nrow);
-  float y[kTMT][NT][4];
-  ffn_forward<NT, kDrop>(y, a.ffn, a.drop, m, row0, nrow, nullptr);
-  residual_add<NT, kDrop>(h, y, a.ffn.b2, a.drop, kMaskDecOut, row0);
-  tail_normalize(h, D, m.red, mean, rstd);
-  tail_affine(h, a.ffn.ln_w, a.ffn.ln_b);
-  store_rows(h, nullptr, 0, a.out, row0, nrow);
+  ffn_seg_forward<NT, kDrop>(h, a.ffn, a.drop, kMaskDecOut, m, row0, nrow,
+                             a.out);
 }
 
 // Internal linkage: each library keeps its own shared-memory grants (see

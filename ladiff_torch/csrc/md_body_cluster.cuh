@@ -43,6 +43,7 @@
 // 16 (w % 4) + 8 nt + 2 (l % 4) + e % 2 of the CTA's 64.
 #pragma once
 
+#include "cluster.cuh"
 #include "tail64.cuh"
 
 namespace ladiff {
@@ -162,44 +163,6 @@ inline bool md_cluster_valid(const MDClusterArgs& a) {
     return false;
   return (a.ca_stride == 0 || a.ca_stride == 2 * a.D) &&
          (a.ffn_stride == 0 || a.ffn_stride == 2 * a.D);
-}
-
-// ---------------------------------------------------------------------------
-// Cluster primitives.
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
-}
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// The address of shared-memory address a of this CTA in CTA `rank`.
-__device__ __forceinline__ uint32_t peer_addr(uint32_t a, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_peer(uint32_t a, uint4 v) {
-  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n"
-               ::"r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
-}
-__device__ __forceinline__ void st_peer(uint32_t a, float x, float y) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
-               ::"r"(a), "f"(x), "f"(y) : "memory");
 }
 
 // ---------------------------------------------------------------------------

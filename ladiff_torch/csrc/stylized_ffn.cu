@@ -8,12 +8,29 @@
 // -> LayerNorm -> AdaLN (scale, shift of the row's sample) -> SiLU, and the
 // out-projection + residual.  The row segment is md_rows.cuh
 // stylize_rows.
-#include "ffn_tail.cuh"
+#include "common.cuh"
 #include "md_rows.cuh"
 
 using namespace ladiff;
 
 namespace {
+
+// Shared memory of a 32-row block: x rows (bf16), a product chunk (f32),
+// the f32 residual rows, the hidden row block (bf16) and the weight stage.
+struct FfnLayout {
+  size_t xb, cf, r, hid, ws, total;
+};
+
+inline FfnLayout ffn_layout(int D, int F) {
+  FfnLayout L;
+  L.xb = 0;
+  L.cf = align128(L.xb + kRows * (D + 8) * sizeof(bf16));
+  L.r = align128(L.cf + kRows * (kChunk + 4) * sizeof(float));
+  L.hid = align128(L.r + kRows * D * sizeof(float));
+  L.ws = align128(L.hid + kRows * (F + 8) * sizeof(bf16));
+  L.total = align128(L.ws + kWStageBytes);
+  return L;
+}
 
 struct SFArgs {
   const bf16 *x, *ss, *w1, *b1, *w2, *b2, *ln_w, *ln_b, *w3, *b3;

@@ -1,6 +1,7 @@
 // Building blocks of the tails and projections on 64-row blocks: kernel
 // 12's (train_layer.cu), kernel 13's and K2's (dec_tail64.cuh,
-// train_decoder_layer.cu, decoder_layer.cu).
+// train_decoder_layer.cu, decoder_layer.cu), and the FFN tail of kernels 5
+// and 9 (ffn_tail64.cuh).
 //
 // A block of 16 warps owns 64 rows: warp w computes the 16-row tile w / 4
 // and one quarter of the output columns (about 80 accumulator registers a
@@ -9,7 +10,7 @@
 // operand (activations, bf16) is in shared memory and reaches the tensor
 // cores through ldmatrix; the weight streams through a three-stage cp.async
 // ring of 64-deep k slices, each slice serving all 64 rows (twice the rows a
-// byte of weight served on the 32-row blocks of ffn_tail.cuh).  The
+// byte of weight served on the first port's 32-row blocks).  The
 // epilogues work on the accumulator registers: a LayerNorm's row sums are
 // quad shuffles plus one 4-way exchange through shared memory, its column
 // sums (the weight gradients' partials) shuffles plus one kTRowWarps-way
@@ -317,6 +318,25 @@ __device__ __forceinline__ void tail_col_sums(float (&gw)[NT][2],
   }
 }
 
+// The column sums of the thread's 16 kTMT rows of v (N = 32 NT columns) to
+// buf[wr * ld + c0 + column]: one row of buf per row warp, each element
+// written by one lane (no barrier; the reader synchronizes).
+template <int NT>
+__device__ __forceinline__ void col_sums_to(const float (&v)[kTMT][NT][4],
+                                            float* buf, int ld, int c0) {
+  const TailLane t = tail_lane();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      float s = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < kTMT; ++mt) s += v[mt][nt][b] + v[mt][nt][2 + b];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (t.g == 0) buf[t.wr * ld + c0 + tcol<NT>(t, nt) + b] = s;
+    }
+}
 
 // ---------------------------------------------------------------------------
 // The post-norm tails' pieces (kernel 12's encoder tails, the decoder tails of
@@ -547,16 +567,19 @@ __device__ __forceinline__ void hidden_chunk(const float (&u)[kTMT][4][4],
 }
 
 // y = sum over the hidden chunks of bf16(act(h W1^T + b1) * m_hid) W2^T,
-// h (bf16) in xa; gd (may be null) takes the hidden rows.
+// h (bf16) in xa; gd (may be null) takes the hidden rows.  Hidden columns
+// [f0, f1) (f1 0: to F), multiples of kTFC: a cluster's CTA takes its
+// share.
 template <int NT, bool kDrop>
 __device__ __forceinline__ void ffn_forward(float (&y)[kTMT][NT][4],
                                             const FfnSeg& f,
                                             const Dropout& drop,
                                             const TailSmem& m, size_t row0,
-                                            int nrow, bf16* gd) {
+                                            int nrow, bf16* gd, int f0 = 0,
+                                            int f1 = 0) {
   constexpr int D = 32 * NT;
   tail_zero(y);
-  for (int c0 = 0; c0 < f.F; c0 += kTFC) {
+  for (int c0 = f0; c0 < (f1 ? f1 : f.F); c0 += kTFC) {
     float u[kTMT][4][4];
     tail_zero(u);
     tail_gemm<4, false>(u, m.xa, D + 8, f.w1 + (size_t)c0 * D, D, D, m.ring);
@@ -565,19 +588,44 @@ __device__ __forceinline__ void ffn_forward(float (&y)[kTMT][NT][4],
   }
 }
 
+// The FFN segment's forward from its input h (f32; its bf16 copy in xa):
+// out = LN(h + (FFN(h) + b2) * m_out) (keep-mask mask_out) for rows < nrow.
+template <int NT, bool kDrop>
+__device__ __forceinline__ void ffn_seg_forward(float (&h)[kTMT][NT][4],
+                                                const FfnSeg& f,
+                                                const Dropout& drop,
+                                                uint32_t mask_out,
+                                                const TailSmem& m,
+                                                size_t row0, int nrow,
+                                                bf16* out) {
+  constexpr int D = 32 * NT;
+  float mean[kTMT][2], rstd[kTMT][2];
+  float y[kTMT][NT][4];
+  ffn_forward<NT, kDrop>(y, f, drop, m, row0, nrow, nullptr);
+  residual_add<NT, kDrop>(h, y, f.b2, drop, mask_out, row0);
+  tail_normalize(h, D, m.red, mean, rstd);
+  tail_affine(h, f.ln_w, f.ln_b);
+  store_rows(h, nullptr, 0, out, row0, nrow);
+}
+
 // The FFN segment's backward for the block's rows.  Pre: h holds the
 // segment's input (f32) and xa its bf16 copy.  Runs the FFN forward again
 // (the hidden rows to gd), the closing LayerNorm's backward from dout (its
 // weight and bias gradient sums to part[0:2D]), dy = ds * m_out to xb and
 // the scratch, and the FFN's backward in 128-column hidden chunks (da to
 // the scratch, dh accumulating in registers).  Returns in h the gradient
-// of the segment's input: ds + da W1.
-template <int NT, bool kDrop>
+// of the segment's input: ds + da W1.  With kBias, also the block's column
+// sums of da and dy (the bias gradients' partials, f32 before rounding) to
+// bpart[0:F] and bpart[F:F + D], through bbuf (kTRowWarps x (F + D) floats
+// of shared memory).
+template <int NT, bool kDrop, bool kBias = false>
 __device__ __forceinline__ void ffn_ln_bwd(float (&h)[kTMT][NT][4],
                                            const FfnSeg& f,
                                            const Dropout& drop,
                                            const TailSmem& m, size_t row0,
-                                           int nrow, float* part) {
+                                           int nrow, float* part,
+                                           float* bbuf = nullptr,
+                                           float* bpart = nullptr) {
   constexpr int D = 32 * NT;
   const TailLane t = tail_lane();
   float mean[kTMT][2], rstd[kTMT][2];
@@ -624,6 +672,7 @@ __device__ __forceinline__ void ffn_ln_bwd(float (&h)[kTMT][NT][4],
         y[mt][nt][2 * hf + 1] = d1;
       }
   store_rows(y, m.xb, D + 8, f.dy, row0, nrow);
+  if (kBias) col_sums_to<NT>(y, bbuf + f.F, f.F + D, 0);
   // per hidden chunk: da = (dy W2) * m_hid * act'(h W1^T + b1) to the
   // scratch, dh += da W1
   for (int c0 = 0; c0 < f.F; c0 += kTFC) {
@@ -654,11 +703,51 @@ __device__ __forceinline__ void ffn_ln_bwd(float (&h)[kTMT][NT][4],
           }
           st2(m.hid + row * (kTFC + 8) + cc, d0, d1);
           if (row < nrow) st2(f.da + (row0 + row) * f.F + c0 + cc, d0, d1);
+          if (kBias) {
+            gv[mt][nt][2 * hf] = d0;
+            gv[mt][nt][2 * hf + 1] = d1;
+          }
         }
     }
+    if (kBias) col_sums_to<4>(gv, bbuf, f.F + D, c0);
     tail_gemm<NT, true>(h, m.hid, kTFC + 8, f.w1 + (size_t)c0 * D, D, kTFC,
                         m.ring);
   }
+  if (kBias) {
+    // the row warps' sums in a fixed order (tail_gemm ended synchronized)
+    for (int i = threadIdx.x; i < f.F + D; i += kTThreads) {
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < kTRowWarps; ++r) v += bbuf[r * (f.F + D) + i];
+      bpart[i] = v;
+    }
+  }
+}
+
+// LN_a's backward for the block's rows: y holds its input (f32; consumed),
+// mean and rstd its statistics, d the gradient of its output, which becomes
+// its input's; the block's weight and bias gradient sums to part[0:2D].
+template <int NT>
+__device__ __forceinline__ void tail_ln_bwd_rows(float (&y)[kTMT][NT][4],
+                                                 float (&d)[kTMT][NT][4],
+                                                 const float (&mean)[kTMT][2],
+                                                 const float (&rstd)[kTMT][2],
+                                                 const bf16* w,
+                                                 const TailSmem& m,
+                                                 float* part) {
+  constexpr int D = 32 * NT;
+#pragma unroll
+  for (int mt = 0; mt < kTMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[mt][nt][e] = (y[mt][nt][e] - mean[mt][e >> 1]) * rstd[mt][e >> 1];
+  float gw[NT][2], gb[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) gw[nt][0] = gw[nt][1] = gb[nt][0] = gb[nt][1] = 0.f;
+  tail_ln_bwd(y, d, rstd, w, D, m.red, gw, gb);
+  tail_col_sums(gw, gb, D, m.colbuf, part);
 }
 
 // The self-attention segment's out-projection backward for the block's rows,

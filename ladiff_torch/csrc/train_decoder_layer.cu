@@ -73,18 +73,7 @@ dec_tail_bwd_ffn_kernel(DecBwd a) {
   // LN2's backward from the kept r2: h <- dr2
   float y[kTMT][NT][4];
   load_rows_f32(y, f.r2, row0, nrow);
-#pragma unroll
-  for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        y[mt][nt][e] = (y[mt][nt][e] - mean2[mt][e >> 1]) * rstd2[mt][e >> 1];
-  float gw[NT][2], gb[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) gw[nt][0] = gw[nt][1] = gb[nt][0] = gb[nt][1] = 0.f;
-  tail_ln_bwd(y, h, rstd2, f.ln2_w, D, m.red, gw, gb);
-  tail_col_sums(gw, gb, D, m.colbuf, lnpart + 2 * D);
+  tail_ln_bwd_rows(y, h, mean2, rstd2, f.ln2_w, m, lnpart + 2 * D);
   store_rows_f32(h, f.r2, row0, nrow);
 }
 

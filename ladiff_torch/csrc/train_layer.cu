@@ -74,12 +74,8 @@ enc_tail_fwd_kernel(EncTail a) {
   tail_normalize(h, D, m.red, mean, rstd);
   tail_affine(h, a.ln1_w, a.ln1_b);
   store_rows(h, m.xa, D + 8, nullptr, row0, nrow);
-  float y[kTMT][NT][4];
-  ffn_forward<NT, kDrop>(y, a.ffn, a.drop, m, row0, nrow, nullptr);
-  residual_add<NT, kDrop>(h, y, a.ffn.b2, a.drop, kMaskOut, row0);
-  tail_normalize(h, D, m.red, mean, rstd);
-  tail_affine(h, a.ffn.ln_w, a.ffn.ln_b);
-  store_rows(h, nullptr, 0, a.out, row0, nrow);
+  ffn_seg_forward<NT, kDrop>(h, a.ffn, a.drop, kMaskOut, m, row0, nrow,
+                             a.out);
 }
 
 // Per 64-row block, from dout to dctx: the forward tail again (r to the
@@ -116,18 +112,7 @@ enc_tail_bwd_kernel(EncTail a) {
   // LN1's backward from the kept r: h <- dr
   float y[kTMT][NT][4];
   load_rows_f32(y, a.r, row0, nrow);
-#pragma unroll
-  for (int mt = 0; mt < kTMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        y[mt][nt][e] = (y[mt][nt][e] - mean1[mt][e >> 1]) * rstd1[mt][e >> 1];
-  float gw[NT][2], gb[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) gw[nt][0] = gw[nt][1] = gb[nt][0] = gb[nt][1] = 0.f;
-  tail_ln_bwd(y, h, rstd1, a.ln1_w, D, m.red, gw, gb);
-  tail_col_sums(gw, gb, D, m.colbuf, lnpart);
+  tail_ln_bwd_rows(y, h, mean1, rstd1, a.ln1_w, m, lnpart);
   // dr, dattn, dctx and delta
   attn_out_bwd<NT, kDrop>(h, a.ctx, a.out_w, a.drop, kMaskRes, a.dr, a.dattn,
                           a.dctx, a.delta, a.H, m, row0, nrow);

@@ -23,16 +23,26 @@ against the plain version.
 
 What is saved for the backward: ``x``, the bf16 copies of the parameters
 and the seed, nothing else; the backward recomputes h, a, gd, y and both
-LayerNorms per 32-row block (as the TPU kernel does).
+LayerNorms per 64-row block (as the TPU kernel does per row block).
+
+The kernels (``csrc/train_ffn.cu`` on ``csrc/ffn_tail64.cuh``) run
+64-row blocks of 16 warps with the activations in f32 registers: the
+forward is kernel 5's body with dropout, and, where the blocks cannot fill
+the card, a cluster of C CTAs per block splitting the hidden width
+(``postnorm_ffn.ffn_geometry``: 640 rows of the denoiser take C = 4).  The
+backward's row-block launch recomputes LN1 from x, the FFN and LN2, then
+runs LN2's backward, the FFN's backward in 128-column hidden chunks (dh
+accumulating in registers) and LN1's backward from x reloaded.
 
 Weight gradients across blocks.  The row-block launch writes ``h``, ``gd``,
-``da`` and ``dy`` (bf16, the rounding points of the TPU kernel) to scratch;
-``dW1 = da^T h`` and ``dW2 = dy^T gd`` are then split-K tensor-core
-products whose float32 partials go to a workspace and are summed by a
-reduction launch in a fixed order, so gradients are deterministic (no
-atomics).  The bias and LayerNorm gradients follow the same partial +
-reduction scheme.  The wrapper is that fixed sequence of launches, counted
-once.  Parameter gradients are float32; ``dx`` has x's type.
+``da`` and ``dy`` (bf16, the rounding points of the TPU kernel) to scratch,
+and per block the float32 column sums of the LayerNorm gradients and of
+``da`` and ``dy`` (the bias gradients) to a partial buffer, which
+reduction launches sum over the blocks in a fixed order; ``dW1 = da^T h``
+and ``dW2 = dy^T gd`` are split-K tensor-core products whose float32
+partials are summed the same way, so gradients are deterministic (no
+atomics).  The wrapper is that fixed sequence of launches, counted once.
+Parameter gradients are float32; ``dx`` has x's type.
 
 What bounds it on the H100: forward ~27.6 GFLOP, backward ~83 GFLOP (five
 M x D x F products plus the recomputed forward's two) against tens of MB:
@@ -49,7 +59,8 @@ from ladiff_torch.ops.cuda_common import (check_cuda_args, draw_seed,
                                           dropout_mask, launch,
                                           register_kernel, split_seed)
 from ladiff_torch.ops.postnorm_ffn import (ACTIVATIONS, FFN_PARAM_ORDER,
-                                           check_ffn_shape)
+                                           check_ffn_shape,
+                                           ffn_launch_geometry)
 
 __all__ = ["train_postnorm_ffn", "train_postnorm_ffn_fwd",
            "train_postnorm_ffn_bwd", "train_postnorm_ffn_plain",
@@ -148,25 +159,29 @@ def _seed_args(rate: float, seed: int) -> Tuple[int, int]:
 @register_kernel("train_postnorm_ffn")
 def train_postnorm_ffn_fwd(x: torch.Tensor, p, *, activation: str = "gelu",
                            rate: float = 0.0, seed: int = 0,
-                           masks: Masks = None) -> torch.Tensor:
+                           masks: Masks = None, cluster: int = 0
+                           ) -> torch.Tensor:
     """The forward alone (no autograd graph): kernel 9's forward on CUDA
-    tensors (bf16; dropout from ``rate`` and ``seed``), the plain version
-    with ``masks`` on CPU tensors."""
+    tensors (bf16; dropout from ``rate`` and ``seed``; ``cluster`` > 0 sets
+    the CTAs a block, ``ffn_geometry``'s choice by default), the plain
+    version with ``masks`` on CPU tensors."""
     if not x.is_cuda:
         return train_postnorm_ffn_plain(x, p, masks, activation=activation)
     if masks is not None:
         raise ValueError("train_postnorm_ffn: the CUDA kernel draws its own "
                          "masks from (rate, seed)")
-    Fd = check_ffn_shape("train_postnorm_ffn", x, p, activation, 64)
+    Fd = check_ffn_shape("train_postnorm_ffn", x, p, activation)
     check_cuda_args("train_postnorm_ffn",
                     {"x": x, **{k: p[k] for k in FFN_PARAM_ORDER}})
     M, D = x.shape
     lo, hi = _seed_args(rate, seed)
+    g = ffn_launch_geometry("train_ffn", x.device, M, D, Fd, cluster)
     out = torch.empty_like(x)
     ptrs = [x.data_ptr(), *[p[k].data_ptr() for k in FFN_PARAM_ORDER],
             out.data_ptr()]
     launch("train_ffn", "train_ffn_forward", x.device, ptrs,
-           [M, D, Fd, ACTIVATIONS[activation], lo, hi], [rate])
+           [M, D, Fd, ACTIVATIONS[activation], lo, hi, g["cluster"]],
+           [rate])
     train_postnorm_ffn_fwd.launches += 1
     return out
 
@@ -184,35 +199,35 @@ def train_postnorm_ffn_bwd(x: torch.Tensor, dout: torch.Tensor, p, *,
     if masks is not None:
         raise ValueError("train_postnorm_ffn_bwd: the CUDA kernel draws its "
                          "own masks from (rate, seed)")
-    Fd = check_ffn_shape("train_postnorm_ffn_bwd", x, p, activation, 64)
+    Fd = check_ffn_shape("train_postnorm_ffn_bwd", x, p, activation)
     M, D = x.shape
     if dout.shape != x.shape:
         raise ValueError("train_postnorm_ffn_bwd: dout must have x's shape")
     lo, hi = _seed_args(rate, seed)
     dev, bf, f32 = x.device, x.dtype, torch.float32
     split = split_rows(M)
-    nblk = (M + 31) // 32
+    nblk = -(-M // 64)  # the 64-row blocks' LayerNorm and bias partials
     scratch = {"h": torch.empty(M, D, dtype=bf, device=dev),
                "gd": torch.empty(M, Fd, dtype=bf, device=dev),
                "da": torch.empty(M, Fd, dtype=bf, device=dev),
                "dy": torch.empty(M, D, dtype=bf, device=dev)}
-    lnpart = torch.empty(nblk, 4 * D, dtype=f32, device=dev)
+    part = torch.empty(nblk, 5 * D + Fd, dtype=f32, device=dev)
     wpart = torch.empty(split, Fd * D, dtype=f32, device=dev)
     dx = torch.empty_like(x)
     shapes = {k: p[k].shape for k in FFN_PARAM_ORDER}
     grads = {k: torch.empty(shapes[k], dtype=f32, device=dev)
              for k in FFN_PARAM_ORDER}
     check_cuda_args("train_postnorm_ffn_bwd",
-                    {"x": x, "dout": dout, "dx": dx, "lnpart": lnpart,
+                    {"x": x, "dout": dout, "dx": dx, "part": part,
                      "wpart": wpart, **scratch,
                      **{k: p[k] for k in FFN_PARAM_ORDER},
                      **{"d" + k: g for k, g in grads.items()}},
-                    f32=("lnpart", "wpart",
+                    f32=("part", "wpart",
                          *["d" + k for k in FFN_PARAM_ORDER]))
     ptrs = [x.data_ptr(), dout.data_ptr(),
             *[p[k].data_ptr() for k in FFN_PARAM_ORDER], dx.data_ptr(),
             *[scratch[k].data_ptr() for k in ("h", "gd", "da", "dy")],
-            lnpart.data_ptr(), wpart.data_ptr(),
+            part.data_ptr(), wpart.data_ptr(),
             *[grads[k].data_ptr() for k in FFN_PARAM_ORDER]]
     launch("train_ffn", "train_ffn_backward", dev, ptrs,
            [M, D, Fd, ACTIVATIONS[activation], lo, hi, split], [rate])

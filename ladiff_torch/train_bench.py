@@ -141,7 +141,8 @@ _GROUPS = (
     ("fused_md_layer (guided sampling of the joint stage)",
      r"md_layer_kernel"),
     ("fused_masked_attention (frozen encode)", r"attn_tile_kernel"),
-    ("fused_postnorm_ffn (frozen encode)", r"postnorm_ffn_kernel"),
+    ("fused_postnorm_ffn (frozen encode; kernel 9's forward at rate 0 too)",
+     r"ffn_tail_fwd_kernel<\d+, false"),
     ("kernel 12 tail fwd (out-projection to LN2)", r"enc_tail_fwd_kernel"),
     ("kernel 12 tail bwd (dout to dctx)", r"enc_tail_bwd_kernel"),
     ("kernel 13 tail fwd (out-projection to LN3)", r"dec_tail_fwd_kernel"),
@@ -155,9 +156,9 @@ _GROUPS = (
     ("train_self_attention bwd, without weight gradients (the tiled"
      " attention of kernels 12 and 13 and kernel 12's dx too)",
      r"dctx_kernel|attn_bwd_kernel|linear_nn_kernel"),
-    ("train_postnorm_ffn fwd", r"train_ffn_fwd_kernel"),
+    ("train_postnorm_ffn fwd", r"ffn_tail_fwd_kernel"),
     ("train_postnorm_ffn bwd, without weight gradients",
-     r"train_ffn_bwd_kernel"),
+     r"ffn_tail_bwd_kernel"),
     ("weight and bias gradients of both backwards",
      r"ladiff::(wgrad|colsum|reduce)_kernel"),
     ("AdamW", r"multi_tensor_apply|[Aa]dam"),

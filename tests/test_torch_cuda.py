@@ -406,6 +406,92 @@ def test_train_ffn_kernels(dev, rate, activation):
         assert _relerr(grads[k], wgrads[k]) <= tol, k
 
 
+# the FFN tail's path shapes: the MD layers' 2560 rows (kernel 5) and 640
+# rows (kernel 9 in stage 2), the small slice's 20, and a row count that is
+# not a multiple of the 64-row block
+FFN_PATH_ROWS = [2560, 640, 20, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("rows", FFN_PATH_ROWS)
+@torch.no_grad()
+def test_ffn_tail_forward_on_a_cluster(dev, rows, cluster, rate):
+    """Kernel 5 (at rate 0) and kernel 9's forward with ReLU, each 64-row
+    block on C CTAs that split the hidden width (C 1: one CTA a block),
+    against the plain version; the default geometry's result equals the
+    forced one of the same C."""
+    from ladiff_torch.ops.postnorm_ffn import (ffn_launch_geometry,
+                                               fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    from ladiff_torch.ops.train_ffn import (train_postnorm_ffn_fwd,
+                                            train_postnorm_ffn_masks,
+                                            train_postnorm_ffn_plain)
+    D, Fd, seed = 256, 1024, 424242
+    p = _ffn_params(dev)
+    x = _bf(dev, rows, D, seed=rows)
+    kw = dict(activation="relu", rate=rate, seed=seed)
+    masks = (train_postnorm_ffn_masks(rows, D, Fd, rate, seed, dev)
+             if rate else None)
+    got = train_postnorm_ffn_fwd(x, p, cluster=cluster, **kw)
+    want = train_postnorm_ffn_plain(x.float(), _f32(p), masks,
+                                    activation="relu")
+    assert _relerr(got, want) <= TOL
+    if rate == 0.0:
+        got5 = fused_postnorm_ffn(x, p, activation="relu", cluster=cluster)
+        assert _relerr(got5, postnorm_ffn_plain(
+            x.float(), _f32(p), activation="relu")) <= TOL
+        assert torch.equal(got5, got)  # kernel 9 at rate 0 is kernel 5
+    g = ffn_launch_geometry("train_ffn", dev, rows, D, Fd)
+    if g["cluster"] == cluster:
+        assert torch.equal(train_postnorm_ffn_fwd(x, p, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows", FFN_PATH_ROWS)
+@torch.no_grad()
+def test_train_ffn_backward_at_path_rows(dev, rows, rate):
+    """Kernel 9's backward with ReLU at the path's row counts: the
+    gradients downstream of the ReLU's derivative (dx, ln1, w1, b1) within
+    its tolerance, the others within the common one; the bias gradients
+    come from the row-block launch's partials."""
+    from ladiff_torch.ops.train_ffn import (train_postnorm_ffn_bwd,
+                                            train_postnorm_ffn_bwd_plain,
+                                            train_postnorm_ffn_masks)
+    D, Fd, seed = 256, 1024, 2718281828
+    p = _ffn_params(dev)
+    x = _bf(dev, rows, D, seed=rows + 1)
+    dout = _bf(dev, rows, D, seed=rows + 2, scale=0.1)
+    masks = (train_postnorm_ffn_masks(rows, D, Fd, rate, seed, dev)
+             if rate else None)
+    dx, grads = train_postnorm_ffn_bwd(x, dout, p, activation="relu",
+                                       rate=rate, seed=seed)
+    wdx, wgrads = train_postnorm_ffn_bwd_plain(
+        x.float(), dout.float(), _f32(p), masks, activation="relu")
+    assert _relerr(dx, wdx) <= TOL_RELU_GRAD
+    for k in ("ln1_w", "ln1_b", "w1", "b1"):
+        assert _relerr(grads[k], wgrads[k]) <= TOL_RELU_GRAD, k
+    for k in ("w2", "b2", "ln2_w", "ln2_b"):
+        assert _relerr(grads[k], wgrads[k]) <= TOL, k
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_train_ffn_backward_bits_equal_twice(dev):
+    """Every sum over rows (the LayerNorm and bias partials, the split-K
+    weight gradients) runs in a fixed order: two runs give the same bits."""
+    from ladiff_torch.ops.train_ffn import train_postnorm_ffn_bwd
+    p = _ffn_params(dev)
+    x, dout = _bf(dev, 3000, 256, seed=21), _bf(dev, 3000, 256, seed=22)
+    runs = [train_postnorm_ffn_bwd(x, dout, p, rate=0.1, seed=9)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, g in runs[0][1].items():
+        assert torch.equal(g, runs[1][1][k]), k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("S", [206, 196, 37])
@@ -636,9 +722,11 @@ def test_kernels_read_inside_their_inputs(dev):
         pf, pa = _ffn_params(dev, D, Fd), _attn_params(dev, D)
         x, dout = _bf(dev, M, D), _bf(dev, M, D, seed=17)
         kvalid = _mask([S, 20, 1], S, dev).reshape(-1).contiguous()
-        _guarded_calls(lambda t, p: fused_postnorm_ffn(t[0], p), [x], pf)
-        _guarded_calls(lambda t, p: train_postnorm_ffn_fwd(
-            t[0], p, rate=0.1, seed=3), [x], pf)
+        for C in (1, 2, 4):  # one CTA a block, and clusters
+            _guarded_calls(lambda t, p: fused_postnorm_ffn(
+                t[0], p, cluster=C), [x], pf)
+            _guarded_calls(lambda t, p: train_postnorm_ffn_fwd(
+                t[0], p, rate=0.1, seed=3, cluster=C), [x], pf)
         _guarded_calls(lambda t, p: train_postnorm_ffn_bwd(
             t[0], t[1], p, rate=0.1, seed=3), [x, dout], pf)
         _guarded_calls(lambda t, p: train_self_attention_fwd(
@@ -1069,6 +1157,7 @@ def test_route_kernels_read_inside_their_inputs(dev):
     a partial 32-row block; D 128 and 256; 6 and 7 with an AdaLN row per
     sample and with one shared row."""
     from ladiff_torch.ops.md_stack import fused_md_stack
+    from ladiff_torch.ops.postnorm_ffn import fused_postnorm_ffn
     from ladiff_torch.ops.stylize import fused_broadcast_stylize
     from ladiff_torch.ops.stylized_ffn import fused_stylized_ffn
     B, T, E, L = 8, 5, 2, 3
@@ -1089,6 +1178,10 @@ def test_route_kernels_read_inside_their_inputs(dev):
             _guarded_calls(lambda t, p: fused_broadcast_stylize(
                 *t[:4], *t[4:], T=T),
                 [x, _bf(dev, B, D, seed=17), kvalid, ss, *w7])
+        # kernel 5 as the MD sa_block's tail: 40 rows, ReLU, on the
+        # cluster the geometry picks
+        _guarded_calls(lambda t, p: fused_postnorm_ffn(
+            t[0], p, activation="relu"), [x], _ffn_params(dev, D, 1024))
 
 
 @pytest.mark.cuda
