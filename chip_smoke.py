@@ -9,7 +9,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
             ``nvcc`` per source, all at once); the card's name and power
             limit as ``nvidia-smi`` reports them; the registers and spills
             of K1's and kernel 11's kernels and the shared memory of a CTA
-            of their cluster body.
+            of their cluster body; the registers and spills of K3's and K4's
+            LayerNorm pass and GEMM block (``clip_kernels``).
 2. kernels  K1..K4 at the generation path's shapes (mixed lengths), bf16,
             each against its plain PyTorch version on the same inputs
             (computed in float32), with its time, the plain version's time,
@@ -24,6 +25,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
             per sample, and 256 x 5 rows.  ``kernel_breakdown``:
             K2's launches one by one (device ms per call); K2 compared again
             at 3 x 40 rows (a partial last row block), D 256, 64 and 192.
+            ``kernel_clip_rows``: K3 and K4 at the 77-token context (256 x
+            77 = 19,712 rows, timed) and at 48 rows (compared);
+            ``clip_breakdown`` at 8192 and 19,712 rows: each launch of K3's
+            and K4's chains (the LayerNorm pass, the GEMMs) with its device
+            ms and TFLOP/s (GB/s for the LayerNorm) and launch geometry,
+            ``torch.nn.functional.linear`` at each GEMM's shape (cuBLAS's
+            time, a yardstick the port never calls), each GEMM's products
+            alone (the probe epilogue, which stores nothing) and each GEMM
+            at each tile width of the GEMM block.
 3. slice    ``LADiffSystem.generate`` at batch 4 with mixed lengths on the
             card (kernels, bf16) against the CPU (plain versions, float32),
             same weights, same initial noise.
@@ -275,11 +285,12 @@ def device_ms(fn, reps: int = 20) -> float:
     """Milliseconds of device time per call of ``fn``: the sum of its CUDA
     kernels' time from the profiler (host overhead excluded).  A window can
     come back empty after a long profiled session (seen on an H100 after
-    the full-context breakdown's), so an empty one is taken again; fails
-    when three record no device time."""
+    the full-context breakdown's, and at the first cuBLAS timing of
+    ``clip_breakdown``), so an empty one is taken again; fails when five
+    record no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(5):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -295,7 +306,7 @@ def device_ms(fn, reps: int = 20) -> float:
             total_us += t
         if total_us > 0:
             return total_us / reps / 1e3
-    fail("the profiler recorded no device time in three windows")
+    fail("the profiler recorded no device time in five windows")
 
 
 def launch_breakdown(fn, reps: int = 10):
@@ -376,9 +387,16 @@ def phase_build():
     md = [{"kernel": fn, "registers": regs, "spills": spill}
           for name, log in cc.build_logs().items() if name.startswith("md_")
           for fn, regs, spill in _ptxas_entries(log)]
+    # K3's and K4's LayerNorm pass and GEMM block (one entry per tile width
+    # and epilogue; 168 registers is the GEMM's launch bound, 65536 / 384,
+    # which setmaxnreg moves from the producer to the consumers)
+    clip = [{"kernel": fn, "registers": regs, "spills": spill}
+            for fn, regs, spill in _ptxas_entries(
+                cc.build_logs().get("clip_layer", ""))]
     emit({"phase": "build", "seconds": round(secs, 3), "gpu": gpu,
           "md_kernels": md,
-          "md_smem_bytes": md_smem_bytes(256, 1024, 1024)})
+          "md_smem_bytes": md_smem_bytes(256, 1024, 1024),
+          "clip_kernels": clip})
     print(gpu, flush=True)
     return gpu
 
@@ -651,7 +669,121 @@ def phase_kernels(dev):
         lambda: proj_mlp_plain(att.float(), x3.float(), f32(p4)),
         lambda: proj_mlp_plain(att, x3, p4),
         2 * M * W * W + 4 * M * W * Fc, nbytes(att, x3, *p4.values(), x3)))
+    del att
+    _clip_rows(dev, cl, rnd, f32, B, sc)
     return recs
+
+
+def _clip_rows(dev, cl, rnd, f32, B, sc):
+    """K3 and K4 at the 77-token context (B x 77 rows, the full-context
+    route), compared and timed, and at 48 rows (a ragged last tile),
+    compared; then ``clip_breakdown``: each launch of their chains at the
+    bench's 32-token and the 77-token shapes (device ms, TFLOP/s or GB/s,
+    launch geometry), ``torch.nn.functional.linear`` at each GEMM's shape
+    as cuBLAS's yardstick (timed only: the port never calls it), each
+    GEMM's products alone (its probe epilogue) and each GEMM at each tile
+    width."""
+    import torch
+    import torch.nn.functional as F
+    from ladiff_torch.ops import clip_layer as ops
+    W, Fc = 768, 4 * 768
+    p3, p4 = cl.qkv_params(), cl.mlp_params()
+    rows = {}
+    for M in (B * 77, 48):
+        x, att = rnd(M, W), rnd(M, W)
+        rec = {"rows": M}
+        for name, run, plain, fl in (
+                ("fused_ln_qkv", lambda: ops.fused_ln_qkv(x, p3, scale=sc),
+                 lambda: ops.ln_qkv_plain(x.float(), f32(p3), scale=sc),
+                 6 * M * W * W),
+                ("fused_proj_mlp", lambda: ops.fused_proj_mlp(att, x, p4),
+                 lambda: ops.proj_mlp_plain(att.float(), x.float(), f32(p4)),
+                 2 * M * W * W + 4 * M * W * Fc)):
+            err, max_abs, _ = compare(f"{name}, {M} rows", run(), plain(),
+                                      KERNEL_TOL)
+            rec[name] = {"rel_err": err, "max_abs_err": max_abs}
+            if M > 48:
+                rec[name]["ms"] = device_ms(run)
+                rec[name]["tflops"] = fl / rec[name]["ms"] / 1e9
+        rows[M] = rec
+        del x, att
+    emit({"phase": "kernel_clip_rows", "tol": KERNEL_TOL,
+          "cases": list(rows.values())})
+
+    def gemms(M, x, att):
+        """Each GEMM launch of K3 and K4 at M rows: name -> (run at tile
+        width bn, the products alone (probe epilogue), the cuBLAS call,
+        FLOP)."""
+        y, h, hid = rnd(M, W), rnd(M, W).float(), rnd(M, Fc)
+        qkv = [torch.empty_like(x) for _ in range(3)]
+        out = torch.empty_like(x)
+        total = torch.zeros(1, dtype=torch.float32, device=dev)
+        wqkv = torch.cat([p3["wq"], p3["wk"], p3["wv"]])
+        bqkv = torch.cat([p3["bq"], p3["bk"], p3["bv"]])
+        launches = {  # name: (A, weights, biases, outputs, epilogue, kw)
+            "qkv": (y, [p3["wq"], p3["wk"], p3["wv"]],
+                    [p3["bq"], p3["bk"], p3["bv"]], qkv, "bias",
+                    {"scale": sc}),
+            "wo": (att, [p4["wo"]], [p4["bo"]], [h], "resid_f32",
+                   {"resid": x}),
+            "fc1": (y, [p4["w1"]], [p4["b1"]], [hid], "gelu", {}),
+            "fc2": (hid, [p4["w2"]], [p4["b2"]], [out], "resid_bf16",
+                    {"resid": h})}
+        cublas = {"qkv": (y, wqkv, bqkv), "wo": (att, p4["wo"], p4["bo"]),
+                  "fc1": (y, p4["w1"], p4["b1"]),
+                  "fc2": (hid, p4["w2"], p4["b2"])}
+        work = {}
+        for name, (a, ws, bs, outs, epi, kw) in launches.items():
+            work[name] = (
+                lambda bn=0, a=a, ws=ws, bs=bs, outs=outs, epi=epi, kw=kw:
+                ops._gemm(a, ws, bs, outs, epilogue=epi, bn=bn, **kw),
+                lambda a=a, ws=ws, bs=bs: ops._gemm(
+                    a, ws, bs, [total] * len(ws), epilogue="probe"),
+                lambda c=cublas[name]: F.linear(*c),
+                2 * M * a.shape[1] * ws[0].shape[0] * len(ws))
+        return work
+
+    epi_name = {str(v): k for k, v in ops.EPILOGUES.items()}
+    gemm_of = {"bias": "qkv", "resid_f32": "wo", "gelu": "fc1",
+               "resid_bf16": "fc2"}
+    for M in (B * 32, B * 77):
+        x, att = rnd(M, W), rnd(M, W)
+        work = gemms(M, x, att)
+        launches = []
+        for kname, run in (
+                ("fused_ln_qkv", lambda: ops.fused_ln_qkv(x, p3, scale=sc)),
+                ("fused_proj_mlp", lambda: ops.fused_proj_mlp(att, x, p4))):
+            for r in launch_breakdown(run):
+                r["of"] = kname
+                if "gemm_sm90_kernel" in r["kernel"]:
+                    epi = r["kernel"].split(",")[-1].strip(" >")
+                    name = gemm_of[epi_name[epi]]
+                    r["gemm"] = name
+                    r["tflops"] = work[name][3] / r["ms"] / 1e9
+                elif "ln_rows_kernel" in r["kernel"]:
+                    # read x (bf16, or h in f32), write y in bf16
+                    nb = M * W * (2 + (4 if "float" in r["kernel"] else 2))
+                    r["gb_per_s"] = nb / r["ms"] / 1e6
+                launches.append(r)
+        lib, alone, sweep = {}, {}, {}
+        for name, (run, probe, cublas_call, fl) in work.items():
+            geo = run()
+            torch.cuda.synchronize()
+            ms = device_ms(cublas_call)
+            lib[name] = {"ms": ms, "tflops": fl / ms / 1e9,
+                         "geometry": {k: geo[k] for k in (
+                             "bn", "tiles", "pairs", "ctas", "waves",
+                             "persistent")}}
+            ms = device_ms(probe)
+            alone[name] = {"ms": ms, "tflops": fl / ms / 1e9}
+            sweep[name] = {}
+            for bn in ops.GEMM_BNS:
+                ms = device_ms(lambda: run(bn))
+                sweep[name][bn] = {"ms": ms, "tflops": fl / ms / 1e9}
+        emit({"phase": "clip_breakdown", "rows": M, "launches": launches,
+              "cublas_linear": lib, "products_alone": alone,
+              "tile_width_sweep": sweep})
+        del x, att, work
 
 
 def phase_slice(dev):

@@ -1,122 +1,124 @@
 // Kernels K3 and K4: the two halves of a CLIP text layer around its causal
 // attention core (replace ladiff_tpu/ops/pallas_clip_layer.py fused_ln_qkv
-// and fused_proj_mlp).  See ladiff_torch/ops/clip_layer.py for the math, the
-// bound and the design.
-#include "common.cuh"
+// and fused_proj_mlp), as a row LayerNorm pass and launches of the sm_90a
+// GEMM block of gemm_sm90.cuh.  The wrappers in
+// ladiff_torch/ops/clip_layer.py chain them: K3 is LN1 then one GEMM over
+// Wq, Wk and Wv; K4 is Wo (+ bo + x, kept in f32), LN2, fc1 with
+// quick-GELU, fc2 (+ b2 + h).  See that module for the bound and design.
+#include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 using namespace ladiff;
 
 namespace {
 
-// K3: one block per (32-row block, output matrix q | k | v).  LN1 in f32,
-// kept in shared memory as the bf16 A operand; out = (y W^T + b) * scale.
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_kernel(const bf16* x, const bf16* wq, const bf16* bq, const bf16* wk,
-              const bf16* bk, const bf16* wv, const bf16* bv,
-              const bf16* ln_w, const bf16* ln_b, bf16* q, bf16* k, bf16* v,
-              int M, int D, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = D + 8, ldc = kChunk + 4;
-  bf16* xb = reinterpret_cast<bf16*>(smem);
-  float* cf = reinterpret_cast<float*>(smem + align128(kRows * ld * sizeof(bf16)));
-  bf16* ws = reinterpret_cast<bf16*>(
-      reinterpret_cast<unsigned char*>(cf) + kRows * ldc * sizeof(float));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int nrow = min(kRows, (int)(M - row0));
-  const int per = D / 32;
-  for (int row = warp; row < kRows; row += blockDim.x >> 5) {
-    float vals[kMaxPer];
+constexpr int kLnRows = 8;  // rows of a LayerNorm block: one warp each
+
+// V consecutive elements of a row as floats (one 16-byte load where V
+// elements are 16 bytes).
+template <int V>
+__device__ __forceinline__ void load_vec(const bf16* p, float* v) {
+  if constexpr (V == 8 || V == 4) {
+    using U = typename std::conditional<V == 8, uint4, uint2>::type;
+    const U u = __ldg(reinterpret_cast<const U*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int i = 0; i < kMaxPer; ++i)
-      if (i < per)
-        vals[i] = row < nrow ? ldgf(x + (row0 + row) * D + lane + 32 * i) : 0.f;
-    warp_layernorm(vals, D, ln_w, ln_b);
-#pragma unroll
-    for (int i = 0; i < kMaxPer; ++i)
-      if (i < per) xb[row * ld + lane + 32 * i] = tob(vals[i]);
-  }
-  __syncthreads();
-  const int which = blockIdx.y;
-  const bf16* W = which == 0 ? wq : (which == 1 ? wk : wv);
-  const bf16* bias = which == 0 ? bq : (which == 1 ? bk : bv);
-  bf16* out = which == 0 ? q : (which == 1 ? k : v);
-  const float sc = which == 0 ? scale : 1.f;
-  for (int n0 = 0; n0 < D; n0 += kChunk) {
-    const int nc = min(kChunk, D - n0);
-    block_gemm(xb, ld, W + (size_t)n0 * D, D, D, nc, cf, ldc, false, ws);
-    for (int i = threadIdx.x; i < nrow * nc; i += blockDim.x) {
-      const int row = i / nc, c = i % nc;
-      out[(row0 + row) * D + n0 + c] =
-          tob((cf[row * ldc + c] + ldgf(bias + n0 + c)) * sc);
+    for (int e = 0; e < V / 2; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
     }
-    __syncthreads();
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = ldgf(p + e);
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = ldgf(p + e);
   }
 }
 
-struct MlpLayout {
-  size_t xb, acc, cf, hid, ws, total;
-};
-
-inline MlpLayout mlp_layout(int D) {
-  MlpLayout L;
-  L.xb = 0;
-  L.acc = align128(kRows * (D + 8) * sizeof(bf16));
-  L.cf = align128(L.acc + kRows * (D + 4) * sizeof(float));
-  L.hid = align128(L.cf + kRows * (kChunk + 4) * sizeof(float));
-  L.ws = align128(L.hid + kRows * (kChunk + 8) * sizeof(bf16));
-  L.total = align128(L.ws + kWStageBytes);
-  return L;
+// y = bf16(LN(x)) by rows, in f32; x bf16 (K3's x) or f32 (K4's h).  A
+// warp per row; lane l holds the V-element vectors l, l + 32, ... (V = 1,
+// or 16 bytes of x where D is a multiple of 32 V): two-pass mean and
+// variance as warp_layernorm has them.
+template <typename T, int V>
+__global__ void __launch_bounds__(32 * kLnRows)
+ln_rows_kernel(const T* x, const bf16* g, const bf16* b, bf16* y, int M,
+               int D) {
+  constexpr int kVecs = kMaxPer / V;  // vectors a lane may hold (D <= 768)
+  const int row = blockIdx.x * kLnRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, per = D / (32 * V);
+  if (row >= M) return;  // the whole warp: the sums shuffle
+  const T* xr = x + (size_t)row * D;
+  float v[kVecs][V];
+  float s = 0.f;
+  // vectors clamped before the guard: unrolled iterations past per may
+  // load speculatively
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i)
+    if (i < per) {
+      load_vec<V>(xr + min(lane + 32 * i, D / V - 1) * V, v[i]);
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += v[i][e];
+    }
+  const float mean = warp_sum(s) / D;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i)
+    if (i < per)
+#pragma unroll
+      for (int e = 0; e < V; ++e) q += (v[i][e] - mean) * (v[i][e] - mean);
+  const float rstd = rsqrtf(warp_sum(q) / D + kLnEps);
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i)
+    if (i < per) {
+      const int c = min(lane + 32 * i, D / V - 1) * V;
+      float gv[V], bv[V];
+      load_vec<V>(g + c, gv);
+      load_vec<V>(b + c, bv);
+      __align__(16) bf16 o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        o[e] = tob((v[i][e] - mean) * rstd * gv[e] + bv[e]);
+      if constexpr (V == 8)
+        *reinterpret_cast<uint4*>(y + (size_t)row * D + c) =
+            *reinterpret_cast<const uint4*>(o);
+      else if constexpr (V == 4)
+        *reinterpret_cast<uint2*>(y + (size_t)row * D + c) =
+            *reinterpret_cast<const uint2*>(o);
+      else
+        y[(size_t)row * D + c] = o[0];
+    }
 }
 
-// K4: one block per 32 rows.  acc (f32, shared memory) holds
-// h = x + att Wo^T + bo and then accumulates fc2 over 256-wide chunks of
-// the MLP width: chunk = quick_gelu(LN2(h) W1[c]^T + b1[c]) (bf16),
-// acc += chunk W2[:, c]^T.
-__global__ void __launch_bounds__(kThreads)
-proj_mlp_kernel(const bf16* att, const bf16* x, const bf16* wo,
-                const bf16* bo, const bf16* w1, const bf16* b1,
-                const bf16* w2, const bf16* b2, const bf16* ln_w,
-                const bf16* ln_b, bf16* out, int M, int D, int F,
-                MlpLayout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = D + 8, lda = D + 4, ldc = kChunk + 4, ldh = kChunk + 8;
-  bf16* xb = reinterpret_cast<bf16*>(smem + L.xb);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-  float* cf = reinterpret_cast<float*>(smem + L.cf);
-  bf16* hid = reinterpret_cast<bf16*>(smem + L.hid);
-  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int nrow = min(kRows, (int)(M - row0));
+template <typename T, int V>
+cudaError_t ln_rows(const void* const* p, int M, int D, cudaStream_t s) {
+  ln_rows_kernel<T, V><<<(M + kLnRows - 1) / kLnRows, 32 * kLnRows, 0, s>>>(
+      static_cast<const T*>(p[0]), static_cast<const bf16*>(p[1]),
+      static_cast<const bf16*>(p[2]),
+      static_cast<bf16*>(const_cast<void*>(p[3])), M, D);
+  return cudaGetLastError();
+}
 
-  for (int i = tid; i < kRows * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    xb[row * ld + c] = row < nrow ? ldg(att + (row0 + row) * D + c) : tob(0.f);
-  }
-  __syncthreads();
-  block_gemm(xb, ld, wo, D, D, D, acc, lda, false, ws);
-  for (int i = tid; i < kRows * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    const float xv = row < nrow ? ldgf(x + (row0 + row) * D + c) : 0.f;
-    acc[row * lda + c] += ldgf(bo + c) + xv;
-  }
-  __syncthreads();
-  block_layernorm_rows(acc, lda, nullptr, 0, xb, ld, D, ln_w, ln_b);
-  __syncthreads();
-  for (int f0 = 0; f0 < F; f0 += kChunk) {
-    const int fc = min(kChunk, F - f0);
-    block_gemm(xb, ld, w1 + (size_t)f0 * D, D, D, fc, cf, ldc, false, ws);
-    for (int i = tid; i < kRows * fc; i += blockDim.x) {
-      const int row = i / fc, c = i % fc;
-      hid[row * ldh + c] = tob(quick_gelu(cf[row * ldc + c] + ldgf(b1 + f0 + c)));
-    }
-    __syncthreads();
-    block_gemm(hid, ldh, w2 + f0, F, fc, D, acc, lda, true, ws);
-  }
-  for (int i = tid; i < nrow * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    out[(row0 + row) * D + c] = tob(acc[row * lda + c] + ldgf(b2 + c));
+template <int EPI>
+cudaError_t gemm_bn(int BN, const bf16* A, const bf16* const* w,
+                    const sm90::GemmArgs& g, int ctas, cudaStream_t s) {
+  switch (BN) {
+    case 128: return sm90::gemm_sm90<128, EPI>(A, w, g, ctas, s);
+    case 192: return sm90::gemm_sm90<192, EPI>(A, w, g, ctas, s);
+    case 256: return sm90::gemm_sm90<256, EPI>(A, w, g, ctas, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -124,37 +126,67 @@ proj_mlp_kernel(const bf16* att, const bf16* x, const bf16* wo,
 
 LADIFF_ERROR_STRING_FN
 
-// ptrs: x, wq, bq, wk, bk, wv, bv, ln_w, ln_b, q, k, v.  ints: M, D.
-// floats: scale (folded into q).
-extern "C" int ln_qkv_forward(const void** p, const int* n, const float* f,
-                              void* stream) {
-  const bf16** w = reinterpret_cast<const bf16**>(p);
+// ptrs: x, ln_w, ln_b, y.  ints: M, D, x is f32 (0 bf16, 1 f32).
+extern "C" int clip_ln_rows(const void** p, const int* n, const float*,
+                            void* stream) {
   const int M = n[0], D = n[1];
-  if (D % 32 || D > 32 * kMaxPer) return cudaErrorInvalidValue;
-  const size_t bytes = align128(kRows * (D + 8) * sizeof(bf16)) +
-                       kRows * (kChunk + 4) * sizeof(float) + kWStageBytes;
-  static SmemGrant grant;
-  if (!allow_smem(ln_qkv_kernel, bytes, grant)) return cudaErrorInvalidValue;
-  ln_qkv_kernel<<<dim3((M + kRows - 1) / kRows, 3), kThreads, bytes,
-                  static_cast<cudaStream_t>(stream)>>>(
-      w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8],
-      const_cast<bf16*>(w[9]), const_cast<bf16*>(w[10]),
-      const_cast<bf16*>(w[11]), M, D, f[0]);
-  return cudaGetLastError();
+  if (M <= 0 || D % 32 || D > 32 * kMaxPer) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n[2])
+    return D % 128 ? ln_rows<float, 1>(p, M, D, s)
+                   : ln_rows<float, 4>(p, M, D, s);
+  return D % 256 ? ln_rows<bf16, 1>(p, M, D, s) : ln_rows<bf16, 8>(p, M, D, s);
 }
 
-// ptrs: att, x, wo, bo, w1, b1, w2, b2, ln_w, ln_b, out.  ints: M, D, F.
-extern "C" int proj_mlp_forward(const void** p, const int* n, const float*,
-                                void* stream) {
-  const bf16** w = reinterpret_cast<const bf16**>(p);
-  const int M = n[0], D = n[1], F = n[2];
-  if (D % 32 || D > 32 * kMaxPer || F % kKT) return cudaErrorInvalidValue;
-  const MlpLayout L = mlp_layout(D);
-  static SmemGrant grant;
-  if (!allow_smem(proj_mlp_kernel, L.total, grant)) return cudaErrorInvalidValue;
-  proj_mlp_kernel<<<(M + kRows - 1) / kRows, kThreads, L.total,
-                    static_cast<cudaStream_t>(stream)>>>(
-      w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], w[9],
-      const_cast<bf16*>(w[10]), M, D, F, L);
-  return cudaGetLastError();
+// Clusters of the GEMM block resident at once (0 when the query fails).
+extern "C" int clip_gemm_cluster_slots() {
+  return sm90::gemm_sm90_cluster_slots();
+}
+
+// out[i] = epilogue(A w[i]^T + bias[i]) for i < mats.
+// ptrs: A, w0, w1, w2, bias0, bias1, bias2, out0, out1, out2, resid (null
+// where unused, w1.. and bias1.. too where mats is 1).
+// ints: M, N, K, mats, epilogue (sm90::Epilogue), BN, ctas (a multiple
+// of the cluster size).
+// floats: scale (kEpiBias, weight 0).  The probe epilogue (kEpiProbe)
+// takes out0 as one float that the warps' sums are added to.
+extern "C" int clip_gemm(const void** p, const int* n, const float* f,
+                         void* stream) {
+  sm90::GemmArgs g;
+  g.M = n[0];
+  g.N = n[1];
+  g.K = n[2];
+  g.mats = n[3];
+  const int epi = n[4], BN = n[5], ctas = n[6];
+  if (g.M <= 0 || g.N <= 0 || g.N % 8 || g.K <= 0 || g.K % 8 ||
+      (g.mats != 1 && g.mats != 3) || ctas <= 0)
+    return cudaErrorInvalidValue;
+  g.scale = f[0];
+  g.tiles_n = 0;
+  const bf16* w[3];
+  for (int i = 0; i < 3; ++i) {
+    w[i] = static_cast<const bf16*>(p[1 + i]);
+    g.bias[i] = static_cast<const bf16*>(p[4 + i]);
+    g.out[i] = const_cast<void*>(p[7 + i]);
+    if (i < g.mats && (!w[i] || !g.bias[i] || !g.out[i]))
+      return cudaErrorInvalidValue;
+  }
+  g.resid = p[10];
+  if ((epi == sm90::kEpiResidF32 || epi == sm90::kEpiResidBf16) && !g.resid)
+    return cudaErrorInvalidValue;
+  if (epi != sm90::kEpiBias && epi != sm90::kEpiProbe && g.mats != 1)
+    return cudaErrorInvalidValue;
+  const bf16* A = static_cast<const bf16*>(p[0]);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epi) {
+    case sm90::kEpiBias: return gemm_bn<sm90::kEpiBias>(BN, A, w, g, ctas, s);
+    case sm90::kEpiResidF32:
+      return gemm_bn<sm90::kEpiResidF32>(BN, A, w, g, ctas, s);
+    case sm90::kEpiGelu: return gemm_bn<sm90::kEpiGelu>(BN, A, w, g, ctas, s);
+    case sm90::kEpiResidBf16:
+      return gemm_bn<sm90::kEpiResidBf16>(BN, A, w, g, ctas, s);
+    case sm90::kEpiProbe:
+      return gemm_bn<sm90::kEpiProbe>(BN, A, w, g, ctas, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -132,24 +132,129 @@ def test_decoder_layer_kernel(dev, D, H, T, lengths):
     assert _relerr(got, want) <= TOL
 
 
+# One launch of K3's and K4's chains against its plain piece on the same
+# bf16 inputs: the piece computes in float32, the launch rounds its output
+# once to bf16 (2^-9 at most, ~1e-3 norm-wise; h stays f32) and sums in
+# another order.
+TOL_PIECE = 4e-3
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("seq", [16, 32, 77])
+@pytest.mark.parametrize("B,seq,W", [(5, 16, 768), (5, 32, 768),
+                                     (5, 77, 768), (1, 16, 768),
+                                     (3, 16, 768), (3, 77, 768),
+                                     (256, 32, 768), (3, 16, 128),
+                                     (3, 16, 160)])
 @torch.no_grad()
-def test_clip_layer_kernels(dev, seq):
+def test_clip_layer_kernels(dev, B, seq, W):
+    """K3 and K4 against their float32 plain versions, and each launch of
+    their chains (the LayerNorm pass, the GEMMs with their epilogues)
+    against its plain piece: 16, 48, 80, 160, 231, 385 and 8192 rows at
+    CLIP's width 768; widths 128 and 160 take the LayerNorm pass's
+    one-element loads (D not a multiple of 256, or of 128 for f32 h) and
+    partial column tiles."""
     from ladiff_torch.models.clip_text import CLIPTextLayer
-    from ladiff_torch.ops.clip_layer import (fused_ln_qkv, fused_proj_mlp,
-                                             ln_qkv_plain, proj_mlp_plain)
-    W, B = 768, 5
+    from ladiff_torch.ops import clip_layer as cl
     layer = _randomize(CLIPTextLayer(W, 12), 6).to(dev, torch.bfloat16)
     g = torch.Generator().manual_seed(7)
     x = torch.randn(B * seq, W, generator=g).to(dev, torch.bfloat16)
     att = torch.randn(B * seq, W, generator=g).to(dev, torch.bfloat16)
     pq, pm = layer.qkv_params(), layer.mlp_params()
-    for got, want in zip(fused_ln_qkv(x, pq, scale=0.125),
-                         ln_qkv_plain(x.float(), _f32(pq), scale=0.125)):
+    f = lambda *ts: [t.float() for t in ts]
+    for got, want in zip(cl.fused_ln_qkv(x, pq, scale=0.125),
+                         cl.ln_qkv_plain(x.float(), _f32(pq), scale=0.125)):
         assert _relerr(got, want) <= TOL
-    assert _relerr(fused_proj_mlp(att, x, pm),
-                   proj_mlp_plain(att.float(), x.float(), _f32(pm))) <= TOL
+    assert _relerr(cl.fused_proj_mlp(att, x, pm),
+                   cl.proj_mlp_plain(att.float(), x.float(), _f32(pm))) <= TOL
+    # K3's launches
+    y = cl._ln_rows(x, pq["ln_w"], pq["ln_b"])
+    assert _relerr(y, cl.clip_ln_plain(*f(x, pq["ln_w"], pq["ln_b"]),
+                                       torch.float32)) <= TOL_PIECE
+    qkv = [torch.empty_like(x) for _ in range(3)]
+    cl._gemm(y, [pq["wq"], pq["wk"], pq["wv"]], [pq["bq"], pq["bk"],
+                                                 pq["bv"]],
+             qkv, epilogue="bias", scale=0.125)
+    for n, got in zip("qkv", qkv):
+        want = cl.clip_gemm_plain(*f(y, pq["w" + n], pq["b" + n]),
+                                  epilogue="bias",
+                                  scale=0.125 if n == "q" else 1.0)
+        assert _relerr(got, want) <= TOL_PIECE, n
+    # K4's launches, each on the previous launch's output
+    M = B * seq
+    h = torch.empty(M, W, dtype=torch.float32, device=dev)
+    cl._gemm(att, [pm["wo"]], [pm["bo"]], [h], epilogue="resid_f32", resid=x)
+    assert _relerr(h, cl.clip_gemm_plain(*f(att, pm["wo"], pm["bo"]),
+                                         epilogue="resid_f32",
+                                         resid=x.float())) <= TOL_PIECE
+    y2 = cl._ln_rows(h, pm["ln_w"], pm["ln_b"])
+    assert _relerr(y2, cl.clip_ln_plain(h, *f(pm["ln_w"], pm["ln_b"]),
+                                        torch.float32)) <= TOL_PIECE
+    hid = torch.empty(M, 4 * W, dtype=torch.bfloat16, device=dev)
+    cl._gemm(y2, [pm["w1"]], [pm["b1"]], [hid], epilogue="gelu")
+    assert _relerr(hid, cl.clip_gemm_plain(*f(y2, pm["w1"], pm["b1"]),
+                                           epilogue="gelu")) <= TOL_PIECE
+    out = torch.empty_like(x)
+    cl._gemm(hid, [pm["w2"]], [pm["b2"]], [out], epilogue="resid_bf16",
+             resid=h)
+    assert _relerr(out, cl.clip_gemm_plain(*f(hid, pm["w2"], pm["b2"]),
+                                           epilogue="resid_bf16",
+                                           resid=h)) <= TOL_PIECE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [128, 192, 256])
+@pytest.mark.parametrize("M,N,K", [(48, 768, 768), (300, 3072, 768),
+                                   (385, 768, 3072), (1000, 320, 96)])
+@torch.no_grad()
+def test_clip_gemm_tile_widths(dev, bn, M, N, K):
+    """The GEMM block at each tile width against its plain piece: ragged
+    rows (48, 300, 385, 1000; an odd count of row tiles leaves a cluster's
+    second CTA past M), columns that leave a partial tile (320), k shorter
+    than a stage (96), one cluster per tile pair and persistent
+    clusters."""
+    from ladiff_torch.ops import clip_layer as cl
+    from ladiff_torch.ops.cuda_common import launch
+    a, w = _bf(dev, M, K, seed=21), _bf(dev, N, K, seed=22,
+                                        scale=K ** -0.5)
+    b, r = _bf(dev, N, seed=23, scale=0.05), _bf(dev, M, N, seed=24)
+    out = torch.empty(M, N, dtype=torch.float32, device=dev)
+    # the geometry's clusters, then 3 and 1 clusters walking every pair
+    for ctas in (None, 6, 2):
+        geo = cl.clip_gemm_geometry(M, N, K, bn=bn)
+        if ctas:
+            launch("clip_layer", "clip_gemm", dev,
+                   [a.data_ptr(), w.data_ptr(), 0, 0, b.data_ptr(), 0, 0,
+                    out.data_ptr(), 0, 0, r.data_ptr()],
+                   [M, N, K, 1, cl.EPILOGUES["resid_f32"], bn, ctas], [1.0])
+        else:
+            cl._gemm(a, [w], [b], [out], epilogue="resid_f32", resid=r,
+                     bn=bn)
+        want = cl.clip_gemm_plain(a.float(), w.float(), b.float(),
+                                  epilogue="resid_f32", resid=r.float())
+        assert _relerr(out, want) <= TOL_PIECE, (geo, ctas)
+        out.fill_(float("nan"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [128, 192, 256])
+@torch.no_grad()
+def test_clip_gemm_probe_sums_the_products(dev, bn):
+    """The probe epilogue (it times the GEMM block's products alone) adds
+    up every product of A W^T, three weights in one launch, on 300 rows
+    (an odd count of row tiles: the cluster's second CTA past M adds
+    nothing)."""
+    from ladiff_torch.ops import clip_layer as cl
+    M, N, K = 300, 768, 768
+    a = _bf(dev, M, K, seed=25)
+    ws = [_bf(dev, N, K, seed=26 + i, scale=K ** -0.5) for i in range(3)]
+    b = torch.zeros(N, dtype=torch.bfloat16, device=dev)
+    total = torch.zeros(1, dtype=torch.float32, device=dev)
+    cl._gemm(a, ws, [b] * 3, [total] * 3, epilogue="probe", bn=bn)
+    want = sum(float((a.float() @ w.float().T).double().sum()) for w in ws)
+    scale = sum(float((a.float() @ w.float().T).abs().double().sum())
+                for w in ws)
+    # f32 sums of ~690k products in another order: ~1e-6 of their size
+    assert abs(float(total) - want) <= 1e-5 * scale
 
 
 @pytest.mark.cuda
