@@ -8,9 +8,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. build    every CUDA kernel of the port from ``ladiff_torch/csrc`` (one
             ``nvcc`` per source, all at once); the card's name and power
             limit as ``nvidia-smi`` reports them; the registers and spills
-            of K1's and kernel 11's kernels and the shared memory of a CTA
-            of their cluster body; the registers and spills of K3's and K4's
-            LayerNorm pass and GEMM block (``clip_kernels``).
+            of K1's, kernel 11's and kernel 6's kernels and the shared
+            memory of a CTA of their cluster body; the registers and spills
+            of K3's and K4's LayerNorm pass and GEMM block
+            (``clip_kernels``) and of kernels 8's and 12's products on it
+            (``train_gemm_kernels``).
 2. kernels  K1..K4 at the generation path's shapes (mixed lengths), bf16,
             each against its plain PyTorch version on the same inputs
             (computed in float32), with its time, the plain version's time,
@@ -44,8 +46,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
             lengths and again without a mask (its bits equal over two
             runs); kernel 11 and K1 at 13 samples in row groups of 4 (one
             sample without a valid latent) and at 1 sample; kernels 6
-            (stylized FFN) and 7 (one-token stylize) at 2560 rows with one
-            AdaLN row per sample and one shared; kernel 5 with ReLU at the
+            (stylized FFN, with its launch geometry: row groups, C, CTAs)
+            and 7 (one-token stylize) at 2560 rows with one AdaLN row per
+            sample and one shared; kernel 6 again where row groups split
+            samples (37 x 7 and 3 x 5 rows) at D 256, 64, 128 and 192
+            (``kernel6_shapes``, compared); kernel 5 with ReLU at the
             same rows (the MD sa_block's tail on the per-block routes):
             each against its plain version, timed like phase 2.
    route_slice  the other denoiser routes at batch 4, mixed lengths, DDIM-10,
@@ -60,7 +65,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
             and this one each end with one profiled batch of their route
             (``bench.breakdown``: device time by kernel group, idle share).
 
-5. train_kernels  the inference FFN tail and masked attention and the
+5. train_kernels  ``train_gemm_products``: each product of kernels 8
+            and 12 on the GEMM block alone (q / k / v, the out-projection
+            with and without its residual dropout, dctx with delta, dx,
+            the split-K weight gradients) against its float32 product at
+            every tile width it takes, 618 and 26,368 rows, D 64 to 256,
+            and the epilogue's residual mask bit for bit against
+            ``train_self_attention_masks``.  Then the inference FFN tail
+            and masked attention and the
             training kernels (attention and FFN tail, forward and backward)
             at the training slice's shapes (128 x 206 rows, mixed lengths;
             the masked attention once more without a mask at 64 tokens,
@@ -70,7 +82,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
             Kernel 10's samples include one without a valid key and short
             ones with wholly masked key tiles, each group held on its own
             (``kernel10_masking``); kernel 8 is compared again at batch 3
-            with such samples (``kernel8_masking``).
+            with such samples (``kernel8_masking``), and at dropout 0 at
+            128 x 196 and 3 x 206 rows and at D 64 and 192 (head widths
+            16 and 48) at 7 x 48 rows (``kernel8_shapes``).
             Then a ``dropout`` line: keep fraction, same seed same output,
             other seed other output.  Then ``kernels_decoder_stream``: the
             training kernels compared again at the decoder's 128 x 196 rows.
@@ -79,6 +93,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
             multiple of the 64-row block), dropout 0 and 0.1, and at 640
             rows timed (its ``kernels`` rows with the stage-2 path);
             ``kernel9_bwd_bits``: its backward's bits equal over two runs.
+            ``train_attention_breakdown``: kernel 8's launches one by one
+            at 128 x 206 rows, dropout 0.1 (device ms, each product's
+            TFLOP/s, cuBLAS's time for the same product shape, the
+            products' geometry).
             ``ffn_breakdown``: kernel 9's backward launch by launch at
             128 x 206 and 640 rows, its forward at 640 rows, kernel 5 at
             2560 and 26368 rows (device ms), the launch geometry of each
@@ -385,7 +403,8 @@ def phase_build():
     # the cluster MD body's kernels (K1, kernel 11): registers and spills
     # from ptxas, dynamic shared memory per CTA at the published shape
     md = [{"kernel": fn, "registers": regs, "spills": spill}
-          for name, log in cc.build_logs().items() if name.startswith("md_")
+          for name, log in cc.build_logs().items()
+          if name.startswith("md_") or name == "stylized_ffn"
           for fn, regs, spill in _ptxas_entries(log)]
     # K3's and K4's LayerNorm pass and GEMM block (one entry per tile width
     # and epilogue; 168 registers is the GEMM's launch bound, 65536 / 384,
@@ -393,10 +412,17 @@ def phase_build():
     clip = [{"kernel": fn, "registers": regs, "spills": spill}
             for fn, regs, spill in _ptxas_entries(
                 cc.build_logs().get("clip_layer", ""))]
+    # kernels 8's and 12's products on the same GEMM block (the delta
+    # epilogue's registers among them)
+    train_gemm = [{"kernel": fn, "registers": regs, "spills": spill}
+                  for name in ("train_attention", "train_layer")
+                  for fn, regs, spill in _ptxas_entries(
+                      cc.build_logs().get(name, ""))
+                  if "gemm_sm90" in fn]
     emit({"phase": "build", "seconds": round(secs, 3), "gpu": gpu,
           "md_kernels": md,
           "md_smem_bytes": md_smem_bytes(256, 1024, 1024),
-          "clip_kernels": clip})
+          "clip_kernels": clip, "train_gemm_kernels": train_gemm})
     print(gpu, flush=True)
     return gpu
 
@@ -756,7 +782,8 @@ def _clip_rows(dev, cl, rnd, f32, B, sc):
             for r in launch_breakdown(run):
                 r["of"] = kname
                 if "gemm_sm90_kernel" in r["kernel"]:
-                    epi = r["kernel"].split(",")[-1].strip(" >")
+                    # gemm_sm90_kernel<BN, epilogue, A MN-major, B ...>
+                    epi = r["kernel"].split("<")[1].split(",")[1].strip()
                     name = gemm_of[epi_name[epi]]
                     r["gemm"] = name
                     r["tflops"] = work[name][3] / r["ms"] / 1e9
@@ -874,6 +901,7 @@ def phase_route_kernels(dev):
     from ladiff_torch.ops.stylize import (broadcast_stylize_plain,
                                           fused_broadcast_stylize)
     from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
+                                               stylized_ffn_launch_geometry,
                                                stylized_ffn_plain)
     from ladiff_torch.utils.masks import latent_valid_mask
 
@@ -996,7 +1024,8 @@ def phase_route_kernels(dev):
             lambda: stylized_ffn_plain(x6.float(), ss.float(),
                                        *[t.float() for t in w6], T=T),
             lambda: stylized_ffn_plain(x6, ss, *w6, T=T),
-            2 * M * D * F * 2 + 2 * M * D * D, nbytes(x6, ss, *w6, x6)))
+            2 * M * D * F * 2 + 2 * M * D * D, nbytes(x6, ss, *w6, x6),
+            extra={"geometry": stylized_ffn_launch_geometry(dev, M, D, F)}))
         recs.append(check_kernel(
             name7, "ladiff_torch/csrc/stylize.cu",
             "ladiff_tpu/ops/pallas_stylize.py:43",
@@ -1008,6 +1037,35 @@ def phase_route_kernels(dev):
             2 * M * D * D, nbytes(x6, value, kvalid, ss, *w7, x6)))
     emit({"phase": "kernels_shared_adaln_row", "rel_err": errs,
           "tol": KERNEL_TOL})
+    # kernel 6 where its row groups split samples and the last group is
+    # partial (37 x 7 and 3 x 5 rows), at D 256 and at D 64, 128 and 192
+    # (clusters of 1 to 3 CTAs, F = 4 D), an AdaLN row per sample and a
+    # shared one; compared, not timed
+    cases6 = {}
+    for D6 in (256, 64, 128, 192):
+        F6 = F if D6 == 256 else 4 * D6
+        wk = w6 if D6 == 256 else [
+            rnd(F6, D6, scale=D6 ** -0.5), rnd(F6, scale=0.05),
+            rnd(D6, F6, scale=F6 ** -0.5), rnd(D6, scale=0.05),
+            1 + rnd(D6, scale=0.1), rnd(D6, scale=0.05),
+            rnd(D6, D6, scale=D6 ** -0.5), rnd(D6, scale=0.05)]
+        for n, T6 in ((37, 7), (3, 5)):
+            xk = rnd(n * T6, D6)
+            for rows in (n, 1):
+                ssk = rnd(rows, 2 * D6, scale=0.3)
+                key = (f"D {D6}, {n} x {T6} rows, "
+                       + ("shared AdaLN row" if rows == 1 else
+                          "AdaLN row per sample"))
+                cases6[key] = {
+                    "rel_err": compare(
+                        f"fused_stylized_ffn, {key}",
+                        fused_stylized_ffn(xk, ssk, *wk, T=T6),
+                        stylized_ffn_plain(xk.float(), ssk.float(),
+                                           *[t.float() for t in wk], T=T6),
+                        KERNEL_TOL)[0],
+                    "geometry": stylized_ffn_launch_geometry(
+                        dev, n * T6, D6, F6)}
+    emit({"phase": "kernel6_shapes", "tol": KERNEL_TOL, "cases": cases6})
 
     # kernel 5 as the per-block route runs it: the sa_block's tail, ReLU,
     # ff 1024, at the same 2560 rows
@@ -1218,6 +1276,7 @@ def phase_train_kernels(dev):
     kvalid = valid.reshape(M).float().to(dev).contiguous()
     nvalid = int(valid.sum())  # sum over samples of their valid keys
     recs = []
+    _train_gemm_products(dev)
 
     # kernel 5
     gb = 4 * M * D * F
@@ -1390,6 +1449,7 @@ def phase_train_kernels(dev):
                   x3.float(), kv3, dout3.float(), f32(pa), m3, H=H, S=S)),
               GRAD_TOL)[0]})
     del o3, s3, m3
+    _kernel8_shapes(dev, rnd, x, dout, kvalid, pa, kv3, lengths, RATE, SEED)
 
     # dropout: keep fraction of a large mask, seeds
     keep = {"probabilities": float((masks[0] > 0).float().mean()),
@@ -1533,8 +1593,236 @@ def phase_train_kernels(dev):
         tol=RELU_GRAD_TOL, extra=md))
     recs[-1]["path"] = KERNEL9_MD_PATH
     del masks, mb
+    _attention_breakdown(dev, x, kvalid, dout, pa, H, S, RATE, SEED)
     _ffn_breakdown(dev, x, dout, pf, pr, rnd, RATE, SEED)
     return recs
+
+
+def _gemm_inputs(dev, rnd, name, M, D, H, rate, seed):
+    """One product of kernel 8 at M rows of width D (head width D / H): the
+    operands a, w and the epilogue's tensors as ``train_gemm_launch`` takes
+    them, and the plain version's extra arguments (out_drop: the residual
+    mask ``train_self_attention_masks`` draws)."""
+    from ladiff_torch.ops.train_attention import train_self_attention_masks
+    w_out, w_in = rnd(D, D, scale=D ** -0.5), rnd(3 * D, D, scale=D ** -0.5)
+    a = rnd(M, 3 * D if name in ("dx", "wgrad") else D)
+    resid = rnd(M, D)
+    bias = rnd(3 * D if name == "qkv" else D, scale=0.05)
+    if name == "qkv":
+        return a, w_in, {"bias": bias}, {}
+    if name == "out":
+        return a, w_out, {"bias": bias, "resid": resid}, {}
+    if name == "out_drop":
+        rm = train_self_attention_masks(M, 1, D, H, rate, seed, dev)[1]
+        return a, w_out, {"bias": bias, "resid": resid, "rate": rate,
+                          "seed": seed}, {"rm": rm}
+    if name == "dctx":
+        return a, w_out, {"resid": resid, "H": H}, {}
+    if name == "dx":
+        return a, w_in, {"resid": resid}, {}
+    return a, rnd(M, D), {}, {}  # wgrad: dqkv^T x over K ranges
+
+
+def _train_gemm_products(dev, rate=0.1, seed=0x5EED):
+    """``train_gemm_products``: each product of kernels 8 and 12 alone on
+    the GEMM block against its float32 product (the MN-major operands and
+    the new epilogues), at every tile width it may take, at 618 and 26,368
+    rows and D 64, 128, 192, 256 (head widths 16, 32, 48, 64); then the
+    out-projection's residual mask drawn in the epilogue, bit for bit
+    against ``train_self_attention_masks`` (a zero product, a bias of 1, a
+    zero residual: the output is the mask)."""
+    import torch
+    from ladiff_torch.ops.train_attention import (TRAIN_GEMMS, dctx_widths,
+                                                  train_gemm_launch,
+                                                  train_gemm_plain,
+                                                  train_self_attention_masks)
+    g = torch.Generator().manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(
+            dev, torch.bfloat16)
+
+    bns = {"qkv": (256, 192, 128), "out": (256, 128), "out_drop": (256, 128),
+           "dx": (256, 128)}
+    res = {}
+    for name in TRAIN_GEMMS:
+        worst, n = (0.0, ""), 0
+        for D, H in ((64, 4), (128, 4), (192, 4), (256, 4)):
+            for M in (618, 26368):
+                a, w, kw, pkw = _gemm_inputs(dev, rnd, name, M, D, H, rate,
+                                             seed)
+                widths = (dctx_widths(D, H) if name == "dctx"
+                          else bns.get(name, (0,)))
+                for bn in widths:
+                    got, geo = train_gemm_launch(name, a, w, bn=bn, **kw)
+                    want = train_gemm_plain(
+                        name, a, w, ranges=geo.get("ranges"), **pkw,
+                        **{k: v for k, v in kw.items()
+                           if k in ("bias", "resid", "H")})
+                    key = f"D {D}, {M} rows, BN {geo['bn']}"
+                    err = compare(f"train_gemm {name}, {key}",
+                                  _named(got) if name == "dctx" else got,
+                                  _named(want) if name == "dctx" else want,
+                                  KERNEL_TOL)[0]
+                    worst = max(worst, (err, key))
+                    n += 1
+                del a, w, kw, pkw
+        res[name] = {"cases": n, "worst_rel_err": worst[0], "at": worst[1]}
+    M, D, H = 26368, 256, 4
+    zero = torch.zeros(M, D, dtype=torch.bfloat16, device=dev)
+    ones = torch.ones(D, dtype=torch.bfloat16, device=dev)
+    got, _ = train_gemm_launch("out_drop", zero, rnd(D, D), bias=ones,
+                               resid=zero, rate=rate, seed=seed)
+    rm = train_self_attention_masks(M, 1, D, H, rate, seed, dev)[1]
+    bits = bool(torch.equal(got, rm.to(torch.bfloat16)))
+    emit({"phase": "train_gemm_products", "tol": KERNEL_TOL,
+          "products": res, "residual_mask_bit_equal": bits})
+    if not bits:
+        fail("train_gemm out_drop: the epilogue's residual mask differs "
+             "from train_self_attention_masks")
+
+
+def _kernel8_shapes(dev, rnd, x, dout, kvalid, pa, kv3, lengths, rate,
+                    seed):
+    """``kernel8_shapes``: kernel 8 forward and every gradient against its
+    float32 plain version where the other cells do not reach: dropout 0 at
+    the decoder stream's 128 x 196 rows and at 3 x 206 (a sample without
+    a valid key, wholly masked key tiles), and D 64 / H 4 and D 192 / H 4
+    (head widths 16 and 48) at 7 x 48 rows, dropout 0 and 0.1."""
+    import torch
+    from ladiff_torch.ops.train_attention import (
+        train_self_attention_bwd, train_self_attention_bwd_plain,
+        train_self_attention_fwd, train_self_attention_masks,
+        train_self_attention_plain)
+    from ladiff_torch.utils.masks import lengths_to_mask
+    S = 206
+    B = x.shape[0] // S
+    D = x.shape[1]
+    H = 4
+    cases = {}
+
+    def run(key, xs, ds, kv, p, S_, H_, r):
+        Bs = xs.shape[0] // S_
+        masks = (train_self_attention_masks(Bs, S_, xs.shape[1], H_, r, seed,
+                                            dev) if r else None)
+        kw = dict(H=H_, S=S_, rate=r, seed=seed)
+        f32 = {k: v.float() for k, v in p.items()}
+        out, saved = train_self_attention_fwd(xs, kv, p, return_saved=True,
+                                              **kw)
+        e_f = compare(f"train_self_attention, {key}", out,
+                      train_self_attention_plain(xs.float(), kv, f32, masks,
+                                                 H=H_, S=S_), KERNEL_TOL)[0]
+        dx, grads = train_self_attention_bwd(xs, kv, ds, p, saved, **kw)
+        wdx, wgrads = train_self_attention_bwd_plain(
+            xs.float(), kv, ds.float(), f32, masks, H=H_, S=S_)
+        e_b = compare(f"train_self_attention_bwd, {key}",
+                      {"dx": dx, **grads}, {"dx": wdx, **wgrads},
+                      GRAD_TOL)[0]
+        cases[key] = {"fwd": e_f, "bwd": e_b}
+
+    S2 = S - 10
+    x2, d2 = rnd(B * S2, D), rnd(B * S2, D, scale=0.1)
+    kv2 = lengths_to_mask(lengths, S2).reshape(-1).float().to(
+        dev).contiguous()
+    run(f"{B} x {S2} rows, rate 0", x2, d2, kv2, pa, S2, H, 0.0)
+    run(f"3 x {S} rows, rate 0", x[:3 * S].contiguous(),
+        dout[:3 * S].contiguous(), kv3, pa, S, H, 0.0)
+    for Dk in (64, 192):
+        pk = {"in_w": rnd(3 * Dk, Dk, scale=Dk ** -0.5),
+              "in_b": rnd(3 * Dk, scale=0.05),
+              "out_w": rnd(Dk, Dk, scale=Dk ** -0.5),
+              "out_b": rnd(Dk, scale=0.05)}
+        Bk, Sk = 7, 48
+        kvk = lengths_to_mask(torch.tensor([48, 1, 30, 17, 48, 5, 40]),
+                              Sk).reshape(-1).float().to(dev).contiguous()
+        xk, dk = rnd(Bk * Sk, Dk), rnd(Bk * Sk, Dk, scale=0.1)
+        for r in (0.0, rate):
+            run(f"D {Dk}, H 4, {Bk} x {Sk} rows, rate {r}", xk, dk, kvk, pk,
+                Sk, 4, r)
+    emit({"phase": "kernel8_shapes", "tol": KERNEL_TOL,
+          "grad_tol": GRAD_TOL, "worst_rel_err": cases})
+
+
+# the GEMM block's epilogue numbers (csrc/gemm_sm90.cuh) and operand
+# layouts -> kernel 8's products
+_K8_PRODUCTS = {("0", "false"): "qkv", ("5", "false"): "out",
+                ("6", "false"): "out", ("7", "true"): "dctx",
+                ("5", "true"): "dx", ("8", "true"): "wgrad"}
+
+
+def _attention_breakdown(dev, x, kvalid, dout, pa, H, S, rate, seed):
+    """``train_attention_breakdown``: kernel 8's launches one by one at the
+    stage-1 encoder's rows, dropout ``rate`` (device ms per call), each
+    product's TFLOP/s and cuBLAS's time for the same product shape (bf16
+    ``F.linear`` / ``matmul``: a yardstick the port never calls), and each
+    product's launch geometry."""
+    import re
+
+    import torch
+    import torch.nn.functional as F
+    from ladiff_torch.ops.clip_layer import gemm_cluster_slots
+    from ladiff_torch.ops.train_attention import (attention_gemm_geometry,
+                                                  dctx_widths,
+                                                  train_gemm_launch,
+                                                  train_self_attention_bwd,
+                                                  train_self_attention_fwd)
+    M, D = x.shape
+    kw = dict(H=H, S=S, rate=rate, seed=seed)
+    _, saved = train_self_attention_fwd(x, kvalid, pa, return_saved=True,
+                                        **kw)
+    qkv, ctx = saved[0], saved[1]
+    flops = {"qkv": 2 * M * D * 3 * D, "out": 2 * M * D * D,
+             "dctx": 2 * M * D * D, "dx": 2 * M * 3 * D * D,
+             "wgrad": 2 * M * 3 * D * D + 2 * M * D * D}
+    rows = {}
+    for side, fn in (
+            ("forward", lambda: train_self_attention_fwd(x, kvalid, pa,
+                                                         **kw)),
+            ("backward", lambda: train_self_attention_bwd(
+                x, kvalid, dout, pa, saved, **kw))):
+        rows[side] = launch_breakdown(fn)
+        for r in rows[side]:
+            m = re.search(r"gemm_sm90_kernel<(\d+), (\d+), (\w+), (\w+)>",
+                          r["kernel"])
+            if m:
+                name = _K8_PRODUCTS.get((m.group(2), m.group(4)), "?")
+                r["product"] = name
+                if name in flops:
+                    r["tflops"] = flops[name] / r["ms"] / 1e9
+    cublas = {
+        "qkv": lambda: F.linear(x, pa["in_w"], pa["in_b"]),
+        "out": lambda: F.linear(ctx, pa["out_w"], pa["out_b"]),
+        "dctx": lambda: dout @ pa["out_w"],
+        "dx": lambda: qkv @ pa["in_w"],
+        "wgrad": lambda: (qkv.t() @ x, dout.t() @ ctx)}
+    lib = {}
+    for name, fn in cublas.items():
+        ms = device_ms(fn)
+        lib[name] = {"ms": ms, "tflops": flops[name] / ms / 1e9}
+    # each product at each tile width it may take (the geometry's choice
+    # among them rests on a cost model that does not see the epilogue)
+    g = torch.Generator().manual_seed(6)
+    sweep = {}
+    for name in ("qkv", "out", "out_drop", "dctx", "dx"):
+        a, w, kwg, _ = _gemm_inputs(
+            dev, lambda *sh, scale=1.0: (torch.randn(*sh, generator=g)
+                                         * scale).to(dev, torch.bfloat16),
+            name, M, D, H, rate, seed)
+        widths = {"qkv": (256, 192, 128),
+                  "dctx": dctx_widths(D, H)}.get(name, (256, 128))
+        sweep[name] = {}
+        for bn in widths:
+            ms = device_ms(lambda: train_gemm_launch(name, a, w, bn=bn,
+                                                     **kwg))
+            fl = flops["out" if name == "out_drop" else name]
+            sweep[name][bn] = {"ms": ms, "tflops": fl / ms / 1e9}
+        del a, w, kwg
+    geo = attention_gemm_geometry(M, D, H, gemm_cluster_slots(dev))
+    emit({"phase": "train_attention_breakdown", "rows": M, "rate": rate,
+          "launches": rows, "cublas": lib, "tile_width_sweep": sweep,
+          "geometry": {k: {f: v[f] for f in ("bn", "tiles", "pairs", "ctas",
+                                             "waves", "splits")
+                           if f in v} for k, v in geo.items()}})
 
 
 def _ffn_breakdown(dev, x, dout, pf, pr, rnd, rate, seed):

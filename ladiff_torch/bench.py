@@ -141,9 +141,9 @@ _GROUPS = (
     # K3 and K4: the LayerNorm pass on bf16 x (K3) or f32 h (K4), the GEMM
     # block with the q/k/v epilogue (K3) or K4's three
     ("fused_ln_qkv (K3)",
-     r"gemm_sm90_kernel<\d+, 0>|ln_rows_kernel<__nv_bfloat16"),
+     r"gemm_sm90_kernel<\d+, 0, false, false>|ln_rows_kernel<__nv_bfloat16"),
     ("fused_proj_mlp (K4)",
-     r"gemm_sm90_kernel<\d+, [123]>|ln_rows_kernel<float"),
+     r"gemm_sm90_kernel<\d+, [123], false, false>|ln_rows_kernel<float"),
     ("fused_decoder_layer (K2)",
      r"linear64_kernel|attn_tile_kernel|dec_tail_fwd_kernel"),
     ("library GEMMs", r"gemm|cutlass|nvjet|cublas"),

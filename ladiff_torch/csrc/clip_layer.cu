@@ -152,7 +152,7 @@ extern "C" int clip_gemm_cluster_slots() {
 // takes out0 as one float that the warps' sums are added to.
 extern "C" int clip_gemm(const void** p, const int* n, const float* f,
                          void* stream) {
-  sm90::GemmArgs g;
+  sm90::GemmArgs g = {};
   g.M = n[0];
   g.N = n[1];
   g.K = n[2];
@@ -162,7 +162,7 @@ extern "C" int clip_gemm(const void** p, const int* n, const float* f,
       (g.mats != 1 && g.mats != 3) || ctas <= 0)
     return cudaErrorInvalidValue;
   g.scale = f[0];
-  g.tiles_n = 0;
+  g.splits = 1;
   const bf16* w[3];
   for (int i = 0; i < 3; ++i) {
     w[i] = static_cast<const bf16*>(p[1 + i]);

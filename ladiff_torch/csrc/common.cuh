@@ -1,10 +1,10 @@
-// Building blocks shared by the port's hand-written Hopper kernels.
-//
-// Every product is a WMMA 16x16x16 bf16 tile with f32 accumulation: the A
-// operand (activations) lives in shared memory, the B operand is a torch
-// Linear weight [out, in] read straight from global memory as a column-major
-// [in, out] fragment (weights stay L2-resident across the blocks of a
-// launch).  Row blocks are 32 rows (two 16-row tiles) and 256 threads.
+// Building blocks shared by the port's hand-written Hopper kernels: loads,
+// warp and quad sums, the dropout generator, a warp's row LayerNorm, the
+// shared-memory grants; and block_gemm, the first port's product of a
+// 32-row block (kernel 7's): WMMA 16x16x16 bf16 tiles with f32
+// accumulation, the A operand (activations) in shared memory, the B operand
+// a torch Linear weight [out, in] streamed through a cp.async stage.  Row
+// blocks are 32 rows (two 16-row tiles) and 256 threads.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -149,77 +149,6 @@ __device__ __forceinline__ void block_gemm(const bf16* A, int lda,
   __syncthreads();
 }
 
-// C[32 x N] (f32, smem, ldc) = A[32 x K] (bf16, smem, lda) @ W, where W
-// points at column n0 of a row-major [K, *] matrix with row stride ldw (a
-// torch Linear weight [out, in] used from its "out" side, as a backward
-// needs it: x_grad = y_grad W).  Same contract as block_gemm otherwise: N a
-// multiple of 16 (each pass's width a multiple of 8), K a multiple of kKT,
-// 16-byte aligned rows; starts and ends with __syncthreads; W streams
-// through the same kWStageBytes of `ws`, here as [kKT][kNB + 8] tiles.
-__device__ __forceinline__ void block_gemm_nn(const bf16* A, int lda,
-                                              const bf16* W, int ldw, int K,
-                                              int N, float* C, int ldc,
-                                              bool accumulate, bf16* ws) {
-  constexpr int kLDN = kNB + 8;
-  static_assert(kKT * kLDN <= kNB * kLDW, "stage too small");
-  const int warp = threadIdx.x >> 5;
-  const int nk = K / kKT;
-  for (int n0 = 0; n0 < N; n0 += kNB) {
-    const int nb = N - n0 < kNB ? N - n0 : kNB;
-    const bool active = warp * 16 < nb;
-    const int nvec = nb / 8;  // 16-byte vectors per k row
-    __syncthreads();  // the previous users of ws and C are done
-    auto load_stage = [&](int kt) {
-      if (kt < nk) {
-        bf16* dst = ws + (kt % kStages) * kNB * kLDW;
-        const bf16* src = W + (size_t)kt * kKT * ldw + n0;
-        for (int v = threadIdx.x; v < kKT * nvec; v += blockDim.x) {
-          const int k = v / nvec, nv = v % nvec;
-          cp_async16(dst + k * kLDN + nv * 8, src + (size_t)k * ldw + nv * 8);
-        }
-      }
-      cp_async_commit();
-    };
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) load_stage(s);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-    float* c0 = C + n0 + warp * 16;
-    if (active && accumulate) {
-      wmma::load_matrix_sync(acc0, c0, ldc, wmma::mem_row_major);
-      wmma::load_matrix_sync(acc1, c0 + 16 * ldc, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc0, 0.f);
-      wmma::fill_fragment(acc1, 0.f);
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // stage kt landed for all; stage kt-1 is consumed
-      load_stage(kt + kStages - 1);
-      if (active) {
-        const bf16* wt = ws + (kt % kStages) * kNB * kLDW + warp * 16;
-#pragma unroll
-        for (int kk = 0; kk < kKT; kk += 16) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              a0, a1;
-          const int k = kt * kKT + kk;
-          wmma::load_matrix_sync(b, wt + kk * kLDN, kLDN);
-          wmma::load_matrix_sync(a0, A + k, lda);
-          wmma::load_matrix_sync(a1, A + 16 * lda + k, lda);
-          wmma::mma_sync(acc0, a0, b, acc0);
-          wmma::mma_sync(acc1, a1, b, acc1);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    if (active) {
-      wmma::store_matrix_sync(c0, acc0, ldc, wmma::mem_row_major);
-      wmma::store_matrix_sync(c0 + 16 * ldc, acc1, ldc, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-}
-
 // Dropout that a backward can regenerate: element `idx` of mask `mask_id`
 // is one 32-bit word of Philox-4x32-10 keyed by the call's 64-bit seed at
 // counter (idx / 4, mask_id, 0), word idx % 4.  The element is kept when
@@ -268,6 +197,30 @@ __device__ __forceinline__ float keep_scale(const Dropout& d,
   return bits < d.thresh ? d.inv_keep : 0.f;
 }
 
+// The keep-mask values of elements idx and idx + 1 of mask mask_id
+// (keep_scale, one Philox block where both fall in it).
+__device__ __forceinline__ void keep_scale2(const Dropout& d,
+                                            uint32_t mask_id, uint64_t idx,
+                                            float& k0, float& k1) {
+  const uint64_t q = idx >> 2;
+  const uint4 r = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(q), static_cast<uint32_t>(q >> 32),
+                 mask_id, 0u),
+      d.key0, d.key1);
+  const uint32_t w = idx & 3;
+  const uint32_t b0 = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+  const uint32_t b1 = w == 0 ? r.y : w == 1 ? r.z : w == 2 ? r.w : 0u;
+  k0 = b0 < d.thresh ? d.inv_keep : 0.f;
+  k1 = w == 3 ? keep_scale(d, mask_id, idx + 1)
+              : (b1 < d.thresh ? d.inv_keep : 0.f);
+}
+
+// The sum over the four lanes of a quad (lanes 4 i .. 4 i + 3), to each.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // LayerNorm of one row held by a warp: v[i] is element lane + 32 i of a row
 // of length D (D / 32 <= kMaxPer; the loops unroll so v stays in
 // registers).  Two-pass mean / variance in f32, then
@@ -295,94 +248,6 @@ __device__ __forceinline__ void warp_layernorm(float* v, int D,
     const int c = min(lane + 32 * i, D - 1);
     if (i < per) v[i] = (v[i] - mean) * rstd * ldgf(g + c) + ldgf(b + c);
   }
-}
-
-// LayerNorm of the 32 rows of src (f32, row stride lds), one warp per row:
-// writes the result as f32 into dst (row stride ldd; may equal src, or be
-// null) and as bf16 into xb (row stride ld).
-__device__ __forceinline__ void block_layernorm_rows(
-    const float* src, int lds, float* dst, int ldd, bf16* xb, int ld, int D,
-    const bf16* g, const bf16* b) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int per = D / 32;
-  for (int row = warp; row < kRows; row += blockDim.x >> 5) {
-    float v[kMaxPer];
-#pragma unroll
-    for (int i = 0; i < kMaxPer; ++i)
-      if (i < per) v[i] = src[row * lds + lane + 32 * i];
-    warp_layernorm(v, D, g, b);
-#pragma unroll
-    for (int i = 0; i < kMaxPer; ++i)
-      if (i < per) {
-        const int c = lane + 32 * i;
-        if (dst) dst[row * ldd + c] = v[i];
-        xb[row * ld + c] = tob(v[i]);
-      }
-  }
-}
-
-// dst[row][c] = bf16(cf[row][c] + bias[c]) for the 32 rows, c < n.
-__device__ __forceinline__ void store_biased(const float* cf, int ldc,
-                                             const bf16* bias, int n,
-                                             bf16* dst, int ld) {
-  for (int i = threadIdx.x; i < kRows * n; i += blockDim.x) {
-    const int row = i / n, c = i % n;
-    dst[row * ld + c] = tob(cf[row * ldc + c] + ldgf(bias + c));
-  }
-}
-
-// FFN of the 32 rows of xb: hid = bf16(act(xb W1^T + b1)) in 256-column
-// chunks (act: 0 relu, 1 erf GELU), then cf = hid W2^T (K = F, N = D,
-// without b2).  Ends synchronized.
-__device__ __forceinline__ void block_ffn(const bf16* xb, int ld, int D,
-                                          const bf16* w1, const bf16* b1,
-                                          const bf16* w2, int F, int act,
-                                          bf16* hid, int ldh, float* cf,
-                                          int ldc, bf16* ws) {
-  for (int n0 = 0; n0 < F; n0 += kChunk) {
-    const int nc = F - n0 < kChunk ? F - n0 : kChunk;
-    block_gemm(xb, ld, w1 + (size_t)n0 * D, D, D, nc, cf, ldc, false, ws);
-    for (int i = threadIdx.x; i < kRows * nc; i += blockDim.x) {
-      const int row = i / nc, c = i % nc;
-      const float v = cf[row * ldc + c] + ldgf(b1 + n0 + c);
-      hid[row * ldh + n0 + c] = tob(act ? gelu_erf(v) : fmaxf(v, 0.f));
-    }
-    __syncthreads();
-  }
-  block_gemm(hid, ldh, w2, F, F, D, cf, ldc, false, ws);
-}
-
-// Online-softmax attention of one query row and one head, by one warp.
-// q: the head's Dh query values (smem, bf16); keys j = 0..nk-1 at
-// k_of(j) / v_of(j) (pointers to the head's Dh values, bf16) with additive
-// bias bias_of(j) (0 or kNegInf).  Writes the Dh context values (bf16).
-template <typename KF, typename VF, typename BF>
-__device__ __forceinline__ void warp_attend(const bf16* q, int Dh, int nk,
-                                            float scale, KF k_of, VF v_of,
-                                            BF bias_of, bf16* out) {
-  const int lane = threadIdx.x & 31;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // Dh <= 128
-  float m = -INFINITY, l = 0.f;
-  for (int j = 0; j < nk; ++j) {
-    const bf16* kj = k_of(j);
-    float s = 0.f;
-    for (int d = lane; d < Dh; d += 32) s += tof(q[d]) * tof(kj[d]);
-    s = warp_sum(s) * scale + bias_of(j);
-    const float mn = fmaxf(m, s);
-    const float corr = __expf(m - mn);
-    const float p = __expf(s - mn);
-    l = l * corr + p;
-    const bf16* vj = v_of(j);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (lane + 32 * i < Dh)
-        acc[i] = acc[i] * corr + p * tof(vj[lane + 32 * i]);
-    m = mn;
-  }
-  const float inv = 1.f / l;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (lane + 32 * i < Dh) out[lane + 32 * i] = tob(acc[i] * inv);
 }
 
 // The dynamic shared memory one kernel has been allowed on each device: the

@@ -74,10 +74,6 @@ __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // A 16-byte copy that writes zeros instead when `pred` is false (gmem must
 // still be a valid address; nothing is read from it).
@@ -123,24 +119,6 @@ __device__ __forceinline__ bool key_bits(const float* kvalid, int T,
 
 __device__ __forceinline__ bool bit_of(const uint32_t* vbits, int key) {
   return (vbits[key >> 5] >> (key & 31)) & 1u;
-}
-
-// The keep-mask values of elements idx and idx + 1 of mask mask_id
-// (common.cuh's keep_scale, one Philox block where both fall in it).
-__device__ __forceinline__ void keep_scale2(const Dropout& d,
-                                            uint32_t mask_id, uint64_t idx,
-                                            float& k0, float& k1) {
-  const uint64_t q = idx >> 2;
-  const uint4 r = philox4x32_10(
-      make_uint4(static_cast<uint32_t>(q), static_cast<uint32_t>(q >> 32),
-                 mask_id, 0u),
-      d.key0, d.key1);
-  const uint32_t w = idx & 3;
-  const uint32_t b0 = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-  const uint32_t b1 = w == 0 ? r.y : w == 1 ? r.z : w == 2 ? r.w : 0u;
-  k0 = b0 < d.thresh ? d.inv_keep : 0.f;
-  k1 = w == 3 ? keep_scale(d, mask_id, idx + 1)
-              : (b1 < d.thresh ? d.inv_keep : 0.f);
 }
 
 // Shared memory of a tile launch: the two-stage ring of two [64][kD + 8]

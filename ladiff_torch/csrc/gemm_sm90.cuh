@@ -1,7 +1,11 @@
 // A tensor-core GEMM block for Hopper (sm_90a): C[M, N] = A[M, K] W^T with
 // a fused epilogue, where A is a row-major bf16 activation and W a torch
 // Linear weight [N, K] (bf16).  Both operands are K-major, the layout
-// `wgmma` takes without a transpose.
+// `wgmma` takes without a transpose.  Either may instead be MN-major
+// (kAMN, kBMN): A stored [K, M] (a weight gradient's dy^T), B stored
+// [K, N] (a weight used from its "out" side, x of a weight gradient); TMA
+// loads them in boxes of 64 k rows x 64 M or N columns and `wgmma` reads
+// them with its transpose bits.
 //
 // A CTA is three warpgroups: warpgroup 0 is the producer (one thread starts
 // TMA loads; `setmaxnreg` gives its registers away), warpgroups 1 and 2 are
@@ -34,7 +38,10 @@
 // card's tensor-core peak is 989).
 //
 // One launch may cover up to three weights of the same shape (K3's q, k
-// and v): the column tile picks the weight, its bias and its output.
+// and v): the column tile picks the weight, its bias and its output.  A
+// weight gradient's launch splits K into ranges of ksplit rows: each range
+// is a tile pair of its own and writes its f32 partial [M, N] at row
+// range * M of the output, which a fixed-order pass sums (kEpiPart).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (no link against libcuda)
@@ -62,6 +69,15 @@ enum Epilogue : int {
   // accumulators, added into out[0][0], so that the products are timed
   // alone (chip_smoke.py clip_breakdown)
   kEpiProbe = 4,
+  kEpiAdd = 5,        // bf16(v + resid) with resid bf16; bias may be null
+  // bf16(resid + v * keep) with the keep-mask element row N + col of mask
+  // mask_id (the layer's residual dropout), resid bf16
+  kEpiAddDrop = 6,
+  // bf16(acc), no bias; and delta[row, h] = sum over head h's dh columns of
+  // bf16(acc) * resid (resid bf16 [M, N]: ctx); a column tile holds whole
+  // heads (N <= BN, or BN a multiple of dh)
+  kEpiDctx = 7,
+  kEpiPart = 8,       // f32(acc) at output row range * M + row, no bias
 };
 
 // The ring's stages by tile width, beside the epilogue's staging buffers
@@ -87,10 +103,18 @@ struct GemmArgs {
   int M, N, K;       // rows, columns of each weight, depth
   int mats;          // weights in the launch (1 or 3)
   int tiles_n;       // column tiles of each weight
+  int pairs_m;       // pairs of row tiles
+  int splits, ksplit;  // K ranges of ksplit rows (1 and K but for kEpiPart)
   float scale;       // kEpiBias: applied to weight 0's outputs
   const bf16* bias[3];
-  void* out[3];      // [M, N] each: bf16, or f32 for kEpiResidF32
-  const void* resid; // [M, N]: bf16 (kEpiResidF32) or f32 (kEpiResidBf16)
+  void* out[3];      // [M, N] each: bf16, or f32 for kEpiResidF32, kEpiPart
+  // [M, N]: bf16 (kEpiResidF32, kEpiAdd, kEpiAddDrop, kEpiDctx's ctx) or
+  // f32 (kEpiResidBf16)
+  const void* resid;
+  Dropout drop;      // kEpiAddDrop
+  uint32_t mask_id;
+  float* delta;      // kEpiDctx: [M, H], head width dh
+  int H, dh;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -211,6 +235,18 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The same for an MN-major operand tile: boxes of 64 k rows x 64 M or N
+// elements (128 bytes a row, the 128-byte swizzle), 8-row k groups 1024
+// bytes apart (stride byte offset), consecutive 64-element M / N blocks
+// kMNBox bytes apart (leading byte offset).  Advancing k by 16 moves the
+// start by 16 rows, 2048 bytes.
+constexpr int kMNBox = 64 * kBK * 2;
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(kMNBox >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -252,34 +288,36 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 
 // d[64 x BN] (+)= A[64 x 16] W[BN x 16]^T from shared memory descriptors;
-// scale_d 0 overwrites d.  d's layout: for each 8-column group j, thread t
-// of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
-// 8 j + 2 (t % 4) (+ 1) in d[4 j .. 4 j + 3].
-template <int BN>
+// scale_d 0 overwrites d; TA / TB 1: A / B MN-major (transposed).  d's
+// layout: for each 8-column group j, thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1) in
+// d[4 j .. 4 j + 3].
+template <int BN, int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], uint64_t da,
                                            uint64_t db, int scale_d) {
   if constexpr (BN == 128) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LADIFF_R0_63
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : LADIFF_F32(d, 0), LADIFF_F32(d, 32)
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   } else if constexpr (BN == 192) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {" LADIFF_R0_63
-            LADIFF_R64_95 "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+            LADIFF_R64_95 "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
         : LADIFF_F32(d, 0), LADIFF_F32(d, 32), LADIFF_F32(d, 64)
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" LADIFF_R0_63
-            LADIFF_R64_95 LADIFF_R96_127 "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+            LADIFF_R64_95 LADIFF_R96_127 "}, %128, %129, p, 1, 1, %131, %132;"
+        "\n}\n"
         : LADIFF_F32(d, 0), LADIFF_F32(d, 32), LADIFF_F32(d, 64),
           LADIFF_F32(d, 96)
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 }
 
@@ -305,18 +343,22 @@ __device__ __forceinline__ float quick_gelu_fast(float v) {
 // the warpgroup's two staging buffers in shared memory (rows of 128 bytes,
 // 16-byte units swizzled by row % 8 as TMA's 128-byte swizzle has them, so
 // the warp's stores hit 32 banks), and one thread stores the buffer with
-// TMA while the next chunk is computed: the global writes overlap the rest
-// of the epilogue and the next tile's products, and TMA clips the rows and
-// columns past M and N.  The bias and residual values of a chunk are loaded
-// together (at clamped addresses, without branches) before any is used.
+// TMA at output row orow while the next chunk is computed: the global
+// writes overlap the rest of the epilogue and the next tile's products, and
+// TMA clips the rows and columns past M and N.  The bias and residual
+// values of a chunk are loaded together (at clamped addresses, without
+// branches) before any is used.
 template <int BN, int EPI>
 __device__ __forceinline__ void gemm_epilogue(const float (&acc)[BN / 2],
                                               const GemmArgs& g,
                                               const CUtensorMap* omap,
                                               unsigned char* bufs, int& seq,
-                                              int mat, int m0, int n0) {
-  constexpr bool kF32 = EPI == kEpiResidF32;
-  constexpr bool kResid = EPI == kEpiResidF32 || EPI == kEpiResidBf16;
+                                              int mat, int m0, int n0,
+                                              int orow) {
+  constexpr bool kF32 = EPI == kEpiResidF32 || EPI == kEpiPart;
+  constexpr bool kResid = EPI == kEpiResidF32 || EPI == kEpiResidBf16 ||
+                          EPI == kEpiAdd || EPI == kEpiAddDrop;
+  constexpr bool kBias = EPI != kEpiDctx && EPI != kEpiPart;
   constexpr int kCW = kF32 ? 32 : 64;  // columns of a chunk
   constexpr int kJ = kCW / 8;          // column groups of a chunk
   const int t = threadIdx.x & 127, lane = t & 31, q = lane & 3;
@@ -326,6 +368,7 @@ __device__ __forceinline__ void gemm_epilogue(const float (&acc)[BN / 2],
   const int bar = threadIdx.x >> 7;  // named barrier 1 or 2
   const bf16* bias =
       mat == 0 ? g.bias[0] : (mat == 1 ? g.bias[1] : g.bias[2]);
+  const bool has_bias = kBias && bias != nullptr;  // kEpiAdd: may be null
   const float sc = (EPI == kEpiBias && mat == 0) ? g.scale : 1.f;
   if (m0 >= g.M) return;  // the odd row tile past M: nothing to store
   if constexpr (EPI == kEpiProbe) {  // rows past M and N hold zeros
@@ -337,81 +380,155 @@ __device__ __forceinline__ void gemm_epilogue(const float (&acc)[BN / 2],
     return;
   }
   const int rows[2] = {min(m0 + r0, g.M - 1), min(m0 + r0 + 8, g.M - 1)};
+  // kEpiDctx loads ctx as the others load their residual, for delta
+  constexpr bool kLoadR = kResid || EPI == kEpiDctx;
+  // a 256-wide tile's accumulators leave too few registers to hold a whole
+  // chunk's bias and bf16 residual (ptxas spills): those load in two halves
+  constexpr int kLoads = (BN == 256 && kLoadR && !kF32) ? 2 : 1;
+  constexpr int kJL = kJ / kLoads;
+  // kEpiDctx: each row's sum over the current head's columns so far, the
+  // column groups left in that head, the head
+  float dpart[2] = {0.f, 0.f};
+  int dleft = EPI == kEpiDctx ? g.dh / 8 : 0;
+  int dhead = EPI == kEpiDctx ? n0 / g.dh : 0;
 #pragma unroll
   for (int ch = 0; ch < BN / kCW; ++ch) {
     if (n0 + ch * kCW >= g.N) break;  // the same for the whole warpgroup
-    float2 b[kJ], r[kJ][2];
-#pragma unroll
-    for (int jj = 0; jj < kJ; ++jj) {
-      const int col = min(col0 + 8 * (ch * kJ + jj), g.N - 2);  // N even
-      b[jj] = __bfloat1622float2(
-          __ldg(reinterpret_cast<const __nv_bfloat162*>(bias + col)));
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const size_t o = (size_t)rows[i] * g.N + col;
-        if constexpr (EPI == kEpiResidF32)
-          r[jj][i] = __bfloat1622float2(__ldg(
-              reinterpret_cast<const __nv_bfloat162*>(g.resid) + o / 2));
-        else if constexpr (EPI == kEpiResidBf16)
-          r[jj][i] = __ldg(reinterpret_cast<const float2*>(g.resid) + o / 2);
-      }
-    }
     // buffers alternate over the warpgroup's chunks, across tiles too; the
     // store that last read this one (two chunks ago) is done
     unsigned char* buf = bufs + (seq++ & 1) * kEpiBuf;
-    if (elected) bulk_wait_read<1>();
-    warpgroup_bar(bar);
 #pragma unroll
-    for (int jj = 0; jj < kJ; ++jj) {
-      const int j = ch * kJ + jj;
+    for (int hl = 0; hl < kLoads; ++hl) {
+      float2 b[kJL], r[kJL][2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = r0 + 8 * i;
-        float v0 = acc[4 * j + 2 * i] + b[jj].x;
-        float v1 = acc[4 * j + 2 * i + 1] + b[jj].y;
-        if constexpr (kResid) {
-          v0 += r[jj][i].x;
-          v1 += r[jj][i].y;
+      for (int jj = 0; jj < kJL; ++jj) {
+        const int col =
+            min(col0 + 8 * (ch * kJ + hl * kJL + jj), g.N - 2);  // N even
+        b[jj] = has_bias ? __bfloat1622float2(__ldg(
+                               reinterpret_cast<const __nv_bfloat162*>(
+                                   bias + col)))
+                         : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const size_t o = (size_t)rows[i] * g.N + col;
+          if constexpr (EPI == kEpiResidBf16)
+            r[jj][i] =
+                __ldg(reinterpret_cast<const float2*>(g.resid) + o / 2);
+          else if constexpr (kLoadR)
+            r[jj][i] = __bfloat1622float2(__ldg(
+                reinterpret_cast<const __nv_bfloat162*>(g.resid) + o / 2));
         }
-        if constexpr (EPI == kEpiBias) {
-          v0 *= sc;
-          v1 *= sc;
-        } else if constexpr (EPI == kEpiGelu) {
-          v0 = quick_gelu_fast(v0);
-          v1 = quick_gelu_fast(v1);
+      }
+      if (hl == 0) {  // the first loads are in flight across the barrier
+        if (elected) bulk_wait_read<1>();
+        warpgroup_bar(bar);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kJL; ++jj) {
+        const int u = hl * kJL + jj;  // the column group in the chunk
+        const int j = ch * kJ + u;
+        // kEpiAddDrop: the keep-mask words of the quad's two lane pairs'
+        // 4-element blocks (element row N + col): the pair's even lane
+        // draws row r0's block, the odd lane row r0 + 8's, and each hands
+        // the other the two words it needs (one Philox a 4 elements)
+        uint32_t kb[2][2];
+        if constexpr (EPI == kEpiAddDrop) {
+          const int odd = q & 1;
+          const uint64_t blk =
+              ((uint64_t)(m0 + r0 + 8 * odd) * g.N + n0 + 8 * j) / 4 +
+              (q >> 1);
+          const uint4 w = philox4x32_10(
+              make_uint4(static_cast<uint32_t>(blk),
+                         static_cast<uint32_t>(blk >> 32), g.mask_id, 0u),
+              g.drop.key0, g.drop.key1);
+          const uint32_t s0 = odd ? w.x : w.z, s1 = odd ? w.y : w.w;
+          const uint32_t v0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+          const uint32_t v1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+          const uint32_t o0 = odd ? w.z : w.x, o1 = odd ? w.w : w.y;
+          kb[odd][0] = o0;  // own row: r0 (even lane) or r0 + 8 (odd)
+          kb[odd][1] = o1;
+          kb[odd ^ 1][0] = v0;
+          kb[odd ^ 1][1] = v1;
         }
-        unsigned char* rp = buf + row * 128;
-        if constexpr (kF32) {  // 8 bytes at byte 32 jj + 8 q of the row
-          const int u = 2 * jj + (q >> 1);
-          *reinterpret_cast<float2*>(rp + ((u ^ (row & 7)) << 4) +
-                                     8 * (q & 1)) = make_float2(v0, v1);
-        } else {  // 4 bytes at byte 16 jj + 4 q of the row
-          *reinterpret_cast<__nv_bfloat162*>(rp + ((jj ^ (row & 7)) << 4) +
-                                             4 * q) =
-              __floats2bfloat162_rn(v0, v1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = r0 + 8 * i;
+          float v0 = acc[4 * j + 2 * i] + b[jj].x;
+          float v1 = acc[4 * j + 2 * i + 1] + b[jj].y;
+          if constexpr (EPI == kEpiAddDrop) {
+            v0 *= kb[i][0] < g.drop.thresh ? g.drop.inv_keep : 0.f;
+            v1 *= kb[i][1] < g.drop.thresh ? g.drop.inv_keep : 0.f;
+          }
+          if constexpr (kResid) {
+            v0 += r[jj][i].x;
+            v1 += r[jj][i].y;
+          }
+          if constexpr (EPI == kEpiBias) {
+            v0 *= sc;
+            v1 *= sc;
+          } else if constexpr (EPI == kEpiGelu) {
+            v0 = quick_gelu_fast(v0);
+            v1 = quick_gelu_fast(v1);
+          }
+          unsigned char* rp = buf + row * 128;
+          if constexpr (kF32) {  // 8 bytes at byte 32 u + 8 q of the row
+            const int w = 2 * u + (q >> 1);
+            *reinterpret_cast<float2*>(rp + ((w ^ (row & 7)) << 4) +
+                                       8 * (q & 1)) = make_float2(v0, v1);
+          } else {  // 4 bytes at byte 16 u + 4 q of the row
+            const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+            *reinterpret_cast<__nv_bfloat162*>(rp + ((u ^ (row & 7)) << 4) +
+                                               4 * q) = o;
+            if constexpr (EPI == kEpiDctx) {  // delta from dctx as stored
+              const float2 f = __bfloat1622float2(o);
+              dpart[i] += f.x * r[jj][i].x + f.y * r[jj][i].y;
+            }
+          }
+        }
+        if constexpr (EPI == kEpiDctx) {
+          // the head's last column group (the same point for the whole
+          // warp): the quad's sums to delta
+          if (--dleft == 0) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float d = quad_sum(dpart[i]);
+              const int row = m0 + r0 + 8 * i;
+              if (q == 0 && row < g.M)
+                g.delta[(size_t)row * g.H + dhead] = d;
+              dpart[i] = 0.f;
+            }
+            ++dhead;
+            dleft = g.dh / 8;
+          }
         }
       }
     }
     fence_proxy_async();
     warpgroup_bar(bar);
-    if (elected) tma_store_2d(omap, buf, n0 + ch * kCW, m0);
+    if (elected) tma_store_2d(omap, buf, n0 + ch * kCW, orow);
   }
 }
 
 // Each tile pair p of a launch: column tile nt (weight nt / tiles_n) of
-// row tiles 2 (p / per_row) and 2 (p / per_row) + 1.
+// row tiles 2 pm and 2 pm + 1 over K range s (p = (s pairs_m + pm) mats
+// tiles_n + nt: columns fastest).
 struct TilePair {
   int mat, m0, n0;
+  int k0, nk;  // first k row, 64-deep slices
+  int orow;    // the output row of m0
 };
 template <int BN>
 __device__ __forceinline__ TilePair tile_pair(const GemmArgs& g, int p,
                                               int rank) {
   const int per_row = g.mats * g.tiles_n, nt = p % per_row;
-  return {nt / g.tiles_n, (p / per_row * kCluster + rank) * kBM,
-          nt % g.tiles_n * BN};
+  const int pr = p / per_row, pm = pr % g.pairs_m, s = pr / g.pairs_m;
+  const int m0 = (pm * kCluster + rank) * kBM, k0 = s * g.ksplit;
+  const int kn = min(g.K - k0, g.ksplit);
+  return {nt / g.tiles_n, m0, nt % g.tiles_n * BN, k0, (kn + kBK - 1) / kBK,
+          s * g.M + m0};
 }
 
-template <int BN, int EPI>
+template <int BN, int EPI, bool kAMN, bool kBMN>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
                  const __grid_constant__ CUtensorMap tma_w0,
@@ -431,10 +548,8 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   uint64_t* full = reinterpret_cast<uint64_t*>(epi + kEpiBytes);
   uint64_t* empty = full + S;
   const int wg = threadIdx.x >> 7, rank = cluster_rank();
-  const int pairs =
-      (g.M + kCluster * kBM - 1) / (kCluster * kBM) * g.mats * g.tiles_n;
+  const int pairs = g.pairs_m * g.mats * g.tiles_n * g.splits;
   const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
-  const int nk = (g.K + kBK - 1) / kBK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);  // the producer's arrive (+ the TMA bytes)
@@ -457,18 +572,32 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
         const TilePair t = tile_pair<BN>(g, p, rank);
         const CUtensorMap* wmap =
             t.mat == 0 ? &tma_w0 : (t.mat == 1 ? &tma_w1 : &tma_w2);
-        // a row tile wholly past M (the odd last one) loads no A: its
-        // outputs are never stored
-        const bool load_a = t.m0 < g.M;
-        for (int kt = 0; kt < nk; ++kt) {
+        // a row tile (MN-major: a 64-row half) wholly past M loads no A:
+        // its outputs are never stored
+        const int a_boxes = kAMN ? (t.m0 < g.M) + (t.m0 + 64 < g.M)
+                                 : (t.m0 < g.M ? 2 : 0);
+        for (int kt = 0; kt < t.nk; ++kt) {
+          const int kc = t.k0 + kt * kBK;
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = ring + stage * Cfg::kStageBytes;
-          mbar_expect_tx(&full[stage],
-                         Cfg::kStageBytes - (load_a ? 0 : kABytes));
-          if (load_a) tma_load_2d(st, &tma_a, &full[stage], kt * kBK, t.m0);
-          tma_load_2d_mc(st + kABytes + rank * kHalfB, wmap, &full[stage],
-                         kt * kBK, t.n0 + rank * (BN / kCluster),
-                         (1 << kCluster) - 1);
+          mbar_expect_tx(&full[stage], Cfg::kStageBytes -
+                                           (2 - a_boxes) * (kABytes / 2));
+          if constexpr (kAMN) {
+            for (int h = 0; h < a_boxes; ++h)
+              tma_load_2d(st + h * kMNBox, &tma_a, &full[stage],
+                          t.m0 + 64 * h, kc);
+          } else if (a_boxes) {
+            tma_load_2d(st, &tma_a, &full[stage], kc, t.m0);
+          }
+          if constexpr (kBMN) {  // the CTAs take the 64-column boxes in turn
+            for (int b = rank; b < BN / 64; b += kCluster)
+              tma_load_2d_mc(st + kABytes + b * kMNBox, wmap, &full[stage],
+                             t.n0 + 64 * b, kc, (1 << kCluster) - 1);
+          } else {
+            tma_load_2d_mc(st + kABytes + rank * kHalfB, wmap, &full[stage],
+                           kc, t.n0 + rank * (BN / kCluster),
+                           (1 << kCluster) - 1);
+          }
           if (++stage == S) {
             stage = 0;
             phase ^= 1;
@@ -501,17 +630,20 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
     for (int p = cluster; p < pairs; p += clusters) {
       const TilePair t = tile_pair<BN>(g, p, rank);
       int prev = 0;
-      for (int kt = 0; kt < nk; ++kt) {
+      for (int kt = 0; kt < t.nk; ++kt) {
         mbar_wait(&full[stage], phase);
-        const uint32_t a = smem_u32(ring + stage * Cfg::kStageBytes) +
-                           c * (64 * kBK * 2);
+        // this warpgroup's 64 rows: 8 KB into the stage in both layouts
+        const uint32_t a =
+            smem_u32(ring + stage * Cfg::kStageBytes) + c * (kABytes / 2);
         const uint32_t b = smem_u32(ring + stage * Cfg::kStageBytes + kABytes);
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_bf16<BN>(acc, smem_desc(a + 32 * kk), smem_desc(b + 32 * kk),
-                         (kt | kk) != 0);
+          wgmma_bf16<BN, kAMN, kBMN>(
+              acc, kAMN ? smem_desc_mn(a + 2048 * kk) : smem_desc(a + 32 * kk),
+              kBMN ? smem_desc_mn(b + 2048 * kk) : smem_desc(b + 32 * kk),
+              (kt | kk) != 0);
         wgmma_commit();
         // the group before this one has retired: its stage is free
         wgmma_wait<1>();
@@ -529,7 +661,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
       const CUtensorMap* omap =
           t.mat == 0 ? &tma_o0 : (t.mat == 1 ? &tma_o1 : &tma_o2);
       gemm_epilogue<BN, EPI>(acc, g, omap, epi + c * 2 * kEpiBuf, seq,
-                             t.mat, t.m0 + 64 * c, t.n0);
+                             t.mat, t.m0 + 64 * c, t.n0, t.orow + 64 * c);
     }
     // the last stores have read their buffers before the CTA exits
     if ((threadIdx.x & 127) == 0) bulk_wait_all();
@@ -611,38 +743,82 @@ static inline cudaLaunchConfig_t cluster_config(size_t smem, int ctas,
   return cfg;
 }
 
+// The tensor map of a row-major bf16 matrix [rows, cols] read as an
+// MN-major operand (rows the k of the product) in boxes of 64 rows x 64
+// columns with the 128-byte swizzle; rows and columns past the ends read as
+// zeros.  False where the encoder refuses it.
+static inline bool make_mn_map(CUtensorMap* map, const void* base, int rows,
+                               int cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)kBK};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Launches C = A W^T with epilogue EPI on `ctas` persistent CTAs (clusters
-// of kCluster).  A [M, K]; w[i] [N, K] for i < g.mats.
-template <int BN, int EPI>
+// of kCluster).  A [M, K] (kAMN: stored [K, M]); w[i] [N, K] (kBMN: stored
+// [K, N]) for i < g.mats.  g.splits K ranges of g.ksplit rows (a multiple
+// of 64; kEpiPart only, M a multiple of 64: out[0] is [splits M, N]).
+template <int BN, int EPI, bool kAMN = false, bool kBMN = false>
 static inline cudaError_t gemm_sm90(const bf16* A, const bf16* const* w,
                                     GemmArgs g, int ctas,
                                     cudaStream_t stream) {
   static SmemGrant grant;  // one per instantiation and library
-  if (ctas <= 0 || ctas % kCluster) return cudaErrorInvalidValue;
-  if (!allow_smem(gemm_sm90_kernel<BN, EPI>, GemmCfg<BN>::kSmem, grant))
+  constexpr bool kF32 = EPI == kEpiResidF32 || EPI == kEpiPart;
+  if (ctas <= 0 || ctas % kCluster || g.M <= 0 || g.N <= 0 || g.K <= 0)
+    return cudaErrorInvalidValue;
+  if (g.splits < 1 ||
+      (g.splits > 1 &&
+       (EPI != kEpiPart || g.ksplit <= 0 || g.ksplit % kBK ||
+        (long long)(g.splits - 1) * g.ksplit >= g.K ||
+        (long long)g.splits * g.ksplit < g.K)) ||
+      (EPI == kEpiPart && g.M % 64) || ((kAMN || kBMN) && g.mats != 1))
+    return cudaErrorInvalidValue;
+  if (g.splits == 1) g.ksplit = g.K;
+  if ((EPI == kEpiResidF32 || EPI == kEpiResidBf16 || EPI == kEpiAdd ||
+       EPI == kEpiAddDrop) &&
+      !g.resid)
+    return cudaErrorInvalidValue;
+  if (EPI == kEpiDctx &&
+      (!g.resid || !g.delta || g.dh < 8 || g.dh % 8 || g.N != g.H * g.dh ||
+       (g.N > BN && BN % g.dh)))
+    return cudaErrorInvalidValue;
+  if (!allow_smem(gemm_sm90_kernel<BN, EPI, kAMN, kBMN>, GemmCfg<BN>::kSmem,
+                  grant))
     return cudaErrorInvalidValue;
   CUtensorMap ma, mw[3], mo[3];
-  if (!make_kmajor_map(&ma, A, g.M, g.K, kBM)) return cudaErrorInvalidValue;
+  if (!(kAMN ? make_mn_map(&ma, A, g.K, g.M)
+             : make_kmajor_map(&ma, A, g.M, g.K, kBM)))
+    return cudaErrorInvalidValue;
   for (int i = 0; i < 3; ++i) {
     if (i >= g.mats) {  // never read
       mw[i] = mw[0];
       mo[i] = mo[0];
-    } else if (!make_kmajor_map(&mw[i], w[i], g.N, g.K, BN / kCluster)) {
+    } else if (!(kBMN ? make_mn_map(&mw[i], w[i], g.K, g.N)
+                      : make_kmajor_map(&mw[i], w[i], g.N, g.K,
+                                        BN / kCluster))) {
       return cudaErrorInvalidValue;
     } else if (EPI == kEpiProbe) {
       mo[i] = ma;  // the probe stores through no map
-    } else if (!make_out_map(&mo[i], g.out[i], g.M, g.N,
-                             EPI == kEpiResidF32)) {
+    } else if (!make_out_map(&mo[i], g.out[i], g.splits * g.M, g.N, kF32)) {
       return cudaErrorInvalidValue;
     }
   }
   g.tiles_n = (g.N + BN - 1) / BN;
+  g.pairs_m = (g.M + kCluster * kBM - 1) / (kCluster * kBM);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_config(GemmCfg<BN>::kSmem, ctas, stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_sm90_kernel<BN, EPI>,
-                                           ma, mw[0], mw[1], mw[2], mo[0],
-                                           mo[1], mo[2], g);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, gemm_sm90_kernel<BN, EPI, kAMN, kBMN>, ma,
+                         mw[0], mw[1], mw[2], mo[0], mo[1], mo[2], g);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -650,15 +826,16 @@ static inline cudaError_t gemm_sm90(const bf16* A, const bf16* const* w,
 // query fails): the persistent launch's cluster count.
 static inline int gemm_sm90_cluster_slots() {
   static SmemGrant grant;
-  if (!allow_smem(gemm_sm90_kernel<256, kEpiBias>, GemmCfg<256>::kSmem,
-                  grant))
+  if (!allow_smem(gemm_sm90_kernel<256, kEpiBias, false, false>,
+                  GemmCfg<256>::kSmem, grant))
     return 0;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_config(GemmCfg<256>::kSmem, kCluster, nullptr, attr);
   int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, gemm_sm90_kernel<256, kEpiBias>,
-                                     &cfg) != cudaSuccess) {
+  if (cudaOccupancyMaxActiveClusters(
+          &n, gemm_sm90_kernel<256, kEpiBias, false, false>, &cfg) !=
+      cudaSuccess) {
     cudaGetLastError();
     return 0;
   }

@@ -1,7 +1,9 @@
 // The MD-trans denoiser layer body on a thread-block cluster, shared by
 // kernel K1 (md_layer.cu, one layer per launch) and kernel 11 (md_stack.cu,
-// the whole skip stack per launch).  See ladiff_torch/ops/md_layer.py for
-// the math and ladiff_torch/ops/md_stack.py for the stack.
+// the whole skip stack per launch); its stylized-FFN segment
+// (md_stylized_ffn) is also kernel 6 (stylized_ffn.cu) on its own.  See
+// ladiff_torch/ops/md_layer.py for the math, ladiff_torch/ops/md_stack.py
+// for the stack and ladiff_torch/ops/stylized_ffn.py for kernel 6.
 //
 // A cluster of C = D / 64 CTAs owns one row group: whole samples, at most
 // 96 latent rows and 48 extra rows (text, time).  CTA c computes columns
@@ -83,7 +85,10 @@ constexpr int kCLdQ = kCW + 8;     // q / k / v rows
 constexpr int kCMaxC = 4;
 constexpr int kCSegs = 48;        // weight segments of a layer, at most
 
-// All arguments of both kernels (K1: L = 1, no skip tensors).
+// All arguments of the kernels (K1: L = 1, no skip tensors; kernel 6:
+// ffn_only, L = 1, rows grouped as B = M samples of T = 1 row, no extra rows
+// and no kvalid, the AdaLN row of row i at ffn_ss + (i / ss_t) ffn_stride,
+// the stylized FFN's tensors at w[16..23] and F1 = F2).
 struct MDClusterArgs {
   const bf16* x;        // [B T, D]
   const bf16* extra;    // [B E, D]
@@ -96,6 +101,7 @@ struct MDClusterArgs {
   bf16* out;            // [B T, D]
   int B, T, E, D, H, F1, F2, L, ca_stride, ffn_stride;
   int spg, groups, C;   // samples per row group, row groups, cluster size
+  int ffn_only, ss_t;   // kernel 6: the stylized FFN alone, rows a sample
 };
 
 __host__ __device__ inline int md_chunks(int F, int C) {
@@ -140,13 +146,18 @@ __host__ __device__ inline MDCLayout md_cluster_layout(int D, int F1,
   return L;
 }
 
-// Weight segments of a layer (md_seg): the skip Linear, q / k / v, the
-// out-projection, per FFN its 64-column first-product passes and C
-// second-product passes per hidden chunk, the two projections.
-__host__ __device__ inline int md_nsegs(int D, int F1, int F2) {
+// Weight segments of one FFN and its projection (md_seg): the 64-column
+// first-product passes and C second-product passes per hidden chunk, then
+// the projection.
+__host__ __device__ inline int md_ffn_nsegs(int D, int F) {
   const int C = D / kCW;
-  return 5 + F1 / C / kCW + md_chunks(F1, C) * C + 1 + F2 / C / kCW +
-         md_chunks(F2, C) * C + 1;
+  return F / C / kCW + md_chunks(F, C) * C + 1;
+}
+
+// Weight segments of a layer: the skip Linear, q / k / v, the
+// out-projection, then the two FFNs'.
+__host__ __device__ inline int md_nsegs(int D, int F1, int F2) {
+  return 5 + md_ffn_nsegs(D, F1) + md_ffn_nsegs(D, F2);
 }
 
 // The shapes the body takes (ops/md_layer.py md_layer_supported, the launch
@@ -163,6 +174,19 @@ inline bool md_cluster_valid(const MDClusterArgs& a) {
     return false;
   return (a.ca_stride == 0 || a.ca_stride == 2 * a.D) &&
          (a.ffn_stride == 0 || a.ffn_stride == 2 * a.D);
+}
+
+// The shapes kernel 6 takes (ops/stylized_ffn.py stylized_ffn_supported,
+// the launch geometry of stylized_ffn_geometry): groups of at most 96 rows.
+inline bool sf_cluster_valid(const MDClusterArgs& a) {
+  if (a.B < 1 || a.T != 1 || a.E != 0 || a.L != 1 || a.ss_t < 1 ||
+      a.B % a.ss_t || a.D < kCW || a.D % kCW || a.D / kCW > kCMaxC ||
+      a.C != a.D / kCW || a.F2 < a.D || a.F2 % a.D || a.F1 != a.F2 ||
+      md_ffn_nsegs(a.D, a.F2) >= kCSegs)
+    return false;
+  if (a.spg < 1 || a.spg > kCRows || a.groups != (a.B + a.spg - 1) / a.spg)
+    return false;
+  return a.ffn_stride == 0 || a.ffn_stride == 2 * a.D;
 }
 
 // ---------------------------------------------------------------------------
@@ -266,21 +290,23 @@ struct SegRow {
 // Segment i (nk -1 past the layer's last).  An FFN's segments: per hidden
 // chunk j, the first product's passes of 64 hidden columns (K = D), then
 // the second product's passes for the peers' columns and last the CTA's
-// own (K = the chunk).
+// own (K = the chunk).  Kernel 6 (ffn_only) has the stylized FFN's alone.
 __device__ inline SegRow md_seg(const MDClusterArgs& a, int i, int c) {
   const int D = a.D, C = a.C, nk = D / kCKT;
   const auto prm = [&](int k, size_t off, int ldw, int n) {
     return SegRow{a.w[k] + off,
                   (long long)md_param_numel(k, D, a.F1, a.F2), ldw, n, 0, 0};
   };
-  if (i == 0)  // layer l > nb: output block l - nb - 1
-    return SegRow{a.lin_w + (size_t)c * kCW * 2 * D, 2LL * D * D, 2 * D,
-                  a.lin_w ? 2 * D / kCKT : 0, (a.L - 1) / 2 + 1, 0};
-  // 1: k, 2: v, 3: q (parts 1, 2, 0 of the in-projection), 4: out
-  if (i <= 3) return prm(0, ((size_t)(i % 3) * D + c * kCW) * D, D, nk);
-  if (i == 4) return prm(2, (size_t)c * kCW * D, D, nk);
-  i -= 5;
-  for (int f = 0; f < 2; ++f) {
+  if (!a.ffn_only) {
+    if (i == 0)  // layer l > nb: output block l - nb - 1
+      return SegRow{a.lin_w + (size_t)c * kCW * 2 * D, 2LL * D * D, 2 * D,
+                    a.lin_w ? 2 * D / kCKT : 0, (a.L - 1) / 2 + 1, 0};
+    // 1: k, 2: v, 3: q (parts 1, 2, 0 of the in-projection), 4: out
+    if (i <= 3) return prm(0, ((size_t)(i % 3) * D + c * kCW) * D, D, nk);
+    if (i == 4) return prm(2, (size_t)c * kCW * D, D, nk);
+    i -= 5;
+  }
+  for (int f = a.ffn_only ? 1 : 0; f < 2; ++f) {
     const int F = f ? a.F2 : a.F1, Fc = F / C, k1 = f ? 16 : 6;
     for (int j = 0; j * kCHC < Fc; ++j) {
       const int cw = min(kCHC, Fc - j * kCHC), np1 = cw / kCW;
@@ -811,7 +837,8 @@ __device__ __forceinline__ void md_start(float (&r)[kCMT][2][4],
   md_load_extra<true>(a, m);
   cp_async_commit();
   for (int row = threadIdx.x; row < kCRows; row += kCThreads)
-    m.kvs[row] = row < m.nrow ? ldgf(a.kvalid + m.row0 + row) : 0.f;
+    m.kvs[row] =
+        row < m.nrow && a.kvalid ? ldgf(a.kvalid + m.row0 + row) : 0.f;
   stream_start(s, a, m);
   cp_async_wait<kCStages - 1>();
   __syncthreads();
@@ -829,6 +856,68 @@ __device__ __forceinline__ void md_start(float (&r)[kCMT][2][4],
         r[i][nt][2 * hf] = v.x;
         r[i][nt][2 * hf + 1] = v.y;
       }
+}
+
+// ---------------------------------------------------------------------------
+// The stylized FFN segment on the group's rows, layer l's tensors 16..23 of
+// _PARAM_ORDER (their weights the stream's next segments).  Pre: xa holds
+// the segment's input (every CTA, all D columns), r the CTA's columns of it
+// (f32).  y = the GELU FFN of xa + b2 -> LayerNorm -> AdaLN -> SiLU -> the
+// projection, added to r.  The AdaLN (scale, shift) row of the group's row
+// `row` is ss + ((rbase + row) / T) ss_stride (0: one row for all; padding
+// rows take the group's last row's).  K1 and kernel 11 pass the row
+// group's first sample's row and rbase 0, kernel 6 its first row's index.
+__device__ __forceinline__ void md_stylized_ffn(float (&r)[kCMT][2][4],
+                                                MDStream& s,
+                                                const MDClusterArgs& a,
+                                                const MDCta& m, int l,
+                                                const bf16* ss, int ss_stride,
+                                                size_t rbase, int T) {
+  const CLane t = clane();
+  const int D = m.D, c = m.c, nk = D / kCKT;
+  const unsigned lat = (1u << m.ml) - 1u;
+  const auto wp = [&](int k) {
+    return a.w[k] + (size_t)l * md_param_numel(k, D, a.F1, a.F2);
+  };
+  float y[kCMT][2][4];
+  md_ffn(y, wp(17), a.F2, 1, s, a, m);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const float2 bv = ldg2(wp(19) + c * kCW + ccol(t, nt));
+#pragma unroll
+    for (int i = 0; i < kCMT; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        y[i][nt][2 * hf] += bv.x;
+        y[i][nt][2 * hf + 1] += bv.y;
+      }
+  }
+  cluster_ln(y, m, wp(20), wp(21));
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int col = c * kCW + ccol(t, nt);
+#pragma unroll
+    for (int i = 0; i < kCMT; ++i)
+      if (ctile(t, i) < m.ml)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = crow(t, i, hf);
+          const bf16* st =
+              ss + (size_t)((rbase + min(row, m.nrow - 1)) / T) * ss_stride;
+          const float2 sc = ldg2(st + col), sh = ldg2(st + D + col);
+          float* e = &y[i][nt][2 * hf];
+          e[0] = silu(e[0] * (1.f + sc.x) + sh.x);
+          e[1] = silu(e[1] * (1.f + sc.y) + sh.y);
+        }
+  }
+  store_slice(y, m.big, m);
+  push_slice(m.big, m);
+  {
+    float acc[kCMT][2][4];
+    czero(acc);
+    cgemm<kCMT>(acc, m.big, m.big, m.big, m.ld, nk, nk, lat, s, a, m);
+    add_biased(r, acc, wp(23), c);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -977,55 +1066,20 @@ __device__ __forceinline__ void md_layer_cl(float (&r)[kCMT][2][4],
   push_slice(m.xa, m);
 
   // stylized GELU FFN -> LN -> AdaLN -> SiLU -> projection + residual
-  md_ffn(y, wp(17), a.F2, 1, s, a, m);
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const float2 bv = ldg2(wp(19) + c * kCW + ccol(t, nt));
-#pragma unroll
-    for (int i = 0; i < kCMT; ++i)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        y[i][nt][2 * hf] += bv.x;
-        y[i][nt][2 * hf + 1] += bv.y;
-      }
-  }
-  cluster_ln(y, m, wp(20), wp(21));
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int col = c * kCW + ccol(t, nt);
-#pragma unroll
-    for (int i = 0; i < kCMT; ++i)
-      if (ctile(t, i) < m.ml)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = crow(t, i, hf);
-          const bf16* ss =
-              ffn_ss + (size_t)(min(row, m.nrow - 1) / m.T) * ffn_stride;
-          const float2 sc = ldg2(ss + col), sh = ldg2(ss + D + col);
-          float* e = &y[i][nt][2 * hf];
-          e[0] = silu(e[0] * (1.f + sc.x) + sh.x);
-          e[1] = silu(e[1] * (1.f + sc.y) + sh.y);
-        }
-  }
-  store_slice(y, m.big, m);
-  push_slice(m.big, m);
-  {
-    float acc[kCMT][2][4];
-    czero(acc);
-    cgemm<kCMT>(acc, m.big, m.big, m.big, m.ld, nk, nk, lat, s, a, m);
-    add_biased(r, acc, wp(23), c);
-  }
+  md_stylized_ffn(r, s, a, m, l, ffn_ss, ffn_stride, 0, m.T);
   epi(r);
 }
 
-// The launch: one cluster of C CTAs per row group.  Internal linkage: each
-// library keeps its own kernel and shared-memory grants (see attn_tile.cuh).
+// The launch: one cluster of C CTAs per row group (K1, 11 and 6).
+// Internal linkage: each library keeps its own kernel and shared-memory
+// grants (see attn_tile.cuh).
 template <typename Kern>
 static inline cudaError_t md_cluster_launch(Kern kernel,
                                             const MDClusterArgs& a,
                                             SmemGrant& grant,
                                             cudaStream_t stream) {
-  if (!md_cluster_valid(a)) return cudaErrorInvalidValue;
+  if (!(a.ffn_only ? sf_cluster_valid(a) : md_cluster_valid(a)))
+    return cudaErrorInvalidValue;
   const size_t bytes = md_cluster_layout(a.D, a.F1, a.F2).total;
   if (!allow_smem(kernel, bytes, grant)) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};

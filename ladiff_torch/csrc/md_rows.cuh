@@ -1,7 +1,6 @@
-// The MD layer's per-row AdaLN segments on 32-row blocks: the one-token
-// cross-attention's rows (ca_rows, kernel 7's stylize.cu) and the stylized
-// FFN's rows (stylize_rows, kernel 6's stylized_ffn.cu).  See
-// ladiff_torch/ops/stylize.py and ladiff_torch/ops/stylized_ffn.py.
+// The MD layer's per-row AdaLN segment on 32-row blocks: the one-token
+// cross-attention's rows (ca_rows, kernel 7's stylize.cu).  See
+// ladiff_torch/ops/stylize.py.
 #pragma once
 
 #include "common.cuh"
@@ -10,7 +9,7 @@ namespace ladiff {
 
 // AdaLN -> SiLU of one row held by a warp (v: its LayerNorm output, element
 // lane + 32 i in v[i]), (scale, shift) from ss [2D], into the bf16 row dst.
-// Here and in the row segments below the column is clamped before the guard,
+// Here and in ca_rows below the column is clamped before the guard,
 // as in warp_layernorm: the compiler may issue the read-only loads of the
 // unrolled iterations i >= per speculatively, and they must stay inside the
 // row (a shared AdaLN row is a tensor of its own, 2D elements long).
@@ -49,29 +48,6 @@ __device__ __forceinline__ void ca_rows(bf16* xb, int ld, int D, int T,
     for (int i = 0; i < kMaxPer; ++i) {
       const int c = min(lane + 32 * i, D - 1);
       if (i < per) v[i] = ldgf(val + c) * mk;
-    }
-    warp_layernorm(v, D, ln_w, ln_b);
-    adaln_silu_row(v, ss + (size_t)s * ss_stride, D, xb + row * ld);
-  }
-}
-
-// The stylized FFN's rows: the FFN output row in cf + b2 -> LayerNorm ->
-// AdaLN -> SiLU into xb.
-__device__ __forceinline__ void stylize_rows(const float* cf, int ldc,
-                                             const bf16* b2, bf16* xb, int ld,
-                                             int D, int T, int row0, int last,
-                                             const bf16* ss, int ss_stride,
-                                             const bf16* ln_w,
-                                             const bf16* ln_b) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5, per = D / 32;
-  for (int row = warp; row < kRows; row += nwarps) {
-    const int s = min((row0 + row) / T, last);
-    float v[kMaxPer];
-#pragma unroll
-    for (int i = 0; i < kMaxPer; ++i) {
-      const int c = min(lane + 32 * i, D - 1);
-      if (i < per) v[i] = cf[row * ldc + c] + ldgf(b2 + c);
     }
     warp_layernorm(v, D, ln_w, ln_b);
     adaln_silu_row(v, ss + (size_t)s * ss_stride, D, xb + row * ld);

@@ -2,72 +2,42 @@
 // ladiff_tpu/ops/pallas_fused_ffn.py fused_stylized_ffn).  See
 // ladiff_torch/ops/stylized_ffn.py for the math, the bound and the design.
 //
-// One block per 32 rows: x rows into shared memory (bf16 A operand and f32
-// residual), the GELU FFN in 256-column chunks of the hidden width (the
-// hidden row block stays in shared memory), then per row by one warp: + b2
-// -> LayerNorm -> AdaLN (scale, shift of the row's sample) -> SiLU, and the
-// out-projection + residual.  The row segment is md_rows.cuh
-// stylize_rows.
-#include "common.cuh"
-#include "md_rows.cuh"
+// K1's cluster body (md_body_cluster.cuh) on the segment alone: one cluster
+// of C = D / 64 CTAs per row group of at most 96 rows, the groups sized so
+// that the clusters fill the card once.  The rows come in as md_start loads
+// them (every CTA all D columns as the A operand, the CTA's columns as the
+// f32 residual in registers), then md_stylized_ffn: the GELU FFN with its
+// hidden width split over the cluster, + b2, the LayerNorm over the
+// cluster, AdaLN, SiLU and the projection + residual.  The weights stream
+// through the body's ring from kernel 6's own segment table (md_seg with
+// ffn_only: w1 and w2 by hidden chunk, then w3).
+#include "md_body_cluster.cuh"
 
 using namespace ladiff;
 
 namespace {
 
-// Shared memory of a 32-row block: x rows (bf16), a product chunk (f32),
-// the f32 residual rows, the hidden row block (bf16) and the weight stage.
-struct FfnLayout {
-  size_t xb, cf, r, hid, ws, total;
-};
-
-inline FfnLayout ffn_layout(int D, int F) {
-  FfnLayout L;
-  L.xb = 0;
-  L.cf = align128(L.xb + kRows * (D + 8) * sizeof(bf16));
-  L.r = align128(L.cf + kRows * (kChunk + 4) * sizeof(float));
-  L.hid = align128(L.r + kRows * D * sizeof(float));
-  L.ws = align128(L.hid + kRows * (F + 8) * sizeof(bf16));
-  L.total = align128(L.ws + kWStageBytes);
-  return L;
-}
-
-struct SFArgs {
-  const bf16 *x, *ss, *w1, *b1, *w2, *b2, *ln_w, *ln_b, *w3, *b3;
-  bf16* out;
-  int M, D, F, T, ss_stride;
-};
-
-__global__ void __launch_bounds__(kThreads)
-stylized_ffn_kernel(SFArgs a, FfnLayout L) {
+__global__ void __launch_bounds__(kCThreads, 1)
+stylized_ffn_kernel(const __grid_constant__ MDClusterArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D, ld = D + 8, ldc = kChunk + 4, ldh = a.F + 8;
-  bf16* xb = reinterpret_cast<bf16*>(smem + L.xb);
-  float* cf = reinterpret_cast<float*>(smem + L.cf);
-  float* r = reinterpret_cast<float*>(smem + L.r);
-  bf16* hid = reinterpret_cast<bf16*>(smem + L.hid);
-  bf16* ws = reinterpret_cast<bf16*>(smem + L.ws);
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int nrow = min(kRows, a.M - row0);
-  const size_t base = (size_t)row0 * D;
-
-  for (int i = tid; i < kRows * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    const bf16 xv = row < nrow ? ldg(a.x + base + i) : tob(0.f);
-    xb[row * ld + c] = xv;
-    r[i] = tof(xv);
-  }
-  __syncthreads();
-  block_ffn(xb, ld, D, a.w1, a.b1, a.w2, a.F, 1, hid, ldh, cf, ldc, ws);
-  stylize_rows(cf, ldc, a.b2, xb, ld, D, a.T, row0, a.M / a.T - 1, a.ss,
-               a.ss_stride, a.ln_w, a.ln_b);
-  __syncthreads();
-  block_gemm(xb, ld, a.w3, D, D, D, cf, ldc, false, ws);
-  for (int i = tid; i < nrow * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    a.out[base + i] = tob(r[i] + cf[row * ldc + c] + ldgf(a.b3 + c));
-  }
+  const MDCta m = md_cta(smem, a);
+  MDStream s;
+  float r[kCMT][2][4];
+  md_start(r, s, a, m);
+  md_stylized_ffn(r, s, a, m, 0, a.ffn_ss, a.ffn_stride, m.row0, a.ss_t);
+  const CLane t = clane();
+  bf16* out = a.out + m.row0 * a.D + m.c * kCW;
+#pragma unroll
+  for (int i = 0; i < kCMT; ++i)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = crow(t, i, hf);
+        if (ctile(t, i) < m.ml && row < m.nrow)
+          st2(out + (size_t)row * a.D + ccol(t, nt), r[i][nt][2 * hf],
+              r[i][nt][2 * hf + 1]);
+      }
 }
 
 }  // namespace
@@ -75,23 +45,36 @@ stylized_ffn_kernel(SFArgs a, FfnLayout L) {
 LADIFF_ERROR_STRING_FN
 
 // ptrs: x [M, D], ss [1 or M / T, 2D], w1 [F, D], b1, w2 [D, F], b2, ln_w,
-// ln_b, w3 [D, D], b3, out [M, D] (all bf16).  ints: M, D, F, T, ss_stride.
+// ln_b, w3 [D, D], b3, out [M, D] (all bf16).  ints: M, D, F, T, ss_stride,
+// then the launch geometry (ops/stylized_ffn.py stylized_ffn_geometry):
+// rows per group, row groups, cluster size.
 extern "C" int stylized_ffn_forward(const void** p, const int* n,
                                     const float*, void* stream) {
   const bf16** w = reinterpret_cast<const bf16**>(p);
-  SFArgs a;
-  a.x = w[0]; a.ss = w[1]; a.w1 = w[2]; a.b1 = w[3]; a.w2 = w[4];
-  a.b2 = w[5]; a.ln_w = w[6]; a.ln_b = w[7]; a.w3 = w[8]; a.b3 = w[9];
+  MDClusterArgs a = {};
+  a.x = w[0];
+  a.ffn_ss = w[1];
+  for (int k = 0; k < 8; ++k) a.w[16 + k] = w[2 + k];
   a.out = const_cast<bf16*>(w[10]);
-  a.M = n[0]; a.D = n[1]; a.F = n[2]; a.T = n[3]; a.ss_stride = n[4];
-  if (a.M < 1 || a.T < 1 || a.M % a.T || a.D % 32 || a.D > kChunk ||
-      a.F % kKT)
-    return cudaErrorInvalidValue;
-  const FfnLayout L = ffn_layout(a.D, a.F);
+  a.B = n[0];  // rows, grouped as samples of one row
+  a.T = 1;
+  a.D = n[1];
+  a.F1 = a.F2 = n[2];
+  a.ss_t = n[3];
+  a.ffn_stride = n[4];
+  a.spg = n[5];
+  a.groups = n[6];
+  a.C = n[7];
+  a.L = 1;
+  a.ffn_only = 1;
   static SmemGrant grant;
-  if (!allow_smem(stylized_ffn_kernel, L.total, grant))
-    return cudaErrorInvalidValue;
-  stylized_ffn_kernel<<<(a.M + kRows - 1) / kRows, kThreads, L.total,
-                        static_cast<cudaStream_t>(stream)>>>(a, L);
-  return cudaGetLastError();
+  return md_cluster_launch(stylized_ffn_kernel, a, grant,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of D / 64 CTAs of this kernel that can be resident at once at
+// width D and FFN width F1 = F2 (0 when the query fails).
+extern "C" int stylized_ffn_slots(int D, int F1, int F2) {
+  static SmemGrant grant;
+  return md_cluster_slots(stylized_ffn_kernel, D, F1, F2, grant);
 }

@@ -1,22 +1,17 @@
-// Kernel 8's launches (the self-attention segment of a transformer layer in
-// training), shared by train_attention.cu and the whole-layer training
-// kernels 12 and 13 (train_layer.cu, train_decoder_layer.cu), which run the
-// tiled attention forward and backward through them (and kernel 12 its
-// projections).
+// Kernel 8's attention launches (the self-attention segment of a
+// transformer layer in training), shared by train_attention.cu and the
+// whole-layer training kernels 12 and 13 (train_layer.cu,
+// train_decoder_layer.cu), which run the tiled attention forward and
+// backward through them.  The products around them are train_gemm.cuh's.
 // See ladiff_torch/ops/train_attention.py for the math and the dropout
 // contract (mask 0: the probabilities, element ((b H + h) S + i) S + j).
-//   linear_kernel      out = A W^T + b
 //   attn_fwd_kernel    flash_tile.cuh's register-resident tile: 64 queries
 //                      per block, key tiles through a cp.async ring, online
 //                      softmax, probability dropout; writes ctx [M, D] and
 //                      the log-sum-exp [M, H]
-//   out_proj_kernel    out = x + (ctx Wout^T + bout) * residual mask (mask 1)
-//   dctx_kernel        dattn = dout * residual mask; dctx = dattn Wout;
-//                      delta = dctx . ctx per row and head
 //   attn_bwd_kernel    probabilities recomputed from q, k and the
 //                      log-sum-exp in registers; query side (dq) or key
 //                      side (dk, dv); wholly masked key tiles skipped
-//   linear_nn_kernel   out = add + A W  (dx = dout + dqkv Wqkv)
 #pragma once
 
 #include "flash_tile.cuh"
@@ -27,135 +22,6 @@ using namespace ladiff;
 namespace {
 
 constexpr int kMaxDh = 64;  // head widths 16, 32, 48, 64
-
-inline size_t row_gemm_bytes(int K) {
-  return align128(kRows * (K + 8) * sizeof(bf16)) +
-         kRows * (kChunk + 4) * sizeof(float) + kWStageBytes;
-}
-
-struct RowBuffers {
-  bf16* xb;
-  float* cf;
-  bf16* ws;
-};
-
-__device__ __forceinline__ RowBuffers row_buffers(unsigned char* smem, int K) {
-  RowBuffers b;
-  b.xb = reinterpret_cast<bf16*>(smem);
-  b.cf = reinterpret_cast<float*>(smem +
-                                  align128(kRows * (K + 8) * sizeof(bf16)));
-  b.ws = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(b.cf) +
-                                 kRows * (kChunk + 4) * sizeof(float));
-  return b;
-}
-
-// out[M, N] = A[M, K] W^T + b (W a torch Linear weight [N, K]); one block
-// per 32 rows x 256 output columns.
-__global__ void __launch_bounds__(kThreads)
-linear_kernel(const bf16* A, int M, int K, const bf16* W, const bf16* bias,
-              int N, bf16* out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RowBuffers s = row_buffers(smem, K);
-  const int ld = K + 8, ldc = kChunk + 4;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int nrow = min(kRows, (int)(M - row0));
-  const int n0 = blockIdx.y * kChunk;
-  const int nc = min(kChunk, N - n0);
-  load_rows(A, row0, nrow, K, s.xb, ld);
-  __syncthreads();
-  block_gemm(s.xb, ld, W + (size_t)n0 * K, K, K, nc, s.cf, ldc, false, s.ws);
-  for (int i = threadIdx.x; i < nrow * nc; i += blockDim.x) {
-    const int row = i / nc, c = i % nc;
-    out[(row0 + row) * N + n0 + c] =
-        tob(s.cf[row * ldc + c] + ldgf(bias + n0 + c));
-  }
-}
-
-// out = x + (ctx Wout^T + bout) * residual mask (mask 1), per 32 rows.
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-out_proj_kernel(const bf16* ctx, const bf16* x, int M, int D, const bf16* W,
-                const bf16* bias, Dropout drop, bf16* out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RowBuffers s = row_buffers(smem, D);
-  const int ld = D + 8, ldc = kChunk + 4;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int nrow = min(kRows, (int)(M - row0));
-  load_rows(ctx, row0, nrow, D, s.xb, ld);
-  __syncthreads();
-  block_gemm(s.xb, ld, W, D, D, D, s.cf, ldc, false, s.ws);
-  for (int i = threadIdx.x; i < nrow * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    float v = s.cf[row * ldc + c] + ldgf(bias + c);
-    if (kDrop) v *= keep_scale(drop, 1u, (row0 + row) * D + c);
-    out[row0 * D + i] = tob(ldgf(x + row0 * D + i) + v);
-  }
-}
-
-// dattn = bf16(dout * residual mask); dctx = bf16(dattn Wout);
-// delta[row, h] = sum_d dctx[row, h, d] * ctx[row, h, d].  Per 32 rows.
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-dctx_kernel(const bf16* dout, const bf16* ctx, int M, int D, int H,
-            const bf16* W, Dropout drop, bf16* dattn, bf16* dctx,
-            float* delta) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RowBuffers s = row_buffers(smem, D);
-  const int ld = D + 8, ldc = kChunk + 4, Dh = D / H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int nrow = min(kRows, (int)(M - row0));
-  for (int i = tid; i < kRows * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    float v = 0.f;
-    if (row < nrow) {
-      v = ldgf(dout + row0 * D + i);
-      if (kDrop) v *= keep_scale(drop, 1u, (row0 + row) * D + c);
-    }
-    const bf16 b = tob(v);
-    s.xb[row * ld + c] = b;
-    if (row < nrow) dattn[row0 * D + i] = b;
-  }
-  __syncthreads();
-  block_gemm_nn(s.xb, ld, W, D, D, D, s.cf, ldc, false, s.ws);
-  for (int i = tid; i < kRows * D; i += blockDim.x) {
-    const int row = i / D, c = i % D;
-    const bf16 b = tob(s.cf[row * ldc + c]);
-    s.xb[row * ld + c] = b;
-    if (row < nrow) dctx[row0 * D + i] = b;
-  }
-  __syncthreads();
-  for (int p = warp; p < nrow * H; p += blockDim.x >> 5) {
-    const int row = p / H, h = p % H;
-    float acc = 0.f;
-    for (int d = lane; d < Dh; d += 32)
-      acc += tof(s.xb[row * ld + h * Dh + d]) *
-             ldgf(ctx + (row0 + row) * D + h * Dh + d);
-    acc = warp_sum(acc);
-    if (lane == 0) delta[(row0 + row) * H + h] = acc;
-  }
-}
-
-// out = add + A W for A [M, K] and W [K, N] row-major (a torch Linear
-// weight [out, in] used from its "out" side, or a band of its rows: the
-// backward of y = x W^T), N <= 256; add [M, N] may be null.  Per 32 rows.
-__global__ void __launch_bounds__(kThreads)
-linear_nn_kernel(const bf16* A, int M, int K, const bf16* W, int N,
-                 const bf16* add, bf16* out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RowBuffers s = row_buffers(smem, K);
-  const int ld = K + 8, ldc = kChunk + 4;
-  const size_t row0 = (size_t)blockIdx.x * kRows;
-  const int nrow = min(kRows, (int)(M - row0));
-  load_rows(A, row0, nrow, K, s.xb, ld);
-  __syncthreads();
-  block_gemm_nn(s.xb, ld, W, N, K, N, s.cf, ldc, false, s.ws);
-  for (int i = threadIdx.x; i < nrow * N; i += blockDim.x) {
-    float v = s.cf[(i / N) * ldc + i % N];
-    if (add) v += ldgf(add + row0 * N + i);
-    out[row0 * N + i] = tob(v);
-  }
-}
 
 // Self-attention of one (sample, head, 64-query tile) over the sample's S
 // rows (flash_tile.cuh), with dropout on the probabilities (mask 0, element

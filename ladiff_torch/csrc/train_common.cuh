@@ -74,24 +74,41 @@ wgrad_kernel(const bf16* A, int lda, const bf16* B, int ldb, int M, int N1,
 }
 
 // part[s][N] = column sums of A[rows of split s, 0:N] (bf16, row stride
-// lda): a bias gradient.  One block per 64 columns and split.
+// lda; N and lda multiples of 8, A 16-byte aligned): a bias gradient.  One
+// block per 64 columns and split: 8 threads cover a row's 64 columns in
+// 16-byte loads, 32 rows at a time; the 32 row lanes' sums are added in
+// lane order.
 __global__ void __launch_bounds__(256)
 colsum_kernel(const bf16* A, int lda, int M, int N, int rows_per_split,
               float* part) {
-  __shared__ float red[4][64];
-  const int c = threadIdx.x & 63, rl = threadIdx.x >> 6;
-  const int col = blockIdx.x * 64 + c;
+  __shared__ float red[32][64 + 1];
+  const int cg = threadIdx.x & 7, rl = threadIdx.x >> 3;
+  const int c0 = blockIdx.x * 64 + cg * 8;
   const int s = blockIdx.y;
   const int m_begin = s * rows_per_split;
   const int m_end = min(M, m_begin + rows_per_split);
-  float sum = 0.f;
-  if (col < N)
-    for (int m = m_begin + rl; m < m_end; m += 4)
-      sum += ldgf(A + (size_t)m * lda + col);
-  red[rl][c] = sum;
+  float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (c0 < N)
+    for (int m = m_begin + rl; m < m_end; m += 32) {
+      const uint4 u =
+          __ldg(reinterpret_cast<const uint4*>(A + (size_t)m * lda + c0));
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        sum[2 * e] += f.x;
+        sum[2 * e + 1] += f.y;
+      }
+    }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[rl][cg * 8 + e] = sum[e];
   __syncthreads();
-  if (rl == 0 && col < N)
-    part[(size_t)s * N + col] = red[0][c] + red[1][c] + red[2][c] + red[3][c];
+  const int col = blockIdx.x * 64 + threadIdx.x;
+  if (threadIdx.x < 64 && col < N) {
+    float t = 0.f;
+    for (int r = 0; r < 32; ++r) t += red[r][threadIdx.x];
+    part[(size_t)s * N + col] = t;
+  }
 }
 
 // out[i] = sum over s < S of part[s * stride + i], i < n, in the order
@@ -131,6 +148,8 @@ inline cudaError_t weight_grad(const bf16* A, int lda, int N1, const bf16* B,
 // (split * N floats).
 inline cudaError_t bias_grad(const bf16* A, int lda, int N, int M, int split,
                              float* part, float* out, cudaStream_t stream) {
+  if (N % 8 || lda % 8 || reinterpret_cast<uintptr_t>(A) % 16)
+    return cudaErrorInvalidValue;
   const int rows = split_rows(M, split);
   colsum_kernel<<<dim3((N + 63) / 64, split), 256, 0, stream>>>(
       A, lda, M, N, rows, part);
@@ -156,16 +175,6 @@ inline cudaError_t fill_mask(float* out, unsigned long long n, Dropout d,
   fill_mask_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0,
                      stream>>>(out, n, d, mask_id);
   return cudaGetLastError();
-}
-
-// Loads rows row0 .. row0 + 31 of src [M, K] (bf16) into xb (row stride ld);
-// rows >= M become zero rows.
-__device__ __forceinline__ void load_rows(const bf16* src, size_t row0,
-                                          int nrow, int K, bf16* xb, int ld) {
-  for (int i = threadIdx.x; i < kRows * K; i += blockDim.x) {
-    const int row = i / K, c = i % K;
-    xb[row * ld + c] = row < nrow ? ldg(src + (row0 + row) * K + c) : tob(0.f);
-  }
 }
 
 }  // namespace ladiff

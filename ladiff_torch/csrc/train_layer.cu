@@ -4,7 +4,7 @@
 // the dropout contract, what is saved and the weight-gradient scheme.
 //
 // Forward, a fixed sequence of launches:
-//   linear_kernel        qkv = x Wqkv^T + bqkv                   (kernel 8's)
+//   qkv product          qkv = x Wqkv^T + bqkv   (kernel 8's, train_gemm.cuh)
 //   attn_fwd_kernel      register-resident flash tile, probability dropout
 //                        (mask 0); ctx, log-sum-exp   (flash_tile.cuh, 8's)
 //   enc_tail_fwd_kernel  per 64-row block, from ctx to the layer's output:
@@ -22,7 +22,7 @@
 //   reduce_kernel        LayerNorm gradients over the blocks
 //   attn_bwd_kernel x2   dq; dk, dv, wholly masked key tiles skipped
 //                                                  (flash_tile.cuh, 8's)
-//   linear_nn_kernel     dx = dr + dqkv Wqkv                      (kernel 8's)
+//   dx product           dx = dr + dqkv Wqkv     (kernel 8's, train_gemm.cuh)
 //   wgrad / colsum       dWqkv, dbqkv, dWout, dbout, dW1, db1, dW2, db2
 //
 // What bounds the tails on the H100: ~75 MFLOP forward and ~185 MFLOP
@@ -34,6 +34,7 @@
 // the LayerNorms reduce over the accumulator registers.
 #include "tail64.cuh"
 #include "train_attn.cuh"
+#include "train_gemm.cuh"
 
 namespace {
 
@@ -187,7 +188,8 @@ LADIFF_ERROR_STRING_FN
 // order in_w [3D, D], in_b, out_w [D, D], out_b, ln1_w, ln1_b, w1 [F, D],
 // b1, w2 [D, F], b2, ln2_w, ln2_b), then what the backward reuses: qkv
 // [M, 3D], ctx [M, D] (bf16), lse [M, H] (f32); out [M, D] (bf16).  ints: B,
-// S, D, H, F, act, seed lo, seed hi.  floats: rate.
+// S, D, H, F, act, seed lo, seed hi, the qkv product's geometry (BN, CTAs).
+// floats: rate.
 extern "C" int train_layer_forward(const void** p, const int* n,
                                    const float* f, void* stream_ptr) {
   const bf16** w = reinterpret_cast<const bf16**>(p);
@@ -210,14 +212,10 @@ extern "C" int train_layer_forward(const void** p, const int* n,
   a.M = M; a.D = D; a.H = H;
   a.drop = drop;
 
-  const size_t rb = row_gemm_bytes(D);
-  static SmemGrant g_lin;
-  if (!allow_smem(linear_kernel, rb, g_lin)) return cudaErrorInvalidValue;
-  const int blocks = (M + kRows - 1) / kRows;
   cudaError_t err;
-  linear_kernel<<<dim3(blocks, (3 * D + kChunk - 1) / kChunk), kThreads, rb,
-                  stream>>>(x, M, D, q[0], q[1], 3 * D, qkv);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = qkv_product(gemm_geo(n + 8), x, q[0], q[1], qkv, M, D,
+                         stream)) != cudaSuccess)
+    return err;
   if ((err = launch_attn_fwd(qkv, kvalid, ctx, lse, B, S, D, H, drop, on,
                              stream)) != cudaSuccess)
     return err;
@@ -230,7 +228,8 @@ extern "C" int train_layer_forward(const void** p, const int* n,
 // [M, D], dattn [M, D], dctx [M, D] (bf16), delta [M, H], dqkv [M, 3D]
 // (bf16), lnpart [blocks, 4 D], wpart [split, max(3 D D, F D)] (f32); dx
 // [M, D] (bf16); the 12 parameter gradients (f32, the forward's order).
-// ints: B, S, D, H, F, act, seed lo, seed hi, split.  floats: rate.
+// ints: B, S, D, H, F, act, seed lo, seed hi, split, the dx product's
+// geometry (BN, CTAs).  floats: rate.
 extern "C" int train_layer_backward(const void** p, const int* n,
                                     const float* f, void* stream_ptr) {
   const bf16** w = reinterpret_cast<const bf16**>(p);
@@ -268,10 +267,6 @@ extern "C" int train_layer_backward(const void** p, const int* n,
   a.M = M; a.D = D; a.H = H;
   a.drop = drop;
 
-  const size_t rb3 = row_gemm_bytes(3 * D);
-  static SmemGrant g_dx;
-  if (!allow_smem(linear_nn_kernel, rb3, g_dx)) return cudaErrorInvalidValue;
-  const int blocks = (M + kRows - 1) / kRows;
   const int tail_blocks = (M + kTRows - 1) / kTRows;
   cudaError_t err;
   if ((err = launch_tail(a, true, on, stream)) != cudaSuccess) return err;
@@ -284,9 +279,9 @@ extern "C" int train_layer_backward(const void** p, const int* n,
   if ((err = launch_attn_bwd(qkv, a.dctx, kvalid, lse, a.delta, dqkv, B, S, D,
                              H, drop, on, stream)) != cudaSuccess)
     return err;
-  linear_nn_kernel<<<blocks, kThreads, rb3, stream>>>(dqkv, M, 3 * D, q[0], D,
-                                                      a.dr, dx);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = dx_product(gemm_geo(n + 9), dqkv, q[0], a.dr, dx, M, D,
+                        stream)) != cudaSuccess)
+    return err;
   if ((err = weight_grad(dqkv, 3 * D, 3 * D, x, D, D, M, split, wpart, g[0],
                          stream)) != cudaSuccess) return err;
   if ((err = bias_grad(dqkv, 3 * D, 3 * D, M, split, wpart, g[1],

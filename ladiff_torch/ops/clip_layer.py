@@ -47,7 +47,8 @@ from ladiff_torch.ops.cuda_common import (check_cuda_args, launch, library,
 __all__ = ["fused_ln_qkv", "fused_proj_mlp", "ln_qkv_plain",
            "proj_mlp_plain", "ln_qkv_staged", "proj_mlp_staged",
            "clip_ln_plain", "clip_gemm_plain", "clip_gemm_geometry",
-           "gemm_tile_origin", "GEMM_BM", "GEMM_BNS", "GEMM_CLUSTER"]
+           "gemm_tile_origin", "gemm_cluster_slots", "GEMM_BM", "GEMM_BNS",
+           "GEMM_CLUSTER", "EPILOGUES"]
 
 _QKV_ORDER = ("wq", "bq", "wk", "bk", "wv", "bv", "ln_w", "ln_b")
 _MLP_ORDER = ("wo", "bo", "w1", "b1", "w2", "b2", "ln_w", "ln_b")
@@ -56,9 +57,10 @@ GEMM_BM = 128                # rows of an output tile
 GEMM_BNS = (256, 192, 128)   # the tile widths the GEMM block is built for
 GEMM_CLUSTER = 2             # CTAs of a cluster: row tiles sharing W
 # the GEMM's epilogues (csrc/gemm_sm90.cuh sm90::Epilogue); "probe" stores
-# nothing but a checksum into one float (times the products alone)
+# nothing but a checksum into one float (times the products alone); "add"
+# to "part" are kernel 8's (ops/train_attention.py)
 EPILOGUES = {"bias": 0, "resid_f32": 1, "gelu": 2, "resid_bf16": 3,
-             "probe": 4}
+             "probe": 4, "add": 5, "add_drop": 6, "dctx": 7, "part": 8}
 # a tile's fixed cost (the ring's fill, the epilogue) in columns of work
 _TILE_COST = 32
 
@@ -131,18 +133,19 @@ def proj_mlp_staged(att, x, p):
 
 
 def clip_gemm_geometry(M: int, N: int, K: int, *, mats: int = 1,
-                       slots: int = 66, bn: int = 0) -> dict:
+                       slots: int = 66, bn: int = 0,
+                       bns=GEMM_BNS) -> dict:
     """The launch geometry of one GEMM: [M, K] times ``mats`` weights of
     [N, K].  Output tiles are 128 rows by BN columns, a weight's columns
     cut into ceil(N / BN) tiles.  A cluster of two CTAs (one per SM) takes
     a pair of row tiles of one column tile; ``slots`` clusters fit on the
     card at once, and clusters are persistent: ``ctas`` = 2 min(pairs,
-    slots), cluster c taking pairs c, c + clusters, ...  BN is the width
-    whose busiest cluster has the least work, ceil(pairs / slots) pairs of
-    (BN + a tile's fixed cost) columns each; the wider tile on a tie.
-    ``bn`` forces a width."""
-    if bn and bn not in GEMM_BNS:
-        raise ValueError(f"clip_gemm_geometry: BN {bn} not in {GEMM_BNS}")
+    slots), cluster c taking pairs c, c + clusters, ...  BN is the width of
+    ``bns`` whose busiest cluster has the least work, ceil(pairs / slots)
+    pairs of (BN + a tile's fixed cost) columns each; the wider tile on a
+    tie.  ``bn`` forces a width."""
+    if bn and bn not in bns:
+        raise ValueError(f"clip_gemm_geometry: BN {bn} not in {bns}")
     tiles_m = -(-M // GEMM_BM)
     pairs_m = -(-tiles_m // GEMM_CLUSTER)
 
@@ -160,7 +163,7 @@ def clip_gemm_geometry(M: int, N: int, K: int, *, mats: int = 1,
 
     if bn:
         return record(bn)
-    return min((record(b) for b in GEMM_BNS), key=lambda r: r["cost"])
+    return min((record(b) for b in bns), key=lambda r: r["cost"])
 
 
 def gemm_tile_origin(p: int, rank: int, geo: dict):
@@ -177,10 +180,12 @@ def gemm_tile_origin(p: int, rank: int, geo: dict):
 _SLOTS = {}
 
 
-def _cluster_slots(device: torch.device) -> int:
+def gemm_cluster_slots(device) -> int:
     """Clusters of the GEMM block resident on ``device`` at once (the
-    library's occupancy query, cached; half the SM count where it
-    fails)."""
+    library's occupancy query, cached; half the SM count where it fails).
+    Every instantiation of the block takes a whole SM, so the count holds
+    for kernels 8's and 12's products too."""
+    device = torch.device(device)
     if device.index not in _SLOTS:
         fn = library("clip_layer").clip_gemm_cluster_slots
         fn.argtypes = []
@@ -211,7 +216,7 @@ def _gemm(a, ws, biases, outs, *, epilogue: str, scale: float = 1.0,
     M, K = a.shape
     N = ws[0].shape[0]
     geo = clip_gemm_geometry(M, N, K, mats=len(ws),
-                             slots=_cluster_slots(a.device), bn=bn)
+                             slots=gemm_cluster_slots(a.device), bn=bn)
     pad = [0] * (3 - len(ws))
     launch("clip_layer", "clip_gemm", a.device,
            [a.data_ptr(), *[w.data_ptr() for w in ws], *pad,

@@ -18,7 +18,11 @@ version of every block:
                                     time rows as ``extra_kv`` (its tail is
                                     kernel 5), ``ca_block`` (kernel 7 with one
                                     token, the plain linear attention with
-                                    more), ``ffn`` (kernel 6)
+                                    more), ``ffn`` (kernel 6); a shape kernel
+                                    7 or 6 does not take
+                                    (``broadcast_stylize_supported``,
+                                    ``stylized_ffn_supported``) runs that
+                                    block as plain ops
   training                          the same blocks with their training
                                     routes, which have a backward (the
                                     sa_block tail is kernel 9), with dropout
@@ -44,8 +48,10 @@ from torch import nn
 from ladiff_torch.ops.cuda_common import kernel_route
 from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_supported
 from ladiff_torch.ops.md_stack import fused_md_stack, stack_md_params
-from ladiff_torch.ops.stylize import fused_broadcast_stylize
-from ladiff_torch.ops.stylized_ffn import fused_stylized_ffn
+from ladiff_torch.ops.stylize import (broadcast_stylize_supported,
+                                     fused_broadcast_stylize)
+from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
+                                           stylized_ffn_supported)
 from ladiff_torch.ops.transformer import (TransformerEncoderLayer,
                                           _cast, _drop, _needs_grad,
                                           _SkipStack, layer_norm, linear)
@@ -121,8 +127,9 @@ class LinearTemporalCrossAttention(nn.Module):
         H = self.num_heads
         tn = layer_norm(self.text_norm, xf)
         value = linear(self.value, tn)
-        if N == 1 and kernel_route(x) and not (
-                self.training or _needs_grad(self, x, xf, emb)):
+        if (N == 1 and kernel_route(x)
+                and broadcast_stylize_supported(B * T, T, D)
+                and not (self.training or _needs_grad(self, x, xf, emb))):
             p = self.proj_out
             mask = (latent_valid.reshape(B * T).float() if latent_valid
                     is not None else torch.ones(B * T, device=x.device))
@@ -167,9 +174,10 @@ class StylizedFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if kernel_route(x) and not (self.training
-                                    or _needs_grad(self, x, emb)):
-            B, T, D = x.shape
+        B, T, D = x.shape
+        if (kernel_route(x) and stylized_ffn_supported(
+                B * T, T, D, self.linear1.out_features)
+                and not (self.training or _needs_grad(self, x, emb))):
             p = self.proj_out
             w = _cast({"w1": self.linear1.weight, "b1": self.linear1.bias,
                        "w2": self.linear2.weight, "b2": self.linear2.bias,

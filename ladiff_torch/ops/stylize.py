@@ -12,7 +12,8 @@ with value_b, scale and shift those of the row's sample.  The JAX kernel
 takes the value and AdaLN rows repeated per latent row; this one takes one
 row per sample (or one AdaLN row for all) and T, as K1 does.  It runs where
 a one-token MD layer takes its per-block route at inference (a shape K1
-does not take, e.g. a head width above 128).
+does not take, e.g. a head width above 128); a shape it does not take
+(``broadcast_stylize_supported``) runs as plain ops.
 
 What bounds it on the H100: one D x D product per row (0.34 GFLOP at 2560
 rows, D 256) against reading x and writing out (2.6 MB): bytes.  The design
@@ -30,7 +31,8 @@ import torch.nn.functional as F
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
 
-__all__ = ["fused_broadcast_stylize", "broadcast_stylize_plain"]
+__all__ = ["fused_broadcast_stylize", "broadcast_stylize_plain",
+           "broadcast_stylize_supported", "check_broadcast_stylize_shape"]
 
 
 def broadcast_stylize_plain(x, value, mask, ss, ln_w, ln_b, w, b, *,
@@ -47,6 +49,21 @@ def broadcast_stylize_plain(x, value, mask, ss, ln_w, ln_b, w, b, *,
     return x + F.linear(h, w, b).reshape(M, D)
 
 
+def broadcast_stylize_supported(M: int, T: int, D: int) -> bool:
+    """Whether kernel 7 takes M rows of T-row samples at width D: D a
+    multiple of 32 up to 256 (one warp's row of D / 32 values, one
+    256-column product pass)."""
+    return M >= 1 and T >= 1 and M % T == 0 and D % 32 == 0 and 32 <= D <= 256
+
+
+def check_broadcast_stylize_shape(M: int, T: int, D: int) -> None:
+    """Raises where ``broadcast_stylize_supported`` is false (and only
+    there)."""
+    if not broadcast_stylize_supported(M, T, D):
+        raise ValueError(f"fused_broadcast_stylize: unsupported shape M={M} "
+                         f"T={T} D={D}")
+
+
 @register_kernel("fused_broadcast_stylize")
 def fused_broadcast_stylize(x, value, mask, ss, ln_w, ln_b, w, b, *,
                             T: int) -> torch.Tensor:
@@ -58,13 +75,13 @@ def fused_broadcast_stylize(x, value, mask, ss, ln_w, ln_b, w, b, *,
     require_no_grad("fused_broadcast_stylize",
                     [x, value, ss, ln_w, ln_b, w, b])
     M, D = x.shape
+    check_broadcast_stylize_shape(M, T, D)
     B = M // T
-    if (M < 1 or M != B * T or D % 32 or D > 256 or value.shape != (B, D)
-            or mask.shape != (M,) or w.shape != (D, D)
+    if (value.shape != (B, D) or mask.shape != (M,) or w.shape != (D, D)
             or ss.shape[-1] != 2 * D or ss.shape[0] not in (1, B)):
-        raise ValueError(f"fused_broadcast_stylize: unsupported shape M={M} "
-                         f"T={T} D={D} value={tuple(value.shape)} "
-                         f"ss={tuple(ss.shape)}")
+        raise ValueError(f"fused_broadcast_stylize: value="
+                         f"{tuple(value.shape)}, mask, w or ss="
+                         f"{tuple(ss.shape)} do not match x [{M}, {D}]")
     check_cuda_args("fused_broadcast_stylize",
                     {"x": x, "value": value, "mask": mask, "ss": ss,
                      "ln_w": ln_w, "ln_b": ln_b, "w": w, "b": b},

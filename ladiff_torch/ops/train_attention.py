@@ -22,17 +22,27 @@ keys with an online softmax, in the register-resident tile of kernel 10
 (``csrc/flash_tile.cuh``: mma.sync accumulators, ldmatrix operands, a
 two-stage cp.async ring of key tiles, P as bf16 A-fragments; probability
 dropout applied to P in registers from the same Philox elements).  The
-wrapper is a fixed sequence of launches, counted once.  Forward: the qkv
-projection (32-row blocks), the tiled attention (one block per sample, head
-and query tile, which also writes each row's log-sum-exp), and the
-out-projection with the residual and its dropout.  Backward: ``dattn`` and
-``dctx = dattn Wout`` with the flash row term ``delta = dctx . ctx`` (the
-identity survives the probability dropout: sum_j dp_j p_j = dO . O with
-O = (p * pm) V); then two tiled launches that recompute the probabilities
+products around it are most of the work (at 128 x 206 rows, D 256: 13.8
+of the forward's 16.8 GFLOP and 27.7 of the backward's 33.7, against 28
+and 42 MB of the function's inputs and outputs): the tensor cores bound
+them, so they run on the TMA + ``wgmma`` GEMM block of K3 and K4
+(``csrc/gemm_sm90.cuh``, via ``csrc/train_gemm.cuh``), with their bias,
+residual, dropout and delta in its epilogues.  The wrapper is a fixed
+sequence of launches, counted once.  Forward: the qkv product, the tiled
+attention (one block per sample, head and query tile, which also writes
+each row's log-sum-exp), and the out-projection with the residual and its
+dropout in the epilogue.  Backward: ``dattn = dout * rm`` (one elementwise
+pass; at rate 0 dout itself) and ``dctx = dattn Wout`` with the flash row
+term ``delta = dctx . ctx`` in the epilogue (the identity survives the
+probability dropout: sum_j dp_j p_j = dO . O with O = (p * pm) V; a
+column tile holds whole heads, so delta is a quad sum over the
+accumulators); then two tiled launches that recompute the probabilities
 from q, k and the saved log-sum-exp with S, dP and dS in registers, one
 owning query tiles (dq), one owning key tiles (dk, dv), so no atomics are
 needed; key tiles without a valid key are skipped (their probabilities are
 exactly 0 when the sample has a valid key); then ``dx = dout + dqkv Wqkv``.
+``dctx`` and ``dx`` read the weight from its "out" side (MN-major B).
+``attention_gemm_geometry`` picks each product's tile width and CTAs.
 
 Dropout: as in ``ops/train_ffn.py`` (Philox keyed by the call's seed, the
 mask id and the global element index).  Mask 0 is the probability mask,
@@ -44,10 +54,13 @@ parameters, the seed, and from the forward ``qkv`` [M, 3D] bf16, ``ctx``
 [M, D] bf16 and the per-row log-sum-exp [M, H] float32 (the TPU kernel
 saved only its inputs and recomputed all of it; the function is the same).
 
-Weight gradients: ``dWqkv = dqkv^T x`` and ``dWout = dattn^T ctx`` are
-split-K tensor-core products with float32 partials in a workspace and a
-fixed-order reduction launch (deterministic, no atomics); bias gradients
-are column sums by the same scheme.  Parameter gradients are float32.
+Weight gradients: ``dWqkv = dqkv^T x`` and ``dWout = dattn^T ctx`` run on
+the GEMM block with both operands MN-major, the rows cut into K ranges so
+that the output tiles times the ranges fill the card once
+(``wgrad_geometry``); each range writes float32 partials to a workspace
+and a fixed-order reduction launch sums them (deterministic, no atomics);
+bias gradients are column sums by the same scheme.  Parameter gradients
+are float32.
 """
 from __future__ import annotations
 
@@ -57,6 +70,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ladiff_torch.ops.clip_layer import (EPILOGUES, clip_gemm_geometry,
+                                         gemm_cluster_slots)
 from ladiff_torch.ops.cuda_common import (NEG_INF, check_cuda_args,
                                           draw_seed, dropout_mask, launch,
                                           register_kernel)
@@ -65,7 +80,9 @@ from ladiff_torch.ops.train_ffn import _mul, _seed_args, split_rows
 __all__ = ["train_self_attention", "train_self_attention_fwd",
            "train_self_attention_bwd", "train_self_attention_plain",
            "train_self_attention_bwd_plain", "train_self_attention_masks",
-           "train_attention_supported", "ATTN_PARAM_ORDER", "MIN_TOKENS"]
+           "train_attention_supported", "ATTN_PARAM_ORDER", "MIN_TOKENS",
+           "attention_gemm_geometry", "wgrad_geometry", "dctx_widths",
+           "train_gemm_plain", "train_gemm_launch", "TRAIN_GEMMS"]
 
 ATTN_PARAM_ORDER = ("in_w", "in_b", "out_w", "out_b")
 # Streams shorter than this (the MD denoiser's ~7-token sa_block) are not
@@ -82,6 +99,131 @@ def train_attention_supported(S: int, D: int, H: int) -> bool:
     head widths up to 128 and plain attention above)."""
     return (S >= MIN_TOKENS and D % 64 == 0 and 0 < D <= 256 and H > 0
             and D % H == 0 and D // H in (16, 32, 48, 64))
+
+
+# the products' tile widths (csrc/train_gemm.cuh): 192 only for q / k / v;
+# a weight gradient's tiles are 128 wide
+_BNS = (256, 128)
+WGRAD_BN = 128
+# the GEMM block's epilogues (csrc/gemm_sm90.cuh sm90::Epilogue) that the
+# products use, with the operands' layouts (A MN-major, B MN-major)
+TRAIN_GEMMS = {"qkv": ("bias", False, False), "out": ("add", False, False),
+               "out_drop": ("add_drop", False, False),
+               "dctx": ("dctx", False, True), "dx": ("add", False, True),
+               "wgrad": ("part", True, True)}
+
+
+def wgrad_geometry(N1: int, N2: int, K: int, slots: int = 66) -> dict:
+    """The launch geometry of a weight gradient [N1, N2] = dy^T x over K
+    rows: tiles of 128 x 128 paired in clusters of two, the K rows cut into
+    ``splits`` ranges of ``ksplit`` rows (a multiple of 64) so that the
+    tile pairs times the ranges fill the ``slots`` clusters once; range s
+    covers rows [s ksplit, min(K, (s + 1) ksplit)) and the partials are
+    summed in range order."""
+    geo = clip_gemm_geometry(N1, N2, K, slots=slots, bn=WGRAD_BN,
+                             bns=(WGRAD_BN,))
+    base = geo["pairs"]
+    splits = max(1, min(slots // base, -(-K // 64)))
+    ksplit = -(-(-(-K // splits)) // 64) * 64
+    splits = -(-K // ksplit)
+    pairs = base * splits
+    geo.update(splits=splits, ksplit=ksplit, pairs=pairs,
+               ctas=2 * min(pairs, slots), persistent=pairs > slots,
+               waves=pairs / slots,
+               ranges=[(s * ksplit, min(K, (s + 1) * ksplit))
+                       for s in range(splits)])
+    return geo
+
+
+def dctx_widths(D: int, H: int):
+    """The tile widths the dctx product may take: its epilogue sums each
+    head's columns, so a column tile holds whole heads (all D columns, or
+    a width that is a multiple of the head width)."""
+    return tuple(b for b in _BNS if D <= b or b % (D // H) == 0)
+
+
+def attention_gemm_geometry(M: int, D: int, H: int,
+                            slots: int = 66) -> dict:
+    """Each product of kernel 8 at M rows of width D, H heads: name -> the
+    launch geometry (``clip_gemm_geometry``'s record; a weight gradient's
+    ``wgrad_geometry``)."""
+    return {"qkv": clip_gemm_geometry(M, 3 * D, D, slots=slots),
+            "out": clip_gemm_geometry(M, D, D, slots=slots, bns=_BNS),
+            "dctx": clip_gemm_geometry(M, D, D, slots=slots,
+                                       bns=dctx_widths(D, H)),
+            "dx": clip_gemm_geometry(M, D, 3 * D, slots=slots, bns=_BNS),
+            "dWqkv": wgrad_geometry(3 * D, D, M, slots),
+            "dWout": wgrad_geometry(D, D, M, slots)}
+
+
+def _geo_ints(geo: dict, split: bool = False):
+    return ([geo["bn"], geo["ctas"], geo["splits"], geo["ksplit"]] if split
+            else [geo["bn"], geo["ctas"]])
+
+
+def train_gemm_plain(name: str, a, w, *, bias=None, resid=None, rm=None,
+                     H: int = 0, ranges=None):
+    """One product of kernels 8 and 12 (``TRAIN_GEMMS``) in float32: v = A
+    W^T with A = a (a^T where A is MN-major) and W = w (w^T where B is),
+    then the epilogue: qkv v + bias; out, dx resid + v (+ bias); out_drop
+    resid + (v + bias) * rm; dctx (v, delta [M, H]: per head, the sum over
+    its columns of v rounded to a's type times resid); wgrad [len(ranges),
+    M, N] the products over each range of the K rows.  Results in a's type
+    but delta and wgrad's (float32)."""
+    epi, a_mn, b_mn = TRAIN_GEMMS[name]
+    A = (a.t() if a_mn else a).float()
+    W = (w.t() if b_mn else w).float()
+    if epi == "part":
+        return torch.stack([A[:, k0:k1] @ W[:, k0:k1].t()
+                            for k0, k1 in ranges])
+    v = A @ W.t()
+    if bias is not None:
+        v = v + bias.float()
+    if epi == "dctx":
+        M, N = v.shape
+        delta = (v.to(a.dtype).float() * resid.float()).reshape(
+            M, H, N // H).sum(-1)
+        return v.to(a.dtype), delta
+    if epi == "add_drop":
+        v = v * rm.float()
+    if epi in ("add", "add_drop"):
+        v = v + resid.float()
+    return v.to(a.dtype)
+
+
+def train_gemm_launch(name: str, a, w, *, bias=None, resid=None, H: int = 0,
+                      rate: float = 0.0, seed: int = 0, bn: int = 0):
+    """One product of kernels 8 and 12 alone on the card (``TRAIN_GEMMS``),
+    at the geometry the kernels take (``bn`` forces a tile width): returns
+    (output, geometry).  The output is ``train_gemm_plain``'s: bf16, dctx's
+    (dctx, delta), or a weight gradient's float32 partials [ranges, M, N]
+    (A = a^T, W = w^T)."""
+    epi, a_mn, b_mn = TRAIN_GEMMS[name]
+    M, K = (a.shape[1], a.shape[0]) if a_mn else a.shape
+    N = w.shape[1] if b_mn else w.shape[0]
+    dev = a.device
+    slots = gemm_cluster_slots(dev)
+    if name == "wgrad":
+        geo = wgrad_geometry(M, N, K, slots)
+        out = torch.empty(geo["splits"], M, N, dtype=torch.float32,
+                          device=dev)
+    else:
+        bns = (dctx_widths(N, H) if name == "dctx" else
+               (256, 192, 128) if name == "qkv" else _BNS)
+        geo = clip_gemm_geometry(M, N, K, slots=slots, bn=bn, bns=bns)
+        out = torch.empty(M, N, dtype=a.dtype, device=dev)
+    delta = (torch.empty(M, H, dtype=torch.float32, device=dev)
+             if name == "dctx" else None)
+    lo, hi = _seed_args(rate, seed)
+    launch("train_attention", "train_gemm", dev,
+           [a.data_ptr(), w.data_ptr(),
+            bias.data_ptr() if bias is not None else 0, out.data_ptr(),
+            resid.data_ptr() if resid is not None else 0,
+            delta.data_ptr() if delta is not None else 0],
+           [M, N, K, EPILOGUES[epi], int(a_mn), int(b_mn), geo["bn"],
+            geo["ctas"], geo.get("splits", 1), geo.get("ksplit", 0), H, lo,
+            hi], [rate])
+    return ((out, delta) if delta is not None else out), geo
 
 
 def _heads(t, B, S, H):
@@ -171,6 +313,7 @@ def train_self_attention_fwd(x: torch.Tensor, kvalid: torch.Tensor, p, *,
     M, D = x.shape
     lo, hi = _seed_args(rate, seed)
     dev = x.device
+    geo = attention_gemm_geometry(M, D, H, gemm_cluster_slots(dev))
     qkv = torch.empty(M, 3 * D, dtype=x.dtype, device=dev)
     ctx = torch.empty(M, D, dtype=x.dtype, device=dev)
     lse = torch.empty(M, H, dtype=torch.float32, device=dev)
@@ -183,7 +326,8 @@ def train_self_attention_fwd(x: torch.Tensor, kvalid: torch.Tensor, p, *,
             *[p[k].data_ptr() for k in ATTN_PARAM_ORDER], qkv.data_ptr(),
             ctx.data_ptr(), lse.data_ptr(), out.data_ptr()]
     launch("train_attention", "train_attention_forward", dev, ptrs,
-           [B, S, D, H, lo, hi], [rate])
+           [B, S, D, H, lo, hi, *_geo_ints(geo["qkv"]),
+            *_geo_ints(geo["out"])], [rate])
     train_self_attention_fwd.launches += 1
     return (out, (qkv, ctx, lse)) if return_saved else out
 
@@ -215,11 +359,15 @@ def train_self_attention_bwd(x: torch.Tensor, kvalid: torch.Tensor,
     lo, hi = _seed_args(rate, seed)
     dev, bf, f32 = x.device, x.dtype, torch.float32
     split = split_rows(M)
+    geo = attention_gemm_geometry(M, D, H, gemm_cluster_slots(dev))
+    # the weight gradients' partials, then the column sums' (3 D a range)
+    wpart = max(geo["dWqkv"]["splits"] * 3 * D * D,
+                geo["dWout"]["splits"] * D * D, split * 3 * D)
     scratch = {"dattn": torch.empty(M, D, dtype=bf, device=dev),
                "dctx": torch.empty(M, D, dtype=bf, device=dev),
                "delta": torch.empty(M, H, dtype=f32, device=dev),
                "dqkv": torch.empty(M, 3 * D, dtype=bf, device=dev),
-               "wpart": torch.empty(split, 3 * D * D, dtype=f32, device=dev)}
+               "wpart": torch.empty(wpart, dtype=f32, device=dev)}
     dx = torch.empty_like(x)
     grads = {k: torch.empty(p[k].shape, dtype=f32, device=dev)
              for k in ATTN_PARAM_ORDER}
@@ -237,7 +385,9 @@ def train_self_attention_bwd(x: torch.Tensor, kvalid: torch.Tensor,
               for k in ("dattn", "dctx", "delta", "dqkv", "wpart")],
             dx.data_ptr(), *[grads[k].data_ptr() for k in ATTN_PARAM_ORDER]]
     launch("train_attention", "train_attention_backward", dev, ptrs,
-           [B, S, D, H, lo, hi, split], [rate])
+           [B, S, D, H, lo, hi, split, *_geo_ints(geo["dctx"]),
+            *_geo_ints(geo["dx"]), *_geo_ints(geo["dWqkv"], True),
+            *_geo_ints(geo["dWout"], True)], [rate])
     train_self_attention_bwd.launches += 1
     return dx, grads
 

@@ -29,9 +29,10 @@ weight ring, so each byte of weight read from L2 serves 64 rows; the FFN's
 hidden dimension goes in 128-column chunks with the second product
 accumulating in registers, and the LayerNorms reduce over the accumulator
 registers.  Around them the launches are kernel 8's
-(``csrc/train_attn.cuh``): the qkv projection, the register-resident
-flash attention forward, its two backward launches (query side, key side:
-no atomics) and ``dx = dr + dqkv Wqkv``; and the split-K weight gradients
+(``csrc/train_attn.cuh``, ``csrc/train_gemm.cuh``): the qkv product and
+``dx = dr + dqkv Wqkv`` on the TMA + ``wgmma`` GEMM block, the
+register-resident flash attention forward and its two backward launches
+(query side, key side: no atomics); and the split-K weight gradients
 with a fixed-order reduction (``train_common.cuh``).  The wrapper is that
 fixed sequence, counted once each way.  What bounds it on the H100: ~22
 GFLOP forward and ~44 GFLOP backward of needed work at 64 x 206 rows
@@ -52,12 +53,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ladiff_torch.ops.clip_layer import gemm_cluster_slots
 from ladiff_torch.ops.cuda_common import (check_cuda_args, draw_seed,
                                           dropout_mask, launch,
                                           register_kernel)
 from ladiff_torch.ops.postnorm_ffn import (ACTIVATIONS, FFN_PARAM_ORDER,
                                            postnorm_ffn_supported)
 from ladiff_torch.ops.train_attention import (ATTN_PARAM_ORDER,
+                                              _geo_ints,
+                                              attention_gemm_geometry,
                                               train_attention_supported,
                                               train_self_attention_bwd_plain,
                                               train_self_attention_plain)
@@ -166,8 +170,10 @@ def train_encoder_layer_fwd(x: torch.Tensor, kvalid: torch.Tensor, p, *,
     ptrs = [x.data_ptr(), kvalid.data_ptr(),
             *[p[k].data_ptr() for k in ENC_PARAM_ORDER], qkv.data_ptr(),
             ctx.data_ptr(), lse.data_ptr(), out.data_ptr()]
+    geo = attention_gemm_geometry(M, D, H, gemm_cluster_slots(dev))
     launch("train_layer", "train_layer_forward", dev, ptrs,
-           [B, S, D, H, Fd, ACTIVATIONS[activation], lo, hi], [rate])
+           [B, S, D, H, Fd, ACTIVATIONS[activation], lo, hi,
+            *_geo_ints(geo["qkv"])], [rate])
     train_encoder_layer_fwd.launches += 1
     return (out, (qkv, ctx, lse)) if return_saved else out
 
@@ -228,8 +234,10 @@ def train_encoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
             ctx.data_ptr(), lse.data_ptr(),
             *[t.data_ptr() for t in scratch.values()], dx.data_ptr(),
             *[grads[k].data_ptr() for k in ENC_PARAM_ORDER]]
+    geo = attention_gemm_geometry(M, D, H, gemm_cluster_slots(dev))
     launch("train_layer", "train_layer_backward", dev, ptrs,
-           [B, S, D, H, Fd, ACTIVATIONS[activation], lo, hi, split], [rate])
+           [B, S, D, H, Fd, ACTIVATIONS[activation], lo, hi, split,
+            *_geo_ints(geo["dx"])], [rate])
     train_encoder_layer_bwd.launches += 1
     return dx, grads
 

@@ -150,17 +150,19 @@ _GROUPS = (
      r"dec_tail_bwd_|kv_reduce_kernel"),
     ("kernel 13 projections (qkv, the memory's k and v; dx, dmem)",
      r"linear64_kernel"),
+    # kernel 8's products on the GEMM block (csrc/gemm_sm90.cuh: the tile
+    # width, the epilogue, A and B MN-major)
     ("train_self_attention fwd (kernel 12's projection and the tiled"
      " attention of kernels 12 and 13 too)",
-     r"linear_kernel|attn_fwd_kernel|out_proj_kernel"),
+     r"gemm_sm90_kernel<\d+, [056], false, false>|attn_fwd_kernel"),
     ("train_self_attention bwd, without weight gradients (the tiled"
      " attention of kernels 12 and 13 and kernel 12's dx too)",
-     r"dctx_kernel|attn_bwd_kernel|linear_nn_kernel"),
+     r"dattn_kernel|gemm_sm90_kernel<\d+, [57], false, true>|attn_bwd_kernel"),
     ("train_postnorm_ffn fwd", r"ffn_tail_fwd_kernel"),
     ("train_postnorm_ffn bwd, without weight gradients",
      r"ffn_tail_bwd_kernel"),
     ("weight and bias gradients of both backwards",
-     r"ladiff::(wgrad|colsum|reduce)_kernel"),
+     r"ladiff::(wgrad|colsum|reduce)_kernel|gemm_sm90_kernel<\d+, 8,"),
     ("AdamW", r"multi_tensor_apply|[Aa]dam"),
     ("library GEMMs", r"gemm|cutlass|nvjet|cublas"),
     ("memcpy and memset", r"[Mm]emcpy|[Mm]emset"),

@@ -403,7 +403,8 @@ def test_masked_attention_kernel_skips_masked_tiles(dev, Dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("D,H", [(256, 16), (256, 8), (192, 4), (256, 4)])
+@pytest.mark.parametrize("D,H", [(256, 16), (256, 8), (192, 4), (256, 4),
+                                 (128, 4), (64, 4)])
 @torch.no_grad()
 def test_train_attention_kernels_skip_masked_tiles(dev, rate, D, H):
     """Kernel 8's flash tiles at head widths 16, 32, 48 and 64 with wholly
@@ -628,6 +629,62 @@ def test_train_attention_kernels(dev, rate, S):
     for k in ATTN_PARAM_ORDER:
         assert grads[k].dtype == torch.float32
         assert _relerr(grads[k], wgrads[k]) <= TOL, k
+
+
+def _gemm_inputs(dev, name, M, D, H, rate=0.1, seed=40):
+    """One product of kernel 8 at M rows of width D (head width D / H): the
+    operands a, w and the epilogue's tensors, as ``train_gemm_launch``
+    takes them, and the plain version's extra arguments."""
+    from ladiff_torch.ops.train_attention import train_self_attention_masks
+    w_out, w_in = (_bf(dev, D, D, seed=seed + 1, scale=D ** -0.5),
+                   _bf(dev, 3 * D, D, seed=seed + 2, scale=D ** -0.5))
+    a = _bf(dev, M, 3 * D if name in ("dx", "wgrad") else D, seed=seed)
+    resid = _bf(dev, M, D, seed=seed + 3)
+    bias = _bf(dev, 3 * D if name == "qkv" else D, seed=seed + 4, scale=0.05)
+    if name == "qkv":
+        return a, w_in, {"bias": bias}, {}
+    if name in ("out", "out_drop"):
+        kw = {"bias": bias, "resid": resid}
+        if name == "out":
+            return a, w_out, kw, {}
+        rm = train_self_attention_masks(M, 1, D, H, rate, seed, dev)[1]
+        return a, w_out, {**kw, "rate": rate, "seed": seed}, {"rm": rm}
+    if name == "dctx":
+        return a, w_out, {"resid": resid, "H": H}, {}
+    if name == "dx":
+        return a, w_in, {"resid": resid}, {}
+    return a, _bf(dev, M, D, seed=seed + 5), {}, {}  # wgrad: dqkv^T x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qkv", "out", "out_drop", "dctx", "dx",
+                                  "wgrad"])
+@torch.no_grad()
+def test_train_gemm_products(dev, name):
+    """Each product of kernels 8 and 12 alone on the GEMM block (the
+    MN-major operands, the residual, dropout, delta and split-K epilogues)
+    against its float32 product, at every tile width it may take, at 618
+    and 26,368 rows (ragged tiles and K ranges) and D 64, 128, 192, 256
+    (head widths 16, 32, 48, 64)."""
+    from ladiff_torch.ops.train_attention import (dctx_widths,
+                                                  train_gemm_launch,
+                                                  train_gemm_plain)
+    for D, H in ((64, 4), (128, 4), (192, 4), (256, 4)):
+        bns = {"qkv": (256, 192, 128), "out": (256, 128),
+               "out_drop": (256, 128), "dx": (256, 128),
+               "dctx": dctx_widths(D, H)}.get(name, (0,))
+        for M in (618, 26368):
+            a, w, kw, plain_kw = _gemm_inputs(dev, name, M, D, H)
+            for bn in bns:
+                got, geo = train_gemm_launch(name, a, w, bn=bn, **kw)
+                want = train_gemm_plain(
+                    name, a, w, ranges=geo.get("ranges"), **plain_kw,
+                    **{k: v for k, v in kw.items() if k in (
+                        "bias", "resid", "H")})
+                if name == "dctx":
+                    assert _relerr(got[1], want[1]) <= TOL, (D, M)
+                    got, want = got[0], want[0]
+                assert _relerr(got, want) <= TOL, (D, M, bn)
 
 
 @pytest.mark.cuda
@@ -911,6 +968,21 @@ def test_kernels_read_inside_their_inputs(dev):
         _guarded_calls(lambda t, p: train_encoder_layer_bwd(
             t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S2, rate=0.1, seed=3),
             [x2, kv2, dout2, *saved], pe)
+    # kernel 8 at D 192 and 64 (head widths 48 and 16): 3 x 40 rows, a
+    # partial 128-row tile of each product and K range
+    for D, H in ((192, 4), (64, 4)):
+        B, S = 3, 40
+        pa = _attn_params(dev, D)
+        x, dout = _bf(dev, B * S, D), _bf(dev, B * S, D, seed=17)
+        kvalid = _mask([S, 20, 1], S, dev).reshape(-1).contiguous()
+        _guarded_calls(lambda t, p: train_self_attention_fwd(
+            t[0], t[1], p, H=H, S=S, rate=0.1, seed=3), [x, kvalid], pa)
+        _, saved = train_self_attention_fwd(x, kvalid, pa, H=H, S=S,
+                                            rate=0.1, seed=3,
+                                            return_saved=True)
+        _guarded_calls(lambda t, p: train_self_attention_bwd(
+            t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S, rate=0.1, seed=3),
+            [x, kvalid, dout, *saved], pa)
     # K2 at 7 x 40 rows (its 64-row blocks: the last one partial) and 8
     # memory rows; K1..K4 share the LayerNorm helper
     D, H, T, L = 256, 4, 40, 8
@@ -1287,6 +1359,51 @@ def test_route_kernels_read_inside_their_inputs(dev):
         # cluster the geometry picks
         _guarded_calls(lambda t, p: fused_postnorm_ffn(
             t[0], p, activation="relu"), [x], _ffn_params(dev, D, 1024))
+
+
+def _w6(dev, D, Fd, seed=23):
+    """Kernel 6's eight tensors at width D, hidden width Fd (bf16)."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    w = [r(Fd, D) / math.sqrt(D), 0.05 * r(Fd), r(D, Fd) / math.sqrt(Fd),
+         0.05 * r(D), 1 + 0.1 * r(D), 0.05 * r(D), r(D, D) / math.sqrt(D),
+         0.05 * r(D)]
+    return [t.to(dev, torch.bfloat16) for t in w]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("B,T", [(37, 7), (3, 5), (512, 5)])
+@torch.no_grad()
+def test_stylized_ffn_kernel_widths(dev, D, B, T):
+    """Kernel 6 on the cluster body at every width it takes (clusters of 1
+    to 4 CTAs, F = 4 D), in row groups that split samples and a partial
+    last group, with an AdaLN row per sample and one shared row."""
+    from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
+                                               stylized_ffn_plain)
+    w6 = _w6(dev, D, 4 * D)
+    x = _bf(dev, B * T, D)
+    for rows in (B, 1):
+        ss = _bf(dev, rows, 2 * D, seed=13, scale=0.3)
+        assert _relerr(fused_stylized_ffn(x, ss, *w6, T=T),
+                       stylized_ffn_plain(x.float(), ss.float(),
+                                          *[t.float() for t in w6], T=T)
+                       ) <= TOL, (D, B, T, rows)
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_stylized_ffn_reads_inside_its_inputs(dev):
+    """Kernel 6 at D 64 and 192 on 37 x 7 rows (a partial last row group),
+    every input in turn at the end of its allocation."""
+    from ladiff_torch.ops.stylized_ffn import fused_stylized_ffn
+    B, T = 37, 7
+    for D in (64, 192):
+        x = _bf(dev, B * T, D)
+        for rows in (B, 1):
+            ss = _bf(dev, rows, 2 * D, seed=16, scale=0.3)
+            _guarded_calls(lambda t, p: fused_stylized_ffn(
+                t[0], t[1], *t[2:], T=T), [x, ss, *_w6(dev, D, 4 * D)])
 
 
 @pytest.mark.cuda
