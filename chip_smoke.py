@@ -8,8 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. build    every CUDA kernel of the port from ``ladiff_torch/csrc`` (one
             ``nvcc`` per source, all at once); the card's name and power
             limit as ``nvidia-smi`` reports them; the registers and spills
-            of K1's, kernel 11's and kernel 6's kernels and the shared
-            memory of a CTA of their cluster body; the registers and spills
+            of K1's, kernel 11's, kernel 6's and kernel 7's kernels and the
+            shared memory of a CTA of their cluster body (K1's layout at
+            the published shape); the registers and spills
             of K3's and K4's LayerNorm pass and GEMM block
             (``clip_kernels``) and of kernels 8's and 12's products on it
             (``train_gemm_kernels``).
@@ -46,11 +47,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
             lengths and again without a mask (its bits equal over two
             runs); kernel 11 and K1 at 13 samples in row groups of 4 (one
             sample without a valid latent) and at 1 sample; kernels 6
-            (stylized FFN, with its launch geometry: row groups, C, CTAs)
-            and 7 (one-token stylize) at 2560 rows with one AdaLN row per
-            sample and one shared; kernel 6 again where row groups split
-            samples (37 x 7 and 3 x 5 rows) at D 256, 64, 128 and 192
-            (``kernel6_shapes``, compared); kernel 5 with ReLU at the
+            (stylized FFN) and 7 (one-token stylize), each with its launch
+            geometry (row groups, C, CTAs), at 2560 rows with one AdaLN row
+            per sample and one shared; kernel 6 again where row groups
+            split samples (37 x 7 and 3 x 5 rows) at D 256, 64, 128 and
+            192 (``kernel6_shapes``, compared), kernel 7 at the same rows
+            and at 40 x 1 with fractional masks (one sample wholly masked)
+            and all-zero masks (``kernel7_shapes``, compared), kernel 7's
+            device ms against its rows per group (``stylize_scaling``);
+            kernel 5 with ReLU at the
             same rows (the MD sa_block's tail on the per-block routes):
             each against its plain version, timed like phase 2.
    route_slice  the other denoiser routes at batch 4, mixed lengths, DDIM-10,
@@ -60,9 +65,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
             and a one-token system at head width 256 (H 1), which neither
             K1 nor K2 takes: the MD layers per block with kernel 7, the
             decoder layers per block with kernel 5's tail.
-   route_bench  the bench protocol on the stack and full-context routes:
-            launch counts per batch, samples/s beside phase 4's.  Phase 4
-            and this one each end with one profiled batch of their route
+   route_bench  the bench protocol on the stack and full-context routes
+            and on the one-token route at head width 256 (``one_token_h1``,
+            ``bench.build(num_heads=1)``: every MD layer and decoder layer
+            per block, kernels 7, 6 and 5): launch counts per batch,
+            samples/s beside phase 4's.  Phase 4 and each of these routes
+            end with one profiled batch of their route
             (``bench.breakdown``: device time by kernel group, idle share).
 
 5. train_kernels  ``train_gemm_products``: each product of kernels 8
@@ -220,6 +228,15 @@ EXPECTED_FULL_CONTEXT_PER_BATCH = {
     "fused_postnorm_ffn": 450, "fused_stylized_ffn": 450,
     "fused_md_layer": 0, "fused_broadcast_stylize": 0, "fused_md_stack": 0,
     "fused_decoder_layer": 9, "fused_ln_qkv": 12, "fused_proj_mlp": 12}
+# the one-token system at head width 256 (H 1), which neither K1 nor K2
+# takes: every MD layer per block (plain 7-key attention, kernel 5 as the
+# ReLU tail, kernel 7, kernel 6), every decoder layer per block (plain
+# attention and cross-attention, kernel 5 as the GELU tail)
+EXPECTED_ONE_TOKEN_H1_PER_BATCH = {
+    "fused_broadcast_stylize": 450, "fused_stylized_ffn": 450,
+    "fused_postnorm_ffn": 459, "fused_ln_qkv": 12, "fused_proj_mlp": 12,
+    "fused_md_layer": 0, "fused_md_stack": 0, "fused_decoder_layer": 0,
+    "fused_masked_attention": 0}
 # kernel 5 runs on two paths, and the ``kernels`` line has a row for each
 KERNEL5_VAE_PATH = "VAE encoder layer tail, GELU, 128 x 206 rows"
 KERNEL5_MD_PATH = "MD sa_block tail, ReLU, 512 x 5 rows"
@@ -400,11 +417,11 @@ def phase_build():
     for name, log in cc.build_logs().items():
         for fn, regs, spill in _ptxas_entries(log):
             print(f"# {name}: {fn}: {regs}; {spill}", file=sys.stderr)
-    # the cluster MD body's kernels (K1, kernel 11): registers and spills
+    # the cluster MD body's kernels (K1, 11, 6, 7): registers and spills
     # from ptxas, dynamic shared memory per CTA at the published shape
     md = [{"kernel": fn, "registers": regs, "spills": spill}
           for name, log in cc.build_logs().items()
-          if name.startswith("md_") or name == "stylized_ffn"
+          if name.startswith("md_") or name in ("stylized_ffn", "stylize")
           for fn, regs, spill in _ptxas_entries(log)]
     # K3's and K4's LayerNorm pass and GEMM block (one entry per tile width
     # and epilogue; 168 registers is the GEMM's launch bound, 65536 / 384,
@@ -888,7 +905,7 @@ def phase_bench(dev):
 def phase_route_kernels(dev):
     """Kernels 11, 6, 7 and 5 at the shapes of the routes that run them."""
     import torch
-    from ladiff_torch.ops import md_layer
+    from ladiff_torch.ops import md_layer, stylize
     from ladiff_torch.ops.md_layer import (_PARAM_ORDER as _MD_PARAM_NAMES,
                                            md_launch_geometry, md_layer_plain)
     from ladiff_torch.ops.md_stack import fused_md_stack, md_stack_plain
@@ -898,7 +915,8 @@ def phase_route_kernels(dev):
                                                postnorm_ffn_plain)
     from ladiff_torch.ops.stylization import (MDSkipTransformerEncoder,
                                               MDTransformerLayer)
-    from ladiff_torch.ops.stylize import (broadcast_stylize_plain,
+    from ladiff_torch.ops.stylize import (broadcast_stylize_launch_geometry,
+                                          broadcast_stylize_plain,
                                           fused_broadcast_stylize)
     from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
                                                stylized_ffn_launch_geometry,
@@ -1034,9 +1052,20 @@ def phase_route_kernels(dev):
                 x6.float(), value.float(), kvalid, ss.float(),
                 *[t.float() for t in w7], T=T),
             lambda: broadcast_stylize_plain(x6, value, kvalid, ss, *w7, T=T),
-            2 * M * D * D, nbytes(x6, value, kvalid, ss, *w7, x6)))
+            2 * M * D * D, nbytes(x6, value, kvalid, ss, *w7, x6),
+            extra={"geometry": broadcast_stylize_launch_geometry(dev, M,
+                                                                 D)}))
     emit({"phase": "kernels_shared_adaln_row", "rel_err": errs,
           "tol": KERNEL_TOL})
+    # kernel 7's device ms at 2560 rows against the rows of a group (the
+    # geometry's choice beside it): fixed costs a launch against costs a row
+    ss7 = rnd(B2, 2 * D, scale=0.3)
+    scaling7 = {rows: device_ms(lambda: stylize._launch(
+        x6, value, kvalid, ss7, *w7, T=T, rows=rows))
+        for rows in (16, 32, 48, 64, 96)}
+    emit({"phase": "stylize_scaling", "rows": M,
+          "geometry": broadcast_stylize_launch_geometry(dev, M, D),
+          "ms_by_rows_per_group": scaling7})
     # kernel 6 where its row groups split samples and the last group is
     # partial (37 x 7 and 3 x 5 rows), at D 256 and at D 64, 128 and 192
     # (clusters of 1 to 3 CTAs, F = 4 D), an AdaLN row per sample and a
@@ -1066,6 +1095,38 @@ def phase_route_kernels(dev):
                     "geometry": stylized_ffn_launch_geometry(
                         dev, n * T6, D6, F6)}
     emit({"phase": "kernel6_shapes", "tol": KERNEL_TOL, "cases": cases6})
+    # kernel 7 the same way, and at 40 samples of one row; masks with
+    # fractional values and the first sample wholly masked, and all-zero
+    # masks (each row's LayerNorm is then its bias)
+    cases7 = {}
+    for D7 in (256, 64, 128, 192):
+        wk = w7 if D7 == 256 else [
+            1 + rnd(D7, scale=0.1), rnd(D7, scale=0.05),
+            rnd(D7, D7, scale=D7 ** -0.5), rnd(D7, scale=0.05)]
+        for n, T7 in ((37, 7), (3, 5), (40, 1)):
+            xk, vk = rnd(n * T7, D7), rnd(n, D7)
+            frac = torch.rand(n * T7, generator=g)
+            frac[:T7] = 0.0
+            for mname, mk in (("fractional mask", frac),
+                              ("zero mask", torch.zeros(n * T7))):
+                mk = mk.to(dev)
+                for rows in (n, 1):
+                    ssk = rnd(rows, 2 * D7, scale=0.3)
+                    key = (f"D {D7}, {n} x {T7} rows, {mname}, "
+                           + ("shared AdaLN row" if rows == 1 else
+                              "AdaLN row per sample"))
+                    cases7[key] = {
+                        "rel_err": compare(
+                            f"fused_broadcast_stylize, {key}",
+                            fused_broadcast_stylize(xk, vk, mk, ssk, *wk,
+                                                    T=T7),
+                            broadcast_stylize_plain(
+                                xk.float(), vk.float(), mk, ssk.float(),
+                                *[t.float() for t in wk], T=T7),
+                            KERNEL_TOL)[0],
+                        "geometry": broadcast_stylize_launch_geometry(
+                            dev, n * T7, D7)}
+    emit({"phase": "kernel7_shapes", "tol": KERNEL_TOL, "cases": cases7})
 
     # kernel 5 as the per-block route runs it: the sa_block's tail, ReLU,
     # ff 1024, at the same 2560 rows
@@ -1178,19 +1239,26 @@ def phase_route_slice(dev):
 
 
 def phase_route_bench(dev, default_sps=None):
-    """The bench protocol on the stack and the full-context routes (beside
-    the default route's samples/s where ``phase_bench`` ran)."""
+    """The bench protocol on the stack, the full-context and the one-token
+    head-width-256 routes (beside the default route's samples/s where
+    ``phase_bench`` ran).  Returns each route's launch counts, in all and
+    per batch."""
     import torch
     from ladiff_torch import bench
     from ladiff_torch.ops import cuda_common as cc
 
     batches = 2
     sps = {"default": default_sps}
-    counts_all = {}
-    for route, md_stack, full, expected in (
-            ("md_stack", True, False, EXPECTED_STACK_PER_BATCH),
-            ("full_context", False, True, EXPECTED_FULL_CONTEXT_PER_BATCH)):
-        system, tower = bench.build(dev, md_stack=md_stack)
+    counts_all, per_batch_all = {}, {}
+    for route, build_kw, full, expected in (
+            ("md_stack", dict(md_stack=True), False,
+             EXPECTED_STACK_PER_BATCH),
+            ("full_context", {}, True, EXPECTED_FULL_CONTEXT_PER_BATCH),
+            ("one_token_h1", dict(num_heads=1), False,
+             EXPECTED_ONE_TOKEN_H1_PER_BATCH)):
+        # each route's own peak memory, not the process's so far
+        torch.cuda.reset_peak_memory_stats()
+        system, tower = bench.build(dev, **build_kw)
         cc.reset_launch_counts()
         res = bench.measure(system, tower, batches=batches,
                             full_context=full)
@@ -1211,14 +1279,14 @@ def phase_route_bench(dev, default_sps=None):
             if per_batch.get(name) != want:
                 fail(f"{route}: {name}: {per_batch.get(name)} launches per "
                      f"batch, expected {want}")
-        counts_all[route] = counts
+        counts_all[route], per_batch_all[route] = counts, per_batch
         emit({"phase": "route_breakdown", "route": route,
               **bench.breakdown(system, tower, res["seconds_per_batch"],
                                 full)})
         del system, tower
     emit({"phase": "routes_samples_per_sec", "batch": bench.BATCH,
           "steps": bench.STEPS, "samples_per_sec": sps})
-    return counts_all
+    return {"counts": counts_all, "per_batch": per_batch_all}
 
 
 def phase_train_kernels(dev):
@@ -3024,7 +3092,7 @@ def main():
         emit({"phases_run": only})
         return
     recs, (counts, _) = out["kernels"], out["bench"]
-    route_recs, slice_counts = out["route_kernels"], out["route_slice"]
+    route_recs = out["route_kernels"]
     route_counts, train_recs = out["route_bench"], out["train_kernels"]
     whole_recs, train_counts = out["whole_layer_kernels"], out["train_bench"]
     diffusion_counts, entry_counts = out["diffusion_bench"], out["train_entry"]
@@ -3033,16 +3101,17 @@ def main():
     # and 9, the stage-2 and joint steps for kernel 10 and for kernel 9 as
     # the MD sa_block's tail; the stack route for
     # kernel 11, the full-context route for kernel 6 and for kernel 5 as
-    # the MD sa_block's tail, the one-token per-block route (head width
-    # 256) for kernel 7; the training entry point's stage-1 runs on the
+    # the MD sa_block's tail, the one-token route at head width 256 for
+    # kernel 7 (per batch); the training entry point's stage-1 runs on the
     # whole-layer route for kernels 12 and 13
     for rec in recs:
         rec["launches"] = counts[rec["name"]]
-    route_path = {"fused_md_stack": route_counts["md_stack"],
-                  "fused_stylized_ffn": route_counts["full_context"],
-                  "fused_postnorm_ffn": route_counts["full_context"],
+    counts_by_route = route_counts["counts"]
+    route_path = {"fused_md_stack": counts_by_route["md_stack"],
+                  "fused_stylized_ffn": counts_by_route["full_context"],
+                  "fused_postnorm_ffn": counts_by_route["full_context"],
                   "fused_broadcast_stylize":
-                      slice_counts["one_token_head_width_256"]}
+                      route_counts["per_batch"]["one_token_h1"]}
     for rec in route_recs:
         rec["launches"] = route_path[rec["name"]][rec["name"]]
     recs += route_recs

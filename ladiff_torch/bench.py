@@ -49,15 +49,18 @@ NFEATS, NJOINTS = 263, 22
 BATCHES, WARMUP = 3, 1
 
 
-def build(device=None, md_stack: bool = False):
+def build(device=None, md_stack: bool = False, num_heads: int = 4):
     """The bench-scale system and text tower, bf16, with random weights
-    from seed 0; ``md_stack``: the whole-stack denoiser route."""
+    from seed 0; ``md_stack``: the whole-stack denoiser route;
+    ``num_heads`` 1 (head width 256, which neither K1 nor K2 takes): the
+    denoiser's and decoder's per-block routes, with kernel 7."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         system = LADiffSystem(
             nfeats=NFEATS, njoints=NJOINTS, max_frames=FRAMES,
-            latent_dim=(7, 256), ff_size=1024, num_layers=9, num_heads=4,
+            latent_dim=(7, 256), ff_size=1024, num_layers=9,
+            num_heads=num_heads,
             text_encoded_dim=768, guidance_scale=7.5,
             num_inference_timesteps=STEPS,
             mean=np.zeros(NFEATS, np.float32),

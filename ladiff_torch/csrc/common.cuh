@@ -1,10 +1,6 @@
 // Building blocks shared by the port's hand-written Hopper kernels: loads,
 // warp and quad sums, the dropout generator, a warp's row LayerNorm, the
-// shared-memory grants; and block_gemm, the first port's product of a
-// 32-row block (kernel 7's): WMMA 16x16x16 bf16 tiles with f32
-// accumulation, the A operand (activations) in shared memory, the B operand
-// a torch Linear weight [out, in] streamed through a cp.async stage.  Row
-// blocks are 32 rows (two 16-row tiles) and 256 threads.
+// shared-memory grants.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,7 +15,6 @@ using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kRows = 32;      // rows of a row block
-constexpr int kThreads = 256;  // threads of a row block (8 warps)
 constexpr int kChunk = 256;    // output columns per GEMM call
 constexpr float kNegInf = -1e9f;
 constexpr float kLnEps = 1e-5f;
@@ -67,86 +62,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Weight tiles of block_gemm: kStages stages of [kNB out-features][kKT + 8]
-// bf16, streamed from global memory while the tensor cores work on the
-// previous stage.  Every kernel that calls block_gemm reserves
-// kWStageBytes of shared memory for them.
-constexpr int kNB = 128;  // output columns per pass: one 16-wide tile per warp
-constexpr int kKT = 32;   // k per stage
-constexpr int kLDW = kKT + 8;
-constexpr int kStages = 3;
-constexpr size_t kWStageBytes = (size_t)kStages * kNB * kLDW * 2;
-
-// C[32 x N] (f32, smem, ldc) = A[32 x K] (bf16, smem, lda) @ W^T, where W
-// points at row n0 of a torch Linear weight (row stride ldw = in features,
-// 16-byte aligned rows).  With `accumulate` the tile starts from C's
-// current contents.  N a multiple of 16, K a multiple of kKT; lda a
-// multiple of 8, ldc of 4.  All threads of the block call it; it starts and
-// ends with __syncthreads.  Per pass of kNB columns, warp w owns column
-// tile w and both 16-row tiles; the block streams W through `ws` in a
-// kStages-deep cp.async pipeline, one __syncthreads per k-step.
-__device__ __forceinline__ void block_gemm(const bf16* A, int lda,
-                                           const bf16* W, int ldw, int K,
-                                           int N, float* C, int ldc,
-                                           bool accumulate, bf16* ws) {
-  const int warp = threadIdx.x >> 5;
-  const int nk = K / kKT;
-  constexpr int kVec = kKT / 8;  // 16-byte vectors per row and stage
-  for (int n0 = 0; n0 < N; n0 += kNB) {
-    const int nb = N - n0 < kNB ? N - n0 : kNB;
-    const bool active = warp * 16 < nb;
-    __syncthreads();  // the previous users of ws and C are done
-    auto load_stage = [&](int kt) {
-      if (kt < nk) {
-        bf16* dst = ws + (kt % kStages) * kNB * kLDW;
-        const bf16* src = W + (size_t)n0 * ldw + kt * kKT;
-        for (int v = threadIdx.x; v < nb * kVec; v += blockDim.x) {
-          const int n = v / kVec, kv = v % kVec;
-          cp_async16(dst + n * kLDW + kv * 8, src + (size_t)n * ldw + kv * 8);
-        }
-      }
-      cp_async_commit();
-    };
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) load_stage(s);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-    float* c0 = C + n0 + warp * 16;
-    if (active && accumulate) {
-      wmma::load_matrix_sync(acc0, c0, ldc, wmma::mem_row_major);
-      wmma::load_matrix_sync(acc1, c0 + 16 * ldc, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc0, 0.f);
-      wmma::fill_fragment(acc1, 0.f);
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // stage kt landed for all; stage kt-1 is consumed
-      load_stage(kt + kStages - 1);
-      if (active) {
-        const bf16* wt = ws + (kt % kStages) * kNB * kLDW + warp * 16 * kLDW;
-#pragma unroll
-        for (int kk = 0; kk < kKT; kk += 16) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              a0, a1;
-          const int k = kt * kKT + kk;
-          wmma::load_matrix_sync(b, wt + kk, kLDW);
-          wmma::load_matrix_sync(a0, A + k, lda);
-          wmma::load_matrix_sync(a1, A + 16 * lda + k, lda);
-          wmma::mma_sync(acc0, a0, b, acc0);
-          wmma::mma_sync(acc1, a1, b, acc1);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    if (active) {
-      wmma::store_matrix_sync(c0, acc0, ldc, wmma::mem_row_major);
-      wmma::store_matrix_sync(c0 + 16 * ldc, acc1, ldc, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
 }
 
 // Dropout that a backward can regenerate: element `idx` of mask `mask_id`

@@ -1,9 +1,12 @@
 // The MD-trans denoiser layer body on a thread-block cluster, shared by
 // kernel K1 (md_layer.cu, one layer per launch) and kernel 11 (md_stack.cu,
 // the whole skip stack per launch); its stylized-FFN segment
-// (md_stylized_ffn) is also kernel 6 (stylized_ffn.cu) on its own.  See
-// ladiff_torch/ops/md_layer.py for the math, ladiff_torch/ops/md_stack.py
-// for the stack and ladiff_torch/ops/stylized_ffn.py for kernel 6.
+// (md_stylized_ffn) is also kernel 6 (stylized_ffn.cu) on its own, and its
+// one-token cross-attention segment (md_value_stats, md_ca_rows,
+// md_ca_project) kernel 7 (stylize.cu).  See ladiff_torch/ops/md_layer.py
+// for the math, ladiff_torch/ops/md_stack.py for the stack,
+// ladiff_torch/ops/stylized_ffn.py for kernel 6 and
+// ladiff_torch/ops/stylize.py for kernel 7.
 //
 // A cluster of C = D / 64 CTAs owns one row group: whole samples, at most
 // 96 latent rows and 48 extra rows (text, time).  CTA c computes columns
@@ -85,10 +88,13 @@ constexpr int kCLdQ = kCW + 8;     // q / k / v rows
 constexpr int kCMaxC = 4;
 constexpr int kCSegs = 48;        // weight segments of a layer, at most
 
-// All arguments of the kernels (K1: L = 1, no skip tensors; kernel 6:
-// ffn_only, L = 1, rows grouped as B = M samples of T = 1 row, no extra rows
-// and no kvalid, the AdaLN row of row i at ffn_ss + (i / ss_t) ffn_stride,
-// the stylized FFN's tensors at w[16..23] and F1 = F2).
+// All arguments of the kernels (K1: L = 1, no skip tensors; kernels 6 and
+// 7: L = 1, rows grouped as B = M samples of T = 1 row, no extra rows, the
+// rows' real samples ss_t rows each; kernel 6: ffn_only, no kvalid, the
+// AdaLN row of row i at ffn_ss + (i / ss_t) ffn_stride, the stylized FFN's
+// tensors at w[16..23] and F1 = F2; kernel 7: ca_only, the rows' mask in
+// kvalid, one value row per real sample, the AdaLN row of row i at ca_ss +
+// (i / ss_t) ca_stride, the cross-attention's tensors at w[12..15]).
 struct MDClusterArgs {
   const bf16* x;        // [B T, D]
   const bf16* extra;    // [B E, D]
@@ -101,7 +107,8 @@ struct MDClusterArgs {
   bf16* out;            // [B T, D]
   int B, T, E, D, H, F1, F2, L, ca_stride, ffn_stride;
   int spg, groups, C;   // samples per row group, row groups, cluster size
-  int ffn_only, ss_t;   // kernel 6: the stylized FFN alone, rows a sample
+  int ffn_only, ca_only;  // kernel 6 / kernel 7: one segment alone
+  int ss_t;             // kernels 6 and 7: rows a sample
 };
 
 __host__ __device__ inline int md_chunks(int F, int C) {
@@ -146,6 +153,25 @@ __host__ __device__ inline MDCLayout md_cluster_layout(int D, int F1,
   return L;
 }
 
+// Kernel 7's CTA (ca_only): the A operand (the AdaLN rows, D wide) in big,
+// the ring, the per-sample value statistics, the rows' mask and the segment
+// table; it has no x rows, FFN partials or LayerNorm partials, whose
+// regions alias big.  Mirrored by ops/stylize.py stylize_smem_bytes.
+__host__ __device__ inline MDCLayout md_ca_layout(int D) {
+  MDCLayout L = {};
+  L.ring = align128((size_t)kCRows * (D + 8) * 2);
+  L.sstat = align128(L.ring + (size_t)kCStages * kCStageEl * 2);
+  L.kvs = align128(L.sstat + (size_t)kCRows * 8);
+  L.segs = align128(L.kvs + (size_t)kCRows * 4);
+  L.total = align128(L.segs + (size_t)kCSegs * 32);
+  return L;
+}
+
+inline size_t md_cluster_bytes(const MDClusterArgs& a) {
+  return a.ca_only ? md_ca_layout(a.D).total
+                   : md_cluster_layout(a.D, a.F1, a.F2).total;
+}
+
 // Weight segments of one FFN and its projection (md_seg): the 64-column
 // first-product passes and C second-product passes per hidden chunk, then
 // the projection.
@@ -176,17 +202,20 @@ inline bool md_cluster_valid(const MDClusterArgs& a) {
          (a.ffn_stride == 0 || a.ffn_stride == 2 * a.D);
 }
 
-// The shapes kernel 6 takes (ops/stylized_ffn.py stylized_ffn_supported,
-// the launch geometry of stylized_ffn_geometry): groups of at most 96 rows.
-inline bool sf_cluster_valid(const MDClusterArgs& a) {
+// The shapes kernels 6 and 7 take (ops/stylized_ffn.py
+// stylized_ffn_supported, ops/stylize.py broadcast_stylize_supported, the
+// launch geometry of stylized_ffn_geometry): groups of at most 96 rows.
+inline bool seg_cluster_valid(const MDClusterArgs& a) {
   if (a.B < 1 || a.T != 1 || a.E != 0 || a.L != 1 || a.ss_t < 1 ||
       a.B % a.ss_t || a.D < kCW || a.D % kCW || a.D / kCW > kCMaxC ||
-      a.C != a.D / kCW || a.F2 < a.D || a.F2 % a.D || a.F1 != a.F2 ||
-      md_ffn_nsegs(a.D, a.F2) >= kCSegs)
+      a.C != a.D / kCW)
     return false;
   if (a.spg < 1 || a.spg > kCRows || a.groups != (a.B + a.spg - 1) / a.spg)
     return false;
-  return a.ffn_stride == 0 || a.ffn_stride == 2 * a.D;
+  if (a.ca_only) return a.ca_stride == 0 || a.ca_stride == 2 * a.D;
+  return a.F2 >= a.D && a.F2 % a.D == 0 && a.F1 == a.F2 &&
+         md_ffn_nsegs(a.D, a.F2) < kCSegs &&
+         (a.ffn_stride == 0 || a.ffn_stride == 2 * a.D);
 }
 
 // ---------------------------------------------------------------------------
@@ -204,8 +233,8 @@ struct MDCta {
 };
 
 __device__ __forceinline__ MDCta md_cta(unsigned char* smem,
-                                        const MDClusterArgs& a) {
-  const MDCLayout L = md_cluster_layout(a.D, a.F1, a.F2);
+                                        const MDClusterArgs& a,
+                                        const MDCLayout& L) {
   MDCta m;
   m.xa = reinterpret_cast<bf16*>(smem + L.xa);
   m.big = reinterpret_cast<bf16*>(smem + L.big);
@@ -233,6 +262,10 @@ __device__ __forceinline__ MDCta md_cta(unsigned char* smem,
                                                      : md_chunks(a.F2, a.C);
   m.row0 = (size_t)m.s0 * a.T;
   return m;
+}
+__device__ __forceinline__ MDCta md_cta(unsigned char* smem,
+                                        const MDClusterArgs& a) {
+  return md_cta(smem, a, md_cluster_layout(a.D, a.F1, a.F2));
 }
 
 // A thread's place: column slice wc and row half rh of its warp, row g and
@@ -290,13 +323,17 @@ struct SegRow {
 // Segment i (nk -1 past the layer's last).  An FFN's segments: per hidden
 // chunk j, the first product's passes of 64 hidden columns (K = D), then
 // the second product's passes for the peers' columns and last the CTA's
-// own (K = the chunk).  Kernel 6 (ffn_only) has the stylized FFN's alone.
+// own (K = the chunk).  Kernel 6 (ffn_only) has the stylized FFN's alone,
+// kernel 7 (ca_only) the cross-attention projection alone.
 __device__ inline SegRow md_seg(const MDClusterArgs& a, int i, int c) {
   const int D = a.D, C = a.C, nk = D / kCKT;
   const auto prm = [&](int k, size_t off, int ldw, int n) {
     return SegRow{a.w[k] + off,
                   (long long)md_param_numel(k, D, a.F1, a.F2), ldw, n, 0, 0};
   };
+  if (a.ca_only)
+    return i == 0 ? prm(14, (size_t)c * kCW * D, D, nk)
+                  : SegRow{nullptr, 0, 0, -1, 0, 0};
   if (!a.ffn_only) {
     if (i == 0)  // layer l > nb: output block l - nb - 1
       return SegRow{a.lin_w + (size_t)c * kCW * 2 * D, 2LL * D * D, 2 * D,
@@ -921,6 +958,104 @@ __device__ __forceinline__ void md_stylized_ffn(float (&r)[kCMT][2][4],
 }
 
 // ---------------------------------------------------------------------------
+// The one-token cross-attention segment: with one text token the
+// softmax-linear cross-attention gives each row its sample's text value row
+// times the row's mask m, and the segment is
+//   r += W silu(LN(m v) * (1 + scale) + shift) + b
+// with LN(m v) = m (v - mean) / sqrt(m^2 var + eps) * g + b_ln, exact for
+// any mask value (mean, var: v's own).  md_value_stats, then (after a
+// barrier) md_ca_rows, the exchange of big, and md_ca_project.
+
+// The mean and variance of value rows 0..ns-1 (one a sample) into sstat.
+__device__ __forceinline__ void md_value_stats(const MDCta& m,
+                                               const bf16* value, int ns) {
+  constexpr int kW = kCThreads / 32, kU = 3, kPer = 4 * kCMaxC / 2;
+  const int D = m.D, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // up to kU samples a warp at once, their loads issued together
+  for (int s0 = warp; s0 < ns; s0 += kU * kW) {
+    float x[kU][kPer];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const bf16* v = value + (size_t)min(s0 + u * kW, ns - 1) * D;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        x[u][i] = lane + 32 * i < D ? ldgf(v + min(lane + 32 * i, D - 1))
+                                    : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) sum += x[u][i];
+      const float mean = warp_sum(sum) / D;
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        if (lane + 32 * i < D) q += (x[u][i] - mean) * (x[u][i] - mean);
+      q = warp_sum(q) / D;
+      if (lane == 0 && s0 + u * kW < ns)
+        m.sstat[s0 + u * kW] = make_float2(mean, q);
+    }
+  }
+}
+
+// The AdaLN -> SiLU rows of the CTA's 64 columns into big (row stride
+// m.ld), for the next cluster exchange.  Row r of the group is row off + r
+// of a stream of T-row samples: its sample s = (off + r) / T has value row
+// value + s D, AdaLN row ss + s ss_stride (0: one row for all) and
+// statistics sstat[s] (md_value_stats); its mask is kvs[r].  Padding rows
+// are computed as the group's last row and stored as zeros.  K1 and kernel
+// 11 pass off 0 (groups of whole samples), kernel 7 its first row's place
+// in its sample.
+__device__ __forceinline__ void md_ca_rows(const MDCta& m, const bf16* value,
+                                           const bf16* ca_ss, int ca_stride,
+                                           const bf16* g, const bf16* b,
+                                           int T, int off) {
+  const CLane t = clane();
+  const int D = m.D;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int col = m.c * kCW + ccol(t, nt);
+    const float2 gv = ldg2(g + col), bv = ldg2(b + col);
+#pragma unroll
+    for (int i = 0; i < kCMT; ++i)
+      if (ctile(t, i) < m.ml)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = crow(t, i, hf);
+          const int rr = min(row, m.nrow - 1), smp = (off + rr) / T;
+          const float mk = m.kvs[rr];
+          const float2 st = m.sstat[smp];
+          const float k = mk * rsqrtf(mk * mk * st.y + kLnEps);
+          const float2 v = ldg2(value + (size_t)smp * D + col);
+          const bf16* ss = ca_ss + (size_t)smp * ca_stride;
+          const float2 sc = ldg2(ss + col), sh = ldg2(ss + D + col);
+          const float h0 =
+              silu(((v.x - st.x) * k * gv.x + bv.x) * (1.f + sc.x) + sh.x);
+          const float h1 =
+              silu(((v.y - st.x) * k * gv.y + bv.y) * (1.f + sc.y) + sh.y);
+          const bool in = row < m.nrow;
+          st2(m.big + row * m.ld + col, in ? h0 : 0.f, in ? h1 : 0.f);
+        }
+  }
+}
+
+// r += the projection of big (every CTA, all D columns) + bias; its weight
+// slices are the stream's next segment.
+__device__ __forceinline__ void md_ca_project(float (&r)[kCMT][2][4],
+                                              MDStream& s,
+                                              const MDClusterArgs& a,
+                                              const MDCta& m,
+                                              const bf16* bias) {
+  const int nk = m.D / kCKT;
+  float acc[kCMT][2][4];
+  czero(acc);
+  cgemm<kCMT>(acc, m.big, m.big, m.big, m.ld, nk, nk, (1u << m.ml) - 1u, s,
+              a, m);
+  add_biased(r, acc, bias, m.c);
+}
+
+// ---------------------------------------------------------------------------
 // One MD layer on the group's rows.  Pre: xa holds x (every CTA, all D
 // columns), ext the extra rows, r the CTA's columns of x (f32).  value: the
 // text value row of the group's first sample on; ca_ss / ffn_ss: the AdaLN
@@ -936,7 +1071,6 @@ __device__ __forceinline__ void md_layer_cl(float (&r)[kCMT][2][4],
                                             const bf16* ca_ss, int ca_stride,
                                             const bf16* ffn_ss,
                                             int ffn_stride, Epi epi) {
-  const CLane t = clane();
   const int D = m.D, c = m.c, nk = D / kCKT;
   const unsigned lat = (1u << m.ml) - 1u;
   const unsigned kvm = lat | (((1u << m.me) - 1u) << kCLT);
@@ -948,38 +1082,8 @@ __device__ __forceinline__ void md_layer_cl(float (&r)[kCMT][2][4],
   bf16* ks = qs + kCRows * kCLdQ;
   bf16* vs = ks + (kCRows + kCExtra) * kCLdQ;
 
-  // the text value rows' mean and variance per sample (the cross-attention
-  // LayerNorm's, before the mask); read after later barriers
-  {
-    constexpr int kW = kCThreads / 32, kU = 3, kPer = 4 * kCMaxC / 2;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    // up to kU samples a warp at once, their loads issued together
-    for (int s0 = warp; s0 < m.ns; s0 += kU * kW) {
-      float x[kU][kPer];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const bf16* v = value + (size_t)min(s0 + u * kW, m.ns - 1) * D;
-#pragma unroll
-        for (int i = 0; i < kPer; ++i)
-          x[u][i] = lane + 32 * i < D ? ldgf(v + min(lane + 32 * i, D - 1))
-                                      : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) sum += x[u][i];
-        const float mean = warp_sum(sum) / D;
-        float q = 0.f;
-#pragma unroll
-        for (int i = 0; i < kPer; ++i)
-          if (lane + 32 * i < D) q += (x[u][i] - mean) * (x[u][i] - mean);
-        q = warp_sum(q) / D;
-        if (lane == 0 && s0 + u * kW < m.ns)
-          m.sstat[s0 + u * kW] = make_float2(mean, q);
-      }
-    }
-  }
+  // the text value rows' statistics; read after later barriers
+  md_value_stats(m, value, m.ns);
 
   // k, v of the latent and extra rows, q of the latent rows (CTA-local)
   for (int part = 1; part <= 2; ++part) {
@@ -1018,37 +1122,11 @@ __device__ __forceinline__ void md_layer_cl(float (&r)[kCMT][2][4],
   push_slice(m.xa, m);
 
   // ReLU FFN + residual -> LN2; the cross-attention's AdaLN rows travel
-  // with LN2's statistics: value row x mask -> LN -> AdaLN -> SiLU (the
-  // LayerNorm of m v is m (v - mean) / sqrt(m^2 var + eps)); padding rows
-  // are computed as the group's last row and stored as zeros
+  // with LN2's statistics
   float y[kCMT][2][4];
   md_ffn(y, wp(7), a.F1, 0, s, a, m);
   add_biased(r, y, wp(9), c);
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int col = c * kCW + ccol(t, nt);
-    const float2 gv = ldg2(wp(12) + col), bv = ldg2(wp(13) + col);
-#pragma unroll
-    for (int i = 0; i < kCMT; ++i)
-      if (ctile(t, i) < m.ml)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = crow(t, i, hf);
-          const int rr = min(row, m.nrow - 1), smp = rr / m.T;
-          const float mk = m.kvs[rr];
-          const float2 st = m.sstat[smp];
-          const float k = mk * rsqrtf(mk * mk * st.y + kLnEps);
-          const float2 v = ldg2(value + (size_t)smp * D + col);
-          const bf16* ss = ca_ss + (size_t)smp * ca_stride;
-          const float2 sc = ldg2(ss + col), sh = ldg2(ss + D + col);
-          const float h0 =
-              silu(((v.x - st.x) * k * gv.x + bv.x) * (1.f + sc.x) + sh.x);
-          const float h1 =
-              silu(((v.y - st.x) * k * gv.y + bv.y) * (1.f + sc.y) + sh.y);
-          const bool in = row < m.nrow;
-          st2(m.big + row * m.ld + col, in ? h0 : 0.f, in ? h1 : 0.f);
-        }
-  }
+  md_ca_rows(m, value, ca_ss, ca_stride, wp(12), wp(13), m.T, 0);
   copy_slice(m.big, m);
   stats_push(r, m);
   cluster_sync();
@@ -1056,12 +1134,7 @@ __device__ __forceinline__ void md_layer_cl(float (&r)[kCMT][2][4],
   ln_apply(r, m, wp(10), wp(11));
 
   // cross-attention projection + residual: x3
-  {
-    float acc[kCMT][2][4];
-    czero(acc);
-    cgemm<kCMT>(acc, m.big, m.big, m.big, m.ld, nk, nk, lat, s, a, m);
-    add_biased(r, acc, wp(15), c);
-  }
+  md_ca_project(r, s, a, m, wp(15));
   store_slice(r, m.xa, m);
   push_slice(m.xa, m);
 
@@ -1070,7 +1143,7 @@ __device__ __forceinline__ void md_layer_cl(float (&r)[kCMT][2][4],
   epi(r);
 }
 
-// The launch: one cluster of C CTAs per row group (K1, 11 and 6).
+// The launch: one cluster of C CTAs per row group (K1, 11, 6 and 7).
 // Internal linkage: each library keeps its own kernel and shared-memory
 // grants (see attn_tile.cuh).
 template <typename Kern>
@@ -1078,9 +1151,9 @@ static inline cudaError_t md_cluster_launch(Kern kernel,
                                             const MDClusterArgs& a,
                                             SmemGrant& grant,
                                             cudaStream_t stream) {
-  if (!(a.ffn_only ? sf_cluster_valid(a) : md_cluster_valid(a)))
+  if (!(a.ffn_only || a.ca_only ? seg_cluster_valid(a) : md_cluster_valid(a)))
     return cudaErrorInvalidValue;
-  const size_t bytes = md_cluster_layout(a.D, a.F1, a.F2).total;
+  const size_t bytes = md_cluster_bytes(a);
   if (!allow_smem(kernel, bytes, grant)) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.groups * a.C);
@@ -1099,12 +1172,14 @@ static inline cudaError_t md_cluster_launch(Kern kernel,
 }
 
 // Clusters of C CTAs that can be resident at once (0 when the query fails):
-// the row-group count that fills the card once.
+// the row-group count that fills the card once.  a: D, F1, F2 and ca_only
+// (md_cluster_bytes).
 template <typename Kern>
-static inline int md_cluster_slots(Kern kernel, int D, int F1, int F2,
+static inline int md_cluster_slots(Kern kernel, const MDClusterArgs& a,
                                    SmemGrant& grant) {
+  const int D = a.D;
   if (D < kCW || D % kCW || D / kCW > kCMaxC) return 0;
-  const size_t bytes = md_cluster_layout(D, F1, F2).total;
+  const size_t bytes = md_cluster_bytes(a);
   if (!allow_smem(kernel, bytes, grant)) return 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(D / kCW);
@@ -1123,6 +1198,18 @@ static inline int md_cluster_slots(Kern kernel, int D, int F1, int F2,
     return 0;
   }
   return n;
+}
+
+// K1, kernel 11 and kernel 6: the layer's layout at width D, FFN widths F1,
+// F2.
+template <typename Kern>
+static inline int md_cluster_slots(Kern kernel, int D, int F1, int F2,
+                                   SmemGrant& grant) {
+  MDClusterArgs a = {};
+  a.D = D;
+  a.F1 = F1;
+  a.F2 = F2;
+  return md_cluster_slots(kernel, a, grant);
 }
 
 }  // namespace ladiff

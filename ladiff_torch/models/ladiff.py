@@ -242,7 +242,7 @@ class LADiffSystem(nn.Module):
         # the MD layers' step-invariant prep exists for one text token only
         # (the collapsed cross-attention); the stack takes it laid out by
         # layer, with the stacked tensors beside it
-        md_rows = stack = None
+        ss_tables = stack = None
         if self.md_stack and text2.shape[1] != 1:
             raise ValueError("md_stack: the whole-stack kernel takes one "
                              f"text token, got {text2.shape[1]}")
@@ -253,14 +253,14 @@ class LADiffSystem(nn.Module):
                 values, ca_t, ffn_t = den.stack_md_prep(prep_all)
                 stack = {"params": den.precompute_md_stack(),
                          "values": values}
-                md_rows = (ca_t, ffn_t)
+                ss_tables = (ca_t, ffn_t)
 
         def denoise(latents, step, text, valid):
             time_emb = time_table[step][None].expand(latents.shape[0], -1)
             md_prep = None
             if stack is not None:
-                md_prep = {"stack": {**stack, "ca_ss": md_rows[0][step],
-                                     "ffn_ss": md_rows[1][step]}}
+                md_prep = {"stack": {**stack, "ca_ss": ss_tables[0][step],
+                                     "ffn_ss": ss_tables[1][step]}}
             elif text.shape[1] == 1:
                 md_prep = [{"value": p["value"], "ca_ss": p["ca_ss"][step],
                             "ffn_ss": p["ffn_ss"][step],

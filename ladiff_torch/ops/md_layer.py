@@ -129,17 +129,18 @@ def md_geometry(B: int, T: int, E: int, D: int, slots: int,
 _SLOTS = {}
 
 
-def _slots(lib_name: str, device: torch.device, D: int, F1: int,
-           F2: int) -> int:
+def _slots(lib_name: str, device: torch.device, D: int,
+           *widths: int) -> int:
     """Clusters of a kernel that fit on ``device`` at once (the library's
-    occupancy query, cached; the SM count over C where it fails)."""
-    key = (lib_name, device.index, D, F1, F2)
+    occupancy query ``<lib_name>_slots(D, *widths)``, cached; the SM count
+    over C where it fails)."""
+    key = (lib_name, device.index, D, *widths)
     if key not in _SLOTS:
         fn = getattr(library(lib_name), f"{lib_name}_slots")
-        fn.argtypes = [ctypes.c_int] * 3
+        fn.argtypes = [ctypes.c_int] * (1 + len(widths))
         fn.restype = ctypes.c_int
         with torch.cuda.device(device):
-            n = fn(D, F1, F2)
+            n = fn(D, *widths)
         if n <= 0:
             n = torch.cuda.get_device_properties(
                 device).multi_processor_count // (D // _CW)

@@ -1331,8 +1331,10 @@ def test_stylize_kernels(dev, shared_rows):
 def test_route_kernels_read_inside_their_inputs(dev):
     """Kernels 11, 6 and 7 with every input and parameter in turn at the end
     of its allocation; 8 samples of 5 rows leave a partial sample block and
-    a partial 32-row block; D 128 and 256; 6 and 7 with an AdaLN row per
-    sample and with one shared row."""
+    a partial row group; D 128 and 256; 6 and 7 with an AdaLN row per
+    sample and with one shared row; kernel 7 again at D 64 and 192 on 24 x
+    7 rows (row groups that split samples, a partial last group; the mask
+    a whole number of 32-byte words, as ``_at_end`` needs)."""
     from ladiff_torch.ops.md_stack import fused_md_stack
     from ladiff_torch.ops.postnorm_ffn import fused_postnorm_ffn
     from ladiff_torch.ops.stylize import fused_broadcast_stylize
@@ -1359,6 +1361,15 @@ def test_route_kernels_read_inside_their_inputs(dev):
         # cluster the geometry picks
         _guarded_calls(lambda t, p: fused_postnorm_ffn(
             t[0], p, activation="relu"), [x], _ffn_params(dev, D, 1024))
+    B, T = 24, 7
+    for D in (64, 192):
+        x, value = _bf(dev, B * T, D), _bf(dev, B, D, seed=17)
+        kvalid = _md_valid(B, T, dev)
+        for rows in (B, 1):
+            ss = _bf(dev, rows, 2 * D, seed=16, scale=0.3)
+            _guarded_calls(lambda t, p: fused_broadcast_stylize(
+                *t[:4], *t[4:], T=T),
+                [x, value, kvalid, ss, *_w7(dev, D)])
 
 
 def _w6(dev, D, Fd, seed=23):
@@ -1389,6 +1400,41 @@ def test_stylized_ffn_kernel_widths(dev, D, B, T):
                        stylized_ffn_plain(x.float(), ss.float(),
                                           *[t.float() for t in w6], T=T)
                        ) <= TOL, (D, B, T, rows)
+
+
+def _w7(dev, D, seed=24):
+    """Kernel 7's four tensors at width D (bf16): the LayerNorm's weight
+    and bias, the projection's weight and bias."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    w = [1 + 0.1 * r(D), 0.05 * r(D), r(D, D) / math.sqrt(D), 0.05 * r(D)]
+    return [t.to(dev, torch.bfloat16) for t in w]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+@pytest.mark.parametrize("B,T", [(37, 7), (3, 5), (512, 5), (200, 1)])
+@torch.no_grad()
+def test_broadcast_stylize_kernel_widths(dev, D, B, T):
+    """Kernel 7 on the cluster body at every width it takes (clusters of 1
+    to 4 CTAs), in row groups that split samples and a partial last group,
+    with masks of fractional values (the first sample wholly masked) and
+    all-zero masks, an AdaLN row per sample and one shared row."""
+    from ladiff_torch.ops.stylize import (broadcast_stylize_plain,
+                                          fused_broadcast_stylize)
+    w7 = _w7(dev, D)
+    x, value = _bf(dev, B * T, D), _bf(dev, B, D, seed=12)
+    frac = torch.rand(B * T, generator=torch.Generator().manual_seed(5))
+    frac[:T] = 0.0
+    for name, mask in (("fractional", frac), ("zero", torch.zeros(B * T))):
+        mask = mask.to(dev)
+        for rows in (B, 1):
+            ss = _bf(dev, rows, 2 * D, seed=13, scale=0.3)
+            got = fused_broadcast_stylize(x, value, mask, ss, *w7, T=T)
+            want = broadcast_stylize_plain(
+                x.float(), value.float(), mask, ss.float(),
+                *[t.float() for t in w7], T=T)
+            assert _relerr(got, want) <= TOL, (D, B, T, name, rows)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ the PyTorch port, on the CPU.
     hidden widths, rows per sample and sample counts.
   * The modules choose the route from those gates before any launch: at D
     256 ``StylizedFFN`` and the one-token ``LinearTemporalCrossAttention``
-    call the kernel wrappers; at D 512 neither, at D 96 only kernel 7's.
+    call the kernel wrappers; at D 512 and D 96 neither.
     The route is seen through the wrappers the module calls (the ``calls``
     fixture), on float32 CPU tensors and on bf16 ones taken for tensors on
     the card (``cuda_common.on_card`` patched, as
@@ -55,8 +55,8 @@ def _raises(check, *shape) -> bool:
 def test_gates_equal_the_wrappers_checks(D):
     """Each gate is true exactly where its wrapper's shape check passes;
     kernel 6 takes D 64..256 in steps of 64 with F a multiple of D within
-    the segment table and shared memory, kernel 7 D 32..256 in steps of
-    32."""
+    the segment table and shared memory, kernel 7 D 64..256 in steps of
+    64 (the cluster body's widths)."""
     from ladiff_torch.ops.stylize import (broadcast_stylize_supported,
                                           check_broadcast_stylize_shape)
     from ladiff_torch.ops.stylized_ffn import (check_stylized_ffn_shape,
@@ -76,7 +76,7 @@ def test_gates_equal_the_wrappers_checks(D):
                     k7 = broadcast_stylize_supported(M, T, D)
                     assert k7 != _raises(check_broadcast_stylize_shape, M,
                                          T, D)
-                    assert k7 == (D % 32 == 0 and D <= 256 and M % T == 0)
+                    assert k7 == (D % 64 == 0 and D <= 256 and M % T == 0)
     assert (taken > 0) == (D % 64 == 0 and D <= 256)
     # the published widths; the cluster body's shared memory and segment
     # table cap F: the FFN partials of F 2048 at D 256 do not fit
@@ -112,7 +112,7 @@ def _modules(D, H, F, seed):
 # D, heads, FFN width -> the wrappers the modules call
 _ROUTES = {(256, 4, 1024): {"fused_stylized_ffn": 1,
                             "fused_broadcast_stylize": 1},
-           (512, 8, 1024): {}, (96, 2, 192): {"fused_broadcast_stylize": 1}}
+           (512, 8, 1024): {}, (96, 2, 192): {}}
 
 
 @pytest.mark.parametrize("shape", sorted(_ROUTES))
