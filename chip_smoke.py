@@ -167,6 +167,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
             ``run_training`` for 2 epochs x 3 steps with no kernel launch,
             its loss on one batch against the CPU's, float32 ms per step
             beside the bf16 route's; stage 2 booting from it for 3 steps.
+16. eval_entry  the T2M evaluation protocol (``ladiff_torch.test``
+            ``run_test``) at the published stage-2 configuration from a
+            saved random checkpoint, with random CLIP and evaluators, on 512
+            synthetic clips: (a) float32 as published, card against CPU,
+            no kernel launch, metrics compared; (b) bf16, stage
+            ``diffusion``, launches per eval batch and per CLIP call
+            (``EXPECTED_EVAL_*``), embeddings against (a); (c) bf16, stage
+            ``vae``, launches per eval batch.  Seconds per eval batch, per
+            replication and per MultiModality pass.
 
 Then a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
 ``--only PHASE[,PHASE]`` runs the build and the named phases alone (a short
@@ -284,6 +293,25 @@ DIFF_LOSS_TOL = 1e-2
 # the same function, sums in another order
 FLOAT32_LOSS_TOL = 1e-3
 DIFF_GRAD_RATIO, DIFF_GRAD_FLOOR = 1.3, 2e-2
+# the evaluation protocol in bf16 (``eval_entry``): stage ``diffusion``
+# generates each eval batch as CFG DDIM-50 (the 2B guided rows through the
+# 9 MD layers as K1 each step) and decodes it through the 9 decoder layers
+# (K2); every CLIP call (once per batch of captions not yet cached) runs
+# the 12 CLIP layers as K3 and K4.  Stage ``vae`` encodes the ground truth
+# through the 9 encoder layers (kernel 10 the attention, kernel 5 the FFN
+# tail) and decodes it (K2).  Every other kernel launches no time there.
+EXPECTED_EVAL_PER_BATCH = {"fused_md_layer": 450, "fused_decoder_layer": 9}
+EXPECTED_EVAL_PER_CLIP_CALL = {"fused_ln_qkv": 12, "fused_proj_mlp": 12}
+EXPECTED_EVAL_VAE_PER_BATCH = {"fused_masked_attention": 9,
+                               "fused_postnorm_ffn": 9,
+                               "fused_decoder_layer": 9}
+# float32 on the card (plain routes, TF32 off) against the float32 CPU run
+# of the same checkpoint and noise: each metric within 1e-3 relative, FID
+# (a difference of traces of 512 x 512 covariances) within 1e-2; bf16
+# (kernels) against that float32 run: the generated motion's embeddings
+# within 1e-1 norm-wise (bf16 through 50 guided steps, as the generation
+# slices hold ``generate``)
+EVAL_METRIC_TOL, EVAL_FID_TOL, EVAL_BF16_TOL = 1e-3, 1e-2, 1e-1
 # the whole-layer route's stage-1 step: kernel 12 in each of the 9 encoder
 # layers and kernel 13 in each of the 9 decoder layers, forward and backward
 EXPECTED_WHOLE_LAYER_PER_STEP = {
@@ -299,7 +327,8 @@ PHASES = (("kernels", False), ("slice", False), ("bench", False),
           ("whole_layer_slice", True), ("gated_slice", True),
           ("train_bench", True), ("whole_layer_bench", True),
           ("diffusion_slice", True), ("diffusion_bench", True),
-          ("train_entry", True), ("float32_entry", True))
+          ("train_entry", True), ("float32_entry", True),
+          ("eval_entry", False))
 
 
 def emit(obj):
@@ -2733,6 +2762,240 @@ def phase_float32_entry(dev):
              "loss is not finite")
 
 
+class _ClipCalls:
+    """A text encoder that counts its calls (each runs K3 and K4 once per
+    CLIP layer in bf16 on the card)."""
+
+    def __init__(self, encoder):
+        self.encoder, self.calls = encoder, 0
+
+    def __call__(self, texts):
+        self.calls += 1
+        return self.encoder(texts)
+
+
+def phase_eval_entry(dev, gpu=""):
+    """The T2M evaluation protocol through ``ladiff_torch.test.run_test``,
+    the function ``python -m ladiff_torch.test`` calls, at the published
+    stage-2 configuration (``configs/config_ladiff_humanml3d.yaml``: d 256,
+    9 + 9 layers, CFG 7.5 DDIM-50, ``TEST.BATCH_SIZE`` 32) on 512 synthetic
+    clips (66 in the test split: batches of 32, 32 and 2), from a seeded
+    random system saved as a checkpoint and restored, random CLIP (seed 0)
+    and random evaluators (no ``finest.tar``).  Reduced:
+    ``REPLICATION_TIMES`` 2 (published 20), ``MM_NUM_SAMPLES`` 11
+    (published 100; the protocol computes MultiModality only above
+    ``MM_NUM_TIMES`` = 10 captions), ``MM_NUM_REPEATS`` 30 as published;
+    ``COUNT_TIME`` on.
+
+    (a) float32, as published: on the card and on the CPU, the same
+    checkpoint and seed, no kernel launch; each metric within
+    ``EVAL_METRIC_TOL`` relative, FID within ``EVAL_FID_TOL``.  (b) bf16
+    (``TRAIN.MIXED_PRECISION``), stage ``diffusion``: launches exactly
+    ``EXPECTED_EVAL_PER_BATCH`` per eval batch (the MultiModality pass's
+    included) and ``EXPECTED_EVAL_PER_CLIP_CALL`` per CLIP call, no other
+    kernel; the generated motion's embeddings within ``EVAL_BF16_TOL`` of
+    (a)'s; every metric finite.  (c) bf16, stage ``vae``
+    (``configs/config_vae_humanml3d.yaml`` from the same checkpoint):
+    ``EXPECTED_EVAL_VAE_PER_BATCH`` per eval batch.  Prints the seconds per
+    eval batch, per replication and per MultiModality pass of each run with
+    the card's name and power limit, and for each run on the card its
+    first eval batch again after the run: device ms by kernel (profiler)
+    and the idle share against its host ms."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+    from ladiff_torch import test as entry
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.data.datamodule import get_datasets
+    from ladiff_torch.data.synthetic import generate_synthetic_dataset
+    from ladiff_torch.evaluation import t2m_eval
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.loop import build_system, build_text_encoder
+    from ladiff_torch.utils.checkpoint import save_checkpoint
+    from ladiff_torch.utils.logger import create_logger
+
+    tmp = tempfile.mkdtemp(prefix="ladiff_eval_entry_")
+    configs = os.path.join(HERE, "configs")
+    assets = os.path.join(configs, "assets.yaml")
+    ckpt_dir = os.path.join(tmp, "checkpoints")
+    t_start = time.perf_counter()
+    real_step = t2m_eval.eval_step
+    seen = {"batches": 0, "lat_rm": []}
+
+    def counted_step(*args, **kw):
+        out = real_step(*args, **kw)
+        seen["batches"] += 1
+        seen["lat_rm"].append(out["lat_rm"].float().cpu())
+        if seen["batches"] == 1:
+            seen["first"] = (args, kw)
+        return out
+
+    def step_breakdown():
+        """The run's first eval batch (32 samples) again, after the run and
+        its counts: host ms per call (3 calls, a sync each), device ms by
+        kernel from the profiler, the idle share between them."""
+        args, kw = seen.pop("first")
+
+        def call():
+            real_step(*args, **kw)
+            torch.cuda.synchronize()
+
+        call()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            call()
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        rows = launch_breakdown(call, reps=2)
+        device = sum(r["ms"] for r in rows)
+        return {"host_ms": host_ms, "device_ms": device,
+                "idle_share": 1.0 - device / host_ms, "kernels": rows[:8]}
+
+    class Spans(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.spans = {"replication": [], "mm_pass": []}
+
+        def emit(self, record):
+            if hasattr(record, "span"):
+                self.spans[record.span].append(record.seconds)
+
+    t2m_eval.eval_step = counted_step
+    try:
+        data = generate_synthetic_dataset(os.path.join(tmp, "humanml3d"),
+                                          n_clips=512, seed=0)
+        base = {"DEBUG": False, "FOLDER": os.path.join(tmp, "experiments"),
+                "DATASET": {"HUMANML3D": {"ROOT": data}},
+                "TEST": {"REPLICATION_TIMES": 2, "MM_NUM_SAMPLES": 11,
+                         "COUNT_TIME": True, "CHECKPOINTS": ckpt_dir},
+                "model": {"t2m_path": os.path.join(tmp, "t2m")},
+                "LOGGER": {"TENSORBOARD": False}}
+
+        def config(name, exp, mixed):
+            over = {**base, "NAME": exp,
+                    "TRAIN": {"MIXED_PRECISION": mixed}}
+            return assemble_config(os.path.join(configs, name), assets, over)
+
+        cfg32 = config("config_ladiff_humanml3d.yaml", "eval_f32_card", False)
+        dm = get_datasets(cfg32, phase="test")[0]
+        n_test = len(dm.dataset("test"))
+        system = randomize_(build_system(cfg32, dm, device="cpu"), 13)
+        save_checkpoint(ckpt_dir, 1, system.state_dict())
+        del system
+
+        def run(cfg, device):
+            spans = Spans()
+            logger = create_logger(cfg, phase="test")
+            logger.addHandler(spans)
+            enc = _ClipCalls(build_text_encoder(cfg, device))
+            seen.update(batches=0, lat_rm=[])
+            cc.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = entry.run_test(cfg, logger, text_encoder=enc,
+                                     device=device)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = cc.launch_counts()
+            with open(os.path.join(cfg.FOLDER_EXP, "times.txt")) as f:
+                batch_s = [float(line) for line in f]
+            on_card = torch.device(device).type == "cuda"
+            return {"summary": summary, "counts": counts,
+                    "breakdown": step_breakdown() if on_card else None,
+                    "eval_batches": seen["batches"],
+                    "clip_calls": enc.calls,
+                    "lat_rm": torch.cat(seen["lat_rm"]),
+                    "batch_s": batch_s,
+                    "replication_s": spans.spans["replication"],
+                    "mm_pass_s": spans.spans["mm_pass"], "seconds": secs}
+
+        f32_card = run(cfg32, dev)
+        f32_cpu = run(config("config_ladiff_humanml3d.yaml", "eval_f32_cpu",
+                             False), "cpu")
+        bf16 = run(config("config_ladiff_humanml3d.yaml", "eval_bf16", True),
+                   dev)
+        vae = run(config("config_vae_humanml3d.yaml", "eval_vae_bf16", True),
+                  dev)
+    finally:
+        t2m_eval.eval_step = real_step
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    card, cpu = f32_card["summary"], f32_cpu["summary"]
+    f32_errs = {k: abs(card[k][0] - cpu[k][0]) / max(abs(cpu[k][0]), 1e-12)
+                for k in cpu if k in card}
+
+    def public(r):
+        return {"launches": {k: v for k, v in r["counts"].items() if v},
+                "eval_batches": r["eval_batches"],
+                "clip_calls": r["clip_calls"],
+                "seconds_per_eval_batch": r["batch_s"],
+                "seconds_per_replication": r["replication_s"],
+                "seconds_per_mm_pass": r["mm_pass_s"],
+                "seconds": r["seconds"], "batch_breakdown": r["breakdown"],
+                "metrics": {k: v[0] for k, v in r["summary"].items()}}
+
+    rec = {"phase": "eval_entry", "gpu": gpu, "test_clips": n_test,
+           "replications": 2, "mm_num_samples": 11, "mm_num_repeats": 30,
+           "float32_card": public(f32_card), "float32_cpu": public(f32_cpu),
+           "bf16_diffusion": public(bf16), "bf16_vae": public(vae),
+           "float32_metric_rel_err": f32_errs,
+           "float32_lat_rm_rel_err": relerr(f32_card["lat_rm"],
+                                            f32_cpu["lat_rm"]),
+           "bf16_lat_rm_rel_err": relerr(bf16["lat_rm"], f32_card["lat_rm"]),
+           "seconds": time.perf_counter() - t_start}
+    emit(rec)
+    for name, r in (("float32 card", f32_card), ("float32 CPU", f32_cpu),
+                    ("bf16 diffusion", bf16), ("bf16 vae", vae)):
+        main_s = r["batch_s"]
+        print(f"# eval_entry {name}: {sum(main_s) / len(main_s):.4f} s per "
+              f"eval batch ({len(main_s)} batches of up to 32), "
+              + ", ".join(f"{t:.3f}" for t in r["replication_s"])
+              + " s per replication, "
+              + (("MultiModality pass " + ", ".join(
+                  f"{t:.3f}" for t in r["mm_pass_s"]) + " s")
+                 if r["mm_pass_s"] else "no MultiModality pass")
+              + f"; {gpu}", flush=True)
+        b = r["breakdown"]
+        if b:
+            print(f"# eval_entry {name}: one batch of 32 again: "
+                  f"{b['device_ms']:.2f} device ms in {b['host_ms']:.2f} ms "
+                  f"(idle {b['idle_share']:.0%}); "
+                  + ", ".join(f"{k['kernel'][:40]} {k['ms']:.2f}"
+                              for k in b["kernels"][:4]), flush=True)
+
+    if sorted(card) != sorted(cpu) or not {"FID", "MultiModality",
+                                           "R_precision_top_1"} <= set(card):
+        fail(f"eval_entry: metrics {sorted(card)} on the card, {sorted(cpu)} "
+             "on the CPU")
+    for k, err in f32_errs.items():
+        if err > (EVAL_FID_TOL if k == "FID" else EVAL_METRIC_TOL):
+            fail(f"eval_entry: float32 {k}: {card[k][0]} on the card, "
+                 f"{cpu[k][0]} on the CPU (rel err {err})")
+    for name, r in (("float32 card", f32_card), ("float32 CPU", f32_cpu)):
+        if any(r["counts"].values()):
+            fail(f"eval_entry: {name} launched kernels: "
+                 f"{public(r)['launches']}")
+    for name, r, per_batch in (("bf16 diffusion", bf16,
+                                EXPECTED_EVAL_PER_BATCH),
+                               ("bf16 vae", vae, EXPECTED_EVAL_VAE_PER_BATCH)):
+        want = {k: n * r["eval_batches"] for k, n in per_batch.items()}
+        want.update({k: n * r["clip_calls"]
+                     for k, n in EXPECTED_EVAL_PER_CLIP_CALL.items()})
+        got = {k: v for k, v in r["counts"].items() if v}
+        if got != want:
+            fail(f"eval_entry: {name}: launches {got}, expected {want} "
+                 f"({r['eval_batches']} eval batches, {r['clip_calls']} CLIP "
+                 "calls)")
+        if not all(math.isfinite(m) and math.isfinite(c)
+                   for m, c in r["summary"].values()):
+            fail(f"eval_entry: {name}: a metric is not finite")
+    if rec["bf16_lat_rm_rel_err"] > EVAL_BF16_TOL:
+        fail(f"eval_entry: bf16 generated motion's embeddings "
+             f"{rec['bf16_lat_rm_rel_err']} away from float32's")
+    return rec
+
+
 def phase_whole_layer_bench(dev):
     """``train_bench``'s ``vae_train`` protocol (batch 128, dropout 0.1) on
     the split route (kernels 8 and 9) and the whole-layer route (kernels
@@ -3075,7 +3338,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    phase_build()
+    gpu = phase_build()
     unknown = set(only) - {name for name, _ in PHASES}
     if unknown:
         fail(f"no phase {sorted(unknown)}")
@@ -3085,7 +3348,7 @@ def main():
             continue
         # the route bench prints the default route's samples/s beside its own
         args = ((out["bench"][1],) if name == "route_bench" and "bench" in out
-                else ())
+                else (gpu,) if name == "eval_entry" else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)
     if only:

@@ -10,6 +10,8 @@ the same weights.
 
     system_state_dict({"vae": ..., "denoiser": ...})  -> LADiffSystem
     clip_state_dict(tower_params)                     -> CLIPTextTower
+    evaluator_state_dict(evaluator_params)            -> the three T2M
+                                                         evaluator encoders
     flax_state_dict(tree, prefix)                     -> any subtree, also
                                                          a gradient tree
 
@@ -27,7 +29,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["system_state_dict", "clip_state_dict", "flax_state_dict"]
+__all__ = ["system_state_dict", "clip_state_dict", "flax_state_dict",
+           "evaluator_state_dict"]
 
 # flax submodule names "input_blocks_0" / "emb_layers_1" -> torch "input_blocks.0"
 _INDEXED = re.compile(
@@ -97,3 +100,42 @@ def clip_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             flax_state_dict(layer[ours], f"{pre}encoder.layers.{i}.{theirs}.", out)
         i += 1
     return out
+
+
+def evaluator_state_dict(params: Mapping[str, Any]
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``ladiff_tpu`` ``T2MEvaluator.params`` ({"text", "movement",
+    "motion"}) -> the state dicts of the port's ``TextEncoderBiGRUCo``,
+    ``MovementConvEncoder`` and ``MotionEncoderBiGRUCo``, under the same
+    keys (the inverse of ``ladiff_tpu/models/evaluators.py``
+    ``load_t2m_checkpoint``: flax conv kernels [K, in, out] become
+    ``Conv1d`` weights [out, in, K], the GRU's direction leaves
+    ``gru_fwd_*`` / ``gru_bwd_*`` become ``gru.*_l0`` / ``gru.*_l0_reverse``).
+    """
+    def bigru(p):
+        out = {"hidden": _t(p["hidden"])}
+        for name in ("input_emb", "pos_emb", "output_net_0", "output_net_1",
+                     "output_net_3"):
+            if name in p:
+                flax_state_dict(p[name], name.replace("output_net_",
+                                                      "output_net.") + ".",
+                                out)
+        for ours, theirs in (("gru_fwd", "l0"), ("gru_bwd", "l0_reverse")):
+            for leaf in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                kind = "weight" if leaf[0] == "w" else "bias"
+                out[f"gru.{kind}_{leaf[2:]}_{theirs}"] = _t(
+                    p[f"{ours}_{leaf}"])
+        return out
+
+    def conv(p):
+        k = np.asarray(p["kernel"], np.float32).transpose(2, 1, 0)
+        return torch.from_numpy(np.ascontiguousarray(k)), _t(p["bias"])
+
+    move = params["movement"]
+    movement = {}
+    for ours, theirs in (("conv1", "main.0"), ("conv2", "main.3")):
+        movement[theirs + ".weight"], movement[theirs + ".bias"] = conv(
+            move[ours])
+    flax_state_dict(move["out_net"], "out_net.", movement)
+    return {"text": bigru(params["text"]), "movement": movement,
+            "motion": bigru(params["motion"])}

@@ -211,6 +211,17 @@ class LADiffSystem(nn.Module):
             feats = feats * self.std.float() + self.mean.float()
         return recover_from_ric(feats, self.njoints)
 
+    def renorm4t2m(self, feats: torch.Tensor, mean_eval,
+                   std_eval) -> torch.Tensor:
+        """Features normalized by the training stats -> normalized by the
+        T2M evaluators' (reference HumanML3D.py:57-65), in float32."""
+        feats = feats.float() * self.std.float() + self.mean.float()
+        mean_eval = torch.as_tensor(mean_eval, dtype=torch.float32,
+                                    device=feats.device)
+        std_eval = torch.as_tensor(std_eval, dtype=torch.float32,
+                                   device=feats.device)
+        return (feats - mean_eval) / std_eval
+
     @torch.no_grad()
     def diffusion_reverse(self, text_emb_cond: torch.Tensor,
                           text_emb_uncond: torch.Tensor,

@@ -1486,3 +1486,77 @@ def test_route_kernels_refuse_a_required_gradient(dev):
     out.float().sum().backward()
     assert layer.ffn.linear1.weight.grad is not None
     assert layer.ca_block.proj_out.out_layers[2].weight.grad is not None
+
+
+# the evaluation step at batch 4 in bf16: the kernels of its stage, each
+# the number of times the stage's layers call it, and no other
+EVAL_STEP_LAUNCHES = {
+    "diffusion": {"fused_md_layer": 450, "fused_decoder_layer": 9},
+    "vae": {"fused_masked_attention": 9, "fused_postnorm_ffn": 9,
+            "fused_decoder_layer": 9}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["diffusion", "vae"])
+def test_eval_step_on_the_gpu(dev, stage):
+    """``evaluation.t2m_eval.eval_step`` at the published width (d 256,
+    9 + 9 layers, CFG 7.5 DDIM-50) at batch 4 with mixed lengths and the
+    same random weights, evaluators and noise on each run: in bf16 it
+    launches ``EVAL_STEP_LAUNCHES[stage]``; in float32 (the published
+    compute) no kernel, and every output within 1e-3 norm-wise of the
+    CPU's (the same function, sums in another order)."""
+    import os
+    import types
+
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.evaluation.t2m_eval import T2MEvaluator, eval_step
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.loop import build_system
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    name = ("config_vae_humanml3d.yaml" if stage == "vae"
+            else "config_ladiff_humanml3d.yaml")
+    rng = np.random.RandomState(0)
+    dm = types.SimpleNamespace(
+        nfeats=263, njoints=22,
+        mean=(0.1 * rng.randn(263)).astype(np.float32),
+        std=(0.5 + rng.rand(263)).astype(np.float32))
+    stats = {"mean_eval": (0.1 * rng.randn(263)).astype(np.float32),
+             "std_eval": (0.5 + rng.rand(263)).astype(np.float32)}
+    lengths = [40, 196, 97, 64]
+    motion = rng.randn(4, 196, 263).astype(np.float32)
+    for i, n in enumerate(lengths):
+        motion[i, n:] = 0.0
+    g = torch.Generator().manual_seed(1)
+    batch = {"motion": torch.from_numpy(motion),
+             "length": torch.tensor(lengths),
+             "word_embs": torch.randn(4, 22, 300, generator=g),
+             "pos_ohot": torch.rand(4, 22, 15, generator=g),
+             "text_len": torch.tensor([5, 22, 9, 12])}
+    cond = torch.randn(4, 1, 768, generator=g)
+    uncond = 0.1 * torch.randn(4, 1, 768, generator=g)
+    noise = torch.randn(4, 5, 256, generator=g)
+    outs = {}
+    for mixed, device in ((True, dev), (False, dev), (False, "cpu")):
+        cfg = assemble_config(
+            os.path.join(repo, "configs", name),
+            os.path.join(repo, "configs", "assets.yaml"),
+            overrides={"TRAIN": {"MIXED_PRECISION": mixed}})
+        system = _randomize(build_system(cfg, dm, device=device), 3)
+        ev = T2MEvaluator.random_init(263, torch.Generator().manual_seed(0),
+                                      device)
+        cc.reset_launch_counts()
+        out = eval_step(system, ev, batch, cond, uncond, stage, **stats,
+                        **{"init_latents" if stage == "diffusion" else "eps":
+                           noise})
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cc.launch_counts().items() if v}
+        outs[mixed, str(device)] = ({k: v.float().cpu()
+                                     for k, v in out.items()}, launches)
+    bf16, launches = outs[True, str(dev)]
+    assert launches == EVAL_STEP_LAUNCHES[stage]
+    assert all(bool(torch.isfinite(v).all()) for v in bf16.values())
+    card, launches = outs[False, str(dev)]
+    cpu, _ = outs[False, "cpu"]
+    assert not launches
+    errs = {k: _relerr(card[k], cpu[k]) for k in cpu}
+    assert max(errs.values()) <= 1e-3, errs
