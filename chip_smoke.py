@@ -72,6 +72,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
             samples/s beside phase 4's.  Phase 4 and each of these routes
             end with one profiled batch of their route
             (``bench.breakdown``: device time by kernel group, idle share).
+   novae_slice  feature-space diffusion (``configs/config_novae_humanml3d
+            .yaml``: no VAE, the plain 9-layer skip denoiser at d 512 over
+            198 tokens) at full width, batch 4, lengths 16/60/123/196, CFG
+            DDPM over 10 steps of the 1000-step grid with every step's
+            noise handed in: float32 card against float32 CPU (no launch),
+            bf16 card against it beside the plain bf16 CPU control, kernel
+            10 exactly 9 times a step and nothing else.
+   novae_bench  the same configuration in bf16 at its ``TEST.BATCH_SIZE``
+            of 32 over the published 1000 DDPM steps after a 50-step
+            warm-up: seconds a batch, samples/s, 9000 launches of kernel
+            10 a batch; a profiled 50-step window (device ms by group, idle
+            share); kernel 10 alone at 64 x 198 tokens, D 512, head width
+            128, unmasked, against its plain version, with SDPA's time.
 
 5. train_kernels  ``train_gemm_products``: each product of kernels 8
             and 12 on the GEMM block alone (q / k / v, the out-projection
@@ -161,7 +174,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
             configuration: 2 epochs x 3 steps with a checkpoint per epoch,
             a resume, stage 2 booting the VAE from those checkpoints,
             ``ladiff_torch.demo``; launch counts per step, losses, the
-            demo's joints.
+            demo's joints; the demo's other options on the card with their
+            launch counts (``EXPECTED_DEMO``: ``random_latent``,
+            ``reconstruction``, ``--latentwise_gen fw`` / ``bw``, the
+            decode with the cross-attention weights against the float32
+            CPU's); the novae configuration as published (float32) for 3
+            steps with no launch.
 15. float32_entry  the published configurations unmodified (float32
             compute: every module's plain route): stage 1 through
             ``run_training`` for 2 epochs x 3 steps with no kernel launch,
@@ -174,12 +192,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
             no kernel launch, metrics compared; (b) bf16, stage
             ``diffusion``, launches per eval batch and per CLIP call
             (``EXPECTED_EVAL_*``), embeddings against (a); (c) bf16, stage
-            ``vae``, launches per eval batch.  Seconds per eval batch, per
+            ``vae``, launches per eval batch; (d) the novae configuration
+            as published (float32), one replication at 50 DDPM steps (1000
+            published), no launch.  Seconds per eval batch, per
             replication and per MultiModality pass.
 
-Then a ``kernels`` line, and last ``{"ok": true, "device": {...}}``.
+Then a ``kernels`` line (kernel 10 twice: on the frozen encode's path and
+on the novae path, launches a DDPM-1000 batch), and last ``{"ok": true,
+"device": {...}}``.
 ``--only PHASE[,PHASE]`` runs the build and the named phases alone (a short
-check of a new kernel) and prints no ``ok`` line.
+check of a new kernel, or ``--only novae_slice,novae_bench``) and prints no
+``ok`` line.
 Imports nothing of JAX; needs one CUDA device.
 """
 from __future__ import annotations
@@ -319,10 +342,33 @@ EXPECTED_WHOLE_LAYER_PER_STEP = {
     "train_decoder_layer": 9, "train_decoder_layer_bwd": 9,
     "train_self_attention": 0, "train_self_attention_bwd": 0,
     "train_postnorm_ffn": 0, "train_postnorm_ffn_bwd": 0}
+# feature-space diffusion (the novae configuration): each denoising step
+# runs the 9 plain encoder layers' self-attention over 198 tokens (time,
+# text, 196 frames) at head width 128 as kernel 10; d 512 is past kernel
+# 5's FFN-tail gate, so the tails are plain ops, and nothing else launches
+EXPECTED_NOVAE_PER_STEP = {"fused_masked_attention": 9}
+EXPECTED_NOVAE_PER_BATCH = {"fused_masked_attention": 9000}
+NOVAE_PATH = ("novae denoiser self-attention, 64 x 198 tokens, D 512, "
+              "H 4 (head width 128), no mask")
+# the demo's other options on the published stage-2 configuration (bf16 on
+# the card): every decode is the 9 decoder layers as K2; the
+# reconstruction's encode runs the 9 encoder layers (kernel 10, kernel 5);
+# a decode that returns the cross-attention weights runs per block
+# (kernel 10 the self-attention, kernel 5 the tail, the plain
+# cross-attention)
+EXPECTED_DEMO = {
+    "random_latent": {"fused_decoder_layer": 9},
+    "reconstruction": {"fused_decoder_layer": 9, "fused_masked_attention": 9,
+                       "fused_postnorm_ffn": 9},
+    "latentwise_fw": {"fused_decoder_layer": 9},
+    "latentwise_bw": {"fused_decoder_layer": 9},
+    "decode_with_weights": {"fused_masked_attention": 9,
+                            "fused_postnorm_ffn": 9}}
 # the phases in the order they run, each with whether autograd records
 PHASES = (("kernels", False), ("slice", False), ("bench", False),
           ("route_kernels", False), ("route_slice", False),
-          ("route_bench", False), ("train_kernels", False),
+          ("route_bench", False), ("novae_slice", False),
+          ("novae_bench", False), ("train_kernels", False),
           ("whole_layer_kernels", False), ("train_slice", True),
           ("whole_layer_slice", True), ("gated_slice", True),
           ("train_bench", True), ("whole_layer_bench", True),
@@ -1316,6 +1362,226 @@ def phase_route_bench(dev, default_sps=None):
     emit({"phase": "routes_samples_per_sec", "batch": bench.BATCH,
           "steps": bench.STEPS, "samples_per_sec": sps})
     return {"counts": counts_all, "per_batch": per_batch_all}
+
+
+def _novae_config():
+    """``configs/config_novae_humanml3d.yaml`` as published."""
+    from ladiff_torch.config import assemble_config
+    configs = os.path.join(HERE, "configs")
+    return assemble_config(os.path.join(configs,
+                                        "config_novae_humanml3d.yaml"),
+                           os.path.join(configs, "assets.yaml"))
+
+
+def _novae_system(device, dtype=None, seed=31, state=None):
+    """The published novae system (d 512, 9 plain layers, no VAE) on
+    ``device``: random weights from ``seed`` (the zero-init projections
+    too), or ``state``."""
+    from ladiff_torch.models.ladiff import LADiffSystem
+    system = LADiffSystem.from_cfg(_novae_config(), nfeats=263, njoints=22,
+                                   device=device, dtype=dtype)
+    if state is None:
+        return randomize_(system, seed)
+    system.load_state_dict(state, strict=True)
+    return system
+
+
+def phase_novae_slice(dev):
+    """Feature-space diffusion (the novae family) at the published
+    configuration's full width, random weights: batch 4, lengths 16 / 60 /
+    123 / 196, CFG 7.5 DDPM over 10 steps of the 1000-step grid, the
+    initial frames handed in and every step's noise replayed through a
+    patched ``torch.randn``.  float32 on the card (every plain route)
+    against float32 on the CPU within ``FLOAT32_LOSS_TOL``, with no launch; bf16 on the card (kernel 10 the
+    self-attention of each of the 9 layers) against the float32 CPU run,
+    norm-wise, held to ``DIFF_GRAD_RATIO`` times the plain bf16 CPU
+    control's error (or ``DIFF_GRAD_FLOOR``), with exactly
+    ``EXPECTED_NOVAE_PER_STEP`` launches a step and none of any other
+    kernel; padded frames exactly zero."""
+    from unittest import mock
+
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+
+    B, steps = 4, 10
+    lengths = torch.tensor([16, 60, 123, 196])
+    g = torch.Generator().manual_seed(9)
+    cond = torch.randn(B, 1, 768, generator=g)
+    uncond = 0.1 * torch.randn(B, 1, 768, generator=g)
+    init = torch.randn(B, 196, 263, generator=g)
+    noise = torch.randn(steps, B, 196, 263, generator=g)
+    cpu = _novae_system("cpu", torch.float32)
+    state = cpu.state_dict()
+
+    def run(system, on_card):
+        # the sampler's per-step draws replayed in order, each on the
+        # device and in the dtype it asks for
+        draws = list(noise)
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(torch, "randn", lambda *a, **k: draws.pop(
+                0).to(device=k["device"], dtype=k["dtype"])):
+            z, _ = system.generate(cond, uncond, lengths, init_latents=init,
+                                   num_inference_timesteps=steps)
+        if on_card:
+            torch.cuda.synchronize()
+        if draws:
+            fail(f"novae_slice: {len(draws)} of the {steps} step draws "
+                 "unused")
+        return (z.float().cpu(), time.perf_counter() - t0,
+                {k: v for k, v in cc.launch_counts().items() if v})
+
+    want, cpu_s, _ = run(cpu, False)
+    del cpu
+    ctl, ctl_s, _ = run(_novae_system("cpu", torch.bfloat16, state=state),
+                        False)
+    f32, f32_s, f32_counts = run(_novae_system(dev, torch.float32,
+                                               state=state), True)
+    bf16, bf16_s, bf16_counts = run(_novae_system(dev, state=state), True)
+    ctl_err = relerr(ctl, want)
+    bf16_tol = max(DIFF_GRAD_RATIO * ctl_err, DIFF_GRAD_FLOOR)
+    want_counts = {k: n * steps for k, n in EXPECTED_NOVAE_PER_STEP.items()}
+    rec = {"phase": "novae_slice", "batch": B, "steps": steps,
+           "lengths": lengths.tolist(),
+           "float32_rel_err": relerr(f32, want), "float32_tol":
+           FLOAT32_LOSS_TOL, "float32_launches": f32_counts,
+           "bf16_rel_err": relerr(bf16, want),
+           "bf16_control_rel_err": ctl_err, "bf16_tol": bf16_tol,
+           "bf16_launches": bf16_counts,
+           "padded_frames_zero": all(
+               not bool(z[i, n:].any()) for z in (f32, bf16)
+               for i, n in enumerate(lengths.tolist())),
+           "finite": bool(torch.isfinite(bf16).all()),
+           "seconds": {"cpu_float32": cpu_s, "cpu_bf16_control": ctl_s,
+                       "card_float32": f32_s, "card_bf16": bf16_s}}
+    emit(rec)
+    if rec["float32_rel_err"] > FLOAT32_LOSS_TOL or f32_counts:
+        fail(f"novae_slice: float32 on the card {rec['float32_rel_err']} "
+             f"from the CPU, launches {f32_counts}")
+    if not (rec["bf16_rel_err"] <= bf16_tol and rec["finite"]
+            and rec["padded_frames_zero"]):
+        fail(f"novae_slice: bf16 {rec['bf16_rel_err']} from float32 "
+             f"(control {ctl_err}), finite={rec['finite']}, padded frames "
+             f"zero={rec['padded_frames_zero']}")
+    if bf16_counts != want_counts:
+        fail(f"novae_slice: launches {bf16_counts}, expected {want_counts}")
+
+
+# device-time groups of a novae denoising step (profiler kernel names)
+NOVAE_GROUPS = (
+    ("fused_masked_attention (kernel 10)", r"attn_tile_kernel"),
+    ("library GEMMs", r"gemm|cutlass|nvjet|cublas|xmma"),
+    ("LayerNorm (plain FFN tail, skip stack)", r"layer_norm|LayerNorm"),
+    ("GELU (plain FFN tail)", r"gelu|GeluCUDA"),
+    ("memcpy and memset", r"[Mm]emcpy|[Mm]emset"),
+    ("other ATen kernels (sampler, CFG, adds, casts, concat)", r""),
+)
+
+
+def phase_novae_bench(dev, gpu=""):
+    """The novae configuration's generation at full width in bf16: batch
+    32 (its ``TEST.BATCH_SIZE``), lengths 16..196, CFG 7.5 DDPM over the
+    published 1000 steps; one warm-up batch of 50 steps, then 2 timed
+    batches (host clock, a sync each): seconds a batch, samples/s, and
+    exactly ``EXPECTED_NOVAE_PER_BATCH`` launches a batch.  A 50-step
+    window profiled (device ms by group, ``NOVAE_GROUPS``) against the same
+    window unprofiled (the idle share).  Kernel 10 alone at the path's
+    shape, 64 x 198 tokens, D 512, 4 heads (head width 128), no mask:
+    against its float32 plain version, timed beside its plain bf16
+    version and SDPA.  Returns (kernel 10's record, launches a batch)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
+                                                   masked_attention_plain)
+
+    B, batches, steps = 32, 2, 1000
+    system = _novae_system(dev)
+    lengths = mixed_lengths(B, seed=3).to(dev)
+    g = torch.Generator().manual_seed(11)
+    cond = torch.randn(B, 1, 768, generator=g).to(dev)
+    uncond = torch.zeros(B, 1, 768, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def window(n):
+        return system.generate(cond, uncond, lengths, generator=gen,
+                               num_inference_timesteps=n)[0]
+
+    window(50)
+    torch.cuda.synchronize()
+    cc.reset_launch_counts()
+    secs, finite = [], True
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        z = window(steps)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(z).all())
+    total = {k: v for k, v in cc.launch_counts().items() if v}
+    counts = {k: v // batches for k, v in total.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window(50)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window(50)
+        torch.cuda.synchronize()
+    groups = {name: 0.0 for name, _ in NOVAE_GROUPS}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0:
+            name = next(n for n, pat in NOVAE_GROUPS if re.search(pat, ev.key))
+            groups[name] += us / 1e3
+    window_ms = sum(groups.values())
+    rec = {"phase": "novae_bench", "gpu": gpu, "batch": B, "steps": steps,
+           "seconds_per_batch": secs,
+           "samples_per_sec": [B / s for s in secs],
+           "launches_per_batch": counts, "finite": finite,
+           "window_steps": 50, "window_host_ms": host_ms,
+           "window_device_ms": window_ms,
+           "idle_share": 1.0 - window_ms / host_ms,
+           "window_device_ms_by_group": groups}
+    emit(rec)
+    print(f"# novae_bench: {sum(secs) / batches:.3f} s a batch of {B} "
+          f"({B * batches / sum(secs):.2f} samples/s), 50 steps "
+          f"{window_ms:.1f} device ms in {host_ms:.1f} ms (idle "
+          f"{rec['idle_share']:.0%}); {gpu}", flush=True)
+    if not finite:
+        fail("novae_bench: non-finite frames")
+    if window_ms <= 0:
+        fail("novae_bench: the profiler recorded no device time")
+    if total != {k: n * batches for k, n in EXPECTED_NOVAE_PER_BATCH.items()}:
+        fail(f"novae_bench: launches in {batches} batches {total}, expected "
+             f"{EXPECTED_NOVAE_PER_BATCH} a batch")
+    del system
+
+    # kernel 10 alone at the path's shape: the 2 x 32 guided rows of 198
+    # tokens (time, text, 196 frames), every key valid
+    S, D, H = 198, 512, 4
+    rg = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn(2 * B, S, D, generator=rg, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    heads = lambda a: a.reshape(2 * B, S, H, D // H).transpose(1, 2)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    plain_f32_ms = device_ms(
+        lambda: masked_attention_plain(qf, kf, vf, None, num_heads=H))
+    del qf, kf, vf
+    k10 = check_kernel(
+        "fused_masked_attention", "ladiff_torch/csrc/masked_attention.cu",
+        "ladiff_tpu/ops/pallas_attention.py:52",
+        lambda: fused_masked_attention(q, k, v, None, num_heads=H),
+        lambda: masked_attention_plain(q.float(), k.float(), v.float(),
+                                       None, num_heads=H),
+        lambda: masked_attention_plain(q, k, v, None, num_heads=H),
+        4 * D * S * S * 2 * B, nbytes(q, k, v, q),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            heads(q), heads(k), heads(v)),
+        extra={"path": NOVAE_PATH, "plain_float32_ms": plain_f32_ms})
+    k10["path"] = NOVAE_PATH
+    return k10, counts
 
 
 def phase_train_kernels(dev):
@@ -2497,8 +2763,11 @@ def phase_train_entry(dev):
     per epoch, a resume that runs epoch 2 (``END_EPOCH`` 3); then stage 2
     (``configs/config_ladiff_humanml3d.yaml``, batch 128) booting the VAE
     from that checkpoint directory, 3 steps; then ``ladiff_torch.demo``'s
-    main on the stage-2 checkpoint for the 3 default examples.  Returns the
-    launch counts of the stage-1 runs."""
+    main on the stage-2 checkpoint for the 3 default examples, and each of
+    its other options once (``demo_options``); then the novae
+    configuration (``configs/config_novae_humanml3d.yaml``, float32 as
+    published, batch 64) for 3 steps with no launch and a checkpoint
+    without ``vae.*``.  Returns the launch counts of the stage-1 runs."""
     import shutil
     import tempfile
 
@@ -2561,6 +2830,20 @@ def phase_train_entry(dev):
             overrides={**base, "TEST": {"CHECKPOINTS": ckpt2}})
         joints = [np.load(os.path.join(out_dir, f"sample_{i:03d}.npy"))
                   for i in range(len(demo.DEFAULT_EXAMPLES))]
+        demo_rec = _demo_options(dev, tmp, base, ckpt2)
+        over = {**base, "TRAIN": {"END_EPOCH": 1}}
+        cfg_n = assemble_config(os.path.join(
+            configs, "config_novae_humanml3d.yaml"), assets, over)
+        cc.reset_launch_counts()
+        ckpt_n = run_training(cfg_n, get_datasets(cfg_n, phase="train")[0],
+                              create_logger(cfg_n, phase="train"),
+                              max_steps_per_epoch=3, device=dev)
+        torch.cuda.synchronize()
+        novae_counts = {k: v for k, v in cc.launch_counts().items() if v}
+        en, sdn = load_checkpoint(latest_checkpoint(ckpt_n)[1])
+        with open(os.path.join(cfg_n.FOLDER_EXP, "metrics.jsonl")) as f:
+            novae_losses = [json.loads(line)["train/diffusion/total"]
+                            for line in f]
         rec = {"phase": "train_entry", "batch_stage1": cfg1.TRAIN.BATCH_SIZE,
                "batch_stage2": cfg2.TRAIN.BATCH_SIZE,
                "checkpoints_stage1": files,
@@ -2576,6 +2859,10 @@ def phase_train_entry(dev):
                "joints_shapes": [list(j.shape) for j in joints],
                "joints_finite": all(bool(np.isfinite(j).all())
                                     for j in joints),
+               "demo_options": demo_rec,
+               "novae": {"batch": cfg_n.TRAIN.BATCH_SIZE, "epoch": en,
+                         "losses": novae_losses, "launches": novae_counts,
+                         "vae_keys": sum(k.startswith("vae.") for k in sdn)},
                "seconds": time.perf_counter() - t_start}
         emit(rec)
     finally:
@@ -2601,7 +2888,96 @@ def phase_train_entry(dev):
     if rec["joints_shapes"] != want_shapes or not rec["joints_finite"]:
         fail(f"train_entry: demo joints {rec['joints_shapes']}, finite="
              f"{rec['joints_finite']}")
+    n = rec["novae"]
+    if (n["launches"] or n["vae_keys"] or n["epoch"] != 1
+            or not n["losses"] or not all(map(math.isfinite, n["losses"]))):
+        fail(f"train_entry: novae {n}")
     return stage1
+
+
+def _demo_options(dev, tmp, base, ckpt):
+    """``ladiff_torch.demo``'s other options on the card from the stage-2
+    checkpoint ``ckpt`` (bf16): ``random_latent``, ``reconstruction`` of a
+    196-frame clip beside the example, ``--latentwise_gen fw`` and ``bw``
+    (on ``random_latent``: MAX_IT samples per line), each with exactly
+    ``EXPECTED_DEMO``'s launches and finite joints of its lengths; then
+    the decode with the cross-attention weights (what ``--plot_att_map``
+    draws; the drawing is left out, so the run needs no matplotlib): its
+    launches, and each decoder layer's weights against the float32 CPU's
+    within ``KERNEL_TOL``."""
+    import numpy as np
+    import torch
+    from ladiff_torch import demo
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.models.ladiff import LADiffSystem
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.utils.checkpoint import (latest_checkpoint,
+                                               load_checkpoint)
+
+    configs = os.path.join(HERE, "configs")
+    cfg_path = os.path.join(configs, "config_ladiff_humanml3d.yaml")
+    assets = os.path.join(configs, "assets.yaml")
+    over = {**base, "TEST": {"CHECKPOINTS": ckpt}}
+    example = os.path.join(tmp, "clip.txt")
+    with open(example, "w") as f:
+        f.write("196 a person walks forward\n")
+    np.save(os.path.join(tmp, "clip.npy"), (0.5 * np.random.RandomState(
+        14).randn(196, 263)).astype(np.float32))
+    n_ex = len(demo.DEFAULT_EXAMPLES)
+    cases = {"random_latent": (["--task", "random_latent"], n_ex, None),
+             "reconstruction": (["--task", "reconstruction", "--example",
+                                 example], 1, 196),
+             "latentwise_fw": (["--task", "random_latent",
+                                "--latentwise_gen", "fw"], 5 * n_ex, None),
+             "latentwise_bw": (["--task", "random_latent",
+                                "--latentwise_gen", "bw"], 5 * n_ex, None)}
+    out = {}
+    for name, (args, n, length) in cases.items():
+        cc.reset_launch_counts()
+        out_dir = demo.main(["--cfg", cfg_path, "--cfg_assets", assets,
+                             "--out_dir", os.path.join(tmp, name), *args],
+                            device=dev, overrides=over)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cc.launch_counts().items() if v}
+        files = sorted(f for f in os.listdir(out_dir) if f.endswith(".npy"))
+        joints = [np.load(os.path.join(out_dir, f)) for f in files]
+        ok = (len(files) == n and all(np.isfinite(j).all() for j in joints)
+              and (length is None or all(len(j) == length for j in joints)))
+        out[name] = {"launches": counts, "samples": len(files),
+                     "files_ok": bool(ok)}
+        if counts != EXPECTED_DEMO[name] or not ok:
+            fail(f"demo {name}: {out[name]}, expected launches "
+                 f"{EXPECTED_DEMO[name]} and {n} samples")
+
+    cfg = assemble_config(cfg_path, assets, over)
+    _, sd = load_checkpoint(latest_checkpoint(ckpt)[1])
+    systems = {}
+    for where, dt in (("cpu", torch.float32), (dev, None)):
+        s = LADiffSystem.from_cfg(cfg, nfeats=263, njoints=22, device=where,
+                                  dtype=dt)
+        s.load_state_dict(sd, strict=True)
+        systems[str(where)] = s
+    g = torch.Generator().manual_seed(15)
+    z = torch.randn(3, 5, 256, generator=g)
+    lengths = torch.tensor([196, 120, 64])
+    with torch.no_grad():
+        _, want = systems["cpu"].vae.decode(z, lengths, 196,
+                                            return_cross_weights=True)
+        cc.reset_launch_counts()
+        _, got = systems[str(dev)].vae.decode(
+            z.to(dev, torch.bfloat16), lengths.to(dev), 196,
+            return_cross_weights=True)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in cc.launch_counts().items() if v}
+    errs = [compare(f"decoder layer {i}'s cross-attention weights",
+                    w.float().cpu(), wc, KERNEL_TOL)[0]
+            for i, (w, wc) in enumerate(zip(got, want))]
+    out["decode_with_weights"] = {"launches": counts, "layers": len(got),
+                                  "weights_rel_err": errs,
+                                  "tol": KERNEL_TOL}
+    if counts != EXPECTED_DEMO["decode_with_weights"] or len(got) != 9:
+        fail(f"demo decode with weights: {out['decode_with_weights']}")
+    return out
 
 
 def phase_float32_entry(dev):
@@ -2796,7 +3172,13 @@ def phase_eval_entry(dev, gpu=""):
     kernel; the generated motion's embeddings within ``EVAL_BF16_TOL`` of
     (a)'s; every metric finite.  (c) bf16, stage ``vae``
     (``configs/config_vae_humanml3d.yaml`` from the same checkpoint):
-    ``EXPECTED_EVAL_VAE_PER_BATCH`` per eval batch.  Prints the seconds per
+    ``EXPECTED_EVAL_VAE_PER_BATCH`` per eval batch.  (d) the novae
+    configuration (``configs/config_novae_humanml3d.yaml``, float32 as
+    published: feature-space diffusion, no VAE) from a seeded random
+    checkpoint of its own, reduced to ``REPLICATION_TIMES`` 1 and
+    ``num_inference_timesteps`` 50 (published 1000: 1000 steps of the
+    MultiModality pass alone would take minutes), ``MM_NUM_SAMPLES`` 11:
+    no launch, every metric finite.  Prints the seconds per
     eval batch, per replication and per MultiModality pass of each run with
     the card's name and power limit, and for each run on the card its
     first eval batch again after the run: device ms by kernel (profiler)
@@ -2917,6 +3299,17 @@ def phase_eval_entry(dev, gpu=""):
                    dev)
         vae = run(config("config_vae_humanml3d.yaml", "eval_vae_bf16", True),
                   dev)
+        ckpt_novae = os.path.join(tmp, "checkpoints_novae")
+        cfg_n = assemble_config(
+            os.path.join(configs, "config_novae_humanml3d.yaml"), assets,
+            {**base, "NAME": "eval_novae_f32",
+             "TEST": {**base["TEST"], "REPLICATION_TIMES": 1,
+                      "CHECKPOINTS": ckpt_novae},
+             "model": {**base["model"],
+                       "scheduler": {"num_inference_timesteps": 50}}})
+        save_checkpoint(ckpt_novae, 1, randomize_(build_system(
+            cfg_n, dm, device="cpu"), 17).state_dict())
+        novae = run(cfg_n, dev)
     finally:
         t2m_eval.eval_step = real_step
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2939,6 +3332,7 @@ def phase_eval_entry(dev, gpu=""):
            "replications": 2, "mm_num_samples": 11, "mm_num_repeats": 30,
            "float32_card": public(f32_card), "float32_cpu": public(f32_cpu),
            "bf16_diffusion": public(bf16), "bf16_vae": public(vae),
+           "float32_novae": public(novae),
            "float32_metric_rel_err": f32_errs,
            "float32_lat_rm_rel_err": relerr(f32_card["lat_rm"],
                                             f32_cpu["lat_rm"]),
@@ -2946,7 +3340,8 @@ def phase_eval_entry(dev, gpu=""):
            "seconds": time.perf_counter() - t_start}
     emit(rec)
     for name, r in (("float32 card", f32_card), ("float32 CPU", f32_cpu),
-                    ("bf16 diffusion", bf16), ("bf16 vae", vae)):
+                    ("bf16 diffusion", bf16), ("bf16 vae", vae),
+                    ("float32 novae (50 steps)", novae)):
         main_s = r["batch_s"]
         print(f"# eval_entry {name}: {sum(main_s) / len(main_s):.4f} s per "
               f"eval batch ({len(main_s)} batches of up to 32), "
@@ -2972,7 +3367,8 @@ def phase_eval_entry(dev, gpu=""):
         if err > (EVAL_FID_TOL if k == "FID" else EVAL_METRIC_TOL):
             fail(f"eval_entry: float32 {k}: {card[k][0]} on the card, "
                  f"{cpu[k][0]} on the CPU (rel err {err})")
-    for name, r in (("float32 card", f32_card), ("float32 CPU", f32_cpu)):
+    for name, r in (("float32 card", f32_card), ("float32 CPU", f32_cpu),
+                    ("float32 novae", novae)):
         if any(r["counts"].values()):
             fail(f"eval_entry: {name} launched kernels: "
                  f"{public(r)['launches']}")
@@ -2990,6 +3386,10 @@ def phase_eval_entry(dev, gpu=""):
         if not all(math.isfinite(m) and math.isfinite(c)
                    for m, c in r["summary"].values()):
             fail(f"eval_entry: {name}: a metric is not finite")
+    if not ({"FID", "MultiModality", "R_precision_top_1"}
+            <= set(novae["summary"]) and all(
+                math.isfinite(m) for m, _ in novae["summary"].values())):
+        fail(f"eval_entry: novae metrics {novae['summary']}")
     if rec["bf16_lat_rm_rel_err"] > EVAL_BF16_TOL:
         fail(f"eval_entry: bf16 generated motion's embeddings "
              f"{rec['bf16_lat_rm_rel_err']} away from float32's")
@@ -3348,7 +3748,8 @@ def main():
             continue
         # the route bench prints the default route's samples/s beside its own
         args = ((out["bench"][1],) if name == "route_bench" and "bench" in out
-                else (gpu,) if name == "eval_entry" else ())
+                else (gpu,) if name in ("eval_entry", "novae_bench")
+                else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)
     if only:
@@ -3386,6 +3787,10 @@ def main():
     for rec in whole_recs:
         rec["launches"] = entry_counts[rec["name"]]
     recs += whole_recs
+    # kernel 10 on the novae path: its launches a DDPM-1000 batch
+    novae_rec, novae_counts = out["novae_bench"]
+    novae_rec["launches"] = novae_counts[novae_rec["name"]]
+    recs.append(novae_rec)
     for rec in recs:
         if rec["launches"] <= 0:
             fail(f"{rec['name']} was not launched on the main path")

@@ -68,9 +68,11 @@ def flax_state_dict(tree: Mapping[str, Any], prefix: str = "",
 
 def system_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``ladiff_tpu`` ``LADiffSystem.init_params`` output ({"vae",
-    "denoiser"}) -> ``ladiff_torch`` ``LADiffSystem`` state dict."""
+    "denoiser"}) -> ``ladiff_torch`` ``LADiffSystem`` state dict.  An empty
+    (or absent) ``vae`` tree, feature-space diffusion's, gives no ``vae.*``
+    entry."""
     out: Dict[str, torch.Tensor] = {}
-    flax_state_dict(params["vae"], "vae.", out)
+    flax_state_dict(params.get("vae") or {}, "vae.", out)
     flax_state_dict(params["denoiser"], "denoiser.", out)
     return out
 

@@ -187,10 +187,10 @@ class T2MDataModule:
 
 def _get_action_dataset(cfg, name: str, base, phase: str = "train"):
     """The action datasets (HumanAct12, UESTC) are not ported yet
-    (ROADMAP.md Queue 1 item 11)."""
+    (ROADMAP.md Queue 1: the action family)."""
     raise NotImplementedError(
         f"the {name} action dataset is not ported to ladiff_torch yet "
-        "(ROADMAP.md Queue 1 item 11: action conditioning)")
+        "(ROADMAP.md Queue 1: the action family)")
 
 
 def get_datasets(cfg, phase: str = "train") -> List[T2MDataModule]:

@@ -5,7 +5,9 @@ the three evaluator encoders, per batch.
 Rebuild of the reference ``t2m_eval`` (ladiff.py:1111-1282).  Stage
 ``diffusion`` generates from the captions (CFG DDIM through
 ``LADiffSystem.generate``); stage ``vae`` encodes the ground-truth motion
-and decodes it.  The system computes in its own type (bf16 through the
+and decodes it.  Feature-space diffusion (``vae_type`` "no") has stage
+``diffusion`` only: the sampled frames are the features, with the padded
+frames zeroed and no decode.  The system computes in its own type (bf16 through the
 kernels where ``TRAIN.MIXED_PRECISION`` asks for it); the features are
 taken to float32 before the joints and the re-normalization, and the
 evaluators compute in float32 whatever the system's type, with dropout off.
@@ -30,6 +32,7 @@ from ladiff_torch.models.evaluators import (MotionEncoderBiGRUCo,
                                             TextEncoderBiGRUCo,
                                             load_t2m_checkpoint)
 from ladiff_torch.utils.device import resolve_device
+from ladiff_torch.utils.masks import lengths_to_mask
 
 __all__ = ["T2MEvaluator", "eval_step"]
 
@@ -135,15 +138,16 @@ def eval_step(system, evaluator: T2MEvaluator, batch: Dict[str, torch.Tensor],
     ``batch``: "motion" [B, T, nfeats], "length" [B], "word_embs",
     "pos_ohot", "text_len".  ``cond`` / ``uncond`` [B, 1, 768] text
     features.  Stage ``diffusion`` samples from ``init_latents`` (drawn from
-    ``generator`` when None); stage ``vae`` samples the encoder's latents
-    with ``eps`` (likewise).  ``mean_eval`` / ``std_eval``: the evaluators'
-    feature stats."""
-    if getattr(system, "vae_type", "ladiff") == "no":
-        raise NotImplementedError(
-            "feature-space diffusion (vae_type 'no') is not ported to "
-            "ladiff_torch yet (ROADMAP.md Queue 1 item 3)")
+    ``generator`` when None; with ``vae_type`` "no" the initial frames [B,
+    max_frames, nfeats], and ``z`` is the frames); stage ``vae`` samples the
+    encoder's latents with ``eps`` (likewise).  ``mean_eval`` /
+    ``std_eval``: the evaluators' feature stats."""
     if stage not in ("diffusion", "vae"):
         raise ValueError(f"unknown eval stage {stage}")
+    if stage == "vae" and system.vae is None:
+        raise NotImplementedError(
+            f"eval stage vae: vae_type {system.vae_type!r} has no VAE to "
+            "reconstruct with (the JAX package has no such path)")
     dev = system.device
     motions = batch["motion"].to(dev, torch.float32)
     lengths = torch.as_tensor(batch["length"]).long()
@@ -153,6 +157,11 @@ def eval_step(system, evaluator: T2MEvaluator, batch: Dict[str, torch.Tensor],
             cond, uncond, lengths, generator=generator, nframes=nframes,
             init_latents=None if init_latents is None
             else init_latents.to(dev))
+        if system.vae is None:
+            # the frame-masked pass-through (the JAX package's branch)
+            feats_rst = torch.where(
+                lengths_to_mask(lengths.to(dev), nframes)[:, :, None],
+                feats_rst, torch.zeros((), device=dev))
     else:
         lengths_dev = lengths.to(dev)
         z, _, _, _ = system.vae.encode(

@@ -1,13 +1,27 @@
-"""LA-denoiser, the ``MD_TRANS`` text path (counterpart of
-``ladiff_tpu/models/denoiser.py``).
+"""LA-denoiser (counterpart of ``ladiff_tpu/models/denoiser.py``), the
+text condition, in its two wirings.
 
-Latents [B, MAX_IT, D] with a per-sample latent-row mask; sinusoidal
-timestep embedding at ``text_encoded_dim`` (768) projected by
-Linear-SiLU-Linear to D; pooled CLIP text projected by ReLU + Linear; the
-skip encoder over ``MDTransformerLayer``.  Parameter names follow the
-reference (``time_embedding.linear_1``, ``emb_proj.1``, ``query_pos.pe``,
-``encoder.*``).  In training mode (``module.train()``) the MD layers take
-their unfused route with ``dropout``; masks and kernel seeds come from the
+Sinusoidal timestep embedding at ``text_encoded_dim`` (768) projected by
+Linear-SiLU-Linear to D; pooled CLIP text projected by ReLU + Linear.
+
+  * ``md_trans=True`` (the published LADiff model): latents [B, MAX_IT, D]
+    with a per-sample latent-row mask through the skip encoder over
+    ``MDTransformerLayer``.
+  * ``md_trans=False``: the plain skip encoder (``SkipTransformerEncoder``,
+    the reference's vanilla post-norm layers with the denoiser's
+    activation) over the tokens ``[latents; time; text]``, positional
+    embedding over the whole sequence and no key mask (the reference passes
+    none, so padded rows attend); the output is the first ``n_lat`` rows.
+    With ``diffusion_only`` (feature-space diffusion, the novae family)
+    ``pose_embd`` (nfeats -> D) embeds the feature frames, the tokens are
+    ``[time; text; frames]``, ``pose_proj`` (D -> nfeats) maps the frame rows
+    back and ``frame_valid`` zeroes the padded frames.
+
+``position_embedding`` is "learned" (``query_pos.pe``) or "sine" (no
+parameter).  Parameter names follow the reference (``time_embedding.linear_1``,
+``emb_proj.1``, ``query_pos.pe``, ``pose_embd``, ``pose_proj``,
+``encoder.*``).  In training mode (``module.train()``) the layers take
+their training route with ``dropout``; masks and kernel seeds come from the
 ``generator`` passed to ``forward``.  ``compute_dtype`` (set by
 ``LADiffSystem``) is the activations' type where it differs from the
 parameters' (float32 parameters, bf16 compute).
@@ -21,10 +35,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ladiff_torch.ops.embeddings import (PositionEmbeddingLearned1D,
+                                         PositionEmbeddingSine1D,
                                          TimestepEmbedding,
                                          timestep_embedding)
 from ladiff_torch.ops.stylization import MDSkipTransformerEncoder
-from ladiff_torch.ops.transformer import linear
+from ladiff_torch.ops.transformer import SkipTransformerEncoder, linear
 
 __all__ = ["LADenoiser"]
 
@@ -34,26 +49,47 @@ class LADenoiser(nn.Module):
                  ff_size: int = 1024, num_layers: int = 9,
                  num_heads: int = 4, text_encoded_dim: int = 768,
                  flip_sin_to_cos: bool = True, freq_shift: int = 0,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, md_trans: bool = True,
+                 diffusion_only: bool = False, activation: str = "gelu",
+                 position_embedding: str = "learned"):
         super().__init__()
         D = int(latent_dim[-1])
+        if diffusion_only and md_trans:
+            raise ValueError("diffusion_only runs the plain wiring "
+                             "(md_trans=False)")
+        if position_embedding not in ("learned", "sine"):
+            raise ValueError(f"position_embedding {position_embedding!r}: "
+                             "learned or sine")
         self.d_model = D
         self.text_encoded_dim = text_encoded_dim
         self.flip_sin_to_cos = flip_sin_to_cos
         self.freq_shift = freq_shift
+        self.md_trans = md_trans
+        self.diffusion_only = diffusion_only
         self.compute_dtype: Optional[torch.dtype] = None
         self.time_embedding = TimestepEmbedding(text_encoded_dim, D)
         if text_encoded_dim != D:
             self.emb_proj = nn.Sequential(nn.ReLU(),
                                           nn.Linear(text_encoded_dim, D))
-        self.query_pos = PositionEmbeddingLearned1D(D)
-        self.encoder = MDSkipTransformerEncoder(D, D, num_heads, num_layers,
-                                                ff_size, dropout)
+        if diffusion_only:
+            self.pose_embd = nn.Linear(nfeats, D)
+            self.pose_proj = nn.Linear(D, nfeats)
+        self.query_pos = (PositionEmbeddingLearned1D(D)
+                          if position_embedding == "learned"
+                          else PositionEmbeddingSine1D(D))
+        if md_trans:
+            self.encoder = MDSkipTransformerEncoder(D, D, num_heads,
+                                                    num_layers, ff_size,
+                                                    dropout)
+        else:
+            self.encoder = SkipTransformerEncoder(D, num_heads, num_layers,
+                                                  ff_size, activation,
+                                                  dropout)
 
     @property
     def dtype(self) -> torch.dtype:
         """The activations' type."""
-        return self.compute_dtype or self.query_pos.pe.dtype
+        return self.compute_dtype or self.time_embedding.linear_1.weight.dtype
 
     def compute_time_embedding(self, timesteps: torch.Tensor) -> torch.Tensor:
         """[N] timesteps -> [N, D]; samplers build the whole table once."""
@@ -77,6 +113,7 @@ class LADenoiser(nn.Module):
                            with_params: bool = True) -> List[dict]:
         """Per-layer text values [B, D] and AdaLN rows for every sampling
         step [S, 2D] (see ``MDTransformerLayer.compute_prep``)."""
+        assert self.md_trans
         return self.encoder.precompute_prep(text_emb_latent.to(self.dtype),
                                             time_table.to(self.dtype),
                                             with_params)
@@ -85,11 +122,13 @@ class LADenoiser(nn.Module):
         """The stacked [L, ...] layer tensors, skip Linears and final
         LayerNorm for the whole-stack kernel, in the activations' type;
         built once before a sampling loop."""
+        assert self.md_trans
         return self.encoder.stacked_params(self.dtype)
 
     def stack_md_prep(self, prep_all: List[dict]):
         """``precompute_md_prep`` laid out for the whole-stack kernel:
         values [L, B, D] and AdaLN tables [S, L, 2D]."""
+        assert self.md_trans
         return self.encoder.stack_prep(prep_all)
 
     def forward(self, sample: torch.Tensor,
@@ -99,8 +138,12 @@ class LADenoiser(nn.Module):
                 time_emb: Optional[torch.Tensor] = None,
                 text_emb_latent: Optional[torch.Tensor] = None,
                 md_prep: Optional[Union[List[dict], dict]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """sample [B, n_lat, D] noisy latents -> predicted noise."""
+                generator: Optional[torch.Generator] = None,
+                frame_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sample [B, n_lat, D] noisy latents (``diffusion_only``: [B, T,
+        nfeats] noisy feature frames, ``frame_valid`` [B, T]) -> predicted
+        noise of the same shape.  ``latent_valid`` masks the MD wiring's
+        latent rows; the plain wiring passes no key mask."""
         sample = sample.to(self.dtype)
         if time_emb is None:
             time_emb = self.compute_time_embedding(timesteps)
@@ -108,6 +151,21 @@ class LADenoiser(nn.Module):
         if text_emb_latent is None:
             text_emb_latent = self.project_text(encoder_hidden_states)
         text_emb_latent = text_emb_latent.to(self.dtype)
-        xseq = self.query_pos(sample)
-        return self.encoder(xseq, text_emb_latent, time_emb, latent_valid,
-                            prep=md_prep, generator=generator)
+        if self.md_trans:
+            xseq = self.query_pos(sample)
+            return self.encoder(xseq, text_emb_latent, time_emb,
+                                latent_valid, prep=md_prep,
+                                generator=generator)
+        emb_tokens = torch.cat([time_emb[:, None], text_emb_latent], dim=1)
+        if not self.diffusion_only:
+            xseq = self.query_pos(torch.cat([sample, emb_tokens], dim=1))
+            return self.encoder(xseq, generator=generator)[:, :sample.shape[1]]
+        frames = linear(self.pose_embd, sample)
+        xseq = self.query_pos(torch.cat([emb_tokens, frames], dim=1))
+        tokens = self.encoder(xseq, generator=generator)
+        out = linear(self.pose_proj, tokens[:, emb_tokens.shape[1]:])
+        if frame_valid is not None:
+            out = torch.where(frame_valid[:, :, None], out,
+                              torch.zeros((), dtype=out.dtype,
+                                          device=out.device))
+        return out

@@ -11,9 +11,16 @@ decode -> features (-> joints).  Training, three stages:
     short guided sampling run (no gradient) and an eval-mode decode of its
     latents whose gradients reach the decoder.
 
-Text condition, LA-VAE latents and epsilon prediction only.  The text is
-either pooled CLIP features [B, 1, 768] (the published configurations) or
-the full context [B, 77, 768] (``last_hidden_state``).
+Text condition and epsilon prediction only.  The text is either pooled
+CLIP features [B, 1, 768] (the published configurations) or the full
+context [B, 77, 768] (``last_hidden_state``).  ``vae_type`` "ladiff"
+diffuses the LA-VAE's latents; "no" (feature-space diffusion, the novae
+family) has no VAE at all (``self.vae`` is None, no ``vae.*`` key): the
+denoiser (``diffusion_only``) diffuses the padded feature frames
+[B, max_frames, nfeats] under the frame mask, and ``generate`` returns them
+as they are.  ``md_trans`` picks the denoiser's wiring: the MD-trans skip
+stack (the published LADiff model) or the plain skip transformer (the
+novae configuration).
 
 ``dtype`` is the compute type (bf16 on CUDA by default, the kernels' type;
 float32 there takes every module's plain route) and ``param_dtype`` the
@@ -53,7 +60,7 @@ from ladiff_torch.models.vae import LAVae
 from ladiff_torch.ops.cuda_common import kernel_compute
 from ladiff_torch.ops.md_layer import md_layer_supported
 from ladiff_torch.utils.device import resolve_device, resolve_dtype
-from ladiff_torch.utils.masks import latent_valid_mask
+from ladiff_torch.utils.masks import latent_valid_mask, lengths_to_mask
 
 __all__ = ["LADiffSystem"]
 
@@ -86,16 +93,31 @@ class LADiffSystem(nn.Module):
                  weights: Optional[LossWeights] = None,
                  eta: float = 0.0, scheduler_kind: str = "ddim",
                  md_stack: bool = False, train_whole_layer: str = "0",
+                 md_trans: bool = True, vae_type: str = "ladiff",
+                 lad: bool = True,
                  device=None, dtype: Optional[torch.dtype] = None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         D = int(latent_dim[-1])
-        if md_stack and not (num_layers % 2 and md_layer_supported(
-                1, max_it, 2, D, num_heads, 1024, ff_size)):
+        # the ActorVae and the LA-VAE without its length-aware latent set
+        # are the action family's
+        if vae_type not in ("ladiff", "no"):
+            raise NotImplementedError(
+                f"vae_type (VAE_TYPE) {vae_type!r}: ladiff_torch has the "
+                "LA-VAE ('ladiff') and feature-space diffusion ('no') "
+                "(ROADMAP.md Queue 1: the action family)")
+        if vae_type == "ladiff" and not (lad and max_it):
+            raise NotImplementedError(
+                f"lad (LAD) {lad}, max_it {max_it}: the port's LA-VAE is the "
+                "length-aware one (ROADMAP.md Queue 1: the action family)")
+        if md_stack and not (md_trans and num_layers % 2
+                             and md_layer_supported(1, max_it, 2, D,
+                                                    num_heads, 1024,
+                                                    ff_size)):
             raise ValueError(
                 "md_stack: the whole-stack kernel does not take the denoiser "
                 f"shape T={max_it} E=2 D={D} H={num_heads} F=1024,{ff_size} "
-                f"L={num_layers}")
+                f"L={num_layers} md_trans={md_trans}")
         want = torch.device("cuda" if device is None else device)
         if md_stack and not kernel_compute(resolve_dtype(want, dtype), want):
             raise ValueError(
@@ -118,15 +140,21 @@ class LADiffSystem(nn.Module):
         self.eta = eta
         self.scheduler_kind = scheduler_kind
         self.md_stack = md_stack
+        self.md_trans = md_trans
+        self.vae_type = vae_type
         self.schedule = make_schedule(num_train_timesteps)
-        self.vae = LAVae(nfeats, latent_dim, ff_size, num_layers, num_heads,
-                         max_it, frame_per_latent, dropout=dropout,
-                         dvae=dvae, percentage_noised=percentage_noised,
-                         train_whole_layer=train_whole_layer)
-        self.vae.compute_dtype = dtype
+        self.vae = None
+        if vae_type == "ladiff":
+            self.vae = LAVae(nfeats, latent_dim, ff_size, num_layers,
+                             num_heads, max_it, frame_per_latent,
+                             dropout=dropout, dvae=dvae,
+                             percentage_noised=percentage_noised,
+                             train_whole_layer=train_whole_layer)
+            self.vae.compute_dtype = dtype
         self.denoiser = LADenoiser(nfeats, latent_dim, ff_size, num_layers,
                                    num_heads, text_encoded_dim,
-                                   dropout=dropout)
+                                   dropout=dropout, md_trans=md_trans,
+                                   diffusion_only=vae_type == "no")
         self.denoiser.compute_dtype = dtype
         for name, v in (("mean", mean), ("std", std)):
             self.register_buffer(
@@ -142,18 +170,24 @@ class LADiffSystem(nn.Module):
         the JAX package's ``LADiffSystem.from_cfg``); ``kw`` are the
         constructor's run options (``train_whole_layer``, ``device``,
         ``dtype``, ``param_dtype``, ``md_stack``).  The port has the text
-        condition, the LA-VAE, epsilon prediction and the MD-trans denoiser;
-        a configuration that asks for anything else raises, naming it."""
+        condition, epsilon prediction, the LA-VAE or none (``VAE_TYPE``
+        "no"), and the MD-trans or the plain denoiser; a configuration that
+        asks for anything else raises, naming it.  The novae family's
+        ``denoiser.yaml`` names ``arch: trans_dec``, which the JAX package
+        never passes on (it builds the skip encoder): the port follows the
+        JAX package."""
         abl, m = cfg.TRAIN.ABLATION, cfg.model
         sched = m.get("scheduler") or {}
         layers = int(m.num_layers)
-        stage = str(cfg.TRAIN.get("STAGE", "vae"))
+        vae_type = str(abl.get("VAE_TYPE", "ladiff"))
+        # the stage-1 configurations name the plain denoiser, which their
+        # stage never runs: the port keeps the MD-trans one there, so that a
+        # stage-1 system loads a stage-2 checkpoint (``test.py`` stage vae)
+        md_trans = bool(abl.get("MD_TRANS", False)) or (
+            str(cfg.TRAIN.get("STAGE", "vae")) == "vae" and vae_type != "no")
         wanted = {
             "model.condition": (str(m.get("condition", "text")), "text"),
             "model.activation": (str(m.get("activation", "gelu")), "gelu"),
-            "TRAIN.ABLATION.VAE_TYPE": (str(abl.get("VAE_TYPE", "ladiff")),
-                                        "ladiff"),
-            "TRAIN.ABLATION.LAD": (bool(abl.get("LAD", True)), True),
             "TRAIN.ABLATION.MLP_DIST": (bool(abl.get("MLP_DIST", False)),
                                         False),
             "TRAIN.ABLATION.TEST_EFFICIENCY": (
@@ -162,11 +196,6 @@ class LADiffSystem(nn.Module):
                 bool(abl.get("PREDICT_EPSILON", True)), True),
             "ARDIFF": (bool(cfg.get("ARDIFF", False)), False),
         }
-        # the stage-1 configurations name the plain denoiser, which their
-        # stage never runs; the port's denoiser is the MD-trans one
-        if stage != "vae":
-            wanted["TRAIN.ABLATION.MD_TRANS"] = (
-                bool(abl.get("MD_TRANS", False)), True)
         for key in ("motion_vae", "denoiser"):
             n = ((m.get(key) or {}).get("params") or {}).get("num_layers")
             if n is not None:
@@ -198,11 +227,20 @@ class LADiffSystem(nn.Module):
             dvae=bool(abl.get("DVAE", False)),
             percentage_noised=float(abl.get("PERCENTAGE_NOISED", 0.0)),
             weights=LossWeights.from_cfg(cfg),
-            eta=float(sched.get("eta", 0.0)), scheduler_kind=kind, **kw)
+            eta=float(sched.get("eta", 0.0)), scheduler_kind=kind,
+            md_trans=md_trans, vae_type=vae_type,
+            lad=bool(abl.get("LAD", True)), **kw)
 
     @property
     def device(self) -> torch.device:
-        return self.denoiser.query_pos.pe.device
+        return self.denoiser.time_embedding.linear_1.weight.device
+
+    def _require_vae(self, what: str) -> None:
+        if self.vae is None:
+            raise NotImplementedError(
+                f"{what} needs a VAE; vae_type {self.vae_type!r} has none "
+                "(feature-space diffusion trains the denoiser alone, as in "
+                "the JAX package)")
 
     def feats2joints(self, feats: torch.Tensor) -> torch.Tensor:
         """Denormalize + RIC recovery -> joints [..., T, J, 3]."""
@@ -230,15 +268,21 @@ class LADiffSystem(nn.Module):
                           num_inference_timesteps: Optional[int] = None,
                           init_latents: Optional[torch.Tensor] = None,
                           return_trajectory: bool = False):
-        """CFG sampling of latents [B, max_it, D] (float32); with
-        ``return_trajectory`` also every step's latents [steps, B, max_it,
-        D]."""
+        """CFG sampling of latents [B, max_it, D] (float32; with
+        ``vae_type`` "no" the feature frames [B, max_frames, nfeats], padded
+        frames zero); with ``return_trajectory`` also every step's latents
+        [steps, *shape]."""
         B = text_emb_cond.shape[0]
-        D = self.latent_dim[-1]
         dev = self.device
         lengths = lengths.to(dev)
-        lat_valid = latent_valid_mask(lengths, self.frame_per_latent,
-                                      self.max_it)
+        if self.vae is None:
+            # the frame mask is the sampler's row mask and the denoiser's
+            shape = (B, self.max_frames, self.nfeats)
+            lat_valid = lengths_to_mask(lengths, self.max_frames)
+        else:
+            shape = (B, self.max_it, self.latent_dim[-1])
+            lat_valid = latent_valid_mask(lengths, self.frame_per_latent,
+                                          self.max_it)
         steps = num_inference_timesteps or self.num_inference_timesteps
         den = self.denoiser
         text_cond = den.project_text(text_emb_cond.to(dev))
@@ -257,7 +301,7 @@ class LADiffSystem(nn.Module):
         if self.md_stack and text2.shape[1] != 1:
             raise ValueError("md_stack: the whole-stack kernel takes one "
                              f"text token, got {text2.shape[1]}")
-        if text2.shape[1] == 1:
+        if self.md_trans and text2.shape[1] == 1:
             prep_all = den.precompute_md_prep(text2, time_table,
                                               with_params=not self.md_stack)
             if self.md_stack:
@@ -272,16 +316,17 @@ class LADiffSystem(nn.Module):
             if stack is not None:
                 md_prep = {"stack": {**stack, "ca_ss": ss_tables[0][step],
                                      "ffn_ss": ss_tables[1][step]}}
-            elif text.shape[1] == 1:
+            elif self.md_trans and text.shape[1] == 1:
                 md_prep = [{"value": p["value"], "ca_ss": p["ca_ss"][step],
                             "ffn_ss": p["ffn_ss"][step],
                             "params": p["params"]} for p in prep_all]
             return den(latents, latent_valid=valid, time_emb=time_emb,
-                       text_emb_latent=text, md_prep=md_prep)
+                       text_emb_latent=text, md_prep=md_prep,
+                       frame_valid=valid if self.vae is None else None)
 
         guided = make_cfg_denoise_fn(denoise, text_uncond, text_cond,
                                      self.guidance_scale)
-        return ddim_sample(guided, self.schedule, (B, self.max_it, D), steps,
+        return ddim_sample(guided, self.schedule, shape, steps,
                            latent_valid=lat_valid, generator=generator,
                            init_latents=init_latents, device=dev,
                            eta=self.eta, kind=self.scheduler_kind,
@@ -297,10 +342,15 @@ class LADiffSystem(nn.Module):
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Text embeddings, pooled [B, 1, 768] or the full context [B, N,
         768] (``last_hidden_state``), the unconditional ones of the same
-        shape -> (features [B, nframes, nfeats], latents [B, max_it, D])."""
+        shape -> (features [B, nframes, nfeats], latents [B, max_it, D]).
+        With ``vae_type`` "no" the sampled frames are the features: (z, z),
+        [B, max_frames, nfeats] whatever ``nframes``, as in the JAX
+        package."""
         z = self.diffusion_reverse(text_emb_cond, text_emb_uncond, lengths,
                                    generator, num_inference_timesteps,
                                    init_latents)
+        if self.vae is None:
+            return z, z
         feats = self.vae.decode(z.to(self.dtype), lengths.to(self.device),
                                 nframes or self.max_frames)
         return feats, z
@@ -315,6 +365,7 @@ class LADiffSystem(nn.Module):
         ``train``; the VAE's mode is restored afterwards.  ``generator``
         drives dropout and, unless ``eps`` [B, max_it, D] is given, the
         latent sample."""
+        self._require_vae("vae_forward (stage vae)")
         dev = self.device
         feats_ref = batch["motion"].to(dev)
         lengths = batch["length"].to(dev)
@@ -351,15 +402,25 @@ class LADiffSystem(nn.Module):
         random draw comes from ``generator`` on the system's device unless
         given: ``eps`` [B, max_it, D] the latent sample's noise, ``cond_drop``
         [B, 1, 1] bool the captions to drop, ``noise`` [B, max_it, D],
-        ``timesteps`` [B]."""
+        ``timesteps`` [B].
+
+        With ``vae_type`` "no" z is the features themselves (float32, no
+        encode, ``eps`` unused), ``noise`` is [B, T, nfeats], the noisy
+        frames are not re-zeroed and the denoiser zeroes its prediction on
+        the padded frames (the JAX package's feature-space branch)."""
         dev = self.device
         feats_ref = batch["motion"].to(dev)
         lengths = batch["length"].to(dev)
         cond = batch["text_emb"].to(dev)
         B = feats_ref.shape[0]
-        with _mode(self.vae, False), torch.no_grad():
-            z, _, _, lat_valid = self.vae.encode(
-                feats_ref, lengths, eps=eps, generator=generator)
+        frame_valid = None
+        if self.vae is None:
+            z, lat_valid = feats_ref.float(), None
+            frame_valid = lengths_to_mask(lengths, feats_ref.shape[1])
+        else:
+            with _mode(self.vae, False), torch.no_grad():
+                z, _, _, lat_valid = self.vae.encode(
+                    feats_ref, lengths, eps=eps, generator=generator)
 
         if train and self.guidance_uncondp > 0.0:
             if cond_drop is None:
@@ -378,12 +439,15 @@ class LADiffSystem(nn.Module):
                 generator=generator, device=dev)
         timesteps = timesteps.to(dev)
         noisy = self.schedule.add_noise(z, noise, timesteps)
-        # inactive latent rows stay zero after noising
-        noisy = torch.where(lat_valid[:, :, None], noisy,
-                            torch.zeros((), dtype=noisy.dtype, device=dev))
+        if lat_valid is not None:
+            # inactive latent rows stay zero after noising
+            noisy = torch.where(lat_valid[:, :, None], noisy,
+                                torch.zeros((), dtype=noisy.dtype,
+                                            device=dev))
         with _mode(self.denoiser, train):
             noise_pred = self.denoiser(noisy, timesteps, cond, lat_valid,
-                                       generator=generator)
+                                       generator=generator,
+                                       frame_valid=frame_valid)
         total, logs = diffusion_loss(noise_pred, noise)
         return total, (logs, {"latent_valid": lat_valid})
 
@@ -407,6 +471,7 @@ class LADiffSystem(nn.Module):
         decoder's parameters.  ``eps`` is ``vae_forward``'s,
         ``diffusion_draws`` the optional tensors of ``diffusion_forward`` by
         name, ``init_latents`` the sampler's initial noise."""
+        self._require_vae("vae_diffusion_forward (stage vae_diffusion)")
         vae_total, (vae_logs, vae_aux) = self.vae_forward(
             batch, train=train, generator=generator, eps=eps)
         diff_total, (diff_logs, _) = self.diffusion_forward(

@@ -137,8 +137,12 @@ class LAVae(nn.Module):
 
     def decode(self, z: torch.Tensor, lengths: torch.Tensor, nframes: int,
                latent_valid: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Latents [B, max_it, D] -> features [B, nframes, nfeats]."""
+               generator: Optional[torch.Generator] = None,
+               return_cross_weights: bool = False):
+        """Latents [B, max_it, D] -> features [B, nframes, nfeats]; with
+        ``return_cross_weights`` ``(features, weights)``, the weights of each
+        decoder layer's cross-attention [B, nframes, max_it] averaged over
+        the heads, in execution order (the per-block decoder route)."""
         B, _, D = z.shape
         dtype = self.dtype
         frame_valid = lengths_to_mask(lengths, nframes)
@@ -149,8 +153,12 @@ class LAVae(nn.Module):
             torch.zeros(B, nframes, D, dtype=dtype, device=z.device))
         out = self.decoder(queries, z.to(dtype), tgt_key_valid=frame_valid,
                            memory_key_valid=latent_valid,
-                           generator=generator)
+                           generator=generator,
+                           return_cross_weights=return_cross_weights)
+        if return_cross_weights:
+            out, weights = out
         feats = linear(self.final_layer, out)
-        return torch.where(frame_valid[:, :, None], feats,
-                           torch.zeros((), dtype=feats.dtype,
-                                       device=feats.device))
+        feats = torch.where(frame_valid[:, :, None], feats,
+                            torch.zeros((), dtype=feats.dtype,
+                                        device=feats.device))
+        return (feats, weights) if return_cross_weights else feats

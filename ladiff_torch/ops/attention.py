@@ -34,11 +34,13 @@ __all__ = ["MultiHeadAttention", "masked_attention"]
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_valid: Optional[torch.Tensor] = None, *,
                      num_heads: int, dropout_rate: float = 0.0,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     return_weights: bool = False):
     """q [B, Sq, D], k/v [B, Sk, D] (projected); key_valid [B, Sk] bool.
     ``dropout_rate`` > 0 drops probabilities (scaled by 1 / keep) with a
-    mask drawn from ``generator``.  Returns [B, Sq, D].
+    mask drawn from ``generator``.  Returns [B, Sq, D]; with
+    ``return_weights`` also the head-averaged probabilities [B, Sq, Sk],
+    which only the plain version gives.
 
     Self-attention over at least ``MIN_SEQ`` tokens without dropout, in bf16
     (``kernel_route``), of a shape kernel 10 takes
@@ -52,13 +54,14 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     if (S == k.shape[1] >= MIN_SEQ and dropout_rate == 0.0
-            and not needs_grad and kernel_route(q)
+            and not needs_grad and not return_weights and kernel_route(q)
             and masked_attention_supported(B, S, D, num_heads)):
         return fused_masked_attention(q, k, v, key_valid,
                                       num_heads=num_heads)
     return masked_attention_plain(q, k, v, key_valid, num_heads=num_heads,
                                   dropout_rate=dropout_rate,
-                                  generator=generator)
+                                  generator=generator,
+                                  return_weights=return_weights)
 
 
 class MultiHeadAttention(nn.Module):
@@ -80,7 +83,10 @@ class MultiHeadAttention(nn.Module):
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_weights: bool = False):
+        """Returns [B, Sq, D]; with ``return_weights`` also the
+        head-averaged probabilities [B, Sq, Sk] (``masked_attention``)."""
         D = self.d_model
         dt = query.dtype
         w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
@@ -90,9 +96,12 @@ class MultiHeadAttention(nn.Module):
         out = masked_attention(
             q, k, v, key_valid, num_heads=self.num_heads,
             dropout_rate=self.dropout if self.training else 0.0,
-            generator=generator)
-        return F.linear(out, self.out_proj.weight.to(dt),
-                        self.out_proj.bias.to(dt))
+            generator=generator, return_weights=return_weights)
+        if return_weights:
+            out, weights = out
+        out = F.linear(out, self.out_proj.weight.to(dt),
+                       self.out_proj.bias.to(dt))
+        return (out, weights) if return_weights else out
 
     def kernel_params(self) -> dict:
         """The module's tensors by the names ``train_self_attention``

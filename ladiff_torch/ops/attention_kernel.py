@@ -53,12 +53,14 @@ MIN_SEQ = 64  # shorter streams keep the plain attention (one partial tile)
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_valid: Optional[torch.Tensor] = None, *,
                            num_heads: int, dropout_rate: float = 0.0,
-                           generator: Optional[torch.Generator] = None
-                           ) -> torch.Tensor:
+                           generator: Optional[torch.Generator] = None,
+                           return_weights: bool = False):
     """Plain PyTorch version.  q [B, Sq, D], k/v [B, Sk, D] (projected);
     key_valid [B, Sk] bool.  ``dropout_rate`` > 0 drops probabilities
     (scaled by 1 / keep) with a mask drawn from ``generator``.  Returns
-    [B, Sq, D]."""
+    [B, Sq, D]; with ``return_weights`` also the probabilities averaged
+    over the heads [B, Sq, Sk] (after dropout, in q's type; a masked key's
+    weight is 0 wherever the row has a valid key)."""
     B, Sq, D = q.shape
     Sk = k.shape[1]
     H = num_heads
@@ -73,8 +75,10 @@ def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_rate > 0.0:
         w = w * dropout_mask(w.shape, dropout_rate, w, generator)
-    out = torch.matmul(w, vh)
-    return out.transpose(1, 2).reshape(B, Sq, D)
+    out = torch.matmul(w, vh).transpose(1, 2).reshape(B, Sq, D)
+    if return_weights:
+        return out, w.mean(dim=1)
+    return out
 
 
 def masked_attention_supported(B: int, S: int, D: int, H: int) -> bool:

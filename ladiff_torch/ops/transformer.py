@@ -18,7 +18,9 @@ a CPU tensor):
                              ``train_postnorm_ffn(norm1, norm2)``
   decoder layer, inference   ``fused_decoder_layer`` (kernel K2) where
                              ``decoder_layer_supported``; otherwise (e.g. a
-                             head width above 128) per block:
+                             head width above 128, or where the caller
+                             asks for the cross-attention weights) per
+                             block:
                              ``masked_attention`` -> norm1 -> plain
                              cross-attention -> ``fused_postnorm_ffn``
   decoder layer, training    ``train_decoder_layer`` (kernel 13) where the
@@ -291,27 +293,35 @@ class TransformerDecoderLayer(nn.Module):
             self.linear1.out_features, self.activation)
 
     def _forward_blocks(self, tgt, memory, tgt_key_valid, memory_key_valid,
-                        train_route, rate, generator):
+                        train_route, rate, generator, return_cross_weights):
         """The layer block by block: the training route (kernels 8 and 9)
-        or, at inference, ``masked_attention`` and kernel 5."""
+        or, at inference, ``masked_attention`` and kernel 5; the plain
+        cross-attention gives its head-averaged weights where asked."""
         resid = _self_attention_block(self.self_attn, tgt, tgt_key_valid,
                                       train_route, rate, generator)
         tgt = layer_norm(self.norm1, resid)
         x2 = self.multihead_attn(tgt, memory, memory, memory_key_valid,
-                                 generator=generator)
+                                 generator=generator,
+                                 return_weights=return_cross_weights)
+        if return_cross_weights:
+            x2, weights = x2
         resid = tgt + _drop(x2, rate, generator)
-        return _ffn_tail(self, resid, self.norm2, self.norm3, train_route,
-                         rate, generator)
+        out = _ffn_tail(self, resid, self.norm2, self.norm3, train_route,
+                        rate, generator)
+        return (out, weights) if return_cross_weights else out
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_key_valid: Optional[torch.Tensor] = None,
                 memory_key_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_cross_weights: bool = False):
+        """[B, T, D] -> [B, T, D]; with ``return_cross_weights`` also the
+        cross-attention's head-averaged weights [B, T, L], which only the
+        per-block route gives (K2 and kernel 13 return none)."""
         train_route = self.training or _needs_grad(self, tgt, memory)
         B, T, D = tgt.shape
         L = memory.shape[1]
-        if (train_route and kernel_route(tgt)
+        if (train_route and not return_cross_weights and kernel_route(tgt)
                 and self.takes_whole_training_layer(T, L)):
             mv = (memory_key_valid if memory_key_valid is not None
                   else torch.ones(B, L, dtype=torch.bool, device=tgt.device))
@@ -323,11 +333,12 @@ class TransformerDecoderLayer(nn.Module):
                 rate=self.dropout if self.training else 0.0,
                 generator=generator)
             return out.reshape(B, T, D)
-        if train_route or not (kernel_route(tgt)
-                               and self.takes_whole_layer(L)):
+        if train_route or return_cross_weights or not (
+                kernel_route(tgt) and self.takes_whole_layer(L)):
             return self._forward_blocks(
                 tgt, memory, tgt_key_valid, memory_key_valid, train_route,
-                self.dropout if self.training else 0.0, generator)
+                self.dropout if self.training else 0.0, generator,
+                return_cross_weights)
         kv = (tgt_key_valid if tgt_key_valid is not None
               else torch.ones(B, T, dtype=torch.bool, device=tgt.device))
         mv = (memory_key_valid if memory_key_valid is not None
@@ -403,8 +414,20 @@ class SkipTransformerDecoder(_SkipStack):
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 tgt_key_valid: Optional[torch.Tensor] = None,
                 memory_key_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        return self.run(tgt, lambda i, block, x: block(
-            x, memory, tgt_key_valid, memory_key_valid,
-            generator=generator))
+                generator: Optional[torch.Generator] = None,
+                return_cross_weights: bool = False):
+        """[B, T, D] -> [B, T, D]; with ``return_cross_weights`` also each
+        layer's cross-attention weights [B, T, L], in execution order."""
+        weights = []
+
+        def block_fn(i, block, x):
+            out = block(x, memory, tgt_key_valid, memory_key_valid,
+                        generator=generator,
+                        return_cross_weights=return_cross_weights)
+            if return_cross_weights:
+                out, w = out
+                weights.append(w)
+            return out
+
+        out = self.run(tgt, block_fn)
+        return (out, weights) if return_cross_weights else out

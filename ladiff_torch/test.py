@@ -49,9 +49,11 @@ def _aggregate(values) -> Tuple[float, float]:
 
 def draw_noise(generator: torch.Generator, n: int, system) -> torch.Tensor:
     """One batch's noise [n, max_it, D] (float32, on the CPU): the initial
-    latents in stage ``diffusion``, the encoder's sample noise in ``vae``."""
-    return torch.randn((n, system.max_it, system.latent_dim[-1]),
-                       generator=generator)
+    latents in stage ``diffusion``, the encoder's sample noise in ``vae``;
+    with ``vae_type`` "no" the initial frames [n, max_frames, nfeats]."""
+    shape = ((n, system.max_frames, system.nfeats) if system.vae is None
+             else (n, system.max_it, system.latent_dim[-1]))
+    return torch.randn(shape, generator=generator)
 
 
 def _host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -111,7 +113,8 @@ def run_test(cfg, logger, text_encoder=None,
     if any(m in A2M_METRICS for m in metric_types):
         raise NotImplementedError(
             f"the action-conditioned benchmark ({', '.join(A2M_METRICS)}) "
-            "is not ported to ladiff_torch yet (ROADMAP.md Queue 1 item 6)")
+            "is not ported to ladiff_torch yet (ROADMAP.md Queue 1: the "
+            "action family)")
     device = resolve_device(device)
     dm = get_datasets(cfg, phase="test")[0]
     system = build_system(cfg, dm, device=device)

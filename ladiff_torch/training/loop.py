@@ -5,7 +5,9 @@ the two-stage loop with checkpoints and resume, on one device.
     configuration),
   * stage "diffusion": denoiser training with the stage-1 VAE frozen,
     booted from ``TRAIN.PRETRAINED_VAE`` (a checkpoint directory or a
-    reference ``.ckpt``),
+    reference ``.ckpt``); feature-space diffusion (``VAE_TYPE`` "no", the
+    novae family) has no VAE to boot and trains the denoiser alone, and
+    runs no other stage,
   * stage "vae_diffusion": both trees at once,
   * periodic keep-all checkpoints (``utils/checkpoint.py``), newest-checkpoint
     resume, one loss line per epoch.
@@ -261,14 +263,15 @@ def _single_device(cfg, stage: str) -> None:
         if n > 1:
             raise NotImplementedError(
                 f"TRAIN.{name}={n}: ladiff_torch trains on one device "
-                "(ROADMAP.md Queue 1 item 12: multi-device training)")
+                "(ROADMAP.md Queue 1: parallelism)")
     if bool(cfg.TRAIN.get("FSDP", False)):
         raise NotImplementedError(
             "TRAIN.FSDP: ladiff_torch trains on one device (ROADMAP.md "
-            "Queue 1 item 12: multi-device training)")
+            "Queue 1: parallelism)")
     if stage == "distill":
         raise NotImplementedError(
-            "TRAIN.STAGE=distill is not ported (ROADMAP.md Queue 1 item 9)")
+            "TRAIN.STAGE=distill is not ported (ROADMAP.md Queue 1: "
+            "distill)")
     impl = str(cfg.TRAIN.get("RNG_IMPL", "threefry"))
     if impl not in RNG_IMPLS:
         raise ValueError(f"TRAIN.RNG_IMPL={impl!r} is not recognized; "
@@ -298,6 +301,11 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
         raise ValueError(f"unsupported stage {stage}")
     _single_device(cfg, stage)
     system = build_system(cfg, dm, device=device)
+    if system.vae is None and stage != "diffusion":
+        raise NotImplementedError(
+            f"TRAIN.STAGE={stage} with VAE_TYPE {system.vae_type!r}: "
+            "feature-space diffusion has no VAE and trains stage diffusion "
+            "only (the JAX package has no such path)")
     dev = system.device
     gen = torch.Generator(device=dev).manual_seed(
         int(cfg.get("SEED_VALUE", 1234)))
@@ -310,7 +318,10 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
         if stage == "diffusion":
             trained = system.denoiser
             vae_src = str(cfg.TRAIN.get("PRETRAINED_VAE", "") or "")
-            if vae_src:
+            if vae_src and system.vae is None:
+                logger.warning(f"VAE_TYPE {system.vae_type!r} has no VAE: "
+                               f"PRETRAINED_VAE {vae_src} is not loaded")
+            elif vae_src:
                 epoch, path = load_vae(system.vae, vae_src)
                 logger.info(f"loaded VAE epoch {epoch} from {path}")
         else:

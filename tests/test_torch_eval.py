@@ -349,8 +349,8 @@ def test_release_checkpoint_loads_by_name(env, tmp_path):
 
 
 def test_refusals(env):
-    """The action-conditioned metrics and feature-space diffusion are not
-    ported: each raises, naming its ROADMAP item."""
+    """The action-conditioned metrics are not ported: they raise, naming
+    their ROADMAP item; feature-space diffusion has no stage ``vae``."""
     from ladiff_torch.config import assemble_config
     from ladiff_torch.evaluation.t2m_eval import eval_step
     cfg = assemble_config(
@@ -358,12 +358,13 @@ def test_refusals(env):
         os.path.join(REPO, "configs", "assets.yaml"),
         {**overrides(env["root"], "diffusion"),
          "METRIC": {"TYPE": ["HUMANACTMetrics"]}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1: the action "
+                       "family"):
         port_test.run_test(cfg, logging.getLogger("a2m"), device="cpu")
 
     class FeatureSpace:
-        vae_type = "no"
+        vae_type, vae = "no", None
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        eval_step(FeatureSpace(), None, {}, None, None, mean_eval=0,
+    with pytest.raises(NotImplementedError, match="no VAE"):
+        eval_step(FeatureSpace(), None, {}, None, None, "vae", mean_eval=0,
                   std_eval=1)
