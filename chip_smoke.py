@@ -196,6 +196,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
             as published (float32), one replication at 50 DDPM steps (1000
             published), no launch.  Seconds per eval batch, per
             replication and per MultiModality pass.
+17. kit_slice  the KIT-ML configuration (``config_ladiff_kit.yaml``, 251
+            features, 21 joints) at full width: generation at batch 4
+            (float32 card against CPU with no launch, bf16 beside the
+            plain bf16 control), a stage-1 and a stage-2 pass against the
+            CPU, one bench batch of 256 with ``EXPECTED_PER_BATCH``.
+18. ar_slice  ``ARDIFF`` generation at batch 4, "last" and "full", each
+            token's noise replayed (float32 card against CPU, bf16 beside
+            the control, exact launches); K1 alone at 512 samples of 2 and
+            6 stream rows; one AR training pass against the CPU.
+19. ar_bench  the bench protocol with ``ARDIFF`` ("last"): seconds a
+            batch, ``EXPECTED_AR_PER_BATCH``, a batch's device ms by group
+            and idle share.
+20. distill_slice / distill_bench  one distill pass at batch 4 against
+            the CPU (teacher booted from a checkpoint written there); 10
+            steps at batch 128 (ms, samples/s, peak memory, device ms by
+            group, idle share, ``EXPECTED_DISTILL_PER_STEP``),
+            ``run_training`` stage ``distill`` for 3 steps, the student
+            sampled at guidance 1 (``EXPECTED_STUDENT_PER_BATCH``).
 
 Then a ``kernels`` line (kernel 10 twice: on the frozen encode's path and
 on the novae path, launches a DDPM-1000 batch), and last ``{"ok": true,
@@ -374,7 +392,9 @@ PHASES = (("kernels", False), ("slice", False), ("bench", False),
           ("train_bench", True), ("whole_layer_bench", True),
           ("diffusion_slice", True), ("diffusion_bench", True),
           ("train_entry", True), ("float32_entry", True),
-          ("eval_entry", False))
+          ("eval_entry", False), ("kit_slice", True), ("ar_slice", True),
+          ("ar_bench", False), ("distill_slice", True),
+          ("distill_bench", True))
 
 
 def emit(obj):
@@ -3717,6 +3737,715 @@ def phase_whole_layer_kernels(dev):
     return recs
 
 
+# -- the KIT-ML family, autoregressive latent diffusion and the distill
+#    stage --------------------------------------------------------------------
+
+# AR generation a batch on the bench protocol ("last", 196 frames: every
+# sample has 5 tokens): 5 tokens x 50 DDIM steps x 9 MD layers as K1 at
+# T = 2 stream rows, then the decode and the CLIP call, as the default route
+EXPECTED_AR_PER_BATCH = {"fused_md_layer": 2250, "fused_decoder_layer": 9,
+                         "fused_ln_qkv": 12, "fused_proj_mlp": 12,
+                         "fused_md_stack": 0, "fused_postnorm_ffn": 0,
+                         "fused_stylized_ffn": 0,
+                         "fused_broadcast_stylize": 0}
+# one distill step: the frozen encode (kernels 10 and 5, 9 layers), two
+# guided teacher calls of 9 MD layers as K1 (2B samples, an AdaLN row per
+# sample), the student's 9 training-mode MD layers (kernel 9 the ReLU tail
+# of each sa_block, forward and backward; plain 7-key attention)
+EXPECTED_DISTILL_PER_STEP = {
+    "fused_masked_attention": 9, "fused_postnorm_ffn": 9,
+    "fused_md_layer": 18, "train_postnorm_ffn": 9,
+    "train_postnorm_ffn_bwd": 9, "train_self_attention": 0,
+    "train_self_attention_bwd": 0, "fused_decoder_layer": 0,
+    "fused_md_stack": 0}
+# a distilled student sampled at guidance 1 over its 25 steps: 9 K1
+# launches a step at B (no doubled batch), the decode
+EXPECTED_STUDENT_PER_BATCH = {"fused_md_layer": 225,
+                              "fused_decoder_layer": 9}
+AR_K1_PATH = ("AR denoiser layer, 512 samples x {T} stream rows "
+              "(motion_conditioning {mode}), E 2")
+# device-time groups of a distill step (profiler kernel names)
+DISTILL_GROUPS = (
+    ("fused_md_layer (teacher, K1)", r"md_layer_kernel"),
+    ("fused_masked_attention (frozen encode, kernel 10)", r"attn_tile_kernel"),
+    ("fused_postnorm_ffn (frozen encode, kernel 5)",
+     r"ffn_tail_fwd_kernel<\d+, false"),
+    ("train_postnorm_ffn fwd (student, kernel 9)", r"ffn_tail_fwd_kernel"),
+    ("train_postnorm_ffn bwd (student, kernel 9) and weight gradients",
+     r"ffn_tail_bwd_kernel|ladiff::(wgrad|colsum|reduce)_kernel"),
+    ("AdamW", r"multi_tensor_apply|[Aa]dam"),
+    ("library GEMMs", r"gemm|cutlass|nvjet|cublas"),
+    ("memcpy and memset", r"[Mm]emcpy|[Mm]emset"),
+    ("other ATen kernels", r""),
+)
+
+
+def _config(name, **over):
+    """A published configuration with ``over`` merged on top."""
+    from ladiff_torch.config import assemble_config
+    configs = os.path.join(HERE, "configs")
+    return assemble_config(os.path.join(configs, name),
+                           os.path.join(configs, "assets.yaml"),
+                           over or None)
+
+
+def _from_cfg(cfg, device, dtype=None, param_dtype=None, state=None,
+              seed=None, nfeats=263, njoints=22):
+    """``LADiffSystem.from_cfg`` on ``device`` with unit feature statistics,
+    random weights from ``seed`` or ``state``."""
+    import numpy as np
+    from ladiff_torch.models.ladiff import LADiffSystem
+    system = LADiffSystem.from_cfg(
+        cfg, nfeats=nfeats, njoints=njoints,
+        mean=np.zeros(nfeats, np.float32), std=np.ones(nfeats, np.float32),
+        device=device, dtype=dtype, param_dtype=param_dtype)
+    if state is not None:
+        system.load_state_dict(state, strict=True)
+    elif seed is not None:
+        randomize_(system, seed)
+    return system
+
+
+def _loss_grads(system, forward):
+    """``forward()``'s loss terms (floats) and every gradient it gives
+    (float32, on the CPU)."""
+    system.zero_grad(set_to_none=True)
+    total, (logs, _) = forward()
+    total.backward()
+    return ({k: float(v.detach()) for k, v in logs.items()},
+            {n: p.grad.detach().float().cpu()
+             for n, p in system.named_parameters() if p.grad is not None})
+
+
+def _held_to_control(name, run, cpu, ctl, gpu, hold_grads=True):
+    """``run(system)`` -> (loss terms, gradients) on the float32 CPU system,
+    the plain bf16 CPU control and the card: each of the card's gradient
+    tensors held to ``DIFF_GRAD_RATIO`` times the control's error for it
+    (at least ``DIFF_GRAD_FLOOR``; printed only without ``hold_grads``),
+    each loss term to ``DIFF_LOSS_TOL``.  Returns the record."""
+    import numpy as np
+    import torch
+    logs_c, grads_c = run(cpu)
+    rec, errs = {"logs_cpu": logs_c, "grad_ratio": DIFF_GRAD_RATIO,
+                 "grad_floor": DIFF_GRAD_FLOOR}, {}
+    for who, system in (("cpu_bf16_plain", ctl), ("card", gpu)):
+        logs, grads = run(system)
+        if set(grads) != set(grads_c):
+            fail(f"{name}: other parameters have gradients than on the CPU: "
+                 f"{sorted(set(grads) ^ set(grads_c))[:5]}")
+        if not all(bool(torch.isfinite(t).all()) for t in grads.values()):
+            fail(f"{name}: a gradient is not finite ({who})")
+        errs[who] = {n: relerr(grads[n], w) for n, w in grads_c.items()}
+        worst = max(errs[who], key=errs[who].get)
+        rec[who] = {"loss_rel_errs": {k: abs(logs[k] - w) / abs(w)
+                                      for k, w in logs_c.items()},
+                    "worst_grad_rel_err": errs[who][worst],
+                    "worst_grad": worst,
+                    "median_grad_rel_err": float(np.median(
+                        list(errs[who].values()))),
+                    "n_grad_tensors": len(grads)}
+    limit = {n: max(DIFF_GRAD_RATIO * e, DIFF_GRAD_FLOOR)
+             for n, e in errs["cpu_bf16_plain"].items()}
+    over = max(limit, key=lambda n: errs["card"][n] / limit[n])
+    rec["card"].update(worst_over_limit=errs["card"][over] / limit[over],
+                       worst_over_limit_grad=over, grads_held=hold_grads)
+    losses = rec["card"]["loss_rel_errs"]
+    if (hold_grads and errs["card"][over] > limit[over]) or not all(
+            e <= DIFF_LOSS_TOL for e in losses.values()):
+        fail(f"{name}: gradient of {over} rel err {errs['card'][over]} "
+             f"(limit {limit[over]}), loss terms {losses} (tol "
+             f"{DIFF_LOSS_TOL})")
+    return rec
+
+
+def _generate_runs(name, systems, cond, uncond, lengths, steps, init=None,
+                   draws=None):
+    """``generate`` on each (label, system, on the card) with the same
+    inputs: the latents (float32, on the CPU), seconds and the launches of
+    each run.  ``draws``: every ``torch.randn`` of the sampler replayed in
+    order (the autoregressive sampler's per-token noise)."""
+    from unittest import mock
+
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+    out = {}
+    for label, system, on_card in systems:
+        left = list(draws or ())
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(torch, "randn", lambda *a, **k: left.pop(
+                0).to(device=k["device"], dtype=k["dtype"])):
+            _, z = system.generate(cond, uncond, lengths, init_latents=init,
+                                   num_inference_timesteps=steps)
+        if on_card:
+            torch.cuda.synchronize()
+        if left:
+            fail(f"{name}: {len(left)} replayed draws unused ({label})")
+        out[label] = (z.float().cpu(), time.perf_counter() - t0,
+                      {k: v for k, v in cc.launch_counts().items() if v})
+    return out
+
+
+def _generation_record(name, runs, bf16_want):
+    """float32 card against float32 CPU (``FLOAT32_LOSS_TOL``, no launch)
+    and bf16 card against it (1e-1, the plain bf16 CPU control beside it),
+    exactly ``bf16_want`` launches; padded latent rows zero."""
+    import torch
+    want = runs["cpu_float32"][0]
+    rec = {"float32_rel_err": relerr(runs["card_float32"][0], want),
+           "float32_launches": runs["card_float32"][2],
+           "bf16_rel_err": relerr(runs["card_bf16"][0], want),
+           "bf16_control_rel_err": relerr(runs["cpu_bf16_control"][0], want),
+           "bf16_launches": runs["card_bf16"][2],
+           "finite": bool(torch.isfinite(runs["card_bf16"][0]).all()),
+           "seconds": {k: v[1] for k, v in runs.items()}}
+    if rec["float32_rel_err"] > FLOAT32_LOSS_TOL or rec["float32_launches"]:
+        fail(f"{name}: float32 on the card {rec['float32_rel_err']} from "
+             f"the CPU, launches {rec['float32_launches']}")
+    if not (rec["bf16_rel_err"] <= 1e-1 and rec["finite"]):
+        fail(f"{name}: bf16 {rec['bf16_rel_err']} from float32 (control "
+             f"{rec['bf16_control_rel_err']}), finite={rec['finite']}")
+    if rec["bf16_launches"] != bf16_want:
+        fail(f"{name}: launches {rec['bf16_launches']}, expected "
+             f"{bf16_want}")
+    return rec
+
+
+def phase_kit_slice(dev):
+    """The KIT-ML family at full width (``configs/config_ladiff_kit.yaml``:
+    d 256, 9 + 9 layers, 251 features, 21 joints), seeded random weights,
+    dropout 0: (a) generation at batch 4, lengths 24 / 60 / 123 / 196,
+    DDIM-10, the initial noise handed in: float32 card against float32 CPU
+    with no launch, bf16 card within 1e-1 of the float32 CPU beside the
+    plain bf16 CPU control, K1 9 x 10 and K2 9 launches; (b) one stage-1
+    pass (``vae_forward``) at batch 4, loss and every VAE gradient against
+    the CPU at ``train_slice``'s tolerance without the joints loss (with
+    all losses at feature std 0.1 printed beside the plain bf16 control),
+    and one stage-2 pass
+    (``diffusion_forward``) held to the bf16 control as
+    ``diffusion_slice`` holds it; (c) the bench protocol on this system
+    (bf16, batch 256, 196 frames, CLIP in the timed region, CFG DDIM-50):
+    seconds a batch and exactly ``EXPECTED_PER_BATCH`` launches."""
+    import torch
+    from ladiff_torch import bench
+    from ladiff_torch.models.clip_text import CLIPTextTower
+    from ladiff_torch.ops import cuda_common as cc
+
+    kit = dict(nfeats=251, njoints=21)
+    cfg = _config("config_ladiff_kit.yaml", model={"droupout": 0.0})
+    B, steps = 4, 10
+    lengths = torch.tensor([24, 60, 123, 196])
+    g = torch.Generator().manual_seed(15)
+    cond = torch.randn(B, 1, 768, generator=g)
+    uncond = 0.1 * torch.randn(B, 1, 768, generator=g)
+    init = torch.randn(B, 5, 256, generator=g)
+    cpu = _from_cfg(cfg, "cpu", torch.float32, seed=51, **kit)
+    state = cpu.state_dict()
+    runs = _generate_runs("kit_slice", (
+        ("cpu_float32", cpu, False),
+        ("cpu_bf16_control", _from_cfg(cfg, "cpu", torch.bfloat16,
+                                       state=state, **kit), False),
+        ("card_float32", _from_cfg(cfg, dev, torch.float32, state=state,
+                                   **kit), True),
+        ("card_bf16", _from_cfg(cfg, dev, state=state, **kit), True)),
+        cond, uncond, lengths, steps, init=init)
+    gen_rec = _generation_record(
+        "kit_slice", runs, {"fused_md_layer": 9 * steps,
+                            "fused_decoder_layer": 9})
+
+    # (b) the two training stages' passes at batch 4: float32 parameters
+    # everywhere, bf16 compute on the control and the card
+    batch = {"motion": torch.randn(B, 196, 251, generator=g),
+             "length": lengths, "text_emb": torch.randn(B, 1, 768,
+                                                        generator=g)}
+    eps = torch.randn(B, 5, 256, generator=g)
+    draws = {"eps": torch.randn(B, 5, 256, generator=g),
+             "noise": torch.randn(B, 5, 256, generator=g),
+             "timesteps": torch.randint(0, 1000, (B,), generator=g),
+             "cond_drop": torch.tensor([False, True, False, False]).reshape(
+                 B, 1, 1)}
+    ctl = _from_cfg(cfg, "cpu", torch.bfloat16, torch.float32, state, **kit)
+    gpu = _from_cfg(cfg, dev, None, torch.float32, state, **kit)
+    stage1 = _slice_cases("kit stage 1", gpu, cpu, ctl, batch, eps,
+                          cases=("unit_std_no_joints",))
+    # through the joints loss the KIT system is worse conditioned in bf16
+    # than the HumanML3D one: the plain bf16 CPU control reads 7.7e-3 on
+    # the loss and 0.149 on its worst gradient at feature std 0.1, at
+    # train_slice's limits themselves, so that case is printed beside its
+    # control and held to nothing (as train_slice's third case is)
+    loss_c, grads_c = _vae_loss_and_grads(cpu, batch, eps,
+                                          *SLICE_CASES["std_0.1_all_losses"])
+    stage1["std_0.1_all_losses"] = {
+        who: _against_cpu("kit stage 1", system, batch, eps,
+                          "std_0.1_all_losses", loss_c, grads_c)[0]
+        for who, system in (("card", gpu), ("cpu_bf16_plain", ctl))}
+    for system in (cpu, ctl, gpu):
+        system.std.fill_(1.0)
+    stage2 = _held_to_control(
+        "kit stage 2", lambda s: _loss_grads(s, lambda: s.diffusion_forward(
+            batch, uncond[:1], train=True, **draws)), cpu, ctl, gpu)
+    del cpu, ctl, gpu
+
+    # (c) a full-width batch of 256 on the bench protocol
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        tower = CLIPTextTower().to(device=dev, dtype=torch.bfloat16).eval()
+    system = _from_cfg(_config("config_ladiff_kit.yaml"), dev, seed=52,
+                       **kit)
+    cc.reset_launch_counts()
+    res = bench.measure(system, tower, batches=1)
+    counts = cc.launch_counts()
+    per_batch = {k: v / (bench.WARMUP + 1) for k, v in counts.items()}
+    emit({"phase": "kit_slice", "batch": B, "steps": steps,
+          "lengths": lengths.tolist(), "generate": gen_rec,
+          "stage1": stage1, "stage2": stage2,
+          "bench": {"batch": bench.BATCH, "frames": bench.FRAMES,
+                    "seconds_per_batch": res["seconds_per_batch"],
+                    "samples_per_sec": res["samples_per_sec"],
+                    "shape": res["shape"], "finite": res["finite"],
+                    "launches_per_batch": per_batch}})
+    if not res["finite"] or res["shape"] != [bench.BATCH, bench.FRAMES, 251]:
+        fail(f"kit_slice: bench features {res['shape']}, finite="
+             f"{res['finite']}")
+    for name, want in EXPECTED_PER_BATCH.items():
+        if per_batch.get(name, 0) != want:
+            fail(f"kit_slice: {name}: {per_batch.get(name)} launches a "
+                 f"batch, expected {want}")
+
+
+def phase_ar_slice(dev):
+    """Autoregressive latent diffusion (``configs/config_ladiff_humanml3d
+    .yaml`` with ``ARDIFF: true``) at full width, seeded random weights,
+    dropout 0.  (a) ``generate`` at batch 4, lengths 16 / 60 / 123 / 196,
+    CFG 7.5 DDIM-10, with "last" and with "full" conditioning, each
+    token's noise replayed through a patched ``torch.randn``: float32 card
+    against float32 CPU with no launch, bf16 card within 1e-1 of it beside
+    the plain bf16 CPU control, exactly 5 x 10 x 9 K1 and 9 K2 launches.
+    (b) K1 alone at the AR shapes: 512 samples of T = 2 ("last") and T = 6
+    ("full") stream rows, E 2, the enclat rows masked as the sampler masks
+    them, against its float32 plain version (``KERNEL_TOL``), with device
+    ms and bound.  (c) one AR training pass (``diffusion_forward_ar``) at
+    batch 4 with every draw given, card against the CPU held to the bf16
+    control, its launches exactly ``EXPECTED_PER_DIFFUSION_STEP``.
+    Returns K1's records."""
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.ops.md_layer import (fused_md_layer,
+                                           md_launch_geometry,
+                                           md_layer_plain)
+    from ladiff_torch.ops.stylization import MDTransformerLayer
+
+    cfg = _config("config_ladiff_humanml3d.yaml", ARDIFF=True,
+                  model={"droupout": 0.0})
+    B, steps = 4, 10
+    lengths = torch.tensor([16, 60, 123, 196])
+    g = torch.Generator().manual_seed(16)
+    cond = torch.randn(B, 1, 768, generator=g)
+    uncond = 0.1 * torch.randn(B, 1, 768, generator=g)
+    draws = list(torch.randn(5, B, 1, 256, generator=g))
+    cpu = _from_cfg(cfg, "cpu", torch.float32, seed=53)
+    state = cpu.state_dict()
+    systems = (("cpu_float32", cpu, False),
+               ("cpu_bf16_control", _from_cfg(cfg, "cpu", torch.bfloat16,
+                                              state=state), False),
+               ("card_float32", _from_cfg(cfg, dev, torch.float32,
+                                          state=state), True),
+               ("card_bf16", _from_cfg(cfg, dev, state=state), True))
+    gen = {}
+    for mode in ("last", "full"):
+        for _, system, _ in systems:
+            system.motion_conditioning = mode
+        gen[mode] = _generation_record(
+            f"ar_slice ({mode})", _generate_runs(
+                f"ar_slice ({mode})", systems, cond, uncond, lengths, steps,
+                draws=draws),
+            {"fused_md_layer": 5 * steps * 9, "fused_decoder_layer": 9})
+    del systems
+
+    # (b) K1 alone at the AR shapes
+    D, H, F, E, N = 256, 4, 1024, 2, 512
+    bf = torch.bfloat16
+    rg = torch.Generator().manual_seed(17)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=rg) * scale).to(
+        dev, bf)
+    layer = randomize_(MDTransformerLayer(D, D, F, H), 18).to(dev, bf)
+    p1 = layer.kernel_params()
+    p32 = {k: v.float() for k, v in p1.items()}
+    k_tok = torch.arange(N) % 5  # the token each sample is sampling
+    k1 = []
+    for mode, T in (("last", 2), ("full", 6)):
+        cond_valid = ((k_tok > 0)[:, None] if T == 2
+                      else torch.arange(5)[None] < k_tok[:, None])
+        kvalid = torch.cat([torch.ones(N, 1, dtype=torch.bool), cond_valid],
+                           1).reshape(N * T).float().to(dev)
+        a1 = (rnd(N * T, D), rnd(N * E, D), kvalid, rnd(N, D),
+              rnd(1, 2 * D, scale=0.3), rnd(1, 2 * D, scale=0.3))
+        fl = 2 * N * T * D * (3 * D + 3 * D + 2 * F) \
+            + 2 * N * E * D * 2 * D \
+            + 4 * T * D * (int(kvalid.sum()) + N * E) \
+            + 2 * N * T * 2 * F * D
+        path = AR_K1_PATH.format(T=T, mode=mode)
+        with torch.no_grad():
+            rec = check_kernel(
+                "fused_md_layer", "ladiff_torch/csrc/md_layer.cu",
+                "ladiff_tpu/ops/pallas_md_layer.py:198",
+                lambda: fused_md_layer(*a1, p1, T=T, E=E, H=H),
+                lambda: md_layer_plain(*[t.float() for t in a1], p32, T=T,
+                                       E=E, H=H),
+                lambda: md_layer_plain(*a1, p1, T=T, E=E, H=H),
+                fl, nbytes(*a1, *p1.values(), a1[0]),
+                extra={"path": path, **md_launch_geometry(
+                    "md_layer", dev, N, T, E, D, F, F)})
+        rec["path"] = path
+        k1.append(rec)
+        del a1
+
+    # (c) one AR training pass at batch 4
+    batch = {"motion": torch.randn(B, 196, 263, generator=g),
+             "length": lengths, "text_emb": cond}
+    tdraws = {"eps": torch.randn(B, 5, 256, generator=g),
+              "noise": torch.randn(B, 1, 256, generator=g),
+              "timesteps": torch.randint(0, 1000, (B,), generator=g),
+              "cond_drop": torch.tensor([False, True, False, False]).reshape(
+                  B, 1, 1),
+              "latent_idx": torch.tensor([0, 1, 2, 3]),
+              "coin": torch.tensor(False)}
+    counts = {}
+
+    def run(system):
+        cc.reset_launch_counts()
+        out = _loss_grads(system, lambda: system.diffusion_forward_ar(
+            batch, uncond[:1], train=True, **tdraws))
+        if system.device.type == "cuda":
+            torch.cuda.synchronize()
+            counts.update(cc.launch_counts())
+        return out
+
+    train = _held_to_control(
+        "ar_slice training", run, cpu,
+        _from_cfg(cfg, "cpu", torch.bfloat16, torch.float32, state),
+        _from_cfg(cfg, dev, None, torch.float32, state))
+    emit({"phase": "ar_slice", "batch": B, "steps": steps,
+          "lengths": lengths.tolist(), "generate": gen,
+          "k1": [{k: r[k] for k in ("path", "ms", "plain_ms", "bound_ms",
+                                    "max_abs_err")} for r in k1],
+          "training": train, "training_launches": {
+              k: v for k, v in counts.items() if v}})
+    for name, want in EXPECTED_PER_DIFFUSION_STEP.items():
+        if counts.get(name, 0) != want:
+            fail(f"ar_slice training: {name}: {counts.get(name)} launches, "
+                 f"expected {want}")
+    return k1
+
+
+def phase_ar_bench(dev, gpu=""):
+    """The bench protocol on autoregressive generation: the published
+    configuration with ``ARDIFF: true`` ("last"), bf16, batch 256, 196
+    frames, CLIP at the 32-token bucket inside the timed region, CFG 7.5
+    DDIM-50 per token (250 guided denoiser calls a batch at 2 stream rows a
+    sample), the decode; one warm-up and 2 timed batches: seconds a batch,
+    samples/s, exactly ``EXPECTED_AR_PER_BATCH`` launches a batch; then
+    one batch profiled by part (``bench.breakdown``: device ms by group,
+    idle share).  Returns the launches a batch."""
+    import torch
+    from ladiff_torch import bench
+    from ladiff_torch.models.clip_text import CLIPTextTower
+    from ladiff_torch.ops import cuda_common as cc
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        tower = CLIPTextTower().to(device=dev, dtype=torch.bfloat16).eval()
+    system = _from_cfg(_config("config_ladiff_humanml3d.yaml", ARDIFF=True),
+                       dev, seed=54)
+    batches = 2
+    cc.reset_launch_counts()
+    res = bench.measure(system, tower, batches=batches)
+    counts = cc.launch_counts()
+    per_batch = {k: v / (bench.WARMUP + batches) for k, v in counts.items()}
+    brk = bench.breakdown(system, tower, res["seconds_per_batch"])
+    emit({"phase": "ar_bench", "gpu": gpu, "batch": bench.BATCH,
+          "frames": bench.FRAMES, "steps": bench.STEPS,
+          "motion_conditioning": system.motion_conditioning,
+          "seconds_per_batch": res["seconds_per_batch"],
+          "samples_per_sec": res["samples_per_sec"], "finite": res["finite"],
+          "shape": res["shape"], "launches_per_batch": per_batch, **brk})
+    print(f"# ar_bench: {res['seconds_per_batch']} s a batch of "
+          f"{bench.BATCH} ({res['samples_per_sec']:.1f} samples/s), "
+          f"{brk['device_ms_per_batch']:.1f} device ms a batch (idle "
+          f"{brk['idle_share']:.0%}); {gpu}", flush=True)
+    if not res["finite"] or res["shape"] != [bench.BATCH, bench.FRAMES, 263]:
+        fail(f"ar_bench: features {res['shape']}, finite={res['finite']}")
+    for name, want in EXPECTED_AR_PER_BATCH.items():
+        if per_batch.get(name, 0) != want:
+            fail(f"ar_bench: {name}: {per_batch.get(name)} launches a "
+                 f"batch, expected {want}")
+    return per_batch
+
+
+def _teacher_checkpoint(tmp, system):
+    """``system``'s weights as a stage-2 checkpoint directory under
+    ``tmp``."""
+    from ladiff_torch.utils.checkpoint import save_checkpoint
+    ckpt = os.path.join(tmp, "teacher", "checkpoints")
+    save_checkpoint(ckpt, 1, system.state_dict())
+    return ckpt
+
+
+def phase_distill_slice(dev):
+    """One progressive-distillation pass at batch 4 at full width (the
+    train_bench system, dropout 0): the teacher and the VAE booted from a
+    stage-2 checkpoint written here (``load_teacher``), the student first
+    a copy of the teacher, a grid of 25 student steps (ratio 40), every draw
+    given (one sample at t = 1, the teacher's one-step target): loss and
+    every student gradient, card against the CPU held to the plain bf16
+    control, for a student of its own random weights; for the student
+    that starts as the teacher the loss is held and the gradients printed
+    beside the control; the card's launches exactly
+    ``EXPECTED_DISTILL_PER_STEP``."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.distill import distill_forward
+    from ladiff_torch.utils.checkpoint import load_teacher
+
+    lengths = torch.tensor([16, 60, 123, 196])
+    B = len(lengths)
+    g = torch.Generator().manual_seed(19)
+    batch = {"motion": torch.randn(B, 196, 263, generator=g),
+             "length": lengths,
+             "text_emb": torch.randn(B, 1, 768, generator=g)}
+    uncond = 0.1 * torch.randn(1, 1, 768, generator=g)
+    draws = {"i": torch.tensor([0, 7, 18, 24]),
+             "eps": torch.randn(B, 5, 256, generator=g),
+             "noise": torch.randn(B, 5, 256, generator=g)}
+    tmp = tempfile.mkdtemp(prefix="ladiff_distill_slice_")
+    try:
+        src = _teacher_checkpoint(tmp, randomize_(train_bench.build(
+            "cpu", dropout=0.0)[0], 24))
+        systems, teachers = [], {}
+        for device, dtype in (("cpu", None), ("cpu", torch.bfloat16),
+                              (dev, None)):
+            system = train_bench.build(device, dropout=0.0, dtype=dtype)[0]
+            load_teacher(system, src)
+            teachers[id(system)] = copy.deepcopy(
+                system.denoiser).requires_grad_(False)
+            systems.append(system)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {}
+
+    def run(system):
+        cc.reset_launch_counts()
+        out = _loss_grads(system, lambda: distill_forward(
+            system, system.denoiser, teachers[id(system)], batch, uncond, 25,
+            **draws))
+        if system.device.type == "cuda":
+            torch.cuda.synchronize()
+            counts.update(cc.launch_counts())
+        return out
+
+    # a student that starts as the teacher (the stage's first step) makes
+    # x0_student - x0_target the small difference of one student step and
+    # two teacher steps of the same weights, so its gradients are
+    # differences of nearly equal terms: printed beside the control, the
+    # loss held; a student of its own weights (any later step) is held in
+    # full
+    copy_rec = _held_to_control("distill_slice (student = teacher)", run,
+                                *systems, hold_grads=False)
+    state = randomize_(systems[0].denoiser, 25).state_dict()
+    for system in systems[1:]:
+        system.denoiser.load_state_dict(state, strict=True)
+    rec = _held_to_control("distill_slice (student of its own)", run,
+                           *systems)
+    emit({"phase": "distill_slice", "batch": B, "lengths": lengths.tolist(),
+          "student_steps": 25, "positions": draws["i"].tolist(),
+          "student_of_its_own": rec, "student_copy_of_teacher": copy_rec,
+          "launches": {k: v for k, v in counts.items() if v}})
+    for name, want in EXPECTED_DISTILL_PER_STEP.items():
+        if counts.get(name, 0) != want:
+            fail(f"distill_slice: {name}: {counts.get(name)} launches, "
+                 f"expected {want}")
+
+
+def phase_distill_bench(dev, gpu=""):
+    """(a) ``distill_train_step`` at full width on the train_bench batch of
+    128 (dropout 0.1, float32 parameters, bf16 compute), grid 25 (ratio
+    40): 2 warm-up steps, 10 timed (host clock, a sync at the end): ms a
+    step, samples/s, peak memory, launches a step exactly
+    ``EXPECTED_DISTILL_PER_STEP``; 2 steps profiled against 2 unprofiled
+    (device ms by group, ``DISTILL_GROUPS``, idle share).  (b)
+    ``run_training`` with ``TRAIN.STAGE: distill`` on the published
+    stage-2 configuration (bf16, batch 128, ``DISTILL_STEPS`` 25) from a
+    teacher checkpoint of (a)'s system, 3 steps on 512 synthetic clips:
+    losses, launches a step, the VAE unchanged and the student moved.
+    (c) the student sampled at guidance 1 over its 25 steps at batch 32:
+    exactly ``EXPECTED_STUDENT_PER_BATCH`` launches, every denoiser call on
+    B rows (no doubled batch), seconds a batch.  Returns the launches a
+    step of (a)."""
+    import copy
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ladiff_torch import train_bench
+    from ladiff_torch.data.datamodule import get_datasets
+    from ladiff_torch.data.synthetic import generate_synthetic_dataset
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.loop import run_training
+    from ladiff_torch.training.trainer import distill_train_step
+    from ladiff_torch.utils.checkpoint import (latest_checkpoint,
+                                               load_checkpoint)
+    from ladiff_torch.utils.logger import create_logger
+
+    tmp = tempfile.mkdtemp(prefix="ladiff_distill_")
+    try:
+        system, opt = train_bench.build(dev, stage="diffusion_train")
+        src = _teacher_checkpoint(tmp, system)
+        teacher = copy.deepcopy(system.denoiser).requires_grad_(False)
+        batch = train_bench.make_batch(device=dev)
+        B = int(batch["motion"].shape[0])
+        uncond = torch.zeros(1, 1, 768, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        step = lambda: distill_train_step(system, teacher, opt, batch, uncond,
+                                          25, gen)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cc.reset_launch_counts()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            logs = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        per_step = {k: v / iters for k, v in cc.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 2 * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+        groups = {name: 0.0 for name, _ in DISTILL_GROUPS}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if us > 0:
+                name = next(n for n, pat in DISTILL_GROUPS
+                            if re.search(pat, ev.key))
+                groups[name] += us / 2 / 1e3
+        device_ms = sum(groups.values())
+        bench_rec = {"batch": B, "student_steps": 25, "steps": iters,
+                     "ms_per_step": ms, "samples_per_sec": B / ms * 1e3,
+                     "loss": float(logs["total"]),
+                     "grad_norm": float(logs["grad_norm"]),
+                     "peak_mem_gb": peak, "launches_per_step": per_step,
+                     "window_host_ms_per_step": host_ms,
+                     "device_ms_per_step": device_ms,
+                     "idle_share": 1.0 - device_ms / host_ms,
+                     "device_ms_by_group": groups}
+        print(f"# distill_bench: {ms:.2f} ms a step of {B} "
+              f"({B / ms * 1e3:.0f} samples/s), {device_ms:.1f} device ms in "
+              f"{host_ms:.1f} (idle {bench_rec['idle_share']:.0%}); {gpu}",
+              flush=True)
+        if not (math.isfinite(bench_rec["loss"])
+                and math.isfinite(bench_rec["grad_norm"])):
+            fail("distill_bench: non-finite loss or gradient norm")
+        for name, want in EXPECTED_DISTILL_PER_STEP.items():
+            if per_step.get(name, 0) != want:
+                fail(f"distill_bench: {name}: {per_step.get(name)} launches a "
+                     f"step, expected {want}")
+
+        del system, opt, teacher, batch
+        data = generate_synthetic_dataset(os.path.join(tmp, "humanml3d"),
+                                          n_clips=512, seed=0)
+        cfg = _config("config_ladiff_humanml3d.yaml", **{
+            "DEBUG": False, "FOLDER": os.path.join(tmp, "experiments"),
+            "DATASET": {"HUMANML3D": {"ROOT": data}},
+            "LOGGER": {"SACE_CHECKPOINT_EPOCH": 1, "TENSORBOARD": False},
+            "TRAIN": {"STAGE": "distill", "PRETRAINED": src,
+                      "DISTILL_STEPS": 25, "MIXED_PRECISION": True,
+                      "END_EPOCH": 1}})
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        ckpt = run_training(cfg, get_datasets(cfg, phase="train")[0],
+                            create_logger(cfg, phase="train"),
+                            max_steps_per_epoch=3, device=dev)
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t0
+        entry_counts = {k: v / 3 for k, v in cc.launch_counts().items()
+                        if k in EXPECTED_DISTILL_PER_STEP}
+        with open(os.path.join(cfg.FOLDER_EXP, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["train/distill/total"] for line in f]
+        _, sd_t = load_checkpoint(latest_checkpoint(src)[1])
+        _, sd_s = load_checkpoint(latest_checkpoint(ckpt)[1])
+        vae_kept = all(torch.equal(sd_s[k], v) for k, v in sd_t.items()
+                       if k.startswith("vae."))
+        moved = any(not torch.equal(sd_s[k], v) for k, v in sd_t.items()
+                    if k.startswith("denoiser."))
+
+        # (c) the student at guidance 1 over its 25 steps
+        scfg = _config("config_ladiff_humanml3d.yaml", model={
+            "guidance_scale": 1.0,
+            "scheduler": {"num_inference_timesteps": 25}})
+        student = _from_cfg(scfg, dev, state=sd_s)
+        n = 32
+        rows = []
+        hook = student.denoiser.register_forward_pre_hook(
+            lambda m, a: rows.append(a[0].shape[0]))
+        sg = torch.Generator().manual_seed(20)
+        cond = torch.randn(n, 1, 768, generator=sg).to(dev)
+        lengths = mixed_lengths(n, seed=5).to(dev)
+        sgen = torch.Generator(device=dev).manual_seed(21)
+        student.generate(cond, torch.zeros_like(cond), lengths,
+                         generator=sgen)
+        torch.cuda.synchronize()
+        rows.clear()
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        feats, _ = student.generate(cond, torch.zeros_like(cond), lengths,
+                                    generator=sgen)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        hook.remove()
+        sample_counts = {k: v for k, v in cc.launch_counts().items() if v}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "distill_bench", "gpu": gpu, "step": bench_rec,
+           "entry": {"batch": int(cfg.TRAIN.BATCH_SIZE), "steps": 3,
+                     "seconds": entry_s, "losses": losses,
+                     "launches_per_step": entry_counts,
+                     "vae_unchanged": vae_kept, "student_moved": moved},
+           "student_sampling": {"batch": n, "steps": 25,
+                                "seconds": sample_s,
+                                "denoiser_rows": sorted(set(rows)),
+                                "denoiser_calls": len(rows),
+                                "launches": sample_counts,
+                                "finite": bool(torch.isfinite(feats).all())}}
+    emit(rec)
+    if not (losses and all(map(math.isfinite, losses)) and vae_kept
+            and moved):
+        fail(f"distill_bench: run_training {rec['entry']}")
+    for name, want in EXPECTED_DISTILL_PER_STEP.items():
+        if entry_counts.get(name, 0) != want:
+            fail(f"distill_bench: run_training: {name}: "
+                 f"{entry_counts.get(name)} launches a step, expected {want}")
+    s = rec["student_sampling"]
+    if (s["denoiser_rows"] != [n] or s["denoiser_calls"] != 25
+            or s["launches"] != EXPECTED_STUDENT_PER_BATCH or not s["finite"]):
+        fail(f"distill_bench: student sampling {s}")
+    return per_step
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser()
@@ -3725,6 +4454,7 @@ def main():
                     "(e.g. whole_layer_kernels) for a short check; the "
                     "default runs every phase and ends with the ok line")
     only = [p for p in ap.parse_args().only.split(",") if p]
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -3748,12 +4478,14 @@ def main():
             continue
         # the route bench prints the default route's samples/s beside its own
         args = ((out["bench"][1],) if name == "route_bench" and "bench" in out
-                else (gpu,) if name in ("eval_entry", "novae_bench")
+                else (gpu,) if name in ("eval_entry", "novae_bench",
+                                        "ar_bench", "distill_bench")
                 else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)
     if only:
-        emit({"phases_run": only})
+        emit({"phases_run": only,
+              "seconds": time.perf_counter() - t_start})
         return
     recs, (counts, _) = out["kernels"], out["bench"]
     route_recs = out["route_kernels"]
@@ -3796,6 +4528,7 @@ def main():
             fail(f"{rec['name']} was not launched on the main path")
     if any(k in sys.modules for k in ("jax", "flax", "ladiff_tpu")):
         fail("JAX was imported")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": recs})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -177,7 +177,8 @@ def breakdown(system, tower, seconds_per_batch: List[float],
     out = {}
     parts = (
         lambda: out.update(text=encode_text(tower, ids, full_context)),
-        lambda: out.update(z=system.diffusion_reverse(
+        lambda: out.update(z=(system.diffusion_reverse_ar if system.ardiff
+                              else system.diffusion_reverse)(
             out["text"], text_uncond, lengths, gen)),
         lambda: system.vae.decode(out["z"].to(system.dtype), lengths,
                                   FRAMES))

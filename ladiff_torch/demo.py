@@ -15,10 +15,11 @@ J, 3]) and ``sample_NNN.txt`` (the caption) to ``--out_dir`` or
 ``--allinone`` also writes all replications as one ``<task>_all.npy``
 [samples, replications, frames, J, 3].
 
-Tasks: ``text_motion`` generates from the captions (CFG sampling, then the
-LA-VAE's decode; with ``VAE_TYPE`` "no" the sampled frames are the
-features); ``random_latent`` decodes z ~ N(0, I) from the demo's generator,
-inactive latent rows zeroed per length; ``reconstruction`` encodes the
+Tasks: ``text_motion`` generates from the captions (CFG sampling, token by
+token where the configuration sets ``ARDIFF``, then the LA-VAE's decode;
+with ``VAE_TYPE`` "no" the sampled frames are the features);
+``random_latent`` decodes z ~ N(0, I) from the demo's generator, inactive
+latent rows zeroed per length; ``reconstruction`` encodes the
 features in the ``.npy`` beside the example's ``.txt`` (one clip
 [frames, nfeats]) and decodes them.  ``--latentwise_gen fw|bw`` decodes
 each sample MAX_IT times, keeping latent rows 0..i (fw) or the last i + 1
@@ -212,8 +213,9 @@ def _generate_once(cfg, system, generator, cond, uncond, texts, lengths,
         texts = ["reconstruction"]
         z, _, _, _ = system.vae.encode(feats_in, lengths, generator=generator)
     else:
-        z = system.diffusion_reverse(cond, uncond, lengths,
-                                     generator=generator)
+        reverse = (system.diffusion_reverse_ar if system.ardiff
+                   else system.diffusion_reverse)
+        z = reverse(cond, uncond, lengths, generator=generator)
     if latentwise:
         n, M = z.shape[0], system.max_it
         z = z.repeat_interleave(M, dim=0)

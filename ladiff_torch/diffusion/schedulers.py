@@ -3,13 +3,15 @@
 ``squaredcos_cap_v2`` betas; ``epsilon``, ``sample`` and ``v_prediction``
 outputs; the DDIM step (eta 0 or above, the noise passed in), the ancestral
 DDPM step, the forward process ``add_noise`` of denoiser training, and the
-inversion of one DDIM jump (``ddim_solve_eps_x0``).  A step's timesteps are
-host ints, so its coefficients are host floats."""
+inversion of one DDIM jump (``ddim_solve_eps_x0``).  A sampling loop's
+timesteps are host ints, so its coefficients are host floats; the DDIM step
+also takes per-sample [B] integer tensors (the distillation step), whose
+coefficients are gathered from the alpha table on the sample's device."""
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -68,15 +70,23 @@ class DiffusionSchedule:
         sqrt_1macp = (1.0 - acp).sqrt().reshape(shape).to(x0.dtype)
         return sqrt_acp * x0 + sqrt_1macp * noise
 
-    def _alpha(self, timestep: int, before_zero: float) -> float:
+    def _alpha(self, timestep: Union[int, torch.Tensor], before_zero: float,
+               like: torch.Tensor):
         """acp[timestep] as a host float, ``before_zero`` for a timestep
-        below 0."""
+        below 0; for a [B] tensor of timesteps a float32 tensor [B, 1, ...]
+        that broadcasts against ``like``."""
+        if isinstance(timestep, torch.Tensor):
+            table = self.table(like.device)
+            t = timestep.to(like.device)
+            a = torch.where(t >= 0, table[t.clamp_min(0)],
+                            torch.full_like(table[:1], before_zero))
+            return a.reshape((-1,) + (1,) * (like.dim() - 1))
         if timestep < 0:
             return before_zero
         return float(self.alphas_cumprod[timestep])
 
     def _predict_x0_eps(self, model_output: torch.Tensor,
-                        sample: torch.Tensor, a_t: float):
+                        sample: torch.Tensor, a_t):
         """(x0, eps) from the model's output at a timestep of acp a_t."""
         sa, sb = _sqrt(a_t), _sqrt(1.0 - a_t)
         if self.prediction_type == "epsilon":
@@ -92,20 +102,24 @@ class DiffusionSchedule:
             raise ValueError(f"unknown prediction type {self.prediction_type}")
         return x0, eps
 
-    def ddim_step(self, model_output: torch.Tensor, timestep: int,
-                  prev_timestep: int, sample: torch.Tensor, eta: float = 0.0,
+    def ddim_step(self, model_output: torch.Tensor,
+                  timestep: Union[int, torch.Tensor],
+                  prev_timestep: Union[int, torch.Tensor],
+                  sample: torch.Tensor, eta: float = 0.0,
                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One DDIM update x_t -> x_{t-dt} (diffusers ``DDIMScheduler.step``);
-        with ``eta`` > 0 it adds ``sigma * noise``, the caller's draw."""
-        a_t = self._alpha(timestep, self.final_alpha_cumprod)
-        a_prev = self._alpha(prev_timestep, self.final_alpha_cumprod)
+        with ``eta`` > 0 it adds ``sigma * noise``, the caller's draw.  The
+        timesteps are host ints or [B] integer tensors, one per sample; a
+        previous timestep below 0 takes ``final_alpha_cumprod``."""
+        a_t = self._alpha(timestep, self.final_alpha_cumprod, sample)
+        a_prev = self._alpha(prev_timestep, self.final_alpha_cumprod, sample)
         x0, eps = self._predict_x0_eps(model_output, sample, a_t)
         sigma = 0.0
         if eta > 0.0:
             if noise is None:
                 raise ValueError("ddim_step with eta > 0 needs the noise")
-            sigma = eta * math.sqrt((1.0 - a_prev) / (1.0 - a_t)
-                                    * (1.0 - a_t / a_prev))
+            sigma = eta * _sqrt((1.0 - a_prev) / (1.0 - a_t)
+                                * (1.0 - a_t / a_prev))
         prev = _sqrt(a_prev) * x0 + _sqrt(1.0 - a_prev - sigma ** 2) * eps
         if eta > 0.0:
             prev = prev + sigma * noise
@@ -120,8 +134,8 @@ class DiffusionSchedule:
         is the caller's draw, unused at t = 0."""
         t = timestep
         t_prev = t - 1 if prev_timestep is None else prev_timestep
-        a_t = self._alpha(t, 1.0)
-        a_prev = self._alpha(t_prev, 1.0)
+        a_t = self._alpha(t, 1.0, sample)
+        a_prev = self._alpha(t_prev, 1.0, sample)
         alpha_jump = a_t / a_prev
         beta_t = 1.0 - alpha_jump
         beta_prod_t = 1.0 - a_t
@@ -133,8 +147,11 @@ class DiffusionSchedule:
         return mean + math.sqrt(variance) * noise if t > 0 else mean
 
 
-def _sqrt(v: float) -> float:
-    """sqrt of a table value, rounded through float32 like the tables."""
+def _sqrt(v):
+    """sqrt of a table value, rounded through float32 like the tables (a
+    tensor's own sqrt)."""
+    if isinstance(v, torch.Tensor):
+        return v.sqrt()
     return float(np.sqrt(np.float32(v)))
 
 
@@ -165,12 +182,8 @@ def ddim_solve_eps_x0(schedule: DiffusionSchedule, x_t: torch.Tensor,
     (the progressive-distillation target).  ``t`` / ``t_next`` are [B]
     integer tensors on x_t's device; ``t_next`` < 0 takes the schedule's
     final_alpha_cumprod, as ``ddim_step`` does."""
-    table = schedule.table(x_t.device)
-    shape = (-1,) + (1,) * (x_t.dim() - 1)
-    a_t = table[t].reshape(shape)
-    a_n = torch.where(t_next >= 0, table[t_next.clamp_min(0)],
-                      torch.full_like(table[:1], schedule.final_alpha_cumprod)
-                      ).reshape(shape)
+    a_t = schedule._alpha(t, schedule.final_alpha_cumprod, x_t)
+    a_n = schedule._alpha(t_next, schedule.final_alpha_cumprod, x_t)
     sa_t, sb_t = a_t.sqrt(), (1.0 - a_t).sqrt()
     sa_n, sb_n = a_n.sqrt(), (1.0 - a_n).sqrt()
     det = sa_n * sb_t - sa_t * sb_n  # > 0 whenever a_next > a_t

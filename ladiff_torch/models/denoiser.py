@@ -17,6 +17,14 @@ Linear-SiLU-Linear to D; pooled CLIP text projected by ReLU + Linear.
     ``[time; text; frames]``, ``pose_proj`` (D -> nfeats) maps the frame rows
     back and ``frame_valid`` zeroes the padded frames.
 
+Autoregressive conditioning (the ARDIFF family): ``enclat`` [B, n_cond, D]
+conditioning latents join the stream after the sample's rows, with the row
+mask ``[latent_valid or ones; enclat_valid or ones]`` where either is given;
+the output is the sample's rows.  In the MD wiring that mask is the layers'
+row mask; the plain wiring passes a key mask over ``[stream; time; text]``
+only where both ``enclat_valid`` and a stream mask exist (never with
+``diffusion_only``), as the JAX package does.
+
 ``position_embedding`` is "learned" (``query_pos.pe``) or "sine" (no
 parameter).  Parameter names follow the reference (``time_embedding.linear_1``,
 ``emb_proj.1``, ``query_pos.pe``, ``pose_embd``, ``pose_proj``,
@@ -139,11 +147,16 @@ class LADenoiser(nn.Module):
                 text_emb_latent: Optional[torch.Tensor] = None,
                 md_prep: Optional[Union[List[dict], dict]] = None,
                 generator: Optional[torch.Generator] = None,
-                frame_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frame_valid: Optional[torch.Tensor] = None,
+                enclat: Optional[torch.Tensor] = None,
+                enclat_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """sample [B, n_lat, D] noisy latents (``diffusion_only``: [B, T,
         nfeats] noisy feature frames, ``frame_valid`` [B, T]) -> predicted
         noise of the same shape.  ``latent_valid`` masks the MD wiring's
-        latent rows; the plain wiring passes no key mask."""
+        latent rows; the plain wiring passes no key mask unless ``enclat``
+        rows need hiding.  ``enclat`` [B, n_cond, D] and ``enclat_valid``
+        [B, n_cond]: the autoregressive conditioning rows."""
+        B, n_lat = sample.shape[:2]
         sample = sample.to(self.dtype)
         if time_emb is None:
             time_emb = self.compute_time_embedding(timesteps)
@@ -151,17 +164,35 @@ class LADenoiser(nn.Module):
         if text_emb_latent is None:
             text_emb_latent = self.project_text(encoder_hidden_states)
         text_emb_latent = text_emb_latent.to(self.dtype)
+        if self.diffusion_only:
+            sample = linear(self.pose_embd, sample)
+        stream, stream_valid = sample, latent_valid
+        if enclat is not None:
+            stream = torch.cat([sample, enclat.to(self.dtype)], dim=1)
+            stream_valid = None
+            if latent_valid is not None or enclat_valid is not None:
+                ones = lambda n: torch.ones(B, n, dtype=torch.bool,
+                                            device=sample.device)
+                stream_valid = torch.cat([
+                    ones(n_lat) if latent_valid is None else latent_valid,
+                    ones(enclat.shape[1]) if enclat_valid is None
+                    else enclat_valid], dim=1)
         if self.md_trans:
-            xseq = self.query_pos(sample)
+            xseq = self.query_pos(stream)
             return self.encoder(xseq, text_emb_latent, time_emb,
-                                latent_valid, prep=md_prep,
-                                generator=generator)
+                                stream_valid, prep=md_prep,
+                                generator=generator)[:, :n_lat]
         emb_tokens = torch.cat([time_emb[:, None], text_emb_latent], dim=1)
         if not self.diffusion_only:
-            xseq = self.query_pos(torch.cat([sample, emb_tokens], dim=1))
-            return self.encoder(xseq, generator=generator)[:, :sample.shape[1]]
-        frames = linear(self.pose_embd, sample)
-        xseq = self.query_pos(torch.cat([emb_tokens, frames], dim=1))
+            key_valid = None
+            if enclat_valid is not None and stream_valid is not None:
+                key_valid = torch.cat([stream_valid, torch.ones(
+                    B, emb_tokens.shape[1], dtype=torch.bool,
+                    device=sample.device)], dim=1)
+            xseq = self.query_pos(torch.cat([stream, emb_tokens], dim=1))
+            return self.encoder(xseq, key_valid,
+                                generator=generator)[:, :n_lat]
+        xseq = self.query_pos(torch.cat([emb_tokens, stream], dim=1))
         tokens = self.encoder(xseq, generator=generator)
         out = linear(self.pose_proj, tokens[:, emb_tokens.shape[1]:])
         if frame_valid is not None:

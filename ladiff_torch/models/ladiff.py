@@ -1,7 +1,11 @@
 """LADiff system (counterpart of ``ladiff_tpu/models/ladiff.py``).
 
 Generation: text embeddings -> CFG DDIM over the latent set -> LA-VAE
-decode -> features (-> joints).  Training, three stages:
+decode -> features (-> joints).  With ``ardiff`` (the ARDIFF family) the
+latents are sampled one token at a time, each by its own guided DDIM loop
+conditioned on the tokens before it (``diffusion_reverse_ar``), and stage 2
+trains one token per sample conditioned on its predecessor
+(``diffusion_forward_ar``).  Training, three stages:
 
   * ``vae_forward``: the reconstruction pass with its losses (encode ->
     decode -> SmoothL1 on features and joints + KL);
@@ -94,7 +98,8 @@ class LADiffSystem(nn.Module):
                  eta: float = 0.0, scheduler_kind: str = "ddim",
                  md_stack: bool = False, train_whole_layer: str = "0",
                  md_trans: bool = True, vae_type: str = "ladiff",
-                 lad: bool = True,
+                 lad: bool = True, ardiff: bool = False,
+                 motion_conditioning: str = "last",
                  device=None, dtype: Optional[torch.dtype] = None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -110,6 +115,12 @@ class LADiffSystem(nn.Module):
             raise NotImplementedError(
                 f"lad (LAD) {lad}, max_it {max_it}: the port's LA-VAE is the "
                 "length-aware one (ROADMAP.md Queue 1: the action family)")
+        if motion_conditioning not in ("last", "full", "middle"):
+            raise ValueError(f"motion_conditioning {motion_conditioning!r}: "
+                             "last, full or middle")
+        if ardiff and vae_type != "ladiff":
+            raise ValueError(f"ardiff diffuses the LA-VAE's latent tokens; "
+                             f"vae_type {vae_type!r} has none")
         if md_stack and not (md_trans and num_layers % 2
                              and md_layer_supported(1, max_it, 2, D,
                                                     num_heads, 1024,
@@ -142,6 +153,8 @@ class LADiffSystem(nn.Module):
         self.md_stack = md_stack
         self.md_trans = md_trans
         self.vae_type = vae_type
+        self.ardiff = ardiff
+        self.motion_conditioning = motion_conditioning
         self.schedule = make_schedule(num_train_timesteps)
         self.vae = None
         if vae_type == "ladiff":
@@ -171,11 +184,12 @@ class LADiffSystem(nn.Module):
         constructor's run options (``train_whole_layer``, ``device``,
         ``dtype``, ``param_dtype``, ``md_stack``).  The port has the text
         condition, epsilon prediction, the LA-VAE or none (``VAE_TYPE``
-        "no"), and the MD-trans or the plain denoiser; a configuration that
-        asks for anything else raises, naming it.  The novae family's
-        ``denoiser.yaml`` names ``arch: trans_dec``, which the JAX package
-        never passes on (it builds the skip encoder): the port follows the
-        JAX package."""
+        "no"), the MD-trans or the plain denoiser, and autoregressive
+        latent diffusion (``ARDIFF``, ``model.motion_conditioning``); a
+        configuration that asks for anything else raises, naming it.  The
+        novae family's ``denoiser.yaml`` names ``arch: trans_dec``, which
+        the JAX package never passes on (it builds the skip encoder): the
+        port follows the JAX package."""
         abl, m = cfg.TRAIN.ABLATION, cfg.model
         sched = m.get("scheduler") or {}
         layers = int(m.num_layers)
@@ -194,7 +208,6 @@ class LADiffSystem(nn.Module):
                 bool(abl.get("TEST_EFFICIENCY", False)), False),
             "TRAIN.ABLATION.PREDICT_EPSILON": (
                 bool(abl.get("PREDICT_EPSILON", True)), True),
-            "ARDIFF": (bool(cfg.get("ARDIFF", False)), False),
         }
         for key in ("motion_vae", "denoiser"):
             n = ((m.get(key) or {}).get("params") or {}).get("num_layers")
@@ -229,7 +242,10 @@ class LADiffSystem(nn.Module):
             weights=LossWeights.from_cfg(cfg),
             eta=float(sched.get("eta", 0.0)), scheduler_kind=kind,
             md_trans=md_trans, vae_type=vae_type,
-            lad=bool(abl.get("LAD", True)), **kw)
+            lad=bool(abl.get("LAD", True)),
+            ardiff=bool(cfg.get("ARDIFF", False)),
+            motion_conditioning=str(m.get("motion_conditioning", "last")),
+            **kw)
 
     @property
     def device(self) -> torch.device:
@@ -333,6 +349,90 @@ class LADiffSystem(nn.Module):
                            return_trajectory=return_trajectory)
 
     @torch.no_grad()
+    def diffusion_reverse_ar(self, text_emb_cond: torch.Tensor,
+                             text_emb_uncond: torch.Tensor,
+                             lengths: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             num_inference_timesteps: Optional[int] = None,
+                             init_latents: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+        """Autoregressive CFG sampling of latents [B, max_it, D] (float32):
+        one latent token at a time, each from its own noise [B, 1, D]
+        (``torch.randn`` from ``generator``, or row k of ``init_latents``
+        [B, max_it, D] for token k) through a DDIM loop over the
+        guided denoiser, conditioned on the token before it
+        (``motion_conditioning`` "last": one conditioning row, masked at
+        token 0) or on every earlier token ("full", and "middle", which
+        conditions like "full" at inference: all max_it rows, those not yet
+        sampled masked).  It runs ``ceil(max(lengths) / frame_per_latent)``
+        tokens, as the reference does; the rows past each sample's active
+        count are zero at the end.  The text projection, the time-embedding
+        table and, with one text token, each MD layer's text value and AdaLN
+        rows are computed once for every token; the MD layers run as K1
+        where they take the shape (never the whole stack)."""
+        B = text_emb_cond.shape[0]
+        D, M = self.latent_dim[-1], self.max_it
+        dev = self.device
+        lengths = lengths.to(dev)
+        lat_valid = latent_valid_mask(lengths, self.frame_per_latent, M)
+        steps = num_inference_timesteps or self.num_inference_timesteps
+        den = self.denoiser
+        text_cond = den.project_text(text_emb_cond.to(dev))
+        text_uncond = den.project_text(text_emb_uncond.to(dev))
+        ts, prev_ts = ddim_timesteps(self.schedule.num_train_timesteps, steps)
+        time_table = den.compute_time_embedding(
+            torch.as_tensor(ts.astype(np.int64), device=dev))
+        do_cfg = self.guidance_scale > 1.0
+        text2 = (torch.cat([text_uncond, text_cond], dim=0) if do_cfg
+                 else text_cond)
+        prep_all = None
+        if self.md_trans and text2.shape[1] == 1:
+            prep_all = den.precompute_md_prep(text2, time_table)
+
+        def denoise(latents, step, text, enclat, enclat_valid):
+            n = latents.shape[0]
+            md_prep = None
+            if prep_all is not None:
+                md_prep = [{"value": p["value"], "ca_ss": p["ca_ss"][step],
+                            "ffn_ss": p["ffn_ss"][step],
+                            "params": p["params"]} for p in prep_all]
+            return den(latents, time_emb=time_table[step][None].expand(n, -1),
+                       text_emb_latent=text, md_prep=md_prep, enclat=enclat,
+                       enclat_valid=enclat_valid)
+
+        final = torch.zeros(B, M, D, device=dev)
+        tokens = min(M, -(-int(lengths.max()) // self.frame_per_latent))
+        for k in range(tokens):
+            if init_latents is None:
+                latents = torch.randn((B, 1, D), generator=generator,
+                                      device=dev, dtype=torch.float32)
+            else:
+                latents = init_latents[:, k:k + 1].to(dev, torch.float32)
+            latents = latents * self.schedule.init_noise_sigma
+            if self.motion_conditioning == "last":
+                j = max(k - 1, 0)
+                enclat = final[:, j:j + 1]
+                enclat_valid = torch.full((B, 1), k > 0, device=dev)
+            else:
+                enclat = final
+                enclat_valid = (torch.arange(M, device=dev) < k)[None].expand(
+                    B, M)
+            if do_cfg:  # the guided batch [uncond; cond]
+                enclat = torch.cat([enclat, enclat], dim=0)
+                enclat_valid = torch.cat([enclat_valid, enclat_valid], dim=0)
+            guided = make_cfg_denoise_fn(
+                lambda x, i, text, valid: denoise(x, i, text, enclat,
+                                                  enclat_valid),
+                text_uncond, text_cond, self.guidance_scale)
+            for i, (t, t_prev) in enumerate(zip(ts.tolist(),
+                                                prev_ts.tolist())):
+                latents = self.schedule.ddim_step(
+                    guided(latents, i, None), t, t_prev, latents, eta=self.eta)
+            final[:, k] = latents[:, 0]
+        return torch.where(lat_valid[:, :, None], final,
+                           torch.zeros((), device=dev))
+
+    @torch.no_grad()
     def generate(self, text_emb_cond: torch.Tensor,
                  text_emb_uncond: torch.Tensor, lengths: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
@@ -345,10 +445,18 @@ class LADiffSystem(nn.Module):
         shape -> (features [B, nframes, nfeats], latents [B, max_it, D]).
         With ``vae_type`` "no" the sampled frames are the features: (z, z),
         [B, max_frames, nfeats] whatever ``nframes``, as in the JAX
-        package."""
-        z = self.diffusion_reverse(text_emb_cond, text_emb_uncond, lengths,
-                                   generator, num_inference_timesteps,
-                                   init_latents)
+        package.  With ``ardiff`` the latents come from
+        ``diffusion_reverse_ar``, row k of ``init_latents`` being token k's
+        initial noise."""
+        if self.ardiff:
+            z = self.diffusion_reverse_ar(text_emb_cond, text_emb_uncond,
+                                          lengths, generator,
+                                          num_inference_timesteps,
+                                          init_latents)
+        else:
+            z = self.diffusion_reverse(text_emb_cond, text_emb_uncond,
+                                       lengths, generator,
+                                       num_inference_timesteps, init_latents)
         if self.vae is None:
             return z, z
         feats = self.vae.decode(z.to(self.dtype), lengths.to(self.device),
@@ -450,6 +558,77 @@ class LADiffSystem(nn.Module):
                                        frame_valid=frame_valid)
         total, logs = diffusion_loss(noise_pred, noise)
         return total, (logs, {"latent_valid": lat_valid})
+
+    def diffusion_forward_ar(self, batch: Dict[str, torch.Tensor],
+                             uncond_emb: torch.Tensor, train: bool = True,
+                             generator: Optional[torch.Generator] = None,
+                             noise: Optional[torch.Tensor] = None,
+                             timesteps: Optional[torch.Tensor] = None,
+                             cond_drop: Optional[torch.Tensor] = None,
+                             latent_idx: Optional[torch.Tensor] = None,
+                             coin: Optional[torch.Tensor] = None,
+                             eps: Optional[torch.Tensor] = None):
+        """Stage 2 of the autoregressive family: returns ``(total, (logs,
+        aux))`` as ``diffusion_forward``.  The frozen encode gives each
+        sample's latent tokens; one token per sample is noised and denoised
+        with the token before it as its conditioning row (masked for token
+        0).  The token is ``latent_idx`` [B] (an index in 1 .. n - 1 of a
+        sample's n active tokens) unless ``coin`` (a bool, true with
+        probability 1/3) or a sample with one active token sends it to token
+        0, trained unconditioned.  Every draw comes from ``generator`` on the
+        system's device unless given: ``eps`` [B, max_it, D] the encode's
+        noise, ``cond_drop`` [B, 1, 1], ``latent_idx`` [B], ``coin`` [],
+        ``noise`` [B, 1, D], ``timesteps`` [B]."""
+        self._require_vae("diffusion_forward_ar")
+        dev = self.device
+        feats_ref = batch["motion"].to(dev)
+        lengths = batch["length"].to(dev)
+        cond = batch["text_emb"].to(dev)
+        B, D = feats_ref.shape[0], self.latent_dim[-1]
+        with _mode(self.vae, False), torch.no_grad():
+            z, _, _, lat_valid = self.vae.encode(
+                feats_ref, lengths, eps=eps, generator=generator)
+        z = z.float()
+        n_active = lat_valid.sum(dim=1)
+        if train and self.guidance_uncondp > 0.0:
+            if cond_drop is None:
+                cond_drop = torch.rand(
+                    (B, 1, 1), generator=generator,
+                    device=dev) < self.guidance_uncondp
+            cond = torch.where(cond_drop.to(dev),
+                               uncond_emb.to(device=dev, dtype=cond.dtype),
+                               cond)
+        if latent_idx is None:
+            u = torch.rand((B,), generator=generator, device=dev)
+            latent_idx = 1 + torch.floor(
+                u * (n_active - 1).clamp_min(1)).long()
+            latent_idx = torch.minimum(latent_idx,
+                                       (n_active - 1).clamp_min(0))
+        if coin is None:
+            coin = torch.rand((), generator=generator, device=dev) < 1.0 / 3
+        latent_idx = torch.where(coin.to(dev) | (n_active <= 1),
+                                 torch.zeros_like(n_active),
+                                 latent_idx.to(dev))
+        take = lambda idx: z.gather(1, idx[:, None, None].expand(B, 1, D))
+        z_tok = take(latent_idx)
+        cond_tok = take((latent_idx - 1).clamp_min(0))
+        cond_valid = (latent_idx > 0)[:, None]
+        if noise is None:
+            noise = torch.randn(z_tok.shape, generator=generator, device=dev)
+        noise = noise.to(device=dev, dtype=z_tok.dtype)
+        if timesteps is None:
+            timesteps = torch.randint(
+                0, self.schedule.num_train_timesteps, (B,),
+                generator=generator, device=dev)
+        timesteps = timesteps.to(dev)
+        noisy = self.schedule.add_noise(z_tok, noise, timesteps)
+        with _mode(self.denoiser, train):
+            noise_pred = self.denoiser(noisy, timesteps, cond,
+                                       generator=generator, enclat=cond_tok,
+                                       enclat_valid=cond_valid)
+        total, logs = diffusion_loss(noise_pred, noise)
+        return total, (logs, {"latent_valid": lat_valid,
+                              "latent_idx": latent_idx})
 
     def vae_diffusion_forward(self, batch: Dict[str, torch.Tensor],
                               uncond_emb: torch.Tensor, train: bool = True,

@@ -9,6 +9,13 @@ the two-stage loop with checkpoints and resume, on one device.
     novae family) has no VAE to boot and trains the denoiser alone, and
     runs no other stage,
   * stage "vae_diffusion": both trees at once,
+  * stage "distill": progressive distillation (``training/distill.py``) of
+    the stage-2 teacher named by ``TRAIN.PRETRAINED`` (a checkpoint
+    directory, its newest file, or a reference ``.ckpt``, loaded by the
+    reference's names with the frozen VAE from the same file) into a
+    student that starts as a copy of it and shares no storage with it, on
+    a grid of ``TRAIN.DISTILL_STEPS`` (half the inference steps unless
+    set); the checkpoints carry the student as ``denoiser.*``,
   * periodic keep-all checkpoints (``utils/checkpoint.py``), newest-checkpoint
     resume, one loss line per epoch.
 
@@ -22,10 +29,11 @@ one stream while another writes it.  Dropout and noise draw from one
 seeds the parameters' initialisation.  ``TRAIN.RNG_IMPL`` is validated as in
 the JAX package and has no effect here.  One device only: the parallel
 layouts (``TENSOR_PARALLEL``, ``FSDP``, ``SEQUENCE_PARALLEL``,
-``PIPELINE_STAGES`` above 1) and the ``distill`` stage raise.
+``PIPELINE_STAGES`` above 1) raise.
 """
 from __future__ import annotations
 
+import copy
 import inspect
 import logging
 import os
@@ -41,12 +49,14 @@ import torch
 from ladiff_torch.data.datamodule import T2MDataModule
 from ladiff_torch.models.ladiff import LADiffSystem
 from ladiff_torch.training.trainer import (diffusion_train_step,
+                                           distill_train_step,
                                            make_optimizer,
                                            vae_diffusion_train_step,
                                            vae_train_step)
 from ladiff_torch.utils.checkpoint import (latest_checkpoint,
-                                           load_checkpoint, load_vae,
-                                           save_checkpoint, subtree)
+                                           load_checkpoint, load_teacher,
+                                           load_vae, save_checkpoint,
+                                           subtree)
 from ladiff_torch.utils.device import resolve_device
 
 __all__ = ["CaptionEmbedder", "HostPrefetcher", "PreemptionGuard",
@@ -268,10 +278,6 @@ def _single_device(cfg, stage: str) -> None:
         raise NotImplementedError(
             "TRAIN.FSDP: ladiff_torch trains on one device (ROADMAP.md "
             "Queue 1: parallelism)")
-    if stage == "distill":
-        raise NotImplementedError(
-            "TRAIN.STAGE=distill is not ported (ROADMAP.md Queue 1: "
-            "distill)")
     impl = str(cfg.TRAIN.get("RNG_IMPL", "threefry"))
     if impl not in RNG_IMPLS:
         raise ValueError(f"TRAIN.RNG_IMPL={impl!r} is not recognized; "
@@ -300,22 +306,38 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
     if stage not in ("vae", "diffusion", "vae_diffusion", "distill"):
         raise ValueError(f"unsupported stage {stage}")
     _single_device(cfg, stage)
+    teacher_src = str(cfg.TRAIN.get("PRETRAINED", "") or "")
+    if stage == "distill":
+        if str(cfg.model.get("condition", "text")) != "text":
+            raise ValueError("TRAIN.STAGE=distill supports the text "
+                             "condition only")
+        if not teacher_src:
+            raise ValueError("TRAIN.STAGE=distill needs TRAIN.PRETRAINED "
+                             "(the stage-2 teacher checkpoint)")
     system = build_system(cfg, dm, device=device)
-    if system.vae is None and stage != "diffusion":
+    if system.vae is None and stage not in ("diffusion", "distill"):
         raise NotImplementedError(
             f"TRAIN.STAGE={stage} with VAE_TYPE {system.vae_type!r}: "
-            "feature-space diffusion has no VAE and trains stage diffusion "
-            "only (the JAX package has no such path)")
+            "feature-space diffusion has no VAE and trains stages diffusion "
+            "and distill only (the JAX package has no such path)")
     dev = system.device
     gen = torch.Generator(device=dev).manual_seed(
         int(cfg.get("SEED_VALUE", 1234)))
     ckpt_dir = os.path.join(str(cfg.get("FOLDER_EXP", ".")), "checkpoints")
 
-    embedder = uncond = None
+    embedder = uncond = teacher = student_steps = None
     if stage == "vae":
         trained = system.vae
     else:
-        if stage == "diffusion":
+        if stage == "distill":
+            # the student is the system's denoiser, booted from the teacher
+            epoch, path = load_teacher(system, teacher_src)
+            logger.info(f"loaded teacher epoch {epoch} from {path}")
+            teacher = copy.deepcopy(system.denoiser).requires_grad_(False)
+            student_steps = int(cfg.TRAIN.get(
+                "DISTILL_STEPS", max(1, system.num_inference_timesteps // 2)))
+            trained = system.denoiser
+        elif stage == "diffusion":
             trained = system.denoiser
             vae_src = str(cfg.TRAIN.get("PRETRAINED_VAE", "") or "")
             if vae_src and system.vae is None:
@@ -355,6 +377,9 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
         if stage == "vae":
             return vae_train_step(system, optimizer, batch, gen)
         batch["text_emb"] = embedder(batch.pop("text")).to(dev)
+        if stage == "distill":
+            return distill_train_step(system, teacher, optimizer, batch,
+                                      uncond, student_steps, gen)
         fn = (diffusion_train_step if stage == "diffusion"
               else vae_diffusion_train_step)
         return fn(system, optimizer, batch, uncond, gen)

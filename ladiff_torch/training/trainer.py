@@ -1,10 +1,12 @@
 """Training steps (counterpart of ``ladiff_tpu/training/trainer.py``):
 stage 1 (``vae_train_step``, the LA-VAE), stage 2 (``diffusion_train_step``,
-the denoiser against the frozen VAE) and the joint stage
-(``vae_diffusion_train_step``, both trees).  Which parameters a step trains
-is the optimizer's business: stage 1 holds ``system.vae.parameters()``,
-stage 2 ``system.denoiser.parameters()``, the joint stage
-``system.parameters()``.
+the denoiser against the frozen VAE; its autoregressive form for an
+``ardiff`` system), the joint stage (``vae_diffusion_train_step``, both
+trees) and progressive distillation (``distill_train_step``, the student
+denoiser against a frozen teacher, ``training/distill.py``).  Which
+parameters a step trains is the optimizer's business: stage 1 holds
+``system.vae.parameters()``, stages 2 and distill
+``system.denoiser.parameters()``, the joint stage ``system.parameters()``.
 
 Optimizer: ``torch.optim.AdamW`` with lr 1e-4, betas (0.9, 0.999), eps 1e-8,
 weight decay 1e-2, the same update as the JAX package's ``optax.adamw``;
@@ -27,9 +29,11 @@ from typing import Dict, Iterable, Optional
 import torch
 
 from ladiff_torch.models.ladiff import LADiffSystem
+from ladiff_torch.training.distill import distill_forward
 
 __all__ = ["make_optimizer", "global_norm", "vae_train_step",
-           "diffusion_train_step", "vae_diffusion_train_step"]
+           "diffusion_train_step", "vae_diffusion_train_step",
+           "distill_train_step"]
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4,
@@ -91,10 +95,13 @@ def diffusion_train_step(system: LADiffSystem,
     denoiser's noise-prediction loss with the VAE frozen (no VAE parameter
     gets a gradient), optional clip, AdamW update.  ``draws`` are
     ``diffusion_forward``'s optional tensors (``noise``, ``timesteps``,
-    ``cond_drop``, ``eps``)."""
+    ``cond_drop``, ``eps``), or ``diffusion_forward_ar``'s for an
+    ``ardiff`` system (also ``latent_idx``, ``coin``)."""
     optimizer.zero_grad(set_to_none=True)
-    total, (logs, _) = system.diffusion_forward(
-        batch, uncond_emb, train=True, generator=generator, **draws)
+    forward = (system.diffusion_forward_ar if system.ardiff
+               else system.diffusion_forward)
+    total, (logs, _) = forward(batch, uncond_emb, train=True,
+                               generator=generator, **draws)
     return _update(optimizer, total, logs)
 
 
@@ -110,4 +117,22 @@ def vae_diffusion_train_step(system: LADiffSystem,
     optimizer.zero_grad(set_to_none=True)
     total, (logs, _) = system.vae_diffusion_forward(
         batch, uncond_emb, train=True, generator=generator)
+    return _update(optimizer, total, logs)
+
+
+def distill_train_step(system: LADiffSystem, teacher: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer,
+                       batch: Dict[str, torch.Tensor],
+                       uncond_emb: torch.Tensor, student_steps: int,
+                       generator: Optional[torch.Generator] = None,
+                       **draws: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One progressive-distillation step on ``batch`` ("motion", "length",
+    "text_emb"): the student (``system.denoiser``, whose parameters the
+    optimizer holds) against the frozen ``teacher`` denoiser and VAE,
+    optional clip, AdamW update.  ``draws`` are ``distill_forward``'s
+    optional tensors (``i``, ``noise``, ``eps``)."""
+    optimizer.zero_grad(set_to_none=True)
+    total, (logs, _) = distill_forward(
+        system, system.denoiser, teacher, batch, uncond_emb, student_steps,
+        train=True, generator=generator, **draws)
     return _update(optimizer, total, logs)

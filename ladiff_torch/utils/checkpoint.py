@@ -7,7 +7,9 @@ Lightning checkpoint and one of the port's read the same way.  Kept all, as
 the reference keeps every periodic checkpoint; ``latest_checkpoint`` finds
 the newest for a resume.  ``load_vae`` boots stage 2 from stage 1: a
 checkpoint directory (its newest file) or a reference ``.ckpt``, through
-``load_state_dict(strict=True)`` on the ``vae.`` subtree.
+``load_state_dict(strict=True)`` on the ``vae.`` subtree; ``load_teacher``
+boots the distill stage from a stage-2 checkpoint the same way, the
+denoiser and the VAE (where the system has one) each strictly.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from torch import nn
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint",
-           "subtree", "load_vae"]
+           "subtree", "load_vae", "load_teacher"]
 
 _NAME = re.compile(r"epoch_(\d+)\.ckpt")
 
@@ -67,10 +69,9 @@ def subtree(state_dict: Dict[str, torch.Tensor],
             if k.startswith(prefix)}
 
 
-def load_vae(vae: nn.Module, src: str) -> Tuple[int, str]:
-    """Loads ``vae`` (strict) from the ``vae.`` entries of ``src``: a
-    ``.ckpt`` file, or a checkpoint directory whose newest file is taken.
-    Returns (epoch, path)."""
+def _source(src: str) -> Tuple[int, Dict[str, torch.Tensor], str]:
+    """(epoch, state dict, path) of ``src``: a ``.ckpt`` file, or a
+    checkpoint directory whose newest file is taken."""
     if src.endswith(".ckpt"):
         path = src
     else:
@@ -78,6 +79,24 @@ def load_vae(vae: nn.Module, src: str) -> Tuple[int, str]:
         if found is None:
             raise FileNotFoundError(f"no checkpoints under {src}")
         path = found[1]
-    epoch, sd = load_checkpoint(path)
+    return (*load_checkpoint(path), path)
+
+
+def load_vae(vae: nn.Module, src: str) -> Tuple[int, str]:
+    """Loads ``vae`` (strict) from the ``vae.`` entries of ``src`` (see
+    ``_source``).  Returns (epoch, path)."""
+    epoch, sd, path = _source(src)
     vae.load_state_dict(subtree(sd, "vae."), strict=True)
+    return epoch, path
+
+
+def load_teacher(system: nn.Module, src: str) -> Tuple[int, str]:
+    """Loads ``system.denoiser`` from the ``denoiser.`` entries of ``src``
+    and ``system.vae``, where there is one, from its ``vae.`` entries, each
+    strictly (a reference checkpoint's other entries are ignored).
+    Returns (epoch, path)."""
+    epoch, sd, path = _source(src)
+    system.denoiser.load_state_dict(subtree(sd, "denoiser."), strict=True)
+    if system.vae is not None:
+        system.vae.load_state_dict(subtree(sd, "vae."), strict=True)
     return epoch, path

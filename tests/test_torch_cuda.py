@@ -826,6 +826,76 @@ def test_default_system_takes_a_denoiser_step_on_the_gpu(dev, stage):
         assert bool(torch.isfinite(total))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["last", "full"])
+@torch.no_grad()
+def test_ar_generate_on_the_gpu(dev, mode):
+    """Autoregressive generation at batch 4 (lengths 16 / 60 / 123 / 196,
+    3 DDIM steps) in bf16 against the float32 plain run on the card, from
+    the same weights and the same token noise: K1 at T = 2 ("last") or 6
+    ("full") stream rows, 5 tokens x 3 steps x 9 layers, then K2 x 9; the
+    rows past each sample's tokens exactly zero."""
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    kw = dict(ardiff=True, motion_conditioning=mode, dropout=0.0)
+    ref = _randomize(train_bench.build(dev, dtype=torch.float32, **kw)[0],
+                     7)
+    system = train_bench.build(dev, **kw)[0]
+    system.load_state_dict(ref.state_dict(), strict=True)
+    g = torch.Generator().manual_seed(8)
+    cond = torch.randn(4, 1, 768, generator=g).to(dev)
+    uncond = 0.1 * torch.randn(4, 1, 768, generator=g).to(dev)
+    lengths = torch.tensor([16, 60, 123, 196], device=dev)
+    run = lambda s: s.generate(
+        cond, uncond, lengths, num_inference_timesteps=3,
+        generator=torch.Generator(dev).manual_seed(9))
+    want_f, want_z = run(ref)
+    cc.reset_launch_counts()
+    feats, z = run(system)
+    counts = cc.launch_counts()
+    assert counts["fused_md_layer"] == 5 * 3 * 9
+    assert counts["fused_decoder_layer"] == 9
+    assert _relerr(z.float(), want_z) <= 1e-1
+    assert _relerr(feats.float(), want_f) <= 1e-1
+    assert not z[0, 1:].any() and not z[1, 2:].any()
+
+
+@pytest.mark.cuda
+def test_distill_step_on_the_gpu(dev):
+    """One ``distill_train_step`` at batch 4 at the trainer's defaults
+    (float32 parameters, bf16 compute, dropout 0.1), grid 25: the frozen
+    encode through kernels 10 and 5, the teacher's two guided calls through
+    K1, the student through kernel 9; the student moves, the teacher and
+    the VAE stay."""
+    import copy
+
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.trainer import distill_train_step
+    system, opt = train_bench.build(stage="diffusion_train")
+    teacher = copy.deepcopy(system.denoiser).requires_grad_(False)
+    batch = train_bench.make_batch(4, device=system.device)
+    before = {k: v.clone() for k, v in system.state_dict().items()}
+    cc.reset_launch_counts()
+    logs = distill_train_step(system, teacher, opt, batch,
+                              torch.zeros(1, 1, 768, device=dev), 25,
+                              torch.Generator(device=dev).manual_seed(0))
+    counts = cc.launch_counts()
+    want = {"fused_masked_attention": 9, "fused_postnorm_ffn": 9,
+            "fused_md_layer": 18, "train_postnorm_ffn": 9,
+            "train_postnorm_ffn_bwd": 9, "train_self_attention": 0}
+    for name, n in want.items():
+        assert counts[name] == n, name
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
+    after = system.state_dict()
+    assert any(not torch.equal(after[k], v) for k, v in before.items()
+               if k.startswith("denoiser."))
+    assert all(torch.equal(after[k], v) for k, v in before.items()
+               if k.startswith("vae."))
+    assert all(torch.equal(v, before["denoiser." + k])
+               for k, v in teacher.state_dict().items())
+
+
 # -- no kernel reads outside its inputs --------------------------------------
 
 def _at_end(t):

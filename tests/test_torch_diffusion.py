@@ -138,13 +138,13 @@ def test_md_layer_training_mode_matches_jax():
     x, xf, emb, valid = _md_inputs(72)
     jl = JL(D, D, FF, H, 0.0)
     jargs = tuple(map(jnp.asarray, (xf, emb, valid)))
-    p = randomize(jl.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                          *jargs)["params"], 73)
+    p = randomize(jax.eval_shape(jl.init, jax.random.PRNGKey(0),
+                                 jnp.asarray(x), *jargs)["params"], 73)
     fn = lambda p_, x_: jl.apply({"params": p_}, x_, *jargs,
                                  deterministic=False)
     want = fn(p, jnp.asarray(x))
-    gp, gx = jax.grad(lambda p_, x_: jnp.sum(fn(p_, x_) ** 2),
-                      argnums=(0, 1))(p, jnp.asarray(x))
+    gp, gx = jax.jit(jax.grad(lambda p_, x_: jnp.sum(fn(p_, x_) ** 2),
+                              argnums=(0, 1)))(p, jnp.asarray(x))
     tl = port(TL(D, D, FF, H), p).train()
     xt = t(x).requires_grad_()
     got = tl(xt, t(xf), t(emb), t(valid))
@@ -167,7 +167,8 @@ def _denoiser_pair(seed, dropout=0.0):
     jd = JD(latent_dim=(7, D), ff_size=FF, num_layers=LAYERS, num_heads=H,
             dropout=0.0)
     jargs = tuple(map(jnp.asarray, (sample, ts, text, valid)))
-    p = randomize(jd.init(jax.random.PRNGKey(0), *jargs)["params"], seed + 1)
+    p = randomize(jax.eval_shape(jd.init, jax.random.PRNGKey(0),
+                                 *jargs)["params"], seed + 1)
     td = port(TD(latent_dim=(7, D), ff_size=FF, num_layers=LAYERS,
                  num_heads=H, dropout=dropout), p)
     targs = (t(sample), t(ts).long(), t(text), t(valid))
@@ -178,7 +179,7 @@ def test_denoiser_training_mode_matches_jax():
     jd, p, jargs, td, targs = _denoiser_pair(74)
     fn = lambda p_: jd.apply({"params": p_}, *jargs, deterministic=False)
     want = fn(p)
-    gp = jax.grad(lambda p_: jnp.sum(fn(p_) ** 2))(p)
+    gp = jax.jit(jax.grad(lambda p_: jnp.sum(fn(p_) ** 2)))(p)
     got = td.train()(*targs)
     assert relerr(got, want) <= TOL
     (got ** 2).sum().backward()
@@ -311,7 +312,8 @@ def _systems(seed=80, steps=4, **torch_kw):
     mean = rnd(rng, NFEATS, scale=0.1)
     std = (np.abs(rng.randn(NFEATS)) * 0.1 + 0.05).astype(np.float32)
     jsys = JS(dropout=0.0, mean=jnp.asarray(mean), std=jnp.asarray(std), **kw)
-    params = randomize(jsys.init_params(jax.random.PRNGKey(0)), seed + 1)
+    params = randomize(jax.eval_shape(jsys.init_params,
+                                      jax.random.PRNGKey(0)), seed + 1)
     tsys = TS(mean=mean, std=std, device="cpu", **kw, **torch_kw)
     tsys.load_state_dict(system_state_dict(params), strict=True)
     batch = {"motion": rnd(rng, B, FRAMES, NFEATS, scale=0.5),
@@ -362,7 +364,7 @@ def test_diffusion_forward_matches_jax(train):
             train=train)
         return total, logs
 
-    (want, wlogs), gtree = jax.value_and_grad(loss, has_aux=True)(
+    (want, wlogs), gtree = jax.jit(jax.value_and_grad(loss, has_aux=True))(
         params["denoiser"])
     for p in tsys.vae.parameters():
         assert p.requires_grad
@@ -415,7 +417,8 @@ def test_vae_diffusion_forward_matches_jax():
             p, _jax_batch(batch), key, jnp.asarray(uncond), train=True)
         return total, logs
 
-    (want, wlogs), gtree = jax.value_and_grad(loss, has_aux=True)(params)
+    (want, wlogs), gtree = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(params)
     got, (logs, aux) = tsys.vae_diffusion_forward(
         _torch_batch(batch), t(uncond), train=True, **_joint_draws(key))
     assert not tsys.vae.training and not tsys.denoiser.training
@@ -482,9 +485,9 @@ def test_diffusion_train_step_matches_optax():
     tx = jax_optimizer(1e-4, 1e-2, None)
     jp = params["denoiser"]
     state = tx.init(jp)
-    grads = jax.grad(lambda p: jsys.diffusion_forward(
+    grads = jax.jit(jax.grad(lambda p: jsys.diffusion_forward(
         p, params["vae"], _jax_batch(batch), key, jnp.asarray(uncond),
-        train=True)[0])(jp)
+        train=True)[0]))(jp)
     updates, state = tx.update(grads, state, jp)
     jp = optax.apply_updates(jp, updates)
     vae_before = {n: p.detach().clone()

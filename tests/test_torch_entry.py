@@ -210,8 +210,8 @@ def test_build_system_options(tmp_path, monkeypatch):
     ("TENSOR_PARALLEL", 2, "parallelism"), ("FSDP", True, "parallelism"),
     ("SEQUENCE_PARALLEL", 2, "parallelism"),
     ("PIPELINE_STAGES", 2, "parallelism"),
-    ("STAGE", "distill", "Queue 1: distill"), ("RNG_IMPL", "philox",
-                                               "RNG_IMPL")])
+    ("STAGE", "distill", "distill needs TRAIN.PRETRAINED"),
+    ("RNG_IMPL", "philox", "RNG_IMPL")])
 def test_run_training_refuses_what_it_does_not_run(tmp_path, key, value,
                                                     match):
     from ladiff_torch.data.datamodule import get_datasets

@@ -284,16 +284,17 @@ def test_layer_training_mode_matches_jax(kind, S):
     kv, mv = _key_mask([S * 3 // 5, S], S), _key_mask([2, 5], L)
     if kind == "encoder":
         jl = jt.TransformerEncoderLayer(D, H, FF, 0.0, "gelu")
-        p = randomize(jl.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"],
-                      53)
+        p = randomize(jax.eval_shape(jl.init, jax.random.PRNGKey(0),
+                                     jnp.asarray(x))["params"], 53)
         jfn = lambda x_: jl.apply({"params": p}, x_, jnp.asarray(kv),
                                   deterministic=False)
         tl = port(tt.TransformerEncoderLayer(D, H, FF, "gelu"), p).train()
         tfn = lambda x_: tl(x_, t(kv))
     else:
         jl = jt.TransformerDecoderLayer(D, H, FF, 0.0, "gelu")
-        p = randomize(jl.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                              jnp.asarray(mem))["params"], 54)
+        p = randomize(jax.eval_shape(jl.init, jax.random.PRNGKey(0),
+                                     jnp.asarray(x), jnp.asarray(mem))[
+                                         "params"], 54)
         jfn = lambda x_: jl.apply({"params": p}, x_, jnp.asarray(mem),
                                   jnp.asarray(kv), jnp.asarray(mv),
                                   deterministic=False)
@@ -328,9 +329,10 @@ def _vae_pair(seed, **jax_kw):
     from ladiff_tpu.models.vae import LAVae as JV
     jv = JV(nfeats=NFEATS, latent_dim=(7, D), ff_size=FF, num_layers=LAYERS,
             num_heads=H, dropout=0.0, **jax_kw)
-    p = randomize(jv.init(jax.random.PRNGKey(0), jnp.zeros((2, 30, NFEATS)),
-                          jnp.asarray([30, 30]),
-                          jax.random.PRNGKey(1))["params"], seed)
+    p = randomize(jax.eval_shape(jv.init, jax.random.PRNGKey(0),
+                                 jnp.zeros((2, 30, NFEATS)),
+                                 jnp.asarray([30, 30]),
+                                 jax.random.PRNGKey(1))["params"], seed)
     return jv, p, port(TV(NFEATS, (7, D), FF, LAYERS, H), p, "")
 
 
@@ -454,7 +456,8 @@ def _systems(seed=60, **torch_kw):
     mean = rnd(rng, NFEATS, scale=0.1)
     std = (np.abs(rng.randn(NFEATS)) * 0.1 + 0.05).astype(np.float32)
     jsys = JS(dropout=0.0, mean=jnp.asarray(mean), std=jnp.asarray(std), **kw)
-    params = randomize(jsys.init_params(jax.random.PRNGKey(0)), seed + 1)
+    params = randomize(jax.eval_shape(jsys.init_params,
+                                      jax.random.PRNGKey(0)), seed + 1)
     tsys = TS(mean=mean, std=std, device="cpu", **kw, **torch_kw)
     tsys.load_state_dict(system_state_dict(params), strict=True)
     batch = {"motion": rnd(rng, len(LENGTHS), FRAMES, NFEATS, scale=0.5),
@@ -493,8 +496,8 @@ def test_vae_forward_matches_jax(train):
                                               train=train)
         return total, (logs, aux)
 
-    (want, (wlogs, waux)), gtree = jax.value_and_grad(loss, has_aux=True)(
-        params["vae"])
+    (want, (wlogs, waux)), gtree = jax.jit(jax.value_and_grad(
+        loss, has_aux=True))(params["vae"])
     grad_mode = torch.enable_grad() if train else torch.no_grad()
     with grad_mode:
         got, (logs, aux) = tsys.vae_forward(_torch_batch(batch), train=train,
@@ -541,9 +544,10 @@ def test_adamw_steps_match_optax(grad_clip, weight_decay):
     jp = params["vae"]
     state = tx.init(jp)
     jnorms, clear = [], None
+    grad_fn = jax.jit(jax.grad(lambda p, key: jsys.vae_forward(
+        p, _jax_batch(batch), key, train=True)[0]))
     for key in keys:
-        grads = jax.grad(lambda p: jsys.vae_forward(
-            p, _jax_batch(batch), key, train=True)[0])(jp)
+        grads = grad_fn(jp, key)
         jnorms.append(float(optax.global_norm(grads)))
         big = {n: g.abs() >= 1e-3 * g.abs().max()
                for n, g in flax_state_dict(grads, "").items()}
