@@ -214,9 +214,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
             group, idle share, ``EXPECTED_DISTILL_PER_STEP``),
             ``run_training`` stage ``distill`` for 3 steps, the student
             sampled at guidance 1 (``EXPECTED_STUDENT_PER_BATCH``).
+21. action_slice  the action family (``config_ladiff_humanact12.yaml``:
+            the 6-layer ActorVae, the 15-layer plain denoiser, the synthetic
+            SMPL body and HumanAct12 data) at full width, batch 4:
+            generation from action tokens (CFG DDIM-10: float32 card
+            against CPU with no launch, bf16 beside the plain bf16 control,
+            exact launches), a stage-1 pass with the SMPL-vertex loss on
+            the split and the whole-layer routes and a stage-2 pass held to
+            the control with exact launches (``EXPECTED_ACTION_*``), a
+            UESTC batch through the ST-GCN and the GRU card against CPU, K2
+            alone at 32 x 60 frames against one memory row.
+22. action_bench  an evaluation batch of 32 (CFG DDIM-50, decode, SMPL
+            joints, GRU; ``EXPECTED_ACTION_EVAL_PER_BATCH``, device ms by
+            group, idle share), 5 stage-1 steps at batch 128 on each route,
+            3 stage-2 steps at batch 64, ``run_test`` on the HumanAct12 and
+            UESTC configurations as published at one replication, and K2,
+            kernels 5, 8, 9, 12 and 13 at the action path's shapes beside
+            their plain versions, bounds and library calls.
 
 Then a ``kernels`` line (kernel 10 twice: on the frozen encode's path and
-on the novae path, launches a DDPM-1000 batch), and last ``{"ok": true,
+on the novae path, launches a DDPM-1000 batch; K2 and kernels 5, 8, 9, 12
+and 13 again at the action path's shapes, with its launches), and last
+``{"ok": true,
 "device": {...}}``.
 ``--only PHASE[,PHASE]`` runs the build and the named phases alone (a short
 check of a new kernel, or ``--only novae_slice,novae_bench``) and prints no
@@ -225,6 +244,7 @@ Imports nothing of JAX; needs one CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -394,7 +414,8 @@ PHASES = (("kernels", False), ("slice", False), ("bench", False),
           ("train_entry", True), ("float32_entry", True),
           ("eval_entry", False), ("kit_slice", True), ("ar_slice", True),
           ("ar_bench", False), ("distill_slice", True),
-          ("distill_bench", True))
+          ("distill_bench", True), ("action_slice", True),
+          ("action_bench", True))
 
 
 def emit(obj):
@@ -411,32 +432,82 @@ def relerr(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def _device_window(fn, reps: int):
+    """One profiled window of ``reps`` calls of ``fn``: (device ms a call,
+    device kernels recorded).  The profiler traces a warm-up step of
+    ``reps`` calls and keeps only the second step's: while tracing starts
+    a window's first launches can go unrecorded.  Late in the whole script
+    it also loses records at random (on an H100, every window of kernel 9's
+    20 launches recorded 7), so each kernel counts at its mean recorded
+    time times its launches a call, ``round(recorded / reps)`` and at
+    least 1: launches are the same in every call, and a window that
+    records them all reads its plain sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    per_call_us, n = 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            per_call_us += t / ev.count * max(1, round(ev.count / reps))
+            n += ev.count
+    return per_call_us / 1e3, n
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Milliseconds of device time per call of ``fn``: the sum of its CUDA
-    kernels' time from the profiler (host overhead excluded).  A window can
+    kernels' time from the profiler (``_device_window``; host overhead
+    excluded).  A window can
     come back empty after a long profiled session (seen on an H100 after
     the full-context breakdown's, and at the first cuBLAS timing of
     ``clip_breakdown``), so an empty one is taken again; fails when five
     record no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = 0.0
-        for ev in prof.key_averages():
-            t = getattr(ev, "self_device_time_total", None)
-            if t is None:
-                t = getattr(ev, "self_cuda_time_total", 0.0)
-            total_us += t
-        if total_us > 0:
-            return total_us / reps / 1e3
+        ms, n = _device_window(fn, reps)
+        if n:
+            return ms
     fail("the profiler recorded no device time in five windows")
+
+
+def interleaved_ms(fns, rounds: int = 5, reps: int = 20):
+    """Device ms per call of each of ``fns``, timed in turn ``rounds``
+    times after 10 warm-up calls each (``_device_window``s of ``reps``
+    calls, an empty one taken again up to 5 times; a kernel and its plain
+    version see the same state of the card).  A window can lose some of
+    its launches' events (on an H100 one window of kernel 5's 20 launches
+    recorded 1): only the windows that recorded the most kernels count.
+    Returns (the median of each over those windows, every window's (ms,
+    kernels recorded) of each)."""
+    import torch
+    for fn in fns:
+        for _ in range(10):
+            fn()
+    torch.cuda.synchronize()
+    reads = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, r in zip(fns, reads):
+            for _ in range(5):
+                r.append(_device_window(fn, reps))
+                if r[-1][1]:
+                    break
+    meds = []
+    for r in reads:
+        most = max(n for _, n in r)
+        if not most:
+            fail("the profiler recorded no device time in an interleaved "
+                 "timing")
+        full = sorted(ms for ms, n in r if n == most)
+        meds.append(full[len(full) // 2])
+    return meds, reads
 
 
 def launch_breakdown(fn, reps: int = 10):
@@ -599,19 +670,26 @@ def compare(name, got, want, tol):
 
 def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
                  run_plain, flops, nb, library=None, tol=None,
-                 run_timed=None, extra=None):
+                 run_timed=None, extra=None, rounds=0):
     """Kernel vs its plain version (float32, same bf16 inputs): error,
     times, bound.  ``run_timed`` is what is timed where it differs from
-    what is compared.  Returns the kernel's record."""
+    what is compared.  ``rounds`` > 0 times the kernel, its plain version
+    and the library call in turn (``interleaved_ms``): the medians, and
+    every round's readings on the line.  Returns the kernel's record."""
     import torch
     tol = KERNEL_TOL if tol is None else tol
     got = run_kernel()
     torch.cuda.synchronize()
     err, max_abs, errs = compare(name, got, run_plain_f32(), tol)
     del got
-    ms = device_ms(run_timed or run_kernel)
-    plain_ms = device_ms(run_plain)
-    lib_ms = device_ms(library) if library is not None else None
+    timed = [run_timed or run_kernel, run_plain] + (
+        [library] if library is not None else [])
+    if rounds:
+        meds, reads = interleaved_ms(timed, rounds)
+    else:
+        meds, reads = [device_ms(fn) for fn in timed], None
+    ms, plain_ms = meds[:2]
+    lib_ms = meds[2] if library is not None else None
     b_ms, b_by = bound(flops, nb)
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": max_abs,
@@ -623,6 +701,10 @@ def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
             "library_ms": lib_ms, "flops": flops, "bytes": nb}
     if len(errs) > 1:
         line["rel_errs"] = errs
+    if reads:
+        line.update(ms_rounds=reads[0], plain_ms_rounds=reads[1],
+                    library_ms_rounds=reads[2] if lib_ms is not None
+                    else None)
     line.update(extra or {})
     emit(line)
     return rec
@@ -3790,15 +3872,16 @@ def _config(name, **over):
 
 
 def _from_cfg(cfg, device, dtype=None, param_dtype=None, state=None,
-              seed=None, nfeats=263, njoints=22):
+              seed=None, nfeats=263, njoints=22, **kw):
     """``LADiffSystem.from_cfg`` on ``device`` with unit feature statistics,
-    random weights from ``seed`` or ``state``."""
+    random weights from ``seed`` or ``state``; ``kw`` are further run
+    options (``train_whole_layer``)."""
     import numpy as np
     from ladiff_torch.models.ladiff import LADiffSystem
     system = LADiffSystem.from_cfg(
         cfg, nfeats=nfeats, njoints=njoints,
         mean=np.zeros(nfeats, np.float32), std=np.ones(nfeats, np.float32),
-        device=device, dtype=dtype, param_dtype=param_dtype)
+        device=device, dtype=dtype, param_dtype=param_dtype, **kw)
     if state is not None:
         system.load_state_dict(state, strict=True)
     elif seed is not None:
@@ -3817,19 +3900,27 @@ def _loss_grads(system, forward):
              for n, p in system.named_parameters() if p.grad is not None})
 
 
-def _held_to_control(name, run, cpu, ctl, gpu, hold_grads=True):
+def _held_to_control(name, run, cpu, ctl, gpu, hold_grads=True, refs=None,
+                     watch=()):
     """``run(system)`` -> (loss terms, gradients) on the float32 CPU system,
     the plain bf16 CPU control and the card: each of the card's gradient
     tensors held to ``DIFF_GRAD_RATIO`` times the control's error for it
     (at least ``DIFF_GRAD_FLOOR``; printed only without ``hold_grads``),
-    each loss term to ``DIFF_LOSS_TOL``.  Returns the record."""
+    each loss term to ``DIFF_LOSS_TOL``.  ``refs``: the CPU's and the
+    control's results where the caller has them (``cpu`` and ``ctl`` are
+    then not run).  The record gives the median of the card's error over
+    the control's across the tensors, the three largest, and those of the
+    tensors named in ``watch``.  Returns the record."""
     import numpy as np
     import torch
-    logs_c, grads_c = run(cpu)
+    if refs is None:
+        refs = run(cpu), run(ctl)
+    logs_c, grads_c = refs[0]
     rec, errs = {"logs_cpu": logs_c, "grad_ratio": DIFF_GRAD_RATIO,
                  "grad_floor": DIFF_GRAD_FLOOR}, {}
-    for who, system in (("cpu_bf16_plain", ctl), ("card", gpu)):
-        logs, grads = run(system)
+    for who, result in (("cpu_bf16_plain", lambda: refs[1]),
+                        ("card", lambda: run(gpu))):
+        logs, grads = result()
         if set(grads) != set(grads_c):
             fail(f"{name}: other parameters have gradients than on the CPU: "
                  f"{sorted(set(grads) ^ set(grads_c))[:5]}")
@@ -3848,7 +3939,16 @@ def _held_to_control(name, run, cpu, ctl, gpu, hold_grads=True):
              for n, e in errs["cpu_bf16_plain"].items()}
     over = max(limit, key=lambda n: errs["card"][n] / limit[n])
     rec["card"].update(worst_over_limit=errs["card"][over] / limit[over],
-                       worst_over_limit_grad=over, grads_held=hold_grads)
+                       worst_over_limit_grad=over, grads_held=hold_grads,
+                       its_ratio_to_control=errs["card"][over]
+                       / max(errs["cpu_bf16_plain"][over], 1e-30))
+    ratios = {n: errs["card"][n] / max(errs["cpu_bf16_plain"][n], 1e-30)
+              for n in errs["card"]}
+    top = sorted(ratios, key=ratios.get, reverse=True)
+    rec["card"].update(
+        ratio_to_control_median=float(np.median(list(ratios.values()))),
+        ratio_to_control_top=[[n, ratios[n]] for n in top[:3]],
+        ratio_to_control_watched={n: ratios[n] for n in watch})
     losses = rec["card"]["loss_rel_errs"]
     if (hold_grads and errs["card"][over] > limit[over]) or not all(
             e <= DIFF_LOSS_TOL for e in losses.values()):
@@ -4284,8 +4384,9 @@ def phase_distill_bench(dev, gpu=""):
     losses, launches a step, the VAE unchanged and the student moved.
     (c) the student sampled at guidance 1 over its 25 steps at batch 32:
     exactly ``EXPECTED_STUDENT_PER_BATCH`` launches, every denoiser call on
-    B rows (no doubled batch), seconds a batch.  Returns the launches a
-    step of (a)."""
+    B rows (no doubled batch), seconds a batch.  (d) K1 alone at the
+    teacher's shape (``_teacher_k1``).  Returns the launches a step of
+    (a)."""
     import copy
     import re
     import shutil
@@ -4443,7 +4544,864 @@ def phase_distill_bench(dev, gpu=""):
     if (s["denoiser_rows"] != [n] or s["denoiser_calls"] != 25
             or s["launches"] != EXPECTED_STUDENT_PER_BATCH or not s["finite"]):
         fail(f"distill_bench: student sampling {s}")
+    _teacher_k1(dev)
     return per_step
+
+
+def _teacher_k1(dev):
+    """K1 at the distill teacher's shape: 2 x 128 samples of 5 latent rows
+    (mixed lengths), E 2, an AdaLN row per sample (each sample its own
+    timestep), against its float32 plain version (``KERNEL_TOL``), timed
+    beside its plain bf16 version and its bound (``check_kernel``)."""
+    import torch
+    from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_plain
+    from ladiff_torch.ops.stylization import MDTransformerLayer
+    from ladiff_torch.utils.masks import latent_valid_mask
+    D, H, F, E, T, N = 256, 4, 1024, 2, 5, 256
+    bf = torch.bfloat16
+    rg = torch.Generator().manual_seed(80)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=rg) * scale).to(
+        dev, bf)
+    layer = randomize_(MDTransformerLayer(D, D, F, H), 81).to(dev, bf)
+    p1 = layer.kernel_params()
+    lat = latent_valid_mask(mixed_lengths(N, seed=82), 48, T)
+    kvalid = lat.reshape(N * T).float().to(dev)
+    a1 = (rnd(N * T, D), rnd(N * E, D), kvalid, rnd(N, D),
+          rnd(N, 2 * D, scale=0.3), rnd(N, 2 * D, scale=0.3))
+    fl = (2 * N * T * D * (3 * D + 3 * D + 2 * F) + 2 * N * E * D * 2 * D
+          + 4 * T * D * (int(lat.sum()) + N * E) + 2 * N * T * 2 * F * D)
+    path = "distill teacher, 256 x 5 rows, an AdaLN row per sample"
+    with torch.no_grad():
+        check_kernel(
+            "fused_md_layer", "ladiff_torch/csrc/md_layer.cu",
+            "ladiff_tpu/ops/pallas_md_layer.py:198",
+            lambda: fused_md_layer(*a1, p1, T=T, E=E, H=H),
+            lambda: md_layer_plain(*[t.float() for t in a1],
+                                   {k: v.float() for k, v in p1.items()},
+                                   T=T, E=E, H=H),
+            lambda: md_layer_plain(*a1, p1, T=T, E=E, H=H),
+            fl, nbytes(*a1, *p1.values(), a1[0]),
+            extra={"path": path, "launches_per_distill_step": 18})
+
+
+# -- the action family ------------------------------------------------------
+
+# configs/config_ladiff_humanact12.yaml: the 6-layer ActorVae (62 encoder
+# tokens, 60 decoder frames against one latent) and the 15-layer plain
+# denoiser over 3-token samples [latent; time; action], d 256, no MD layer
+ACTION = dict(nfeats=150, njoints=25)
+ACTION_FRAMES = 60
+# HumanAct12 as its benchmark is published (HumanAct12Poses: 1191 clips,
+# all of them in the test split)
+HUMANACT12_CLIPS = 1191
+# the weight seeds of action_slice's stage-1 passes, and the gradient that
+# read 1.34x its control's error at the first with every loss on the split
+# route (its ratio printed at each)
+ACTION_GRAD_SEEDS = (62, 162, 262)
+ACTION_WATCHED_GRAD = "vae.encoder.seqTransEncoder.layers.5.norm2.weight"
+
+
+def expected_action_generation(steps):
+    """A guided generation batch: the denoiser's 15 FFN tails as kernel 5
+    every step (its 3-token attention stays plain), the decode's 6 layers
+    as K2 (L = 1)."""
+    return {"fused_postnorm_ffn": 15 * steps, "fused_decoder_layer": 6}
+
+
+EXPECTED_ACTION_EVAL_PER_BATCH = expected_action_generation(50)
+# a stage-1 step, split route: kernel 8 over the encoder's 62 tokens and
+# the decoder's 60 frames, kernel 9 every tail (6 + 6 layers each way)
+EXPECTED_ACTION_VAE_STEP = {
+    "train_self_attention": 12, "train_self_attention_bwd": 12,
+    "train_postnorm_ffn": 12, "train_postnorm_ffn_bwd": 12,
+    "train_encoder_layer": 0, "train_decoder_layer": 0,
+    "fused_postnorm_ffn": 0, "fused_decoder_layer": 0}
+# the whole-layer route: kernel 12 the encoder's layers, 13 the decoder's
+EXPECTED_ACTION_VAE_STEP_WHOLE = {
+    "train_encoder_layer": 6, "train_encoder_layer_bwd": 6,
+    "train_decoder_layer": 6, "train_decoder_layer_bwd": 6,
+    "train_self_attention": 0, "train_postnorm_ffn": 0}
+# a stage-2 step: the frozen encode's 6 tails as kernel 5, the denoiser's
+# 15 as kernel 9 each way (3 tokens: plain attention)
+EXPECTED_ACTION_DIFFUSION_STEP = {
+    "fused_postnorm_ffn": 6, "train_postnorm_ffn": 15,
+    "train_postnorm_ffn_bwd": 15, "train_self_attention": 0,
+    "fused_masked_attention": 0, "fused_decoder_layer": 0}
+ACTION_PATHS = {
+    "k2": "ActorVae decode, 32 x 60 frames, L 1",
+    "k5": "action denoiser tail, GELU, 64 x 3 rows (CFG batch of 32)",
+    "k8": "ActorVae encoder, 128 x 62 tokens",
+    "k9": "ActorVae encoder tail, GELU, 128 x 62 rows",
+    "k12": "ActorVae encoder, 128 x 62 tokens",
+    "k13": "ActorVae decoder, 128 x 60 frames, L 1"}
+ACTION_GROUPS = (
+    ("fused_postnorm_ffn (denoiser tails, kernel 5)", r"ffn_tail_fwd_kernel"),
+    ("fused_decoder_layer (ActorVae decode, K2)",
+     r"linear64_kernel|attn_tile_kernel|dec_tail_fwd_kernel"),
+    ("library GEMMs (denoiser attention, GRU)", r"gemm|cutlass|nvjet|cublas"),
+    ("memcpy and memset", r"[Mm]emcpy|[Mm]emset"),
+    ("other ATen kernels (plain attention, SMPL, GRU cells, sampler)", r""),
+)
+
+
+def _action_data(tmp, name="humanact12"):
+    """A synthetic HumanAct12 (or UESTC) root under ``tmp`` (the default
+    sizes: 48 clips, 24 videos)."""
+    from ladiff_torch.data import a2m
+    return getattr(a2m, f"generate_synthetic_{name}")(
+        os.path.join(tmp, name))
+
+
+def _action_batch(root, n, lengths=None, name="humanact12"):
+    """``n`` collated items of the synthetic dataset's train split (cycled)
+    as tensors; ``lengths`` cut the first items' frames."""
+    import numpy as np
+    import torch
+    from ladiff_torch.data import a2m
+    cls = a2m.HumanAct12Dataset if name == "humanact12" else a2m.UESTCDataset
+    ds = cls(root, num_frames=ACTION_FRAMES, split="train")
+    batch = a2m.a2m_collate([ds[i % len(ds)] for i in range(n)],
+                            ACTION_FRAMES)
+    if lengths is not None:
+        for i, n_i in enumerate(lengths):
+            batch["motion"][i, n_i:] = 0.0
+            batch["length"][i] = n_i
+        batch["mask"] = (np.arange(ACTION_FRAMES)[None]
+                         < batch["length"][:, None])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).long()
+            if k in ("length", "action") else torch.from_numpy(v)
+            for k, v in batch.items() if k != "action_text"}
+
+
+def phase_action_slice(dev):
+    """The action family (``configs/config_ladiff_humanact12.yaml``) at full
+    width: d 256, the 6-layer ActorVae and the 15-layer plain denoiser,
+    seeded random weights, dropout 0, the synthetic SMPL body and the
+    synthetic HumanAct12 data, batch 4 with lengths 16 / 33 / 47 / 60.  (a)
+    ``generate`` from the action tokens with CFG 7.5 over DDIM-10, the
+    initial noise handed in (DDIM at eta 0 draws no other): latents,
+    features and 24 SMPL joints, float32 card against float32 CPU with no
+    launch, bf16 card within 1e-1 of it beside the plain bf16 CPU control,
+    launches exactly ``expected_action_generation(10)``.  (b) stage-1
+    passes (``vae_forward``) on the split route and on the whole-layer
+    route at each of ``ACTION_GRAD_SEEDS``' weights, and (c) one stage-2
+    pass (``diffusion_forward``: the class-id condition with its drop),
+    every draw given: loss terms and every gradient, card against the CPU
+    and the plain bf16 CPU control, launches exactly
+    ``EXPECTED_ACTION_VAE_STEP`` / ``_WHOLE`` /
+    ``EXPECTED_ACTION_DIFFUSION_STEP``.  Stage 2, and stage 1 with the
+    SMPL-vertex loss's weight at 0, are held to the control as
+    ``diffusion_slice`` holds stage 2; stage 1 with every loss as
+    ``train_slice`` holds its own (``TRAIN_GRAD_TOL``'s all-losses limit on
+    every gradient, the loss terms ``DIFF_LOSS_TOL``), the worst
+    gradient's ratio to the control printed.  (d) one UESTC batch of 4 through
+    the ST-GCN and the HumanAct12 batch through the GRU, float32 card
+    against the CPU.  (e) K2 alone at 32 x 60 frames against one memory
+    row, against its plain version (``KERNEL_TOL``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ladiff_torch.evaluation.a2m_eval import classify
+    from ladiff_torch.models.classifiers import STGCN, MotionDiscriminator
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
+                                                fused_decoder_layer)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    from ladiff_torch.utils.masks import lengths_to_mask
+
+    cfg = _config("config_ladiff_humanact12.yaml", model={"droupout": 0.0})
+    B, steps = 4, 10
+    lengths = [16, 33, 47, 60]
+    tmp = tempfile.mkdtemp(prefix="ladiff_action_slice_")
+    try:
+        batch = _action_batch(_action_data(tmp), B, lengths)
+        uestc = _action_batch(_action_data(tmp, "uestc"), B, lengths,
+                              "uestc")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    g = torch.Generator().manual_seed(61)
+    init = torch.randn(B, 1, 256, generator=g)
+    cpu = _from_cfg(cfg, "cpu", torch.float32, seed=62, **ACTION)
+    state = cpu.state_dict()
+    systems = (("cpu_float32", cpu, False),
+               ("cpu_bf16_control", _from_cfg(cfg, "cpu", torch.bfloat16,
+                                              state=state, **ACTION), False),
+               ("card_float32", _from_cfg(cfg, dev, torch.float32,
+                                          state=state, **ACTION), True),
+               ("card_bf16", _from_cfg(cfg, dev, state=state, **ACTION),
+                True))
+    # (a) generation: latents, features, SMPL joints
+    with torch.no_grad():
+        cond = cpu.denoiser.embed_action(batch["action"][:, 0])
+    runs = {}
+    for label, system, on_card in systems:
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        feats, z = system.generate(cond, torch.zeros_like(cond),
+                                   batch["length"], init_latents=init,
+                                   nframes=ACTION_FRAMES,
+                                   num_inference_timesteps=steps)
+        joints = system.feats2joints_action_eval(
+            feats, batch["mask"].to(system.device))
+        if on_card:
+            torch.cuda.synchronize()
+        runs[label] = ({"z": z.float().cpu(), "feats": feats.float().cpu(),
+                        "joints": joints.float().cpu()},
+                      time.perf_counter() - t0,
+                      {k: v for k, v in cc.launch_counts().items() if v})
+    want = runs["cpu_float32"][0]
+    gen = {who: {k: relerr(runs[who][0][k], w) for k, w in want.items()}
+           for who in ("card_float32", "card_bf16", "cpu_bf16_control")}
+    gen["launches"] = {k: runs[k][2] for k in ("card_float32", "card_bf16")}
+    gen["seconds"] = {k: v[1] for k, v in runs.items()}
+    bf16_want = expected_action_generation(steps)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in runs["card_bf16"][0].values())
+    if max(gen["card_float32"].values()) > FLOAT32_LOSS_TOL or gen[
+            "launches"]["card_float32"]:
+        fail(f"action_slice: float32 generation on the card {gen}")
+    if not (max(gen["card_bf16"].values()) <= 1e-1 and finite):
+        fail(f"action_slice: bf16 generation {gen}, finite={finite}")
+    if gen["launches"]["card_bf16"] != bf16_want:
+        fail(f"action_slice: generation launches "
+             f"{gen['launches']['card_bf16']}, expected {bf16_want}")
+    padded = runs["card_bf16"][0]["feats"][0, 16:]
+    if padded.abs().max() != 0:
+        fail("action_slice: padded frames are not zero")
+    card32 = systems[2][1]
+    del systems
+
+    # (b) stage 1 and (c) stage 2, float32 parameters, bf16 compute on
+    # the control and the card
+    eps = torch.randn(B, 1, 256, generator=g)
+    draws = {"eps": torch.randn(B, 1, 256, generator=g),
+             "noise": torch.randn(B, 1, 256, generator=g),
+             "timesteps": torch.randint(0, 1000, (B,), generator=g),
+             "cond_drop": torch.tensor([False, True, False, False]).reshape(
+                 B, 1, 1)}
+    train, counts = {}, {}
+
+    def runner(forward):
+        def run(system):
+            cc.reset_launch_counts()
+            out = _loss_grads(system, lambda: forward(system))
+            if system.device.type == "cuda":
+                torch.cuda.synchronize()
+                counts.clear()
+                counts.update(cc.launch_counts())
+            return out
+        return run
+
+    def launches_exact(name, want_counts):
+        train[name]["launches"] = {k: v for k, v in counts.items() if v}
+        for k, n in want_counts.items():
+            if counts.get(k, 0) != n:
+                fail(f"action_slice {name}: {k}: {counts.get(k)} launches, "
+                     f"expected {n}")
+
+    run1 = runner(lambda s: s.vae_forward(batch, train=True, eps=eps))
+    limit = TRAIN_GRAD_TOL["std_0.1_all_losses"]
+    for seed in ACTION_GRAD_SEEDS:
+        sd = state if seed == 62 else _from_cfg(
+            cfg, "cpu", torch.float32, seed=seed, **ACTION).state_dict()
+        ref = (_from_cfg(cfg, "cpu", torch.float32, state=sd, **ACTION),
+               _from_cfg(cfg, "cpu", torch.bfloat16, torch.float32, sd,
+                         **ACTION))
+        cards = {route: _from_cfg(cfg, dev, None, torch.float32, sd,
+                                  train_whole_layer=route, **ACTION)
+                 for route in ("0", "1")}
+        for joint in (True, False):
+            for system in (*ref, *cards.values()):
+                system.weights = dataclasses.replace(
+                    system.weights, lambda_joint=float(joint))
+            refs = run1(ref[0]), run1(ref[1])
+            for route, want_counts in (
+                    ("0", EXPECTED_ACTION_VAE_STEP),
+                    ("1", EXPECTED_ACTION_VAE_STEP_WHOLE)):
+                name = (f"stage 1, route {route}, seed {seed}, "
+                        + ("all losses" if joint else "no vertex loss"))
+                rec = _held_to_control(f"action_slice {name}", run1, None,
+                                       None, cards[route],
+                                       hold_grads=not joint, refs=refs,
+                                       watch=(ACTION_WATCHED_GRAD,))
+                train[name] = rec
+                card = rec["card"]
+                print(f"# action_slice {name}: card / control error "
+                      f"median {card['ratio_to_control_median']:.3f}, "
+                      f"largest {card['ratio_to_control_top'][0]}, "
+                      f"{ACTION_WATCHED_GRAD} "
+                      f"{card['ratio_to_control_watched'][ACTION_WATCHED_GRAD]:.3f}"
+                      f"; worst {card['worst_grad']} "
+                      f"{card['worst_grad_rel_err']:.4f} (control "
+                      f"{rec['cpu_bf16_plain']['worst_grad_rel_err']:.4f})",
+                      flush=True)
+                if joint:
+                    card["grad_tol"] = limit
+                    if not card["worst_grad_rel_err"] <= limit:
+                        fail(f"action_slice {name}: gradient of "
+                             f"{card['worst_grad']} rel err "
+                             f"{card['worst_grad_rel_err']} (tol {limit})")
+                launches_exact(name, want_counts)
+        del ref, cards
+    name = "stage 2"
+    train[name] = _held_to_control(
+        f"action_slice {name}", runner(lambda s: s.diffusion_forward(
+            batch, None, train=True, **draws)),
+        _from_cfg(cfg, "cpu", torch.float32, state=state, **ACTION),
+        _from_cfg(cfg, "cpu", torch.bfloat16, torch.float32, state,
+                  **ACTION),
+        _from_cfg(cfg, dev, None, torch.float32, state, **ACTION))
+    launches_exact(name, EXPECTED_ACTION_DIFFUSION_STEP)
+
+    # (d) the classifiers, float32, card against the CPU
+    clf = {}
+    for kind, motion, make in (
+            ("gru", runs["cpu_float32"][0]["feats"],
+             lambda: MotionDiscriminator(72, 128, 2, 12)),
+            ("stgcn", uestc["motion"], lambda: STGCN(num_class=40))):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(63)
+            model = make().eval()
+        outs = {}
+        for device in ("cpu", dev):
+            m = model.to(device)
+            with torch.no_grad():
+                outs[str(device)] = [t.cpu() for t in classify(
+                    cpu if device == "cpu" else card32, m, motion.to(device),
+                    batch["length"].to(device), batch["mask"].to(device),
+                    kind)]
+        errs = [relerr(a, b) for a, b in zip(outs[str(dev)], outs["cpu"])]
+        clf[kind] = {"features_rel_err": errs[0], "logits_rel_err": errs[1]}
+        if max(errs) > FLOAT32_LOSS_TOL:
+            fail(f"action_slice: the {kind} classifier on the card {errs}")
+
+    # (e) K2 at the decode's shape: 32 x 60 frames, one memory row
+    bf = torch.bfloat16
+    D, H, F, T, L, n = 256, 4, 1024, ACTION_FRAMES, 1, 32
+    lens = mixed_lengths(n, 16, 60, seed=64)
+    kv = lengths_to_mask(lens, T).reshape(-1).float().to(dev)
+    layer = randomize_(TransformerDecoderLayer(D, H, F, "gelu"), 65).to(dev,
+                                                                         bf)
+    p2 = layer.kernel_params()
+    rg = torch.Generator().manual_seed(66)
+    a2 = ((torch.randn(n * T, D, generator=rg)).to(dev, bf), kv,
+          torch.randn(n, L, D, generator=rg).to(dev, bf),
+          torch.ones(n, L, device=dev))
+    with torch.no_grad():
+        k2_err = compare("fused_decoder_layer at L 1",
+                         fused_decoder_layer(*a2, p2, T=T, H=H),
+                         decoder_layer_plain(*[a.float() for a in a2],
+                                             {k: v.float() for k, v in
+                                              p2.items()}, T=T, H=H),
+                         KERNEL_TOL)[0]
+    emit({"phase": "action_slice", "batch": B, "steps": steps,
+          "lengths": lengths, "generate": gen, "training": train,
+          "classifiers": clf, "k2_l1_rel_err": k2_err, "tol": KERNEL_TOL})
+
+
+def _action_kernel_records(dev, eval_counts, step_counts, whole_counts):
+    """The action path's kernels at their shapes, each against its plain
+    version and timed in turn with it over 5 rounds (``check_kernel``'s
+    ``rounds``: single windows read 1.1x to 5.4x apart between two runs),
+    with the launches of the path that runs them: K2 at 32 x 60 frames
+    against one memory row
+    and kernel 5 at the denoiser's 64 x 3 rows (an evaluation batch), kernel
+    8 over 128 x 62 encoder tokens and kernel 9 at 128 x 62 rows (a stage-1
+    step, split route), kernels 12 at 128 x 62 and 13 at 128 x 60 with one
+    memory row (the whole-layer route); dropout 0.1 for the training
+    kernels, the plain version given the kernel's masks.  The library
+    times: ``nn.TransformerDecoderLayer`` (eval) for K2,
+    ``nn.TransformerEncoderLayer`` / ``TransformerDecoderLayer`` in
+    training mode, forward and ``autograd.grad``, for kernels 12 and 13.
+    Kernels 5's and 9's lines carry the launch geometry ``ffn_geometry``
+    picks at their rows."""
+    import torch
+    from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
+                                                fused_decoder_layer)
+    from ladiff_torch.ops.postnorm_ffn import (ffn_launch_geometry,
+                                               fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    from ladiff_torch.ops.train_attention import (
+        train_self_attention_bwd, train_self_attention_bwd_plain,
+        train_self_attention_fwd, train_self_attention_masks,
+        train_self_attention_plain)
+    from ladiff_torch.ops.train_decoder_layer import (
+        train_decoder_layer_bwd, train_decoder_layer_bwd_plain,
+        train_decoder_layer_fwd, train_decoder_layer_masks,
+        train_decoder_layer_plain)
+    from ladiff_torch.ops.train_ffn import (
+        train_postnorm_ffn_bwd, train_postnorm_ffn_bwd_plain,
+        train_postnorm_ffn_fwd, train_postnorm_ffn_masks,
+        train_postnorm_ffn_plain)
+    from ladiff_torch.ops.train_layer import (
+        train_encoder_layer_bwd, train_encoder_layer_bwd_plain,
+        train_encoder_layer_fwd, train_encoder_layer_masks,
+        train_encoder_layer_plain)
+    from ladiff_torch.ops.transformer import (TransformerDecoderLayer,
+                                              TransformerEncoderLayer)
+    from ladiff_torch.utils.masks import lengths_to_mask
+
+    bf = torch.bfloat16
+    D, H, F, T, RATE, SEED = 256, 4, 1024, ACTION_FRAMES, 0.1, 0x5EED0A
+    g = torch.Generator().manual_seed(67)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(
+        dev, bf)
+    f32 = lambda p: {k: v.float() for k, v in p.items()}
+    flat = lambda dx, *rest: {"dx": dx, **({"dmem": rest[0]} if len(rest)
+                                          == 2 else {}), **rest[-1]}
+    enc = randomize_(TransformerEncoderLayer(D, H, F, "gelu"), 68).to(dev, bf)
+    dec = randomize_(TransformerDecoderLayer(D, H, F, "gelu"), 69).to(dev, bf)
+    pe = {k: v.detach() for k, v in enc.kernel_params().items()}
+    pd = {k: v.detach() for k, v in dec.kernel_params().items()}
+    pa = {k: pe[k] for k in ("in_w", "in_b", "out_w", "out_b")}
+    pf = {k: pe[k] for k in ("ln1_w", "ln1_b", "w1", "b1", "w2", "b2",
+                             "ln2_w", "ln2_b")}
+    recs = []
+
+    def add(key, name, source, replaces, launches, *args, extra=None,
+            **kw):
+        rec = check_kernel(name, source, replaces, *args, rounds=5,
+                           extra={"path": ACTION_PATHS[key], **(extra or {})},
+                           **kw)
+        rec.update(path=ACTION_PATHS[key], launches=launches)
+        recs.append(rec)
+
+    # K2: an evaluation batch's decode, 32 x 60 frames, one memory row
+    n = 32
+    fv = lengths_to_mask(mixed_lengths(n, 16, T, seed=70), T).to(dev)
+    mv = torch.ones(n, 1, dtype=torch.bool, device=dev)
+    a2 = (rnd(n * T, D), fv.reshape(-1).float(), rnd(n, 1, D), mv.float())
+    lib = torch.nn.TransformerDecoderLayer(
+        D, H, F, dropout=0.0, activation="gelu", batch_first=True,
+        norm_first=False).to(dev, bf).eval()
+    lib.load_state_dict(dec.state_dict())
+    xb = a2[0].reshape(n, T, D)
+
+    def library_k2():
+        with torch.no_grad():
+            return lib(xb, a2[2], tgt_key_padding_mask=~fv)
+
+    fl2 = 2 * n * T * D * (3 * D + 3 * D + 2 * F) + 2 * n * D * 2 * D \
+        + 4 * T * D * (int(fv.sum()) + n)
+    with torch.no_grad():
+        add("k2", "fused_decoder_layer", "ladiff_torch/csrc/decoder_layer.cu",
+            "ladiff_tpu/ops/pallas_decoder_layer.py:234",
+            eval_counts.get("fused_decoder_layer", 0),
+            lambda: fused_decoder_layer(*a2, pd, T=T, H=H),
+            lambda: decoder_layer_plain(*[t.float() for t in a2], f32(pd),
+                                        T=T, H=H),
+            lambda: decoder_layer_plain(*a2, pd, T=T, H=H),
+            fl2, nbytes(*a2, *pd.values(), a2[0]), library=library_k2)
+        # kernel 5: the denoiser's tail on a CFG batch of 2 x 32 samples of
+        # 3 tokens; also in turn over 15 weight sets, as the denoiser's 15
+        # layers call it
+        x5 = rnd(2 * n * 3, D)
+        sets = [{k: v.clone() for k, v in pf.items()} for _ in range(15)]
+        k5_15 = interleaved_ms([lambda: [fused_postnorm_ffn(x5, p)
+                                         for p in sets]], 3)[0][0] / 15
+        del sets
+        add("k5", "fused_postnorm_ffn", "ladiff_torch/csrc/postnorm_ffn.cu",
+            "ladiff_tpu/ops/pallas_postnorm_ffn.py:64",
+            eval_counts.get("fused_postnorm_ffn", 0),
+            lambda: fused_postnorm_ffn(x5, pf),
+            lambda: postnorm_ffn_plain(x5.float(), f32(pf)),
+            lambda: postnorm_ffn_plain(x5, pf),
+            4 * x5.shape[0] * D * F, nbytes(x5, x5, *pf.values()),
+            extra={"geometry": ffn_launch_geometry(
+                "postnorm_ffn", dev, x5.shape[0], D, F),
+                "ms_over_15_weight_sets": k5_15})
+
+    # the training kernels at stage 1's batch of 128
+    B = 128
+    lens = mixed_lengths(B, 16, T, seed=71)
+    ev = torch.cat([torch.ones(B, 2, dtype=torch.bool),
+                    lengths_to_mask(lens, T)], 1)
+    S, Me, Md = T + 2, B * (T + 2), B * T
+    kve = ev.reshape(-1).float().to(dev)
+    kvd = lengths_to_mask(lens, T).reshape(-1).float().to(dev)
+    xe, doute = rnd(Me, D), rnd(Me, D, scale=0.1)
+    xd, doutd, mem = rnd(Md, D), rnd(Md, D, scale=0.1), rnd(B, 1, D)
+    mvalid = torch.ones(B, 1, device=dev)
+    nv_e, nv_d = int(ev.sum()), int(kvd.sum())
+    kw = dict(rate=RATE, seed=SEED)
+    # kernel 8, forward and backward
+    ma = train_self_attention_masks(B, S, D, H, RATE, SEED, dev)
+    mab = tuple(m.to(bf) for m in ma)
+    pa_bytes = nbytes(*pa.values())
+    with torch.no_grad():
+        add("k8", "train_self_attention",
+            "ladiff_torch/csrc/train_attention.cu",
+            "ladiff_tpu/ops/pallas_train_attention.py:388",
+            step_counts.get("train_self_attention", 0),
+            lambda: train_self_attention_fwd(xe, kve, pa, H=H, S=S, **kw),
+            lambda: train_self_attention_plain(xe.float(), kve, f32(pa), ma,
+                                               H=H, S=S),
+            lambda: train_self_attention_plain(xe, kve, pa, mab, H=H, S=S),
+            2 * Me * D * 4 * D + 4 * D * S * nv_e,
+            nbytes(xe, kve, xe) + pa_bytes)
+        _, saved = train_self_attention_fwd(xe, kve, pa, H=H, S=S,
+                                            return_saved=True, **kw)
+        add("k8", "train_self_attention_bwd",
+            "ladiff_torch/csrc/train_attention.cu",
+            "ladiff_tpu/ops/pallas_train_attention.py:388",
+            step_counts.get("train_self_attention_bwd", 0),
+            lambda: flat(*train_self_attention_bwd(xe, kve, doute, pa, saved,
+                                                   H=H, S=S, **kw)),
+            lambda: flat(*train_self_attention_bwd_plain(
+                xe.float(), kve, doute.float(), f32(pa), ma, H=H, S=S)),
+            lambda: train_self_attention_bwd_plain(xe, kve, doute, pa, mab,
+                                                   H=H, S=S),
+            2 * (2 * Me * D * D + 2 * Me * D * 3 * D) + 8 * D * S * nv_e,
+            nbytes(xe, kve, doute, xe) + 3 * pa_bytes, tol=GRAD_TOL)
+        del ma, mab, saved
+        # kernel 9, forward and backward
+        mf = train_postnorm_ffn_masks(Me, D, F, RATE, SEED, dev)
+        mfb = tuple(m.to(bf) for m in mf)
+        pf_bytes = nbytes(*pf.values())
+        add("k9", "train_postnorm_ffn", "ladiff_torch/csrc/train_ffn.cu",
+            "ladiff_tpu/ops/pallas_train_ffn.py:209",
+            step_counts.get("train_postnorm_ffn", 0),
+            lambda: train_postnorm_ffn_fwd(xe, pf, **kw),
+            lambda: train_postnorm_ffn_plain(xe.float(), f32(pf), mf),
+            lambda: train_postnorm_ffn_plain(xe, pf, mfb),
+            4 * Me * D * F, nbytes(xe, xe) + pf_bytes,
+            extra={"geometry": ffn_launch_geometry("train_ffn", dev, Me, D,
+                                                   F)})
+        add("k9", "train_postnorm_ffn_bwd", "ladiff_torch/csrc/train_ffn.cu",
+            "ladiff_tpu/ops/pallas_train_ffn.py:209",
+            step_counts.get("train_postnorm_ffn_bwd", 0),
+            lambda: flat(*train_postnorm_ffn_bwd(xe, doute, pf, **kw)),
+            lambda: flat(*train_postnorm_ffn_bwd_plain(
+                xe.float(), doute.float(), f32(pf), mf)),
+            lambda: train_postnorm_ffn_bwd_plain(xe, doute, pf, mfb),
+            8 * Me * D * F, nbytes(xe, doute, xe) + 3 * pf_bytes,
+            tol=GRAD_TOL)
+        del mf, mfb
+
+    def torch_layer(cls, layer):
+        lib = cls(D, H, F, dropout=RATE, activation="gelu",
+                  batch_first=True, norm_first=False).to(dev, bf).train()
+        lib.load_state_dict(layer.state_dict())
+        return lib
+
+    def library_fwd_bwd(forward, wrt, dout):
+        leaves = [p for w in wrt for p in (
+            w.parameters() if isinstance(w, torch.nn.Module) else [w])]
+        with torch.enable_grad():
+            out = forward()
+
+        def fwd():
+            with torch.enable_grad():
+                return forward()
+        return fwd, lambda: torch.autograd.grad(out, leaves, dout,
+                                                retain_graph=True)
+
+    # kernel 12 over the encoder's 62 tokens
+    lib_e = torch_layer(torch.nn.TransformerEncoderLayer, enc)
+    xle = xe.reshape(B, S, D).detach().requires_grad_(True)
+    pad_e = ~ev.to(dev)
+    lib_e_fwd, lib_e_bwd = library_fwd_bwd(
+        lambda: lib_e(xle, src_key_padding_mask=pad_e), [xle, lib_e],
+        doute.reshape(B, S, D))
+    me = train_encoder_layer_masks(B, S, D, H, F, RATE, SEED, dev)
+    meb = tuple(m.to(bf) for m in me)
+    pe_bytes = nbytes(*pe.values())
+    fl_ef = 2 * Me * D * 4 * D + 4 * D * S * nv_e + 4 * Me * D * F
+    fl_eb = (2 * (2 * Me * D * D + 2 * Me * D * 3 * D) + 8 * D * S * nv_e
+             + 8 * Me * D * F)
+    with torch.no_grad():
+        add("k12", "train_encoder_layer", "ladiff_torch/csrc/train_layer.cu",
+            "ladiff_tpu/ops/pallas_train_layer.py:207",
+            whole_counts.get("train_encoder_layer", 0),
+            lambda: train_encoder_layer_fwd(xe, kve, pe, H=H, S=S, **kw),
+            lambda: train_encoder_layer_plain(xe.float(), kve, f32(pe), me,
+                                              H=H, S=S),
+            lambda: train_encoder_layer_plain(xe, kve, pe, meb, H=H, S=S),
+            fl_ef, nbytes(xe, kve, xe) + pe_bytes, library=lib_e_fwd)
+        _, saved = train_encoder_layer_fwd(xe, kve, pe, H=H, S=S,
+                                           return_saved=True, **kw)
+        add("k12", "train_encoder_layer_bwd",
+            "ladiff_torch/csrc/train_layer.cu",
+            "ladiff_tpu/ops/pallas_train_layer.py:207",
+            whole_counts.get("train_encoder_layer_bwd", 0),
+            lambda: flat(*train_encoder_layer_bwd(xe, kve, doute, pe, saved,
+                                                  H=H, S=S, **kw)),
+            lambda: flat(*train_encoder_layer_bwd_plain(
+                xe.float(), kve, doute.float(), f32(pe), me, H=H, S=S)),
+            lambda: train_encoder_layer_bwd_plain(xe, kve, doute, pe, meb,
+                                                  H=H, S=S),
+            fl_eb, nbytes(xe, kve, doute, xe) + 3 * pe_bytes,
+            library=lib_e_bwd, tol=GRAD_TOL)
+    del me, meb, saved, lib_e, lib_e_fwd, lib_e_bwd
+    # kernel 13 over the decoder's 60 frames, one memory row
+    lib_d = torch_layer(torch.nn.TransformerDecoderLayer, dec)
+    xld = xd.reshape(B, T, D).detach().requires_grad_(True)
+    meml = mem.detach().requires_grad_(True)
+    pad_d = kvd.reshape(B, T) == 0
+    lib_d_fwd, lib_d_bwd = library_fwd_bwd(
+        lambda: lib_d(xld, meml, tgt_key_padding_mask=pad_d),
+        [xld, meml, lib_d], doutd.reshape(B, T, D))
+    md = train_decoder_layer_masks(B, T, 1, D, H, F, RATE, SEED, dev)
+    mdb = tuple(m.to(bf) for m in md)
+    pd_bytes = nbytes(*pd.values())
+    fl_df = (2 * Md * D * 4 * D + 4 * D * T * nv_d + 2 * Md * D * 2 * D
+             + 2 * B * D * 2 * D + 4 * D * T * B + 4 * Md * D * F)
+    fl_db = (2 * (2 * Md * D * D + 2 * Md * D * 3 * D) + 8 * D * T * nv_d
+             + 2 * (2 * Md * D * D) * 2 + 2 * (2 * B * D * 2 * D)
+             + 8 * D * T * B + 8 * Md * D * F)
+    with torch.no_grad():
+        add("k13", "train_decoder_layer",
+            "ladiff_torch/csrc/train_decoder_layer.cu",
+            "ladiff_tpu/ops/pallas_train_decoder_layer.py:410",
+            whole_counts.get("train_decoder_layer", 0),
+            lambda: train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd, H=H,
+                                            S=T, **kw),
+            lambda: train_decoder_layer_plain(xd.float(), kvd, mem.float(),
+                                              mvalid, f32(pd), md, H=H, S=T),
+            lambda: train_decoder_layer_plain(xd, kvd, mem, mvalid, pd, mdb,
+                                              H=H, S=T),
+            fl_df, nbytes(xd, kvd, mem, mvalid, xd) + pd_bytes,
+            library=lib_d_fwd)
+        _, saved = train_decoder_layer_fwd(xd, kvd, mem, mvalid, pd, H=H,
+                                           S=T, return_saved=True, **kw)
+        add("k13", "train_decoder_layer_bwd",
+            "ladiff_torch/csrc/train_decoder_layer.cu",
+            "ladiff_tpu/ops/pallas_train_decoder_layer.py:410",
+            whole_counts.get("train_decoder_layer_bwd", 0),
+            lambda: flat(*train_decoder_layer_bwd(
+                xd, kvd, mem, mvalid, doutd, pd, saved, H=H, S=T, **kw)),
+            lambda: flat(*train_decoder_layer_bwd_plain(
+                xd.float(), kvd, mem.float(), mvalid, doutd.float(), f32(pd),
+                md, H=H, S=T)),
+            lambda: train_decoder_layer_bwd_plain(xd, kvd, mem, mvalid, doutd,
+                                                  pd, mdb, H=H, S=T),
+            fl_db, nbytes(xd, kvd, mem, mvalid, doutd, xd, mem)
+            + 3 * pd_bytes, library=lib_d_bwd, tol=GRAD_TOL)
+    return recs
+
+
+def _steps(step, n_warm, n, dev):
+    """``n`` timed calls of ``step`` after ``n_warm`` (host clock, a sync
+    at the end): (ms a call, the last result, launches a call, peak GB)."""
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+    for _ in range(n_warm):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    return (ms, out, {k: v / n for k, v in cc.launch_counts().items() if v},
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_action_bench(dev, gpu=""):
+    """The action family at the published width in bf16 (float32
+    parameters where it trains), seeded random weights, the synthetic SMPL
+    body and data.  (a) one HumanAct12 evaluation batch of 32
+    (``a2m_eval_step``: CFG 7.5 DDIM-50 from the action tokens, the decode,
+    the SMPL joints, the GRU on the generated and the ground-truth
+    motions), 1 warm-up and 3 timed: seconds a batch, samples/s, exactly
+    ``EXPECTED_ACTION_EVAL_PER_BATCH``; one batch profiled (device ms by
+    ``ACTION_GROUPS``, idle share); then the same in float32 (no launch).  (b) 5 stage-1 steps at batch 128
+    (dropout 0.1) on the split and on the whole-layer route: ms a step,
+    samples/s, peak memory, launches a step exactly
+    ``EXPECTED_ACTION_VAE_STEP`` / ``_WHOLE``.  (c) 3 stage-2 steps at batch
+    64: the same, ``EXPECTED_ACTION_DIFFUSION_STEP``.  (d) ``python -m
+    ladiff_torch.test``'s ``run_test`` on ``config_ladiff_humanact12`` (GRU)
+    and ``config_ladiff_uestc`` (ST-GCN) as published (float32, no launch)
+    at ``REPLICATION_TIMES`` 1 (published 20) from a saved random
+    checkpoint, with random classifiers, on the synthetic roots (48
+    HumanAct12 clips, 24 UESTC videos: a smoke run of the protocol's code,
+    its seconds no measure of its cost); the protocol's cost is estimated
+    from (a)'s seconds a batch, in float32 as published and in bf16, at
+    ``HUMANACT12_CLIPS`` clips and 20 replications.  (e) the
+    path's kernels at their shapes (``_action_kernel_records``).  Returns
+    the kernel records."""
+    import logging
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ladiff_torch.data import a2m
+    from ladiff_torch.evaluation.a2m_eval import a2m_eval_step
+    from ladiff_torch.models.classifiers import MotionDiscriminator
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.test import run_test
+    from ladiff_torch.training.trainer import (diffusion_train_step,
+                                               make_optimizer,
+                                               vae_train_step)
+
+    tmp = tempfile.mkdtemp(prefix="ladiff_action_bench_")
+    try:
+        roots = {name: _action_data(tmp, name)
+                 for name in ("humanact12", "uestc")}
+        rec = {"phase": "action_bench", "gpu": gpu}
+        # (a) an evaluation batch of 32
+        system = _from_cfg(_config("config_ladiff_humanact12.yaml"), dev,
+                           seed=72, **ACTION)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(73)
+            gru = MotionDiscriminator(72, 128, 2, 12).to(dev).eval()
+        batch = _action_batch(roots["humanact12"], 32)
+        ng = torch.Generator().manual_seed(74)
+        step = lambda: a2m_eval_step(system, gru, batch, "gru",
+                                     init_latents=torch.randn(
+                                         32, 1, 256, generator=ng))
+        ms, out, per_batch, peak = _steps(step, 1, 3, dev)
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        groups = {name: 0.0 for name, _ in ACTION_GROUPS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if us > 0:
+                name = next(n for n, pat in ACTION_GROUPS
+                            if re.search(pat, ev.key))
+                groups[name] += us / 1e3
+        device_ms = sum(groups.values())
+        rec["eval_batch"] = {
+            "batch": 32, "steps": 50, "frames": ACTION_FRAMES,
+            "seconds_per_batch": ms / 1e3, "samples_per_sec": 32 / ms * 1e3,
+            "launches_per_batch": per_batch, "peak_mem_gb": peak,
+            "finite": finite, "profiled_wall_ms": wall,
+            "device_ms_per_batch": device_ms,
+            "idle_share": 1.0 - device_ms / ms, "device_ms_by_group": groups}
+        print(f"# action_bench: an evaluation batch of 32 in {ms:.1f} ms "
+              f"({32 / ms * 1e3:.0f} samples/s), {device_ms:.1f} device ms "
+              f"(idle {1 - device_ms / ms:.0%}); {gpu}", flush=True)
+        if not finite or per_batch != EXPECTED_ACTION_EVAL_PER_BATCH:
+            fail(f"action_bench eval batch: launches {per_batch}, expected "
+                 f"{EXPECTED_ACTION_EVAL_PER_BATCH}, finite={finite}")
+        # the same batch as the published configuration runs it (float32,
+        # no launch): the protocol's cost a batch
+        system = _from_cfg(_config("config_ladiff_humanact12.yaml"), dev,
+                           torch.float32, seed=72, **ACTION)
+        ms32, out, per_batch32, _ = _steps(step, 1, 3, dev)
+        rec["eval_batch_float32"] = {
+            "seconds_per_batch": ms32 / 1e3,
+            "samples_per_sec": 32 / ms32 * 1e3,
+            "launches_per_batch": per_batch32}
+        batches = -(-HUMANACT12_CLIPS // 32)
+        rec["humanact12_protocol_estimate"] = {
+            "clips": HUMANACT12_CLIPS, "batches_of_32": batches,
+            "replications": 20,
+            "seconds_float32": batches * 20 * ms32 / 1e3,
+            "seconds_bf16": batches * 20 * ms / 1e3}
+        print(f"# action_bench: float32 an evaluation batch of 32 in "
+              f"{ms32:.1f} ms; the HumanAct12 protocol ({HUMANACT12_CLIPS} "
+              f"clips, {batches} batches x 20 replications) ~"
+              f"{batches * 20 * ms32 / 1e3:.0f} s float32, "
+              f"{batches * 20 * ms / 1e3:.0f} s bf16; {gpu}", flush=True)
+        if per_batch32 or not all(bool(torch.isfinite(v).all())
+                                  for v in out.values()):
+            fail(f"action_bench float32 eval batch: launches {per_batch32}")
+        del system, gru
+
+        # (b) stage 1 at batch 128 on both routes, (c) stage 2 at 64
+        train = {}
+        vae_cfg = _config("config_vae_humanact12.yaml")
+        for route, want in (("0", EXPECTED_ACTION_VAE_STEP),
+                            ("1", EXPECTED_ACTION_VAE_STEP_WHOLE)):
+            system = _from_cfg(vae_cfg, dev, None, torch.float32, seed=75,
+                               train_whole_layer=route, **ACTION)
+            opt = make_optimizer(system.vae.parameters())
+            gen = torch.Generator(device=dev).manual_seed(76)
+            b = {k: v.to(dev) for k, v in _action_batch(
+                roots["humanact12"], 128).items()}
+            ms, logs, per_step, peak = _steps(
+                lambda: vae_train_step(system, opt, b, gen), 2, 5, dev)
+            train[f"stage1_route_{route}"] = {
+                "batch": 128, "ms_per_step": ms,
+                "samples_per_sec": 128 / ms * 1e3, "peak_mem_gb": peak,
+                "loss": float(logs["total"]), "launches_per_step": per_step}
+            for k, n in want.items():
+                if per_step.get(k, 0) != n:
+                    fail(f"action_bench stage 1 route {route}: {k}: "
+                         f"{per_step.get(k)} launches a step, expected {n}")
+            if route == "0":
+                step_counts = per_step
+            else:
+                whole_counts = per_step
+            del system, opt
+        system = _from_cfg(_config("config_ladiff_humanact12.yaml"), dev,
+                           None, torch.float32, seed=77, **ACTION)
+        opt = make_optimizer(system.denoiser.parameters())
+        gen = torch.Generator(device=dev).manual_seed(78)
+        b = {k: v.to(dev) for k, v in _action_batch(
+            roots["humanact12"], 64).items()}
+        ms, logs, per_step, peak = _steps(
+            lambda: diffusion_train_step(system, opt, b, None, gen), 1, 3,
+            dev)
+        train["stage2"] = {"batch": 64, "ms_per_step": ms,
+                           "samples_per_sec": 64 / ms * 1e3,
+                           "peak_mem_gb": peak, "loss": float(logs["total"]),
+                           "launches_per_step": per_step}
+        for k, n in EXPECTED_ACTION_DIFFUSION_STEP.items():
+            if per_step.get(k, 0) != n:
+                fail(f"action_bench stage 2: {k}: {per_step.get(k)} "
+                     f"launches a step, expected {n}")
+        rec["training"] = train
+        for name, t in train.items():
+            print(f"# action_bench: {name} {t['ms_per_step']:.2f} ms a step "
+                  f"of {t['batch']} ({t['samples_per_sec']:.0f} samples/s); "
+                  f"{gpu}", flush=True)
+            if not math.isfinite(t["loss"]):
+                fail(f"action_bench {name}: loss {t['loss']}")
+        del system, opt
+
+        # (d) the benchmark protocol's code path as published (float32), a
+        # smoke run: one replication over the synthetic test splits
+        entry = {}
+        for name, data_key in (("config_ladiff_humanact12.yaml", "HUMANACT12"),
+                               ("config_ladiff_uestc.yaml", "UESTC")):
+            cfg = _config(name, **{
+                "DEBUG": False, "FOLDER": os.path.join(tmp, "experiments"),
+                "FOLDER_EXP": tmp,
+                "DATASET": {data_key: {"ROOT": roots[data_key.lower()]}},
+                "TEST": {"REPLICATION_TIMES": 1},
+                "LOGGER": {"TENSORBOARD": False}})
+            state = _from_cfg(cfg, "cpu", torch.float32, seed=79,
+                              **ACTION).state_dict()
+            logger = logging.getLogger(f"action_bench.{data_key}")
+            cc.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = run_test(cfg, logger, state_dict=state, device=dev)
+            torch.cuda.synchronize()
+            entry[data_key] = {
+                "smoke_seconds": time.perf_counter() - t0,
+                "test_items": len(getattr(a2m, {
+                    "HUMANACT12": "HumanAct12Dataset",
+                    "UESTC": "UESTCDataset"}[data_key])(
+                        roots[data_key.lower()], num_frames=ACTION_FRAMES,
+                        split="test")),
+                "metrics": {k: v[0] for k, v in summary.items()},
+                "launches": {k: v for k, v in cc.launch_counts().items()
+                             if v}}
+            if entry[data_key]["launches"] or not all(
+                    math.isfinite(v) for v in entry[data_key][
+                        "metrics"].values()):
+                fail(f"action_bench run_test {name}: {entry[data_key]}")
+        rec["run_test_smoke"] = entry
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    recs = _action_kernel_records(dev, per_batch, step_counts, whole_counts)
+    rec["kernels"] = [{k: r[k] for k in ("name", "path", "ms", "plain_ms",
+                                         "bound_ms", "library_ms",
+                                         "launches")} for r in recs]
+    emit(rec)
+    return recs
 
 
 def main():
@@ -4479,7 +5437,8 @@ def main():
         # the route bench prints the default route's samples/s beside its own
         args = ((out["bench"][1],) if name == "route_bench" and "bench" in out
                 else (gpu,) if name in ("eval_entry", "novae_bench",
-                                        "ar_bench", "distill_bench")
+                                        "ar_bench", "distill_bench",
+                                        "action_bench")
                 else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)
@@ -4523,6 +5482,10 @@ def main():
     novae_rec, novae_counts = out["novae_bench"]
     novae_rec["launches"] = novae_counts[novae_rec["name"]]
     recs.append(novae_rec)
+    # the action family's kernels at its shapes, with the launches of its
+    # evaluation batch (K2, kernel 5) and of its stage-1 steps on each
+    # route (kernels 8, 9, 12, 13)
+    recs += out["action_bench"]
     for rec in recs:
         if rec["launches"] <= 0:
             fail(f"{rec['name']} was not launched on the main path")

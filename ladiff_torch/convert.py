@@ -9,9 +9,15 @@ loads with ``load_state_dict(strict=True)``, so both packages compute from
 the same weights.
 
     system_state_dict({"vae": ..., "denoiser": ...})  -> LADiffSystem
+                                                         (LA-VAE or
+                                                         ActorVae)
+    actor_vae_state_dict(tree, prefix)                -> ActorVae, also a
+                                                         gradient tree
     clip_state_dict(tower_params)                     -> CLIPTextTower
     evaluator_state_dict(evaluator_params)            -> the three T2M
                                                          evaluator encoders
+    gru_classifier_state_dict(params)                 -> MotionDiscriminator
+    stgcn_state_dict(params)                          -> STGCN
     flax_state_dict(tree, prefix)                     -> any subtree, also
                                                          a gradient tree
 
@@ -30,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["system_state_dict", "clip_state_dict", "flax_state_dict",
-           "evaluator_state_dict"]
+           "evaluator_state_dict", "actor_vae_state_dict",
+           "gru_classifier_state_dict", "stgcn_state_dict"]
 
 # flax submodule names "input_blocks_0" / "emb_layers_1" -> torch "input_blocks.0"
 _INDEXED = re.compile(
@@ -66,14 +73,99 @@ def flax_state_dict(tree: Mapping[str, Any], prefix: str = "",
     return out
 
 
+def actor_vae_state_dict(tree: Mapping[str, Any], prefix: str = "vae.",
+                         out=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ActorVae`` tree (``skel_embedding``,
+    ``mu_token``, ``logvar_token``, ``enc_{i}``, ``dec_{i}``,
+    ``final_layer``), or a gradient tree of it, -> the port's reference
+    names under ``prefix``."""
+    out = {} if out is None else out
+    names = {"skel_embedding": "encoder.skel_embedding",
+             "mu_token": "encoder.mu_token",
+             "logvar_token": "encoder.logvar_token",
+             "final_layer": "decoder.final_layer"}
+    for name, v in tree.items():
+        if name in names:
+            key = prefix + names[name]
+            if isinstance(v, Mapping):
+                flax_state_dict(v, key + ".", out)
+            else:
+                out[key] = _t(v)
+        else:
+            side, i = name.split("_")
+            stack = ("encoder.seqTransEncoder" if side == "enc"
+                     else "decoder.seqTransDecoder")
+            flax_state_dict(v, f"{prefix}{stack}.layers.{i}.", out)
+    return out
+
+
 def system_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``ladiff_tpu`` ``LADiffSystem.init_params`` output ({"vae",
     "denoiser"}) -> ``ladiff_torch`` ``LADiffSystem`` state dict.  An empty
     (or absent) ``vae`` tree, feature-space diffusion's, gives no ``vae.*``
-    entry."""
+    entry; an ActorVae tree (it has ``mu_token``) takes
+    ``actor_vae_state_dict``'s names."""
     out: Dict[str, torch.Tensor] = {}
-    flax_state_dict(params.get("vae") or {}, "vae.", out)
+    vae = params.get("vae") or {}
+    if "mu_token" in vae:
+        actor_vae_state_dict(vae, "vae.", out)
+    else:
+        flax_state_dict(vae, "vae.", out)
     flax_state_dict(params["denoiser"], "denoiser.", out)
+    return out
+
+
+def gru_classifier_state_dict(params: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``MotionDiscriminator`` params (``gru{l}_w_ih``
+    ..., ``linear1``, ``linear2``) -> the port's (reference) names."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in params.items():
+        if name.startswith("gru"):
+            layer, leaf = name[3:].split("_", 1)
+            kind = "weight" if leaf[0] == "w" else "bias"
+            out[f"recurrent.{kind}_{leaf[2:]}_l{layer}"] = _t(v)
+        else:
+            flax_state_dict(v, name + ".", out)
+    return out
+
+
+def stgcn_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``STGCN`` params -> the port's (reference) names:
+    frozen BNs to ``weight`` / ``bias`` / ``running_mean`` / ``running_var``,
+    flax convolutions [kh, kw, in, out] to ``Conv2d`` [out, in, kh, kw], the
+    dense ``fcn`` to a 1x1 convolution, and the graph ``A``."""
+    from ladiff_torch.models.classifiers import smpl_graph_adjacency
+    out: Dict[str, torch.Tensor] = {
+        "A": torch.from_numpy(smpl_graph_adjacency(24))}
+
+    def bn(p, key):
+        for ours, theirs in (("scale", "weight"), ("bias", "bias"),
+                             ("mean", "running_mean"),
+                             ("var", "running_var")):
+            out[f"{key}.{theirs}"] = _t(p[ours])
+        out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+    def conv(p, key):
+        k = np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1)
+        out[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+        out[f"{key}.bias"] = _t(p["bias"])
+
+    bn(params["data_bn"], "data_bn")
+    parts = {"gcn_conv": (conv, "gcn.conv"), "bn1": (bn, "tcn.0"),
+             "tcn_conv": (conv, "tcn.2"), "bn2": (bn, "tcn.3"),
+             "res_conv": (conv, "residual.0"), "res_bn": (bn, "residual.1")}
+    i = 0
+    while f"st_gcn_{i}" in params:
+        for name, p in params[f"st_gcn_{i}"].items():
+            fn, key = parts[name]
+            fn(p, f"st_gcn_networks.{i}.{key}")
+        out[f"edge_importance.{i}"] = _t(params[f"edge_importance_{i}"])
+        i += 1
+    k = np.asarray(params["fcn"]["kernel"], np.float32).T
+    out["fcn.weight"] = torch.from_numpy(np.ascontiguousarray(k))[
+        :, :, None, None]
+    out["fcn.bias"] = _t(params["fcn"]["bias"])
     return out
 
 

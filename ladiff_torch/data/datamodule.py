@@ -14,7 +14,8 @@ The reference LADiff's data layer:
 
 The loaders yield numpy batches of a static shape (motion padded to MAX_LEN,
 or to a length bucket); the training loop copies them to the device.  The
-action datasets (HumanAct12, UESTC) are not ported yet.
+action datasets (HumanAct12, UESTC) come as ``data/a2m.py``'s
+``ActionDataModule``.
 """
 from __future__ import annotations
 
@@ -186,11 +187,39 @@ class T2MDataModule:
 
 
 def _get_action_dataset(cfg, name: str, base, phase: str = "train"):
-    """The action datasets (HumanAct12, UESTC) are not ported yet
-    (ROADMAP.md Queue 1: the action family)."""
-    raise NotImplementedError(
-        f"the {name} action dataset is not ported to ladiff_torch yet "
-        "(ROADMAP.md Queue 1: the action family)")
+    """An action dataset (HumanAct12, UESTC) behind an
+    ``ActionDataModule`` (the reference's get_data.py maps both to the a2m
+    data modules).  Sets ``DATASET.NFEATS`` (150), ``NJOINTS`` (25) and
+    ``NCLASSES`` (12 / 40); with ``LADIFF_SYNTHETIC_DATA=1`` and no data at
+    ``DATASET.<NAME>.ROOT`` it writes and reads a synthetic stand-in under
+    ``datasets/synthetic_<name>``."""
+    from ladiff_torch.data.a2m import (ActionDataModule, HumanAct12Dataset,
+                                       UESTCDataset,
+                                       generate_synthetic_humanact12,
+                                       generate_synthetic_uestc)
+    root = base.get("ROOT", pjoin("datasets", name))
+    kwargs = dict(num_frames=int(base.get("NUM_FRAMES", 60)),
+                  pose_rep=str(base.get("POSE_REP", "rot6d")),
+                  translation=bool(base.get("TRANSLATION", True)),
+                  glob=bool(base.get("GLOB", True)),
+                  split="test" if phase == "test" else "train",
+                  seed=int(cfg.get("SEED_VALUE", 1234)))
+    marker, write, cls = {
+        "humanact12": ("humanact12poses.pkl", generate_synthetic_humanact12,
+                       HumanAct12Dataset),
+        "uestc": ("vibe_cache_refined.pkl", generate_synthetic_uestc,
+                  UESTCDataset)}[name]
+    if (not os.path.exists(pjoin(root, marker))
+            and os.environ.get("LADIFF_SYNTHETIC_DATA", "") == "1"):
+        root = pjoin("datasets", f"synthetic_{name}")
+        if not os.path.exists(pjoin(root, marker)):
+            write(root)
+        print(f"WARNING: using SYNTHETIC {name} at {root}")
+    ds = cls(root, **kwargs)
+    cfg.DATASET.NFEATS = ds.nfeats
+    cfg.DATASET.NJOINTS = 24 + int(ds.translation)
+    cfg.DATASET.NCLASSES = ds.num_classes
+    return ActionDataModule(ds, batch_size=int(cfg[phase.upper()].BATCH_SIZE))
 
 
 def get_datasets(cfg, phase: str = "train") -> List[T2MDataModule]:

@@ -1,8 +1,14 @@
 """LA-denoiser (counterpart of ``ladiff_tpu/models/denoiser.py``), the
-text condition, in its two wirings.
+text and the action condition, in its two wirings.
 
-Sinusoidal timestep embedding at ``text_encoded_dim`` (768) projected by
-Linear-SiLU-Linear to D; pooled CLIP text projected by ReLU + Linear.
+Text (``condition="text"``): sinusoidal timestep embedding at
+``text_encoded_dim`` (768) projected by Linear-SiLU-Linear to D; pooled
+CLIP text projected by ReLU + Linear.  Action (``condition="action"``, the
+action family): the sinusoidal width is D; the condition is a learned
+class table ``emb_proj.action_embedding`` [nclasses, D] (``EmbedAction``):
+one token [B, 1, D] per sample, zeros for the unconditional branch, and in
+training each sample's token is dropped (zeroed) with probability
+``guidance_uncondp``.
 
   * ``md_trans=True`` (the published LADiff model): latents [B, MAX_IT, D]
     with a per-sample latent-row mask through the skip encoder over
@@ -49,7 +55,34 @@ from ladiff_torch.ops.embeddings import (PositionEmbeddingLearned1D,
 from ladiff_torch.ops.stylization import MDSkipTransformerEncoder
 from ladiff_torch.ops.transformer import SkipTransformerEncoder, linear
 
-__all__ = ["LADenoiser"]
+__all__ = ["LADenoiser", "EmbedAction"]
+
+
+class EmbedAction(nn.Module):
+    """The learned action-class table with the unconditional drop of
+    classifier-free guidance."""
+
+    def __init__(self, num_actions: int, latent_dim: int,
+                 guidance_uncondp: float = 0.1):
+        super().__init__()
+        self.guidance_uncondp = guidance_uncondp
+        self.action_embedding = nn.Parameter(
+            nn.init.xavier_uniform_(torch.empty(num_actions, latent_dim)))
+
+    def forward(self, action_ids: torch.Tensor, force_mask: bool = False,
+                drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B] class ids -> [B, D]; ``force_mask`` gives zeros.  In training
+        mode a sample's row is zeroed where ``drop`` [B, 1] (bool, the
+        caller's Bernoulli(``guidance_uncondp``) draw) is true."""
+        out = self.action_embedding[action_ids.long()]
+        if force_mask:
+            return torch.zeros_like(out)
+        if self.training and self.guidance_uncondp > 0.0:
+            if drop is None:
+                raise ValueError("EmbedAction in training mode needs the "
+                                 "drop mask")
+            out = out * (~drop.to(out.device)).to(out.dtype)
+        return out
 
 
 class LADenoiser(nn.Module):
@@ -59,12 +92,16 @@ class LADenoiser(nn.Module):
                  flip_sin_to_cos: bool = True, freq_shift: int = 0,
                  dropout: float = 0.0, md_trans: bool = True,
                  diffusion_only: bool = False, activation: str = "gelu",
-                 position_embedding: str = "learned"):
+                 position_embedding: str = "learned",
+                 condition: str = "text", nclasses: int = 12,
+                 guidance_uncondp: float = 0.1):
         super().__init__()
         D = int(latent_dim[-1])
         if diffusion_only and md_trans:
             raise ValueError("diffusion_only runs the plain wiring "
                              "(md_trans=False)")
+        if condition not in ("text", "action"):
+            raise ValueError(f"condition {condition!r}: text or action")
         if position_embedding not in ("learned", "sine"):
             raise ValueError(f"position_embedding {position_embedding!r}: "
                              "learned or sine")
@@ -74,9 +111,15 @@ class LADenoiser(nn.Module):
         self.freq_shift = freq_shift
         self.md_trans = md_trans
         self.diffusion_only = diffusion_only
+        self.condition = condition
         self.compute_dtype: Optional[torch.dtype] = None
-        self.time_embedding = TimestepEmbedding(text_encoded_dim, D)
-        if text_encoded_dim != D:
+        # the sinusoidal time embedding is text_encoded_dim wide for text, D
+        # for action
+        self.time_sin_dim = text_encoded_dim if condition == "text" else D
+        self.time_embedding = TimestepEmbedding(self.time_sin_dim, D)
+        if condition == "action":
+            self.emb_proj = EmbedAction(nclasses, D, guidance_uncondp)
+        elif text_encoded_dim != D:
             self.emb_proj = nn.Sequential(nn.ReLU(),
                                           nn.Linear(text_encoded_dim, D))
         if diffusion_only:
@@ -102,7 +145,7 @@ class LADenoiser(nn.Module):
     def compute_time_embedding(self, timesteps: torch.Tensor) -> torch.Tensor:
         """[N] timesteps -> [N, D]; samplers build the whole table once."""
         t_emb = timestep_embedding(
-            timesteps, self.text_encoded_dim,
+            timesteps, self.time_sin_dim,
             flip_sin_to_cos=self.flip_sin_to_cos,
             downscale_freq_shift=float(self.freq_shift)).to(self.dtype)
         return self.time_embedding(t_emb)
@@ -115,6 +158,13 @@ class LADenoiser(nn.Module):
         if text.shape[-1] == self.d_model:
             return text
         return linear(self.emb_proj[1], F.relu(text))
+
+    def embed_action(self, action_ids: torch.Tensor,
+                     force_mask: bool = False) -> torch.Tensor:
+        """[B] class ids -> [B, 1, D] condition tokens in the activations'
+        type; ``force_mask`` gives the zeroed unconditional branch."""
+        return self.emb_proj(action_ids, force_mask=force_mask)[:, None].to(
+            self.dtype)
 
     def precompute_md_prep(self, text_emb_latent: torch.Tensor,
                            time_table: torch.Tensor,
@@ -149,19 +199,27 @@ class LADenoiser(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 frame_valid: Optional[torch.Tensor] = None,
                 enclat: Optional[torch.Tensor] = None,
-                enclat_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                enclat_valid: Optional[torch.Tensor] = None,
+                cond_drop: Optional[torch.Tensor] = None) -> torch.Tensor:
         """sample [B, n_lat, D] noisy latents (``diffusion_only``: [B, T,
         nfeats] noisy feature frames, ``frame_valid`` [B, T]) -> predicted
         noise of the same shape.  ``latent_valid`` masks the MD wiring's
         latent rows; the plain wiring passes no key mask unless ``enclat``
         rows need hiding.  ``enclat`` [B, n_cond, D] and ``enclat_valid``
-        [B, n_cond]: the autoregressive conditioning rows."""
+        [B, n_cond]: the autoregressive conditioning rows.  With the action
+        condition ``encoder_hidden_states`` are class ids [B] and
+        ``cond_drop`` [B, 1, 1] (bool, required in training mode) the
+        samples whose token is dropped."""
         B, n_lat = sample.shape[:2]
         sample = sample.to(self.dtype)
         if time_emb is None:
             time_emb = self.compute_time_embedding(timesteps)
         time_emb = time_emb.to(self.dtype)
-        if text_emb_latent is None:
+        if text_emb_latent is None and self.condition == "action":
+            drop = None if cond_drop is None else cond_drop.reshape(B, 1)
+            text_emb_latent = self.emb_proj(encoder_hidden_states,
+                                            drop=drop)[:, None]
+        elif text_emb_latent is None:
             text_emb_latent = self.project_text(encoder_hidden_states)
         text_emb_latent = text_emb_latent.to(self.dtype)
         if self.diffusion_only:

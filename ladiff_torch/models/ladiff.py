@@ -15,16 +15,29 @@ trains one token per sample conditioned on its predecessor
     short guided sampling run (no gradient) and an eval-mode decode of its
     latents whose gradients reach the decoder.
 
-Text condition and epsilon prediction only.  The text is either pooled
-CLIP features [B, 1, 768] (the published configurations) or the full
-context [B, 77, 768] (``last_hidden_state``).  ``vae_type`` "ladiff"
-diffuses the LA-VAE's latents; "no" (feature-space diffusion, the novae
-family) has no VAE at all (``self.vae`` is None, no ``vae.*`` key): the
-denoiser (``diffusion_only``) diffuses the padded feature frames
-[B, max_frames, nfeats] under the frame mask, and ``generate`` returns them
-as they are.  ``md_trans`` picks the denoiser's wiring: the MD-trans skip
-stack (the published LADiff model) or the plain skip transformer (the
-novae configuration).
+Epsilon prediction only.  The text condition is either pooled CLIP
+features [B, 1, 768] (the published configurations) or the full context
+[B, 77, 768] (``last_hidden_state``).  ``vae_type`` "ladiff" diffuses the
+LA-VAE's latents; "no" (feature-space diffusion, the novae family) has no
+VAE at all (``self.vae`` is None, no ``vae.*`` key): the denoiser
+(``diffusion_only``) diffuses the padded feature frames [B, max_frames,
+nfeats] under the frame mask, and ``generate`` returns them as they are.
+``md_trans`` picks the denoiser's wiring: the MD-trans skip stack (the
+published LADiff model) or the plain skip transformer (the novae and the
+action configurations).
+
+The action family (``condition="action"``, ``vae_type="actor"``: the
+HumanAct12 and UESTC configurations): the ActorVae's single latent
+[B, 1, D] (``max_it`` 0, ``latent_dim[0]`` latents, no row mask) is
+diffused under the condition of class ids through the denoiser's
+``EmbedAction`` table (zeros the unconditional branch, ``embed_action``);
+the features are rot6d (+ translation), 150 wide, and ``rot2xyz`` (an SMPL
+forward pass, ``transforms/rotation2xyz.py``) turns them into vertices for
+the stage-1 joints loss (``feats2joints_action``) and into 24 SMPL joints
+for the HumanAct12 classifier (``feats2joints_action_eval``).
+``num_layers`` is the denoiser's depth and the VAE's unless
+``vae_num_layers`` gives the VAE its own (15 and 6 in the HumanAct12
+configurations).
 
 ``dtype`` is the compute type (bf16 on CUDA by default, the kernels' type;
 float32 there takes every module's plain route) and ``param_dtype`` the
@@ -59,14 +72,24 @@ from ladiff_torch.diffusion.sampling import ddim_sample, make_cfg_denoise_fn
 from ladiff_torch.diffusion.schedulers import ddim_timesteps, make_schedule
 from ladiff_torch.losses.mld import (LossWeights, diffusion_loss, smooth_l1,
                                      vae_loss)
+from ladiff_torch.models.actor_vae import ActorVae
 from ladiff_torch.models.denoiser import LADenoiser
 from ladiff_torch.models.vae import LAVae
 from ladiff_torch.ops.cuda_common import kernel_compute
 from ladiff_torch.ops.md_layer import md_layer_supported
+from ladiff_torch.smpl.body_model import SMPLModel
+from ladiff_torch.transforms.rotation2xyz import Rotation2xyz
 from ladiff_torch.utils.device import resolve_device, resolve_dtype
 from ladiff_torch.utils.masks import latent_valid_mask, lengths_to_mask
 
 __all__ = ["LADiffSystem"]
+
+
+def _mod_layers(m, key: str) -> Optional[int]:
+    """A module's own ``num_layers`` in the assembled configuration
+    (``model.<key>.params.num_layers``), None where it has none."""
+    n = ((m.get(key) or {}).get("params") or {}).get("num_layers")
+    return None if n is None else int(n)
 
 
 @contextlib.contextmanager
@@ -100,21 +123,21 @@ class LADiffSystem(nn.Module):
                  md_trans: bool = True, vae_type: str = "ladiff",
                  lad: bool = True, ardiff: bool = False,
                  motion_conditioning: str = "last",
+                 condition: str = "text", nclasses: int = 12,
+                 rot2xyz: Optional[nn.Module] = None,
+                 vae_num_layers: Optional[int] = None,
                  device=None, dtype: Optional[torch.dtype] = None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         D = int(latent_dim[-1])
-        # the ActorVae and the LA-VAE without its length-aware latent set
-        # are the action family's
-        if vae_type not in ("ladiff", "no"):
-            raise NotImplementedError(
-                f"vae_type (VAE_TYPE) {vae_type!r}: ladiff_torch has the "
-                "LA-VAE ('ladiff') and feature-space diffusion ('no') "
-                "(ROADMAP.md Queue 1: the action family)")
+        if vae_type not in ("ladiff", "no", "actor"):
+            raise ValueError(f"vae_type (VAE_TYPE) {vae_type!r}: ladiff, "
+                             "actor or no")
         if vae_type == "ladiff" and not (lad and max_it):
             raise NotImplementedError(
                 f"lad (LAD) {lad}, max_it {max_it}: the port's LA-VAE is the "
-                "length-aware one (ROADMAP.md Queue 1: the action family)")
+                "length-aware one (ROADMAP.md Queue 1: the ablation "
+                "switches)")
         if motion_conditioning not in ("last", "full", "middle"):
             raise ValueError(f"motion_conditioning {motion_conditioning!r}: "
                              "last, full or middle")
@@ -155,25 +178,43 @@ class LADiffSystem(nn.Module):
         self.vae_type = vae_type
         self.ardiff = ardiff
         self.motion_conditioning = motion_conditioning
+        self.condition = condition
+        # the diffused latents: the LA-VAE's max_it rows under their row
+        # mask, or latent_dim[0] rows without one (the ActorVae's 1)
+        self.n_latents = max_it or int(self.latent_dim[0])
         self.schedule = make_schedule(num_train_timesteps)
         self.vae = None
+        vae_layers = vae_num_layers or num_layers
         if vae_type == "ladiff":
-            self.vae = LAVae(nfeats, latent_dim, ff_size, num_layers,
+            self.vae = LAVae(nfeats, latent_dim, ff_size, vae_layers,
                              num_heads, max_it, frame_per_latent,
                              dropout=dropout, dvae=dvae,
                              percentage_noised=percentage_noised,
                              train_whole_layer=train_whole_layer)
+        elif vae_type == "actor":
+            self.vae = ActorVae(nfeats, latent_dim, ff_size, vae_layers,
+                                num_heads, dropout=dropout,
+                                train_whole_layer=train_whole_layer)
+        if self.vae is not None:
             self.vae.compute_dtype = dtype
         self.denoiser = LADenoiser(nfeats, latent_dim, ff_size, num_layers,
                                    num_heads, text_encoded_dim,
                                    dropout=dropout, md_trans=md_trans,
-                                   diffusion_only=vae_type == "no")
+                                   diffusion_only=vae_type == "no",
+                                   condition=condition, nclasses=nclasses,
+                                   guidance_uncondp=guidance_uncondp)
         self.denoiser.compute_dtype = dtype
         for name, v in (("mean", mean), ("std", std)):
             self.register_buffer(
                 name, None if v is None else torch.as_tensor(
                     np.asarray(v, np.float32)), persistent=False)
         self.to(device=device, dtype=param_dtype or dtype)
+        # the SMPL forward pass computes in float32 whatever the compute
+        # type: it joins after the cast (the synthetic body where an action
+        # system is given none)
+        if rot2xyz is None and condition == "action":
+            rot2xyz = Rotation2xyz(SMPLModel.synthetic())
+        self.rot2xyz = None if rot2xyz is None else rot2xyz.to(device)
         self.eval()
 
     @classmethod
@@ -183,9 +224,14 @@ class LADiffSystem(nn.Module):
         the JAX package's ``LADiffSystem.from_cfg``); ``kw`` are the
         constructor's run options (``train_whole_layer``, ``device``,
         ``dtype``, ``param_dtype``, ``md_stack``).  The port has the text
-        condition, epsilon prediction, the LA-VAE or none (``VAE_TYPE``
-        "no"), the MD-trans or the plain denoiser, and autoregressive
-        latent diffusion (``ARDIFF``, ``model.motion_conditioning``); a
+        and the action condition (``model.condition``, the action family's
+        ``DATASET.NCLASSES`` classes and SMPL body under
+        ``DATASET.SMPL_PATH``, synthetic where the file is absent), epsilon
+        prediction, the LA-VAE, the ActorVae (``VAE_TYPE`` "actor") or none
+        ("no"), the MD-trans or the plain denoiser, each module at its own
+        depth (``model.motion_vae.params.num_layers``,
+        ``model.denoiser.params.num_layers``), and autoregressive latent
+        diffusion (``ARDIFF``, ``model.motion_conditioning``); a
         configuration that asks for anything else raises, naming it.  The
         novae family's ``denoiser.yaml`` names ``arch: trans_dec``, which
         the JAX package never passes on (it builds the skip encoder): the
@@ -194,13 +240,15 @@ class LADiffSystem(nn.Module):
         sched = m.get("scheduler") or {}
         layers = int(m.num_layers)
         vae_type = str(abl.get("VAE_TYPE", "ladiff"))
-        # the stage-1 configurations name the plain denoiser, which their
-        # stage never runs: the port keeps the MD-trans one there, so that a
-        # stage-1 system loads a stage-2 checkpoint (``test.py`` stage vae)
+        # the LA-VAE's stage-1 configurations name the plain denoiser, which
+        # their stage never runs: the port keeps the MD-trans one there, so
+        # that a stage-1 system loads a stage-2 checkpoint (``test.py`` stage
+        # vae).  The action family's stage-2 denoiser is the plain one.
         md_trans = bool(abl.get("MD_TRANS", False)) or (
-            str(cfg.TRAIN.get("STAGE", "vae")) == "vae" and vae_type != "no")
+            str(cfg.TRAIN.get("STAGE", "vae")) == "vae"
+            and vae_type == "ladiff")
+        condition = str(m.get("condition", "text"))
         wanted = {
-            "model.condition": (str(m.get("condition", "text")), "text"),
             "model.activation": (str(m.get("activation", "gelu")), "gelu"),
             "TRAIN.ABLATION.MLP_DIST": (bool(abl.get("MLP_DIST", False)),
                                         False),
@@ -209,10 +257,6 @@ class LADiffSystem(nn.Module):
             "TRAIN.ABLATION.PREDICT_EPSILON": (
                 bool(abl.get("PREDICT_EPSILON", True)), True),
         }
-        for key in ("motion_vae", "denoiser"):
-            n = ((m.get(key) or {}).get("params") or {}).get("num_layers")
-            if n is not None:
-                wanted[f"model.{key}.params.num_layers"] = (int(n), layers)
         for key, (got, need) in wanted.items():
             if got != need:
                 raise NotImplementedError(
@@ -225,7 +269,8 @@ class LADiffSystem(nn.Module):
             nfeats=nfeats, njoints=njoints,
             max_frames=int(cfg.DATASET.SAMPLER.MAX_LEN),
             latent_dim=tuple(m.latent_dim), ff_size=int(m.ff_size),
-            num_layers=layers, num_heads=int(m.num_head),
+            num_layers=_mod_layers(m, "denoiser") or layers,
+            num_heads=int(m.num_head),
             max_it=int(abl.get("MAX_IT", 5)),
             frame_per_latent=int(abl.get("FRAME_PER_LATENT", 48)),
             text_encoded_dim=int(text_dim),
@@ -245,6 +290,12 @@ class LADiffSystem(nn.Module):
             lad=bool(abl.get("LAD", True)),
             ardiff=bool(cfg.get("ARDIFF", False)),
             motion_conditioning=str(m.get("motion_conditioning", "last")),
+            condition=condition,
+            nclasses=int(cfg.DATASET.get("NCLASSES", 12)),
+            rot2xyz=(Rotation2xyz.from_path(str(cfg.DATASET.get(
+                "SMPL_PATH", "./deps/smpl_models/smpl")))
+                if condition == "action" else None),
+            vae_num_layers=_mod_layers(m, "motion_vae"),
             **kw)
 
     @property
@@ -257,6 +308,19 @@ class LADiffSystem(nn.Module):
                 f"{what} needs a VAE; vae_type {self.vae_type!r} has none "
                 "(feature-space diffusion trains the denoiser alone, as in "
                 "the JAX package)")
+
+    def feats2joints_action(self, feats: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+        """The action family's SMPL vertices [B, T, V, 3] (float32,
+        ``vertstrans=False``): the stage-1 joints loss's."""
+        return self.rot2xyz(feats, mask, jointstype="vertices",
+                            vertstrans=False)
+
+    def feats2joints_action_eval(self, feats: torch.Tensor,
+                                 mask: torch.Tensor) -> torch.Tensor:
+        """The action family's 24 SMPL joints [B, T, 24, 3] (float32,
+        ``vertstrans=True``): what the HumanAct12 GRU classifier reads."""
+        return self.rot2xyz(feats, mask, jointstype="smpl", vertstrans=True)
 
     def feats2joints(self, feats: torch.Tensor) -> torch.Tensor:
         """Denormalize + RIC recovery -> joints [..., T, J, 3]."""
@@ -284,10 +348,12 @@ class LADiffSystem(nn.Module):
                           num_inference_timesteps: Optional[int] = None,
                           init_latents: Optional[torch.Tensor] = None,
                           return_trajectory: bool = False):
-        """CFG sampling of latents [B, max_it, D] (float32; with
+        """CFG sampling of latents [B, n_latents, D] (float32; with
         ``vae_type`` "no" the feature frames [B, max_frames, nfeats], padded
         frames zero); with ``return_trajectory`` also every step's latents
-        [steps, *shape]."""
+        [steps, *shape].  With the action condition the two conditions are
+        ``denoiser.embed_action``'s tokens [B, 1, D] (zeros unconditioned),
+        which the projection passes through."""
         B = text_emb_cond.shape[0]
         dev = self.device
         lengths = lengths.to(dev)
@@ -296,9 +362,11 @@ class LADiffSystem(nn.Module):
             shape = (B, self.max_frames, self.nfeats)
             lat_valid = lengths_to_mask(lengths, self.max_frames)
         else:
-            shape = (B, self.max_it, self.latent_dim[-1])
-            lat_valid = latent_valid_mask(lengths, self.frame_per_latent,
-                                          self.max_it)
+            # the ActorVae's single latent has no row mask
+            shape = (B, self.n_latents, self.latent_dim[-1])
+            lat_valid = (latent_valid_mask(lengths, self.frame_per_latent,
+                                           self.max_it)
+                         if self.vae_type == "ladiff" else None)
         steps = num_inference_timesteps or self.num_inference_timesteps
         den = self.denoiser
         text_cond = den.project_text(text_emb_cond.to(dev))
@@ -442,7 +510,9 @@ class LADiffSystem(nn.Module):
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Text embeddings, pooled [B, 1, 768] or the full context [B, N,
         768] (``last_hidden_state``), the unconditional ones of the same
-        shape -> (features [B, nframes, nfeats], latents [B, max_it, D]).
+        shape (the action condition: ``denoiser.embed_action``'s [B, 1, D]
+        and zeros) -> (features [B, nframes, nfeats], latents [B,
+        n_latents, D]).
         With ``vae_type`` "no" the sampled frames are the features: (z, z),
         [B, max_frames, nfeats] whatever ``nframes``, as in the JAX
         package.  With ``ardiff`` the latents come from
@@ -471,8 +541,10 @@ class LADiffSystem(nn.Module):
         "length" [B].  ``train`` switches the VAE's mode (dropout, the
         training kernels); differentiable in the VAE's parameters when
         ``train``; the VAE's mode is restored afterwards.  ``generator``
-        drives dropout and, unless ``eps`` [B, max_it, D] is given, the
-        latent sample."""
+        drives dropout and, unless ``eps`` [B, n_latents, D] is given, the
+        latent sample.  With the action condition the joints terms compare
+        SMPL vertices (``feats2joints_action``) under the batch's "mask"
+        [B, T] (the frame mask of "length" where it has none)."""
         self._require_vae("vae_forward (stage vae)")
         dev = self.device
         feats_ref = batch["motion"].to(dev)
@@ -482,8 +554,15 @@ class LADiffSystem(nn.Module):
                 feats_ref, lengths, eps=eps, generator=generator)
             feats_rst = self.vae.decode(z, lengths, feats_ref.shape[1],
                                         generator=generator)
-        joints_rst = self.feats2joints(feats_rst)
-        joints_ref = self.feats2joints(feats_ref)
+        if self.condition == "action":
+            mask = batch.get("mask")
+            mask = (lengths_to_mask(lengths, feats_ref.shape[1])
+                    if mask is None else mask.to(dev))
+            joints_rst = self.feats2joints_action(feats_rst, mask)
+            joints_ref = self.feats2joints_action(feats_ref, mask)
+        else:
+            joints_rst = self.feats2joints(feats_rst)
+            joints_ref = self.feats2joints(feats_ref)
         total, logs = vae_loss(feats_rst, feats_ref, joints_rst, joints_ref,
                                mu, logvar, self.weights)
         aux = {"feats_rst": feats_rst, "z": z, "latent_valid": lat_valid,
@@ -515,11 +594,19 @@ class LADiffSystem(nn.Module):
         With ``vae_type`` "no" z is the features themselves (float32, no
         encode, ``eps`` unused), ``noise`` is [B, T, nfeats], the noisy
         frames are not re-zeroed and the denoiser zeroes its prediction on
-        the padded frames (the JAX package's feature-space branch)."""
+        the padded frames (the JAX package's feature-space branch).
+
+        With the action condition ``batch`` has "action" [B, 1] class ids in
+        place of "text_emb", ``uncond_emb`` is unused, and ``cond_drop``
+        [B, 1, 1] (drawn at the same point of the order) is the samples
+        whose action token the denoiser's ``EmbedAction`` zeroes in
+        training."""
         dev = self.device
         feats_ref = batch["motion"].to(dev)
         lengths = batch["length"].to(dev)
-        cond = batch["text_emb"].to(dev)
+        action = self.condition == "action"
+        cond = (batch["action"].to(dev)[:, 0] if action
+                else batch["text_emb"].to(dev))
         B = feats_ref.shape[0]
         frame_valid = None
         if self.vae is None:
@@ -535,9 +622,10 @@ class LADiffSystem(nn.Module):
                 cond_drop = torch.rand(
                     (B, 1, 1), generator=generator,
                     device=dev) < self.guidance_uncondp
-            cond = torch.where(cond_drop.to(dev),
-                               uncond_emb.to(device=dev, dtype=cond.dtype),
-                               cond)
+            if not action:
+                cond = torch.where(
+                    cond_drop.to(dev),
+                    uncond_emb.to(device=dev, dtype=cond.dtype), cond)
         if noise is None:
             noise = torch.randn(z.shape, generator=generator, device=dev)
         noise = noise.to(device=dev, dtype=z.dtype)
@@ -553,9 +641,10 @@ class LADiffSystem(nn.Module):
                                 torch.zeros((), dtype=noisy.dtype,
                                             device=dev))
         with _mode(self.denoiser, train):
-            noise_pred = self.denoiser(noisy, timesteps, cond, lat_valid,
-                                       generator=generator,
-                                       frame_valid=frame_valid)
+            noise_pred = self.denoiser(
+                noisy, timesteps, cond, lat_valid, generator=generator,
+                frame_valid=frame_valid,
+                cond_drop=cond_drop if action and train else None)
         total, logs = diffusion_loss(noise_pred, noise)
         return total, (logs, {"latent_valid": lat_valid})
 

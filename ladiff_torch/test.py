@@ -18,8 +18,20 @@ the plain PyTorch paths.
 Each batch's initial latents (stage ``diffusion``) or encoder noise (stage
 ``vae``) come from one ``torch.Generator`` on the CPU seeded with
 ``SEED_VALUE`` (``draw_noise``), so a CPU run and a GPU run of one seed see
-the same noise.  The action-conditioned benchmark (``HUMANACTMetrics``,
-``UESTCMetrics``) is not ported.
+the same noise.
+
+The action-conditioned benchmark (``METRIC.TYPE`` ``HUMANACTMetrics`` or
+``UESTCMetrics``, the root ``test.py``'s ``_run_a2m_test``): per
+replication one pass over the action dataset's test split
+(``evaluation/a2m_eval.py``) with the HumanAct12 GRU classifier
+(``model.humanact12_rec_path``, default
+``deps/actionrecognition/humanact12_gru.tar``) or the UESTC ST-GCN
+(``uestc_rot6d_stgcn.tar`` under ``model.uestc_rec_path``); a classifier
+whose checkpoint is absent takes random weights from seed 0, with a
+warning (the metrics are then self-consistent only), as the SMPL body is
+synthetic where ``SMPL_NEUTRAL.pkl`` is absent.  Replication r draws its
+noise from a CPU generator seeded r, as the JAX package's does from its
+key r.
 """
 from __future__ import annotations
 
@@ -48,11 +60,12 @@ def _aggregate(values) -> Tuple[float, float]:
 
 
 def draw_noise(generator: torch.Generator, n: int, system) -> torch.Tensor:
-    """One batch's noise [n, max_it, D] (float32, on the CPU): the initial
-    latents in stage ``diffusion``, the encoder's sample noise in ``vae``;
-    with ``vae_type`` "no" the initial frames [n, max_frames, nfeats]."""
+    """One batch's noise [n, n_latents, D] (float32, on the CPU): the
+    initial latents in stage ``diffusion``, the encoder's sample noise in
+    ``vae``; with ``vae_type`` "no" the initial frames [n, max_frames,
+    nfeats]."""
     shape = ((n, system.max_frames, system.nfeats) if system.vae is None
-             else (n, system.max_it, system.latent_dim[-1]))
+             else (n, system.n_latents, system.latent_dim[-1]))
     return torch.randn(shape, generator=generator)
 
 
@@ -110,13 +123,10 @@ def run_test(cfg, logger, text_encoder=None,
     from ladiff_torch.utils.device import resolve_device
 
     metric_types: List[str] = list(cfg.METRIC.TYPE)
-    if any(m in A2M_METRICS for m in metric_types):
-        raise NotImplementedError(
-            f"the action-conditioned benchmark ({', '.join(A2M_METRICS)}) "
-            "is not ported to ladiff_torch yet (ROADMAP.md Queue 1: the "
-            "action family)")
     device = resolve_device(device)
     dm = get_datasets(cfg, phase="test")[0]
+    if any(m in A2M_METRICS for m in metric_types):
+        return _run_a2m_test(cfg, logger, dm, state_dict, device)
     system = build_system(cfg, dm, device=device)
     _restore(system, cfg, state_dict, logger)
     embedder = CaptionEmbedder(text_encoder
@@ -231,23 +241,96 @@ def run_test(cfg, logger, text_encoder=None,
                                sorted(rep_metrics.items())),
                     extra={"span": "replication", "seconds": dt})
 
-    summary = {k: _aggregate(v) for k, v in all_metrics.items()}
-    lines = [f"{k:>24s}: {m:.4f} ± {c:.4f}" for k, (m, c) in
-             sorted(summary.items())]
-    logger.info("==== final metrics ====\n" + "\n".join(lines))
-
-    out_dir = cfg.get("FOLDER_EXP", ".")
     if count_time and times:
         mean_t = float(np.mean(times))
         logger.info(f"mean eval-step latency: {mean_t * 1e3:.1f} ms/batch "
                     f"({mean_t / bs * 1e3:.2f} ms/sample)")
-        with open(pjoin(out_dir, "times.txt"), "w") as f:
+        with open(pjoin(cfg.get("FOLDER_EXP", "."), "times.txt"), "w") as f:
             f.write("\n".join(str(t) for t in times) + "\n")
+    return _summarize(cfg, logger, all_metrics)
+
+
+def _summarize(cfg, logger, all_metrics) -> Dict[str, Tuple[float, float]]:
+    """{metric: (mean, conf)} over the replications, logged and written to
+    ``<FOLDER_EXP>/metrics_<time>.json``."""
+    summary = {k: _aggregate(v) for k, v in all_metrics.items()}
+    lines = [f"{k:>24s}: {m:.4f} ± {c:.4f}" for k, (m, c) in
+             sorted(summary.items())]
+    logger.info("==== final metrics ====\n" + "\n".join(lines))
     stamp = time.strftime("%Y-%m-%dT%H-%M-%S")
-    with open(pjoin(out_dir, f"metrics_{stamp}.json"), "w") as f:
+    with open(pjoin(cfg.get("FOLDER_EXP", "."),
+                    f"metrics_{stamp}.json"), "w") as f:
         json.dump({k: {"mean": m, "conf": c} for k, (m, c) in
                    summary.items()}, f, indent=2)
     return summary
+
+
+def _a2m_classifier(cfg, num_labels: int, device, logger):
+    """(classifier, kind): the UESTC ST-GCN where ``METRIC.TYPE`` names
+    ``UESTCMetrics``, else the HumanAct12 GRU (24 x 3 SMPL joints in), with
+    its released weights or, where the checkpoint is absent, random ones
+    from seed 0 and a warning; float32, eval mode, frozen."""
+    from ladiff_torch.models.classifiers import (
+        STGCN, MotionDiscriminator, load_gru_classifier_checkpoint,
+        load_stgcn_checkpoint)
+    if "UESTCMetrics" in list(cfg.METRIC.TYPE):
+        kind = "stgcn"
+        path = pjoin(str(cfg.model.get("uestc_rec_path", "")
+                         or "deps/actionrecognition"),
+                     "uestc_rot6d_stgcn.tar")
+        make = lambda: STGCN(in_channels=6, num_class=num_labels,
+                             num_nodes=24)
+        state = load_stgcn_checkpoint(path)
+    else:
+        kind = "gru"
+        path = str(cfg.model.get("humanact12_rec_path", "")
+                   or "deps/actionrecognition/humanact12_gru.tar")
+        make = lambda: MotionDiscriminator(72, 128, 2, num_labels)
+        state = load_gru_classifier_checkpoint(path)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        clf = make()
+    if state is None:
+        logger.warning(f"{kind} classifier checkpoint not found at {path}; "
+                       "using random init (metrics are self-consistent "
+                       "only)")
+    else:
+        clf.load_state_dict(state, strict=True)
+    return clf.to(device).eval().requires_grad_(False), kind
+
+
+def _run_a2m_test(cfg, logger, dm, state_dict, device
+                  ) -> Dict[str, Tuple[float, float]]:
+    """The action-conditioned benchmark (module docstring); returns
+    {metric: (mean, conf)} and writes ``metrics_<time>.json``."""
+    from ladiff_torch.evaluation.a2m_eval import run_a2m_eval
+    from ladiff_torch.metrics.a2m import ActionClassifierMetrics
+    from ladiff_torch.training.loop import build_system
+    if not getattr(dm, "is_a2m", False):
+        raise ValueError(f"METRIC.TYPE {list(cfg.METRIC.TYPE)} reads an "
+                         f"action dataset (HumanAct12, UESTC), not {dm.name}")
+    system = build_system(cfg, dm, device=device)
+    _restore(system, cfg, state_dict, logger)
+    num_labels = int(cfg.DATASET.get("NCLASSES", 12))
+    clf, kind = _a2m_classifier(cfg, num_labels, system.device, logger)
+    reps = int(cfg.TEST.REPLICATION_TIMES)
+    dataset = dm.dataset("test")
+    all_metrics = defaultdict(list)
+    for rep in range(reps):
+        t0 = time.perf_counter()
+        metrics = ActionClassifierMetrics(num_labels=num_labels, seed=rep)
+        out = run_a2m_eval(system, dataset, clf, metrics,
+                           batch_size=int(cfg.TEST.BATCH_SIZE),
+                           num_frames=dm.num_frames, classifier_kind=kind,
+                           seed=rep)
+        for k, v in out.items():
+            all_metrics[k].append(float(v))
+        dt = time.perf_counter() - t0
+        logger.info(f"replication {rep + 1}/{reps} done in {dt:.1f}s: "
+                    + " ".join(f"{k}={v:.4f}" for k, v in
+                               sorted(out.items())),
+                    extra={"span": "replication", "seconds": dt})
+    return _summarize(cfg, logger, all_metrics)
 
 
 def main(argv: Optional[List[str]] = None, device=None, text_encoder=None,

@@ -1,8 +1,9 @@
 """Training orchestration (counterpart of ``ladiff_tpu/training/loop.py``):
 the two-stage loop with checkpoints and resume, on one device.
 
-  * stage "vae": LA-VAE reconstruction training (batch 64 in the published
-    configuration),
+  * stage "vae": VAE reconstruction training (the LA-VAE, batch 64 in the
+    published configuration; the ActorVae of the action family, batch
+    128),
   * stage "diffusion": denoiser training with the stage-1 VAE frozen,
     booted from ``TRAIN.PRETRAINED_VAE`` (a checkpoint directory or a
     reference ``.ckpt``); feature-space diffusion (``VAE_TYPE`` "no", the
@@ -24,7 +25,11 @@ The step is ``training/trainer.py``'s; the batch pipeline runs on a
 on the current stream, which the step's kernels then follow in order).
 Captions are embedded on the main thread by a ``CaptionEmbedder`` (frozen
 CLIP once per unique caption, cached on the host), so no tensor is read on
-one stream while another writes it.  Dropout and noise draw from one
+one stream while another writes it.  The action family (``model.condition``
+"action") has no text tower: its batches carry class ids ("action"), which
+the denoiser embeds; it trains stages vae and diffusion (the joint stage
+reads captions, and ``distill`` folds text guidance into the student, so
+both refuse it, as in the JAX package).  Dropout and noise draw from one
 ``torch.Generator`` on the device, seeded from ``SEED_VALUE``, which also
 seeds the parameters' initialisation.  ``TRAIN.RNG_IMPL`` is validated as in
 the JAX package and has no effect here.  One device only: the parallel
@@ -307,6 +312,10 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
         raise ValueError(f"unsupported stage {stage}")
     _single_device(cfg, stage)
     teacher_src = str(cfg.TRAIN.get("PRETRAINED", "") or "")
+    action = str(cfg.model.get("condition", "text")) == "action"
+    if action and stage == "vae_diffusion":
+        raise ValueError("TRAIN.STAGE=vae_diffusion reads captions: the "
+                         "action condition trains stages vae and diffusion")
     if stage == "distill":
         if str(cfg.model.get("condition", "text")) != "text":
             raise ValueError("TRAIN.STAGE=distill supports the text "
@@ -348,9 +357,10 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
                 logger.info(f"loaded VAE epoch {epoch} from {path}")
         else:
             trained = system
-        embedder = CaptionEmbedder(text_encoder
-                                   or build_text_encoder(cfg, dev))
-        uncond = embedder.uncond.to(dev)
+        if not action:
+            embedder = CaptionEmbedder(text_encoder
+                                       or build_text_encoder(cfg, dev))
+            uncond = embedder.uncond.to(dev)
     optimizer = make_optimizer(trained.parameters(),
                                float(cfg.TRAIN.OPTIM.LR))
 
@@ -376,7 +386,8 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
     def step(batch):
         if stage == "vae":
             return vae_train_step(system, optimizer, batch, gen)
-        batch["text_emb"] = embedder(batch.pop("text")).to(dev)
+        if not action:
+            batch["text_emb"] = embedder(batch.pop("text")).to(dev)
         if stage == "distill":
             return distill_train_step(system, teacher, optimizer, batch,
                                       uncond, student_steps, gen)
@@ -394,13 +405,15 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
         if stop is not None and stop.is_set():
             return None
         out = {}
-        for key in ("motion", "length"):
+        keys = ("motion", "length") + (
+            ("action",) if action and stage != "vae" else ())
+        for key in keys:
             t = torch.from_numpy(np.ascontiguousarray(batch[key]))
-            if key == "length":
+            if key != "motion":
                 t = t.long()
             out[key] = (t.pin_memory() if pin else t).to(dev,
                                                           non_blocking=True)
-        if stage != "vae":
+        if stage != "vae" and not action:
             out["text"] = list(batch["text"])
         return out
 

@@ -91,9 +91,10 @@ def diffusion_train_step(system: LADiffSystem,
                          uncond_emb: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
                          **draws: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One stage-2 step on ``batch`` ("motion", "length", "text_emb"): the
-    denoiser's noise-prediction loss with the VAE frozen (no VAE parameter
-    gets a gradient), optional clip, AdamW update.  ``draws`` are
+    """One stage-2 step on ``batch`` ("motion", "length", and "text_emb" or,
+    for the action condition, "action" class ids): the denoiser's
+    noise-prediction loss with the VAE frozen (no VAE parameter gets a
+    gradient), optional clip, AdamW update.  ``draws`` are
     ``diffusion_forward``'s optional tensors (``noise``, ``timesteps``,
     ``cond_drop``, ``eps``), or ``diffusion_forward_ar``'s for an
     ``ardiff`` system (also ``latent_idx``, ``coin``)."""

@@ -9,7 +9,12 @@ the newest for a resume.  ``load_vae`` boots stage 2 from stage 1: a
 checkpoint directory (its newest file) or a reference ``.ckpt``, through
 ``load_state_dict(strict=True)`` on the ``vae.`` subtree; ``load_teacher``
 boots the distill stage from a stage-2 checkpoint the same way, the
-denoiser and the VAE (where the system has one) each strictly.
+denoiser and the VAE (where the system has one) each strictly.  The action
+family's reference checkpoints load the same way
+(``load_reference_actor_vae_checkpoint``,
+``load_reference_action_denoiser_checkpoint``): the port carries the
+reference's names, and only the ActorVae's sine tables, which the port
+recomputes, are left out.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ import torch
 from torch import nn
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint",
-           "subtree", "load_vae", "load_teacher"]
+           "subtree", "load_vae", "load_teacher",
+           "load_reference_actor_vae_checkpoint",
+           "load_reference_action_denoiser_checkpoint"]
 
 _NAME = re.compile(r"epoch_(\d+)\.ckpt")
 
@@ -100,3 +107,29 @@ def load_teacher(system: nn.Module, src: str) -> Tuple[int, str]:
     if system.vae is not None:
         system.vae.load_state_dict(subtree(sd, "vae."), strict=True)
     return epoch, path
+
+
+def _reference_subtree(path: str, prefix: str) -> Dict[str, torch.Tensor]:
+    """The ``prefix`` entries of a reference checkpoint (the whole state
+    dict where it has none)."""
+    _, sd = load_checkpoint(path)
+    return subtree(sd, prefix) or sd
+
+
+def load_reference_actor_vae_checkpoint(vae: nn.Module, path: str) -> None:
+    """Loads the port's ``ActorVae`` strictly from a reference ActorVae
+    checkpoint's ``vae.*`` entries; the sinusoidal ``sequence_pos_encoding``
+    tables are dropped (the port recomputes them, as the reference's own
+    restore does for the denoiser's)."""
+    sd = {k: v for k, v in _reference_subtree(path, "vae.").items()
+          if "sequence_pos_encod" not in k}
+    vae.load_state_dict(sd, strict=True)
+
+
+def load_reference_action_denoiser_checkpoint(denoiser: nn.Module,
+                                              path: str) -> None:
+    """Loads the port's action denoiser strictly from a reference
+    checkpoint's ``denoiser.*`` entries (``time_embedding.*``,
+    ``emb_proj.action_embedding``, ``query_pos.pe``, ``encoder.*``)."""
+    denoiser.load_state_dict(_reference_subtree(path, "denoiser."),
+                             strict=True)

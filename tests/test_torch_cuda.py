@@ -1630,3 +1630,180 @@ def test_eval_step_on_the_gpu(dev, stage):
     assert not launches
     errs = {k: _relerr(card[k], cpu[k]) for k in cpu}
     assert max(errs.values()) <= 1e-3, errs
+
+
+# -- the action family's shapes ---------------------------------------------
+# The ActorVae (d 256, 4 heads, ff 1024, GELU): its encoder runs over 2
+# distribution tokens (always valid) and 60 frames, its decoder over 60
+# frames against ONE memory row (the latent); the 15-layer action denoiser
+# runs 3-token samples [latent; time; action].
+
+ACTION_LENGTHS = (60, 16, 33, 1, 47)
+
+
+def _action_valid(lengths, S, dev):
+    """[B*S] key validity: with S 62 the two distribution tokens (valid)
+    ahead of the frames."""
+    lengths = np.asarray(lengths)
+    frames = _mask(lengths, 60, dev)
+    if S == 62:
+        frames = torch.cat([torch.ones(len(lengths), 2, device=dev), frames],
+                           1)
+    return frames.reshape(-1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [32, 5, 1])
+@torch.no_grad()
+def test_action_decoder_layer_kernel(dev, B):
+    """K2 at the ActorVae's decode: 60 frames against one memory row (the
+    cross-attention's softmax over one key is 1), a 64-row block holding
+    rows of two samples; 32 samples (an evaluation batch), 5 with one
+    1-frame sample, and 1 (a single partial block)."""
+    from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
+                                                fused_decoder_layer)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    D, H, T, L = 256, 4, 60, 1
+    lengths = np.resize(np.array(ACTION_LENGTHS), B)
+    layer = _randomize(TransformerDecoderLayer(D, H, 4 * D, "gelu"), 31).to(
+        dev, torch.bfloat16)
+    g = torch.Generator().manual_seed(32)
+    bf = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)
+    args = (bf(B * T, D), _mask(lengths, T, dev).reshape(-1).contiguous(),
+            bf(B, L, D), torch.ones(B, L, device=dev))
+    p = layer.kernel_params()
+    got = fused_decoder_layer(*args, p, T=T, H=H)
+    want = decoder_layer_plain(*[a.float() for a in args], _f32(p), T=T, H=H)
+    assert torch.isfinite(got).all()
+    assert _relerr(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [62, 60])
+@torch.no_grad()
+def test_action_train_attention_kernel(dev, S, rate):
+    """Kernel 8 at the ActorVae's training streams: the encoder's 62 tokens
+    (two always-valid distribution tokens, then padded frames) and the
+    decoder's 60 frames; forward and every gradient."""
+    from ladiff_torch.ops.train_attention import (
+        ATTN_PARAM_ORDER, train_self_attention_bwd,
+        train_self_attention_bwd_plain, train_self_attention_fwd,
+        train_self_attention_masks, train_self_attention_plain)
+    D, H, seed = 256, 4, 8642097531
+    B = len(ACTION_LENGTHS)
+    p = _attn_params(dev)
+    x = _bf(dev, B * S, D, seed=33)
+    dout = _bf(dev, B * S, D, seed=34, scale=0.1)
+    kvalid = _action_valid(ACTION_LENGTHS, S, dev)
+    masks = (train_self_attention_masks(B, S, D, H, rate, seed, dev)
+             if rate else None)
+    kw = dict(H=H, S=S, rate=rate, seed=seed)
+    got, saved = train_self_attention_fwd(x, kvalid, p, return_saved=True,
+                                          **kw)
+    want = train_self_attention_plain(x.float(), kvalid, _f32(p), masks,
+                                      H=H, S=S)
+    assert _relerr(got, want) <= TOL
+    dx, grads = train_self_attention_bwd(x, kvalid, dout, p, saved, **kw)
+    wdx, wgrads = train_self_attention_bwd_plain(
+        x.float(), kvalid, dout.float(), _f32(p), masks, H=H, S=S)
+    assert _relerr(dx, wdx) <= TOL
+    for k in ATTN_PARAM_ORDER:
+        assert _relerr(grads[k], wgrads[k]) <= TOL, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@torch.no_grad()
+def test_action_whole_layer_kernels(dev, rate):
+    """Kernel 12 over the ActorVae encoder's 62 tokens and kernel 13 over
+    its decoder's 60 frames with ONE memory row (L 1), forward and every
+    gradient, the memory's too."""
+    from ladiff_torch.ops.train_decoder_layer import (
+        DEC_PARAM_ORDER, train_decoder_layer_bwd,
+        train_decoder_layer_bwd_plain, train_decoder_layer_fwd,
+        train_decoder_layer_masks, train_decoder_layer_plain)
+    from ladiff_torch.ops.train_layer import (
+        ENC_PARAM_ORDER, train_encoder_layer_bwd,
+        train_encoder_layer_bwd_plain, train_encoder_layer_fwd,
+        train_encoder_layer_masks, train_encoder_layer_plain)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    D, H, Fd, L, seed = 256, 4, 1024, 1, 1357924680
+    B = len(ACTION_LENGTHS)
+    pe = {**_attn_params(dev), **_ffn_params(dev)}
+    pd = {k: v.detach() for k, v in _randomize(TransformerDecoderLayer(
+        D, H, Fd, "gelu"), 35).to(dev, torch.bfloat16).kernel_params().items()}
+    for S in (62, 60):
+        x, dout = _bf(dev, B * S, D, seed=36), _bf(dev, B * S, D, seed=37,
+                                                   scale=0.1)
+        kvalid = _action_valid(ACTION_LENGTHS, S, dev)
+        kw = dict(H=H, S=S, rate=rate, seed=seed)
+        if S == 62:
+            masks = (train_encoder_layer_masks(B, S, D, H, Fd, rate, seed,
+                                               dev) if rate else None)
+            got, saved = train_encoder_layer_fwd(x, kvalid, pe,
+                                                 return_saved=True, **kw)
+            want = train_encoder_layer_plain(x.float(), kvalid, _f32(pe),
+                                             masks, H=H, S=S)
+            dx, grads = train_encoder_layer_bwd(x, kvalid, dout, pe, saved,
+                                                **kw)
+            wdx, wgrads = train_encoder_layer_bwd_plain(
+                x.float(), kvalid, dout.float(), _f32(pe), masks, H=H, S=S)
+            names = ENC_PARAM_ORDER
+        else:
+            mem = _bf(dev, B, L, D, seed=38)
+            mvalid = torch.ones(B, L, device=dev)
+            masks = (train_decoder_layer_masks(B, S, L, D, H, Fd, rate, seed,
+                                               dev) if rate else None)
+            got, saved = train_decoder_layer_fwd(x, kvalid, mem, mvalid, pd,
+                                                 return_saved=True, **kw)
+            want = train_decoder_layer_plain(x.float(), kvalid, mem.float(),
+                                             mvalid, _f32(pd), masks, H=H,
+                                             S=S)
+            dx, dmem, grads = train_decoder_layer_bwd(
+                x, kvalid, mem, mvalid, dout, pd, saved, **kw)
+            wdx, wdmem, wgrads = train_decoder_layer_bwd_plain(
+                x.float(), kvalid, mem.float(), mvalid, dout.float(),
+                _f32(pd), masks, H=H, S=S)
+            assert _relerr(dmem, wdmem) <= TOL
+            names = DEC_PARAM_ORDER
+        assert _relerr(got, want) <= TOL, S
+        assert _relerr(dx, wdx) <= TOL, S
+        for k in names:
+            assert _relerr(grads[k], wgrads[k]) <= TOL, (S, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows", [192, 64 * 62, 128 * 62, 128 * 60])
+@torch.no_grad()
+def test_action_ffn_tail_rows(dev, rows, rate):
+    """Kernels 5 and 9 (GELU) at the action path's row counts: 192 (the
+    denoiser's 3-token samples, 64 a CFG evaluation launch or a stage-2
+    step), 64 x 62 (the frozen encode), 128 x 62 and 128 x 60 (stage 1):
+    kernel 5 at rate 0, kernel 9 forward and backward."""
+    from ladiff_torch.ops.postnorm_ffn import (fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    from ladiff_torch.ops.train_ffn import (
+        train_postnorm_ffn_bwd, train_postnorm_ffn_bwd_plain,
+        train_postnorm_ffn_fwd, train_postnorm_ffn_masks,
+        train_postnorm_ffn_plain)
+    D, Fd, seed = 256, 1024, 97531
+    p = _ffn_params(dev)
+    x = _bf(dev, rows, D, seed=rows + 3)
+    dout = _bf(dev, rows, D, seed=rows + 4, scale=0.1)
+    if rate == 0.0:
+        assert _relerr(fused_postnorm_ffn(x, p), postnorm_ffn_plain(
+            x.float(), _f32(p))) <= TOL
+    masks = (train_postnorm_ffn_masks(rows, D, Fd, rate, seed, dev)
+             if rate else None)
+    kw = dict(activation="gelu", rate=rate, seed=seed)
+    got = train_postnorm_ffn_fwd(x, p, **kw)
+    assert _relerr(got, train_postnorm_ffn_plain(
+        x.float(), _f32(p), masks, activation="gelu")) <= TOL
+    dx, grads = train_postnorm_ffn_bwd(x, dout, p, **kw)
+    wdx, wgrads = train_postnorm_ffn_bwd_plain(
+        x.float(), dout.float(), _f32(p), masks, activation="gelu")
+    assert _relerr(dx, wdx) <= TOL
+    for k, w in wgrads.items():
+        assert _relerr(grads[k], w) <= TOL, k

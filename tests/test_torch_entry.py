@@ -149,7 +149,8 @@ def test_loader_batches_match_jax(tmp_path, buckets):
 def test_get_datasets_synthetic_stand_in(tmp_path, monkeypatch):
     """``LADIFF_SYNTHETIC_DATA=1`` stands in a synthetic HumanML3D of
     ``LADIFF_SYNTHETIC_CLIPS`` clips; without it a missing dataset raises;
-    the action datasets are not ported and raise."""
+    an action dataset stands in a synthetic HumanAct12 (150 features, 25
+    joints, 12 classes)."""
     from ladiff_torch.data.datamodule import get_datasets
     monkeypatch.chdir(tmp_path)
     cfg = _cfg("config_vae_humanml3d.yaml")
@@ -162,8 +163,14 @@ def test_get_datasets_synthetic_stand_in(tmp_path, monkeypatch):
     assert dm.data_root == os.path.join("datasets", "synthetic_humanml3d_24")
     assert (dm.nfeats, dm.njoints) == (263, 22) == (cfg.DATASET.NFEATS,
                                                     cfg.DATASET.NJOINTS)
-    with pytest.raises(NotImplementedError, match="action family"):
-        get_datasets(_cfg("config_vae_humanact12.yaml"))
+    action_cfg = _cfg("config_vae_humanact12.yaml")
+    action = get_datasets(action_cfg)[0]
+    assert action.is_a2m and action._ds.dataname == "humanact12"
+    assert os.path.isfile(os.path.join("datasets", "synthetic_humanact12",
+                                       "humanact12poses.pkl"))
+    assert (action.nfeats, action.njoints, action.num_classes) == (
+        150, 25, 12) == (action_cfg.DATASET.NFEATS, action_cfg.DATASET.NJOINTS,
+                         action_cfg.DATASET.NCLASSES)
 
 
 # -- the system and the loop's options --------------------------------------

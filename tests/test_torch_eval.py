@@ -349,8 +349,9 @@ def test_release_checkpoint_loads_by_name(env, tmp_path):
 
 
 def test_refusals(env):
-    """The action-conditioned metrics are not ported: they raise, naming
-    their ROADMAP item; feature-space diffusion has no stage ``vae``."""
+    """The action-conditioned metrics read an action dataset: on a text
+    dataset they raise, naming it; feature-space diffusion has no stage
+    ``vae``."""
     from ladiff_torch.config import assemble_config
     from ladiff_torch.evaluation.t2m_eval import eval_step
     cfg = assemble_config(
@@ -358,8 +359,7 @@ def test_refusals(env):
         os.path.join(REPO, "configs", "assets.yaml"),
         {**overrides(env["root"], "diffusion"),
          "METRIC": {"TYPE": ["HUMANACTMetrics"]}})
-    with pytest.raises(NotImplementedError, match="Queue 1: the action "
-                       "family"):
+    with pytest.raises(ValueError, match="action dataset.*humanml3d"):
         port_test.run_test(cfg, logging.getLogger("a2m"), device="cpu")
 
     class FeatureSpace:

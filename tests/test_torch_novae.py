@@ -307,11 +307,11 @@ def test_from_cfg_builds_the_novae_configuration():
                           "length": torch.tensor([T])})
     with pytest.raises(ValueError, match="md_stack.*md_trans=False"):
         TorchSystem(md_stack=True, device="cpu", **_kw("ladiff"))
-    with pytest.raises(NotImplementedError, match="action family"):
+    with pytest.raises(NotImplementedError, match="ablation switches"):
         TorchSystem(device="cpu", **{**_kw("ladiff"), "lad": False})
-    with pytest.raises(NotImplementedError, match="action family"):
+    with pytest.raises(ValueError, match="ladiff, actor or no"):
         TorchSystem.from_cfg(_cfg("config_novae_humanml3d.yaml", {
-            "TRAIN": {"ABLATION": {"VAE_TYPE": "actor"}}}),
+            "TRAIN": {"ABLATION": {"VAE_TYPE": "vq"}}}),
             nfeats=NFEATS, njoints=22, device="cpu")
 
 
