@@ -21,6 +21,12 @@ the same weights.
     flax_state_dict(tree, prefix)                     -> any subtree, also
                                                          a gradient tree
 
+The LA-VAE's ablation variants need no rule of their own: ``dist_layer``
+(``MLP_DIST``), a ``global_motion_token`` of ``2 * n_lat`` or
+``latent_dim[0]`` rows, pre-norm stacks and the all-encoder decoder (a
+skip encoder under ``decoder``) carry the port's names in the flax tree,
+and the sine positional embeddings have no parameter on either side.
+
 A gradient tree of the JAX package (``jax.grad`` with respect to
 ``params["vae"]``, say) has its params' nesting, so ``flax_state_dict(tree,
 "vae.")`` gives it the same renames and transposes, and gradients (or

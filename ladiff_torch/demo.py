@@ -110,6 +110,7 @@ def main(argv: Optional[List[str]] = None, device=None, text_encoder=None,
         raise NotImplementedError(
             f"--task {task}, --latentwise_gen and --plot_att_map decode "
             f"latents: VAE_TYPE {system.vae_type!r} has no VAE")
+    check_latent_tasks(system, task, latentwise)
 
     example = cfg.DEMO.get("EXAMPLE")
     if task == "reconstruction" and not example:
@@ -171,6 +172,17 @@ def main(argv: Optional[List[str]] = None, device=None, text_encoder=None,
                     f.write(text + "\n")
     logger.info(f"saved {len(out_texts) * reps} samples to {out_dir}")
     return out_dir
+
+
+def check_latent_tasks(system, task: str, latentwise) -> None:
+    """``random_latent`` and ``--latentwise_gen`` are ``max_it`` latents
+    wide (the root demo.py's): with ``MAX_IT`` 0 (the fixed-size latent
+    set) they have no latent position, and the JAX package no working
+    path, so they raise."""
+    if (task == "random_latent" or latentwise) and not system.max_it:
+        raise ValueError(
+            f"--task {task} / --latentwise_gen {latentwise}: with MAX_IT 0 "
+            "there are no latent positions")
 
 
 def latentwise_mask(lengths, n_samples: int, max_it: int,

@@ -15,9 +15,11 @@ training each sample's token is dropped (zeroed) with probability
     ``MDTransformerLayer``.
   * ``md_trans=False``: the plain skip encoder (``SkipTransformerEncoder``,
     the reference's vanilla post-norm layers with the denoiser's
-    activation) over the tokens ``[latents; time; text]``, positional
-    embedding over the whole sequence and no key mask (the reference passes
-    none, so padded rows attend); the output is the first ``n_lat`` rows.
+    activation, or pre-norm ones with ``normalize_before``, which the MD
+    wiring ignores as the JAX package does) over the tokens ``[latents;
+    time; text]``, positional embedding over the whole sequence and no key
+    mask (the reference passes none, so padded rows attend); the output is
+    the first ``n_lat`` rows.
     With ``diffusion_only`` (feature-space diffusion, the novae family)
     ``pose_embd`` (nfeats -> D) embeds the feature frames, the tokens are
     ``[time; text; frames]``, ``pose_proj`` (D -> nfeats) maps the frame rows
@@ -94,7 +96,8 @@ class LADenoiser(nn.Module):
                  diffusion_only: bool = False, activation: str = "gelu",
                  position_embedding: str = "learned",
                  condition: str = "text", nclasses: int = 12,
-                 guidance_uncondp: float = 0.1):
+                 guidance_uncondp: float = 0.1,
+                 normalize_before: bool = False):
         super().__init__()
         D = int(latent_dim[-1])
         if diffusion_only and md_trans:
@@ -133,9 +136,9 @@ class LADenoiser(nn.Module):
                                                     num_layers, ff_size,
                                                     dropout)
         else:
-            self.encoder = SkipTransformerEncoder(D, num_heads, num_layers,
-                                                  ff_size, activation,
-                                                  dropout)
+            self.encoder = SkipTransformerEncoder(
+                D, num_heads, num_layers, ff_size, activation, dropout,
+                normalize_before=normalize_before)
 
     @property
     def dtype(self) -> torch.dtype:

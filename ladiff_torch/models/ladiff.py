@@ -15,7 +15,14 @@ trains one token per sample conditioned on its predecessor
     short guided sampling run (no gradient) and an eval-mode decode of its
     latents whose gradients reach the decoder.
 
-Epsilon prediction only.  The text condition is either pooled CLIP
+The denoiser predicts the noise, or with ``predict_epsilon`` false (the
+``PREDICT_EPSILON`` ablation) the clean latents: the schedule's
+``prediction_type`` is then "sample" and both diffusion losses compare
+latents.  The LA-VAE's ablation switches (``lad``, ``max_it`` 0,
+``mlp_dist``, ``test_efficiency``) are ``models/vae.py``'s; the sampler
+masks latent rows by length and stage 2 re-zeroes the noisy inactive rows
+only where the VAE is length-aware (``lad`` and ``max_it``), as the JAX
+package does.  The text condition is either pooled CLIP
 features [B, 1, 768] (the published configurations) or the full context
 [B, 77, 768] (``last_hidden_state``).  ``vae_type`` "ladiff" diffuses the
 LA-VAE's latents; "no" (feature-space diffusion, the novae family) has no
@@ -121,7 +128,9 @@ class LADiffSystem(nn.Module):
                  eta: float = 0.0, scheduler_kind: str = "ddim",
                  md_stack: bool = False, train_whole_layer: str = "0",
                  md_trans: bool = True, vae_type: str = "ladiff",
-                 lad: bool = True, ardiff: bool = False,
+                 lad: bool = True, mlp_dist: bool = False,
+                 test_efficiency: bool = False, predict_epsilon: bool = True,
+                 ardiff: bool = False,
                  motion_conditioning: str = "last",
                  condition: str = "text", nclasses: int = 12,
                  rot2xyz: Optional[nn.Module] = None,
@@ -133,25 +142,24 @@ class LADiffSystem(nn.Module):
         if vae_type not in ("ladiff", "no", "actor"):
             raise ValueError(f"vae_type (VAE_TYPE) {vae_type!r}: ladiff, "
                              "actor or no")
-        if vae_type == "ladiff" and not (lad and max_it):
-            raise NotImplementedError(
-                f"lad (LAD) {lad}, max_it {max_it}: the port's LA-VAE is the "
-                "length-aware one (ROADMAP.md Queue 1: the ablation "
-                "switches)")
         if motion_conditioning not in ("last", "full", "middle"):
             raise ValueError(f"motion_conditioning {motion_conditioning!r}: "
                              "last, full or middle")
         if ardiff and vae_type != "ladiff":
             raise ValueError(f"ardiff diffuses the LA-VAE's latent tokens; "
                              f"vae_type {vae_type!r} has none")
+        # the diffused latents: the LA-VAE's max_it rows (under their row
+        # mask where it is length-aware), or latent_dim[0] rows without one
+        # (the fixed-size set of max_it 0, the ActorVae's 1)
+        n_latents = max_it or int(latent_dim[0])
         if md_stack and not (md_trans and num_layers % 2
-                             and md_layer_supported(1, max_it, 2, D,
+                             and md_layer_supported(1, n_latents, 2, D,
                                                     num_heads, 1024,
                                                     ff_size)):
             raise ValueError(
                 "md_stack: the whole-stack kernel does not take the denoiser "
-                f"shape T={max_it} E=2 D={D} H={num_heads} F=1024,{ff_size} "
-                f"L={num_layers} md_trans={md_trans}")
+                f"shape T={n_latents} E=2 D={D} H={num_heads} "
+                f"F=1024,{ff_size} L={num_layers} md_trans={md_trans}")
         want = torch.device("cuda" if device is None else device)
         if md_stack and not kernel_compute(resolve_dtype(want, dtype), want):
             raise ValueError(
@@ -176,13 +184,15 @@ class LADiffSystem(nn.Module):
         self.md_stack = md_stack
         self.md_trans = md_trans
         self.vae_type = vae_type
+        self.lad = lad
+        self.predict_epsilon = predict_epsilon
         self.ardiff = ardiff
         self.motion_conditioning = motion_conditioning
         self.condition = condition
-        # the diffused latents: the LA-VAE's max_it rows under their row
-        # mask, or latent_dim[0] rows without one (the ActorVae's 1)
-        self.n_latents = max_it or int(self.latent_dim[0])
-        self.schedule = make_schedule(num_train_timesteps)
+        self.n_latents = n_latents
+        self.schedule = make_schedule(
+            num_train_timesteps,
+            prediction_type="epsilon" if predict_epsilon else "sample")
         self.vae = None
         vae_layers = vae_num_layers or num_layers
         if vae_type == "ladiff":
@@ -190,7 +200,9 @@ class LADiffSystem(nn.Module):
                              num_heads, max_it, frame_per_latent,
                              dropout=dropout, dvae=dvae,
                              percentage_noised=percentage_noised,
-                             train_whole_layer=train_whole_layer)
+                             train_whole_layer=train_whole_layer, lad=lad,
+                             mlp_dist=mlp_dist,
+                             test_efficiency=test_efficiency)
         elif vae_type == "actor":
             self.vae = ActorVae(nfeats, latent_dim, ff_size, vae_layers,
                                 num_heads, dropout=dropout,
@@ -226,16 +238,18 @@ class LADiffSystem(nn.Module):
         ``dtype``, ``param_dtype``, ``md_stack``).  The port has the text
         and the action condition (``model.condition``, the action family's
         ``DATASET.NCLASSES`` classes and SMPL body under
-        ``DATASET.SMPL_PATH``, synthetic where the file is absent), epsilon
-        prediction, the LA-VAE, the ActorVae (``VAE_TYPE`` "actor") or none
-        ("no"), the MD-trans or the plain denoiser, each module at its own
-        depth (``model.motion_vae.params.num_layers``,
-        ``model.denoiser.params.num_layers``), and autoregressive latent
-        diffusion (``ARDIFF``, ``model.motion_conditioning``); a
-        configuration that asks for anything else raises, naming it.  The
-        novae family's ``denoiser.yaml`` names ``arch: trans_dec``, which
-        the JAX package never passes on (it builds the skip encoder): the
-        port follows the JAX package."""
+        ``DATASET.SMPL_PATH``, synthetic where the file is absent), the
+        LA-VAE, the ActorVae (``VAE_TYPE`` "actor") or none ("no"), the
+        MD-trans or the plain denoiser, each module at its own depth
+        (``model.motion_vae.params.num_layers``,
+        ``model.denoiser.params.num_layers``), autoregressive latent
+        diffusion (``ARDIFF``, ``model.motion_conditioning``) and the
+        ablation switches of ``TRAIN.ABLATION`` that the JAX package reads
+        (``LAD``, ``MAX_IT``, ``MLP_DIST``, ``TEST_EFFICIENCY``,
+        ``PREDICT_EPSILON``).  The JAX package reads neither
+        ``model.activation`` (its modules compute GELU whatever the key
+        says) nor the novae family's ``arch: trans_dec`` (it builds the
+        skip encoder): the port follows the JAX package."""
         abl, m = cfg.TRAIN.ABLATION, cfg.model
         sched = m.get("scheduler") or {}
         layers = int(m.num_layers)
@@ -248,19 +262,6 @@ class LADiffSystem(nn.Module):
             str(cfg.TRAIN.get("STAGE", "vae")) == "vae"
             and vae_type == "ladiff")
         condition = str(m.get("condition", "text"))
-        wanted = {
-            "model.activation": (str(m.get("activation", "gelu")), "gelu"),
-            "TRAIN.ABLATION.MLP_DIST": (bool(abl.get("MLP_DIST", False)),
-                                        False),
-            "TRAIN.ABLATION.TEST_EFFICIENCY": (
-                bool(abl.get("TEST_EFFICIENCY", False)), False),
-            "TRAIN.ABLATION.PREDICT_EPSILON": (
-                bool(abl.get("PREDICT_EPSILON", True)), True),
-        }
-        for key, (got, need) in wanted.items():
-            if got != need:
-                raise NotImplementedError(
-                    f"{key}={got!r}: ladiff_torch runs {need!r} only")
         text_dim = ((m.get("denoiser") or {}).get("params") or {}).get(
             "text_encoded_dim", 768)
         kind = str(sched.get("kind", "") or (
@@ -288,6 +289,9 @@ class LADiffSystem(nn.Module):
             eta=float(sched.get("eta", 0.0)), scheduler_kind=kind,
             md_trans=md_trans, vae_type=vae_type,
             lad=bool(abl.get("LAD", True)),
+            mlp_dist=bool(abl.get("MLP_DIST", False)),
+            test_efficiency=bool(abl.get("TEST_EFFICIENCY", False)),
+            predict_epsilon=bool(abl.get("PREDICT_EPSILON", True)),
             ardiff=bool(cfg.get("ARDIFF", False)),
             motion_conditioning=str(m.get("motion_conditioning", "last")),
             condition=condition,
@@ -362,11 +366,12 @@ class LADiffSystem(nn.Module):
             shape = (B, self.max_frames, self.nfeats)
             lat_valid = lengths_to_mask(lengths, self.max_frames)
         else:
-            # the ActorVae's single latent has no row mask
+            # rows masked by length where the LA-VAE is length-aware; the
+            # fixed-size set and the ActorVae's single latent have no mask
             shape = (B, self.n_latents, self.latent_dim[-1])
             lat_valid = (latent_valid_mask(lengths, self.frame_per_latent,
                                            self.max_it)
-                         if self.vae_type == "ladiff" else None)
+                         if self.lad and self.max_it else None)
         steps = num_inference_timesteps or self.num_inference_timesteps
         den = self.denoiser
         text_cond = den.project_text(text_emb_cond.to(dev))
@@ -440,6 +445,11 @@ class LADiffSystem(nn.Module):
         where they take the shape (never the whole stack)."""
         B = text_emb_cond.shape[0]
         D, M = self.latent_dim[-1], self.max_it
+        if not M:
+            raise ValueError(
+                "diffusion_reverse_ar with max_it (MAX_IT) 0: the sampler "
+                "has max_it token positions, so none to sample (the JAX "
+                "package returns zero rows there)")
         dev = self.device
         lengths = lengths.to(dev)
         lat_valid = latent_valid_mask(lengths, self.frame_per_latent, M)
@@ -587,8 +597,9 @@ class LADiffSystem(nn.Module):
         ``train`` switches the denoiser's mode (dropout, the unfused MD
         layers with a backward); both modes are restored afterwards.  Every
         random draw comes from ``generator`` on the system's device unless
-        given: ``eps`` [B, max_it, D] the latent sample's noise, ``cond_drop``
-        [B, 1, 1] bool the captions to drop, ``noise`` [B, max_it, D],
+        given: ``eps`` [B, n_latents, D] the latent sample's noise,
+        ``cond_drop`` [B, 1, 1] bool the captions to drop, ``noise`` [B,
+        n_latents, D],
         ``timesteps`` [B].
 
         With ``vae_type`` "no" z is the features themselves (float32, no
@@ -635,18 +646,26 @@ class LADiffSystem(nn.Module):
                 generator=generator, device=dev)
         timesteps = timesteps.to(dev)
         noisy = self.schedule.add_noise(z, noise, timesteps)
-        if lat_valid is not None:
+        if self.lad and lat_valid is not None:
             # inactive latent rows stay zero after noising
             noisy = torch.where(lat_valid[:, :, None], noisy,
                                 torch.zeros((), dtype=noisy.dtype,
                                             device=dev))
         with _mode(self.denoiser, train):
-            noise_pred = self.denoiser(
+            pred = self.denoiser(
                 noisy, timesteps, cond, lat_valid, generator=generator,
                 frame_valid=frame_valid,
                 cond_drop=cond_drop if action and train else None)
-        total, logs = diffusion_loss(noise_pred, noise)
+        total, logs = self._diffusion_loss(pred, noise, z)
         return total, (logs, {"latent_valid": lat_valid})
+
+    def _diffusion_loss(self, pred, noise, x0):
+        """The noise-prediction MSE, or with ``predict_epsilon`` false the
+        MSE of the predicted clean latents ``x0``."""
+        if self.predict_epsilon:
+            return diffusion_loss(pred, noise)
+        return diffusion_loss(pred, noise, predict_epsilon=False,
+                              x0_pred=pred, x0=x0)
 
     def diffusion_forward_ar(self, batch: Dict[str, torch.Tensor],
                              uncond_emb: torch.Tensor, train: bool = True,
@@ -665,7 +684,7 @@ class LADiffSystem(nn.Module):
         sample's n active tokens) unless ``coin`` (a bool, true with
         probability 1/3) or a sample with one active token sends it to token
         0, trained unconditioned.  Every draw comes from ``generator`` on the
-        system's device unless given: ``eps`` [B, max_it, D] the encode's
+        system's device unless given: ``eps`` [B, n_latents, D] the encode's
         noise, ``cond_drop`` [B, 1, 1], ``latent_idx`` [B], ``coin`` [],
         ``noise`` [B, 1, D], ``timesteps`` [B]."""
         self._require_vae("diffusion_forward_ar")
@@ -712,10 +731,9 @@ class LADiffSystem(nn.Module):
         timesteps = timesteps.to(dev)
         noisy = self.schedule.add_noise(z_tok, noise, timesteps)
         with _mode(self.denoiser, train):
-            noise_pred = self.denoiser(noisy, timesteps, cond,
-                                       generator=generator, enclat=cond_tok,
-                                       enclat_valid=cond_valid)
-        total, logs = diffusion_loss(noise_pred, noise)
+            pred = self.denoiser(noisy, timesteps, cond, generator=generator,
+                                 enclat=cond_tok, enclat_valid=cond_valid)
+        total, logs = self._diffusion_loss(pred, noise, z_tok)
         return total, (logs, {"latent_valid": lat_valid,
                               "latent_idx": latent_idx})
 

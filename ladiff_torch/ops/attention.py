@@ -84,16 +84,19 @@ class MultiHeadAttention(nn.Module):
                 value: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                return_weights: bool = False):
+                return_weights: bool = False, plain: bool = False):
         """Returns [B, Sq, D]; with ``return_weights`` also the
-        head-averaged probabilities [B, Sq, Sk] (``masked_attention``)."""
+        head-averaged probabilities [B, Sq, Sk] (``masked_attention``;
+        ``plain`` takes its plain version whatever the shape: a pre-norm
+        layer's route)."""
         D = self.d_model
         dt = query.dtype
         w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         q = F.linear(query, w[:D], b[:D])
         k = F.linear(key.to(dt), w[D:2 * D], b[D:2 * D])
         v = F.linear(value.to(dt), w[2 * D:], b[2 * D:])
-        out = masked_attention(
+        attend = masked_attention_plain if plain else masked_attention
+        out = attend(
             q, k, v, key_valid, num_heads=self.num_heads,
             dropout_rate=self.dropout if self.training else 0.0,
             generator=generator, return_weights=return_weights)

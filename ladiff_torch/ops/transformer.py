@@ -1,5 +1,6 @@
-"""Post-norm transformer blocks with U-Net skip connections (counterpart of
-``ladiff_tpu/ops/transformer.py``), inference and training paths.
+"""Post-norm (default) or pre-norm transformer blocks with U-Net skip
+connections (counterpart of ``ladiff_tpu/ops/transformer.py``), inference
+and training paths.
 
 Parameter names follow the reference torch LADiff (``self_attn``,
 ``multihead_attn``, ``linear1/2``, ``norm1/2/3``; skip stacks with
@@ -33,7 +34,10 @@ a CPU tensor):
 Each route is chosen from shapes and the compute type before any launch:
 the kernels take bf16 only, so float32 compute on the card (the published
 configurations' ``TRAIN.MIXED_PRECISION: false``) takes every plain part
-below (``kernel_route``).  ``train_self_attention``
+below (``kernel_route``).  Every kernel computes the post-norm layer: a
+layer built with ``normalize_before`` (pre-norm, which no published
+configuration asks for) runs its plain parts on every device and in every
+mode, decided from the module before any launch (``_forward_prenorm``).  ``train_self_attention``
 takes what ``train_attention_supported`` admits (at least ``MIN_TOKENS``
 tokens, head widths 16 to 64); other streams and ``extra_kv`` keep the plain
 attention module in training.  The FFN tail kernels (5 and 9) take what
@@ -161,6 +165,14 @@ def _key_valid(key_valid: Optional[torch.Tensor], x: torch.Tensor):
     return key_valid.reshape(B * S).float().contiguous()
 
 
+def _plain_ffn(layer, h: torch.Tensor, rate: float,
+               generator) -> torch.Tensor:
+    """``linear2(drop(act(linear1(h))))`` in plain ops."""
+    act = get_activation(layer.activation)
+    return linear(layer.linear2, _drop(act(linear(layer.linear1, h)), rate,
+                                       generator))
+
+
 def _ffn_tail(layer, resid: torch.Tensor, ln_a: nn.LayerNorm,
               ln_b: nn.LayerNorm, train_route: bool, rate: float,
               generator) -> torch.Tensor:
@@ -171,10 +183,9 @@ def _ffn_tail(layer, resid: torch.Tensor, ln_a: nn.LayerNorm,
     if not (kernel_route(resid) and postnorm_ffn_supported(
             D, layer.linear1.out_features, layer.activation)):
         h = layer_norm(ln_a, resid)
-        act = get_activation(layer.activation)
-        y = linear(layer.linear2, _drop(act(linear(layer.linear1, h)), rate,
-                                        generator))
-        return layer_norm(ln_b, h + _drop(y, rate, generator))
+        return layer_norm(ln_b, h + _drop(_plain_ffn(layer, h, rate,
+                                                     generator),
+                                          rate, generator))
     x = resid.reshape(B * S, D).contiguous()
     p = _ffn_params(layer, ln_a, ln_b)
     if train_route:
@@ -193,12 +204,13 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
                  activation: str = "relu", dropout: float = 0.0,
-                 whole_layer: bool = False):
+                 whole_layer: bool = False, normalize_before: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.activation = activation
         self.dropout = dropout
         self.whole_layer = whole_layer
+        self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
         self.linear2 = nn.Linear(ff_size, d_model)
@@ -212,9 +224,20 @@ class TransformerEncoderLayer(nn.Module):
 
     def takes_whole_training_layer(self, S: int) -> bool:
         """Whether the layer's training route over S tokens is kernel 12."""
-        return self.whole_layer and train_encoder_layer_supported(
+        return (self.whole_layer and not self.normalize_before
+                and train_encoder_layer_supported(
             S, self.linear1.in_features, self.num_heads,
-            self.linear1.out_features, self.activation)
+            self.linear1.out_features, self.activation))
+
+    def _forward_prenorm(self, src, key_valid, rate, generator):
+        """``src + drop(attn(norm1(src)))``, then ``x + drop(FFN(norm2(x)))``
+        in plain parts (the JAX layer's ``normalize_before`` branch)."""
+        x2 = layer_norm(self.norm1, src)
+        x2 = self.self_attn(x2, x2, x2, key_valid, generator=generator,
+                            plain=True)
+        src = src + _drop(x2, rate, generator)
+        return src + _drop(_plain_ffn(self, layer_norm(self.norm2, src),
+                                      rate, generator), rate, generator)
 
     def forward(self, src: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
@@ -222,6 +245,11 @@ class TransformerEncoderLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         train_route = self.training or _needs_grad(self, src, extra_kv)
         rate = self.dropout if self.training else 0.0
+        if self.normalize_before:
+            if extra_kv is not None:
+                raise ValueError("extra_kv: the post-norm layer only, as in "
+                                 "the JAX package")
+            return self._forward_prenorm(src, key_valid, rate, generator)
         B, S, D = src.shape
         if (train_route and extra_kv is None and kernel_route(src)
                 and self.takes_whole_training_layer(S)):
@@ -247,12 +275,13 @@ class TransformerDecoderLayer(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, ff_size: int = 2048,
                  activation: str = "relu", dropout: float = 0.0,
-                 whole_layer: bool = False):
+                 whole_layer: bool = False, normalize_before: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.activation = activation
         self.dropout = dropout
         self.whole_layer = whole_layer
+        self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.multihead_attn = MultiHeadAttention(d_model, num_heads, dropout)
         self.linear1 = nn.Linear(d_model, ff_size)
@@ -279,18 +308,38 @@ class TransformerDecoderLayer(nn.Module):
 
     def takes_whole_layer(self, L: int) -> bool:
         """Whether the layer runs as K2 at inference over L memory rows per
-        sample: a shape K2 takes."""
-        return decoder_layer_supported(self.linear1.in_features,
-                                       self.num_heads,
-                                       self.linear1.out_features,
-                                       self.activation, L)
+        sample: a post-norm layer of a shape K2 takes."""
+        return not self.normalize_before and decoder_layer_supported(
+            self.linear1.in_features, self.num_heads,
+            self.linear1.out_features, self.activation, L)
 
     def takes_whole_training_layer(self, T: int, L: int) -> bool:
         """Whether the layer's training route over T frames and L memory
         rows is kernel 13."""
-        return self.whole_layer and train_decoder_layer_supported(
-            T, L, self.linear1.in_features, self.num_heads,
-            self.linear1.out_features, self.activation)
+        return (self.whole_layer and not self.normalize_before
+                and train_decoder_layer_supported(
+                    T, L, self.linear1.in_features, self.num_heads,
+                    self.linear1.out_features, self.activation))
+
+    def _forward_prenorm(self, tgt, memory, tgt_key_valid, memory_key_valid,
+                         rate, generator, return_cross_weights):
+        """Self-attention, cross-attention and FFN, each on the normed
+        stream and added to it, in plain parts (the JAX layer's
+        ``normalize_before`` branch)."""
+        x2 = layer_norm(self.norm1, tgt)
+        x2 = self.self_attn(x2, x2, x2, tgt_key_valid, generator=generator,
+                            plain=True)
+        tgt = tgt + _drop(x2, rate, generator)
+        x2 = self.multihead_attn(layer_norm(self.norm2, tgt), memory, memory,
+                                 memory_key_valid, generator=generator,
+                                 return_weights=return_cross_weights,
+                                 plain=True)
+        if return_cross_weights:
+            x2, weights = x2
+        tgt = tgt + _drop(x2, rate, generator)
+        out = tgt + _drop(_plain_ffn(self, layer_norm(self.norm3, tgt), rate,
+                                     generator), rate, generator)
+        return (out, weights) if return_cross_weights else out
 
     def _forward_blocks(self, tgt, memory, tgt_key_valid, memory_key_valid,
                         train_route, rate, generator, return_cross_weights):
@@ -318,6 +367,11 @@ class TransformerDecoderLayer(nn.Module):
         """[B, T, D] -> [B, T, D]; with ``return_cross_weights`` also the
         cross-attention's head-averaged weights [B, T, L], which only the
         per-block route gives (K2 and kernel 13 return none)."""
+        if self.normalize_before:
+            return self._forward_prenorm(
+                tgt, memory, tgt_key_valid, memory_key_valid,
+                self.dropout if self.training else 0.0, generator,
+                return_cross_weights)
         train_route = self.training or _needs_grad(self, tgt, memory)
         B, T, D = tgt.shape
         L = memory.shape[1]
@@ -389,10 +443,12 @@ class _SkipStack(nn.Module):
 class SkipTransformerEncoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 dropout: float = 0.0, whole_layer: bool = False):
+                 dropout: float = 0.0, whole_layer: bool = False,
+                 normalize_before: bool = False):
         super().__init__(
             lambda: TransformerEncoderLayer(d_model, num_heads, ff_size,
-                                            activation, dropout, whole_layer),
+                                            activation, dropout, whole_layer,
+                                            normalize_before),
             d_model, num_layers)
 
     def forward(self, src: torch.Tensor,
@@ -405,10 +461,12 @@ class SkipTransformerEncoder(_SkipStack):
 class SkipTransformerDecoder(_SkipStack):
     def __init__(self, d_model: int, num_heads: int, num_layers: int,
                  ff_size: int = 1024, activation: str = "gelu",
-                 dropout: float = 0.0, whole_layer: bool = False):
+                 dropout: float = 0.0, whole_layer: bool = False,
+                 normalize_before: bool = False):
         super().__init__(
             lambda: TransformerDecoderLayer(d_model, num_heads, ff_size,
-                                            activation, dropout, whole_layer),
+                                            activation, dropout, whole_layer,
+                                            normalize_before),
             d_model, num_layers)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,

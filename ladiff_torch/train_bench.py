@@ -269,11 +269,11 @@ def breakdown(system, optimizer, batch, iters: int = 5,
     from ladiff_torch.losses.mld import vae_loss
     from ladiff_torch.ops.transformer import _drop, layer_norm, linear
     from ladiff_torch.utils.masks import latent_valid_mask
-    mv = latent_valid_mask(lengths, vae.frame_per_latent, vae.max_it)
+    mv = latent_valid_mask(lengths, vae.frame_per_latent, vae.n_lat)
     x = torch.randn(B, T, D, device=dev, dtype=dt, requires_grad=True)
-    xe = torch.randn(B, T + 2 * vae.max_it, D, device=dev, dtype=dt,
-                     requires_grad=True)
-    mem = torch.randn(B, vae.max_it, D, device=dev, dtype=dt,
+    xe = torch.randn(B, T + vae.global_motion_token.shape[0], D, device=dev,
+                     dtype=dt, requires_grad=True)
+    mem = torch.randn(B, vae.n_lat, D, device=dev, dtype=dt,
                       requires_grad=True)
     feats = torch.randn(B, T, vae.final_layer.out_features, device=dev,
                         dtype=dt, requires_grad=True)

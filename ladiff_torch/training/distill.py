@@ -13,7 +13,12 @@ the inference kernels), the x0 that one DDIM jump from x_t to the
 teacher's end point implies (``ddim_solve_eps_x0``; at the grid's last
 position, where the teacher's mid-point falls below 0, the x0 of the
 teacher's one guided step), the student in training mode, and the squared
-x0 error weighted by the truncated SNR max(SNR, 1).
+x0 error weighted by the truncated SNR max(SNR, 1).  Inactive latent rows
+are zeroed only where the system is length-aware (``lad``).  The teacher's
+half-steps go through the system's schedule, so with ``PREDICT_EPSILON``
+false they read its outputs as clean latents; the one-step target and the
+student's x0 read the outputs as noise whatever the prediction type, as
+the JAX package's distill does.
 """
 from __future__ import annotations
 
@@ -63,7 +68,7 @@ def distill_forward(system: LADiffSystem, student: nn.Module,
     student's mode (dropout, the training routes); both modes are restored
     afterwards.  Every draw comes from ``generator`` on the system's device
     unless given: ``i`` [B] the grid positions in 0 .. S - 1, ``noise`` the
-    forward process's, ``eps`` [B, max_it, D] the encode's; the student's
+    forward process's, ``eps`` [B, n_latents, D] the encode's; the student's
     dropout always comes from ``generator``."""
     schedule = system.schedule
     N, S = schedule.num_train_timesteps, int(student_steps)
@@ -88,7 +93,7 @@ def distill_forward(system: LADiffSystem, student: nn.Module,
         z0, frame_valid = z0.float(), None
 
     def zero_invalid(x):
-        if lat_valid is None:
+        if not (system.lad and lat_valid is not None):
             return x
         return torch.where(lat_valid[:, :, None], x,
                            torch.zeros((), dtype=x.dtype, device=dev))

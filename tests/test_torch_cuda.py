@@ -1807,3 +1807,132 @@ def test_action_ffn_tail_rows(dev, rows, rate):
     assert _relerr(dx, wdx) <= TOL
     for k, w in wgrads.items():
         assert _relerr(grads[k], w) <= TOL, k
+
+
+# -- the ablation switches' shapes -------------------------------------------
+# The fixed-size latent set (LAD false, MAX_IT 0) has 7 latents: K1 runs 7
+# latent rows a sample (96 // 7 = 13 samples a row group), K2 and kernel 13
+# 7 memory rows under the decoder's default length mask (rows past
+# ceil(len / 48) masked) or, under TEST_EFFICIENCY, none.
+
+ABLATION_LENGTHS = (196, 16, 100, 47, 150, 60, 123)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+@torch.no_grad()
+def test_decoder_layer_kernel_at_7_memory_rows(dev, masked):
+    """K2 at 196 frames against 7 memory rows, under the length mask (1 to
+    5 rows valid, rows 5 and 6 never) and without a memory mask."""
+    from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
+                                                fused_decoder_layer)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    D, H, T, L = 256, 4, 196, 7
+    lengths = np.array(ABLATION_LENGTHS)
+    B = len(lengths)
+    layer = _randomize(TransformerDecoderLayer(D, H, 4 * D, "gelu"), 41).to(
+        dev, torch.bfloat16)
+    g = torch.Generator().manual_seed(42)
+    bf = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)
+    mv = (_mask(-(-lengths // 48), L, dev) if masked
+          else torch.ones(B, L, device=dev))
+    args = (bf(B * T, D), _mask(lengths, T, dev).reshape(-1).contiguous(),
+            bf(B, L, D), mv)
+    p = layer.kernel_params()
+    got = fused_decoder_layer(*args, p, T=T, H=H)
+    want = decoder_layer_plain(*[a.float() for a in args], _f32(p), T=T, H=H)
+    assert torch.isfinite(got).all()
+    assert _relerr(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@torch.no_grad()
+def test_train_decoder_layer_kernel_at_7_memory_rows(dev, rate):
+    """Kernel 13 at 196 frames against 7 memory rows under the length
+    mask: forward and every gradient, the memory's too."""
+    from ladiff_torch.ops.train_decoder_layer import (
+        DEC_PARAM_ORDER, train_decoder_layer_bwd,
+        train_decoder_layer_bwd_plain, train_decoder_layer_fwd,
+        train_decoder_layer_masks, train_decoder_layer_plain)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    D, H, Fd, S, L, seed = 256, 4, 1024, 196, 7, 2468013579
+    lengths = np.array(ABLATION_LENGTHS)
+    B = len(lengths)
+    pd = {k: v.detach() for k, v in _randomize(TransformerDecoderLayer(
+        D, H, Fd, "gelu"), 43).to(dev, torch.bfloat16).kernel_params().items()}
+    x, dout = _bf(dev, B * S, D, seed=44), _bf(dev, B * S, D, seed=45,
+                                               scale=0.1)
+    kvalid = _mask(lengths, S, dev).reshape(-1).contiguous()
+    mem = _bf(dev, B, L, D, seed=46)
+    mvalid = _mask(-(-lengths // 48), L, dev)
+    masks = (train_decoder_layer_masks(B, S, L, D, H, Fd, rate, seed, dev)
+             if rate else None)
+    kw = dict(H=H, S=S, rate=rate, seed=seed)
+    got, saved = train_decoder_layer_fwd(x, kvalid, mem, mvalid, pd,
+                                         return_saved=True, **kw)
+    want = train_decoder_layer_plain(x.float(), kvalid, mem.float(), mvalid,
+                                     _f32(pd), masks, H=H, S=S)
+    dx, dmem, grads = train_decoder_layer_bwd(x, kvalid, mem, mvalid, dout,
+                                              pd, saved, **kw)
+    wdx, wdmem, wgrads = train_decoder_layer_bwd_plain(
+        x.float(), kvalid, mem.float(), mvalid, dout.float(), _f32(pd),
+        masks, H=H, S=S)
+    assert _relerr(got, want) <= TOL
+    assert _relerr(dx, wdx) <= TOL and _relerr(dmem, wdmem) <= TOL
+    for k in DEC_PARAM_ORDER:
+        assert _relerr(grads[k], wgrads[k]) <= TOL, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,spg", [(512, 0), (40, 0), (40, 13), (20, 6)])
+@torch.no_grad()
+def test_md_layer_kernel_at_7_latent_rows(dev, B, spg):
+    """K1 at 7 latent rows, every row valid (the fixed-size set has no row
+    mask): 512 guided samples at the wrapper's geometry (at most 13
+    samples a row group), 40 samples, and row groups of 13 and 6 samples
+    whose last group is partial."""
+    from ladiff_torch.ops import md_layer
+    from ladiff_torch.ops.md_layer import md_layer_plain
+    from ladiff_torch.ops.stylization import MDTransformerLayer
+    D, H, T, E = 256, 4, 7, 2
+    layer = _randomize(MDTransformerLayer(D, D, 1024, H), 47).to(
+        dev, torch.bfloat16)
+    g = torch.Generator().manual_seed(48)
+    bf = lambda *s: torch.randn(*s, generator=g).to(dev, torch.bfloat16)
+    args = (bf(B * T, D), bf(B * E, D), torch.ones(B * T, device=dev),
+            bf(B, D), 0.3 * bf(1, 2 * D), 0.3 * bf(1, 2 * D))
+    p = layer.kernel_params()
+    got = (md_layer._launch(*args, p, T=T, E=E, H=H, spg=spg) if spg else
+           md_layer.fused_md_layer(*args, p, T=T, E=E, H=H))
+    want = md_layer_plain(*[a.float() for a in args], _f32(p), T=T, E=E, H=H)
+    assert _relerr(got, want) <= TOL
+
+
+@pytest.mark.cuda
+def test_prenorm_vae_step_launches_no_refused_kernel(dev):
+    """A stage-1 step of the published-width VAE rebuilt with pre-norm
+    layers, the all-encoder decoder and sine PEs, bf16 on the card on the
+    whole-layer route at dropout 0.1: finite losses and gradients, and no
+    launch of kernels 5, 8, 9, 10, 12, 13 or K2 (the pre-norm layers'
+    route is decided from the module before any launch)."""
+    from ladiff_torch import train_bench
+    from ladiff_torch.models.vae import LAVae
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.trainer import make_optimizer, vae_train_step
+    system, _ = train_bench.build(train_whole_layer="1")
+    system.vae = _randomize(LAVae(
+        263, (7, 256), 1024, 9, 4, dropout=0.1, train_whole_layer="1",
+        normalize_before=True, arch="all_encoder",
+        position_embedding="sine"), 49).to(dev)
+    system.vae.compute_dtype = system.dtype
+    opt = make_optimizer(system.vae.parameters(), 1e-4)
+    batch = train_bench.make_batch(8, device=dev)
+    cc.reset_launch_counts()
+    logs = vae_train_step(system, opt, batch,
+                          torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert not {k: v for k, v in cc.launch_counts().items() if v}
+    assert all(bool(torch.isfinite(v)) for v in logs.values())
+    assert all(bool(torch.isfinite(p).all())
+               for p in system.vae.parameters())

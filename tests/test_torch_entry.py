@@ -58,12 +58,14 @@ def _small_overrides(tmp_path, **over):
                   "LOGGER": {"TENSORBOARD": False}}, over).to_dict()
 
 
-def _small(tmp_path, name="config_vae_humanml3d.yaml", exp="exp", **train):
+def _small(tmp_path, name="config_vae_humanml3d.yaml", exp="exp", model=None,
+           **train):
     """A published configuration cut by ``_small_overrides``, 2 epochs, a
-    checkpoint per epoch; ``train`` goes into its TRAIN section."""
+    checkpoint per epoch; ``train`` goes into its TRAIN section, ``model``
+    (narrower widths) into its model section."""
     return _cfg(name, **_small_overrides(
         tmp_path, NAME=exp, TRAIN={"END_EPOCH": 2, **train},
-        LOGGER={"SACE_CHECKPOINT_EPOCH": 1}))
+        LOGGER={"SACE_CHECKPOINT_EPOCH": 1}, model=model or {}))
 
 
 def _logger(cfg):
@@ -383,13 +385,16 @@ def test_prefetcher_stop_aware_prepare_exits_promptly():
 
 
 def test_training_identical_with_and_without_prefetch(tmp_path):
+    """Two stage-1 runs of 2 epochs x 2 steps (3 layers, d 64, ff 128),
+    with prefetching off and at depth 2, end with equal parameters."""
     from ladiff_torch.data.datamodule import get_datasets
     from ladiff_torch.training.loop import run_training
     from ladiff_torch.utils.checkpoint import latest_checkpoint, \
         load_checkpoint
     states = []
     for prefetch in (0, 2):
-        cfg = _small(tmp_path, exp=f"pf{prefetch}", PREFETCH=prefetch)
+        cfg = _small(tmp_path, exp=f"pf{prefetch}", PREFETCH=prefetch,
+                     model={"latent_dim": [7, 64], "ff_size": 128})
         ckpt = run_training(cfg, get_datasets(cfg)[0], _logger(cfg),
                             max_steps_per_epoch=2, device="cpu")
         states.append(load_checkpoint(latest_checkpoint(ckpt)[1])[1])

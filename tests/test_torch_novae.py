@@ -284,7 +284,8 @@ def test_from_cfg_builds_the_novae_configuration():
     key; the JAX package's parameters of the same configuration load
     through ``system_state_dict`` with ``strict=True``; the stages that
     need a VAE raise by name; the MD-only options refuse the plain
-    wiring."""
+    wiring; the LA-VAE without ``LAD`` builds and encodes as the JAX
+    package's."""
     from ladiff_torch.models.ladiff import LADiffSystem as TorchSystem
     from ladiff_tpu.models.ladiff import LADiffSystem as JaxSystem
     cfg = _cfg("config_novae_humanml3d.yaml")
@@ -307,8 +308,23 @@ def test_from_cfg_builds_the_novae_configuration():
                           "length": torch.tensor([T])})
     with pytest.raises(ValueError, match="md_stack.*md_trans=False"):
         TorchSystem(md_stack=True, device="cpu", **_kw("ladiff"))
-    with pytest.raises(NotImplementedError, match="ablation switches"):
-        TorchSystem(device="cpu", **{**_kw("ladiff"), "lad": False})
+    # the LA-VAE without LAD under the plain wiring builds and encodes as
+    # the JAX package's: every latent row valid, z not zeroed
+    kw = {**_kw("ladiff"), "lad": False}
+    jfix = JaxSystem(dropout=0.0, **kw)
+    params = randomize(jax.eval_shape(jfix.init_params,
+                                      jax.random.PRNGKey(0)), 5)
+    fixed = TorchSystem(device="cpu", **kw)
+    fixed.load_state_dict(system_state_dict(params), strict=True)
+    feats = np.random.RandomState(6).randn(3, T, NFEATS).astype(np.float32)
+    want = jfix.vae.apply({"params": params["vae"]}, jnp.asarray(feats),
+                          jnp.asarray(LENGTHS), sample_mean=True,
+                          method=jfix.vae.encode)
+    got = fixed.vae.encode(torch.from_numpy(feats),
+                           torch.from_numpy(LENGTHS).long(), sample_mean=True)
+    assert bool(got[3].all()) and bool(got[0].abs().amin(2).gt(0).all())
+    for g, w in zip(got[:3], want[:3]):
+        assert relerr(g.detach().numpy(), np.asarray(w)) <= TOL
     with pytest.raises(ValueError, match="ladiff, actor or no"):
         TorchSystem.from_cfg(_cfg("config_novae_humanml3d.yaml", {
             "TRAIN": {"ABLATION": {"VAE_TYPE": "vq"}}}),

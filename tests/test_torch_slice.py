@@ -2,6 +2,7 @@
 on the CPU: the same converted weights and the same initial noise through
 ``LADiffSystem.generate``; plus the weight converter, import hygiene and
 the device default."""
+import os
 import subprocess
 import sys
 
@@ -14,6 +15,15 @@ import torch
 from ladiff_tpu.models.ladiff import LADiffSystem as JaxSystem
 from ladiff_torch.convert import system_state_dict
 from ladiff_torch.models.ladiff import LADiffSystem as TorchSystem
+
+# Under pytest-xdist every worker process collects every test module, so
+# this runs in each worker before its first test: torch's intra-op threads
+# are capped at the machine's cores over the workers.  Left at every core
+# per worker, N workers' OpenMP teams oversubscribe the CPU, and the port's
+# test files ran four to five times as long as with the cap.
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 D, HEADS, FF, LAYERS, NFEATS, NJOINTS, FRAMES = 128, 2, 256, 3, 263, 22, 196
 STEPS, GUIDANCE = 5, 7.5
