@@ -416,7 +416,7 @@ PHASES = (("kernels", False), ("slice", False), ("bench", False),
           ("ar_bench", False), ("distill_slice", True),
           ("distill_bench", True), ("action_slice", True),
           ("action_bench", True), ("ablation_slice", True),
-          ("ablation_bench", True))
+          ("ablation_bench", True), ("parallel_slice", True))
 
 
 def emit(obj):
@@ -3261,10 +3261,13 @@ def phase_eval_entry(dev, gpu=""):
     clips (66 in the test split: batches of 32, 32 and 2), from a seeded
     random system saved as a checkpoint and restored, random CLIP (seed 0)
     and random evaluators (no ``finest.tar``).  Reduced:
-    ``REPLICATION_TIMES`` 2 (published 20), ``MM_NUM_SAMPLES`` 11
+    ``REPLICATION_TIMES`` 1 (published 20; 2 until the whole script's clock
+    passed 900 s with ``parallel_slice``), ``MM_NUM_SAMPLES`` 11
     (published 100; the protocol computes MultiModality only above
-    ``MM_NUM_TIMES`` = 10 captions), ``MM_NUM_REPEATS`` 30 as published;
-    ``COUNT_TIME`` on.
+    ``MM_NUM_TIMES`` = 10 captions), ``MM_NUM_REPEATS`` 15 (published 30;
+    cut when the whole script's clock passed 900 s again on a slower host:
+    the MultiModality pass takes ``MM_NUM_TIMES`` pairs of a caption's
+    repeats, so more than 10 stay); ``COUNT_TIME`` on.
 
     (a) float32, as published: on the card and on the CPU, the same
     checkpoint and seed, no kernel launch; each metric within
@@ -3352,8 +3355,9 @@ def phase_eval_entry(dev, gpu=""):
                                           n_clips=512, seed=0)
         base = {"DEBUG": False, "FOLDER": os.path.join(tmp, "experiments"),
                 "DATASET": {"HUMANML3D": {"ROOT": data}},
-                "TEST": {"REPLICATION_TIMES": 2, "MM_NUM_SAMPLES": 11,
-                         "COUNT_TIME": True, "CHECKPOINTS": ckpt_dir},
+                "TEST": {"REPLICATION_TIMES": 1, "MM_NUM_SAMPLES": 11,
+                         "MM_NUM_REPEATS": 15, "COUNT_TIME": True,
+                         "CHECKPOINTS": ckpt_dir},
                 "model": {"t2m_path": os.path.join(tmp, "t2m")},
                 "LOGGER": {"TENSORBOARD": False}}
 
@@ -3432,7 +3436,7 @@ def phase_eval_entry(dev, gpu=""):
                 "metrics": {k: v[0] for k, v in r["summary"].items()}}
 
     rec = {"phase": "eval_entry", "gpu": gpu, "test_clips": n_test,
-           "replications": 2, "mm_num_samples": 11, "mm_num_repeats": 30,
+           "replications": 1, "mm_num_samples": 11, "mm_num_repeats": 30,
            "float32_card": public(f32_card), "float32_cpu": public(f32_cpu),
            "bf16_diffusion": public(bf16), "bf16_vae": public(vae),
            "float32_novae": public(novae),
@@ -5910,6 +5914,457 @@ def phase_ablation_bench(dev, gpu=""):
     return recs
 
 
+# the parallel layouts (ladiff_torch/parallel/).  Ranks that share the one
+# card use gloo over CUDA tensors (NCCL refuses two ranks on one device).
+# ``python -m ladiff_torch.parallel.dryrun 2 --device cuda --probe`` found
+# that this build's gloo takes all_reduce, broadcast, all_gather,
+# all_gather_into_tensor and reduce_scatter_tensor for CUDA tensors and
+# aborts on send / recv; FSDP2 at 2 ranks over it dies of a segmentation
+# fault in DTensor's functional collectives (PERF.md §6).  So DP, TP
+# and SP run at 2 ranks on the card, FSDP and the pipeline at world size 1
+# (and at 2 to 4 ranks on the CPU, tests/test_torch_parallel*.py)
+PARALLEL_CARD_LAYOUTS = ("dp", "tp", "sp")
+PARALLEL_WORLD1_ONLY = ("fsdp", "pp")
+PARALLEL_F32_TOL = 1e-4
+
+
+def _parallel_inputs(system, stage):
+    """The training slices' batch (4 samples, lengths 16 / 60 / 123 / 196)
+    with text features, the unconditional row, and the stage's draws for
+    the global batch (``trainer.global_draws`` from a generator on the card
+    seeded 8: the same in every process), on ``system``'s device."""
+    import torch
+    from ladiff_torch.training.trainer import global_draws
+    dev = system.device
+    batch, _ = _slice_batch()
+    g = torch.Generator().manual_seed(9)
+    batch["text_emb"] = torch.randn(len(batch["length"]), 1, 768,
+                                    generator=g)
+    uncond = 0.1 * torch.randn(1, 1, 768, generator=g)
+    draws = global_draws(system, stage, len(batch["length"]),
+                         torch.Generator(dev).manual_seed(8), frames=196)
+    return ({k: v.to(dev) for k, v in batch.items()}, uncond.to(dev),
+            draws)
+
+
+_PARALLEL_TEMPLATES = {}
+
+
+def _parallel_system(dev, dtype=None, whole="0"):
+    """The published stage-2 widths (``train_bench.build``: 9 + 9 layers, d
+    256, ff 1024, 4 heads, MAX_IT 5) at dropout 0, every weight random from
+    seed 22, feature std 1 and no joints loss (``train_slice``'s
+    unit-std case); bf16 compute unless ``dtype`` names float32.  A copy of
+    one template a (type, route) in each process (a build at full width
+    costs seconds; a layout reshapes the system it is given)."""
+    import copy
+    from ladiff_torch import train_bench
+    from ladiff_torch.losses.mld import LossWeights
+    key = (str(dtype), whole)
+    if key not in _PARALLEL_TEMPLATES:
+        kw = {} if dtype is None else {"dtype": dtype}
+        system = train_bench.build(dev, dropout=0.0,
+                                   train_whole_layer=whole, **kw)[0]
+        if _PARALLEL_TEMPLATES:
+            system.load_state_dict(
+                next(iter(_PARALLEL_TEMPLATES.values())).state_dict(),
+                strict=True)
+        else:
+            randomize_(system, 22)
+        system.std.fill_(1.0)
+        system.weights = LossWeights(lambda_joint=0.0)
+        _PARALLEL_TEMPLATES[key] = system
+    return copy.deepcopy(_PARALLEL_TEMPLATES[key])
+
+
+def _full_grads(module):
+    """Every parameter's gradient of ``module``, whole (FSDP2 shards
+    gathered, tensor-parallel shards all-gathered), float32 on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    out = {}
+    for name, p in module.named_parameters():
+        g = p.grad
+        if g is None:
+            continue
+        if isinstance(g, DTensor):
+            g = g.full_tensor()
+        elif getattr(p, "tp_dim", None) is not None:
+            parts = [torch.empty_like(g) for _ in
+                     range(dist.get_world_size(p.tp_group))]
+            dist.all_gather(parts, g.contiguous(), group=p.tp_group)
+            g = torch.cat(parts, dim=p.tp_dim)
+        out[name] = g.detach().float().cpu()
+    return out
+
+
+def _single_process_step(system, stage, batch, uncond, draws, plain=False,
+                         fsdp_graph=False):
+    """The step without a process group: ``StageLoss``'s forward and
+    backward.  ``plain``: the trained tree on its plain routes, as TP, SP
+    and PP run it (stage 1's whole step, whose forward is the VAE's; stage
+    2's denoiser, while its frozen VAE encode keeps kernels 5 and 10).
+    ``fsdp_graph``: FSDP2's identity autograd nodes on the layers it wraps
+    (``parallel/fsdp.fsdp_autograd_graph``), which sum the backward in
+    FSDP2's order.  Returns (loss, gradients, launches)."""
+    import contextlib
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.parallel.fsdp import fsdp_autograd_graph
+    from ladiff_torch.training.trainer import StageLoss
+    module = StageLoss(system, stage, uncond)
+    if fsdp_graph:
+        fsdp_autograd_graph(module.trained)
+    scope = contextlib.nullcontext
+    if plain and stage == "diffusion":
+        cc.plain_forward(module.trained)
+    elif plain:
+        scope = cc.plain_routes
+    cc.reset_launch_counts()
+    with scope():
+        total, _ = module(batch, **draws)
+    total.backward()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cc.launch_counts().items() if v}
+    return float(total.detach()), _full_grads(module.trained), counts
+
+
+def _layout_step(system, stage, layout, batch, uncond, draws, mesh=None,
+                 pipe_group=None, time_steps=0):
+    """One step of ``layout`` through ``make_parallel_step`` (or the
+    pipelined step) with SGD at lr 0, so the gradients stay to be read.
+    Returns (loss, gradients, launches, ms a step over ``time_steps``
+    more steps or None)."""
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.training.trainer import make_parallel_step
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.0)
+    if layout == "pp":
+        from ladiff_torch.parallel.pp import make_pp_diffusion_train_step
+        pp = make_pp_diffusion_train_step(system, group=pipe_group,
+                                          n_micro=2)
+        opt, trained = sgd(system.denoiser.parameters()), system.denoiser
+        run = lambda: pp(opt, batch, uncond, **draws)
+    else:
+        step, _, module = make_parallel_step(system, stage, layout, mesh,
+                                             optimizer_factory=sgd,
+                                             uncond_emb=uncond)
+        trained = module.trained
+        run = lambda: step(batch, draws=draws)
+    cc.reset_launch_counts()
+    logs = run()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cc.launch_counts().items() if v}
+    grads = _full_grads(trained)
+    ms = None
+    if time_steps:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(time_steps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / time_steps
+    return float(logs["total"]), grads, counts, ms
+
+
+def _grad_errs(name, got, want):
+    """Each gradient's norm-wise error, and the whole gradient vector's."""
+    import torch
+    if set(got) != set(want):
+        fail(f"parallel slice: {name}: gradients of "
+             f"{sorted(set(got) ^ set(want))} on one side only")
+    flat = lambda d: torch.cat([d[n].reshape(-1) for n in sorted(want)])
+    return ({n: relerr(got[n], w) for n, w in want.items()},
+            relerr(flat(got), flat(want)))
+
+
+# (name, stage, layout, train_whole_layer) of the world-1 cases
+PARALLEL_WORLD1 = (("ddp_vae_split", "vae", "dp", "0"),
+                   ("ddp_vae_whole_layer", "vae", "dp", "1"),
+                   ("fsdp_vae_split", "vae", "fsdp", "0"),
+                   ("fsdp_vae_whole_layer", "vae", "fsdp", "1"),
+                   ("ddp_diffusion", "diffusion", "dp", "0"),
+                   ("fsdp_diffusion", "diffusion", "fsdp", "0"),
+                   ("tp_vae", "vae", "tp", "0"),
+                   ("tp_diffusion", "diffusion", "tp", "0"),
+                   ("sp_vae", "vae", "sp", "0"),
+                   ("pp_diffusion", "diffusion", "pp", "0"))
+# (name, stage, layout) of the spawned cases, 2 ranks on the one card
+PARALLEL_SPAWNED = (("dp_vae", "vae", "dp"),
+                    ("dp_diffusion", "diffusion", "dp"),
+                    ("tp_vae", "vae", "tp"),
+                    ("sp_vae", "vae", "sp"))
+
+
+def _parallel_rank(rank, world, store, cases, out):
+    """A spawned rank on card 0 (gloo over CUDA tensors): each case in
+    float32 and in bf16; rank 0 saves (loss, gradients, launches, ms)."""
+    import torch
+    import torch.distributed as dist
+    from ladiff_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    results = {}
+    for name, stage, layout in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            system = _parallel_system(dev, dtype)
+            mesh = make_mesh(n_model=world if layout in ("tp", "sp") else 1,
+                             device_type="cuda")
+            results[(name, str(dtype))] = _layout_step(
+                system, stage, layout, *_parallel_inputs(system, stage),
+                mesh, time_steps=2 if dtype == torch.bfloat16 else 0)
+    if rank == 0:
+        torch.save(results, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _against_control(name, got, control, want32):
+    """A bf16 layout's whole gradient vector against the one-process
+    float32 step, held to ``DIFF_GRAD_RATIO`` times the one-process bf16
+    step's (``control``) distance from it, at least ``DIFF_GRAD_FLOOR``."""
+    _, err = _grad_errs(name, got, want32)
+    _, ctl = _grad_errs(name, control, want32)
+    return {"bf16_flat_grad_rel_err_vs_f32": err,
+            "control_flat_grad_rel_err_vs_f32": ctl,
+            "held": err <= max(DIFF_GRAD_RATIO * ctl, DIFF_GRAD_FLOOR)}
+
+
+def _held(name, rec, ok):
+    if not ok:
+        fail(f"parallel slice: {name}: {rec}")
+    return rec
+
+
+def phase_parallel_slice(dev, gpu=""):
+    """The parallel layouts (``ladiff_torch/parallel/``) on the card at the
+    published widths, batch 4 (lengths 16 / 60 / 123 / 196), dropout 0,
+    every draw given.
+
+    A layout's bf16 gradients are held "against the control": the whole
+    gradient vector's distance from the one-process float32 step within
+    ``DIFF_GRAD_RATIO`` times the one-process bf16 step's of the same route
+    (at least ``DIFF_GRAD_FLOOR``).  Two orders of the same bf16 sums
+    differ by up to 16% per tensor and 7% over stage 2's whole gradient at
+    batch 4 (H100 80GB HBM3, 700 W: TP at width 1 against the plain step),
+    so a layout that reorders sums is held to the bf16 noise, not to the
+    one-process bf16 step.
+
+    (a) World size 1 in this process (NCCL, a file store), each against
+    the same step without a process group.  DDP on stage 1's split route
+    (kernels 8, 9) and whole-layer route (12, 13) and on stage 2 (kernels
+    5, 9, 10), bf16: the loss and every gradient bit for bit, the
+    launches equal.  FSDP on the same: its identity autograd nodes sum the
+    backward in another order (``parallel/fsdp.py``), so it is held bit for
+    bit, launches equal, against the one-process step with those nodes
+    (``fsdp_autograd_graph``), and at ``train_slice``'s tolerances against
+    the plain one-process step; in float32 too (no launch; within
+    ``PARALLEL_F32_TOL`` of the plain step).  TP, SP and PP at width 1 take
+    plain parts in the sharded or pipelined tree: in float32 every
+    gradient within ``PARALLEL_F32_TOL`` of the one-process step, no
+    launch; in bf16 the gradients against the control (the one-process
+    step with the same routes), launches equal: none in stage 1, the
+    frozen VAE encode's kernels 5 and 10 in stage 2.
+    One data-parallel eval batch against the same batch without a group,
+    bit for bit, launches equal.  (b) Two ranks on the card, spawned, over
+    gloo: the layouts of ``PARALLEL_CARD_LAYOUTS`` in float32 (every
+    gradient within ``PARALLEL_F32_TOL`` of one process, no launch) and in
+    bf16 against the control (DDP's launches equal).  (c) ms a step at
+    batch 64: the single-device stage-1 step against DDP and FSDP at world
+    size 1 (the wrappers' own cost), and each 2-rank bf16 step's ms at
+    batch 4, two ranks on one card (no measure of scaling)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from ladiff_torch import train_bench
+    from ladiff_torch.evaluation.t2m_eval import T2MEvaluator, eval_step
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.parallel.mesh import make_mesh
+    from ladiff_torch.parallel.pp import make_pipe_group
+    from ladiff_torch.training.trainer import (make_optimizer,
+                                               make_parallel_step,
+                                               vae_train_step)
+
+    t0 = time.perf_counter()
+    tol = TRAIN_GRAD_TOL["unit_std_no_joints"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    ref = {}
+
+    def single(stage, dtype=None, whole="0", plain=False, graph=False):
+        key = (stage, str(dtype), whole, plain, graph)
+        if key not in ref:
+            system = _parallel_system(dev, dtype, whole)
+            ref[key] = _single_process_step(
+                system, stage, *_parallel_inputs(system, stage), plain=plain,
+                fsdp_graph=graph)
+        return ref[key]
+
+    # (a) world size 1, NCCL, in process
+    eval_sys = _parallel_system(dev)
+    evaluator = T2MEvaluator.random_init(263, device=dev)
+    ev_batch, ev_uncond, _ = _parallel_inputs(eval_sys, "diffusion")
+    B = len(ev_batch["length"])
+    ev_batch.update(word_embs=torch.randn(B, 22, 300, device=dev),
+                    pos_ohot=torch.randn(B, 22, 15, device=dev),
+                    text_len=torch.full((B,), 12, device=dev))
+    init = torch.randn(B, 5, 256, generator=torch.Generator().manual_seed(4)
+                       ).to(dev)
+
+    def eval_batch():
+        cc.reset_launch_counts()
+        with torch.no_grad():
+            out = eval_step(eval_sys, evaluator, ev_batch,
+                            ev_batch["text_emb"], ev_uncond.expand(B, -1, -1),
+                            "diffusion", mean_eval=np.zeros(263, np.float32),
+                            std_eval=np.ones(263, np.float32),
+                            init_latents=init)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in cc.launch_counts().items() if v}
+
+    ev_want, ev_want_counts = eval_batch()
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1)
+    mesh = make_mesh(1, 1, device_type="cuda")
+    pipe = make_pipe_group(1)
+    world1 = {}
+    for name, stage, layout, whole in PARALLEL_WORLD1:
+        plain, fsdp = layout in ("tp", "sp", "pp"), layout == "fsdp"
+        for dtype in ((f32, bf16) if plain else (f32, None)
+                      if fsdp and whole == "0" else (None,)):
+            want = single(stage, dtype, whole, plain)
+            system = _parallel_system(dev, dtype, whole)
+            got = _layout_step(system, stage, layout,
+                               *_parallel_inputs(system, stage), mesh, pipe)
+            errs, flat = _grad_errs(name, got[1], want[1])
+            worst = max(errs, key=errs.get)
+            rec = {"loss_rel_err": abs(got[0] - want[0]) / abs(want[0]),
+                   "worst_grad": worst, "worst_grad_rel_err": errs[worst],
+                   "flat_grad_rel_err": flat, "launches": got[2],
+                   "single_process_launches": want[2]}
+            key = name if dtype is None else f"{name}_{str(dtype)[6:]}"
+            world1[key] = rec
+            if dtype == f32:
+                ok = (rec["loss_rel_err"] <= PARALLEL_F32_TOL
+                      and errs[worst] <= PARALLEL_F32_TOL and not got[2])
+            elif plain:
+                rec.update(_against_control(name, got[1], want[1],
+                                            single(stage, f32)[1]))
+                ok = (rec["loss_rel_err"] <= TRAIN_LOSS_TOL
+                      and rec["held"])
+            elif fsdp:  # the same bf16 sums in FSDP2's order
+                ok = (rec["loss_rel_err"] <= TRAIN_LOSS_TOL
+                      and errs[worst] <= tol)
+            else:  # DDP: the same sums in the same order
+                ok = rec["loss_rel_err"] == 0.0 and flat == 0.0
+            if fsdp:  # against the one-process step in FSDP2's order
+                order = single(stage, dtype, whole, graph=True)
+                oerrs, oflat = _grad_errs(name, got[1], order[1])
+                rec.update(fsdp_order_loss_equal=got[0] == order[0],
+                           fsdp_order_flat_grad_rel_err=oflat,
+                           fsdp_order_worst_grad_rel_err=max(oerrs.values()))
+                ok = (ok and got[0] == order[0] and oflat == 0.0
+                      and got[2] == order[2])
+            # the frozen VAE encode of stage 2 keeps kernels 5 and 10
+            encode = plain and dtype == bf16 and stage == "diffusion"
+            _held(f"{key} (world size 1)",
+                  rec, ok and got[2] == want[2]
+                  and bool(got[2]) == (dtype != f32 and (encode or not plain)))
+    ev_got, ev_counts = eval_batch()
+    ev_err = max(relerr(ev_got[k].float(), ev_want[k].float())
+                 for k in ev_want)
+    _held("the eval batch under a group",
+          {"max_rel_err": ev_err, "launches": ev_counts,
+           "without_group": ev_want_counts},
+          ev_err == 0.0 and ev_counts == ev_want_counts)
+
+    # (c) ms a step at batch 64, stage 1 (split route): no group, DDP, FSDP
+    big = train_bench.make_batch(64, device=dev)
+    big = {"motion": big["motion"], "length": big["length"]}
+    eps = torch.randn(64, 5, 256, generator=torch.Generator().manual_seed(5)
+                      ).to(dev)
+    times = {}
+    for layout in ("single", "dp", "fsdp"):
+        system = _parallel_system(dev)
+        if layout == "single":
+            opt = make_optimizer(system.vae.parameters())
+            run = lambda: vae_train_step(system, opt, big, eps=eps)
+        else:
+            step = make_parallel_step(system, "vae", layout, mesh)[0]
+            run = lambda: step(big, draws={"eps": eps})
+        for _ in range(2):
+            run()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(5):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        times[layout] = start.elapsed_time(end) / 5
+        del system, run
+    dist.destroy_process_group()
+    t_world1 = time.perf_counter() - t0
+
+    # (b) two ranks on the one card, gloo
+    cases = [c for c in PARALLEL_SPAWNED if c[2] in PARALLEL_CARD_LAYOUTS]
+    out = os.path.join(tmp, "ranks.pt")
+    mp.start_processes(_parallel_rank, args=(
+        2, os.path.join(tmp, "store2"), cases, out), nprocs=2,
+        start_method="spawn")
+    got = torch.load(out, weights_only=False)
+    spawned = {}
+    for name, stage, layout in cases:
+        g32, gbf = got[(name, str(f32))], got[(name, str(bf16))]
+        w32 = single(stage, f32)
+        wbf = single(stage, bf16, plain=layout in ("tp", "sp"))
+        errs32, _ = _grad_errs(name, g32[1], w32[1])
+        rec = {"f32_loss_rel_err": abs(g32[0] - w32[0]) / abs(w32[0]),
+               "f32_worst_grad_rel_err": max(errs32.values()),
+               "f32_launches": g32[2],
+               "bf16_loss_rel_err": abs(gbf[0] - wbf[0]) / abs(wbf[0]),
+               **_against_control(name, gbf[1], wbf[1], w32[1]),
+               "bf16_launches": gbf[2],
+               "single_process_launches": wbf[2],
+               "bf16_ms_per_step": gbf[3]}
+        spawned[name] = _held(f"{name} (2 ranks, gloo)", rec, (
+            rec["f32_loss_rel_err"] <= PARALLEL_F32_TOL
+            and rec["f32_worst_grad_rel_err"] <= PARALLEL_F32_TOL
+            and not g32[2]
+            and rec["bf16_loss_rel_err"] <= TRAIN_LOSS_TOL
+            and rec["held"] and gbf[2] == wbf[2]))
+    emit({"phase": "parallel_slice", "gpu": gpu,
+          "batch": 4, "lengths": [16, 60, 123, 196],
+          "grad_tol": tol, "loss_tol": TRAIN_LOSS_TOL,
+          "f32_tol": PARALLEL_F32_TOL, "world1": world1,
+          "eval_batch": {"max_rel_err": ev_err, "launches": ev_counts},
+          "spawned": spawned,
+          "ms_per_step_batch64_world1": times,
+          "seconds": time.perf_counter() - t0, "world1_s": t_world1})
+    ran = sorted({c[2] for c in cases})
+    print(f"# parallel_slice: layouts on the card at 2 ranks (gloo): {ran}; "
+          f"at world size 1 only (NCCL): {list(PARALLEL_WORLD1_ONLY)} "
+          "(gloo takes no send / recv for CUDA tensors, and FSDP2 over it "
+          "faults in DTensor's functional collectives)", flush=True)
+    print(f"# parallel_slice: ms a step on {gpu}: stage 1 at batch 64, "
+          f"single device {times['single']:.3f}, DDP {times['dp']:.3f}, "
+          f"FSDP {times['fsdp']:.3f} (world size 1: the wrappers' own "
+          "cost); at 2 ranks on one card over gloo, batch 4, bf16: "
+          + ", ".join(f"{n} {r['bf16_ms_per_step']:.3f}"
+                      for n, r in spawned.items())
+          + " (two ranks share the card: no measure of scaling)",
+          flush=True)
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser()
@@ -5936,18 +6391,22 @@ def main():
     unknown = set(only) - {name for name, _ in PHASES}
     if unknown:
         fail(f"no phase {sorted(unknown)}")
-    out = {}
+    out, phase_s = {}, {}
     for name, grad in PHASES:
         if only and name not in only:
             continue
+        t_phase = time.perf_counter()
         # the route bench prints the default route's samples/s beside its own
         args = ((out["bench"][1],) if name == "route_bench" and "bench" in out
                 else (gpu,) if name in ("eval_entry", "novae_bench",
                                         "ar_bench", "distill_bench",
-                                        "action_bench", "ablation_bench")
+                                        "action_bench", "ablation_bench",
+                                        "parallel_slice")
                 else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)
+        phase_s[name] = time.perf_counter() - t_phase
+    emit({"phase": "phase_seconds", "seconds": phase_s})
     if only:
         emit({"phases_run": only,
               "seconds": time.perf_counter() - t_start})

@@ -16,7 +16,9 @@ The classifiers compute in float32 without TF32, whatever the system's
 type.  The last batch is padded to ``batch_size`` with copies of its last
 item and the outputs trimmed back.  Each batch's initial latents [batch_size,
 n_latents, D] come from one seeded CPU generator, so a CPU run and a card
-run of one seed see the same noise.
+run of one seed see the same noise.  Under a process group each batch is
+split over the ranks where the world size divides it and the outputs
+all-gathered (``a2m_eval_step``), as the JAX package's data mesh does.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ladiff_torch.evaluation.t2m_eval import _full_float32
+from ladiff_torch.parallel.mesh import data_parallel_rows
 
 __all__ = ["a2m_eval_step", "run_a2m_eval", "classify"]
 
@@ -48,6 +51,22 @@ def a2m_eval_step(system, classifier, batch: Dict[str, torch.Tensor],
                   init_latents: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None
                   ) -> Dict[str, torch.Tensor]:
+    """``_a2m_eval_step`` on this rank's rows of ``batch`` and
+    ``init_latents`` where the world size divides the batch, the outputs
+    all-gathered in rank order (``parallel/mesh.py``
+    ``data_parallel_rows``)."""
+    return data_parallel_rows(
+        _a2m_eval_step, len(batch["length"]),
+        {"batch": batch, "init_latents": init_latents}, system=system,
+        classifier=classifier, classifier_kind=classifier_kind,
+        generator=generator)
+
+
+def _a2m_eval_step(system, classifier, batch: Dict[str, torch.Tensor],
+                   classifier_kind: str = "gru",
+                   init_latents: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
     """One batch ("motion" [B, T, 150], "length" [B], "action" [B, 1],
     "mask" [B, T]) -> the classifier's features and logits on the generated
     ("rec_*") and the ground-truth ("gt_*") motions, and the generated

@@ -31,6 +31,7 @@ from ladiff_torch.models.evaluators import (MotionEncoderBiGRUCo,
                                             MovementConvEncoder,
                                             TextEncoderBiGRUCo,
                                             load_t2m_checkpoint)
+from ladiff_torch.parallel.mesh import data_parallel_rows
 from ladiff_torch.utils.device import resolve_device
 from ladiff_torch.utils.masks import lengths_to_mask
 
@@ -100,7 +101,8 @@ class T2MEvaluator(nn.Module):
 
     @torch.no_grad()
     def encode_motion(self, feats_renormed: torch.Tensor,
-                      lengths: torch.Tensor) -> torch.Tensor:
+                      lengths: torch.Tensor,
+                      valid_length: Optional[int] = None) -> torch.Tensor:
         """[B, T, F] renormed features -> [B, 512] (reference
         ladiff.py:1264-1267: the movement encoder on feats[..., :-4] of the
         batch cropped to its longest length, the motion encoder over
@@ -108,7 +110,8 @@ class T2MEvaluator(nn.Module):
         lengths = torch.as_tensor(lengths).cpu().long()
         x = feats_renormed.to(self.device, torch.float32)
         with _full_float32():
-            mov = self.movement(x[..., :-4], valid_length=int(lengths.max()))
+            mov = self.movement(x[..., :-4], valid_length=int(
+                lengths.max() if valid_length is None else valid_length))
             m_lens = torch.clamp(lengths // self.unit_length, min=1)
             return self.motion(mov, m_lens)
 
@@ -130,7 +133,37 @@ def eval_step(system, evaluator: T2MEvaluator, batch: Dict[str, torch.Tensor],
               init_latents: Optional[torch.Tensor] = None,
               eps: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
-    """One evaluation batch (``make_eval_step``'s step): returns
+    """One evaluation batch (``make_eval_step``'s step); see ``_eval_step``.
+    Under a process group the batch, ``cond``, ``uncond`` and the noise are
+    split over the ranks where the world size divides the batch (the JAX
+    package's data mesh) and the outputs all-gathered in rank order
+    (``parallel/mesh.py`` ``data_parallel_rows``): every rank returns the
+    whole batch's outputs; the movement encoder crops every rank's rows to
+    the whole batch's longest length, as on one device."""
+    if stage not in ("diffusion", "vae"):
+        raise ValueError(f"unknown eval stage {stage}")
+    if stage == "vae" and system.vae is None:
+        raise NotImplementedError(
+            f"eval stage vae: vae_type {system.vae_type!r} has no VAE to "
+            "reconstruct with (the JAX package has no such path)")
+    return data_parallel_rows(
+        _eval_step, len(batch["length"]),
+        {"batch": batch, "cond": cond, "uncond": uncond,
+         "init_latents": init_latents, "eps": eps},
+        system=system, evaluator=evaluator, stage=stage,
+        mean_eval=mean_eval, std_eval=std_eval, generator=generator,
+        valid_length=int(torch.as_tensor(batch["length"]).max()))
+
+
+def _eval_step(system, evaluator: T2MEvaluator, batch: Dict[str, torch.Tensor],
+               cond: torch.Tensor, uncond: torch.Tensor,
+               stage: str = "diffusion", *, mean_eval, std_eval,
+               generator: Optional[torch.Generator] = None,
+               init_latents: Optional[torch.Tensor] = None,
+               eps: Optional[torch.Tensor] = None,
+               valid_length: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One evaluation batch on this process: returns
     ``lat_t`` (text embeddings [B, 512]), ``lat_rm`` (generated or
     reconstructed motion's), ``lat_m`` (ground truth's), ``joints_rst``,
     ``joints_ref`` [B, T, J, 3] and ``z`` [B, max_it, D].
@@ -141,13 +174,8 @@ def eval_step(system, evaluator: T2MEvaluator, batch: Dict[str, torch.Tensor],
     ``generator`` when None; with ``vae_type`` "no" the initial frames [B,
     max_frames, nfeats], and ``z`` is the frames); stage ``vae`` samples the
     encoder's latents with ``eps`` (likewise).  ``mean_eval`` /
-    ``std_eval``: the evaluators' feature stats."""
-    if stage not in ("diffusion", "vae"):
-        raise ValueError(f"unknown eval stage {stage}")
-    if stage == "vae" and system.vae is None:
-        raise NotImplementedError(
-            f"eval stage vae: vae_type {system.vae_type!r} has no VAE to "
-            "reconstruct with (the JAX package has no such path)")
+    ``std_eval``: the evaluators' feature stats; ``valid_length``: the
+    movement encoder's crop (the batch's longest length by default)."""
     dev = system.device
     motions = batch["motion"].to(dev, torch.float32)
     lengths = torch.as_tensor(batch["length"]).long()
@@ -174,8 +202,8 @@ def eval_step(system, evaluator: T2MEvaluator, batch: Dict[str, torch.Tensor],
     return {
         "lat_t": evaluator.encode_text(batch["word_embs"], batch["pos_ohot"],
                                        batch["text_len"]),
-        "lat_rm": evaluator.encode_motion(rst_renorm, lengths),
-        "lat_m": evaluator.encode_motion(ref_renorm, lengths),
+        "lat_rm": evaluator.encode_motion(rst_renorm, lengths, valid_length),
+        "lat_m": evaluator.encode_motion(ref_renorm, lengths, valid_length),
         "joints_rst": system.feats2joints(feats_rst),
         "joints_ref": system.feats2joints(motions),
         "z": z.float(),

@@ -675,7 +675,8 @@ class LADiffSystem(nn.Module):
                              cond_drop: Optional[torch.Tensor] = None,
                              latent_idx: Optional[torch.Tensor] = None,
                              coin: Optional[torch.Tensor] = None,
-                             eps: Optional[torch.Tensor] = None):
+                             eps: Optional[torch.Tensor] = None,
+                             latent_u: Optional[torch.Tensor] = None):
         """Stage 2 of the autoregressive family: returns ``(total, (logs,
         aux))`` as ``diffusion_forward``.  The frozen encode gives each
         sample's latent tokens; one token per sample is noised and denoised
@@ -685,8 +686,9 @@ class LADiffSystem(nn.Module):
         probability 1/3) or a sample with one active token sends it to token
         0, trained unconditioned.  Every draw comes from ``generator`` on the
         system's device unless given: ``eps`` [B, n_latents, D] the encode's
-        noise, ``cond_drop`` [B, 1, 1], ``latent_idx`` [B], ``coin`` [],
-        ``noise`` [B, 1, D], ``timesteps`` [B]."""
+        noise, ``cond_drop`` [B, 1, 1], ``latent_idx`` [B] (or ``latent_u``
+        [B], the uniform draw it is made from), ``coin`` [], ``noise`` [B, 1,
+        D], ``timesteps`` [B]."""
         self._require_vae("diffusion_forward_ar")
         dev = self.device
         feats_ref = batch["motion"].to(dev)
@@ -707,7 +709,8 @@ class LADiffSystem(nn.Module):
                                uncond_emb.to(device=dev, dtype=cond.dtype),
                                cond)
         if latent_idx is None:
-            u = torch.rand((B,), generator=generator, device=dev)
+            u = (torch.rand((B,), generator=generator, device=dev)
+                 if latent_u is None else latent_u.to(dev))
             latent_idx = 1 + torch.floor(
                 u * (n_active - 1).clamp_min(1)).long()
             latent_idx = torch.minimum(latent_idx,

@@ -14,12 +14,16 @@ plain PyTorch version; given CUDA tensors it launches the kernel or raises.
 Which route a module takes is decided before any launch, from shapes (each
 kernel's ``*_supported``) and from the compute type (``kernel_route``): the
 kernels take bf16 only, so float32 compute on the card takes every module's
-plain route.
+plain route, and so does everything inside a ``plain_routes()`` scope (the
+tensor-, sequence- and pipeline-parallel layouts, where a kernel would see a
+shard of a layer: the JAX package's ``no_pallas()``).
 Every wrapper counts its launches (``launch_counts`` / ``reset_launch_counts``)
 so a run can show that the main path went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -35,7 +39,8 @@ import torch
 __all__ = ["NEG_INF", "CSRC", "BUILD_DIR", "register_kernel", "launch_counts",
            "reset_launch_counts", "build_all", "library", "launch",
            "check_cuda_args", "require_no_grad", "draw_seed", "split_seed",
-           "dropout_mask", "on_card", "kernel_compute", "kernel_route"]
+           "dropout_mask", "on_card", "kernel_compute", "kernel_route",
+           "plain_routes"]
 
 NEG_INF = -1e9  # additive key mask; large finite keeps bf16 softmax safe
 
@@ -189,10 +194,44 @@ def kernel_compute(dtype: torch.dtype, device) -> bool:
     return dtype == torch.bfloat16 or not on_card(device)
 
 
+_PLAIN = contextvars.ContextVar("ladiff_plain_routes", default=False)
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """Inside this scope every module takes its plain route: no kernel and
+    no kernel wrapper is called (``kernel_route`` is false)."""
+    tok = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(tok)
+
+
+def plain_forward(module: torch.nn.Module) -> torch.nn.Module:
+    """Every forward of ``module`` (its children's included) runs in a
+    ``plain_routes()`` scope, entered and left by forward hooks: for a
+    module whose weights no kernel can take whole, such as a layer with
+    tensor-parallel shards.  The routes of the rest of the step are
+    untouched.  Returns ``module``."""
+    tokens = []
+
+    def enter(mod, args):
+        tokens.append(_PLAIN.set(True))
+
+    def leave(mod, args, out):
+        _PLAIN.reset(tokens.pop())
+
+    module.register_forward_pre_hook(enter)
+    module.register_forward_hook(leave, always_call=True)
+    return module
+
+
 def kernel_route(x: torch.Tensor) -> bool:
     """``kernel_compute`` of the activations ``x``: the dtype gate that
-    every module checks beside its shape gate, before any launch."""
-    return kernel_compute(x.dtype, x.device)
+    every module checks beside its shape gate, before any launch; false
+    throughout a ``plain_routes()`` scope."""
+    return not _PLAIN.get() and kernel_compute(x.dtype, x.device)
 
 
 def check_cuda_args(name: str, tensors: Dict[str, torch.Tensor],

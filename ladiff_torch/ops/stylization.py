@@ -31,11 +31,13 @@ version of every block:
 
 ``MDSkipTransformerEncoder`` also runs the whole stack as one launch of
 ``fused_md_stack`` (kernel 11) when given a stack prep (``stacked_params``,
-``stack_prep``).  As the encoder and decoder layers do, ``ca_block`` and
-``ffn`` take their training route in eval mode too while autograd records a
-gradient.  ``dropout`` adds no parameter or buffer; masks come from the
-``generator`` passed to ``forward``.  Parameters may be float32 while the
-activations are bf16: every product casts its weight to the input's type.
+``stack_prep``), and hands its forward to the GPipe schedule of
+``parallel/pp.py`` inside a ``pp_encoder_override`` scope. As the encoder
+and decoder layers do, ``ca_block`` and ``ffn`` take their training route in
+eval mode too while autograd records a gradient. ``dropout`` adds no
+parameter or buffer; masks come from the ``generator`` passed to
+``forward``. Parameters may be float32 while the activations are bf16: every
+product casts its weight to the input's type.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from torch import nn
 from ladiff_torch.ops.cuda_common import kernel_route
 from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_supported
 from ladiff_torch.ops.md_stack import fused_md_stack, stack_md_params
+from ladiff_torch.ops.pp_hook import pp_override_get
 from ladiff_torch.ops.stylize import (broadcast_stylize_supported,
                                      fused_broadcast_stylize)
 from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
@@ -364,6 +367,11 @@ class MDSkipTransformerEncoder(_SkipStack):
         execution order; the text and time rows are then shared by all
         layers), or {"stack": {"params": ``stacked_params``, "values" [L,
         B, D], "ca_ss" / "ffn_ss" [L, 2D]}} for the whole-stack kernel."""
+        override = pp_override_get()
+        if override is not None:
+            # pipeline-parallel scope (parallel/pp.py): the GPipe schedule
+            # replaces the layer loop
+            return override(self, x, xf, emb, latent_valid)
         if isinstance(prep, dict):
             return self._stack_forward(x, xf, emb, latent_valid,
                                        prep["stack"])

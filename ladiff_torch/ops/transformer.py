@@ -53,7 +53,10 @@ requires a gradient (the joint stage's decode of generated latents): the
 inference kernels have no backward, while the training kernels at rate 0
 draw no masks and compute the eval-mode math with one.  Dropout masks and
 kernel seeds come from the ``generator`` passed to ``forward``, in training
-mode only.  Parameters may be float32 while the
+mode only.  Under sequence parallelism (``ops/sp_hook.py``) a skip stack
+runs on this rank's block of the tokens and each self-attention gathers its
+keys and values; under tensor parallelism ``linear`` hands a shard to its
+own forward (``parallel/tp.py``).  Parameters may be float32 while the
 activations are bf16 (explicit casts at each product; the training kernels
 cast on the way in and return float32 gradients).
 """
@@ -71,6 +74,7 @@ from ladiff_torch.ops.decoder_layer import (decoder_layer_supported,
                                             fused_decoder_layer)
 from ladiff_torch.ops.postnorm_ffn import (fused_postnorm_ffn,
                                            postnorm_ffn_supported)
+from ladiff_torch.ops.sp_hook import gather_tokens, shard_tokens
 from ladiff_torch.ops.train_attention import (train_attention_supported,
                                               train_self_attention)
 from ladiff_torch.ops.train_decoder_layer import (
@@ -99,7 +103,11 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``mod(x)`` computed in x's type whatever type the parameters have."""
+    """``mod(x)`` computed in x's type whatever type the parameters have; a
+    tensor-parallel shard (``parallel/tp.py``) runs its own forward, with
+    its collectives."""
+    if getattr(mod, "tensor_parallel", False):
+        return mod(x)
     return F.linear(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype))
 
 
@@ -153,7 +161,8 @@ def _self_attention_block(attn: MultiHeadAttention, x: torch.Tensor,
     if train_route and kernel_route(x) and train_attention_supported(
             x.shape[1], attn.d_model, attn.num_heads):
         return _train_self_attention(attn, x, key_valid, rate, generator)
-    x2 = attn(x, x, x, key_valid, generator=generator)
+    kv = gather_tokens(x)
+    x2 = attn(x, kv, kv, key_valid, generator=generator)
     return x + _drop(x2, rate, generator)
 
 
@@ -233,7 +242,8 @@ class TransformerEncoderLayer(nn.Module):
         """``src + drop(attn(norm1(src)))``, then ``x + drop(FFN(norm2(x)))``
         in plain parts (the JAX layer's ``normalize_before`` branch)."""
         x2 = layer_norm(self.norm1, src)
-        x2 = self.self_attn(x2, x2, x2, key_valid, generator=generator,
+        kv = gather_tokens(x2)
+        x2 = self.self_attn(x2, kv, kv, key_valid, generator=generator,
                             plain=True)
         src = src + _drop(x2, rate, generator)
         return src + _drop(_plain_ffn(self, layer_norm(self.norm2, src),
@@ -327,7 +337,8 @@ class TransformerDecoderLayer(nn.Module):
         stream and added to it, in plain parts (the JAX layer's
         ``normalize_before`` branch)."""
         x2 = layer_norm(self.norm1, tgt)
-        x2 = self.self_attn(x2, x2, x2, tgt_key_valid, generator=generator,
+        kv = gather_tokens(x2)
+        x2 = self.self_attn(x2, kv, kv, tgt_key_valid, generator=generator,
                             plain=True)
         tgt = tgt + _drop(x2, rate, generator)
         x2 = self.multihead_attn(layer_norm(self.norm2, tgt), memory, memory,
@@ -454,8 +465,9 @@ class SkipTransformerEncoder(_SkipStack):
     def forward(self, src: torch.Tensor,
                 key_valid: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.run(src, lambda i, block, x: block(
-            x, key_valid, generator=generator))
+        src, key_valid, unshard = shard_tokens(src, key_valid)
+        return unshard(self.run(src, lambda i, block, x: block(
+            x, key_valid, generator=generator)))
 
 
 class SkipTransformerDecoder(_SkipStack):
@@ -487,5 +499,6 @@ class SkipTransformerDecoder(_SkipStack):
                 weights.append(w)
             return out
 
-        out = self.run(tgt, block_fn)
+        tgt, tgt_key_valid, unshard = shard_tokens(tgt, tgt_key_valid)
+        out = unshard(self.run(tgt, block_fn))
         return (out, weights) if return_cross_weights else out

@@ -32,6 +32,13 @@ warning (the metrics are then self-consistent only), as the SMPL body is
 synthetic where ``SMPL_NEUTRAL.pkl`` is absent.  Replication r draws its
 noise from a CPU generator seeded r, as the JAX package's does from its
 key r.
+
+Under ``torchrun`` (``torchrun --standalone --nproc-per-node N -m
+ladiff_torch.test --cfg ...``) every rank runs the same loop: each batch is
+split over the ranks where the world size divides it
+(``evaluation/t2m_eval.py`` ``eval_step``, ``a2m_eval.py``), the outputs are
+all-gathered, every rank takes the same metrics from them and rank 0 logs
+and writes the files.
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ladiff_torch.parallel.mesh import init_distributed, rank
 
 __all__ = ["run_test", "draw_noise", "main"]
 
@@ -162,8 +171,8 @@ def run_test(cfg, logger, text_encoder=None,
     # TEST.SAVE_LATENTS (reference ladiff.py:1175-1191): each vae-stage
     # batch's encoded latents as <LATENTS_DIR>/latent_<n>.npy, n counting on
     # from the highest file there
-    save_latents = bool(cfg.TEST.get("SAVE_LATENTS", False)) and \
-        stage == "vae"
+    save_latents = (bool(cfg.TEST.get("SAVE_LATENTS", False))
+                    and stage == "vae" and rank() == 0)
     latents_dir = str(cfg.TEST.get("LATENTS_DIR", "./datasets/latents"))
     if save_latents:
         os.makedirs(latents_dir, exist_ok=True)
@@ -241,7 +250,7 @@ def run_test(cfg, logger, text_encoder=None,
                                sorted(rep_metrics.items())),
                     extra={"span": "replication", "seconds": dt})
 
-    if count_time and times:
+    if count_time and times and rank() == 0:
         mean_t = float(np.mean(times))
         logger.info(f"mean eval-step latency: {mean_t * 1e3:.1f} ms/batch "
                     f"({mean_t / bs * 1e3:.2f} ms/sample)")
@@ -258,10 +267,11 @@ def _summarize(cfg, logger, all_metrics) -> Dict[str, Tuple[float, float]]:
              sorted(summary.items())]
     logger.info("==== final metrics ====\n" + "\n".join(lines))
     stamp = time.strftime("%Y-%m-%dT%H-%M-%S")
-    with open(pjoin(cfg.get("FOLDER_EXP", "."),
-                    f"metrics_{stamp}.json"), "w") as f:
-        json.dump({k: {"mean": m, "conf": c} for k, (m, c) in
-                   summary.items()}, f, indent=2)
+    if rank() == 0:
+        with open(pjoin(cfg.get("FOLDER_EXP", "."),
+                        f"metrics_{stamp}.json"), "w") as f:
+            json.dump({k: {"mean": m, "conf": c} for k, (m, c) in
+                       summary.items()}, f, indent=2)
     return summary
 
 
@@ -338,6 +348,8 @@ def main(argv: Optional[List[str]] = None, device=None, text_encoder=None,
     """Parses the command line (``argv``, default ``sys.argv[1:]``) and runs
     the benchmark; returns its summary.  ``overrides`` are merged over the
     configuration files; ``text_encoder`` replaces the CLIP text tower."""
+    import logging
+
     from ladiff_torch.config import parse_args
     from ladiff_torch.utils.logger import create_logger
 
@@ -345,8 +357,12 @@ def main(argv: Optional[List[str]] = None, device=None, text_encoder=None,
     if "--cpu" in argv:
         argv.remove("--cpu")
         device = "cpu"
+    # under torchrun: the process group and this rank's device
+    device = init_distributed(device)
     cfg = parse_args("test", argv, overrides)
     logger = create_logger(cfg, phase="test")
+    if rank() > 0:
+        logger.setLevel(logging.WARNING)
     return run_test(cfg, logger, text_encoder=text_encoder, device=device)
 
 

@@ -32,9 +32,23 @@ reads captions, and ``distill`` folds text guidance into the student, so
 both refuse it, as in the JAX package).  Dropout and noise draw from one
 ``torch.Generator`` on the device, seeded from ``SEED_VALUE``, which also
 seeds the parameters' initialisation.  ``TRAIN.RNG_IMPL`` is validated as in
-the JAX package and has no effect here.  One device only: the parallel
-layouts (``TENSOR_PARALLEL``, ``FSDP``, ``SEQUENCE_PARALLEL``,
-``PIPELINE_STAGES`` above 1) raise.
+the JAX package and has no effect here.
+
+Under ``torchrun`` (a process group, ``parallel/mesh.py``) every rank loads
+the same global batch, pads it to a multiple of the data width and trains
+on its rows (``trainer.make_parallel_step``): data parallelism by default,
+or the one layout the configuration names, checked as the JAX package
+checks it (``check_layout``): ``TRAIN.FSDP`` (ZeRO-3 over the data dim),
+``TRAIN.TENSOR_PARALLEL`` (Megatron over a ``model`` dim of that width),
+``TRAIN.SEQUENCE_PARALLEL`` (the VAE's tokens over it; stage ``vae``),
+``TRAIN.PIPELINE_STAGES`` (GPipe over the denoiser's MD stack on the first
+that many ranks, ``TRAIN.PIPELINE_MICROBATCHES`` microbatches; stage
+``diffusion``).  The step's draws come from a generator seeded alike on
+every rank, each rank's dropout from one seeded by its data rank.  Logging
+and checkpoint writes happen on rank 0; a checkpoint holds the whole
+parameters under every layout, so it loads at any world size, and a resume
+re-shards it.  Without a process group the loop runs on one device as
+before.
 """
 from __future__ import annotations
 
@@ -53,9 +67,11 @@ import torch
 
 from ladiff_torch.data.datamodule import T2MDataModule
 from ladiff_torch.models.ladiff import LADiffSystem
+from ladiff_torch.parallel import mesh as pmesh
 from ladiff_torch.training.trainer import (diffusion_train_step,
                                            distill_train_step,
-                                           make_optimizer,
+                                           global_draws, make_optimizer,
+                                           make_parallel_step,
                                            vae_diffusion_train_step,
                                            vae_train_step)
 from ladiff_torch.utils.checkpoint import (latest_checkpoint,
@@ -65,7 +81,8 @@ from ladiff_torch.utils.checkpoint import (latest_checkpoint,
 from ladiff_torch.utils.device import resolve_device
 
 __all__ = ["CaptionEmbedder", "HostPrefetcher", "PreemptionGuard",
-           "run_training", "build_system", "build_text_encoder"]
+           "run_training", "build_system", "build_text_encoder",
+           "check_layout"]
 
 RNG_IMPLS = ("threefry", "threefry2x32", "rbg", "unsafe_rbg")
 
@@ -270,23 +287,66 @@ def build_system(cfg, dm: T2MDataModule, device=None,
             param_dtype=torch.float32)
 
 
-def _single_device(cfg, stage: str) -> None:
-    for name in ("TENSOR_PARALLEL", "SEQUENCE_PARALLEL", "PIPELINE_STAGES"):
-        n = int(cfg.TRAIN.get(name, 1) or 1)
+def check_layout(cfg, stage: str, system: LADiffSystem, n_avail: int
+                 ) -> Dict[str, int]:
+    """The parallel layout the configuration names, checked as the JAX
+    package's loop checks it for a world of ``n_avail`` ranks: the widths
+    are at least 1, ``TENSOR_PARALLEL`` and ``SEQUENCE_PARALLEL`` divide the
+    world, at most one non-DP layout, sequence parallelism for stage
+    ``vae`` only, the pipeline for stage ``diffusion`` on the non-AR
+    ``MD_TRANS`` denoiser and no wider than the world; ``RNG_IMPL`` is one
+    the JAX package knows.  Returns {"kind": "dp" | "fsdp" | "tp" | "sp" |
+    "pp", "n_model", "n_seq", "n_pipe"}."""
+    n_model = int(cfg.TRAIN.get("TENSOR_PARALLEL", 1) or 1)
+    if n_model < 1 or n_avail % n_model != 0:
+        raise ValueError(
+            f"TRAIN.TENSOR_PARALLEL={n_model} must divide the device count "
+            f"({n_avail})")
+    fsdp = bool(cfg.TRAIN.get("FSDP", False))
+    n_seq = int(cfg.TRAIN.get("SEQUENCE_PARALLEL", 1) or 1)
+    n_pipe = int(cfg.TRAIN.get("PIPELINE_STAGES", 1) or 1)
+    for name, n in (("SEQUENCE_PARALLEL", n_seq),
+                    ("PIPELINE_STAGES", n_pipe)):
         if n < 1:
             raise ValueError(f"TRAIN.{name}={n} must be >= 1")
-        if n > 1:
-            raise NotImplementedError(
-                f"TRAIN.{name}={n}: ladiff_torch trains on one device "
-                "(ROADMAP.md Queue 1: parallelism)")
-    if bool(cfg.TRAIN.get("FSDP", False)):
-        raise NotImplementedError(
-            "TRAIN.FSDP: ladiff_torch trains on one device (ROADMAP.md "
-            "Queue 1: parallelism)")
+    axes_on = [name for name, on in [
+        ("TENSOR_PARALLEL", n_model > 1), ("FSDP", fsdp),
+        ("SEQUENCE_PARALLEL", n_seq > 1), ("PIPELINE_STAGES", n_pipe > 1)]
+        if on]
+    if len(axes_on) > 1:
+        raise ValueError(
+            f"TRAIN.{' and TRAIN.'.join(axes_on)} are mutually exclusive "
+            "(pick one non-DP parallelism layout)")
+    if n_seq > 1:
+        if stage != "vae":
+            raise ValueError(
+                "TRAIN.SEQUENCE_PARALLEL shards the VAE token axis; it is "
+                f"supported for TRAIN.STAGE=vae only (got {stage!r})")
+        if n_avail % n_seq != 0:
+            raise ValueError(
+                f"TRAIN.SEQUENCE_PARALLEL={n_seq} must divide the device "
+                f"count ({n_avail})")
+    if n_pipe > 1:
+        if stage != "diffusion":
+            raise ValueError(
+                "TRAIN.PIPELINE_STAGES pipelines the denoiser MD stack; it "
+                f"is supported for TRAIN.STAGE=diffusion only (got {stage!r})")
+        if system.ardiff or not system.md_trans:
+            raise ValueError(
+                "TRAIN.PIPELINE_STAGES needs the MD_TRANS denoiser "
+                "(non-AR): the pipeline program covers the MD skip stack")
+        if n_pipe > n_avail:
+            raise ValueError(
+                f"TRAIN.PIPELINE_STAGES={n_pipe} exceeds the device count "
+                f"({n_avail})")
     impl = str(cfg.TRAIN.get("RNG_IMPL", "threefry"))
     if impl not in RNG_IMPLS:
         raise ValueError(f"TRAIN.RNG_IMPL={impl!r} is not recognized; "
                          f"expected one of {sorted(RNG_IMPLS)}")
+    kind = ("tp" if n_model > 1 else "fsdp" if fsdp else "sp" if n_seq > 1
+            else "pp" if n_pipe > 1 else "dp")
+    return {"kind": kind, "n_model": n_model, "n_seq": n_seq,
+            "n_pipe": n_pipe}
 
 
 def build_text_encoder(cfg, device):
@@ -306,11 +366,11 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
                  max_steps_per_epoch: Optional[int] = None,
                  device=None) -> str:
     """Trains the configured stage on ``device`` (the GPU unless the caller
-    names another); returns the checkpoint directory."""
+    names another; under a process group, this rank's device); returns the
+    checkpoint directory."""
     stage = str(cfg.TRAIN.STAGE)
     if stage not in ("vae", "diffusion", "vae_diffusion", "distill"):
         raise ValueError(f"unsupported stage {stage}")
-    _single_device(cfg, stage)
     teacher_src = str(cfg.TRAIN.get("PRETRAINED", "") or "")
     action = str(cfg.model.get("condition", "text")) == "action"
     if action and stage == "vae_diffusion":
@@ -324,15 +384,18 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
             raise ValueError("TRAIN.STAGE=distill needs TRAIN.PRETRAINED "
                              "(the stage-2 teacher checkpoint)")
     system = build_system(cfg, dm, device=device)
+    layout = check_layout(cfg, stage, system, pmesh.world_size())
     if system.vae is None and stage not in ("diffusion", "distill"):
         raise NotImplementedError(
             f"TRAIN.STAGE={stage} with VAE_TYPE {system.vae_type!r}: "
             "feature-space diffusion has no VAE and trains stages diffusion "
             "and distill only (the JAX package has no such path)")
     dev = system.device
-    gen = torch.Generator(device=dev).manual_seed(
-        int(cfg.get("SEED_VALUE", 1234)))
+    seed = int(cfg.get("SEED_VALUE", 1234))
+    gen = torch.Generator(device=dev).manual_seed(seed)
     ckpt_dir = os.path.join(str(cfg.get("FOLDER_EXP", ".")), "checkpoints")
+    parallel = pmesh.is_distributed()
+    main_rank = pmesh.rank() == 0
 
     embedder = uncond = teacher = student_steps = None
     if stage == "vae":
@@ -361,13 +424,12 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
             embedder = CaptionEmbedder(text_encoder
                                        or build_text_encoder(cfg, dev))
             uncond = embedder.uncond.to(dev)
-    optimizer = make_optimizer(trained.parameters(),
-                               float(cfg.TRAIN.OPTIM.LR))
 
     start_epoch = 0
     if str(cfg.TRAIN.get("RESUME", "") or ""):
         found = latest_checkpoint(ckpt_dir)
         if found:
+            # into the whole system: a layout re-shards it below
             start_epoch, sd = load_checkpoint(found[1])
             if stage == "vae":
                 system.vae.load_state_dict(subtree(sd, "vae."), strict=True)
@@ -375,19 +437,66 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
                 system.load_state_dict(sd, strict=True)
             logger.info(f"resumed from epoch {start_epoch}")
 
+    lr = float(cfg.TRAIN.OPTIM.LR)
+    pad_multiple = 1
+    parallel_step = pp_step = group = None
+    if not parallel:
+        optimizer = make_optimizer(trained.parameters(), lr)
+    elif layout["kind"] == "pp":
+        from ladiff_torch.parallel.pp import (make_pipe_group,
+                                              make_pp_diffusion_train_step)
+        group = make_pipe_group(layout["n_pipe"])
+        if pmesh.rank() >= layout["n_pipe"]:
+            # as make_pipe_mesh(n_pipe) leaves the other devices unused
+            logger.info(f"rank {pmesh.rank()} takes no part in the "
+                        f"{layout['n_pipe']}-stage pipeline")
+            return ckpt_dir
+        pad_multiple = int(cfg.TRAIN.get("PIPELINE_MICROBATCHES",
+                                         layout["n_pipe"]) or layout["n_pipe"])
+        pp_step = make_pp_diffusion_train_step(system, group=group,
+                                               n_micro=pad_multiple)
+        optimizer = make_optimizer(trained.parameters(), lr)
+    else:
+        width = layout["n_model"] * layout["n_seq"]
+        mesh = pmesh.make_mesh(n_model=width,
+                               device_type="cuda" if dev.type == "cuda"
+                               else "cpu")
+        pad_multiple = pmesh.world_size() // width
+        parallel_step, optimizer, _ = make_parallel_step(
+            system, stage, layout["kind"], mesh,
+            optimizer_factory=lambda ps: make_optimizer(ps, lr),
+            uncond_emb=uncond, teacher=teacher, student_steps=student_steps)
+        logger.info(f"layout {layout['kind']} on a {pad_multiple} x {width} "
+                    f"(data x model) mesh of {pmesh.world_size()} ranks")
+    # dropout draws differ over the ranks that split the batch and agree
+    # over those that compute the same rows (model dim, pipeline stages)
+    data_rank = (pmesh.rank() // (layout["n_model"] * layout["n_seq"])
+                 if parallel and layout["kind"] != "pp" else 0)
+    drop_gen = (torch.Generator(device=dev).manual_seed(seed + 1 + data_rank)
+                if parallel else gen)
+
     def save(epoch_mark: int) -> str:
         # the stage-2 checkpoints carry the frozen VAE too, as the
-        # reference's stage-2 checkpoints do
-        sd = system.state_dict()
+        # reference's stage-2 checkpoints do; every layout writes the whole
+        # parameters (a collective: every rank gathers, rank 0 writes)
+        sd = pmesh.full_state_dict(system) if parallel else system.state_dict()
         if stage == "vae":
             sd = {k: v for k, v in sd.items() if k.startswith("vae.")}
-        return save_checkpoint(ckpt_dir, epoch_mark, sd)
+        path = os.path.join(ckpt_dir, f"epoch_{epoch_mark}.ckpt")
+        return save_checkpoint(ckpt_dir, epoch_mark, sd) if main_rank \
+            else path
 
     def step(batch):
+        if stage != "vae" and not action:
+            batch["text_emb"] = embedder(batch.pop("text")).to(dev)
+        if parallel_step is not None:
+            return parallel_step(batch, gen, drop_gen)
+        if pp_step is not None:
+            draws = global_draws(system, stage, len(batch["motion"]), gen,
+                                 frames=batch["motion"].shape[1])
+            return pp_step(optimizer, batch, uncond, drop_gen, **draws)
         if stage == "vae":
             return vae_train_step(system, optimizer, batch, gen)
-        if not action:
-            batch["text_emb"] = embedder(batch.pop("text")).to(dev)
         if stage == "distill":
             return distill_train_step(system, teacher, optimizer, batch,
                                       uncond, student_steps, gen)
@@ -398,12 +507,14 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
     pin = dev.type == "cuda"
 
     def prepare_batch(batch: dict, stop=None):
-        """The per-step host pipeline (on the prefetch thread): numpy ->
-        pinned host tensors -> asynchronous copies to the device on the
-        current stream.  Returns None without copying once ``stop`` (the
-        prefetcher's stop event) is set."""
+        """The per-step host pipeline (on the prefetch thread): the global
+        batch padded to split evenly over the ranks, numpy -> pinned host
+        tensors -> asynchronous copies to the device on the current stream.
+        Returns None without copying once ``stop`` (the prefetcher's stop
+        event) is set."""
         if stop is not None and stop.is_set():
             return None
+        batch = pmesh.pad_batch(batch, pad_multiple)
         out = {}
         keys = ("motion", "length") + (
             ("action",) if action and stage != "vae" else ())
@@ -418,7 +529,7 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
         return out
 
     from ladiff_torch.utils.logger import MetricsLogger
-    metrics_sink = MetricsLogger.from_cfg(cfg)
+    metrics_sink = MetricsLogger.from_cfg(cfg) if main_rank else None
     end_epoch = (max_epochs if max_epochs is not None
                  else int(cfg.TRAIN.END_EPOCH))
     save_every = int(cfg.LOGGER.get("SACE_CHECKPOINT_EPOCH", 200))
@@ -426,6 +537,20 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
     prefetch = int(cfg.TRAIN.get("PREFETCH", 2))
     buckets = cfg.TRAIN.get("LENGTH_BUCKETS", None)
     buckets = tuple(buckets) if buckets else None
+
+    def stop_requested(guard) -> bool:
+        """The preemption flag, true on every rank once any rank got it."""
+        if not parallel:
+            return guard.triggered
+        flag = torch.tensor([float(guard.triggered)], device=dev)
+        # the pipeline's group: the ranks past its stages have returned
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                     group=group)
+        return bool(flag.item())
+
+    def close_sink():
+        if metrics_sink is not None:
+            metrics_sink.close()
 
     with PreemptionGuard() as guard:
         for epoch in range(start_epoch, end_epoch):
@@ -435,25 +560,27 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
                                buckets=buckets)
             batches = (HostPrefetcher(loader, prepare_batch, depth=prefetch)
                        if prefetch > 0 else map(prepare_batch, loader))
+            stopped = False
             try:
                 for i, batch in enumerate(batches):
                     if max_steps_per_epoch and i >= max_steps_per_epoch:
                         break
-                    if guard.triggered:
+                    if stop_requested(guard):
+                        stopped = True
                         break
                     losses.append(step(batch))
             finally:
                 if isinstance(batches, HostPrefetcher):
                     batches.close()
-            if guard.triggered:
+            if stopped or (not parallel and guard.triggered):
                 # mark the checkpoint with the current epoch, so a resume
                 # runs this epoch again from its start
                 path = save(epoch)
                 logger.info(f"preemption signal: saved {path} mid-epoch "
                             f"{epoch}, exiting cleanly")
-                metrics_sink.close()
+                close_sink()
                 return ckpt_dir
-            if losses:
+            if losses and main_rank:
                 # one device-to-host copy for the epoch's scalars
                 keys = sorted(losses[0])
                 host = torch.stack([torch.stack([l[k].float() for k in keys])
@@ -468,6 +595,8 @@ def run_training(cfg, dm: T2MDataModule, logger, text_encoder=None,
                     + (f", RAM {ram:.0f}%)" if ram is not None else ")"))
                 metrics_sink.log(epoch, mean_logs, prefix=f"train/{stage}/")
             if (epoch + 1) % save_every == 0 or (epoch + 1) == end_epoch:
-                logger.info(f"saved checkpoint {save(epoch + 1)}")
-    metrics_sink.close()
+                path = save(epoch + 1)
+                if main_rank:
+                    logger.info(f"saved checkpoint {path}")
+    close_sink()
     return ckpt_dir

@@ -1936,3 +1936,60 @@ def test_prenorm_vae_step_launches_no_refused_kernel(dev):
     assert all(bool(torch.isfinite(v)) for v in logs.values())
     assert all(bool(torch.isfinite(p).all())
                for p in system.vae.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dp", "fsdp"])
+@pytest.mark.parametrize("whole", ["0", "1"])
+def test_parallel_step_at_world_size_1_keeps_the_kernels(dev, tmp_path,
+                                                         layout, whole):
+    """A stage-1 step at the published widths (batch 4, dropout 0, bf16)
+    under DDP or FSDP2 at world size 1 (NCCL, a file store), on the split
+    route (kernels 8, 9) and the whole-layer route (12, 13): the launches,
+    the loss and every gradient equal the same step's without a process
+    group, bit for bit; for FSDP2 that step carries FSDP2's identity
+    autograd nodes (``fsdp_autograd_graph``), which order the backward's
+    sums as FSDP2 does."""
+    import torch.distributed as dist
+    from ladiff_torch import train_bench
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.parallel.fsdp import fsdp_autograd_graph
+    from ladiff_torch.parallel.mesh import make_mesh
+    from ladiff_torch.training.trainer import StageLoss, make_parallel_step
+    batch = train_bench.make_batch(4, device=dev)
+    eps = torch.randn(4, 5, 256, generator=torch.Generator().manual_seed(3))
+    draws = {"eps": eps.to(dev)}
+
+    def system():
+        s, _ = train_bench.build(dropout=0.0, train_whole_layer=whole)
+        return _randomize(s, 51)
+
+    ref = StageLoss(system(), "vae")
+    if layout == "fsdp":
+        fsdp_autograd_graph(ref.trained)
+    cc.reset_launch_counts()
+    total, _ = ref(batch, **draws)
+    total.backward()
+    torch.cuda.synchronize()
+    want = {k: v for k, v in cc.launch_counts().items() if v}
+    assert want
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        step, _, module = make_parallel_step(
+            system(), "vae", layout, make_mesh(1, 1, device_type="cuda"),
+            optimizer_factory=lambda ps: torch.optim.SGD(ps, lr=0.0))
+        cc.reset_launch_counts()
+        logs = step(batch, draws=draws)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in cc.launch_counts().items() if v}
+        grads = {}
+        for name, p in module.trained.named_parameters():
+            g = p.grad
+            grads[name] = g.full_tensor() if hasattr(g, "full_tensor") else g
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    assert float(logs["total"]) == float(total)
+    for name, p in ref.trained.named_parameters():
+        assert torch.equal(grads[name], p.grad), name

@@ -215,20 +215,30 @@ def test_build_system_options(tmp_path, monkeypatch):
     assert not any(k.startswith("vae.") for k in c.state_dict())
 
 
-@pytest.mark.parametrize("key,value,match", [
-    ("TENSOR_PARALLEL", 2, "parallelism"), ("FSDP", True, "parallelism"),
-    ("SEQUENCE_PARALLEL", 2, "parallelism"),
-    ("PIPELINE_STAGES", 2, "parallelism"),
-    ("STAGE", "distill", "distill needs TRAIN.PRETRAINED"),
-    ("RNG_IMPL", "philox", "RNG_IMPL")])
-def test_run_training_refuses_what_it_does_not_run(tmp_path, key, value,
-                                                    match):
+@pytest.mark.parametrize("name,train,match", [
+    ("config_vae_humanml3d.yaml", {"TENSOR_PARALLEL": 3}, "must divide"),
+    ("config_ladiff_humanml3d.yaml", {"SEQUENCE_PARALLEL": 2},
+     "vae only"),
+    ("config_vae_humanml3d.yaml", {"PIPELINE_STAGES": 2}, "diffusion only"),
+    ("config_vae_humanml3d.yaml", {"FSDP": True, "TENSOR_PARALLEL": 2},
+     "mutually exclusive"),
+    ("config_novae_humanml3d.yaml", {"PIPELINE_STAGES": 2}, "MD_TRANS"),
+    ("config_vae_humanml3d.yaml", {"STAGE": "distill"},
+     "distill needs TRAIN.PRETRAINED"),
+    ("config_vae_humanml3d.yaml", {"RNG_IMPL": "philox"}, "RNG_IMPL")])
+def test_run_training_refuses_what_it_does_not_run(tmp_path, monkeypatch,
+                                                    name, train, match):
+    """The JAX package's refusals for the same configuration, in a world of
+    two ranks (``TENSOR_PARALLEL`` 3 does not divide it)."""
     from ladiff_torch.data.datamodule import get_datasets
+    from ladiff_torch.parallel import mesh
     from ladiff_torch.training.loop import run_training
-    cfg = _small(tmp_path, **{key: value})
+    monkeypatch.setattr(mesh, "world_size", lambda: 2)
+    cfg = _small(tmp_path, name, **train)
     dm = get_datasets(cfg)[0]
     with pytest.raises((NotImplementedError, ValueError), match=match):
-        run_training(cfg, dm, _logger(cfg), device="cpu")
+        run_training(cfg, dm, _logger(cfg), text_encoder=_text_encoder,
+                     device="cpu")
 
 
 # -- training, checkpoints, resume, stage 2, demo ---------------------------
