@@ -231,6 +231,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
             UESTC configurations as published at one replication, and K2,
             kernels 5, 8, 9, 12 and 13 at the action path's shapes beside
             their plain versions, bounds and library calls.
+   offline_slice  the offline tools on the user's path: 4 motions of 196
+            frames from the default generation route (``bench.build``, CLIP
+            at the 32-token bucket, CFG 7.5 DDIM-50, bf16; launches equal
+            ``EXPECTED_PER_BATCH``) and their joints; ``fit_sequence`` on one
+            of them, 300 Adam steps through a 6890-vertex synthetic SMPL
+            body and a 6-Gaussian GMM prior over 69 dimensions, both built
+            once before any timed window (seconds, iterations/s; a
+            steady-state 20-step window timed, then profiled for its device
+            ms, device operations and idle share; the final loss and joint
+            error), that window's result held to the CPU's first 20 steps
+            (loss 1e-4 relative, parameters 1e-4 absolute); ``SMPLH`` ("smplh", "mmm", "vertices" over 196
+            frames, 52 joints), ``forward_mano`` (PCA) and ``forward_flame``
+            (expressions) at their real vertex counts, card against CPU
+            within 1e-5; ``process_file`` (host) on the golden motion and
+            ``recover_from_ric`` on the card within 5e-3, and on the
+            generated joints (shape, finite); the Blender preparation's
+            shapes.  One ``{"phase": "offline_slice", "check": ...}`` line
+            per check.
 
 Then a ``kernels`` line (kernel 10 twice: on the frozen encode's path and
 on the novae path, launches a DDPM-1000 batch; K2 and kernels 5, 8, 9, 12
@@ -416,7 +434,8 @@ PHASES = (("kernels", False), ("slice", False), ("bench", False),
           ("ar_bench", False), ("distill_slice", True),
           ("distill_bench", True), ("action_slice", True),
           ("action_bench", True), ("ablation_slice", True),
-          ("ablation_bench", True), ("parallel_slice", True))
+          ("ablation_bench", True), ("parallel_slice", True),
+          ("offline_slice", True))
 
 
 def emit(obj):
@@ -6365,6 +6384,215 @@ def phase_parallel_slice(dev, gpu=""):
           flush=True)
 
 
+OFFLINE_FIT_ITERS, OFFLINE_WINDOW_ITERS = 300, 20
+# the card's fit against the CPU's after 20 Adam steps (float32, TF32 off):
+# both sum the same float32 terms in other orders, and Adam's first steps
+# move each parameter by about lr whatever its gradient's size
+OFFLINE_LOSS_TOL, OFFLINE_PARAM_TOL = 1e-4, 1e-4
+# the LBS on the card against the CPU, norm-wise: float32 on both sides,
+# sums of at most 6890 terms in another order
+OFFLINE_LBS_TOL = 1e-5
+# recover_from_ric of process_file's features against the canonical
+# positions (the JAX package's test_process_recover_roundtrip)
+OFFLINE_ROUNDTRIP_TOL = 5e-3
+# the real vertex counts of SMPL / SMPL-H, MANO and FLAME
+SMPL_VERTS, MANO_VERTS, FLAME_VERTS = 6890, 778, 5023
+
+
+def phase_offline_slice(dev, gpu=""):
+    """The offline tools on the card (see the module docstring): generate,
+    fit, the other body models, preprocess, render preparation."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ladiff_torch import bench
+    from ladiff_torch.data.humanml.motion_repr import recover_from_ric
+    from ladiff_torch.data.humanml.process import process_file
+    from ladiff_torch.fit import fit_sequence
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.render.blender_prep import (get_frameidx,
+                                                  prepare_joints,
+                                                  prune_begin_end)
+    from ladiff_torch.smpl.body_model import SMPLModel
+    from ladiff_torch.smpl.prior import MaxMixturePrior, synthetic_gmm
+    from ladiff_torch.transforms import RotTransDatastruct, SMPLH
+    from ladiff_torch.transforms.geometry import axis_angle_to_matrix
+
+    t_phase = time.perf_counter()
+
+    def check(name, ok, **rec):
+        emit({"phase": "offline_slice", "check": name, "ok": bool(ok),
+              "gpu": gpu, **rec})
+        if not ok:
+            fail(f"offline_slice: {name}: {rec}")
+
+    # 1. generate: 4 motions on the default route, bf16, no autograd
+    B = 4
+    system, tower = bench.build(dev)
+    ids = torch.as_tensor(bench.make_caption_ids(1)[0, :B], device=dev)
+    uncond = torch.zeros(B, 1, 768, device=dev)
+    lengths = torch.full((B,), bench.FRAMES, dtype=torch.long, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cc.reset_launch_counts()
+    with torch.no_grad():
+        feats = bench.run_batch(system, tower, ids, uncond, lengths, gen)
+        joints = system.feats2joints(feats)
+    torch.cuda.synchronize()
+    counts = cc.launch_counts()
+    got = {k: counts.get(k, 0) for k in EXPECTED_PER_BATCH}
+    joints = joints.cpu().numpy()
+    check("generate", got == EXPECTED_PER_BATCH
+          and joints.shape == (B, bench.FRAMES, 22, 3)
+          and bool(np.isfinite(joints).all()),
+          seconds=time.perf_counter() - t0, launches=got,
+          expected=EXPECTED_PER_BATCH, joints_shape=list(joints.shape))
+    del system, tower
+
+    # 2. fit one motion (196 frames) on the card, then its first 20 steps
+    # against the CPU.  The body and the prior (SMPLify's GMM is not in the
+    # repository) are built once per device before any timed window, so a
+    # window holds the fit's steps and nothing of their set-up.
+    target = joints[0][:bench.FRAMES]
+    gmm = synthetic_gmm()
+
+    def built(device):
+        return (SMPLModel.synthetic(n_verts=SMPL_VERTS).to(device),
+                MaxMixturePrior.from_arrays(gmm["means"], gmm["covars"],
+                                            gmm["weights"]).to(device))
+
+    body, prior = built(dev)
+
+    def fit(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit_sequence(body, target, iters=iters, device=dev,
+                           pose_prior=prior)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fit(OFFLINE_WINDOW_ITERS)  # warm-up: the first launches of each kernel
+    # one steady-state window of 20 steps, timed, then the same window
+    # profiled for its device time
+    (card, card_loss), window_s = fit(OFFLINE_WINDOW_ITERS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fit(OFFLINE_WINDOW_ITERS)
+    on_device = [ev for ev in prof.key_averages()
+                 if getattr(ev, "self_device_time_total", 0.0) > 0]
+    dev_ms = sum(ev.self_device_time_total for ev in on_device) / 1e3
+    dev_ops = sum(ev.count for ev in on_device) / OFFLINE_WINDOW_ITERS
+    wall_ms = window_s * 1e3
+    (params, loss), fit_s = fit(OFFLINE_FIT_ITERS)
+    with torch.no_grad():
+        fitted = body(*(torch.as_tensor(params[k], device=dev)
+                        for k in ("pose", "betas", "trans"))).cpu().numpy()
+        start = body(torch.zeros(len(target), 24, 3, device=dev),
+                     torch.zeros(10, device=dev),
+                     torch.as_tensor(target[:, 0], device=dev)).cpu().numpy()
+    joint_err = float(np.linalg.norm(fitted[:, :22] - target, axis=-1).mean())
+    start_err = float(np.linalg.norm(start[:, :22] - target, axis=-1).mean())
+    cpu_body, cpu_prior = built("cpu")
+    cpu, cpu_loss = fit_sequence(cpu_body, target, iters=OFFLINE_WINDOW_ITERS,
+                                 device="cpu", pose_prior=cpu_prior)
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    param_err = {k: float(np.abs(card[k] - cpu[k]).max()) for k in cpu}
+    check("fit", np.isfinite(loss) and bool(dev_ms > 0)
+          and loss_err <= OFFLINE_LOSS_TOL
+          and max(param_err.values()) <= OFFLINE_PARAM_TOL,
+          frames=int(target.shape[0]), n_verts=SMPL_VERTS,
+          iters=OFFLINE_FIT_ITERS, seconds_per_fit=fit_s,
+          iters_per_s=OFFLINE_FIT_ITERS / fit_s,
+          fit_wall_ms_per_iter=fit_s * 1e3 / OFFLINE_FIT_ITERS,
+          device_ms_per_iter=dev_ms / OFFLINE_WINDOW_ITERS,
+          wall_ms_per_iter=wall_ms / OFFLINE_WINDOW_ITERS,
+          device_ops_per_iter=dev_ops,
+          wall_us_per_device_op=(wall_ms * 1e3 / OFFLINE_WINDOW_ITERS
+                                 / dev_ops if dev_ops else None),
+          idle_share=1.0 - dev_ms / wall_ms,
+          final_loss=loss, mean_joint_err=joint_err,
+          start_mean_joint_err=start_err,
+          cpu_loss_rel_err=loss_err, cpu_param_abs_err=param_err,
+          loss_tol=OFFLINE_LOSS_TOL, param_tol=OFFLINE_PARAM_TOL)
+
+    # 3. SMPL-H, MANO and FLAME at their real sizes, card against CPU
+    rng = np.random.RandomState(3)
+    T = bench.FRAMES
+    rots = axis_angle_to_matrix(0.4 * rng.randn(T, 22, 3))
+    data = RotTransDatastruct(rots=rots, trans=0.3 * rng.randn(T, 3))
+    smplh = {d: SMPLH(model=SMPLModel.synthetic(
+        n_verts=SMPL_VERTS, model_type="smplh"), device=d)
+        for d in (dev, "cpu")}
+    errs, t0 = {}, time.perf_counter()
+    for jt in ("smplh", "mmm", "vertices"):
+        errs[jt] = relerr(torch.from_numpy(smplh[dev](data, jt)),
+                          torch.from_numpy(smplh["cpu"](data, jt)))
+    mano = {d: SMPLModel.synthetic(n_verts=MANO_VERTS, model_type="mano"
+                                   ).to(d) for d in (dev, "cpu")}
+    flame = {d: SMPLModel.synthetic(n_verts=FLAME_VERTS, model_type="flame"
+                                    ).to(d) for d in (dev, "cpu")}
+    go, pca = 0.3 * rng.randn(T, 3), 0.5 * rng.randn(T, 12)
+    heads = [0.2 * rng.randn(T, 3) for _ in range(5)]
+    betas, expr = rng.randn(10), rng.randn(10)
+
+    def on(d, *arrays):
+        return [torch.as_tensor(np.asarray(a, np.float32), device=d)
+                for a in arrays]
+
+    with torch.no_grad():
+        outs = {d: (mano[d].forward_mano(*on(d, go, pca, betas),
+                                         return_vertices=True),
+                    flame[d].forward_flame(*on(d, *heads, betas),
+                                           expression=on(d, expr)[0],
+                                           return_vertices=True))
+                for d in (dev, "cpu")}
+    for i, name in enumerate(("mano", "flame")):
+        for j, part in enumerate(("joints", "vertices")):
+            errs[f"{name}_{part}"] = relerr(outs[dev][i][j].cpu(),
+                                            outs["cpu"][i][j])
+    check("body_models", max(errs.values()) <= OFFLINE_LBS_TOL,
+          frames=T, smplh_verts=SMPL_VERTS, mano_verts=MANO_VERTS,
+          flame_verts=FLAME_VERTS, rel_err=errs, tol=OFFLINE_LBS_TOL,
+          seconds=time.perf_counter() - t0)
+
+    # 4. preprocess on the host, recover on the card
+    golden = np.load(os.path.join(HERE, "tests", "golden",
+                                  "process_file.npz"))
+    t0 = time.perf_counter()
+    data_g, glob_g, _, _ = process_file(
+        golden["joints"].astype(np.float64), 0.002, dataset="humanml3d",
+        target_offsets=golden["tgt_offsets"])
+    rec = recover_from_ric(torch.as_tensor(data_g, dtype=torch.float32,
+                                           device=dev)[None], 22)[0]
+    rt_err = float(np.abs(rec.cpu().numpy() - glob_g[:-1]).max())
+    gen_feats = [process_file(j.astype(np.float64), dataset="humanml3d")[0]
+                 for j in joints]
+    shapes = sorted({f.shape for f in gen_feats})
+    check("preprocess", rt_err <= OFFLINE_ROUNDTRIP_TOL
+          and shapes == [(T - 1, 263)]
+          and all(np.isfinite(f).all() for f in gen_feats),
+          golden_roundtrip_max_abs_err=rt_err, tol=OFFLINE_ROUNDTRIP_TOL,
+          generated_feature_shapes=[list(s) for s in shapes],
+          seconds=time.perf_counter() - t0)
+
+    # 5. render preparation (host): shapes
+    prepared = [prepare_joints(j) for j in joints]
+    idx = get_frameidx("sequence", T, None, 8)
+    check("render_prep", all(p.shape == (T, 22, 3) and np.isfinite(p).all()
+                             for p in prepared)
+          and len(idx) == 8 and idx[-1] == T - 1
+          and len(prune_begin_end(prepared[0], 0.2)) == T - 2 * int(0.2 * T),
+          prepared_shape=list(prepared[0].shape),
+          sequence_frames=[int(i) for i in idx],
+          seconds_phase=time.perf_counter() - t_phase)
+    print(f"# offline_slice on {gpu}: fit of {target.shape[0]} frames, "
+          f"{SMPL_VERTS} vertices, {OFFLINE_FIT_ITERS} steps: {fit_s:.3f} s, "
+          f"{OFFLINE_FIT_ITERS / fit_s:.1f} it/s, device "
+          f"{dev_ms / OFFLINE_WINDOW_ITERS:.3f} ms an iteration, idle "
+          f"share {1.0 - dev_ms / wall_ms:.3f}", flush=True)
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser()
@@ -6401,7 +6629,7 @@ def main():
                 else (gpu,) if name in ("eval_entry", "novae_bench",
                                         "ar_bench", "distill_bench",
                                         "action_bench", "ablation_bench",
-                                        "parallel_slice")
+                                        "parallel_slice", "offline_slice")
                 else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)

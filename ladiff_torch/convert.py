@@ -20,6 +20,10 @@ the same weights.
     stgcn_state_dict(params)                          -> STGCN
     flax_state_dict(tree, prefix)                     -> any subtree, also
                                                          a gradient tree
+    body_model_from_jax(jax_model)                    -> SMPLModel (SMPL,
+                                                         SMPL-H / X, MANO,
+                                                         FLAME)
+    gmm_prior_from_jax(prior)                         -> MaxMixturePrior
 
 The LA-VAE's ablation variants need no rule of their own: ``dist_layer``
 (``MLP_DIST``), a ``global_motion_token`` of ``2 * n_lat`` or
@@ -43,7 +47,8 @@ import torch
 
 __all__ = ["system_state_dict", "clip_state_dict", "flax_state_dict",
            "evaluator_state_dict", "actor_vae_state_dict",
-           "gru_classifier_state_dict", "stgcn_state_dict"]
+           "gru_classifier_state_dict", "stgcn_state_dict",
+           "body_model_from_jax", "gmm_prior_from_jax"]
 
 # flax submodule names "input_blocks_0" / "emb_layers_1" -> torch "input_blocks.0"
 _INDEXED = re.compile(
@@ -239,3 +244,31 @@ def evaluator_state_dict(params: Mapping[str, Any]
     flax_state_dict(move["out_net"], "out_net.", movement)
     return {"text": bigru(params["text"]), "movement": movement,
             "motion": bigru(params["motion"])}
+
+
+def body_model_from_jax(jax_model):
+    """A JAX ``SMPLModel`` (any model type) -> the port's ``SMPLModel`` on
+    the CPU: every array as numpy, the optional ones (SMPL-H's
+    ``hands_mean``, MANO's ``hand_components`` and ``hand_mean``, FLAME's
+    ``expr_dirs``) where the JAX model has them."""
+    from ladiff_torch.smpl.body_model import SMPLModel
+
+    def arr(name):
+        v = getattr(jax_model, name)
+        return None if v is None else np.asarray(v, np.float32)
+
+    return SMPLModel(
+        arr("v_template"), arr("shapedirs"), arr("posedirs"),
+        arr("J_regressor"), arr("weights"),
+        np.asarray(jax_model.parents, np.int64),
+        hands_mean=arr("hands_mean"), hand_components=arr("hand_components"),
+        hand_mean=arr("hand_mean"), expr_dirs=arr("expr_dirs"))
+
+
+def gmm_prior_from_jax(prior):
+    """A JAX ``MaxMixturePrior`` -> the port's: its means, precisions and
+    log weights, as they are."""
+    from ladiff_torch.smpl.prior import MaxMixturePrior
+    return MaxMixturePrior(np.asarray(prior.means),
+                           np.asarray(prior.precisions),
+                           np.asarray(prior.log_nll_weights))

@@ -17,26 +17,15 @@ from typing import Dict, List
 
 import numpy as np
 
+from ladiff_torch.transforms.geometry import matrix_of_angles, softmin
+from ladiff_torch.utils.joints import humanml3d_joints, mmm_joints
+
 __all__ = ["TemosMetrics", "TemosMetricsBest", "TemosMetricsWorst",
            "rifke_canonicalize"]
 
-_HUMANML3D_JOINTS = [
-    "root", "RH", "LH", "BP", "RK", "LK", "BT", "RMrot", "LMrot", "BLN",
-    "RF", "LF", "BMN", "RSI", "LSI", "BUN", "RS", "LS", "RE", "LE", "RW", "LW",
-]
-_MMM_JOINTS = [
-    "root", "BP", "BT", "BLN", "BUN", "LS", "LE", "LW", "RS", "RE", "RW",
-    "LH", "LK", "LA", "LMrot", "LF", "RH", "RK", "RA", "RMrot", "RF",
-]
-
 
 def _joint_names(jointstype: str) -> List[str]:
-    return _HUMANML3D_JOINTS if jointstype == "humanml3d" else _MMM_JOINTS
-
-
-def _softmin(x, softness=0.5, axis=-1):
-    maxi, mini = (-x).max(axis=axis), (-x).min(axis=axis)
-    return -(maxi + np.log(softness + np.exp(mini - maxi)))
+    return humanml3d_joints if jointstype == "humanml3d" else mmm_joints
 
 
 def rifke_canonicalize(joints: np.ndarray, jointstype: str = "humanml3d"):
@@ -51,7 +40,7 @@ def rifke_canonicalize(joints: np.ndarray, jointstype: str = "humanml3d"):
 
     poses = joints.copy().astype(np.float64)
     foot_heights = poses[..., (LM, LF, RM, RF), 1].min(-1)
-    floor = _softmin(foot_heights, softness=0.5, axis=-1)
+    floor = softmin(foot_heights, softness=0.5, axis=-1)
     poses[..., 1] -= floor
 
     translation = poses[..., 0, :].copy()
@@ -75,8 +64,7 @@ def rifke_canonicalize(joints: np.ndarray, jointstype: str = "humanml3d"):
 
     sin, cos = forward[..., 0], forward[..., 1]
     # inverse rotation (rifke), then re-integration (compute.py transform)
-    rot_inv = np.stack([np.stack([cos, sin], -1),
-                        np.stack([-sin, cos], -1)], -2)
+    rot_inv = matrix_of_angles(cos, sin, inv=True)
     poses_xz_local = np.einsum("...lj,...jk->...lk", poses[..., [0, 2]], rot_inv)
     poses_local = np.stack(
         [poses_xz_local[..., 0], poses[..., 1], poses_xz_local[..., 1]], -1)
@@ -86,8 +74,7 @@ def rifke_canonicalize(joints: np.ndarray, jointstype: str = "humanml3d"):
     angles_c = np.cumsum(vel_angles, axis=-1)
     angles_c = angles_c - angles_c[..., :1]
     cos_c, sin_c = np.cos(angles_c), np.sin(angles_c)
-    rot = np.stack([np.stack([cos_c, -sin_c], -1),
-                    np.stack([sin_c, cos_c], -1)], -2)
+    rot = matrix_of_angles(cos_c, sin_c)
     poses_xz = np.einsum("...lj,...jk->...lk", poses_local[..., [0, 2]], rot)
     poses_g = np.stack([poses_xz[..., 0], poses_local[..., 1],
                         poses_xz[..., 1]], -1)

@@ -1993,3 +1993,55 @@ def test_parallel_step_at_world_size_1_keeps_the_kernels(dev, tmp_path,
     assert float(logs["total"]) == float(total)
     for name, p in ref.trained.named_parameters():
         assert torch.equal(grads[name], p.grad), name
+
+
+# -- the offline tools: no kernel of their own, the LBS and the fit on the card
+
+@pytest.mark.cuda
+def test_fit_sequence_on_the_card_matches_the_cpu(dev, tmp_path):
+    """20 Adam steps of ``fit_sequence`` (a 6890-vertex synthetic SMPL body,
+    a 6-Gaussian GMM prior, 64 frames) on the card against the CPU: the
+    loss within 1e-4 relative, every parameter within 1e-4 absolute
+    (float32 on both sides, TF32 off)."""
+    import pickle
+
+    from ladiff_torch.fit import fit_sequence
+    from ladiff_torch.smpl.body_model import SMPLModel
+    from ladiff_torch.smpl.prior import synthetic_gmm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(tmp_path / "gmm_06.pkl", "wb") as f:
+        pickle.dump(synthetic_gmm(), f)
+    gmm_dir = str(tmp_path)
+    rng = np.random.RandomState(1)
+    target = np.cumsum(0.05 * rng.randn(64, 22, 3), axis=0).astype(
+        np.float32)
+    out = {}
+    for d in (dev, "cpu"):
+        out[d] = fit_sequence(SMPLModel.synthetic(n_verts=6890), target,
+                              iters=20, device=d, gmm_dir=gmm_dir)
+    (card, card_loss), (cpu, cpu_loss) = out[dev], out["cpu"]
+    assert abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    for k in cpu:
+        np.testing.assert_allclose(card[k], cpu[k], rtol=0, atol=1e-4,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jointstype", ["vertices", "smplh"])
+def test_smplh_on_the_card_matches_the_cpu(dev, jointstype):
+    """``SMPLH`` over 196 frames of 22-joint poses on a 6890-vertex
+    synthetic SMPL-H body: the card against the CPU within 1e-5,
+    norm-wise (float32, TF32 off)."""
+    from ladiff_torch.smpl.body_model import SMPLModel
+    from ladiff_torch.transforms import RotTransDatastruct, SMPLH
+    from ladiff_torch.transforms.geometry import axis_angle_to_matrix
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    data = RotTransDatastruct(
+        rots=axis_angle_to_matrix(0.4 * rng.randn(196, 22, 3)),
+        trans=0.3 * rng.randn(196, 3))
+    got, want = (SMPLH(model=SMPLModel.synthetic(n_verts=6890,
+                                                 model_type="smplh"),
+                       device=d)(data, jointstype) for d in (dev, "cpu"))
+    assert got.shape == want.shape
+    assert _relerr(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-5
