@@ -249,10 +249,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
             generated joints (shape, finite); the Blender preparation's
             shapes.  One ``{"phase": "offline_slice", "check": ...}`` line
             per check.
+   alt_models_slice  the alternate models at their published widths
+            (``phase_alt_models_slice``): MotionCLIP's autoencoder and
+            ViT-B/32 text tower, the published HumanML3D model at
+            ``text_encoded_dim`` 512 fed by it (DDIM-10 against the CPU,
+            then the bench protocol), MotionDiffuse in both flavours,
+            DistilBERT with the full-context generation, and the plain
+            models (the VQ stack, MldVaeT2m, VPosert, the MAED ViT, the
+            extras): float32 on the card against the CPU with no launch,
+            bf16 beside the plain bf16 CPU control, launches exactly
+            ``EXPECTED_ALT_*``, each timed; kernel 10 and K3 / K4 at the
+            shapes these models give them.  One ``{"phase":
+            "alt_models_slice", "check": ...}`` line per check.
 
 Then a ``kernels`` line (kernel 10 twice: on the frozen encode's path and
 on the novae path, launches a DDPM-1000 batch; K2 and kernels 5, 8, 9, 12
-and 13 again at the action path's shapes, with its launches), and last
+and 13 again at the action path's shapes, with its launches; kernel 10
+at MotionCLIP's and MotionDiffuse's shapes and K3 / K4 at width 512), and
+last
 ``{"ok": true,
 "device": {...}}``.
 ``--only PHASE[,PHASE]`` runs the build and the named phases alone (a short
@@ -435,7 +449,7 @@ PHASES = (("kernels", False), ("slice", False), ("bench", False),
           ("distill_bench", True), ("action_slice", True),
           ("action_bench", True), ("ablation_slice", True),
           ("ablation_bench", True), ("parallel_slice", True),
-          ("offline_slice", True))
+          ("offline_slice", True), ("alt_models_slice", True))
 
 
 def emit(obj):
@@ -6593,6 +6607,661 @@ def phase_offline_slice(dev, gpu=""):
           f"share {1.0 - dev_ms / wall_ms:.3f}", flush=True)
 
 
+
+# the alternate models (ROADMAP Queue 1 item 4), bf16 at inference; launches
+# written from the route gates.  MotionCLIP's autoencoder: the
+# self-attention of each of its 8 encoder layers (197 tokens) and 8 decoder
+# layers (196 frames) is kernel 10 (head width 128); D 512 is past kernel
+# 5's (D <= 256) and K2's gates, so the FFN tails and the decoder's
+# cross-attention into its one latent row are plain parts
+EXPECTED_ALT_AUTOENCODE = {"fused_masked_attention": 16}
+EXPECTED_ALT_ENCODE = {"fused_masked_attention": 8}
+# its ViT-B/32 text tower: K3 and K4 in each of the 12 layers (width 512)
+EXPECTED_ALT_TEXT = {"fused_ln_qkv": 12, "fused_proj_mlp": 12}
+# MotionDiffuse: kernel 10 in each of its 4 text layers (77 tokens, d 256, 4
+# heads, no mask); their FFN tails (F 2048), the D-512 blocks and the
+# stylized FFN (past kernel 6's D <= 256) are plain
+EXPECTED_ALT_MDIFF = {"fused_masked_attention": 4}
+# generation at batch 4, DDIM-10: with MotionCLIP's pooled 512-d text (one
+# token, projected to d 256) K1 runs each MD layer each step and K2 each
+# decoder layer; with DistilBERT's full context (32 tokens of 256, taken as
+# they are) each MD layer runs per block: kernel 5 its sa_block tail, the
+# plain linear cross-attention, kernel 6 its stylized FFN
+EXPECTED_ALT_CLIP_GENERATE = {"fused_md_layer": 90, "fused_decoder_layer": 9}
+EXPECTED_ALT_BERT_GENERATE = {"fused_postnorm_ffn": 90,
+                              "fused_stylized_ffn": 90,
+                              "fused_decoder_layer": 9}
+# the plain models (DistilBERT, the VQ stack, MldVaeT2m, VPosert, the ViT,
+# the extras) launch no kernel, as the JAX package runs them in XLA
+ALT_FORWARD_TOL = 1e-4      # float32 card against the float32 CPU
+# bf16 card against the float32 CPU: within ALT_BF16_RATIO times the plain
+# bf16 CPU control's distance from it, at least ALT_BF16_FLOOR
+ALT_BF16_RATIO, ALT_BF16_FLOOR = DIFF_GRAD_RATIO, DIFF_GRAD_FLOOR
+# the timed sizes
+ALT_AE_BATCH, ALT_MDIFF_BATCH, ALT_VQ_BATCH, ALT_VQ_FRAMES = 64, 32, 256, 64
+ALT_T2M_BATCH, ALT_T2M_FRAMES, ALT_VP_BATCH = 64, 192, 256
+ALT_VIT_CLIPS, ALT_VIT_FRAMES, ALT_VIT_COMPARE_DEPTH = 2, 16, 2
+ALT_CAPTIONS = ["a person walks forward and turns left",
+                "someone jumps twice", "a man waves his right hand slowly",
+                "the figure kicks with the left foot then sits down"]
+
+
+def _alt_runs(name, cpu, run, inputs, expect, tol=ALT_FORWARD_TOL,
+              ratio=ALT_BF16_RATIO, floor=ALT_BF16_FLOOR, held=None,
+              bf16=True, card="cuda", gpu=""):
+    """One module four ways from the same weights: ``cpu`` (float32 on the
+    CPU, the yardstick) and copies of it: the plain bf16 CPU control,
+    float32 on the card ``card`` (within ``tol``, no launch) and bf16 on
+    the card (within ``ratio`` times the control's distance, at least
+    ``floor``; exactly ``expect`` launches).  ``run(module, inputs on its
+    device and type)`` -> a tensor or a dict of tensors, under
+    ``torch.no_grad()``, of which the ``held`` ones (all by default) are
+    compared; ``inputs``: {name: CPU tensor}, floating ones cast to each
+    run's type.  Without ``bf16`` only the two float32 runs.  Returns
+    (record, the results on the CPU in float32, the bf16 module on the
+    card or None)."""
+    import copy
+
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+    out, launches, secs = {}, {}, {}
+    labels = (("cpu_float32", "cpu", torch.float32),
+              ("cpu_bf16_control", "cpu", torch.bfloat16),
+              ("card_float32", card, torch.float32),
+              ("card_bf16", card, torch.bfloat16))
+    for label, device, dtype in labels if bf16 else labels[::2]:
+        m = (cpu if label == "cpu_float32" else
+             copy.deepcopy(cpu).to(device=device, dtype=dtype))
+        args = {k: (v.to(device, dtype) if v.is_floating_point()
+                    else v.to(device)) for k, v in inputs.items()}
+        cc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = _named(run(m, args))
+        if device == card:
+            torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        launches[label] = {k: v for k, v in cc.launch_counts().items() if v}
+        out[label] = {k: v.float().cpu() for k, v in got.items()}
+    want = out["cpu_float32"]
+
+    def err(label):
+        return max(relerr(out[label][k], want[k]) for k in held or want)
+
+    rec = {"float32_rel_err": err("card_float32"),
+           "float32_launches": launches["card_float32"], "tol": tol,
+           "seconds": secs}
+    ok = rec["float32_rel_err"] <= tol and not rec["float32_launches"]
+    if bf16:
+        rec.update(bf16_rel_err=err("card_bf16"),
+                   bf16_control_rel_err=err("cpu_bf16_control"),
+                   bf16_limit=max(ratio * err("cpu_bf16_control"), floor),
+                   launches=launches["card_bf16"], expected=expect,
+                   finite=all(bool(torch.isfinite(v).all())
+                              for v in out["card_bf16"].values()))
+        ok = ok and (rec["bf16_rel_err"] <= rec["bf16_limit"]
+                     and rec["finite"] and rec["launches"] == expect)
+    emit({"phase": "alt_models_slice", "check": name, "ok": ok, "gpu": gpu,
+          **rec})
+    if not ok:
+        fail(f"alt_models_slice: {name}: {rec}")
+    return rec, out, m if bf16 else None
+
+
+def _alt_timed(fn, warm: int = 1, n: int = 3, profiled: bool = True):
+    """Milliseconds a call of ``fn`` (host clock over ``n`` calls after
+    ``warm``, ending in a synchronize) and the launches of one call; where
+    ``profiled``, device milliseconds a call (``device_ms`` over windows of
+    2 calls: its kernels' time) and the idle share 1 - device / host."""
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    cc.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    launches = {k: v // n for k, v in cc.launch_counts().items() if v}
+    if not profiled:
+        return {"ms": ms, "launches": launches}
+    dev_ms = device_ms(fn, reps=2)
+    return {"ms": ms, "device_ms": dev_ms, "idle_share": 1.0 - dev_ms / ms,
+            "launches": launches}
+
+
+def phase_alt_models_slice(dev, gpu=""):
+    """The alternate models (ROADMAP Queue 1 item 4) at their published
+    widths, seeded random weights, dropout 0, TF32 off; every forward under
+    ``torch.no_grad()``.  Each check: float32 on the card against the CPU
+    within ``ALT_FORWARD_TOL`` with no launch, bf16 on the card against the
+    plain bf16 CPU control (``_alt_runs``), launches exactly
+    ``EXPECTED_ALT_*``.  (1) MotionCLIP: the autoencoder (latent 512, 8 + 8
+    layers, 4 heads, ff 1024) and the ViT-B/32 text tower at batch 4,
+    lengths 16 / 60 / 123 / 196; timed: an autoencode of 64 x 196 frames,
+    an encode alone, 256 captions through the tower.  (2) The published
+    HumanML3D model at ``text_encoded_dim`` 512 fed by the tower: DDIM-10 at
+    batch 4 against the CPU from the same initial noise; then the bench
+    protocol (batch 256, 196 frames, the tower in the timed region, CFG
+    7.5, DDIM-50): samples/s, device ms and idle share, ``EXPECTED_PER_BATCH``
+    launches.  (3) MotionDiffuse at its defaults in both flavours (latent
+    512, 8 layers, 8 heads; 4 text layers at 256) on the tower's 77-token
+    hidden state with EOT indices; timed at batch 32 x 196.  (4)
+    DistilBERT's ``BertTextEncoder`` on 256 captions, and the full-context
+    generation at batch 4 (DDIM-10).  (5) The plain models, no launch:
+    ``HumanVQDiff`` (``orig``, ``ema_reset``; codes exact in float32, their
+    bf16 agreement printed), ``MldVaeT2m``, ``VPosert``,
+    ``vit_base_patch16_224`` in the five ``st_mode``s (compared at 2
+    blocks over 2 clips x 2 frames, timed whole over 2 clips x 16 frames),
+    the extras' blocks; each timed.  (6) Kernel 10 at [64, 197, 512] H 4
+    under the frame mask and at [256, 77, 256] H 4 without one, K3 and K4
+    at width 512 on 8192 rows (and compared at ragged row counts), each
+    timed in turn with its plain version (and SDPA for kernel 10) over 5
+    rounds.  Returns their kernel records."""
+    import numpy as np
+    import torch
+    from ladiff_torch import bench
+    from ladiff_torch.models import vision_transformer as vit
+    from ladiff_torch.models.bert_text import (BertTextEncoder,
+                                               HashWordTokenizer)
+    from ladiff_torch.models.clip_text import CLIPTextLayer
+    from ladiff_torch.models.mdiff import MotionTransformer
+    from ladiff_torch.models.mld_vae_t2m import MldVaeT2m
+    from ladiff_torch.models.motionclip import (MotionClip,
+                                                MotionClipTextEncoder)
+    from ladiff_torch.models.vposert_vae import VPosert
+    from ladiff_torch.models.vq import HumanVQDiff, ema_init, ema_update
+    from ladiff_torch.ops import clip_layer as cl_ops
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.ops import extras
+    from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
+                                                   masked_attention_plain)
+    from ladiff_torch.utils.masks import lengths_to_mask
+
+    t_phase = time.perf_counter()
+    parts, t_part = {}, [t_phase]
+
+    def stamp(name):
+        """Seconds of the phase's part ``name`` (since the last stamp)."""
+        now = time.perf_counter()
+        parts[name], t_part[0] = now - t_part[0], now
+
+    bf, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator().manual_seed(20)
+    B, T, NF = 4, 196, 263
+    lengths = torch.tensor([16, 60, 123, 196])
+    timings = {}
+
+    def built(cls, seed, *a, randomize=True, **kw):
+        """The module built on the CPU in float32 from ``seed`` (every
+        parameter random where ``randomize``, else the module's own init),
+        in eval mode."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            m = cls(*a, device="cpu", **kw)
+        if randomize:
+            randomize_(m, seed)
+        return m.eval()
+
+    # (1) MotionCLIP: the autoencoder and the text tower at batch 4
+    feats = torch.randn(B, T, NF, generator=g)
+    _, _, card_ae = _alt_runs(
+        "motionclip_autoencoder", built(MotionClip, 61, NF, dropout=0.0),
+              lambda m, a: dict(zip(("recon", "z"),
+                                    m(a["feats"], a["lengths"]))),
+              {"feats": feats, "lengths": lengths}, EXPECTED_ALT_AUTOENCODE,
+              card=dev, gpu=gpu)
+
+    enc32 = MotionClipTextEncoder(device="cpu", seed=62)
+    ids = torch.from_numpy(np.asarray(enc32.bucket_ids(
+        enc32.tokenizer(ALT_CAPTIONS))).astype(np.int64))
+    _, _, tower = _alt_runs("motionclip_text_tower", enc32.tower,
+                            lambda m, a: m(a["ids"]), {"ids": ids},
+                            EXPECTED_ALT_TEXT, card=dev, gpu=gpu)
+    xa = torch.randn(ALT_AE_BATCH, T, NF, generator=g).to(dev, bf)
+    la = mixed_lengths(ALT_AE_BATCH, seed=3).to(dev)
+    with torch.no_grad():
+        timings["motionclip_autoencode"] = _alt_timed(lambda: card_ae(xa, la))
+        timings["motionclip_encode"] = enc_t = _alt_timed(
+            lambda: card_ae.encode(xa, la))
+    bench_ids = torch.as_tensor(bench.make_caption_ids(3), device=dev)
+    with torch.no_grad():
+        timings["motionclip_text_256"] = _alt_timed(
+            lambda: tower(bench_ids[0]))
+    if (timings["motionclip_autoencode"]["launches"] != EXPECTED_ALT_AUTOENCODE
+            or enc_t["launches"] != EXPECTED_ALT_ENCODE
+            or timings["motionclip_text_256"]["launches"]
+            != EXPECTED_ALT_TEXT):
+        fail(f"alt_models_slice: timed MotionCLIP launches {timings}")
+    del card_ae, xa
+
+    stamp("motionclip")
+
+    # (2) the published HumanML3D model fed by MotionCLIP's tower
+    cfg512 = _config("config_ladiff_humanml3d.yaml", model={
+        "droupout": 0.0, "denoiser": {"params": {"text_encoded_dim": 512}}})
+    with torch.no_grad():
+        cond = enc32(ALT_CAPTIONS)
+    uncond = torch.zeros(B, 1, 512)
+    init = torch.randn(B, 5, 256, generator=g)
+    cpu = _from_cfg(cfg512, "cpu", f32, seed=63)
+    state = cpu.state_dict()
+    runs = _generate_runs("alt motionclip generate", (
+        ("cpu_float32", cpu, False),
+        ("cpu_bf16_control", _from_cfg(cfg512, "cpu", bf, state=state),
+         False),
+        ("card_float32", _from_cfg(cfg512, dev, f32, state=state), True),
+        ("card_bf16", _from_cfg(cfg512, dev, state=state), True)),
+        cond, uncond, lengths, 10, init=init)
+    gen_clip = _generation_record("alt motionclip generate", runs,
+                                  EXPECTED_ALT_CLIP_GENERATE, feats=True)
+    emit({"phase": "alt_models_slice", "check": "motionclip_generate",
+          "ok": True, "gpu": gpu, **gen_clip})
+    del cpu, runs
+    # the bench protocol on MotionCLIP's route and, in turns with it in
+    # this call, on the default route (CLIP ViT-L/14, text_encoded_dim 768)
+    routes = {
+        "default": bench.build(dev),
+        "motionclip": (_from_cfg(_config("config_ladiff_humanml3d.yaml",
+                                         model={"denoiser": {"params": {
+                                             "text_encoded_dim": 512}}}),
+                                 dev, seed=64), tower)}
+    bench_len = torch.full((bench.BATCH,), bench.FRAMES, dtype=torch.long,
+                           device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calls = iter(range(10 ** 6))
+
+    def bench_batch(route):
+        system, text_tower = routes[route]
+        width = system.denoiser.text_encoded_dim
+        with torch.no_grad():
+            text = text_tower(bench_ids[next(calls) % 3])[:, None, :]
+            return system.generate(
+                text, torch.zeros(bench.BATCH, 1, width, device=dev),
+                bench_len, generator=gen, nframes=bench.FRAMES)[0]
+
+    reads = {"default": [], "motionclip": []}
+    for route in ("default", "motionclip", "motionclip", "default"):
+        reads[route].append(_alt_timed(lambda: bench_batch(route), n=2,
+                                       profiled=not reads[route]))
+    res = dict(reads["motionclip"][0])
+    res["ms_reads"] = [r["ms"] for r in reads["motionclip"]]
+    res["samples_per_sec"] = bench.BATCH / res["ms"] * 1e3
+    res["default_route"] = {
+        **reads["default"][0], "ms_reads": [r["ms"] for r in
+                                            reads["default"]],
+        "samples_per_sec": bench.BATCH / reads["default"][0]["ms"] * 1e3}
+    out = bench_batch("motionclip")
+    res.update(shape=list(out.shape),
+               finite=bool(torch.isfinite(out).all()))
+    timings["motionclip_generate_bench"] = res
+    emit({"phase": "alt_models_slice", "check": "motionclip_bench",
+          "gpu": gpu, "batch": bench.BATCH, "frames": bench.FRAMES,
+          "steps": bench.STEPS, **res, "expected": EXPECTED_PER_BATCH,
+          "ok": res["finite"]})
+    for route, rs in reads.items():
+        got = {k: rs[-1]["launches"].get(k, 0) for k in EXPECTED_PER_BATCH}
+        if got != EXPECTED_PER_BATCH:
+            fail(f"alt_models_slice: {route} bench launches {got}")
+    if not res["finite"] or res["shape"] != [bench.BATCH, bench.FRAMES, NF]:
+        fail(f"alt_models_slice: MotionCLIP bench shape {res['shape']}, "
+             f"finite {res['finite']}")
+    clip_bench_launches = res["launches"]
+    del routes, out
+
+    stamp("motionclip_generation")
+
+    # (3) MotionDiffuse on the tower's 77-token hidden state
+    tok = enc32.tokenizer(ALT_CAPTIONS)
+    with torch.no_grad():
+        clip_tokens = enc32.tower(torch.from_numpy(
+            np.asarray(tok).astype(np.int64)), return_hidden=True)
+    eot = torch.from_numpy(np.asarray(tok).argmax(-1).astype(np.int64))
+    x = torch.randn(B, T, NF, generator=g)
+    steps = torch.tensor([3, 250, 600, 999])
+    mdiff_inputs = {"x": x, "t": steps, "lengths": lengths,
+                    "tokens": clip_tokens, "eot": eot}
+    for no_eff in (False, True):
+        _, _, md = _alt_runs(
+            f"mdiff_{'no_eff' if no_eff else 'eff'}",
+            built(MotionTransformer, 65, NF, no_eff=no_eff),
+            lambda m, a: m(a["x"], a["t"], a["lengths"],
+                           clip_tokens=a["tokens"], eot_idx=a["eot"]),
+            mdiff_inputs, EXPECTED_ALT_MDIFF, card=dev, gpu=gpu)
+        xm = torch.randn(ALT_MDIFF_BATCH, T, NF, generator=g).to(dev, bf)
+        tm_ = torch.randint(0, 1000, (ALT_MDIFF_BATCH,), generator=g).to(dev)
+        lm = mixed_lengths(ALT_MDIFF_BATCH, seed=4).to(dev)
+        tk = clip_tokens[torch.arange(ALT_MDIFF_BATCH) % B].to(dev, bf)
+        ek = eot[torch.arange(ALT_MDIFF_BATCH) % B].to(dev)
+        with torch.no_grad():
+            timings[f"mdiff_{'no_eff' if no_eff else 'eff'}"] = r = \
+                _alt_timed(lambda: md(xm, tm_, lm, clip_tokens=tk,
+                                      eot_idx=ek))
+        if r["launches"] != EXPECTED_ALT_MDIFF:
+            fail(f"alt_models_slice: timed MotionDiffuse launches {r}")
+        del md
+    mdiff_launches = timings["mdiff_eff"]["launches"]
+
+    stamp("mdiff")
+
+    # (4) DistilBERT: 256 captions, and the full-context generation
+    words = ("a person walks forward turns left jumps twice waves his right "
+             "hand slowly kicks sits down runs in a circle").split()
+    rs = np.random.RandomState(5)
+    captions = [" ".join(rs.choice(words, rs.randint(4, 20)))
+                for _ in range(256)]
+
+    class _Bert(torch.nn.Module):
+        """``BertTextEncoder``'s tower and projection as one module."""
+
+        def __init__(self, enc):
+            super().__init__()
+            self.tower, self.projection_1 = enc.tower, enc.projection_1
+
+        def forward(self, ids, mask):
+            out = self.projection_1(torch.relu(self.tower(ids, mask)))
+            return out * mask[..., None].to(out.dtype)
+
+    ids_b, mask_b = HashWordTokenizer()(captions)
+    bert_inputs = {"ids": torch.from_numpy(ids_b.astype(np.int64)),
+                   "mask": torch.from_numpy(mask_b)}
+    bert = _Bert(BertTextEncoder(device="cpu", seed=66)).eval()
+    _, bert_out, _ = _alt_runs(
+        "bert_text_encoder", bert, lambda m, a: m(a["ids"], a["mask"]),
+        bert_inputs, {}, bf16=False, card=dev, gpu=gpu)
+    cfg256 = _config("config_ladiff_humanml3d.yaml", model={
+        "droupout": 0.0, "denoiser": {"params": {"text_encoded_dim": 256}}})
+    cond = bert_out["cpu_float32"]["out"][:B]
+    uncond = bert_out["cpu_float32"]["out"][B:2 * B] * 0.0
+    cpu = _from_cfg(cfg256, "cpu", f32, seed=67)
+    state = cpu.state_dict()
+    runs = _generate_runs("alt bert generate", (
+        ("cpu_float32", cpu, False),
+        ("cpu_bf16_control", _from_cfg(cfg256, "cpu", bf, state=state),
+         False),
+        ("card_float32", _from_cfg(cfg256, dev, f32, state=state), True),
+        ("card_bf16", _from_cfg(cfg256, dev, state=state), True)),
+        cond, uncond, lengths, 10, init=init)
+    gen_bert = _generation_record("alt bert generate", runs,
+                                  EXPECTED_ALT_BERT_GENERATE, feats=True)
+    emit({"phase": "alt_models_slice", "check": "bert_full_context_generate",
+          "ok": True, "gpu": gpu, "text_tokens": int(cond.shape[1]),
+          **gen_bert})
+    del cpu, runs
+    bert = bert.to(dev, bf)
+    bi = {k: v.to(dev) for k, v in bert_inputs.items()}
+    with torch.no_grad():
+        timings["bert_256_captions"] = _alt_timed(
+            lambda: bert(bi["ids"], bi["mask"]))
+    del bert
+
+    stamp("bert")
+
+    # (5) the plain models: no launch
+    # a codebook among the encoder's outputs, as training leaves it: 512
+    # rows of 16 clips x 32 codes, plus noise of 5% of their spread
+    vq_cpu = built(HumanVQDiff, 68, randomize=False, nfeats=NF)
+    with torch.no_grad():
+        rows = vq_cpu.vqvae.encoder(torch.randn(
+            16, 256, NF, generator=g).transpose(1, 2)).transpose(1, 2)
+    rows = rows.reshape(-1, 512)
+    book = rows + 0.05 * rows.std() * torch.randn(rows.shape, generator=g)
+    del vq_cpu
+    for quantizer in ("orig", "ema_reset"):
+        vq_cpu = built(HumanVQDiff, 68, randomize=False, nfeats=NF,
+                       quantizer=quantizer)
+        if quantizer == "orig":
+            with torch.no_grad():
+                vq_cpu.vqvae.codebook.copy_(book)
+        xv = torch.randn(8, ALT_VQ_FRAMES, NF, generator=g)
+        cb = None if quantizer == "orig" else book
+
+        def vq_run(m, a, cb=cb):
+            book = None if cb is None else cb.to(a["x"].device,
+                                                 a["x"].dtype)
+            out, loss, ppl, idx = m(a["x"], book)
+            return {"out": out, "loss": loss, "ppl": ppl,
+                    "idx": idx.float()}
+
+        # in bf16 a near tie can pick another code (the control's too), and
+        # each row that does decodes another entry: the output is held at a
+        # floor of 0.1 beside the control
+        _, vq_out, m = _alt_runs(f"vq_{quantizer}", vq_cpu, vq_run,
+                                 {"x": xv}, {}, floor=0.1,
+                                 held=("out", "loss"), card=dev, gpu=gpu)
+        codes = {k: v["idx"] for k, v in vq_out.items()}
+        agree = float((codes["card_bf16"] == codes["cpu_float32"]).float()
+                      .mean())
+        exact = bool(torch.equal(codes["card_float32"],
+                                 codes["cpu_float32"]))
+        emit({"phase": "alt_models_slice", "check": f"vq_{quantizer}_codes",
+              "ok": exact, "float32_codes_exact": exact,
+              "bf16_code_agreement": agree,
+              "bf16_control_code_agreement": float(
+                  (codes["cpu_bf16_control"] == codes["cpu_float32"])
+                  .float().mean())})
+        if not exact:
+            fail(f"alt_models_slice: vq {quantizer}: float32 codes differ "
+                 "on the card")
+        m.train()
+        xb = torch.randn(ALT_VQ_BATCH, ALT_VQ_FRAMES, NF,
+                         generator=g).to(dev, bf)
+        state_box = {}
+        if quantizer != "orig":
+            with torch.no_grad():
+                z0 = m.vqvae.encoder(xb.transpose(1, 2)).transpose(1, 2)
+                state_box["s"] = ema_init(z0.float(), 512, torch.Generator(
+                    device=dev).manual_seed(1))
+        gv = torch.Generator(device=dev).manual_seed(2)
+
+        def vq_step(m=m, quantizer=quantizer):
+            m.zero_grad(set_to_none=True)
+            book = None if quantizer == "orig" else state_box["s"].codebook
+            out, loss, _, idx = m(xb, book)
+            (out.float().square().mean() + loss).backward()
+            if quantizer != "orig":
+                with torch.no_grad():
+                    z = m.vqvae.encoder(xb.transpose(1, 2)).transpose(1, 2)
+                    state_box["s"] = ema_update(state_box["s"], z.float(),
+                                                idx, 0.99, gv)
+
+        timings[f"vq_{quantizer}_step"] = _alt_timed(vq_step)
+        del m, vq_cpu
+    xt = torch.randn(4, 196, NF, generator=g)
+    _, _, m = _alt_runs(
+        "mld_vae_t2m", built(MldVaeT2m, 69, NF, randomize=False),
+        lambda m, a: dict(zip(("recon", "z"), m(a["x"])[:2])), {"x": xt},
+        {}, card=dev, gpu=gpu)
+    xb = torch.randn(ALT_T2M_BATCH, ALT_T2M_FRAMES, NF,
+                     generator=g).to(dev, bf)
+    with torch.no_grad():
+        timings["mld_vae_t2m"] = _alt_timed(lambda: m(xb))
+    del m
+    xp = torch.randn(16, 196, NF, generator=g)
+    eps = torch.randn(16, 256, generator=g)
+
+    # VPosert with running statistics of a trained model's scale (the
+    # BatchNorms read them)
+    vp = built(VPosert, 70, randomize=False)
+    gb = torch.Generator().manual_seed(7)
+    for bn in (vp.encoder_net[1], vp.encoder_net[4]):
+        bn.running_mean.normal_(0.0, 0.1, generator=gb)
+        bn.running_var.uniform_(0.5, 1.5, generator=gb)
+    _, _, m = _alt_runs(
+        "vposert", vp, lambda m, a: dict(zip(("recon", "z"), m(
+            a["x"], eps=a["eps"])[:2])), {"x": xp, "eps": eps}, {},
+        card=dev, gpu=gpu)
+    xb = torch.randn(ALT_VP_BATCH, 196, NF, generator=g).to(dev, bf)
+    with torch.no_grad():
+        timings["vposert"] = _alt_timed(lambda: m(xb))
+    del m, xb
+    frames_c = 2
+    img = torch.randn(ALT_VIT_CLIPS * frames_c, 3, 224, 224, generator=g)
+    img_t = torch.randn(ALT_VIT_CLIPS * ALT_VIT_FRAMES, 3, 224, 224,
+                        generator=g).to(dev, bf)
+    for mode in vit.ST_MODES:
+        _alt_runs(f"vit_base_{mode}", built(
+            vit.vit_base_patch16_224, 71, randomize=False, st_mode=mode,
+            depth=ALT_VIT_COMPARE_DEPTH),
+            lambda m, a: m(a["img"], frames_c), {"img": img}, {}, card=dev,
+            gpu=gpu)
+        with torch.device(dev):  # timed only: weights drawn on the card
+            m = vit.vit_base_patch16_224(st_mode=mode, device=dev).to(bf)
+        with torch.no_grad():
+            timings[f"vit_base_{mode}"] = _alt_timed(
+                lambda: m(img_t, ALT_VIT_FRAMES))
+        del m
+
+    class _Extras(torch.nn.Module):
+        """The extras' blocks in one module: AdaIN and affine instance
+        norm conv blocks, a BatchNorm linear block, an MLP."""
+
+        def __init__(self, device):
+            super().__init__()
+            self.conv_adain = extras.ConvBlock(256, 3, 256, norm="adain")
+            self.conv_in = extras.ConvBlock(256, 4, 128, pad_type="replicate",
+                                            norm="in")
+            self.mlp = extras.MLP((128 * 49, 512, 256), 64)
+            self.lin_bn = extras.LinearBlock(64, 64, norm="bn")
+
+        def forward(self, x, style):
+            mean, std = extras.split_adain_params(style, (256,))[0]
+            h = self.conv_in(self.conv_adain(x, (std, mean)))
+            return self.lin_bn(self.mlp(h[..., :49]))
+
+    xe = torch.randn(64, 256, 196, generator=g)
+    style = torch.randn(64, extras.num_adain_params((256,)), generator=g)
+    _, _, m = _alt_runs(
+        "extras", built(_Extras, 72, randomize=False),
+        lambda m, a: m(a["x"], a["style"]), {"x": xe, "style": style}, {},
+        card=dev, gpu=gpu)
+    xe, style = xe.to(dev, bf), style.to(dev, bf)
+    with torch.no_grad():
+        timings["extras"] = _alt_timed(lambda: m(xe, style))
+    hp = extras.hessian_penalty(lambda z: m.lin_bn(z), torch.randn(
+        64, 64, device=dev, dtype=bf, generator=torch.Generator(
+            device=dev).manual_seed(3)), generator=torch.Generator(
+        device=dev).manual_seed(4))
+    if not bool(torch.isfinite(hp)):
+        fail("alt_models_slice: hessian_penalty is not finite")
+    del m
+    emit({"phase": "alt_models_slice", "check": "timings", "ok": True,
+          "gpu": gpu, "ae_batch": ALT_AE_BATCH, "mdiff_batch":
+          ALT_MDIFF_BATCH, "vq_batch": ALT_VQ_BATCH, "vq_frames":
+          ALT_VQ_FRAMES, "t2m": [ALT_T2M_BATCH, ALT_T2M_FRAMES],
+          "vposert_batch": ALT_VP_BATCH,
+          "vit": [ALT_VIT_CLIPS, ALT_VIT_FRAMES], "timings": timings})
+
+    stamp("plain_models")
+
+    # (6) the kernels at the new shapes, each in turn with its plain version
+    recs = []
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, bf)
+
+    def fp(p):
+        return {k: v.float() for k, v in p.items()}
+
+    def heads(a, H):
+        Bq, S, D = a.shape
+        return a.reshape(Bq, S, H, D // H).transpose(1, 2)
+
+    for (Bk, S, D, H, masked, launches) in (
+            (ALT_AE_BATCH, T + 1, 512, 4, True,
+             enc_t["launches"].get("fused_masked_attention", 0)),
+            (256, 77, 256, 4, False,
+             mdiff_launches.get("fused_masked_attention", 0))):
+        q, k, v = rnd(Bk, S, D), rnd(Bk, S, D), rnd(Bk, S, D)
+        kv = (torch.cat([torch.ones(Bk, 1, dtype=torch.bool),
+                         lengths_to_mask(mixed_lengths(Bk, seed=5), S - 1)],
+                        1).to(dev) if masked else None)
+        keys = int(kv.sum()) if masked else Bk * S
+        bias = kv[:, None, None, :] if masked else None
+        with torch.no_grad():
+            rec = check_kernel(
+                "fused_masked_attention",
+                "ladiff_torch/csrc/masked_attention.cu",
+                "ladiff_tpu/ops/pallas_attention.py:52",
+                lambda: fused_masked_attention(q, k, v, kv, num_heads=H),
+                lambda: masked_attention_plain(q.float(), k.float(),
+                                               v.float(), kv, num_heads=H),
+                lambda: masked_attention_plain(q, k, v, kv, num_heads=H),
+                4 * D * S * keys, nbytes(q, k, v, q)
+                + (kv.numel() if masked else 0),
+                library=lambda: torch.nn.functional
+                .scaled_dot_product_attention(heads(q, H), heads(k, H),
+                                              heads(v, H), attn_mask=bias),
+                rounds=5, extra={"shape": [Bk, S, D], "heads": H,
+                                 "masked": masked,
+                                 "path": ("MotionCLIP encoder" if masked
+                                          else "MotionDiffuse text layers")})
+        rec["launches"] = launches
+        recs.append(rec)
+    W, Fc, M = 512, 2048, 8192
+    layer = randomize_(CLIPTextLayer(W, 8), 73).to(dev, bf)
+    p3, p4 = layer.qkv_params(), layer.mlp_params()
+    sc = 1.0 / math.sqrt(W // 8)
+    x3, att = rnd(M, W), rnd(M, W)
+    geo = {name: cl_ops.clip_gemm_geometry(
+        M, n, kk, mats=mats, slots=cl_ops.gemm_cluster_slots(dev))
+        for name, n, kk, mats in (("qkv", W, W, 3), ("wo", W, W, 1),
+                                  ("fc1", Fc, W, 1), ("fc2", W, Fc, 1))}
+    with torch.no_grad():
+        for name, run, plain32, plain, fl, nb in (
+                ("fused_ln_qkv", lambda: cl_ops.fused_ln_qkv(x3, p3, scale=sc),
+                 lambda: cl_ops.ln_qkv_plain(x3.float(), fp(p3), scale=sc),
+                 lambda: cl_ops.ln_qkv_plain(x3, p3, scale=sc),
+                 6 * M * W * W, nbytes(x3, *p3.values(), x3, x3, x3)),
+                ("fused_proj_mlp", lambda: cl_ops.fused_proj_mlp(att, x3, p4),
+                 lambda: cl_ops.proj_mlp_plain(att.float(), x3.float(),
+                                               fp(p4)),
+                 lambda: cl_ops.proj_mlp_plain(att, x3, p4),
+                 2 * M * W * W + 4 * M * W * Fc,
+                 nbytes(att, x3, *p4.values(), x3))):
+            rec = check_kernel(
+                name, "ladiff_torch/csrc/clip_layer.cu",
+                "ladiff_tpu/ops/pallas_clip_layer.py:"
+                + ("65" if name == "fused_ln_qkv" else "113"),
+                run, plain32, plain, fl, nb, rounds=5,
+                extra={"rows": M, "width": W, "path": "MotionCLIP text "
+                       "tower, 256 captions x 32 tokens",
+                       "gemm_geometry": geo})
+            rec["launches"] = clip_bench_launches.get(name, 0)
+            recs.append(rec)
+        # ragged row counts: a partial last 128-row tile and a pair with
+        # one tile
+        ragged = {}
+        for rows in (48, 3 * 77, 4 * 77 + 5):
+            xr, ar = rnd(rows, W), rnd(rows, W)
+            ragged[rows] = {
+                "fused_ln_qkv": compare(
+                    f"fused_ln_qkv, {rows} rows, width 512",
+                    cl_ops.fused_ln_qkv(xr, p3, scale=sc),
+                    cl_ops.ln_qkv_plain(xr.float(), fp(p3), scale=sc),
+                    KERNEL_TOL)[0],
+                "fused_proj_mlp": compare(
+                    f"fused_proj_mlp, {rows} rows, width 512",
+                    cl_ops.fused_proj_mlp(ar, xr, p4),
+                    cl_ops.proj_mlp_plain(ar.float(), xr.float(), fp(p4)),
+                    KERNEL_TOL)[0]}
+    emit({"phase": "alt_models_slice", "check": "clip_width_512_ragged",
+          "ok": True, "rel_err": ragged, "tol": KERNEL_TOL})
+    stamp("kernel_rows")
+    emit({"phase": "alt_models_slice", "check": "phase_parts", "ok": True,
+          "seconds": parts})
+    seconds = time.perf_counter() - t_phase
+    print(f"# alt_models_slice on {gpu}: {seconds:.1f} s; MotionCLIP bench "
+          f"{timings['motionclip_generate_bench']['samples_per_sec']:.1f} "
+          f"samples/s (idle share "
+          f"{timings['motionclip_generate_bench']['idle_share']:.3f}); "
+          f"autoencode of {ALT_AE_BATCH} x 196: "
+          f"{timings['motionclip_autoencode']['ms']:.2f} ms", flush=True)
+    return recs
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser()
@@ -6629,7 +7298,8 @@ def main():
                 else (gpu,) if name in ("eval_entry", "novae_bench",
                                         "ar_bench", "distill_bench",
                                         "action_bench", "ablation_bench",
-                                        "parallel_slice", "offline_slice")
+                                        "parallel_slice", "offline_slice",
+                                        "alt_models_slice")
                 else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)
@@ -6684,6 +7354,11 @@ def main():
     # whole-layer route (kernel 13), its stage-2 step (kernel 10) and the
     # TEST_EFFICIENCY generation (K2 without the memory mask)
     recs += out["ablation_bench"]
+    # kernel 10 on MotionCLIP's encoder and MotionDiffuse's text layers, K3
+    # and K4 at width 512 (MotionCLIP's text tower), with the launches of
+    # the alternate models' runs: an encode, a MotionDiffuse call, a bench
+    # batch
+    recs += out["alt_models_slice"]
     for rec in recs:
         if rec["launches"] <= 0:
             fail(f"{rec['name']} was not launched on the main path")

@@ -25,6 +25,25 @@ the same weights.
                                                          FLAME)
     gmm_prior_from_jax(prior)                         -> MaxMixturePrior
 
+The alternate models, each from its JAX params (the reference torch names
+where the JAX package has a torch converter for the model, the JAX
+module's names in torch form otherwise):
+
+    motionclip_state_dict(params)                     -> MotionClip (or
+                                                         either tower)
+    motion_transformer_state_dict(params)             -> MotionTransformer
+    distilbert_state_dict(tower_params)               -> DistilBertTower
+    vq_state_dict(params)                             -> VQVae, HumanVQDiff
+    mld_vae_t2m_state_dict(params)                    -> MldVaeT2m
+    vposert_state_dict(params, batch_stats)           -> VPosert
+    vit_state_dict(params)                            -> VisionTransformer
+    extras_state_dict(params, batch_stats)            -> LinearBlock,
+                                                         ConvBlock, MLP
+
+A flax 1-D conv kernel [k, in, out] reversed is ``Conv1d``'s [out, in, k],
+so ``flax_state_dict``'s transpose serves it; the ViT's patch conv goes
+from HWIO to OIHW.
+
 The LA-VAE's ablation variants need no rule of their own: ``dist_layer``
 (``MLP_DIST``), a ``global_motion_token`` of ``2 * n_lat`` or
 ``latent_dim[0]`` rows, pre-norm stacks and the all-encoder decoder (a
@@ -40,7 +59,7 @@ name.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,7 +67,10 @@ import torch
 __all__ = ["system_state_dict", "clip_state_dict", "flax_state_dict",
            "evaluator_state_dict", "actor_vae_state_dict",
            "gru_classifier_state_dict", "stgcn_state_dict",
-           "body_model_from_jax", "gmm_prior_from_jax"]
+           "body_model_from_jax", "gmm_prior_from_jax",
+           "motionclip_state_dict", "motion_transformer_state_dict",
+           "distilbert_state_dict", "vq_state_dict", "mld_vae_t2m_state_dict",
+           "vposert_state_dict", "vit_state_dict", "extras_state_dict"]
 
 # flax submodule names "input_blocks_0" / "emb_layers_1" -> torch "input_blocks.0"
 _INDEXED = re.compile(
@@ -272,3 +294,189 @@ def gmm_prior_from_jax(prior):
     return MaxMixturePrior(np.asarray(prior.means),
                            np.asarray(prior.precisions),
                            np.asarray(prior.log_nll_weights))
+
+
+# -- the alternate models ----------------------------------------------------
+
+def _grouped(tree: Mapping[str, Any], renames: Mapping[str, str]
+             ) -> Dict[str, Any]:
+    """``tree`` with each key ``name_{i}`` of ``renames`` moved to
+    ``renames[name]`` (a dotted path) under index ``i``, other keys as
+    they are, for ``flax_state_dict``."""
+    out: Dict[str, Any] = {}
+    for key, v in tree.items():
+        name, _, i = key.rpartition("_")
+        if name in renames and i.isdigit():
+            node = out
+            for part in renames[name].split("."):
+                node = node.setdefault(part, {})
+            node[i] = v
+        else:
+            out[key] = v
+    return out
+
+
+def motionclip_state_dict(params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """The JAX ``MotionClip`` params ({"encoder", "decoder"}), or one
+    tower's (``MotionClipMotionEncoder`` / ``Decoder``) -> the port's
+    state dict: ``layers_{i}`` become ``layers.{i}``."""
+    towers = ({k: params[k] for k in ("encoder", "decoder")}
+              if "encoder" in params else {"": params})
+    out: Dict[str, torch.Tensor] = {}
+    for name, tree in towers.items():
+        flax_state_dict(_grouped(tree, {"layers": "layers"}),
+                        f"{name}." if name else "", out)
+    return out
+
+
+def motion_transformer_state_dict(params: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``MotionTransformer`` params -> the reference torch
+    MotionTransformer's names (the inverse of the JAX package's
+    ``convert_torch_motion_transformer``)."""
+    tree = _grouped(params, {"text_enc": "textTransEncoder.layers",
+                             "block": "temporal_decoder_blocks"})
+    tree["text_proj"] = {"0": tree["text_proj"]}
+    tree["time_embed"] = {"0": tree.pop("time_embed_1"),
+                          "2": tree.pop("time_embed_2")}
+    return flax_state_dict(tree)
+
+
+def distilbert_state_dict(params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """The JAX ``DistilBertTower`` params -> HF ``DistilBertModel``'s names
+    (the inverse of ``load_torch_distilbert_state``)."""
+    tree = {"embeddings": {
+        "word_embeddings": {"weight": params["word_embeddings"]["embedding"]},
+        "position_embeddings": {
+            "weight": params["position_embeddings"]["embedding"]},
+        "LayerNorm": params["emb_layer_norm"]}}
+    layers = tree.setdefault("transformer", {}).setdefault("layer", {})
+    i = 0
+    while f"layer_{i}" in params:
+        p = params[f"layer_{i}"]
+        layers[str(i)] = {
+            "attention": {k: p[k] for k in ("q_lin", "k_lin", "v_lin",
+                                            "out_lin")},
+            "sa_layer_norm": p["sa_layer_norm"],
+            "ffn": {"lin1": p["lin1"], "lin2": p["lin2"]},
+            "output_layer_norm": p["output_layer_norm"]}
+        i += 1
+    return flax_state_dict(tree)
+
+
+def _encdec_tree(tree: Mapping[str, Any], kind: str) -> Dict[str, Any]:
+    """A JAX ``Encoder1D`` / ``Decoder1D`` tree in the reference's
+    ``nn.Sequential`` slots."""
+    n = sum(1 for k in tree if k.startswith("res_"))
+
+    def res(i):  # Resnet1D: block_{j} -> model.{j}
+        return {"model": {k.split("_")[1]: v
+                          for k, v in tree[f"res_{i}"].items()}}
+
+    slots = {"0": tree["in_conv"]}
+    for i in range(n):
+        slots[str(2 + i)] = ({"0": tree[f"down_{i}"], "1": res(i)}
+                             if kind == "encoder" else
+                             {"0": res(i), "2": tree[f"up_{i}"]})
+    if kind == "encoder":
+        slots[str(2 + n)] = tree["out_conv"]
+    else:
+        slots[str(2 + n)] = tree["mid_conv"]
+        slots[str(4 + n)] = tree["out_conv"]
+    return {"model": slots}
+
+
+def vq_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``VQVae`` params (or ``HumanVQDiff``'s, under ``vqvae``) ->
+    the port's state dict: the conv stacks in the reference's slots, the
+    learned ``codebook`` of the ``orig`` quantizer as it is."""
+    if "vqvae" in params:
+        return {f"vqvae.{k}": v
+                for k, v in vq_state_dict(params["vqvae"]).items()}
+    out = mld_vae_t2m_state_dict(params)
+    if "codebook" in params:
+        out["codebook"] = _t(params["codebook"])
+    return out
+
+
+def mld_vae_t2m_state_dict(params: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX ``MldVaeT2m`` params -> the reference MldVae's names (the
+    inverse of ``convert_torch_mld_vae_t2m``)."""
+    return flax_state_dict({k: _encdec_tree(params[k], k)
+                            for k in ("encoder", "decoder")})
+
+
+def _batch_norm(p: Mapping[str, Any], stats: Mapping[str, Any]):
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"]),
+            "running_mean": _t(stats["mean"]),
+            "running_var": _t(stats["var"]),
+            "num_batches_tracked": torch.zeros((), dtype=torch.long)}
+
+
+def vposert_state_dict(params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """The JAX ``VPosert`` params and ``batch_stats`` -> the reference's
+    ``encoder_net`` / ``decoder_net`` slots (the inverse of
+    ``convert_torch_vposert``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, slot in (("enc_bn_in", "encoder_net.1"),
+                       ("enc_bn_mid", "encoder_net.4")):
+        for k, v in _batch_norm(params[name], batch_stats[name]).items():
+            out[f"{slot}.{k}"] = v
+    for name, slot in (("enc_fc1", "encoder_net.2"),
+                       ("enc_fc2", "encoder_net.6"),
+                       ("enc_fc3", "encoder_net.7"),
+                       ("mu", "encoder_net.8.mu"),
+                       ("logvar", "encoder_net.8.logvar"),
+                       ("dec_fc1", "decoder_net.0"),
+                       ("dec_fc2", "decoder_net.3"),
+                       ("dec_out", "decoder_net.5")):
+        flax_state_dict(params[name], slot + ".", out)
+    return out
+
+
+def vit_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``VisionTransformer`` params -> timm's names (the inverse of
+    ``convert_torch_vit``): HWIO convolutions to OIHW; a hybrid stage's
+    ``patch_embed.proj`` likewise.  A hybrid backbone's params
+    (``hybrid_backbone``, the caller's module) are the caller's to carry
+    to ``patch_embed.backbone``."""
+    tree = _grouped({k: v for k, v in params.items()
+                     if k not in ("patch_embed", "hybrid_backbone")},
+                    {"blocks": "blocks"})
+    if "pre_logits_fc" in tree:
+        tree["pre_logits"] = {"fc": tree.pop("pre_logits_fc")}
+    out = flax_state_dict(tree)
+    proj = params["patch_embed"]["proj"]
+    k = np.asarray(proj["kernel"], np.float32).transpose(3, 2, 0, 1)
+    out["patch_embed.proj.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+    out["patch_embed.proj.bias"] = _t(proj["bias"])
+    return out
+
+
+def extras_state_dict(params: Mapping[str, Any],
+                      batch_stats: Optional[Mapping[str, Any]] = None,
+                      prefix: str = "", out=None) -> Dict[str, torch.Tensor]:
+    """The JAX ``LinearBlock`` / ``ConvBlock`` / ``MLP`` params (and the
+    BatchNorms' ``batch_stats``) -> the port's names: an MLP's ``block_{i}``
+    become ``block.{i}``, a BatchNorm its weight, bias and running
+    statistics."""
+    out = {} if out is None else out
+    batch_stats = batch_stats or {}
+    for name, v in params.items():
+        block, _, i = name.rpartition("_")
+        if name == "out" or (block == "block" and i.isdigit()):
+            sub = "out." if name == "out" else f"block.{i}."
+            extras_state_dict(v, batch_stats.get(name), prefix + sub, out)
+        elif name in batch_stats:
+            for k, t in _batch_norm(v, batch_stats[name]).items():
+                out[f"{prefix}{name}.{k}"] = t
+        elif isinstance(v, Mapping):
+            flax_state_dict(v, f"{prefix}{name}.", out)
+        else:
+            out[prefix + name] = _t(v)
+    return out

@@ -300,7 +300,11 @@ class ClipTextEncoder:
     Pooled mode runs the batch at the smallest context bucket that covers
     its longest caption: with causal attention and EOT pooling the pooled
     feature does not depend on trailing padding.  ``last_hidden_state`` mode
-    keeps the full context."""
+    keeps the full context.  A subclass sets another tower geometry
+    (``tower_geometry``, ``CLIPTextTower``'s keywords) and feature width."""
+
+    tower_geometry: Dict[str, int] = {}
+    text_encoded_dim = 768
 
     def __init__(self, modelpath: Optional[str] = None,
                  last_hidden_state: bool = False, device=None,
@@ -309,7 +313,6 @@ class ClipTextEncoder:
         self.device = resolve_device(device)
         dtype = resolve_dtype(self.device, dtype)
         self.last_hidden_state = last_hidden_state
-        self.text_encoded_dim = 768
         if modelpath and os.path.exists(os.path.join(modelpath, "vocab.json")):
             self.tokenizer = BPETokenizer(modelpath)
         else:
@@ -319,14 +322,18 @@ class ClipTextEncoder:
                                      if 0 < int(b) <= full} | {full}))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.tower = CLIPTextTower()
+            self.tower = CLIPTextTower(**self.tower_geometry)
         if modelpath:
-            state = _load_hf_state(modelpath)
-            if state is not None:
-                own = self.tower.state_dict()
-                self.tower.load_state_dict(
-                    {k: v for k, v in state.items() if k in own})
+            self._load(modelpath)
         self.tower.to(device=self.device, dtype=dtype).eval()
+
+    def _load(self, modelpath: str) -> None:
+        """The tower's keys of a local HF checkpoint, where there is one."""
+        state = _load_hf_state(modelpath)
+        if state is not None:
+            own = self.tower.state_dict()
+            self.tower.load_state_dict(
+                {k: v for k, v in state.items() if k in own})
 
     @torch.no_grad()
     def encode_ids(self, input_ids: torch.Tensor) -> torch.Tensor:

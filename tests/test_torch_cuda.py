@@ -2045,3 +2045,83 @@ def test_smplh_on_the_card_matches_the_cpu(dev, jointstype):
                        device=d)(data, jointstype) for d in (dev, "cpu"))
     assert got.shape == want.shape
     assert _relerr(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-5
+
+
+# -- the alternate models ----------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [48, 231, 1000])
+@torch.no_grad()
+def test_clip_kernels_at_width_512(dev, rows):
+    """K3 and K4 at MotionCLIP's ViT-B/32 text width (512, 8 heads, MLP
+    2048: q / k / v of N 512 each, fc1 N 2048, fc2 K 2048) on ragged row
+    counts against their plain versions."""
+    from ladiff_torch.models.clip_text import CLIPTextLayer
+    from ladiff_torch.ops import clip_layer as cl
+    layer = _randomize(CLIPTextLayer(512, 8), 31).to(dev, torch.bfloat16)
+    p3, p4 = layer.qkv_params(), layer.mlp_params()
+    x, att = _bf(dev, rows, 512, seed=32), _bf(dev, rows, 512, seed=33)
+    sc = 1.0 / math.sqrt(64)
+    for got, want in zip(cl.fused_ln_qkv(x, p3, scale=sc),
+                         cl.ln_qkv_plain(x.float(), _f32(p3), scale=sc)):
+        assert _relerr(got, want) <= TOL
+    assert _relerr(cl.fused_proj_mlp(att, x, p4),
+                   cl.proj_mlp_plain(att.float(), x.float(), _f32(p4))) <= TOL
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_motionclip_encoder_kernel_route_matches_plain(dev):
+    """MotionCLIP's motion encoder at its published width (latent 512, 8
+    layers, 4 heads: head width 128) in bf16 over 4 x 196 frames: its
+    kernel-10 route (8 launches) against its plain route (a
+    ``plain_routes()`` scope, no launch)."""
+    from ladiff_torch.models.motionclip import MotionClipMotionEncoder
+    from ladiff_torch.ops import cuda_common as cc
+    enc = _randomize(MotionClipMotionEncoder(263, dropout=0.0, device="cpu"),
+                     34).to(dev, torch.bfloat16).eval()
+    feats = _bf(dev, 4, 196, 263, seed=35)
+    lengths = torch.tensor([16, 60, 123, 196], device=dev)
+    cc.reset_launch_counts()
+    got = enc(feats, lengths)
+    assert cc.launch_counts()["fused_masked_attention"] == 8
+    with cc.plain_routes():
+        cc.reset_launch_counts()
+        want = enc(feats, lengths)
+        assert not any(cc.launch_counts().values())
+    assert _relerr(got.float(), want.float()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["motion_transformer", "human_vq_diff"])
+@torch.no_grad()
+def test_alt_model_float32_on_the_card_matches_the_cpu(dev, model):
+    """One float32 forward (TF32 off) of ``MotionTransformer`` (defaults,
+    both text and motion, 2 x 60 frames) or ``HumanVQDiff`` (``orig``,
+    2 x 64 frames; the codes exactly) on the card against the CPU within
+    1e-4, norm-wise, with no kernel launch."""
+    from ladiff_torch.models.mdiff import MotionTransformer
+    from ladiff_torch.models.vq import HumanVQDiff
+    from ladiff_torch.ops import cuda_common as cc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(36)
+    if model == "motion_transformer":
+        m = _randomize(MotionTransformer(263, device="cpu"), 37)
+        args = (torch.randn(2, 60, 263, generator=g), torch.tensor([5, 900]),
+                torch.tensor([60, 31]))
+        kw = {"clip_tokens": torch.randn(2, 77, 512, generator=g),
+              "eot_idx": torch.tensor([9, 40])}
+    else:
+        torch.manual_seed(38)
+        m = HumanVQDiff(device="cpu")
+        args, kw = (torch.randn(2, 64, 263, generator=g),), {}
+    want = m.eval()(*args, **kw)
+    cc.reset_launch_counts()
+    got = m.to(dev)(*[a.to(dev) for a in args],
+                    **{k: v.to(dev) for k, v in kw.items()})
+    assert not any(cc.launch_counts().values())
+    if model == "human_vq_diff":
+        assert torch.equal(got[3].cpu(), want[3])
+        got, want = got[0], want[0]
+    assert _relerr(got.cpu(), want) <= 1e-4
