@@ -37,6 +37,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
             time, a yardstick the port never calls), each GEMM's products
             alone (the probe epilogue, which stores nothing) and each GEMM
             at each tile width of the GEMM block.
+   kernels_f32  the float32 K1, K2, kernels 5 and 10 (the chains of
+            ``csrc/f32_layer.cu``, the published configurations' type)
+            against their float32 plain versions, TF32 off, each case
+            within ``F32_KERNEL_TOL`` norm-wise: the published float32
+            paths' shapes, mixed lengths, partial row blocks, 7 latent
+            rows, L 1 and 7, a sample without a valid key, head width 128;
+            each timed at its path's shape beside its plain version, its
+            bound and the library call (``nn.TransformerDecoderLayer``,
+            SDPA), and each chain's launches one by one.
 3. slice    ``LADiffSystem.generate`` at batch 4 with mixed lengths on the
             card (kernels, bf16) against the CPU (plain versions, float32),
             same weights, same initial noise.
@@ -76,7 +85,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
             .yaml``: no VAE, the plain 9-layer skip denoiser at d 512 over
             198 tokens) at full width, batch 4, lengths 16/60/123/196, CFG
             DDPM over 10 steps of the 1000-step grid with every step's
-            noise handed in: float32 card against float32 CPU (no launch),
+            noise handed in: float32 card (the float32 kernel 10) against
+            float32 CPU,
             bf16 card against it beside the plain bf16 CPU control, kernel
             10 exactly 9 times a step and nothing else.
    novae_bench  the same configuration in bf16 at its ``TEST.BATCH_SIZE``
@@ -181,24 +191,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
             CPU's); the novae configuration as published (float32) for 3
             steps with no launch.
 15. float32_entry  the published configurations unmodified (float32
-            compute: every module's plain route): stage 1 through
+            compute: the float32 K1, K2, kernels 5 and 10 at inference,
+            the plain route of every other module): stage 1 through
             ``run_training`` for 2 epochs x 3 steps with no kernel launch,
-            its loss on one batch against the CPU's, float32 ms per step
-            beside the bf16 route's; stage 2 booting from it for 3 steps.
+            its loss on one batch and its validation pass (kernels 10, 5,
+            K2) against the CPU's, float32 ms per step beside the bf16
+            route's; stage 2 booting from it for 3 steps (the frozen
+            encode's kernels 10 and 5 each step); a float32 generation
+            batch through the kernels beside ``plain_routes()``.
 16. eval_entry  the T2M evaluation protocol (``ladiff_torch.test``
             ``run_test``) at the published stage-2 configuration from a
             saved random checkpoint, with random CLIP and evaluators, on 512
             synthetic clips: (a) float32 as published, card against CPU,
-            no kernel launch, metrics compared; (b) bf16, stage
+            the float32 K1 and K2 per eval batch, metrics compared, an eval
+            batch again through the kernels and under ``plain_routes()``;
+            (b) bf16, stage
             ``diffusion``, launches per eval batch and per CLIP call
             (``EXPECTED_EVAL_*``), embeddings against (a); (c) bf16, stage
             ``vae``, launches per eval batch; (d) the novae configuration
             as published (float32), one replication at 50 DDPM steps (1000
-            published), no launch.  Seconds per eval batch, per
+            published), kernel 10 in float32 every step.  Seconds per
+            eval batch, per
             replication and per MultiModality pass.
 17. kit_slice  the KIT-ML configuration (``config_ladiff_kit.yaml``, 251
             features, 21 joints) at full width: generation at batch 4
-            (float32 card against CPU with no launch, bf16 beside the
+            (float32 card against CPU through the float32 K1 and K2, bf16
+            beside the
             plain bf16 control), a stage-1 and a stage-2 pass against the
             CPU, one bench batch of 256 with ``EXPECTED_PER_BATCH``.
 18. ar_slice  ``ARDIFF`` generation at batch 4, "last" and "full", each
@@ -218,7 +236,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
             the 6-layer ActorVae, the 15-layer plain denoiser, the synthetic
             SMPL body and HumanAct12 data) at full width, batch 4:
             generation from action tokens (CFG DDIM-10: float32 card
-            against CPU with no launch, bf16 beside the plain bf16 control,
+            against CPU through the float32 kernel 5 and K2, bf16 beside
+            the plain bf16 control,
             exact launches), a stage-1 pass with the SMPL-vertex loss on
             the split and the whole-layer routes and a stage-2 pass held to
             the control with exact launches (``EXPECTED_ACTION_*``), a
@@ -256,7 +275,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
             then the bench protocol), MotionDiffuse in both flavours,
             DistilBERT with the full-context generation, and the plain
             models (the VQ stack, MldVaeT2m, VPosert, the MAED ViT, the
-            extras): float32 on the card against the CPU with no launch,
+            extras): float32 on the card against the CPU (the float32
+            kernels' share of the bf16 launches; the plain models none),
             bf16 beside the plain bf16 CPU control, launches exactly
             ``EXPECTED_ALT_*``, each timed; kernel 10 and K3 / K4 at the
             shapes these models give them.  One ``{"phase":
@@ -287,11 +307,19 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
+# float32-accurate products: three-term TF32 on the tensor cores, a third of
+# the 495 TFLOP/s TF32 rate (the FFMA pipes' 67 TFLOP/s bound the float32
+# kernels' present SIMT design)
+PEAK_F32_FLOPS = 165e12
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # norm-wise relative error of a bf16 kernel against its float32 plain
 # version: bf16 operands carry 8 mantissa bits (2^-9 ~ 2e-3 rounding each),
 # and a layer chains ~6 rounded products, LayerNorms and softmaxes
 KERNEL_TOL = 2e-2
+# the float32 kernels (K1, K2, kernels 5 and 10) against their float32 plain
+# versions on the card, TF32 off: float32 operands and accumulators on both
+# sides, sums in another order (~1e-6 a product, a layer chains ~10)
+F32_KERNEL_TOL = 5e-5
 # gradients of a bf16 kernel against the float32 plain backward: a weight
 # gradient sums ~26 k rows of products of two bf16-rounded factors (da and
 # h, dy and gd, dqkv and x), each rounding random in sign, accumulated in
@@ -420,8 +448,9 @@ EXPECTED_NOVAE_PER_STEP = {"fused_masked_attention": 9}
 EXPECTED_NOVAE_PER_BATCH = {"fused_masked_attention": 9000}
 NOVAE_PATH = ("novae denoiser self-attention, 64 x 198 tokens, D 512, "
               "H 4 (head width 128), no mask")
-# the demo's other options on the published stage-2 configuration (bf16 on
-# the card): every decode is the 9 decoder layers as K2; the
+# the demo's other options on the published stage-2 configuration (float32
+# on the card, as published; bf16 launches the same): every decode is the 9
+# decoder layers as K2; the
 # reconstruction's encode runs the 9 encoder layers (kernel 10, kernel 5);
 # a decode that returns the cross-attention weights runs per block
 # (kernel 10 the self-attention, kernel 5 the tail, the plain
@@ -435,7 +464,8 @@ EXPECTED_DEMO = {
     "decode_with_weights": {"fused_masked_attention": 9,
                             "fused_postnorm_ffn": 9}}
 # the phases in the order they run, each with whether autograd records
-PHASES = (("kernels", False), ("slice", False), ("bench", False),
+PHASES = (("kernels", False), ("kernels_f32", False), ("slice", False),
+          ("bench", False),
           ("route_kernels", False), ("route_slice", False),
           ("route_bench", False), ("novae_slice", False),
           ("novae_bench", False), ("train_kernels", False),
@@ -572,8 +602,8 @@ def launch_breakdown(fn, reps: int = 10):
     return sorted(rows, key=lambda r: -r["ms"])
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -704,7 +734,8 @@ def compare(name, got, want, tol):
 
 def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
                  run_plain, flops, nb, library=None, tol=None,
-                 run_timed=None, extra=None, rounds=0):
+                 run_timed=None, extra=None, rounds=0,
+                 peak=PEAK_BF16_FLOPS):
     """Kernel vs its plain version (float32, same bf16 inputs): error,
     times, bound.  ``run_timed`` is what is timed where it differs from
     what is compared.  ``rounds`` > 0 times the kernel, its plain version
@@ -724,7 +755,7 @@ def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
         meds, reads = [device_ms(fn) for fn in timed], None
     ms, plain_ms = meds[:2]
     lib_ms = meds[2] if library is not None else None
-    b_ms, b_by = bound(flops, nb)
+    b_ms, b_by = bound(flops, nb, peak)
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": 0, "max_abs_err": max_abs,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -925,6 +956,256 @@ def phase_kernels(dev):
         2 * M * W * W + 4 * M * W * Fc, nbytes(att, x3, *p4.values(), x3)))
     del att
     _clip_rows(dev, cl, rnd, f32, B, sc)
+    return recs
+
+
+# the float32 kernels' records in the ``kernels`` line, by wrapper: the
+# path whose float32 run gives its launches
+F32_PATHS = {
+    "fused_md_layer": "published test.py eval batch (float32 card run of "
+                      "eval_entry): CFG DDIM-50, 64 x 5 latent rows",
+    "fused_decoder_layer": "published test.py eval batch (float32 card run "
+                           "of eval_entry): decode, 32 x 196 frames, L 5",
+    "fused_postnorm_ffn": "published stage 2's frozen encode (float32_entry "
+                          "stage-2 run): VAE encoder tail, GELU, 128 x 206 "
+                          "rows",
+    "fused_masked_attention": "published stage 2's frozen encode "
+                              "(float32_entry stage-2 run): 128 x 206 "
+                              "tokens, head width 64"}
+
+
+def phase_kernels_f32(dev):
+    """The float32 kernels (K1, K2, kernels 5 and 10: the chains of
+    ``csrc/f32_layer.cu`` behind the four wrappers) against their float32
+    plain versions on the card, TF32 off, every case within
+    ``F32_KERNEL_TOL`` norm-wise: the published float32 paths' shapes
+    (the test.py eval batch: 64 x 5 latent rows, 32 x 196 frames over 5
+    memory rows; the stage-2 encode: 128 x 206 rows and tokens), mixed
+    lengths 16..196 with 1 to 5 valid latents, partial row blocks, 7 latent
+    rows, L 1 and L 7, one AdaLN row shared or per sample, a sample without
+    a valid key, head widths 64 and 128.  Each kernel timed at its path's
+    shape beside its plain version (``interleaved_ms``), its bound (4 bytes
+    an element at 3.35 TB/s against the FLOPs at ``PEAK_F32_FLOPS``) and,
+    where one PyTorch call computes the same function, that call in float32
+    (``nn.TransformerDecoderLayer`` for K2, SDPA for kernel 10); each
+    chain's launches one by one.  Returns the four records of the
+    ``kernels`` line; ``main`` sets their launches from the float32
+    paths."""
+    import torch
+    import torch.nn.functional as F_
+    from ladiff_torch import launch_tables as lt
+    from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
+                                                   masked_attention_plain)
+    from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
+                                                fused_decoder_layer)
+    from ladiff_torch.ops.f32_layer import CHAIN_LAUNCHES
+    from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_plain
+    from ladiff_torch.ops.postnorm_ffn import (fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    from ladiff_torch.ops.stylization import MDTransformerLayer
+    from ladiff_torch.ops.transformer import (TransformerDecoderLayer,
+                                              TransformerEncoderLayer)
+    from ladiff_torch.utils.masks import latent_valid_mask, lengths_to_mask
+
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(21)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, f32)
+
+    D, H, F = 256, 4, 1024
+    src = "ladiff_torch/csrc/f32_layer.cu"
+    tol = F32_KERNEL_TOL
+    recs, errs, chains = [], {}, {}
+    t0 = time.perf_counter()
+
+    def held(name, got, want):
+        errs[name] = compare(name, got, want, tol)[0]
+
+    def path(wrapper, what):
+        return {"path": F32_PATHS[wrapper], "timed_shape": what,
+                "chain_launches": CHAIN_LAUNCHES[wrapper]}
+
+    # K1: samples of T latent rows (1 to T valid) and 2 extra rows
+    md = randomize_(MDTransformerLayer(D, D, F, H), 31).to(dev, f32)
+    p1 = md.kernel_params()
+
+    def md_args(n, T, ss_rows, seed, empty=False):
+        lens = mixed_lengths(n, seed=seed)
+        kv = latent_valid_mask(lens, 48 if T == 5 else 28, T)
+        if empty:
+            kv[0] = False
+        return (rnd(n * T, D), rnd(n * 2, D),
+                kv.reshape(n * T).float().to(dev), rnd(n, D),
+                rnd(ss_rows, 2 * D, scale=0.3),
+                rnd(ss_rows, 2 * D, scale=0.3))
+
+    for case, n, T, ss_rows, empty in (
+            ("512 x 5 rows (bench batch), shared AdaLN row", 512, 5, 1,
+             False),
+            ("128 x 5 rows, AdaLN row per sample", 128, 5, 128, False),
+            ("13 x 7 rows (7 latent rows), AdaLN row per sample, a sample "
+             "without a valid latent", 13, 7, 13, True),
+            ("1 x 5 rows", 1, 5, 1, False)):
+        a = md_args(n, T, ss_rows, 40 + n, empty)
+        held(f"fused_md_layer float32, {case}",
+             fused_md_layer(*a, p1, T=T, E=2, H=H),
+             md_layer_plain(*a, p1, T=T, E=2, H=H))
+    n, T, E = 64, 5, 2
+    a1 = md_args(n, T, 1, 7)
+    fl1 = 2 * n * T * D * (3 * D + 3 * D + 2 * F) + 2 * n * E * D * 2 * D \
+        + 4 * T * D * (int(a1[2].sum()) + n * E) + 2 * n * T * 2 * F * D
+    rec = check_kernel(
+        "fused_md_layer (float32)", src,
+        "ladiff_tpu/ops/pallas_md_layer.py:198",
+        lambda: fused_md_layer(*a1, p1, T=T, E=E, H=H),
+        lambda: md_layer_plain(*a1, p1, T=T, E=E, H=H),
+        lambda: md_layer_plain(*a1, p1, T=T, E=E, H=H),
+        fl1, nbytes(*a1, *p1.values(), a1[0]), tol=tol, rounds=3,
+        peak=PEAK_F32_FLOPS,
+        extra=path("fused_md_layer", "64 x 5 latent rows, 2 extra rows, "
+                   "shared AdaLN row"))
+    recs.append(rec)
+    chains["fused_md_layer"] = launch_breakdown(
+        lambda: fused_md_layer(*a1, p1, T=T, E=E, H=H))
+    del a1
+
+    # K2: samples of T frames over L latent memory rows
+    dl = randomize_(TransformerDecoderLayer(D, H, F, "gelu"), 32).to(dev, f32)
+    p2 = dl.kernel_params()
+
+    def dec_args(n, T, L, seed):
+        lens = mixed_lengths(n, lo=min(16, T), hi=T, seed=seed)
+        mv = (latent_valid_mask(lens, 48 if L <= 5 else 28, L) if L > 1
+              else torch.ones(n, 1, dtype=torch.bool))
+        return (rnd(n * T, D), lengths_to_mask(lens, T).reshape(-1).float()
+                .to(dev), rnd(n, L, D), mv.float().to(dev))
+
+    for case, n, T, L in (("3 x 40 frames, L 5 (partial row blocks)", 3, 40,
+                           5),
+                          ("8 x 60 frames, L 1", 8, 60, 1),
+                          ("16 x 196 frames, L 7", 16, 196, 7),
+                          ("64 x 196 frames, L 5", 64, 196, 5)):
+        a = dec_args(n, T, L, 50 + n)
+        held(f"fused_decoder_layer float32, {case}",
+             fused_decoder_layer(*a, p2, T=T, H=H),
+             decoder_layer_plain(*a, p2, T=T, H=H))
+    n, T, L = 32, 196, 5
+    a2 = dec_args(n, T, L, 8)
+    fv, mv = a2[1].reshape(n, T) > 0.5, a2[3] > 0.5
+    lib = torch.nn.TransformerDecoderLayer(
+        D, H, F, dropout=0.0, activation="gelu", batch_first=True,
+        norm_first=False).to(dev, f32).eval()
+    lib.load_state_dict(dl.state_dict())
+    x2b = a2[0].reshape(n, T, D)
+
+    def library_k2():
+        return lib(x2b, a2[2], tgt_key_padding_mask=~fv,
+                   memory_key_padding_mask=~mv)
+
+    fl2 = 2 * n * T * D * (3 * D + 3 * D + 2 * F) + 2 * n * L * D * 2 * D \
+        + 4 * T * D * (int(fv.sum()) + int(mv.sum()))
+    recs.append(check_kernel(
+        "fused_decoder_layer (float32)", src,
+        "ladiff_tpu/ops/pallas_decoder_layer.py:234",
+        lambda: fused_decoder_layer(*a2, p2, T=T, H=H),
+        lambda: decoder_layer_plain(*a2, p2, T=T, H=H),
+        lambda: decoder_layer_plain(*a2, p2, T=T, H=H),
+        fl2, nbytes(*a2, *p2.values(), a2[0]), library=library_k2, tol=tol,
+        rounds=3, peak=PEAK_F32_FLOPS,
+        extra=path("fused_decoder_layer", "32 x 196 frames, L 5")))
+    chains["fused_decoder_layer"] = launch_breakdown(
+        lambda: fused_decoder_layer(*a2, p2, T=T, H=H))
+    del a2, x2b, lib
+
+    # kernel 5: the FFN tail at the encoder's GELU rows, the MD sa_block's
+    # ReLU rows, the action denoiser's 3-token rows, a partial block
+    enc = randomize_(TransformerEncoderLayer(D, H, F, "gelu"), 33).to(dev,
+                                                                      f32)
+    p5 = {"ln1_w": enc.norm1.weight, "ln1_b": enc.norm1.bias,
+          "w1": enc.linear1.weight, "b1": enc.linear1.bias,
+          "w2": enc.linear2.weight, "b2": enc.linear2.bias,
+          "ln2_w": enc.norm2.weight, "ln2_b": enc.norm2.bias}
+    for case, M, act in (("MD sa_block tail, ReLU, 64 x 5 rows", 320,
+                          "relu"),
+                         ("action denoiser tail, GELU, 64 x 3 rows", 192,
+                          "gelu"),
+                         ("GELU, 37 rows (a partial block)", 37, "gelu"),
+                         ("VAE encoder tail, GELU, 32 x 206 rows", 32 * 206,
+                          "gelu")):
+        x = rnd(M, D)
+        held(f"fused_postnorm_ffn float32, {case}",
+             fused_postnorm_ffn(x, p5, activation=act),
+             postnorm_ffn_plain(x, p5, activation=act))
+    M = 128 * 206
+    x5 = rnd(M, D)
+    recs.append(check_kernel(
+        "fused_postnorm_ffn (float32)", src,
+        "ladiff_tpu/ops/pallas_postnorm_ffn.py:64",
+        lambda: fused_postnorm_ffn(x5, p5, activation="gelu"),
+        lambda: postnorm_ffn_plain(x5, p5, activation="gelu"),
+        lambda: postnorm_ffn_plain(x5, p5, activation="gelu"),
+        4 * M * D * F, nbytes(x5, *p5.values(), x5), tol=tol, rounds=3,
+        peak=PEAK_F32_FLOPS,
+        extra=path("fused_postnorm_ffn", "VAE encoder tail, GELU, 128 x 206 "
+                   "rows")))
+    chains["fused_postnorm_ffn"] = launch_breakdown(
+        lambda: fused_postnorm_ffn(x5, p5, activation="gelu"))
+    del x5
+
+    # kernel 10: the encoder stream (10 distribution tokens, 1 to 5 of each
+    # kind valid, then the frames), novae's 198 tokens at head width 128,
+    # a sample without a valid key
+    def stream_valid(n, seed):
+        lens = mixed_lengths(n, seed=seed)
+        lat = latent_valid_mask(lens, 48, 5)
+        return torch.cat([lat, lat, lengths_to_mask(lens, 196)], 1).to(dev)
+
+    for case, n, S, Dk, Hk, valid in (
+            ("novae, 4 x 198 tokens, D 512, H 4 (head width 128), no mask",
+             4, 198, 512, 4, None),
+            ("3 x 70 tokens, a sample without a valid key", 3, 70, 256, 4,
+             torch.arange(70, device=dev)[None] < torch.tensor(
+                 [[70], [0], [33]], device=dev)),
+            ("8 x 206 tokens (encoder stream), head width 64", 8, 206, 256,
+             4, stream_valid(8, 61))):
+        q, k, v = (rnd(n, S, Dk) for _ in range(3))
+        held(f"fused_masked_attention float32, {case}",
+             fused_masked_attention(q, k, v, valid, num_heads=Hk),
+             masked_attention_plain(q, k, v, valid, num_heads=Hk))
+    n, S = 128, 206
+    q, k, v = (rnd(n, S, D) for _ in range(3))
+    valid = stream_valid(n, 9)
+    Dh = D // H
+
+    def library_k10():
+        split = (lambda t: t.reshape(n, S, H, Dh).transpose(1, 2))
+        return F_.scaled_dot_product_attention(
+            split(q), split(k), split(v),
+            attn_mask=valid[:, None, None, :]).transpose(1, 2).reshape(
+                n, S, D)
+
+    recs.append(check_kernel(
+        "fused_masked_attention (float32)", src,
+        "ladiff_tpu/ops/pallas_attention.py:52",
+        lambda: fused_masked_attention(q, k, v, valid, num_heads=H),
+        lambda: masked_attention_plain(q, k, v, valid, num_heads=H),
+        lambda: masked_attention_plain(q, k, v, valid, num_heads=H),
+        4 * S * D * int(valid.sum()), nbytes(q, k, v, q), library=library_k10,
+        tol=tol, rounds=3, peak=PEAK_F32_FLOPS,
+        extra=path("fused_masked_attention", "128 x 206 tokens, head width "
+                   "64, encoder-stream mask")))
+    chains["fused_masked_attention"] = launch_breakdown(
+        lambda: fused_masked_attention(q, k, v, valid, num_heads=H))
+    emit({"phase": "kernels_f32", "rel_err": errs, "tol": tol,
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "launches_on_path": {
+              "fused_md_layer": lt.generation(50)["fused_md_layer"],
+              "fused_decoder_layer": lt.decode()["fused_decoder_layer"],
+              "fused_postnorm_ffn": lt.encode()["fused_postnorm_ffn"],
+              "fused_masked_attention":
+                  lt.encode()["fused_masked_attention"]},
+          "chains": chains, "seconds": time.perf_counter() - t0})
     return recs
 
 
@@ -1527,8 +1808,10 @@ def phase_novae_slice(dev):
     configuration's full width, random weights: batch 4, lengths 16 / 60 /
     123 / 196, CFG 7.5 DDPM over 10 steps of the 1000-step grid, the
     initial frames handed in and every step's noise replayed through a
-    patched ``torch.randn``.  float32 on the card (every plain route)
-    against float32 on the CPU within ``FLOAT32_LOSS_TOL``, with no launch; bf16 on the card (kernel 10 the
+    patched ``torch.randn``.  float32 on the card (the float32 kernel 10,
+    exactly ``EXPECTED_NOVAE_PER_STEP`` a step as in bf16; every other
+    part plain) against float32 on the CPU within ``FLOAT32_LOSS_TOL``;
+    bf16 on the card (kernel 10 the
     self-attention of each of the 9 layers) against the float32 CPU run,
     norm-wise, held to ``DIFF_GRAD_RATIO`` times the plain bf16 CPU
     control's error (or ``DIFF_GRAD_FLOOR``), with exactly
@@ -1537,6 +1820,7 @@ def phase_novae_slice(dev):
     from unittest import mock
 
     import torch
+    from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.ops import cuda_common as cc
 
     B, steps = 4, 10
@@ -1591,9 +1875,11 @@ def phase_novae_slice(dev):
            "seconds": {"cpu_float32": cpu_s, "cpu_bf16_control": ctl_s,
                        "card_float32": f32_s, "card_bf16": bf16_s}}
     emit(rec)
-    if rec["float32_rel_err"] > FLOAT32_LOSS_TOL or f32_counts:
+    if (rec["float32_rel_err"] > FLOAT32_LOSS_TOL
+            or f32_counts != float32_launches(want_counts)):
         fail(f"novae_slice: float32 on the card {rec['float32_rel_err']} "
-             f"from the CPU, launches {f32_counts}")
+             f"from the CPU, launches {f32_counts}, expected "
+             f"{float32_launches(want_counts)}")
     if not (rec["bf16_rel_err"] <= bf16_tol and rec["finite"]
             and rec["padded_frames_zero"]):
         fail(f"novae_slice: bf16 {rec['bf16_rel_err']} from float32 "
@@ -3033,7 +3319,9 @@ def phase_train_entry(dev):
 
 def _demo_options(dev, tmp, base, ckpt):
     """``ladiff_torch.demo``'s other options on the card from the stage-2
-    checkpoint ``ckpt`` (bf16): ``random_latent``, ``reconstruction`` of a
+    checkpoint ``ckpt`` (float32 as published: K2, kernels 10 and 5 are
+    float32 kernels, so ``EXPECTED_DEMO`` holds in either type):
+    ``random_latent``, ``reconstruction`` of a
     196-frame clip beside the example, ``--latentwise_gen fw`` and ``bw``
     (on ``random_latent``: MAX_IT samples per line), each with exactly
     ``EXPECTED_DEMO``'s launches and finite joints of its lengths; then
@@ -3116,23 +3404,76 @@ def _demo_options(dev, tmp, base, ckpt):
     return out
 
 
+def _f32_generation_vs_plain(system, B=32, steps=50, seed=5):
+    """A float32 generation batch of ``system`` on the card (CFG
+    DDIM-``steps``, B mixed lengths, one seed): its launches; host seconds
+    (a sync each) through the float32 kernels and under ``plain_routes()``
+    in turns (plain, kernels, kernels, plain) and each route's device ms;
+    the two routes' outputs against each other."""
+    import torch
+    from ladiff_torch.ops import cuda_common as cc
+    g = torch.Generator().manual_seed(seed)
+    cond = torch.randn(B, 1, 768, generator=g)
+    uncond = 0.1 * torch.randn(B, 1, 768, generator=g)
+    lengths = mixed_lengths(B, seed=seed)
+    init = torch.randn(B, system.n_latents, system.latent_dim[-1],
+                       generator=g)
+
+    def kernels():
+        with torch.no_grad():
+            return system.generate(cond, uncond, lengths, init_latents=init,
+                                   num_inference_timesteps=steps)[0]
+
+    def plain():
+        with cc.plain_routes():
+            return kernels()
+
+    cc.reset_launch_counts()
+    out = kernels()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cc.launch_counts().items() if v}
+    rel = relerr(out.float().cpu(), plain().float().cpu())
+    host = {"kernels": [], "plain": []}
+    for name, fn in (("plain", plain), ("kernels", kernels),
+                     ("kernels", kernels), ("plain", plain)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host[name].append(time.perf_counter() - t0)
+    return {"batch": B, "steps": steps, "launches": launches,
+            "seconds": host, "device_ms": {"kernels": device_ms(kernels, 1),
+                                           "plain": device_ms(plain, 1)},
+            "kernels_vs_plain_rel_err": rel}
+
+
 def phase_float32_entry(dev):
     """The published configurations as shipped (``TRAIN.MIXED_PRECISION``
-    false): float32 compute on the card through every module's plain
-    route.  ``configs/config_vae_humanml3d.yaml`` through ``run_training``
-    on 512 synthetic clips, 2 epochs x 3 steps at its batch of 64, with no
-    kernel launch; its loss on one batch (the eval-mode forward under
-    autograd, dropout off, the same weights and latent noise) against the
-    CPU float32 forward within ``FLOAT32_LOSS_TOL``; float32 ms per step
-    at the configuration's batch beside the bf16 route's (the same
-    configuration with ``MIXED_PRECISION`` true), 5 timed steps after 2;
-    then ``configs/config_ladiff_humanml3d.yaml`` (stage 2, batch 128)
-    booting the VAE from those checkpoints for 3 steps, with no kernel
-    launch either."""
+    false): float32 compute on the card, the inference layers through the
+    float32 K1, K2, kernels 5 and 10, everything else on its plain route.
+    ``configs/config_vae_humanml3d.yaml`` through ``run_training`` on 512
+    synthetic clips, 2 epochs x 3 steps at its batch of 64, with no kernel
+    launch (``launch_tables.STAGE1_STEP``: the training layers' kernels
+    take bf16 only); its loss on one batch (the eval-mode forward under
+    autograd, dropout off, the same weights and latent noise: the training
+    route, no launch) against the CPU float32 forward within
+    ``FLOAT32_LOSS_TOL``, and the validation pass of the same batch (no
+    gradient: kernels 10 and 5 in the encoder, K2 in the decoder, exactly
+    ``float32_launches(EXPECTED_VALIDATION)``) within the same tolerance;
+    float32 ms per step at the configuration's batch beside the bf16
+    route's (the same configuration with ``MIXED_PRECISION`` true), 5
+    timed steps after 2; then ``configs/config_ladiff_humanml3d.yaml``
+    (stage 2, batch 128) booting the VAE from those checkpoints for 3
+    steps, the frozen encode launching ``launch_tables.stage2_step()``
+    each step; then a float32 generation batch of the stage-2 system (32
+    samples, CFG DDIM-50) through the kernels and under
+    ``plain_routes()`` (``_f32_generation_vs_plain``): launches exactly
+    ``launch_tables.generation(50)``, the routes within
+    ``FLOAT32_LOSS_TOL``.  Returns the stage-2 run's launches."""
     import shutil
     import tempfile
 
     import torch
+    from ladiff_torch import launch_tables as lt
     from ladiff_torch import train_bench
     from ladiff_torch.config import assemble_config
     from ladiff_torch.data.datamodule import get_datasets
@@ -3167,7 +3508,7 @@ def phase_float32_entry(dev):
             ckpt = run_training(cfg, dm, logger, max_epochs=epochs,
                                 max_steps_per_epoch=steps, device=dev)
             torch.cuda.synchronize()
-            launches = sum(cc.launch_counts().values())
+            launches = {k: v for k, v in cc.launch_counts().items() if v}
             with open(os.path.join(cfg.FOLDER_EXP, "metrics.jsonl")) as f:
                 lines = [json.loads(line) for line in f]
             return dm, ckpt, launches, lines
@@ -3196,11 +3537,21 @@ def phase_float32_entry(dev):
             (p.grad.float() ** 2).sum() for p in gpu.vae.parameters()
             if p.grad is not None)))
         torch.cuda.synchronize()
-        launches_batch = sum(cc.launch_counts().values())
+        launches_batch = {k: v for k, v in cc.launch_counts().items() if v}
+        # the validation pass of the same batch: no gradient, the float32
+        # kernels in the encoder and the decoder
+        cc.reset_launch_counts()
+        with torch.no_grad():
+            loss_v, _ = gpu.vae_forward(
+                {k: v.to(dev) for k, v in batch.items()}, train=False,
+                eps=eps.to(dev))
+        torch.cuda.synchronize()
+        launches_val = {k: v for k, v in cc.launch_counts().items() if v}
         with torch.no_grad():
             loss_c, _ = cpu.vae_forward(batch, train=False, eps=eps)
         loss_g = loss_g.detach()
         loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        val_err = abs(float(loss_v) - float(loss_c)) / abs(float(loss_c))
         del cpu
 
         def ms_per_step(system, n=5, warmup=2):
@@ -3216,7 +3567,7 @@ def phase_float32_entry(dev):
 
         cc.reset_launch_counts()
         ms_f32 = ms_per_step(gpu)
-        launches_steps = sum(cc.launch_counts().values())
+        launches_steps = {k: v for k, v in cc.launch_counts().items() if v}
         del gpu
         torch.cuda.empty_cache()
         bf = build_system(config("config_vae_humanml3d.yaml",
@@ -3230,7 +3581,14 @@ def phase_float32_entry(dev):
 
         cfg2 = config("config_ladiff_humanml3d.yaml",
                       PRETRAINED_VAE=ckpt1, END_EPOCH=1)
-        _, ckpt2, launches2, lines2 = stage(cfg2, 3)
+        dm2, ckpt2, launches2, lines2 = stage(cfg2, 3)
+        gen = _f32_generation_vs_plain(randomize_(
+            build_system(cfg2, dm2, device=dev), 15).eval())
+        print(f"# float32_entry: a float32 generation batch of "
+              f"{gen['batch']} (CFG DDIM-{gen['steps']}): "
+              f"{gen['device_ms']['kernels']:.2f} device ms through the "
+              f"kernels, {gen['device_ms']['plain']:.2f} under plain_routes;"
+              f" seconds {gen['seconds']}", flush=True)
         e1, sd1 = load_checkpoint(latest_checkpoint(ckpt1)[1])
         _, sd2 = load_checkpoint(latest_checkpoint(ckpt2)[1])
         vae_booted = all(torch.equal(sd2[k], v) for k, v in sd1.items())
@@ -3243,11 +3601,15 @@ def phase_float32_entry(dev):
                                  for l in lines2],
                "kernel_launches": {"stage1_run": launches1,
                                    "parity_batch": launches_batch,
+                                   "validation": launches_val,
                                    "timed_steps": launches_steps,
                                    "stage2_run": launches2},
                "same_weights": same_weights,
                "loss_card": float(loss_g), "loss_cpu": float(loss_c),
                "loss_rel_err": loss_err, "loss_tol": FLOAT32_LOSS_TOL,
+               "validation_loss_card": float(loss_v),
+               "validation_loss_rel_err": val_err,
+               "generation": gen,
                "grad_norm": grad_norm,
                "ms_per_step": {"float32": ms_f32, "bf16": ms_bf16},
                "vae_booted": vae_booted,
@@ -3260,9 +3622,22 @@ def phase_float32_entry(dev):
              "mixed precision")
     if files != ["epoch_1.ckpt", "epoch_2.ckpt"]:
         fail(f"float32_entry: stage-1 checkpoints {files}")
-    if any(rec["kernel_launches"].values()):
-        fail(f"float32_entry: kernels launched in float32: "
-             f"{rec['kernel_launches']}")
+    want = {"stage1_run": lt.STAGE1_STEP, "parity_batch": {},
+            "validation": lt.float32_launches(EXPECTED_VALIDATION),
+            "timed_steps": lt.STAGE1_STEP,
+            "stage2_run": {k: 3 * n for k, n in lt.stage2_step().items()}}
+    if rec["kernel_launches"] != want:
+        fail(f"float32_entry: float32 launches {rec['kernel_launches']}, "
+             f"expected {want}")
+    if gen["launches"] != lt.generation(50):
+        fail(f"float32_entry: a float32 generation launched "
+             f"{gen['launches']}, expected {lt.generation(50)}")
+    if not gen["kernels_vs_plain_rel_err"] <= FLOAT32_LOSS_TOL:
+        fail(f"float32_entry: the float32 generation through the kernels "
+             f"{gen['kernels_vs_plain_rel_err']} from its plain routes")
+    if not val_err <= FLOAT32_LOSS_TOL:
+        fail(f"float32_entry: validation loss {float(loss_v)} on the card "
+             f"against {float(loss_c)} on the CPU (rel err {val_err})")
     if not (same_weights and loss_err <= FLOAT32_LOSS_TOL
             and math.isfinite(grad_norm)):
         fail(f"float32_entry: loss {float(loss_g)} on the card against "
@@ -3272,6 +3647,7 @@ def phase_float32_entry(dev):
     if not (vae_booted and e1 == 2 and all(map(math.isfinite, losses))):
         fail("float32_entry: stage 2 did not boot the stage-1 VAE, or a "
              "loss is not finite")
+    return launches2
 
 
 class _ClipCalls:
@@ -3302,9 +3678,12 @@ def phase_eval_entry(dev, gpu=""):
     the MultiModality pass takes ``MM_NUM_TIMES`` pairs of a caption's
     repeats, so more than 10 stay); ``COUNT_TIME`` on.
 
-    (a) float32, as published: on the card and on the CPU, the same
-    checkpoint and seed, no kernel launch; each metric within
-    ``EVAL_METRIC_TOL`` relative, FID within ``EVAL_FID_TOL``.  (b) bf16
+    (a) float32, as published: on the card (the float32 K1 and K2, exactly
+    ``float32_launches(EXPECTED_EVAL_PER_BATCH)`` per eval batch; CLIP on
+    its plain route) and on the CPU, the same checkpoint and seed; each
+    metric within ``EVAL_METRIC_TOL`` relative, FID within
+    ``EVAL_FID_TOL``; its first eval batch again through the kernels and
+    under ``plain_routes()`` (seconds, device ms by kernel).  (b) bf16
     (``TRAIN.MIXED_PRECISION``), stage ``diffusion``: launches exactly
     ``EXPECTED_EVAL_PER_BATCH`` per eval batch (the MultiModality pass's
     included) and ``EXPECTED_EVAL_PER_CLIP_CALL`` per CLIP call, no other
@@ -3317,16 +3696,19 @@ def phase_eval_entry(dev, gpu=""):
     checkpoint of its own, reduced to ``REPLICATION_TIMES`` 1 and
     ``num_inference_timesteps`` 50 (published 1000: 1000 steps of the
     MultiModality pass alone would take minutes), ``MM_NUM_SAMPLES`` 11:
-    no launch, every metric finite.  Prints the seconds per
+    kernel 10 exactly ``launch_tables.novae_step()`` every step of every
+    eval batch, every metric finite.  Prints the seconds per
     eval batch, per replication and per MultiModality pass of each run with
     the card's name and power limit, and for each run on the card its
     first eval batch again after the run: device ms by kernel (profiler)
     and the idle share against its host ms."""
+    import contextlib
     import logging
     import shutil
     import tempfile
 
     import torch
+    from ladiff_torch import launch_tables as lt
     from ladiff_torch import test as entry
     from ladiff_torch.config import assemble_config
     from ladiff_torch.data.datamodule import get_datasets
@@ -3353,14 +3735,16 @@ def phase_eval_entry(dev, gpu=""):
             seen["first"] = (args, kw)
         return out
 
-    def step_breakdown():
+    def step_breakdown(plain=False):
         """The run's first eval batch (32 samples) again, after the run and
-        its counts: host ms per call (3 calls, a sync each), device ms by
-        kernel from the profiler, the idle share between them."""
-        args, kw = seen.pop("first")
+        its counts (under ``plain_routes()`` with ``plain``): host ms per
+        call (3 calls, a sync each), device ms by kernel from the profiler,
+        the idle share between them."""
+        args, kw = seen["first"]
 
         def call():
-            real_step(*args, **kw)
+            with (cc.plain_routes() if plain else contextlib.nullcontext()):
+                real_step(*args, **kw)
             torch.cuda.synchronize()
 
         call()
@@ -3406,7 +3790,7 @@ def phase_eval_entry(dev, gpu=""):
         save_checkpoint(ckpt_dir, 1, system.state_dict())
         del system
 
-        def run(cfg, device):
+        def run(cfg, device, plain_too=False):
             spans = Spans()
             logger = create_logger(cfg, phase="test")
             logger.addHandler(spans)
@@ -3425,6 +3809,8 @@ def phase_eval_entry(dev, gpu=""):
             on_card = torch.device(device).type == "cuda"
             return {"summary": summary, "counts": counts,
                     "breakdown": step_breakdown() if on_card else None,
+                    "breakdown_plain": (step_breakdown(plain=True)
+                                        if plain_too else None),
                     "eval_batches": seen["batches"],
                     "clip_calls": enc.calls,
                     "lat_rm": torch.cat(seen["lat_rm"]),
@@ -3432,7 +3818,7 @@ def phase_eval_entry(dev, gpu=""):
                     "replication_s": spans.spans["replication"],
                     "mm_pass_s": spans.spans["mm_pass"], "seconds": secs}
 
-        f32_card = run(cfg32, dev)
+        f32_card = run(cfg32, dev, plain_too=True)
         f32_cpu = run(config("config_ladiff_humanml3d.yaml", "eval_f32_cpu",
                              False), "cpu")
         bf16 = run(config("config_ladiff_humanml3d.yaml", "eval_bf16", True),
@@ -3466,6 +3852,7 @@ def phase_eval_entry(dev, gpu=""):
                 "seconds_per_replication": r["replication_s"],
                 "seconds_per_mm_pass": r["mm_pass_s"],
                 "seconds": r["seconds"], "batch_breakdown": r["breakdown"],
+                "batch_breakdown_plain_routes": r["breakdown_plain"],
                 "metrics": {k: v[0] for k, v in r["summary"].items()}}
 
     rec = {"phase": "eval_entry", "gpu": gpu, "test_clips": n_test,
@@ -3491,13 +3878,14 @@ def phase_eval_entry(dev, gpu=""):
                   f"{t:.3f}" for t in r["mm_pass_s"]) + " s")
                  if r["mm_pass_s"] else "no MultiModality pass")
               + f"; {gpu}", flush=True)
-        b = r["breakdown"]
-        if b:
-            print(f"# eval_entry {name}: one batch of 32 again: "
-                  f"{b['device_ms']:.2f} device ms in {b['host_ms']:.2f} ms "
-                  f"(idle {b['idle_share']:.0%}); "
-                  + ", ".join(f"{k['kernel'][:40]} {k['ms']:.2f}"
-                              for k in b["kernels"][:4]), flush=True)
+        for route, b in (("", r["breakdown"]),
+                         (" under plain_routes", r["breakdown_plain"])):
+            if b:
+                print(f"# eval_entry {name}: one batch of 32 again{route}: "
+                      f"{b['device_ms']:.2f} device ms in "
+                      f"{b['host_ms']:.2f} ms (idle {b['idle_share']:.0%}); "
+                      + ", ".join(f"{k['kernel'][:40]} {k['ms']:.2f}"
+                                  for k in b["kernels"][:4]), flush=True)
 
     if sorted(card) != sorted(cpu) or not {"FID", "MultiModality",
                                            "R_precision_top_1"} <= set(card):
@@ -3507,24 +3895,29 @@ def phase_eval_entry(dev, gpu=""):
         if err > (EVAL_FID_TOL if k == "FID" else EVAL_METRIC_TOL):
             fail(f"eval_entry: float32 {k}: {card[k][0]} on the card, "
                  f"{cpu[k][0]} on the CPU (rel err {err})")
-    for name, r in (("float32 card", f32_card), ("float32 CPU", f32_cpu),
-                    ("float32 novae", novae)):
-        if any(r["counts"].values()):
-            fail(f"eval_entry: {name} launched kernels: "
-                 f"{public(r)['launches']}")
-    for name, r, per_batch in (("bf16 diffusion", bf16,
-                                EXPECTED_EVAL_PER_BATCH),
-                               ("bf16 vae", vae, EXPECTED_EVAL_VAE_PER_BATCH)):
+    # the CPU launches nothing; float32 on the card launches the bf16
+    # tables' K1, K2 and kernel 10, and no CLIP kernel
+    novae_steps = int(cfg_n.model.scheduler.num_inference_timesteps)
+    for name, r, per_batch, clip in (
+            ("float32 card", f32_card,
+             lt.float32_launches(EXPECTED_EVAL_PER_BATCH), {}),
+            ("float32 CPU", f32_cpu, {}, {}),
+            ("float32 novae", novae,
+             {k: n * novae_steps for k, n in lt.novae_step().items()}, {}),
+            ("bf16 diffusion", bf16, EXPECTED_EVAL_PER_BATCH,
+             EXPECTED_EVAL_PER_CLIP_CALL),
+            ("bf16 vae", vae, EXPECTED_EVAL_VAE_PER_BATCH,
+             EXPECTED_EVAL_PER_CLIP_CALL)):
         want = {k: n * r["eval_batches"] for k, n in per_batch.items()}
-        want.update({k: n * r["clip_calls"]
-                     for k, n in EXPECTED_EVAL_PER_CLIP_CALL.items()})
+        want.update({k: n * r["clip_calls"] for k, n in clip.items()})
         got = {k: v for k, v in r["counts"].items() if v}
         if got != want:
             fail(f"eval_entry: {name}: launches {got}, expected {want} "
                  f"({r['eval_batches']} eval batches, {r['clip_calls']} CLIP "
                  "calls)")
-        if not all(math.isfinite(m) and math.isfinite(c)
-                   for m, c in r["summary"].values()):
+        if name != "float32 novae" and not all(
+                math.isfinite(m) and math.isfinite(c)
+                for m, c in r["summary"].values()):
             fail(f"eval_entry: {name}: a metric is not finite")
     if not ({"FID", "MultiModality", "R_precision_top_1"}
             <= set(novae["summary"]) and all(
@@ -4034,12 +4427,14 @@ def _generate_runs(name, systems, cond, uncond, lengths, steps, init=None,
 
 
 def _generation_record(name, runs, bf16_want, feats=False):
-    """float32 card against float32 CPU (``FLOAT32_LOSS_TOL``, no launch)
-    and bf16 card against it (1e-1, the plain bf16 CPU control beside it),
-    exactly ``bf16_want`` launches; padded latent rows zero.  With
+    """float32 card against float32 CPU (``FLOAT32_LOSS_TOL``, exactly
+    ``float32_launches(bf16_want)``: the float32 K1 and K2) and bf16 card
+    against it (1e-1, the plain bf16 CPU control beside it), exactly
+    ``bf16_want`` launches; padded latent rows zero.  With
     ``feats`` the decoded features are held the same way as the
     latents."""
     import torch
+    from ladiff_torch.launch_tables import float32_launches
     want = runs["cpu_float32"][0]
     if feats:
         fw = runs["cpu_float32"][3]
@@ -4057,9 +4452,11 @@ def _generation_record(name, runs, bf16_want, feats=False):
            "seconds": {k: v[1] for k, v in runs.items()}}
     if feats:
         rec["feats_rel_err"] = ferr
-    if rec["float32_rel_err"] > FLOAT32_LOSS_TOL or rec["float32_launches"]:
+    if (rec["float32_rel_err"] > FLOAT32_LOSS_TOL
+            or rec["float32_launches"] != float32_launches(bf16_want)):
         fail(f"{name}: float32 on the card {rec['float32_rel_err']} from "
-             f"the CPU, launches {rec['float32_launches']}")
+             f"the CPU, launches {rec['float32_launches']}, expected "
+             f"{float32_launches(bf16_want)}")
     if not (rec["bf16_rel_err"] <= 1e-1 and rec["finite"]):
         fail(f"{name}: bf16 {rec['bf16_rel_err']} from float32 (control "
              f"{rec['bf16_control_rel_err']}), finite={rec['finite']}")
@@ -4074,7 +4471,8 @@ def phase_kit_slice(dev):
     d 256, 9 + 9 layers, 251 features, 21 joints), seeded random weights,
     dropout 0: (a) generation at batch 4, lengths 24 / 60 / 123 / 196,
     DDIM-10, the initial noise handed in: float32 card against float32 CPU
-    with no launch, bf16 card within 1e-1 of the float32 CPU beside the
+    (the float32 K1 and K2, the bf16 counts), bf16 card within 1e-1 of the
+    float32 CPU beside the
     plain bf16 CPU control, K1 9 x 10 and K2 9 launches; (b) one stage-1
     pass (``vae_forward``) at batch 4, loss and every VAE gradient against
     the CPU at ``train_slice``'s tolerance without the joints loss (with
@@ -4177,8 +4575,9 @@ def phase_ar_slice(dev):
     dropout 0.  (a) ``generate`` at batch 4, lengths 16 / 60 / 123 / 196,
     CFG 7.5 DDIM-10, with "last" and with "full" conditioning, each
     token's noise replayed through a patched ``torch.randn``: float32 card
-    against float32 CPU with no launch, bf16 card within 1e-1 of it beside
-    the plain bf16 CPU control, exactly 5 x 10 x 9 K1 and 9 K2 launches.
+    against float32 CPU (the float32 K1 and K2, the bf16 counts), bf16
+    card within 1e-1 of it beside the plain bf16 CPU control, exactly 5 x
+    10 x 9 K1 and 9 K2 launches.
     (b) K1 alone at the AR shapes: 512 samples of T = 2 ("last") and T = 6
     ("full") stream rows, E 2, the enclat rows masked as the sampler masks
     them, against its float32 plain version (``KERNEL_TOL``), with device
@@ -4738,8 +5137,9 @@ def phase_action_slice(dev):
     synthetic HumanAct12 data, batch 4 with lengths 16 / 33 / 47 / 60.  (a)
     ``generate`` from the action tokens with CFG 7.5 over DDIM-10, the
     initial noise handed in (DDIM at eta 0 draws no other): latents,
-    features and 24 SMPL joints, float32 card against float32 CPU with no
-    launch, bf16 card within 1e-1 of it beside the plain bf16 CPU control,
+    features and 24 SMPL joints, float32 card against float32 CPU (the
+    float32 kernel 5 and K2, the bf16 counts), bf16 card within 1e-1 of it
+    beside the plain bf16 CPU control,
     launches exactly ``expected_action_generation(10)``.  (b) stage-1
     passes (``vae_forward``) on the split route and on the whole-layer
     route at each of ``ACTION_GRAD_SEEDS``' weights, and (c) one stage-2
@@ -4761,6 +5161,7 @@ def phase_action_slice(dev):
 
     import torch
     from ladiff_torch.evaluation.a2m_eval import classify
+    from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.models.classifiers import STGCN, MotionDiscriminator
     from ladiff_torch.ops import cuda_common as cc
     from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
@@ -4817,8 +5218,9 @@ def phase_action_slice(dev):
     finite = all(bool(torch.isfinite(t).all())
                  for t in runs["card_bf16"][0].values())
     if max(gen["card_float32"].values()) > FLOAT32_LOSS_TOL or gen[
-            "launches"]["card_float32"]:
-        fail(f"action_slice: float32 generation on the card {gen}")
+            "launches"]["card_float32"] != float32_launches(bf16_want):
+        fail(f"action_slice: float32 generation on the card {gen}, "
+             f"expected launches {float32_launches(bf16_want)}")
     if not (max(gen["card_bf16"].values()) <= 1e-1 and finite):
         fail(f"action_slice: bf16 generation {gen}, finite={finite}")
     if gen["launches"]["card_bf16"] != bf16_want:
@@ -5266,13 +5668,15 @@ def phase_action_bench(dev, gpu=""):
     the SMPL joints, the GRU on the generated and the ground-truth
     motions), 1 warm-up and 3 timed: seconds a batch, samples/s, exactly
     ``EXPECTED_ACTION_EVAL_PER_BATCH``; one batch profiled (device ms by
-    ``ACTION_GROUPS``, idle share); then the same in float32 (no launch).  (b) 5 stage-1 steps at batch 128
+    ``ACTION_GROUPS``, idle share); then the same in float32 (the float32
+    kernel 5 and K2, ``float32_launches`` of the bf16 table).  (b) 5 stage-1 steps at batch 128
     (dropout 0.1) on the split and on the whole-layer route: ms a step,
     samples/s, peak memory, launches a step exactly
     ``EXPECTED_ACTION_VAE_STEP`` / ``_WHOLE``.  (c) 3 stage-2 steps at batch
     64: the same, ``EXPECTED_ACTION_DIFFUSION_STEP``.  (d) ``python -m
     ladiff_torch.test``'s ``run_test`` on ``config_ladiff_humanact12`` (GRU)
-    and ``config_ladiff_uestc`` (ST-GCN) as published (float32, no launch)
+    and ``config_ladiff_uestc`` (ST-GCN) as published (float32: each
+    evaluation step's generation ``launch_tables.action_generation``)
     at ``REPLICATION_TIMES`` 1 (published 20) from a saved random
     checkpoint, with random classifiers, on the synthetic roots (48
     HumanAct12 clips, 24 UESTC videos: a smoke run of the protocol's code,
@@ -5288,7 +5692,9 @@ def phase_action_bench(dev, gpu=""):
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from ladiff_torch import launch_tables as lt
     from ladiff_torch.data import a2m
+    from ladiff_torch.evaluation import a2m_eval as a2m_ev
     from ladiff_torch.evaluation.a2m_eval import a2m_eval_step
     from ladiff_torch.models.classifiers import MotionDiscriminator
     from ladiff_torch.ops import cuda_common as cc
@@ -5342,8 +5748,8 @@ def phase_action_bench(dev, gpu=""):
         if not finite or per_batch != EXPECTED_ACTION_EVAL_PER_BATCH:
             fail(f"action_bench eval batch: launches {per_batch}, expected "
                  f"{EXPECTED_ACTION_EVAL_PER_BATCH}, finite={finite}")
-        # the same batch as the published configuration runs it (float32,
-        # no launch): the protocol's cost a batch
+        # the same batch as the published configuration runs it (float32:
+        # the float32 kernel 5 and K2): the protocol's cost a batch
         system = _from_cfg(_config("config_ladiff_humanact12.yaml"), dev,
                            torch.float32, seed=72, **ACTION)
         ms32, out, per_batch32, _ = _steps(step, 1, 3, dev)
@@ -5362,9 +5768,12 @@ def phase_action_bench(dev, gpu=""):
               f"clips, {batches} batches x 20 replications) ~"
               f"{batches * 20 * ms32 / 1e3:.0f} s float32, "
               f"{batches * 20 * ms / 1e3:.0f} s bf16; {gpu}", flush=True)
-        if per_batch32 or not all(bool(torch.isfinite(v).all())
-                                  for v in out.values()):
-            fail(f"action_bench float32 eval batch: launches {per_batch32}")
+        if per_batch32 != lt.float32_launches(
+                EXPECTED_ACTION_EVAL_PER_BATCH) or not all(
+                    bool(torch.isfinite(v).all()) for v in out.values()):
+            fail(f"action_bench float32 eval batch: launches {per_batch32}, "
+                 f"expected "
+                 f"{lt.float32_launches(EXPECTED_ACTION_EVAL_PER_BATCH)}")
         del system, gru
 
         # (b) stage 1 at batch 128 on both routes, (c) stage 2 at 64
@@ -5420,23 +5829,40 @@ def phase_action_bench(dev, gpu=""):
         del system, opt
 
         # (d) the benchmark protocol's code path as published (float32), a
-        # smoke run: one replication over the synthetic test splits
+        # smoke run: one replication over the synthetic test splits; each
+        # evaluation step generates through the float32 kernel 5 and K2
         entry = {}
-        for name, data_key in (("config_ladiff_humanact12.yaml", "HUMANACT12"),
-                               ("config_ladiff_uestc.yaml", "UESTC")):
+        real_step = a2m_ev.a2m_eval_step
+        steps_run = [0]
+
+        def counted_step(*a, **k):
+            steps_run[0] += 1
+            return real_step(*a, **k)
+
+        for name, data_key, layers in (
+                ("config_ladiff_humanact12.yaml", "HUMANACT12", (15, 6)),
+                ("config_ladiff_uestc.yaml", "UESTC", (9, 9))):
             cfg = _config(name, **{
                 "DEBUG": False, "FOLDER": os.path.join(tmp, "experiments"),
                 "FOLDER_EXP": tmp,
                 "DATASET": {data_key: {"ROOT": roots[data_key.lower()]}},
                 "TEST": {"REPLICATION_TIMES": 1},
                 "LOGGER": {"TENSORBOARD": False}})
-            state = _from_cfg(cfg, "cpu", torch.float32, seed=79,
-                              **ACTION).state_dict()
+            ref = _from_cfg(cfg, "cpu", torch.float32, seed=79, **ACTION)
+            state, steps = ref.state_dict(), ref.num_inference_timesteps
+            del ref
             logger = logging.getLogger(f"action_bench.{data_key}")
             cc.reset_launch_counts()
+            steps_run[0] = 0
             t0 = time.perf_counter()
-            summary = run_test(cfg, logger, state_dict=state, device=dev)
+            a2m_ev.a2m_eval_step = counted_step
+            try:
+                summary = run_test(cfg, logger, state_dict=state, device=dev)
+            finally:
+                a2m_ev.a2m_eval_step = real_step
             torch.cuda.synchronize()
+            want = {k: n * steps_run[0] for k, n in
+                    lt.action_generation(steps, *layers).items()}
             entry[data_key] = {
                 "smoke_seconds": time.perf_counter() - t0,
                 "test_items": len(getattr(a2m, {
@@ -5446,8 +5872,9 @@ def phase_action_bench(dev, gpu=""):
                         split="test")),
                 "metrics": {k: v[0] for k, v in summary.items()},
                 "launches": {k: v for k, v in cc.launch_counts().items()
-                             if v}}
-            if entry[data_key]["launches"] or not all(
+                             if v},
+                "eval_steps": steps_run[0], "expected_launches": want}
+            if entry[data_key]["launches"] != want or not all(
                     math.isfinite(v) for v in entry[data_key][
                         "metrics"].values()):
                 fail(f"action_bench run_test {name}: {entry[data_key]}")
@@ -5549,10 +5976,13 @@ def _ablation_system(name, device, dtype=None, param_dtype=None, state=None,
     return system
 
 
-def _float32_card(name, run, want, card):
-    """``run(card)`` (float32 on the card: plain routes) against the
-    float32 CPU's ``want`` (loss terms, gradients): each within
-    ``FLOAT32_LOSS_TOL``, no launch."""
+def _float32_card(name, run, want, card, bf16_launches):
+    """``run(card)`` (float32 on the card: the float32 kernels where the
+    path runs inference layers, plain routes elsewhere) against the float32
+    CPU's ``want`` (loss terms, gradients): each within
+    ``FLOAT32_LOSS_TOL``, launches exactly ``float32_launches`` of the
+    bf16 run's table ``bf16_launches``."""
+    from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.ops import cuda_common as cc
     cc.reset_launch_counts()
     logs, grads = run(card)
@@ -5560,9 +5990,12 @@ def _float32_card(name, run, want, card):
     errs = {"loss": max(abs(logs[k] - w) / abs(w)
                         for k, w in want[0].items()),
             "grad": max(relerr(grads[n], w) for n, w in want[1].items())}
-    if launches or max(errs.values()) > FLOAT32_LOSS_TOL:
+    if (launches != float32_launches(bf16_launches)
+            or max(errs.values()) > FLOAT32_LOSS_TOL):
         fail(f"{name}: float32 on the card {errs} from the CPU (tol "
-             f"{FLOAT32_LOSS_TOL}), launches {launches}")
+             f"{FLOAT32_LOSS_TOL}), launches {launches}, expected "
+             f"{float32_launches(bf16_launches)}")
+    errs["launches"] = launches
     return errs
 
 
@@ -5573,7 +6006,8 @@ def phase_ablation_slice(dev):
     the same initial noise (the latents and the decoded features), a
     stage-1 pass without the joints loss and a stage-2 pass with their
     draws handed in.  Each is held three ways: float32 on the card against
-    the float32 CPU with no launch (``FLOAT32_LOSS_TOL``); bf16 on the card
+    the float32 CPU (``FLOAT32_LOSS_TOL``) with the float32 kernels'
+    launches of ``expected_ablation`` (``float32_launches``); bf16 on the card
     against the float32 CPU beside the plain bf16 CPU control (generation
     1e-1, stage 1 ``train_slice``'s tolerances, stage 2 the loss to
     ``DIFF_LOSS_TOL`` and the gradients against the control's errors,
@@ -5626,7 +6060,8 @@ def phase_ablation_slice(dev):
             return {"total": loss}, grads
 
         stage1["float32_card"] = _float32_card(
-            f"ablation_slice {name} stage 1", run1, run1(cpu), gpu32)
+            f"ablation_slice {name} stage 1", run1, run1(cpu), gpu32,
+            want_s1)
 
         draws = {"eps": torch.randn(B, n_eps, 256, generator=g),
                  "noise": torch.randn(B, n, 256, generator=g),
@@ -5643,7 +6078,8 @@ def phase_ablation_slice(dev):
                                   median_ratio=ABLATION_STAGE2_MEDIAN)
         s2 = {k: v for k, v in cc.launch_counts().items() if v}
         stage2["float32_card"] = _float32_card(
-            f"ablation_slice {name} stage 2", run2, refs[0], gpu32)
+            f"ablation_slice {name} stage 2", run2, refs[0], gpu32,
+            want_s2)
         del cpu, ctl, gpu, gpu32
         out[name] = {"generate": gen["bf16_launches"], "stage1": s1,
                      "stage2": s2}
@@ -6197,17 +6633,19 @@ def phase_parallel_slice(dev, gpu=""):
     backward in another order (``parallel/fsdp.py``), so it is held bit for
     bit, launches equal, against the one-process step with those nodes
     (``fsdp_autograd_graph``), and at ``train_slice``'s tolerances against
-    the plain one-process step; in float32 too (no launch; within
-    ``PARALLEL_F32_TOL`` of the plain step).  TP, SP and PP at width 1 take
-    plain parts in the sharded or pipelined tree: in float32 every
-    gradient within ``PARALLEL_F32_TOL`` of the one-process step, no
-    launch; in bf16 the gradients against the control (the one-process
+    the plain one-process step; in float32 too (within
+    ``PARALLEL_F32_TOL`` of the plain step; stage 1 launches nothing,
+    stage 2 the frozen encode's float32 kernels 5 and 10).  TP, SP and PP
+    at width 1 take plain parts in the sharded or pipelined tree: in
+    float32 every gradient within ``PARALLEL_F32_TOL`` of the one-process
+    step, the frozen encode's float32 kernels in stage 2; in bf16 the gradients against the control (the one-process
     step with the same routes), launches equal: none in stage 1, the
     frozen VAE encode's kernels 5 and 10 in stage 2.
     One data-parallel eval batch against the same batch without a group,
     bit for bit, launches equal.  (b) Two ranks on the card, spawned, over
     gloo: the layouts of ``PARALLEL_CARD_LAYOUTS`` in float32 (every
-    gradient within ``PARALLEL_F32_TOL`` of one process, no launch) and in
+    gradient within ``PARALLEL_F32_TOL`` of one process, launches
+    ``launch_tables.stage2_step()`` in stage 2 and none in stage 1) and in
     bf16 against the control (DDP's launches equal).  (c) ms a step at
     batch 64: the single-device stage-1 step against DDP and FSDP at world
     size 1 (the wrappers' own cost), and each 2-rank bf16 step's ms at
@@ -6218,6 +6656,7 @@ def phase_parallel_slice(dev, gpu=""):
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
+    from ladiff_torch import launch_tables as lt
     from ladiff_torch import train_bench
     from ladiff_torch.evaluation.t2m_eval import T2MEvaluator, eval_step
     from ladiff_torch.ops import cuda_common as cc
@@ -6287,9 +6726,13 @@ def phase_parallel_slice(dev, gpu=""):
                    "single_process_launches": want[2]}
             key = name if dtype is None else f"{name}_{str(dtype)[6:]}"
             world1[key] = rec
+            # float32 launches the frozen VAE encode's float32 kernels 5
+            # and 10 in stage 2 and nothing in stage 1
+            f32_want = lt.stage2_step() if stage == "diffusion" else {}
             if dtype == f32:
                 ok = (rec["loss_rel_err"] <= PARALLEL_F32_TOL
-                      and errs[worst] <= PARALLEL_F32_TOL and not got[2])
+                      and errs[worst] <= PARALLEL_F32_TOL
+                      and got[2] == f32_want)
             elif plain:
                 rec.update(_against_control(name, got[1], want[1],
                                             single(stage, f32)[1]))
@@ -6308,11 +6751,12 @@ def phase_parallel_slice(dev, gpu=""):
                            fsdp_order_worst_grad_rel_err=max(oerrs.values()))
                 ok = (ok and got[0] == order[0] and oflat == 0.0
                       and got[2] == order[2])
-            # the frozen VAE encode of stage 2 keeps kernels 5 and 10
-            encode = plain and dtype == bf16 and stage == "diffusion"
+            # the frozen VAE encode of stage 2 keeps kernels 5 and 10 in
+            # float32 and on the plain layouts
+            some = (stage == "diffusion" if dtype == f32 or plain
+                    else True)
             _held(f"{key} (world size 1)",
-                  rec, ok and got[2] == want[2]
-                  and bool(got[2]) == (dtype != f32 and (encode or not plain)))
+                  rec, ok and got[2] == want[2] and bool(got[2]) == some)
     ev_got, ev_counts = eval_batch()
     ev_err = max(relerr(ev_got[k].float(), ev_want[k].float())
                  for k in ev_want)
@@ -6372,7 +6816,7 @@ def phase_parallel_slice(dev, gpu=""):
         spawned[name] = _held(f"{name} (2 ranks, gloo)", rec, (
             rec["f32_loss_rel_err"] <= PARALLEL_F32_TOL
             and rec["f32_worst_grad_rel_err"] <= PARALLEL_F32_TOL
-            and not g32[2]
+            and g32[2] == (lt.stage2_step() if stage == "diffusion" else {})
             and rec["bf16_loss_rel_err"] <= TRAIN_LOSS_TOL
             and rec["held"] and gbf[2] == wbf[2]))
     emit({"phase": "parallel_slice", "gpu": gpu,
@@ -6651,9 +7095,11 @@ def _alt_runs(name, cpu, run, inputs, expect, tol=ALT_FORWARD_TOL,
               bf16=True, card="cuda", gpu=""):
     """One module four ways from the same weights: ``cpu`` (float32 on the
     CPU, the yardstick) and copies of it: the plain bf16 CPU control,
-    float32 on the card ``card`` (within ``tol``, no launch) and bf16 on
-    the card (within ``ratio`` times the control's distance, at least
-    ``floor``; exactly ``expect`` launches).  ``run(module, inputs on its
+    float32 on the card ``card`` (within ``tol``, exactly
+    ``float32_launches(expect)``: the float32 kernels among the bf16
+    route's, none without ``bf16``) and bf16 on the card (within ``ratio``
+    times the control's distance, at least ``floor``; exactly ``expect``
+    launches).  ``run(module, inputs on its
     device and type)`` -> a tensor or a dict of tensors, under
     ``torch.no_grad()``, of which the ``held`` ones (all by default) are
     compared; ``inputs``: {name: CPU tensor}, floating ones cast to each
@@ -6663,6 +7109,7 @@ def _alt_runs(name, cpu, run, inputs, expect, tol=ALT_FORWARD_TOL,
     import copy
 
     import torch
+    from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.ops import cuda_common as cc
     out, launches, secs = {}, {}, {}
     labels = (("cpu_float32", "cpu", torch.float32),
@@ -6691,7 +7138,8 @@ def _alt_runs(name, cpu, run, inputs, expect, tol=ALT_FORWARD_TOL,
     rec = {"float32_rel_err": err("card_float32"),
            "float32_launches": launches["card_float32"], "tol": tol,
            "seconds": secs}
-    ok = rec["float32_rel_err"] <= tol and not rec["float32_launches"]
+    ok = (rec["float32_rel_err"] <= tol and rec["float32_launches"]
+          == float32_launches(expect if bf16 else {}))
     if bf16:
         rec.update(bf16_rel_err=err("card_bf16"),
                    bf16_control_rel_err=err("cpu_bf16_control"),
@@ -6736,7 +7184,9 @@ def phase_alt_models_slice(dev, gpu=""):
     """The alternate models (ROADMAP Queue 1 item 4) at their published
     widths, seeded random weights, dropout 0, TF32 off; every forward under
     ``torch.no_grad()``.  Each check: float32 on the card against the CPU
-    within ``ALT_FORWARD_TOL`` with no launch, bf16 on the card against the
+    within ``ALT_FORWARD_TOL`` with ``float32_launches`` of the bf16
+    launches (the float32 K1, K2, kernels 5 and 10), bf16 on the card
+    against the
     plain bf16 CPU control (``_alt_runs``), launches exactly
     ``EXPECTED_ALT_*``.  (1) MotionCLIP: the autoencoder (latent 512, 8 + 8
     layers, 4 heads, ff 1024) and the ViT-B/32 text tower at batch 4,
@@ -6750,7 +7200,8 @@ def phase_alt_models_slice(dev, gpu=""):
     512, 8 layers, 8 heads; 4 text layers at 256) on the tower's 77-token
     hidden state with EOT indices; timed at batch 32 x 196.  (4)
     DistilBERT's ``BertTextEncoder`` on 256 captions, and the full-context
-    generation at batch 4 (DDIM-10).  (5) The plain models, no launch:
+    generation at batch 4 (DDIM-10).  (5) The plain models, no launch in
+    either type:
     ``HumanVQDiff`` (``orig``, ``ema_reset``; codes exact in float32, their
     bf16 agreement printed), ``MldVaeT2m``, ``VPosert``,
     ``vit_base_patch16_224`` in the five ``st_mode``s (compared at 2
@@ -7359,6 +7810,17 @@ def main():
     # the alternate models' runs: an encode, a MotionDiffuse call, a bench
     # batch
     recs += out["alt_models_slice"]
+    # the float32 kernels, with the launches of the published float32
+    # paths: K1 and K2 in eval_entry's float32 card run of test.py, kernels
+    # 10 and 5 in float32_entry's stage-2 run (the frozen encode)
+    f32_eval = out["eval_entry"]["float32_card"]["launches"]
+    f32_launches = {**{k: f32_eval.get(k, 0) for k in
+                       ("fused_md_layer", "fused_decoder_layer")},
+                    **{k: out["float32_entry"].get(k, 0) for k in
+                       ("fused_postnorm_ffn", "fused_masked_attention")}}
+    for rec in out["kernels_f32"]:
+        rec["launches"] = f32_launches[rec["name"].split(" (")[0]]
+    recs += out["kernels_f32"]
     for rec in recs:
         if rec["launches"] <= 0:
             fail(f"{rec['name']} was not launched on the main path")

@@ -27,8 +27,9 @@ each sample MAX_IT times, keeping latent rows 0..i (fw) or the last i + 1
 ``--plot_att_map`` writes each decoder layer's cross-attention weights of
 the first sample as ``att_maps/block_{i}.png`` under the experiment
 directory, first replication only (matplotlib, imported there only).  The
-two flags need a VAE.  Runs on the GPU; ``--cpu`` runs the plain PyTorch
-paths.
+two flags need a VAE.  Runs on the GPU in the configuration's compute
+type (float32 as published: the float32 K1, K2, kernels 5 and 10;
+``TRAIN.MIXED_PRECISION`` bf16); ``--cpu`` runs the plain PyTorch paths.
 """
 from __future__ import annotations
 
@@ -100,11 +101,16 @@ def main(argv: Optional[List[str]] = None, device=None, text_encoder=None,
     logger = create_logger(cfg, phase="demo")
     dm = get_datasets(cfg, phase="test")[0]
     seed = int(cfg.get("SEED_VALUE", 1234))
+    # the configuration's compute type, as ``build_system`` reads it: the
+    # published float32 (the float32 kernels on the card) unless
+    # ``TRAIN.MIXED_PRECISION`` asks for bf16
+    mixed = bool(cfg.TRAIN.get("MIXED_PRECISION", False))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        system = LADiffSystem.from_cfg(cfg, nfeats=dm.nfeats,
-                                       njoints=dm.njoints, mean=dm.mean,
-                                       std=dm.std, device=device)
+        system = LADiffSystem.from_cfg(
+            cfg, nfeats=dm.nfeats, njoints=dm.njoints, mean=dm.mean,
+            std=dm.std, device=device,
+            dtype=torch.bfloat16 if mixed else torch.float32)
     if system.vae is None and (task != "text_motion" or latentwise
                                or cfg.DEMO.get("PLOT_ATT_MAP")):
         raise NotImplementedError(

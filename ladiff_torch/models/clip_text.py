@@ -90,9 +90,10 @@ class CLIPTextLayer(nn.Module):
         B, S, D = x.shape
         xf = x.reshape(B * S, D).contiguous()
         # K3 and K4 in bf16; a float32 tower on the card runs their plain
-        # versions (the kernels take bf16 only)
+        # versions (the kernels take bf16 only, as the JAX package's take
+        # a 2-byte type only)
         ln_qkv, proj_mlp = ((fused_ln_qkv, fused_proj_mlp)
-                            if kernel_route(xf)
+                            if kernel_route(xf, "fused_ln_qkv")
                             else (ln_qkv_plain, proj_mlp_plain))
         q, k, v = ln_qkv(xf, self.qkv_params(),
                          scale=1.0 / math.sqrt(D // self.heads))

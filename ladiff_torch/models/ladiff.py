@@ -161,7 +161,8 @@ class LADiffSystem(nn.Module):
                 f"shape T={n_latents} E=2 D={D} H={num_heads} "
                 f"F=1024,{ff_size} L={num_layers} md_trans={md_trans}")
         want = torch.device("cuda" if device is None else device)
-        if md_stack and not kernel_compute(resolve_dtype(want, dtype), want):
+        if md_stack and not kernel_compute(resolve_dtype(want, dtype), want,
+                                           "fused_md_stack"):
             raise ValueError(
                 f"md_stack: the whole-stack kernel computes in bf16, not "
                 f"{dtype} on {want}")

@@ -43,7 +43,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     which only the plain version gives.
 
     Self-attention over at least ``MIN_SEQ`` tokens without dropout, in bf16
-    (``kernel_route``), of a shape kernel 10 takes
+    or float32 (``kernel_route``), of a shape kernel 10 takes
     (``masked_attention_supported``), and with no gradient required
     (kernel 10 has no backward), goes through
     ``fused_masked_attention`` (kernel 10 on CUDA tensors); everything else
@@ -54,7 +54,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     if (S == k.shape[1] >= MIN_SEQ and dropout_rate == 0.0
-            and not needs_grad and not return_weights and kernel_route(q)
+            and not needs_grad and not return_weights
+            and kernel_route(q, "fused_masked_attention")
             and masked_attention_supported(B, S, D, num_heads)):
         return fused_masked_attention(q, k, v, key_valid,
                                       num_heads=num_heads)

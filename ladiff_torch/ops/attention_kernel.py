@@ -32,6 +32,12 @@ package.
 
 It has no backward: called on CUDA tensors while a gradient is required it
 raises; layers that need a gradient take ``train_self_attention``.
+
+In float32 (the published configurations' type) the wrapper launches
+kernel 10's float32 counterpart, ``f32_layer.masked_attention_f32``
+(``f32_attention_kernel`` of ``csrc/f32_layer.cu``: 32-query tiles, 64-key
+tiles through shared memory, FFMA products, an online softmax), at the
+shapes ``masked_attention_supported`` takes.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 from ladiff_torch.ops.cuda_common import (NEG_INF, check_cuda_args,
                                           dropout_mask, launch,
                                           register_kernel, require_no_grad)
+from ladiff_torch.ops.f32_layer import masked_attention_f32
 
 __all__ = ["fused_masked_attention", "masked_attention_plain",
            "masked_attention_supported", "MIN_SEQ"]
@@ -93,7 +100,8 @@ def masked_attention_supported(B: int, S: int, D: int, H: int) -> bool:
 def fused_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_valid: Optional[torch.Tensor] = None, *,
                            num_heads: int) -> torch.Tensor:
-    """Kernel 10 on CUDA tensors (bf16), its plain version on CPU tensors.
+    """Kernel 10 on CUDA tensors (bf16, or float32 through its float32
+    counterpart), its plain version on CPU tensors.
     q, k, v [B, S, D]; key_valid [B, S] bool or None.  Returns [B, S, D]."""
     if not q.is_cuda:
         return masked_attention_plain(q, k, v, key_valid, num_heads=num_heads)
@@ -114,6 +122,10 @@ def fused_masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         tensors["key_valid"] = kvalid
         kv_ptr = kvalid.data_ptr()
     check_cuda_args("fused_masked_attention", tensors, f32=("key_valid",))
+    if q.dtype == torch.float32:
+        out = masked_attention_f32(q, k, v, tensors.get("key_valid"), H=H)
+        fused_masked_attention.launches += 1
+        return out
     out = torch.empty_like(q)
     launch("masked_attention", "masked_attention_forward", q.device,
            [q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_ptr,

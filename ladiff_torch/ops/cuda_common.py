@@ -12,11 +12,14 @@ module of the port on a machine without ``nvcc``.
 Dispatch is by device only: a wrapper given CPU tensors runs the kernel's
 plain PyTorch version; given CUDA tensors it launches the kernel or raises.
 Which route a module takes is decided before any launch, from shapes (each
-kernel's ``*_supported``) and from the compute type (``kernel_route``): the
-kernels take bf16 only, so float32 compute on the card takes every module's
-plain route, and so does everything inside a ``plain_routes()`` scope (the
-tensor-, sequence- and pipeline-parallel layouts, where a kernel would see a
-shard of a layer: the JAX package's ``no_pallas()``).
+kernel's ``*_supported``) and from the compute type, per kernel
+(``kernel_route(x, kernel)`` reads ``KERNEL_DTYPES``): K1, K2, kernel 5 and
+kernel 10 take bf16 and float32 (the float32 chains of ``ops/f32_layer.py``),
+every other kernel bf16 only, so float32 compute on the card takes those
+four and the plain route of every other module; so does everything inside a
+``plain_routes()`` scope (the tensor-, sequence- and pipeline-parallel
+layouts, where a kernel would see a shard of a layer: the JAX package's
+``no_pallas()``).
 Every wrapper counts its launches (``launch_counts`` / ``reset_launch_counts``)
 so a run can show that the main path went through the kernels.
 """
@@ -40,7 +43,7 @@ __all__ = ["NEG_INF", "CSRC", "BUILD_DIR", "register_kernel", "launch_counts",
            "reset_launch_counts", "build_all", "library", "launch",
            "check_cuda_args", "require_no_grad", "draw_seed", "split_seed",
            "dropout_mask", "on_card", "kernel_compute", "kernel_route",
-           "plain_routes"]
+           "plain_routes", "KERNEL_DTYPES"]
 
 NEG_INF = -1e9  # additive key mask; large finite keeps bf16 softmax safe
 
@@ -48,7 +51,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("md_layer", "decoder_layer", "clip_layer", "postnorm_ffn",
            "train_ffn", "train_attention", "masked_attention", "md_stack",
-           "stylized_ffn", "stylize", "train_layer", "train_decoder_layer")
+           "stylized_ffn", "stylize", "train_layer", "train_decoder_layer",
+           "f32_layer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -185,13 +189,27 @@ def on_card(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def kernel_compute(dtype: torch.dtype, device) -> bool:
-    """Whether compute in ``dtype`` on ``device`` may take the kernel
-    routes: bf16, the only type the kernels take, or any type off the card,
-    where each wrapper is its kernel's plain version.  Float32 compute on
-    the card takes every module's plain route instead; the wrappers keep
-    raising on a float32 CUDA tensor (``check_cuda_args``)."""
-    return dtype == torch.bfloat16 or not on_card(device)
+# The compute types each kernel takes on the card, by wrapper name: the
+# inference kernels of the published float32 paths (K1, K2, 5, 10) take
+# float32 too; every kernel not named here takes bf16 only.
+KERNEL_DTYPES: Dict[str, Tuple[torch.dtype, ...]] = {
+    name: (torch.bfloat16, torch.float32)
+    for name in ("fused_md_layer", "fused_decoder_layer",
+                 "fused_postnorm_ffn", "fused_masked_attention")}
+
+
+def kernel_dtypes(kernel: str) -> Tuple[torch.dtype, ...]:
+    """The compute types ``kernel`` (a wrapper's name) takes on the card."""
+    return KERNEL_DTYPES.get(kernel, (torch.bfloat16,))
+
+
+def kernel_compute(dtype: torch.dtype, device, kernel: str) -> bool:
+    """Whether compute in ``dtype`` on ``device`` may take ``kernel``'s
+    route: a type the kernel takes (``KERNEL_DTYPES``), or any type off the
+    card, where each wrapper is its kernel's plain version.  A type the
+    kernel does not take sends the module to its plain route on the card;
+    the wrapper itself raises on it (``check_cuda_args``)."""
+    return dtype in kernel_dtypes(kernel) or not on_card(device)
 
 
 _PLAIN = contextvars.ContextVar("ladiff_plain_routes", default=False)
@@ -227,22 +245,22 @@ def plain_forward(module: torch.nn.Module) -> torch.nn.Module:
     return module
 
 
-def kernel_route(x: torch.Tensor) -> bool:
-    """``kernel_compute`` of the activations ``x``: the dtype gate that
-    every module checks beside its shape gate, before any launch; false
-    throughout a ``plain_routes()`` scope."""
-    return not _PLAIN.get() and kernel_compute(x.dtype, x.device)
+def kernel_route(x: torch.Tensor, kernel: str) -> bool:
+    """``kernel_compute`` of the activations ``x`` for ``kernel``: the dtype
+    gate that every module checks beside its shape gate, before any launch;
+    false throughout a ``plain_routes()`` scope."""
+    return not _PLAIN.get() and kernel_compute(x.dtype, x.device, kernel)
 
 
 def check_cuda_args(name: str, tensors: Dict[str, torch.Tensor],
                     f32: Sequence[str] = ()) -> None:
     """Device / dtype / contiguity / alignment checks before passing
     pointers to a kernel.  ``f32`` names the tensors that are float32
-    (masks, gradient outputs, workspaces); every other tensor must be
-    bfloat16, the kernels' type."""
-    dev = None
+    whatever the compute type (masks, gradient outputs, workspaces); every
+    other tensor has the compute type, the type of the first of them, which
+    must be one that the kernel ``name`` takes (``KERNEL_DTYPES``)."""
+    dev = compute = None
     for key, t in tensors.items():
-        want = torch.float32 if key in f32 else torch.bfloat16
         if not t.is_cuda:
             raise ValueError(f"{name}: {key} is on {t.device}, the other "
                              "inputs on a CUDA device")
@@ -250,6 +268,17 @@ def check_cuda_args(name: str, tensors: Dict[str, torch.Tensor],
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{name}: {key} is on {t.device}, not {dev}")
+        if key in f32:
+            want = torch.float32
+        elif compute is None:
+            if t.dtype not in kernel_dtypes(name):
+                raise TypeError(
+                    f"{name}: the CUDA kernel takes "
+                    f"{' or '.join(map(str, kernel_dtypes(name)))} for "
+                    f"{key}, got {t.dtype}")
+            want = compute = t.dtype
+        else:
+            want = compute
         if t.dtype != want:
             raise TypeError(f"{name}: the CUDA kernel takes {want} for "
                             f"{key}, got {t.dtype}")

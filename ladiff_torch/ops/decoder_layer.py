@@ -31,6 +31,11 @@ four launches behind this one wrapper:
      out-projection + LN2, the FFN in 128-column hidden chunks, LN3; the
      residuals stay in f32 registers, only bf16 operands go through
      shared memory, and each byte of weight serves 64 rows.
+
+In float32 (the published configurations' type) the wrapper runs K2's
+float32 chain, ``f32_layer.decoder_layer_f32``: 12 launches of the FFMA
+GEMM, row-norm and attention kernels of ``csrc/f32_layer.cu``, at the
+shapes ``decoder_layer_supported`` takes.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch.nn.functional as F
 from ladiff_torch.ops.attention_kernel import masked_attention_plain
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
+from ladiff_torch.ops.f32_layer import decoder_layer_f32
 
 __all__ = ["fused_decoder_layer", "decoder_layer_plain",
            "decoder_layer_supported", "MAX_MEMORY"]
@@ -95,7 +101,8 @@ def decoder_layer_plain(x, kvalid, mem, mvalid, p, *, T: int, H: int,
 @register_kernel("fused_decoder_layer")
 def fused_decoder_layer(x, kvalid, mem, mvalid, p, *, T: int, H: int,
                         activation: str = "gelu") -> torch.Tensor:
-    """Kernel K2 on CUDA tensors (bf16), its plain version on CPU tensors.
+    """Kernel K2 on CUDA tensors (bf16, or float32 through its float32
+    chain), its plain version on CPU tensors.
     The kernel has no backward: on CUDA tensors it raises while a gradient
     is required (training layers take the training kernels instead)."""
     if not x.is_cuda:
@@ -114,6 +121,11 @@ def fused_decoder_layer(x, kvalid, mem, mvalid, p, *, T: int, H: int,
                     {"x": x, "kvalid": kvalid, "mem": mem, "mvalid": mvalid,
                      **{k: p[k] for k in _PARAM_ORDER}},
                     f32=("kvalid", "mvalid"))
+    if x.dtype == torch.float32:
+        out = decoder_layer_f32(x, kvalid, mem, mvalid, p, T=T, H=H,
+                                activation=activation)
+        fused_decoder_layer.launches += 1
+        return out
     qkv = torch.empty(BT, 3 * D, dtype=x.dtype, device=x.device)
     kv2 = torch.empty(B * L, 2 * D, dtype=x.dtype, device=x.device)
     ctx = torch.empty(BT, D, dtype=x.dtype, device=x.device)

@@ -1,0 +1,196 @@
+"""The float32 routes of K1, K2, kernel 5 and kernel 10 on the card: each
+a short chain of the three hand-written kernels of ``csrc/f32_layer.cu``
+(a tiled FFMA GEMM with bias / activation / residual epilogues, a row
+LayerNorm with optional AdaLN and SiLU, a masked softmax attention over
+short rows), launched by the wrappers ``fused_md_layer``,
+``fused_decoder_layer``, ``fused_postnorm_ffn`` and
+``fused_masked_attention`` when their inputs are float32.  The published
+configurations compute in float32 (``TRAIN.MIXED_PRECISION: false``), as
+the JAX package's Pallas kernels do there: they take the module's type and
+accumulate in float32.
+
+Launches a call (one launch count on the wrapper):
+
+  kernel 5   LN1, W1 + act, W2 + residual, LN2                          4
+  kernel 10  attention                                                  1
+  K2         qkv, self-attention, out-proj + residual, LN1, cross q,
+             memory k / v, cross-attention, out-proj + residual, then
+             kernel 5's chain (LN2, FFN, LN3)                          12
+  K1         latent qkv, text / time k / v, attention over both, out-proj
+             + residual, kernel 5's ReLU chain, the cross-attention
+             collapse (LN, AdaLN, SiLU), its projection + residual, W1 +
+             GELU, W2, LN + AdaLN + SiLU, projection + residual          14
+
+Numerics are the plain versions': float32 operands and accumulators,
+LayerNorm eps 1e-5, exact erf GELU, a masked key's logit -1e9 (a sample
+without a valid key attends uniformly), no TF32 and no bf16 anywhere.
+What bounds each chain, and its time against the bound, is in PERF.md
+§6.
+
+The float32 chain's own budget is wider than the bf16 kernels' (any width,
+memory rows and FFN width; an attention head width up to 128), so on
+every shape the bf16 shape gates take the float32 chain holds as well: one
+shape gate per kernel serves both types, and a module's route on the card
+is the same in bf16 and float32 wherever the kernel takes both.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ladiff_torch.ops.cuda_common import launch
+
+__all__ = ["linear_f32", "rownorm_f32", "attention_f32", "postnorm_ffn_f32",
+           "masked_attention_f32", "decoder_layer_f32", "md_layer_f32",
+           "ACT", "CHAIN_LAUNCHES"]
+
+ACT = {None: 0, "relu": 1, "gelu": 2}
+LIB = "f32_layer"
+# kernel launches of one wrapper call on the float32 route
+CHAIN_LAUNCHES = {"fused_postnorm_ffn": 4, "fused_masked_attention": 1,
+                  "fused_decoder_layer": 12, "fused_md_layer": 14}
+
+
+def _ld(t: torch.Tensor) -> int:
+    """The row stride of a 2-D float32 view whose rows are contiguous."""
+    if t.dim() != 2 or t.stride(1) != 1 or t.dtype != torch.float32:
+        raise ValueError(f"f32_layer: a float32 2-D view with contiguous "
+                         f"rows, got {tuple(t.shape)} strides {t.stride()} "
+                         f"{t.dtype}")
+    return t.stride(0)
+
+
+def linear_f32(a: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None, *, act: Optional[str] = None,
+               resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``act(a w^T + b) + resid`` in one launch: a [M, K] (a view with
+    contiguous rows), w [N, K] contiguous, b [N], resid [M, N] (a view)."""
+    M, K = a.shape
+    N = w.shape[0]
+    if not w.is_contiguous() or w.shape[1] != K:
+        raise ValueError(f"linear_f32: weight {tuple(w.shape)} against "
+                         f"input {tuple(a.shape)}")
+    out = torch.empty(M, N, dtype=torch.float32, device=a.device)
+    launch(LIB, "f32_linear", a.device,
+           [a.data_ptr(), w.data_ptr(), 0 if b is None else b.data_ptr(),
+            0 if resid is None else resid.data_ptr(), out.data_ptr()],
+           [M, N, K, _ld(a), 0 if resid is None else _ld(resid), N,
+            ACT[act]])
+    return out
+
+
+def rownorm_f32(src: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                rows: Optional[int] = None, src_div: int = 1,
+                row_scale: Optional[torch.Tensor] = None,
+                ss: Optional[torch.Tensor] = None,
+                ss_div: int = 0) -> torch.Tensor:
+    """Row r of the result is ``LN(src[r // src_div] * row_scale[r])``
+    (weight w, bias b, eps 1e-5), then with ``ss`` [S, 2D] ``SiLU(y (1 +
+    scale) + shift)`` with (scale, shift) row ``r // ss_div`` of ss (row 0
+    where ``ss_div`` is 0)."""
+    D = src.shape[1]
+    M = src.shape[0] * src_div if rows is None else rows
+    out = torch.empty(M, D, dtype=torch.float32, device=src.device)
+    launch(LIB, "f32_rownorm", src.device,
+           [src.data_ptr(), 0 if row_scale is None else row_scale.data_ptr(),
+            w.data_ptr(), b.data_ptr(), 0 if ss is None else ss.data_ptr(),
+            out.data_ptr()],
+           [M, D, _ld(src), src_div, ss_div, D])
+    return out
+
+
+def attention_f32(q: torch.Tensor, k1: torch.Tensor, v1: torch.Tensor,
+                  valid1: Optional[torch.Tensor], *, B: int, Sq: int, n1: int,
+                  H: int, k2: Optional[torch.Tensor] = None,
+                  v2: Optional[torch.Tensor] = None,
+                  n2: int = 0) -> torch.Tensor:
+    """Masked softmax attention per sample and head, one launch.  q [B Sq,
+    D], k1 / v1 [B n1, D] (views with contiguous rows, one row stride)
+    with ``valid1`` [B n1] float (> 0.5 valid) or None (all valid), and
+    k2 / v2 [B n2, D], always valid.  Returns [B Sq, D]."""
+    D = q.shape[1]
+    Dh = D // H
+    if k1.stride(0) != v1.stride(0) or (n2 and k2.stride(0) != v2.stride(0)):
+        raise ValueError("attention_f32: k and v of a source share a stride")
+    out = torch.empty(B * Sq, D, dtype=torch.float32, device=q.device)
+    launch(LIB, "f32_attention", q.device,
+           [q.data_ptr(), k1.data_ptr(), v1.data_ptr(),
+            0 if valid1 is None else valid1.data_ptr(),
+            0 if k2 is None else k2.data_ptr(),
+            0 if v2 is None else v2.data_ptr(), out.data_ptr()],
+           [B, Sq, n1, n2, H, Dh, _ld(q), _ld(k1),
+            _ld(k2) if n2 else 0, D],
+           [1.0 / math.sqrt(Dh)])
+    return out
+
+
+def postnorm_ffn_f32(x: torch.Tensor, p, *, activation: str
+                     ) -> torch.Tensor:
+    """Kernel 5's float32 chain: ``LN2(h + W2 act(W1 h + b1) + b2)`` with
+    ``h = LN1(x)``."""
+    h = rownorm_f32(x, p["ln1_w"], p["ln1_b"])
+    a = linear_f32(h, p["w1"], p["b1"], act=activation)
+    y = linear_f32(a, p["w2"], p["b2"], resid=h)
+    return rownorm_f32(y, p["ln2_w"], p["ln2_b"])
+
+
+def masked_attention_f32(q, k, v, kvalid: Optional[torch.Tensor], *,
+                         H: int) -> torch.Tensor:
+    """Kernel 10's float32 route: q, k, v [B, S, D]; kvalid [B, S] float
+    or None.  Returns [B, S, D]."""
+    B, S, D = q.shape
+    out = attention_f32(q.reshape(B * S, D), k.reshape(B * S, D),
+                        v.reshape(B * S, D),
+                        None if kvalid is None else kvalid.reshape(B * S),
+                        B=B, Sq=S, n1=S, H=H)
+    return out.reshape(B, S, D)
+
+
+def decoder_layer_f32(x, kvalid, mem, mvalid, p, *, T: int, H: int,
+                      activation: str) -> torch.Tensor:
+    """K2's float32 chain (``decoder_layer_plain``'s math): x [B T, D],
+    kvalid [B T], mem [B, L, D], mvalid [B, L]."""
+    BT, D = x.shape
+    B, L = mem.shape[0], mem.shape[1]
+    qkv = linear_f32(x, p["sa_in_w"], p["sa_in_b"])
+    ctx = attention_f32(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], kvalid,
+                        B=B, Sq=T, n1=T, H=H)
+    t1 = rownorm_f32(linear_f32(ctx, p["sa_out_w"], p["sa_out_b"], resid=x),
+                     p["ln1_w"], p["ln1_b"])
+    q2 = linear_f32(t1, p["ca_in_w"][:D], p["ca_in_b"][:D])
+    kv2 = linear_f32(mem.reshape(B * L, D), p["ca_in_w"][D:],
+                     p["ca_in_b"][D:])
+    ctx2 = attention_f32(q2, kv2[:, :D], kv2[:, D:], mvalid.reshape(B * L),
+                         B=B, Sq=T, n1=L, H=H)
+    r2 = linear_f32(ctx2, p["ca_out_w"], p["ca_out_b"], resid=t1)
+    return postnorm_ffn_f32(r2, {"ln1_w": p["ln2_w"], "ln1_b": p["ln2_b"],
+                                 "w1": p["w1"], "b1": p["b1"], "w2": p["w2"],
+                                 "b2": p["b2"], "ln2_w": p["ln3_w"],
+                                 "ln2_b": p["ln3_b"]}, activation=activation)
+
+
+def md_layer_f32(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
+                 E: int, H: int) -> torch.Tensor:
+    """K1's float32 chain (``md_layer_plain``'s math): x [B T, D] latent
+    rows, extra [B E, D] text and time rows, kvalid [B T], value [B, D],
+    ca_ss / ffn_ss [1 or B, 2D]."""
+    BT, D = x.shape
+    B = BT // T
+    qkv = linear_f32(x, p["sa_in_w"], p["sa_in_b"])
+    ekv = linear_f32(extra, p["sa_in_w"][D:], p["sa_in_b"][D:])
+    ctx = attention_f32(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], kvalid,
+                        B=B, Sq=T, n1=T, H=H, k2=ekv[:, :D], v2=ekv[:, D:],
+                        n2=E)
+    r = linear_f32(ctx, p["sa_out_w"], p["sa_out_b"], resid=x)
+    x2 = postnorm_ffn_f32(r, p, activation="relu")
+    h2 = rownorm_f32(value, p["ca_ln_w"], p["ca_ln_b"], rows=BT, src_div=T,
+                     row_scale=kvalid, ss=ca_ss,
+                     ss_div=T if ca_ss.shape[0] > 1 else 0)
+    x3 = linear_f32(h2, p["ca_w"], p["ca_b"], resid=x2)
+    y2 = linear_f32(linear_f32(x3, p["fw1"], p["fb1"], act="gelu"),
+                    p["fw2"], p["fb2"])
+    h3 = rownorm_f32(y2, p["f_ln_w"], p["f_ln_b"], ss=ffn_ss,
+                     ss_div=T if ffn_ss.shape[0] > 1 else 0)
+    return linear_f32(h3, p["fp_w"], p["fp_b"], resid=x3)

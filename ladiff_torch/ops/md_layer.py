@@ -32,6 +32,11 @@ f32 register accumulators, the weight slices stream through one cp.async
 ring across products, the residual stream stays in registers.  The layer
 body is shared with kernel 11, which runs the whole skip stack in one
 launch.  CUDA graphs for the 450 launches are a later step.
+
+In float32 (the published configurations' type) the wrapper runs K1's
+float32 chain, ``f32_layer.md_layer_f32``: 14 launches of the FFMA GEMM,
+row-norm and attention kernels of ``csrc/f32_layer.cu``, at the shapes
+``md_layer_supported`` takes.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch.nn.functional as F
 from ladiff_torch.ops.attention_kernel import masked_attention_plain
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch, library,
                                           register_kernel, require_no_grad)
+from ladiff_torch.ops.f32_layer import md_layer_f32
 
 __all__ = ["fused_md_layer", "md_layer_plain", "md_layer_supported",
            "md_geometry", "md_launch_geometry", "md_smem_bytes"]
@@ -198,9 +204,10 @@ def md_layer_plain(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
 @register_kernel("fused_md_layer")
 def fused_md_layer(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
                    E: int, H: int) -> torch.Tensor:
-    """Kernel K1 on CUDA tensors (bf16), its plain version on CPU tensors.
-    The kernel has no backward: on CUDA tensors it raises while a gradient
-    is required (a training-mode MD layer takes its unfused route)."""
+    """Kernel K1 on CUDA tensors (bf16, or float32 through its float32
+    chain), its plain version on CPU tensors.  The kernel has no backward:
+    on CUDA tensors it raises while a gradient is required (a training-mode
+    MD layer takes its unfused route)."""
     if not x.is_cuda:
         return md_layer_plain(x, extra, kvalid, value, ca_ss, ffn_ss, p,
                               T=T, E=E, H=H)
@@ -220,7 +227,8 @@ def fused_md_layer(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
                     {"x": x, "extra": extra, "kvalid": kvalid,
                      "value": value, "ca_ss": ca_ss, "ffn_ss": ffn_ss,
                      **{k: p[k] for k in _PARAM_ORDER}}, f32=("kvalid",))
-    out = _launch(x, extra, kvalid, value, ca_ss, ffn_ss, p, T=T, E=E, H=H)
+    chain = md_layer_f32 if x.dtype == torch.float32 else _launch
+    out = chain(x, extra, kvalid, value, ca_ss, ffn_ss, p, T=T, E=E, H=H)
     fused_md_layer.launches += 1
     return out
 

@@ -24,6 +24,12 @@ output columns.
 
 It has no backward: called on CUDA tensors while a gradient is required
 it raises (``require_no_grad``); training layers use ``train_postnorm_ffn``.
+
+In float32 (the published configurations' type) the wrapper runs kernel
+5's float32 chain, ``f32_layer.postnorm_ffn_f32``: LN1, the W1 product
+with its activation, the W2 product with the residual, LN2, four launches
+of ``csrc/f32_layer.cu``, at the shapes ``postnorm_ffn_supported`` takes.
+Kernel 9 (the training tail) takes bf16 only.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch, library,
                                           register_kernel, require_no_grad)
+from ladiff_torch.ops.f32_layer import postnorm_ffn_f32
 
 __all__ = ["fused_postnorm_ffn", "postnorm_ffn_plain", "FFN_PARAM_ORDER",
            "ACTIVATIONS", "check_ffn_shape", "postnorm_ffn_supported",
@@ -136,8 +143,9 @@ def ffn_launch_geometry(lib_name: str, device, M: int, D: int, F: int,
 @register_kernel("fused_postnorm_ffn")
 def fused_postnorm_ffn(x: torch.Tensor, p, *, activation: str = "gelu",
                        cluster: int = 0) -> torch.Tensor:
-    """Kernel 5 on CUDA tensors (bf16), its plain version on CPU tensors.
-    ``cluster`` > 0 sets the CTAs a block (``ffn_geometry``'s choice by
+    """Kernel 5 on CUDA tensors (bf16, or float32 through its float32
+    chain), its plain version on CPU tensors.  ``cluster`` > 0 sets the
+    CTAs a block of the bf16 kernel (``ffn_geometry``'s choice by
     default)."""
     if not x.is_cuda:
         return postnorm_ffn_plain(x, p, activation=activation)
@@ -146,6 +154,10 @@ def fused_postnorm_ffn(x: torch.Tensor, p, *, activation: str = "gelu",
     Fd = check_ffn_shape("fused_postnorm_ffn", x, p, activation)
     check_cuda_args("fused_postnorm_ffn",
                     {"x": x, **{k: p[k] for k in FFN_PARAM_ORDER}})
+    if x.dtype == torch.float32:
+        out = postnorm_ffn_f32(x, p, activation=activation)
+        fused_postnorm_ffn.launches += 1
+        return out
     M, D = x.shape
     g = ffn_launch_geometry("postnorm_ffn", x.device, M, D, Fd, cluster)
     out = torch.empty_like(x)

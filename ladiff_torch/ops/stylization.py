@@ -6,9 +6,11 @@ Parameter names follow the reference torch LADiff (``sa_block``,
 ``ffn.{linear1,linear2,proj_out}``, ``proj_out.emb_layers.1`` /
 ``.norm`` / ``.out_layers.2``).  Each kernel wrapper takes its plain version
 on a CPU tensor.  Routes of an ``MDTransformerLayer``, chosen from shapes
-before any launch (as the JAX package's gate); float32 compute on the card
-takes no kernel (``kernel_route``): the per-block route with the plain
-version of every block:
+before any launch (as the JAX package's gate); the compute type is gated
+per kernel (``kernel_route``): K1 and kernel 5 take float32 as well as
+bf16, kernels 6, 7 and 11 bf16 only, so float32 on the card runs K1 where
+it runs in bf16 and, on the per-block route, kernel 5 as the sa_block's
+tail and the plain version of every other block:
 
   eval, one text token, a shape K1 takes (``md_layer_supported``; every
       published configuration)      the whole layer as ``fused_md_layer``
@@ -130,7 +132,7 @@ class LinearTemporalCrossAttention(nn.Module):
         H = self.num_heads
         tn = layer_norm(self.text_norm, xf)
         value = linear(self.value, tn)
-        if (N == 1 and kernel_route(x)
+        if (N == 1 and kernel_route(x, "fused_broadcast_stylize")
                 and broadcast_stylize_supported(B * T, T, D)
                 and not (self.training or _needs_grad(self, x, xf, emb))):
             p = self.proj_out
@@ -178,7 +180,7 @@ class StylizedFFN(nn.Module):
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, T, D = x.shape
-        if (kernel_route(x) and stylized_ffn_supported(
+        if (kernel_route(x, "fused_stylized_ffn") and stylized_ffn_supported(
                 B * T, T, D, self.linear1.out_features)
                 and not (self.training or _needs_grad(self, x, emb))):
             p = self.proj_out
@@ -234,9 +236,11 @@ class MDTransformerLayer(nn.Module):
 
     def takes_whole_layer(self, x: torch.Tensor, xf: torch.Tensor) -> bool:
         """Whether the layer runs as K1 (``fused_md_layer``): eval mode, one
-        text token, bf16 compute (``kernel_route``) and a shape K1 takes."""
+        text token, a compute type K1 takes (``kernel_route``: bf16 or
+        float32) and a shape K1 takes."""
         B, T, D = x.shape
-        return (not self.training and xf.shape[1] == 1 and kernel_route(x)
+        return (not self.training and xf.shape[1] == 1
+                and kernel_route(x, "fused_md_layer")
                 and md_layer_supported(B, T, 2, D, self.num_heads,
                                        self.sa_block.linear1.out_features,
                                        self.ffn.linear1.out_features))

@@ -31,10 +31,12 @@ a CPU tensor):
                              cross-attention into the few memory rows ->
                              ``train_postnorm_ffn(norm2, norm3)``
 
-Each route is chosen from shapes and the compute type before any launch:
-the kernels take bf16 only, so float32 compute on the card (the published
-configurations' ``TRAIN.MIXED_PRECISION: false``) takes every plain part
-below (``kernel_route``).  Every kernel computes the post-norm layer: a
+Each route is chosen from shapes and the compute type before any launch,
+the type per kernel (``kernel_route``): the inference kernels K2, 5 and 10
+take float32 as well as bf16, the training kernels 8, 9, 12 and 13 bf16
+only, so float32 compute on the card (the published configurations'
+``TRAIN.MIXED_PRECISION: false``) runs the inference routes above through
+their kernels and the training routes through their plain parts.  Every kernel computes the post-norm layer: a
 layer built with ``normalize_before`` (pre-norm, which no published
 configuration asks for) runs its plain parts on every device and in every
 mode, decided from the module before any launch (``_forward_prenorm``).  ``train_self_attention``
@@ -158,7 +160,8 @@ def _self_attention_block(attn: MultiHeadAttention, x: torch.Tensor,
                           rate: float, generator) -> torch.Tensor:
     """``x + drop(self_attn(x))``: kernel 8 on the training route where it
     takes the shape, else the attention module."""
-    if train_route and kernel_route(x) and train_attention_supported(
+    if train_route and kernel_route(
+            x, "train_self_attention") and train_attention_supported(
             x.shape[1], attn.d_model, attn.num_heads):
         return _train_self_attention(attn, x, key_valid, rate, generator)
     kv = gather_tokens(x)
@@ -189,7 +192,8 @@ def _ffn_tail(layer, resid: torch.Tensor, ln_a: nn.LayerNorm,
     training route, kernel 5 at inference, plain ops for a shape or a
     compute type they do not take."""
     B, S, D = resid.shape
-    if not (kernel_route(resid) and postnorm_ffn_supported(
+    kernel = "train_postnorm_ffn" if train_route else "fused_postnorm_ffn"
+    if not (kernel_route(resid, kernel) and postnorm_ffn_supported(
             D, layer.linear1.out_features, layer.activation)):
         h = layer_norm(ln_a, resid)
         return layer_norm(ln_b, h + _drop(_plain_ffn(layer, h, rate,
@@ -261,7 +265,8 @@ class TransformerEncoderLayer(nn.Module):
                                  "the JAX package")
             return self._forward_prenorm(src, key_valid, rate, generator)
         B, S, D = src.shape
-        if (train_route and extra_kv is None and kernel_route(src)
+        if (train_route and extra_kv is None
+                and kernel_route(src, "train_encoder_layer")
                 and self.takes_whole_training_layer(S)):
             out = train_encoder_layer(
                 src.reshape(B * S, D).contiguous(), _key_valid(key_valid, src),
@@ -386,7 +391,8 @@ class TransformerDecoderLayer(nn.Module):
         train_route = self.training or _needs_grad(self, tgt, memory)
         B, T, D = tgt.shape
         L = memory.shape[1]
-        if (train_route and not return_cross_weights and kernel_route(tgt)
+        if (train_route and not return_cross_weights
+                and kernel_route(tgt, "train_decoder_layer")
                 and self.takes_whole_training_layer(T, L)):
             mv = (memory_key_valid if memory_key_valid is not None
                   else torch.ones(B, L, dtype=torch.bool, device=tgt.device))
@@ -399,7 +405,8 @@ class TransformerDecoderLayer(nn.Module):
                 generator=generator)
             return out.reshape(B, T, D)
         if train_route or return_cross_weights or not (
-                kernel_route(tgt) and self.takes_whole_layer(L)):
+                kernel_route(tgt, "fused_decoder_layer")
+                and self.takes_whole_layer(L)):
             return self._forward_blocks(
                 tgt, memory, tgt_key_valid, memory_key_valid, train_route,
                 self.dropout if self.training else 0.0, generator,

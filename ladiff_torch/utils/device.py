@@ -30,9 +30,10 @@ def resolve_dtype(device: torch.device,
     and float32 elsewhere unless the caller names one.
 
     On CUDA the caller may name float32 (the published configurations'
-    ``TRAIN.MIXED_PRECISION: false``): every module then takes its plain
-    route (``ops.cuda_common.kernel_route``), and the float32 products are
-    held at full float32 here (``torch.backends.cuda.matmul.allow_tf32``
+    ``TRAIN.MIXED_PRECISION: false``): the kernels that take float32 (K1,
+    K2, kernels 5 and 10) then run their float32 chains and every other
+    module its plain route (``ops.cuda_common.kernel_route``), and the
+    float32 products of the plain routes are held at full float32 here (``torch.backends.cuda.matmul.allow_tf32``
     and ``torch.backends.cudnn.allow_tf32`` off; cuDNN's default is TF32).
     Another type on CUDA raises here, naming it."""
     if dtype is None:
@@ -41,7 +42,8 @@ def resolve_dtype(device: torch.device,
         if dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(
                 f"ladiff_torch computes in torch.bfloat16 (the CUDA kernels) "
-                f"or torch.float32 (the plain routes) on CUDA, not {dtype}")
+                f"or torch.float32 (the float32 kernels and the plain routes) "
+                f"on CUDA, not {dtype}")
         if dtype == torch.float32:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False

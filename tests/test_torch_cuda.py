@@ -1222,12 +1222,15 @@ def test_whole_layer_decoder_kernel_widths(dev, rate, D, H):
 @pytest.mark.cuda
 def test_published_config_trains_in_float32_on_the_gpu(dev):
     """``configs/config_vae_humanml3d.yaml`` as shipped (float32 compute):
-    a training step on the card through the plain routes, no kernel
-    launched, its loss on one batch within 1e-3 of the CPU's on the same
-    weights and latent noise."""
+    the validation forward of one batch through the float32 kernels 10 and
+    5 (encoder) and K2 (decoder), its loss within 1e-3 of the CPU's on the
+    same weights and latent noise; a training step on the card through the
+    plain routes, no kernel launched (the training kernels take bf16
+    only)."""
     import os
     import types
 
+    from ladiff_torch import launch_tables as lt
     from ladiff_torch import train_bench
     from ladiff_torch.config import assemble_config
     from ladiff_torch.ops import cuda_common as cc
@@ -1253,6 +1256,9 @@ def test_published_config_trains_in_float32_on_the_gpu(dev):
                                  train=False, eps=eps.to(dev))
         want, _ = cpu.vae_forward(batch, train=False, eps=eps)
     assert abs(float(got) - float(want)) <= 1e-3 * abs(float(want))
+    assert {k: v for k, v in cc.launch_counts().items() if v} == {
+        **lt.encode(), **lt.decode()}
+    cc.reset_launch_counts()
     logs = vae_train_step(gpu, make_optimizer(gpu.vae.parameters()),
                           {k: v.to(dev) for k, v in batch.items()})
     assert all(bool(torch.isfinite(v)) for v in logs.values())
@@ -1573,13 +1579,15 @@ def test_eval_step_on_the_gpu(dev, stage):
     9 + 9 layers, CFG 7.5 DDIM-50) at batch 4 with mixed lengths and the
     same random weights, evaluators and noise on each run: in bf16 it
     launches ``EVAL_STEP_LAUNCHES[stage]``; in float32 (the published
-    compute) no kernel, and every output within 1e-3 norm-wise of the
-    CPU's (the same function, sums in another order)."""
+    compute) the float32 kernels among them (``float32_launches``), and
+    every output within 1e-3 norm-wise of the CPU's (the same function,
+    sums in another order)."""
     import os
     import types
 
     from ladiff_torch.config import assemble_config
     from ladiff_torch.evaluation.t2m_eval import T2MEvaluator, eval_step
+    from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.ops import cuda_common as cc
     from ladiff_torch.training.loop import build_system
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1627,7 +1635,7 @@ def test_eval_step_on_the_gpu(dev, stage):
     assert all(bool(torch.isfinite(v).all()) for v in bf16.values())
     card, launches = outs[False, str(dev)]
     cpu, _ = outs[False, "cpu"]
-    assert not launches
+    assert launches == float32_launches(EVAL_STEP_LAUNCHES[stage])
     errs = {k: _relerr(card[k], cpu[k]) for k in cpu}
     assert max(errs.values()) <= 1e-3, errs
 
@@ -2099,7 +2107,12 @@ def test_alt_model_float32_on_the_card_matches_the_cpu(dev, model):
     """One float32 forward (TF32 off) of ``MotionTransformer`` (defaults,
     both text and motion, 2 x 60 frames) or ``HumanVQDiff`` (``orig``,
     2 x 64 frames; the codes exactly) on the card against the CPU within
-    1e-4, norm-wise, with no kernel launch."""
+    1e-4, norm-wise, launching the float32 kernels among a bf16 forward's
+    launches (``float32_launches``: kernel 10 in MotionTransformer's text
+    layers, nothing in the plain ``HumanVQDiff``)."""
+    import copy
+
+    from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.models.mdiff import MotionTransformer
     from ladiff_torch.models.vq import HumanVQDiff
     from ladiff_torch.ops import cuda_common as cc
@@ -2118,10 +2131,179 @@ def test_alt_model_float32_on_the_card_matches_the_cpu(dev, model):
         args, kw = (torch.randn(2, 64, 263, generator=g),), {}
     want = m.eval()(*args, **kw)
     cc.reset_launch_counts()
+    copy.deepcopy(m).to(dev, torch.bfloat16)(
+        *[a.to(dev, torch.bfloat16) if a.is_floating_point() else a.to(dev)
+          for a in args],
+        **{k: v.to(dev, torch.bfloat16) if v.is_floating_point()
+           else v.to(dev) for k, v in kw.items()})
+    bf16 = {k: v for k, v in cc.launch_counts().items() if v}
+    cc.reset_launch_counts()
     got = m.to(dev)(*[a.to(dev) for a in args],
                     **{k: v.to(dev) for k, v in kw.items()})
-    assert not any(cc.launch_counts().values())
+    launches = {k: v for k, v in cc.launch_counts().items() if v}
+    assert launches == float32_launches(bf16)
+    assert ("fused_masked_attention" in launches) == (
+        model == "motion_transformer")
     if model == "human_vq_diff":
         assert torch.equal(got[3].cpu(), want[3])
         got, want = got[0], want[0]
     assert _relerr(got.cpu(), want) <= 1e-4
+
+
+# -- the float32 kernels (K1, K2, kernels 5 and 10 on csrc/f32_layer.cu) ----
+# float32 operands and accumulators on both sides, sums in another order
+TOL_F32 = 5e-5
+
+
+def _f(dev, *shape, seed=11, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (scale * torch.randn(*shape, generator=g)).to(dev, torch.float32)
+
+
+def _f32_cases(dev):
+    """Each float32 wrapper at a small shape, partial tiles and blocks, a
+    sample without a valid key (8 samples where a mask is an input, so that
+    its bytes are a multiple of 32, as ``_at_end`` needs): (name,
+    call(tensors, params), plain call, tensors, params)."""
+    from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
+                                                   masked_attention_plain)
+    from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
+                                                fused_decoder_layer)
+    from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_plain
+    from ladiff_torch.ops.postnorm_ffn import (fused_postnorm_ffn,
+                                               postnorm_ffn_plain)
+    from ladiff_torch.ops.stylization import MDTransformerLayer
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    D, H, Fd = 128, 2, 256
+    cases = []
+    pf = {k: v.float() for k, v in _ffn_params(dev, D, Fd).items()}
+    for act in ("gelu", "relu"):
+        cases.append((f"kernel 5 {act}", lambda t, p, a=act:
+                      fused_postnorm_ffn(t[0], p, activation=a),
+                      lambda t, p, a=act: postnorm_ffn_plain(
+                          t[0], p, activation=a),
+                      [_f(dev, 70, D)], pf))
+    for Dk, Hk in ((D, H), (256, 2)):  # head widths 64 and 128
+        S = 70
+        valid = _mask([S, 0, 33], S, dev) > 0.5
+        cases.append((f"kernel 10 head width {Dk // Hk}",
+                      lambda t, p, v=valid, h=Hk: fused_masked_attention(
+                          *t, v, num_heads=h),
+                      lambda t, p, v=valid, h=Hk: masked_attention_plain(
+                          *t, v, num_heads=h),
+                      [_f(dev, 3, S, Dk, seed=30 + i) for i in range(3)],
+                      None))
+    dl = _randomize(TransformerDecoderLayer(D, H, Fd, "gelu"), 4).to(dev)
+    pd = {k: v.detach() for k, v in dl.kernel_params().items()}
+    for L, mem_lens in ((1, [1] * 8), (5, [5, 2, 0, 1, 3, 4, 5, 5]),
+                        (7, [7, 3, 1, 2, 4, 5, 6, 7])):
+        T = 40
+        args = [_f(dev, 8 * T, D),
+                _mask([T, 9, 1, 33, T, 17, 25, 2], T, dev).reshape(-1),
+                _f(dev, 8, L, D, seed=19), _mask(mem_lens, L, dev)]
+        cases.append((f"K2 L {L}", lambda t, p: fused_decoder_layer(
+            *t, p, T=40, H=H), lambda t, p: decoder_layer_plain(
+                *t, p, T=40, H=H), args, pd))
+    md = _randomize(MDTransformerLayer(D, D, Fd, 4), 5).to(dev)
+    pm = {k: v.detach() for k, v in md.kernel_params().items()}
+    for T, B, ss_rows in ((5, 8, 1), (7, 8, 8)):
+        kv = _mask([T, 2, 0, 1, T, 3, 4, T], T, dev).reshape(-1)
+        args = [_f(dev, B * T, D), _f(dev, B * 2, D, seed=12), kv,
+                _f(dev, B, D, seed=13),
+                _f(dev, ss_rows, 2 * D, seed=14, scale=0.3),
+                _f(dev, ss_rows, 2 * D, seed=15, scale=0.3)]
+        cases.append((f"K1 {B} x {T} rows", lambda t, p, T=T:
+                      fused_md_layer(*t, p, T=T, E=2, H=4),
+                      lambda t, p, T=T: md_layer_plain(*t, p, T=T, E=2, H=4),
+                      args, pm))
+    return cases
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_float32_kernels_match_plain(dev):
+    """Each float32 wrapper launches its chain once (one count) and agrees
+    with its float32 plain version on the card, TF32 off, within 5e-5."""
+    from ladiff_torch.ops import cuda_common as cc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, call, plain, tensors, params in _f32_cases(dev):
+        cc.reset_launch_counts()
+        got = call(tensors, params)
+        torch.cuda.synchronize()
+        assert sum(cc.launch_counts().values()) == 1, name
+        assert got.dtype == torch.float32, name
+        assert _relerr(got, plain(tensors, params)) <= TOL_F32, name
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_float32_kernels_read_inside_their_inputs(dev):
+    """Every input and parameter of each float32 wrapper in turn at the end
+    of its allocation."""
+    for name, call, _, tensors, params in _f32_cases(dev):
+        _guarded_calls(call, tensors, params)
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_float32_wrappers_raise_on_a_bf16_weight(dev):
+    """A float32 call with one bf16 weight raises before any launch; so
+    does a float32 call of a kernel that takes bf16 only."""
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.ops.stylized_ffn import fused_stylized_ffn
+    cc.reset_launch_counts()
+    for name, call, _, tensors, params in _f32_cases(dev):
+        if params is None:
+            with pytest.raises(TypeError, match="float32"):
+                call([tensors[0], tensors[1].bfloat16(), tensors[2]], None)
+            continue
+        key = next(k for k in params if k.endswith("_w"))
+        with pytest.raises(TypeError, match="float32"):
+            call(tensors, {**params, key: params[key].bfloat16()})
+    assert not any(cc.launch_counts().values())
+    D = 256
+    w = {k: _f(dev, *s, seed=i) for i, (k, s) in enumerate((
+        ("w1", (1024, D)), ("b1", (1024,)), ("w2", (D, 1024)), ("b2", (D,)),
+        ("ln_w", (D,)), ("ln_b", (D,)), ("w3", (D, D)), ("b3", (D,))))}
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_stylized_ffn(_f(dev, 10, D), _f(dev, 2, 2 * D), *w.values(),
+                           T=5)
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_published_float32_generate_launches(dev):
+    """The published stage-2 configuration as shipped (float32) generates
+    a batch of 4 (CFG DDIM-50) on the card through the float32 K1 (450
+    launches) and K2 (9), nothing else, within 1e-3 of the CPU's float32
+    generation from the same weights and initial noise."""
+    import os
+
+    from ladiff_torch import launch_tables as lt
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.models.ladiff import LADiffSystem
+    from ladiff_torch.ops import cuda_common as cc
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = assemble_config(
+        os.path.join(repo, "configs", "config_ladiff_humanml3d.yaml"),
+        os.path.join(repo, "configs", "assets.yaml"))
+    assert not cfg.TRAIN.MIXED_PRECISION
+    cpu = _randomize(LADiffSystem.from_cfg(
+        cfg, nfeats=263, njoints=22, device="cpu", dtype=torch.float32), 6)
+    gpu = LADiffSystem.from_cfg(cfg, nfeats=263, njoints=22, device=dev,
+                                dtype=torch.float32)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(7)
+    cond = torch.randn(4, 1, 768, generator=g)
+    uncond = 0.1 * torch.randn(4, 1, 768, generator=g)
+    init = torch.randn(4, 5, 256, generator=g)
+    lengths = torch.tensor([16, 60, 123, 196])
+    want, _ = cpu.generate(cond, uncond, lengths, init_latents=init,
+                           num_inference_timesteps=50)
+    cc.reset_launch_counts()
+    got, _ = gpu.generate(cond, uncond, lengths, init_latents=init,
+                          num_inference_timesteps=50)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cc.launch_counts().items() if v} == \
+        lt.generation(50)
+    assert _relerr(got.cpu(), want) <= 1e-3

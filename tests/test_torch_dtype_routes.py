@@ -1,14 +1,22 @@
 """The port's dtype gate and the facts its attention tiles rely on, on the
 CPU.
 
-  * The dtype gate (``ops.cuda_common.kernel_route``): the kernels take
-    bf16 only, so float32 compute on the card takes every module's plain
-    route, decided before any launch, and bf16 takes the kernel routes.
-    There is no card here, so the tests take every tensor for one on the
-    card (``on_card`` patched) and count the calls of the kernel wrappers
-    the modules make, as ``tests/test_torch_md_routes.py`` does.  The
-    float32 plain route agrees with the wrapper route (each wrapper's plain
+  * The dtype gate (``ops.cuda_common.kernel_route(x, kernel)``), per
+    kernel: K1, K2, kernel 5 and kernel 10 take bf16 and float32, every
+    other kernel bf16 only, so float32 compute on the card runs those four
+    where bf16 runs them (eval mode) and the plain route of every other
+    module (training layers, CLIP, kernels 6 and 7), decided before any
+    launch.  There is no card here, so the tests take every tensor for one
+    on the card (``on_card`` patched) and count the calls of the kernel
+    wrappers the modules make, as ``tests/test_torch_md_routes.py`` does.
+    The float32 route agrees with the wrapper route (each wrapper's plain
     version on a CPU tensor) within 1e-5.
+  * Each published configuration (``from_cfg`` at its published widths,
+    batch 2): the wrapper calls of a float32 eval forward on the card's
+    routes equal the package's float32 launch tables
+    (``ladiff_torch.launch_tables``), which are the bf16 route's calls of
+    those four kernels (the float32 gates take every shape the bf16 gates
+    take); the float32 route agrees with the plain route within 1e-5.
   * ``md_stack`` raises at construction for float32 compute on the card;
     ``build_system`` hands float32 to ``from_cfg`` for the unmodified
     published stage-1 configuration and a ``cuda`` device, and no longer
@@ -79,16 +87,36 @@ def calls(monkeypatch):
     return counts
 
 
-def test_kernel_compute_gate():
-    """bf16 takes the kernels anywhere; float32 only off the card, where
-    every wrapper is its plain version."""
-    from ladiff_torch.ops.cuda_common import kernel_compute, kernel_route
-    assert kernel_compute(torch.bfloat16, "cuda")
-    assert not kernel_compute(torch.float32, "cuda")
-    assert not kernel_compute(torch.float32, torch.device("cuda", 0))
-    assert kernel_compute(torch.float32, "cpu")
-    assert kernel_compute(torch.bfloat16, "cpu")
-    assert kernel_route(torch.zeros(2))
+# every kernel wrapper a module's route gate names, and the four that take
+# float32
+_GATED = ("fused_md_layer", "fused_decoder_layer", "fused_postnorm_ffn",
+          "fused_masked_attention", "fused_ln_qkv", "fused_proj_mlp",
+          "fused_md_stack", "fused_stylized_ffn", "fused_broadcast_stylize",
+          "train_self_attention", "train_postnorm_ffn", "train_encoder_layer",
+          "train_decoder_layer")
+_FLOAT32 = ("fused_decoder_layer", "fused_masked_attention",
+            "fused_md_layer", "fused_postnorm_ffn")
+
+
+@pytest.mark.parametrize("kernel", _GATED)
+def test_kernel_compute_gate(kernel):
+    """bf16 takes every kernel anywhere; float32 takes K1, K2, kernels 5
+    and 10 on the card and every kernel off it, where each wrapper is its
+    plain version; no kernel inside ``plain_routes()``."""
+    from ladiff_torch.launch_tables import FLOAT32_KERNELS
+    from ladiff_torch.ops.cuda_common import (kernel_compute, kernel_route,
+                                              plain_routes)
+    assert FLOAT32_KERNELS == _FLOAT32
+    assert kernel_compute(torch.bfloat16, "cuda", kernel)
+    assert kernel_compute(torch.float32, "cuda", kernel) == (
+        kernel in _FLOAT32)
+    assert kernel_compute(torch.float32, torch.device("cuda", 0),
+                          kernel) == (kernel in _FLOAT32)
+    assert kernel_compute(torch.float32, "cpu", kernel)
+    assert kernel_compute(torch.bfloat16, "cpu", kernel)
+    assert kernel_route(torch.zeros(2), kernel)
+    with plain_routes():
+        assert not kernel_route(torch.zeros(2), kernel)
 
 
 def _layers(seed):
@@ -101,24 +129,32 @@ def _layers(seed):
             TransformerDecoderLayer(D, H, FF, "gelu"))
 
 
-# (layer index, mode) -> the wrappers a bf16 call makes
-_BF16_CALLS = {
-    (0, "eval"): {"fused_masked_attention": 1, "fused_postnorm_ffn": 1},
-    (0, "train"): {"train_encoder_layer": 1},
-    (1, "train"): {"train_self_attention": 1, "train_postnorm_ffn": 1},
-    (2, "eval"): {"fused_decoder_layer": 1},
-    (2, "train"): {"train_decoder_layer": 1},
-    (3, "train"): {"train_self_attention": 1, "train_postnorm_ffn": 1},
+# (layer index, mode) -> the wrappers a bf16 call makes, and a float32 call
+# on the card: the inference kernels in eval mode, no training kernel
+_ENCODE = {"fused_masked_attention": 1, "fused_postnorm_ffn": 1}
+_CALLS = {
+    (0, "eval"): (_ENCODE, _ENCODE),
+    (1, "eval"): (_ENCODE, _ENCODE),
+    (0, "train"): ({"train_encoder_layer": 1}, {}),
+    (1, "train"): ({"train_self_attention": 1, "train_postnorm_ffn": 1}, {}),
+    (2, "eval"): ({"fused_decoder_layer": 1}, {"fused_decoder_layer": 1}),
+    (3, "eval"): ({"fused_decoder_layer": 1}, {"fused_decoder_layer": 1}),
+    (2, "train"): ({"train_decoder_layer": 1}, {}),
+    (3, "train"): ({"train_self_attention": 1, "train_postnorm_ffn": 1}, {}),
 }
 
 
-@pytest.mark.parametrize("case", sorted(_BF16_CALLS))
+@pytest.mark.parametrize("case", sorted(_CALLS))
 def test_transformer_layers_route_by_dtype(card, calls, monkeypatch, case):
     """Encoder and decoder layers, inference and training (whole-layer and
-    split): float32 on the card calls no wrapper and agrees with the
-    wrapper route; bf16 calls the kernels' wrappers."""
+    split): float32 on the card calls kernel 10 and kernel 5 (encoder) or
+    K2 (decoder) in eval mode and no wrapper in training, and agrees with
+    the wrapper route; bf16 calls the kernels' wrappers."""
+    from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.ops import cuda_common
     index, mode = case
+    bf16_calls, f32_calls = _CALLS[case]
+    assert float32_launches(bf16_calls) == f32_calls
     layer = _layers(3)[index].train(mode == "train")
     rng = np.random.RandomState(4)
     S, L = 64, 3
@@ -128,25 +164,28 @@ def test_transformer_layers_route_by_dtype(card, calls, monkeypatch, case):
     args = (x, mem, kv, mv) if index >= 2 else (x, kv)
     with torch.set_grad_enabled(mode == "train"):
         got = layer(*args)
-        assert calls == {}
+        assert calls == f32_calls
+        calls.clear()
         copy.deepcopy(layer).to(torch.bfloat16)(
             *[a.to(torch.bfloat16) if a.is_floating_point() else a
               for a in args])
-        assert calls == _BF16_CALLS[case]
+        assert calls == bf16_calls
         calls.clear()
         # the same float32 function through the wrappers (plain on a CPU
         # tensor)
         monkeypatch.setattr(cuda_common, "on_card", lambda device: False)
         want = layer(*args)
-    assert calls == _BF16_CALLS[case]
+    assert calls == bf16_calls
     assert relerr(got.detach(), want.detach().numpy()) <= ROUTE_TOL
 
 
 @pytest.mark.parametrize("heads", [4, 1])
 def test_md_layer_routes_by_dtype(card, calls, monkeypatch, heads):
-    """The MD layer at inference: float32 runs the plain per-block route;
-    bf16 runs K1 (4 heads) or, at head width 256 which K1 refuses, kernel
-    5's tail, kernel 7 and kernel 6 per block."""
+    """The MD layer at inference: float32 and bf16 run K1 (4 heads); at head
+    width 256, which K1 refuses, bf16 runs kernel 5's tail, kernel 7 and
+    kernel 6 per block, float32 kernel 5's tail and the plain versions of
+    the other blocks."""
+    from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.ops import cuda_common
     from ladiff_torch.ops.stylization import MDTransformerLayer
     d = 256 if heads == 1 else D
@@ -156,12 +195,16 @@ def test_md_layer_routes_by_dtype(card, calls, monkeypatch, heads):
     rng = np.random.RandomState(6)
     x, xf, emb = (t(rnd(rng, *s)) for s in ((2, 5, d), (2, 1, d), (2, d)))
     lv = t(np.arange(5)[None] < np.array([[5], [2]]))
+    want_calls = ({"fused_md_layer": 1} if heads == 4 else
+                  {"fused_postnorm_ffn": 1, "fused_broadcast_stylize": 1,
+                   "fused_stylized_ffn": 1})
+    f32_calls = ({"fused_md_layer": 1} if heads == 4 else
+                 {"fused_postnorm_ffn": 1})
+    assert float32_launches(want_calls) == f32_calls
     with torch.no_grad():
         got = layer(x, xf, emb, lv)
-        assert calls == {}
-        want_calls = ({"fused_md_layer": 1} if heads == 4 else
-                      {"fused_postnorm_ffn": 1, "fused_broadcast_stylize": 1,
-                       "fused_stylized_ffn": 1})
+        assert calls == f32_calls
+        calls.clear()
         copy.deepcopy(layer).to(torch.bfloat16)(
             *(a.to(torch.bfloat16) for a in (x, xf, emb)), lv)
         assert calls == want_calls
@@ -183,6 +226,164 @@ def test_clip_layer_routes_by_dtype(card, calls):
         assert calls == {}
         layer.to(torch.bfloat16)(x.to(torch.bfloat16), causal)
     assert calls == {"fused_ln_qkv": 1, "fused_proj_mlp": 1}
+
+
+def _randomize(module, seed):
+    """Every parameter random (the zero-init projections too): weights ~
+    N(0, 1/fan_in), LayerNorm weights ~ 1 + N(0, 0.1), other vectors ~
+    N(0, 0.05)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            r = torch.randn(p.shape, generator=g)
+            if p.dim() >= 2:
+                r = r / np.sqrt(p.shape[-1])
+            elif "norm" in name and name.endswith("weight"):
+                r = 1.0 + 0.1 * r
+            else:
+                r = 0.05 * r
+            p.copy_(r)
+    return module
+
+
+# published configuration -> (nfeats, njoints, dataset overrides, lengths)
+_PUBLISHED = {
+    "config_ladiff_humanml3d.yaml": (263, 22, {}, [196, 60]),
+    "config_ladiff_kit.yaml": (251, 21, {}, [196, 60]),
+    "config_novae_humanml3d.yaml": (263, 22, {}, [196, 60]),
+    "config_ladiff_humanact12.yaml": (150, 25, {"NCLASSES": 12}, [60, 40]),
+    "config_ladiff_uestc.yaml": (150, 25, {"NCLASSES": 40}, [60, 40]),
+}
+# (denoiser layers, VAE decoder layers) as published
+_LAYERS = {"config_ladiff_humanml3d.yaml": (9, 9),
+           "config_ladiff_kit.yaml": (9, 9),
+           "config_novae_humanml3d.yaml": (9, None),
+           "config_ladiff_humanact12.yaml": (15, 6),
+           "config_ladiff_uestc.yaml": (9, 9)}
+STEPS = 2  # DDIM (DDPM for novae) steps of the generation
+
+
+def _depth(module, kind):
+    """The layers of ``module`` that are ``kind`` ("encoder", "decoder" or
+    "md")."""
+    from ladiff_torch.ops.stylization import MDTransformerLayer
+    from ladiff_torch.ops.transformer import (TransformerDecoderLayer,
+                                              TransformerEncoderLayer)
+    cls = {"encoder": TransformerEncoderLayer,
+           "decoder": TransformerDecoderLayer, "md": MDTransformerLayer}[kind]
+    # an MD layer's sa_block is an encoder layer of its own
+    md = [m.sa_block for m in module.modules()
+          if isinstance(m, MDTransformerLayer)]
+    return sum(isinstance(m, cls) and not any(m is b for b in md)
+               for m in module.modules())
+
+
+@pytest.mark.parametrize("name", sorted(_PUBLISHED))
+def test_published_configs_float32_launch_tables(card, calls, monkeypatch,
+                                                 name):
+    """A published configuration at its published widths, batch 2: a
+    float32 generation (and, with an LA-VAE, an eval-mode encode) on the
+    card's routes calls the wrappers exactly as the package's float32
+    tables say, which are the bf16 routes' calls of K1, K2, kernels 5 and
+    10; it agrees with the plain routes within 1e-5."""
+    from ladiff_torch import launch_tables as lt
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.models.ladiff import LADiffSystem
+    from ladiff_torch.ops import cuda_common
+    nfeats, njoints, dataset, lengths = _PUBLISHED[name]
+    cfg = assemble_config(os.path.join(REPO, "configs", name),
+                          os.path.join(REPO, "configs", "assets.yaml"),
+                          {"DATASET": dataset} if dataset else None)
+    assert not cfg.TRAIN.MIXED_PRECISION
+    system = _randomize(LADiffSystem.from_cfg(
+        cfg, nfeats=nfeats, njoints=njoints, device="cpu",
+        dtype=torch.float32), 11).eval()
+    lengths = torch.tensor(lengths)
+    B = len(lengths)
+    rng = np.random.RandomState(12)
+    if system.condition == "action":
+        cond = system.denoiser.embed_action(torch.tensor([1, 3]))
+        uncond = torch.zeros_like(cond)
+        table = lt.action_generation(
+            STEPS, _depth(system.denoiser, "encoder"),
+            _depth(system.vae, "decoder"))
+    else:
+        cond, uncond = (t(rnd(rng, B, 1, 768)) for _ in range(2))
+        if system.vae is None:
+            table = {k: n * STEPS for k, n in lt.novae_step(
+                _depth(system.denoiser, "encoder")).items()}
+        else:
+            table = lt.generation(STEPS, _depth(system.denoiser, "md"),
+                                  _depth(system.vae, "decoder"))
+    feats = t(rnd(rng, B, int(max(lengths)), nfeats))
+    with_encode = system.vae is not None and system.condition != "action"
+
+    def run():
+        calls.clear()
+        with torch.no_grad():
+            out, _ = system.generate(
+                cond, uncond, lengths, num_inference_timesteps=STEPS,
+                generator=torch.Generator().manual_seed(13))
+            got = {"generate": (out, dict(calls))}
+            if with_encode:
+                calls.clear()
+                z = system.vae.encode(feats, lengths, sample_mean=True)[0]
+                got["encode"] = (z, dict(calls))
+        return got
+
+    f32 = run()  # float32 on the card's routes
+    with cuda_common.plain_routes():
+        plain = run()
+    monkeypatch.setattr(cuda_common, "on_card", lambda device: False)
+    bf16_routes = run()  # every kernel route: the bf16 gates' choices
+    assert f32["generate"][1] == table
+    assert _LAYERS[name] == (_depth(system.denoiser, "md")
+                             or _depth(system.denoiser, "encoder"),
+                             system.vae and _depth(system.vae, "decoder"))
+    assert plain["generate"][1] == {}
+    if with_encode:
+        assert f32["encode"][1] == lt.encode(_depth(system.vae.encoder,
+                                                    "encoder"))
+        assert f32["encode"][1] == lt.stage2_step(_depth(system.vae.encoder,
+                                                         "encoder"))
+    for key, (out, counts) in f32.items():
+        assert counts == lt.float32_launches(bf16_routes[key][1]), key
+        assert relerr(out, plain[key][0].numpy()) <= ROUTE_TOL, key
+        assert bool(torch.isfinite(out).all())
+
+
+def test_published_training_passes_float32_launch_tables(card, calls):
+    """The published HumanML3D configuration at its widths, batch 2, on the
+    card's float32 routes: a validation pass (no gradient) calls kernels 10
+    and 5 in each encoder layer and K2 in each decoder layer; the stage-1
+    pass with a gradient calls nothing (``launch_tables.STAGE1_STEP``); the
+    stage-2 pass calls the frozen encode's kernels 10 and 5
+    (``stage2_step``) and nothing in the training MD layers."""
+    from ladiff_torch import launch_tables as lt
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.models.ladiff import LADiffSystem
+    cfg = assemble_config(
+        os.path.join(REPO, "configs", "config_ladiff_humanml3d.yaml"),
+        os.path.join(REPO, "configs", "assets.yaml"),
+        {"model": {"droupout": 0.0}})
+    system = _randomize(LADiffSystem.from_cfg(
+        cfg, nfeats=263, njoints=22, device="cpu", dtype=torch.float32), 14)
+    rng = np.random.RandomState(15)
+    batch = {"motion": t(rnd(rng, 2, 196, 263)),
+             "length": torch.tensor([196, 70]),
+             "text_emb": t(rnd(rng, 2, 1, 768))}
+    g = lambda: torch.Generator().manual_seed(16)
+    calls.clear()
+    with torch.no_grad():
+        system.vae_forward(batch, train=False, generator=g())
+    assert calls == lt.float32_launches({**lt.encode(), **lt.decode()})
+    calls.clear()
+    system.vae_forward(batch, train=True, generator=g())[0].backward()
+    assert calls == lt.STAGE1_STEP
+    calls.clear()
+    system.diffusion_forward(batch, t(rnd(rng, 1, 1, 768)), train=True,
+                             generator=g())[0].backward()
+    assert calls == lt.stage2_step()
 
 
 def test_md_stack_refuses_float32_on_the_card():

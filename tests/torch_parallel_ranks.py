@@ -131,7 +131,7 @@ def train_step(rank, world, spec, data) -> dict:
         for name, m in system.named_modules():
             m.register_forward_pre_hook(
                 lambda mod, args, name=name: routes.__setitem__(
-                    name, kernel_route(probe)))
+                    name, kernel_route(probe, "fused_masked_attention")))
     batch = tensors(data["batch"])
     out = {"logs": {}}
     for i in range(int(spec.get("steps", 1))):
