@@ -46,6 +46,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
             each timed at its path's shape beside its plain version, its
             bound and the library call (``nn.TransformerDecoderLayer``,
             SDPA), and each chain's launches one by one.
+   train_kernels_f32  the float32 training kernels 8, 9, 12 and 13 (the
+            chains of ``csrc/f32_train.cu``), forward and backward,
+            against their float32 plain versions fed the kernels' masks
+            (``train_*_masks``), TF32 off, within ``F32_KERNEL_TOL``: the
+            published paths' 64 and 128 x 206 / 196 rows, the denoiser's
+            640 ReLU rows, kernel 13 at L 5 and L 7, the ActorVae's 62 /
+            60 tokens with L 1, 3 x 70 with a sample without a valid key,
+            rates 0.1 and 0; each backward's bits equal over two runs;
+            each timed at its path's shape beside its plain version, its
+            bound and, for 12 and 13, ``nn.TransformerEncoderLayer`` /
+            ``nn.TransformerDecoderLayer`` in training mode; each chain's
+            launches one by one.
 3. slice    ``LADiffSystem.generate`` at batch 4 with mixed lengths on the
             card (kernels, bf16) against the CPU (plain versions, float32),
             same weights, same initial noise.
@@ -192,13 +204,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
             steps with no launch.
 15. float32_entry  the published configurations unmodified (float32
             compute: the float32 K1, K2, kernels 5 and 10 at inference,
-            the plain route of every other module): stage 1 through
-            ``run_training`` for 2 epochs x 3 steps with no kernel launch,
-            its loss on one batch and its validation pass (kernels 10, 5,
-            K2) against the CPU's, float32 ms per step beside the bf16
-            route's; stage 2 booting from it for 3 steps (the frozen
-            encode's kernels 10 and 5 each step); a float32 generation
-            batch through the kernels beside ``plain_routes()``.
+            the float32 kernels 8 and 9, or 12 and 13, in training; CLIP
+            and kernels 6, 7 and 11's blocks plain): stage 1 through
+            ``run_training`` for 2 epochs x 3 steps through kernels 8 and
+            9 (``launch_tables.STAGE1_STEP`` each step), its loss and
+            every VAE gradient on one batch and its validation pass
+            (kernels 10, 5, K2) against the CPU's; ms, device ms, idle
+            share and peak memory a step through the float32 kernels,
+            under ``plain_routes()``, on the whole-layer route (kernels 12
+            and 13) and in bf16; stage 2 booting from it for 3 steps (the
+            frozen encode's kernels 10 and 5 and kernel 9 in each MD layer
+            each step); a float32 generation batch through the kernels
+            beside ``plain_routes()``.
 16. eval_entry  the T2M evaluation protocol (``ladiff_torch.test``
             ``run_test``) at the published stage-2 configuration from a
             saved random checkpoint, with random CLIP and evaluators, on 512
@@ -464,7 +481,8 @@ EXPECTED_DEMO = {
     "decode_with_weights": {"fused_masked_attention": 9,
                             "fused_postnorm_ffn": 9}}
 # the phases in the order they run, each with whether autograd records
-PHASES = (("kernels", False), ("kernels_f32", False), ("slice", False),
+PHASES = (("kernels", False), ("kernels_f32", False),
+          ("train_kernels_f32", False), ("slice", False),
           ("bench", False),
           ("route_kernels", False), ("route_slice", False),
           ("route_bench", False), ("novae_slice", False),
@@ -1205,6 +1223,306 @@ def phase_kernels_f32(dev):
               "fused_postnorm_ffn": lt.encode()["fused_postnorm_ffn"],
               "fused_masked_attention":
                   lt.encode()["fused_masked_attention"]},
+          "chains": chains, "seconds": time.perf_counter() - t0})
+    return recs
+
+
+# the float32 training kernels' rows of the ``kernels`` line: the TPU
+# kernel each replaces, and the path each row's launches come from
+# (``main`` reads them from float32_entry's runs)
+F32_TRAIN_REPLACES = {
+    "train_self_attention": "ladiff_tpu/ops/pallas_train_attention.py:388",
+    "train_postnorm_ffn": "ladiff_tpu/ops/pallas_train_ffn.py:209",
+    "train_encoder_layer": "ladiff_tpu/ops/pallas_train_layer.py:207",
+    "train_decoder_layer": "ladiff_tpu/ops/pallas_train_decoder_layer.py:410"}
+F32_TRAIN_PATHS = {
+    "train_self_attention": "published stage 1 (float32_entry stage-1 run: "
+                            "run_training, batch 64, 9 + 9 layers, split "
+                            "route)",
+    "train_postnorm_ffn": "published stage 1 (float32_entry stage-1 run: "
+                          "run_training, batch 64, split route)",
+    "train_encoder_layer": "published stage 1 on the whole-layer route "
+                           "(float32_entry's whole-layer steps, batch 64)",
+    "train_decoder_layer": "published stage 1 on the whole-layer route "
+                           "(float32_entry's whole-layer steps, batch 64)"}
+
+
+def phase_train_kernels_f32(dev):
+    """The float32 training kernels (8, 9, 12 and 13: the chains of
+    ``csrc/f32_train.cu`` behind the training wrappers) against their
+    float32 plain versions fed the masks the kernels draw
+    (``train_*_masks`` of the same seed), TF32 off, forward and backward
+    (the output, dx, every parameter gradient, kernel 13's memory
+    gradient), each case within ``F32_KERNEL_TOL`` norm-wise: kernels 8
+    and 9 at 64 and 128 x 206 and x 196 rows; 9 with ReLU at the
+    denoiser's 128 x 5 = 640 rows; 12 at 64 x 206; 13 at 64 x 196 over L
+    5 and L 7; the ActorVae's 128 x 62 (kernels 8, 12) and 128 x 60 (9,
+    13 with L 1); 3 x 70 with a sample without a valid key (and, for 13,
+    one without a valid memory row); rates 0.1 and 0.  Each backward run
+    twice gives the same bits.  Each kernel's forward and backward timed
+    at its path's shape (8 and 9 at 128 x 206, 12 at 64 x 206, 13 at 64 x
+    196 with L 5; rate 0.1) beside its plain version
+    (``interleaved_ms``), its bound (4 bytes an element at 3.35 TB/s
+    against the FLOPs at ``PEAK_F32_FLOPS``) and, for 12 and 13,
+    ``nn.TransformerEncoderLayer`` / ``nn.TransformerDecoderLayer`` in
+    training mode (dropout 0.1) as the library call (the backward's: a
+    backward through its retained graph); each chain's launches one by
+    one.  Returns the eight records of the ``kernels`` line; ``main`` sets
+    their launches from float32_entry's runs."""
+    import torch
+    from ladiff_torch.ops import train_attention as ta
+    from ladiff_torch.ops import train_decoder_layer as td
+    from ladiff_torch.ops import train_ffn as tf
+    from ladiff_torch.ops import train_layer as tl
+    from ladiff_torch.ops.f32_train import CHAIN_LAUNCHES
+    from ladiff_torch.ops.transformer import (TransformerDecoderLayer,
+                                              TransformerEncoderLayer)
+    from ladiff_torch.utils.masks import latent_valid_mask, lengths_to_mask
+
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(22)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, f32)
+
+    D, H, F, RATE, SEED = 256, 4, 1024, 0.1, 0x5EED22F32
+    src = "ladiff_torch/csrc/f32_train.cu"
+    tol = F32_KERNEL_TOL
+    errs, chains, recs = {}, {}, []
+    t0 = time.perf_counter()
+    enc = randomize_(TransformerEncoderLayer(D, H, F, "gelu"), 41).to(dev,
+                                                                      f32)
+    dec = randomize_(TransformerDecoderLayer(D, H, F, "gelu"), 42).to(dev,
+                                                                      f32)
+    pe = {k: v.detach() for k, v in enc.kernel_params().items()}
+    pd = {k: v.detach() for k, v in dec.kernel_params().items()}
+    pa = {k: pe[k] for k in ta.ATTN_PARAM_ORDER}
+    pf = {k: pe[k] for k in tf.FFN_PARAM_ORDER}
+
+    def key_valid(B, S, seed, empty):
+        """[B, S] bool: the encoder's stream at 206 tokens (two halves of 5
+        distribution tokens, then 196 frames), frames alone otherwise;
+        sample 0 without a valid key where ``empty``."""
+        lens = mixed_lengths(B, lo=min(16, S), hi=min(196, S), seed=seed)
+        if S == 206:
+            lat = latent_valid_mask(lens, 48, 5)
+            v = torch.cat([lat, lat, lengths_to_mask(lens, 196)], 1)
+        else:
+            v = lengths_to_mask(lens, S)
+        if empty:
+            v[0] = False
+        return v.to(dev)
+
+    def flat(out):
+        if len(out) == 3:  # kernel 13: (dx, dmem, grads)
+            return {"dx": out[0], "dmem": out[1], **out[2]}
+        return {"dx": out[0], **out[1]}
+
+    def case(kernel, B, S, rate, *, L=5, act="gelu", empty=False):
+        """Holds ``kernel``'s forward and backward at B x S rows against
+        its plain version under the kernels' masks, and the backward's bits
+        over two runs; returns what the timing needs."""
+        M = B * S
+        x, dout = rnd(M, D), rnd(M, D, scale=0.1)
+        valid = key_valid(B, S, 60 + B + S, empty)
+        kvalid = valid.reshape(M).float().contiguous()
+        kw = dict(rate=rate, seed=SEED)
+        name = (f"{kernel} float32, {B} x {S}"
+                + (f", L {L}" if kernel == "train_decoder_layer" else "")
+                + f", {act}, rate {rate}"
+                + (", a sample without a valid key" if empty else ""))
+        fin = [x, kvalid]
+        if kernel == "train_postnorm_ffn":
+            masks = (tf.train_postnorm_ffn_masks(M, D, F, rate, SEED, dev)
+                     if rate else None)
+            saved, p, fin = (), pf, [x]
+            fwd = lambda: tf.train_postnorm_ffn_fwd(x, pf, activation=act,
+                                                    **kw)
+            plain = lambda: tf.train_postnorm_ffn_plain(x, pf, masks,
+                                                        activation=act)
+            bwd = lambda: tf.train_postnorm_ffn_bwd(x, dout, pf,
+                                                    activation=act, **kw)
+            pbwd = lambda: tf.train_postnorm_ffn_bwd_plain(
+                x, dout, pf, masks, activation=act)
+        elif kernel == "train_self_attention":
+            masks = (ta.train_self_attention_masks(B, S, D, H, rate, SEED,
+                                                   dev) if rate else None)
+            p = pa
+            saved = ta.train_self_attention_fwd(x, kvalid, pa, H=H, S=S,
+                                                return_saved=True, **kw)[1]
+            fwd = lambda: ta.train_self_attention_fwd(x, kvalid, pa, H=H,
+                                                      S=S, **kw)
+            plain = lambda: ta.train_self_attention_plain(x, kvalid, pa,
+                                                          masks, H=H, S=S)
+            bwd = lambda: ta.train_self_attention_bwd(
+                x, kvalid, dout, pa, saved, H=H, S=S, **kw)
+            pbwd = lambda: ta.train_self_attention_bwd_plain(
+                x, kvalid, dout, pa, masks, H=H, S=S)
+        elif kernel == "train_encoder_layer":
+            masks = (tl.train_encoder_layer_masks(B, S, D, H, F, rate, SEED,
+                                                  dev) if rate else None)
+            p = pe
+            saved = tl.train_encoder_layer_fwd(
+                x, kvalid, pe, H=H, S=S, activation=act, return_saved=True,
+                **kw)[1]
+            fwd = lambda: tl.train_encoder_layer_fwd(x, kvalid, pe, H=H, S=S,
+                                                     activation=act, **kw)
+            plain = lambda: tl.train_encoder_layer_plain(
+                x, kvalid, pe, masks, H=H, S=S, activation=act)
+            bwd = lambda: tl.train_encoder_layer_bwd(
+                x, kvalid, dout, pe, saved, H=H, S=S, activation=act, **kw)
+            pbwd = lambda: tl.train_encoder_layer_bwd_plain(
+                x, kvalid, dout, pe, masks, H=H, S=S, activation=act)
+        else:
+            mem = rnd(B, L, D)
+            lens = mixed_lengths(B, seed=70 + L)
+            mv = (latent_valid_mask(lens, 48 if L <= 5 else 28, L)
+                  if L > 1 else torch.ones(B, 1, dtype=torch.bool))
+            if empty:
+                mv[1] = False
+            mvalid = mv.float().to(dev).contiguous()
+            masks = (td.train_decoder_layer_masks(B, S, L, D, H, F, rate,
+                                                  SEED, dev)
+                     if rate else None)
+            p, fin = pd, [x, kvalid, mem, mvalid]
+            saved = td.train_decoder_layer_fwd(
+                x, kvalid, mem, mvalid, pd, H=H, S=S, activation=act,
+                return_saved=True, **kw)[1]
+            fwd = lambda: td.train_decoder_layer_fwd(
+                x, kvalid, mem, mvalid, pd, H=H, S=S, activation=act, **kw)
+            plain = lambda: td.train_decoder_layer_plain(
+                x, kvalid, mem, mvalid, pd, masks, H=H, S=S, activation=act)
+            bwd = lambda: td.train_decoder_layer_bwd(
+                x, kvalid, mem, mvalid, dout, pd, saved, H=H, S=S,
+                activation=act, **kw)
+            pbwd = lambda: td.train_decoder_layer_bwd_plain(
+                x, kvalid, mem, mvalid, dout, pd, masks, H=H, S=S,
+                activation=act)
+        errs[name] = compare(name, fwd(), plain(), tol)[0]
+        got = flat(bwd())
+        errs[name + ", backward"] = compare(name + ", backward", got,
+                                            flat(pbwd()), tol)[0]
+        again = flat(bwd())
+        if not all(torch.equal(v, again[k]) for k, v in got.items()):
+            fail(f"{name}: two backwards gave different bits")
+        del got, again
+        torch.cuda.synchronize()
+        # bytes: each input read once, each output written once (the
+        # backward's outputs: dx, dmem, the parameters' gradients)
+        pbytes = nbytes(*p.values())
+        nb_f = nbytes(*fin, x) + pbytes
+        nb_b = nbytes(*fin, dout, *saved, *fin[::2]) + 2 * pbytes
+        return dict(fwd=fwd, plain=plain, bwd=bwd, pbwd=pbwd, valid=valid,
+                    nb=(nb_f, nb_b), x=x, dout=dout,
+                    mem=fin[2] if len(fin) > 2 else None,
+                    mvalid=fin[3] if len(fin) > 3 else None)
+
+    for B, S, rate in ((128, 206, 0.0), (64, 206, 0.1), (128, 196, 0.1),
+                       (64, 196, 0.0), (128, 62, 0.1), (3, 70, 0.1)):
+        case("train_self_attention", B, S, rate, empty=B == 3)
+    for B, S, rate, act in ((128, 206, 0.0, "gelu"), (64, 206, 0.1, "gelu"),
+                            (128, 196, 0.0, "gelu"), (64, 196, 0.1, "gelu"),
+                            (128, 5, 0.1, "relu"), (128, 5, 0.0, "relu"),
+                            (128, 60, 0.1, "gelu"), (3, 70, 0.1, "gelu")):
+        case("train_postnorm_ffn", B, S, rate, act=act)
+    for B, S, rate in ((64, 206, 0.0), (128, 62, 0.1), (3, 70, 0.1)):
+        case("train_encoder_layer", B, S, rate, empty=B == 3)
+    for B, S, L, rate in ((64, 196, 7, 0.1), (64, 196, 5, 0.0),
+                          (128, 60, 1, 0.1), (3, 70, 5, 0.1)):
+        case("train_decoder_layer", B, S, rate, L=L, empty=B == 3)
+
+    def attn_flops(valid, B, S):
+        """Kernel 8's needed work, forward and backward: the projections
+        and every query against its sample's valid keys (all S of a
+        sample without one)."""
+        M = B * S
+        keys = valid.sum(1)
+        pairs = S * int(torch.where(keys > 0, keys, S).sum())
+        return (2 * M * D * 3 * D + 2 * M * D * D + 4 * D * pairs,
+                2 * (2 * M * D * D + 2 * M * D * 3 * D) + 8 * D * pairs)
+
+    def record(kernel, c, flops, shape, libs=(None, None)):
+        bwd, pbwd = c["bwd"], c["pbwd"]
+        for nm, run, prun, fl, nb, lib in (
+                (kernel, c["fwd"], c["plain"], flops[0], c["nb"][0], libs[0]),
+                (kernel + "_bwd", lambda: flat(bwd()), lambda: flat(pbwd()),
+                 flops[1], c["nb"][1], libs[1])):
+            recs.append(check_kernel(
+                f"{nm} (float32)", src, F32_TRAIN_REPLACES[kernel], run,
+                prun, prun, fl, nb, library=lib, tol=tol, rounds=3,
+                peak=PEAK_F32_FLOPS,
+                extra={"path": F32_TRAIN_PATHS[kernel],
+                       "timed_shape": shape, "rate": RATE,
+                       "chain_launches": CHAIN_LAUNCHES[nm]}))
+            chains[nm] = launch_breakdown(run)
+
+    def library(layer, c, B, S, decoder):
+        """The torch layer in training mode (dropout 0.1) on the case's
+        inputs: (forward, backward through a retained graph)."""
+        x = c["x"].reshape(B, S, D).clone().requires_grad_()
+        pad = ~c["valid"]
+        if decoder:
+            mem = c["mem"].clone().requires_grad_()
+            mpad = ~(c["mvalid"] > 0.5)
+            call = lambda: layer(x, mem, tgt_key_padding_mask=pad,
+                                 memory_key_padding_mask=mpad)
+        else:
+            call = lambda: layer(x, src_key_padding_mask=pad)
+        leaves = [x] + list(layer.parameters()) + ([mem] if decoder else [])
+        with torch.enable_grad():
+            y = call()
+        dy = c["dout"].reshape(B, S, D)
+
+        def fwd():
+            with torch.no_grad():
+                return call()
+
+        def bwd():
+            return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        return fwd, bwd
+
+    # kernels 8 and 9 at the bench batch's encoder rows
+    c = case("train_self_attention", 128, 206, RATE)
+    record("train_self_attention", c, attn_flops(c["valid"], 128, 206),
+           "128 x 206 encoder stream")
+    M = 128 * 206
+    c = case("train_postnorm_ffn", 128, 206, RATE)
+    record("train_postnorm_ffn", c, (4 * M * D * F, 8 * M * D * F),
+           "128 x 206 rows, GELU")
+    # kernel 12 at the published batch's encoder rows
+    c = case("train_encoder_layer", 64, 206, RATE)
+    M = 64 * 206
+    fa = attn_flops(c["valid"], 64, 206)
+    lib = torch.nn.TransformerEncoderLayer(
+        D, H, F, dropout=RATE, activation="gelu", batch_first=True).to(dev)
+    lib.load_state_dict(enc.state_dict())
+    record("train_encoder_layer", c,
+           (fa[0] + 4 * M * D * F, fa[1] + 8 * M * D * F),
+           "64 x 206 encoder stream",
+           library(lib.train(), c, 64, 206, False))
+    del lib
+    # kernel 13 at the published batch's decoder rows, L 5
+    B, S, L = 64, 196, 5
+    c = case("train_decoder_layer", B, S, RATE, L=L)
+    M = B * S
+    fa = attn_flops(c["valid"], B, S)
+    mkeys = (c["mvalid"] > 0.5).sum(1)
+    cpairs = S * int(torch.where(mkeys > 0, mkeys, L).sum())
+    # the cross-attention's products (q, k / v of the memory rows, out)
+    # and attention over the valid memory rows, then the FFN
+    fc = (2 * M * D * D * 2 + 2 * B * L * D * 2 * D + 4 * D * cpairs,
+          2 * (2 * M * D * D * 2 + 2 * B * L * D * 2 * D) + 8 * D * cpairs)
+    lib = torch.nn.TransformerDecoderLayer(
+        D, H, F, dropout=RATE, activation="gelu", batch_first=True).to(dev)
+    lib.load_state_dict(dec.state_dict())
+    record("train_decoder_layer", c,
+           (fa[0] + fc[0] + 4 * M * D * F, fa[1] + fc[1] + 8 * M * D * F),
+           "64 x 196 frames, L 5", library(lib.train(), c, B, S, True))
+    del lib, c
+    torch.cuda.empty_cache()
+    emit({"phase": "train_kernels_f32", "rel_err": errs, "tol": tol,
+          "bits_equal_twice": len(errs) // 2,
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
           "chains": chains, "seconds": time.perf_counter() - t0})
     return recs
 
@@ -3448,27 +3766,33 @@ def _f32_generation_vs_plain(system, B=32, steps=50, seed=5):
 
 def phase_float32_entry(dev):
     """The published configurations as shipped (``TRAIN.MIXED_PRECISION``
-    false): float32 compute on the card, the inference layers through the
-    float32 K1, K2, kernels 5 and 10, everything else on its plain route.
+    false): float32 compute on the card, every layer through the float32
+    chains of its kernels (K1, K2, kernels 5 and 10 at inference, kernels 8
+    and 9, or 12 and 13 on the whole-layer route, in training).
     ``configs/config_vae_humanml3d.yaml`` through ``run_training`` on 512
-    synthetic clips, 2 epochs x 3 steps at its batch of 64, with no kernel
-    launch (``launch_tables.STAGE1_STEP``: the training layers' kernels
-    take bf16 only); its loss on one batch (the eval-mode forward under
-    autograd, dropout off, the same weights and latent noise: the training
-    route, no launch) against the CPU float32 forward within
+    synthetic clips, 2 epochs x 3 steps at its batch of 64, launching
+    ``launch_tables.STAGE1_STEP`` each step; its loss and every VAE
+    gradient by name on one batch (the eval-mode forward under autograd,
+    dropout off, the same weights and latent noise: the training route,
+    ``STAGE1_STEP``) against the CPU's float32 ones within
     ``FLOAT32_LOSS_TOL``, and the validation pass of the same batch (no
     gradient: kernels 10 and 5 in the encoder, K2 in the decoder, exactly
     ``float32_launches(EXPECTED_VALIDATION)``) within the same tolerance;
-    float32 ms per step at the configuration's batch beside the bf16
-    route's (the same configuration with ``MIXED_PRECISION`` true), 5
-    timed steps after 2; then ``configs/config_ladiff_humanml3d.yaml``
-    (stage 2, batch 128) booting the VAE from those checkpoints for 3
-    steps, the frozen encode launching ``launch_tables.stage2_step()``
-    each step; then a float32 generation batch of the stage-2 system (32
-    samples, CFG DDIM-50) through the kernels and under
-    ``plain_routes()`` (``_f32_generation_vs_plain``): launches exactly
+    ms per step at the configuration's batch (5 timed steps after 2)
+    through the float32 kernels, under ``plain_routes()``, on the
+    whole-layer route (``STAGE1_WHOLE_LAYER_STEP``) and in bf16 (the same
+    configuration with ``MIXED_PRECISION`` true), each with its device ms
+    a step, idle share and peak memory; then
+    ``configs/config_ladiff_humanml3d.yaml`` (stage 2, batch 128) booting
+    the VAE from those checkpoints for 3 steps, each launching
+    ``launch_tables.stage2_step()`` (the frozen encode, kernel 9 in each MD
+    layer); then a float32 generation batch of the stage-2 system (32
+    samples, CFG DDIM-50) through the kernels and under ``plain_routes()``
+    (``_f32_generation_vs_plain``): launches exactly
     ``launch_tables.generation(50)``, the routes within
-    ``FLOAT32_LOSS_TOL``.  Returns the stage-2 run's launches."""
+    ``FLOAT32_LOSS_TOL``.  Returns the stage-1, whole-layer and stage-2
+    runs' launches."""
+    import contextlib
     import shutil
     import tempfile
 
@@ -3538,6 +3862,18 @@ def phase_float32_entry(dev):
             if p.grad is not None)))
         torch.cuda.synchronize()
         launches_batch = {k: v for k, v in cc.launch_counts().items() if v}
+        # the same batch's gradients on the CPU, by name
+        t_cpu = time.perf_counter()
+        with torch.enable_grad():
+            loss_cg, _ = cpu.vae_forward(batch, train=False, eps=eps)
+            loss_cg.backward()
+        cpu_backward_s = time.perf_counter() - t_cpu
+        cgrads = {n: p.grad for n, p in cpu.vae.named_parameters()}
+        grad_errs = {n: relerr(p.grad.cpu(), cgrads[n])
+                     for n, p in gpu.vae.named_parameters()
+                     if p.grad is not None or cgrads[n] is not None}
+        worst_grad = max(grad_errs, key=grad_errs.get)
+        gpu.vae.zero_grad(set_to_none=True)
         # the validation pass of the same batch: no gradient, the float32
         # kernels in the encoder and the decoder
         cc.reset_launch_counts()
@@ -3547,37 +3883,56 @@ def phase_float32_entry(dev):
                 eps=eps.to(dev))
         torch.cuda.synchronize()
         launches_val = {k: v for k, v in cc.launch_counts().items() if v}
-        with torch.no_grad():
-            loss_c, _ = cpu.vae_forward(batch, train=False, eps=eps)
+        loss_c = loss_cg.detach()
         loss_g = loss_g.detach()
         loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
         val_err = abs(float(loss_v) - float(loss_c)) / abs(float(loss_c))
         del cpu
 
-        def ms_per_step(system, n=5, warmup=2):
+        def step_stats(system, n=5, warmup=2, plain=False):
+            """ms a step on the host's clock over n steps after warmup
+            (their launches counted), peak memory over them, then device
+            ms a step from a profiled window of 2 and the idle share."""
             opt = make_optimizer(system.vae.parameters(), 1e-4)
             b = {k: v.to(dev) for k, v in batch.items()}
-            for i in range(warmup + n):
-                if i == warmup:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                vae_train_step(system, opt, b)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / n * 1e3
+            scope = cc.plain_routes if plain else contextlib.nullcontext
+            with scope():
+                for _ in range(warmup):
+                    vae_train_step(system, opt, b)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                cc.reset_launch_counts()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    vae_train_step(system, opt, b)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / n * 1e3
+                launches = {k: v for k, v in cc.launch_counts().items()
+                            if v}
+                peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                dms = _device_window(lambda: vae_train_step(system, opt, b),
+                                     2)[0]
+            return {"ms": ms, "device_ms": dms, "idle_share": 1 - dms / ms,
+                    "peak_gib": peak, "launches": launches}
 
-        cc.reset_launch_counts()
-        ms_f32 = ms_per_step(gpu)
-        launches_steps = {k: v for k, v in cc.launch_counts().items() if v}
+        timed = {"float32": step_stats(gpu)}
+        launches_steps = timed["float32"]["launches"]
+        timed["float32_plain_routes"] = step_stats(gpu, plain=True)
         del gpu
+        torch.cuda.empty_cache()
+        whole = build_system(cfg1, dm, device=dev, train_whole_layer="1")
+        timed["float32_whole_layer"] = step_stats(whole)
+        del whole
         torch.cuda.empty_cache()
         bf = build_system(config("config_vae_humanml3d.yaml",
                                  MIXED_PRECISION=True), dm, device=dev)
-        ms_bf16 = ms_per_step(bf)
+        timed["bf16"] = step_stats(bf)
         del bf
         torch.cuda.empty_cache()
-        print(f"# float32_entry: {B} samples per step, float32 "
-              f"{ms_f32:.2f} ms/step, bf16 {ms_bf16:.2f} ms/step",
-              flush=True)
+        print(f"# float32_entry: {B} samples per step: " + ", ".join(
+            f"{k} {v['ms']:.2f} ms ({v['device_ms']:.2f} device ms, "
+            f"{v['peak_gib']:.2f} GiB)" for k, v in timed.items()),
+            flush=True)
 
         cfg2 = config("config_ladiff_humanml3d.yaml",
                       PRETRAINED_VAE=ckpt1, END_EPOCH=1)
@@ -3611,7 +3966,11 @@ def phase_float32_entry(dev):
                "validation_loss_rel_err": val_err,
                "generation": gen,
                "grad_norm": grad_norm,
-               "ms_per_step": {"float32": ms_f32, "bf16": ms_bf16},
+               "grad_rel_err": grad_errs, "worst_grad": worst_grad,
+               "worst_grad_rel_err": grad_errs[worst_grad],
+               "cpu_forward_backward_s": cpu_backward_s,
+               "steps": timed,
+               "ms_per_step": {k: v["ms"] for k, v in timed.items()},
                "vae_booted": vae_booted,
                "seconds": time.perf_counter() - t_start}
         emit(rec)
@@ -3622,13 +3981,28 @@ def phase_float32_entry(dev):
              "mixed precision")
     if files != ["epoch_1.ckpt", "epoch_2.ckpt"]:
         fail(f"float32_entry: stage-1 checkpoints {files}")
-    want = {"stage1_run": lt.STAGE1_STEP, "parity_batch": {},
+    def times(table, n):
+        return {k: n * v for k, v in table.items()}
+
+    # stage 1: 2 epochs x 3 steps; 5 timed steps; stage 2: 3 steps
+    want = {"stage1_run": times(lt.STAGE1_STEP, 6),
+            "parity_batch": lt.STAGE1_STEP,
             "validation": lt.float32_launches(EXPECTED_VALIDATION),
-            "timed_steps": lt.STAGE1_STEP,
-            "stage2_run": {k: 3 * n for k, n in lt.stage2_step().items()}}
+            "timed_steps": times(lt.STAGE1_STEP, 5),
+            "stage2_run": times(lt.stage2_step(), 3)}
     if rec["kernel_launches"] != want:
         fail(f"float32_entry: float32 launches {rec['kernel_launches']}, "
              f"expected {want}")
+    want_steps = {"float32_plain_routes": {},
+                  "float32_whole_layer": times(lt.STAGE1_WHOLE_LAYER_STEP,
+                                               5)}
+    for k, table in want_steps.items():
+        if timed[k]["launches"] != table:
+            fail(f"float32_entry: the {k} steps launched "
+                 f"{timed[k]['launches']}, expected {table}")
+    if not grad_errs[worst_grad] <= FLOAT32_LOSS_TOL:
+        fail(f"float32_entry: gradient {worst_grad} on the card "
+             f"{grad_errs[worst_grad]} from the CPU's")
     if gen["launches"] != lt.generation(50):
         fail(f"float32_entry: a float32 generation launched "
              f"{gen['launches']}, expected {lt.generation(50)}")
@@ -3647,7 +4021,8 @@ def phase_float32_entry(dev):
     if not (vae_booted and e1 == 2 and all(map(math.isfinite, losses))):
         fail("float32_entry: stage 2 did not boot the stage-1 VAE, or a "
              "loss is not finite")
-    return launches2
+    return {"stage1_run": launches1, "stage2_run": launches2,
+            "whole_layer_steps": timed["float32_whole_layer"]["launches"]}
 
 
 class _ClipCalls:
@@ -3671,12 +4046,14 @@ def phase_eval_entry(dev, gpu=""):
     random system saved as a checkpoint and restored, random CLIP (seed 0)
     and random evaluators (no ``finest.tar``).  Reduced:
     ``REPLICATION_TIMES`` 1 (published 20; 2 until the whole script's clock
-    passed 900 s with ``parallel_slice``), ``MM_NUM_SAMPLES`` 11
-    (published 100; the protocol computes MultiModality only above
-    ``MM_NUM_TIMES`` = 10 captions), ``MM_NUM_REPEATS`` 15 (published 30;
-    cut when the whole script's clock passed 900 s again on a slower host:
-    the MultiModality pass takes ``MM_NUM_TIMES`` pairs of a caption's
-    repeats, so more than 10 stay); ``COUNT_TIME`` on.
+    passed 900 s with ``parallel_slice``), ``MM_NUM_TIMES`` 5 (published
+    10), ``MM_NUM_SAMPLES`` 6 (published 100; the protocol computes
+    MultiModality only above ``MM_NUM_TIMES`` captions),
+    ``MM_NUM_REPEATS`` 6 (published 30: the pass takes ``MM_NUM_TIMES``
+    pairs of a caption's repeats, so more than ``MM_NUM_TIMES`` stay; the
+    three cut from 10, 11 and 15 when the whole script read 1154.7 s on a
+    slow host, the float32 CPU run's MultiModality pass 110.7 s of it);
+    ``COUNT_TIME`` on.
 
     (a) float32, as published: on the card (the float32 K1 and K2, exactly
     ``float32_launches(EXPECTED_EVAL_PER_BATCH)`` per eval batch; CLIP on
@@ -3695,7 +4072,8 @@ def phase_eval_entry(dev, gpu=""):
     published: feature-space diffusion, no VAE) from a seeded random
     checkpoint of its own, reduced to ``REPLICATION_TIMES`` 1 and
     ``num_inference_timesteps`` 50 (published 1000: 1000 steps of the
-    MultiModality pass alone would take minutes), ``MM_NUM_SAMPLES`` 11:
+    MultiModality pass alone would take minutes), the same MultiModality
+    scale:
     kernel 10 exactly ``launch_tables.novae_step()`` every step of every
     eval batch, every metric finite.  Prints the seconds per
     eval batch, per replication and per MultiModality pass of each run with
@@ -3772,8 +4150,9 @@ def phase_eval_entry(dev, gpu=""):
                                           n_clips=512, seed=0)
         base = {"DEBUG": False, "FOLDER": os.path.join(tmp, "experiments"),
                 "DATASET": {"HUMANML3D": {"ROOT": data}},
-                "TEST": {"REPLICATION_TIMES": 1, "MM_NUM_SAMPLES": 11,
-                         "MM_NUM_REPEATS": 15, "COUNT_TIME": True,
+                "TEST": {"REPLICATION_TIMES": 1, "MM_NUM_TIMES": 5,
+                         "MM_NUM_SAMPLES": 6, "MM_NUM_REPEATS": 6,
+                         "COUNT_TIME": True,
                          "CHECKPOINTS": ckpt_dir},
                 "model": {"t2m_path": os.path.join(tmp, "t2m")},
                 "LOGGER": {"TENSORBOARD": False}}
@@ -3856,7 +4235,10 @@ def phase_eval_entry(dev, gpu=""):
                 "metrics": {k: v[0] for k, v in r["summary"].items()}}
 
     rec = {"phase": "eval_entry", "gpu": gpu, "test_clips": n_test,
-           "replications": 1, "mm_num_samples": 11, "mm_num_repeats": 30,
+           "replications": 1,
+           "mm_num_times": base["TEST"]["MM_NUM_TIMES"],
+           "mm_num_samples": base["TEST"]["MM_NUM_SAMPLES"],
+           "mm_num_repeats": base["TEST"]["MM_NUM_REPEATS"],
            "float32_card": public(f32_card), "float32_cpu": public(f32_cpu),
            "bf16_diffusion": public(bf16), "bf16_vae": public(vae),
            "float32_novae": public(novae),
@@ -6634,8 +7016,9 @@ def phase_parallel_slice(dev, gpu=""):
     bit, launches equal, against the one-process step with those nodes
     (``fsdp_autograd_graph``), and at ``train_slice``'s tolerances against
     the plain one-process step; in float32 too (within
-    ``PARALLEL_F32_TOL`` of the plain step; stage 1 launches nothing,
-    stage 2 the frozen encode's float32 kernels 5 and 10).  TP, SP and PP
+    ``PARALLEL_F32_TOL`` of the plain step; stage 1 launches the float32
+    kernels 8 and 9, ``launch_tables.STAGE1_STEP``, stage 2
+    ``launch_tables.stage2_step()``).  TP, SP and PP
     at width 1 take plain parts in the sharded or pipelined tree: in
     float32 every gradient within ``PARALLEL_F32_TOL`` of the one-process
     step, the frozen encode's float32 kernels in stage 2; in bf16 the gradients against the control (the one-process
@@ -6645,7 +7028,8 @@ def phase_parallel_slice(dev, gpu=""):
     bit for bit, launches equal.  (b) Two ranks on the card, spawned, over
     gloo: the layouts of ``PARALLEL_CARD_LAYOUTS`` in float32 (every
     gradient within ``PARALLEL_F32_TOL`` of one process, launches
-    ``launch_tables.stage2_step()`` in stage 2 and none in stage 1) and in
+    ``f32_table``'s: DDP's ``STAGE1_STEP`` and ``stage2_step()``, TP's and
+    SP's none in stage 1) and in
     bf16 against the control (DDP's launches equal).  (c) ms a step at
     batch 64: the single-device stage-1 step against DDP and FSDP at world
     size 1 (the wrappers' own cost), and each 2-rank bf16 step's ms at
@@ -6670,6 +7054,14 @@ def phase_parallel_slice(dev, gpu=""):
     tol = TRAIN_GRAD_TOL["unit_std_no_joints"]
     f32, bf16 = torch.float32, torch.bfloat16
     ref = {}
+
+    def f32_table(stage, plain):
+        """A float32 step's launches: stage 1's kernels 8 and 9 (split
+        route), stage 2's frozen encode and kernel 9 in the MD layers; on
+        a plain layout (TP, SP, PP) the frozen encode alone."""
+        if plain:
+            return lt.encode() if stage == "diffusion" else {}
+        return lt.stage2_step() if stage == "diffusion" else lt.STAGE1_STEP
 
     def single(stage, dtype=None, whole="0", plain=False, graph=False):
         key = (stage, str(dtype), whole, plain, graph)
@@ -6726,9 +7118,7 @@ def phase_parallel_slice(dev, gpu=""):
                    "single_process_launches": want[2]}
             key = name if dtype is None else f"{name}_{str(dtype)[6:]}"
             world1[key] = rec
-            # float32 launches the frozen VAE encode's float32 kernels 5
-            # and 10 in stage 2 and nothing in stage 1
-            f32_want = lt.stage2_step() if stage == "diffusion" else {}
+            f32_want = f32_table(stage, plain)
             if dtype == f32:
                 ok = (rec["loss_rel_err"] <= PARALLEL_F32_TOL
                       and errs[worst] <= PARALLEL_F32_TOL
@@ -6751,10 +7141,9 @@ def phase_parallel_slice(dev, gpu=""):
                            fsdp_order_worst_grad_rel_err=max(oerrs.values()))
                 ok = (ok and got[0] == order[0] and oflat == 0.0
                       and got[2] == order[2])
-            # the frozen VAE encode of stage 2 keeps kernels 5 and 10 in
-            # float32 and on the plain layouts
-            some = (stage == "diffusion" if dtype == f32 or plain
-                    else True)
+            # the plain layouts' stage 1 launches nothing; their stage 2
+            # the frozen VAE encode's kernels 5 and 10
+            some = stage == "diffusion" if plain else True
             _held(f"{key} (world size 1)",
                   rec, ok and got[2] == want[2] and bool(got[2]) == some)
     ev_got, ev_counts = eval_batch()
@@ -6816,7 +7205,7 @@ def phase_parallel_slice(dev, gpu=""):
         spawned[name] = _held(f"{name} (2 ranks, gloo)", rec, (
             rec["f32_loss_rel_err"] <= PARALLEL_F32_TOL
             and rec["f32_worst_grad_rel_err"] <= PARALLEL_F32_TOL
-            and g32[2] == (lt.stage2_step() if stage == "diffusion" else {})
+            and g32[2] == f32_table(stage, layout in ("tp", "sp", "pp"))
             and rec["bf16_loss_rel_err"] <= TRAIN_LOSS_TOL
             and rec["held"] and gbf[2] == wbf[2]))
     emit({"phase": "parallel_slice", "gpu": gpu,
@@ -7814,13 +8203,22 @@ def main():
     # paths: K1 and K2 in eval_entry's float32 card run of test.py, kernels
     # 10 and 5 in float32_entry's stage-2 run (the frozen encode)
     f32_eval = out["eval_entry"]["float32_card"]["launches"]
+    f32_entry = out["float32_entry"]
     f32_launches = {**{k: f32_eval.get(k, 0) for k in
                        ("fused_md_layer", "fused_decoder_layer")},
-                    **{k: out["float32_entry"].get(k, 0) for k in
+                    **{k: f32_entry["stage2_run"].get(k, 0) for k in
                        ("fused_postnorm_ffn", "fused_masked_attention")}}
     for rec in out["kernels_f32"]:
         rec["launches"] = f32_launches[rec["name"].split(" (")[0]]
     recs += out["kernels_f32"]
+    # the float32 training kernels: 8 and 9 in float32_entry's stage-1 run
+    # of run_training, 12 and 13 in its whole-layer steps
+    for rec in out["train_kernels_f32"]:
+        name = rec["name"].split(" (")[0]
+        run = ("whole_layer_steps" if name.startswith(
+            ("train_encoder_layer", "train_decoder_layer")) else "stage1_run")
+        rec["launches"] = f32_entry[run].get(name, 0)
+    recs += out["train_kernels_f32"]
     for rec in recs:
         if rec["launches"] <= 0:
             fail(f"{rec['name']} was not launched on the main path")

@@ -46,8 +46,10 @@ for the HumanAct12 classifier (``feats2joints_action_eval``).
 ``vae_num_layers`` gives the VAE its own (15 and 6 in the HumanAct12
 configurations).
 
-``dtype`` is the compute type (bf16 on CUDA by default, the kernels' type;
-float32 there takes every module's plain route) and ``param_dtype`` the
+``dtype`` is the compute type (bf16 on CUDA by default; float32 there
+takes the kernels' float32 chains where a kernel has one, K1, K2 and
+kernels 5, 8, 9, 10, 12 and 13, and the plain route of CLIP and of the
+stylization blocks of kernels 6 and 7) and ``param_dtype`` the
 parameters' storage type, the same unless given: the trainer keeps float32
 parameters and computes in bf16 or, as the published configurations ask,
 in float32.

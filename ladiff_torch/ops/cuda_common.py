@@ -13,13 +13,15 @@ Dispatch is by device only: a wrapper given CPU tensors runs the kernel's
 plain PyTorch version; given CUDA tensors it launches the kernel or raises.
 Which route a module takes is decided before any launch, from shapes (each
 kernel's ``*_supported``) and from the compute type, per kernel
-(``kernel_route(x, kernel)`` reads ``KERNEL_DTYPES``): K1, K2, kernel 5 and
-kernel 10 take bf16 and float32 (the float32 chains of ``ops/f32_layer.py``),
-every other kernel bf16 only, so float32 compute on the card takes those
-four and the plain route of every other module; so does everything inside a
-``plain_routes()`` scope (the tensor-, sequence- and pipeline-parallel
-layouts, where a kernel would see a shard of a layer: the JAX package's
-``no_pallas()``).
+(``kernel_route(x, kernel)`` reads ``KERNEL_DTYPES``): K1, K2, kernels 5
+and 10 (the float32 chains of ``ops/f32_layer.py``) and the training
+kernels 8, 9, 12 and 13, forward and backward (those of
+``ops/f32_train.py``), take bf16 and float32; K3, K4 and kernels 6, 7 and
+11 take bf16 only, so float32 compute on the card takes the plain route of
+CLIP, of the MD layer's per-block stylization and of the skip stack; so
+does every module inside a ``plain_routes()`` scope (the tensor-, sequence-
+and pipeline-parallel layouts, where a kernel would see a shard of a layer:
+the JAX package's ``no_pallas()``).
 Every wrapper counts its launches (``launch_counts`` / ``reset_launch_counts``)
 so a run can show that the main path went through the kernels.
 """
@@ -52,7 +54,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("md_layer", "decoder_layer", "clip_layer", "postnorm_ffn",
            "train_ffn", "train_attention", "masked_attention", "md_stack",
            "stylized_ffn", "stylize", "train_layer", "train_decoder_layer",
-           "f32_layer")
+           "f32_layer", "f32_train")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -189,13 +191,19 @@ def on_card(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-# The compute types each kernel takes on the card, by wrapper name: the
-# inference kernels of the published float32 paths (K1, K2, 5, 10) take
-# float32 too; every kernel not named here takes bf16 only.
+# The compute types each kernel takes on the card, by wrapper name (a
+# backward's registered name too: ``check_cuda_args`` reads the table by
+# it): the kernels of the published float32 paths, the inference K1, K2, 5
+# and 10 and the training 8, 9, 12 and 13, take float32 too; every kernel
+# not named here takes bf16 only.
 KERNEL_DTYPES: Dict[str, Tuple[torch.dtype, ...]] = {
     name: (torch.bfloat16, torch.float32)
     for name in ("fused_md_layer", "fused_decoder_layer",
-                 "fused_postnorm_ffn", "fused_masked_attention")}
+                 "fused_postnorm_ffn", "fused_masked_attention",
+                 "train_self_attention", "train_self_attention_bwd",
+                 "train_postnorm_ffn", "train_postnorm_ffn_bwd",
+                 "train_encoder_layer", "train_encoder_layer_bwd",
+                 "train_decoder_layer", "train_decoder_layer_bwd")}
 
 
 def kernel_dtypes(kernel: str) -> Tuple[torch.dtype, ...]:

@@ -29,7 +29,8 @@ In float32 (the published configurations' type) the wrapper runs kernel
 5's float32 chain, ``f32_layer.postnorm_ffn_f32``: LN1, the W1 product
 with its activation, the W2 product with the residual, LN2, four launches
 of ``csrc/f32_layer.cu``, at the shapes ``postnorm_ffn_supported`` takes.
-Kernel 9 (the training tail) takes bf16 only.
+Kernel 9 (the training tail) takes float32 the same way, through its
+float32 chain in ``ops/f32_train.py``.
 """
 from __future__ import annotations
 

@@ -7,10 +7,11 @@ Parameter names follow the reference torch LADiff (``sa_block``,
 ``.norm`` / ``.out_layers.2``).  Each kernel wrapper takes its plain version
 on a CPU tensor.  Routes of an ``MDTransformerLayer``, chosen from shapes
 before any launch (as the JAX package's gate); the compute type is gated
-per kernel (``kernel_route``): K1 and kernel 5 take float32 as well as
-bf16, kernels 6, 7 and 11 bf16 only, so float32 on the card runs K1 where
-it runs in bf16 and, on the per-block route, kernel 5 as the sa_block's
-tail and the plain version of every other block:
+per kernel (``kernel_route``): K1 and kernels 5 and 9 take float32 as well
+as bf16, kernels 6, 7 and 11 bf16 only, so float32 on the card runs K1
+where it runs in bf16 and, on the per-block route, kernel 5 (kernel 9 in
+training) as the sa_block's tail and the plain version of every other
+block:
 
   eval, one text token, a shape K1 takes (``md_layer_supported``; every
       published configuration)      the whole layer as ``fused_md_layer``

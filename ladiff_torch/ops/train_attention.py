@@ -49,10 +49,18 @@ mask id and the global element index).  Mask 0 is the probability mask,
 element ((b H + h) S + i) S + j; mask 1 the residual mask, element
 row D + c.  ``train_self_attention_masks`` writes both out for a seed.
 
-What is saved for the backward: ``x``, ``kvalid``, the bf16 copies of the
-parameters, the seed, and from the forward ``qkv`` [M, 3D] bf16, ``ctx``
-[M, D] bf16 and the per-row log-sum-exp [M, H] float32 (the TPU kernel
-saved only its inputs and recomputed all of it; the function is the same).
+What is saved for the backward: ``x``, ``kvalid``, the parameters in x's
+type, the seed, and from the forward ``qkv`` [M, 3D] and ``ctx`` [M, D] in
+x's type and the per-row log-sum-exp [M, H] float32 (the TPU kernel saved
+only its inputs and recomputed all of it; the function is the same).
+
+In float32 (the published configurations' type) the wrappers run kernel
+8's float32 chain instead (``ops/f32_train.py``: the qkv product, the
+attention with its probability dropout and log-sum-exp, the out-projection
+with the residual dropout; backward in ten launches, the same query-side /
+key-side split without atomics and split-K weight gradients with a
+fixed-order reduction, FFMA in float32 throughout), under the same shape
+gate and the same masks.
 
 Weight gradients: ``dWqkv = dqkv^T x`` and ``dWout = dattn^T ctx`` run on
 the GEMM block with both operands MN-major, the rows cut into K ranges so
@@ -75,6 +83,8 @@ from ladiff_torch.ops.clip_layer import (EPILOGUES, clip_gemm_geometry,
 from ladiff_torch.ops.cuda_common import (NEG_INF, check_cuda_args,
                                           draw_seed, dropout_mask, launch,
                                           register_kernel)
+from ladiff_torch.ops.f32_train import (train_self_attention_f32,
+                                        train_self_attention_f32_bwd)
 from ladiff_torch.ops.train_ffn import _mul, _seed_args, split_rows
 
 __all__ = ["train_self_attention", "train_self_attention_fwd",
@@ -300,9 +310,10 @@ def train_self_attention_fwd(x: torch.Tensor, kvalid: torch.Tensor, p, *,
                              seed: int = 0, masks: Masks = None,
                              return_saved: bool = False):
     """The forward alone (no autograd graph): kernel 8's forward on CUDA
-    tensors (bf16; kvalid float32), the plain version with ``masks`` on CPU
-    tensors.  ``return_saved`` also returns what the backward kernel needs
-    from the forward: (qkv, ctx, lse), None on the CPU."""
+    tensors (bf16, or float32 through its float32 chain; kvalid float32), the
+    plain version with ``masks`` on CPU tensors.  ``return_saved`` also returns
+    what the backward kernel needs from the forward: (qkv, ctx, lse), None on
+    the CPU."""
     if not x.is_cuda:
         out = train_self_attention_plain(x, kvalid, p, masks, H=H, S=S)
         return (out, None) if return_saved else out
@@ -313,6 +324,15 @@ def train_self_attention_fwd(x: torch.Tensor, kvalid: torch.Tensor, p, *,
     M, D = x.shape
     lo, hi = _seed_args(rate, seed)
     dev = x.device
+    if x.dtype == torch.float32:
+        check_cuda_args("train_self_attention",
+                        {"x": x, "kvalid": kvalid,
+                         **{k: p[k] for k in ATTN_PARAM_ORDER}},
+                        f32=("kvalid",))
+        out, saved = train_self_attention_f32(x, kvalid, p, H=H, S=S,
+                                              drop=(lo, hi, rate))
+        train_self_attention_fwd.launches += 1
+        return (out, saved) if return_saved else out
     geo = attention_gemm_geometry(M, D, H, gemm_cluster_slots(dev))
     qkv = torch.empty(M, 3 * D, dtype=x.dtype, device=dev)
     ctx = torch.empty(M, D, dtype=x.dtype, device=dev)
@@ -339,9 +359,9 @@ def train_self_attention_bwd(x: torch.Tensor, kvalid: torch.Tensor,
                              masks: Masks = None
                              ) -> Tuple[torch.Tensor,
                                         Dict[str, torch.Tensor]]:
-    """The backward: kernel 8's backward on CUDA tensors (``saved`` = the
-    forward's (qkv, ctx, lse); float32 parameter gradients), the plain
-    backward on CPU tensors."""
+    """The backward: kernel 8's backward on CUDA tensors (bf16 or float32;
+    ``saved`` = the forward's (qkv, ctx, lse); float32 parameter
+    gradients), the plain backward on CPU tensors."""
     if not x.is_cuda:
         return train_self_attention_bwd_plain(x, kvalid, dout, p, masks,
                                               H=H, S=S)
@@ -357,6 +377,16 @@ def train_self_attention_bwd(x: torch.Tensor, kvalid: torch.Tensor,
         raise ValueError("train_self_attention_bwd: saved tensors do not "
                          "match x")
     lo, hi = _seed_args(rate, seed)
+    if x.dtype == torch.float32:
+        check_cuda_args("train_self_attention_bwd",
+                        {"x": x, "kvalid": kvalid, "dout": dout, "qkv": qkv,
+                         "ctx": ctx, "lse": lse,
+                         **{k: p[k] for k in ATTN_PARAM_ORDER}},
+                        f32=("kvalid", "lse"))
+        dx, grads = train_self_attention_f32_bwd(
+            x, kvalid, dout, p, saved, H=H, S=S, drop=(lo, hi, rate))
+        train_self_attention_bwd.launches += 1
+        return dx, grads
     dev, bf, f32 = x.device, x.dtype, torch.float32
     split = split_rows(M)
     geo = attention_gemm_geometry(M, D, H, gemm_cluster_slots(dev))
@@ -414,7 +444,7 @@ class _TrainSelfAttention(torch.autograd.Function):
         ctx.H, ctx.S, ctx.rate, ctx.seed = H, S, rate, seed
         ctx.param_dtypes = [w.dtype for w in params]
         masks = None if pm is None else (pm, rm)
-        if x.is_cuda:  # the kernels take bf16: cast the parameters once
+        if x.is_cuda:  # the kernels take x's type: cast the parameters once
             params = tuple(w.detach().to(x.dtype).contiguous()
                            for w in params)
         p = dict(zip(ATTN_PARAM_ORDER, params))
@@ -446,9 +476,9 @@ def train_self_attention(x: torch.Tensor, kvalid: torch.Tensor, p, *,
                          generator: Optional[torch.Generator] = None,
                          seed: Optional[int] = None) -> torch.Tensor:
     """Kernel 8, differentiable in x and the four parameters.  x [B*S, D]
-    (bf16 on CUDA); kvalid [B*S] float32; p: ``ATTN_PARAM_ORDER`` tensors
-    in any float type (cast to x's type on the way in; their gradients come
-    back in their own type).  With ``rate > 0`` one 64-bit seed is drawn
+    (bf16 or float32 on CUDA); kvalid [B*S] float32; p: ``ATTN_PARAM_ORDER``
+    tensors in any float type (cast to x's type on the way in; their gradients
+    come back in their own type).  With ``rate > 0`` one 64-bit seed is drawn
     from ``generator`` per call (or taken from ``seed``); on CPU tensors the
     masks come from ``generator`` directly."""
     params = [p[k] for k in ATTN_PARAM_ORDER]

@@ -52,8 +52,18 @@ Masks 0 (self-attention probabilities, element ((b H + h) T + i) T + j), 1
 ((b H + h) T + i) L + j), 3 (its residual), 4 (FFN hidden, row F + c), 5
 (FFN output); ``train_decoder_layer_masks`` writes all six out.
 
-What is saved for the backward: the inputs, the bf16 parameters, the seed,
-and qkv, ctx, the log-sum-exp and the memory's projected k, v.
+What is saved for the backward: the inputs, the parameters in x's type, the
+seed, and qkv, ctx, the log-sum-exp and the memory's projected k, v.
+
+In float32 (the published configurations' type) the wrappers run kernel
+13's float32 chain instead (``ops/f32_train.py``): kernel 8's float32
+chain, LN1, the cross-attention (its q, the memory's k / v, the attention
+over the L memory rows, the out-projection with the residual dropout) and
+kernel 9's float32 chain, under this kernel's mask ids 0 to 5, 12 launches
+forward; the backward recomputes the forward's residuals and runs the
+pieces' backward in reverse, the memory gradient from the cross-
+attention's key side (each memory row's dk, dv whole in one block, no
+atomics) through Wk and Wv, 42 launches, under the same shape gate.
 """
 from __future__ import annotations
 
@@ -67,6 +77,8 @@ from ladiff_torch.ops.cuda_common import (NEG_INF, check_cuda_args,
                                           draw_seed, dropout_mask, launch,
                                           register_kernel)
 from ladiff_torch.ops.decoder_layer import MAX_MEMORY
+from ladiff_torch.ops.f32_train import (train_decoder_layer_f32,
+                                        train_decoder_layer_f32_bwd)
 from ladiff_torch.ops.postnorm_ffn import ACTIVATIONS
 from ladiff_torch.ops.train_attention import (_heads,
                                               train_self_attention_bwd_plain,
@@ -236,7 +248,8 @@ def train_decoder_layer_fwd(x: torch.Tensor, kvalid: torch.Tensor,
                             rate: float = 0.0, seed: int = 0,
                             masks: Masks = None, return_saved: bool = False):
     """The forward alone (no autograd graph): kernel 13's forward on CUDA
-    tensors (bf16; kvalid, mvalid float32), the plain version with
+    tensors (bf16, or float32 through its float32 chain; kvalid, mvalid
+    float32), the plain version with
     ``masks`` on CPU tensors.  ``return_saved`` also returns (qkv, ctx, lse,
     memkv), None on the CPU."""
     if not x.is_cuda:
@@ -251,6 +264,17 @@ def train_decoder_layer_fwd(x: torch.Tensor, kvalid: torch.Tensor,
     M, D = x.shape
     lo, hi = _seed_args(rate, seed)
     dev, bf = x.device, x.dtype
+    if bf == torch.float32:
+        check_cuda_args("train_decoder_layer",
+                        {"x": x, "kvalid": kvalid, "mem": mem,
+                         "mvalid": mvalid,
+                         **{k: p[k] for k in DEC_PARAM_ORDER}},
+                        f32=("kvalid", "mvalid"))
+        out, saved = train_decoder_layer_f32(
+            x, kvalid, mem, mvalid, p, H=H, S=S, activation=activation,
+            drop=(lo, hi, rate))
+        train_decoder_layer_fwd.launches += 1
+        return (out, saved) if return_saved else out
     qkv = torch.empty(M, 3 * D, dtype=bf, device=dev)
     ctx = torch.empty(M, D, dtype=bf, device=dev)
     lse = torch.empty(M, H, dtype=torch.float32, device=dev)
@@ -279,9 +303,10 @@ def train_decoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
                             masks: Masks = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        Dict[str, torch.Tensor]]:
-    """The backward: kernel 13's backward on CUDA tensors (``saved`` = the
-    forward's (qkv, ctx, lse, memkv); float32 parameter gradients), the
-    plain backward on CPU tensors.  Returns (dx, dmem, grads)."""
+    """The backward: kernel 13's backward on CUDA tensors (bf16 or float32;
+    ``saved`` = the forward's (qkv, ctx, lse, memkv); float32 parameter
+    gradients), the plain backward on CPU tensors.  Returns (dx, dmem,
+    grads)."""
     if not x.is_cuda:
         return train_decoder_layer_bwd_plain(x, kvalid, mem, mvalid, dout,
                                              p, masks, H=H, S=S,
@@ -300,6 +325,18 @@ def train_decoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
         raise ValueError("train_decoder_layer_bwd: saved tensors do not "
                          "match x")
     lo, hi = _seed_args(rate, seed)
+    if x.dtype == torch.float32:
+        check_cuda_args("train_decoder_layer_bwd",
+                        {"x": x, "kvalid": kvalid, "mem": mem,
+                         "mvalid": mvalid, "dout": dout, "qkv": qkv,
+                         "ctx": ctx, "lse": lse, "memkv": memkv,
+                         **{k: p[k] for k in DEC_PARAM_ORDER}},
+                        f32=("kvalid", "mvalid", "lse"))
+        dx, dmem, grads = train_decoder_layer_f32_bwd(
+            x, kvalid, mem, mvalid, dout, p, saved, H=H, S=S,
+            activation=activation, drop=(lo, hi, rate))
+        train_decoder_layer_bwd.launches += 1
+        return dx, dmem, grads
     dev, bf, f32 = x.device, x.dtype, torch.float32
     split, split_mem = split_rows(M), split_rows(B * L)
     nblk, slots = -(-M // ROWS), kv_slots(S)
@@ -371,7 +408,7 @@ class _TrainDecoderLayer(torch.autograd.Function):
         ctx.activation = activation
         ctx.param_dtypes = [w.dtype for w in params]
         ctx.mem_dtype = mem.dtype
-        if x.is_cuda:  # the kernels take bf16: cast once
+        if x.is_cuda:  # the kernels take x's type: cast once
             params = tuple(w.detach().to(x.dtype).contiguous()
                            for w in params)
             mem = mem.detach().to(x.dtype).contiguous()
@@ -408,12 +445,12 @@ def train_decoder_layer(x: torch.Tensor, kvalid: torch.Tensor,
                         generator: Optional[torch.Generator] = None,
                         seed: Optional[int] = None) -> torch.Tensor:
     """Kernel 13, differentiable in x, the memory and the eighteen
-    parameters.  x [B*S, D] (bf16 on CUDA); kvalid [B*S] float32; mem
-    [B, L, D] in any float type; mvalid [B, L] float32; p:
-    ``DEC_PARAM_ORDER`` tensors in any float type (cast to x's type on the
-    way in; gradients come back in their own types).  With ``rate > 0`` one
-    64-bit seed is drawn from ``generator`` per call (or taken from
-    ``seed``); on CPU tensors the six masks come from ``generator``."""
+    parameters.  x [B*S, D] (bf16 or float32 on CUDA); kvalid [B*S] float32;
+    mem [B, L, D] in any float type; mvalid [B, L] float32; p:
+    ``DEC_PARAM_ORDER`` tensors in any float type (cast to x's type on the way
+    in; gradients come back in their own types).  With ``rate > 0`` one 64-bit
+    seed is drawn from ``generator`` per call (or taken from ``seed``); on CPU
+    tensors the six masks come from ``generator``."""
     params = [p[k] for k in DEC_PARAM_ORDER]
     masks = None
     if x.is_cuda:

@@ -21,9 +21,17 @@ regenerates what the forward drew whatever the two grids are.
 ``train_postnorm_ffn_masks`` writes both masks out for a seed, for checks
 against the plain version.
 
-What is saved for the backward: ``x``, the bf16 copies of the parameters
-and the seed, nothing else; the backward recomputes h, a, gd, y and both
+What is saved for the backward: ``x``, the parameters in x's type and the
+seed, nothing else; the backward recomputes h, a, gd, y and both
 LayerNorms per 64-row block (as the TPU kernel does per row block).
+
+In float32 (the published configurations' type) the wrappers run kernel
+9's float32 chain instead (``ops/f32_train.py``: LN1, the W1 product with
+its activation and hidden dropout, the W2 product with the output dropout
+and the residual, LN2; the backward recomputes that forward and runs the
+LayerNorms' backward one warp a row, dy W2 and da W1 products, split-K
+weight gradients and fixed-order reductions, 12 launches, FFMA in float32
+throughout), under the same shape gate and the same masks.
 
 The kernels (``csrc/train_ffn.cu`` on ``csrc/ffn_tail64.cuh``) run
 64-row blocks of 16 warps with the activations in f32 registers: the
@@ -58,6 +66,8 @@ import torch.nn.functional as F
 from ladiff_torch.ops.cuda_common import (check_cuda_args, draw_seed,
                                           dropout_mask, launch,
                                           register_kernel, split_seed)
+from ladiff_torch.ops.f32_train import (train_postnorm_ffn_f32,
+                                        train_postnorm_ffn_f32_bwd)
 from ladiff_torch.ops.postnorm_ffn import (ACTIVATIONS, FFN_PARAM_ORDER,
                                            check_ffn_shape,
                                            ffn_launch_geometry)
@@ -162,9 +172,10 @@ def train_postnorm_ffn_fwd(x: torch.Tensor, p, *, activation: str = "gelu",
                            masks: Masks = None, cluster: int = 0
                            ) -> torch.Tensor:
     """The forward alone (no autograd graph): kernel 9's forward on CUDA
-    tensors (bf16; dropout from ``rate`` and ``seed``; ``cluster`` > 0 sets
-    the CTAs a block, ``ffn_geometry``'s choice by default), the plain
-    version with ``masks`` on CPU tensors."""
+    tensors (bf16, or float32 through its float32 chain; dropout from
+    ``rate`` and ``seed``; ``cluster`` > 0 sets the CTAs a block of the
+    bf16 kernel, ``ffn_geometry``'s choice by default), the plain version
+    with ``masks`` on CPU tensors."""
     if not x.is_cuda:
         return train_postnorm_ffn_plain(x, p, masks, activation=activation)
     if masks is not None:
@@ -175,6 +186,11 @@ def train_postnorm_ffn_fwd(x: torch.Tensor, p, *, activation: str = "gelu",
                     {"x": x, **{k: p[k] for k in FFN_PARAM_ORDER}})
     M, D = x.shape
     lo, hi = _seed_args(rate, seed)
+    if x.dtype == torch.float32:
+        out = train_postnorm_ffn_f32(x, p, activation=activation,
+                                     drop=(lo, hi, rate))
+        train_postnorm_ffn_fwd.launches += 1
+        return out
     g = ffn_launch_geometry("train_ffn", x.device, M, D, Fd, cluster)
     out = torch.empty_like(x)
     ptrs = [x.data_ptr(), *[p[k].data_ptr() for k in FFN_PARAM_ORDER],
@@ -191,8 +207,9 @@ def train_postnorm_ffn_bwd(x: torch.Tensor, dout: torch.Tensor, p, *,
                            activation: str = "gelu", rate: float = 0.0,
                            seed: int = 0, masks: Masks = None
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The backward: kernel 9's backward on CUDA tensors (bf16 inputs,
-    float32 parameter gradients), the plain backward on CPU tensors."""
+    """The backward: kernel 9's backward on CUDA tensors (bf16 or float32
+    inputs, float32 parameter gradients), the plain backward on CPU
+    tensors."""
     if not x.is_cuda:
         return train_postnorm_ffn_bwd_plain(x, dout, p, masks,
                                             activation=activation)
@@ -204,6 +221,15 @@ def train_postnorm_ffn_bwd(x: torch.Tensor, dout: torch.Tensor, p, *,
     if dout.shape != x.shape:
         raise ValueError("train_postnorm_ffn_bwd: dout must have x's shape")
     lo, hi = _seed_args(rate, seed)
+    if x.dtype == torch.float32:
+        check_cuda_args("train_postnorm_ffn_bwd",
+                        {"x": x, "dout": dout,
+                         **{k: p[k] for k in FFN_PARAM_ORDER}})
+        dx, grads = train_postnorm_ffn_f32_bwd(x, dout, p,
+                                               activation=activation,
+                                               drop=(lo, hi, rate))
+        train_postnorm_ffn_bwd.launches += 1
+        return dx, grads
     dev, bf, f32 = x.device, x.dtype, torch.float32
     split = split_rows(M)
     nblk = -(-M // 64)  # the 64-row blocks' LayerNorm and bias partials
@@ -256,7 +282,7 @@ class _TrainPostnormFFN(torch.autograd.Function):
         ctx.activation, ctx.rate, ctx.seed = activation, rate, seed
         ctx.param_dtypes = [w.dtype for w in params]
         masks = None if m1 is None else (m1, m2)
-        if x.is_cuda:  # the kernels take bf16: cast the parameters once
+        if x.is_cuda:  # the kernels take x's type: cast the parameters once
             params = tuple(w.detach().to(x.dtype).contiguous()
                            for w in params)
         p = dict(zip(FFN_PARAM_ORDER, params))
@@ -283,10 +309,10 @@ def train_postnorm_ffn(x: torch.Tensor, p, *, activation: str = "gelu",
                        generator: Optional[torch.Generator] = None,
                        seed: Optional[int] = None) -> torch.Tensor:
     """Kernel 9, differentiable in x and the eight parameters.  x [M, D]
-    (bf16 on CUDA); p: ``FFN_PARAM_ORDER`` tensors in any float type (cast
-    to x's type on the way in; their gradients come back in their own
-    type).  With ``rate > 0`` one 64-bit seed is drawn from ``generator``
-    per call (or taken from ``seed``); on CPU tensors the masks come from
+    (bf16 or float32 on CUDA); p: ``FFN_PARAM_ORDER`` tensors in any float type
+    (cast to x's type on the way in; their gradients come back in their own
+    type).  With ``rate > 0`` one 64-bit seed is drawn from ``generator`` per
+    call (or taken from ``seed``); on CPU tensors the masks come from
     ``generator`` directly."""
     params = [p[k] for k in FFN_PARAM_ORDER]
     m1 = m2 = None

@@ -43,9 +43,15 @@ Dropout: Philox keyed by the call's seed, a mask id and the element index
 S + j), 1 (residual, row D + c), 2 (FFN hidden, row F + c), 3 (FFN output,
 row D + c); ``train_encoder_layer_masks`` writes all four out for a seed.
 
-What is saved for the backward: x, kvalid, the bf16 parameters, the seed,
-and as kernel 8 does qkv, ctx and the log-sum-exp (the TPU kernel saved
-only its inputs; the function is the same).
+What is saved for the backward: x, kvalid, the parameters in x's type, the
+seed, and as kernel 8 does qkv, ctx and the log-sum-exp (the TPU kernel
+saved only its inputs; the function is the same).
+
+In float32 (the published configurations' type) the wrappers run kernel
+12's float32 chain instead (``ops/f32_train.py``): kernel 8's float32
+chain then kernel 9's under this kernel's mask ids 0 to 3, seven launches
+forward; backward the residual r recomputed from ctx, then kernel 9's and
+kernel 8's float32 backward, 23 launches, under the same shape gate.
 """
 from __future__ import annotations
 
@@ -57,6 +63,8 @@ from ladiff_torch.ops.clip_layer import gemm_cluster_slots
 from ladiff_torch.ops.cuda_common import (check_cuda_args, draw_seed,
                                           dropout_mask, launch,
                                           register_kernel)
+from ladiff_torch.ops.f32_train import (train_encoder_layer_f32,
+                                        train_encoder_layer_f32_bwd)
 from ladiff_torch.ops.postnorm_ffn import (ACTIVATIONS, FFN_PARAM_ORDER,
                                            postnorm_ffn_supported)
 from ladiff_torch.ops.train_attention import (ATTN_PARAM_ORDER,
@@ -144,9 +152,9 @@ def train_encoder_layer_fwd(x: torch.Tensor, kvalid: torch.Tensor, p, *,
                             rate: float = 0.0, seed: int = 0,
                             masks: Masks = None, return_saved: bool = False):
     """The forward alone (no autograd graph): kernel 12's forward on CUDA
-    tensors (bf16; kvalid float32), the plain version with ``masks`` on CPU
-    tensors.  ``return_saved`` also returns (qkv, ctx, lse), None on the
-    CPU."""
+    tensors (bf16, or float32 through its float32 chain; kvalid float32), the
+    plain version with ``masks`` on CPU tensors.  ``return_saved`` also returns
+    (qkv, ctx, lse), None on the CPU."""
     if not x.is_cuda:
         out = train_encoder_layer_plain(x, kvalid, p, masks, H=H, S=S,
                                         activation=activation)
@@ -159,6 +167,16 @@ def train_encoder_layer_fwd(x: torch.Tensor, kvalid: torch.Tensor, p, *,
     M, D = x.shape
     lo, hi = _seed_args(rate, seed)
     dev = x.device
+    if x.dtype == torch.float32:
+        check_cuda_args("train_encoder_layer",
+                        {"x": x, "kvalid": kvalid,
+                         **{k: p[k] for k in ENC_PARAM_ORDER}},
+                        f32=("kvalid",))
+        out, saved = train_encoder_layer_f32(
+            x, kvalid, p, H=H, S=S, activation=activation,
+            drop=(lo, hi, rate))
+        train_encoder_layer_fwd.launches += 1
+        return (out, saved) if return_saved else out
     qkv = torch.empty(M, 3 * D, dtype=x.dtype, device=dev)
     ctx = torch.empty(M, D, dtype=x.dtype, device=dev)
     lse = torch.empty(M, H, dtype=torch.float32, device=dev)
@@ -186,9 +204,9 @@ def train_encoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
                             masks: Masks = None
                             ) -> Tuple[torch.Tensor,
                                        Dict[str, torch.Tensor]]:
-    """The backward: kernel 12's backward on CUDA tensors (``saved`` = the
-    forward's (qkv, ctx, lse); float32 parameter gradients), the plain
-    backward on CPU tensors."""
+    """The backward: kernel 12's backward on CUDA tensors (bf16 or float32;
+    ``saved`` = the forward's (qkv, ctx, lse); float32 parameter gradients),
+    the plain backward on CPU tensors."""
     if not x.is_cuda:
         return train_encoder_layer_bwd_plain(x, kvalid, dout, p, masks, H=H,
                                              S=S, activation=activation)
@@ -205,6 +223,17 @@ def train_encoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
         raise ValueError("train_encoder_layer_bwd: saved tensors do not "
                          "match x")
     lo, hi = _seed_args(rate, seed)
+    if x.dtype == torch.float32:
+        check_cuda_args("train_encoder_layer_bwd",
+                        {"x": x, "kvalid": kvalid, "dout": dout, "qkv": qkv,
+                         "ctx": ctx, "lse": lse,
+                         **{k: p[k] for k in ENC_PARAM_ORDER}},
+                        f32=("kvalid", "lse"))
+        dx, grads = train_encoder_layer_f32_bwd(
+            x, kvalid, dout, p, saved, H=H, S=S, activation=activation,
+            drop=(lo, hi, rate))
+        train_encoder_layer_bwd.launches += 1
+        return dx, grads
     dev, bf, f32 = x.device, x.dtype, torch.float32
     split = split_rows(M)
     nblk = (M + 63) // 64  # the tails' 64-row blocks
@@ -268,7 +297,7 @@ class _TrainEncoderLayer(torch.autograd.Function):
         ctx.H, ctx.S, ctx.rate, ctx.seed = H, S, rate, seed
         ctx.activation = activation
         ctx.param_dtypes = [w.dtype for w in params]
-        if x.is_cuda:  # the kernels take bf16: cast the parameters once
+        if x.is_cuda:  # the kernels take x's type: cast the parameters once
             params = tuple(w.detach().to(x.dtype).contiguous()
                            for w in params)
         p = dict(zip(ENC_PARAM_ORDER, params))
@@ -302,9 +331,9 @@ def train_encoder_layer(x: torch.Tensor, kvalid: torch.Tensor, p, *,
                         generator: Optional[torch.Generator] = None,
                         seed: Optional[int] = None) -> torch.Tensor:
     """Kernel 12, differentiable in x and the twelve parameters.  x [B*S, D]
-    (bf16 on CUDA); kvalid [B*S] float32; p: ``ENC_PARAM_ORDER`` tensors in
-    any float type (cast to x's type on the way in; their gradients come
-    back in their own type).  With ``rate > 0`` one 64-bit seed is drawn
+    (bf16 or float32 on CUDA); kvalid [B*S] float32; p: ``ENC_PARAM_ORDER``
+    tensors in any float type (cast to x's type on the way in; their gradients
+    come back in their own type).  With ``rate > 0`` one 64-bit seed is drawn
     from ``generator`` per call (or taken from ``seed``); on CPU tensors the
     four masks come from ``generator`` directly."""
     params = [p[k] for k in ENC_PARAM_ORDER]

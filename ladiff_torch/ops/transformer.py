@@ -33,15 +33,17 @@ a CPU tensor):
 
 Each route is chosen from shapes and the compute type before any launch,
 the type per kernel (``kernel_route``): the inference kernels K2, 5 and 10
-take float32 as well as bf16, the training kernels 8, 9, 12 and 13 bf16
-only, so float32 compute on the card (the published configurations'
-``TRAIN.MIXED_PRECISION: false``) runs the inference routes above through
-their kernels and the training routes through their plain parts.  Every kernel computes the post-norm layer: a
-layer built with ``normalize_before`` (pre-norm, which no published
-configuration asks for) runs its plain parts on every device and in every
-mode, decided from the module before any launch (``_forward_prenorm``).  ``train_self_attention``
-takes what ``train_attention_supported`` admits (at least ``MIN_TOKENS``
-tokens, head widths 16 to 64); other streams and ``extra_kv`` keep the plain
+and the training kernels 8, 9, 12 and 13 take float32 as well as bf16
+(their float32 chains, ``ops/f32_layer.py`` and ``ops/f32_train.py``), so
+float32 compute on the card (the published configurations'
+``TRAIN.MIXED_PRECISION: false``) takes every route above through the same
+kernels as bf16, under the same shape gates.  Every kernel computes the
+post-norm layer: a layer built with ``normalize_before`` (pre-norm, which
+no published configuration asks for) runs its plain parts on every device
+and in every mode, decided from the module before any launch
+(``_forward_prenorm``).  ``train_self_attention`` takes what
+``train_attention_supported`` admits (at least ``MIN_TOKENS`` tokens, head
+widths 16 to 64); other streams and ``extra_kv`` keep the plain
 attention module in training.  The FFN tail kernels (5 and 9) take what
 ``postnorm_ffn_supported`` admits; a wider tail (D 512, F 2048) runs as plain
 ``layer_norm`` / ``linear`` ops with dropout from the generator.  The

@@ -269,10 +269,13 @@ def build_system(cfg, dm: T2MDataModule, device=None,
     unless the caller names another).  ``TRAIN.MIXED_PRECISION`` selects
     bf16 compute, through the CUDA kernels on a GPU; without it (the
     published configurations) the system computes in float32 on any
-    device, as the JAX package does, and on a GPU every module takes its
-    plain route (the kernels take bf16 only).  ``train_whole_layer``
+    device, as the JAX package does, and on a GPU through the kernels'
+    float32 chains: K1, K2, kernels 5 and 10 at inference, the training
+    kernels 8 and 9 (12 and 13 on the whole-layer route), forward and
+    backward; only CLIP's K3 and K4 and kernels 6, 7 and 11 take bf16
+    alone, and their modules run plain in float32.  ``train_whole_layer``
     (None: the environment's ``LADIFF_TRAIN_WHOLE_LAYER``, default "0") runs
-    the VAE's training layers as kernels 12 and 13 in bf16."""
+    the VAE's training layers as kernels 12 and 13, in either type."""
     mixed = bool(cfg.TRAIN.get("MIXED_PRECISION", False))
     device = resolve_device(device)
     if train_whole_layer is None:

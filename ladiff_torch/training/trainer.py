@@ -20,7 +20,9 @@ float32 while activations are bf16.  The casts are explicit, not
 activation's type (``ops/transformer.py`` ``linear`` / ``layer_norm``,
 ``ops/attention.py``), and the training kernels' ``autograd.Function``s
 cast the float32 weights to bf16 on the way in and return float32
-gradients.  Losses reduce in float32 (``losses/mld.py``).
+gradients.  Losses reduce in float32 (``losses/mld.py``).  Without mixed
+precision (the published configurations) the same Functions run their
+float32 chains on the card, with nothing to cast.
 
 Parallel layouts (counterpart of ``_jit_step``'s meshes): ``StageLoss`` is
 one stage's loss as a module whose only registered child is the trained

@@ -356,8 +356,9 @@ def test_masked_attention_kernel(dev, S, masked):
     assert _relerr(got, want) <= TOL
     # the dispatch sends this shape to the kernel
     assert torch.equal(masked_attention(q, k, v, valid, num_heads=H), got)
+    # a type the kernel does not take (it takes bf16 and float32)
     with pytest.raises(TypeError, match="bfloat16"):
-        fused_masked_attention(q.float(), k.float(), v.float(), valid,
+        fused_masked_attention(q.half(), k.half(), v.half(), valid,
                                num_heads=H)
     with pytest.raises(ValueError, match="unsupported"):
         fused_masked_attention(q, k[:, :-1], v[:, :-1], valid, num_heads=H)
@@ -1225,8 +1226,8 @@ def test_published_config_trains_in_float32_on_the_gpu(dev):
     the validation forward of one batch through the float32 kernels 10 and
     5 (encoder) and K2 (decoder), its loss within 1e-3 of the CPU's on the
     same weights and latent noise; a training step on the card through the
-    plain routes, no kernel launched (the training kernels take bf16
-    only)."""
+    float32 training kernels 8 and 9 in each of the 9 + 9 layers, forward
+    and backward (``launch_tables.STAGE1_STEP``)."""
     import os
     import types
 
@@ -1262,7 +1263,8 @@ def test_published_config_trains_in_float32_on_the_gpu(dev):
     logs = vae_train_step(gpu, make_optimizer(gpu.vae.parameters()),
                           {k: v.to(dev) for k, v in batch.items()})
     assert all(bool(torch.isfinite(v)) for v in logs.values())
-    assert not any(cc.launch_counts().values())
+    assert {k: v for k, v in cc.launch_counts().items() if v} == \
+        lt.STAGE1_STEP
 
 
 @pytest.mark.cuda
@@ -2307,3 +2309,111 @@ def test_published_float32_generate_launches(dev):
     assert {k: v for k, v in cc.launch_counts().items() if v} == \
         lt.generation(50)
     assert _relerr(got.cpu(), want) <= 1e-3
+
+
+# -- the float32 training kernels (8, 9, 12 and 13 on csrc/f32_train.cu) ----
+
+def _f32_train_case(dev, kernel, rate, seed=97531):
+    """One float32 training wrapper's forward and backward at a small
+    shape with partial tiles and a sample without a valid key (S 70, three
+    samples; kernel 13 at L 7 with a sample without a valid memory row),
+    and its plain version under the masks the kernels draw: (got, want),
+    each {name: tensor}."""
+    from ladiff_torch.ops import train_attention as ta
+    from ladiff_torch.ops import train_decoder_layer as td
+    from ladiff_torch.ops import train_ffn as tf
+    from ladiff_torch.ops import train_layer as tl
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    D, H, Fd, S, L, B = 128, 2, 256, 70, 7, 3
+    M = B * S
+    x, dout = _f(dev, M, D, seed=40), _f(dev, M, D, seed=41, scale=0.1)
+    kv = _mask([S, 0, 33], S, dev).reshape(-1).contiguous()
+    dl = _randomize(TransformerDecoderLayer(D, H, Fd, "gelu"), 8).to(dev)
+    pd = {k: v.detach() for k, v in dl.kernel_params().items()}
+    pa = {"in_w": pd["sa_in_w"], "in_b": pd["sa_in_b"],
+          "out_w": pd["sa_out_w"], "out_b": pd["sa_out_b"]}
+    pf = {"ln1_w": pd["ln2_w"], "ln1_b": pd["ln2_b"], "w1": pd["w1"],
+          "b1": pd["b1"], "w2": pd["w2"], "b2": pd["b2"],
+          "ln2_w": pd["ln3_w"], "ln2_b": pd["ln3_b"]}
+    kw = dict(rate=rate, seed=seed)
+    if kernel == "train_postnorm_ffn":
+        masks = (tf.train_postnorm_ffn_masks(M, D, Fd, rate, seed, dev)
+                 if rate else None)
+        out = tf.train_postnorm_ffn_fwd(x, pf, **kw)
+        dx, g = tf.train_postnorm_ffn_bwd(x, dout, pf, **kw)
+        want = tf.train_postnorm_ffn_plain(x, pf, masks)
+        wdx, wg = tf.train_postnorm_ffn_bwd_plain(x, dout, pf, masks)
+    elif kernel == "train_self_attention":
+        masks = (ta.train_self_attention_masks(B, S, D, H, rate, seed, dev)
+                 if rate else None)
+        out, saved = ta.train_self_attention_fwd(x, kv, pa, H=H, S=S,
+                                                 return_saved=True, **kw)
+        dx, g = ta.train_self_attention_bwd(x, kv, dout, pa, saved, H=H,
+                                            S=S, **kw)
+        want = ta.train_self_attention_plain(x, kv, pa, masks, H=H, S=S)
+        wdx, wg = ta.train_self_attention_bwd_plain(x, kv, dout, pa, masks,
+                                                    H=H, S=S)
+    elif kernel == "train_encoder_layer":
+        pe = {**pa, **pf}
+        masks = (tl.train_encoder_layer_masks(B, S, D, H, Fd, rate, seed,
+                                              dev) if rate else None)
+        out, saved = tl.train_encoder_layer_fwd(x, kv, pe, H=H, S=S,
+                                                return_saved=True, **kw)
+        dx, g = tl.train_encoder_layer_bwd(x, kv, dout, pe, saved, H=H,
+                                           S=S, **kw)
+        want = tl.train_encoder_layer_plain(x, kv, pe, masks, H=H, S=S)
+        wdx, wg = tl.train_encoder_layer_bwd_plain(x, kv, dout, pe, masks,
+                                                   H=H, S=S)
+    else:
+        mem = _f(dev, B, L, D, seed=42)
+        mv = _mask([7, 0, 3], L, dev).contiguous()
+        masks = (td.train_decoder_layer_masks(B, S, L, D, H, Fd, rate, seed,
+                                              dev) if rate else None)
+        out, saved = td.train_decoder_layer_fwd(x, kv, mem, mv, pd, H=H, S=S,
+                                                return_saved=True, **kw)
+        dx, dmem, g = td.train_decoder_layer_bwd(x, kv, mem, mv, dout, pd,
+                                                 saved, H=H, S=S, **kw)
+        want = td.train_decoder_layer_plain(x, kv, mem, mv, pd, masks, H=H,
+                                            S=S)
+        wdx, wdmem, wg = td.train_decoder_layer_bwd_plain(
+            x, kv, mem, mv, dout, pd, masks, H=H, S=S)
+        g, wg = {**g, "dmem": dmem}, {**wg, "dmem": wdmem}
+    return ({"out": out, "dx": dx, **g}, {"out": want, "dx": wdx, **wg})
+
+
+F32_TRAIN = ["train_postnorm_ffn", "train_self_attention",
+             "train_encoder_layer", "train_decoder_layer"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kernel", F32_TRAIN)
+@torch.no_grad()
+def test_float32_training_kernels_match_plain(dev, kernel, rate):
+    """Each float32 training wrapper's forward and backward (one launch
+    count each) against its float32 plain version under the same masks,
+    TF32 off: the output, dx, every parameter gradient and kernel 13's
+    memory gradient within 5e-5 norm-wise; a sample without a valid key
+    included."""
+    from ladiff_torch.ops import cuda_common as cc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cc.reset_launch_counts()
+    got, want = _f32_train_case(dev, kernel, rate)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cc.launch_counts().items() if v}
+    assert counts == {kernel: 1, kernel + "_bwd": 1}
+    for k, w in want.items():
+        assert got[k].dtype == torch.float32, k
+        assert bool(torch.isfinite(got[k]).all()), k
+        assert _relerr(got[k], w) <= TOL_F32, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", F32_TRAIN)
+@torch.no_grad()
+def test_float32_training_backward_bits_equal_twice(dev, kernel):
+    """Every sum across blocks of the float32 backward runs in a fixed
+    order: two runs give the same bits."""
+    runs = [_f32_train_case(dev, kernel, 0.1)[0] for _ in range(2)]
+    for k, v in runs[0].items():
+        assert torch.equal(v, runs[1][k]), k

@@ -2,21 +2,23 @@
 CPU.
 
   * The dtype gate (``ops.cuda_common.kernel_route(x, kernel)``), per
-    kernel: K1, K2, kernel 5 and kernel 10 take bf16 and float32, every
-    other kernel bf16 only, so float32 compute on the card runs those four
-    where bf16 runs them (eval mode) and the plain route of every other
-    module (training layers, CLIP, kernels 6 and 7), decided before any
-    launch.  There is no card here, so the tests take every tensor for one
-    on the card (``on_card`` patched) and count the calls of the kernel
-    wrappers the modules make, as ``tests/test_torch_md_routes.py`` does.
-    The float32 route agrees with the wrapper route (each wrapper's plain
+    kernel: K1, K2, kernels 5 and 10 and the training kernels 8, 9, 12 and 13
+    take bf16 and float32, K3, K4 and kernels 6, 7 and 11 bf16 only, so float32
+    compute on the card runs those eight where bf16 runs them (eval mode and
+    training) and the plain route of CLIP and of kernels 6 and 7's blocks,
+    decided before any launch.  There is no card here, so the tests take every
+    tensor for one on the card (``on_card`` patched) and count the calls of the
+    kernel wrappers the modules make, as ``tests/test_torch_md_routes.py``
+    does. The float32 route agrees with the wrapper route (each wrapper's plain
     version on a CPU tensor) within 1e-5.
   * Each published configuration (``from_cfg`` at its published widths,
     batch 2): the wrapper calls of a float32 eval forward on the card's
     routes equal the package's float32 launch tables
     (``ladiff_torch.launch_tables``), which are the bf16 route's calls of
-    those four kernels (the float32 gates take every shape the bf16 gates
-    take); the float32 route agrees with the plain route within 1e-5.
+    the kernels that take float32 (the float32 gates take every shape the
+    bf16 gates take); the float32 route agrees with the plain route within
+    1e-5.  A published training pass calls the training kernels' wrappers
+    as the stage-1 and stage-2 tables say.
   * ``md_stack`` raises at construction for float32 compute on the card;
     ``build_system`` hands float32 to ``from_cfg`` for the unmodified
     published stage-1 configuration and a ``cuda`` device, and no longer
@@ -87,22 +89,27 @@ def calls(monkeypatch):
     return counts
 
 
-# every kernel wrapper a module's route gate names, and the four that take
-# float32
+# every kernel wrapper a module's route gate names, and those that take
+# float32 (with the training kernels' backwards, by their registered names)
 _GATED = ("fused_md_layer", "fused_decoder_layer", "fused_postnorm_ffn",
           "fused_masked_attention", "fused_ln_qkv", "fused_proj_mlp",
           "fused_md_stack", "fused_stylized_ffn", "fused_broadcast_stylize",
           "train_self_attention", "train_postnorm_ffn", "train_encoder_layer",
           "train_decoder_layer")
 _FLOAT32 = ("fused_decoder_layer", "fused_masked_attention",
-            "fused_md_layer", "fused_postnorm_ffn")
+            "fused_md_layer", "fused_postnorm_ffn", "train_decoder_layer",
+            "train_decoder_layer_bwd", "train_encoder_layer",
+            "train_encoder_layer_bwd", "train_postnorm_ffn",
+            "train_postnorm_ffn_bwd", "train_self_attention",
+            "train_self_attention_bwd")
 
 
 @pytest.mark.parametrize("kernel", _GATED)
 def test_kernel_compute_gate(kernel):
     """bf16 takes every kernel anywhere; float32 takes K1, K2, kernels 5
-    and 10 on the card and every kernel off it, where each wrapper is its
-    plain version; no kernel inside ``plain_routes()``."""
+    and 10 and the training kernels 8, 9, 12 and 13 on the card and every
+    kernel off it, where each wrapper is its plain version; no kernel
+    inside ``plain_routes()``."""
     from ladiff_torch.launch_tables import FLOAT32_KERNELS
     from ladiff_torch.ops.cuda_common import (kernel_compute, kernel_route,
                                               plain_routes)
@@ -130,17 +137,19 @@ def _layers(seed):
 
 
 # (layer index, mode) -> the wrappers a bf16 call makes, and a float32 call
-# on the card: the inference kernels in eval mode, no training kernel
+# on the card: the same, the inference kernels in eval mode and the
+# training kernels in training
 _ENCODE = {"fused_masked_attention": 1, "fused_postnorm_ffn": 1}
+_SPLIT = {"train_self_attention": 1, "train_postnorm_ffn": 1}
 _CALLS = {
     (0, "eval"): (_ENCODE, _ENCODE),
     (1, "eval"): (_ENCODE, _ENCODE),
-    (0, "train"): ({"train_encoder_layer": 1}, {}),
-    (1, "train"): ({"train_self_attention": 1, "train_postnorm_ffn": 1}, {}),
+    (0, "train"): ({"train_encoder_layer": 1}, {"train_encoder_layer": 1}),
+    (1, "train"): (_SPLIT, _SPLIT),
     (2, "eval"): ({"fused_decoder_layer": 1}, {"fused_decoder_layer": 1}),
     (3, "eval"): ({"fused_decoder_layer": 1}, {"fused_decoder_layer": 1}),
-    (2, "train"): ({"train_decoder_layer": 1}, {}),
-    (3, "train"): ({"train_self_attention": 1, "train_postnorm_ffn": 1}, {}),
+    (2, "train"): ({"train_decoder_layer": 1}, {"train_decoder_layer": 1}),
+    (3, "train"): (_SPLIT, _SPLIT),
 }
 
 
@@ -148,8 +157,8 @@ _CALLS = {
 def test_transformer_layers_route_by_dtype(card, calls, monkeypatch, case):
     """Encoder and decoder layers, inference and training (whole-layer and
     split): float32 on the card calls kernel 10 and kernel 5 (encoder) or
-    K2 (decoder) in eval mode and no wrapper in training, and agrees with
-    the wrapper route; bf16 calls the kernels' wrappers."""
+    K2 (decoder) in eval mode and kernels 12 and 13, or 8 and 9, in
+    training, as bf16 does, and agrees with the wrapper route."""
     from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.ops import cuda_common
     index, mode = case
@@ -342,10 +351,11 @@ def test_published_configs_float32_launch_tables(card, calls, monkeypatch,
                              system.vae and _depth(system.vae, "decoder"))
     assert plain["generate"][1] == {}
     if with_encode:
-        assert f32["encode"][1] == lt.encode(_depth(system.vae.encoder,
-                                                    "encoder"))
-        assert f32["encode"][1] == lt.stage2_step(_depth(system.vae.encoder,
-                                                         "encoder"))
+        n = _depth(system.vae.encoder, "encoder")
+        assert f32["encode"][1] == lt.encode(n)
+        # stage 2's frozen encode
+        assert f32["encode"][1] == {k: v for k, v in lt.stage2_step(
+            n).items() if not k.startswith("train_")}
     for key, (out, counts) in f32.items():
         assert counts == lt.float32_launches(bf16_routes[key][1]), key
         assert relerr(out, plain[key][0].numpy()) <= ROUTE_TOL, key
@@ -356,9 +366,11 @@ def test_published_training_passes_float32_launch_tables(card, calls):
     """The published HumanML3D configuration at its widths, batch 2, on the
     card's float32 routes: a validation pass (no gradient) calls kernels 10
     and 5 in each encoder layer and K2 in each decoder layer; the stage-1
-    pass with a gradient calls nothing (``launch_tables.STAGE1_STEP``); the
-    stage-2 pass calls the frozen encode's kernels 10 and 5
-    (``stage2_step``) and nothing in the training MD layers."""
+    pass with a gradient calls kernels 8 and 9 in each of the 9 + 9 layers
+    (``launch_tables.STAGE1_STEP``, whose backwards the autograd Functions
+    call); the stage-2 pass calls the frozen encode's kernels 10 and 5 and
+    kernel 9 in each MD layer (``stage2_step``).  The calls are those of
+    the forward wrappers; each backward follows its forward."""
     from ladiff_torch import launch_tables as lt
     from ladiff_torch.config import assemble_config
     from ladiff_torch.models.ladiff import LADiffSystem
@@ -379,11 +391,53 @@ def test_published_training_passes_float32_launch_tables(card, calls):
     assert calls == lt.float32_launches({**lt.encode(), **lt.decode()})
     calls.clear()
     system.vae_forward(batch, train=True, generator=g())[0].backward()
-    assert calls == lt.STAGE1_STEP
+    forward = lambda table: {k: n for k, n in table.items()
+                             if not k.endswith("_bwd")}
+    assert lt.STAGE1_STEP == lt.stage1_step()
+    assert calls == forward(lt.STAGE1_STEP)
     calls.clear()
     system.diffusion_forward(batch, t(rnd(rng, 1, 1, 768)), train=True,
                              generator=g())[0].backward()
-    assert calls == lt.stage2_step()
+    assert calls == forward(lt.stage2_step())
+    # the joint stage: both stages' launches, 10 guided sampling steps of
+    # K1 and the decode with gradients through kernels 8 and 9
+    calls.clear()
+    system.vae_diffusion_forward(batch, t(rnd(rng, 1, 1, 768)), train=True,
+                                 generator=g())[0].backward()
+    assert calls == forward(lt.joint_step())
+
+
+@pytest.mark.parametrize("whole", ["0", "1"])
+def test_published_action_stage1_float32_launch_table(card, calls, whole):
+    """The published HumanAct12 configuration at its widths, batch 2 at
+    60 frames, on the card's float32 routes: the ActorVae's stage-1 pass
+    with a gradient calls kernels 8 and 9 in each of its 6 + 6 layers, or
+    kernels 12 and 13 on the whole-layer route
+    (``launch_tables.action_stage1_step``)."""
+    from ladiff_torch import launch_tables as lt
+    from ladiff_torch.config import assemble_config
+    from ladiff_torch.models.ladiff import LADiffSystem
+    cfg = assemble_config(
+        os.path.join(REPO, "configs", "config_ladiff_humanact12.yaml"),
+        os.path.join(REPO, "configs", "assets.yaml"),
+        {"DATASET": {"NCLASSES": 12}, "model": {"droupout": 0.0}})
+    assert not cfg.TRAIN.MIXED_PRECISION
+    system = _randomize(LADiffSystem.from_cfg(
+        cfg, nfeats=150, njoints=25, device="cpu", dtype=torch.float32,
+        train_whole_layer=whole), 17)
+    rng = np.random.RandomState(18)
+    lengths = np.array([60, 41])
+    mask = np.arange(60)[None] < lengths[:, None]
+    batch = {"motion": t(rnd(rng, 2, 60, 150) * mask[:, :, None]),
+             "length": torch.tensor(lengths), "action": torch.tensor(
+                 [[3], [7]]), "mask": torch.tensor(mask)}
+    calls.clear()
+    system.vae_forward(batch, train=True,
+                       generator=torch.Generator().manual_seed(19))[
+        0].backward()
+    table = lt.action_stage1_step(whole=whole == "1")
+    assert calls == {k: n for k, n in table.items()
+                     if not k.endswith("_bwd")}
 
 
 def test_md_stack_refuses_float32_on_the_card():
