@@ -45,7 +45,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
             rows, L 1 and 7, a sample without a valid key, head width 128;
             each timed at its path's shape beside its plain version, its
             bound and the library call (``nn.TransformerDecoderLayer``,
-            SDPA), and each chain's launches one by one.
+            SDPA), and each chain's launches one by one.  Then the float32
+            kernels 6, 7 and 11 (``_kernels_f32_routes``): at the bf16
+            route kernels' shapes (2560 rows, AdaLN rows per sample and
+            shared, 37 x 7 and 3 x 5 rows at D 64 to 256, kernel 7 at 40 x
+            1 with fractional and all-zero masks, kernel 11 at 512 x 5 rows
+            with and without a mask, 13 samples with one without a valid
+            latent, 1 sample) and the float32 routes' 64 x 5 rows;
+            kernel 11's bits equal over two runs; each timed at 64 x 5 rows
+            and at 2560 rows (``kernels_f32_2560_rows``) beside its plain
+            version and its bound, each chain's launches one by one.
    train_kernels_f32  the float32 training kernels 8, 9, 12 and 13 (the
             chains of ``csrc/f32_train.cu``), forward and backward,
             against their float32 plain versions fed the kernels' masks
@@ -80,12 +89,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
             same rows (the MD sa_block's tail on the per-block routes):
             each against its plain version, timed like phase 2.
    route_slice  the other denoiser routes at batch 4, mixed lengths, DDIM-10,
-            card against the float32 CPU with their launch counts: the
-            whole-stack route (``md_stack=True``), full-context text (9-token
-            captions through the CLIP tower's hidden states at 77 tokens),
-            and a one-token system at head width 256 (H 1), which neither
-            K1 nor K2 takes: the MD layers per block with kernel 7, the
-            decoder layers per block with kernel 5's tail.
+            card (bf16, then float32 within 1e-3) against the float32 CPU
+            with their launch counts (``route_table``, the same in both
+            types): the whole-stack route (``md_stack=True``), full-context
+            text (9-token captions through the CLIP tower's hidden states
+            at 77 tokens), and a one-token system at head width 256 (H 1),
+            which neither K1 nor K2 takes: the MD layers per block with
+            kernel 7, the decoder layers per block with kernel 5's tail.
    route_bench  the bench protocol on the stack and full-context routes
             and on the one-token route at head width 256 (``one_token_h1``,
             ``bench.build(num_heads=1)``: every MD layer and decoder layer
@@ -93,6 +103,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
             samples/s beside phase 4's.  Phase 4 and each of these routes
             end with one profiled batch of their route
             (``bench.breakdown``: device time by kernel group, idle share).
+   route_bench_f32  a float32 generation of 32 (CFG DDIM-50, the test.py
+            eval batch) on each of those three routes at full width:
+            launches exactly ``route_table`` (kernel 11's, 6's and 7's
+            float32 chains), host seconds and device ms through the kernels
+            and under ``plain_routes()``, the two outputs within 1e-3.
    novae_slice  feature-space diffusion (``configs/config_novae_humanml3d
             .yaml``: no VAE, the plain 9-layer skip denoiser at d 512 over
             198 tokens) at full width, batch 4, lengths 16/60/123/196, CFG
@@ -205,7 +220,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 15. float32_entry  the published configurations unmodified (float32
             compute: the float32 K1, K2, kernels 5 and 10 at inference,
             the float32 kernels 8 and 9, or 12 and 13, in training; CLIP
-            and kernels 6, 7 and 11's blocks plain): stage 1 through
+            plain): stage 1 through
             ``run_training`` for 2 epochs x 3 steps through kernels 8 and
             9 (``launch_tables.STAGE1_STEP`` each step), its loss and
             every VAE gradient on one batch and its validation pass
@@ -299,7 +314,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
             shapes these models give them.  One ``{"phase":
             "alt_models_slice", "check": ...}`` line per check.
 
-Then a ``kernels`` line (kernel 10 twice: on the frozen encode's path and
+Then a ``kernels`` line (the float32 rows of 6, 7 and 11 with the launches
+of ``route_bench_f32``; kernel 10 twice: on the frozen encode's path and
 on the novae path, launches a DDPM-1000 batch; K2 and kernels 5, 8, 9, 12
 and 13 again at the action path's shapes, with its launches; kernel 10
 at MotionCLIP's and MotionDiffuse's shapes and K3 / K4 at width 512), and
@@ -364,26 +380,33 @@ EXPECTED_PER_BATCH = {"fused_md_layer": 450, "fused_decoder_layer": 9,
                       "fused_ln_qkv": 12, "fused_proj_mlp": 12,
                       "fused_postnorm_ffn": 0, "fused_md_stack": 0,
                       "fused_stylized_ffn": 0, "fused_broadcast_stylize": 0}
-# the other generation routes per batch: the whole stack once per DDIM step;
-# with full-context text every MD layer per block (kernel 5 the sa_block
-# tail, the plain linear cross-attention, kernel 6), CLIP at 77 tokens
-EXPECTED_STACK_PER_BATCH = {
-    "fused_md_stack": 50, "fused_md_layer": 0, "fused_postnorm_ffn": 0,
-    "fused_stylized_ffn": 0, "fused_broadcast_stylize": 0,
-    "fused_decoder_layer": 9, "fused_ln_qkv": 12, "fused_proj_mlp": 12}
-EXPECTED_FULL_CONTEXT_PER_BATCH = {
-    "fused_postnorm_ffn": 450, "fused_stylized_ffn": 450,
-    "fused_md_layer": 0, "fused_broadcast_stylize": 0, "fused_md_stack": 0,
-    "fused_decoder_layer": 9, "fused_ln_qkv": 12, "fused_proj_mlp": 12}
-# the one-token system at head width 256 (H 1), which neither K1 nor K2
-# takes: every MD layer per block (plain 7-key attention, kernel 5 as the
-# ReLU tail, kernel 7, kernel 6), every decoder layer per block (plain
-# attention and cross-attention, kernel 5 as the GELU tail)
-EXPECTED_ONE_TOKEN_H1_PER_BATCH = {
-    "fused_broadcast_stylize": 450, "fused_stylized_ffn": 450,
-    "fused_postnorm_ffn": 459, "fused_ln_qkv": 12, "fused_proj_mlp": 12,
-    "fused_md_layer": 0, "fused_md_stack": 0, "fused_decoder_layer": 0,
-    "fused_masked_attention": 0}
+# the wrappers a generation route either launches (as the route's table in
+# ``ladiff_torch.launch_tables`` says) or must not launch at all
+ROUTE_WRAPPERS = ("fused_md_layer", "fused_md_stack", "fused_postnorm_ffn",
+                  "fused_stylized_ffn", "fused_broadcast_stylize",
+                  "fused_decoder_layer", "fused_masked_attention")
+
+
+def route_table(route: str, steps: int, clip_layers: int = 0) -> dict:
+    """Generation's other routes a batch, the same in bf16 and float32:
+    ``md_stack`` the whole stack once a DDIM step; ``full_context`` every MD
+    layer per block (kernel 5 the sa_block tail, the plain linear
+    cross-attention, kernel 6); ``one_token_h1`` (head width 256, which
+    neither K1 nor K2 takes) every MD layer per block (plain 7-key
+    attention, kernels 5, 7 and 6) and every decoder layer per block
+    (plain attentions, kernel 5 as the GELU tail).  The route's table in
+    ``launch_tables``, 0 for every other wrapper of ``ROUTE_WRAPPERS``, and
+    CLIP's K3 and K4 once a layer where the batch runs CLIP."""
+    from ladiff_torch import launch_tables as lt
+    table = {"md_stack": lt.stack_generation,
+             "full_context": lt.full_context_generation,
+             "one_token_h1": lt.one_token_h1_generation}[route](steps)
+    out = {**{k: 0 for k in ROUTE_WRAPPERS}, **table}
+    if clip_layers:
+        out.update(fused_ln_qkv=clip_layers, fused_proj_mlp=clip_layers)
+    return out
+
+
 # kernel 5 runs on two paths, and the ``kernels`` line has a row for each
 KERNEL5_VAE_PATH = "VAE encoder layer tail, GELU, 128 x 206 rows"
 KERNEL5_MD_PATH = "MD sa_block tail, ReLU, 512 x 5 rows"
@@ -485,7 +508,8 @@ PHASES = (("kernels", False), ("kernels_f32", False),
           ("train_kernels_f32", False), ("slice", False),
           ("bench", False),
           ("route_kernels", False), ("route_slice", False),
-          ("route_bench", False), ("novae_slice", False),
+          ("route_bench", False), ("route_bench_f32", False),
+          ("novae_slice", False),
           ("novae_bench", False), ("train_kernels", False),
           ("whole_layer_kernels", False), ("train_slice", True),
           ("whole_layer_slice", True), ("gated_slice", True),
@@ -753,12 +777,13 @@ def compare(name, got, want, tol):
 def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
                  run_plain, flops, nb, library=None, tol=None,
                  run_timed=None, extra=None, rounds=0,
-                 peak=PEAK_BF16_FLOPS):
+                 peak=PEAK_BF16_FLOPS, reps=20):
     """Kernel vs its plain version (float32, same bf16 inputs): error,
     times, bound.  ``run_timed`` is what is timed where it differs from
     what is compared.  ``rounds`` > 0 times the kernel, its plain version
-    and the library call in turn (``interleaved_ms``): the medians, and
-    every round's readings on the line.  Returns the kernel's record."""
+    and the library call in turn (``interleaved_ms``, windows of ``reps``
+    calls): the medians, and every round's readings on the line.  Returns
+    the kernel's record."""
     import torch
     tol = KERNEL_TOL if tol is None else tol
     got = run_kernel()
@@ -768,7 +793,7 @@ def check_kernel(name, source, replaces, run_kernel, run_plain_f32,
     timed = [run_timed or run_kernel, run_plain] + (
         [library] if library is not None else [])
     if rounds:
-        meds, reads = interleaved_ms(timed, rounds)
+        meds, reads = interleaved_ms(timed, rounds, reps)
     else:
         meds, reads = [device_ms(fn) for fn in timed], None
     ms, plain_ms = meds[:2]
@@ -989,7 +1014,15 @@ F32_PATHS = {
                           "rows",
     "fused_masked_attention": "published stage 2's frozen encode "
                               "(float32_entry stage-2 run): 128 x 206 "
-                              "tokens, head width 64"}
+                              "tokens, head width 64",
+    "fused_stylized_ffn": "full-context route, a float32 generation of 32 "
+                          "(route_bench_f32): CFG DDIM-50, 64 x 5 rows",
+    "fused_broadcast_stylize": "one-token route at head width 256, a "
+                               "float32 generation of 32 (route_bench_f32):"
+                               " CFG DDIM-50, 64 x 5 rows",
+    "fused_md_stack": "stack route, a float32 generation of 32 "
+                      "(route_bench_f32): CFG DDIM-50, 64 x 5 latent rows, "
+                      "9 layers"}
 
 
 def phase_kernels_f32(dev):
@@ -1215,6 +1248,8 @@ def phase_kernels_f32(dev):
                    "64, encoder-stream mask")))
     chains["fused_masked_attention"] = launch_breakdown(
         lambda: fused_masked_attention(q, k, v, valid, num_heads=H))
+    del q, k, v
+    recs += _kernels_f32_routes(dev, rnd, held, path, chains, tol)
     emit({"phase": "kernels_f32", "rel_err": errs, "tol": tol,
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "launches_on_path": {
@@ -1222,8 +1257,214 @@ def phase_kernels_f32(dev):
               "fused_decoder_layer": lt.decode()["fused_decoder_layer"],
               "fused_postnorm_ffn": lt.encode()["fused_postnorm_ffn"],
               "fused_masked_attention":
-                  lt.encode()["fused_masked_attention"]},
+                  lt.encode()["fused_masked_attention"],
+              "fused_stylized_ffn": lt.full_context_generation(50)[
+                  "fused_stylized_ffn"],
+              "fused_broadcast_stylize": lt.one_token_h1_generation(50)[
+                  "fused_broadcast_stylize"],
+              "fused_md_stack": lt.stack_generation(50)["fused_md_stack"]},
           "chains": chains, "seconds": time.perf_counter() - t0})
+    return recs
+
+
+# kernel 11's float32 chain and its plain version are hundreds of launches
+# a call, each traced on the host, so their timing windows hold 5 calls
+STACK_F32_REPS = 5
+
+
+def _kernels_f32_routes(dev, rnd, held, path, chains, tol):
+    """``kernels_f32``'s kernels 6, 7 and 11 (the float32 chains of
+    ``csrc/f32_layer.cu`` behind ``fused_stylized_ffn``,
+    ``fused_broadcast_stylize`` and ``fused_md_stack``) against their
+    float32 plain versions (``held``): the bf16 route kernels' shapes
+    (``route_kernels``: 2560 rows with an AdaLN row per sample and a shared
+    one, 37 x 7 and 3 x 5 rows at D 64 to 256, kernel 7 also at 40 x 1
+    rows with fractional and all-zero masks; kernel 11 at 512 x 5 rows,
+    without a mask, at 13 samples with one without a valid latent and at
+    1) and the float32 routes' 64 x 5 rows (the test.py eval batch doubled
+    for guidance); kernel 11's bits equal over two runs.  Each timed at
+    64 x 5 rows (its record) and at 2560 rows beside its plain version
+    and its bound, each chain's launches one by one.  Returns the three
+    records."""
+    import torch
+    from ladiff_torch.ops.md_stack import fused_md_stack, md_stack_plain
+    from ladiff_torch.ops.stylization import (MDSkipTransformerEncoder,
+                                              MDTransformerLayer)
+    from ladiff_torch.ops.stylize import (broadcast_stylize_plain,
+                                          fused_broadcast_stylize)
+    from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
+                                               stylized_ffn_plain)
+    from ladiff_torch.utils.masks import latent_valid_mask
+
+    f32 = torch.float32
+    src = "ladiff_torch/csrc/f32_layer.cu"
+    D, H, F, E, L = 256, 4, 1024, 2, 9
+    recs, timed, secs = [], {}, {}
+    t0 = time.perf_counter()
+
+    def kvalid(n, T, seed):
+        lat = latent_valid_mask(mixed_lengths(n, seed=seed), 48, T)
+        return lat.reshape(n * T).float().to(dev)
+
+    def at_2560(name, run, plain, flops, nb, reps=20):
+        (ms, plain_ms), _ = interleaved_ms([run, plain], rounds=3, reps=reps)
+        b_ms, b_by = bound(flops, nb, PEAK_F32_FLOPS)
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+
+    layer = randomize_(MDTransformerLayer(D, D, F, H), 42).to(dev, f32)
+    f, cp = layer.ffn, layer.ca_block.proj_out
+    w6 = [t.detach() for t in (f.linear1.weight, f.linear1.bias,
+                               f.linear2.weight, f.linear2.bias,
+                               f.proj_out.norm.weight, f.proj_out.norm.bias,
+                               f.proj_out.out_layers[2].weight,
+                               f.proj_out.out_layers[2].bias)]
+    w7 = [t.detach() for t in (cp.norm.weight, cp.norm.bias,
+                               cp.out_layers[2].weight,
+                               cp.out_layers[2].bias)]
+    del layer
+
+    def weights(Dk, kind):
+        if Dk == D:
+            return w6 if kind == 6 else w7
+        Fk = 4 * Dk
+        lnw = [1 + rnd(Dk, scale=0.1), rnd(Dk, scale=0.05)]
+        proj = [rnd(Dk, Dk, scale=Dk ** -0.5), rnd(Dk, scale=0.05)]
+        if kind == 7:
+            return lnw + proj
+        return [rnd(Fk, Dk, scale=Dk ** -0.5), rnd(Fk, scale=0.05),
+                rnd(Dk, Fk, scale=Fk ** -0.5), rnd(Dk, scale=0.05)] \
+            + lnw + proj
+
+    # kernel 6: at D 256 the routes' rows (64 and 512 samples of 5), then
+    # rows whose bf16 row groups split samples, at D 64 to 256
+    for Dk in (D, 64, 128, 192):
+        wk = weights(Dk, 6)
+        shapes = ((64, 5), (512, 5), (37, 7), (3, 5)) if Dk == D else \
+            ((37, 7), (3, 5))
+        for n, T in shapes:
+            xk = rnd(n * T, Dk)
+            for rows in (n, 1):
+                ssk = rnd(rows, 2 * Dk, scale=0.3)
+                held(f"fused_stylized_ffn float32, D {Dk}, {n} x {T} rows, "
+                     + ("shared AdaLN row" if rows == 1 else
+                        "AdaLN row per sample"),
+                     fused_stylized_ffn(xk, ssk, *wk, T=T),
+                     stylized_ffn_plain(xk, ssk, *wk, T=T))
+    # kernel 7: the routes' rows under the latent mask, then fractional
+    # masks (the first sample wholly masked) and all-zero masks
+    gm = torch.Generator().manual_seed(22)
+    for Dk in (D, 64, 128, 192):
+        wk = weights(Dk, 7)
+        shapes = ((64, 5), (512, 5), (37, 7), (3, 5), (40, 1)) \
+            if Dk == D else ((37, 7), (3, 5), (40, 1))
+        for n, T in shapes:
+            xk, vk = rnd(n * T, Dk), rnd(n, Dk)
+            frac = torch.rand(n * T, generator=gm).to(dev)
+            frac[:T] = 0.0
+            masks = (("fractional mask", frac),
+                     ("zero mask", torch.zeros(n * T, device=dev)))
+            if T == 5 and n >= 64:
+                masks = (("latent mask", kvalid(n, T, n)),)
+            for mname, mk in masks:
+                for rows in (n, 1):
+                    ssk = rnd(rows, 2 * Dk, scale=0.3)
+                    held(f"fused_broadcast_stylize float32, D {Dk}, {n} x "
+                         f"{T} rows, {mname}, "
+                         + ("shared AdaLN row" if rows == 1 else
+                            "AdaLN row per sample"),
+                         fused_broadcast_stylize(xk, vk, mk, ssk, *wk, T=T),
+                         broadcast_stylize_plain(xk, vk, mk, ssk, *wk, T=T))
+
+    secs["compared_6_7"] = time.perf_counter() - t0
+    # 6 and 7 timed at the float32 routes' 64 x 5 rows (an AdaLN row per
+    # sample, as the modules pass them) and at 2560 rows
+    for M in (320, 2560):
+        x6, v7 = rnd(M, D), rnd(M // 5, D)
+        ss, m7 = rnd(M // 5, 2 * D, scale=0.3), kvalid(M // 5, 5, 7)
+        fl6 = 2 * M * D * F * 2 + 2 * M * D * D
+        nb6 = nbytes(x6, ss, *w6, x6)
+        fl7, nb7 = 2 * M * D * D, nbytes(x6, v7, m7, ss, *w7, x6)
+        run6 = (lambda: fused_stylized_ffn(x6, ss, *w6, T=5))
+        plain6 = (lambda: stylized_ffn_plain(x6, ss, *w6, T=5))
+        run7 = (lambda: fused_broadcast_stylize(x6, v7, m7, ss, *w7, T=5))
+        plain7 = (lambda: broadcast_stylize_plain(x6, v7, m7, ss, *w7, T=5))
+        if M == 2560:
+            at_2560("fused_stylized_ffn", run6, plain6, fl6, nb6)
+            at_2560("fused_broadcast_stylize", run7, plain7, fl7, nb7)
+            continue
+        recs.append(check_kernel(
+            "fused_stylized_ffn (float32)", src,
+            "ladiff_tpu/ops/pallas_fused_ffn.py:68", run6, plain6, plain6,
+            fl6, nb6, tol=tol, rounds=3, peak=PEAK_F32_FLOPS,
+            extra=path("fused_stylized_ffn", "64 x 5 rows, AdaLN row per "
+                       "sample")))
+        chains["fused_stylized_ffn"] = launch_breakdown(run6)
+        recs.append(check_kernel(
+            "fused_broadcast_stylize (float32)", src,
+            "ladiff_tpu/ops/pallas_stylize.py:43", run7, plain7, plain7,
+            fl7, nb7, tol=tol, rounds=3, peak=PEAK_F32_FLOPS,
+            extra=path("fused_broadcast_stylize", "64 x 5 rows, latent "
+                       "mask, AdaLN row per sample")))
+        chains["fused_broadcast_stylize"] = launch_breakdown(run7)
+    del x6, v7
+    secs["timed_6_7"] = time.perf_counter() - t0 - sum(secs.values())
+
+    # kernel 11: the sampling step's whole stack (2B samples of 5 latent
+    # rows, one AdaLN row a layer)
+    enc = randomize_(MDSkipTransformerEncoder(D, D, H, L, F), 41).to(dev,
+                                                                     f32)
+    st = enc.stacked_params(f32)
+    del enc
+    kw = dict(T=5, E=E, H=H)
+    ca_ss, ffn_ss = rnd(L, 2 * D, scale=0.3), rnd(L, 2 * D, scale=0.3)
+
+    def stack_args(n, seed, mask=True, empty=False):
+        kv = kvalid(n, 5, seed) if mask else torch.ones(n * 5, device=dev)
+        if empty:
+            kv[:5] = 0.0
+        return (rnd(n * 5, D), rnd(n * E, D), kv, rnd(L, n, D), ca_ss,
+                ffn_ss)
+
+    def stack_flops(a):
+        n = a[0].shape[0] // 5
+        per_layer = 2 * n * 5 * D * (3 * D + 3 * D + 2 * F) \
+            + 2 * n * E * D * 2 * D + 4 * 5 * D * (int(a[2].sum()) + n * E) \
+            + 2 * n * 5 * 2 * F * D
+        return L * per_layer + (L - 1) // 2 * 2 * n * 5 * 2 * D * D
+
+    for case, a in (("512 x 5 rows", stack_args(512, 60)),
+                    ("512 x 5 rows, no mask", stack_args(512, 60, False)),
+                    ("13 x 5 rows, a sample without a valid latent",
+                     stack_args(13, 8, empty=True)),
+                    ("1 x 5 rows", stack_args(1, 9))):
+        held(f"fused_md_stack float32, {case}", fused_md_stack(*a, st, **kw),
+             md_stack_plain(*a, st, **kw))
+    secs["compared_11"] = time.perf_counter() - t0 - sum(secs.values())
+    a11 = stack_args(64, 7)
+    bits_equal = torch.equal(fused_md_stack(*a11, st, **kw),
+                             fused_md_stack(*a11, st, **kw))
+    emit({"phase": "kernel_md_stack_f32_bits",
+          "bits_equal_over_two_runs": bits_equal})
+    if not bits_equal:
+        fail("fused_md_stack float32: two runs on the same inputs differ")
+    run11 = (lambda: fused_md_stack(*a11, st, **kw))
+    plain11 = (lambda: md_stack_plain(*a11, st, **kw))
+    recs.append(check_kernel(
+        "fused_md_stack (float32)", src,
+        "ladiff_tpu/ops/pallas_md_stack.py:217", run11, plain11, plain11,
+        stack_flops(a11), nbytes(*a11, *st.values(), a11[0]), tol=tol,
+        rounds=3, peak=PEAK_F32_FLOPS, reps=STACK_F32_REPS,
+        extra={**path("fused_md_stack", "64 x 5 latent rows, 9 layers, "
+                      "one AdaLN row a layer"), "layers": L}))
+    chains["fused_md_stack"] = launch_breakdown(run11, reps=3)
+    a512 = stack_args(512, 60)
+    at_2560("fused_md_stack", lambda: fused_md_stack(*a512, st, **kw),
+            lambda: md_stack_plain(*a512, st, **kw), stack_flops(a512),
+            nbytes(*a512, *st.values(), a512[0]), reps=STACK_F32_REPS)
+    secs["timed_11"] = time.perf_counter() - t0 - sum(secs.values())
+    emit({"phase": "kernels_f32_2560_rows", "rows": 2560,
+          "peak_flops": PEAK_F32_FLOPS, "timed": timed, "seconds": secs})
     return recs
 
 
@@ -1963,9 +2204,10 @@ def phase_route_kernels(dev):
 
 
 def phase_route_slice(dev):
-    """The other denoiser routes at batch 4: card (kernels, bf16) against
-    the CPU (plain versions, float32) from the same weights, text and
-    initial noise, with each route's launch counts."""
+    """The other denoiser routes at batch 4: card (kernels, bf16, then
+    float32) against the CPU (plain versions, float32) from the same
+    weights, text and initial noise, with each route's launch counts
+    (``route_table``, the same in both types)."""
     import torch
     from ladiff_torch.models.clip_text import CLIPTextTower
     from ladiff_torch.models.ladiff import LADiffSystem
@@ -1988,28 +2230,17 @@ def phase_route_slice(dev):
     tower_err = relerr(hidden_card.float().cpu(), hidden)
     del tower
     tol = 1e-1  # phase_slice's: bf16 through 10 guided steps
-    per_step = 9 * steps
     cases = {
-        "md_stack": (dict(md_stack=True), pooled, uncond,
-                     {"fused_md_stack": steps, "fused_md_layer": 0,
-                      "fused_stylized_ffn": 0, "fused_broadcast_stylize": 0,
-                      "fused_postnorm_ffn": 0}),
+        "md_stack": (dict(md_stack=True), pooled, uncond, "md_stack"),
         "full_context": (dict(), hidden, torch.zeros(B, 77, 768),
-                         {"fused_postnorm_ffn": per_step,
-                          "fused_stylized_ffn": per_step,
-                          "fused_md_layer": 0, "fused_broadcast_stylize": 0,
-                          "fused_md_stack": 0}),
+                         "full_context"),
         # neither K1 nor K2 takes head width 256: the MD layers and the
         # 9 decoder layers run per block, each decoder layer's tail kernel 5
-        "one_token_head_width_256": (
-            dict(num_heads=1), pooled, uncond,
-            {"fused_broadcast_stylize": per_step,
-             "fused_stylized_ffn": per_step,
-             "fused_postnorm_ffn": per_step + 9, "fused_md_layer": 0,
-             "fused_md_stack": 0, "fused_decoder_layer": 0,
-             "fused_masked_attention": 0})}
+        "one_token_head_width_256": (dict(num_heads=1), pooled, uncond,
+                                     "one_token_h1")}
     out, counts_all = {}, {}
-    for case, (extra_kw, cond, unc, expected) in cases.items():
+    for case, (extra_kw, cond, unc, route) in cases.items():
+        expected = route_table(route, steps)
         kw = dict(nfeats=263, njoints=22, max_frames=196,
                   latent_dim=(7, 256), ff_size=1024, num_layers=9,
                   num_heads=4, text_encoded_dim=768, guidance_scale=7.5,
@@ -2039,9 +2270,32 @@ def phase_route_slice(dev):
                 fail(f"route slice {case}: {name}: {counts.get(name)} "
                      f"launches, expected {want}")
         counts_all[case] = counts
+        del gpu
+        # float32 on the card (the float32 chains of the same kernels)
+        # against the same float32 CPU run: the same launches
+        gpu = LADiffSystem(device=dev, dtype=torch.float32, **kw)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        cc.reset_launch_counts()
+        f_gpu, z_gpu = gpu.generate(cond, unc, lengths, init_latents=init)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cc.launch_counts().items() if v}
+        rec["float32"] = {
+            "latents_rel_err": relerr(z_gpu.cpu(), z_cpu),
+            "feats_rel_err": relerr(f_gpu.cpu(), f_cpu),
+            "launches": counts}
+        if not (rec["float32"]["latents_rel_err"] <= FLOAT32_LOSS_TOL
+                and rec["float32"]["feats_rel_err"] <= FLOAT32_LOSS_TOL
+                and not bool(f_gpu[0, 16:].any())
+                and bool(torch.isfinite(f_gpu).all())):
+            fail(f"route slice {case} in float32 disagrees with the CPU: "
+                 f"{rec['float32']}")
+        if counts != {k: v for k, v in expected.items() if v}:
+            fail(f"route slice {case} in float32: launches {counts}, "
+                 f"expected {expected}")
         del cpu, gpu
     emit({"phase": "route_slice", "batch": B, "steps": steps,
           "lengths": lengths.tolist(), "tol": tol,
+          "float32_tol": FLOAT32_LOSS_TOL,
           "clip_hidden_rel_err": tower_err, "cases": out})
     if not tower_err <= tol:
         fail(f"CLIP hidden states on the card: rel err {tower_err}")
@@ -2060,12 +2314,11 @@ def phase_route_bench(dev, default_sps=None):
     batches = 2
     sps = {"default": default_sps}
     counts_all, per_batch_all = {}, {}
-    for route, build_kw, full, expected in (
-            ("md_stack", dict(md_stack=True), False,
-             EXPECTED_STACK_PER_BATCH),
-            ("full_context", {}, True, EXPECTED_FULL_CONTEXT_PER_BATCH),
-            ("one_token_h1", dict(num_heads=1), False,
-             EXPECTED_ONE_TOKEN_H1_PER_BATCH)):
+    for route, build_kw, full in (
+            ("md_stack", dict(md_stack=True), False),
+            ("full_context", {}, True),
+            ("one_token_h1", dict(num_heads=1), False)):
+        expected = route_table(route, bench.STEPS, clip_layers=12)
         # each route's own peak memory, not the process's so far
         torch.cuda.reset_peak_memory_stats()
         system, tower = bench.build(dev, **build_kw)
@@ -2097,6 +2350,61 @@ def phase_route_bench(dev, default_sps=None):
     emit({"phase": "routes_samples_per_sec", "batch": bench.BATCH,
           "steps": bench.STEPS, "samples_per_sec": sps})
     return {"counts": counts_all, "per_batch": per_batch_all}
+
+
+def phase_route_bench_f32(dev):
+    """A float32 generation batch of 32 (the test.py eval batch: CFG
+    DDIM-50, mixed lengths) on each of generation's other routes at full
+    width (d 256, 9 + 9 layers, ff 1024, seeded random weights): the whole
+    stack (kernel 11's float32 chain once a step), full-context text
+    (9-token captions through the float32 CLIP tower's hidden states at
+    77 tokens, zero unconditional text: kernels 5 and 6) and one text token
+    at head width 256 (kernels 5, 7 and 6).  Each: its launches, exactly
+    ``route_table``; host seconds and device ms through the kernels and
+    under ``plain_routes()`` (``_f32_generation_vs_plain``), and the two
+    outputs within ``FLOAT32_LOSS_TOL``.  Returns each route's launches:
+    the ``kernels`` line's float32 rows for 6, 7 and 11 take theirs from
+    them."""
+    import torch
+    from ladiff_torch.models.clip_text import CLIPTextTower
+    from ladiff_torch.models.ladiff import LADiffSystem
+
+    B, steps = 32, 50
+    g = torch.Generator().manual_seed(8)
+    ids = torch.zeros(B, 77, dtype=torch.long)
+    ids[:, 0], ids[:, 8] = 49406, 49407
+    ids[:, 1:8] = torch.randint(1, 49405, (B, 7), generator=g)
+    with torch.device(dev):  # built on the card: no CPU init of 123 M
+        tower = CLIPTextTower()
+    tower = randomize_(tower, 23).eval()
+    with torch.no_grad():
+        hidden = tower(ids.to(dev), return_hidden=True)
+    del tower
+    kw = dict(nfeats=263, njoints=22, max_frames=196, latent_dim=(7, 256),
+              ff_size=1024, num_layers=9, num_heads=4, text_encoded_dim=768,
+              guidance_scale=7.5, num_inference_timesteps=steps)
+    out = {}
+    for route, extra_kw, text in (
+            ("md_stack", dict(md_stack=True), None),
+            ("full_context", {}, (hidden, torch.zeros_like(hidden))),
+            ("one_token_h1", dict(num_heads=1), None)):
+        system = randomize_(LADiffSystem(
+            device=dev, dtype=torch.float32, **{**kw, **extra_kw}),
+            21).eval()
+        gen = _f32_generation_vs_plain(system, B, steps, text=text)
+        want = {k: v for k, v in route_table(route, steps).items() if v}
+        emit({"phase": "route_bench_f32", "route": route, **gen,
+              "expected_launches": want, "tol": FLOAT32_LOSS_TOL})
+        if gen["launches"] != want:
+            fail(f"route_bench_f32 {route}: launches {gen['launches']}, "
+                 f"expected {want}")
+        if not gen["kernels_vs_plain_rel_err"] <= FLOAT32_LOSS_TOL:
+            fail(f"route_bench_f32 {route}: the kernels' generation is "
+                 f"{gen['kernels_vs_plain_rel_err']} from its plain routes")
+        out[route] = gen["launches"]
+        del system
+        torch.cuda.empty_cache()
+    return out
 
 
 def _novae_config():
@@ -3722,17 +4030,20 @@ def _demo_options(dev, tmp, base, ckpt):
     return out
 
 
-def _f32_generation_vs_plain(system, B=32, steps=50, seed=5):
+def _f32_generation_vs_plain(system, B=32, steps=50, seed=5, text=None):
     """A float32 generation batch of ``system`` on the card (CFG
-    DDIM-``steps``, B mixed lengths, one seed): its launches; host seconds
-    (a sync each) through the float32 kernels and under ``plain_routes()``
-    in turns (plain, kernels, kernels, plain) and each route's device ms;
-    the two routes' outputs against each other."""
+    DDIM-``steps``, B mixed lengths, one seed; pooled text from the seed, or
+    ``text`` = (cond, uncond)): its launches; host seconds (a sync each)
+    through the float32 kernels and under ``plain_routes()`` in turns
+    (plain, kernels, kernels, plain) and each route's device ms; the two
+    routes' outputs against each other."""
     import torch
     from ladiff_torch.ops import cuda_common as cc
     g = torch.Generator().manual_seed(seed)
     cond = torch.randn(B, 1, 768, generator=g)
     uncond = 0.1 * torch.randn(B, 1, 768, generator=g)
+    if text is not None:
+        cond, uncond = text
     lengths = mixed_lengths(B, seed=seed)
     init = torch.randn(B, system.n_latents, system.latent_dim[-1],
                        generator=g)
@@ -8199,15 +8510,24 @@ def main():
     # the alternate models' runs: an encode, a MotionDiffuse call, a bench
     # batch
     recs += out["alt_models_slice"]
-    # the float32 kernels, with the launches of the published float32
-    # paths: K1 and K2 in eval_entry's float32 card run of test.py, kernels
-    # 10 and 5 in float32_entry's stage-2 run (the frozen encode)
+    # the float32 kernels, with the launches of the float32 paths: K1 and
+    # K2 in eval_entry's float32 card run of test.py, kernels 10 and 5 in
+    # float32_entry's stage-2 run (the frozen encode), kernels 11, 6 and 7
+    # in route_bench_f32's float32 generations of 32 on the stack, the
+    # full-context and the head-width-256 routes
     f32_eval = out["eval_entry"]["float32_card"]["launches"]
     f32_entry = out["float32_entry"]
+    f32_routes = out["route_bench_f32"]
     f32_launches = {**{k: f32_eval.get(k, 0) for k in
                        ("fused_md_layer", "fused_decoder_layer")},
                     **{k: f32_entry["stage2_run"].get(k, 0) for k in
-                       ("fused_postnorm_ffn", "fused_masked_attention")}}
+                       ("fused_postnorm_ffn", "fused_masked_attention")},
+                    "fused_md_stack": f32_routes["md_stack"].get(
+                        "fused_md_stack", 0),
+                    "fused_stylized_ffn": f32_routes["full_context"].get(
+                        "fused_stylized_ffn", 0),
+                    "fused_broadcast_stylize": f32_routes["one_token_h1"].get(
+                        "fused_broadcast_stylize", 0)}
     for rec in out["kernels_f32"]:
         rec["launches"] = f32_launches[rec["name"].split(" (")[0]]
     recs += out["kernels_f32"]

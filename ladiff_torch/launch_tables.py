@@ -2,15 +2,22 @@
 counterparts.
 
 The published configurations compute in float32 (``configs/base.yaml``
-``TRAIN.MIXED_PRECISION: false``).  There K1, K2, kernels 5 and 10 (the
-chains of ``ops/f32_layer.py``) and the training kernels 8, 9, 12 and 13,
-forward and backward (those of ``ops/f32_train.py``), take float32
-(``ops.cuda_common.KERNEL_DTYPES``); K3, K4 and kernels 6, 7 and 11 take
-bf16 only and send their modules to the plain route.  Per call of a
-wrapper each path launches:
+``TRAIN.MIXED_PRECISION: false``).  Every kernel the JAX package runs in
+float32 takes float32 on the card as well (``ops.cuda_common
+.KERNEL_DTYPES``): K1, K2 and kernels 5, 6, 7, 10 and 11 (the chains of
+``ops/f32_layer.py``) and the training kernels 8, 9, 12 and 13, forward
+and backward (those of ``ops/f32_train.py``); only CLIP's K3 and K4 take
+bf16 alone and send CLIP to its plain route.  Per call of a wrapper each
+path launches:
 
   generation (CFG DDIM)  K1 in each MD layer every step (the 2B guided rows
                          in one call), K2 in each decoder layer once
+  the other generation   the whole stack as kernel 11 once a step
+  routes                 (``md_stack``); with full-context text every MD
+                         layer per block, kernels 5 and 6; one text token
+                         at head width 256 (which K1 and K2 refuse) every
+                         MD layer per block, kernels 5, 7 and 6, and every
+                         decoder layer per block, kernel 5
   encode (eval mode)     kernel 10 (>= 64 tokens) and kernel 5 in each
                          encoder layer
   decode (eval mode)     K2 in each decoder layer
@@ -26,11 +33,11 @@ wrapper each path launches:
 Each function below gives a path's bf16 launches; each shape gate is one
 for both types (``ops/f32_layer.py``, ``ops/f32_train.py``), so a float32
 run of the path launches ``float32_launches`` of it: the launches of the
-kernels that take float32, which since the training kernels' float32
-chains are every kernel of these paths.  ``STAGE1_STEP`` and the other
-float32 tables are derived so.  ``chip_smoke.py`` holds the card to these
-tables and ``tests/test_torch_dtype_routes.py`` holds the CPU's route
-choices (``on_card`` patched) to them.
+kernels that take float32, which are every kernel of these paths but CLIP's.
+``STAGE1_STEP`` and the other float32 tables are derived so.
+``chip_smoke.py`` holds the card to these tables and
+``tests/test_torch_dtype_routes.py`` holds the CPU's route choices
+(``on_card`` patched) to them.
 """
 from __future__ import annotations
 
@@ -43,7 +50,9 @@ from ladiff_torch.ops.cuda_common import KERNEL_DTYPES
 __all__ = ["FLOAT32_KERNELS", "float32_launches", "generation", "encode",
            "decode", "stage1_step", "whole_layer_step", "STAGE1_STEP",
            "STAGE1_WHOLE_LAYER_STEP", "stage2_step", "joint_step",
-           "action_stage1_step", "novae_step", "action_generation"]
+           "action_stage1_step", "novae_step", "action_generation",
+           "stack_generation", "full_context_generation",
+           "one_token_h1_generation"]
 
 FLOAT32_KERNELS = tuple(sorted(k for k, types in KERNEL_DTYPES.items()
                                if torch.float32 in types))
@@ -61,6 +70,35 @@ def generation(steps: int, md_layers: int = 9,
     decode."""
     return {"fused_md_layer": md_layers * steps,
             "fused_decoder_layer": dec_layers}
+
+
+def stack_generation(steps: int, dec_layers: int = 9) -> Dict[str, int]:
+    """A guided generation batch on the whole-stack route (``md_stack``):
+    kernel 11 once a step, then the decode."""
+    return {"fused_md_stack": steps, "fused_decoder_layer": dec_layers}
+
+
+def full_context_generation(steps: int, md_layers: int = 9,
+                            dec_layers: int = 9) -> Dict[str, int]:
+    """A guided generation batch with full-context text (more than one
+    text token): every MD layer per block, kernel 5 as the sa_block's tail
+    (its attention and the linear cross-attention plain) and kernel 6; then
+    the decode."""
+    return {"fused_postnorm_ffn": md_layers * steps,
+            "fused_stylized_ffn": md_layers * steps,
+            "fused_decoder_layer": dec_layers}
+
+
+def one_token_h1_generation(steps: int, md_layers: int = 9,
+                            dec_layers: int = 9) -> Dict[str, int]:
+    """A guided generation batch of a one-token system at head width 256
+    (one head), which neither K1 nor K2 takes: every MD layer per block
+    (kernel 5 as the sa_block's tail, kernel 7, kernel 6; the attention
+    plain) and every decoder layer per block (kernel 5 as the tail; both
+    attentions plain)."""
+    return {"fused_broadcast_stylize": md_layers * steps,
+            "fused_stylized_ffn": md_layers * steps,
+            "fused_postnorm_ffn": md_layers * steps + dec_layers}
 
 
 def encode(layers: int = 9) -> Dict[str, int]:

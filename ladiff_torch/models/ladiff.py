@@ -47,9 +47,9 @@ for the HumanAct12 classifier (``feats2joints_action_eval``).
 configurations).
 
 ``dtype`` is the compute type (bf16 on CUDA by default; float32 there
-takes the kernels' float32 chains where a kernel has one, K1, K2 and
-kernels 5, 8, 9, 10, 12 and 13, and the plain route of CLIP and of the
-stylization blocks of kernels 6 and 7) and ``param_dtype`` the
+takes the kernels' float32 chains, K1, K2 and kernels 5 to 13, and the
+plain route of CLIP, whose kernels K3 and K4 the JAX package runs in bf16
+only) and ``param_dtype`` the
 parameters' storage type, the same unless given: the trainer keeps float32
 parameters and computes in bf16 or, as the published configurations ask,
 in float32.
@@ -60,8 +60,9 @@ once before the step loop: the text projection, the timestep-embedding
 table of every step and, with one text token, each MD layer's text value
 and AdaLN rows.  The sampler is DDIM (``eta`` 0 or above) or ancestral DDPM
 (``scheduler_kind``).  ``md_stack=True`` runs the denoiser's whole skip
-stack as one launch of kernel 11 per step (the JAX package's
-``LADIFF_MD_STACK=1``); off by default, as there.  ``train_whole_layer``
+stack as one call of kernel 11 per step (the JAX package's
+``LADIFF_MD_STACK=1``; in float32 its chain of 131 launches); off by
+default, as there.  ``train_whole_layer``
 ("0", "1", "enc", "dec": the JAX package's ``LADIFF_TRAIN_WHOLE_LAYER``)
 runs the VAE's training layers as the whole-layer kernels 12 (encoder) and
 13 (decoder) where their shapes allow; off by default, as there.
@@ -84,7 +85,7 @@ from ladiff_torch.losses.mld import (LossWeights, diffusion_loss, smooth_l1,
 from ladiff_torch.models.actor_vae import ActorVae
 from ladiff_torch.models.denoiser import LADenoiser
 from ladiff_torch.models.vae import LAVae
-from ladiff_torch.ops.cuda_common import kernel_compute
+from ladiff_torch.ops.cuda_common import kernel_compute, kernel_dtypes
 from ladiff_torch.ops.md_layer import md_layer_supported
 from ladiff_torch.smpl.body_model import SMPLModel
 from ladiff_torch.transforms.rotation2xyz import Rotation2xyz
@@ -166,8 +167,8 @@ class LADiffSystem(nn.Module):
         if md_stack and not kernel_compute(resolve_dtype(want, dtype), want,
                                            "fused_md_stack"):
             raise ValueError(
-                f"md_stack: the whole-stack kernel computes in bf16, not "
-                f"{dtype} on {want}")
+                f"md_stack: the whole-stack kernel computes in "
+                f"{kernel_dtypes('fused_md_stack')}, not {dtype} on {want}")
         if scheduler_kind not in ("ddim", "ddpm"):
             raise ValueError(f"unknown scheduler kind {scheduler_kind}")
         device = resolve_device(device)

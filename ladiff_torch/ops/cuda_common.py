@@ -193,17 +193,20 @@ def on_card(device) -> bool:
 
 # The compute types each kernel takes on the card, by wrapper name (a
 # backward's registered name too: ``check_cuda_args`` reads the table by
-# it): the kernels of the published float32 paths, the inference K1, K2, 5
-# and 10 and the training 8, 9, 12 and 13, take float32 too; every kernel
-# not named here takes bf16 only.
+# it): every kernel the JAX package runs in float32 takes float32 too, the
+# inference K1, K2, 5, 6, 7, 10 and 11 and the training 8, 9, 12 and 13;
+# K3 and K4, which the JAX package runs in 2-byte types only, are not named
+# here and take bf16 only.
 KERNEL_DTYPES: Dict[str, Tuple[torch.dtype, ...]] = {
     name: (torch.bfloat16, torch.float32)
     for name in ("fused_md_layer", "fused_decoder_layer",
                  "fused_postnorm_ffn", "fused_masked_attention",
-                 "train_self_attention", "train_self_attention_bwd",
-                 "train_postnorm_ffn", "train_postnorm_ffn_bwd",
-                 "train_encoder_layer", "train_encoder_layer_bwd",
-                 "train_decoder_layer", "train_decoder_layer_bwd")}
+                 "fused_stylized_ffn", "fused_broadcast_stylize",
+                 "fused_md_stack", "train_self_attention",
+                 "train_self_attention_bwd", "train_postnorm_ffn",
+                 "train_postnorm_ffn_bwd", "train_encoder_layer",
+                 "train_encoder_layer_bwd", "train_decoder_layer",
+                 "train_decoder_layer_bwd")}
 
 
 def kernel_dtypes(kernel: str) -> Tuple[torch.dtype, ...]:

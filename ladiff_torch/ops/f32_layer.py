@@ -1,10 +1,11 @@
-"""The float32 routes of K1, K2, kernel 5 and kernel 10 on the card: each
-a short chain of the three hand-written kernels of ``csrc/f32_layer.cu``
-(a tiled FFMA GEMM with bias / activation / residual epilogues, a row
-LayerNorm with optional AdaLN and SiLU, a masked softmax attention over
-short rows), launched by the wrappers ``fused_md_layer``,
-``fused_decoder_layer``, ``fused_postnorm_ffn`` and
-``fused_masked_attention`` when their inputs are float32.  The published
+"""The float32 routes of K1, K2 and kernels 5, 6, 7, 10 and 11 on the card:
+each a short chain of the three hand-written kernels of
+``csrc/f32_layer.cu`` (a tiled FFMA GEMM with bias / activation / residual
+epilogues, a row LayerNorm with optional AdaLN and SiLU, a masked softmax
+attention over short rows), launched by the wrappers ``fused_md_layer``,
+``fused_decoder_layer``, ``fused_postnorm_ffn``, ``fused_stylized_ffn``,
+``fused_broadcast_stylize``, ``fused_masked_attention`` and
+``fused_md_stack`` when their inputs are float32.  The published
 configurations compute in float32 (``TRAIN.MIXED_PRECISION: false``), as
 the JAX package's Pallas kernels do there: they take the module's type and
 accumulate in float32.
@@ -13,25 +14,30 @@ Launches a call (one launch count on the wrapper):
 
   kernel 5   LN1, W1 + act, W2 + residual, LN2                          4
   kernel 10  attention                                                  1
+  kernel 7   the one-token collapse (LN of the masked value row, AdaLN,
+             SiLU), its projection + residual                           2
+  kernel 6   W1 + GELU, W2, LN + AdaLN + SiLU, projection + residual    4
   K2         qkv, self-attention, out-proj + residual, LN1, cross q,
              memory k / v, cross-attention, out-proj + residual, then
              kernel 5's chain (LN2, FFN, LN3)                          12
   K1         latent qkv, text / time k / v, attention over both, out-proj
-             + residual, kernel 5's ReLU chain, the cross-attention
-             collapse (LN, AdaLN, SiLU), its projection + residual, W1 +
-             GELU, W2, LN + AdaLN + SiLU, projection + residual          14
+             + residual, then the chains of kernels 5 (ReLU), 7 and 6   14
+  kernel 11  K1's chain per layer, each skip Linear(2D -> D) one GEMM
+             over [x, skip] (the layers around it write the two halves
+             of its input), the final LN: 14 L + (L - 1) / 2 + 1, 131 at
+             the published 9 layers
 
 Numerics are the plain versions': float32 operands and accumulators,
-LayerNorm eps 1e-5, exact erf GELU, a masked key's logit -1e9 (a sample
-without a valid key attends uniformly), no TF32 and no bf16 anywhere.
-What bounds each chain, and its time against the bound, is in PERF.md
-§6.
+LayerNorm eps 1e-5 (of an all-zero row: its bias), exact erf GELU, a
+masked key's logit -1e9 (a sample without a valid key attends uniformly),
+no TF32 and no bf16 anywhere, nothing rounded between layers.  What bounds
+each chain, and its time against the bound, is in PERF.md §6.
 
 The float32 chain's own budget is wider than the bf16 kernels' (any width,
 memory rows and FFN width; an attention head width up to 128), so on
 every shape the bf16 shape gates take the float32 chain holds as well: one
 shape gate per kernel serves both types, and a module's route on the card
-is the same in bf16 and float32 wherever the kernel takes both.
+is the same in bf16 and float32.
 """
 from __future__ import annotations
 
@@ -43,14 +49,28 @@ import torch
 from ladiff_torch.ops.cuda_common import launch
 
 __all__ = ["linear_f32", "rownorm_f32", "attention_f32", "postnorm_ffn_f32",
-           "masked_attention_f32", "decoder_layer_f32", "md_layer_f32",
-           "ACT", "CHAIN_LAUNCHES"]
+           "masked_attention_f32", "decoder_layer_f32",
+           "broadcast_stylize_f32", "stylized_ffn_f32", "md_layer_f32",
+           "md_stack_f32", "md_stack_launches", "ACT", "CHAIN_LAUNCHES"]
 
 ACT = {None: 0, "relu": 1, "gelu": 2}
 LIB = "f32_layer"
-# kernel launches of one wrapper call on the float32 route
+# the tensors of ``stack_md_params`` that are not a layer's
+_STACK_ONLY = ("lin_w", "lin_b", "norm_w", "norm_b")
+
+
+def md_stack_launches(layers: int) -> int:
+    """Kernel launches of kernel 11's float32 chain over ``layers``
+    layers: K1's 14 a layer, one a skip Linear, one for the final LN."""
+    return 14 * layers + (layers - 1) // 2 + 1
+
+
+# kernel launches of one wrapper call on the float32 route (kernel 11 at
+# the published 9 layers)
 CHAIN_LAUNCHES = {"fused_postnorm_ffn": 4, "fused_masked_attention": 1,
-                  "fused_decoder_layer": 12, "fused_md_layer": 14}
+                  "fused_broadcast_stylize": 2, "fused_stylized_ffn": 4,
+                  "fused_decoder_layer": 12, "fused_md_layer": 14,
+                  "fused_md_stack": md_stack_launches(9)}
 
 
 def _ld(t: torch.Tensor) -> int:
@@ -64,19 +84,25 @@ def _ld(t: torch.Tensor) -> int:
 
 def linear_f32(a: torch.Tensor, w: torch.Tensor,
                b: Optional[torch.Tensor] = None, *, act: Optional[str] = None,
-               resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+               resid: Optional[torch.Tensor] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``act(a w^T + b) + resid`` in one launch: a [M, K] (a view with
-    contiguous rows), w [N, K] contiguous, b [N], resid [M, N] (a view)."""
+    contiguous rows), w [N, K] contiguous, b [N], resid [M, N] (a view);
+    written into ``out`` [M, N] (a view) where given."""
     M, K = a.shape
     N = w.shape[0]
     if not w.is_contiguous() or w.shape[1] != K:
         raise ValueError(f"linear_f32: weight {tuple(w.shape)} against "
                          f"input {tuple(a.shape)}")
-    out = torch.empty(M, N, dtype=torch.float32, device=a.device)
+    if out is None:
+        out = torch.empty(M, N, dtype=torch.float32, device=a.device)
+    elif out.shape != (M, N):
+        raise ValueError(f"linear_f32: out {tuple(out.shape)}, not "
+                         f"{(M, N)}")
     launch(LIB, "f32_linear", a.device,
            [a.data_ptr(), w.data_ptr(), 0 if b is None else b.data_ptr(),
             0 if resid is None else resid.data_ptr(), out.data_ptr()],
-           [M, N, K, _ld(a), 0 if resid is None else _ld(resid), N,
+           [M, N, K, _ld(a), 0 if resid is None else _ld(resid), _ld(out),
             ACT[act]])
     return out
 
@@ -171,11 +197,39 @@ def decoder_layer_f32(x, kvalid, mem, mvalid, p, *, T: int, H: int,
                                  "ln2_b": p["ln3_b"]}, activation=activation)
 
 
+def _ss_div(ss: torch.Tensor, T: int) -> int:
+    """``rownorm_f32``'s ss_div for AdaLN rows [1 or B, 2D] over T-row
+    samples: the row's sample, or row 0 for all."""
+    return T if ss.shape[0] > 1 else 0
+
+
+def broadcast_stylize_f32(x, value, mask, ss, ln_w, ln_b, w, b, *,
+                          T: int) -> torch.Tensor:
+    """Kernel 7's float32 chain (``broadcast_stylize_plain``'s math): x
+    [M, D] rows, T per sample; value [M / T, D]; mask [M] (fractional or
+    zero: the LayerNorm of a zero row is its bias); ss [1 or M / T, 2D]."""
+    h = rownorm_f32(value, ln_w, ln_b, rows=x.shape[0], src_div=T,
+                    row_scale=mask, ss=ss, ss_div=_ss_div(ss, T))
+    return linear_f32(h, w, b, resid=x)
+
+
+def stylized_ffn_f32(x, ss, w1, b1, w2, b2, ln_w, ln_b, w3, b3, *, T: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 6's float32 chain (``stylized_ffn_plain``'s math): x [M, D]
+    rows (a view), T per sample; ss [1 or M / T, 2D], a row's AdaLN row
+    that of its sample r // T."""
+    y = linear_f32(linear_f32(x, w1, b1, act="gelu"), w2, b2)
+    h = rownorm_f32(y, ln_w, ln_b, ss=ss, ss_div=_ss_div(ss, T))
+    return linear_f32(h, w3, b3, resid=x, out=out)
+
+
 def md_layer_f32(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
-                 E: int, H: int) -> torch.Tensor:
+                 E: int, H: int,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1's float32 chain (``md_layer_plain``'s math): x [B T, D] latent
-    rows, extra [B E, D] text and time rows, kvalid [B T], value [B, D],
-    ca_ss / ffn_ss [1 or B, 2D]."""
+    rows (a view), extra [B E, D] text and time rows, kvalid [B T], value
+    [B, D], ca_ss / ffn_ss [1 or B, 2D]; written into ``out`` (a view)
+    where given."""
     BT, D = x.shape
     B = BT // T
     qkv = linear_f32(x, p["sa_in_w"], p["sa_in_b"])
@@ -185,12 +239,35 @@ def md_layer_f32(x, extra, kvalid, value, ca_ss, ffn_ss, p, *, T: int,
                         n2=E)
     r = linear_f32(ctx, p["sa_out_w"], p["sa_out_b"], resid=x)
     x2 = postnorm_ffn_f32(r, p, activation="relu")
-    h2 = rownorm_f32(value, p["ca_ln_w"], p["ca_ln_b"], rows=BT, src_div=T,
-                     row_scale=kvalid, ss=ca_ss,
-                     ss_div=T if ca_ss.shape[0] > 1 else 0)
-    x3 = linear_f32(h2, p["ca_w"], p["ca_b"], resid=x2)
-    y2 = linear_f32(linear_f32(x3, p["fw1"], p["fb1"], act="gelu"),
-                    p["fw2"], p["fb2"])
-    h3 = rownorm_f32(y2, p["f_ln_w"], p["f_ln_b"], ss=ffn_ss,
-                     ss_div=T if ffn_ss.shape[0] > 1 else 0)
-    return linear_f32(h3, p["fp_w"], p["fp_b"], resid=x3)
+    x3 = broadcast_stylize_f32(x2, value, kvalid, ca_ss, p["ca_ln_w"],
+                               p["ca_ln_b"], p["ca_w"], p["ca_b"], T=T)
+    return stylized_ffn_f32(x3, ffn_ss, p["fw1"], p["fb1"], p["fw2"],
+                            p["fb2"], p["f_ln_w"], p["f_ln_b"], p["fp_w"],
+                            p["fp_b"], T=T, out=out)
+
+
+def md_stack_f32(x, extra, kvalid, values, ca_ss, ffn_ss, stacked, *,
+                 T: int, E: int, H: int) -> torch.Tensor:
+    """Kernel 11's float32 chain (``md_stack_plain``'s math): x [B T, D];
+    extra [B E, D]; kvalid [B T]; values [L, B, D]; ca_ss / ffn_ss [L, 2D],
+    one row a layer shared by every sample; stacked: ``stack_md_params``.
+
+    Output block j's skip Linear reads [x, skip] from one buffer [B T, 2D]:
+    the layer before it writes the left half, the input block whose output
+    it pops (nb - 1 - j) the right half, so each Linear is one GEMM over
+    the concatenation and no copy is made."""
+    BT, D = x.shape
+    L = values.shape[0]
+    nb = (L - 1) // 2
+    cat = torch.empty(nb, BT, 2 * D, dtype=torch.float32, device=x.device)
+    for l in range(L):
+        if l > nb:
+            j = l - nb - 1
+            x = linear_f32(cat[j], stacked["lin_w"][j], stacked["lin_b"][j])
+        dst = (cat[nb - 1 - l][:, D:] if l < nb
+               else cat[l - nb][:, :D] if l < L - 1 else None)
+        x = md_layer_f32(x, extra, kvalid, values[l], ca_ss[l:l + 1],
+                         ffn_ss[l:l + 1],
+                         {k: v[l] for k, v in stacked.items()
+                          if k not in _STACK_ONLY}, T=T, E=E, H=H, out=dst)
+    return rownorm_f32(x, stacked["norm_w"], stacked["norm_b"])

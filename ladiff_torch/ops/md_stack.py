@@ -4,14 +4,15 @@
 
     for each of L layers in U-Net order (inputs, middle, outputs):
         [output block: x <- Linear(2D -> D)([x, skip popped])]
-        x <- bf16(MD layer(x))            (K1's layer, one text token)
+        x <- MD layer(x)                  (K1's layer, one text token)
         [input block: push x as a skip]
     out <- LN(x)
 
 Only the sampling layout is taken, as in the JAX kernel: every sample
 shares the step's AdaLN rows ``ca_ss`` / ``ffn_ss`` [L, 2D], one row per
-layer.  Activations are rounded to bf16 at each layer boundary, as the
-per-layer path rounds them.
+layer.  In bf16 activations are rounded to bf16 at each layer boundary,
+as the per-layer path rounds them; in float32 nothing is rounded, as in
+the plain version.
 
 What bounds it on the H100: at the sampling shape (2B = 512 samples x 5
 rows, D 256, F 1024, 9 layers) one launch is 9 K1 layers (~7.7 GFLOP
@@ -25,8 +26,11 @@ the next, and every intermediate stays in shared memory or registers; a
 skip Linear is split on its output columns like the layers' products,
 the CTAs exchanging their skip columns first.  The skips go to a global
 scratch in which each CTA writes and reads back its own columns
-(L2-resident).  It has no backward: on CUDA tensors it raises while a
-gradient is required.
+(L2-resident).  Float32 inputs (the published configurations' type) take
+the float32 chain ``f32_layer.md_stack_f32`` instead: K1's float32 chain
+layer by layer, each skip Linear one GEMM over [x, skip] written in place
+by the layers around it, the final LN (131 launches at 9 layers).  It has
+no backward: on CUDA tensors it raises while a gradient is required.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from torch import nn
 
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
+from ladiff_torch.ops.f32_layer import md_stack_f32
 from ladiff_torch.ops.md_layer import (_PARAM_ORDER, md_launch_geometry,
                                        md_layer_plain, md_layer_supported)
 
@@ -96,8 +101,8 @@ def md_stack_plain(x, extra, kvalid, values, ca_ss, ffn_ss, stacked, *,
 @register_kernel("fused_md_stack")
 def fused_md_stack(x, extra, kvalid, values, ca_ss, ffn_ss, stacked, *,
                    T: int, E: int, H: int) -> torch.Tensor:
-    """Kernel 11 on CUDA tensors (bf16; kvalid float32), its plain version
-    on CPU tensors."""
+    """Kernel 11 on CUDA tensors (bf16, or float32 through its float32
+    chain; kvalid float32), its plain version on CPU tensors."""
     if not x.is_cuda:
         return md_stack_plain(x, extra, kvalid, values, ca_ss, ffn_ss,
                               stacked, T=T, E=E, H=H)
@@ -121,6 +126,11 @@ def fused_md_stack(x, extra, kvalid, values, ca_ss, ffn_ss, stacked, *,
                      "values": values, "ca_ss": ca_ss, "ffn_ss": ffn_ss,
                      **{k: stacked[k] for k in STACK_PARAM_ORDER}},
                     f32=("kvalid",))
+    if x.dtype == torch.float32:
+        out = md_stack_f32(x, extra, kvalid, values, ca_ss, ffn_ss, stacked,
+                           T=T, E=E, H=H)
+        fused_md_stack.launches += 1
+        return out
     g = md_launch_geometry("md_stack", x.device, B, T, E, D, F1, F2)
     skips = torch.empty(max(nb, 1), BT, D, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)

@@ -7,11 +7,9 @@ Parameter names follow the reference torch LADiff (``sa_block``,
 ``.norm`` / ``.out_layers.2``).  Each kernel wrapper takes its plain version
 on a CPU tensor.  Routes of an ``MDTransformerLayer``, chosen from shapes
 before any launch (as the JAX package's gate); the compute type is gated
-per kernel (``kernel_route``): K1 and kernels 5 and 9 take float32 as well
-as bf16, kernels 6, 7 and 11 bf16 only, so float32 on the card runs K1
-where it runs in bf16 and, on the per-block route, kernel 5 (kernel 9 in
-training) as the sa_block's tail and the plain version of every other
-block:
+per kernel (``kernel_route``): K1 and kernels 5, 6, 7, 9 and 11 take
+float32 as well as bf16 (as the JAX package runs them in float32), so
+float32 on the card runs each of them where bf16 runs it:
 
   eval, one text token, a shape K1 takes (``md_layer_supported``; every
       published configuration)      the whole layer as ``fused_md_layer``
@@ -52,7 +50,8 @@ from torch import nn
 
 from ladiff_torch.ops.cuda_common import kernel_route
 from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_supported
-from ladiff_torch.ops.md_stack import fused_md_stack, stack_md_params
+from ladiff_torch.ops.md_stack import (fused_md_stack, md_stack_plain,
+                                      stack_md_params)
 from ladiff_torch.ops.pp_hook import pp_override_get
 from ladiff_torch.ops.stylize import (broadcast_stylize_supported,
                                      fused_broadcast_stylize)
@@ -347,7 +346,8 @@ class MDSkipTransformerEncoder(_SkipStack):
         return values, ca_ss, ffn_ss
 
     def _stack_forward(self, x, xf, emb, latent_valid, stack: dict):
-        """The whole stack (layers, skips, final LN) as kernel 11."""
+        """The whole stack (layers, skips, final LN) as kernel 11 (its
+        plain version inside a ``plain_routes()`` scope)."""
         B, T, D = x.shape
         if self.training or xf.shape[1] != 1:
             raise ValueError("the whole-stack route takes one text token in "
@@ -357,7 +357,10 @@ class MDSkipTransformerEncoder(_SkipStack):
         kvalid = (latent_valid.reshape(B * T).float()
                   if latent_valid is not None
                   else torch.ones(B * T, device=x.device))
-        out = fused_md_stack(
+        # a plain_routes() scope takes the stack's plain version
+        run = (fused_md_stack if kernel_route(x, "fused_md_stack")
+               else md_stack_plain)
+        out = run(
             x.reshape(B * T, D).contiguous(), extra.contiguous(),
             kvalid.contiguous(), stack["values"],
             stack["ca_ss"].contiguous(), stack["ffn_ss"].contiguous(),

@@ -33,8 +33,11 @@ rows of its columns, exchanges them with its peers over distributed shared
 memory, and computes its 64 output columns of the projection from D / 64
 weight slices streamed through the body's cp.async ring (mma.sync, f32
 accumulators); a CTA's shared memory is 90 KB at D 256, so two fit on an
-SM.  It has no backward: on CUDA tensors it raises while a gradient is
-required.
+SM.  Float32 inputs (the published configurations' type) take the
+float32 chain ``f32_layer.broadcast_stylize_f32`` instead: the collapse's
+row LayerNorm, AdaLN and SiLU in one launch, the projection and residual
+in a second.  It has no backward: on CUDA tensors it raises while a
+gradient is required.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
+from ladiff_torch.ops.f32_layer import broadcast_stylize_f32
 from ladiff_torch.ops.md_layer import _align128, _slots
 from ladiff_torch.ops.stylized_ffn import stylized_ffn_geometry
 
@@ -118,8 +122,8 @@ def broadcast_stylize_launch_geometry(device, M: int, D: int) -> dict:
 @register_kernel("fused_broadcast_stylize")
 def fused_broadcast_stylize(x, value, mask, ss, ln_w, ln_b, w, b, *,
                             T: int) -> torch.Tensor:
-    """Kernel 7 on CUDA tensors (bf16; the mask float32), its plain version
-    on CPU tensors."""
+    """Kernel 7 on CUDA tensors (bf16, or float32 through its float32
+    chain; the mask float32), its plain version on CPU tensors."""
     if not x.is_cuda:
         return broadcast_stylize_plain(x, value, mask, ss, ln_w, ln_b, w, b,
                                        T=T)
@@ -137,7 +141,8 @@ def fused_broadcast_stylize(x, value, mask, ss, ln_w, ln_b, w, b, *,
                     {"x": x, "value": value, "mask": mask, "ss": ss,
                      "ln_w": ln_w, "ln_b": ln_b, "w": w, "b": b},
                     f32=("mask",))
-    out = _launch(x, value, mask, ss, ln_w, ln_b, w, b, T=T)
+    chain = broadcast_stylize_f32 if x.dtype == torch.float32 else _launch
+    out = chain(x, value, mask, ss, ln_w, ln_b, w, b, T=T)
     fused_broadcast_stylize.launches += 1
     return out
 

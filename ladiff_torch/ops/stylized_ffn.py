@@ -24,8 +24,11 @@ the cluster's shared memory, the LayerNorm's statistics exchanged, the
 residual kept in f32 registers, the weights streamed through a four-stage
 cp.async ring of 64-deep slices, mma.sync with ldmatrix operands.  The row
 groups are sized so that the clusters fill the card once
-(``stylized_ffn_geometry``).  It has no backward: on CUDA tensors it
-raises while a gradient is required.
+(``stylized_ffn_geometry``).  Float32 inputs (the published
+configurations' type) take the float32 chain
+``f32_layer.stylized_ffn_f32`` instead: four launches of the FFMA kernels,
+a row's AdaLN row that of its sample.  It has no backward: on CUDA tensors
+it raises while a gradient is required.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 
 from ladiff_torch.ops.cuda_common import (check_cuda_args, launch,
                                           register_kernel, require_no_grad)
+from ladiff_torch.ops.f32_layer import stylized_ffn_f32
 from ladiff_torch.ops.md_layer import _slots, md_smem_bytes
 
 __all__ = ["fused_stylized_ffn", "stylized_ffn_plain",
@@ -108,7 +112,8 @@ def stylized_ffn_launch_geometry(device, M: int, D: int, F: int) -> dict:
 @register_kernel("fused_stylized_ffn")
 def fused_stylized_ffn(x, ss, w1, b1, w2, b2, ln_w, ln_b, w3, b3, *,
                        T: int) -> torch.Tensor:
-    """Kernel 6 on CUDA tensors (bf16), its plain version on CPU tensors."""
+    """Kernel 6 on CUDA tensors (bf16, or float32 through its float32
+    chain), its plain version on CPU tensors."""
     weights = (w1, b1, w2, b2, ln_w, ln_b, w3, b3)
     if not x.is_cuda:
         return stylized_ffn_plain(x, ss, *weights, T=T)
@@ -122,6 +127,10 @@ def fused_stylized_ffn(x, ss, w1, b1, w2, b2, ln_w, ln_b, w3, b3, *,
                          f"{tuple(ss.shape)} do not match x [{M}, {D}]")
     check_cuda_args("fused_stylized_ffn",
                     {"x": x, "ss": ss, **dict(zip(_NAMES, weights))})
+    if x.dtype == torch.float32:
+        out = stylized_ffn_f32(x, ss, *weights, T=T)
+        fused_stylized_ffn.launches += 1
+        return out
     g = stylized_ffn_launch_geometry(x.device, M, D, Fd)
     out = torch.empty_like(x)
     launch("stylized_ffn", "stylized_ffn_forward", x.device,

@@ -2152,7 +2152,8 @@ def test_alt_model_float32_on_the_card_matches_the_cpu(dev, model):
     assert _relerr(got.cpu(), want) <= 1e-4
 
 
-# -- the float32 kernels (K1, K2, kernels 5 and 10 on csrc/f32_layer.cu) ----
+# -- the float32 kernels (K1, K2, kernels 5, 6, 7, 10 and 11 on
+# csrc/f32_layer.cu) --------------------------------------------------------
 # float32 operands and accumulators on both sides, sums in another order
 TOL_F32 = 5e-5
 
@@ -2174,7 +2175,13 @@ def _f32_cases(dev):
     from ladiff_torch.ops.md_layer import fused_md_layer, md_layer_plain
     from ladiff_torch.ops.postnorm_ffn import (fused_postnorm_ffn,
                                                postnorm_ffn_plain)
-    from ladiff_torch.ops.stylization import MDTransformerLayer
+    from ladiff_torch.ops.md_stack import fused_md_stack, md_stack_plain
+    from ladiff_torch.ops.stylization import (MDSkipTransformerEncoder,
+                                              MDTransformerLayer)
+    from ladiff_torch.ops.stylize import (broadcast_stylize_plain,
+                                          fused_broadcast_stylize)
+    from ladiff_torch.ops.stylized_ffn import (fused_stylized_ffn,
+                                               stylized_ffn_plain)
     from ladiff_torch.ops.transformer import TransformerDecoderLayer
     D, H, Fd = 128, 2, 256
     cases = []
@@ -2218,6 +2225,41 @@ def _f32_cases(dev):
                       fused_md_layer(*t, p, T=T, E=2, H=4),
                       lambda t, p, T=T: md_layer_plain(*t, p, T=T, E=2, H=4),
                       args, pm))
+    # kernels 6 and 7 at rows a bf16 row group would split (8 x 7), an
+    # AdaLN row per sample; kernel 7 with a fractional mask, one sample
+    # wholly masked
+    f, cp = md.ffn, md.ca_block.proj_out
+    p6 = {k: v.detach() for k, v in (
+        ("w1", f.linear1.weight), ("b1", f.linear1.bias),
+        ("w2", f.linear2.weight), ("b2", f.linear2.bias),
+        ("ln_w", f.proj_out.norm.weight), ("ln_b", f.proj_out.norm.bias),
+        ("w3", f.proj_out.out_layers[2].weight),
+        ("b3", f.proj_out.out_layers[2].bias))}
+    p7 = {k: v.detach() for k, v in (
+        ("ln_w", cp.norm.weight), ("ln_b", cp.norm.bias),
+        ("w", cp.out_layers[2].weight), ("b", cp.out_layers[2].bias))}
+    cases.append(("kernel 6 8 x 7 rows", lambda t, p: fused_stylized_ffn(
+        *t, *p.values(), T=7), lambda t, p: stylized_ffn_plain(
+            *t, *p.values(), T=7),
+        [_f(dev, 56, D), _f(dev, 8, 2 * D, seed=16, scale=0.3)], p6))
+    frac = torch.rand(56, generator=torch.Generator().manual_seed(17))
+    frac[:7] = 0.0
+    cases.append(("kernel 7 8 x 7 rows", lambda t, p:
+                  fused_broadcast_stylize(*t, *p.values(), T=7),
+                  lambda t, p: broadcast_stylize_plain(*t, *p.values(), T=7),
+                  [_f(dev, 56, D), _f(dev, 8, D, seed=18), frac.to(dev),
+                   _f(dev, 8, 2 * D, seed=19, scale=0.3)], p7))
+    # kernel 11 over 3 layers (one skip), 8 samples of 5 latent rows
+    enc = _randomize(MDSkipTransformerEncoder(D, D, 4, 3, Fd), 7).to(dev)
+    st = enc.stacked_params(torch.float32)
+    args = [_f(dev, 40, D), _f(dev, 16, D, seed=20),
+            _mask([5, 2, 0, 1, 5, 3, 4, 5], 5, dev).reshape(-1),
+            _f(dev, 3, 8, D, seed=21), _f(dev, 3, 2 * D, seed=22, scale=0.3),
+            _f(dev, 3, 2 * D, seed=23, scale=0.3)]
+    cases.append(("kernel 11 3 layers, 8 x 5 rows", lambda t, p:
+                  fused_md_stack(*t, p, T=5, E=2, H=4),
+                  lambda t, p: md_stack_plain(*t, p, T=5, E=2, H=4),
+                  args, st))
     return cases
 
 
@@ -2250,9 +2292,10 @@ def test_float32_kernels_read_inside_their_inputs(dev):
 @torch.no_grad()
 def test_float32_wrappers_raise_on_a_bf16_weight(dev):
     """A float32 call with one bf16 weight raises before any launch; so
-    does a float32 call of a kernel that takes bf16 only."""
+    does a float32 call of a kernel that takes bf16 only (K3)."""
+    from ladiff_torch.models.clip_text import CLIPTextLayer
     from ladiff_torch.ops import cuda_common as cc
-    from ladiff_torch.ops.stylized_ffn import fused_stylized_ffn
+    from ladiff_torch.ops.clip_layer import fused_ln_qkv
     cc.reset_launch_counts()
     for name, call, _, tensors, params in _f32_cases(dev):
         if params is None:
@@ -2263,13 +2306,9 @@ def test_float32_wrappers_raise_on_a_bf16_weight(dev):
         with pytest.raises(TypeError, match="float32"):
             call(tensors, {**params, key: params[key].bfloat16()})
     assert not any(cc.launch_counts().values())
-    D = 256
-    w = {k: _f(dev, *s, seed=i) for i, (k, s) in enumerate((
-        ("w1", (1024, D)), ("b1", (1024,)), ("w2", (D, 1024)), ("b2", (D,)),
-        ("ln_w", (D,)), ("ln_b", (D,)), ("w3", (D, D)), ("b3", (D,))))}
+    layer = CLIPTextLayer(128, 2).to(dev)
     with pytest.raises(TypeError, match="bfloat16"):
-        fused_stylized_ffn(_f(dev, 10, D), _f(dev, 2, 2 * D), *w.values(),
-                           T=5)
+        fused_ln_qkv(_f(dev, 8, 128), layer.qkv_params(), scale=0.125)
 
 
 @pytest.mark.cuda

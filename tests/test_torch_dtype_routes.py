@@ -2,14 +2,14 @@
 CPU.
 
   * The dtype gate (``ops.cuda_common.kernel_route(x, kernel)``), per
-    kernel: K1, K2, kernels 5 and 10 and the training kernels 8, 9, 12 and 13
-    take bf16 and float32, K3, K4 and kernels 6, 7 and 11 bf16 only, so float32
-    compute on the card runs those eight where bf16 runs them (eval mode and
-    training) and the plain route of CLIP and of kernels 6 and 7's blocks,
-    decided before any launch.  There is no card here, so the tests take every
-    tensor for one on the card (``on_card`` patched) and count the calls of the
-    kernel wrappers the modules make, as ``tests/test_torch_md_routes.py``
-    does. The float32 route agrees with the wrapper route (each wrapper's plain
+    kernel: K1, K2, kernels 5, 6, 7, 10 and 11 and the training kernels 8,
+    9, 12 and 13 take bf16 and float32, K3 and K4 bf16 only, so float32
+    compute on the card runs those eleven where bf16 runs them (eval mode
+    and training) and the plain route of CLIP, decided before any launch.
+    There is no card here, so the tests take every tensor for one on the
+    card (``on_card`` patched) and count the calls of the kernel wrappers
+    the modules make, as ``tests/test_torch_md_routes.py`` does. The
+    float32 route agrees with the wrapper route (each wrapper's plain
     version on a CPU tensor) within 1e-5.
   * Each published configuration (``from_cfg`` at its published widths,
     batch 2): the wrapper calls of a float32 eval forward on the card's
@@ -18,11 +18,14 @@ CPU.
     the kernels that take float32 (the float32 gates take every shape the
     bf16 gates take); the float32 route agrees with the plain route within
     1e-5.  A published training pass calls the training kernels' wrappers
-    as the stage-1 and stage-2 tables say.
-  * ``md_stack`` raises at construction for float32 compute on the card;
-    ``build_system`` hands float32 to ``from_cfg`` for the unmodified
-    published stage-1 configuration and a ``cuda`` device, and no longer
-    raises.
+    as the stage-1 and stage-2 tables say.  Generation's other routes
+    (the whole stack, full-context text, one text token at head width 256)
+    call the wrappers in float32 as their tables say.
+  * ``md_stack`` builds for float32 compute on the card and generates
+    through kernel 11 once a step, as the plain route and the JAX
+    package's ``generate`` do; ``build_system`` hands float32 to
+    ``from_cfg`` for the unmodified published stage-1 configuration and a
+    ``cuda`` device, and no longer raises.
   * What the attention tiles of kernels 10 and 12 rely on, on the port's
     plain versions within 1e-6 and on the JAX package's
     ``masked_attention`` (and its Pallas kernel in interpret mode): (a) a
@@ -96,8 +99,9 @@ _GATED = ("fused_md_layer", "fused_decoder_layer", "fused_postnorm_ffn",
           "fused_md_stack", "fused_stylized_ffn", "fused_broadcast_stylize",
           "train_self_attention", "train_postnorm_ffn", "train_encoder_layer",
           "train_decoder_layer")
-_FLOAT32 = ("fused_decoder_layer", "fused_masked_attention",
-            "fused_md_layer", "fused_postnorm_ffn", "train_decoder_layer",
+_FLOAT32 = ("fused_broadcast_stylize", "fused_decoder_layer",
+            "fused_masked_attention", "fused_md_layer", "fused_md_stack",
+            "fused_postnorm_ffn", "fused_stylized_ffn", "train_decoder_layer",
             "train_decoder_layer_bwd", "train_encoder_layer",
             "train_encoder_layer_bwd", "train_postnorm_ffn",
             "train_postnorm_ffn_bwd", "train_self_attention",
@@ -106,10 +110,10 @@ _FLOAT32 = ("fused_decoder_layer", "fused_masked_attention",
 
 @pytest.mark.parametrize("kernel", _GATED)
 def test_kernel_compute_gate(kernel):
-    """bf16 takes every kernel anywhere; float32 takes K1, K2, kernels 5
-    and 10 and the training kernels 8, 9, 12 and 13 on the card and every
-    kernel off it, where each wrapper is its plain version; no kernel
-    inside ``plain_routes()``."""
+    """bf16 takes every kernel anywhere; float32 takes K1, K2, kernels 5,
+    6, 7, 10 and 11 and the training kernels 8, 9, 12 and 13 on the card
+    and every kernel off it, where each wrapper is its plain version; no
+    kernel inside ``plain_routes()``."""
     from ladiff_torch.launch_tables import FLOAT32_KERNELS
     from ladiff_torch.ops.cuda_common import (kernel_compute, kernel_route,
                                               plain_routes)
@@ -191,9 +195,8 @@ def test_transformer_layers_route_by_dtype(card, calls, monkeypatch, case):
 @pytest.mark.parametrize("heads", [4, 1])
 def test_md_layer_routes_by_dtype(card, calls, monkeypatch, heads):
     """The MD layer at inference: float32 and bf16 run K1 (4 heads); at head
-    width 256, which K1 refuses, bf16 runs kernel 5's tail, kernel 7 and
-    kernel 6 per block, float32 kernel 5's tail and the plain versions of
-    the other blocks."""
+    width 256, which K1 refuses, both run kernel 5's tail, kernel 7 and
+    kernel 6 per block."""
     from ladiff_torch.launch_tables import float32_launches
     from ladiff_torch.ops import cuda_common
     from ladiff_torch.ops.stylization import MDTransformerLayer
@@ -208,7 +211,8 @@ def test_md_layer_routes_by_dtype(card, calls, monkeypatch, heads):
                   {"fused_postnorm_ffn": 1, "fused_broadcast_stylize": 1,
                    "fused_stylized_ffn": 1})
     f32_calls = ({"fused_md_layer": 1} if heads == 4 else
-                 {"fused_postnorm_ffn": 1})
+                 {"fused_postnorm_ffn": 1, "fused_broadcast_stylize": 1,
+                  "fused_stylized_ffn": 1})
     assert float32_launches(want_calls) == f32_calls
     with torch.no_grad():
         got = layer(x, xf, emb, lv)
@@ -293,8 +297,8 @@ def test_published_configs_float32_launch_tables(card, calls, monkeypatch,
     """A published configuration at its published widths, batch 2: a
     float32 generation (and, with an LA-VAE, an eval-mode encode) on the
     card's routes calls the wrappers exactly as the package's float32
-    tables say, which are the bf16 routes' calls of K1, K2, kernels 5 and
-    10; it agrees with the plain routes within 1e-5."""
+    tables say, which are the bf16 routes' calls (K1, K2, kernels 5 and 10
+    on these routes); it agrees with the plain routes within 1e-5."""
     from ladiff_torch import launch_tables as lt
     from ladiff_torch.config import assemble_config
     from ladiff_torch.models.ladiff import LADiffSystem
@@ -440,14 +444,98 @@ def test_published_action_stage1_float32_launch_table(card, calls, whole):
                      if not k.endswith("_bwd")}
 
 
-def test_md_stack_refuses_float32_on_the_card():
-    """``md_stack`` (kernel 11, bf16 only) raises at construction for
-    float32 compute on the card, before any device is touched."""
+def _generate(system, cond, uncond, init):
+    from test_torch_slice import FRAMES, LENGTHS
+    with torch.no_grad():
+        return system.generate(
+            torch.from_numpy(cond), torch.from_numpy(uncond),
+            torch.from_numpy(LENGTHS.astype(np.int64)), nframes=FRAMES,
+            init_latents=torch.tensor(init))
+
+
+def test_md_stack_generates_in_float32_on_the_card(card, calls):
+    """``md_stack`` (kernel 11) builds for float32 compute on the card and
+    generates through it once a DDIM step (``launch_tables
+    .stack_generation``, with the decode's K2), within 1e-5 of the plain
+    route and within 2e-3 of the JAX package's ``generate`` (whose
+    ``md_stack_enabled`` is false off the TPU: its per-layer path, the same
+    math; see test_torch_slice.py)."""
+    import jax
+    from ladiff_torch import launch_tables as lt
     from ladiff_torch.models.ladiff import LADiffSystem
-    with pytest.raises(ValueError, match="md_stack"):
-        LADiffSystem(nfeats=263, njoints=22, latent_dim=(1, D), ff_size=FF,
-                     num_layers=3, num_heads=H, md_stack=True,
-                     device="cuda", dtype=torch.float32)
+    from ladiff_torch.ops import cuda_common
+    from test_torch_routes_generate import _slice_kw
+    from test_torch_slice import FRAMES, LENGTHS, STEPS, _systems
+    jsys, params, tsys = _systems()
+    system = LADiffSystem(md_stack=True, mean=tsys.mean.numpy(),
+                          std=tsys.std.numpy(), device="cpu",
+                          dtype=torch.float32, **_slice_kw())
+    system.load_state_dict(tsys.state_dict(), strict=True)
+    B = len(LENGTHS)
+    rng = np.random.RandomState(66)
+    cond = rng.randn(B, 1, 768).astype(np.float32)
+    uncond = (rng.randn(B, 1, 768) * 0.1).astype(np.float32)
+    key = jax.random.PRNGKey(16)
+    feats_j, z_j = jsys.generate(params, jnp.asarray(cond),
+                                 jnp.asarray(uncond), jnp.asarray(LENGTHS),
+                                 key, nframes=FRAMES)
+    init = np.asarray(jax.random.normal(jax.random.split(key)[0],
+                                        z_j.shape, jnp.float32))
+    feats, z = _generate(system, cond, uncond, init)
+    assert calls == lt.stack_generation(STEPS, _depth(system.vae,
+                                                      "decoder"))
+    calls.clear()
+    with cuda_common.plain_routes():
+        feats_p, z_p = _generate(system, cond, uncond, init)
+    assert calls == {}
+    assert relerr(z, z_p.numpy()) <= ROUTE_TOL
+    assert relerr(feats, feats_p.numpy()) <= ROUTE_TOL
+    assert relerr(z, z_j) <= 2e-3
+    assert relerr(feats, feats_j) <= 2e-3
+
+
+@pytest.mark.parametrize("route", ["md_stack", "full_context",
+                                   "one_token_h1"])
+def test_generation_routes_float32_launch_tables(card, calls, monkeypatch,
+                                                 route):
+    """Generation's other routes in float32 on the card's routes (batch 3,
+    DDIM-5): the whole stack, full-context text [B, 9, 768] and one text
+    token at head width 256 call the wrappers as ``launch_tables``'
+    ``stack_generation``, ``full_context_generation`` and
+    ``one_token_h1_generation`` say, which are the bf16 routes' calls; each
+    agrees with the plain route within 1e-5."""
+    from ladiff_torch import launch_tables as lt
+    from ladiff_torch.models.ladiff import LADiffSystem
+    from ladiff_torch.ops import cuda_common
+    from test_torch_routes_generate import _slice_kw
+    from test_torch_slice import LENGTHS, STEPS
+    kw = dict(_slice_kw(), md_stack=route == "md_stack")
+    if route == "one_token_h1":
+        kw.update(latent_dim=(7, 256), num_heads=1)
+    system = _randomize(LADiffSystem(device="cpu", dtype=torch.float32,
+                                     **kw), 20).eval()
+    B, n = len(LENGTHS), 9 if route == "full_context" else 1
+    rng = np.random.RandomState(21)
+    cond = rng.randn(B, n, 768).astype(np.float32)
+    uncond = (rng.randn(B, n, 768) * 0.1).astype(np.float32)
+    init = rng.randn(B, system.n_latents, kw["latent_dim"][1]).astype(
+        np.float32)
+    dec = _depth(system.vae, "decoder")
+    table = (lt.stack_generation(STEPS, dec) if route == "md_stack" else
+             {"full_context": lt.full_context_generation,
+              "one_token_h1": lt.one_token_h1_generation}[route](
+                 STEPS, _depth(system.denoiser, "md"), dec))
+    feats, _ = _generate(system, cond, uncond, init)
+    assert calls == table
+    calls.clear()
+    with cuda_common.plain_routes():
+        plain, _ = _generate(system, cond, uncond, init)
+    assert calls == {}
+    monkeypatch.setattr(cuda_common, "on_card", lambda device: False)
+    _generate(system, cond, uncond, init)  # every kernel route: bf16's
+    assert table == lt.float32_launches(calls)
+    assert relerr(feats, plain.numpy()) <= ROUTE_TOL
+    assert bool(torch.isfinite(feats).all())
 
 
 def test_build_system_takes_the_published_config_in_float32(monkeypatch):

@@ -40,8 +40,8 @@ import torch
 import torch.nn.functional as F
 from jax.experimental import pallas as pl
 
-from test_torch_f32_layer import _vec, _view
 from test_torch_modules import relerr
+from torch_f32_emulation import _vec, _view
 
 TOL = 1e-5      # the same float32 function, sums in another order
 JAX_TOL = 1e-4  # float32 on both sides, other sums and erf
