@@ -1476,6 +1476,11 @@ F32_TRAIN_REPLACES = {
     "train_postnorm_ffn": "ladiff_tpu/ops/pallas_train_ffn.py:209",
     "train_encoder_layer": "ladiff_tpu/ops/pallas_train_layer.py:207",
     "train_decoder_layer": "ladiff_tpu/ops/pallas_train_decoder_layer.py:410"}
+F32_TRAIN_SOURCES = {
+    "train_self_attention": "ladiff_torch/csrc/f32_train.cu",
+    "train_postnorm_ffn": "ladiff_torch/csrc/f32_train.cu",
+    "train_encoder_layer": "ladiff_torch/csrc/f32_train_layer.cu",
+    "train_decoder_layer": "ladiff_torch/csrc/f32_train_layer.cu"}
 F32_TRAIN_PATHS = {
     "train_self_attention": "published stage 1 (float32_entry stage-1 run: "
                             "run_training, batch 64, 9 + 9 layers, split "
@@ -1488,7 +1493,7 @@ F32_TRAIN_PATHS = {
                            "(float32_entry's whole-layer steps, batch 64)"}
 
 
-def phase_train_kernels_f32(dev):
+def phase_train_kernels_f32(dev, gpu=""):
     """The float32 training kernels (8, 9, 12 and 13: the chains of
     ``csrc/f32_train.cu`` behind the training wrappers) against their
     float32 plain versions fed the masks the kernels draw
@@ -1527,7 +1532,6 @@ def phase_train_kernels_f32(dev):
         return (torch.randn(*shape, generator=g) * scale).to(dev, f32)
 
     D, H, F, RATE, SEED = 256, 4, 1024, 0.1, 0x5EED22F32
-    src = "ladiff_torch/csrc/f32_train.cu"
     tol = F32_KERNEL_TOL
     errs, chains, recs = {}, {}, []
     t0 = time.perf_counter()
@@ -1689,7 +1693,8 @@ def phase_train_kernels_f32(dev):
                 (kernel + "_bwd", lambda: flat(bwd()), lambda: flat(pbwd()),
                  flops[1], c["nb"][1], libs[1])):
             recs.append(check_kernel(
-                f"{nm} (float32)", src, F32_TRAIN_REPLACES[kernel], run,
+                f"{nm} (float32)", F32_TRAIN_SOURCES[kernel],
+                F32_TRAIN_REPLACES[kernel], run,
                 prun, prun, fl, nb, library=lib, tol=tol, rounds=3,
                 peak=PEAK_F32_FLOPS,
                 extra={"path": F32_TRAIN_PATHS[kernel],
@@ -1741,6 +1746,12 @@ def phase_train_kernels_f32(dev):
            (fa[0] + 4 * M * D * F, fa[1] + 8 * M * D * F),
            "64 x 206 encoder stream",
            library(lib.train(), c, 64, 206, False))
+    pairs = (fa[0] - 2 * M * D * 4 * D) // (4 * D)
+    per_launch = {"train_encoder_layer": launch_rates(
+        c["fwd"], tc_launch_flops("fwd", M, D, F, pairs)),
+        "train_encoder_layer_bwd": launch_rates(
+            lambda: flat(c["bwd"]()),
+            tc_launch_flops("bwd", M, D, F, pairs))}
     del lib
     # kernel 13 at the published batch's decoder rows, L 5
     B, S, L = 64, 196, 5
@@ -1759,13 +1770,101 @@ def phase_train_kernels_f32(dev):
     record("train_decoder_layer", c,
            (fa[0] + fc[0] + 4 * M * D * F, fa[1] + fc[1] + 8 * M * D * F),
            "64 x 196 frames, L 5", library(lib.train(), c, B, S, True))
+    pairs = (fa[0] - 2 * M * D * 4 * D) // (4 * D)
+    cross = (B * L, cpairs)
+    per_launch["train_decoder_layer"] = launch_rates(
+        c["fwd"], tc_launch_flops("fwd", M, D, F, pairs, cross))
+    per_launch["train_decoder_layer_bwd"] = launch_rates(
+        lambda: flat(c["bwd"]()),
+        tc_launch_flops("bwd", M, D, F, pairs, cross))
     del lib, c
     torch.cuda.empty_cache()
+    emit({"phase": "train_kernels_f32_launches", "gpu": gpu,
+          "note": "kernels 12 and 13 on the tensor cores, launch by launch "
+                  "in order: device ms (profiler, median over 10 calls), "
+                  "the FLOP each launch computes, TFLOP/s against 165 "
+                  "(three-term TF32)", "per_launch": per_launch})
     emit({"phase": "train_kernels_f32", "rel_err": errs, "tol": tol,
           "bits_equal_twice": len(errs) // 2,
           "tf32": torch.backends.cuda.matmul.allow_tf32,
           "chains": chains, "seconds": time.perf_counter() - t0})
     return recs
+
+
+def tc_launch_flops(way, M, D, F, pairs, cross=None):
+    """The launches of the float32 kernel 12 (``cross`` None) or 13
+    (``cross`` = (memory rows, valid query-memory pairs)) in order, each
+    with the FLOP it computes at M rows (attention: ``pairs`` valid
+    query-key pairs, 2 D a pair a product; the backward's five products):
+    [(label, flop)]."""
+    mm = lambda m, n, k: 2 * m * n * k
+    attn = [("attention", 4 * D * pairs)]
+    if way == "fwd":
+        head = [("qkv", mm(M, 3 * D, D))] + attn + [
+            ("out-proj + LN1", mm(M, D, D))]
+        ffn = [("W1 + act", mm(M, F, D)), ("W2 + LN", mm(M, D, F))]
+        if cross is None:
+            return head + ffn
+        R, cp = cross
+        return head + [("q + memory k, v", mm(M, D, D) + mm(R, 2 * D, D)),
+                       ("cross-attention", 4 * D * cp),
+                       ("cross out-proj + LN2", mm(M, D, D))] + ffn
+    tail = [("LN backward", 0), ("da = dy W2", mm(M, F, D)),
+            ("dh = da W1 + LN backward", mm(M, D, F))]
+    attn_bwd = [("dctx + delta", mm(M, D, D)),
+                ("attention backward", 10 * D * pairs), ("dQ sum", 0)]
+    wg = mm(3 * D, D, M) + mm(D, D, M) + mm(F, D, M) + mm(D, F, M)
+    if cross is None:
+        return tail + attn_bwd + [("dx", mm(M, D, 3 * D)),
+                                  ("weight gradients", wg), ("reduce", 0)]
+    R, cp = cross
+    return tail + [("dcc + delta", mm(M, D, D)),
+                   ("cross-attention backward", 10 * D * cp),
+                   ("dt1 = dq Wq + LN1 backward", mm(M, D, D))] + attn_bwd + [
+        ("dx, dmem", mm(M, D, 3 * D) + mm(R, D, 2 * D)),
+        ("weight gradients",
+         wg + mm(D, D, M) + mm(2 * D, D, R) + mm(D, D, M)), ("reduce", 0)]
+
+
+def launch_rates(fn, flops, reps=10):
+    """Each launch of one call of ``fn`` in order: device ms (the
+    profiler's kernel events, median over ``reps`` calls) beside the FLOP
+    it computes and its TFLOP/s; the launch names only if the count
+    differs from ``flops``'.  As ``_device_window``, the profiler keeps a
+    second step of ``reps`` calls: the first launches of a trace can go
+    unrecorded."""
+    import re
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [e for e in prof.events()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")
+           and getattr(e, "time_range", None) is not None]
+    evs.sort(key=lambda e: e.time_range.start)
+    names = [re.sub(r"^void |\(anonymous namespace\)::|ladiff::(tc::)?", "",
+                    e.name).split("(")[0] for e in evs]
+    n = len(flops)
+    if len(evs) != n * reps:
+        return {"launches_seen": len(evs), "expected": n * reps,
+                "names": sorted(set(names))}
+    rows = []
+    for i, (label, fl) in enumerate(flops):
+        ms = statistics.median(
+            (evs[r * n + i].time_range.end - evs[r * n + i].time_range.start)
+            / 1e3 for r in range(reps))
+        rows.append({"launch": i, "what": label, "kernel": names[i],
+                     "ms": ms, "gflop": fl / 1e9,
+                     "tflops": fl / ms / 1e9 if ms > 0 and fl else None})
+    return rows
 
 
 def _clip_rows(dev, cl, rnd, f32, B, sc):
@@ -4185,6 +4284,30 @@ def phase_float32_entry(dev):
                      if p.grad is not None or cgrads[n] is not None}
         worst_grad = max(grad_errs, key=grad_errs.get)
         gpu.vae.zero_grad(set_to_none=True)
+        # the same batch on the whole-layer route (kernels 12 and 13)
+        whole = build_system(cfg1, dm, device=dev, train_whole_layer="1")
+        whole_same = all(torch.equal(v, gpu.state_dict()[k])
+                         for k, v in whole.state_dict().items())
+        cc.reset_launch_counts()
+        with torch.enable_grad():
+            loss_w, _ = whole.vae_forward(
+                {k: v.to(dev) for k, v in batch.items()}, train=False,
+                eps=eps.to(dev))
+            loss_w.backward()
+        torch.cuda.synchronize()
+        launches_whole = {k: v for k, v in cc.launch_counts().items() if v}
+        whole_errs = {n: relerr(p.grad.cpu(), cgrads[n])
+                      for n, p in whole.vae.named_parameters()
+                      if p.grad is not None or cgrads[n] is not None}
+        worst_whole = max(whole_errs, key=whole_errs.get)
+        whole_parity = {
+            "same_weights": whole_same, "loss_card": float(loss_w),
+            "loss_rel_err": abs(float(loss_w) - float(loss_cg))
+            / abs(float(loss_cg)),
+            "launches": launches_whole, "worst_grad": worst_whole,
+            "worst_grad_rel_err": whole_errs[worst_whole],
+            "grad_rel_err": whole_errs}
+        del whole, loss_w
         # the validation pass of the same batch: no gradient, the float32
         # kernels in the encoder and the decoder
         cc.reset_launch_counts()
@@ -4279,6 +4402,7 @@ def phase_float32_entry(dev):
                "grad_norm": grad_norm,
                "grad_rel_err": grad_errs, "worst_grad": worst_grad,
                "worst_grad_rel_err": grad_errs[worst_grad],
+               "whole_layer_parity": whole_parity,
                "cpu_forward_backward_s": cpu_backward_s,
                "steps": timed,
                "ms_per_step": {k: v["ms"] for k, v in timed.items()},
@@ -4314,6 +4438,18 @@ def phase_float32_entry(dev):
     if not grad_errs[worst_grad] <= FLOAT32_LOSS_TOL:
         fail(f"float32_entry: gradient {worst_grad} on the card "
              f"{grad_errs[worst_grad]} from the CPU's")
+    if not whole_parity["same_weights"]:
+        fail("float32_entry: the whole-layer system's weights differ")
+    if whole_parity["launches"] != lt.STAGE1_WHOLE_LAYER_STEP:
+        fail(f"float32_entry: the whole-layer parity batch launched "
+             f"{whole_parity['launches']}, expected "
+             f"{lt.STAGE1_WHOLE_LAYER_STEP}")
+    if not (whole_parity["loss_rel_err"] <= FLOAT32_LOSS_TOL
+            and whole_parity["worst_grad_rel_err"] <= FLOAT32_LOSS_TOL):
+        fail(f"float32_entry: on the whole-layer route the loss is "
+             f"{whole_parity['loss_rel_err']} and gradient "
+             f"{whole_parity['worst_grad']} "
+             f"{whole_parity['worst_grad_rel_err']} from the CPU's")
     if gen["launches"] != lt.generation(50):
         fail(f"float32_entry: a float32 generation launched "
              f"{gen['launches']}, expected {lt.generation(50)}")
@@ -8450,7 +8586,8 @@ def main():
                                         "ar_bench", "distill_bench",
                                         "action_bench", "ablation_bench",
                                         "parallel_slice", "offline_slice",
-                                        "alt_models_slice")
+                                        "alt_models_slice",
+                                        "train_kernels_f32")
                 else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)

@@ -54,7 +54,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("md_layer", "decoder_layer", "clip_layer", "postnorm_ffn",
            "train_ffn", "train_attention", "masked_attention", "md_stack",
            "stylized_ffn", "stylize", "train_layer", "train_decoder_layer",
-           "f32_layer", "f32_train")
+           "f32_layer", "f32_train", "f32_train_layer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -56,14 +56,15 @@ What is saved for the backward: the inputs, the parameters in x's type, the
 seed, and qkv, ctx, the log-sum-exp and the memory's projected k, v.
 
 In float32 (the published configurations' type) the wrappers run kernel
-13's float32 chain instead (``ops/f32_train.py``): kernel 8's float32
-chain, LN1, the cross-attention (its q, the memory's k / v, the attention
-over the L memory rows, the out-projection with the residual dropout) and
-kernel 9's float32 chain, under this kernel's mask ids 0 to 5, 12 launches
-forward; the backward recomputes the forward's residuals and runs the
-pieces' backward in reverse, the memory gradient from the cross-
-attention's key side (each memory row's dk, dv whole in one block, no
-atomics) through Wk and Wv, 42 launches, under the same shape gate.
+13's float32 design instead (``ops/f32_train.py`` on
+``csrc/f32_train_layer.cu``): every product on the tensor cores in
+three-term TF32 (the cross-attention over the L <= 8 memory rows on a
+small SIMT path), LN1, LN2 and LN3 in the epilogues of the out-projections
+and W2, eight launches forward; the forward also saves r1, t1, q, cc, the
+cross log-sum-exp, r2, h, the pre-activation, the hidden rows and the
+pre-LN3 sum, so the backward (twelve launches, the memory gradient from
+each sample's memory rows summed in warp order, no atomics) recomputes no
+product; under the same shape gate.
 """
 from __future__ import annotations
 
@@ -251,7 +252,8 @@ def train_decoder_layer_fwd(x: torch.Tensor, kvalid: torch.Tensor,
     tensors (bf16, or float32 through its float32 chain; kvalid, mvalid
     float32), the plain version with
     ``masks`` on CPU tensors.  ``return_saved`` also returns (qkv, ctx, lse,
-    memkv), None on the CPU."""
+    memkv), in float32 followed by (r1, t1, q, cc, the cross log-sum-exp,
+    r2, h, a, gd, s), None on the CPU."""
     if not x.is_cuda:
         out = train_decoder_layer_plain(x, kvalid, mem, mvalid, p, masks,
                                         H=H, S=S, activation=activation)
@@ -304,9 +306,8 @@ def train_decoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        Dict[str, torch.Tensor]]:
     """The backward: kernel 13's backward on CUDA tensors (bf16 or float32;
-    ``saved`` = the forward's (qkv, ctx, lse, memkv); float32 parameter
-    gradients), the plain backward on CPU tensors.  Returns (dx, dmem,
-    grads)."""
+    ``saved`` = the forward's saved tensors; float32 parameter gradients),
+    the plain backward on CPU tensors.  Returns (dx, dmem, grads)."""
     if not x.is_cuda:
         return train_decoder_layer_bwd_plain(x, kvalid, mem, mvalid, dout,
                                              p, masks, H=H, S=S,
@@ -318,20 +319,24 @@ def train_decoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
     B, L, Fd = _check_shape("train_decoder_layer_bwd", x, kvalid, mem,
                             mvalid, p, H, S, activation)
     M, D = x.shape
-    qkv, ctx, lse, memkv = saved
+    qkv, ctx, lse, memkv = saved[:4]
+    f32_saved = (() if x.dtype != torch.float32 else
+                 ((M, D), (M, D), (M, D), (M, D), (M, H), (M, D), (M, D),
+                  (M, Fd), (M, Fd), (M, D)))
     if (dout.shape != x.shape or qkv.shape != (M, 3 * D)
             or ctx.shape != (M, D) or lse.shape != (M, H)
-            or memkv.shape != (B * L, 2 * D)):
+            or memkv.shape != (B * L, 2 * D)
+            or [tuple(t.shape) for t in saved[4:]] != list(f32_saved)):
         raise ValueError("train_decoder_layer_bwd: saved tensors do not "
                          "match x")
     lo, hi = _seed_args(rate, seed)
     if x.dtype == torch.float32:
         check_cuda_args("train_decoder_layer_bwd",
                         {"x": x, "kvalid": kvalid, "mem": mem,
-                         "mvalid": mvalid, "dout": dout, "qkv": qkv,
-                         "ctx": ctx, "lse": lse, "memkv": memkv,
+                         "mvalid": mvalid, "dout": dout,
+                         **{f"saved{i}": t for i, t in enumerate(saved)},
                          **{k: p[k] for k in DEC_PARAM_ORDER}},
-                        f32=("kvalid", "mvalid", "lse"))
+                        f32=("kvalid", "mvalid", "saved2", "saved8"))
         dx, dmem, grads = train_decoder_layer_f32_bwd(
             x, kvalid, mem, mvalid, dout, p, saved, H=H, S=S,
             activation=activation, drop=(lo, hi, rate))

@@ -48,10 +48,12 @@ seed, and as kernel 8 does qkv, ctx and the log-sum-exp (the TPU kernel
 saved only its inputs; the function is the same).
 
 In float32 (the published configurations' type) the wrappers run kernel
-12's float32 chain instead (``ops/f32_train.py``): kernel 8's float32
-chain then kernel 9's under this kernel's mask ids 0 to 3, seven launches
-forward; backward the residual r recomputed from ctx, then kernel 9's and
-kernel 8's float32 backward, 23 launches, under the same shape gate.
+12's float32 design instead (``ops/f32_train.py`` on
+``csrc/f32_train_layer.cu``): every product on the tensor cores in
+three-term TF32, LN1 and LN2 in the epilogues of the out-projection and
+W2, five launches forward; the forward also saves r, h, the
+pre-activation, the hidden rows and the pre-LN2 sum, so the backward (nine
+launches) recomputes no product; under the same shape gate.
 """
 from __future__ import annotations
 
@@ -154,7 +156,8 @@ def train_encoder_layer_fwd(x: torch.Tensor, kvalid: torch.Tensor, p, *,
     """The forward alone (no autograd graph): kernel 12's forward on CUDA
     tensors (bf16, or float32 through its float32 chain; kvalid float32), the
     plain version with ``masks`` on CPU tensors.  ``return_saved`` also returns
-    (qkv, ctx, lse), None on the CPU."""
+    (qkv, ctx, lse), in float32 followed by (r, h, a, gd, s), None on the
+    CPU."""
     if not x.is_cuda:
         out = train_encoder_layer_plain(x, kvalid, p, masks, H=H, S=S,
                                         activation=activation)
@@ -205,7 +208,7 @@ def train_encoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
                             ) -> Tuple[torch.Tensor,
                                        Dict[str, torch.Tensor]]:
     """The backward: kernel 12's backward on CUDA tensors (bf16 or float32;
-    ``saved`` = the forward's (qkv, ctx, lse); float32 parameter gradients),
+    ``saved`` = the forward's saved tensors; float32 parameter gradients),
     the plain backward on CPU tensors."""
     if not x.is_cuda:
         return train_encoder_layer_bwd_plain(x, kvalid, dout, p, masks, H=H,
@@ -217,18 +220,21 @@ def train_encoder_layer_bwd(x: torch.Tensor, kvalid: torch.Tensor,
     B, Fd = _check_shape("train_encoder_layer_bwd", x, kvalid, p, H, S,
                          activation)
     M, D = x.shape
-    qkv, ctx, lse = saved
+    qkv, ctx, lse = saved[:3]
+    f32_saved = (() if x.dtype != torch.float32 else
+                 ((M, D), (M, D), (M, Fd), (M, Fd), (M, D)))
     if (dout.shape != x.shape or qkv.shape != (M, 3 * D)
-            or ctx.shape != (M, D) or lse.shape != (M, H)):
+            or ctx.shape != (M, D) or lse.shape != (M, H)
+            or [tuple(t.shape) for t in saved[3:]] != list(f32_saved)):
         raise ValueError("train_encoder_layer_bwd: saved tensors do not "
                          "match x")
     lo, hi = _seed_args(rate, seed)
     if x.dtype == torch.float32:
         check_cuda_args("train_encoder_layer_bwd",
-                        {"x": x, "kvalid": kvalid, "dout": dout, "qkv": qkv,
-                         "ctx": ctx, "lse": lse,
+                        {"x": x, "kvalid": kvalid, "dout": dout,
+                         **{f"saved{i}": t for i, t in enumerate(saved)},
                          **{k: p[k] for k in ENC_PARAM_ORDER}},
-                        f32=("kvalid", "lse"))
+                        f32=("kvalid", "saved2"))
         dx, grads = train_encoder_layer_f32_bwd(
             x, kvalid, dout, p, saved, H=H, S=S, activation=activation,
             drop=(lo, hi, rate))

@@ -2456,3 +2456,44 @@ def test_float32_training_backward_bits_equal_twice(dev, kernel):
     runs = [_f32_train_case(dev, kernel, 0.1)[0] for _ in range(2)]
     for k, v in runs[0].items():
         assert torch.equal(v, runs[1][k]), k
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_float32_whole_layer_kernels_read_inside_their_inputs(dev):
+    """The float32 kernels 12 and 13 (three-term TF32 tensor-core tiles)
+    at row counts that leave partial tiles, D 256 and 128, every input,
+    saved tensor and parameter in turn at the end of its allocation."""
+    from ladiff_torch.ops.train_decoder_layer import (
+        train_decoder_layer_bwd, train_decoder_layer_fwd)
+    from ladiff_torch.ops.train_layer import (train_encoder_layer_bwd,
+                                              train_encoder_layer_fwd)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    for D, H in ((256, 4), (128, 2)):
+        B, S, Fd = 3, 48, 512
+        M = B * S
+        pe = {**_f32(_attn_params(dev, D)), **_f32(_ffn_params(dev, D, Fd))}
+        x, dout = _f(dev, M, D), _f(dev, M, D, seed=17)
+        kvalid = _mask([S, 0, 1], S, dev).reshape(-1).contiguous()
+        _guarded_calls(lambda t, p: train_encoder_layer_fwd(
+            t[0], t[1], p, H=H, S=S, rate=0.1, seed=3), [x, kvalid], pe)
+        _, saved = train_encoder_layer_fwd(x, kvalid, pe, H=H, S=S, rate=0.1,
+                                           seed=3, return_saved=True)
+        _guarded_calls(lambda t, p: train_encoder_layer_bwd(
+            t[0], t[1], t[2], p, tuple(t[3:]), H=H, S=S, rate=0.1, seed=3),
+            [x, kvalid, dout, *saved], pe)
+        pdl = _randomize(TransformerDecoderLayer(D, H, Fd, "gelu"), 5).to(dev)
+        pd = {k: v.detach() for k, v in pdl.kernel_params().items()}
+        Bd, Sd = 8, 37
+        xd, doutd = _f(dev, Bd * Sd, D), _f(dev, Bd * Sd, D, seed=17)
+        kvd = _mask([Sd, 20, 1, 36, 5, Sd, 0, 30], Sd, dev).reshape(-1)
+        mem = _f(dev, Bd, 8, D, seed=19)
+        mvalid = _mask([5, 2, 1, 3, 8, 0, 1, 2], 8, dev).contiguous()
+        args = [xd, kvd.contiguous(), mem, mvalid]
+        _guarded_calls(lambda t, p: train_decoder_layer_fwd(
+            *t, p, H=H, S=Sd, rate=0.1, seed=3), args, pd)
+        _, saved = train_decoder_layer_fwd(*args, pd, H=H, S=Sd, rate=0.1,
+                                           seed=3, return_saved=True)
+        _guarded_calls(lambda t, p: train_decoder_layer_bwd(
+            *t[:5], p, tuple(t[5:]), H=H, S=Sd, rate=0.1, seed=3),
+            [*args, doutd, *saved], pd)

@@ -284,10 +284,266 @@ def _reduce(p, n, f):
         o += size
 
 
+# -- the tensor-core entry points of kernels 12 and 13 ------------------------
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the low 13 bits of the result are 0)."""
+    b = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x: torch.Tensor):
+    """The three-term split of float32 values as the tensor cores see it:
+    (hi, lo) with hi = tf32(x) and lo = x - hi cut to its top 10 mantissa
+    bits (the tensor core ignores a TF32 operand's 13 low bits), as float64
+    tensors."""
+    v = x.detach().float().numpy()
+    hi = _tf32(v)
+    lo = (v - hi).view(np.uint32) & np.uint32(0xFFFFE000)
+    return (torch.from_numpy(hi).double(),
+            torch.from_numpy(lo.view(np.float32)).double())
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the tensor cores compute it in three-term TF32: each
+    operand rounded to float32 and split, lo hi + hi lo + hi hi (the sums
+    in float64)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _ln_bwd_rows(x, w, g):
+    """(dx, xhat) of the LayerNorm of x's backward for g (float64)."""
+    mu = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+    xhat = (x - mu) * rstd
+    gw = g * w
+    return rstd * (gw - gw.mean(-1, keepdim=True)
+                   - xhat * (gw * xhat).mean(-1, keepdim=True)), xhat
+
+
+def _block_sums(part, g, xhat, D):
+    """The column sums of g xhat and g of each 64-row block."""
+    for z in range(part.shape[0]):
+        r = slice(64 * z, 64 * (z + 1))
+        part[z, :D] = (g[r] * xhat[r]).sum(0)
+        part[z, D:2 * D] = g[r].sum(0)
+
+
+def _tc_gemm(p, n, f):
+    nprob, lo, hi = n[:3]
+    kinds = set()
+    for i in range(nprob):
+        pp = p[16 * i:16 * (i + 1)]
+        (M, N, K, lda, ldb, ldc, a_mn, b_mn, act, ldpre, ldg, gact, ldr,
+         mid, ksplit, row, ldx, ldlnx, mid2, ldpart, ldctx, H, cstride,
+         sstride, kflush) = n[3 + 25 * i:3 + 25 * (i + 1)]
+        kinds.add((a_mn, b_mn, cstride > 0, row > 0))
+        # each operand is read in 16-byte pieces along its contiguous
+        # dimension; the epilogue writes pairs
+        for mn, ptr, ld, dim in ((a_mn, pp[0], lda, M), (b_mn, pp[1], ldb, N)):
+            assert (dim if mn else K) % 4 == 0 and ld % 4 == 0
+            assert ptr % 16 == 0
+        assert ksplit % 16 == 0 and N % 4 == 0 and ldc % 2 == 0
+        A = (_view(pp[0], K, M, lda).T if a_mn else _view(pp[0], M, K, lda))
+        B = (_view(pp[1], K, N, ldb).T if b_mn else _view(pp[1], N, K, ldb))
+        if cstride:  # split-K partials of kflush rows, the column sums
+            assert a_mn and b_mn and not any(pp[3:7]) and not row
+            assert kflush % 16 == 0
+            nsub = -(-ksplit // kflush)
+            for z in range(-(-K // ksplit)):
+                k0, k1 = z * ksplit, min(K, (z + 1) * ksplit)
+                for s in range(nsub):  # zeros past the split's rows
+                    r = slice(min(k1, k0 + s * kflush),
+                              min(k1, k0 + (s + 1) * kflush))
+                    _view(pp[2] + 4 * (z * nsub + s) * cstride, M, N,
+                          ldc).copy_(_mm3(A[:, r], B[:, r].T))
+                if pp[7]:
+                    _vec(pp[7] + 4 * z * sstride, M).copy_(
+                        A[:, k0:k1].double().sum(1))
+            continue
+        assert ksplit >= K and not pp[7]
+        v = _mm3(A, B.T)
+        if pp[3]:
+            v = v + _vec(pp[3], N).double()
+        if pp[4]:
+            _view(pp[4], M, N, ldpre).copy_(v)
+        v = _act(v, act)
+        if pp[5]:
+            v = v * _act_grad(_view(pp[5], M, N, ldg).double(), gact)
+        if mid >= 0:
+            v = v * _drop(lo, hi, f[0], mid, (M, N))
+        if pp[6]:
+            v = v + _view(pp[6], M, N, ldr).double()
+        if row == 0:
+            _view(pp[2], M, N, ldc).copy_(v)
+            continue
+        assert N <= 256 and N % 32 == 0
+        if row == 1:  # the LayerNorm after the residual
+            _view(pp[8], M, N, ldx).copy_(v)
+            _view(pp[2], M, N, ldc).copy_(F.layer_norm(
+                v, (N,), _vec(pp[9], N).double(), _vec(pp[10], N).double(),
+                1e-5))
+        elif row == 2:  # a LayerNorm's backward for g = v
+            dx, xhat = _ln_bwd_rows(_view(pp[11], M, N, ldlnx).double(),
+                                    _vec(pp[9], N).double(), v)
+            _view(pp[2], M, N, ldc).copy_(dx)
+            if pp[12]:
+                _view(pp[12], M, N, ldc).copy_(
+                    dx * (_drop(lo, hi, f[0], mid2, (M, N))
+                          if mid2 >= 0 else 1.0))
+            if pp[13]:
+                assert ldpart >= 2 * N
+                _block_sums(_view(pp[13], -(-M // 64), 2 * N, ldpart), v,
+                            xhat, N)
+        else:  # delta = v . ctx per head
+            _view(pp[2], M, N, ldc).copy_(v)
+            ctx = _view(pp[14], M, N, ldctx).double()
+            _view(pp[15], M, H, H).copy_(
+                (v * ctx).reshape(M, H, N // H).sum(-1))
+    assert len(kinds) == 1  # one layout and epilogue kind a launch
+
+
+def _heads(t):
+    """[B, S, H, Dh] -> [B, H, S, Dh]"""
+    return t.permute(0, 2, 1, 3)
+
+
+def _tc_attention(p, n, f):
+    B, Sq, Nk, H, Dh, ldq, ldk, ldo, mid, lo, hi = n
+    assert Dh in (16, 32, 48, 64) and ldo % 2 == 0 and p[4] % 8 == 0
+    q, k, v, valid = _attn_views(p, n)
+    s = _logits_of(_mm3(_heads(q), _heads(k).transpose(-1, -2)), valid, B,
+                   Nk, f[0])
+    prob = torch.softmax(s, -1)
+    if mid >= 0:
+        prob = prob * _drop(lo, hi, f[1], mid, (B, H, Sq, Nk))
+    o = _mm3(prob, _heads(v)).transpose(1, 2)
+    _view(p[4], B * Sq, H * Dh, ldo).copy_(o.reshape(B * Sq, H * Dh))
+    _view(p[5], B * Sq, H, H).copy_(
+        torch.logsumexp(s, -1).transpose(1, 2).reshape(B * Sq, H))
+
+
+def _logits_of(raw, valid, B, Nk, scale):
+    """The kernels' logits from raw scores [B, H, Sq, Nk]."""
+    s = raw * scale
+    if valid is None:
+        return s
+    ok = valid.reshape(B, 1, 1, Nk) > 0.5
+    s = torch.where(ok, s, torch.full_like(s, NEG))
+    s[~ok.reshape(B, Nk).any(1)] = 0.0
+    return s
+
+
+def _tc_attention_bwd(p, n, f):
+    B, Sq, Nk, H, Dh, ldq, ldk, ldd, lddk, mid, lo, hi = n
+    q, k, v, valid = _attn_views(p, n)
+    assert ldd % 4 == 0 and p[4] % 16 == 0 and lddk % 2 == 0
+    assert p[8] % 8 == 0 and p[9] % 8 == 0
+    D = H * Dh
+    do = _heads(_view(p[4], B * Sq, D, ldd).double().reshape(B, Sq, H, Dh))
+    lse = _view(p[5], B * Sq, H, H).double().reshape(B, Sq, H).transpose(1, 2)
+    delta = _view(p[6], B * Sq, H, H).double().reshape(B, Sq, H).transpose(
+        1, 2)
+    qh, kh, vh = _heads(q), _heads(k), _heads(v)
+    s = _logits_of(_mm3(qh, kh.transpose(-1, -2)), valid, B, Nk, f[0])
+    prob = torch.exp(s - lse[..., None])
+    keep = (_drop(lo, hi, f[1], mid, (B, H, Sq, Nk)) if mid >= 0 else 1.0)
+    dp = _mm3(do, vh.transpose(-1, -2))
+    ds = prob * (dp * keep - delta[..., None])
+    dk = _mm3(ds.transpose(-1, -2), qh) * f[0]
+    dv = _mm3((prob * keep).transpose(-1, -2), do)
+    _view(p[8], B * Nk, D, lddk).copy_(dk.transpose(1, 2).reshape(B * Nk, D))
+    _view(p[9], B * Nk, D, lddk).copy_(dv.transpose(1, 2).reshape(B * Nk, D))
+    # key tile t's share of dq, one partial each
+    for t in range(-(-Nk // 64)):
+        kt = slice(64 * t, 64 * (t + 1))
+        dq = _mm3(ds[..., kt], kh[:, :, kt]) * f[0]
+        _view(p[7] + 4 * t * B * Sq * D, B * Sq, D, D).copy_(
+            dq.transpose(1, 2).reshape(B * Sq, D))
+
+
+def _cross_views(p, n):
+    B, S, L, H, Dh, ldq, ldkv = n[:7]
+    D = H * Dh
+    assert L <= 8 and Dh <= 64
+    q = _view(p[0], B * S, D, ldq).double().reshape(B, S, H, Dh)
+    kv = _view(p[1], B * L, 2 * D, ldkv).double()
+    k = kv[:, :D].reshape(B, L, H, Dh)
+    v = kv[:, D:].reshape(B, L, H, Dh)
+    return q, k, v
+
+
+def _tc_cross(p, n, f):
+    B, S, L, H, Dh, ldq, ldkv, ldo, mid, lo, hi = n
+    q, k, v = _cross_views(p, n)
+    s = _logits(q, k, _vec(p[2], B * L), B, S, L, H, f[0])
+    prob = torch.softmax(s, -1) * _drop(lo, hi, f[1], mid, (B, H, S, L))
+    o = torch.einsum("bhqk,bkhd->bqhd", prob, v)
+    _view(p[3], B * S, H * Dh, ldo).copy_(o.reshape(B * S, H * Dh))
+    _view(p[4], B * S, H, H).copy_(
+        torch.logsumexp(s, -1).transpose(1, 2).reshape(B * S, H))
+
+
+def _tc_cross_bwd(p, n, f):
+    B, S, L, H, Dh, ldq, ldkv, ldd, lddq, lddkv, mid, lo, hi = n
+    D = H * Dh
+    q, k, v = _cross_views(p, n)
+    s = _logits(q, k, _vec(p[2], B * L), B, S, L, H, f[0])
+    do = _view(p[3], B * S, D, ldd).double().reshape(B, S, H, Dh)
+    lse = _view(p[4], B * S, H, H).double().reshape(B, S, H).transpose(1, 2)
+    delta = _view(p[5], B * S, H, H).double().reshape(B, S, H).transpose(
+        1, 2)
+    prob = torch.exp(s - lse[..., None])
+    keep = _drop(lo, hi, f[1], mid, (B, H, S, L))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = prob * (dp * keep - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * f[0]
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * f[0]
+    dv = torch.einsum("bhqk,bqhd->bkhd", prob * keep, do)
+    _view(p[6], B * S, D, lddq).copy_(dq.reshape(B * S, D))
+    dkv = _view(p[7], B * L, 2 * D, lddkv)
+    dkv[:, :D] = dk.reshape(B * L, D)
+    dkv[:, D:] = dv.reshape(B * L, D)
+
+
+def _tc_ln_bwd(p, n, f):
+    M, D, ldx, ldg, lddx, ldpart, mid, lo, hi = n
+    assert D % 32 == 0 and D <= 256 and ldpart >= 2 * D
+    g = _view(p[2], M, D, ldg).double()
+    dx, xhat = _ln_bwd_rows(_view(p[0], M, D, ldx).double(),
+                            _vec(p[1], D).double(), g)
+    _view(p[3], M, D, lddx).copy_(dx)
+    if p[4]:
+        _view(p[4], M, D, lddx).copy_(dx * _drop(lo, hi, f[0], mid, (M, D)))
+    _block_sums(_view(p[5], -(-M // 64), 2 * D, ldpart), g, xhat, D)
+
+
+def _tc_reduce(p, n, f):
+    for i in range(n[0]):
+        splits, pstride, rows, cols, ldo = n[1 + 5 * i:6 + 5 * i]
+        assert ldo >= cols and (splits == 1 or pstride >= rows * cols)
+        total = torch.zeros(rows * cols, dtype=torch.float32)
+        for z in range(splits):  # in split order, in float32
+            total += _view(p[2 * i] + 4 * z * pstride, 1, rows * cols,
+                           rows * cols)[0]
+        _view(p[2 * i + 1], rows, cols, ldo).copy_(total.reshape(rows, cols))
+
+
 _ENTRY = {"f32t_gemm": _gemm, "f32t_rownorm": _rownorm,
           "f32t_attention": _attention, "f32t_attention_bwd": _attention_bwd,
           "f32t_rowdot": _rowdot, "f32t_lnbwd": _lnbwd,
-          "f32t_keep_mul": _keep_mul, "f32t_reduce": _reduce}
+          "f32t_keep_mul": _keep_mul, "f32t_reduce": _reduce,
+          "f32l_gemm": _tc_gemm, "f32l_attention": _tc_attention,
+          "f32l_attention_bwd": _tc_attention_bwd,
+          "f32l_cross_attention": _tc_cross,
+          "f32l_cross_attention_bwd": _tc_cross_bwd,
+          "f32l_ln_bwd": _tc_ln_bwd, "f32l_reduce": _tc_reduce}
+# the library each entry point lives in
+_LIB = {name: "f32_train_layer" if name.startswith("f32l_") else "f32_train"
+        for name in _ENTRY}
 
 
 @pytest.fixture
@@ -298,7 +554,7 @@ def emulated(monkeypatch):
     made = []
 
     def fake(lib, fn, device, ptrs, ints, floats=()):
-        assert lib == "f32_train"
+        assert lib == _LIB[fn]
         _ENTRY[fn](list(ptrs), list(ints), list(floats))
         made.append(fn)
 
@@ -451,12 +707,14 @@ def test_train_encoder_layer_chain(emulated, lengths, S, D, H, Fd, act,
     out, saved = train_encoder_layer_f32(x, kv, p, H=H, S=S, activation=act,
                                          drop=drop)
     assert len(emulated) == CHAIN_LAUNCHES["train_encoder_layer"]
+    assert all(fn.startswith("f32l_") for fn in emulated)
     _hold(out, train_encoder_layer_plain(x, kv, p, masks, H=H, S=S,
                                          activation=act), "out")
     emulated.clear()
     dx, grads = train_encoder_layer_f32_bwd(x, kv, dout, p, saved, H=H, S=S,
                                             activation=act, drop=drop)
     assert len(emulated) == CHAIN_LAUNCHES["train_encoder_layer_bwd"]
+    assert all(fn.startswith("f32l_") for fn in emulated)
     wdx, wgrads = train_encoder_layer_bwd_plain(x, kv, dout, p, masks, H=H,
                                                 S=S, activation=act)
     _hold(dx, wdx, "dx")
@@ -495,6 +753,7 @@ def test_train_decoder_layer_chain(emulated, lengths, mem_len, S, L, D, H,
     out, saved = train_decoder_layer_f32(x, kv, mem, mv, p, H=H, S=S,
                                          activation=act, drop=drop)
     assert len(emulated) == CHAIN_LAUNCHES["train_decoder_layer"]
+    assert all(fn.startswith("f32l_") for fn in emulated)
     assert tuple(saved[3].shape) == (B * L, 2 * D)
     _hold(out, train_decoder_layer_plain(x, kv, mem, mv, p, masks, H=H, S=S,
                                          activation=act), "out")
@@ -502,6 +761,7 @@ def test_train_decoder_layer_chain(emulated, lengths, mem_len, S, L, D, H,
     dx, dmem, grads = train_decoder_layer_f32_bwd(
         x, kv, mem, mv, dout, p, saved, H=H, S=S, activation=act, drop=drop)
     assert len(emulated) == CHAIN_LAUNCHES["train_decoder_layer_bwd"]
+    assert all(fn.startswith("f32l_") for fn in emulated)
     wdx, wdmem, wgrads = train_decoder_layer_bwd_plain(
         x, kv, mem, mv, dout, p, masks, H=H, S=S, activation=act)
     _hold(dx, wdx, "dx")
@@ -525,6 +785,53 @@ def test_wgrad_split_geometry(N1, N2, K):
     assert 1 <= splits <= max(1, -(-K // 64))
 
 
+@pytest.mark.parametrize("K,tiles", [(64 * 206, 48), (64 * 196, 64),
+                                     (64 * 5, 64), (3 * 70, 48),
+                                     (128 * 62, 48), (37, 300)])
+def test_tc_wgrad_split_fills_one_wave(K, tiles):
+    """Kernels 12's and 13's grouped weight gradients: whole 16-row slices
+    covering the K rows once, a split at most every 64 rows, and the
+    group's blocks (its 128 x 128 tiles times the splits) within one wave
+    of two blocks an SM, as full as the rows allow."""
+    from ladiff_torch.ops.f32_train import TC_FILL, tc_wgrad_split
+    splits, ksplit = tc_wgrad_split(K, tiles)
+    assert ksplit % 16 == 0 and (splits - 1) * ksplit < K <= splits * ksplit
+    assert 1 <= splits <= max(1, -(-K // 64))
+    assert tiles * splits <= max(TC_FILL, tiles)
+    assert splits == 1 or tiles * (splits + 1) > TC_FILL or \
+        splits >= -(-K // 64) - 1
+
+
+@pytest.mark.parametrize("flush", [16, 48, 1024])
+def test_grouped_weight_gradients_flush_partials(emulated, monkeypatch,
+                                                 flush):
+    """Kernels 12's and 13's weight gradients in one launch: each split's
+    rows summed in partials of at most ``TC_FLUSH`` rows (zeros past the
+    split's rows), the bias from each split's column sums, one reduction;
+    two products of different depths (13's memory rows), a row slice of
+    an output, within 1e-5 of float64."""
+    from ladiff_torch.ops import f32_train as ft
+    monkeypatch.setattr(ft, "TC_FLUSH", flush)
+    rng = np.random.RandomState(flush)
+    t = lambda *shape: torch.tensor(rng.randn(*shape), dtype=torch.float32)
+    dy1, x1, dy2, x2 = t(210, 192), t(210, 64), t(15, 128), t(15, 64)
+    grads = {"w": torch.empty(320, 64), "b": torch.empty(320),
+             "v": torch.empty(128, 64), "c": torch.empty(128)}
+    segs = ft._wgrads([(dy1, x1, ("w", slice(0, 192)), ("b", slice(0, 192))),
+                       (dy2, x2, "v", "c"),
+                       (dy2, x2, ("w", slice(192, 320)),
+                        ("b", slice(192, 320)))], grads, dy1)
+    ft._reduce_tc(segs, dy1)
+    assert emulated == ["f32l_gemm", "f32l_reduce"]
+    want_w = torch.cat([dy1.double().T @ x1.double(),
+                        dy2.double().T @ x2.double()])
+    _hold(grads["w"], want_w, "w")
+    _hold(grads["b"], torch.cat([dy1.double().sum(0), dy2.double().sum(0)]),
+          "b")
+    _hold(grads["v"], dy2.double().T @ x2.double(), "v")
+    _hold(grads["c"], dy2.double().sum(0), "c")
+
+
 @pytest.mark.parametrize("M", [13, 37 * 3, 64 * 196, 128 * 206, 640])
 def test_layernorm_backward_rows(M):
     """The LayerNorm backward's blocks: whole warps' rows (a multiple of 8),
@@ -532,6 +839,94 @@ def test_layernorm_backward_rows(M):
     from ladiff_torch.ops.f32_train import ln_rows
     r = ln_rows(M)
     assert r % 8 == 0 and -(-M // r) <= 256 and -(-M // r) * r >= M
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """The emulated ``cvt.rna.tf32.f32``: 10 mantissa bits, to nearest, ties
+    away from zero in either sign; hi + lo (lo = x - hi as the tensor core
+    reads it) carries the float32 value to 2^-21."""
+    ulp = 2.0 ** -10
+    x = np.array([1.0, 1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, 1 + ulp * 1.5,
+                  -(1 + ulp / 2), 3.0e-3, -7.5e5], np.float32)
+    got = _tf32(x)
+    assert got[:5].tolist() == [1.0, 1 + ulp, 1.0, 1 + 2 * ulp, -(1 + ulp)]
+    assert not (got.view(np.uint32) & np.uint32(0x1FFF)).any()
+    v = torch.tensor(np.random.RandomState(5).randn(4096), dtype=torch.float32)
+    hi, lo = _split(v)
+    assert bool((hi == torch.from_numpy(_tf32(v.numpy())).double()).all())
+    err = (v.double() - hi - lo).abs() / v.double().abs()
+    assert float(err.max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("M,N,K", [(64, 64, 64), (64, 64, 256),
+                                   (64, 64, 1024), (64, 64, 13184)])
+def test_three_term_products_hold_float32_accuracy(M, N, K):
+    """The three-term TF32 product at the layers' depths (K 64, 256 and
+    1024: head width, D, F) and a weight gradient over 64 x 206 = 13,184
+    rows: within 1e-5 of the float64 product of the float32 operands, and
+    far closer than one TF32 term alone."""
+    rng = np.random.RandomState(K)
+    a = torch.tensor(rng.randn(M, K), dtype=torch.float32)
+    b = torch.tensor(rng.randn(K, N), dtype=torch.float32)
+    want = (a.double() @ b.double()).numpy()
+    assert relerr(_mm3(a, b), want) <= TOL
+    ah, _ = _split(a)
+    bh, _ = _split(b)
+    assert relerr(_mm3(a, b), want) * 50 < relerr(ah @ bh, want)
+
+
+@pytest.mark.parametrize("S,lengths", [(37, [37, 0, 20]), (70, [0, 70]),
+                                       (206, [206, 0, 131])])
+def test_attention_dq_partials_sum_in_key_tile_order(emulated, monkeypatch,
+                                                     S, lengths):
+    """Kernels 12's and 13's attention backward: dk and dv whole, dq one
+    partial per 64-key tile summed in tile order by one reduction (no
+    atomics); a sample without a valid key attends uniformly, forward and
+    backward.  ctx and dq, dk, dv against float64 autograd within 1e-5."""
+    from ladiff_torch.ops import f32_train as ft
+    B, H, D = len(lengths), 2, 64
+    M = B * S
+    rng = np.random.RandomState(S)
+    qkv = torch.tensor(rng.randn(M, 3 * D), dtype=torch.float32)
+    dctx = torch.tensor(rng.randn(M, D), dtype=torch.float32)
+    kv = _valid(lengths, S).reshape(M)
+    q, k, v = qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:]
+    ctx, lse = ft._tc_attention(q, k, v, kv, B=B, S=S, H=H,
+                                drop=ft.NO_DROP, mask_id=0)
+    delta = (dctx * ctx).reshape(M, H, D // H).sum(-1)
+    reduced = []
+    fake = ft.launch
+
+    def spy(lib, fn, device, ptrs, ints, floats=()):
+        if fn == "f32l_reduce":
+            reduced.append(list(ints))
+        fake(lib, fn, device, ptrs, ints, floats)
+
+    monkeypatch.setattr(ft, "launch", spy)
+    emulated.clear()
+    dqkv = torch.empty(M, 3 * D)
+    ft._tc_attention_bwd(q, k, v, kv, dctx, lse, delta, dqkv, B=B, S=S, H=H,
+                         drop=ft.NO_DROP, mask_id=0)
+    assert emulated == ["f32l_attention_bwd", "f32l_reduce"]
+    tiles = ft.attention_key_tiles(S)
+    assert reduced == [[1, tiles, M * D, M, D, 3 * D]]
+    # the reference in float64: the kernels' logits (a masked key -1e9, a
+    # sample without a valid key uniform), the gradient through them as
+    # through the plain versions' additive key bias
+    heads = lambda t: t.double().reshape(B, S, H, D // H)
+    qh, kh, vh, do = (heads(t) for t in (q, k, v, dctx))
+    scale = 1 / np.sqrt(D // H)
+    prob = torch.softmax(_logits(qh, kh, kv, B, S, S, H, scale), -1)
+    o = torch.einsum("bhqk,bkhd->bqhd", prob, vh)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vh)
+    ds = prob * (dp - (dp * prob).sum(-1, keepdim=True))
+    want = torch.cat([torch.einsum(eq, ds, t).reshape(M, D) * scale
+                      for eq, t in (("bhqk,bkhd->bqhd", kh),
+                                    ("bhqk,bqhd->bkhd", qh))]
+                     + [torch.einsum("bhqk,bqhd->bkhd", prob, do
+                                     ).reshape(M, D)], 1)
+    _hold(ctx, o.reshape(M, D), "ctx")
+    _hold(dqkv, want, "dqkv")
 
 
 # -- (b) the autograd Functions on the float32 route against the JAX kernels --
