@@ -37,17 +37,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
             time, a yardstick the port never calls), each GEMM's products
             alone (the probe epilogue, which stores nothing) and each GEMM
             at each tile width of the GEMM block.
-   kernels_f32  the float32 K1, K2, kernels 5 and 10 (the chains of
-            ``csrc/f32_layer.cu``, the published configurations' type)
-            against their float32 plain versions, TF32 off, each case
-            within ``F32_KERNEL_TOL`` norm-wise: the published float32
-            paths' shapes, mixed lengths, partial row blocks, 7 latent
-            rows, L 1 and 7, a sample without a valid key, head width 128;
-            each timed at its path's shape beside its plain version, its
-            bound and the library call (``nn.TransformerDecoderLayer``,
-            SDPA), and each chain's launches one by one.  Then the float32
-            kernels 6, 7 and 11 (``_kernels_f32_routes``): at the bf16
-            route kernels' shapes (2560 rows, AdaLN rows per sample and
+   kernels_f32  the float32 K1, K2, kernels 5 and 10 (K1's and 5's
+            chains of ``csrc/f32_layer.cu``; K2 and 10 on the three-term
+            TF32 tensor-core tiles of ``csrc/f32_train_layer.cu``, the
+            published configurations' type) against their float32 plain
+            versions, TF32 off, each case within ``F32_KERNEL_TOL``
+            norm-wise: the published float32 paths' shapes, mixed lengths,
+            partial row blocks, 7 latent rows, L 1, 5, 7 and 8, a sample
+            without a valid key or memory row, kernel 10 at every head
+            width its gate takes (16 to 128) and with a masked key tile
+            between valid ones, K2 at head width 128; each timed at its
+            path's shape beside its plain version, its bound and the
+            library call (``nn.TransformerDecoderLayer``, SDPA; kernel 10
+            also at novae's 64 x 198 tokens, head width 128, beside
+            SDPA), each chain's launches one by one, and K2's launches
+            with each one's TFLOP/s (``kernels_f32_launches``).  Then the
+            float32 kernels 6, 7 and 11 (``_kernels_f32_routes``): at the
+            bf16 route kernels' shapes (2560 rows, AdaLN rows per sample and
             shared, 37 x 7 and 3 x 5 rows at D 64 to 256, kernel 7 at 40 x
             1 with fractional and all-zero masks, kernel 11 at 512 x 5 rows
             with and without a mask, 13 samples with one without a valid
@@ -1025,23 +1031,26 @@ F32_PATHS = {
                       "9 layers"}
 
 
-def phase_kernels_f32(dev):
-    """The float32 kernels (K1, K2, kernels 5 and 10: the chains of
-    ``csrc/f32_layer.cu`` behind the four wrappers) against their float32
-    plain versions on the card, TF32 off, every case within
-    ``F32_KERNEL_TOL`` norm-wise: the published float32 paths' shapes
-    (the test.py eval batch: 64 x 5 latent rows, 32 x 196 frames over 5
-    memory rows; the stage-2 encode: 128 x 206 rows and tokens), mixed
-    lengths 16..196 with 1 to 5 valid latents, partial row blocks, 7 latent
-    rows, L 1 and L 7, one AdaLN row shared or per sample, a sample without
-    a valid key, head widths 64 and 128.  Each kernel timed at its path's
-    shape beside its plain version (``interleaved_ms``), its bound (4 bytes
-    an element at 3.35 TB/s against the FLOPs at ``PEAK_F32_FLOPS``) and,
-    where one PyTorch call computes the same function, that call in float32
-    (``nn.TransformerDecoderLayer`` for K2, SDPA for kernel 10); each
-    chain's launches one by one.  Returns the four records of the
-    ``kernels`` line; ``main`` sets their launches from the float32
-    paths."""
+def phase_kernels_f32(dev, gpu=""):
+    """The float32 kernels (K1, K2, kernels 5 and 10: K1's and 5's chains
+    of ``csrc/f32_layer.cu``, K2 and 10 on the tensor-core tiles of
+    ``csrc/f32_train_layer.cu``) against their float32 plain versions on
+    the card, TF32 off, every case within ``F32_KERNEL_TOL`` norm-wise:
+    the published float32 paths' shapes (the test.py eval batch: 64 x 5
+    latent rows, 32 x 196 frames over 5 memory rows; the stage-2 encode:
+    128 x 206 rows and tokens), mixed lengths 16..196 with 1 to 5 valid
+    latents, partial row blocks, 7 latent rows, L 1, 5, 7 and 8, one AdaLN
+    row shared or per sample, a sample without a valid key or memory row,
+    kernel 10 at head widths 16 to 128 and with the key tile 64 .. 127
+    masked between valid keys, K2 at head width 128.  Each kernel timed at
+    its path's shape beside its plain version (``interleaved_ms``), its
+    bound (4 bytes an element at 3.35 TB/s against the FLOPs at
+    ``PEAK_F32_FLOPS``) and, where one PyTorch call computes the same
+    function, that call in float32 (``nn.TransformerDecoderLayer`` for K2,
+    SDPA for kernel 10, which is timed again at novae's 64 x 198 tokens,
+    head width 128); each chain's launches one by one, K2's with each
+    one's TFLOP/s.  Returns the four records of the ``kernels`` line;
+    ``main`` sets their launches from the float32 paths."""
     import torch
     import torch.nn.functional as F_
     from ladiff_torch import launch_tables as lt
@@ -1066,6 +1075,7 @@ def phase_kernels_f32(dev):
 
     D, H, F = 256, 4, 1024
     src = "ladiff_torch/csrc/f32_layer.cu"
+    src_tc = "ladiff_torch/csrc/f32_train_layer.cu"
     tol = F32_KERNEL_TOL
     recs, errs, chains = [], {}, {}
     t0 = time.perf_counter()
@@ -1125,22 +1135,30 @@ def phase_kernels_f32(dev):
     dl = randomize_(TransformerDecoderLayer(D, H, F, "gelu"), 32).to(dev, f32)
     p2 = dl.kernel_params()
 
-    def dec_args(n, T, L, seed):
+    def dec_args(n, T, L, seed, empty=False):
         lens = mixed_lengths(n, lo=min(16, T), hi=T, seed=seed)
         mv = (latent_valid_mask(lens, 48 if L <= 5 else 28, L) if L > 1
               else torch.ones(n, 1, dtype=torch.bool))
+        if empty:
+            mv[0] = False
         return (rnd(n * T, D), lengths_to_mask(lens, T).reshape(-1).float()
                 .to(dev), rnd(n, L, D), mv.float().to(dev))
 
-    for case, n, T, L in (("3 x 40 frames, L 5 (partial row blocks)", 3, 40,
-                           5),
-                          ("8 x 60 frames, L 1", 8, 60, 1),
-                          ("16 x 196 frames, L 7", 16, 196, 7),
-                          ("64 x 196 frames, L 5", 64, 196, 5)):
-        a = dec_args(n, T, L, 50 + n)
+    for case, n, T, L, Hd, empty in (
+            ("3 x 40 frames, L 5 (partial row blocks)", 3, 40, 5, H, False),
+            ("8 x 60 frames, L 1", 8, 60, 1, H, False),
+            ("16 x 196 frames, L 7", 16, 196, 7, H, False),
+            ("16 x 196 frames, L 8, a sample without a valid memory row", 16,
+             196, 8, H, True),
+            ("64 x 196 frames, L 5", 64, 196, 5, H, False),
+            ("8 x 196 frames, L 5, head width 128 (H 2)", 8, 196, 5, 2,
+             False),
+            ("3 x 40 frames, L 8, head width 128 (H 2), a sample without a "
+             "valid memory row", 3, 40, 8, 2, True)):
+        a = dec_args(n, T, L, 50 + n + L, empty)
         held(f"fused_decoder_layer float32, {case}",
-             fused_decoder_layer(*a, p2, T=T, H=H),
-             decoder_layer_plain(*a, p2, T=T, H=H))
+             fused_decoder_layer(*a, p2, T=T, H=Hd),
+             decoder_layer_plain(*a, p2, T=T, H=Hd))
     n, T, L = 32, 196, 5
     a2 = dec_args(n, T, L, 8)
     fv, mv = a2[1].reshape(n, T) > 0.5, a2[3] > 0.5
@@ -1157,7 +1175,7 @@ def phase_kernels_f32(dev):
     fl2 = 2 * n * T * D * (3 * D + 3 * D + 2 * F) + 2 * n * L * D * 2 * D \
         + 4 * T * D * (int(fv.sum()) + int(mv.sum()))
     recs.append(check_kernel(
-        "fused_decoder_layer (float32)", src,
+        "fused_decoder_layer (float32)", src_tc,
         "ladiff_tpu/ops/pallas_decoder_layer.py:234",
         lambda: fused_decoder_layer(*a2, p2, T=T, H=H),
         lambda: decoder_layer_plain(*a2, p2, T=T, H=H),
@@ -1167,6 +1185,15 @@ def phase_kernels_f32(dev):
         extra=path("fused_decoder_layer", "32 x 196 frames, L 5")))
     chains["fused_decoder_layer"] = launch_breakdown(
         lambda: fused_decoder_layer(*a2, p2, T=T, H=H))
+    # K2's eight launches one by one: every query row against its
+    # sample's valid frames, and against its valid memory rows (all of
+    # them in a sample without one)
+    keys, mkeys = fv.sum(1), mv.sum(1)
+    pairs = T * int(torch.where(keys > 0, keys, T).sum())
+    cpairs = T * int(torch.where(mkeys > 0, mkeys, L).sum())
+    k2_launches = launch_rates(
+        lambda: fused_decoder_layer(*a2, p2, T=T, H=H),
+        tc_launch_flops("fwd", n * T, D, F, pairs, (n * L, cpairs)))
     del a2, x2b, lib
 
     # kernel 5: the FFN tail at the encoder's GELU rows, the MD sa_block's
@@ -1212,14 +1239,24 @@ def phase_kernels_f32(dev):
         lat = latent_valid_mask(lens, 48, 5)
         return torch.cat([lat, lat, lengths_to_mask(lens, 196)], 1).to(dev)
 
+    def lengths_valid(S, lengths):
+        return torch.arange(S, device=dev)[None] < torch.tensor(
+            lengths, device=dev)[:, None]
+
+    hole = lengths_valid(200, [200, 180])
+    hole[:, 40:140] = False  # the key tile 64 .. 127 wholly masked
     for case, n, S, Dk, Hk, valid in (
             ("novae, 4 x 198 tokens, D 512, H 4 (head width 128), no mask",
              4, 198, 512, 4, None),
             ("3 x 70 tokens, a sample without a valid key", 3, 70, 256, 4,
-             torch.arange(70, device=dev)[None] < torch.tensor(
-                 [[70], [0], [33]], device=dev)),
+             lengths_valid(70, [70, 0, 33])),
             ("8 x 206 tokens (encoder stream), head width 64", 8, 206, 256,
-             4, stream_valid(8, 61))):
+             4, stream_valid(8, 61)),
+            ("2 x 200 tokens, the key tile 64 .. 127 masked between valid "
+             "keys", 2, 200, 256, 4, hole),
+            *((f"3 x 70 tokens, head width {dh}, a sample without a valid "
+               "key", 3, 70, 2 * dh, 2, lengths_valid(70, [70, 41, 0]))
+              for dh in (16, 32, 48, 64, 80, 96, 112, 128))):
         q, k, v = (rnd(n, S, Dk) for _ in range(3))
         held(f"fused_masked_attention float32, {case}",
              fused_masked_attention(q, k, v, valid, num_heads=Hk),
@@ -1237,7 +1274,7 @@ def phase_kernels_f32(dev):
                 n, S, D)
 
     recs.append(check_kernel(
-        "fused_masked_attention (float32)", src,
+        "fused_masked_attention (float32)", src_tc,
         "ladiff_tpu/ops/pallas_attention.py:52",
         lambda: fused_masked_attention(q, k, v, valid, num_heads=H),
         lambda: masked_attention_plain(q, k, v, valid, num_heads=H),
@@ -1248,7 +1285,30 @@ def phase_kernels_f32(dev):
                    "64, encoder-stream mask")))
     chains["fused_masked_attention"] = launch_breakdown(
         lambda: fused_masked_attention(q, k, v, valid, num_heads=H))
+    # kernel 10 at novae's float32 shape (its line only: novae's float32
+    # launches are eval_entry's, at 50 DDPM steps)
+    n, S, Dk, Hk = 64, 198, 512, 4
+    q, k, v = (rnd(n, S, Dk) for _ in range(3))
+    split = (lambda t: t.reshape(n, S, Hk, Dk // Hk).transpose(1, 2))
+    check_kernel(
+        "fused_masked_attention (float32, novae 64 x 198 tokens, head width "
+        "128, no mask)", src_tc, "ladiff_tpu/ops/pallas_attention.py:52",
+        lambda: fused_masked_attention(q, k, v, None, num_heads=Hk),
+        lambda: masked_attention_plain(q, k, v, None, num_heads=Hk),
+        lambda: masked_attention_plain(q, k, v, None, num_heads=Hk),
+        4 * S * S * Dk * n, nbytes(q, k, v, q),
+        library=lambda: F_.scaled_dot_product_attention(
+            split(q), split(k), split(v)).transpose(1, 2).reshape(n, S, Dk),
+        tol=tol, rounds=3, peak=PEAK_F32_FLOPS,
+        extra={"timed_shape": "novae, 64 x 198 tokens, D 512, H 4"})
     del q, k, v
+    emit({"phase": "kernels_f32_launches", "gpu": gpu,
+          "note": "the float32 K2 on the tensor cores at the test.py eval "
+                  "batch's decode (32 x 196 frames, L 5), launch by launch "
+                  "in order: device ms (profiler, median over 10 calls), "
+                  "the FLOP each launch computes, TFLOP/s against 165 "
+                  "(three-term TF32)",
+          "per_launch": {"fused_decoder_layer": k2_launches}})
     recs += _kernels_f32_routes(dev, rnd, held, path, chains, tol)
     emit({"phase": "kernels_f32", "rel_err": errs, "tol": tol,
           "tf32": torch.backends.cuda.matmul.allow_tf32,
@@ -8587,7 +8647,7 @@ def main():
                                         "action_bench", "ablation_bench",
                                         "parallel_slice", "offline_slice",
                                         "alt_models_slice",
-                                        "train_kernels_f32")
+                                        "kernels_f32", "train_kernels_f32")
                 else ())
         with torch.set_grad_enabled(grad):
             out[name] = globals()[f"phase_{name}"](dev, *args)

@@ -1,5 +1,6 @@
 // Float32 products on the H100's tensor cores in three-term TF32, for the
-// float32 training kernels 12 and 13 (f32_train_layer.cu).
+// float32 training kernels 12 and 13 and the float32 inference kernels K2
+// and 10 (f32_train_layer.cu).
 //
 // Each float32 operand x is split into hi = x rounded to TF32 (10 mantissa
 // bits, to nearest, ties away from zero: cvt.rna.tf32.f32's result, here
@@ -19,9 +20,11 @@
 //   gemm_tc_kernel   C = epilogue(A B^T) over a group of up to kMaxProb
 //                    problems of one layout in one launch: 256 threads, a
 //                    4-stage cp.async ring of 16-deep k slices, warps of 32
-//                    x 64 outputs.  Epilogues: bias, ReLU / exact-erf GELU
-//                    (the pre-activation stored), the activation's
-//                    derivative, a dropout keep-scale, a residual (kEpiGen);
+//                    x 64 outputs (32 x 32 in inference's 64-row product
+//                    tiles and 32-row row blocks).  Epilogues:
+//                    bias, ReLU / exact-erf GELU (the pre-activation
+//                    stored), the activation's derivative, a dropout
+//                    keep-scale, a residual (kEpiGen);
 //                    float32 split-K partials with the column sums of A
 //                    (kEpiPart: weight and bias gradients, summed later in
 //                    split order); whole rows of D <= 256 staged in shared
@@ -34,6 +37,9 @@
 //                    (sample, head, 64-query tile), keys in 64-key tiles,
 //                    the online softmax in registers, P rearranged from
 //                    the accumulator layout into P V's operand by shuffles.
+//   attn_inf_tc      the same at inference (no dropout, no log-sum-exp):
+//                    the operands split once (see InfSmem), key tiles
+//                    without a valid key skipped.
 //   attn_bwd_tc      its backward: one block of 8 warps per (sample, head,
 //                    64-key tile) walks the query tiles; each logit is
 //                    computed once: S and dP of 16 queries a warp, P, P
@@ -48,7 +54,14 @@
 // the products carry ~100 FLOP a byte, above the ~49 where float32 at 165
 // TFLOP/s turns compute-bound, so the tensor cores are the limit and the
 // design keeps them fed: operands in shared memory reused by 8 warps,
-// epilogues fused so no intermediate takes another pass.
+// epilogues fused so no intermediate takes another pass.  The attention at
+// inference: at the frozen encode's 128 x 206 tokens (D 256) its q, k, v
+// and output take 0.032 ms at 3.35 TB/s against 0.018 ms for the valid
+// pairs' products at 165 TFLOP/s, so the bytes bound it there and the
+// products at head width 128 over ~200 unmasked keys; a tile that splits
+// every fragment element at each load (four warps splitting the same K and
+// V) is held back by those splits, so the inference tile splits K and V
+// once a block and skips key tiles without a valid key.
 #pragma once
 
 #include "f32_tile.cuh"
@@ -169,7 +182,7 @@ struct Prob {
   int ldr;
   // kEpiRow (N <= 256 columns, one column tile)
   int row;
-  float* xout;        // kRowLnF: v itself (the residual stream)
+  float* xout;        // kRowLnF: v itself (the residual stream), or null
   int ldx;
   const float* lnw;   // the LayerNorm's weight and bias (kRowLnB: weight)
   const float* lnb;
@@ -217,10 +230,13 @@ __device__ __forceinline__ void load_tile(float* s, int ld_s, const float* src,
                                           int ld, int r0, int rows, int k0,
                                           int ke) {
   constexpr int PIECES = R * kBK / 4;
-  static_assert(PIECES % kThreads == 0, "whole pieces a thread");
+  static_assert(PIECES % kThreads == 0 || PIECES < kThreads,
+                "whole pieces a thread, or one piece a thread for some");
+  constexpr int ITS = (PIECES + kThreads - 1) / kThreads;
+  if (PIECES < kThreads && (int)threadIdx.x >= PIECES) return;
   if (!MN) {
 #pragma unroll
-    for (int it = 0; it < PIECES / kThreads; ++it) {
+    for (int it = 0; it < ITS; ++it) {
       const int i = threadIdx.x + it * kThreads;
       const int r = i / (kBK / 4), kq = (i % (kBK / 4)) * 4;
       const bool ok = r0 + r < rows && k0 + kq < ke;
@@ -229,7 +245,7 @@ __device__ __forceinline__ void load_tile(float* s, int ld_s, const float* src,
     }
   } else {
 #pragma unroll
-    for (int it = 0; it < PIECES / kThreads; ++it) {
+    for (int it = 0; it < ITS; ++it) {
       const int i = threadIdx.x + it * kThreads;
       const int k = i / (R / 4), rq = (i % (R / 4)) * 4;
       const bool ok = k0 + k < ke && r0 + rq < rows;
@@ -346,7 +362,7 @@ __device__ void row_epilogue(const Prob& P, const float* T, int ldt, int m0,
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         if (i < per) {
-          P.xout[(size_t)m * P.ldx + lane + 32 * i] = v[i];
+          if (P.xout) P.xout[(size_t)m * P.ldx + lane + 32 * i] = v[i];
           s += v[i];
         }
       const float mean = warp_sum(s) / N;
@@ -440,7 +456,14 @@ __device__ void row_epilogue(const Prob& P, const float* T, int ldt, int m0,
   }
 }
 
-template <int BM, int BN, int WM, int WN, bool AMN, bool BMN, int EPI>
+// kExact (the inference tiles): each 8-deep step's three products are
+// summed from zero and added to the accumulator in float32, rounded to
+// nearest, so the tensor cores' truncating accumulation acts within one
+// step and not along the whole k loop: without it K2's layer read 4.7e-6
+// from its float32 plain version on an H100, enough to move a decode's
+// joints 1.5e-3 from the CPU's.
+template <int BM, int BN, int WM, int WN, bool AMN, bool BMN, int EPI,
+          bool kExact = false>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_tc_kernel(const __grid_constant__ Group grp) {
   using Cfg = GemmCfg<BM, BN, WM, WN, AMN, BMN, EPI>;
@@ -528,7 +551,16 @@ __global__ void __launch_bounds__(kThreads, 2)
         FragB b;
         load_b<BMN>(b, Bs, Cfg::LDB, wn0 + 8 * j, kk, lane);
 #pragma unroll
-        for (int i = 0; i < Cfg::MT; ++i) mma3(acc[i][j], a[i], b);
+        for (int i = 0; i < Cfg::MT; ++i) {
+          if constexpr (kExact) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3(t, a[i], b);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+          } else {
+            mma3(acc[i][j], a[i], b);
+          }
+        }
       }
     }
     if (EPI == kEpiPart && (kt + 1) % (P.kflush / kBK) == 0 && kt + 1 < nk)
@@ -800,6 +832,283 @@ __global__ void __launch_bounds__(kAttnThreads, 4)
           make_float2(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
     if (t == 0)
       a.lse[((size_t)b * a.Sq + qi) * a.H + h] = m_run[hr] + logf(l_run[hr]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention at inference (kernel 10's float32 route, K2's self-attention)
+
+// Shared memory of attn_inf_tc.  Each 64-key tile's K and V are split
+// once into "planes" in the order the B fragments read them; at head
+// widths up to 64 a warp's Q fragments sit split in registers for the
+// whole key loop, wider heads keep the block's raw Q rows (split at each
+// fragment load, 16 elements a lane a 64-key tile).  A plane row (a key of
+// K, a head column of V) holds, for each lane slot t = 0..3 and 8-deep k
+// group c, the 16 bytes hi(8c + t), hi(8c + t + 4), lo(8c + t),
+// lo(8c + t + 4) at word t TS + 4 c
+// (TS = k extent / 2 + 4): one 16-byte load gives a lane its fragment, the
+// 8 lanes of a load phase (rows g, g + 1; t 0..3) read 32 banks (rows
+// 16 banks apart, t slots 4 apart), and a thread that split 8 consecutive
+// k of a row writes 4 x 16 bytes that its neighbours' groups continue.
+// Head widths up to 64 take blocks of 4 warps (74 KB at 64, three blocks
+// an SM), wider ones blocks of 8 warps (211 KB at 128, one block an SM):
+// their planes serve twice the queries, and split Q fragments would not
+// fit the registers.  At novae's 64 x 198 tokens, head width 128, that
+// read 0.208 ms on an H100 against 0.234 for blocks of 4 warps that split
+// raw K and V tiles at each fragment load (scripts/f32_tc_ab.py).
+template <int DH>
+struct InfSmem {
+  static constexpr bool kQReg = DH <= 64;  // Q fragments in registers
+  static constexpr int W = kQReg ? 4 : 8;                  // warps
+  static constexpr int QT = 16 * W;                        // queries
+  static constexpr int KTS = DH / 2 + 4, KLD = 4 * KTS;    // K plane
+  static constexpr int VTS = kAT / 2 + 4, VLD = 4 * VTS;   // V plane
+  static constexpr int LD = DH + 4;                        // raw Q rows
+  static constexpr size_t BYTES =
+      (size_t)(kAT * KLD + DH * VLD + kAT + (kQReg ? 0 : QT * LD)) * 4;
+  static_assert(KLD % 32 == 16 && VLD % 32 == 16, "rows 16 banks apart");
+};
+
+// The split of x[0..7] (k 8c .. 8c + 7 of a plane row) to p = row + 4 c.
+__device__ __forceinline__ void put_plane(uint32_t* p, int ts,
+                                          const float (&x)[8]) {
+  uint32_t hi[8], lo[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) split3(x[j], hi[j], lo[j]);
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    *reinterpret_cast<uint4*>(p + t * ts) =
+        make_uint4(hi[t], hi[t + 4], lo[t], lo[t + 4]);
+}
+
+// The B fragment of the 8 (k) x 8 (n) tile at (n0, k0) of a plane.
+__device__ __forceinline__ void load_b_plane(FragB& f, const uint32_t* P,
+                                             int ld, int ts, int n0, int k0,
+                                             int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint4 w = *reinterpret_cast<const uint4*>(P + (n0 + g) * ld +
+                                                  t * ts + (k0 >> 1));
+  f.h[0] = w.x;
+  f.h[1] = w.y;
+  f.l[0] = w.z;
+  f.l[1] = w.w;
+}
+
+// Four floats of row `row` (of sample b's `count`), column c: zeros past
+// the sample's rows.
+__device__ __forceinline__ float4 head_quad(const float* src, int ld, int b,
+                                            int count, int row, int c) {
+  if (row >= count) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return __ldg(reinterpret_cast<const float4*>(
+      src + ((size_t)b * count + row) * ld + c));
+}
+
+// Keys k0 .. k0 + 63 of sample b, head columns hoff .. hoff + DH, split
+// into the K and V planes (zeros past the sample's keys): K in items of
+// (key, 8 columns), V in items of (8 keys, 4 columns), each a thread's.
+template <int DH>
+__device__ __forceinline__ void stage_planes(uint32_t* Kp, uint32_t* Vp,
+                                             const AttnArgs& a, int b,
+                                             int k0, int hoff) {
+  using Sm = InfSmem<DH>;
+  constexpr int KG = DH / 8, NT = 32 * Sm::W;
+#pragma unroll
+  for (int it = 0; it < (kAT * KG + NT - 1) / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    if (kAT * KG % NT && i >= kAT * KG) break;
+    const int r = i / KG, c = i % KG;
+    const float4 x0 = head_quad(a.k, a.ldk, b, a.Nk, k0 + r, hoff + 8 * c);
+    const float4 x1 =
+        head_quad(a.k, a.ldk, b, a.Nk, k0 + r, hoff + 8 * c + 4);
+    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    put_plane(Kp + r * Sm::KLD + 4 * c, Sm::KTS, x);
+  }
+  constexpr int VI = 8 * (DH / 4);
+#pragma unroll
+  for (int it = 0; it < (VI + NT - 1) / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    if (VI % NT && i >= VI) break;
+    const int c = i % 8, d = i / 8;  // keys 8c .., columns 4d ..
+    float4 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = head_quad(a.v, a.ldk, b, a.Nk, k0 + 8 * c + j, hoff + 4 * d);
+    const float x0[8] = {v[0].x, v[1].x, v[2].x, v[3].x,
+                         v[4].x, v[5].x, v[6].x, v[7].x};
+    const float x1[8] = {v[0].y, v[1].y, v[2].y, v[3].y,
+                         v[4].y, v[5].y, v[6].y, v[7].y};
+    const float x2[8] = {v[0].z, v[1].z, v[2].z, v[3].z,
+                         v[4].z, v[5].z, v[6].z, v[7].z};
+    const float x3[8] = {v[0].w, v[1].w, v[2].w, v[3].w,
+                         v[4].w, v[5].w, v[6].w, v[7].w};
+    uint32_t* row = Vp + 4 * d * Sm::VLD + 4 * c;
+    put_plane(row, Sm::VTS, x0);
+    put_plane(row + Sm::VLD, Sm::VTS, x1);
+    put_plane(row + 2 * Sm::VLD, Sm::VTS, x2);
+    put_plane(row + 3 * Sm::VLD, Sm::VTS, x3);
+  }
+}
+
+// A warp's Q fragments (rows r0 .. r0 + 15 of sample b, all DH columns),
+// split, from device memory; zeros past the sample's rows.
+template <int DH>
+__device__ __forceinline__ void load_q_frags(FragA (&qa)[DH / 8],
+                                             const AttnArgs& a, int b,
+                                             int r0, int hoff, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < DH / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e & 1), c = 8 * kk + t + 4 * (e >> 1);
+      const float x =
+          r < a.Sq ? __ldg(a.q + ((size_t)b * a.Sq + r) * a.ldq + hoff + c)
+                   : 0.f;
+      split3(x, qa[kk].h[e], qa[kk].l[e]);
+    }
+}
+
+// One block of W warps per (sample, head, 16 W-query tile), each warp 16
+// queries; a 64-key tile that holds no valid key of a sample that has one
+// is skipped (its keys' probabilities are exactly 0 once a valid key sets
+// the row maximum); a sample without a valid key attends uniformly over
+// all its keys (key_logit).  The softmax runs in
+// base 2 (logits times log2 e, exp2).  Loads are not overlapped within a
+// block: at head widths up to 64 three blocks share an SM and cover each
+// other's (a staging tile for the next key tile's cp.async, which would
+// hold two blocks an SM at head width 64, read 0.216 ms against 0.178 at
+// the frozen encode's 128 x 206 tokens on an H100).
+template <int DH>
+__global__ void __launch_bounds__(32 * InfSmem<DH>::W,
+                                  InfSmem<DH>::kQReg ? 3 : 1)
+    attn_inf_tc(const __grid_constant__ AttnArgs a) {
+  using Sm = InfSmem<DH>;
+  constexpr int NO = DH / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* Kp = reinterpret_cast<uint32_t*>(smem);   // planes
+  uint32_t* Vp = Kp + kAT * Sm::KLD;
+  float* Vld = reinterpret_cast<float*>(Vp + DH * Sm::VLD);
+  float* Qs = Vld + kAT;                              // raw Q rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x % a.tiles, bh = blockIdx.x / a.tiles;
+  const int h = bh % a.H, b = bh / a.H;
+  const int q0 = tile * Sm::QT, hoff = h * DH, r0 = 16 * warp;
+  const bool any_valid = f32::sample_has_valid_key(a.valid, b, a.Nk, 0);
+  // a warp whose 16 queries are all past the sample's end computes nothing
+  const bool live = q0 + r0 < a.Sq;
+  FragA qa[Sm::kQReg ? DH / 8 : 1];
+  if constexpr (Sm::kQReg) {
+    if (live) load_q_frags<DH>(qa, a, b, q0 + r0, hoff, lane);
+  } else {
+#pragma unroll
+    for (int r = 0; r < Sm::QT; r += kAT)
+      load_head_rows<DH>(Qs + r * Sm::LD, Sm::LD, a.q, a.ldq, b, a.Sq,
+                         q0 + r, hoff);
+    cp_async_commit();
+  }
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const int nkt = (a.Nk + kAT - 1) / kAT;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kAT;
+    float vj = 0.f;
+    if ((int)threadIdx.x < kAT && k0 + (int)threadIdx.x < a.Nk)
+      vj = a.valid ? a.valid[(size_t)b * a.Nk + k0 + threadIdx.x] : 1.f;
+    // a barrier too: every warp is done with the last tile
+    if (!__syncthreads_or(vj > 0.5f) && any_valid) continue;
+    if ((int)threadIdx.x < kAT) Vld[threadIdx.x] = vj;
+    stage_planes<DH>(Kp, Vp, a, b, k0, hoff);
+    if constexpr (!Sm::kQReg) cp_async_wait<0>();  // Q's rows: first tile
+    __syncthreads();
+    if (!live) continue;
+    // the tile's 8-key groups that hold keys
+    const int nj = (min(kAT, a.Nk - k0) + 7) / 8;
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 8) {
+      FragA qf;
+      if constexpr (Sm::kQReg)
+        qf = qa[kk / 8];
+      else
+        load_a<false>(qf, Qs, Sm::LD, r0, kk, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= nj) break;
+        FragB kb;
+        load_b_plane(kb, Kp, Sm::KLD, Sm::KTS, 8 * j, kk, lane);
+        mma3(s[j], qf, kb);
+      }
+    }
+    // logits in base 2 (times log2 e), the rows' maxima (rows g and g + 8
+    // of the warp's 16)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = 8 * j + 2 * t + (e & 1);
+        s[j][e] = kLog2e * key_logit(s[j][e], k0 + kc, a.Nk, any_valid,
+                                     Vld[kc] > 0.5f, a.scale);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float m_new = fmaxf(m_run[hr], quad_max(mx[hr]));
+      alpha[hr] = exp2f(m_run[hr] - m_new);
+      m_run[hr] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m_run[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      l_run[hr] = l_run[hr] * alpha[hr] + quad_sum(sum[hr]);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int jk = 0; jk < 8; ++jk) {
+      if (jk >= nj) break;
+      FragA pa;
+      c_to_a(pa, s[jk], lane);
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        FragB vb;
+        load_b_plane(vb, Vp, Sm::VLD, Sm::VTS, 8 * j, 8 * jk, lane);
+        mma3(o[j], pa, vb);
+      }
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = q0 + r0 + g + 8 * hr;
+    if (qi >= a.Sq) continue;
+    const float inv = 1.f / l_run[hr];
+    float* orow = a.out + ((size_t)b * a.Sq + qi) * a.ldo + hoff;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+          make_float2(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
   }
 }
 

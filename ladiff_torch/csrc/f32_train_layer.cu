@@ -1,30 +1,37 @@
 // The float32 training kernels 12 (train_encoder_layer) and 13
-// (train_decoder_layer), forward and backward, on the H100's tensor cores
-// in three-term TF32 (f32_tc_tile.cuh).  Replaces the TPU kernels
-// ladiff_tpu/ops/pallas_train_layer.py:207 train_encoder_layer (forward
-// pallas_call :244, backward :294) and
+// (train_decoder_layer), forward and backward, and the float32 inference
+// kernels K2 (fused_decoder_layer) and 10 (masked attention), on the
+// H100's tensor cores in three-term TF32 (f32_tc_tile.cuh).  Replaces the
+// TPU kernels ladiff_tpu/ops/pallas_train_layer.py:207 train_encoder_layer
+// (forward pallas_call :244, backward :294),
 // ladiff_tpu/ops/pallas_train_decoder_layer.py:410 train_decoder_layer
-// (:464, :521) at the type of every published configuration
-// (TRAIN.MIXED_PRECISION false).  Each of the two is a fixed sequence of
-// these launches behind its wrapper (ladiff_torch/ops/f32_train.py):
+// (:464, :521), ladiff_tpu/ops/pallas_decoder_layer.py:234
+// fused_decoder_layer (:364) and ladiff_tpu/ops/pallas_attention.py:52
+// pallas_masked_attention (:82) at the type of every published
+// configuration (TRAIN.MIXED_PRECISION false).  Each is a fixed sequence
+// of these launches behind its wrapper (ladiff_torch/ops/f32_train.py,
+// ladiff_torch/ops/f32_layer.py):
 //
 //   f32l_gemm            a group of up to 8 products of one layout in one
 //                        launch (gemm_tc_kernel): the projections with their
 //                        bias / activation / dropout / residual epilogues,
 //                        the out-projections and W2 with the LayerNorm after
 //                        the residual in the epilogue (64 whole rows of D <=
-//                        256 a block), dY W with the activation's derivative,
-//                        with a LayerNorm's backward or with the softmax's
-//                        delta in the epilogue, and every weight gradient
-//                        dY^T X of a backward as split-K partials in one
-//                        launch
+//                        256 a block; 32 at inference), dY W with the
+//                        activation's derivative, with a LayerNorm's
+//                        backward or with the softmax's delta in the
+//                        epilogue, and every weight gradient dY^T X of a
+//                        backward as split-K partials in one launch
 //   f32l_attention       the self-attention forward (attn_fwd_tc) with the
 //                        probability dropout and each row's log-sum-exp
 //   f32l_attention_bwd   its backward (attn_bwd_tc): dK, dV whole per key
 //                        tile, dQ as one partial per key tile
-//   f32l_cross_attention kernel 13's cross-attention over the L <= 8 memory
-//                        rows: one warp per (row, head), SIMT (its products
-//                        are L dot products a row)
+//   f32l_masked_attention  the attention at inference (attn_inf_tc): kernel
+//                        10 and K2's self-attention, head widths 16 to 128
+//   f32l_cross_attention the decoder's cross-attention over the L <= 8
+//                        memory rows: one warp per (row, head), SIMT (its
+//                        products are L dot products a row); at inference
+//                        without the log-sum-exp, head widths up to 128
 //   f32l_cross_attention_bwd  its backward: one block per (sample, head),
 //                        dq per row, each memory row's dk, dv summed over the
 //                        sample's rows in warp order
@@ -38,12 +45,27 @@
 // needs ~23 GFLOP forward and ~46 backward against ~0.1 and ~0.4 GB moved at
 // 4 bytes an element: 0.14 / 0.28 ms at 165 TFLOP/s (the three-term TF32
 // rate) against 0.03 / 0.12 ms at 3.35 TB/s, so the tensor cores bound it;
-// kernel 13 alike.  The design: every product on the tensor cores; the
+// kernel 13 alike, and K2, kernel 13's forward without dropout or saved
+// activations (~12 GFLOP at the test.py eval batch's 32 x 196 rows: 0.074
+// ms at 165 TFLOP/s).  The design: every product on the tensor cores; the
 // forward saves r, h, the pre-activation, the hidden rows and the pre-LN2
 // sum (13: also r1, t1, q, cc, the cross log-sum-exp and r2), so the
 // backward recomputes no product; epilogues take the LayerNorms, the
 // dropout keep-scales, the residuals and delta, so no element-wise pass of
-// its own remains.  Deterministic: every sum across blocks goes through
+// its own remains.  K2 is 8 launches: qkv, the attention, out-proj +
+// residual + LN1, the cross q with the memory's k / v (one group), the
+// cross-attention, cross out-proj + residual + LN2, W1 + activation, W2 +
+// residual + LN3.  It runs on the inference tiles, which add each 8-deep
+// step of a product to the accumulator in float32 (kExact): 64 x 128
+// product tiles and 32-row LayerNorm blocks.  From wave arithmetic at the
+// eval batch's 6272 rows on 132 SMs, two blocks an SM: qkv's 64-row tiles
+// are 588 blocks, 3 rounds of 64 rows on 264 slots against 2 rounds of
+// 128 for 294 blocks; the 32-row blocks are 196, one round, where 64-row
+// ones fill 98 of 264 slots and 48-row ones (131, one an SM) spill with
+// the exact accumulation.  On an H100 the whole layer read 0.481 ms
+// against 0.502 with 48-row and 0.556 with 64-row blocks
+// (scripts/f32_tc_ab.py --tiles).
+// Deterministic: every sum across blocks goes through
 // partials summed in a fixed order, no atomics.  Dropout is Philox-4x32-10
 // keyed by (seed, mask id, element) as everywhere in the port (common.cuh
 // keep_scale), so the masks are those of the bf16 kernels and of the
@@ -59,7 +81,7 @@ LADIFF_ERROR_STRING_FN
 
 namespace {
 
-constexpr int kPtrsPer = 16, kIntsPer = 25;
+constexpr int kPtrsPer = 16, kIntsPer = 26;
 
 float* fp(const void* p) { return static_cast<float*>(const_cast<void*>(p)); }
 const float* cfp(const void* p) { return static_cast<const float*>(p); }
@@ -74,7 +96,8 @@ Drop drop_of(int mask, int lo, int hi, float rate) {
   return make_drop(lo, hi, rate, mask);
 }
 
-template <int BM, int BN, int WM, int WN, bool AMN, bool BMN, int EPI>
+template <int BM, int BN, int WM, int WN, bool AMN, bool BMN, int EPI,
+          bool kExact = false>
 int launch_gemm(Group& grp, cudaStream_t s) {
   using Cfg = GemmCfg<BM, BN, WM, WN, AMN, BMN, EPI>;
   static SmemGrant grant;  // internal linkage: one per library
@@ -92,7 +115,7 @@ int launch_gemm(Group& grp, cudaStream_t s) {
     if (blocks > INT_MAX) return cudaErrorInvalidValue;
   }
   if (blocks < 1) return cudaErrorInvalidValue;
-  auto kern = gemm_tc_kernel<BM, BN, WM, WN, AMN, BMN, EPI>;
+  auto kern = gemm_tc_kernel<BM, BN, WM, WN, AMN, BMN, EPI, kExact>;
   if (!allow_smem(kern, Cfg::SMEM, grant)) return cudaErrorInvalidValue;
   kern<<<(unsigned)blocks, kThreads, Cfg::SMEM, s>>>(grp);
   return cudaGetLastError();
@@ -120,7 +143,7 @@ bool valid_prob(const Prob& P, bool a_mn, bool b_mn, bool part, int row) {
            P.kflush >= kBK && P.kflush % kBK == 0;
   if (!row) return true;
   if (P.N > 256 || P.N % 32) return false;
-  if (row == kRowLnF) return P.xout && P.lnw && P.lnb;
+  if (row == kRowLnF) return P.lnw && P.lnb;
   if (row == kRowLnB)
     return P.lnx && P.lnw && (!P.part || P.ldpart >= 2 * P.N);
   if (row == kRowDelta)
@@ -154,7 +177,9 @@ __device__ __forceinline__ bool memory_valid(const CrossArgs& a, int b,
   return !a.valid || a.valid[(size_t)b * a.L + j] > 0.5f;
 }
 
-// One warp per (row, head); lanes hold head columns lane and lane + 32.
+// One warp per (row, head); lanes hold head columns lane + 32 u (u < NU:
+// head widths up to 32 NU).  The log-sum-exp is stored where lseo is given.
+template <int NU>
 __global__ void __launch_bounds__(256)
     cross_fwd_kernel(const __grid_constant__ CrossArgs a) {
   const int lane = threadIdx.x & 31;
@@ -164,9 +189,9 @@ __global__ void __launch_bounds__(256)
   const long long m = w / a.H;
   const int b = (int)(m / a.S), i = (int)(m % a.S);
   const int D = a.H * a.Dh, hoff = h * a.Dh;
-  float qv[2];
+  float qv[NU];
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
+  for (int u = 0; u < NU; ++u) {
     const int c = lane + 32 * u;
     qv[u] = c < a.Dh ? a.q[m * a.ldq + hoff + c] : 0.f;
   }
@@ -179,7 +204,7 @@ __global__ void __launch_bounds__(256)
       const float* kr = a.kv + ((size_t)b * a.L + j) * a.ldkv + hoff;
       float s = 0.f;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < NU; ++u) {
         const int c = lane + 32 * u;
         if (c < a.Dh) s += qv[u] * kr[c];
       }
@@ -202,7 +227,9 @@ __global__ void __launch_bounds__(256)
           ? keep_scale(a.drop.d, a.drop.mask_id,
                        ((uint64_t)(b * a.H + h) * a.S + i) * a.L + lane)
           : 1.f;
-  float o[2] = {0.f, 0.f};
+  float o[NU];
+#pragma unroll
+  for (int u = 0; u < NU; ++u) o[u] = 0.f;
 #pragma unroll
   for (int j = 0; j < kMaxL; ++j)
     if (j < a.L) {
@@ -210,17 +237,17 @@ __global__ void __launch_bounds__(256)
           lg[j] * inv * __shfl_sync(0xffffffffu, keep_lane, j);
       const float* vr = a.kv + ((size_t)b * a.L + j) * a.ldkv + D + hoff;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < NU; ++u) {
         const int c = lane + 32 * u;
         if (c < a.Dh) o[u] += p * vr[c];
       }
     }
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
+  for (int u = 0; u < NU; ++u) {
     const int c = lane + 32 * u;
     if (c < a.Dh) a.out[m * a.ldo + hoff + c] = o[u];
   }
-  if (lane == 0) a.lseo[m * a.H + h] = mx + logf(l);
+  if (a.lseo && lane == 0) a.lseo[m * a.H + h] = mx + logf(l);
 }
 
 // One block of 8 warps per (sample, head); warp w takes rows w, w + 8, ..
@@ -362,6 +389,20 @@ int launch_attention(const AttnArgs& a, bool bwd, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+SmemGrant g_inf_grant[8];
+
+template <int DH>
+int launch_inf_attention(AttnArgs& a, cudaStream_t s) {
+  using Sm = InfSmem<DH>;
+  a.tiles = (a.Sq + Sm::QT - 1) / Sm::QT;
+  const long long blocks = (long long)a.B * a.H * a.tiles;
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
+  if (!allow_smem(attn_inf_tc<DH>, Sm::BYTES, g_inf_grant[DH / 16 - 1]))
+    return cudaErrorInvalidValue;
+  attn_inf_tc<DH><<<(unsigned)blocks, 32 * Sm::W, Sm::BYTES, s>>>(a);
+  return cudaGetLastError();
+}
+
 int attention(AttnArgs& a, int Dh, bool bwd, cudaStream_t s) {
   if (a.B < 1 || a.Sq < 1 || a.Nk < 1 || a.H < 1 || a.ldq % 4 || a.ldk % 4 ||
       !a16(a.q) || !a16(a.k) || !a16(a.v) || !a.lse)
@@ -391,7 +432,11 @@ int attention(AttnArgs& a, int Dh, bool bwd, cudaStream_t s) {
 // act, ldpre, ldg, gact, ldr, mask id (-1: none), ksplit, row (0, or 1
 // LayerNorm, 2 LayerNorm backward, 3 delta), ldx, ldlnx, mask2 (-1: none),
 // ldpart, ldctx, H, cstride (> 0: split-K partials, a split's rows in
-// ceil(ksplit / kflush) partials of kflush rows each), sstride, kflush.
+// ceil(ksplit / kflush) partials of kflush rows each), sstride, kflush,
+// tile (the output tile's rows, one for the group: 0 the default, 128
+// products or 64-row row blocks; the inference tiles, K-major weights and
+// each 8-deep step added in float32 (kExact): 64-row products, 32-row
+// LayerNorm blocks).
 // ptrs per
 // problem (kPtrsPer): A, B, C, bias, pre, gin, R, colsum, xout, lnw, lnb,
 // lnx, C2, part, ctx, delta (null where unused).  floats: rate.
@@ -401,7 +446,7 @@ extern "C" int f32l_gemm(const void** p, const int* n, const float* f,
   if (np < 1 || np > kMaxProb) return cudaErrorInvalidValue;
   Group grp = {};
   grp.n = np;
-  int a_mn = -1, b_mn = -1, part = -1, row = -1;
+  int a_mn = -1, b_mn = -1, part = -1, row = -1, tile = 0;
   for (int i = 0; i < np; ++i) {
     const void** pp = p + i * kPtrsPer;
     const int* q = n + 3 + i * kIntsPer;
@@ -426,20 +471,33 @@ extern "C" int f32l_gemm(const void** p, const int* n, const float* f,
     P.kflush = q[24];
     const int this_part = q[22] > 0;
     if (i == 0) {
-      a_mn = q[6]; b_mn = q[7]; part = this_part; row = P.row;
+      a_mn = q[6]; b_mn = q[7]; part = this_part; row = P.row; tile = q[25];
     } else if (a_mn != q[6] || b_mn != q[7] || part != this_part ||
-               (row > 0) != (P.row > 0)) {
+               (row > 0) != (P.row > 0) || tile != q[25]) {
       return cudaErrorInvalidValue;
     }
+    // the inference tiles: K-major weights, row blocks for LayerNorms only
+    if (tile && tile != (P.row > 0 ? kRowBM : 128) &&
+        (q[7] || (P.row > 0 && P.row != kRowLnF)))
+      return cudaErrorInvalidValue;
     if (!valid_prob(P, q[6] != 0, q[7] != 0, this_part, P.row))
       return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  if (part) return launch_gemm<128, 128, 4, 2, true, true, kEpiPart>(grp, s);
+  if (part)
+    return tile ? cudaErrorInvalidValue
+                : launch_gemm<128, 128, 4, 2, true, true, kEpiPart>(grp, s);
   if (a_mn) return cudaErrorInvalidValue;
-  if (row > 0)
+  if (row > 0) {
+    if (tile == 32)
+      return launch_gemm<32, 256, 1, 8, false, false, kEpiRow, true>(grp, s);
+    if (tile && tile != kRowBM) return cudaErrorInvalidValue;
     return b_mn ? launch_gemm<kRowBM, 256, 2, 4, false, true, kEpiRow>(grp, s)
                 : launch_gemm<kRowBM, 256, 2, 4, false, false, kEpiRow>(grp, s);
+  }
+  if (tile == 64)
+    return launch_gemm<64, 128, 2, 4, false, false, kEpiGen, true>(grp, s);
+  if (tile && tile != 128) return cudaErrorInvalidValue;
   return b_mn ? launch_gemm<128, 128, 4, 2, false, true, kEpiGen>(grp, s)
               : launch_gemm<128, 128, 4, 2, false, false, kEpiGen>(grp, s);
 }
@@ -477,10 +535,40 @@ extern "C" int f32l_attention_bwd(const void** p, const int* n,
   return attention(a, n[4], true, static_cast<cudaStream_t>(stream_ptr));
 }
 
+// The attention at inference.  ptrs: q (row stride ldq), k, v (row stride
+// ldk), valid [B Nk] or null, out (row stride ldo).  ints: B, Sq, Nk, H,
+// Dh (16 to 128, a multiple of 16), ldq, ldk, ldo.  floats: the logit
+// scale.
+extern "C" int f32l_masked_attention(const void** p, const int* n,
+                                     const float* f, void* stream_ptr) {
+  AttnArgs a = {};
+  a.q = cfp(p[0]); a.k = cfp(p[1]); a.v = cfp(p[2]); a.valid = cfp(p[3]);
+  a.out = fp(p[4]);
+  a.B = n[0]; a.Sq = n[1]; a.Nk = n[2]; a.H = n[3];
+  a.ldq = n[5]; a.ldk = n[6]; a.ldo = n[7];
+  a.scale = f[0];
+  if (a.B < 1 || a.Sq < 1 || a.Nk < 1 || a.H < 1 || a.ldq % 4 ||
+      a.ldk % 4 || a.ldo % 2 || !a16(a.q) || !a16(a.k) || !a16(a.v) ||
+      !a8(a.out))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  switch (n[4]) {
+    case 16: return launch_inf_attention<16>(a, s);
+    case 32: return launch_inf_attention<32>(a, s);
+    case 48: return launch_inf_attention<48>(a, s);
+    case 64: return launch_inf_attention<64>(a, s);
+    case 80: return launch_inf_attention<80>(a, s);
+    case 96: return launch_inf_attention<96>(a, s);
+    case 112: return launch_inf_attention<112>(a, s);
+    case 128: return launch_inf_attention<128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ptrs: q (row stride ldq), kv [B L, 2 D] (k, then v; row stride ldkv),
-// valid [B L] or null, out (row stride ldo), lse [B S, H].  ints: B, S, L,
-// H, Dh, ldq, ldkv, ldo, mask id, seed lo, seed hi.  floats: the logit
-// scale, rate.
+// valid [B L] or null, out (row stride ldo), lse [B S, H] or null (at
+// inference).  ints: B, S, L, H, Dh (up to 128), ldq, ldkv, ldo, mask id
+// (-1: none), seed lo, seed hi.  floats: the logit scale, rate.
 extern "C" int f32l_cross_attention(const void** p, const int* n,
                                     const float* f, void* stream_ptr) {
   CrossArgs a = {};
@@ -491,12 +579,16 @@ extern "C" int f32l_cross_attention(const void** p, const int* n,
   a.drop = drop_of(n[8], n[9], n[10], f[1]);
   a.scale = f[0];
   if (a.B < 1 || a.S < 1 || a.L < 1 || a.L > kMaxL || a.H < 1 || a.Dh < 1 ||
-      a.Dh > 64 || !a.q || !a.kv || !a.out || !a.lseo)
+      a.Dh > 128 || !a.q || !a.kv || !a.out)
     return cudaErrorInvalidValue;
   const long long warps = (long long)a.B * a.S * a.H;
   if ((warps + 7) / 8 > INT_MAX) return cudaErrorInvalidValue;
-  cross_fwd_kernel<<<(unsigned)((warps + 7) / 8), 256, 0,
-                     static_cast<cudaStream_t>(stream_ptr)>>>(a);
+  const unsigned blocks = (unsigned)((warps + 7) / 8);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (a.Dh <= 64)
+    cross_fwd_kernel<2><<<blocks, 256, 0, s>>>(a);
+  else
+    cross_fwd_kernel<4><<<blocks, 256, 0, s>>>(a);
   return cudaGetLastError();
 }
 

@@ -4,8 +4,9 @@ counterparts.
 The published configurations compute in float32 (``configs/base.yaml``
 ``TRAIN.MIXED_PRECISION: false``).  Every kernel the JAX package runs in
 float32 takes float32 on the card as well (``ops.cuda_common
-.KERNEL_DTYPES``): K1, K2 and kernels 5, 6, 7, 10 and 11 (the chains of
-``ops/f32_layer.py``) and the training kernels 8, 9, 12 and 13, forward
+.KERNEL_DTYPES``): K1, K2 and kernels 5, 6, 7, 10 and 11 (the routes of
+``ops/f32_layer.py``: K2 and 10 on the tensor-core tiles, the others
+chains of FFMA kernels) and the training kernels 8, 9, 12 and 13, forward
 and backward (those of ``ops/f32_train.py``); only CLIP's K3 and K4 take
 bf16 alone and send CLIP to its plain route.  Per call of a wrapper each
 path launches:

@@ -35,9 +35,14 @@ raises; layers that need a gradient take ``train_self_attention``.
 
 In float32 (the published configurations' type) the wrapper launches
 kernel 10's float32 counterpart, ``f32_layer.masked_attention_f32``
-(``f32_attention_kernel`` of ``csrc/f32_layer.cu``: 32-query tiles, 64-key
-tiles through shared memory, FFMA products, an online softmax), at the
-shapes ``masked_attention_supported`` takes.
+(``attn_inf_tc`` of ``csrc/f32_tc_tile.cuh`` through
+``csrc/f32_train_layer.cu``: flash tiles on the tensor cores in
+three-term TF32, each key tile's K and V split once into shared-memory
+planes in fragment order; up to head width 64 blocks of 4 warps hold
+their 64 queries' split Q fragments in registers, wider heads blocks of
+8 warps their 128 raw Q rows; key tiles without a valid key skipped, an
+online softmax in float32), at every shape ``masked_attention_supported``
+takes.
 """
 from __future__ import annotations
 

@@ -13,13 +13,12 @@ Dispatch is by device only: a wrapper given CPU tensors runs the kernel's
 plain PyTorch version; given CUDA tensors it launches the kernel or raises.
 Which route a module takes is decided before any launch, from shapes (each
 kernel's ``*_supported``) and from the compute type, per kernel
-(``kernel_route(x, kernel)`` reads ``KERNEL_DTYPES``): K1, K2, kernels 5
-and 10 (the float32 chains of ``ops/f32_layer.py``) and the training
-kernels 8, 9, 12 and 13, forward and backward (those of
-``ops/f32_train.py``), take bf16 and float32; K3, K4 and kernels 6, 7 and
-11 take bf16 only, so float32 compute on the card takes the plain route of
-CLIP, of the MD layer's per-block stylization and of the skip stack; so
-does every module inside a ``plain_routes()`` scope (the tensor-, sequence-
+(``kernel_route(x, kernel)`` reads ``KERNEL_DTYPES``): K1, K2 and
+kernels 5, 6, 7, 10 and 11 (the float32 routes of ``ops/f32_layer.py``)
+and the training kernels 8, 9, 12 and 13, forward and backward (those of
+``ops/f32_train.py``), take bf16 and float32; K3 and K4 take bf16 only,
+so float32 compute on the card takes the plain route of CLIP; so does
+every module inside a ``plain_routes()`` scope (the tensor-, sequence-
 and pipeline-parallel layouts, where a kernel would see a shard of a layer:
 the JAX package's ``no_pallas()``).
 Every wrapper counts its launches (``launch_counts`` / ``reset_launch_counts``)

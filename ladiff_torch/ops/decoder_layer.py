@@ -33,8 +33,11 @@ four launches behind this one wrapper:
      shared memory, and each byte of weight serves 64 rows.
 
 In float32 (the published configurations' type) the wrapper runs K2's
-float32 chain, ``f32_layer.decoder_layer_f32``: 12 launches of the FFMA
-GEMM, row-norm and attention kernels of ``csrc/f32_layer.cu``, at the
+float32 route, ``f32_layer.decoder_layer_f32``: 8 launches of the
+three-term TF32 tensor-core kernels of ``csrc/f32_train_layer.cu`` (kernel
+13's forward at rate 0, nothing saved: qkv, the self-attention, out-proj +
+residual + LN1, the cross q with the memory's k / v, the cross-attention,
+cross out-proj + residual + LN2, W1 + act, W2 + residual + LN3), at the
 shapes ``decoder_layer_supported`` takes.
 """
 from __future__ import annotations

@@ -1,14 +1,24 @@
-"""The float32 routes of K1, K2 and kernels 5, 6, 7, 10 and 11 on the card:
-each a short chain of the three hand-written kernels of
-``csrc/f32_layer.cu`` (a tiled FFMA GEMM with bias / activation / residual
-epilogues, a row LayerNorm with optional AdaLN and SiLU, a masked softmax
-attention over short rows), launched by the wrappers ``fused_md_layer``,
-``fused_decoder_layer``, ``fused_postnorm_ffn``, ``fused_stylized_ffn``,
+"""The float32 routes of K1, K2 and kernels 5, 6, 7, 10 and 11 on the card,
+launched by the wrappers ``fused_md_layer``, ``fused_decoder_layer``,
+``fused_postnorm_ffn``, ``fused_stylized_ffn``,
 ``fused_broadcast_stylize``, ``fused_masked_attention`` and
 ``fused_md_stack`` when their inputs are float32.  The published
 configurations compute in float32 (``TRAIN.MIXED_PRECISION: false``), as
 the JAX package's Pallas kernels do there: they take the module's type and
 accumulate in float32.
+
+K2 and kernel 10 run on the tensor cores in three-term TF32
+(``csrc/f32_train_layer.cu`` on ``csrc/f32_tc_tile.cuh``, the tiles of
+the float32 kernels 12 and 13): each float32 operand splits into a TF32 hi
+and lo part and a product accumulates lo hi + hi lo + hi hi in float32.
+K2 is kernel 13's forward at rate 0 with nothing saved, on the inference
+tiles (64-row products, 32-row LayerNorm blocks, each 8-deep step of a
+product added in float32);
+kernel 10 is the inference attention tile, each key tile's K and V split
+once a block and key tiles without a valid key skipped.  The others are short chains of
+the three hand-written FFMA kernels of ``csrc/f32_layer.cu`` (a tiled GEMM
+with bias / activation / residual epilogues, a row LayerNorm with optional
+AdaLN and SiLU, a masked softmax attention over one or two key sources).
 
 Launches a call (one launch count on the wrapper):
 
@@ -17,9 +27,9 @@ Launches a call (one launch count on the wrapper):
   kernel 7   the one-token collapse (LN of the masked value row, AdaLN,
              SiLU), its projection + residual                           2
   kernel 6   W1 + GELU, W2, LN + AdaLN + SiLU, projection + residual    4
-  K2         qkv, self-attention, out-proj + residual, LN1, cross q,
-             memory k / v, cross-attention, out-proj + residual, then
-             kernel 5's chain (LN2, FFN, LN3)                          12
+  K2         qkv, self-attention, out-proj + residual + LN1, the cross q
+             with the memory's k / v (one group), cross-attention, cross
+             out-proj + residual + LN2, W1 + act, W2 + residual + LN3    8
   K1         latent qkv, text / time k / v, attention over both, out-proj
              + residual, then the chains of kernels 5 (ReLU), 7 and 6   14
   kernel 11  K1's chain per layer, each skip Linear(2D -> D) one GEMM
@@ -27,15 +37,17 @@ Launches a call (one launch count on the wrapper):
              of its input), the final LN: 14 L + (L - 1) / 2 + 1, 131 at
              the published 9 layers
 
-Numerics are the plain versions': float32 operands and accumulators,
-LayerNorm eps 1e-5 (of an all-zero row: its bias), exact erf GELU, a
-masked key's logit -1e9 (a sample without a valid key attends uniformly),
-no TF32 and no bf16 anywhere, nothing rounded between layers.  What bounds
-each chain, and its time against the bound, is in PERF.md §6.
+Numerics are the plain versions': float32 operands and accumulators (K2
+and kernel 10: the three-term TF32 products, about 2^-21 relative a
+product), LayerNorm eps 1e-5 (of an all-zero row: its bias), exact erf
+GELU, a masked key's logit -1e9 (a sample without a valid key attends
+uniformly), no single-term TF32 and no bf16 anywhere, nothing rounded
+between layers.  What bounds each kernel, and its time against the bound,
+is in PERF.md §6.
 
-The float32 chain's own budget is wider than the bf16 kernels' (any width,
+The float32 kernels' own budget is at least the bf16 kernels' (any width,
 memory rows and FFN width; an attention head width up to 128), so on
-every shape the bf16 shape gates take the float32 chain holds as well: one
+every shape the bf16 shape gates take the float32 route holds as well: one
 shape gate per kernel serves both types, and a module's route on the card
 is the same in bf16 and float32.
 """
@@ -47,9 +59,11 @@ from typing import Optional
 import torch
 
 from ladiff_torch.ops.cuda_common import launch
+from ladiff_torch.ops.f32_train import (LIB_TC, TC_PRODUCT_ROWS,
+                                        TC_ROW_BLOCK, tc_prob)
 
 __all__ = ["linear_f32", "rownorm_f32", "attention_f32", "postnorm_ffn_f32",
-           "masked_attention_f32", "decoder_layer_f32",
+           "attention_tc", "masked_attention_f32", "decoder_layer_f32",
            "broadcast_stylize_f32", "stylized_ffn_f32", "md_layer_f32",
            "md_stack_f32", "md_stack_launches", "ACT", "CHAIN_LAUNCHES"]
 
@@ -69,7 +83,7 @@ def md_stack_launches(layers: int) -> int:
 # the published 9 layers)
 CHAIN_LAUNCHES = {"fused_postnorm_ffn": 4, "fused_masked_attention": 1,
                   "fused_broadcast_stylize": 2, "fused_stylized_ffn": 4,
-                  "fused_decoder_layer": 12, "fused_md_layer": 14,
+                  "fused_decoder_layer": 8, "fused_md_layer": 14,
                   "fused_md_stack": md_stack_launches(9)}
 
 
@@ -162,39 +176,88 @@ def postnorm_ffn_f32(x: torch.Tensor, p, *, activation: str
     return rownorm_f32(y, p["ln2_w"], p["ln2_b"])
 
 
+def _rows(M: int, N: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(M, N, dtype=torch.float32, device=like.device)
+
+
+def attention_tc(q, k, v, valid: Optional[torch.Tensor], *, B: int, S: int,
+                 H: int) -> torch.Tensor:
+    """The attention at inference on the tensor cores (``csrc/
+    f32_train_layer.cu`` ``f32l_masked_attention``), one launch: q, k, v
+    [B S, D] views with contiguous rows (k and v of one row stride), valid
+    [B S] float (> 0.5 valid) or None.  Returns [B S, D]."""
+    D = q.shape[1]
+    if k.stride(0) != v.stride(0):
+        raise ValueError("attention_tc: k and v share a row stride")
+    out = _rows(B * S, D, q)
+    launch(LIB_TC, "f32l_masked_attention", q.device,
+           [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            0 if valid is None else valid.data_ptr(), out.data_ptr()],
+           [B, S, S, H, D // H, _ld(q), _ld(k), D],
+           [1.0 / math.sqrt(D // H)])
+    return out
+
+
 def masked_attention_f32(q, k, v, kvalid: Optional[torch.Tensor], *,
                          H: int) -> torch.Tensor:
     """Kernel 10's float32 route: q, k, v [B, S, D]; kvalid [B, S] float
     or None.  Returns [B, S, D]."""
     B, S, D = q.shape
-    out = attention_f32(q.reshape(B * S, D), k.reshape(B * S, D),
-                        v.reshape(B * S, D),
-                        None if kvalid is None else kvalid.reshape(B * S),
-                        B=B, Sq=S, n1=S, H=H)
+    out = attention_tc(q.reshape(B * S, D), k.reshape(B * S, D),
+                       v.reshape(B * S, D),
+                       None if kvalid is None else kvalid.reshape(B * S),
+                       B=B, S=S, H=H)
     return out.reshape(B, S, D)
+
+
+def _gemm_tc(like: torch.Tensor, probs) -> None:
+    """One ``f32l_gemm`` launch of a group of ``tc_prob`` products (no
+    dropout)."""
+    launch(LIB_TC, "f32l_gemm", like.device,
+           [p for pr in probs for p in pr[0]],
+           [len(probs), 0, 0, *[i for pr in probs for i in pr[1]]], [0.0])
 
 
 def decoder_layer_f32(x, kvalid, mem, mvalid, p, *, T: int, H: int,
                       activation: str) -> torch.Tensor:
-    """K2's float32 chain (``decoder_layer_plain``'s math): x [B T, D],
-    kvalid [B T], mem [B, L, D], mvalid [B, L]."""
-    BT, D = x.shape
+    """K2's float32 route (``decoder_layer_plain``'s math) on the tensor
+    cores, eight launches: x [B T, D], kvalid [B T], mem [B, L, D], mvalid
+    [B, L]."""
+    M, D = x.shape
     B, L = mem.shape[0], mem.shape[1]
-    qkv = linear_f32(x, p["sa_in_w"], p["sa_in_b"])
-    ctx = attention_f32(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], kvalid,
-                        B=B, Sq=T, n1=T, H=H)
-    t1 = rownorm_f32(linear_f32(ctx, p["sa_out_w"], p["sa_out_b"], resid=x),
-                     p["ln1_w"], p["ln1_b"])
-    q2 = linear_f32(t1, p["ca_in_w"][:D], p["ca_in_b"][:D])
-    kv2 = linear_f32(mem.reshape(B * L, D), p["ca_in_w"][D:],
-                     p["ca_in_b"][D:])
-    ctx2 = attention_f32(q2, kv2[:, :D], kv2[:, D:], mvalid.reshape(B * L),
-                         B=B, Sq=T, n1=L, H=H)
-    r2 = linear_f32(ctx2, p["ca_out_w"], p["ca_out_b"], resid=t1)
-    return postnorm_ffn_f32(r2, {"ln1_w": p["ln2_w"], "ln1_b": p["ln2_b"],
-                                 "w1": p["w1"], "b1": p["b1"], "w2": p["w2"],
-                                 "b2": p["b2"], "ln2_w": p["ln3_w"],
-                                 "ln2_b": p["ln3_b"]}, activation=activation)
+    Fd = p["w1"].shape[0]
+    gen, row = TC_PRODUCT_ROWS, TC_ROW_BLOCK
+    qkv = _rows(M, 3 * D, x)
+    _gemm_tc(x, [tc_prob(x, p["sa_in_w"], qkv, bias=p["sa_in_b"],
+                         tile=gen)])
+    ctx = attention_tc(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:], kvalid,
+                       B=B, S=T, H=H)
+    t1 = _rows(M, D, x)
+    _gemm_tc(x, [tc_prob(ctx, p["sa_out_w"], t1, bias=p["sa_out_b"], R=x,
+                         row="lnf", lnw=p["ln1_w"], lnb=p["ln1_b"],
+                         tile=row)])
+    q, memkv = _rows(M, D, x), _rows(B * L, 2 * D, x)
+    cw, cb = p["ca_in_w"], p["ca_in_b"]
+    _gemm_tc(x, [tc_prob(t1, cw[:D], q, bias=cb[:D], tile=gen),
+                 tc_prob(mem.reshape(B * L, D), cw[D:], memkv, bias=cb[D:],
+                         tile=gen)])
+    cc = _rows(M, D, x)
+    launch(LIB_TC, "f32l_cross_attention", x.device,
+           [q.data_ptr(), memkv.data_ptr(), mvalid.data_ptr(),
+            cc.data_ptr(), 0],
+           [B, T, L, H, D // H, _ld(q), _ld(memkv), D, -1, 0, 0],
+           [1.0 / math.sqrt(D // H), 0.0])
+    h = _rows(M, D, x)
+    _gemm_tc(x, [tc_prob(cc, p["ca_out_w"], h, bias=p["ca_out_b"], R=t1,
+                         row="lnf", lnw=p["ln2_w"], lnb=p["ln2_b"],
+                         tile=row)])
+    gd = _rows(M, Fd, x)
+    _gemm_tc(x, [tc_prob(h, p["w1"], gd, bias=p["b1"], act=activation,
+                         tile=gen)])
+    out = _rows(M, D, x)
+    _gemm_tc(x, [tc_prob(gd, p["w2"], out, bias=p["b2"], R=h, row="lnf",
+                         lnw=p["ln3_w"], lnb=p["ln3_b"], tile=row)])
+    return out
 
 
 def _ss_div(ss: torch.Tensor, T: int) -> int:

@@ -84,7 +84,7 @@ __all__ = ["train_self_attention_f32", "train_self_attention_f32_bwd",
            "train_encoder_layer_f32", "train_encoder_layer_f32_bwd",
            "train_decoder_layer_f32", "train_decoder_layer_f32_bwd",
            "gemm_f32", "wgrad_f32", "wgrad_split", "ln_rows",
-           "tc_wgrad_split", "attention_key_tiles", "CHAIN_LAUNCHES"]
+           "tc_wgrad_split", "attention_key_tiles", "tc_prob", "CHAIN_LAUNCHES"]
 
 LIB = "f32_train"
 ACT = {None: 0, "relu": 1, "gelu": 2}
@@ -360,14 +360,20 @@ TC_ROW_BM = 64      # rows of a row-epilogue block: one LayerNorm partial
 TC_TILE = 128       # a grouped weight gradient's output tile
 TC_FILL = 264       # blocks a group of weight gradients fills at most
 TC_FLUSH = 1024     # rows a weight gradient's partial sums at most
+# the inference tiles (each 8-deep step added to the accumulator in
+# float32; the geometry's reasons: csrc/f32_train_layer.cu's note): 64 x
+# 128 products, 32-row LayerNorm blocks
+TC_PRODUCT_ROWS = 64
+TC_ROW_BLOCK = 32
 _ATTN = ("in_w", "in_b", "out_w", "out_b")
 _FFN = ("ln1_w", "ln1_b", "w1", "b1", "w2", "b2", "ln2_w", "ln2_b")
 
 
-def _prob(A, B, C, *, a_mn=False, b_mn=False, bias=None, act=None, pre=None,
-          gin=None, gact=None, R=None, mask=-1, row=None, xout=None,
-          lnw=None, lnb=None, lnx=None, C2=None, mask2=-1, part=None,
-          ctx=None, delta=None, H=0, ksplit=0, stride=0, colsum=None):
+def tc_prob(A, B, C, *, a_mn=False, b_mn=False, bias=None, act=None,
+            pre=None, gin=None, gact=None, R=None, mask=-1, row=None,
+            xout=None, lnw=None, lnb=None, lnx=None, C2=None, mask2=-1,
+            part=None, ctx=None, delta=None, H=0, ksplit=0, stride=0,
+            colsum=None, tile=0):
     """One product of ``f32l_gemm``: ``C = epi(A B^T)`` with A = a [M, K]
     (a^T where ``a_mn``) and B = b [N, K] (b^T where ``b_mn``: dY W).
     Epilogue ``v = act(acc + bias)`` (acc + bias to ``pre``), times
@@ -381,7 +387,9 @@ def _prob(A, B, C, *, a_mn=False, b_mn=False, bias=None, act=None, pre=None,
     M/N-major): split-K partials instead, the K rows in splits of
     ``ksplit``, each split's in partials of ``TC_FLUSH`` rows, partial i
     at C + i ``stride`` and split z's column sums of a at ``colsum`` + z
-    ``stride``.  Returns (ptrs, ints)."""
+    ``stride``.  ``tile``: the output tile's rows (0: 128, or 64 for a
+    row epilogue; the inference tiles ``TC_PRODUCT_ROWS`` and
+    ``TC_ROW_BLOCK``).  Returns (ptrs, ints)."""
     M, K = (A.shape[1], A.shape[0]) if a_mn else A.shape
     N, Kb = (B.shape[1], B.shape[0]) if b_mn else B.shape
     if Kb != K or C.shape != (M, N):
@@ -392,13 +400,14 @@ def _prob(A, B, C, *, a_mn=False, b_mn=False, bias=None, act=None, pre=None,
     ints = [M, N, K, _ld(A), _ld(B), _ld(C), int(a_mn), int(b_mn), ACT[act],
             _ld(pre), _ld(gin), ACT[gact], _ld(R), mask,
             ksplit or -(-K // 16) * 16, _ROW[row], _ld(xout), _ld(lnx), mask2,
-            _ld(part), _ld(ctx), H, stride, stride, TC_FLUSH if stride else 0]
+            _ld(part), _ld(ctx), H, stride, stride, TC_FLUSH if stride else 0,
+            tile]
     return ptrs, ints
 
 
 def _launch_gemm(like: torch.Tensor, probs, drop: Drop = NO_DROP) -> None:
     """One launch of a group of products of one layout and epilogue kind
-    (``_prob`` each, or a weight gradient's partials) on like's device."""
+    (``tc_prob`` each, or a weight gradient's partials) on like's device."""
     lo, hi, rate = drop
     launch(LIB_TC, "f32l_gemm", like.device,
            [p for pr in probs for p in pr[0]],
@@ -431,9 +440,9 @@ def _wgrads(items, grads, like) -> list:
         nsub = -(-ksplit // TC_FLUSH)
         per = N1 * N2 + N1
         part = _rows(splits * nsub, per, like=like)
-        probs.append(_prob(dy, x, part[0, :N1 * N2].view(N1, N2), a_mn=True,
-                           b_mn=True, ksplit=ksplit, stride=per,
-                           colsum=part[0, N1 * N2:]))
+        probs.append(tc_prob(dy, x, part[0, :N1 * N2].view(N1, N2), a_mn=True,
+                             b_mn=True, ksplit=ksplit, stride=per,
+                             colsum=part[0, N1 * N2:]))
         segs += [_seg(part, splits * nsub, per, 1, N1 * N2,
                       _out(grads, wname)),
                  _seg(part, splits, per, 1, N1, _out(grads, bname),
@@ -568,14 +577,14 @@ def _attn_forward(x, kvalid, sa, ln, *, H: int, S: int, drop: Drop, ids):
     ``ln`` = (w, b) in its epilogue: (qkv, ctx, lse, r, t)."""
     M, D = x.shape
     qkv = _rows(M, 3 * D, like=x)
-    _launch_gemm(x, [_prob(x, sa["in_w"], qkv, bias=sa["in_b"])], drop)
+    _launch_gemm(x, [tc_prob(x, sa["in_w"], qkv, bias=sa["in_b"])], drop)
     ctx, lse = _tc_attention(qkv[:, :D], qkv[:, D:2 * D], qkv[:, 2 * D:],
                              kvalid, B=M // S, S=S, H=H, drop=drop,
                              mask_id=ids[0])
     r, t = _rows(M, D, like=x), _rows(M, D, like=x)
-    _launch_gemm(x, [_prob(ctx, sa["out_w"], t, bias=sa["out_b"],
-                           mask=ids[1], R=x, row="lnf", xout=r, lnw=ln[0],
-                           lnb=ln[1])], drop)
+    _launch_gemm(x, [tc_prob(ctx, sa["out_w"], t, bias=sa["out_b"],
+                             mask=ids[1], R=x, row="lnf", xout=r, lnw=ln[0],
+                             lnb=ln[1])], drop)
     return qkv, ctx, lse, r, t
 
 
@@ -586,12 +595,12 @@ def _ffn_forward(h, p, *, activation: str, drop: Drop, ids):
     M, D = h.shape
     Fd = p["w1"].shape[0]
     a, gd = _rows(M, Fd, like=h), _rows(M, Fd, like=h)
-    _launch_gemm(h, [_prob(h, p["w1"], gd, bias=p["b1"], act=activation,
-                           pre=a, mask=ids[0])], drop)
+    _launch_gemm(h, [tc_prob(h, p["w1"], gd, bias=p["b1"], act=activation,
+                             pre=a, mask=ids[0])], drop)
     s, out = _rows(M, D, like=h), _rows(M, D, like=h)
-    _launch_gemm(h, [_prob(gd, p["w2"], out, bias=p["b2"], mask=ids[1],
-                           R=h, row="lnf", xout=s, lnw=p["ln2_w"],
-                           lnb=p["ln2_b"])], drop)
+    _launch_gemm(h, [tc_prob(gd, p["w2"], out, bias=p["b2"], mask=ids[1],
+                             R=h, row="lnf", xout=s, lnw=p["ln2_w"],
+                             lnb=p["ln2_b"])], drop)
     return out, a, gd, s
 
 
@@ -607,13 +616,13 @@ def _ffn_backward(dout, saved, p, *, activation: str, drop: Drop, ids,
     Fd = a.shape[1]
     ds, dy, part2 = _ln_bwd_tc(s, p["ln2_w"], dout, drop, ids[1])
     da = _rows(M, Fd, like=h)
-    _launch_gemm(h, [_prob(dy, p["w2"], da, b_mn=True, gin=a,
-                           gact=activation, mask=ids[0])], drop)
+    _launch_gemm(h, [tc_prob(dy, p["w2"], da, b_mn=True, gin=a,
+                             gact=activation, mask=ids[0])], drop)
     dr = _rows(M, D, like=h)
     drk = _rows(M, D, like=h) if drop[2] > 0 else None
-    _launch_gemm(h, [_prob(da, p["w1"], dr, b_mn=True, R=ds, row="lnb",
-                           lnx=lnx, lnw=lnw, C2=drk, mask2=ids[2],
-                           part=part)], drop)
+    _launch_gemm(h, [tc_prob(da, p["w1"], dr, b_mn=True, R=ds, row="lnb",
+                             lnx=lnx, lnw=lnw, C2=drk, mask2=ids[2],
+                             part=part)], drop)
     return dr, (dr if drk is None else drk), dy, da, part2
 
 
@@ -621,8 +630,8 @@ def _dctx(dattn, w, ctx, H: int):
     """dctx = dattn W and the softmax's delta = dctx . ctx per head."""
     M, D = dattn.shape
     dctx, delta = _rows(M, D, like=dattn), _rows(M, H, like=dattn)
-    _launch_gemm(dattn, [_prob(dattn, w, dctx, b_mn=True, row="delta",
-                               ctx=ctx, delta=delta, H=H)])
+    _launch_gemm(dattn, [tc_prob(dattn, w, dctx, b_mn=True, row="delta",
+                                 ctx=ctx, delta=delta, H=H)])
     return dctx, delta
 
 
@@ -656,7 +665,7 @@ def train_encoder_layer_f32_bwd(x, kvalid, dout, p, saved, *, H: int, S: int,
                       dctx, lse, delta, dqkv, B=M // S, S=S, H=H, drop=drop,
                       mask_id=0)
     dx = _rows(M, D, like=x)
-    _launch_gemm(x, [_prob(dqkv, p["in_w"], dx, b_mn=True, R=dr)])
+    _launch_gemm(x, [tc_prob(dqkv, p["in_w"], dx, b_mn=True, R=dr)])
     grads = {k: _rows(*p[k].shape, like=x) for k in _ATTN + _FFN}
     segs = _wgrads([(dqkv, x, "in_w", "in_b"), (dattn, ctx, "out_w", "out_b"),
                     (da, h, "w1", "b1"), (dy, gd, "w2", "b2")], grads, x)
@@ -690,15 +699,15 @@ def train_decoder_layer_f32(x, kvalid, mem, mvalid, p, *, H: int, S: int,
                                           S=S, drop=drop, ids=(0, 1))
     q, memkv = _rows(M, D, like=x), _rows(B * L, 2 * D, like=x)
     cw, cb = p["ca_in_w"], p["ca_in_b"]
-    _launch_gemm(x, [_prob(t1, cw[:D], q, bias=cb[:D]),
-                     _prob(mem.reshape(B * L, D), cw[D:], memkv,
-                           bias=cb[D:])])
+    _launch_gemm(x, [tc_prob(t1, cw[:D], q, bias=cb[:D]),
+                     tc_prob(mem.reshape(B * L, D), cw[D:], memkv,
+                             bias=cb[D:])])
     cc, lse2 = _cross_tc(q, memkv, mvalid.reshape(B * L), B=B, S=S, L=L,
                          H=H, drop=drop)
     r2, h = _rows(M, D, like=x), _rows(M, D, like=x)
-    _launch_gemm(x, [_prob(cc, p["ca_out_w"], h, bias=p["ca_out_b"], mask=3,
-                           R=t1, row="lnf", xout=r2, lnw=p["ln2_w"],
-                           lnb=p["ln2_b"])], drop)
+    _launch_gemm(x, [tc_prob(cc, p["ca_out_w"], h, bias=p["ca_out_b"], mask=3,
+                             R=t1, row="lnf", xout=r2, lnw=p["ln2_w"],
+                             lnb=p["ln2_b"])], drop)
     out, a, gd, s = _ffn_forward(h, ffn, activation=activation, drop=drop,
                                  ids=(4, 5))
     return out, (qkv, ctx, lse, memkv, r1, t1, q, cc, lse2, r2, h, a, gd, s)
@@ -724,9 +733,9 @@ def train_decoder_layer_f32_bwd(x, kvalid, mem, mvalid, dout, p, saved, *,
     cw = p["ca_in_w"]
     dr1 = _rows(M, D, like=x)
     dattn = _rows(M, D, like=x) if drop[2] > 0 else None
-    _launch_gemm(x, [_prob(dq, cw[:D], dr1, b_mn=True, R=dr2, row="lnb",
-                           lnx=r1, lnw=p["ln1_w"], C2=dattn, mask2=1,
-                           part=part1)], drop)
+    _launch_gemm(x, [tc_prob(dq, cw[:D], dr1, b_mn=True, R=dr2, row="lnb",
+                             lnx=r1, lnw=p["ln1_w"], C2=dattn, mask2=1,
+                             part=part1)], drop)
     dattn = dr1 if dattn is None else dattn
     dctx, delta = _dctx(dattn, p["sa_out_w"], ctx, H)
     dqkv = _rows(M, 3 * D, like=x)
@@ -734,8 +743,8 @@ def train_decoder_layer_f32_bwd(x, kvalid, mem, mvalid, dout, p, saved, *,
                       dctx, lse, delta, dqkv, B=B, S=S, H=H, drop=drop,
                       mask_id=0)
     dx, dmem = _rows(M, D, like=x), _rows(B * L, D, like=x)
-    _launch_gemm(x, [_prob(dqkv, p["sa_in_w"], dx, b_mn=True, R=dr1),
-                     _prob(dkv, cw[D:], dmem, b_mn=True)])
+    _launch_gemm(x, [tc_prob(dqkv, p["sa_in_w"], dx, b_mn=True, R=dr1),
+                     tc_prob(dkv, cw[D:], dmem, b_mn=True)])
     grads = {k: _rows(*p[k].shape, like=x) for k in p}
     segs = _wgrads([(dqkv, x, "sa_in_w", "sa_in_b"),
                     (dattn, ctx, "sa_out_w", "sa_out_b"),

@@ -2280,6 +2280,66 @@ def test_float32_kernels_match_plain(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+@torch.no_grad()
+def test_float32_masked_attention_head_widths(dev, dh):
+    """The float32 kernel 10 (the tensor-core attention of
+    csrc/f32_train_layer.cu) at every head width its gate takes, one
+    launch a call, against its float32 plain version within 5e-5: a
+    sample with the key tile 64 .. 127 masked between valid keys, one
+    without a valid key (uniform), one of 150 keys, one unmasked sample of
+    the same call's width."""
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.ops.attention_kernel import (fused_masked_attention,
+                                                   masked_attention_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, S = 2, 200
+    q, k, v = (_f(dev, 3, S, H * dh, seed=60 + i) for i in range(3))
+    valid = _mask([S, 0, 150], S, dev) > 0.5
+    valid[0, 40:140] = False
+    for key_valid in (valid, None):
+        cc.reset_launch_counts()
+        got = fused_masked_attention(q, k, v, key_valid, num_heads=H)
+        torch.cuda.synchronize()
+        assert cc.launch_counts()["fused_masked_attention"] == 1
+        want = masked_attention_plain(q, k, v, key_valid, num_heads=H)
+        assert _relerr(got, want) <= TOL_F32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,H", [(1, 4), (5, 4), (7, 4), (8, 4), (5, 2),
+                                 (8, 2)])
+@torch.no_grad()
+def test_float32_decoder_layer_memory_rows(dev, L, H):
+    """The float32 K2 (eight tensor-core launches of
+    csrc/f32_train_layer.cu behind one wrapper call) at D 256 over 1 to 8
+    memory rows, head widths 64 and 128, 3 x 40 frames (partial row
+    blocks, a sample without a valid memory row) and 4 x 196, against its
+    float32 plain version within 5e-5."""
+    from ladiff_torch.ops import cuda_common as cc
+    from ladiff_torch.ops.decoder_layer import (decoder_layer_plain,
+                                                fused_decoder_layer)
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D, Fd = 256, 1024
+    dl = _randomize(TransformerDecoderLayer(D, H, Fd, "gelu"), 9).to(dev)
+    p = {k: v.detach() for k, v in dl.kernel_params().items()}
+    for B, T, lengths, mem_lens in (
+            (3, 40, [40, 23, 7], [L, 0, 1]),
+            (4, 196, [196, 60, 131, 16], [L, L, 1, max(1, L // 2)])):
+        args = [_f(dev, B * T, D, seed=70 + L), _mask(lengths, T, dev)
+                .reshape(-1).contiguous(), _f(dev, B, L, D, seed=71),
+                _mask(mem_lens, L, dev).contiguous()]
+        cc.reset_launch_counts()
+        got = fused_decoder_layer(*args, p, T=T, H=H)
+        torch.cuda.synchronize()
+        assert cc.launch_counts()["fused_decoder_layer"] == 1
+        want = decoder_layer_plain(*args, p, T=T, H=H)
+        assert bool(torch.isfinite(got).all())
+        assert _relerr(got, want) <= TOL_F32, (B, T)
+
+
+@pytest.mark.cuda
 @torch.no_grad()
 def test_float32_kernels_read_inside_their_inputs(dev):
     """Every input and parameter of each float32 wrapper in turn at the end

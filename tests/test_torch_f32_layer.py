@@ -1,24 +1,43 @@
-"""The float32 chains of K1, K2, kernel 5 and kernel 10
-(``ladiff_torch/ops/f32_layer.py``) on the CPU, against the plain versions.
+"""The float32 routes of K1, K2, kernel 5 and kernel 10
+(``ladiff_torch/ops/f32_layer.py``) on the CPU, against the plain versions
+and, for K2 and kernel 10, the JAX package's Pallas kernels in float32 in
+interpret mode.
 
-The chains' launches are emulated at pointer level
-(``tests/torch_f32_emulation.py``: the ``emulated`` fixture), so the
-chains' pointers, strides, slices and arguments are held here, the
+The routes' launches are emulated at pointer level
+(``tests/torch_f32_emulation.py``: the ``emulated`` fixture; K2's and
+kernel 10's tensor-core products as three-term TF32), so the routes'
+pointers, strides, slices, tiles and arguments are held here, the
 kernels' arithmetic on the card (``chip_smoke.py`` ``kernels_f32``,
-``tests/test_torch_cuda.py``).  Each chain agrees with its plain version
+``tests/test_torch_cuda.py``).  Each route agrees with its plain version
 within 1e-5 norm-wise (float32 sums in another order) at the published
 paths' shapes and at the edges the card cases cover: partial row and key
-tiles, a sample without a valid key, L 1 and 7 memory rows, 7 latent
-rows, one shared or per-sample AdaLN row.
+tiles, a masked key tile between valid ones, a sample without a valid key
+or memory row, every head width kernel 10's gate takes from 16 to 128, L
+1 to 8 memory rows, 7 latent rows, one shared or per-sample AdaLN row;
+K2 and kernel 10 within 1e-4 of the JAX kernels (float32 on both sides,
+other sums and erf).
 """
+import functools
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from jax.experimental import pallas as pl
 
 from test_torch_modules import relerr
 from torch_f32_emulation import emulated  # noqa: F401 (a fixture)
 
 TOL = 1e-5
+JAX_TOL = 1e-4
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    orig = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(orig, interpret=True))
 
 
 def _p(rng, shapes):
@@ -56,27 +75,61 @@ def test_postnorm_ffn_chain(emulated, M, D, Fd, act):
     assert relerr(got, want.numpy()) <= TOL
 
 
-@pytest.mark.parametrize("lengths,D,H", [([196, 60, 16], 256, 4),
-                                         ([70, 0], 64, 2),
-                                         ([198, 198], 512, 4)])
-def test_masked_attention_chain(emulated, lengths, D, H):
-    """Kernel 10: partial key and query tiles, a sample without a valid key
-    (uniform), head widths 64, 32 and 128."""
+def _attention_valid(lengths, S, hole):
+    """[B, S] float: each sample's first ``lengths`` keys, less the keys
+    in ``hole`` (a key tile masked between valid ones)."""
+    valid = _lengths_valid(lengths, S)
+    if hole:
+        valid[:, hole[0]:hole[1]] = 0.0
+    return valid
+
+
+@pytest.mark.parametrize("lengths,D,H,hole", [
+    ([196, 60, 16], 256, 4, None), ([70, 0], 64, 2, None),
+    ([198, 198], 512, 4, None), ([70, 33], 64, 4, None),
+    ([100, 0, 37], 160, 2, None), ([200, 180], 128, 2, (50, 140)),
+    ([128, 128], 192, 2, None), ([130, 1], 224, 2, None),
+    ([65], 96, 2, None)])
+def test_masked_attention_chain(emulated, lengths, D, H, hole):
+    """Kernel 10: one launch of the tensor-core attention; partial key and
+    query tiles, a sample without a valid key (uniform), one with a single
+    valid key, the key tile 64 .. 127 wholly masked between valid keys,
+    every head width the gate takes (16 to 128)."""
     from ladiff_torch.ops.attention_kernel import masked_attention_plain
     from ladiff_torch.ops.f32_layer import masked_attention_f32
-    rng = np.random.RandomState(D)
+    rng = np.random.RandomState(D + H)
     B, S = len(lengths), max(max(lengths), 70)
     q, k, v = (torch.tensor(rng.randn(B, S, D), dtype=torch.float32)
                for _ in range(3))
-    valid = _lengths_valid(lengths, S)
+    valid = _attention_valid(lengths, S, hole)
     got = masked_attention_f32(q, k, v, valid, H=H)
-    assert emulated == ["f32_attention"]
+    assert emulated == ["f32l_masked_attention"]
     want = masked_attention_plain(q, k, v, valid > 0.5, num_heads=H)
     assert relerr(got, want.numpy()) <= TOL
     if 0 in lengths:
         i = lengths.index(0)
         assert relerr(got[i], v[i].mean(0, keepdim=True).expand(
             S, D).numpy()) <= TOL
+
+
+@pytest.mark.parametrize("lengths,D,H,hole", [
+    ([70, 0, 33], 64, 2, None), ([130, 100], 256, 2, (20, 90))])
+def test_masked_attention_chain_matches_pallas(emulated, interpret, lengths,
+                                               D, H, hole):
+    """Kernel 10's float32 route against the JAX Pallas kernel in float32
+    (interpret mode): head widths 32 and 128, a sample without a valid key,
+    a masked key tile between valid keys."""
+    from ladiff_torch.ops.f32_layer import masked_attention_f32
+    from ladiff_tpu.ops.pallas_attention import pallas_masked_attention
+    rng = np.random.RandomState(D)
+    B, S = len(lengths), max(lengths)
+    q, k, v = (rng.randn(B, S, D).astype(np.float32) for _ in range(3))
+    valid = _attention_valid(lengths, S, hole)
+    got = masked_attention_f32(*map(torch.tensor, (q, k, v)), valid, H=H)
+    want = pallas_masked_attention(*map(jnp.asarray, (q, k, v)),
+                                   jnp.asarray(valid.numpy() > 0.5),
+                                   num_heads=H)
+    assert relerr(got, np.asarray(want)) <= JAX_TOL
 
 
 def _dec_params(rng, D, Fd):
@@ -88,27 +141,82 @@ def _dec_params(rng, D, Fd):
                     "b2": (D,), "ln3_w": (D,), "ln3_b": (D,)})
 
 
-@pytest.mark.parametrize("lengths,L,mem_len,T", [
-    ([196, 40, 100], 5, [5, 2, 1], 196), ([40, 13, 40], 1, [1, 1, 1], 40),
-    ([60, 30], 7, [7, 0], 60)])
-def test_decoder_layer_chain(emulated, lengths, L, mem_len, T):
-    """K2's chain at L 5, 1 and 7 memory rows, partial row blocks, a
-    sample without a valid memory row."""
+# K2's launches in order
+DEC_LAUNCHES = ["f32l_gemm", "f32l_masked_attention", "f32l_gemm",
+                "f32l_gemm", "f32l_cross_attention", "f32l_gemm",
+                "f32l_gemm", "f32l_gemm"]
+
+
+@pytest.mark.parametrize("lengths,L,mem_len,T,H,D,act", [
+    ([196, 40, 100], 5, [5, 2, 1], 196, 4, 256, "gelu"),
+    ([40, 13, 40], 1, [1, 1, 1], 40, 4, 256, "gelu"),
+    ([60, 30], 7, [7, 0], 60, 4, 256, "gelu"),
+    ([40, 23, 7], 8, [8, 0, 3], 40, 2, 256, "gelu"),
+    ([196, 100], 5, [5, 3], 196, 2, 256, "gelu"),
+    ([40, 13], 3, [3, 1], 40, 4, 64, "relu"),
+    ([70, 64, 6], 2, [2, 0, 1], 70, 2, 128, "gelu"),
+    ([60, 31], 4, [4, 4], 60, 4, 192, "relu"),
+    ([196, 5], 6, [6, 1], 196, 1, 128, "gelu"),
+    ([33, 20, 1], 5, [5, 5, 5], 33, 2, 64, "gelu")])
+def test_decoder_layer_chain(emulated, lengths, L, mem_len, T, H, D, act):
+    """K2's eight launches at L 1 to 8 memory rows, widths D 64 to 256 at
+    head widths 16 to 128, ReLU and GELU, partial row blocks, a sample
+    without a valid memory row."""
     from ladiff_torch.ops.decoder_layer import decoder_layer_plain
     from ladiff_torch.ops.f32_layer import CHAIN_LAUNCHES, decoder_layer_f32
-    D, H, Fd = 256, 4, 1024
-    rng = np.random.RandomState(T + L)
+    Fd = 4 * D
+    rng = np.random.RandomState(T + L + H + D)
     B = len(lengths)
     p = _dec_params(rng, D, Fd)
     x = torch.tensor(rng.randn(B * T, D), dtype=torch.float32)
     mem = torch.tensor(rng.randn(B, L, D), dtype=torch.float32)
     kv = _lengths_valid(lengths, T).reshape(B * T)
     mv = _lengths_valid(mem_len, L)
-    got = decoder_layer_f32(x, kv, mem, mv, p, T=T, H=H, activation="gelu")
+    got = decoder_layer_f32(x, kv, mem, mv, p, T=T, H=H, activation=act)
+    assert emulated == DEC_LAUNCHES
     assert len(emulated) == CHAIN_LAUNCHES["fused_decoder_layer"]
-    want = decoder_layer_plain(x, kv, mem, mv, p, T=T, H=H,
-                               activation="gelu")
+    want = decoder_layer_plain(x, kv, mem, mv, p, T=T, H=H, activation=act)
     assert relerr(got, want.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("activation,H", [("gelu", 2), ("relu", 1)])
+def test_decoder_layer_chain_matches_pallas(emulated, interpret, activation,
+                                            H):
+    """K2's float32 route against the JAX Pallas kernel in float32
+    (interpret mode) at 3 x 40 frames over 5 memory rows, one sample with
+    one valid memory row, head widths 64 and 128.  (The Pallas kernel pads
+    the memory rows to 8, so a sample without a valid one attends
+    uniformly over 8 slots there, against the 5 rows of the JAX package's
+    module and of the plain version, to which ``test_decoder_layer_chain``
+    holds that case.)"""
+    import jax
+
+    from ladiff_torch.ops.f32_layer import decoder_layer_f32
+    from ladiff_torch.ops.transformer import TransformerDecoderLayer as TL
+    from ladiff_tpu.ops.pallas_decoder_layer import fused_decoder_layer
+    from ladiff_tpu.ops.transformer import TransformerDecoderLayer as JL
+    from test_torch_modules import port, randomize
+    D, Fd, T, L = 128, 256, 40, 5
+    rng = np.random.RandomState(7 + H)
+    B = 3
+    x = (0.5 * rng.randn(B * T, D)).astype(np.float32)
+    mem = rng.randn(B, L, D).astype(np.float32)
+    kv = _lengths_valid([40, 23, 7], T).numpy()
+    mv = _lengths_valid([5, 1, 2], L).numpy()
+    jl = JL(D, H, Fd, 0.0, activation)
+    params = randomize(jl.init(jax.random.PRNGKey(0),
+                               jnp.asarray(x.reshape(B, T, D)),
+                               jnp.asarray(mem))["params"], 33)
+    want = fused_decoder_layer(
+        jnp.asarray(x), jnp.asarray(kv.reshape(-1, 1)), jnp.asarray(mem),
+        jnp.asarray(mv), params, T=T, L=L, H=H, activation=activation)
+    with torch.no_grad():
+        p = port(TL(D, H, Fd, activation), params).kernel_params()
+        got = decoder_layer_f32(torch.tensor(x), torch.tensor(kv.reshape(-1)),
+                                torch.tensor(mem), torch.tensor(mv), p, T=T,
+                                H=H, activation=activation)
+    assert emulated == DEC_LAUNCHES
+    assert relerr(got, np.asarray(want)) <= JAX_TOL
 
 
 def _md_params(rng, D, F1, F2):
